@@ -1,0 +1,208 @@
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from crdmodel_tpu_torch/csrc, holds each against its
+plain PyTorch version on the card, then runs the port's main path, the
+canonical FitzHugh-Nagumo torus program (data/FHNmodelArgs.ini: 400x1600,
+bs32, f32, Tf=50), through simulate() and checks it against the JAX
+package's CPU run recorded in tests/golden/torch_canonical_fhn_probes.npz.
+Exits non-zero on any failure, and prints as its last line
+{"ok": true, "device": {...}} only when every phase passed. Imports nothing
+of JAX.
+"""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+INI = os.path.join(ROOT, "data", "FHNmodelArgs.ini")
+PROBES = os.path.join(ROOT, "tests", "golden",
+                      "torch_canonical_fhn_probes.npz")
+SEED = 1234
+H = 2e-3        # about 1/rho(L) on the canonical grid: stage errors resolved
+N_TIMED = 60    # timed samples (median reported)
+BURST = 10      # back-to-back calls per sample
+# kernel vs plain version: f64 parity tool, f32 production tolerance
+LIMITS = {torch.float64: (1e-12, 1e-10), torch.float32: (2e-5, 1e-3)}
+
+
+def phase(name, **fields):
+    print(json.dumps({"phase": name, **fields}), flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+
+
+def median_ms(fn, n=N_TIMED, per_sample=BURST):
+    """Median over n samples of the time of one call of fn, from CUDA
+    events around a burst of back-to-back calls (one call alone on an idle
+    card would also time the host issuing it)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(per_sample):
+            fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / per_sample)
+    return float(np.median(times))
+
+
+def check_kernel(cfg_torus, cfg_flat):
+    """K1 against its plain version at the main path's shape; returns the
+    f32 max error and the two times at the canonical bs32 shape."""
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import fused_step as fs
+    from crdmodel_tpu_torch.ops.kernel_common import prepare_constants
+
+    rng = np.random.default_rng(SEED)
+    worst = {torch.float32: 0.0, torch.float64: 0.0}
+    timing = None
+    for cfg in (cfg_torus, cfg_flat):
+        problem = build_problem(cfg, device="cuda")
+        y_np = rng.uniform(-2.0, 2.0, tuple(problem.y0.shape))
+        for dtype in (torch.float32, torch.float64):
+            kc = prepare_constants(problem, dtype, "cuda")
+            y = torch.tensor(y_np, dtype=dtype, device="cuda")
+            h = torch.tensor(H, dtype=dtype, device="cuda")
+            y_scale = max(1.0, float(y.abs().max()))
+            tol_y, tol_ss = LIMITS[dtype]
+            for method in ("bs32", "dopri54"):
+                tab = TABLEAUS[method]
+                for fz in (0.0, 1.0):
+                    fzt = torch.tensor(fz, dtype=dtype, device="cuda")
+                    args = (y, h, fzt, kc, tab, cfg.rtol, cfg.atol)
+                    y_k, ss_k = fs.fused_step(*args)
+                    y_k2, ss_k2 = fs.fused_step(*args)
+                    y_r, ss_r = fs.fused_step_reference(*args)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(y_k, y_k2) and torch.equal(ss_k, ss_k2)):
+                        raise AssertionError("two launches differ")
+                    err = float((y_k - y_r).abs().max())
+                    sk, sr = float(ss_k.sum()), float(ss_r.sum())
+                    rel = abs(sk - sr) / sr
+                    phase("k1_check", surface=cfg.surface,
+                          beta="field" if kc.b_is_field else "scalar",
+                          dtype=str(dtype), method=method, fz=fz,
+                          max_abs_err=err, limit=tol_y * y_scale,
+                          ss_rel_err=rel, ss_limit=tol_ss)
+                    if not (np.isfinite(sk) and err <= tol_y * y_scale
+                            and rel <= tol_ss):
+                        raise AssertionError("K1 disagrees with its plain "
+                                             "version")
+                    worst[dtype] = max(worst[dtype], err)
+            if cfg is cfg_torus and dtype == torch.float32:
+                args = (y, h, torch.zeros((), dtype=dtype, device="cuda"),
+                        kc, TABLEAUS[cfg.method], cfg.rtol, cfg.atol)
+                timing = (median_ms(lambda: fs.fused_step(*args)),
+                          median_ms(lambda: fs.fused_step_reference(*args)))
+    return worst, timing
+
+
+def run_main_path(cfg, probes):
+    from crdmodel_tpu_torch.core.problem import solver_breakpoints
+    from crdmodel_tpu_torch.integrate.erk import SYNC_EVERY, merge_stops
+    from crdmodel_tpu_torch.ops import fused_step as fs
+    from crdmodel_tpu_torch.sim import output_times, simulate
+
+    # warm-up on a short horizon (first launches of every torch op)
+    simulate(dataclasses.replace(cfg, t_final=1.0, output_timestep=1),
+             device="cuda")
+    fs.fused_step.launches = 0
+    res = simulate(cfg, device="cuda")
+    launches = fs.fused_step.launches
+
+    traj = res.trajectory
+    steps = res.total_steps()
+    n_stops = len(merge_stops(output_times(cfg), solver_breakpoints(cfg))[0])
+    ref_steps = int(probes["steps_f32"].sum())
+    var, j, i = (torch.as_tensor(probes[k], device=traj.device)
+                 for k in ("probe_var", "probe_j", "probe_i"))
+    got = traj[:, var, j, i].double().cpu().numpy()
+    gap = float(np.abs(got - probes["probes_f64"]).max())
+    f32_gap = float(np.abs(probes["probes_f32"] - probes["probes_f64"]).max())
+    probe_limit = 2.0 * f32_gap + 1e-4
+    wall = res.wall_time
+    phase("main_path", config="data/FHNmodelArgs.ini fhn torus",
+          grid=[cfg.ny, cfg.nx], method=cfg.method, dtype=cfg.dtype,
+          status=res.describe(), fused=res.fused, steps=steps,
+          accepted=int(res.stats.accepted.sum()),
+          rejected=int(res.stats.rejected.sum()),
+          jax_f32_cpu_steps=ref_steps, k1_launches=launches,
+          launch_bound=[steps, steps + SYNC_EVERY * n_stops],
+          wall_s=wall, us_per_step=wall / steps * 1e6,
+          points_steps_per_s=cfg.nx * cfg.ny * steps / wall,
+          probe_max_abs_err_vs_jax_f64=gap, probe_limit=probe_limit,
+          jax_f32_probe_gap=f32_gap, card=card_line())
+    checks = {
+        "status ok": res.ok,
+        "fused path": res.fused,
+        "shape": tuple(traj.shape) == (cfg.output_timestep + 1, 2, cfg.ny,
+                                       cfg.nx),
+        "finite": bool(torch.isfinite(traj).all()),
+        "every step through K1": steps <= launches <= steps + SYNC_EVERY * n_stops,
+        "steps within 1% of JAX f32": abs(steps - ref_steps) <= 0.01 * ref_steps,
+        "probes vs JAX f64": gap <= probe_limit,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"main path failed: {failed}")
+    return launches
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("no CUDA device: chip_smoke.py needs an NVIDIA GPU")
+    card = card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase("card", nvidia_smi=card, torch=torch.__version__,
+          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
+          count=torch.cuda.device_count(), tf32="off (matmul and cudnn)")
+
+    from crdmodel_tpu_torch.config import config_from_ini
+    from crdmodel_tpu_torch.ops import _build
+
+    phase("build", seconds=_build.build(), library=_build.library_path())
+
+    cfg = config_from_ini(INI, model="fhn", surface="torus")
+    cfg_flat = dataclasses.replace(cfg, surface="flat", vary_beta=0)
+    worst, (k_ms, plain_ms) = check_kernel(cfg, cfg_flat)
+    phase("k1_timing", shape=[2, cfg.ny, cfg.nx], method=cfg.method,
+          dtype="float32", kernel_us=k_ms * 1e3, plain_us=plain_ms * 1e3,
+          card=card)
+
+    with np.load(PROBES) as z:
+        probes = {k: z[k] for k in z.files}
+    launches = run_main_path(cfg, probes)
+
+    print(json.dumps({"kernels": [{
+        "name": "fused_erk_step", "route": "cuda",
+        "source": "crdmodel_tpu_torch/csrc/fused_step.cu",
+        "replaces": "crdmodel_tpu/ops/pallas_step.py:117",
+        "launches": launches, "max_abs_err": worst[torch.float32],
+        "ms": k_ms, "plain_ms": plain_ms}]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,195 @@
+"""Problem assembly: config -> (rhs, initial state, params) on the torch path
+(counterpart of crdmodel_tpu/core/problem.py).
+
+RHS semantics (reference src/FHNmodel_torus.cpp:504-667):
+  ydot[0] = D*Lap(y[0]) + reaction_0     (diffusion acts on variable 0 only)
+  ydot[1] =               reaction_1
+  if t < tBoundary: rows j==0 and j==ny-1 are frozen (ydot=0, both variables).
+  justDiffusion==1 skips the reaction block, freeze included.
+
+Ported: the constant-D profile operator on the flat and torus surfaces.
+Not ported yet: diffusion fields and coupling (ROADMAP queue 1, item 10),
+no-flux boundaries and obstacles (item 10), tensors (item 11), forcing
+(item 9), the IMEX split (item 8) and pole coarsening (item 12).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from crdmodel_tpu_torch.config import SimConfig
+from crdmodel_tpu_torch.core.grid import Geometry, Grid, make_geometry
+from crdmodel_tpu_torch.models import ReactionModel, get_model
+from crdmodel_tpu_torch.ops.stencil import flat_laplacian, torus_laplacian
+
+
+@dataclasses.dataclass(frozen=True)
+class Problem:
+    cfg: SimConfig
+    model: ReactionModel
+    geometry: Geometry
+    rhs: Callable          # rhs(t, state, params) -> dstate, state (nvars, ny, nx)
+    y0: torch.Tensor       # (nvars, ny, nx)
+    params: dict           # {"b": 0-d or (ny, 1) tensor}
+    steady_state: tuple    # background fixed point used in ICs
+    device: torch.device
+    # the operator and forcing inputs of the JAX Problem that the kernel
+    # gates read (ops/kernel_common.py); build_problem does not make them
+    # yet, so they stay None (ROADMAP queue 1, items 9-10)
+    diffusion_field: object = None
+    face_mask: object = None
+    forcing: object = None
+
+    @property
+    def grid(self) -> Grid:
+        return self.geometry.grid
+
+
+def beta_field(cfg: SimConfig, dtype, device) -> torch.Tensor:
+    """The bifurcation parameter as the RHS uses it: the scalar BETA as a 0-d
+    tensor, or the linear-in-y ramp b(y) = betaMin + y*(betaMax-betaMin)/(YMAX-YMIN)
+    (reference src/FHNmodel_torus.cpp:625-632), shape (ny, 1)."""
+    if cfg.vary_beta == 0:
+        return torch.tensor(cfg.beta, dtype=dtype, device=device)
+    y = np.float64(cfg.ymin) + np.arange(cfg.ny, dtype=np.float64) * cfg.dy
+    b = cfg.beta_min + y * (cfg.beta_max - cfg.beta_min) / (cfg.ymax - cfg.ymin)
+    return torch.tensor(b[:, None], dtype=dtype, device=device)
+
+
+def initial_state(cfg: SimConfig, model: ReactionModel, steady: tuple,
+                  dtype, device) -> torch.Tensor:
+    """Initial conditions, (nvars, ny, nx), computed in float64 numpy then
+    cast (SURVEY.md C9). FitzHugh–Nagumo only: the other families' ICs come
+    with their kinetics (ROADMAP queue 1, items 5-6)."""
+    if cfg.model != "fhn":
+        raise NotImplementedError(
+            f"initial state of model {cfg.model!r} is not ported yet")
+    nx, ny = cfg.nx, cfg.ny
+    xx = cfg.xmin + np.arange(nx, dtype=np.float64) * cfg.dx   # (nx,)
+    yy = cfg.ymin + np.arange(ny, dtype=np.float64) * cfg.dy   # (ny,)
+    X = xx[None, :]   # (1, nx)
+    Y = yy[:, None]   # (ny, 1)
+
+    wave_len = (cfg.ymax - cfg.ymin) * cfg.wave_length
+    wave_wid = (cfg.xmax - cfg.xmin) * cfg.wave_width
+
+    if cfg.surface == "torus":
+        # segment centred at theta=pi (inside) or wrapping theta=0 (outside)
+        # (src/FHNmodel_torus.cpp:284-300)
+        if cfg.wave_inside == 1:
+            wxmin = np.pi - wave_wid / 2.0
+            wxmax = np.pi + wave_wid / 2.0
+            in_x = (X >= wxmin) & (X <= wxmax)
+        else:
+            wxmin = -wave_wid / 2.0 + (cfg.xmax - cfg.xmin)
+            wxmax = wave_wid / 2.0
+            in_x = (X >= wxmin) | (X <= wxmax)
+    else:
+        # flat: segment centred at width/2 (src/FHNmodel_flat.cpp:280-282)
+        mid = cfg.surface_width / 2.0
+        in_x = (X >= mid - wave_wid / 2.0) & (X <= mid + wave_wid / 2.0)
+
+    bg = np.zeros((model.nvars, ny, nx), dtype=np.float64)
+    if cfg.vary_beta == 1:
+        # all-ones field (src/FHNmodel_torus.cpp:349-352)
+        bg[:] = 1.0
+    else:
+        us, vs = steady
+        seg = in_x & (Y >= wave_len) & (Y <= 2.0 * wave_len)
+        bg[0] = np.where(seg, us + 2.0, us)
+        bg[1] = np.where(seg, vs + 1.5, vs)
+    return torch.tensor(bg, dtype=dtype, device=device)
+
+
+def interior_rows(ny: int, dtype, device) -> torch.Tensor:
+    """(ny, 1) mask: 0 at rows j==0 and j==ny-1, 1 elsewhere."""
+    m = torch.ones((ny, 1), dtype=dtype, device=device)
+    m[0, 0] = 0
+    m[-1, 0] = 0
+    return m
+
+
+def make_rhs(cfg: SimConfig, model: ReactionModel, geometry: Geometry, dtype,
+             device):
+    """rhs(t, state, params) for the full grid, constant-D profile operator
+    (crdmodel_tpu/core/problem.py:445-517). t and params["_seg_end"] may be
+    0-d tensors: the freeze decision stays on the device."""
+    coeffs = geometry.stencil_coeffs(dtype, device)
+    lap = torus_laplacian if geometry.kind == "torus" else flat_laplacian
+    just_diffusion = bool(cfg.just_diffusion)
+    t_boundary = float(cfg.t_boundary)
+    has_freeze = (t_boundary > 0.0) and not just_diffusion
+    interior = interior_rows(geometry.grid.ny, torch.bool, device)
+    dvars = tuple(model.diffusive_vars)
+    ratios = tuple(model.diffusion_ratios)
+
+    def diffusion_terms(state):
+        out = []
+        for v in range(model.nvars):
+            if v in dvars:
+                r = ratios[dvars.index(v)]
+                term = lap(state[v], coeffs)
+                out.append(term if r == 1.0 else r * term)
+            else:
+                out.append(torch.zeros_like(state[v]))
+        return torch.stack(out)
+
+    def apply_freeze(t, params, ydot):
+        # A segment ending at or before tBoundary lies wholly on the frozen
+        # piece (its last stage evaluates at the segment end, which must
+        # still be frozen); otherwise the reference's t < tBoundary rule
+        # (src/FHNmodel_torus.cpp:643-653).
+        seg_end = params.get("_seg_end")
+        freeze_now = torch.as_tensor(t < t_boundary)
+        if seg_end is not None:
+            freeze_now = freeze_now | (seg_end <= t_boundary)
+        frozen = torch.where(interior, ydot, 0.0)
+        return torch.where(freeze_now, frozen, ydot)
+
+    def rhs(t, state, params):
+        diff = diffusion_terms(state)
+        if just_diffusion:
+            return diff
+        ydot = model.kinetics(state, params["b"]) + diff
+        if has_freeze:
+            ydot = apply_freeze(t, params, ydot)
+        return ydot
+
+    return rhs
+
+
+def solver_breakpoints(cfg: SimConfig) -> tuple:
+    """Times the integrator must step exactly to: the tBoundary freeze
+    release (reference src/FHNmodel_torus.cpp:643-653)."""
+    if 0.0 < cfg.t_boundary < cfg.t_final and not cfg.just_diffusion:
+        return (float(cfg.t_boundary),)
+    return ()
+
+
+def build_problem(cfg: SimConfig, device) -> Problem:
+    """Build the problem's tensors on `device` (no default: the caller says
+    where the run lives)."""
+    cfg = cfg.validate()
+    device = torch.device(device)
+    unported = {"coupling": (cfg.coupling != "none", 10),
+                "boundary": (cfg.boundary != "periodic", 10),
+                "pole_coarsen": (bool(cfg.pole_coarsen), 12)}
+    for name, (used, item) in unported.items():
+        if used:
+            raise NotImplementedError(
+                f"{name}={getattr(cfg, name)!r} is not ported yet (ROADMAP "
+                f"queue 1, item {item})")
+    dtype = getattr(torch, cfg.dtype)
+    model = get_model(cfg.model)
+    geometry = make_geometry(cfg)
+    steady = model.steady_state(cfg.beta)
+    return Problem(
+        cfg=cfg, model=model, geometry=geometry,
+        rhs=make_rhs(cfg, model, geometry, dtype, device),
+        y0=initial_state(cfg, model, steady, dtype, device),
+        params={"b": beta_field(cfg, dtype, device)},
+        steady_state=steady, device=device)

@@ -1,0 +1,55 @@
+"""Reaction-model registry (counterpart of crdmodel_tpu/models/base.py).
+
+A model is data: a pair of pure functions (kinetics, steady_state)
+registered by name. Kinetics take no time argument (the JAX package's
+AUTONOMY CONTRACT, crdmodel_tpu/models/base.py:17-27): the fused step
+kernel evaluates them without stage times.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Tuple
+
+from crdmodel_tpu_torch.config import MODEL_NAMES
+
+# kinetics(state, b) -> dstate, state/dstate (nvars, ...) tensors, b the
+# scalar or field bifurcation parameter
+KineticsFn = Callable[..., object]
+# steady_state(beta) -> tuple of nvars floats
+SteadyStateFn = Callable[[float], Tuple[float, ...]]
+
+
+@dataclasses.dataclass(frozen=True)
+class ReactionModel:
+    name: str
+    nvars: int
+    var_names: Tuple[str, ...]
+    kinetics: KineticsFn
+    steady_state: SteadyStateFn
+    # which variables diffuse, and their diffusion coefficient as a multiple
+    # of cfg.diffusion
+    diffusive_vars: Tuple[int, ...] = (0,)
+    diffusion_ratios: Tuple[float, ...] = (1.0,)
+    # jac_bound(state, b) -> pointwise Gershgorin bound on the kinetics
+    # Jacobian's spectral radius (for RKC2, not ported yet)
+    jac_bound: Callable = None
+
+
+_REGISTRY: Dict[str, ReactionModel] = {}
+
+
+def register_model(model: ReactionModel) -> ReactionModel:
+    _REGISTRY[model.name] = model
+    return model
+
+
+def get_model(name: str) -> ReactionModel:
+    if name in _REGISTRY:
+        return _REGISTRY[name]
+    if name in MODEL_NAMES:
+        item = 5 if name == "goldbeter" else 6
+        raise NotImplementedError(
+            f"model {name!r} is not ported yet (ROADMAP queue 1, item "
+            f"{item}); ported: {sorted(_REGISTRY)}")
+    raise KeyError(f"unknown model {name!r}; registered: {sorted(_REGISTRY)}")

@@ -1,0 +1,50 @@
+"""FitzHugh–Nagumo kinetics (counterpart of crdmodel_tpu/models/fhn.py).
+
+    u' = 3u - u^3 - v
+    v' = eps (u + b),   eps = 0.36
+
+The fused step kernel (csrc/fused_step.cu, fhn_rates) carries the same
+expressions in the same association order.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from crdmodel_tpu_torch.models.base import ReactionModel, register_model
+
+EPSILON = 0.36
+
+
+def kinetics(state, b):
+    """state: (2, ...) tensor [u, v]; b: scalar or field broadcastable to u."""
+    u, v = state[0], state[1]
+    du = 3.0 * u - u * u * u - v
+    dv = EPSILON * (u + b)
+    return torch.stack([du, dv])
+
+
+def steady_state(beta: float):
+    """Analytic fixed point: Us = -beta, Vs = beta^3 - 3 beta
+    (reference src/FHNmodel_torus.cpp:242-244)."""
+    return (-beta, beta ** 3 - 3.0 * beta)
+
+
+def jac_bound(state, b):
+    """Gershgorin bound on the kinetics Jacobian
+    J = [[3-3u^2, -1], [eps, 0]] over the grid."""
+    u = state[0]
+    row1 = torch.abs(3.0 - 3.0 * u * u) + 1.0
+    return torch.clamp_min(row1, EPSILON)
+
+
+MODEL = register_model(
+    ReactionModel(
+        name="fhn",
+        nvars=2,
+        var_names=("u", "v"),
+        kinetics=kinetics,
+        steady_state=steady_state,
+        jac_bound=jac_bound,
+    )
+)

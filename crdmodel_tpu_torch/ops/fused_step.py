@@ -1,0 +1,196 @@
+"""Fused embedded-ERK step, kernel K1 (counterpart of
+crdmodel_tpu/ops/pallas_step.py).
+
+One launch performs a whole embedded Runge–Kutta step of the 5-point
+profile operator with FitzHugh–Nagumo kinetics: every stage's stencil and
+kinetics, the solution update, and per-block partial sums of squared
+WRMS-scaled errors (csrc/fused_step.cu). It takes every attempted step of
+a run on the fused path (sim.py).
+
+  fused_step            the wrapper: launches the CUDA kernel for a CUDA
+                        tensor, runs fused_step_reference for a CPU tensor
+  fused_step_reference  the same step in plain torch, the kernel's oracle
+  build_fused_step      a problem's step_err(t, y, h, params) on top of it
+
+Semantics kept from the TPU kernel (pallas_step.py:194-255): all stages
+are evaluated (no FSAL), without t (the kinetics are autonomous); stage
+inputs are y0 + (h*a[s][j])*k_j, the update and error (h*b[s])*k_s and
+(h*d[s])*k_s with d = b - bhat, in that order; the row freeze multiplies
+each stage by live = 1 - fz*(1 - m); the error weights come from the
+step's start. The lane padding and strip alignment of the TPU layout are
+gone: the state is (nvars, ny, nx), contiguous.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from crdmodel_tpu_torch.integrate.erk import TABLEAUS, Tableau
+from crdmodel_tpu_torch.models import fhn
+from crdmodel_tpu_torch.ops.kernel_common import (KernelConstants,
+                                                  freeze_scalar,
+                                                  fused_forcing,
+                                                  needs_divform,
+                                                  prepare_constants)
+from crdmodel_tpu_torch.ops.stencil import flat_laplacian, torus_laplacian
+
+MAX_STAGES = 8                 # the kernel's StageTable bound
+TILE_X = 32                    # tile width along x (contiguous)
+SMEM_BYTES = 227 * 1024        # shared memory one H100 block may use
+
+
+def is_supported(problem, tableau: Tableau, dtype) -> bool:
+    """The kernel's gate (crdmodel_tpu/ops/pallas_step.py:89), without the
+    TPU strip-divisor rule, plus one port-only rule: FitzHugh–Nagumo
+    kinetics with reaction (the only kinetics device function so far,
+    ROADMAP queue 1, items 5-6)."""
+    if needs_divform(problem):
+        return False
+    if fused_forcing(problem) is not None:
+        return False            # the kernel takes no forcing yet
+    if dtype != torch.float32:
+        return False
+    if tableau.stages > MAX_STAGES:
+        return False
+    return problem.model.name == "fhn" and not problem.cfg.just_diffusion
+
+
+def tile_plan(n_stages: int, itemsize: int):
+    """(tile_x, tile_y, shared bytes) of the kernel's tiles: the tallest of
+    32/16/8 rows whose stage buffers (y0, yi and n_stages k, two variables
+    each, with an n_stages-ring halo) fit in shared memory."""
+    for tile_y in (32, 16, 8):
+        pts = (TILE_X + 2 * n_stages) * (tile_y + 2 * n_stages)
+        smem = (2 * n_stages + 4) * pts * itemsize
+        if smem <= SMEM_BYTES - 1024:       # room for the static reduction
+            return TILE_X, tile_y, smem
+    raise ValueError(f"{n_stages} stages do not fit in shared memory")
+
+
+@functools.cache
+def _stage_arrays(name: str):
+    """ctypes copies of a tableau's a (row-major), b and d = b - bhat."""
+    tab = TABLEAUS[name]
+    d = tab.b - tab.bhat
+    return tuple((ctypes.c_double * x.size)(*x.ravel().tolist())
+                 for x in (tab.a, tab.b, d))
+
+
+def fused_step_reference(y, h, fz, kc: KernelConstants, tableau: Tableau,
+                         rtol: float, atol: float):
+    """One step in plain torch: (y_new, ss) with ss a (1,) tensor holding
+    the sum of squared WRMS-scaled errors."""
+    a, bw = tableau.a, tableau.b
+    d = tableau.b - tableau.bhat
+    n = tableau.stages
+    lap_of = torus_laplacian if kc.kind == "torus" else flat_laplacian
+    live = 1.0 - fz * (1.0 - kc.mask) if kc.has_freeze else None
+
+    def rhs_block(yi):
+        react = fhn.kinetics(yi, kc.b)
+        ydot = torch.stack([react[0] + lap_of(yi[0], kc.coeffs), react[1]])
+        return ydot * live if live is not None else ydot
+
+    ks = []
+    for s in range(n):
+        yi = y
+        for j in range(s):
+            if a[s, j] != 0.0:
+                yi = yi + (h * float(a[s, j])) * ks[j]
+        ks.append(rhs_block(yi))
+    y_new = y
+    err = torch.zeros_like(y)
+    for s in range(n):
+        if bw[s] != 0.0:
+            y_new = y_new + (h * float(bw[s])) * ks[s]
+        if d[s] != 0.0:
+            err = err + (h * float(d[s])) * ks[s]
+    scaled = err * (1.0 / (rtol * torch.abs(y) + atol))
+    return y_new, torch.sum(scaled * scaled).reshape(1)
+
+
+def _check(name, x, shape, dtype, device):
+    if x.device != device or x.dtype != dtype:
+        raise ValueError(f"{name}: {x.dtype} on {x.device}, the kernel "
+                         f"needs {dtype} on {device}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(x.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def fused_step(y, h, fz, kc: KernelConstants, tableau: Tableau,
+               rtol: float, atol: float):
+    """One fused step: (y_new (nvars, ny, nx), ss partials (n_blocks,)).
+
+    y lives on the device the step runs on. h and fz are 0-d tensors on the
+    same device: the kernel reads them there, so a step needs no host sync.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    or raises. `fused_step.launches` counts kernel launches.
+    """
+    if y.device.type == "cpu":
+        return fused_step_reference(y, h, fz, kc, tableau, rtol, atol)
+    if y.device.type != "cuda":
+        raise ValueError(f"no fused step kernel for device {y.device}")
+    dtype, device = y.dtype, y.device
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the kernel takes float32 or float64, not {dtype}")
+    if y.dim() != 3 or y.shape[0] != 2:
+        raise ValueError(f"y must be (2, ny, nx), got {tuple(y.shape)}")
+    n = tableau.stages
+    if n > MAX_STAGES:
+        raise ValueError(f"{n} stages; the kernel takes at most {MAX_STAGES}")
+    _, ny, nx = y.shape
+    torus = kc.kind == "torus"
+    _check("y", y, y.shape, dtype, device)
+    _check("h", h, (), dtype, device)
+    _check("fz", fz, (), dtype, device)
+    for c in kc.coeffs:
+        _check("coefficient", c, (nx,) if torus else (), dtype, device)
+    _check("beta", kc.b, (ny, 1) if kc.b_is_field else (), dtype, device)
+    _check("mask", kc.mask, (ny, 1), dtype, device)
+
+    from crdmodel_tpu_torch.ops._build import load_library
+    lib = load_library()
+    tile_x, tile_y, _ = tile_plan(n, y.element_size())
+    n_blocks = -(-nx // tile_x) * -(-ny // tile_y)
+    y_new = torch.empty_like(y)
+    ss = torch.empty(n_blocks, dtype=dtype, device=device)
+    a, b, d = _stage_arrays(tableau.name)
+    launch = (lib.crd_fused_erk_step_f32 if dtype == torch.float32
+              else lib.crd_fused_erk_step_f64)
+    rc = launch(y.data_ptr(), y_new.data_ptr(), ss.data_ptr(), h.data_ptr(),
+                fz.data_ptr(), *(c.data_ptr() for c in kc.coeffs),
+                int(torus), kc.b.data_ptr(), int(kc.b_is_field),
+                kc.mask.data_ptr(), int(kc.has_freeze), ny, nx, tile_x,
+                tile_y, n, a, b, d, float(rtol), float(atol),
+                torch.cuda.current_stream(device).cuda_stream)
+    fused_step.launches += 1
+    if rc != 0:
+        raise RuntimeError(f"fused step kernel launch failed: CUDA error {rc}")
+    return y_new, ss
+
+
+fused_step.launches = 0
+
+
+def build_fused_step(problem, tableau: Tableau):
+    """step_err(t, y, h, params) -> (y_new, err_ss) of `problem` through the
+    fused step, in the problem's dtype on its device. The freeze comes from
+    params["_seg_end"]; t is unused (the kinetics are autonomous)."""
+    cfg = problem.cfg
+    dtype = problem.y0.dtype
+    kc = prepare_constants(problem, dtype, problem.device)
+    rtol, atol = float(cfg.rtol), float(cfg.atol)
+    t_boundary = float(cfg.t_boundary)
+
+    def step_err(t, y, h, params):
+        fz = freeze_scalar(params, kc.has_freeze, t_boundary, dtype)
+        y_new, ss = fused_step(y, h.to(dtype), fz, kc, tableau, rtol, atol)
+        return y_new, torch.sum(ss)
+
+    return step_err

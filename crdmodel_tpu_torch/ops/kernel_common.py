@@ -1,0 +1,84 @@
+"""Host-side preparation shared by the fused kernels (counterpart of
+crdmodel_tpu/ops/kernel_common.py).
+
+The JAX package lane-pads every constant for its TPU layout; here the
+state stays (nvars, ny, nx), contiguous and unpadded, and the constants
+keep their natural shapes: the coefficient profiles (nx,) on the torus or
+three 0-d scalars on the flat surface, beta as a 0-d scalar or an (ny, 1)
+field, and the (ny, 1) interior-row mask.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from crdmodel_tpu_torch.core.problem import beta_field, interior_rows
+
+
+def needs_divform(problem) -> bool:
+    """True when the diffusion operator exists only in the divergence
+    (face-coefficient) form, which the profile kernel cannot express:
+    masked faces, full (ny, nx) diffusion fields, or any diffusion field on
+    the flat surface (crdmodel_tpu/ops/kernel_common.py:27)."""
+    if problem.face_mask is not None:
+        return True
+    df = problem.diffusion_field
+    if df is None:
+        return False
+    if problem.geometry.kind != "torus":
+        return True
+    return np.ndim(df) > 1
+
+
+def fused_forcing(problem):
+    """The forcing the step kernel would evaluate in-kernel: None when the
+    problem has none. The port has no forcing yet (ROADMAP queue 1, item 9),
+    so a forcing, when there is one, is returned as False: not
+    kernel-consumable (crdmodel_tpu/ops/kernel_common.py:62)."""
+    return None if problem.forcing is None else False
+
+
+def coeff_kind(geometry_kind: str) -> str:
+    """The kernels' coefficient layout: "torus" = three (nx,) profiles;
+    "flat" = three scalars (crdmodel_tpu/ops/kernel_common.py:97)."""
+    return "torus" if geometry_kind in ("torus", "revolution") else geometry_kind
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelConstants:
+    kind: str                 # coeff_kind of the geometry
+    coeffs: tuple             # torus: 3 (nx,) profiles; flat: 3 0-d scalars
+    b: torch.Tensor           # 0-d scalar or (ny, 1) field
+    mask: torch.Tensor        # (ny, 1) interior-row mask, 0 on rows 0, ny-1
+    has_freeze: bool
+
+    @property
+    def b_is_field(self) -> bool:
+        return self.b.dim() == 2
+
+
+def prepare_constants(problem, dtype, device) -> KernelConstants:
+    """The constant kernel inputs of `problem` on `device`
+    (crdmodel_tpu/ops/kernel_common.py:353, without the lane padding)."""
+    cfg = problem.cfg
+    geometry = problem.geometry
+    return KernelConstants(
+        kind=coeff_kind(geometry.kind),
+        coeffs=geometry.stencil_coeffs(dtype, device),
+        b=beta_field(cfg, dtype, device),
+        mask=interior_rows(cfg.ny, dtype, device),
+        has_freeze=(float(cfg.t_boundary) > 0.0) and not cfg.just_diffusion)
+
+
+def freeze_scalar(params, has_freeze: bool, t_boundary: float, dtype):
+    """1.0 while the integration segment lies in the frozen piece
+    (t < tBoundary), from params['_seg_end'] as a 0-d tensor on its device:
+    segments never straddle the discontinuity (integrate/erk.py)."""
+    seg_end = params.get("_seg_end")
+    if not has_freeze or seg_end is None:
+        device = params["b"].device
+        return torch.zeros((), dtype=dtype, device=device)
+    return (seg_end <= t_boundary).to(dtype)

@@ -1,0 +1,55 @@
+"""Periodic diffusion stencils on the torch path (counterpart of
+crdmodel_tpu/ops/stencil.py:20-66).
+
+Whole-array `torch.roll` shifts: on one device the periodic wrap is the
+reference's halo exchange. Arrays are (..., ny, nx): axis -1 is theta/x
+(E/W neighbours), axis -2 is phi/y (N/S neighbours). The expressions keep
+the JAX package's association order, so both packages round alike.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def shift_w(u):
+    """u[..., j, i-1] (west neighbour, periodic)."""
+    return torch.roll(u, 1, dims=-1)
+
+
+def shift_e(u):
+    """u[..., j, i+1] (east neighbour, periodic)."""
+    return torch.roll(u, -1, dims=-1)
+
+
+def shift_s(u):
+    """u[..., j-1, i] (south neighbour, periodic)."""
+    return torch.roll(u, 1, dims=-2)
+
+
+def shift_n(u):
+    """u[..., j+1, i] (north neighbour, periodic)."""
+    return torch.roll(u, -1, dims=-2)
+
+
+def flat_laplacian(u, coeffs):
+    """D * 5-point Laplacian on a flat periodic rectangle; coeffs =
+    (cu1, cu2, cu3) with cu1=D/dx^2, cu2=D/dy^2, cu3=-2(cu1+cu2)."""
+    cu1, cu2, cu3 = coeffs
+    return (cu1 * (shift_w(u) + shift_e(u))
+            + cu2 * (shift_s(u) + shift_n(u))
+            + cu3 * u)
+
+
+def torus_laplacian(u, coeffs):
+    """D * Laplace–Beltrami on the torus parametric grid; coeffs =
+    (c_asym, c_theta, c_phi), (nx,) theta profiles broadcast over rows:
+
+      out = c_asym*(uE - uW) + c_theta*(uE - 2u + uW) + c_phi*(uN - 2u + uS)
+    """
+    c_asym, c_theta, c_phi = coeffs
+    uw, ue = shift_w(u), shift_e(u)
+    us, un = shift_s(u), shift_n(u)
+    return (c_asym * (ue - uw)
+            + c_theta * (ue - 2.0 * u + uw)
+            + c_phi * (un - 2.0 * u + us))

@@ -1,0 +1,76 @@
+"""Reference probes of the canonical FHN torus run, for the PyTorch port.
+
+Runs the JAX package on the CPU, in float32 and in float64, on
+data/FHNmodelArgs.ini (400x1600 torus, beta ramp, tBoundary=38, Tf=50,
+bs32, rtol 1e-5) and writes tests/golden/torch_canonical_fhn_probes.npz:
+
+  steps_f32, accepted_f32, rejected_f32   per output interval, JAX f32 run
+  steps_f64, accepted_f64, rejected_f64   the same for the f64 run
+  probe_var, probe_j, probe_i             64 probe points (seeded numpy)
+  probes_f32, probes_f64                  (21, 64): the field at each probe
+                                          point at every output time, IC first
+  touts                                   (21,) output times, 0 first
+
+chip_smoke.py holds the port's run on the card against these numbers. Each
+run takes a few minutes on a CPU:
+
+    python scripts/torch_canonical_probes.py
+"""
+
+import dataclasses
+import os
+import sys
+import time
+
+import jax
+
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_x64", True)
+
+import numpy as np  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+from crdmodel_tpu.config import config_from_ini  # noqa: E402
+from crdmodel_tpu.sim import simulate  # noqa: E402
+
+INI = os.path.join(ROOT, "data", "FHNmodelArgs.ini")
+OUT = os.path.join(ROOT, "tests", "golden", "torch_canonical_fhn_probes.npz")
+N_PROBES = 64
+PROBE_SEED = 20261016
+
+
+def probe_points(nvars, ny, nx):
+    """N_PROBES fixed grid points, half on each variable."""
+    rng = np.random.default_rng(PROBE_SEED)
+    var = np.repeat(np.arange(nvars), N_PROBES // nvars)
+    j = rng.integers(0, ny, N_PROBES)
+    i = rng.integers(0, nx, N_PROBES)
+    return var, j, i
+
+
+def main():
+    base = config_from_ini(INI, model="fhn", surface="torus")
+    var, j, i = probe_points(2, base.ny, base.nx)
+    out = {"probe_var": var, "probe_j": j, "probe_i": i}
+    for dtype, tag in (("float32", "f32"), ("float64", "f64")):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        t0 = time.perf_counter()
+        res = simulate(cfg)
+        wall = time.perf_counter() - t0
+        assert res.ok, res.describe()
+        traj = np.asarray(res.trajectory)
+        out[f"probes_{tag}"] = traj[:, var, j, i].astype(np.float64)
+        out[f"steps_{tag}"] = np.asarray(res.stats.steps)
+        out[f"accepted_{tag}"] = np.asarray(res.stats.accepted)
+        out[f"rejected_{tag}"] = np.asarray(res.stats.rejected)
+        out["touts"] = np.asarray(res.touts)
+        print(f"{tag}: {res.describe()} (CPU wall {wall:.1f} s)", flush=True)
+    np.savez_compressed(OUT, **out)
+    gap = np.abs(out["probes_f32"] - out["probes_f64"]).max()
+    print(f"wrote {OUT}; max |f32 - f64| over the probes = {gap:.3e}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,143 @@
+"""Kernel K1, the fused ERK step (crdmodel_tpu_torch/ops/fused_step.py).
+
+On the CPU: the kernel's plain version against the JAX package's Pallas
+kernel run in interpret mode, f32, one step from a numpy-seeded state.
+On a CUDA card (marker `cuda`): the CUDA kernel against the plain version.
+The JAX package is imported inside the test that uses it, so that the card
+tests run where JAX is not installed:
+
+    python -m pytest tests/test_torch_fused_step.py -m cuda --noconftest
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from crdmodel_tpu_torch.config import SimConfig
+from crdmodel_tpu_torch.convert import inputs_from_numpy
+from crdmodel_tpu_torch.core.problem import build_problem
+from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+from crdmodel_tpu_torch.ops import fused_step as fs
+from crdmodel_tpu_torch.ops.kernel_common import prepare_constants
+
+BASE = dict(model="fhn", x_mesh=16, surface_width=20, surface_length=40,
+            t_final=1.0, output_timestep=2, beta=1.25, beta_min=0.7,
+            beta_max=1.7, t_boundary=0.4, dtype="float32", rtol=1e-4,
+            atol=1e-6)
+SURFACES = {"torus": dict(surface="torus", vary_beta=1),    # beta field
+            "flat": dict(surface="flat", vary_beta=0)}      # beta scalar
+# a step long enough that the error estimate stands well above f32
+# rounding (dopri54's 5th-order error at h=0.01 is at the rounding level)
+H = 0.1
+
+
+def _state(shape, seed=11):
+    return np.random.default_rng(seed).uniform(-2.0, 2.0, shape)
+
+
+def _close(got, want, y_scale):
+    err = np.max(np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64)))
+    assert err <= 2e-5 * max(1.0, y_scale), err
+
+
+@pytest.mark.parametrize("method", ["bs32", "dopri54"])
+@pytest.mark.parametrize("surface", sorted(SURFACES))
+def test_plain_step_matches_jax_kernel(surface, method):
+    import jax
+    import jax.numpy as jnp
+
+    from crdmodel_tpu.config import SimConfig as JSimConfig
+    from crdmodel_tpu.core.problem import build_problem as jbuild_problem
+    from crdmodel_tpu.integrate.erk import TABLEAUS as JTABLEAUS
+    from crdmodel_tpu.ops import pallas_step
+
+    kw = {**BASE, **SURFACES[surface]}
+    jp = jbuild_problem(JSimConfig(**kw))
+    fused = pallas_step.build_fused_step(jp, JTABLEAUS[method], jnp.float32,
+                                         interpret=True)
+    jstep = jax.jit(lambda yp, h, seg: fused.step_err(
+        0.0, yp, h, {**jp.params, "_seg_end": seg}))
+    tp = build_problem(SimConfig(**kw), device="cpu")
+    kc = prepare_constants(tp, torch.float32, "cpu")
+    y_np = _state(np.shape(jp.y0)).astype(np.float32)
+    y_t, _ = inputs_from_numpy(y_np, {}, device="cpu", dtype=torch.float32)
+    h_t = torch.tensor(H, dtype=torch.float32)
+    for seg_end, fz in ((0.4, 1.0), (1.0, 0.0)):
+        yp_new, ss_j = jstep(fused.pad(jnp.asarray(y_np)), jnp.float32(H),
+                             jnp.float32(seg_end))
+        y_new, ss = fs.fused_step(y_t, h_t, torch.tensor(fz), kc,
+                                  TABLEAUS[method], kw["rtol"], kw["atol"])
+        _close(y_new.numpy(), fused.unpad(yp_new), np.abs(y_np).max())
+        ss_j = float(ss_j)
+        assert abs(float(ss.sum()) - ss_j) <= 1e-3 * ss_j
+        if fz:
+            # frozen rows hold still
+            np.testing.assert_array_equal(y_new[:, [0, -1]].numpy(),
+                                          y_np[:, [0, -1]])
+
+
+def test_step_err_uses_segment_freeze():
+    """build_fused_step reads the freeze from params['_seg_end']."""
+    cfg = SimConfig(**{**BASE, **SURFACES["torus"]})
+    p = build_problem(cfg, device="cpu")
+    step_err = fs.build_fused_step(p, TABLEAUS["bs32"])
+    y = torch.tensor(_state(tuple(p.y0.shape)), dtype=torch.float32)
+    h = torch.tensor(H, dtype=torch.float32)
+    for seg_end, frozen in ((0.4, True), (1.0, False)):
+        params = {**p.params, "_seg_end": torch.tensor(seg_end)}
+        y_new, err_ss = step_err(torch.tensor(0.0), y, h, params)
+        assert bool(torch.equal(y_new[:, 0], y[:, 0])) == frozen
+        assert err_ss.dim() == 0 and float(err_ss) > 0
+
+
+def test_gate():
+    cfg = SimConfig(**{**BASE, **SURFACES["torus"]})
+    p = build_problem(cfg, device="cpu")
+    assert fs.is_supported(p, TABLEAUS["dopri54"], torch.float32)
+    assert not fs.is_supported(p, TABLEAUS["bs32"], torch.float64)
+    p_jd = build_problem(dataclasses.replace(cfg, just_diffusion=1), "cpu")
+    assert not fs.is_supported(p_jd, TABLEAUS["bs32"], torch.float32)
+    assert not fs.is_supported(dataclasses.replace(p, forcing=object()),
+                               TABLEAUS["bs32"], torch.float32)
+    assert not fs.is_supported(
+        dataclasses.replace(p, diffusion_field=np.ones((32, 16))),
+        TABLEAUS["bs32"], torch.float32)
+
+
+@pytest.mark.parametrize("method", ["bs32", "zonneveld43", "dopri54"])
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_tile_plan_fits(method, itemsize):
+    tx, ty, smem = fs.tile_plan(TABLEAUS[method].stages, itemsize)
+    assert smem <= fs.SMEM_BYTES and tx == 32 and ty >= 8
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs a CUDA card and nvcc")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("method", ["bs32", "dopri54"])
+@pytest.mark.parametrize("surface", sorted(SURFACES))
+def test_cuda_kernel_matches_plain(surface, method, dtype):
+    cfg = SimConfig(**{**BASE, **SURFACES[surface], "x_mesh": 48,
+                       "surface_length": 80})
+    p = build_problem(cfg, device="cuda")
+    kc = prepare_constants(p, dtype, "cuda")
+    y = torch.tensor(_state(tuple(p.y0.shape)), dtype=dtype, device="cuda")
+    h = torch.tensor(H, dtype=dtype, device="cuda")
+    tol = 2e-5 if dtype == torch.float32 else 1e-12
+    for fz in (0.0, 1.0):
+        fzt = torch.tensor(fz, dtype=dtype, device="cuda")
+        before = fs.fused_step.launches
+        y_k, ss_k = fs.fused_step(y, h, fzt, kc, TABLEAUS[method], 1e-4, 1e-6)
+        y_k2, ss_k2 = fs.fused_step(y, h, fzt, kc, TABLEAUS[method], 1e-4, 1e-6)
+        assert fs.fused_step.launches == before + 2
+        y_r, ss_r = fs.fused_step_reference(y, h, fzt, kc, TABLEAUS[method],
+                                            1e-4, 1e-6)
+        torch.cuda.synchronize()
+        assert torch.equal(y_k, y_k2) and torch.equal(ss_k, ss_k2)
+        scale = max(1.0, float(y.abs().max()))
+        assert float((y_k - y_r).abs().max()) <= tol * scale
+        rel = abs(float(ss_k.sum()) - float(ss_r.sum())) / float(ss_r.sum())
+        assert rel <= (1e-3 if dtype == torch.float32 else 1e-10)
