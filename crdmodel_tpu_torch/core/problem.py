@@ -7,7 +7,8 @@ RHS semantics (reference src/FHNmodel_torus.cpp:504-667):
   if t < tBoundary: rows j==0 and j==ny-1 are frozen (ydot=0, both variables).
   justDiffusion==1 skips the reaction block, freeze included.
 
-Ported: the constant-D profile operator on the flat and torus surfaces.
+Ported: the constant-D profile operator on the flat and torus surfaces,
+and its RKC2 spectral-radius bound (make_rho_bound).
 Not ported yet: diffusion fields and coupling (ROADMAP queue 1, item 10),
 no-flux boundaries and obstacles (item 10), tensors (item 11), forcing
 (item 9), the IMEX split (item 8) and pole coarsening (item 12).
@@ -160,6 +161,49 @@ def make_rhs(cfg: SimConfig, model: ReactionModel, geometry: Geometry, dtype,
         return ydot
 
     return rhs
+
+
+def make_rho_bound(cfg: SimConfig, model: ReactionModel, geometry: Geometry,
+                   dtype, max_reduce=None, diffusion_field=None,
+                   diffusion_tensor=None, face_mask=None):
+    """Spectral-radius bound rho(t, y, params) for the RKC2 integrator
+    (crdmodel_tpu/core/problem.py:544-629): the static Gershgorin bound of
+    the diffusion operator (float64 numpy) plus the grid max of the model's
+    pointwise kinetics Jacobian bound, a 0-d tensor on y's device.
+
+    Ported: the constant-D torus and flat operators. Not ported yet: the
+    tensor (ROADMAP queue 1, item 11) and divergence-form (item 10)
+    operators, and max_reduce (sharding, item 15)."""
+    if diffusion_tensor is not None:
+        raise NotImplementedError("the rho bound of a diffusion tensor is "
+                                  "not ported yet (ROADMAP queue 1, item 11)")
+    if diffusion_field is not None or face_mask is not None:
+        raise NotImplementedError("the rho bound of the divergence form is "
+                                  "not ported yet (ROADMAP queue 1, item 10)")
+    if max_reduce is not None:
+        raise NotImplementedError("max_reduce is not ported yet (ROADMAP "
+                                  "queue 1, item 15)")
+    coeffs = [c.numpy() for c in geometry.stencil_coeffs(torch.float64, "cpu")]
+    if geometry.kind == "torus":
+        c_asym, c_th, c_phi = coeffs
+        rho_diff = float(4.0 * np.max(c_th) + 4.0 * np.max(c_phi)
+                         + 2.0 * np.max(np.abs(c_asym)))
+    else:
+        cu1, cu2, _ = (float(c) for c in coeffs)
+        rho_diff = 4.0 * cu1 + 4.0 * cu2
+    rho_diff *= max(model.diffusion_ratios)
+    just_diffusion = bool(cfg.just_diffusion)
+    if model.jac_bound is None and not just_diffusion:
+        raise ValueError(f"model {model.name} has no jac_bound; "
+                         "rkc2 unsupported")
+
+    def rho(t, y, params):
+        if just_diffusion:
+            return torch.full((), rho_diff, dtype=dtype, device=y.device)
+        jb = torch.max(model.jac_bound(y, params["b"]).to(dtype))
+        return jb + rho_diff
+
+    return rho
 
 
 def solver_breakpoints(cfg: SimConfig) -> tuple:

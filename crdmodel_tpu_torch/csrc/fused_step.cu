@@ -23,15 +23,19 @@
 // arithmetic follows the plain version (ops/fused_step.py::
 // fused_step_reference) operation for operation, and the library is built
 // with -fmad=false so that no multiply and add are contracted: each
-// operation rounds as PyTorch's does. No tensor cores, TMA or tuning yet.
+// operation rounds as PyTorch's does. The RHS at a point is the shared
+// device function of rhs_common.cuh. No tensor cores, TMA or tuning yet.
 
 #include <cuda_runtime.h>
 
+#include "rhs_common.cuh"
+
 namespace {
+
+using crd::wrap;
 
 constexpr int kMaxStages = 8;
 constexpr int kThreads = 256;
-constexpr double kFhnEpsilon = 0.36;   // models/fhn.py EPSILON
 
 struct StageTable {
   int n;
@@ -40,19 +44,12 @@ struct StageTable {
   double d[kMaxStages];   // b - bhat
 };
 
-__device__ __forceinline__ int wrap(int i, int n) {
-  i %= n;
-  return i < 0 ? i + n : i;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads) fused_erk_step_kernel(
     const T* __restrict__ y, T* __restrict__ y_new, T* __restrict__ ss,
     const T* __restrict__ h_ptr, const T* __restrict__ fz_ptr,
-    const T* __restrict__ c0, const T* __restrict__ c1,
-    const T* __restrict__ c2, int torus, const T* __restrict__ beta,
-    int beta_field, const T* __restrict__ mask, int has_freeze, int ny,
-    int nx, int tile_x, int tile_y, StageTable tab, T rtol, T atol) {
+    crd::RhsConstants<T> k, int ny, int nx, int tile_x, int tile_y,
+    StageTable tab, T rtol, T atol) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ T warp_sums[kThreads / 32];
   T* smem = reinterpret_cast<T*>(smem_raw);
@@ -78,7 +75,7 @@ __global__ void __launch_bounds__(kThreads) fused_erk_step_kernel(
     y0v[p] = y[plane + g];
   }
   const T h = *h_ptr;
-  const T fz = has_freeze ? *fz_ptr : T(0);
+  const T fz = k.has_freeze ? *fz_ptr : T(0);
   __syncthreads();
 
   for (int s = 0; s < tab.n; ++s) {
@@ -113,26 +110,7 @@ __global__ void __launch_bounds__(kThreads) fused_erk_step_kernel(
       const int ly = dep + q / w, lx = dep + q % w;
       const int p = ly * W + lx;
       const int gy = wrap(gy0 + ly, ny), gx = wrap(gx0 + lx, nx);
-      const T u = su[p], v = sv[p];
-      const T uw = su[p - 1], ue = su[p + 1];
-      const T us = su[p - W], un = su[p + W];
-      T lap;
-      if (torus) {
-        lap = c0[gx] * (ue - uw) + c1[gx] * (ue - T(2) * u + uw)
-              + c2[gx] * (un - T(2) * u + us);
-      } else {
-        lap = c0[0] * (uw + ue) + c1[0] * (us + un) + c2[0] * u;
-      }
-      const T b = beta_field ? beta[gy] : beta[0];
-      T du = (T(3) * u - u * u * u - v) + lap;
-      T dv = static_cast<T>(kFhnEpsilon) * (u + b);
-      if (has_freeze) {
-        const T live = T(1) - fz * (T(1) - mask[gy]);
-        du = du * live;
-        dv = dv * live;
-      }
-      ku[p] = du;
-      kv[p] = dv;
+      crd::fhn_profile_rhs(k, fz, su, sv, p, W, gy, gx, ku[p], kv[p]);
     }
     __syncthreads();
   }
@@ -168,16 +146,7 @@ __global__ void __launch_bounds__(kThreads) fused_erk_step_kernel(
     acc = acc + wv * wv;
   }
 
-  // fixed-order block reduction: warp shuffles, then warp 0's sums in order
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_down_sync(0xffffffffu, acc, off);
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = acc;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    T total = T(0);
-    for (int i = 0; i < kThreads / 32; ++i) total += warp_sums[i];
-    ss[blockIdx.y * gridDim.x + blockIdx.x] = total;
-  }
+  crd::store_block_sum<T, kThreads>(acc, warp_sums, ss);
 }
 
 template <typename T>
@@ -205,14 +174,15 @@ int launch(const void* y, void* y_new, void* ss, const void* h,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((nx + tile_x - 1) / tile_x, (ny + tile_y - 1) / tile_y);
+  const crd::RhsConstants<T> k = {
+      static_cast<const T*>(c0), static_cast<const T*>(c1),
+      static_cast<const T*>(c2), torus, static_cast<const T*>(beta),
+      beta_field, static_cast<const T*>(mask), has_freeze};
   fused_erk_step_kernel<T><<<grid, kThreads, smem,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(y), static_cast<T*>(y_new), static_cast<T*>(ss),
-      static_cast<const T*>(h), static_cast<const T*>(fz),
-      static_cast<const T*>(c0), static_cast<const T*>(c1),
-      static_cast<const T*>(c2), torus, static_cast<const T*>(beta),
-      beta_field, static_cast<const T*>(mask), has_freeze, ny, nx, tile_x,
-      tile_y, tab, static_cast<T>(rtol), static_cast<T>(atol));
+      static_cast<const T*>(h), static_cast<const T*>(fz), k, ny, nx,
+      tile_x, tile_y, tab, static_cast<T>(rtol), static_cast<T>(atol));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,9 +16,10 @@ masked no-op once the interval is done, so the host reads the loop
 condition only once every `sync_every` iterations: a block of iterations
 may run past the end, and those iterations change nothing.
 
-Ported: scalar mode with step_mode="tstop". Not ported yet (ROADMAP queue 1,
-item 14): member batching, speculative K-step batching, ARK_NORMAL mode,
-h_limit_fn (RKC2, item 7) and sync_fn (ensembles).
+Ported: scalar mode with step_mode="tstop", the ERK tableaus and RKC2
+(integrate/rkc.py, with the h cap h_limit_fn). Not ported yet (ROADMAP
+queue 1, item 14): member batching, speculative K-step batching, ARK_NORMAL
+mode and sync_fn (ensembles); the ark324 IMEX pair (item 8).
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+
+from crdmodel_tpu_torch.integrate import rkc
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,7 +215,7 @@ def make_default_step_err(tableau: Tableau, rhs: Callable, rtol, atol):
 def integrate_interval(step_err, t0, y0, h_init, err_prev_init, tout, params,
                        *, err_order, max_steps, global_size, carry0=(),
                        first_interval=False, status0=None,
-                       sync_every=SYNC_EVERY):
+                       h_limit_fn=None, sync_every=SYNC_EVERY):
     """Integrate from (t0, y0) to tout with adaptive steps.
 
     t0, h_init, err_prev_init and tout are 0-d tensors in y0's dtype on
@@ -220,7 +223,9 @@ def integrate_interval(step_err, t0, y0, h_init, err_prev_init, tout, params,
     (t, y, h, err_prev, (nstep, nacc, nrej, status)), all tensors. A nonzero
     status0 makes the interval a no-op (sticky failure). first_interval
     relaxes the growth cap to ETA_MAX_FIRST until the first accepted step
-    (ARKode's etamx1).
+    (ARKode's etamx1). h_limit_fn(t, y, params) -> 0-d tensor: a hard cap
+    on every attempted step, applied after the clamp onto tout (the fused
+    RKC kernel's stage budget, ops/fused_rkc.py).
     """
     dtype, device = y0.dtype, y0.device
     inv_q = 1.0 / float(err_order)
@@ -230,6 +235,8 @@ def integrate_interval(step_err, t0, y0, h_init, err_prev_init, tout, params,
         t, y, h, ep, epp, fc, nstep, nacc, nrej, status = state
         active = (t < tout) & (status == 0) & (nstep < max_steps)
         hs = torch.where(t + h >= tout, tout - t, h)
+        if h_limit_fn is not None:
+            hs = torch.minimum(hs, h_limit_fn(t, y, params).to(dtype))
         last = hs >= tout - t
 
         y_new, err_ss, fc_new = step_err(t, y, hs, params, fc)
@@ -293,6 +300,23 @@ def integrate_interval(step_err, t0, y0, h_init, err_prev_init, tout, params,
     return t, y, h, ep, (nstep, nacc, nrej, status)
 
 
+def make_stepper(method, rhs, rtol, atol, rho_fn=None):
+    """(step_err, init_carry, err_order) of a method name: the ERK tableaus
+    and rkc2 (crdmodel_tpu/integrate/erk.py:737-762). ark324 is not ported
+    yet (ROADMAP queue 1, item 8)."""
+    if method == "rkc2":
+        if rho_fn is None:
+            raise ValueError("method 'rkc2' needs rho_fn")
+        step_err, init_carry = rkc.make_rkc2_step_err(rhs, rho_fn, rtol, atol)
+        return step_err, init_carry, rkc.ERR_ORDER
+    if method == "ark324":
+        raise NotImplementedError("method 'ark324' is not ported yet "
+                                  "(ROADMAP queue 1, item 8)")
+    tableau = TABLEAUS[method] if isinstance(method, str) else method
+    step_err, init_carry = make_default_step_err(tableau, rhs, rtol, atol)
+    return step_err, init_carry, tableau.err_order
+
+
 def merge_stops(touts, breakpoints, t0=0.0):
     """Merge static breakpoint times into the output-time list.
 
@@ -319,8 +343,9 @@ def integrate_to_outputs(rhs, y0, params, t0, touts, *, rtol, atol,
                          method="bs32", max_steps=200_000, global_size=None,
                          breakpoints=(), step_err=None, init_carry=None,
                          err_order=None, step_mode="tstop", n_members=0,
-                         spec_k=0, kstep_call=None, h_limit_fn=None,
-                         sync_fn=None, sync_every=SYNC_EVERY):
+                         spec_k=0, kstep_call=None, rho_fn=None,
+                         h_limit_fn=None, sync_fn=None,
+                         sync_every=SYNC_EVERY):
     """Integrate through each output time and return the state at each
     (reference src/FHNmodel_torus.cpp:413-478).
 
@@ -329,12 +354,14 @@ def integrate_to_outputs(rhs, y0, params, t0, touts, *, rtol, atol,
     breakpoints: times where the RHS is discontinuous in t; integration
     stops exactly there and the sub-interval's stats join the next output
     interval. step_err/init_carry: a caller-supplied stepper (the fused
-    kernel, ops/fused_step.py) in place of the torch-path stepper; h0 is
-    always estimated on the plain y0 through rhs.
+    kernels, ops/fused_step.py and ops/fused_rkc.py) in place of the
+    torch-path stepper; h0 is always estimated on the plain y0 through rhs.
+    rho_fn: the spectral-radius bound the rkc2 stepper needs
+    (core/problem.py::make_rho_bound). h_limit_fn(t, y, params): a hard cap
+    on every attempted step, h0 included.
     """
     unported = {"n_members": n_members, "spec_k": spec_k,
-                "kstep_call": kstep_call, "h_limit_fn": h_limit_fn,
-                "sync_fn": sync_fn}
+                "kstep_call": kstep_call, "sync_fn": sync_fn}
     for name, value in unported.items():
         if value:
             raise NotImplementedError(f"{name} is not ported yet (ROADMAP "
@@ -346,9 +373,8 @@ def integrate_to_outputs(rhs, y0, params, t0, touts, *, rtol, atol,
     if global_size is None:
         global_size = y0.numel()
     if step_err is None:
-        tableau = TABLEAUS[method]
-        step_err, init_carry = make_default_step_err(tableau, rhs, rtol, atol)
-        err_order = tableau.err_order
+        step_err, init_carry, err_order = make_stepper(method, rhs, rtol,
+                                                       atol, rho_fn)
     else:
         if err_order is None:
             err_order = TABLEAUS[method].err_order
@@ -367,6 +393,8 @@ def integrate_to_outputs(rhs, y0, params, t0, touts, *, rtol, atol,
     f0 = rhs(t, y0, seg_params(stops[0]))
     h = _initial_step(rhs, t, y0, f0, seg_params(stops[0]), stops[0],
                       rtol, atol, err_order, global_size)
+    if h_limit_fn is not None:
+        h = torch.minimum(h, h_limit_fn(t, y0, seg_params(stops[0])).to(dtype))
     y = y0
     errp = torch.ones((), dtype=dtype, device=device)
     status = torch.zeros((), dtype=torch.int32, device=device)
@@ -379,7 +407,7 @@ def integrate_to_outputs(rhs, y0, params, t0, touts, *, rtol, atol,
             step_err, t, y, h, errp, stops[k], p, err_order=err_order,
             max_steps=max_steps, global_size=global_size,
             carry0=init_carry(t, y, p), first_interval=(k == 0),
-            status0=status, sync_every=sync_every)
+            status0=status, h_limit_fn=h_limit_fn, sync_every=sync_every)
         status = stats[-1]
         per_stop.append(torch.stack(stats))
         if is_output[k]:

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels (csrc/*.cu).
 
-nvcc compiles every source into one shared library with a plain C
-interface, at first use, into crdmodel_tpu_torch/_build/<hash of the
-sources and flags>/libcrdtorch.so; ctypes loads it. Nothing here runs at
-import, so the package imports on machines without CUDA.
+At first use, one nvcc per source compiles the kernels in parallel, and a
+last nvcc links them into one shared library with a plain C interface,
+crdmodel_tpu_torch/_build/<hash of the sources, headers and flags>/
+libcrdtorch.so; ctypes loads it. Nothing here runs at import, so the
+package imports on machines without CUDA.
 """
 
 from __future__ import annotations
@@ -26,20 +27,25 @@ LIB_NAME = "libcrdtorch.so"
 # keeps every multiply and add separately rounded, as PyTorch's ops are,
 # so a kernel and its plain version round alike.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xcompiler", "-fPIC")
 
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
 _DOUBLE = ctypes.c_double
 _DOUBLEP = ctypes.POINTER(ctypes.c_double)
 
-# C signature of each exported launcher (csrc/fused_step.cu)
+# C signature of each exported launcher (csrc/fused_step.cu, fused_rkc.cu)
 _FUSED_STEP_ARGTYPES = ([_VOIDP] * 8 + [_INT, _VOIDP, _INT, _VOIDP]
                         + [_INT] * 6 + [_DOUBLEP] * 3
                         + [_DOUBLE, _DOUBLE, _VOIDP])
+_FUSED_RKC_ARGTYPES = ([_VOIDP] * 8 + [_INT] + [_VOIDP] * 3
+                       + [_INT, _VOIDP, _INT, _VOIDP] + [_INT] * 5
+                       + [_DOUBLE, _DOUBLE, _VOIDP])
 SIGNATURES = {
     "crd_fused_erk_step_f32": _FUSED_STEP_ARGTYPES,
     "crd_fused_erk_step_f64": _FUSED_STEP_ARGTYPES,
+    "crd_fused_rkc_step_f32": _FUSED_RKC_ARGTYPES,
+    "crd_fused_rkc_step_f64": _FUSED_RKC_ARGTYPES,
 }
 
 
@@ -73,16 +79,31 @@ def library_path() -> str:
     if os.path.isfile(lib):
         return lib
     os.makedirs(out_dir, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)   # atomic: a concurrent loader sees all or nothing
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp_dir:
+        cus = [src for src in sources if src.endswith(".cu")]
+        objects = [os.path.join(tmp_dir, os.path.basename(src) + ".o")
+                   for src in cus]
+        compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                    for src, obj in zip(cus, objects)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in compiles]
+        outputs = [proc.communicate()[0] for proc in procs]   # all finish
+        for cmd, proc, output in zip(compiles, procs, outputs):
+            _check_nvcc(cmd, proc.returncode, output)
+        tmp_lib = os.path.join(tmp_dir, LIB_NAME)
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp_lib, *objects]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        _check_nvcc(link, proc.returncode, proc.stdout + proc.stderr)
+        os.replace(tmp_lib, lib)   # atomic: a loader sees all or nothing
     return lib
+
+
+def _check_nvcc(cmd, returncode, output):
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}\n"
+                           f"{output}")
 
 
 @functools.cache

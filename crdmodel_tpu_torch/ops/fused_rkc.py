@@ -1,0 +1,276 @@
+"""Fused RKC2 step, kernel K2 (counterpart of crdmodel_tpu/ops/pallas_rkc.py).
+
+One launch performs a whole RKC2 step (integrate/rkc.py) of the 5-point
+profile operator with FitzHugh–Nagumo kinetics: F0 = f(y0), the s
+Chebyshev stages, F(y_new) for the order-2 error estimate, y_new and
+per-block partial sums of squared WRMS-scaled errors (csrc/fused_rkc.cu).
+The three-term recurrence keeps a live set of constant size (y0, F0,
+Y_{j-1}, Y_{j-2}), so a tile loaded once with a halo of s+1 rings carries
+any stage count up to S_MAX_KERNEL. It takes every attempted step of an
+rkc2 run on the fused path (sim.py).
+
+  fused_rkc_step            the wrapper: launches the CUDA kernel for a CUDA
+                            tensor, runs fused_rkc_step_reference for a CPU
+                            tensor
+  fused_rkc_step_reference  the same step in plain torch, the kernel's oracle
+  build_fused_rkc_step      a problem's step_err and h_limit on top of it
+
+Semantics kept from the TPU kernel (pallas_rkc.py:586-618, 695-758): no
+carry, F0 is recomputed every step; the coefficients come from f64 tables
+(static_stage_tables) cast to the state's dtype and indexed by s; the stage
+count is s = min(choose_stages(h, rho), s_cap) and the driver caps h to the
+coverage of s_cap stages (h_limit); the row freeze multiplies every
+evaluation by live = 1 - fz*(1 - m); the error weights come from the step's
+start. The TPU's VMEM strip plan (variant_plan, choose_blocking, P_LADDER)
+is layout and is gone: s_cap is S_MAX_KERNEL = 23 at every grid size, where
+the JAX package caps lower at very wide rows (ROADMAP queue 2, K2b). The
+state is (nvars, ny, nx), contiguous and unpadded.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from crdmodel_tpu_torch.core.problem import make_rho_bound
+from crdmodel_tpu_torch.integrate import rkc
+from crdmodel_tpu_torch.ops.kernel_common import (SMEM_BYTES,
+                                                  KernelConstants,
+                                                  check_constants,
+                                                  check_tensor,
+                                                  freeze_scalar,
+                                                  fused_forcing,
+                                                  make_rhs_block,
+                                                  needs_divform,
+                                                  prepare_constants)
+
+S_MAX_KERNEL = 23              # the TPU kernel's halo P=24 less one
+# (tile_x, tile_y) candidates, best first: larger tiles recompute less halo
+TILES = ((32, 32), (32, 16), (16, 16), (16, 8), (8, 8))
+
+
+def is_rkc_supported(problem, dtype) -> bool:
+    """The kernel's gate (crdmodel_tpu/ops/pallas_rkc.py:218) without the
+    TPU strip plan, plus one port-only rule, as for K1: FitzHugh–Nagumo
+    kinetics with reaction."""
+    if fused_forcing(problem) is not None:
+        return False            # the kernel takes no forcing yet (item 9)
+    if dtype != torch.float32:
+        return False
+    if needs_divform(problem):
+        return False            # the divform branch comes with item 10
+    cfg = problem.cfg
+    if problem.model.jac_bound is None and not cfg.just_diffusion:
+        return False
+    # pallas_rkc.pole_inflated_rho declines only surfaces of revolution,
+    # which the port has not yet (ROADMAP queue 1, item 12)
+    return problem.model.name == "fhn" and not cfg.just_diffusion
+
+
+def tile_plan(halo: int, itemsize: int):
+    """(tile_x, tile_y, shared bytes) of the kernel's tiles: the first of
+    TILES whose four live buffers (y0, F0, Y_{j-1}, Y_{j-2}), two variables
+    each, with a `halo`-ring border fit in shared memory."""
+    for tile_x, tile_y in TILES:
+        smem = 8 * (tile_x + 2 * halo) * (tile_y + 2 * halo) * itemsize
+        if smem <= SMEM_BYTES - 1024:       # room for the static reduction
+            return tile_x, tile_y, smem
+    raise ValueError(f"a {halo}-ring halo does not fit in shared memory")
+
+
+def rkc_stage_coeffs(s, dtype):
+    """(mu1, coeffs) of stage count s, computed by the recurrence in
+    `dtype` (crdmodel_tpu/ops/pallas_rkc.py:263): coeffs (S_MAX_KERNEL+1, 4)
+    with coeffs[j] = (mu_j, nu_j, mut_j, gt_j) for j in [2, s], zero
+    elsewhere."""
+    s = int(s)
+    one = torch.ones((), dtype=dtype)
+    sf = torch.tensor(s, dtype=dtype)
+    w0 = one + rkc.EPS_DAMP / (sf * sf)
+    _, dts, d2ts = rkc._cheb_scalars(s, w0)
+    w1 = dts / d2ts
+    dt2 = 4 * w0
+    b2 = 4.0 / (dt2 * dt2)
+    mu1 = b2 * w1
+    tab = torch.zeros((S_MAX_KERNEL + 1, 4), dtype=dtype)
+    tjm1, tjm2 = w0, one
+    djm1, djm2 = one, torch.zeros_like(w0)
+    d2jm1, d2jm2 = torch.zeros_like(w0), torch.zeros_like(w0)
+    bjm1, bjm2 = b2, b2
+    for j in range(2, s + 1):
+        tj = 2 * w0 * tjm1 - tjm2
+        dj = 2 * w0 * djm1 - djm2 + 2 * tjm1
+        d2j = 2 * w0 * d2jm1 - d2jm2 + 4 * djm1
+        bj = d2j / (dj * dj)
+        mu = 2 * bj * w0 / bjm1
+        nu = -bj / bjm2
+        mut = 2 * bj * w1 / bjm1
+        gt = -(one - bjm1 * tjm1) * mut
+        tab[j] = torch.stack([mu, nu, mut, gt])
+        tjm1, tjm2 = tj, tjm1
+        djm1, djm2 = dj, djm1
+        d2jm1, d2jm2 = d2j, d2jm1
+        bjm1, bjm2 = bj, bjm1
+    return mu1, tab
+
+
+def static_stage_tables(s_cap: int, dtype, device="cpu"):
+    """mu1[s] (s_cap+1,) and ctab[s] (s_cap+1, S_MAX_KERNEL+1, 4) =
+    rkc_stage_coeffs(s) for every s in [2, s_cap], computed in float64
+    numpy and cast to `dtype` (crdmodel_tpu/ops/pallas_rkc.py:300-353). The
+    stage times (with_times) come with forcing (ROADMAP queue 1, item 9)."""
+    mu1 = np.zeros((s_cap + 1,), np.float64)
+    ctab = np.zeros((s_cap + 1, S_MAX_KERNEL + 1, 4), np.float64)
+    for s in range(2, s_cap + 1):
+        w0 = 1.0 + rkc.EPS_DAMP / (s * s)
+        T = np.zeros(s + 1)
+        dT = np.zeros(s + 1)
+        d2T = np.zeros(s + 1)
+        T[0], T[1] = 1.0, w0
+        dT[1] = 1.0
+        for j in range(2, s + 1):
+            T[j] = 2 * w0 * T[j - 1] - T[j - 2]
+            dT[j] = 2 * w0 * dT[j - 1] - dT[j - 2] + 2 * T[j - 1]
+            d2T[j] = 2 * w0 * d2T[j - 1] - d2T[j - 2] + 4 * dT[j - 1]
+        w1 = dT[s] / d2T[s]
+        b = np.zeros(s + 1)
+        b[0] = b[1] = 1.0 / (4.0 * w0 * w0)   # b2 = 4/(4 w0)^2
+        for j in range(2, s + 1):
+            b[j] = d2T[j] / dT[j] ** 2
+        mu1[s] = b[1] * w1
+        for j in range(2, s + 1):
+            mu = 2 * b[j] * w0 / b[j - 1]
+            nu = -b[j] / b[j - 2]
+            mut = 2 * b[j] * w1 / b[j - 1]
+            gt = -(1.0 - b[j - 1] * T[j - 1]) * mut
+            ctab[s, j] = (mu, nu, mut, gt)
+    return tuple(torch.tensor(a, dtype=dtype, device=device)
+                 for a in (mu1, ctab))
+
+
+def fused_rkc_step_reference(y, h, fz, s, mu1_tab, ctab_tab,
+                             kc: KernelConstants, rtol: float, atol: float):
+    """One step in plain torch: (y_new, ss) with ss a (1,) tensor holding
+    the sum of squared WRMS-scaled errors. Reads the stage count s (a 0-d
+    int tensor) on the host."""
+    n = int(s)
+    rhs_block = make_rhs_block(kc, fz)
+    mu1 = mu1_tab[n]
+    f0 = rhs_block(y)
+    yjm1, yjm2 = y + (h * mu1) * f0, y
+    for j in range(2, n + 1):
+        mu, nu, mut, gt = ctab_tab[n, j]
+        fy = rhs_block(yjm1)
+        yj = ((1.0 - mu - nu) * y + mu * yjm1 + nu * yjm2
+              + (h * mut) * fy + (h * gt) * f0)
+        yjm1, yjm2 = yj, yjm1
+    y_new = yjm1
+    f1 = rhs_block(y_new)
+    est = 0.8 * (y - y_new) + (0.4 * h) * (f0 + f1)
+    scaled = est * (1.0 / (rtol * torch.abs(y) + atol))
+    return y_new, torch.sum(scaled * scaled).reshape(1)
+
+
+def fused_rkc_step(y, h, fz, s, mu1_tab, ctab_tab, kc: KernelConstants,
+                   rtol: float, atol: float):
+    """One fused RKC2 step: (y_new (2, ny, nx), ss partials (n_blocks,)).
+
+    h and fz are 0-d tensors in y's dtype, s a 0-d int32 tensor, and
+    mu1_tab/ctab_tab the static_stage_tables of some s_cap <= S_MAX_KERNEL,
+    all on y's device: the kernel reads s and its table rows there, so a
+    step needs no host sync. An s outside [2, s_cap] makes the kernel
+    return NaN partial sums (a rejected step). A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises.
+    `fused_rkc_step.launches` counts kernel launches.
+    """
+    if y.device.type == "cpu":
+        return fused_rkc_step_reference(y, h, fz, s, mu1_tab, ctab_tab, kc,
+                                        rtol, atol)
+    if y.device.type != "cuda":
+        raise ValueError(f"no fused RKC step kernel for device {y.device}")
+    dtype, device = y.dtype, y.device
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the kernel takes float32 or float64, not {dtype}")
+    if y.dim() != 3 or y.shape[0] != 2:
+        raise ValueError(f"y must be (2, ny, nx), got {tuple(y.shape)}")
+    _, ny, nx = y.shape
+    s_cap = mu1_tab.shape[0] - 1
+    if not 2 <= s_cap <= S_MAX_KERNEL:
+        raise ValueError(f"tables for s_cap={s_cap}; the kernel takes "
+                         f"2..{S_MAX_KERNEL}")
+    check_tensor("y", y, y.shape, dtype, device)
+    check_tensor("h", h, (), dtype, device)
+    check_tensor("fz", fz, (), dtype, device)
+    check_tensor("s", s, (), torch.int32, device)
+    check_tensor("mu1_tab", mu1_tab, (s_cap + 1,), dtype, device)
+    check_tensor("ctab_tab", ctab_tab, (s_cap + 1, S_MAX_KERNEL + 1, 4),
+                 dtype, device)
+    check_constants(kc, ny, nx, dtype, device)
+
+    from crdmodel_tpu_torch.ops._build import load_library
+    lib = load_library()
+    tile_x, tile_y, _ = tile_plan(s_cap + 1, y.element_size())
+    n_blocks = -(-nx // tile_x) * -(-ny // tile_y)
+    y_new = torch.empty_like(y)
+    ss = torch.empty(n_blocks, dtype=dtype, device=device)
+    launch = (lib.crd_fused_rkc_step_f32 if dtype == torch.float32
+              else lib.crd_fused_rkc_step_f64)
+    rc = launch(y.data_ptr(), y_new.data_ptr(), ss.data_ptr(), h.data_ptr(),
+                fz.data_ptr(), s.data_ptr(), mu1_tab.data_ptr(),
+                ctab_tab.data_ptr(), s_cap,
+                *(c.data_ptr() for c in kc.coeffs), int(kc.kind == "torus"),
+                kc.b.data_ptr(), int(kc.b_is_field), kc.mask.data_ptr(),
+                int(kc.has_freeze), ny, nx, tile_x, tile_y, float(rtol),
+                float(atol), torch.cuda.current_stream(device).cuda_stream)
+    fused_rkc_step.launches += 1
+    if rc != 0:
+        raise RuntimeError(f"fused RKC step kernel launch failed: CUDA "
+                           f"error {rc}")
+    return y_new, ss
+
+
+fused_rkc_step.launches = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedRKCStep:
+    step_err: Callable      # (t, y, h, params, carry=()) -> (y_new, err_ss, ())
+    h_limit: Callable       # (t, y, params) -> stability-capped max h
+
+
+def build_fused_rkc_step(problem, dtype=torch.float32,
+                         rho_fn=None) -> FusedRKCStep:
+    """The fused RKC2 step of `problem` in `dtype` on its device
+    (crdmodel_tpu/ops/pallas_rkc.py:365, profile branch, one column
+    block). The freeze comes from params["_seg_end"]; t is unused (the
+    kinetics are autonomous)."""
+    cfg = problem.cfg
+    device = problem.device
+    if rho_fn is None:
+        rho_fn = make_rho_bound(cfg, problem.model, problem.geometry, dtype,
+                                diffusion_field=problem.diffusion_field,
+                                face_mask=problem.face_mask)
+    kc = prepare_constants(problem, dtype, device)
+    rtol, atol = float(cfg.rtol), float(cfg.atol)
+    t_boundary = float(cfg.t_boundary)
+    s_cap = S_MAX_KERNEL
+    mu1_tab, ctab_tab = static_stage_tables(s_cap, dtype, device)
+
+    def step_err(t, y, h, params, carry=()):
+        rho = rho_fn(t, y, params).to(dtype)
+        s = torch.clamp_max(rkc.choose_stages(h, rho), s_cap)
+        fz = freeze_scalar(params, kc.has_freeze, t_boundary, dtype)
+        y_new, ss = fused_rkc_step(y, h.to(dtype), fz, s, mu1_tab, ctab_tab,
+                                   kc, rtol, atol)
+        return y_new, torch.sum(ss), ()
+
+    def h_limit(t, y, params):
+        """Largest h the s_cap-stage budget stabilizes."""
+        rho = rho_fn(t, y, params).to(dtype)
+        return (rkc.STAB_FACTOR * (s_cap - 1) ** 2
+                / torch.clamp_min(rho, 1e-30)).to(dtype)
+
+    return FusedRKCStep(step_err=step_err, h_limit=h_limit)

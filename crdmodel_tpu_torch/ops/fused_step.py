@@ -29,17 +29,18 @@ import functools
 import torch
 
 from crdmodel_tpu_torch.integrate.erk import TABLEAUS, Tableau
-from crdmodel_tpu_torch.models import fhn
-from crdmodel_tpu_torch.ops.kernel_common import (KernelConstants,
+from crdmodel_tpu_torch.ops.kernel_common import (SMEM_BYTES,
+                                                  KernelConstants,
+                                                  check_constants,
+                                                  check_tensor,
                                                   freeze_scalar,
                                                   fused_forcing,
+                                                  make_rhs_block,
                                                   needs_divform,
                                                   prepare_constants)
-from crdmodel_tpu_torch.ops.stencil import flat_laplacian, torus_laplacian
 
 MAX_STAGES = 8                 # the kernel's StageTable bound
 TILE_X = 32                    # tile width along x (contiguous)
-SMEM_BYTES = 227 * 1024        # shared memory one H100 block may use
 
 
 def is_supported(problem, tableau: Tableau, dtype) -> bool:
@@ -86,14 +87,7 @@ def fused_step_reference(y, h, fz, kc: KernelConstants, tableau: Tableau,
     a, bw = tableau.a, tableau.b
     d = tableau.b - tableau.bhat
     n = tableau.stages
-    lap_of = torus_laplacian if kc.kind == "torus" else flat_laplacian
-    live = 1.0 - fz * (1.0 - kc.mask) if kc.has_freeze else None
-
-    def rhs_block(yi):
-        react = fhn.kinetics(yi, kc.b)
-        ydot = torch.stack([react[0] + lap_of(yi[0], kc.coeffs), react[1]])
-        return ydot * live if live is not None else ydot
-
+    rhs_block = make_rhs_block(kc, fz)
     ks = []
     for s in range(n):
         yi = y
@@ -110,17 +104,6 @@ def fused_step_reference(y, h, fz, kc: KernelConstants, tableau: Tableau,
             err = err + (h * float(d[s])) * ks[s]
     scaled = err * (1.0 / (rtol * torch.abs(y) + atol))
     return y_new, torch.sum(scaled * scaled).reshape(1)
-
-
-def _check(name, x, shape, dtype, device):
-    if x.device != device or x.dtype != dtype:
-        raise ValueError(f"{name}: {x.dtype} on {x.device}, the kernel "
-                         f"needs {dtype} on {device}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(x.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def fused_step(y, h, fz, kc: KernelConstants, tableau: Tableau,
@@ -146,13 +129,10 @@ def fused_step(y, h, fz, kc: KernelConstants, tableau: Tableau,
         raise ValueError(f"{n} stages; the kernel takes at most {MAX_STAGES}")
     _, ny, nx = y.shape
     torus = kc.kind == "torus"
-    _check("y", y, y.shape, dtype, device)
-    _check("h", h, (), dtype, device)
-    _check("fz", fz, (), dtype, device)
-    for c in kc.coeffs:
-        _check("coefficient", c, (nx,) if torus else (), dtype, device)
-    _check("beta", kc.b, (ny, 1) if kc.b_is_field else (), dtype, device)
-    _check("mask", kc.mask, (ny, 1), dtype, device)
+    check_tensor("y", y, y.shape, dtype, device)
+    check_tensor("h", h, (), dtype, device)
+    check_tensor("fz", fz, (), dtype, device)
+    check_constants(kc, ny, nx, dtype, device)
 
     from crdmodel_tpu_torch.ops._build import load_library
     lib = load_library()

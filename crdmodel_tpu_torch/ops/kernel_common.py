@@ -16,6 +16,10 @@ import numpy as np
 import torch
 
 from crdmodel_tpu_torch.core.problem import beta_field, interior_rows
+from crdmodel_tpu_torch.models import fhn
+from crdmodel_tpu_torch.ops.stencil import flat_laplacian, torus_laplacian
+
+SMEM_BYTES = 227 * 1024        # shared memory one H100 block may use
 
 
 def needs_divform(problem) -> bool:
@@ -71,6 +75,47 @@ def prepare_constants(problem, dtype, device) -> KernelConstants:
         b=beta_field(cfg, dtype, device),
         mask=interior_rows(cfg.ny, dtype, device),
         has_freeze=(float(cfg.t_boundary) > 0.0) and not cfg.just_diffusion)
+
+
+def check_tensor(name, x, shape, dtype, device):
+    """Raise unless x is a contiguous `dtype` tensor of `shape` on `device`:
+    what a kernel launcher takes."""
+    if x.device != device or x.dtype != dtype:
+        raise ValueError(f"{name}: {x.dtype} on {x.device}, the kernel "
+                         f"needs {dtype} on {device}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(x.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_constants(kc: KernelConstants, ny: int, nx: int, dtype, device):
+    """check_tensor on every constant a kernel reads."""
+    for c in kc.coeffs:
+        check_tensor("coefficient", c, (nx,) if kc.kind == "torus" else (),
+                     dtype, device)
+    check_tensor("beta", kc.b, (ny, 1) if kc.b_is_field else (), dtype,
+                 device)
+    check_tensor("mask", kc.mask, (ny, 1), dtype, device)
+
+
+def make_rhs_block(kc: KernelConstants, fz):
+    """rhs_block(y) -> ydot: the kernels' per-tile RHS in plain torch, on
+    the whole (2, ny, nx) state (crdmodel_tpu/ops/kernel_common.py:110):
+    FitzHugh–Nagumo kinetics plus the profile operator on variable 0, times
+    live = 1 - fz*(1 - mask) when the problem has a freeze. The device
+    functions of csrc/rhs_common.cuh compute the same expressions in the
+    same order."""
+    lap_of = torus_laplacian if kc.kind == "torus" else flat_laplacian
+    live = 1.0 - fz * (1.0 - kc.mask) if kc.has_freeze else None
+
+    def rhs_block(y):
+        react = fhn.kinetics(y, kc.b)
+        ydot = torch.stack([react[0] + lap_of(y[0], kc.coeffs), react[1]])
+        return ydot * live if live is not None else ydot
+
+    return rhs_block
 
 
 def freeze_scalar(params, has_freeze: bool, t_boundary: float, dtype):

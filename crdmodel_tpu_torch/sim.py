@@ -4,14 +4,16 @@ crdmodel_tpu/sim.py).
 `simulate(cfg, device)` builds the problem on `device`, integrates it over
 the Nt output intervals and returns the trajectory with the IC as row 0.
 
-Kernel selection (the counterpart of crdmodel_tpu/sim.py:77-115, 233-291):
-the ERK tableaus go through the fused step (ops/fused_step.py) when
-`cfg.use_pallas` is True, or when it is None on a CUDA device above
-PALLAS_AUTO_POINTS grid points, and ops/fused_step.py::is_supported
-accepts the problem; everything else takes the torch path
-(integrate/erk.py::make_default_step_err). On a CPU device the fused path
-runs the kernel's plain version, the counterpart of the JAX package's
-interpret=True.
+Kernel selection (the counterpart of crdmodel_tpu/sim.py:77-144, 180-291):
+a method goes through its fused step kernel when `cfg.use_pallas` is True,
+or when it is None on a CUDA device above PALLAS_AUTO_POINTS grid points,
+and the kernel's gate accepts the problem: the ERK tableaus through K1
+(ops/fused_step.py::is_supported), rkc2 through K2
+(ops/fused_rkc.py::is_rkc_supported, and under auto selection only when
+the run is not provably quiescent, _quiescent_autonomous). Everything else
+takes the torch path (integrate/erk.py::make_stepper). On a CPU device the
+fused path runs the kernel's plain version, the counterpart of the JAX
+package's interpret=True.
 """
 
 from __future__ import annotations
@@ -25,10 +27,12 @@ import torch
 
 from crdmodel_tpu_torch.config import PALLAS_AUTO_POINTS, SimConfig
 from crdmodel_tpu_torch.core.problem import (Problem, build_problem,
+                                             make_rho_bound,
                                              solver_breakpoints)
+from crdmodel_tpu_torch.integrate import rkc
 from crdmodel_tpu_torch.integrate.erk import (TABLEAUS, SolveStats,
                                               integrate_to_outputs)
-from crdmodel_tpu_torch.ops import fused_step
+from crdmodel_tpu_torch.ops import fused_rkc, fused_step
 
 STATUS_NAMES = {0: "ok", 1: "max-steps-exceeded", 2: "dt-underflow"}
 
@@ -76,34 +80,73 @@ def output_times(cfg: SimConfig) -> np.ndarray:
                       cfg.t_final)
 
 
+def _quiescent_autonomous(problem: Problem) -> bool:
+    """True when the run provably never leaves its uniform rest state
+    (crdmodel_tpu/sim.py:118-144): autonomous (no forcing), scalar beta,
+    spatially uniform ICs, and the kinetics rate at that state below
+    tolerance-rate over an output interval. Auto selection keeps such rkc2
+    runs off the fused kernel, whose stage-budget h cap would only add
+    steps there. The threshold is the JAX package's, not re-derived on a
+    GPU."""
+    cfg = problem.cfg
+    if problem.forcing is not None or cfg.vary_beta == 1:
+        return False
+    y0 = problem.y0.cpu().numpy()
+    flat = y0.reshape(y0.shape[0], -1)
+    if np.any(flat.max(axis=1) != flat.min(axis=1)):
+        return False
+    point = torch.tensor(flat[:, :1].reshape(y0.shape[0], 1, 1),
+                         dtype=getattr(torch, cfg.dtype))
+    rate = problem.model.kinetics(
+        point, torch.tensor(cfg.beta, dtype=point.dtype)).numpy().reshape(-1)
+    w = 1.0 / (cfg.rtol * np.abs(flat[:, 0]) + cfg.atol)
+    dtout = cfg.t_final / cfg.output_timestep
+    return float(np.max(np.abs(rate) * w)) * dtout < 1e-2
+
+
 def fused_eligible(problem: Problem) -> bool:
-    """Whether the fused step takes this problem's steps."""
+    """Whether a fused step kernel takes this problem's steps."""
     cfg = problem.cfg
     if cfg.use_pallas is False:
         return False
     if cfg.use_pallas is None and (problem.device.type != "cuda"
                                    or cfg.ny * cfg.nx < PALLAS_AUTO_POINTS):
         return False
-    return fused_step.is_supported(problem, TABLEAUS[cfg.method],
-                                   problem.y0.dtype)
+    dtype = problem.y0.dtype
+    if cfg.method == "rkc2":
+        if cfg.use_pallas is None and _quiescent_autonomous(problem):
+            return False
+        return fused_rkc.is_rkc_supported(problem, dtype)
+    return fused_step.is_supported(problem, TABLEAUS[cfg.method], dtype)
 
 
 def make_run_fn(problem: Problem):
     """run(y0, params) -> (traj, stats), its output times, and whether it
     takes the fused path."""
     cfg = problem.cfg
-    if cfg.method not in TABLEAUS:
-        item = 7 if cfg.method == "rkc2" else 8
-        raise NotImplementedError(f"method={cfg.method!r} is not ported yet "
-                                  f"(ROADMAP queue 1, item {item})")
+    if cfg.method == "ark324":
+        raise NotImplementedError("method='ark324' is not ported yet "
+                                  "(ROADMAP queue 1, item 8)")
     if cfg.speculative_k > 1:
         raise NotImplementedError("speculative_k is not ported yet (ROADMAP "
                                   "queue 1, item 14; kernel K14)")
     touts = output_times(cfg)
     breakpoints = solver_breakpoints(cfg)
+    dtype = problem.y0.dtype
+    rho_fn = None
+    if cfg.method == "rkc2":
+        rho_fn = make_rho_bound(cfg, problem.model, problem.geometry, dtype,
+                                diffusion_field=problem.diffusion_field,
+                                face_mask=problem.face_mask)
     kw = {}
     fused = fused_eligible(problem)
-    if fused:
+    if fused and cfg.method == "rkc2":
+        # all Chebyshev stages in one launch; h capped to the kernel's
+        # stage budget
+        frkc = fused_rkc.build_fused_rkc_step(problem, dtype, rho_fn=rho_fn)
+        kw = dict(step_err=frkc.step_err, err_order=rkc.ERR_ORDER,
+                  h_limit_fn=frkc.h_limit)
+    elif fused:
         tableau = TABLEAUS[cfg.method]
         step_err = fused_step.build_fused_step(problem, tableau)
         kw = dict(step_err=lambda t, y, h, p, carry: (*step_err(t, y, h, p), ()),
@@ -113,7 +156,8 @@ def make_run_fn(problem: Problem):
         return integrate_to_outputs(
             problem.rhs, y0, params, 0.0, touts, rtol=cfg.rtol,
             atol=cfg.atol, method=cfg.method, max_steps=cfg.max_steps,
-            breakpoints=breakpoints, step_mode=cfg.step_mode, **kw)
+            breakpoints=breakpoints, step_mode=cfg.step_mode, rho_fn=rho_fn,
+            **kw)
 
     return run, touts, fused
 

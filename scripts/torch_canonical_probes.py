@@ -2,7 +2,9 @@
 
 Runs the JAX package on the CPU, in float32 and in float64, on
 data/FHNmodelArgs.ini (400x1600 torus, beta ramp, tBoundary=38, Tf=50,
-bs32, rtol 1e-5) and writes tests/golden/torch_canonical_fhn_probes.npz:
+rtol 1e-5) with the ini's method (bs32) or with --method rkc2, and writes
+tests/golden/torch_canonical_fhn_probes.npz (bs32) or
+tests/golden/torch_canonical_fhn_<method>_probes.npz:
 
   steps_f32, accepted_f32, rejected_f32   per output interval, JAX f32 run
   steps_f64, accepted_f64, rejected_f64   the same for the f64 run
@@ -11,12 +13,14 @@ bs32, rtol 1e-5) and writes tests/golden/torch_canonical_fhn_probes.npz:
                                           point at every output time, IC first
   touts                                   (21,) output times, 0 first
 
-chip_smoke.py holds the port's run on the card against these numbers. Each
-run takes a few minutes on a CPU:
+chip_smoke.py holds the port's runs on the card against these numbers. On
+the CPU the JAX package takes its XLA path (no Pallas kernel). Each run
+takes a few minutes on a CPU:
 
-    python scripts/torch_canonical_probes.py
+    python scripts/torch_canonical_probes.py [--method rkc2]
 """
 
+import argparse
 import dataclasses
 import os
 import sys
@@ -36,9 +40,16 @@ from crdmodel_tpu.config import config_from_ini  # noqa: E402
 from crdmodel_tpu.sim import simulate  # noqa: E402
 
 INI = os.path.join(ROOT, "data", "FHNmodelArgs.ini")
-OUT = os.path.join(ROOT, "tests", "golden", "torch_canonical_fhn_probes.npz")
+GOLDEN = os.path.join(ROOT, "tests", "golden")
 N_PROBES = 64
 PROBE_SEED = 20261016
+
+
+def out_path(method: str) -> str:
+    """The probe file of a method; the ini's own method (bs32) keeps the
+    original name."""
+    tag = "" if method == "bs32" else f"_{method}"
+    return os.path.join(GOLDEN, f"torch_canonical_fhn{tag}_probes.npz")
 
 
 def probe_points(nvars, ny, nx):
@@ -51,7 +62,11 @@ def probe_points(nvars, ny, nx):
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--method", default="bs32", choices=("bs32", "rkc2"))
+    method = ap.parse_args().method
     base = config_from_ini(INI, model="fhn", surface="torus")
+    base = dataclasses.replace(base, method=method)
     var, j, i = probe_points(2, base.ny, base.nx)
     out = {"probe_var": var, "probe_j": j, "probe_i": i}
     for dtype, tag in (("float32", "f32"), ("float64", "f64")):
@@ -67,9 +82,10 @@ def main():
         out[f"rejected_{tag}"] = np.asarray(res.stats.rejected)
         out["touts"] = np.asarray(res.touts)
         print(f"{tag}: {res.describe()} (CPU wall {wall:.1f} s)", flush=True)
-    np.savez_compressed(OUT, **out)
+    path = out_path(method)
+    np.savez_compressed(path, **out)
     gap = np.abs(out["probes_f32"] - out["probes_f64"]).max()
-    print(f"wrote {OUT}; max |f32 - f64| over the probes = {gap:.3e}")
+    print(f"wrote {path}; max |f32 - f64| over the probes = {gap:.3e}")
 
 
 if __name__ == "__main__":
