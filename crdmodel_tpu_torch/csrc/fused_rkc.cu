@@ -121,8 +121,9 @@ __global__ void __launch_bounds__(kThreads) fused_rkc_step_kernel(
       const int ly = 1 + q / w, lx = 1 + q % w;
       const int p = ly * W + lx;
       T du, dv;
-      crd::fhn_profile_rhs(k, fz, y0u, y0v, p, W, wrap(gy0 + ly, ny),
-                           wrap(gx0 + lx, nx), du, dv);
+      crd::profile_rhs<crd::kFhn>(k, fz, y0u, y0v, p, W,
+                                  wrap(gy0 + ly, ny), wrap(gx0 + lx, nx),
+                                  du, dv);
       f0u[p] = du;
       f0v[p] = dv;
       au[p] = y0u[p] + hmu1 * du;
@@ -149,8 +150,8 @@ __global__ void __launch_bounds__(kThreads) fused_rkc_step_kernel(
       const int ly = j + q / w, lx = j + q % w;
       const int p = ly * W + lx;
       T fu, fv;
-      crd::fhn_profile_rhs(k, fz, cu, cv, p, W, wrap(gy0 + ly, ny),
-                           wrap(gx0 + lx, nx), fu, fv);
+      crd::profile_rhs<crd::kFhn>(k, fz, cu, cv, p, W, wrap(gy0 + ly, ny),
+                                  wrap(gx0 + lx, nx), fu, fv);
       const T yju = cy0 * y0u[p] + mu * cu[p] + nu * pu[p] + hmut * fu
                     + hgt * f0u[p];
       const T yjv = cy0 * y0v[p] + mu * cv[p] + nu * pv[p] + hmut * fv
@@ -179,7 +180,7 @@ __global__ void __launch_bounds__(kThreads) fused_rkc_step_kernel(
     if (gy >= ny || gx >= nx) continue;
     const int p = (ty + halo) * W + tx + halo;
     T f1u, f1v;
-    crd::fhn_profile_rhs(k, fz, cu, cv, p, W, gy, gx, f1u, f1v);
+    crd::profile_rhs<crd::kFhn>(k, fz, cu, cv, p, W, gy, gx, f1u, f1v);
     const T yu = cu[p], yv = cv[p];
     const size_t g = static_cast<size_t>(gy) * nx + gx;
     y_new[g] = yu;

@@ -1,8 +1,9 @@
 // Fused embedded-ERK step of the 5-point profile operator with
-// FitzHugh-Nagumo kinetics (kernel K1 of the port).
+// FitzHugh-Nagumo or Goldbeter kinetics (kernel K1 of the port).
 //
 // Replaces crdmodel_tpu/ops/pallas_step.py::build_fused_step, the Pallas TPU
-// kernel that takes every attempted step of the canonical FHN torus run.
+// kernel that takes every attempted step of the canonical FHN and Goldbeter
+// torus runs with their own method, bs32.
 // One launch performs a whole step: every stage's stencil and kinetics, the
 // solution update, and one partial sum of squared WRMS-scaled errors per
 // thread block. The caller sums the partials (no float atomics, so two
@@ -24,7 +25,8 @@
 // fused_step_reference) operation for operation, and the library is built
 // with -fmad=false so that no multiply and add are contracted: each
 // operation rounds as PyTorch's does. The RHS at a point is the shared
-// device function of rhs_common.cuh. No tensor cores, TMA or tuning yet.
+// device function of rhs_common.cuh, with the kinetics family a template
+// parameter (one instance per family). No tensor cores, TMA or tuning yet.
 
 #include <cuda_runtime.h>
 
@@ -44,7 +46,7 @@ struct StageTable {
   double d[kMaxStages];   // b - bhat
 };
 
-template <typename T>
+template <int Kin, typename T>
 __global__ void __launch_bounds__(kThreads) fused_erk_step_kernel(
     const T* __restrict__ y, T* __restrict__ y_new, T* __restrict__ ss,
     const T* __restrict__ h_ptr, const T* __restrict__ fz_ptr,
@@ -110,7 +112,7 @@ __global__ void __launch_bounds__(kThreads) fused_erk_step_kernel(
       const int ly = dep + q / w, lx = dep + q % w;
       const int p = ly * W + lx;
       const int gy = wrap(gy0 + ly, ny), gx = wrap(gx0 + lx, nx);
-      crd::fhn_profile_rhs(k, fz, su, sv, p, W, gy, gx, ku[p], kv[p]);
+      crd::profile_rhs<Kin>(k, fz, su, sv, p, W, gy, gx, ku[p], kv[p]);
     }
     __syncthreads();
   }
@@ -153,11 +155,12 @@ template <typename T>
 int launch(const void* y, void* y_new, void* ss, const void* h,
            const void* fz, const void* c0, const void* c1, const void* c2,
            int torus, const void* beta, int beta_field, const void* mask,
-           int has_freeze, int ny, int nx, int tile_x, int tile_y,
-           int n_stages, const double* a, const double* b, const double* d,
-           double rtol, double atol, void* stream) {
+           int has_freeze, int kinetics, int ny, int nx, int tile_x,
+           int tile_y, int n_stages, const double* a, const double* b,
+           const double* d, double rtol, double atol, void* stream) {
   if (n_stages < 1 || n_stages > kMaxStages || ny < 1 || nx < 1
-      || tile_x < 1 || tile_y < 1)
+      || tile_x < 1 || tile_y < 1
+      || (kinetics != crd::kFhn && kinetics != crd::kGoldbeter))
     return static_cast<int>(cudaErrorInvalidValue);
   StageTable tab = {};
   tab.n = n_stages;
@@ -169,8 +172,11 @@ int launch(const void* y, void* y_new, void* ss, const void* h,
   const size_t smem = static_cast<size_t>(2 * n_stages + 4)
                       * (tile_x + 2 * n_stages) * (tile_y + 2 * n_stages)
                       * sizeof(T);
+  auto kernel = kinetics == crd::kFhn
+                    ? &fused_erk_step_kernel<crd::kFhn, T>
+                    : &fused_erk_step_kernel<crd::kGoldbeter, T>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_erk_step_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((nx + tile_x - 1) / tile_x, (ny + tile_y - 1) / tile_y);
@@ -178,8 +184,7 @@ int launch(const void* y, void* y_new, void* ss, const void* h,
       static_cast<const T*>(c0), static_cast<const T*>(c1),
       static_cast<const T*>(c2), torus, static_cast<const T*>(beta),
       beta_field, static_cast<const T*>(mask), has_freeze};
-  fused_erk_step_kernel<T><<<grid, kThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(y), static_cast<T*>(y_new), static_cast<T*>(ss),
       static_cast<const T*>(h), static_cast<const T*>(fz), k, ny, nx,
       tile_x, tile_y, tab, static_cast<T>(rtol), static_cast<T>(atol));
@@ -192,13 +197,13 @@ int launch(const void* y, void* y_new, void* ss, const void* h,
   const void *y, void *y_new, void *ss, const void *h, const void *fz,      \
       const void *c0, const void *c1, const void *c2, int torus,            \
       const void *beta, int beta_field, const void *mask, int has_freeze,   \
-      int ny, int nx, int tile_x, int tile_y, int n_stages, const double *a, \
-      const double *b, const double *d, double rtol, double atol,           \
-      void *stream
+      int kinetics, int ny, int nx, int tile_x, int tile_y, int n_stages,   \
+      const double *a, const double *b, const double *d, double rtol,       \
+      double atol, void *stream
 #define CRD_FUSED_STEP_PASS                                                  \
   y, y_new, ss, h, fz, c0, c1, c2, torus, beta, beta_field, mask,           \
-      has_freeze, ny, nx, tile_x, tile_y, n_stages, a, b, d, rtol, atol,    \
-      stream
+      has_freeze, kinetics, ny, nx, tile_x, tile_y, n_stages, a, b, d,      \
+      rtol, atol, stream
 
 extern "C" int crd_fused_erk_step_f32(CRD_FUSED_STEP_ARGS) {
   return launch<float>(CRD_FUSED_STEP_PASS);

@@ -1,11 +1,15 @@
 // Device functions shared by the port's fused step kernels (K1
-// fused_step.cu, K2 fused_rkc.cu): the periodic wrap, and the right-hand
-// side at one point of a tile held in shared memory, the 5-point profile
-// operator on variable 0 plus FitzHugh-Nagumo kinetics, times the row
-// freeze. Counterpart of crdmodel_tpu/ops/kernel_common.py::make_rhs_block;
-// the plain torch version is ops/kernel_common.py::make_rhs_block, and the
-// expressions below keep its association order, so that a kernel built with
-// -fmad=false rounds as PyTorch does.
+// fused_step.cu, K2 fused_rkc.cu, K3 fused_imex.cu): the periodic wrap,
+// the 5-point profile operator on variable 0, the kinetics of each ported
+// family and their closed-form Jacobians, the RHS at one point of a tile
+// held in shared memory, and the per-block partial sum. Counterpart of
+// crdmodel_tpu/ops/kernel_common.py::make_rhs_block and make_split_block;
+// the plain torch versions are ops/kernel_common.py::make_rhs_block and
+// make_split_block, models/fhn.py and models/goldbeter.py, and the
+// expressions below keep their association order, so that a kernel built
+// with -fmad=false rounds as PyTorch does. The constants fold in double,
+// as the Python expressions fold before they meet a tensor, and are cast
+// to T once.
 
 #pragma once
 
@@ -13,7 +17,25 @@
 
 namespace crd {
 
+// The kinetics families with a device function; the ids are
+// ops/kernel_common.py::KINETICS_IDS.
+enum Kinetics { kFhn = 0, kGoldbeter = 1 };
+
 constexpr double kFhnEpsilon = 0.36;   // models/fhn.py EPSILON
+
+// models/goldbeter.py constants, and the products its expressions fold
+constexpr double kGbV0 = 1.0;
+constexpr double kGbK = 10.0;
+constexpr double kGbKF = 1.0;
+constexpr double kGbV1 = 7.3;
+constexpr double kGbVM2 = 65.0;
+constexpr double kGbVM3 = 500.0;
+constexpr double kGbK2sq = 1.0 * 1.0;            // K2 * K2
+constexpr double kGbKRsq = 2.0 * 2.0;            // KR * KR
+constexpr double kGbKA4 = 0.6561;    // KA ** 4, Python's pow(0.9, 4) in double
+constexpr double kGbDv2 = 2.0 * 65.0 * (1.0 * 1.0);   // 2 VM2 (K2 K2)
+constexpr double kGbDv3z = 4.0 * 500.0;               // 4 VM3
+constexpr double kGbDv3y = 2.0 * 500.0;               // 2 VM3
 
 __device__ __forceinline__ int wrap(int i, int n) {
   i %= n;
@@ -35,27 +57,98 @@ struct RhsConstants {
   int has_freeze;
 };
 
-// ydot = f(u, v) at local point p of a region with row stride W, whose
-// global indices are (gy, gx); fz is the freeze scalar of the segment.
+// The profile operator at local point p of a region with row stride W
+// holding variable 0; gx is p's global column.
 template <typename T>
-__device__ __forceinline__ void fhn_profile_rhs(
-    const RhsConstants<T>& k, T fz, const T* su, const T* sv, int p, int W,
-    int gy, int gx, T& du_out, T& dv_out) {
-  const T u = su[p], v = sv[p];
+__device__ __forceinline__ T profile_lap(const RhsConstants<T>& k,
+                                         const T* su, int p, int W, int gx) {
+  const T u = su[p];
   const T uw = su[p - 1], ue = su[p + 1];
   const T us = su[p - W], un = su[p + W];
-  T lap;
-  if (k.torus) {
-    lap = k.c0[gx] * (ue - uw) + k.c1[gx] * (ue - T(2) * u + uw)
-          + k.c2[gx] * (un - T(2) * u + us);
+  if (k.torus)
+    return k.c0[gx] * (ue - uw) + k.c1[gx] * (ue - T(2) * u + uw)
+           + k.c2[gx] * (un - T(2) * u + us);
+  return k.c0[0] * (uw + ue) + k.c1[0] * (us + un) + k.c2[0] * u;
+}
+
+template <typename T>
+__device__ __forceinline__ T beta_at(const RhsConstants<T>& k, int gy) {
+  return k.beta_field ? k.beta[gy] : k.beta[0];
+}
+
+// live = 1 - fz*(1 - mask) on row gy: 0 on a frozen edge row, else 1
+template <typename T>
+__device__ __forceinline__ T live_at(const RhsConstants<T>& k, T fz, int gy) {
+  return T(1) - fz * (T(1) - k.mask[gy]);
+}
+
+// The kinetics (du, dv) = f(u, v; b): models/fhn.py and
+// models/goldbeter.py::kinetics.
+template <int Kin, typename T>
+__device__ __forceinline__ void kinetics(T u, T v, T b, T& du, T& dv) {
+  if (Kin == kFhn) {
+    du = T(3) * u - u * u * u - v;
+    dv = static_cast<T>(kFhnEpsilon) * (u + b);
   } else {
-    lap = k.c0[0] * (uw + ue) + k.c1[0] * (us + un) + k.c2[0] * u;
+    const T Z = u, Y = v;
+    const T Zn = Z * Z;
+    const T v2 = static_cast<T>(kGbVM2) * Zn / (static_cast<T>(kGbK2sq) + Zn);
+    const T Ym = Y * Y;
+    const T Z2 = Z * Z;
+    const T Zp = Z2 * Z2;
+    const T v3 = static_cast<T>(kGbVM3) * Ym * Zp
+                 / ((static_cast<T>(kGbKRsq) + Ym)
+                    * (static_cast<T>(kGbKA4) + Zp));
+    du = static_cast<T>(kGbV0) + static_cast<T>(kGbV1) * b - v2 + v3
+         + static_cast<T>(kGbKF) * Y - static_cast<T>(kGbK) * Z;
+    dv = v2 - v3 - static_cast<T>(kGbKF) * Y;
   }
-  const T b = k.beta_field ? k.beta[gy] : k.beta[0];
-  T du = (T(3) * u - u * u * u - v) + lap;
-  T dv = static_cast<T>(kFhnEpsilon) * (u + b);
+}
+
+// The kinetics Jacobian j = [[j00, j01], [j10, j11]] at (u, v):
+// models/fhn.py and models/goldbeter.py::jacobian (b does not enter).
+template <int Kin, typename T>
+__device__ __forceinline__ void jacobian(T u, T v, T& j00, T& j01, T& j10,
+                                         T& j11) {
+  if (Kin == kFhn) {
+    j00 = T(3) - T(3) * (u * u);
+    j01 = T(-1);
+    j10 = static_cast<T>(kFhnEpsilon);
+    j11 = T(0);
+  } else {
+    const T Z = u, Y = v;
+    const T Z2 = Z * Z;
+    const T Z4 = Z2 * Z2;
+    const T Y2 = Y * Y;
+    const T dz = static_cast<T>(kGbK2sq) + Z2;
+    const T dv2 = static_cast<T>(kGbDv2) * Z / (dz * dz);
+    const T gY = Y2 / (static_cast<T>(kGbKRsq) + Y2);
+    const T gZ = Z4 / (static_cast<T>(kGbKA4) + Z4);
+    const T ez = static_cast<T>(kGbKA4) + Z4;
+    const T dv3z = static_cast<T>(kGbDv3z) * gY * static_cast<T>(kGbKA4) * Z
+                   * Z2 / (ez * ez);
+    const T ey = static_cast<T>(kGbKRsq) + Y2;
+    const T dv3y = static_cast<T>(kGbDv3y) * gZ * static_cast<T>(kGbKRsq) * Y
+                   / (ey * ey);
+    j00 = -dv2 + dv3z - static_cast<T>(kGbK);
+    j01 = dv3y + static_cast<T>(kGbKF);
+    j10 = dv2 - dv3z;
+    j11 = -dv3y - static_cast<T>(kGbKF);
+  }
+}
+
+// ydot = f(u, v) at local point p of a region with row stride W, whose
+// global indices are (gy, gx); fz is the freeze scalar of the segment.
+template <int Kin, typename T>
+__device__ __forceinline__ void profile_rhs(
+    const RhsConstants<T>& k, T fz, const T* su, const T* sv, int p, int W,
+    int gy, int gx, T& du_out, T& dv_out) {
+  const T lap = profile_lap(k, su, p, W, gx);
+  T du, dv;
+  kinetics<Kin>(su[p], sv[p], beta_at(k, gy), du, dv);
+  du = du + lap;
   if (k.has_freeze) {
-    const T live = T(1) - fz * (T(1) - k.mask[gy]);
+    const T live = live_at(k, fz, gy);
     du = du * live;
     dv = dv * live;
   }

@@ -16,10 +16,11 @@ masked no-op once the interval is done, so the host reads the loop
 condition only once every `sync_every` iterations: a block of iterations
 may run past the end, and those iterations change nothing.
 
-Ported: scalar mode with step_mode="tstop", the ERK tableaus and RKC2
-(integrate/rkc.py, with the h cap h_limit_fn). Not ported yet (ROADMAP
-queue 1, item 14): member batching, speculative K-step batching, ARK_NORMAL
-mode and sync_fn (ensembles); the ark324 IMEX pair (item 8).
+Ported: scalar mode with step_mode="tstop", the ERK tableaus, RKC2
+(integrate/rkc.py, with the h cap h_limit_fn) and the ark324 IMEX pair
+(integrate/imex.py). Not ported yet (ROADMAP queue 1, item 14): member
+batching, speculative K-step batching, ARK_NORMAL mode and sync_fn
+(ensembles).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from crdmodel_tpu_torch.integrate import rkc
+from crdmodel_tpu_torch.integrate import imex, rkc
 
 
 @dataclasses.dataclass(frozen=True)
@@ -300,18 +301,22 @@ def integrate_interval(step_err, t0, y0, h_init, err_prev_init, tout, params,
     return t, y, h, ep, (nstep, nacc, nrej, status)
 
 
-def make_stepper(method, rhs, rtol, atol, rho_fn=None):
-    """(step_err, init_carry, err_order) of a method name: the ERK tableaus
-    and rkc2 (crdmodel_tpu/integrate/erk.py:737-762). ark324 is not ported
-    yet (ROADMAP queue 1, item 8)."""
+def make_stepper(method, rhs, rtol, atol, rho_fn=None, rhs_split=None):
+    """(step_err, init_carry, err_order) of a method name: the ERK tableaus,
+    rkc2 and ark324 (crdmodel_tpu/integrate/erk.py:737-762). rhs_split:
+    (f_ex, f_im), the explicit and implicit parts summing to rhs, which
+    ark324 needs (core/problem.py::make_rhs(split=True))."""
     if method == "rkc2":
         if rho_fn is None:
             raise ValueError("method 'rkc2' needs rho_fn")
         step_err, init_carry = rkc.make_rkc2_step_err(rhs, rho_fn, rtol, atol)
         return step_err, init_carry, rkc.ERR_ORDER
     if method == "ark324":
-        raise NotImplementedError("method 'ark324' is not ported yet "
-                                  "(ROADMAP queue 1, item 8)")
+        if rhs_split is None:
+            raise ValueError("method 'ark324' needs rhs_split=(f_ex, f_im)")
+        step_err, init_carry = imex.make_imex_step_err(
+            rhs_split[0], rhs_split[1], rtol, atol)
+        return step_err, init_carry, imex.ERR_ORDER
     tableau = TABLEAUS[method] if isinstance(method, str) else method
     step_err, init_carry = make_default_step_err(tableau, rhs, rtol, atol)
     return step_err, init_carry, tableau.err_order
@@ -344,7 +349,7 @@ def integrate_to_outputs(rhs, y0, params, t0, touts, *, rtol, atol,
                          breakpoints=(), step_err=None, init_carry=None,
                          err_order=None, step_mode="tstop", n_members=0,
                          spec_k=0, kstep_call=None, rho_fn=None,
-                         h_limit_fn=None, sync_fn=None,
+                         h_limit_fn=None, rhs_split=None, sync_fn=None,
                          sync_every=SYNC_EVERY):
     """Integrate through each output time and return the state at each
     (reference src/FHNmodel_torus.cpp:413-478).
@@ -354,11 +359,12 @@ def integrate_to_outputs(rhs, y0, params, t0, touts, *, rtol, atol,
     breakpoints: times where the RHS is discontinuous in t; integration
     stops exactly there and the sub-interval's stats join the next output
     interval. step_err/init_carry: a caller-supplied stepper (the fused
-    kernels, ops/fused_step.py and ops/fused_rkc.py) in place of the
-    torch-path stepper; h0 is always estimated on the plain y0 through rhs.
-    rho_fn: the spectral-radius bound the rkc2 stepper needs
-    (core/problem.py::make_rho_bound). h_limit_fn(t, y, params): a hard cap
-    on every attempted step, h0 included.
+    kernels, ops/fused_step.py, ops/fused_rkc.py and ops/fused_imex.py) in
+    place of the torch-path stepper; h0 is always estimated on the plain y0
+    through the composed rhs. rho_fn: the spectral-radius bound the rkc2
+    stepper needs (core/problem.py::make_rho_bound). h_limit_fn(t, y,
+    params): a hard cap on every attempted step, h0 included. rhs_split:
+    the (f_ex, f_im) pair the ark324 stepper needs.
     """
     unported = {"n_members": n_members, "spec_k": spec_k,
                 "kstep_call": kstep_call, "sync_fn": sync_fn}
@@ -374,7 +380,7 @@ def integrate_to_outputs(rhs, y0, params, t0, touts, *, rtol, atol,
         global_size = y0.numel()
     if step_err is None:
         step_err, init_carry, err_order = make_stepper(method, rhs, rtol,
-                                                       atol, rho_fn)
+                                                       atol, rho_fn, rhs_split)
     else:
         if err_order is None:
             err_order = TABLEAUS[method].err_order

@@ -1,5 +1,6 @@
 from crdmodel_tpu_torch.models.base import (ReactionModel, get_model,
                                             register_model)
-from crdmodel_tpu_torch.models import fhn  # noqa: F401  (registers the model)
+# importing a model module registers it
+from crdmodel_tpu_torch.models import fhn, goldbeter  # noqa: F401
 
 __all__ = ["ReactionModel", "get_model", "register_model"]

@@ -1,7 +1,7 @@
 """Reaction-model registry (counterpart of crdmodel_tpu/models/base.py).
 
-A model is data: a pair of pure functions (kinetics, steady_state)
-registered by name. Kinetics take no time argument (the JAX package's
+A model is data: pure functions (kinetics, steady_state, and the
+port-only closed-form jacobian) registered by name. Kinetics take no time argument (the JAX package's
 AUTONOMY CONTRACT, crdmodel_tpu/models/base.py:17-27): the fused step
 kernel evaluates them without stage times.
 """
@@ -32,8 +32,14 @@ class ReactionModel:
     diffusive_vars: Tuple[int, ...] = (0,)
     diffusion_ratios: Tuple[float, ...] = (1.0,)
     # jac_bound(state, b) -> pointwise Gershgorin bound on the kinetics
-    # Jacobian's spectral radius (for RKC2, not ported yet)
+    # Jacobian's spectral radius (RKC2's rho, core/problem.py::make_rho_bound)
     jac_bound: Callable = None
+    # jacobian(state, b) -> (nvars, nvars, ...) the kinetics Jacobian in
+    # closed form at every point. Port-only: the JAX package differentiates
+    # the kinetics (integrate/imex.py::pointwise_jacobian), and CUDA has no
+    # autodiff, so the fused IMEX kernel (csrc/fused_imex.cu) evaluates
+    # these expressions and its plain version (ops/fused_imex.py) calls this
+    jacobian: Callable = None
 
 
 _REGISTRY: Dict[str, ReactionModel] = {}
@@ -48,8 +54,7 @@ def get_model(name: str) -> ReactionModel:
     if name in _REGISTRY:
         return _REGISTRY[name]
     if name in MODEL_NAMES:
-        item = 5 if name == "goldbeter" else 6
         raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP queue 1, item "
-            f"{item}); ported: {sorted(_REGISTRY)}")
+            f"model {name!r} is not ported yet (ROADMAP queue 1, item 6); "
+            f"ported: {sorted(_REGISTRY)}")
     raise KeyError(f"unknown model {name!r}; registered: {sorted(_REGISTRY)}")

@@ -3,8 +3,8 @@
     u' = 3u - u^3 - v
     v' = eps (u + b),   eps = 0.36
 
-The fused step kernel (csrc/fused_step.cu, fhn_rates) carries the same
-expressions in the same association order.
+The fused kernels carry the same expressions in the same association order
+(csrc/rhs_common.cuh, crd::kinetics and crd::jacobian).
 """
 
 from __future__ import annotations
@@ -38,6 +38,17 @@ def jac_bound(state, b):
     return torch.clamp_min(row1, EPSILON)
 
 
+def jacobian(state, b):
+    """The kinetics Jacobian J = [[3 - 3u^2, -1], [eps, 0]] at every
+    point, (2, 2, ...); b does not enter. 3 - 3(u u) rounds as forward-mode
+    AD of the kinetics does (the tangent of (u u) u is 2(u u) + u u), so the
+    fused IMEX kernel's Newton iterates follow the JAX package's."""
+    u = state[0]
+    return torch.stack([
+        torch.stack([3.0 - 3.0 * (u * u), torch.full_like(u, -1.0)]),
+        torch.stack([torch.full_like(u, EPSILON), torch.zeros_like(u)])])
+
+
 MODEL = register_model(
     ReactionModel(
         name="fhn",
@@ -46,5 +57,6 @@ MODEL = register_model(
         kinetics=kinetics,
         steady_state=steady_state,
         jac_bound=jac_bound,
+        jacobian=jacobian,
     )
 )

@@ -34,18 +34,24 @@ _INT = ctypes.c_int
 _DOUBLE = ctypes.c_double
 _DOUBLEP = ctypes.POINTER(ctypes.c_double)
 
-# C signature of each exported launcher (csrc/fused_step.cu, fused_rkc.cu)
+# C signature of each exported launcher (csrc/fused_step.cu, fused_rkc.cu,
+# fused_imex.cu)
 _FUSED_STEP_ARGTYPES = ([_VOIDP] * 8 + [_INT, _VOIDP, _INT, _VOIDP]
-                        + [_INT] * 6 + [_DOUBLEP] * 3
+                        + [_INT] * 7 + [_DOUBLEP] * 3
                         + [_DOUBLE, _DOUBLE, _VOIDP])
 _FUSED_RKC_ARGTYPES = ([_VOIDP] * 8 + [_INT] + [_VOIDP] * 3
                        + [_INT, _VOIDP, _INT, _VOIDP] + [_INT] * 5
                        + [_DOUBLE, _DOUBLE, _VOIDP])
+_FUSED_IMEX_ARGTYPES = ([_VOIDP] * 8 + [_INT, _VOIDP, _INT, _VOIDP]
+                        + [_INT] * 6 + [_DOUBLEP] * 4
+                        + [_DOUBLE] * 3 + [_VOIDP])
 SIGNATURES = {
     "crd_fused_erk_step_f32": _FUSED_STEP_ARGTYPES,
     "crd_fused_erk_step_f64": _FUSED_STEP_ARGTYPES,
     "crd_fused_rkc_step_f32": _FUSED_RKC_ARGTYPES,
     "crd_fused_rkc_step_f64": _FUSED_RKC_ARGTYPES,
+    "crd_fused_imex_step_f32": _FUSED_IMEX_ARGTYPES,
+    "crd_fused_imex_step_f64": _FUSED_IMEX_ARGTYPES,
 }
 
 

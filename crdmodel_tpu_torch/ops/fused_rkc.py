@@ -54,8 +54,9 @@ TILES = ((32, 32), (32, 16), (16, 16), (16, 8), (8, 8))
 
 def is_rkc_supported(problem, dtype) -> bool:
     """The kernel's gate (crdmodel_tpu/ops/pallas_rkc.py:218) without the
-    TPU strip plan, plus one port-only rule, as for K1: FitzHugh–Nagumo
-    kinetics with reaction."""
+    TPU strip plan, plus one port-only rule: FitzHugh–Nagumo kinetics with
+    reaction (the kernel instantiates only the FHN device function; its
+    Goldbeter instance is ROADMAP queue 2, K2)."""
     if fused_forcing(problem) is not None:
         return False            # the kernel takes no forcing yet (item 9)
     if dtype != torch.float32:
@@ -209,6 +210,9 @@ def fused_rkc_step(y, h, fz, s, mu1_tab, ctab_tab, kc: KernelConstants,
     check_tensor("ctab_tab", ctab_tab, (s_cap + 1, S_MAX_KERNEL + 1, 4),
                  dtype, device)
     check_constants(kc, ny, nx, dtype, device)
+    if kc.model.name != "fhn":
+        raise ValueError(f"the RKC2 kernel has FitzHugh–Nagumo kinetics only, "
+                         f"not {kc.model.name!r} (ROADMAP queue 2, K2)")
 
     from crdmodel_tpu_torch.ops._build import load_library
     lib = load_library()

@@ -2,10 +2,11 @@
 crdmodel_tpu/ops/pallas_step.py).
 
 One launch performs a whole embedded Runge–Kutta step of the 5-point
-profile operator with FitzHugh–Nagumo kinetics: every stage's stencil and
-kinetics, the solution update, and per-block partial sums of squared
-WRMS-scaled errors (csrc/fused_step.cu). It takes every attempted step of
-a run on the fused path (sim.py).
+profile operator with FitzHugh–Nagumo or Goldbeter kinetics (a template
+parameter of the kernel, KernelConstants.kinetics_id): every stage's
+stencil and kinetics, the solution update, and per-block partial sums of
+squared WRMS-scaled errors (csrc/fused_step.cu). It takes every attempted
+step of a run on the fused path (sim.py).
 
   fused_step            the wrapper: launches the CUDA kernel for a CUDA
                         tensor, runs fused_step_reference for a CPU tensor
@@ -29,7 +30,7 @@ import functools
 import torch
 
 from crdmodel_tpu_torch.integrate.erk import TABLEAUS, Tableau
-from crdmodel_tpu_torch.ops.kernel_common import (SMEM_BYTES,
+from crdmodel_tpu_torch.ops.kernel_common import (KINETICS_IDS, SMEM_BYTES,
                                                   KernelConstants,
                                                   check_constants,
                                                   check_tensor,
@@ -45,9 +46,9 @@ TILE_X = 32                    # tile width along x (contiguous)
 
 def is_supported(problem, tableau: Tableau, dtype) -> bool:
     """The kernel's gate (crdmodel_tpu/ops/pallas_step.py:89), without the
-    TPU strip-divisor rule, plus one port-only rule: FitzHugh–Nagumo
-    kinetics with reaction (the only kinetics device function so far,
-    ROADMAP queue 1, items 5-6)."""
+    TPU strip-divisor rule, plus one port-only rule: kinetics with a device
+    function (FitzHugh–Nagumo or Goldbeter, KINETICS_IDS) and reaction on
+    (the other families come with ROADMAP queue 1, item 6)."""
     if needs_divform(problem):
         return False
     if fused_forcing(problem) is not None:
@@ -56,7 +57,8 @@ def is_supported(problem, tableau: Tableau, dtype) -> bool:
         return False
     if tableau.stages > MAX_STAGES:
         return False
-    return problem.model.name == "fhn" and not problem.cfg.just_diffusion
+    return (problem.model.name in KINETICS_IDS
+            and not problem.cfg.just_diffusion)
 
 
 def tile_plan(n_stages: int, itemsize: int):
@@ -146,8 +148,8 @@ def fused_step(y, h, fz, kc: KernelConstants, tableau: Tableau,
     rc = launch(y.data_ptr(), y_new.data_ptr(), ss.data_ptr(), h.data_ptr(),
                 fz.data_ptr(), *(c.data_ptr() for c in kc.coeffs),
                 int(torus), kc.b.data_ptr(), int(kc.b_is_field),
-                kc.mask.data_ptr(), int(kc.has_freeze), ny, nx, tile_x,
-                tile_y, n, a, b, d, float(rtol), float(atol),
+                kc.mask.data_ptr(), int(kc.has_freeze), kc.kinetics_id, ny,
+                nx, tile_x, tile_y, n, a, b, d, float(rtol), float(atol),
                 torch.cuda.current_stream(device).cuda_stream)
     fused_step.launches += 1
     if rc != 0:

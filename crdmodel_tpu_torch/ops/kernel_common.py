@@ -5,7 +5,9 @@ The JAX package lane-pads every constant for its TPU layout; here the
 state stays (nvars, ny, nx), contiguous and unpadded, and the constants
 keep their natural shapes: the coefficient profiles (nx,) on the torus or
 three 0-d scalars on the flat surface, beta as a 0-d scalar or an (ny, 1)
-field, and the (ny, 1) interior-row mask.
+field, and the (ny, 1) interior-row mask. The kinetics family travels to
+the device code as an integer id (KINETICS_IDS, the Kinetics enum of
+csrc/rhs_common.cuh).
 """
 
 from __future__ import annotations
@@ -16,10 +18,12 @@ import numpy as np
 import torch
 
 from crdmodel_tpu_torch.core.problem import beta_field, interior_rows
-from crdmodel_tpu_torch.models import fhn
 from crdmodel_tpu_torch.ops.stencil import flat_laplacian, torus_laplacian
 
 SMEM_BYTES = 227 * 1024        # shared memory one H100 block may use
+# the kinetics families with a device function (csrc/rhs_common.cuh, enum
+# Kinetics): model name -> the id the launchers pass to the kernels
+KINETICS_IDS = {"fhn": 0, "goldbeter": 1}
 
 
 def needs_divform(problem) -> bool:
@@ -58,10 +62,19 @@ class KernelConstants:
     b: torch.Tensor           # 0-d scalar or (ny, 1) field
     mask: torch.Tensor        # (ny, 1) interior-row mask, 0 on rows 0, ny-1
     has_freeze: bool
+    model: object             # the ReactionModel whose kinetics the RHS runs
 
     @property
     def b_is_field(self) -> bool:
         return self.b.dim() == 2
+
+    @property
+    def kinetics_id(self) -> int:
+        """The device code's id of the kinetics (KINETICS_IDS)."""
+        if self.model.name not in KINETICS_IDS:
+            raise ValueError(f"no kinetics device function for model "
+                             f"{self.model.name!r}")
+        return KINETICS_IDS[self.model.name]
 
 
 def prepare_constants(problem, dtype, device) -> KernelConstants:
@@ -74,7 +87,8 @@ def prepare_constants(problem, dtype, device) -> KernelConstants:
         coeffs=geometry.stencil_coeffs(dtype, device),
         b=beta_field(cfg, dtype, device),
         mask=interior_rows(cfg.ny, dtype, device),
-        has_freeze=(float(cfg.t_boundary) > 0.0) and not cfg.just_diffusion)
+        has_freeze=(float(cfg.t_boundary) > 0.0) and not cfg.just_diffusion,
+        model=problem.model)
 
 
 def check_tensor(name, x, shape, dtype, device):
@@ -100,22 +114,54 @@ def check_constants(kc: KernelConstants, ny: int, nx: int, dtype, device):
     check_tensor("mask", kc.mask, (ny, 1), dtype, device)
 
 
+def _live(kc: KernelConstants, fz):
+    """live = 1 - fz*(1 - mask), or None when the problem has no freeze."""
+    return 1.0 - fz * (1.0 - kc.mask) if kc.has_freeze else None
+
+
 def make_rhs_block(kc: KernelConstants, fz):
     """rhs_block(y) -> ydot: the kernels' per-tile RHS in plain torch, on
     the whole (2, ny, nx) state (crdmodel_tpu/ops/kernel_common.py:110):
-    FitzHugh–Nagumo kinetics plus the profile operator on variable 0, times
+    the model's kinetics plus the profile operator on variable 0, times
     live = 1 - fz*(1 - mask) when the problem has a freeze. The device
     functions of csrc/rhs_common.cuh compute the same expressions in the
     same order."""
     lap_of = torus_laplacian if kc.kind == "torus" else flat_laplacian
-    live = 1.0 - fz * (1.0 - kc.mask) if kc.has_freeze else None
+    live = _live(kc, fz)
 
     def rhs_block(y):
-        react = fhn.kinetics(y, kc.b)
+        react = kc.model.kinetics(y, kc.b)
         ydot = torch.stack([react[0] + lap_of(y[0], kc.coeffs), react[1]])
         return ydot * live if live is not None else ydot
 
     return rhs_block
+
+
+def make_split_block(kc: KernelConstants, fz):
+    """(ex_block, im_block, jac_block), the IMEX split of make_rhs_block
+    for the fused IMEX step (crdmodel_tpu/ops/kernel_common.py:282):
+    ex_block(y) the profile operator on variable 0 (0 on variable 1),
+    im_block(y) the pointwise kinetics, jac_block(y) the kinetics' closed-
+    form Jacobian (2, 2, ny, nx) (ReactionModel.jacobian), each times live
+    when the problem has a freeze; ex + im equals make_rhs_block's value
+    bitwise."""
+    lap_of = torus_laplacian if kc.kind == "torus" else flat_laplacian
+    live = _live(kc, fz)
+
+    def masked(x):
+        return x * live if live is not None else x
+
+    def ex_block(y):
+        lap = lap_of(y[0], kc.coeffs)
+        return masked(torch.stack([lap, torch.zeros_like(lap)]))
+
+    def im_block(y):
+        return masked(kc.model.kinetics(y, kc.b))
+
+    def jac_block(y):
+        return masked(kc.model.jacobian(y, kc.b))
+
+    return ex_block, im_block, jac_block
 
 
 def freeze_scalar(params, has_freeze: bool, t_boundary: float, dtype):

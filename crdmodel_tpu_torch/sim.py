@@ -10,10 +10,11 @@ or when it is None on a CUDA device above PALLAS_AUTO_POINTS grid points,
 and the kernel's gate accepts the problem: the ERK tableaus through K1
 (ops/fused_step.py::is_supported), rkc2 through K2
 (ops/fused_rkc.py::is_rkc_supported, and under auto selection only when
-the run is not provably quiescent, _quiescent_autonomous). Everything else
-takes the torch path (integrate/erk.py::make_stepper). On a CPU device the
-fused path runs the kernel's plain version, the counterpart of the JAX
-package's interpret=True.
+the run is not provably quiescent, _quiescent_autonomous), ark324 through
+K3 (ops/fused_imex.py::is_imex_supported). Everything else takes the torch
+path (integrate/erk.py::make_stepper). On a CPU device the fused path runs
+the kernel's plain version, the counterpart of the JAX package's
+interpret=True.
 """
 
 from __future__ import annotations
@@ -27,12 +28,12 @@ import torch
 
 from crdmodel_tpu_torch.config import PALLAS_AUTO_POINTS, SimConfig
 from crdmodel_tpu_torch.core.problem import (Problem, build_problem,
-                                             make_rho_bound,
+                                             make_rhs, make_rho_bound,
                                              solver_breakpoints)
-from crdmodel_tpu_torch.integrate import rkc
+from crdmodel_tpu_torch.integrate import imex, rkc
 from crdmodel_tpu_torch.integrate.erk import (TABLEAUS, SolveStats,
                                               integrate_to_outputs)
-from crdmodel_tpu_torch.ops import fused_rkc, fused_step
+from crdmodel_tpu_torch.ops import fused_imex, fused_rkc, fused_step
 
 STATUS_NAMES = {0: "ok", 1: "max-steps-exceeded", 2: "dt-underflow"}
 
@@ -117,6 +118,8 @@ def fused_eligible(problem: Problem) -> bool:
         if cfg.use_pallas is None and _quiescent_autonomous(problem):
             return False
         return fused_rkc.is_rkc_supported(problem, dtype)
+    if cfg.method == "ark324":
+        return fused_imex.is_imex_supported(problem, dtype)
     return fused_step.is_supported(problem, TABLEAUS[cfg.method], dtype)
 
 
@@ -124,9 +127,6 @@ def make_run_fn(problem: Problem):
     """run(y0, params) -> (traj, stats), its output times, and whether it
     takes the fused path."""
     cfg = problem.cfg
-    if cfg.method == "ark324":
-        raise NotImplementedError("method='ark324' is not ported yet "
-                                  "(ROADMAP queue 1, item 8)")
     if cfg.speculative_k > 1:
         raise NotImplementedError("speculative_k is not ported yet (ROADMAP "
                                   "queue 1, item 14; kernel K14)")
@@ -138,6 +138,11 @@ def make_run_fn(problem: Problem):
         rho_fn = make_rho_bound(cfg, problem.model, problem.geometry, dtype,
                                 diffusion_field=problem.diffusion_field,
                                 face_mask=problem.face_mask)
+    rhs_split = None
+    if cfg.method == "ark324":
+        # IMEX: implicit pointwise reaction + explicit diffusion
+        rhs_split = make_rhs(cfg, problem.model, problem.geometry, dtype,
+                             problem.device, split=True)
     kw = {}
     fused = fused_eligible(problem)
     if fused and cfg.method == "rkc2":
@@ -147,17 +152,23 @@ def make_run_fn(problem: Problem):
         kw = dict(step_err=frkc.step_err, err_order=rkc.ERR_ORDER,
                   h_limit_fn=frkc.h_limit)
     elif fused:
-        tableau = TABLEAUS[cfg.method]
-        step_err = fused_step.build_fused_step(problem, tableau)
+        if cfg.method == "ark324":
+            # the explicit stencils and the Newton stages in one launch
+            step_err = fused_imex.build_fused_imex_step(problem)
+            err_order = imex.ERR_ORDER
+        else:
+            tableau = TABLEAUS[cfg.method]
+            step_err = fused_step.build_fused_step(problem, tableau)
+            err_order = tableau.err_order
         kw = dict(step_err=lambda t, y, h, p, carry: (*step_err(t, y, h, p), ()),
-                  err_order=tableau.err_order)
+                  err_order=err_order)
 
     def run(y0, params):
         return integrate_to_outputs(
             problem.rhs, y0, params, 0.0, touts, rtol=cfg.rtol,
             atol=cfg.atol, method=cfg.method, max_steps=cfg.max_steps,
             breakpoints=breakpoints, step_mode=cfg.step_mode, rho_fn=rho_fn,
-            **kw)
+            rhs_split=rhs_split, **kw)
 
     return run, touts, fused
 

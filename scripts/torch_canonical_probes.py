@@ -1,23 +1,27 @@
-"""Reference probes of the canonical FHN torus run, for the PyTorch port.
+"""Reference probes of the canonical torus runs, for the PyTorch port.
 
-Runs the JAX package on the CPU, in float32 and in float64, on
-data/FHNmodelArgs.ini (400x1600 torus, beta ramp, tBoundary=38, Tf=50,
-rtol 1e-5) with the ini's method (bs32) or with --method rkc2, and writes
-tests/golden/torch_canonical_fhn_probes.npz (bs32) or
-tests/golden/torch_canonical_fhn_<method>_probes.npz:
+Runs the JAX package on the CPU, in float32 and in float64, on one of the
+two canonical programs: data/FHNmodelArgs.ini (--model fhn, the default:
+400x1600 torus, beta ramp, tBoundary=38, Tf=50, rtol 1e-5) or
+data/GoldbeterModelArgs.ini (--model goldbeter: 100x400 torus, beta 0.4,
+wave-segment ICs, Tf=4, rtol 1e-5), with the ini's method (bs32) or with
+--method, and writes tests/golden/torch_canonical_<model>_probes.npz
+(bs32) or tests/golden/torch_canonical_<model>_<method>_probes.npz:
 
   steps_f32, accepted_f32, rejected_f32   per output interval, JAX f32 run
   steps_f64, accepted_f64, rejected_f64   the same for the f64 run
   probe_var, probe_j, probe_i             64 probe points (seeded numpy)
-  probes_f32, probes_f64                  (21, 64): the field at each probe
-                                          point at every output time, IC first
-  touts                                   (21,) output times, 0 first
+  probes_f32, probes_f64                  (Nt+1, 64): the field at each
+                                          probe point at every output time,
+                                          IC first
+  touts                                   (Nt+1,) output times, 0 first
 
 chip_smoke.py holds the port's runs on the card against these numbers. On
-the CPU the JAX package takes its XLA path (no Pallas kernel). Each run
-takes a few minutes on a CPU:
+the CPU the JAX package takes its XLA path (no Pallas kernel). Each FHN run
+takes a few minutes on a CPU, each Goldbeter run seconds:
 
-    python scripts/torch_canonical_probes.py [--method rkc2]
+    python scripts/torch_canonical_probes.py [--model goldbeter]
+        [--method rkc2|ark324]
 """
 
 import argparse
@@ -39,17 +43,18 @@ sys.path.insert(0, ROOT)
 from crdmodel_tpu.config import config_from_ini  # noqa: E402
 from crdmodel_tpu.sim import simulate  # noqa: E402
 
-INI = os.path.join(ROOT, "data", "FHNmodelArgs.ini")
+INIS = {"fhn": os.path.join(ROOT, "data", "FHNmodelArgs.ini"),
+        "goldbeter": os.path.join(ROOT, "data", "GoldbeterModelArgs.ini")}
 GOLDEN = os.path.join(ROOT, "tests", "golden")
 N_PROBES = 64
 PROBE_SEED = 20261016
 
 
-def out_path(method: str) -> str:
-    """The probe file of a method; the ini's own method (bs32) keeps the
-    original name."""
+def out_path(model: str, method: str) -> str:
+    """The probe file of a model and method; the ini's own method (bs32)
+    has no method tag."""
     tag = "" if method == "bs32" else f"_{method}"
-    return os.path.join(GOLDEN, f"torch_canonical_fhn{tag}_probes.npz")
+    return os.path.join(GOLDEN, f"torch_canonical_{model}{tag}_probes.npz")
 
 
 def probe_points(nvars, ny, nx):
@@ -63,9 +68,12 @@ def probe_points(nvars, ny, nx):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--method", default="bs32", choices=("bs32", "rkc2"))
-    method = ap.parse_args().method
-    base = config_from_ini(INI, model="fhn", surface="torus")
+    ap.add_argument("--model", default="fhn", choices=sorted(INIS))
+    ap.add_argument("--method", default="bs32",
+                    choices=("bs32", "rkc2", "ark324"))
+    args = ap.parse_args()
+    model, method = args.model, args.method
+    base = config_from_ini(INIS[model], model=model, surface="torus")
     base = dataclasses.replace(base, method=method)
     var, j, i = probe_points(2, base.ny, base.nx)
     out = {"probe_var": var, "probe_j": j, "probe_i": i}
@@ -82,7 +90,7 @@ def main():
         out[f"rejected_{tag}"] = np.asarray(res.stats.rejected)
         out["touts"] = np.asarray(res.touts)
         print(f"{tag}: {res.describe()} (CPU wall {wall:.1f} s)", flush=True)
-    path = out_path(method)
+    path = out_path(model, method)
     np.savez_compressed(path, **out)
     gap = np.abs(out["probes_f32"] - out["probes_f64"]).max()
     print(f"wrote {path}; max |f32 - f64| over the probes = {gap:.3e}")

@@ -69,7 +69,10 @@ def test_port_imports_no_jax():
     code = ("import sys, crdmodel_tpu_torch, crdmodel_tpu_torch.sim, "
             "crdmodel_tpu_torch.convert, crdmodel_tpu_torch.ops._build, "
             "crdmodel_tpu_torch.integrate.rkc, "
-            "crdmodel_tpu_torch.ops.fused_rkc; "
+            "crdmodel_tpu_torch.ops.fused_rkc, "
+            "crdmodel_tpu_torch.models.goldbeter, "
+            "crdmodel_tpu_torch.integrate.imex, "
+            "crdmodel_tpu_torch.ops.fused_imex; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'crdmodel_tpu.'))); "
             "print(bad); sys.exit(1 if bad else 0)")

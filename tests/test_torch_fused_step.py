@@ -78,6 +78,53 @@ def test_plain_step_matches_jax_kernel(surface, method):
                                           y_np[:, [0, -1]])
 
 
+# the Goldbeter torus of data/GoldbeterModelArgs.ini (beta 0.4), with a
+# freeze; states near its wave-segment ICs (positive concentrations)
+GB_KW = dict(BASE, model="goldbeter", surface="torus", beta=0.4,
+             wave_inside=1, wave_length=0.2)
+GB_H = 0.01         # Goldbeter's stiff kinetics: bs32 is stable at ~0.01
+
+
+def _gb_state(y0, seed=11):
+    return y0 * np.exp(0.05 * np.random.default_rng(seed).standard_normal(
+        y0.shape))
+
+
+@pytest.mark.parametrize("method", ["bs32", "dopri54"])
+def test_plain_goldbeter_step_matches_jax_kernel(method):
+    """K1's plain version with the Goldbeter kinetics against the JAX
+    Pallas kernel in interpret mode, f32, frozen and released; the limits
+    of test_plain_step_matches_jax_kernel."""
+    import jax
+    import jax.numpy as jnp
+
+    from crdmodel_tpu.config import SimConfig as JSimConfig
+    from crdmodel_tpu.core.problem import build_problem as jbuild_problem
+    from crdmodel_tpu.integrate.erk import TABLEAUS as JTABLEAUS
+    from crdmodel_tpu.ops import pallas_step
+
+    jp = jbuild_problem(JSimConfig(**GB_KW))
+    fused = pallas_step.build_fused_step(jp, JTABLEAUS[method], jnp.float32,
+                                         interpret=True)
+    jstep = jax.jit(lambda yp, h, seg: fused.step_err(
+        0.0, yp, h, {**jp.params, "_seg_end": seg}))
+    tp = build_problem(SimConfig(**GB_KW), device="cpu")
+    assert fs.is_supported(tp, TABLEAUS[method], torch.float32)
+    kc = prepare_constants(tp, torch.float32, "cpu")
+    y_np = _gb_state(np.asarray(jp.y0)).astype(np.float32)
+    y_t, _ = inputs_from_numpy(y_np, {}, device="cpu", dtype=torch.float32)
+    h_t = torch.tensor(GB_H, dtype=torch.float32)
+    for seg_end, fz in ((0.4, 1.0), (1.0, 0.0)):
+        yp_new, ss_j = jstep(fused.pad(jnp.asarray(y_np)), jnp.float32(GB_H),
+                             jnp.float32(seg_end))
+        y_new, ss = fs.fused_step(y_t, h_t, torch.tensor(fz), kc,
+                                  TABLEAUS[method], GB_KW["rtol"],
+                                  GB_KW["atol"])
+        _close(y_new.numpy(), fused.unpad(yp_new), np.abs(y_np).max())
+        ss_j = float(ss_j)
+        assert abs(float(ss.sum()) - ss_j) <= 1e-3 * ss_j
+
+
 def test_step_err_uses_segment_freeze():
     """build_fused_step reads the freeze from params['_seg_end']."""
     cfg = SimConfig(**{**BASE, **SURFACES["torus"]})
@@ -104,6 +151,14 @@ def test_gate():
     assert not fs.is_supported(
         dataclasses.replace(p, diffusion_field=np.ones((32, 16))),
         TABLEAUS["bs32"], torch.float32)
+
+
+def test_gate_admits_goldbeter():
+    p = build_problem(SimConfig(**GB_KW), device="cpu")
+    assert fs.is_supported(p, TABLEAUS["bs32"], torch.float32)
+    assert prepare_constants(p, torch.float32, "cpu").kinetics_id == 1
+    assert prepare_constants(build_problem(SimConfig(**BASE), "cpu"),
+                             torch.float32, "cpu").kinetics_id == 0
 
 
 @pytest.mark.parametrize("method", ["bs32", "zonneveld43", "dopri54"])
@@ -135,6 +190,33 @@ def test_cuda_kernel_matches_plain(surface, method, dtype):
         assert fs.fused_step.launches == before + 2
         y_r, ss_r = fs.fused_step_reference(y, h, fzt, kc, TABLEAUS[method],
                                             1e-4, 1e-6)
+        torch.cuda.synchronize()
+        assert torch.equal(y_k, y_k2) and torch.equal(ss_k, ss_k2)
+        scale = max(1.0, float(y.abs().max()))
+        assert float((y_k - y_r).abs().max()) <= tol * scale
+        rel = abs(float(ss_k.sum()) - float(ss_r.sum())) / float(ss_r.sum())
+        assert rel <= (1e-3 if dtype == torch.float32 else 1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs a CUDA card and nvcc")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("method", ["bs32", "dopri54"])
+def test_cuda_goldbeter_kernel_matches_plain(method, dtype):
+    cfg = SimConfig(**{**GB_KW, "x_mesh": 48, "surface_length": 80})
+    p = build_problem(cfg, device="cuda")
+    kc = prepare_constants(p, dtype, "cuda")
+    y = torch.tensor(_gb_state(p.y0.cpu().numpy()), dtype=dtype,
+                     device="cuda")
+    h = torch.tensor(GB_H, dtype=dtype, device="cuda")
+    tol = 2e-5 if dtype == torch.float32 else 1e-12
+    for fz in (0.0, 1.0):
+        fzt = torch.tensor(fz, dtype=dtype, device="cuda")
+        args = (y, h, fzt, kc, TABLEAUS[method], 1e-4, 1e-6)
+        y_k, ss_k = fs.fused_step(*args)
+        y_k2, ss_k2 = fs.fused_step(*args)
+        y_r, ss_r = fs.fused_step_reference(*args)
         torch.cuda.synchronize()
         assert torch.equal(y_k, y_k2) and torch.equal(ss_k, ss_k2)
         scale = max(1.0, float(y.abs().max()))

@@ -24,8 +24,9 @@ from crdmodel_tpu.sim import output_times as joutput_times
 from crdmodel_tpu.sim import simulate as jsimulate
 from crdmodel_tpu_torch.config import SimConfig, config_from_ini
 from crdmodel_tpu_torch.convert import inputs_from_numpy
-from crdmodel_tpu_torch.core.problem import build_problem, make_rho_bound
-from crdmodel_tpu_torch.integrate import erk, rkc
+from crdmodel_tpu_torch.core.problem import (build_problem, make_rhs,
+                                             make_rho_bound)
+from crdmodel_tpu_torch.integrate import erk, imex, rkc
 from crdmodel_tpu_torch.sim import _quiescent_autonomous, output_times, simulate
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -240,5 +241,10 @@ def test_make_stepper():
     assert erk.make_stepper("bs32", tp.rhs, 1e-5, 1e-8)[2] == 3
     with pytest.raises(ValueError, match="rho_fn"):
         erk.make_stepper("rkc2", tp.rhs, 1e-5, 1e-8)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="rhs_split"):
         erk.make_stepper("ark324", tp.rhs, 1e-5, 1e-8)
+    split = make_rhs(tp.cfg, tp.model, tp.geometry, torch.float64, "cpu",
+                     split=True)
+    *_, order = erk.make_stepper("ark324", tp.rhs, 1e-5, 1e-8,
+                                 rhs_split=split)
+    assert order == imex.ERR_ORDER
