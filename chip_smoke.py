@@ -1,20 +1,31 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --profile     # a diagnostic, not the smoke test
 
 Builds the CUDA kernels from crdmodel_tpu_torch/csrc, holds each against its
-plain PyTorch version on the card (K1, the fused ERK step, with the
-FitzHugh-Nagumo and Goldbeter kinetics; K2, the fused RKC2 step; K3, the
-fused IMEX ark324 step), times each, then runs the port's main paths
+plain PyTorch version on the card (K1, the fused ERK step, and K3, the fused
+IMEX ark324 step, with the FitzHugh-Nagumo, Goldbeter and Aliev-Panfilov
+kinetics; K2, the fused RKC2 step, with the same three; K4, the fused
+divergence-form ERK step, on no-flux walls with a scar, a torus obstacle
+and a 2-D diffusion field), times each, then runs the port's main paths
 through simulate(): the canonical FitzHugh-Nagumo torus program
 (data/FHNmodelArgs.ini: 400x1600, f32, Tf=50) with its own method bs32
-(through K1) and with method rkc2 (through K2), and the canonical Goldbeter
+(through K1) and with method rkc2 (through K2), the canonical Goldbeter
 torus program (data/GoldbeterModelArgs.ini: 100x400, f32, Tf=4) with its
-own method bs32 (through K1) and with method ark324 (through K3). Each run
-is checked against the JAX package's CPU runs recorded in
-tests/golden/torch_canonical_{fhn,goldbeter}[_method]_probes.npz. Exits
-non-zero on any failure, and prints as its last line {"ok": true,
-"device": {...}} only when every phase passed. Imports nothing of JAX.
+own method bs32 (through K1) and with method ark324 (through K3), and the
+bounded cardiac-tissue program (Aliev-Panfilov on a flat 1600x400 sheet
+with no-flux walls and a circular scar, bs32, f32, Tf=8, through K4). Each
+run is checked against the JAX package's CPU runs recorded in
+tests/golden/torch_canonical_{fhn,goldbeter}[_method]_probes.npz and
+tests/golden/torch_bounded_ap_probes.npz. Exits non-zero on any failure,
+and prints as its last line {"ok": true, "device": {...}} only when every
+phase passed. Imports nothing of JAX.
+
+With --profile it checks nothing: it builds the kernels and traces the
+bounded cardiac-tissue run over a short horizon with torch.profiler, and
+prints the device's busy time and idle share, the kernels a step and K4's
+share (phase "profile").
 """
 
 import dataclasses
@@ -29,25 +40,37 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 INI = os.path.join(ROOT, "data", "FHNmodelArgs.ini")
 GB_INI = os.path.join(ROOT, "data", "GoldbeterModelArgs.ini")
+GOLDEN = os.path.join(ROOT, "tests", "golden")
 PROBES = {(model, method): os.path.join(
-              ROOT, "tests", "golden",
-              f"torch_canonical_{model}{tag}_probes.npz")
+              GOLDEN, f"torch_canonical_{model}{tag}_probes.npz")
           for model, method, tag in (
               ("fhn", "bs32", ""), ("fhn", "rkc2", "_rkc2"),
               ("goldbeter", "bs32", ""), ("goldbeter", "ark324", "_ark324"))}
+PROBES["aliev_panfilov", "bs32"] = os.path.join(GOLDEN,
+                                                "torch_bounded_ap_probes.npz")
 SEED = 1234
 H = 2e-3        # about 1/rho(L) on the canonical grid: stage errors resolved
 K2_STAGES = (2, 5, 15, 23)   # K2's stage counts checked, up to S_MAX_KERNEL
 K2_TIMED_STAGES = (5, 23)    # an accuracy-limited and a stability-bound step
+# K2's longest step checked: the Goldbeter and Aliev-Panfilov kinetics set
+# rho on their grids, and the coverage of 22 stages there would leave the
+# kinetics' time scale by far (s and h are independent kernel inputs)
+K2_MAX_H = 0.01
 # K3's steps: the canonical Goldbeter ark324 run's typical step (4/1561),
 # and one where the implicit part carries the step
 K3_H = (2.5e-3, 2e-2)
 K3_BIG_MESH = 800   # (2,3200,800): the JAX suite's "Goldbeter torus
                     # 800x3200 Tf=1 ark324" row (scripts/bench_suite.py:124)
+# K4's step: the bounded run's mean step, Tf/steps = 8/10189 (JAX f32)
+K4_H = 8e-4
 N_TIMED = 60    # timed samples (median reported)
 BURST = 10      # back-to-back calls per sample
 # kernel vs plain version: f64 parity tool, f32 production tolerance
 LIMITS = {torch.float64: (1e-12, 1e-10), torch.float32: (2e-5, 1e-3)}
+# the published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM
+# bytes/s and float32 operations/s outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
 
 
 def phase(name, **fields):
@@ -80,18 +103,118 @@ def median_ms(fn, n=N_TIMED, per_sample=BURST):
     return float(np.median(times))
 
 
+# Operations a point, counted from the plain versions' expressions (each
+# add, multiply, division and negation one operation): each kinetics family
+# (du and dv), its closed-form Jacobian, and each operator on variable 0
+KINETICS_OPS = {"fhn": 7, "goldbeter": 24, "aliev_panfilov": 18}
+JACOBIAN_OPS = {"fhn": 3, "goldbeter": 30, "aliev_panfilov": 35}
+OPERATOR_OPS = {"torus": 12, "flat": 7, "divform": 11}
+WEIGHT_OPS = 14     # 1/(rtol |y0| + atol), err * w, square, sum; two vars
+
+
+def rhs_ops(kc):
+    """Operations of one RHS evaluation at a point: kinetics, operator,
+    their sum, and the freeze (live and two products) and tissue products."""
+    ops = KINETICS_OPS[kc.model.name] + OPERATOR_OPS[kc.kind] + 1
+    if kc.has_freeze:
+        ops += 5
+    if getattr(kc, "tissue", None) is not None:
+        ops += 2
+    return ops
+
+
+def erk_ops(kc, tableau):
+    """Operations a point of one ERK tile step (K1, K4): the stages, their
+    inputs, the update, the error and its weights."""
+    nnz = sum(int(np.count_nonzero(x)) for x in
+              (tableau.a, tableau.b, tableau.b - tableau.bhat))
+    return tableau.stages * rhs_ops(kc) + 4 * nnz + WEIGHT_OPS
+
+
+def rkc_ops(kc, s):
+    """Operations a point of one K2 step at stage count s: s + 1 RHS
+    evaluations, Y1, the s - 1 recurrence updates, the error and weights."""
+    return (s + 1) * rhs_ops(kc) + 4 + 18 * (s - 1) + 10 + WEIGHT_OPS
+
+
+def imex_ops(kc):
+    """Operations a point of one K3 step: 4 explicit stencils, the kinetics
+    at y0, 3 stages of 3 Newton iterations (Jacobian, kinetics, freeze,
+    2x2 solve: 35 more), the stage sums, slopes, update, error, weights and
+    the Newton penalty."""
+    from crdmodel_tpu_torch.integrate import imex
+    op = OPERATOR_OPS[kc.kind] + (1 if kc.has_freeze else 0)
+    kin = KINETICS_OPS[kc.model.name] + (2 if kc.has_freeze else 0)
+    newton = JACOBIAN_OPS[kc.model.name] + kin + 4 + 35
+    known = sum(2 * (imex.AE[s][j] != 0.0) + 4 * (imex.AI[s][j] != 0.0)
+                for s in range(imex.STAGES) for j in range(s))
+    nnz_bd = sum(int(x != 0.0) for x in (*imex.B, *imex.D))
+    return (4 * op + kin + 3 * (4 + 3 * newton + 4 + WEIGHT_OPS) + known
+            + 4 + 4 * nnz_bd + WEIGHT_OPS + 2)
+
+
+def constant_bytes(kc):
+    """Bytes of a kernel's constant inputs, each read once."""
+    tensors = [*kc.coeffs, kc.b, kc.mask]
+    if getattr(kc, "tissue", None) is not None:
+        tensors.append(kc.tissue)
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(y, kc, ops_per_point, extra_bytes=0):
+    """(bound ms, "bytes" or "operations"): the least time the card could
+    take for one launch on y, the larger of the bytes it must move (y read
+    once, y_new written once, the constants read once) over the HBM rate
+    and its operations over the float32 rate."""
+    state = y.numel() * y.element_size()
+    n_bytes = 2 * state + constant_bytes(kc) + extra_bytes
+    ops = ops_per_point * y.shape[1] * y.shape[2]
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, ops / PEAK_F32_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def random_state(cfg, shape, rng):
     """A random state on the card's main-path shape: FHN's u and v in
-    [-2, 2], Goldbeter's concentrations in [0.1, 2.5]."""
+    [-2, 2], Goldbeter's concentrations in [0.1, 2.5], Aliev-Panfilov's
+    potential in [-0.1, 1.1] and recovery in [0, 2]."""
     if cfg.model == "goldbeter":
         return rng.uniform(0.1, 2.5, shape)
+    if cfg.model == "aliev_panfilov":
+        return np.stack([rng.uniform(-0.1, 1.1, shape[1:]),
+                         rng.uniform(0.0, 2.0, shape[1:])])
     return rng.uniform(-2.0, 2.0, shape)
+
+
+def check_pair(name, fields, y_k, ss_k, y_k2, ss_k2, y_r, ss_r, dtype,
+               y_in, bitwise=False):
+    """Hold a kernel's (y_new, partial sums) against its plain version's,
+    and two launches against each other; print phase `name`; return the
+    max |y_kernel - y_plain|."""
+    torch.cuda.synchronize()
+    if not (torch.equal(y_k, y_k2) and torch.equal(ss_k, ss_k2)):
+        raise AssertionError(f"{name}: two launches differ")
+    err = float((y_k - y_r).abs().max())
+    y_scale = max(1.0, float(y_in.abs().max()), float(y_r.abs().max()))
+    tol_y, tol_ss = LIMITS[dtype]
+    sk, sr = float(ss_k.sum()), float(ss_r.sum())
+    rel = abs(sk - sr) / sr
+    phase(name, **fields, dtype=str(dtype), max_abs_err=err,
+          bitwise=bool(torch.equal(y_k, y_r)), limit=tol_y * y_scale,
+          ss_rel_err=rel, ss_limit=tol_ss)
+    if not (np.isfinite(sk) and err <= tol_y * y_scale and rel <= tol_ss):
+        raise AssertionError(f"{name}: the kernel disagrees with its plain "
+                             "version")
+    if bitwise and not torch.equal(y_k, y_r):
+        raise AssertionError(f"{name}: y_new not bitwise equal to the plain "
+                             "version")
+    return err
 
 
 def check_kernel(cases):
     """K1 against its plain version at the main paths' shapes, for each
-    config of `cases` (the FHN torus first); returns the max errors and the
-    two times at the canonical FHN bs32 shape."""
+    config of `cases` (the FHN torus first); returns the max errors, the
+    two times and the bound at the canonical FHN bs32 shape."""
     from crdmodel_tpu_torch.core.problem import build_problem
     from crdmodel_tpu_torch.integrate.erk import TABLEAUS
     from crdmodel_tpu_torch.ops import fused_step as fs
@@ -107,44 +230,35 @@ def check_kernel(cases):
             kc = prepare_constants(problem, dtype, "cuda")
             y = torch.tensor(y_np, dtype=dtype, device="cuda")
             h = torch.tensor(H, dtype=dtype, device="cuda")
-            y_scale = max(1.0, float(y.abs().max()))
-            tol_y, tol_ss = LIMITS[dtype]
             for method in ("bs32", "dopri54"):
                 tab = TABLEAUS[method]
                 for fz in (0.0, 1.0):
                     fzt = torch.tensor(fz, dtype=dtype, device="cuda")
                     args = (y, h, fzt, kc, tab, cfg.rtol, cfg.atol)
-                    y_k, ss_k = fs.fused_step(*args)
-                    y_k2, ss_k2 = fs.fused_step(*args)
-                    y_r, ss_r = fs.fused_step_reference(*args)
-                    torch.cuda.synchronize()
-                    if not (torch.equal(y_k, y_k2) and torch.equal(ss_k, ss_k2)):
-                        raise AssertionError("two launches differ")
-                    err = float((y_k - y_r).abs().max())
-                    sk, sr = float(ss_k.sum()), float(ss_r.sum())
-                    rel = abs(sk - sr) / sr
-                    phase("k1_check", model=cfg.model, surface=cfg.surface,
-                          beta="field" if kc.b_is_field else "scalar",
-                          dtype=str(dtype), method=method, fz=fz,
-                          max_abs_err=err, limit=tol_y * y_scale,
-                          ss_rel_err=rel, ss_limit=tol_ss)
-                    if not (np.isfinite(sk) and err <= tol_y * y_scale
-                            and rel <= tol_ss):
-                        raise AssertionError("K1 disagrees with its plain "
-                                             "version")
+                    err = check_pair(
+                        "k1_check",
+                        dict(model=cfg.model, surface=cfg.surface,
+                             beta="field" if kc.b_is_field else "scalar",
+                             method=method, fz=fz),
+                        *fs.fused_step(*args), *fs.fused_step(*args),
+                        *fs.fused_step_reference(*args), dtype, y)
                     worst[dtype] = max(worst[dtype], err)
             if cfg is cases[0] and dtype == torch.float32:
+                tab = TABLEAUS[cfg.method]
                 args = (y, h, torch.zeros((), dtype=dtype, device="cuda"),
-                        kc, TABLEAUS[cfg.method], cfg.rtol, cfg.atol)
+                        kc, tab, cfg.rtol, cfg.atol)
                 timing = (median_ms(lambda: fs.fused_step(*args)),
-                          median_ms(lambda: fs.fused_step_reference(*args)))
+                          median_ms(lambda: fs.fused_step_reference(*args)),
+                          *bound(y, kc, erk_ops(kc, tab)))
     return worst, timing
 
 
-def check_rkc_kernel(cfg_torus, cfg_flat):
-    """K2 against its plain version at the main path's shape, for each of
-    K2_STAGES with h the stability coverage of s - 1 stages; returns the f32
-    max error and {s: (kernel ms, plain ms)} at the canonical shape."""
+def check_rkc_kernel(cases):
+    """K2 against its plain version at the main paths' shapes, for each
+    config of `cases` (the FHN torus first), each of K2_STAGES with h the
+    stability coverage of s - 1 stages, at most K2_MAX_H; returns the f32
+    max error and
+    {s: (kernel ms, plain ms, bound ms, bound_by)} at the canonical shape."""
     from crdmodel_tpu_torch.core.problem import build_problem, make_rho_bound
     from crdmodel_tpu_torch.ops import fused_rkc as fr
     from crdmodel_tpu_torch.ops.kernel_common import prepare_constants
@@ -152,50 +266,40 @@ def check_rkc_kernel(cfg_torus, cfg_flat):
     rng = np.random.default_rng(SEED + 1)
     worst = {torch.float32: 0.0, torch.float64: 0.0}
     timing = {}
-    for cfg in (cfg_torus, cfg_flat):
+    for cfg in cases:
         problem = build_problem(cfg, device="cuda")
-        y_np = rng.uniform(-2.0, 2.0, tuple(problem.y0.shape))
+        y_np = random_state(cfg, tuple(problem.y0.shape), rng)
         for dtype in (torch.float32, torch.float64):
             kc = prepare_constants(problem, dtype, "cuda")
             mu1, ctab = fr.static_stage_tables(fr.S_MAX_KERNEL, dtype, "cuda")
             y = torch.tensor(y_np, dtype=dtype, device="cuda")
             rho = float(make_rho_bound(cfg, problem.model, problem.geometry,
                                        dtype)(0.0, y, problem.params))
-            y_scale = max(1.0, float(y.abs().max()))
-            tol_y, tol_ss = LIMITS[dtype]
             for s in K2_STAGES:
-                h = torch.tensor(0.65 * (s - 1) ** 2 / rho, dtype=dtype,
-                                 device="cuda")
+                h = torch.tensor(min(0.65 * (s - 1) ** 2 / rho, K2_MAX_H),
+                                 dtype=dtype, device="cuda")
                 st = torch.tensor(s, dtype=torch.int32, device="cuda")
                 for fz in (0.0, 1.0):
                     fzt = torch.tensor(fz, dtype=dtype, device="cuda")
                     args = (y, h, fzt, st, mu1, ctab, kc, cfg.rtol, cfg.atol)
-                    y_k, ss_k = fr.fused_rkc_step(*args)
-                    y_k2, ss_k2 = fr.fused_rkc_step(*args)
-                    y_r, ss_r = fr.fused_rkc_step_reference(*args)
-                    torch.cuda.synchronize()
-                    if not (torch.equal(y_k, y_k2) and torch.equal(ss_k, ss_k2)):
-                        raise AssertionError("two K2 launches differ")
-                    err = float((y_k - y_r).abs().max())
-                    sk, sr = float(ss_k.sum()), float(ss_r.sum())
-                    rel = abs(sk - sr) / sr
-                    phase("k2_check", surface=cfg.surface,
-                          beta="field" if kc.b_is_field else "scalar",
-                          dtype=str(dtype), s=s, fz=fz, max_abs_err=err,
-                          limit=tol_y * y_scale, ss_rel_err=rel,
-                          ss_limit=tol_ss)
-                    if not (np.isfinite(sk) and err <= tol_y * y_scale
-                            and rel <= tol_ss):
-                        raise AssertionError("K2 disagrees with its plain "
-                                             "version")
+                    err = check_pair(
+                        "k2_check",
+                        dict(model=cfg.model, surface=cfg.surface,
+                             beta="field" if kc.b_is_field else "scalar",
+                             s=s, fz=fz),
+                        *fr.fused_rkc_step(*args), *fr.fused_rkc_step(*args),
+                        *fr.fused_rkc_step_reference(*args), dtype, y)
                     worst[dtype] = max(worst[dtype], err)
-                if (cfg is cfg_torus and dtype == torch.float32
+                if (cfg is cases[0] and dtype == torch.float32
                         and s in K2_TIMED_STAGES):
                     args = (y, h, torch.zeros((), dtype=dtype, device="cuda"),
                             st, mu1, ctab, kc, cfg.rtol, cfg.atol)
+                    tables = sum(t.numel() * t.element_size()
+                                 for t in (mu1, ctab))
                     timing[s] = (
                         median_ms(lambda: fr.fused_rkc_step(*args)),
-                        median_ms(lambda: fr.fused_rkc_step_reference(*args)))
+                        median_ms(lambda: fr.fused_rkc_step_reference(*args)),
+                        *bound(y, kc, rkc_ops(kc, s), tables))
     return worst, timing
 
 
@@ -203,8 +307,9 @@ def check_imex_kernel(cases, timed):
     """K3 against its plain version at the main paths' shapes, for each
     config of `cases` (each with tBoundary > 0, so that fz 0 and 1 differ),
     both dtypes, fz 0 and 1 and each h of K3_H, with two launches bitwise
-    equal; returns the max errors and {shape: (kernel ms, plain ms)} from
-    the ICs of each config of `timed`, f32, at h = K3_H[0]."""
+    equal; returns the max errors and {shape: (kernel ms, plain ms, bound
+    ms, bound_by)} from the ICs of each config of `timed`, f32, at
+    h = K3_H[0]."""
     from crdmodel_tpu_torch.core.problem import build_problem
     from crdmodel_tpu_torch.ops import fused_imex as fi
     from crdmodel_tpu_torch.ops.kernel_common import prepare_constants
@@ -217,32 +322,18 @@ def check_imex_kernel(cases, timed):
         for dtype in (torch.float32, torch.float64):
             kc = prepare_constants(problem, dtype, "cuda")
             y = torch.tensor(y_np, dtype=dtype, device="cuda")
-            tol_y, tol_ss = LIMITS[dtype]
             for h_val in K3_H:
                 h = torch.tensor(h_val, dtype=dtype, device="cuda")
                 for fz in (0.0, 1.0):
                     fzt = torch.tensor(fz, dtype=dtype, device="cuda")
                     args = (y, h, fzt, kc, cfg.rtol, cfg.atol)
-                    y_k, ss_k = fi.fused_imex_step(*args)
-                    y_k2, ss_k2 = fi.fused_imex_step(*args)
-                    y_r, ss_r = fi.fused_imex_step_reference(*args)
-                    torch.cuda.synchronize()
-                    if not (torch.equal(y_k, y_k2) and torch.equal(ss_k, ss_k2)):
-                        raise AssertionError("two K3 launches differ")
-                    err = float((y_k - y_r).abs().max())
-                    y_scale = max(1.0, float(y.abs().max()),
-                                  float(y_r.abs().max()))
-                    sk, sr = float(ss_k.sum()), float(ss_r.sum())
-                    rel = abs(sk - sr) / sr
-                    phase("k3_check", model=cfg.model, surface=cfg.surface,
-                          beta="field" if kc.b_is_field else "scalar",
-                          shape=list(y.shape), dtype=str(dtype), h=h_val,
-                          fz=fz, max_abs_err=err, limit=tol_y * y_scale,
-                          ss=sr, ss_rel_err=rel, ss_limit=tol_ss)
-                    if not (np.isfinite(sk) and err <= tol_y * y_scale
-                            and rel <= tol_ss):
-                        raise AssertionError("K3 disagrees with its plain "
-                                             "version")
+                    err = check_pair(
+                        "k3_check",
+                        dict(model=cfg.model, surface=cfg.surface,
+                             beta="field" if kc.b_is_field else "scalar",
+                             shape=list(y.shape), h=h_val, fz=fz),
+                        *fi.fused_imex_step(*args), *fi.fused_imex_step(*args),
+                        *fi.fused_imex_step_reference(*args), dtype, y)
                     worst[dtype] = max(worst[dtype], err)
 
     timing = {}
@@ -254,35 +345,114 @@ def check_imex_kernel(cases, timed):
                 torch.zeros((), device="cuda"), kc, cfg.rtol, cfg.atol)
         timing[tuple(y.shape)] = (
             median_ms(lambda: fi.fused_imex_step(*args)),
-            median_ms(lambda: fi.fused_imex_step_reference(*args)))
+            median_ms(lambda: fi.fused_imex_step_reference(*args)),
+            *bound(y, kc, imex_ops(kc)))
     return worst, timing
 
 
-def run_main_path(cfg, probes, kernel, min_step_tol, name, label):
-    """The canonical program `cfg` through simulate() on the card, with
-    every kernel's launch count set to 0 just before and read just after;
-    `kernel` is the wrapper whose kernel the path must take. Checks against
-    the JAX CPU runs in `probes`; prints phase `name` with the config
-    `label`; returns the launch count of `kernel`.
+def check_divform_kernel(cases):
+    """K4 against its plain version at the main path's shape (2,1600,400),
+    for each (label, config, build arguments) of `cases` (each with
+    tBoundary > 0, so that fz 0 and 1 differ; the bounded tissue first),
+    f32 and f64, bs32 and dopri54, fz 0 and 1: y_new bitwise equal, two
+    launches bitwise equal. Returns the max errors and (kernel ms, plain
+    ms, bound ms, bound_by) of the first case's ICs, bs32, f32."""
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import fused_divform as fd
+    from crdmodel_tpu_torch.ops.kernel_common import prepare_divform_constants
+
+    rng = np.random.default_rng(SEED + 3)
+    worst = {torch.float32: 0.0, torch.float64: 0.0}
+    for label, cfg, build_kw in cases:
+        problem = build_problem(cfg, device="cuda", **build_kw)
+        y_np = random_state(cfg, tuple(problem.y0.shape), rng)
+        for dtype in (torch.float32, torch.float64):
+            dc = prepare_divform_constants(problem, dtype, "cuda")
+            y = torch.tensor(y_np, dtype=dtype, device="cuda")
+            h = torch.tensor(K4_H, dtype=dtype, device="cuda")
+            for method in ("bs32", "dopri54"):
+                for fz in (0.0, 1.0):
+                    fzt = torch.tensor(fz, dtype=dtype, device="cuda")
+                    args = (y, h, fzt, dc, TABLEAUS[method], cfg.rtol,
+                            cfg.atol)
+                    err = check_pair(
+                        "k4_check",
+                        dict(case=label, model=cfg.model, surface=cfg.surface,
+                             shape=list(y.shape), method=method, fz=fz),
+                        *fd.fused_divform_step(*args),
+                        *fd.fused_divform_step(*args),
+                        *fd.fused_divform_step_reference(*args), dtype, y,
+                        bitwise=True)
+                    worst[dtype] = max(worst[dtype], err)
+
+    _, cfg, build_kw = cases[0]
+    problem = build_problem(dataclasses.replace(cfg, t_boundary=0.0),
+                            device="cuda", **build_kw)
+    dc = prepare_divform_constants(problem, torch.float32, "cuda")
+    y = problem.y0.contiguous()
+    tab = TABLEAUS["bs32"]
+    args = (y, torch.tensor(K4_H, device="cuda"),
+            torch.zeros((), device="cuda"), dc, tab, cfg.rtol, cfg.atol)
+    timing = (median_ms(lambda: fd.fused_divform_step(*args)),
+              median_ms(lambda: fd.fused_divform_step_reference(*args)),
+              *bound(y, dc, erk_ops(dc, tab)))
+    return worst, timing
+
+
+def bounded_tissue():
+    """The bounded cardiac-tissue program of scripts/bench_suite.py::
+    bounded_tissue, copied (this script imports nothing of the JAX package
+    or its scripts): Aliev-Panfilov on a flat 1600x400 sheet, no-flux
+    walls, an inert circular scar of radius 36 cells around (800, 220),
+    bs32, f32, Tf=8. Returns (cfg, build arguments)."""
+    from crdmodel_tpu_torch.config import SimConfig
+    cfg = SimConfig(model="aliev_panfilov", surface="flat", x_mesh=400,
+                    surface_width=20, surface_length=80, diffusion=1.0,
+                    beta=0.10, wave_length=0.25, wave_width=0.5,
+                    t_final=8.0, output_timestep=2, dtype="float32",
+                    rtol=1e-4, atol=1e-7, boundary="noflux")
+    ny, nx = cfg.ny, cfg.nx
+    jj, ii = np.mgrid[0:ny, 0:nx]
+    scar = (jj - ny * 0.5) ** 2 + (ii - nx * 0.55) ** 2 <= (nx * 0.09) ** 2
+    return cfg, dict(obstacle_mask=~scar)
+
+
+def run_main_path(cfg, probes, kernel, min_step_tol, name, label,
+                  build_kw=None, extra_checks=None):
+    """The program `cfg` (built with `build_kw`) through simulate() on the
+    card, with every kernel's launch count set to 0 just before and read
+    just after; `kernel` is the wrapper whose kernel the path must take.
+    Checks against the JAX CPU runs in `probes`, and extra_checks(res) ->
+    {name: passed} when given; prints phase `name` with the config `label`;
+    returns the launch count of `kernel`.
 
     The step count must lie within min_step_tol of the JAX f32 run's, or
     within that run's own distance to the JAX f64 run where that is larger:
     where the error estimate sits at the f32 rounding floor, the count
     follows the rounding (as the probe limit follows the f32-f64 gap)."""
+    from crdmodel_tpu_torch.config import PALLAS_AUTO_POINTS
+    from crdmodel_tpu_torch.core.problem import build_problem
     from crdmodel_tpu_torch.core.problem import solver_breakpoints
     from crdmodel_tpu_torch.integrate.erk import SYNC_EVERY, merge_stops
-    from crdmodel_tpu_torch.config import PALLAS_AUTO_POINTS
-    from crdmodel_tpu_torch.ops import fused_imex, fused_rkc, fused_step
+    from crdmodel_tpu_torch.ops import (fused_divform, fused_imex, fused_rkc,
+                                        fused_step)
     from crdmodel_tpu_torch.sim import output_times, simulate
 
+    build_kw = build_kw or {}
     wrappers = (fused_step.fused_step, fused_rkc.fused_rkc_step,
-                fused_imex.fused_imex_step)
+                fused_imex.fused_imex_step, fused_divform.fused_divform_step)
+
+    def run(c):
+        return simulate(c, device="cuda",
+                        problem=build_problem(c, "cuda", **build_kw))
+
     # warm-up on a short horizon (first launches of every torch op)
-    simulate(dataclasses.replace(cfg, t_final=min(1.0, 0.1 * cfg.t_final),
-                                 output_timestep=1), device="cuda")
+    run(dataclasses.replace(cfg, t_final=min(1.0, 0.1 * cfg.t_final),
+                            output_timestep=1))
     for w in wrappers:
         w.launches = 0
-    res = simulate(cfg, device="cuda")
+    res = run(cfg)
     counts = {w.__name__: w.launches for w in wrappers}
     launches = counts[kernel.__name__]
 
@@ -333,10 +503,89 @@ def run_main_path(cfg, probes, kernel, min_step_tol, name, label):
             abs(steps - ref_steps) <= step_tol * ref_steps,
         "probes vs JAX f64": gap <= probe_limit,
     }
+    if extra_checks is not None:
+        checks.update(extra_checks(res))
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
-        raise AssertionError(f"main path {cfg.method} failed: {failed}")
+        raise AssertionError(f"main path {name} failed: {failed}")
     return launches
+
+
+def scar_checks(probes, mask):
+    """extra_checks of the bounded run: this script's scar is the stored
+    one, and the stored scar cells hold the JAX IC bitwise (cast to the
+    run's dtype) at every output."""
+    def checks(res):
+        traj = res.trajectory
+        j, i = (torch.as_tensor(probes[k], device=traj.device)
+                for k in ("scar_j", "scar_i"))
+        ic = torch.as_tensor(probes["scar_ic"], device=traj.device).to(
+            traj.dtype)
+        held = bool(torch.equal(traj[:, :, j, i],
+                                ic[None].expand(traj.shape[0], -1, -1)))
+        phase("scar", cells=int(j.numel()), held_ic_bitwise=held,
+              outputs=int(traj.shape[0]))
+        return {"scar is the stored one": np.array_equal(
+                    mask, probes["obstacle_mask"]),
+                "scar cells hold their IC bitwise": held}
+    return checks
+
+
+def profile_run(cfg, build_kw, t_final, kernel_tag):
+    """Trace `cfg` (built with `build_kw`) over [0, t_final] through
+    simulate() on the card with torch.profiler, after an untraced run of
+    the same horizon, and print phase "profile": device kernels a step,
+    the device's busy time (the sum of kernel durations in the trace) and
+    idle share over the traced wall, and the share of the kernels whose
+    name holds `kernel_tag`."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.sim import simulate
+
+    run_cfg = dataclasses.replace(cfg, t_final=t_final, output_timestep=1)
+
+    def run():
+        return simulate(run_cfg, device="cuda",
+                        problem=build_problem(run_cfg, "cuda", **build_kw))
+
+    run()                               # warm-up
+    plain = run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = run()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    busy_us = float(sum(e["dur"] for e in kernels))
+    tagged = [e["dur"] for e in kernels if kernel_tag in e["name"]]
+    steps = res.total_steps()
+    phase("profile", config=cfg.program_name, t_final=t_final, steps=steps,
+          wall_s=res.wall_time, untraced_wall_s=plain.wall_time,
+          device_kernels=len(kernels), kernels_per_step=len(kernels) / steps,
+          device_busy_ms=busy_us / 1e3,
+          device_idle_share=1.0 - busy_us / (res.wall_time * 1e6),
+          kernel=kernel_tag, kernel_launches=len(tagged),
+          kernel_mean_us=float(np.mean(tagged)) if tagged else None,
+          kernel_share_of_busy=float(sum(tagged)) / busy_us,
+          card=card_line())
+
+
+def kernel_entry(name, source, replaces, launches, worst, timing):
+    """One kernel's entry of the `kernels` line."""
+    ms, plain_ms, bound_ms, bound_by = timing
+    return {"name": name, "route": "cuda",
+            "source": f"crdmodel_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": worst[torch.float32], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            # no single PyTorch call computes a fused step
+            "library_ms": None}
 
 
 def main():
@@ -350,9 +599,17 @@ def main():
           count=torch.cuda.device_count(), tf32="off (matmul and cudnn)")
 
     from crdmodel_tpu_torch.config import config_from_ini
-    from crdmodel_tpu_torch.ops import _build, fused_imex, fused_rkc, fused_step
+    from crdmodel_tpu_torch.ops import (_build, fused_divform, fused_imex,
+                                        fused_rkc, fused_step)
 
-    phase("build", seconds=_build.build(), library=_build.library_path())
+    phase("build", seconds=_build.build(), library=_build.library_path(),
+          ptxas_fused_divform=_build.ptxas_report("fused_divform.cu"))
+    if sys.argv[1:] == ["--profile"]:
+        cfg_ap, ap_build = bounded_tissue()
+        profile_run(cfg_ap, ap_build, 1.0, "DivformRhs")
+        return
+    if sys.argv[1:]:
+        sys.exit(f"unknown arguments {sys.argv[1:]}; see the docstring")
 
     cfg = config_from_ini(INI, model="fhn", surface="torus")
     cfg_flat = dataclasses.replace(cfg, surface="flat", vary_beta=0)
@@ -363,22 +620,50 @@ def main():
     gb_torus = dataclasses.replace(cfg_gb, t_boundary=1.0)
     gb_flat = dataclasses.replace(cfg_gb, surface="flat", vary_beta=1,
                                   t_boundary=1.0)
-    worst, (k_ms, plain_ms) = check_kernel(
-        [cfg, cfg_flat, gb_torus, gb_flat])
+    cfg_ap, ap_build = bounded_tissue()
+    mask = ap_build["obstacle_mask"]
+    # Aliev-Panfilov on the bounded sheet's grid with periodic edges and a
+    # freeze: the profile kernels' case of its kinetics. D = 0.1 keeps the
+    # checked steps (H, K3_H) inside the explicit stages' stability region
+    # on this fine grid, as they are on the canonical grids.
+    ap_periodic = dataclasses.replace(cfg_ap, boundary="periodic",
+                                      t_boundary=1.0, diffusion=0.1)
+    worst, k1_timing = check_kernel([cfg, cfg_flat, gb_torus, gb_flat,
+                                     ap_periodic])
     phase("k1_timing", shape=[2, cfg.ny, cfg.nx], method=cfg.method,
-          dtype="float32", kernel_us=k_ms * 1e3, plain_us=plain_ms * 1e3,
-          card=card)
-    worst2, timing2 = check_rkc_kernel(cfg, cfg_flat)
-    for s, (k2_ms, k2_plain_ms) in timing2.items():
+          dtype="float32", kernel_us=k1_timing[0] * 1e3,
+          plain_us=k1_timing[1] * 1e3, bound_us=k1_timing[2] * 1e3,
+          bound_by=k1_timing[3], card=card)
+    worst2, timing2 = check_rkc_kernel([cfg, cfg_flat, gb_torus,
+                                        ap_periodic])
+    for s, t2 in timing2.items():
         phase("k2_timing", shape=[2, cfg.ny, cfg.nx], s=s, dtype="float32",
-              kernel_us=k2_ms * 1e3, plain_us=k2_plain_ms * 1e3, card=card)
+              kernel_us=t2[0] * 1e3, plain_us=t2[1] * 1e3,
+              bound_us=t2[2] * 1e3, bound_by=t2[3], card=card)
     cfg_big = config_from_ini(GB_INI, model="goldbeter", surface="torus",
                               x_mesh=K3_BIG_MESH)
-    worst3, timing3 = check_imex_kernel([gb_torus, gb_flat, cfg, cfg_flat],
-                                        [cfg_gb, cfg_big])
-    for shape, (k3_ms, k3_plain_ms) in timing3.items():
+    worst3, timing3 = check_imex_kernel(
+        [gb_torus, gb_flat, cfg, cfg_flat, ap_periodic], [cfg_gb, cfg_big])
+    for shape, t3 in timing3.items():
         phase("k3_timing", shape=list(shape), h=K3_H[0], dtype="float32",
-              kernel_us=k3_ms * 1e3, plain_us=k3_plain_ms * 1e3, card=card)
+              kernel_us=t3[0] * 1e3, plain_us=t3[1] * 1e3,
+              bound_us=t3[2] * 1e3, bound_by=t3[3], card=card)
+    # K4's cases at (2,1600,400), each with a freeze: the bounded tissue; a
+    # torus obstacle (FHN, the canonical torus with a scar of its own); a
+    # flat 2-D diffusion field around D = 0.1
+    torus_scar = np.ones((cfg.ny, cfg.nx), bool)
+    torus_scar[700:780, 150:230] = False
+    dfield = 0.05 + 0.1 * np.random.default_rng(SEED).random(
+        (cfg_ap.ny, cfg_ap.nx))
+    worst4, k4_timing = check_divform_kernel([
+        ("noflux_scar", dataclasses.replace(cfg_ap, t_boundary=1.0),
+         ap_build),
+        ("torus_obstacle", cfg, dict(obstacle_mask=torus_scar)),
+        ("flat_2d_field", ap_periodic, dict(diffusion_field=dfield))])
+    phase("k4_timing", shape=[2, cfg_ap.ny, cfg_ap.nx], method="bs32",
+          dtype="float32", kernel_us=k4_timing[0] * 1e3,
+          plain_us=k4_timing[1] * 1e3, bound_us=k4_timing[2] * 1e3,
+          bound_by=k4_timing[3], card=card)
 
     probes = {}
     for key, path in PROBES.items():
@@ -403,25 +688,29 @@ def main():
         dataclasses.replace(cfg_gb, method="ark324"),
         probes["goldbeter", "ark324"], fused_imex.fused_imex_step, 0.01,
         "main_path_goldbeter_ark324", gb_label)
+    ap_probes = probes["aliev_panfilov", "bs32"]
+    launches4 = run_main_path(
+        cfg_ap, ap_probes, fused_divform.fused_divform_step, 0.01,
+        "main_path_bounded_ap",
+        "scripts/bench_suite.py::bounded_tissue aliev_panfilov flat, "
+        "noflux walls + circular scar",
+        build_kw=ap_build, extra_checks=scar_checks(ap_probes, mask))
 
     k2_s = max(timing2)     # the stability-bound step: the larger time
     k3_shape = (2, cfg_gb.ny, cfg_gb.nx)    # the ark324 main path's shape
-    print(json.dumps({"kernels": [{
-        "name": "fused_erk_step", "route": "cuda",
-        "source": "crdmodel_tpu_torch/csrc/fused_step.cu",
-        "replaces": "crdmodel_tpu/ops/pallas_step.py:117",
-        "launches": launches, "max_abs_err": worst[torch.float32],
-        "ms": k_ms, "plain_ms": plain_ms}, {
-        "name": "fused_rkc_step", "route": "cuda",
-        "source": "crdmodel_tpu_torch/csrc/fused_rkc.cu",
-        "replaces": "crdmodel_tpu/ops/pallas_rkc.py:365",
-        "launches": launches2, "max_abs_err": worst2[torch.float32],
-        "ms": timing2[k2_s][0], "plain_ms": timing2[k2_s][1]}, {
-        "name": "fused_imex_step", "route": "cuda",
-        "source": "crdmodel_tpu_torch/csrc/fused_imex.cu",
-        "replaces": "crdmodel_tpu/ops/pallas_imex.py:155",
-        "launches": launches3, "max_abs_err": worst3[torch.float32],
-        "ms": timing3[k3_shape][0], "plain_ms": timing3[k3_shape][1]}]}))
+    print(json.dumps({"kernels": [
+        kernel_entry("fused_erk_step", "fused_step.cu",
+                     "crdmodel_tpu/ops/pallas_step.py:117", launches, worst,
+                     k1_timing),
+        kernel_entry("fused_rkc_step", "fused_rkc.cu",
+                     "crdmodel_tpu/ops/pallas_rkc.py:365", launches2, worst2,
+                     timing2[k2_s]),
+        kernel_entry("fused_imex_step", "fused_imex.cu",
+                     "crdmodel_tpu/ops/pallas_imex.py:155", launches3,
+                     worst3, timing3[k3_shape]),
+        kernel_entry("fused_divform_step", "fused_divform.cu",
+                     "crdmodel_tpu/ops/pallas_divform.py:130", launches4,
+                     worst4, k4_timing)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,11 @@ The stencil coefficients are computed in float64 numpy exactly as the JAX
 package computes them; only the final cast makes tensors, so both packages
 start from the same rounded values.
 
-Ported: Grid, FlatGeometry.stencil_coeffs, TorusGeometry.stencil_coeffs and
-make_geometry for the flat and torus surfaces. Surfaces of revolution, the
-sphere and the 3-D box are not ported yet (ROADMAP queue 1, items 12-13).
+Ported: Grid, the flat and torus geometries' stencil coefficients and
+divergence-form face coefficients, face_openness (no-flux walls and
+obstacles) and make_geometry for the flat and torus surfaces. Surfaces of
+revolution, the sphere and the 3-D box are not ported yet (ROADMAP queue
+1, items 12-13).
 """
 
 from __future__ import annotations
@@ -67,6 +69,43 @@ class FlatGeometry:
         return tuple(torch.tensor(c, dtype=dtype, device=device)
                      for c in (cu1, cu2, cu3))
 
+    def divergence_coeffs(self, dfield, dtype, device, face_mask=None):
+        """Face coefficients (aE, aW, aN, aS) of the conservative operator
+        div(D grad u) as tensors, cast once from divergence_coeffs64:
+
+          L u = aE (uE - u) + aW (uW - u) + aN (uN - u) + aS (uS - u)
+        """
+        return _as_tensors(self.divergence_coeffs64(dfield, face_mask),
+                           dtype, device)
+
+    def divergence_coeffs64(self, dfield, face_mask=None):
+        """The face coefficients as float64 numpy
+        (crdmodel_tpu/core/grid.py:132): aE_ij = D_{i+1/2,j}/dx^2 with
+        arithmetic face means, aW = roll_x(aE), aN = D_{i,j+1/2}/dy^2,
+        aS = roll_y(aN). dfield: absolute D values, scalar / (nx,) /
+        (ny, nx); scalar and (nx,) fields keep (nx,) profiles. face_mask:
+        optional face_openness masks, zeroing closed faces."""
+        g = self.grid
+        D = np.asarray(dfield, dtype=np.float64)
+        if D.ndim < 2:
+            D = np.broadcast_to(D, (g.nx,))
+            De = 0.5 * (D + np.roll(D, -1))
+            Dn = Ds = D
+            aW_of = lambda aE: np.roll(aE, 1)   # noqa: E731
+        else:
+            D = np.broadcast_to(D, (g.ny, g.nx))
+            De = 0.5 * (D + np.roll(D, -1, axis=-1))
+            Dn = 0.5 * (D + np.roll(D, -1, axis=-2))
+            Ds = np.roll(Dn, 1, axis=-2)
+            aW_of = lambda aE: np.roll(aE, 1, axis=-1)   # noqa: E731
+        inv_dx2 = 1.0 / np.float64(g.dx) ** 2
+        inv_dy2 = 1.0 / np.float64(g.dy) ** 2
+        aE = De * inv_dx2
+        aW = aW_of(aE)
+        aN = Dn * inv_dy2
+        aS = Ds * inv_dy2
+        return _apply_face_mask((aE, aW, aN, aS), face_mask)
+
 
 @dataclasses.dataclass(frozen=True)
 class TorusGeometry:
@@ -100,11 +139,97 @@ class TorusGeometry:
 
     def stencil_coeffs(self, dtype, device):
         """(c_asym, c_theta, c_phi), each a (nx,) tensor."""
-        return tuple(torch.tensor(c, dtype=dtype, device=device)
-                     for c in self._profiles64())
+        return _as_tensors(self._profiles64(), dtype, device)
+
+    def divergence_coeffs(self, dfield, dtype, device, face_mask=None):
+        """Face coefficients (aE, aW, aN, aS) of the conservative
+        Laplace–Beltrami operator as tensors (see FlatGeometry)."""
+        return _as_tensors(self.divergence_coeffs64(dfield, face_mask),
+                           dtype, device)
+
+    def divergence_coeffs64(self, dfield, face_mask=None):
+        """Float64 numpy face coefficients of div(D grad u) on the torus
+        metric (crdmodel_tpu/core/grid.py:309), ring = R + r cos(theta):
+
+          aE_i = ring(th_i + dx/2) D_{i+1/2} / (r^2 dx^2 ring_i)
+          aW_i = ring(th_i - dx/2) D_{i-1/2} / (r^2 dx^2 ring_i)
+          aN = D_{j+1/2} / (ring_i^2 dy^2),  aS = D_{j-1/2} / (ring_i^2 dy^2)
+
+        face_mask: optional face_openness masks (obstacle walls)."""
+        g = self.grid
+        th = g.xmin + np.arange(g.nx, dtype=np.float64) * g.dx
+        R, r = np.float64(self.R), np.float64(self.r)
+        ring = R + r * np.cos(th)
+        ring_e = R + r * np.cos(th + 0.5 * g.dx)          # face i+1/2
+        cx = 1.0 / (r * r * np.float64(g.dx) ** 2)
+        cy = 1.0 / (ring * ring * np.float64(g.dy) ** 2)   # (nx,)
+        D = np.asarray(dfield, dtype=np.float64)
+        if D.ndim < 2:
+            D = np.broadcast_to(D, (g.nx,))
+            De = 0.5 * (D + np.roll(D, -1))
+            Dn = Ds = D
+            roll_x = lambda a: np.roll(a, 1)   # noqa: E731
+        else:
+            D = np.broadcast_to(D, (g.ny, g.nx))
+            De = 0.5 * (D + np.roll(D, -1, axis=-1))
+            Dn = 0.5 * (D + np.roll(D, -1, axis=-2))
+            Ds = np.roll(Dn, 1, axis=-2)
+            roll_x = lambda a: np.roll(a, 1, axis=-1)   # noqa: E731
+        flux_e = ring_e * De * cx                          # per east face
+        aE = flux_e / ring
+        aW = roll_x(flux_e) / ring
+        aN = Dn * cy
+        aS = Ds * cy
+        return _apply_face_mask((aE, aW, aN, aS), face_mask)
 
 
 Geometry = Union[FlatGeometry, TorusGeometry]
+
+
+def _as_tensors(arrays, dtype, device):
+    """float64 numpy arrays -> tensors, cast once."""
+    return tuple(torch.tensor(np.asarray(a), dtype=dtype, device=device)
+                 for a in arrays)
+
+
+def face_openness(ny: int, nx: int, boundary: str = "periodic",
+                  tissue=None):
+    """0/1 face-openness masks (oE, oW, oN, oS), float64, or None when every
+    face is open (crdmodel_tpu/core/grid.py:870).
+
+    A closed face carries zero flux: the masks multiply the face
+    coefficients of div(D grad u), closing the domain edges of
+    boundary="noflux"/"noflux_x"/"noflux_y" and every face that touches a
+    non-tissue cell of `tissue` (bool (ny, nx), True = active medium). They
+    satisfy oW = roll_x(oE) and oS = roll_y(oN), so both sides of a face
+    close together, and a periodic wrap across a closed face meets a zero
+    coefficient. Shapes: (nx,) for the x masks and (ny, 1) for the y masks,
+    (ny, nx) once there is a tissue mask."""
+    if boundary == "periodic" and tissue is None:
+        return None
+    oE = np.ones(nx, dtype=np.float64)
+    oW = np.ones(nx, dtype=np.float64)
+    oN = np.ones((ny, 1), dtype=np.float64)
+    oS = np.ones((ny, 1), dtype=np.float64)
+    if boundary in ("noflux", "noflux_x"):
+        oE[-1] = 0.0
+        oW[0] = 0.0
+    if boundary in ("noflux", "noflux_y"):
+        oN[-1, 0] = 0.0
+        oS[0, 0] = 0.0
+    if tissue is not None:
+        T = np.broadcast_to(np.asarray(tissue, dtype=bool), (ny, nx))
+        oE = oE * (T & np.roll(T, -1, axis=-1))
+        oW = oW * (T & np.roll(T, 1, axis=-1))
+        oN = oN * (T & np.roll(T, -1, axis=-2))
+        oS = oS * (T & np.roll(T, 1, axis=-2))
+    return oE, oW, oN, oS
+
+
+def _apply_face_mask(faces, face_mask):
+    if face_mask is None:
+        return faces
+    return tuple(a * o for a, o in zip(faces, face_mask))
 
 
 def make_grid(cfg: SimConfig) -> Grid:

@@ -7,12 +7,13 @@ RHS semantics (reference src/FHNmodel_torus.cpp:504-667):
   if t < tBoundary: rows j==0 and j==ny-1 are frozen (ydot=0, both variables).
   justDiffusion==1 skips the reaction block, freeze included.
 
-Ported: the constant-D profile operator on the flat and torus surfaces,
-its RKC2 spectral-radius bound (make_rho_bound), and the IMEX split
+Ported: the constant-D profile operator on the flat and torus surfaces;
+the divergence-form (face-coefficient) operator with user-supplied
+diffusion fields, no-flux domain walls and obstacle masks; their RKC2
+spectral-radius bounds (make_rho_bound); and the IMEX split
 (make_rhs(split=True)) for ark324.
-Not ported yet: diffusion fields and coupling (ROADMAP queue 1, item 10),
-no-flux boundaries and obstacles (item 10), tensors (item 11), forcing
-(item 9) and pole coarsening (item 12).
+Not ported yet: coupling="curvature" (ROADMAP queue 1, item 10), tensors
+(item 11), forcing (item 9) and pole coarsening (item 12).
 """
 
 from __future__ import annotations
@@ -24,9 +25,11 @@ import numpy as np
 import torch
 
 from crdmodel_tpu_torch.config import SimConfig
-from crdmodel_tpu_torch.core.grid import Geometry, Grid, make_geometry
+from crdmodel_tpu_torch.core.grid import (Geometry, Grid, face_openness,
+                                          make_geometry)
 from crdmodel_tpu_torch.models import ReactionModel, get_model
-from crdmodel_tpu_torch.ops.stencil import flat_laplacian, torus_laplacian
+from crdmodel_tpu_torch.ops.stencil import (divergence_laplacian,
+                                            flat_laplacian, torus_laplacian)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,11 +42,15 @@ class Problem:
     params: dict           # {"b": 0-d or (ny, 1) tensor}
     steady_state: tuple    # background fixed point used in ICs
     device: torch.device
-    # the operator and forcing inputs of the JAX Problem that the kernel
-    # gates read (ops/kernel_common.py); build_problem does not make them
-    # yet, so they stay None (ROADMAP queue 1, items 9-10)
+    # the operator inputs (build_problem): diffusion_field, float64 numpy
+    # D values (scalar, (nx,) or (ny, nx)) when the operator takes the
+    # divergence form, else None; face_mask, the face_openness masks of
+    # no-flux walls and obstacles, or None; obstacle_mask, bool (ny, nx)
+    # with True = tissue, or None. forcing is not ported (ROADMAP queue 1,
+    # item 9) and stays None.
     diffusion_field: object = None
     face_mask: object = None
+    obstacle_mask: object = None
     forcing: object = None
 
     @property
@@ -65,8 +72,9 @@ def beta_field(cfg: SimConfig, dtype, device) -> torch.Tensor:
 def initial_state(cfg: SimConfig, model: ReactionModel, steady: tuple,
                   dtype, device, uniform=None) -> torch.Tensor:
     """Initial conditions, (nvars, ny, nx), computed in float64 numpy then
-    cast (SURVEY.md C9). FitzHugh–Nagumo and Goldbeter; the other families'
-    ICs come with their kinetics (ROADMAP queue 1, item 6).
+    cast (SURVEY.md C9). FitzHugh–Nagumo, Goldbeter and Aliev–Panfilov;
+    the other families' ICs come with their kinetics (ROADMAP queue 1,
+    item 6).
 
     Goldbeter with varyBeta=1 and icType=2 draws both fields uniformly from
     [0, 1.4): the (2, ny, nx) float32 draws in [0, 1) come from `uniform`
@@ -74,7 +82,7 @@ def initial_state(cfg: SimConfig, model: ReactionModel, steady: tuple,
     JAX package draws them with a JAX PRNG key (crdmodel_tpu/core/
     problem.py:203-209), whose bits differ; a parity test passes the JAX
     draws in as `uniform`."""
-    if cfg.model not in ("fhn", "goldbeter"):
+    if cfg.model not in ("fhn", "goldbeter", "aliev_panfilov"):
         raise NotImplementedError(
             f"initial state of model {cfg.model!r} is not ported yet")
     nx, ny = cfg.nx, cfg.ny
@@ -114,6 +122,13 @@ def initial_state(cfg: SimConfig, model: ReactionModel, steady: tuple,
             seg = in_x & (Y >= wave_len) & (Y <= 2.0 * wave_len)
             bg[0] = np.where(seg, us + 2.0, us)
             bg[1] = np.where(seg, vs + 1.5, vs)
+    elif cfg.model == "aliev_panfilov":
+        # rest state (0, 0); the segment depolarised to u=1 with a refractory
+        # v=2 band below it, so that the front is broken on one side (the
+        # rotor seed, crdmodel_tpu/core/problem.py:254-262)
+        seg = in_x & (Y >= wave_len) & (Y <= 2.0 * wave_len)
+        bg[0] = np.where(seg, 1.0, 0.0)
+        bg[1] = np.where(np.broadcast_to(Y < wave_len, seg.shape), 2.0, 0.0)
     elif cfg.vary_beta == 0:
         zs, ys = steady
         if cfg.surface == "torus":
@@ -153,17 +168,38 @@ def interior_rows(ny: int, dtype, device) -> torch.Tensor:
 
 
 def make_rhs(cfg: SimConfig, model: ReactionModel, geometry: Geometry, dtype,
-             device, split: bool = False):
-    """rhs(t, state, params) for the full grid, constant-D profile operator
-    (crdmodel_tpu/core/problem.py:445-541). t and params["_seg_end"] may be
+             device, split: bool = False, diffusion_field=None,
+             face_mask=None, obstacle_mask=None):
+    """rhs(t, state, params) for the full grid
+    (crdmodel_tpu/core/problem.py:341-541). t and params["_seg_end"] may be
     0-d tensors: the freeze decision stays on the device.
+
+    The constant-D profile operator, or with diffusion_field (float64 D
+    values, scalar / (nx,) / (ny, nx)) the conservative divergence form
+    (ops/stencil.py::divergence_laplacian), whose closed faces face_mask
+    (core/grid.py::face_openness) zeroes. obstacle_mask: bool (ny, nx),
+    True = tissue; the other cells get ydot = 0 and hold their IC.
 
     split=True returns (rhs_ex, rhs_im), the explicit (diffusion) and
     implicit (pointwise kinetics) parts for ark324 (integrate/imex.py),
-    with the freeze applied to each part, so that rhs_ex + rhs_im equals
-    the composed rhs bitwise."""
-    coeffs = geometry.stencil_coeffs(dtype, device)
-    lap = torus_laplacian if geometry.kind == "torus" else flat_laplacian
+    with the freeze and the tissue mask applied to each part, so that
+    rhs_ex + rhs_im equals the composed rhs bitwise."""
+    if diffusion_field is not None:
+        coeffs = geometry.divergence_coeffs(diffusion_field, dtype, device,
+                                            face_mask=face_mask)
+        lap = divergence_laplacian
+    elif face_mask is not None:
+        raise ValueError("face_mask needs the divergence operator: pass "
+                         "diffusion_field (build_problem defaults it to the "
+                         "constant cfg.diffusion)")
+    else:
+        coeffs = geometry.stencil_coeffs(dtype, device)
+        lap = torus_laplacian if geometry.kind == "torus" else flat_laplacian
+    tissue = None
+    if obstacle_mask is not None:
+        tissue = torch.tensor(np.broadcast_to(
+            np.asarray(obstacle_mask, dtype=bool), geometry.grid.shape),
+            device=device)
     just_diffusion = bool(cfg.just_diffusion)
     t_boundary = float(cfg.t_boundary)
     has_freeze = (t_boundary > 0.0) and not just_diffusion
@@ -194,14 +230,17 @@ def make_rhs(cfg: SimConfig, model: ReactionModel, geometry: Geometry, dtype,
         frozen = torch.where(interior, ydot, 0.0)
         return torch.where(freeze_now, frozen, ydot)
 
+    def mask_tissue(ydot):
+        return ydot if tissue is None else torch.where(tissue, ydot, 0.0)
+
     def rhs(t, state, params):
         diff = diffusion_terms(state)
         if just_diffusion:
-            return diff
+            return mask_tissue(diff)
         ydot = model.kinetics(state, params["b"]) + diff
         if has_freeze:
             ydot = apply_freeze(t, params, ydot)
-        return ydot
+        return mask_tissue(ydot)
 
     if not split:
         return rhs
@@ -210,7 +249,7 @@ def make_rhs(cfg: SimConfig, model: ReactionModel, geometry: Geometry, dtype,
         diff = diffusion_terms(state)
         if has_freeze:
             diff = apply_freeze(t, params, diff)
-        return diff
+        return mask_tissue(diff)
 
     def rhs_im(t, state, params):
         if just_diffusion:
@@ -218,7 +257,7 @@ def make_rhs(cfg: SimConfig, model: ReactionModel, geometry: Geometry, dtype,
         ydot = model.kinetics(state, params["b"])
         if has_freeze:
             ydot = apply_freeze(t, params, ydot)
-        return ydot
+        return mask_tissue(ydot)
 
     return rhs_ex, rhs_im
 
@@ -231,25 +270,33 @@ def make_rho_bound(cfg: SimConfig, model: ReactionModel, geometry: Geometry,
     the diffusion operator (float64 numpy) plus the grid max of the model's
     pointwise kinetics Jacobian bound, a 0-d tensor on y's device.
 
-    Ported: the constant-D torus and flat operators. Not ported yet: the
-    tensor (ROADMAP queue 1, item 11) and divergence-form (item 10)
-    operators, and max_reduce (sharding, item 15)."""
+    Ported: the constant-D torus and flat operators and the divergence form
+    (diffusion_field, with face_mask closing faces). Not ported yet: the
+    tensor operator (ROADMAP queue 1, item 11) and max_reduce (sharding,
+    item 15)."""
     if diffusion_tensor is not None:
         raise NotImplementedError("the rho bound of a diffusion tensor is "
                                   "not ported yet (ROADMAP queue 1, item 11)")
-    if diffusion_field is not None or face_mask is not None:
-        raise NotImplementedError("the rho bound of the divergence form is "
-                                  "not ported yet (ROADMAP queue 1, item 10)")
     if max_reduce is not None:
         raise NotImplementedError("max_reduce is not ported yet (ROADMAP "
                                   "queue 1, item 15)")
-    coeffs = [c.numpy() for c in geometry.stencil_coeffs(torch.float64, "cpu")]
-    if geometry.kind == "torus":
+    if diffusion_field is not None:
+        # divergence form: the diagonal is the sum of the face coefficients
+        # and so is the off-diagonal row sum: Gershgorin gives 2 max row sum
+        # (closed faces only shrink it)
+        row_sum = 0.0
+        for a in geometry.divergence_coeffs64(diffusion_field, face_mask):
+            row_sum = row_sum + a
+        rho_diff = float(2.0 * np.max(row_sum))
+    elif geometry.kind == "torus":
+        coeffs = [c.numpy()
+                  for c in geometry.stencil_coeffs(torch.float64, "cpu")]
         c_asym, c_th, c_phi = coeffs
         rho_diff = float(4.0 * np.max(c_th) + 4.0 * np.max(c_phi)
                          + 2.0 * np.max(np.abs(c_asym)))
     else:
-        cu1, cu2, _ = (float(c) for c in coeffs)
+        cu1, cu2, _ = (float(c)
+                       for c in geometry.stencil_coeffs(torch.float64, "cpu"))
         rho_diff = 4.0 * cu1 + 4.0 * cu2
     rho_diff *= max(model.diffusion_ratios)
     just_diffusion = bool(cfg.just_diffusion)
@@ -274,13 +321,21 @@ def solver_breakpoints(cfg: SimConfig) -> tuple:
     return ()
 
 
-def build_problem(cfg: SimConfig, device) -> Problem:
+def build_problem(cfg: SimConfig, device, diffusion_field=None,
+                  obstacle_mask=None) -> Problem:
     """Build the problem's tensors on `device` (no default: the caller says
-    where the run lives)."""
+    where the run lives); crdmodel_tpu/core/problem.py:648.
+
+    diffusion_field: optional absolute D values (scalar, (nx,) or (ny, nx),
+    non-negative) switching diffusion to the conservative divergence form.
+    obstacle_mask: optional bool array broadcastable to (ny, nx), True =
+    tissue; the other cells are inert: every face touching them closes and
+    their kinetics freeze, so that they hold their IC exactly. It composes
+    with cfg.boundary's no-flux walls; both take the divergence form, with
+    the constant cfg.diffusion as the field when none is given."""
     cfg = cfg.validate()
     device = torch.device(device)
     unported = {"coupling": (cfg.coupling != "none", 10),
-                "boundary": (cfg.boundary != "periodic", 10),
                 "pole_coarsen": (bool(cfg.pole_coarsen), 12)}
     for name, (used, item) in unported.items():
         if used:
@@ -290,10 +345,42 @@ def build_problem(cfg: SimConfig, device) -> Problem:
     dtype = getattr(torch, cfg.dtype)
     model = get_model(cfg.model)
     geometry = make_geometry(cfg)
+    shape = geometry.grid.shape
+    if diffusion_field is not None:
+        diffusion_field = np.asarray(diffusion_field, dtype=np.float64)
+        if not np.all(diffusion_field >= 0.0):
+            raise ValueError("diffusion_field must be non-negative")
+        try:
+            np.broadcast_to(diffusion_field, shape)
+        except ValueError:
+            raise ValueError(
+                f"diffusion_field shape {diffusion_field.shape} does not "
+                f"broadcast to the grid {shape}") from None
+    face_mask = None
+    if cfg.boundary != "periodic" or obstacle_mask is not None:
+        if obstacle_mask is not None:
+            try:
+                obstacle_mask = np.broadcast_to(
+                    np.asarray(obstacle_mask, dtype=bool), shape).copy()
+            except ValueError:
+                raise ValueError(
+                    f"obstacle_mask shape {np.shape(obstacle_mask)} does not "
+                    f"broadcast to the grid {shape}") from None
+            if not obstacle_mask.any():
+                raise ValueError("obstacle_mask is all-False (no tissue)")
+        face_mask = face_openness(cfg.ny, cfg.nx, cfg.boundary,
+                                  obstacle_mask)
+        if diffusion_field is None:
+            # closed faces live in the face coefficients: the divergence
+            # form even for constant D
+            diffusion_field = np.float64(cfg.diffusion)
     steady = model.steady_state(cfg.beta)
     return Problem(
         cfg=cfg, model=model, geometry=geometry,
-        rhs=make_rhs(cfg, model, geometry, dtype, device),
+        rhs=make_rhs(cfg, model, geometry, dtype, device,
+                     diffusion_field=diffusion_field, face_mask=face_mask,
+                     obstacle_mask=obstacle_mask),
         y0=initial_state(cfg, model, steady, dtype, device),
         params={"b": beta_field(cfg, dtype, device)},
-        steady_state=steady, device=device)
+        steady_state=steady, device=device, diffusion_field=diffusion_field,
+        face_mask=face_mask, obstacle_mask=obstacle_mask)

@@ -1,0 +1,193 @@
+// The tile scheme of the port's fused embedded-ERK step kernels: K1
+// (fused_step.cu, the 5-point profile operator) and K4 (fused_divform.cu,
+// the divergence-form operator). The two differ only in the right-hand side
+// at a point, a functor the kernel template takes.
+//
+// One launch performs a whole step: every stage's stencil and kinetics, the
+// solution update, and one partial sum of squared WRMS-scaled errors per
+// thread block. The caller sums the partials (no float atomics, so two
+// launches on the same input give bitwise-equal results).
+//
+// Each thread block owns a tile of tile_y x tile_x points and loads it with
+// a halo of n_stages rings (the periodic wrap is a modular index at load).
+// Stage s is evaluated from shared memory on a region that shrinks by one
+// ring per stage, so the last stage is valid on the tile and no stage value
+// ever goes to device memory. All stages are evaluated (no FSAL). The
+// arithmetic follows the plain versions (ops/fused_step.py::
+// fused_step_reference, ops/fused_divform.py::fused_divform_step_reference)
+// operation for operation, and the library is built with -fmad=false so
+// that no multiply and add are contracted: each operation rounds as
+// PyTorch's does.
+//
+// The functor: rhs(fz, su, sv, p, W, gy, gx, du, dv) writes ydot at local
+// point p of a region with row stride W holding u in su and v in sv, whose
+// global indices are (gy, gx); fz is the freeze scalar of the segment.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "rhs_common.cuh"
+
+namespace crd {
+
+constexpr int kErkMaxStages = 8;
+constexpr int kErkThreads = 256;
+
+struct StageTable {
+  int n;
+  double a[kErkMaxStages][kErkMaxStages];
+  double b[kErkMaxStages];
+  double d[kErkMaxStages];   // b - bhat
+};
+
+// a row-major (n x n), b and d of n stages; false when n is out of range
+inline bool make_stage_table(int n, const double* a, const double* b,
+                             const double* d, StageTable* tab) {
+  if (n < 1 || n > kErkMaxStages) return false;
+  *tab = StageTable{};
+  tab->n = n;
+  for (int s = 0; s < n; ++s) {
+    for (int j = 0; j < n; ++j) tab->a[s][j] = a[s * n + j];
+    tab->b[s] = b[s];
+    tab->d[s] = d[s];
+  }
+  return true;
+}
+
+// shared bytes of a tile: y0, yi and n k's, two variables each, with an
+// n-ring halo (ops/fused_step.py::tile_plan)
+inline size_t erk_tile_smem(int n_stages, int tile_x, int tile_y,
+                            size_t itemsize) {
+  return static_cast<size_t>(2 * n_stages + 4) * (tile_x + 2 * n_stages)
+         * (tile_y + 2 * n_stages) * itemsize;
+}
+
+template <class Rhs, typename T>
+__global__ void __launch_bounds__(kErkThreads) fused_erk_tile_kernel(
+    const T* __restrict__ y, T* __restrict__ y_new, T* __restrict__ ss,
+    const T* __restrict__ h_ptr, const T* __restrict__ fz_ptr, Rhs rhs,
+    int ny, int nx, int tile_x, int tile_y, StageTable tab, T rtol, T atol) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T warp_sums[kErkThreads / 32];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+
+  const int halo = tab.n;
+  const int W = tile_x + 2 * halo;    // region width (x, contiguous)
+  const int R = tile_y + 2 * halo;    // region rows
+  const int np = W * R;
+  T* y0u = smem;                      // the step's start, both variables
+  T* y0v = y0u + np;
+  T* yiu = y0v + np;                  // the current stage input
+  T* yiv = yiu + np;
+  T* ks = yiv + np;                   // stage s: u at ks + 2s*np, v after
+  const int gx0 = blockIdx.x * tile_x - halo;
+  const int gy0 = blockIdx.y * tile_y - halo;
+  const size_t plane = static_cast<size_t>(ny) * nx;
+
+  for (int p = threadIdx.x; p < np; p += blockDim.x) {
+    const int ly = p / W, lx = p - ly * W;
+    const size_t g = static_cast<size_t>(wrap(gy0 + ly, ny)) * nx
+                     + wrap(gx0 + lx, nx);
+    y0u[p] = y[g];
+    y0v[p] = y[plane + g];
+  }
+  const T h = *h_ptr;
+  const T fz = *fz_ptr;
+  __syncthreads();
+
+  for (int s = 0; s < tab.n; ++s) {
+    const T* su = y0u;
+    const T* sv = y0v;
+    if (s > 0) {
+      // yi = y0 + (h a[s][0]) k_0 + ... on the points at depth >= s
+      const int w = W - 2 * s, r = R - 2 * s;
+      for (int q = threadIdx.x; q < w * r; q += blockDim.x) {
+        const int p = (s + q / w) * W + s + q % w;
+        T u = y0u[p], v = y0v[p];
+        for (int j = 0; j < s; ++j) {
+          if (tab.a[s][j] != 0.0) {
+            const T ha = h * static_cast<T>(tab.a[s][j]);
+            u = u + ha * ks[(2 * j) * np + p];
+            v = v + ha * ks[(2 * j + 1) * np + p];
+          }
+        }
+        yiu[p] = u;
+        yiv[p] = v;
+      }
+      __syncthreads();
+      su = yiu;
+      sv = yiv;
+    }
+    // k_s = rhs(yi) on the points at depth >= s + 1
+    T* ku = ks + (2 * s) * np;
+    T* kv = ku + np;
+    const int dep = s + 1;
+    const int w = W - 2 * dep, r = R - 2 * dep;
+    for (int q = threadIdx.x; q < w * r; q += blockDim.x) {
+      const int ly = dep + q / w, lx = dep + q % w;
+      const int p = ly * W + lx;
+      rhs(fz, su, sv, p, W, wrap(gy0 + ly, ny), wrap(gx0 + lx, nx), ku[p],
+          kv[p]);
+    }
+    __syncthreads();
+  }
+
+  // y_new and the error on the tile; WRMS weights from the step's start
+  T acc = T(0);
+  for (int q = threadIdx.x; q < tile_x * tile_y; q += blockDim.x) {
+    const int ty = q / tile_x, tx = q - ty * tile_x;
+    const int gy = blockIdx.y * tile_y + ty, gx = blockIdx.x * tile_x + tx;
+    if (gy >= ny || gx >= nx) continue;
+    const int p = (ty + halo) * W + tx + halo;
+    const T u0 = y0u[p], v0 = y0v[p];
+    T nu = u0, nv = v0, eu = T(0), ev = T(0);
+    for (int s = 0; s < tab.n; ++s) {
+      const T* ku = ks + (2 * s) * np;
+      if (tab.b[s] != 0.0) {
+        const T hb = h * static_cast<T>(tab.b[s]);
+        nu = nu + hb * ku[p];
+        nv = nv + hb * ku[np + p];
+      }
+      if (tab.d[s] != 0.0) {
+        const T hd = h * static_cast<T>(tab.d[s]);
+        eu = eu + hd * ku[p];
+        ev = ev + hd * ku[np + p];
+      }
+    }
+    const size_t g = static_cast<size_t>(gy) * nx + gx;
+    y_new[g] = nu;
+    y_new[plane + g] = nv;
+    const T wu = eu * (T(1) / (rtol * fabs(u0) + atol));
+    const T wv = ev * (T(1) / (rtol * fabs(v0) + atol));
+    acc = acc + wu * wu;
+    acc = acc + wv * wv;
+  }
+
+  store_block_sum<T, kErkThreads>(acc, warp_sums, ss);
+}
+
+// Launch one step of fused_erk_tile_kernel<Rhs, T> on `stream`; returns the
+// CUDA error code (0 on success), checked right after the launch.
+template <class Rhs, typename T>
+int launch_erk_tile(Rhs rhs, const void* y, void* y_new, void* ss,
+                    const void* h, const void* fz, int ny, int nx, int tile_x,
+                    int tile_y, const StageTable& tab, double rtol,
+                    double atol, void* stream) {
+  if (ny < 1 || nx < 1 || tile_x < 1 || tile_y < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = erk_tile_smem(tab.n, tile_x, tile_y, sizeof(T));
+  auto kernel = &fused_erk_tile_kernel<Rhs, T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((nx + tile_x - 1) / tile_x, (ny + tile_y - 1) / tile_y);
+  kernel<<<grid, kErkThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(y), static_cast<T*>(y_new), static_cast<T*>(ss),
+      static_cast<const T*>(h), static_cast<const T*>(fz), rhs, ny, nx,
+      tile_x, tile_y, tab, static_cast<T>(rtol), static_cast<T>(atol));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace crd

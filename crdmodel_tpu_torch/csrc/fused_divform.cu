@@ -1,0 +1,97 @@
+// Fused embedded-ERK step of the divergence-form (face-coefficient)
+// operator with FitzHugh-Nagumo, Goldbeter or Aliev-Panfilov kinetics
+// (kernel K4 of the port).
+//
+// Replaces crdmodel_tpu/ops/pallas_divform.py::build_fused_divform_step, the
+// Pallas TPU kernel that takes every attempted step of an ERK run whose
+// operator exists only in the divergence form: no-flux domain walls,
+// obstacle scars, 2-D diffusion fields, and diffusion fields on the flat
+// surface (the bounded cardiac-tissue program). One launch performs a whole
+// step, with the tile scheme of K1 (erk_tile.cuh): stage inputs
+// y0 + sum (h a[s][j]) k_j; k_s = kinetics + aE(uE-u) + aW(uW-u) + aN(uN-u)
+// + aS(uS-u) on variable 0, times live = 1 - fz(1 - mask) with a freeze,
+// times the 0/1 tissue field with an obstacle; y_new = y0 + sum (h b_s) k_s
+// and err = sum (h d_s) k_s in the plain version's order; one partial sum of
+// (err / (rtol |y0| + atol))^2 per block, in a fixed order.
+//
+// What bounds it on an H100: each step reads the state (2 x ny x nx) and
+// the three face fields and the tissue field (ny x nx each) once and writes
+// y_new once: about 20.5 MB a bs32 step on 1600x400 in f32, some 6 us at
+// the published 3.35 TB/s. The arithmetic is a few dozen flops a point a
+// stage. As in K1, the step is bound by latency (barriers between stages,
+// the shared-memory stage buffers) long before either.
+//
+// Design: the state tiles, their n_stages-ring halos (loaded by modular
+// index: under no-flux walls and obstacles the wrapped values meet zero
+// face coefficients) and the stage buffers live in shared memory as in K1.
+// The coefficients do not: halo points evaluate stages too, so they are
+// read at every evaluation through the read-only data cache (__ldg), where
+// the repeated reads of a tile's region hit. aS is not shipped: it is aN of
+// the row above, wrapped, exact because the wrapper checks
+// aS == roll_y(aN) on the float64 fields before it builds the constants.
+// aW ships: on the torus it is not a roll of aE. The arithmetic follows the
+// plain version (ops/fused_divform.py::fused_divform_step_reference)
+// operation for operation, and the library is built with -fmad=false. No
+// tensor cores, TMA or tuning yet.
+
+#include <cuda_runtime.h>
+
+#include "erk_tile.cuh"
+#include "rhs_common.cuh"
+
+namespace {
+
+using crd::DivformRhs;
+
+template <typename T>
+int launch(const void* y, void* y_new, void* ss, const void* h,
+           const void* fz, const void* ae, const void* aw, const void* an,
+           const void* tissue, const void* beta, int beta_field,
+           const void* mask, int has_freeze, int kinetics, int ny, int nx,
+           int tile_x, int tile_y, int n_stages, const double* a,
+           const double* b, const double* d, double rtol, double atol,
+           void* stream) {
+  crd::StageTable tab;
+  if (!crd::make_stage_table(n_stages, a, b, d, &tab)
+      || !crd::valid_kinetics(kinetics))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const crd::FaceConstants<T> f = {
+      static_cast<const T*>(ae), static_cast<const T*>(aw),
+      static_cast<const T*>(an), static_cast<const T*>(tissue)};
+  const crd::RhsConstants<T> k = {
+      nullptr, nullptr, nullptr, 0, static_cast<const T*>(beta), beta_field,
+      static_cast<const T*>(mask), has_freeze};
+  if (kinetics == crd::kFhn)
+    return crd::launch_erk_tile<DivformRhs<crd::kFhn, T>, T>(
+        {f, k, ny, nx}, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab,
+        rtol, atol, stream);
+  if (kinetics == crd::kGoldbeter)
+    return crd::launch_erk_tile<DivformRhs<crd::kGoldbeter, T>, T>(
+        {f, k, ny, nx}, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab,
+        rtol, atol, stream);
+  return crd::launch_erk_tile<DivformRhs<crd::kAlievPanfilov, T>, T>(
+      {f, k, ny, nx}, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab, rtol,
+      atol, stream);
+}
+
+}  // namespace
+
+#define CRD_FUSED_DIVFORM_ARGS                                               \
+  const void *y, void *y_new, void *ss, const void *h, const void *fz,      \
+      const void *ae, const void *aw, const void *an, const void *tissue,   \
+      const void *beta, int beta_field, const void *mask, int has_freeze,   \
+      int kinetics, int ny, int nx, int tile_x, int tile_y, int n_stages,   \
+      const double *a, const double *b, const double *d, double rtol,       \
+      double atol, void *stream
+#define CRD_FUSED_DIVFORM_PASS                                               \
+  y, y_new, ss, h, fz, ae, aw, an, tissue, beta, beta_field, mask,          \
+      has_freeze, kinetics, ny, nx, tile_x, tile_y, n_stages, a, b, d,      \
+      rtol, atol, stream
+
+extern "C" int crd_fused_divform_step_f32(CRD_FUSED_DIVFORM_ARGS) {
+  return launch<float>(CRD_FUSED_DIVFORM_PASS);
+}
+
+extern "C" int crd_fused_divform_step_f64(CRD_FUSED_DIVFORM_ARGS) {
+  return launch<double>(CRD_FUSED_DIVFORM_PASS);
+}

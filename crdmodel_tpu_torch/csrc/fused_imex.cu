@@ -1,6 +1,6 @@
 // Fused IMEX ARK3(2)4L[2]SA step of the 5-point profile operator (explicit)
-// and pointwise FitzHugh-Nagumo or Goldbeter kinetics (implicit), kernel K3
-// of the port.
+// and pointwise FitzHugh-Nagumo, Goldbeter or Aliev-Panfilov kinetics
+// (implicit), kernel K3 of the port.
 //
 // Replaces crdmodel_tpu/ops/pallas_imex.py::build_fused_imex_step, the
 // Pallas TPU kernel that takes every attempted step of an ark324 run on the
@@ -152,7 +152,7 @@ __global__ void __launch_bounds__(kThreads) fused_imex_step_kernel(
       T du = T(0), dv = T(0);
       for (int it = 0; it < kNewtonIters; ++it) {
         T j00, j01, j10, j11, fu, fv;
-        crd::jacobian<Kin>(Yu, Yv, j00, j01, j10, j11);
+        crd::jacobian<Kin>(Yu, Yv, b, j00, j01, j10, j11);
         crd::kinetics<Kin>(Yu, Yv, b, fu, fv);
         if (k.has_freeze) {
           j00 = j00 * live;
@@ -248,7 +248,7 @@ int launch(const void* y, void* y_new, void* ss, const void* h,
            const double* d, double gamma, double rtol, double atol,
            void* stream) {
   if (ny < 1 || nx < 1 || tile_x < 1 || tile_y < 1
-      || (kinetics != crd::kFhn && kinetics != crd::kGoldbeter))
+      || !crd::valid_kinetics(kinetics))
     return static_cast<int>(cudaErrorInvalidValue);
   ImexTable tab = {};
   for (int s = 0; s < kStages; ++s) {
@@ -264,7 +264,9 @@ int launch(const void* y, void* y_new, void* ss, const void* h,
                       * (tile_y + 2 * kHalo) * sizeof(T);
   auto kernel = kinetics == crd::kFhn
                     ? &fused_imex_step_kernel<crd::kFhn, T>
-                    : &fused_imex_step_kernel<crd::kGoldbeter, T>;
+                : kinetics == crd::kGoldbeter
+                    ? &fused_imex_step_kernel<crd::kGoldbeter, T>
+                    : &fused_imex_step_kernel<crd::kAlievPanfilov, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

@@ -1,5 +1,5 @@
-// Fused RKC2 step of the 5-point profile operator with FitzHugh-Nagumo
-// kinetics (kernel K2 of the port).
+// Fused RKC2 step of the 5-point profile operator with FitzHugh-Nagumo,
+// Goldbeter or Aliev-Panfilov kinetics (kernel K2 of the port).
 //
 // Replaces crdmodel_tpu/ops/pallas_rkc.py::build_fused_rkc_step, the Pallas
 // TPU kernel that takes every attempted step of an rkc2 run on a large
@@ -34,8 +34,9 @@
 // s_cap + 1 rings when the launch is configured, before s is known; a
 // smaller s packs its smaller region into the same space. The arithmetic
 // follows the plain version (ops/fused_rkc.py::fused_rkc_step_reference)
-// operation for operation, and the library is built with -fmad=false.
-// No tensor cores, TMA or tuning yet.
+// operation for operation, and the library is built with -fmad=false. The
+// kinetics family is a template parameter, as in K1 and K3. No tensor
+// cores, TMA or tuning yet.
 
 #include <cuda_runtime.h>
 
@@ -59,7 +60,7 @@ __device__ __forceinline__ double quiet_nan<double>() {
   return __longlong_as_double(0x7ff8000000000000LL);
 }
 
-template <typename T>
+template <int Kin, typename T>
 __global__ void __launch_bounds__(kThreads) fused_rkc_step_kernel(
     const T* __restrict__ y, T* __restrict__ y_new, T* __restrict__ ss,
     const T* __restrict__ h_ptr, const T* __restrict__ fz_ptr,
@@ -121,7 +122,7 @@ __global__ void __launch_bounds__(kThreads) fused_rkc_step_kernel(
       const int ly = 1 + q / w, lx = 1 + q % w;
       const int p = ly * W + lx;
       T du, dv;
-      crd::profile_rhs<crd::kFhn>(k, fz, y0u, y0v, p, W,
+      crd::profile_rhs<Kin>(k, fz, y0u, y0v, p, W,
                                   wrap(gy0 + ly, ny), wrap(gx0 + lx, nx),
                                   du, dv);
       f0u[p] = du;
@@ -150,8 +151,8 @@ __global__ void __launch_bounds__(kThreads) fused_rkc_step_kernel(
       const int ly = j + q / w, lx = j + q % w;
       const int p = ly * W + lx;
       T fu, fv;
-      crd::profile_rhs<crd::kFhn>(k, fz, cu, cv, p, W, wrap(gy0 + ly, ny),
-                                  wrap(gx0 + lx, nx), fu, fv);
+      crd::profile_rhs<Kin>(k, fz, cu, cv, p, W, wrap(gy0 + ly, ny),
+                            wrap(gx0 + lx, nx), fu, fv);
       const T yju = cy0 * y0u[p] + mu * cu[p] + nu * pu[p] + hmut * fu
                     + hgt * f0u[p];
       const T yjv = cy0 * y0v[p] + mu * cv[p] + nu * pv[p] + hmut * fv
@@ -180,7 +181,7 @@ __global__ void __launch_bounds__(kThreads) fused_rkc_step_kernel(
     if (gy >= ny || gx >= nx) continue;
     const int p = (ty + halo) * W + tx + halo;
     T f1u, f1v;
-    crd::profile_rhs<crd::kFhn>(k, fz, cu, cv, p, W, gy, gx, f1u, f1v);
+    crd::profile_rhs<Kin>(k, fz, cu, cv, p, W, gy, gx, f1u, f1v);
     const T yu = cu[p], yv = cv[p];
     const size_t g = static_cast<size_t>(gy) * nx + gx;
     y_new[g] = yu;
@@ -200,16 +201,21 @@ int launch(const void* y, void* y_new, void* ss, const void* h,
            const void* fz, const void* s, const void* mu1_tab,
            const void* ctab, int s_cap, const void* c0, const void* c1,
            const void* c2, int torus, const void* beta, int beta_field,
-           const void* mask, int has_freeze, int ny, int nx, int tile_x,
-           int tile_y, double rtol, double atol, void* stream) {
+           const void* mask, int has_freeze, int kinetics, int ny, int nx,
+           int tile_x, int tile_y, double rtol, double atol, void* stream) {
   if (s_cap < 2 || s_cap > kMaxStages || ny < 1 || nx < 1 || tile_x < 1
-      || tile_y < 1)
+      || tile_y < 1 || !crd::valid_kinetics(kinetics))
     return static_cast<int>(cudaErrorInvalidValue);
   const int halo = s_cap + 1;
   const size_t smem = static_cast<size_t>(8) * (tile_x + 2 * halo)
                       * (tile_y + 2 * halo) * sizeof(T);
+  auto kernel = kinetics == crd::kFhn
+                    ? &fused_rkc_step_kernel<crd::kFhn, T>
+                : kinetics == crd::kGoldbeter
+                    ? &fused_rkc_step_kernel<crd::kGoldbeter, T>
+                    : &fused_rkc_step_kernel<crd::kAlievPanfilov, T>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_rkc_step_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((nx + tile_x - 1) / tile_x, (ny + tile_y - 1) / tile_y);
@@ -217,8 +223,7 @@ int launch(const void* y, void* y_new, void* ss, const void* h,
       static_cast<const T*>(c0), static_cast<const T*>(c1),
       static_cast<const T*>(c2), torus, static_cast<const T*>(beta),
       beta_field, static_cast<const T*>(mask), has_freeze};
-  fused_rkc_step_kernel<T><<<grid, kThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(y), static_cast<T*>(y_new), static_cast<T*>(ss),
       static_cast<const T*>(h), static_cast<const T*>(fz),
       static_cast<const int*>(s), static_cast<const T*>(mu1_tab),
@@ -234,12 +239,12 @@ int launch(const void* y, void* y_new, void* ss, const void* h,
       const void *s, const void *mu1_tab, const void *ctab, int s_cap,      \
       const void *c0, const void *c1, const void *c2, int torus,            \
       const void *beta, int beta_field, const void *mask, int has_freeze,   \
-      int ny, int nx, int tile_x, int tile_y, double rtol, double atol,     \
-      void *stream
+      int kinetics, int ny, int nx, int tile_x, int tile_y, double rtol,    \
+      double atol, void *stream
 #define CRD_FUSED_RKC_PASS                                                   \
   y, y_new, ss, h, fz, s, mu1_tab, ctab, s_cap, c0, c1, c2, torus, beta,    \
-      beta_field, mask, has_freeze, ny, nx, tile_x, tile_y, rtol, atol,     \
-      stream
+      beta_field, mask, has_freeze, kinetics, ny, nx, tile_x, tile_y, rtol, \
+      atol, stream
 
 extern "C" int crd_fused_rkc_step_f32(CRD_FUSED_RKC_ARGS) {
   return launch<float>(CRD_FUSED_RKC_PASS);

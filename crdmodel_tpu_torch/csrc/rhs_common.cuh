@@ -1,12 +1,13 @@
 // Device functions shared by the port's fused step kernels (K1
-// fused_step.cu, K2 fused_rkc.cu, K3 fused_imex.cu): the periodic wrap,
-// the 5-point profile operator on variable 0, the kinetics of each ported
-// family and their closed-form Jacobians, the RHS at one point of a tile
-// held in shared memory, and the per-block partial sum. Counterpart of
-// crdmodel_tpu/ops/kernel_common.py::make_rhs_block and make_split_block;
-// the plain torch versions are ops/kernel_common.py::make_rhs_block and
-// make_split_block, models/fhn.py and models/goldbeter.py, and the
-// expressions below keep their association order, so that a kernel built
+// fused_step.cu, K2 fused_rkc.cu, K3 fused_imex.cu, K4 fused_divform.cu):
+// the periodic wrap, the 5-point profile operator on variable 0, the
+// kinetics of each ported family and their closed-form Jacobians, the RHS
+// at one point of a tile held in shared memory, and the per-block partial
+// sum. Counterpart of crdmodel_tpu/ops/kernel_common.py::make_rhs_block and
+// make_split_block; the plain torch versions are ops/kernel_common.py::
+// make_rhs_block and make_split_block, models/fhn.py, models/goldbeter.py
+// and models/aliev_panfilov.py, and the expressions below keep their
+// association order, so that a kernel built
 // with -fmad=false rounds as PyTorch does. The constants fold in double,
 // as the Python expressions fold before they meet a tensor, and are cast
 // to T once.
@@ -19,7 +20,11 @@ namespace crd {
 
 // The kinetics families with a device function; the ids are
 // ops/kernel_common.py::KINETICS_IDS.
-enum Kinetics { kFhn = 0, kGoldbeter = 1 };
+enum Kinetics { kFhn = 0, kGoldbeter = 1, kAlievPanfilov = 2 };
+
+inline bool valid_kinetics(int id) {
+  return id == kFhn || id == kGoldbeter || id == kAlievPanfilov;
+}
 
 constexpr double kFhnEpsilon = 0.36;   // models/fhn.py EPSILON
 
@@ -36,6 +41,12 @@ constexpr double kGbKA4 = 0.6561;    // KA ** 4, Python's pow(0.9, 4) in double
 constexpr double kGbDv2 = 2.0 * 65.0 * (1.0 * 1.0);   // 2 VM2 (K2 K2)
 constexpr double kGbDv3z = 4.0 * 500.0;               // 4 VM3
 constexpr double kGbDv3y = 2.0 * 500.0;               // 2 VM3
+
+// models/aliev_panfilov.py constants
+constexpr double kApK = 8.0;
+constexpr double kApEps0 = 0.002;
+constexpr double kApMu1 = 0.2;
+constexpr double kApMu2 = 0.3;
 
 __device__ __forceinline__ int wrap(int i, int n) {
   i %= n;
@@ -82,13 +93,19 @@ __device__ __forceinline__ T live_at(const RhsConstants<T>& k, T fz, int gy) {
   return T(1) - fz * (T(1) - k.mask[gy]);
 }
 
-// The kinetics (du, dv) = f(u, v; b): models/fhn.py and
-// models/goldbeter.py::kinetics.
+// The kinetics (du, dv) = f(u, v; b): models/fhn.py, models/goldbeter.py
+// and models/aliev_panfilov.py::kinetics.
 template <int Kin, typename T>
 __device__ __forceinline__ void kinetics(T u, T v, T b, T& du, T& dv) {
   if (Kin == kFhn) {
     du = T(3) * u - u * u * u - v;
     dv = static_cast<T>(kFhnEpsilon) * (u + b);
+  } else if (Kin == kAlievPanfilov) {
+    const T k = static_cast<T>(kApK);
+    const T eps = static_cast<T>(kApEps0)
+                  + static_cast<T>(kApMu1) * v / (u + static_cast<T>(kApMu2));
+    du = k * u * (T(1) - u) * (u - b) - u * v;
+    dv = eps * (-v - k * u * (u - b - T(1)));
   } else {
     const T Z = u, Y = v;
     const T Zn = Z * Z;
@@ -105,16 +122,27 @@ __device__ __forceinline__ void kinetics(T u, T v, T b, T& du, T& dv) {
   }
 }
 
-// The kinetics Jacobian j = [[j00, j01], [j10, j11]] at (u, v):
-// models/fhn.py and models/goldbeter.py::jacobian (b does not enter).
+// The kinetics Jacobian j = [[j00, j01], [j10, j11]] at (u, v; b):
+// models/fhn.py, models/goldbeter.py and models/aliev_panfilov.py::jacobian
+// (b enters only Aliev-Panfilov's).
 template <int Kin, typename T>
-__device__ __forceinline__ void jacobian(T u, T v, T& j00, T& j01, T& j10,
-                                         T& j11) {
+__device__ __forceinline__ void jacobian(T u, T v, T b, T& j00, T& j01,
+                                         T& j10, T& j11) {
   if (Kin == kFhn) {
     j00 = T(3) - T(3) * (u * u);
     j01 = T(-1);
     j10 = static_cast<T>(kFhnEpsilon);
     j11 = T(0);
+  } else if (Kin == kAlievPanfilov) {
+    const T k = static_cast<T>(kApK);
+    const T mu1 = static_cast<T>(kApMu1);
+    const T d = u + static_cast<T>(kApMu2);
+    const T eps = static_cast<T>(kApEps0) + mu1 * v / d;
+    const T w = -v - k * u * (u - b - T(1));
+    j00 = k * ((T(1) - u) * (u - b) + u * ((T(1) - u) - (u - b))) - v;
+    j01 = -u;
+    j10 = eps * (-k) * (T(2) * u - b - T(1)) - (mu1 * v / (d * d)) * w;
+    j11 = -eps + mu1 * w / d;
   } else {
     const T Z = u, Y = v;
     const T Z2 = Z * Z;
@@ -155,6 +183,80 @@ __device__ __forceinline__ void profile_rhs(
   du_out = du;
   dv_out = dv;
 }
+
+// profile_rhs as the functor the ERK tile kernel takes (erk_tile.cuh)
+template <int Kin, typename T>
+struct ProfileRhs {
+  RhsConstants<T> k;
+
+  __device__ __forceinline__ void operator()(T fz, const T* su, const T* sv,
+                                             int p, int W, int gy, int gx,
+                                             T& du, T& dv) const {
+    profile_rhs<Kin>(k, fz, su, sv, p, W, gy, gx, du, dv);
+  }
+};
+
+// The divergence-form operator's inputs: the face coefficients aE, aW, aN
+// as (ny, nx) fields (aS at (j, i) is aN at (j - 1, i), wrapped) and the
+// (ny, nx) 0/1 tissue field, or nullptr without an obstacle. All read
+// through the read-only data cache.
+template <typename T>
+struct FaceConstants {
+  const T* aE;
+  const T* aW;
+  const T* aN;
+  const T* tissue;
+};
+
+// ydot at local point p (row stride W) of global (gy, gx) under the
+// divergence-form operator on variable 0 (ops/kernel_common.py::
+// make_divform_rhs_block): kinetics + aE(uE-u) + aW(uW-u) + aN(uN-u) +
+// aS(uS-u), times live with a freeze, times the tissue field with an
+// obstacle. Closed faces carry zero coefficients, so the wrapped halo
+// values they meet contribute exact zeros.
+template <int Kin, typename T>
+__device__ __forceinline__ void divform_rhs(
+    const FaceConstants<T>& f, const RhsConstants<T>& k, T fz, const T* su,
+    const T* sv, int p, int W, int gy, int gx, int ny, int nx, T& du_out,
+    T& dv_out) {
+  const size_t g = static_cast<size_t>(gy) * nx + gx;
+  const size_t gs = static_cast<size_t>(gy == 0 ? ny - 1 : gy - 1) * nx + gx;
+  const T u = su[p];
+  const T lap = __ldg(f.aE + g) * (su[p + 1] - u)
+                + __ldg(f.aW + g) * (su[p - 1] - u)
+                + __ldg(f.aN + g) * (su[p + W] - u)
+                + __ldg(f.aN + gs) * (su[p - W] - u);
+  T du, dv;
+  kinetics<Kin>(u, sv[p], beta_at(k, gy), du, dv);
+  du = du + lap;
+  if (k.has_freeze) {
+    const T live = live_at(k, fz, gy);
+    du = du * live;
+    dv = dv * live;
+  }
+  if (f.tissue != nullptr) {
+    const T tis = __ldg(f.tissue + g);
+    du = du * tis;
+    dv = dv * tis;
+  }
+  du_out = du;
+  dv_out = dv;
+}
+
+// divform_rhs as the functor the ERK tile kernel takes (erk_tile.cuh)
+template <int Kin, typename T>
+struct DivformRhs {
+  FaceConstants<T> f;
+  RhsConstants<T> k;
+  int ny;
+  int nx;
+
+  __device__ __forceinline__ void operator()(T fz, const T* su, const T* sv,
+                                             int p, int W, int gy, int gx,
+                                             T& du, T& dv) const {
+    divform_rhs<Kin>(f, k, fz, su, sv, p, W, gy, gx, ny, nx, du, dv);
+  }
+};
 
 // One partial sum per block in a fixed order (warp shuffles, then warp 0's
 // sums in order): no float atomics, so two launches agree bitwise.

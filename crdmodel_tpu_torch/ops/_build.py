@@ -3,8 +3,10 @@
 At first use, one nvcc per source compiles the kernels in parallel, and a
 last nvcc links them into one shared library with a plain C interface,
 crdmodel_tpu_torch/_build/<hash of the sources, headers and flags>/
-libcrdtorch.so; ctypes loads it. Nothing here runs at import, so the
-package imports on machines without CUDA.
+libcrdtorch.so; ctypes loads it. Each compile's output, with ptxas's
+registers, shared memory and spills of every kernel (-Xptxas -v), stays
+beside the library as <source>.log (ptxas_report). Nothing here runs at
+import, so the package imports on machines without CUDA.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ LIB_NAME = "libcrdtorch.so"
 # keeps every multiply and add separately rounded, as PyTorch's ops are,
 # so a kernel and its plain version round alike.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -35,16 +37,18 @@ _DOUBLE = ctypes.c_double
 _DOUBLEP = ctypes.POINTER(ctypes.c_double)
 
 # C signature of each exported launcher (csrc/fused_step.cu, fused_rkc.cu,
-# fused_imex.cu)
+# fused_imex.cu, fused_divform.cu)
 _FUSED_STEP_ARGTYPES = ([_VOIDP] * 8 + [_INT, _VOIDP, _INT, _VOIDP]
                         + [_INT] * 7 + [_DOUBLEP] * 3
                         + [_DOUBLE, _DOUBLE, _VOIDP])
 _FUSED_RKC_ARGTYPES = ([_VOIDP] * 8 + [_INT] + [_VOIDP] * 3
-                       + [_INT, _VOIDP, _INT, _VOIDP] + [_INT] * 5
+                       + [_INT, _VOIDP, _INT, _VOIDP] + [_INT] * 6
                        + [_DOUBLE, _DOUBLE, _VOIDP])
 _FUSED_IMEX_ARGTYPES = ([_VOIDP] * 8 + [_INT, _VOIDP, _INT, _VOIDP]
                         + [_INT] * 6 + [_DOUBLEP] * 4
                         + [_DOUBLE] * 3 + [_VOIDP])
+_FUSED_DIVFORM_ARGTYPES = ([_VOIDP] * 10 + [_INT, _VOIDP] + [_INT] * 7
+                           + [_DOUBLEP] * 3 + [_DOUBLE, _DOUBLE, _VOIDP])
 SIGNATURES = {
     "crd_fused_erk_step_f32": _FUSED_STEP_ARGTYPES,
     "crd_fused_erk_step_f64": _FUSED_STEP_ARGTYPES,
@@ -52,6 +56,8 @@ SIGNATURES = {
     "crd_fused_rkc_step_f64": _FUSED_RKC_ARGTYPES,
     "crd_fused_imex_step_f32": _FUSED_IMEX_ARGTYPES,
     "crd_fused_imex_step_f64": _FUSED_IMEX_ARGTYPES,
+    "crd_fused_divform_step_f32": _FUSED_DIVFORM_ARGTYPES,
+    "crd_fused_divform_step_f64": _FUSED_DIVFORM_ARGTYPES,
 }
 
 
@@ -72,15 +78,20 @@ def _nvcc() -> str:
                        f"{CSRC_DIR} at first use")
 
 
+def _out_dir() -> str:
+    """The build directory of this version of the sources and flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        with open(src, "rb") as fh:
+            digest.update(os.path.basename(src).encode() + fh.read())
+    return os.path.join(BUILD_DIR, digest.hexdigest()[:16])
+
+
 def library_path() -> str:
     """Build the library if this version of the sources has not been built
     yet; return its path. Raises RuntimeError with nvcc's output on failure."""
     sources = _sources()
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        with open(src, "rb") as fh:
-            digest.update(os.path.basename(src).encode() + fh.read())
-    out_dir = os.path.join(BUILD_DIR, digest.hexdigest()[:16])
+    out_dir = _out_dir()
     lib = os.path.join(out_dir, LIB_NAME)
     if os.path.isfile(lib):
         return lib
@@ -98,6 +109,9 @@ def library_path() -> str:
         outputs = [proc.communicate()[0] for proc in procs]   # all finish
         for cmd, proc, output in zip(compiles, procs, outputs):
             _check_nvcc(cmd, proc.returncode, output)
+            with open(os.path.join(out_dir, os.path.basename(cmd[-1])
+                                   + ".log"), "w") as fh:
+                fh.write(output)
         tmp_lib = os.path.join(tmp_dir, LIB_NAME)
         link = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp_lib, *objects]
         proc = subprocess.run(link, capture_output=True, text=True)
@@ -110,6 +124,14 @@ def _check_nvcc(cmd, returncode, output):
     if returncode != 0:
         raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}\n"
                            f"{output}")
+
+
+def ptxas_report(source: str) -> list:
+    """ptxas's lines on each kernel of csrc/<source> in the current build
+    (registers, shared memory, spills), after library_path() has built it."""
+    with open(os.path.join(_out_dir(), source + ".log")) as fh:
+        return [line.strip() for line in fh
+                if "ptxas" in line or "spill" in line]
 
 
 @functools.cache

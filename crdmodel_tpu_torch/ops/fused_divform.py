@@ -1,0 +1,133 @@
+"""Fused embedded-ERK step of the divergence-form operator, kernel K4
+(counterpart of crdmodel_tpu/ops/pallas_divform.py).
+
+One launch performs a whole embedded Runge–Kutta step of the conservative
+face-coefficient operator
+
+    L u = aE (uE - u) + aW (uW - u) + aN (uN - u) + aS (uS - u)
+
+on variable 0, with the kinetics of any family with a device function,
+the row freeze and the tissue mask of an obstacle (csrc/fused_divform.cu).
+It takes every attempted step of an ERK run whose operator exists only in
+this form (kernel_common.needs_divform): no-flux domain walls, obstacle
+scars, 2-D diffusion fields, and diffusion fields on the flat surface, as
+in the bounded cardiac-tissue program. The profile kernels K1-K3 decline
+those problems.
+
+  fused_divform_step            the wrapper: launches the CUDA kernel for a
+                                CUDA tensor, runs the plain version for a
+                                CPU tensor
+  fused_divform_step_reference  the same step in plain torch, the kernel's
+                                oracle
+  build_fused_divform_step      a problem's step_err(t, y, h, params)
+
+Semantics kept from the TPU kernel (pallas_divform.py:221-289): the stage
+inputs, update and error of K1 (ops/fused_step.py); the face coefficients
+cast once from the float64 arrays of the torch path's operator; aS read as
+roll_y(aN), exact because the gate checks aS == roll_y(aN) on the float64
+fields; ydot times live = 1 - fz*(1 - m) with a freeze, then times the 0/1
+tissue field with an obstacle (equal to the torch path's where). Gone with
+the TPU layout: the lane padding, the strip windows, the strip-divisor rule
+and the runtime coefficient input (params["_divform_coeffs"]); aE, aW, aN
+and the tissue field are contiguous (ny, nx) tensors in the step's dtype.
+The sweep overrides (params["_fused_b"], "dscale") are not ported yet
+(ROADMAP queue 1, item 14).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from crdmodel_tpu_torch.integrate.erk import Tableau
+from crdmodel_tpu_torch.ops.fused_step import (MAX_STAGES,
+                                               erk_step_reference,
+                                               launch_erk_tile)
+from crdmodel_tpu_torch.ops.kernel_common import (DivformConstants,
+                                                  face_coeffs64,
+                                                  freeze_scalar,
+                                                  fused_forcing,
+                                                  kernel_ready_kinetics,
+                                                  make_divform_rhs_block,
+                                                  needs_divform,
+                                                  prepare_divform_constants,
+                                                  south_is_rolled_north)
+
+
+def is_divform_supported(problem, tableau: Tableau, dtype) -> bool:
+    """The kernel's gate (crdmodel_tpu/ops/pallas_divform.py:105) without
+    the TPU strip-divisor rule: a divergence-form problem on the flat or
+    torus surface, f32, at most MAX_STAGES stages, no forcing, the port-only
+    kinetics rule (kernel_common.kernel_ready_kinetics), and aS ==
+    roll_y(aN) exactly on the float64 face fields."""
+    if not needs_divform(problem):
+        return False
+    if fused_forcing(problem) is not None:
+        return False
+    if problem.geometry.kind not in ("flat", "torus"):
+        return False
+    if dtype != torch.float32:
+        return False
+    if tableau.stages > MAX_STAGES:
+        return False
+    if not kernel_ready_kinetics(problem):
+        return False
+    return south_is_rolled_north(face_coeffs64(problem))
+
+
+def fused_divform_step_reference(y, h, fz, dc: DivformConstants,
+                                 tableau: Tableau, rtol: float, atol: float):
+    """One step in plain torch: (y_new, ss) with ss a (1,) tensor holding
+    the sum of squared WRMS-scaled errors."""
+    return erk_step_reference(y, h, make_divform_rhs_block(dc, fz), tableau,
+                              rtol, atol)
+
+
+def fused_divform_step(y, h, fz, dc: DivformConstants, tableau: Tableau,
+                       rtol: float, atol: float):
+    """One fused step: (y_new (2, ny, nx), ss partials (n_blocks,)).
+
+    h and fz are 0-d tensors in y's dtype on y's device: the kernel reads
+    them there, so a step needs no host sync. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel (float32, or float64 as a
+    parity tool) or raises. `fused_divform_step.launches` counts kernel
+    launches.
+    """
+    if y.device.type == "cpu":
+        return fused_divform_step_reference(y, h, fz, dc, tableau, rtol,
+                                            atol)
+    if y.device.type != "cuda":
+        raise ValueError(f"no fused divergence-form step kernel for device "
+                         f"{y.device}")
+    if dc.kind != "divform":
+        raise ValueError("the divergence-form kernel takes DivformConstants "
+                         "(kernel_common.prepare_divform_constants)")
+    tissue = None if dc.tissue is None else dc.tissue.data_ptr()
+    out = launch_erk_tile(
+        "crd_fused_divform_step",
+        (*(c.data_ptr() for c in dc.coeffs), tissue),
+        y, h, fz, dc, tableau, rtol, atol)
+    fused_divform_step.launches += 1
+    return out
+
+
+fused_divform_step.launches = 0
+
+
+def build_fused_divform_step(problem, tableau: Tableau):
+    """step_err(t, y, h, params) -> (y_new, err_ss) of `problem` through the
+    fused divergence-form step, in the problem's dtype on its device
+    (crdmodel_tpu/ops/pallas_divform.py:130). The freeze comes from
+    params["_seg_end"]; t is unused (the kinetics are autonomous)."""
+    cfg = problem.cfg
+    dtype = problem.y0.dtype
+    dc = prepare_divform_constants(problem, dtype, problem.device)
+    rtol, atol = float(cfg.rtol), float(cfg.atol)
+    t_boundary = float(cfg.t_boundary)
+
+    def step_err(t, y, h, params):
+        fz = freeze_scalar(params, dc.has_freeze, t_boundary, dtype)
+        y_new, ss = fused_divform_step(y, h.to(dtype), fz, dc, tableau, rtol,
+                                       atol)
+        return y_new, torch.sum(ss)
+
+    return step_err

@@ -39,12 +39,13 @@ import functools
 import torch
 
 from crdmodel_tpu_torch.integrate import imex
-from crdmodel_tpu_torch.ops.kernel_common import (KINETICS_IDS, SMEM_BYTES,
+from crdmodel_tpu_torch.ops.kernel_common import (SMEM_BYTES,
                                                   KernelConstants,
                                                   check_constants,
                                                   check_tensor,
                                                   freeze_scalar,
                                                   fused_forcing,
+                                                  kernel_ready_kinetics,
                                                   make_split_block,
                                                   needs_divform,
                                                   prepare_constants)
@@ -56,21 +57,17 @@ TILE = 32                      # square tiles: f32 and f64 both fit at 32x32
 
 def is_imex_supported(problem, dtype) -> bool:
     """The kernel's gate (crdmodel_tpu/ops/pallas_imex.py:60) without the
-    TPU strip-divisor rule, plus port-only rules: kinetics with a device
-    function (FitzHugh–Nagumo or Goldbeter, KINETICS_IDS), variable 0 alone
-    diffusing at the full coefficient, and reaction on. Any forcing
-    declines: the port has none yet (ROADMAP queue 1, item 9)."""
+    TPU strip-divisor rule, plus the port-only kinetics rule
+    (kernel_common.kernel_ready_kinetics). Any forcing declines: the port
+    has none yet (ROADMAP queue 1, item 9). Divergence-form problems
+    decline, as in the JAX package, and take the torch path."""
     if needs_divform(problem):
         return False
     if fused_forcing(problem) is not None:
         return False
     if dtype != torch.float32:
         return False
-    model = problem.model
-    return (model.name in KINETICS_IDS
-            and tuple(model.diffusive_vars) == (0,)
-            and tuple(model.diffusion_ratios) == (1.0,)
-            and not problem.cfg.just_diffusion)
+    return kernel_ready_kinetics(problem)
 
 
 def tile_plan(itemsize: int):

@@ -1,7 +1,9 @@
 """Fused RKC2 step, kernel K2 (counterpart of crdmodel_tpu/ops/pallas_rkc.py).
 
 One launch performs a whole RKC2 step (integrate/rkc.py) of the 5-point
-profile operator with FitzHugh–Nagumo kinetics: F0 = f(y0), the s
+profile operator with the kinetics of any family with a device function
+(KernelConstants.kinetics_id, a template parameter of the kernel, as in K1
+and K3): F0 = f(y0), the s
 Chebyshev stages, F(y_new) for the order-2 error estimate, y_new and
 per-block partial sums of squared WRMS-scaled errors (csrc/fused_rkc.cu).
 The three-term recurrence keeps a live set of constant size (y0, F0,
@@ -43,6 +45,7 @@ from crdmodel_tpu_torch.ops.kernel_common import (SMEM_BYTES,
                                                   check_tensor,
                                                   freeze_scalar,
                                                   fused_forcing,
+                                                  kernel_ready_kinetics,
                                                   make_rhs_block,
                                                   needs_divform,
                                                   prepare_constants)
@@ -54,21 +57,21 @@ TILES = ((32, 32), (32, 16), (16, 16), (16, 8), (8, 8))
 
 def is_rkc_supported(problem, dtype) -> bool:
     """The kernel's gate (crdmodel_tpu/ops/pallas_rkc.py:218) without the
-    TPU strip plan, plus one port-only rule: FitzHugh–Nagumo kinetics with
-    reaction (the kernel instantiates only the FHN device function; its
-    Goldbeter instance is ROADMAP queue 2, K2)."""
+    TPU strip plan, plus the port-only kinetics rule
+    (kernel_common.kernel_ready_kinetics). Divergence-form problems
+    decline: the kernel's divform branch is still to port (ROADMAP queue
+    2, K2), so they take the torch path."""
     if fused_forcing(problem) is not None:
         return False            # the kernel takes no forcing yet (item 9)
     if dtype != torch.float32:
         return False
     if needs_divform(problem):
-        return False            # the divform branch comes with item 10
-    cfg = problem.cfg
-    if problem.model.jac_bound is None and not cfg.just_diffusion:
+        return False
+    if problem.model.jac_bound is None:
         return False
     # pallas_rkc.pole_inflated_rho declines only surfaces of revolution,
     # which the port has not yet (ROADMAP queue 1, item 12)
-    return problem.model.name == "fhn" and not cfg.just_diffusion
+    return kernel_ready_kinetics(problem)
 
 
 def tile_plan(halo: int, itemsize: int):
@@ -210,9 +213,6 @@ def fused_rkc_step(y, h, fz, s, mu1_tab, ctab_tab, kc: KernelConstants,
     check_tensor("ctab_tab", ctab_tab, (s_cap + 1, S_MAX_KERNEL + 1, 4),
                  dtype, device)
     check_constants(kc, ny, nx, dtype, device)
-    if kc.model.name != "fhn":
-        raise ValueError(f"the RKC2 kernel has FitzHugh–Nagumo kinetics only, "
-                         f"not {kc.model.name!r} (ROADMAP queue 2, K2)")
 
     from crdmodel_tpu_torch.ops._build import load_library
     lib = load_library()
@@ -227,8 +227,9 @@ def fused_rkc_step(y, h, fz, s, mu1_tab, ctab_tab, kc: KernelConstants,
                 ctab_tab.data_ptr(), s_cap,
                 *(c.data_ptr() for c in kc.coeffs), int(kc.kind == "torus"),
                 kc.b.data_ptr(), int(kc.b_is_field), kc.mask.data_ptr(),
-                int(kc.has_freeze), ny, nx, tile_x, tile_y, float(rtol),
-                float(atol), torch.cuda.current_stream(device).cuda_stream)
+                int(kc.has_freeze), kc.kinetics_id, ny, nx, tile_x, tile_y,
+                float(rtol), float(atol),
+                torch.cuda.current_stream(device).cuda_stream)
     fused_rkc_step.launches += 1
     if rc != 0:
         raise RuntimeError(f"fused RKC step kernel launch failed: CUDA "

@@ -2,8 +2,9 @@
 crdmodel_tpu/ops/pallas_step.py).
 
 One launch performs a whole embedded Runge–Kutta step of the 5-point
-profile operator with FitzHugh–Nagumo or Goldbeter kinetics (a template
-parameter of the kernel, KernelConstants.kinetics_id): every stage's
+profile operator with FitzHugh–Nagumo, Goldbeter or Aliev–Panfilov
+kinetics (a template parameter of the kernel, KernelConstants.kinetics_id):
+every stage's
 stencil and kinetics, the solution update, and per-block partial sums of
 squared WRMS-scaled errors (csrc/fused_step.cu). It takes every attempted
 step of a run on the fused path (sim.py).
@@ -30,12 +31,13 @@ import functools
 import torch
 
 from crdmodel_tpu_torch.integrate.erk import TABLEAUS, Tableau
-from crdmodel_tpu_torch.ops.kernel_common import (KINETICS_IDS, SMEM_BYTES,
+from crdmodel_tpu_torch.ops.kernel_common import (SMEM_BYTES,
                                                   KernelConstants,
                                                   check_constants,
                                                   check_tensor,
                                                   freeze_scalar,
                                                   fused_forcing,
+                                                  kernel_ready_kinetics,
                                                   make_rhs_block,
                                                   needs_divform,
                                                   prepare_constants)
@@ -46,9 +48,10 @@ TILE_X = 32                    # tile width along x (contiguous)
 
 def is_supported(problem, tableau: Tableau, dtype) -> bool:
     """The kernel's gate (crdmodel_tpu/ops/pallas_step.py:89), without the
-    TPU strip-divisor rule, plus one port-only rule: kinetics with a device
-    function (FitzHugh–Nagumo or Goldbeter, KINETICS_IDS) and reaction on
-    (the other families come with ROADMAP queue 1, item 6)."""
+    TPU strip-divisor rule, plus the port-only kinetics rule
+    (kernel_common.kernel_ready_kinetics: a family with a device function,
+    KINETICS_IDS; the other families come with ROADMAP queue 1, item 6).
+    Divergence-form problems go to K4 (ops/fused_divform.py)."""
     if needs_divform(problem):
         return False
     if fused_forcing(problem) is not None:
@@ -57,8 +60,7 @@ def is_supported(problem, tableau: Tableau, dtype) -> bool:
         return False
     if tableau.stages > MAX_STAGES:
         return False
-    return (problem.model.name in KINETICS_IDS
-            and not problem.cfg.just_diffusion)
+    return kernel_ready_kinetics(problem)
 
 
 def tile_plan(n_stages: int, itemsize: int):
@@ -82,14 +84,14 @@ def _stage_arrays(name: str):
                  for x in (tab.a, tab.b, d))
 
 
-def fused_step_reference(y, h, fz, kc: KernelConstants, tableau: Tableau,
-                         rtol: float, atol: float):
-    """One step in plain torch: (y_new, ss) with ss a (1,) tensor holding
-    the sum of squared WRMS-scaled errors."""
+def erk_step_reference(y, h, rhs_block, tableau: Tableau, rtol: float,
+                       atol: float):
+    """One step of `tableau` on rhs_block(y) -> ydot in plain torch, in the
+    order of the ERK tile kernels (csrc/erk_tile.cuh): (y_new, ss) with ss
+    a (1,) tensor holding the sum of squared WRMS-scaled errors."""
     a, bw = tableau.a, tableau.b
     d = tableau.b - tableau.bhat
     n = tableau.stages
-    rhs_block = make_rhs_block(kc, fz)
     ks = []
     for s in range(n):
         yi = y
@@ -108,6 +110,14 @@ def fused_step_reference(y, h, fz, kc: KernelConstants, tableau: Tableau,
     return y_new, torch.sum(scaled * scaled).reshape(1)
 
 
+def fused_step_reference(y, h, fz, kc: KernelConstants, tableau: Tableau,
+                         rtol: float, atol: float):
+    """One step in plain torch: (y_new, ss) with ss a (1,) tensor holding
+    the sum of squared WRMS-scaled errors."""
+    return erk_step_reference(y, h, make_rhs_block(kc, fz), tableau, rtol,
+                              atol)
+
+
 def fused_step(y, h, fz, kc: KernelConstants, tableau: Tableau,
                rtol: float, atol: float):
     """One fused step: (y_new (nvars, ny, nx), ss partials (n_blocks,)).
@@ -121,6 +131,28 @@ def fused_step(y, h, fz, kc: KernelConstants, tableau: Tableau,
         return fused_step_reference(y, h, fz, kc, tableau, rtol, atol)
     if y.device.type != "cuda":
         raise ValueError(f"no fused step kernel for device {y.device}")
+    if kc.kind not in ("torus", "flat"):
+        raise ValueError(f"the profile kernel takes profile constants, not "
+                         f"{kc.kind!r}")
+    out = launch_erk_tile(
+        "crd_fused_erk_step",
+        (*(c.data_ptr() for c in kc.coeffs), int(kc.kind == "torus")),
+        y, h, fz, kc, tableau, rtol, atol)
+    fused_step.launches += 1
+    return out
+
+
+fused_step.launches = 0
+
+
+def launch_erk_tile(symbol, operator_args, y, h, fz, kc: KernelConstants,
+                    tableau: Tableau, rtol: float, atol: float):
+    """Launch one step of an ERK tile kernel of the built library (K1
+    `crd_fused_erk_step`, K4 `crd_fused_divform_step`; csrc/erk_tile.cuh):
+    the launcher `symbol`_f32 or _f64, with the kernel's four operator
+    arguments `operator_args` after fz. Checks every input first and
+    raises on what the kernel does not take, and on a launch error.
+    Returns (y_new (2, ny, nx), ss partials (n_blocks,))."""
     dtype, device = y.dtype, y.device
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"the kernel takes float32 or float64, not {dtype}")
@@ -130,7 +162,6 @@ def fused_step(y, h, fz, kc: KernelConstants, tableau: Tableau,
     if n > MAX_STAGES:
         raise ValueError(f"{n} stages; the kernel takes at most {MAX_STAGES}")
     _, ny, nx = y.shape
-    torus = kc.kind == "torus"
     check_tensor("y", y, y.shape, dtype, device)
     check_tensor("h", h, (), dtype, device)
     check_tensor("fz", fz, (), dtype, device)
@@ -143,21 +174,17 @@ def fused_step(y, h, fz, kc: KernelConstants, tableau: Tableau,
     y_new = torch.empty_like(y)
     ss = torch.empty(n_blocks, dtype=dtype, device=device)
     a, b, d = _stage_arrays(tableau.name)
-    launch = (lib.crd_fused_erk_step_f32 if dtype == torch.float32
-              else lib.crd_fused_erk_step_f64)
+    launch = getattr(lib, symbol + ("_f32" if dtype == torch.float32
+                                    else "_f64"))
     rc = launch(y.data_ptr(), y_new.data_ptr(), ss.data_ptr(), h.data_ptr(),
-                fz.data_ptr(), *(c.data_ptr() for c in kc.coeffs),
-                int(torus), kc.b.data_ptr(), int(kc.b_is_field),
-                kc.mask.data_ptr(), int(kc.has_freeze), kc.kinetics_id, ny,
-                nx, tile_x, tile_y, n, a, b, d, float(rtol), float(atol),
+                fz.data_ptr(), *operator_args, kc.b.data_ptr(),
+                int(kc.b_is_field), kc.mask.data_ptr(), int(kc.has_freeze),
+                kc.kinetics_id, ny, nx, tile_x, tile_y, n, a, b, d,
+                float(rtol), float(atol),
                 torch.cuda.current_stream(device).cuda_stream)
-    fused_step.launches += 1
     if rc != 0:
-        raise RuntimeError(f"fused step kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {rc}")
     return y_new, ss
-
-
-fused_step.launches = 0
 
 
 def build_fused_step(problem, tableau: Tableau):

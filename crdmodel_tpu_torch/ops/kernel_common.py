@@ -5,8 +5,10 @@ The JAX package lane-pads every constant for its TPU layout; here the
 state stays (nvars, ny, nx), contiguous and unpadded, and the constants
 keep their natural shapes: the coefficient profiles (nx,) on the torus or
 three 0-d scalars on the flat surface, beta as a 0-d scalar or an (ny, 1)
-field, and the (ny, 1) interior-row mask. The kinetics family travels to
-the device code as an integer id (KINETICS_IDS, the Kinetics enum of
+field, and the (ny, 1) interior-row mask. The divergence-form kernel takes
+its face coefficients aE, aW, aN and the tissue field as contiguous
+(ny, nx) tensors (DivformConstants). The kinetics family travels to the
+device code as an integer id (KINETICS_IDS, the Kinetics enum of
 csrc/rhs_common.cuh).
 """
 
@@ -18,12 +20,13 @@ import numpy as np
 import torch
 
 from crdmodel_tpu_torch.core.problem import beta_field, interior_rows
-from crdmodel_tpu_torch.ops.stencil import flat_laplacian, torus_laplacian
+from crdmodel_tpu_torch.ops.stencil import (divergence_laplacian,
+                                            flat_laplacian, torus_laplacian)
 
 SMEM_BYTES = 227 * 1024        # shared memory one H100 block may use
 # the kinetics families with a device function (csrc/rhs_common.cuh, enum
 # Kinetics): model name -> the id the launchers pass to the kernels
-KINETICS_IDS = {"fhn": 0, "goldbeter": 1}
+KINETICS_IDS = {"fhn": 0, "goldbeter": 1, "aliev_panfilov": 2}
 
 
 def needs_divform(problem) -> bool:
@@ -47,6 +50,17 @@ def fused_forcing(problem):
     so a forcing, when there is one, is returned as False: not
     kernel-consumable (crdmodel_tpu/ops/kernel_common.py:62)."""
     return None if problem.forcing is None else False
+
+
+def kernel_ready_kinetics(problem) -> bool:
+    """The port-only rule every fused kernel's gate shares: kinetics with a
+    device function (KINETICS_IDS), two variables of which variable 0
+    alone diffuses at the full coefficient, and reaction on."""
+    model = problem.model
+    return (model.name in KINETICS_IDS and model.nvars == 2
+            and tuple(model.diffusive_vars) == (0,)
+            and tuple(model.diffusion_ratios) == (1.0,)
+            and not problem.cfg.just_diffusion)
 
 
 def coeff_kind(geometry_kind: str) -> str:
@@ -77,18 +91,96 @@ class KernelConstants:
         return KINETICS_IDS[self.model.name]
 
 
-def prepare_constants(problem, dtype, device) -> KernelConstants:
-    """The constant kernel inputs of `problem` on `device`
-    (crdmodel_tpu/ops/kernel_common.py:353, without the lane padding)."""
-    cfg = problem.cfg
+@dataclasses.dataclass(frozen=True)
+class DivformConstants(KernelConstants):
+    """The divergence-form kernel's inputs: kind "divform", coeffs the face
+    coefficients (aE, aW, aN) as contiguous (ny, nx) tensors (aS is
+    roll_y(aN), read by the kernel from aN), tissue the (ny, nx) 0/1
+    obstacle field or None."""
+    tissue: object
+
+
+def kernel_stencil_coeffs(problem, dtype, device):
+    """The three coefficient profiles the profile kernels take
+    (crdmodel_tpu/ops/kernel_common.py:308). Constant D: the geometry's
+    stencil_coeffs. A theta-only diffusion field on the torus (which
+    needs_divform leaves to the profile kernels): its face form maps onto
+    the same three profiles,
+
+      aE(uE-u) + aW(uW-u) + aN(uN-2u+uS)
+        == ca(uE-uW) + ct(uE-2u+uW) + aN(uN-2u+uS),
+      ca = (aE-aW)/2, ct = (aE+aW)/2   (aN == aS for theta-only D),
+
+    equal to the torch path's divergence operator in real arithmetic, to
+    rounding in floating point."""
     geometry = problem.geometry
-    return KernelConstants(
-        kind=coeff_kind(geometry.kind),
-        coeffs=geometry.stencil_coeffs(dtype, device),
+    if problem.diffusion_field is None:
+        return geometry.stencil_coeffs(dtype, device)
+    aE, aW, aN, _ = geometry.divergence_coeffs64(problem.diffusion_field)
+    if geometry.kind != "torus" or aE.ndim != 1:
+        raise ValueError("the profile kernels take only theta-only "
+                         "diffusion fields on the torus")
+    return tuple(torch.tensor(c, dtype=dtype, device=device)
+                 for c in (0.5 * (aE - aW), 0.5 * (aE + aW), aN))
+
+
+def _rhs_inputs(problem, dtype, device) -> dict:
+    """The inputs every kernel's RHS reads besides the operator: beta, the
+    interior-row mask, whether there is a freeze, and the model."""
+    cfg = problem.cfg
+    return dict(
         b=beta_field(cfg, dtype, device),
         mask=interior_rows(cfg.ny, dtype, device),
         has_freeze=(float(cfg.t_boundary) > 0.0) and not cfg.just_diffusion,
         model=problem.model)
+
+
+def prepare_constants(problem, dtype, device) -> KernelConstants:
+    """The constant kernel inputs of `problem` on `device`
+    (crdmodel_tpu/ops/kernel_common.py:353, without the lane padding)."""
+    return KernelConstants(
+        kind=coeff_kind(problem.geometry.kind),
+        coeffs=kernel_stencil_coeffs(problem, dtype, device),
+        **_rhs_inputs(problem, dtype, device))
+
+
+def face_coeffs64(problem):
+    """The four (ny, nx) float64 face-coefficient fields of the torch
+    path's divergence operator, contiguous
+    (crdmodel_tpu/ops/pallas_divform.py:94)."""
+    geometry = problem.geometry
+    faces = geometry.divergence_coeffs64(problem.diffusion_field,
+                                         face_mask=problem.face_mask)
+    return tuple(np.ascontiguousarray(np.broadcast_to(
+        np.asarray(a, np.float64), geometry.grid.shape)) for a in faces)
+
+
+def south_is_rolled_north(faces64) -> bool:
+    """aS == roll_y(aN) exactly: the divergence kernel reads aS as aN of the
+    row above (crdmodel_tpu/ops/pallas_divform.py:125-127). It holds where
+    the cell weight varies along x only (flat, torus) and the masks close
+    both sides of a face together."""
+    _, _, aN, aS = faces64
+    return bool(np.array_equal(aS, np.roll(aN, 1, axis=0)))
+
+
+def prepare_divform_constants(problem, dtype, device) -> DivformConstants:
+    """The divergence-form kernel's inputs of `problem` on `device`: aE, aW,
+    aN broadcast to (ny, nx) and cast once from the float64 arrays the
+    torch path casts, and the obstacle mask as a 0/1 field."""
+    faces64 = face_coeffs64(problem)
+    if not south_is_rolled_north(faces64):
+        raise ValueError("aS != roll_y(aN): the divergence kernel cannot "
+                         "read aS from aN (is_divform_supported declines)")
+    tissue = None
+    if problem.obstacle_mask is not None:
+        tissue = torch.tensor(np.asarray(problem.obstacle_mask, np.float64),
+                              dtype=dtype, device=device)
+    return DivformConstants(
+        kind="divform",
+        coeffs=tuple(torch.tensor(a, dtype=dtype, device=device)
+                     for a in faces64[:3]),
+        tissue=tissue, **_rhs_inputs(problem, dtype, device))
 
 
 def check_tensor(name, x, shape, dtype, device):
@@ -106,9 +198,11 @@ def check_tensor(name, x, shape, dtype, device):
 
 def check_constants(kc: KernelConstants, ny: int, nx: int, dtype, device):
     """check_tensor on every constant a kernel reads."""
+    coeff_shape = {"torus": (nx,), "flat": (), "divform": (ny, nx)}[kc.kind]
     for c in kc.coeffs:
-        check_tensor("coefficient", c, (nx,) if kc.kind == "torus" else (),
-                     dtype, device)
+        check_tensor("coefficient", c, coeff_shape, dtype, device)
+    if getattr(kc, "tissue", None) is not None:
+        check_tensor("tissue", kc.tissue, (ny, nx), dtype, device)
     check_tensor("beta", kc.b, (ny, 1) if kc.b_is_field else (), dtype,
                  device)
     check_tensor("mask", kc.mask, (ny, 1), dtype, device)
@@ -133,6 +227,32 @@ def make_rhs_block(kc: KernelConstants, fz):
         react = kc.model.kinetics(y, kc.b)
         ydot = torch.stack([react[0] + lap_of(y[0], kc.coeffs), react[1]])
         return ydot * live if live is not None else ydot
+
+    return rhs_block
+
+
+def make_divform_rhs_block(dc: DivformConstants, fz):
+    """rhs_block(y) -> ydot: the divergence kernel's RHS in plain torch on
+    the whole (2, ny, nx) state (crdmodel_tpu/ops/kernel_common.py:165,
+    without the mixed tensor terms and the dscale rescale): the kinetics
+    plus the face-form operator on variable 0 (ops/stencil.py::
+    divergence_laplacian's grouping, aS = roll_y(aN)), times live when the
+    problem has a freeze, times the 0/1 tissue field when it has an
+    obstacle. csrc/fused_divform.cu computes the same expressions in the
+    same order."""
+    aE, aW, aN = dc.coeffs
+    faces = (aE, aW, aN, torch.roll(aN, 1, dims=0))
+    live = _live(dc, fz)
+
+    def rhs_block(y):
+        react = dc.model.kinetics(y, dc.b)
+        ydot = torch.stack([react[0] + divergence_laplacian(y[0], faces),
+                            react[1]])
+        if live is not None:
+            ydot = ydot * live
+        if dc.tissue is not None:
+            ydot = ydot * dc.tissue
+        return ydot
 
     return rhs_block
 

@@ -1,5 +1,5 @@
 """Periodic diffusion stencils on the torch path (counterpart of
-crdmodel_tpu/ops/stencil.py:20-66).
+crdmodel_tpu/ops/stencil.py:20-84).
 
 Whole-array `torch.roll` shifts: on one device the periodic wrap is the
 reference's halo exchange. Arrays are (..., ny, nx): axis -1 is theta/x
@@ -53,3 +53,16 @@ def torus_laplacian(u, coeffs):
     return (c_asym * (ue - uw)
             + c_theta * (ue - 2.0 * u + uw)
             + c_phi * (un - 2.0 * u + us))
+
+
+def divergence_laplacian(u, face_coeffs):
+    """Conservative variable-coefficient diffusion div(D grad u); face_coeffs
+    = (aE, aW, aN, aS) from Geometry.divergence_coeffs, each broadcastable
+    to u (closed faces carry zero coefficients). Difference form, exactly
+    zero for constant u:
+
+      out = aE*(uE - u) + aW*(uW - u) + aN*(uN - u) + aS*(uS - u)
+    """
+    aE, aW, aN, aS = face_coeffs
+    return (aE * (shift_e(u) - u) + aW * (shift_w(u) - u)
+            + aN * (shift_n(u) - u) + aS * (shift_s(u) - u))

@@ -8,13 +8,16 @@ Kernel selection (the counterpart of crdmodel_tpu/sim.py:77-144, 180-291):
 a method goes through its fused step kernel when `cfg.use_pallas` is True,
 or when it is None on a CUDA device above PALLAS_AUTO_POINTS grid points,
 and the kernel's gate accepts the problem: the ERK tableaus through K1
-(ops/fused_step.py::is_supported), rkc2 through K2
-(ops/fused_rkc.py::is_rkc_supported, and under auto selection only when
-the run is not provably quiescent, _quiescent_autonomous), ark324 through
-K3 (ops/fused_imex.py::is_imex_supported). Everything else takes the torch
-path (integrate/erk.py::make_stepper). On a CPU device the fused path runs
-the kernel's plain version, the counterpart of the JAX package's
-interpret=True.
+(ops/fused_step.py::is_supported), or through K4 when the operator exists
+only in the divergence form (kernel_common.needs_divform: no-flux walls,
+obstacles, 2-D or flat diffusion fields; ops/fused_divform.py::
+is_divform_supported); rkc2 through K2 (ops/fused_rkc.py::
+is_rkc_supported, and under auto selection only when the run is not
+provably quiescent, _quiescent_autonomous), ark324 through K3
+(ops/fused_imex.py::is_imex_supported). K2 and K3 decline divergence-form
+problems. Everything else takes the torch path (integrate/erk.py::
+make_stepper). On a CPU device the fused path runs the kernel's plain
+version, the counterpart of the JAX package's interpret=True.
 """
 
 from __future__ import annotations
@@ -33,7 +36,9 @@ from crdmodel_tpu_torch.core.problem import (Problem, build_problem,
 from crdmodel_tpu_torch.integrate import imex, rkc
 from crdmodel_tpu_torch.integrate.erk import (TABLEAUS, SolveStats,
                                               integrate_to_outputs)
-from crdmodel_tpu_torch.ops import fused_imex, fused_rkc, fused_step
+from crdmodel_tpu_torch.ops import (fused_divform, fused_imex, fused_rkc,
+                                    fused_step)
+from crdmodel_tpu_torch.ops.kernel_common import needs_divform
 
 STATUS_NAMES = {0: "ok", 1: "max-steps-exceeded", 2: "dt-underflow"}
 
@@ -120,7 +125,10 @@ def fused_eligible(problem: Problem) -> bool:
         return fused_rkc.is_rkc_supported(problem, dtype)
     if cfg.method == "ark324":
         return fused_imex.is_imex_supported(problem, dtype)
-    return fused_step.is_supported(problem, TABLEAUS[cfg.method], dtype)
+    tableau = TABLEAUS[cfg.method]
+    if needs_divform(problem):
+        return fused_divform.is_divform_supported(problem, tableau, dtype)
+    return fused_step.is_supported(problem, tableau, dtype)
 
 
 def make_run_fn(problem: Problem):
@@ -142,7 +150,10 @@ def make_run_fn(problem: Problem):
     if cfg.method == "ark324":
         # IMEX: implicit pointwise reaction + explicit diffusion
         rhs_split = make_rhs(cfg, problem.model, problem.geometry, dtype,
-                             problem.device, split=True)
+                             problem.device, split=True,
+                             diffusion_field=problem.diffusion_field,
+                             face_mask=problem.face_mask,
+                             obstacle_mask=problem.obstacle_mask)
     kw = {}
     fused = fused_eligible(problem)
     if fused and cfg.method == "rkc2":
@@ -158,7 +169,9 @@ def make_run_fn(problem: Problem):
             err_order = imex.ERR_ORDER
         else:
             tableau = TABLEAUS[cfg.method]
-            step_err = fused_step.build_fused_step(problem, tableau)
+            build = (fused_divform.build_fused_divform_step
+                     if needs_divform(problem) else fused_step.build_fused_step)
+            step_err = build(problem, tableau)
             err_order = tableau.err_order
         kw = dict(step_err=lambda t, y, h, p, carry: (*step_err(t, y, h, p), ()),
                   err_order=err_order)

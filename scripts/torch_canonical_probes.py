@@ -1,4 +1,4 @@
-"""Reference probes of the canonical torus runs, for the PyTorch port.
+"""Reference probes of the canonical runs, for the PyTorch port.
 
 Runs the JAX package on the CPU, in float32 and in float64, on one of the
 two canonical programs: data/FHNmodelArgs.ini (--model fhn, the default:
@@ -6,7 +6,11 @@ two canonical programs: data/FHNmodelArgs.ini (--model fhn, the default:
 data/GoldbeterModelArgs.ini (--model goldbeter: 100x400 torus, beta 0.4,
 wave-segment ICs, Tf=4, rtol 1e-5), with the ini's method (bs32) or with
 --method, and writes tests/golden/torch_canonical_<model>_probes.npz
-(bs32) or tests/golden/torch_canonical_<model>_<method>_probes.npz:
+(bs32) or tests/golden/torch_canonical_<model>_<method>_probes.npz.
+With --config bounded_ap it runs instead the bounded cardiac-tissue
+program of scripts/bench_suite.py::bounded_tissue (Aliev-Panfilov on a
+flat 1600x400 sheet, no-flux walls, a circular scar, bs32, Tf=8) and
+writes tests/golden/torch_bounded_ap_probes.npz. Each file holds:
 
   steps_f32, accepted_f32, rejected_f32   per output interval, JAX f32 run
   steps_f64, accepted_f64, rejected_f64   the same for the f64 run
@@ -16,12 +20,21 @@ wave-segment ICs, Tf=4, rtol 1e-5), with the ini's method (bs32) or with
                                           IC first
   touts                                   (Nt+1,) output times, 0 first
 
+and the bounded-tissue file also
+
+  obstacle_mask                           (ny, nx) bool, True = tissue
+  scar_j, scar_i, scar_ic                 16 scar cells (seeded numpy) and
+                                          the JAX IC (f64) of both
+                                          variables there, (2, 16)
+
 chip_smoke.py holds the port's runs on the card against these numbers. On
 the CPU the JAX package takes its XLA path (no Pallas kernel). Each FHN run
-takes a few minutes on a CPU, each Goldbeter run seconds:
+takes a few minutes on a CPU, each Goldbeter run seconds, each bounded-
+tissue run a few minutes:
 
     python scripts/torch_canonical_probes.py [--model goldbeter]
         [--method rkc2|ark324]
+    python scripts/torch_canonical_probes.py --config bounded_ap
 """
 
 import argparse
@@ -41,13 +54,17 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from crdmodel_tpu.config import config_from_ini  # noqa: E402
+from crdmodel_tpu.core.problem import build_problem  # noqa: E402
 from crdmodel_tpu.sim import simulate  # noqa: E402
+from scripts.bench_suite import bounded_tissue  # noqa: E402
 
 INIS = {"fhn": os.path.join(ROOT, "data", "FHNmodelArgs.ini"),
         "goldbeter": os.path.join(ROOT, "data", "GoldbeterModelArgs.ini")}
 GOLDEN = os.path.join(ROOT, "tests", "golden")
 N_PROBES = 64
+N_SCAR = 16
 PROBE_SEED = 20261016
+BOUNDED_AP_PATH = os.path.join(GOLDEN, "torch_bounded_ap_probes.npz")
 
 
 def out_path(model: str, method: str) -> str:
@@ -66,21 +83,44 @@ def probe_points(nvars, ny, nx):
     return var, j, i
 
 
+def scar_cells(obstacle_mask):
+    """N_SCAR fixed cells of the scar (obstacle_mask False)."""
+    jj, ii = np.nonzero(~obstacle_mask)
+    pick = np.random.default_rng(PROBE_SEED).choice(jj.size, N_SCAR,
+                                                    replace=False)
+    return jj[pick], ii[pick]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--config", default="canonical",
+                    choices=("canonical", "bounded_ap"))
     ap.add_argument("--model", default="fhn", choices=sorted(INIS))
     ap.add_argument("--method", default="bs32",
                     choices=("bs32", "rkc2", "ark324"))
     args = ap.parse_args()
-    model, method = args.model, args.method
-    base = config_from_ini(INIS[model], model=model, surface="torus")
-    base = dataclasses.replace(base, method=method)
+    build_kw = {}
+    if args.config == "bounded_ap":
+        base, build_kw = bounded_tissue()
+        path = BOUNDED_AP_PATH
+    else:
+        model, method = args.model, args.method
+        base = config_from_ini(INIS[model], model=model, surface="torus")
+        base = dataclasses.replace(base, method=method)
+        path = out_path(model, method)
     var, j, i = probe_points(2, base.ny, base.nx)
     out = {"probe_var": var, "probe_j": j, "probe_i": i}
+    if build_kw:
+        mask = build_kw["obstacle_mask"]
+        sj, si = scar_cells(mask)
+        y0 = np.asarray(build_problem(dataclasses.replace(
+            base, dtype="float64"), **build_kw).y0)
+        out.update(obstacle_mask=mask, scar_j=sj, scar_i=si,
+                   scar_ic=y0[:, sj, si])
     for dtype, tag in (("float32", "f32"), ("float64", "f64")):
         cfg = dataclasses.replace(base, dtype=dtype)
         t0 = time.perf_counter()
-        res = simulate(cfg)
+        res = simulate(cfg, problem=build_problem(cfg, **build_kw))
         wall = time.perf_counter() - t0
         assert res.ok, res.describe()
         traj = np.asarray(res.trajectory)
@@ -90,7 +130,6 @@ def main():
         out[f"rejected_{tag}"] = np.asarray(res.stats.rejected)
         out["touts"] = np.asarray(res.touts)
         print(f"{tag}: {res.describe()} (CPU wall {wall:.1f} s)", flush=True)
-    path = out_path(model, method)
     np.savez_compressed(path, **out)
     gap = np.abs(out["probes_f32"] - out["probes_f64"]).max()
     print(f"wrote {path}; max |f32 - f64| over the probes = {gap:.3e}")

@@ -1,7 +1,7 @@
 """The port's adaptive ERK driver on the torch path (f64, CPU) against the
-JAX package's run of the same config (f64, CPU), on the FitzHugh–Nagumo
-and Goldbeter cases of tests/test_golden.py, and against their stored
-fixtures."""
+JAX package's run of the same config (f64, CPU), on the FitzHugh–Nagumo,
+Goldbeter and Aliev–Panfilov cases of tests/test_golden.py, and against
+their stored fixtures."""
 
 import os
 
@@ -16,7 +16,8 @@ from crdmodel_tpu_torch.integrate.erk import merge_stops
 from crdmodel_tpu_torch.sim import simulate
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
-# tests/test_golden.py CASES and BASE for the FHN and Goldbeter cases
+# tests/test_golden.py CASES and BASE for the FHN, Goldbeter and
+# Aliev–Panfilov cases
 CASES = {
     "fhn_flat": dict(model="fhn", surface="flat", beta=1.25, t_boundary=0.4),
     "fhn_torus": dict(model="fhn", surface="torus", beta=1.25, vary_beta=1,
@@ -24,6 +25,10 @@ CASES = {
     "goldbeter_flat": dict(model="goldbeter", surface="flat", beta=0.85),
     "goldbeter_torus": dict(model="goldbeter", surface="torus", beta=0.4,
                             wave_inside=1),
+    "aliev_panfilov_flat": dict(model="aliev_panfilov", surface="flat",
+                                beta=0.15, diffusion=1.0),
+    "aliev_panfilov_torus": dict(model="aliev_panfilov", surface="torus",
+                                 beta=0.15, diffusion=1.0),
 }
 BASE = dict(x_mesh=16, surface_width=20, surface_length=40,
             t_final=1.0, output_timestep=2, wave_length=0.1, wave_width=0.5,

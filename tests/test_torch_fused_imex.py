@@ -28,7 +28,7 @@ from crdmodel_tpu_torch.ops.kernel_common import SMEM_BYTES, prepare_constants
 
 # tests/test_imex.py's fused-kernel case (test_fused_imex_kernel_
 # interpreter_matches_xla): tBoundary=1.0, f32, rtol 1e-5
-BETAS = {"fhn": 1.25, "goldbeter": 0.5}
+BETAS = {"fhn": 1.25, "goldbeter": 0.5, "aliev_panfilov": 0.1}
 CASES = [(m, s) for m in sorted(BETAS) for s in ("torus", "flat")]
 IDS = [f"{m}-{s}" for m, s in CASES]
 # (t, seg_end, fz): a step in the frozen piece, and one after the release
@@ -44,8 +44,9 @@ SEGMENTS = ((0.3, 0.8, 1.0), (1.3, 2.0, 0.0))
 # closed-form Jacobian (1.2e-6 measured; the JAX package's own kernel
 # agrees with its XLA path to 1e-6 on Goldbeter,
 # docs/PERF_NOTES.md:390-392).
-STEPS = {"fhn": ((0.01, False), (0.1, True)), "goldbeter": ((0.01, True),)}
-Y_ATOL = {"fhn": 5e-7, "goldbeter": 2e-6}
+STEPS = {"fhn": ((0.01, False), (0.1, True)), "goldbeter": ((0.01, True),),
+         "aliev_panfilov": ((0.01, False), (0.1, True))}
+Y_ATOL = {"fhn": 5e-7, "goldbeter": 2e-6, "aliev_panfilov": 2e-6}
 
 
 def _cfg(model, surface, **over):

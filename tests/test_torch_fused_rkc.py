@@ -111,6 +111,65 @@ def test_plain_step_matches_jax_kernel(surface):
             np.testing.assert_allclose(float(ss), float(ss_j), rtol=1e-3)
 
 
+# the Goldbeter torus of data/GoldbeterModelArgs.ini (beta 0.4) at
+# x_mesh=32 (the JAX kernel's column pad needs nx >= its halo of 24), with
+# a freeze; states near its wave-segment ICs
+GB_KW = dict(BASE, model="goldbeter", surface="torus", x_mesh=32,
+             surface_length=40, beta=0.4, wave_inside=1, wave_length=0.2,
+             wave_width=0.5)
+
+
+# h*rho of the Goldbeter steps: s = 4 and s = 9. Its kinetics set rho, and
+# a step of h*rho = 300 would leave the kinetics' time scale by far.
+GB_H_RHO = (5.0, 40.0)
+
+
+def _gb_state(y0, seed=11):
+    return y0 * np.exp(0.05 * np.random.default_rng(seed).standard_normal(
+        y0.shape))
+
+
+def test_plain_goldbeter_step_matches_jax_kernel():
+    """K2's plain version with the Goldbeter kinetics against the JAX
+    Pallas kernel in interpret mode, f32, frozen and released, at a shallow
+    and a deep stage count; the limits of test_plain_step_matches_jax_kernel
+    scaled by the state."""
+    import jax
+    import jax.numpy as jnp
+
+    from crdmodel_tpu.config import SimConfig as JSimConfig
+    from crdmodel_tpu.core.problem import build_problem as jbuild_problem
+    from crdmodel_tpu.core.problem import make_rho_bound as jmake_rho_bound
+    from crdmodel_tpu.ops import pallas_rkc
+
+    jp = jbuild_problem(JSimConfig(**GB_KW))
+    jfused = pallas_rkc.build_fused_rkc_step(jp, jnp.float32, interpret=True)
+    jrho = jmake_rho_bound(jp.cfg, jp.model, jp.geometry, jnp.float32)
+    jstep = jax.jit(jfused.step_err)
+    tp = build_problem(SimConfig(**GB_KW), device="cpu")
+    assert fr.is_rkc_supported(tp, torch.float32)
+    assert prepare_constants(tp, torch.float32, "cpu").kinetics_id == 1
+    tfused = fr.build_fused_rkc_step(tp)
+    y_np = _gb_state(np.asarray(jp.y0)).astype(np.float32)
+    y_t, _ = inputs_from_numpy(y_np, {}, device="cpu", dtype=torch.float32)
+    scale = max(1.0, float(np.abs(y_np).max()))
+    for t, seg_end, fz in SEGMENTS:
+        jpar = {**jp.params, "_seg_end": jnp.float32(seg_end)}
+        tpar = {**tp.params, "_seg_end": torch.tensor(seg_end)}
+        rho = float(jrho(t, jnp.asarray(y_np), jpar))
+        for h_rho in GB_H_RHO:
+            h = np.float32(h_rho / rho)
+            yp_new, ss_j, _ = jstep(jnp.float32(t),
+                                    jfused.pad(jnp.asarray(y_np)),
+                                    jnp.float32(h), jpar)
+            y_new, ss, _ = tfused.step_err(torch.tensor(t), y_t,
+                                           torch.tensor(h), tpar)
+            np.testing.assert_allclose(y_new.numpy(),
+                                       np.asarray(jfused.unpad(yp_new)),
+                                       rtol=0, atol=1e-4 * scale)
+            np.testing.assert_allclose(float(ss), float(ss_j), rtol=1e-3)
+
+
 @pytest.mark.parametrize("surface", sorted(SURFACES))
 def test_plain_step_f64_matches_jax_xla_stepper(surface):
     """In f64 the plain K2 (no carry, coefficients from the f64 tables) is
@@ -227,6 +286,11 @@ def test_gate():
     assert not fr.is_rkc_supported(no_bound, torch.float32)
     p_jd = build_problem(SimConfig(**_cfg("torus", just_diffusion=1)), "cpu")
     assert not fr.is_rkc_supported(p_jd, torch.float32)
+    # every family with a device function
+    for model, beta in (("goldbeter", 0.4), ("aliev_panfilov", 0.1)):
+        other = build_problem(SimConfig(**_cfg("torus", model=model,
+                                               beta=beta)), "cpu")
+        assert fr.is_rkc_supported(other, torch.float32)
 
 
 @pytest.mark.parametrize("itemsize", [4, 8])
@@ -302,3 +366,40 @@ def test_cuda_kernel_refuses_stage_counts_beyond_its_tables():
             ctab_tab, kc, 1e-5, 1e-8)
         torch.cuda.synchronize()
         assert bool(torch.isnan(ss).all()) and torch.equal(y_k, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs a CUDA card and nvcc")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("model,beta", [("goldbeter", 0.4),
+                                        ("aliev_panfilov", 0.1)])
+def test_cuda_kernel_matches_plain_other_kinetics(model, beta, dtype):
+    """K2 with the Goldbeter and Aliev–Panfilov kinetics: y_new bitwise
+    equal to the plain version, two launches equal."""
+    p = build_problem(SimConfig(**_cfg("torus", x_mesh=48, model=model,
+                                       beta=beta, diffusion=1000.0)),
+                      device="cuda")
+    kc = prepare_constants(p, dtype, "cuda")
+    mu1_tab, ctab_tab = fr.static_stage_tables(fr.S_MAX_KERNEL, dtype, "cuda")
+    y0 = p.y0.cpu().numpy()
+    y_np = (_gb_state(y0) if model == "goldbeter"
+            else _state(y0.shape, y0))
+    y = torch.tensor(y_np, dtype=dtype, device="cuda")
+    rho = float(make_rho_bound(p.cfg, p.model, p.geometry, dtype)(
+        0.0, y, p.params))
+    for s in (2, 5, 15, 23):
+        h = torch.tensor(0.65 * (s - 1) ** 2 / rho, dtype=dtype, device="cuda")
+        st = torch.tensor(s, dtype=torch.int32, device="cuda")
+        for fz in (0.0, 1.0):
+            fzt = torch.tensor(fz, dtype=dtype, device="cuda")
+            args = (y, h, fzt, st, mu1_tab, ctab_tab, kc, 1e-5, 1e-8)
+            y_k, ss_k = fr.fused_rkc_step(*args)
+            y_k2, ss_k2 = fr.fused_rkc_step(*args)
+            y_r, ss_r = fr.fused_rkc_step_reference(*args)
+            torch.cuda.synchronize()
+            assert bool(torch.isfinite(y_r).all())
+            assert torch.equal(y_k, y_k2) and torch.equal(ss_k, ss_k2)
+            assert torch.equal(y_k, y_r)
+            rel = abs(float(ss_k.sum()) - float(ss_r.sum())) / float(ss_r.sum())
+            assert rel <= (1e-5 if dtype == torch.float32 else 1e-12)

@@ -125,6 +125,55 @@ def test_plain_goldbeter_step_matches_jax_kernel(method):
         assert abs(float(ss.sum()) - ss_j) <= 1e-3 * ss_j
 
 
+# Aliev–Panfilov on the torus (the beta window of tests/test_golden.py),
+# with a freeze; states spanning rest, upstroke and recovery
+AP_KW = dict(BASE, model="aliev_panfilov", surface="torus", beta=0.15,
+             diffusion=1.0, wave_length=0.25, wave_width=0.5)
+AP_H = 0.02
+
+
+def _ap_state(shape, seed=11):
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.uniform(-0.1, 1.1, shape[1:]),
+                     rng.uniform(0.0, 2.0, shape[1:])])
+
+
+@pytest.mark.parametrize("method", ["bs32", "dopri54"])
+def test_plain_aliev_panfilov_step_matches_jax_kernel(method):
+    """K1's plain version with the Aliev–Panfilov kinetics against the JAX
+    Pallas kernel in interpret mode, f32, frozen and released; the limits
+    of test_plain_step_matches_jax_kernel."""
+    import jax
+    import jax.numpy as jnp
+
+    from crdmodel_tpu.config import SimConfig as JSimConfig
+    from crdmodel_tpu.core.problem import build_problem as jbuild_problem
+    from crdmodel_tpu.integrate.erk import TABLEAUS as JTABLEAUS
+    from crdmodel_tpu.ops import pallas_step
+
+    jp = jbuild_problem(JSimConfig(**AP_KW))
+    fused = pallas_step.build_fused_step(jp, JTABLEAUS[method], jnp.float32,
+                                         interpret=True)
+    jstep = jax.jit(lambda yp, h, seg: fused.step_err(
+        0.0, yp, h, {**jp.params, "_seg_end": seg}))
+    tp = build_problem(SimConfig(**AP_KW), device="cpu")
+    assert fs.is_supported(tp, TABLEAUS[method], torch.float32)
+    kc = prepare_constants(tp, torch.float32, "cpu")
+    assert kc.kinetics_id == 2
+    y_np = _ap_state(np.shape(jp.y0)).astype(np.float32)
+    y_t, _ = inputs_from_numpy(y_np, {}, device="cpu", dtype=torch.float32)
+    h_t = torch.tensor(AP_H, dtype=torch.float32)
+    for seg_end, fz in ((0.4, 1.0), (1.0, 0.0)):
+        yp_new, ss_j = jstep(fused.pad(jnp.asarray(y_np)), jnp.float32(AP_H),
+                             jnp.float32(seg_end))
+        y_new, ss = fs.fused_step(y_t, h_t, torch.tensor(fz), kc,
+                                  TABLEAUS[method], AP_KW["rtol"],
+                                  AP_KW["atol"])
+        _close(y_new.numpy(), fused.unpad(yp_new), np.abs(y_np).max())
+        ss_j = float(ss_j)
+        assert abs(float(ss.sum()) - ss_j) <= 1e-3 * ss_j
+
+
 def test_step_err_uses_segment_freeze():
     """build_fused_step reads the freeze from params['_seg_end']."""
     cfg = SimConfig(**{**BASE, **SURFACES["torus"]})
@@ -223,3 +272,27 @@ def test_cuda_goldbeter_kernel_matches_plain(method, dtype):
         assert float((y_k - y_r).abs().max()) <= tol * scale
         rel = abs(float(ss_k.sum()) - float(ss_r.sum())) / float(ss_r.sum())
         assert rel <= (1e-3 if dtype == torch.float32 else 1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs a CUDA card and nvcc")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("method", ["bs32", "dopri54"])
+def test_cuda_aliev_panfilov_kernel_matches_plain(method, dtype):
+    cfg = SimConfig(**{**AP_KW, "x_mesh": 48, "surface_length": 80})
+    p = build_problem(cfg, device="cuda")
+    kc = prepare_constants(p, dtype, "cuda")
+    y = torch.tensor(_ap_state(tuple(p.y0.shape)), dtype=dtype, device="cuda")
+    h = torch.tensor(AP_H, dtype=dtype, device="cuda")
+    for fz in (0.0, 1.0):
+        fzt = torch.tensor(fz, dtype=dtype, device="cuda")
+        args = (y, h, fzt, kc, TABLEAUS[method], 1e-4, 1e-6)
+        y_k, ss_k = fs.fused_step(*args)
+        y_k2, ss_k2 = fs.fused_step(*args)
+        y_r, ss_r = fs.fused_step_reference(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(y_k, y_k2) and torch.equal(ss_k, ss_k2)
+        assert torch.equal(y_k, y_r)
+        rel = abs(float(ss_k.sum()) - float(ss_r.sum())) / float(ss_r.sum())
+        assert rel <= (1e-5 if dtype == torch.float32 else 1e-12)
