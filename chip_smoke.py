@@ -6,19 +6,29 @@
 Builds the CUDA kernels from crdmodel_tpu_torch/csrc, holds each against its
 plain PyTorch version on the card (K1, the fused ERK step, and K3, the fused
 IMEX ark324 step, with the FitzHugh-Nagumo, Goldbeter and Aliev-Panfilov
-kinetics; K2, the fused RKC2 step, with the same three; K4, the fused
-divergence-form ERK step, on no-flux walls with a scar, a torus obstacle
-and a 2-D diffusion field), times each, then runs the port's main paths
-through simulate(): the canonical FitzHugh-Nagumo torus program
-(data/FHNmodelArgs.ini: 400x1600, f32, Tf=50) with its own method bs32
-(through K1) and with method rkc2 (through K2), the canonical Goldbeter
-torus program (data/GoldbeterModelArgs.ini: 100x400, f32, Tf=4) with its
-own method bs32 (through K1) and with method ark324 (through K3), and the
-bounded cardiac-tissue program (Aliev-Panfilov on a flat 1600x400 sheet
-with no-flux walls and a circular scar, bs32, f32, Tf=8, through K4). Each
-run is checked against the JAX package's CPU runs recorded in
-tests/golden/torch_canonical_{fhn,goldbeter}[_method]_probes.npz and
-tests/golden/torch_bounded_ap_probes.npz. Exits non-zero on any failure,
+kinetics; K2, the fused RKC2 step, with the same three, on the profile
+operator, on the divergence form's three cases, and at the 41M-point shape
+of the JAX package's column-blocked K2b; K4, the fused divergence-form ERK
+step, on no-flux walls with a scar, a torus obstacle and a 2-D diffusion
+field; K5, the fused anisotropic-tensor ERK step, on rotating fibres, a
+constant tensor inside no-flux walls and random fields with a beta ramp),
+times each, then runs the port's main paths through simulate(): the
+canonical FitzHugh-Nagumo torus program (data/FHNmodelArgs.ini: 400x1600,
+f32, Tf=50) with its own method bs32 (through K1) and with method rkc2
+(through K2), the canonical Goldbeter torus program
+(data/GoldbeterModelArgs.ini: 100x400, f32, Tf=4) with its own method bs32
+(through K1) and with method ark324 (through K3), the bounded
+cardiac-tissue program (Aliev-Panfilov on a flat 1600x400 sheet with
+no-flux walls and a circular scar, f32, Tf=8) with bs32 (through K4) and
+with rkc2 (through K2's divergence branch), the JAX suite's wide FHN sheet
+(flat 12800x3200, 41M points, rkc2, f32, Tf=0.5, through K2), and the
+fibered cardiac sheet (Aliev-Panfilov on a flat periodic 1600x400 sheet
+with rotating fibres, bs32, f32, Tf=1, through K5). Each run is checked
+against the JAX package's CPU runs recorded in
+tests/golden/torch_canonical_{fhn,goldbeter}[_method]_probes.npz,
+tests/golden/torch_bounded_ap[_rkc2]_probes.npz and
+tests/golden/torch_aniso_sheet_probes.npz, the wide sheet against the
+port's own torch-path rkc2 run on the card. Exits non-zero on any failure,
 and prints as its last line {"ok": true, "device": {...}} only when every
 phase passed. Imports nothing of JAX.
 
@@ -48,6 +58,10 @@ PROBES = {(model, method): os.path.join(
               ("goldbeter", "bs32", ""), ("goldbeter", "ark324", "_ark324"))}
 PROBES["aliev_panfilov", "bs32"] = os.path.join(GOLDEN,
                                                 "torch_bounded_ap_probes.npz")
+PROBES["aliev_panfilov", "rkc2"] = os.path.join(
+    GOLDEN, "torch_bounded_ap_rkc2_probes.npz")
+PROBES["aniso_sheet", "bs32"] = os.path.join(GOLDEN,
+                                             "torch_aniso_sheet_probes.npz")
 SEED = 1234
 H = 2e-3        # about 1/rho(L) on the canonical grid: stage errors resolved
 K2_STAGES = (2, 5, 15, 23)   # K2's stage counts checked, up to S_MAX_KERNEL
@@ -63,6 +77,19 @@ K3_BIG_MESH = 800   # (2,3200,800): the JAX suite's "Goldbeter torus
                     # 800x3200 Tf=1 ark324" row (scripts/bench_suite.py:124)
 # K4's step: the bounded run's mean step, Tf/steps = 8/10189 (JAX f32)
 K4_H = 8e-4
+# K2's divergence branch: the stage counts checked and timed
+K2_DIVFORM_STAGES = (2, 5, 23)
+# K2 at K2b's shape (the wide sheet): an accuracy-limited and a
+# stability-bound stage count; timed with fewer samples (a plain step at
+# s = 23 moves some 40 GB there)
+K2B_STAGES = (5, 23)
+WIDE_TIMED = (10, 3)
+# K5's step: the fibered sheet's mean step, Tf/steps = 1/775 (JAX f32)
+K5_H = 1.3e-3
+# the JAX package's wide sheet on a TPU: 265 steps (docs/PERF_NOTES.md,
+# "Column-blocked fused RKC"), history and no gate: a TPU's f32 step count
+# is no oracle
+TPU_WIDE_STEPS = 265
 N_TIMED = 60    # timed samples (median reported)
 BURST = 10      # back-to-back calls per sample
 # kernel vs plain version: f64 parity tool, f32 production tolerance
@@ -108,7 +135,7 @@ def median_ms(fn, n=N_TIMED, per_sample=BURST):
 # (du and dv), its closed-form Jacobian, and each operator on variable 0
 KINETICS_OPS = {"fhn": 7, "goldbeter": 24, "aliev_panfilov": 18}
 JACOBIAN_OPS = {"fhn": 3, "goldbeter": 30, "aliev_panfilov": 35}
-OPERATOR_OPS = {"torus": 12, "flat": 7, "divform": 11}
+OPERATOR_OPS = {"torus": 12, "flat": 7, "divform": 11, "aniso": 23}
 WEIGHT_OPS = 14     # 1/(rtol |y0| + atol), err * w, square, sum; two vars
 
 
@@ -259,7 +286,7 @@ def check_rkc_kernel(cases):
     stability coverage of s - 1 stages, at most K2_MAX_H; returns the f32
     max error and
     {s: (kernel ms, plain ms, bound ms, bound_by)} at the canonical shape."""
-    from crdmodel_tpu_torch.core.problem import build_problem, make_rho_bound
+    from crdmodel_tpu_torch.core.problem import build_problem
     from crdmodel_tpu_torch.ops import fused_rkc as fr
     from crdmodel_tpu_torch.ops.kernel_common import prepare_constants
 
@@ -273,12 +300,9 @@ def check_rkc_kernel(cases):
             kc = prepare_constants(problem, dtype, "cuda")
             mu1, ctab = fr.static_stage_tables(fr.S_MAX_KERNEL, dtype, "cuda")
             y = torch.tensor(y_np, dtype=dtype, device="cuda")
-            rho = float(make_rho_bound(cfg, problem.model, problem.geometry,
-                                       dtype)(0.0, y, problem.params))
+            rho = problem_rho(problem, y)
             for s in K2_STAGES:
-                h = torch.tensor(min(0.65 * (s - 1) ** 2 / rho, K2_MAX_H),
-                                 dtype=dtype, device="cuda")
-                st = torch.tensor(s, dtype=torch.int32, device="cuda")
+                h, st = rkc_step_inputs(s, rho, dtype)
                 for fz in (0.0, 1.0):
                     fzt = torch.tensor(fz, dtype=dtype, device="cuda")
                     args = (y, h, fzt, st, mu1, ctab, kc, cfg.rtol, cfg.atol)
@@ -292,14 +316,125 @@ def check_rkc_kernel(cases):
                     worst[dtype] = max(worst[dtype], err)
                 if (cfg is cases[0] and dtype == torch.float32
                         and s in K2_TIMED_STAGES):
-                    args = (y, h, torch.zeros((), dtype=dtype, device="cuda"),
-                            st, mu1, ctab, kc, cfg.rtol, cfg.atol)
-                    tables = sum(t.numel() * t.element_size()
-                                 for t in (mu1, ctab))
-                    timing[s] = (
-                        median_ms(lambda: fr.fused_rkc_step(*args)),
-                        median_ms(lambda: fr.fused_rkc_step_reference(*args)),
-                        *bound(y, kc, rkc_ops(kc, s), tables))
+                    timing[s] = rkc_timing(y, h, st, mu1, ctab, kc, cfg)
+    return worst, timing
+
+
+def problem_rho(problem, y):
+    """The RKC2 spectral-radius bound of `problem` at y (its operator's,
+    as the driver computes it), a float."""
+    from crdmodel_tpu_torch.core.problem import make_rho_bound
+    return float(make_rho_bound(
+        problem.cfg, problem.model, problem.geometry, y.dtype,
+        diffusion_field=problem.diffusion_field,
+        face_mask=problem.face_mask)(0.0, y, problem.params))
+
+
+def rkc_step_inputs(s, rho, dtype):
+    """(h, s) of a K2 check at stage count s: h the stability coverage of
+    s - 1 stages, at most K2_MAX_H, and s as a device int."""
+    h = torch.tensor(min(0.65 * (s - 1) ** 2 / rho, K2_MAX_H), dtype=dtype,
+                     device="cuda")
+    return h, torch.tensor(s, dtype=torch.int32, device="cuda")
+
+
+def rkc_timing(y, h, st, mu1, ctab, kc, cfg, timed=(N_TIMED, BURST)):
+    """(kernel ms, plain ms, bound ms, bound_by) of one K2 step on y at the
+    stage count st, unfrozen; `timed` = (samples, calls a sample)."""
+    from crdmodel_tpu_torch.ops import fused_rkc as fr
+    args = (y, h, torch.zeros((), dtype=y.dtype, device="cuda"), st, mu1,
+            ctab, kc, cfg.rtol, cfg.atol)
+    tables = sum(t.numel() * t.element_size() for t in (mu1, ctab))
+    return (median_ms(lambda: fr.fused_rkc_step(*args), *timed),
+            median_ms(lambda: fr.fused_rkc_step_reference(*args), *timed),
+            *bound(y, kc, rkc_ops(kc, int(st)), tables))
+
+
+def check_rkc_divform_kernel(cases):
+    """K2's divergence branch against its plain version at the bounded
+    path's shape (2,1600,400), for each (label, config, build arguments) of
+    `cases` (each with tBoundary > 0; the bounded tissue first), each s of
+    K2_DIVFORM_STAGES (h as in check_rkc_kernel), f32 and f64, fz 0 and 1:
+    y_new bitwise equal, two launches bitwise equal. Returns the max errors
+    and {s: (kernel ms, plain ms, bound ms, bound_by)} from the first
+    case's ICs, f32, for each s of K2_TIMED_STAGES."""
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.ops import fused_rkc as fr
+    from crdmodel_tpu_torch.ops.kernel_common import prepare_divform_constants
+
+    rng = np.random.default_rng(SEED + 4)
+    worst = {torch.float32: 0.0, torch.float64: 0.0}
+    for label, cfg, build_kw in cases:
+        problem = build_problem(cfg, device="cuda", **build_kw)
+        y_np = random_state(cfg, tuple(problem.y0.shape), rng)
+        for dtype in (torch.float32, torch.float64):
+            dc = prepare_divform_constants(problem, dtype, "cuda")
+            mu1, ctab = fr.static_stage_tables(fr.S_MAX_KERNEL, dtype, "cuda")
+            y = torch.tensor(y_np, dtype=dtype, device="cuda")
+            rho = problem_rho(problem, y)
+            for s in K2_DIVFORM_STAGES:
+                h, st = rkc_step_inputs(s, rho, dtype)
+                for fz in (0.0, 1.0):
+                    fzt = torch.tensor(fz, dtype=dtype, device="cuda")
+                    args = (y, h, fzt, st, mu1, ctab, dc, cfg.rtol, cfg.atol)
+                    err = check_pair(
+                        "k2_divform_check",
+                        dict(case=label, model=cfg.model, surface=cfg.surface,
+                             shape=list(y.shape), s=s, fz=fz),
+                        *fr.fused_rkc_step(*args), *fr.fused_rkc_step(*args),
+                        *fr.fused_rkc_step_reference(*args), dtype, y,
+                        bitwise=True)
+                    worst[dtype] = max(worst[dtype], err)
+
+    _, cfg, build_kw = cases[0]
+    problem = build_problem(dataclasses.replace(cfg, t_boundary=0.0),
+                            device="cuda", **build_kw)
+    dc = prepare_divform_constants(problem, torch.float32, "cuda")
+    mu1, ctab = fr.static_stage_tables(fr.S_MAX_KERNEL, torch.float32, "cuda")
+    y = problem.y0.contiguous()
+    rho = problem_rho(problem, y)
+    timing = {s: rkc_timing(y, *rkc_step_inputs(s, rho, torch.float32), mu1,
+                            ctab, dc, cfg)
+              for s in K2_TIMED_STAGES}
+    return worst, timing
+
+
+def check_wide_rkc_kernel(cfg):
+    """K2 at the shape of the JAX package's column-blocked K2b, the wide
+    sheet's (2,12800,3200), against its plain version from a random state,
+    each s of K2B_STAGES (h as in check_rkc_kernel), f32 (the sheet has no
+    freeze: fz 0): y_new bitwise equal, two launches bitwise equal. Returns
+    the max errors and {s: (kernel ms, plain ms, bound ms, bound_by)} from
+    the sheet's ICs, with WIDE_TIMED samples."""
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.ops import fused_rkc as fr
+    from crdmodel_tpu_torch.ops.kernel_common import prepare_constants
+
+    dtype = torch.float32
+    problem = build_problem(cfg, device="cuda")
+    kc = prepare_constants(problem, dtype, "cuda")
+    mu1, ctab = fr.static_stage_tables(fr.S_MAX_KERNEL, dtype, "cuda")
+    y = torch.tensor(random_state(cfg, tuple(problem.y0.shape),
+                                  np.random.default_rng(SEED + 5)),
+                     dtype=dtype, device="cuda")
+    rho = problem_rho(problem, y)
+    worst = {torch.float32: 0.0, torch.float64: 0.0}
+    fz = torch.zeros((), dtype=dtype, device="cuda")
+    for s in K2B_STAGES:
+        h, st = rkc_step_inputs(s, rho, dtype)
+        args = (y, h, fz, st, mu1, ctab, kc, cfg.rtol, cfg.atol)
+        err = check_pair(
+            "k2b_check", dict(model=cfg.model, surface=cfg.surface,
+                              shape=list(y.shape), s=s, fz=0.0),
+            *fr.fused_rkc_step(*args), *fr.fused_rkc_step(*args),
+            *fr.fused_rkc_step_reference(*args), dtype, y, bitwise=True)
+        worst[dtype] = max(worst[dtype], err)
+    del y
+    y = problem.y0.contiguous()
+    rho = problem_rho(problem, y)
+    timing = {s: rkc_timing(y, *rkc_step_inputs(s, rho, dtype), mu1, ctab,
+                            kc, cfg, timed=WIDE_TIMED)
+              for s in K2B_STAGES}
     return worst, timing
 
 
@@ -350,53 +485,52 @@ def check_imex_kernel(cases, timed):
     return worst, timing
 
 
-def check_divform_kernel(cases):
-    """K4 against its plain version at the main path's shape (2,1600,400),
-    for each (label, config, build arguments) of `cases` (each with
-    tBoundary > 0, so that fz 0 and 1 differ; the bounded tissue first),
-    f32 and f64, bs32 and dopri54, fz 0 and 1: y_new bitwise equal, two
-    launches bitwise equal. Returns the max errors and (kernel ms, plain
-    ms, bound ms, bound_by) of the first case's ICs, bs32, f32."""
+def check_field_kernel(name, cases, prepare, step, reference, h_val, seed):
+    """An ERK tile kernel on (ny, nx) coefficient fields (K4, K5) against
+    its plain version at the main path's shape (2,1600,400), for each
+    (label, config, build arguments) of `cases` (each with tBoundary > 0,
+    so that fz 0 and 1 differ; the main path's program first), f32 and
+    f64, bs32 and dopri54, fz 0 and 1, at step h_val: y_new bitwise equal,
+    two launches bitwise equal; prints phase `name`. prepare(problem,
+    dtype, device) makes the kernel's constants, step and reference are
+    its wrapper and plain version. Returns the max errors and (kernel ms,
+    plain ms, bound ms, bound_by) of the first case's ICs, bs32, f32."""
     from crdmodel_tpu_torch.core.problem import build_problem
     from crdmodel_tpu_torch.integrate.erk import TABLEAUS
-    from crdmodel_tpu_torch.ops import fused_divform as fd
-    from crdmodel_tpu_torch.ops.kernel_common import prepare_divform_constants
 
-    rng = np.random.default_rng(SEED + 3)
+    rng = np.random.default_rng(seed)
     worst = {torch.float32: 0.0, torch.float64: 0.0}
     for label, cfg, build_kw in cases:
         problem = build_problem(cfg, device="cuda", **build_kw)
         y_np = random_state(cfg, tuple(problem.y0.shape), rng)
         for dtype in (torch.float32, torch.float64):
-            dc = prepare_divform_constants(problem, dtype, "cuda")
+            kc = prepare(problem, dtype, "cuda")
             y = torch.tensor(y_np, dtype=dtype, device="cuda")
-            h = torch.tensor(K4_H, dtype=dtype, device="cuda")
+            h = torch.tensor(h_val, dtype=dtype, device="cuda")
             for method in ("bs32", "dopri54"):
                 for fz in (0.0, 1.0):
                     fzt = torch.tensor(fz, dtype=dtype, device="cuda")
-                    args = (y, h, fzt, dc, TABLEAUS[method], cfg.rtol,
+                    args = (y, h, fzt, kc, TABLEAUS[method], cfg.rtol,
                             cfg.atol)
                     err = check_pair(
-                        "k4_check",
+                        name,
                         dict(case=label, model=cfg.model, surface=cfg.surface,
                              shape=list(y.shape), method=method, fz=fz),
-                        *fd.fused_divform_step(*args),
-                        *fd.fused_divform_step(*args),
-                        *fd.fused_divform_step_reference(*args), dtype, y,
-                        bitwise=True)
+                        *step(*args), *step(*args), *reference(*args), dtype,
+                        y, bitwise=True)
                     worst[dtype] = max(worst[dtype], err)
 
     _, cfg, build_kw = cases[0]
     problem = build_problem(dataclasses.replace(cfg, t_boundary=0.0),
                             device="cuda", **build_kw)
-    dc = prepare_divform_constants(problem, torch.float32, "cuda")
+    kc = prepare(problem, torch.float32, "cuda")
     y = problem.y0.contiguous()
     tab = TABLEAUS["bs32"]
-    args = (y, torch.tensor(K4_H, device="cuda"),
-            torch.zeros((), device="cuda"), dc, tab, cfg.rtol, cfg.atol)
-    timing = (median_ms(lambda: fd.fused_divform_step(*args)),
-              median_ms(lambda: fd.fused_divform_step_reference(*args)),
-              *bound(y, dc, erk_ops(dc, tab)))
+    args = (y, torch.tensor(h_val, device="cuda"),
+            torch.zeros((), device="cuda"), kc, tab, cfg.rtol, cfg.atol)
+    timing = (median_ms(lambda: step(*args)),
+              median_ms(lambda: reference(*args)),
+              *bound(y, kc, erk_ops(kc, tab)))
     return worst, timing
 
 
@@ -418,6 +552,56 @@ def bounded_tissue():
     return cfg, dict(obstacle_mask=~scar)
 
 
+def wide_sheet():
+    """The JAX suite's wide FHN sheet (scripts/bench_suite.py:57-67, the
+    row "FHN flat 12800x3200 Tf=0.5 rkc2 (halo ladder)"), copied: flat
+    12800x3200 (41M points), rkc2, f32, Tf=0.5, auto selection."""
+    from crdmodel_tpu_torch.config import SimConfig
+    return SimConfig(model="fhn", surface="flat", x_mesh=3200,
+                     surface_width=20, surface_length=80, t_final=0.5,
+                     output_timestep=1, vary_beta=0, t_boundary=0.0,
+                     dtype="float32", rtol=1e-5, atol=1e-8, method="rkc2")
+
+
+def fiber_tensor(cfg, d_par, d_perp, angle0=0.0, angle1=np.pi / 3):
+    """examples/anisotropic_fibers.py::fiber_tensor, copied: D = R
+    diag(d_par, d_perp) R^T with the fibre angle rotating linearly in x
+    from angle0 to angle1."""
+    th = np.linspace(angle0, angle1, cfg.nx)[None, :]
+    th = np.broadcast_to(th, (cfg.ny, cfg.nx))
+    c, s = np.cos(th), np.sin(th)
+    dxx = d_par * c * c + d_perp * s * s
+    dyy = d_par * s * s + d_perp * c * c
+    dxy = (d_par - d_perp) * c * s
+    return dxx, dyy, dxy
+
+
+def aniso_sheet():
+    """The fibered cardiac sheet, copied: the configuration of the JAX
+    package's on-chip K5 test (tests_tpu/test_aniso_tpu.py:16-20),
+    Aliev-Panfilov on a flat periodic 1600x400 sheet, bs32, f32, Tf=1, with
+    the rotating fibres of examples/anisotropic_fibers.py (d_par 1,
+    d_perp 0.2, from 0 to pi/3 across x). Returns (cfg, build arguments)."""
+    from crdmodel_tpu_torch.config import SimConfig
+    cfg = SimConfig(model="aliev_panfilov", surface="flat", x_mesh=400,
+                    surface_width=20, surface_length=80, diffusion=1.0,
+                    beta=0.05, wave_length=0.1, wave_width=0.2, t_final=1.0,
+                    output_timestep=2, dtype="float32", rtol=1e-4,
+                    atol=1e-7)
+    return cfg, dict(diffusion_tensor=fiber_tensor(cfg, 1.0, 0.2, 0.0,
+                                                   np.pi / 3))
+
+
+def tensor_checks(probes, tensor):
+    """extra_checks of the fibered run: this script's fibres are the
+    stored ones, bitwise."""
+    def checks(res):
+        return {"fibres are the stored ones": all(
+            np.array_equal(np.broadcast_to(c, probes[k].shape), probes[k])
+            for c, k in zip(tensor, ("dxx", "dyy", "dxy")))}
+    return checks
+
+
 def run_main_path(cfg, probes, kernel, min_step_tol, name, label,
                   build_kw=None, extra_checks=None):
     """The program `cfg` (built with `build_kw`) through simulate() on the
@@ -431,34 +615,11 @@ def run_main_path(cfg, probes, kernel, min_step_tol, name, label,
     within that run's own distance to the JAX f64 run where that is larger:
     where the error estimate sits at the f32 rounding floor, the count
     follows the rounding (as the probe limit follows the f32-f64 gap)."""
-    from crdmodel_tpu_torch.config import PALLAS_AUTO_POINTS
-    from crdmodel_tpu_torch.core.problem import build_problem
-    from crdmodel_tpu_torch.core.problem import solver_breakpoints
-    from crdmodel_tpu_torch.integrate.erk import SYNC_EVERY, merge_stops
-    from crdmodel_tpu_torch.ops import (fused_divform, fused_imex, fused_rkc,
-                                        fused_step)
-    from crdmodel_tpu_torch.sim import output_times, simulate
-
-    build_kw = build_kw or {}
-    wrappers = (fused_step.fused_step, fused_rkc.fused_rkc_step,
-                fused_imex.fused_imex_step, fused_divform.fused_divform_step)
-
-    def run(c):
-        return simulate(c, device="cuda",
-                        problem=build_problem(c, "cuda", **build_kw))
-
-    # warm-up on a short horizon (first launches of every torch op)
-    run(dataclasses.replace(cfg, t_final=min(1.0, 0.1 * cfg.t_final),
-                            output_timestep=1))
-    for w in wrappers:
-        w.launches = 0
-    res = run(cfg)
-    counts = {w.__name__: w.launches for w in wrappers}
+    res, counts = drive_main_path(cfg, build_kw or {})
     launches = counts[kernel.__name__]
 
     traj = res.trajectory
     steps = res.total_steps()
-    n_stops = len(merge_stops(output_times(cfg), solver_breakpoints(cfg))[0])
     ref_steps = int(probes["steps_f32"].sum())
     step_tol = max(min_step_tol,
                    abs(ref_steps - int(probes["steps_f64"].sum())) / ref_steps)
@@ -469,15 +630,7 @@ def run_main_path(cfg, probes, kernel, min_step_tol, name, label,
     f32_gap = float(np.abs(probes["probes_f32"] - probes["probes_f64"]).max())
     probe_limit = 2.0 * f32_gap + 1e-4
     wall = res.wall_time
-    points = cfg.nx * cfg.ny
-    selection = (f"auto (use_pallas=None): the fused path above "
-                 f"PALLAS_AUTO_POINTS={PALLAS_AUTO_POINTS} points"
-                 if cfg.use_pallas is None else
-                 f"use_pallas={cfg.use_pallas}; {points} points, auto "
-                 f"selection would take the "
-                 f"{'fused' if points >= PALLAS_AUTO_POINTS else 'torch'} "
-                 f"path")
-    phase(name, config=label, selection=selection,
+    phase(name, config=label, selection=selection_note(cfg),
           grid=[cfg.ny, cfg.nx], method=cfg.method, dtype=cfg.dtype,
           status=res.describe(), fused=res.fused, steps=steps,
           accepted=int(res.stats.accepted.sum()),
@@ -485,50 +638,164 @@ def run_main_path(cfg, probes, kernel, min_step_tol, name, label,
           jax_f32_cpu_steps=ref_steps,
           jax_f64_cpu_steps=int(probes["steps_f64"].sum()),
           step_limit=step_tol, kernel=kernel.__name__,
-          launches=counts,
-          launch_bound=[steps, steps + SYNC_EVERY * n_stops],
+          launches=counts, launch_bound=launch_bound(cfg, steps),
           wall_s=wall, us_per_step=wall / steps * 1e6,
           points_steps_per_s=cfg.nx * cfg.ny * steps / wall,
           probe_max_abs_err_vs_jax_f64=gap, probe_limit=probe_limit,
           jax_f32_probe_gap=f32_gap, card=card_line())
-    checks = {
+    checks = run_checks(cfg, res, kernel, launches)
+    checks.update({
+        f"steps within {step_tol:.2%} of JAX f32":
+            abs(steps - ref_steps) <= step_tol * ref_steps,
+        "probes vs JAX f64": gap <= probe_limit,
+    })
+    if extra_checks is not None:
+        checks.update(extra_checks(res))
+    fail_unless(name, checks)
+    return launches
+
+
+def drive_main_path(cfg, build_kw):
+    """Run `cfg` (built with `build_kw`) through simulate() on the card,
+    after a warm-up on a short horizon (the first launches of every torch
+    op), with every kernel's launch count set to 0 just before and read
+    just after. Returns (result, {wrapper name: launches})."""
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.ops import (fused_aniso, fused_divform,
+                                        fused_imex, fused_rkc, fused_step)
+    from crdmodel_tpu_torch.sim import simulate
+
+    wrappers = (fused_step.fused_step, fused_rkc.fused_rkc_step,
+                fused_imex.fused_imex_step, fused_divform.fused_divform_step,
+                fused_aniso.fused_aniso_step)
+
+    def run(c):
+        return simulate(c, device="cuda",
+                        problem=build_problem(c, "cuda", **build_kw))
+
+    run(dataclasses.replace(cfg, t_final=min(1.0, 0.1 * cfg.t_final),
+                            output_timestep=1))
+    for w in wrappers:
+        w.launches = 0
+    res = run(cfg)
+    return res, {w.__name__: w.launches for w in wrappers}
+
+
+def selection_note(cfg):
+    """How the run's path was selected, for its phase line."""
+    from crdmodel_tpu_torch.config import PALLAS_AUTO_POINTS
+    points = cfg.nx * cfg.ny
+    if cfg.use_pallas is None:
+        return (f"auto (use_pallas=None): the fused path above "
+                f"PALLAS_AUTO_POINTS={PALLAS_AUTO_POINTS} points")
+    return (f"use_pallas={cfg.use_pallas}; {points} points, auto selection "
+            f"would take the "
+            f"{'fused' if points >= PALLAS_AUTO_POINTS else 'torch'} path")
+
+
+def launch_bound(cfg, steps):
+    """[least, most] kernel launches of a fused run of `steps` steps: every
+    step, and the no-op iterations of the last block of each stop."""
+    from crdmodel_tpu_torch.core.problem import solver_breakpoints
+    from crdmodel_tpu_torch.integrate.erk import SYNC_EVERY, merge_stops
+    from crdmodel_tpu_torch.sim import output_times
+    n_stops = len(merge_stops(output_times(cfg), solver_breakpoints(cfg))[0])
+    return [steps, steps + SYNC_EVERY * n_stops]
+
+
+def run_checks(cfg, res, kernel, launches):
+    """The checks every main path's run passes: status, the fused path,
+    the trajectory's shape and finiteness, every step through `kernel`."""
+    traj = res.trajectory
+    least, most = launch_bound(cfg, res.total_steps())
+    return {
         "status ok": res.ok,
         "fused path": res.fused,
         "shape": tuple(traj.shape) == (cfg.output_timestep + 1, 2, cfg.ny,
                                        cfg.nx),
         "finite": bool(torch.isfinite(traj).all()),
-        f"every step through {kernel.__name__}":
-            steps <= launches <= steps + SYNC_EVERY * n_stops,
-        f"steps within {step_tol:.2%} of JAX f32":
-            abs(steps - ref_steps) <= step_tol * ref_steps,
-        "probes vs JAX f64": gap <= probe_limit,
+        f"every step through {kernel.__name__}": least <= launches <= most,
     }
-    if extra_checks is not None:
-        checks.update(extra_checks(res))
-    failed = [name for name, ok in checks.items() if not ok]
+
+
+def fail_unless(name, checks):
+    failed = [check for check, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"main path {name} failed: {failed}")
-    return launches
 
 
-def scar_checks(probes, mask):
-    """extra_checks of the bounded run: this script's scar is the stored
-    one, and the stored scar cells hold the JAX IC bitwise (cast to the
-    run's dtype) at every output."""
+def scar_checks(probes, mask, drift=0.0):
+    """extra_checks of the bounded runs: this script's scar is the stored
+    one, and the stored scar cells hold the JAX IC (cast to the run's
+    dtype) at every output: bitwise when drift is 0 (ERK: y0 + (h b) 0 is
+    y0), else within drift. RKC2's recurrence (1 - mu - nu) y0 + mu Y_{j-1}
+    + nu Y_{j-2} rounds at a stationary cell, in the JAX package too."""
     def checks(res):
         traj = res.trajectory
         j, i = (torch.as_tensor(probes[k], device=traj.device)
                 for k in ("scar_j", "scar_i"))
         ic = torch.as_tensor(probes["scar_ic"], device=traj.device).to(
             traj.dtype)
-        held = bool(torch.equal(traj[:, :, j, i],
-                                ic[None].expand(traj.shape[0], -1, -1)))
-        phase("scar", cells=int(j.numel()), held_ic_bitwise=held,
-              outputs=int(traj.shape[0]))
+        held = traj[:, :, j, i] - ic[None]
+        worst = float(held.abs().max())
+        phase("scar", cells=int(j.numel()),
+              held_ic_bitwise=bool((held == 0).all()), max_drift=worst,
+              drift_limit=drift, outputs=int(traj.shape[0]))
         return {"scar is the stored one": np.array_equal(
                     mask, probes["obstacle_mask"]),
-                "scar cells hold their IC bitwise": held}
+                f"scar cells hold their IC to {drift}": worst <= drift}
     return checks
+
+
+def run_wide_sheet(cfg, rkc2_probes):
+    """The wide sheet through K2 (auto selection) and through the port's
+    torch-path rkc2 (use_pallas=False), both on the card: steps within the
+    rkc2 gate (2%), and the final fields within the JAX f32-f64 probe gap
+    of the canonical rkc2 run plus 1e-4 (the sheet has no JAX golden: a
+    JAX CPU run of 41M points at this horizon is out of reach). Prints
+    phase main_path_wide_fhn_rkc2; returns K2's launches."""
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.ops import fused_rkc
+    from crdmodel_tpu_torch.sim import simulate
+
+    name = "main_path_wide_fhn_rkc2"
+    kernel = fused_rkc.fused_rkc_step
+    res, counts = drive_main_path(cfg, {})
+    launches = counts[kernel.__name__]
+    checks = run_checks(cfg, res, kernel, launches)
+    final = res.trajectory[-1].clone()
+    steps, wall, status = res.total_steps(), res.wall_time, res.describe()
+    stats = res.stats
+    del res
+    torch_cfg = dataclasses.replace(cfg, use_pallas=False)
+    ref = simulate(torch_cfg, device="cuda",
+                   problem=build_problem(torch_cfg, "cuda"))
+    ref_steps = ref.total_steps()
+    gap = float((final - ref.trajectory[-1]).abs().max())
+    f32_gap = float(np.abs(rkc2_probes["probes_f32"]
+                           - rkc2_probes["probes_f64"]).max())
+    limit = f32_gap + 1e-4
+    phase(name, config="scripts/bench_suite.py:57-67 fhn flat 12800x3200 "
+          "Tf=0.5 rkc2", selection=selection_note(cfg),
+          grid=[cfg.ny, cfg.nx], method=cfg.method, dtype=cfg.dtype,
+          status=status, steps=steps, accepted=int(stats.accepted.sum()),
+          rejected=int(stats.rejected.sum()), kernel=kernel.__name__,
+          launches=counts, launch_bound=launch_bound(cfg, steps),
+          wall_s=wall, us_per_step=wall / steps * 1e6,
+          points_steps_per_s=cfg.nx * cfg.ny * steps / wall,
+          torch_path=dict(status=ref.describe(), fused=ref.fused,
+                          steps=ref_steps, wall_s=ref.wall_time),
+          step_limit=0.02, final_max_abs_vs_torch_path=gap,
+          final_limit=limit, canonical_rkc2_jax_f32_probe_gap=f32_gap,
+          tpu_steps_history=TPU_WIDE_STEPS, card=card_line())
+    checks.update({
+        "torch path ok": ref.ok and not ref.fused,
+        "steps within 2% of the torch path":
+            abs(steps - ref_steps) <= 0.02 * ref_steps,
+        "final field vs the torch path": gap <= limit,
+    })
+    fail_unless(name, checks)
+    return launches
 
 
 def profile_run(cfg, build_kw, t_final, kernel_tag):
@@ -599,14 +866,24 @@ def main():
           count=torch.cuda.device_count(), tf32="off (matmul and cudnn)")
 
     from crdmodel_tpu_torch.config import config_from_ini
-    from crdmodel_tpu_torch.ops import (_build, fused_divform, fused_imex,
-                                        fused_rkc, fused_step)
+    from crdmodel_tpu_torch.ops import (_build, fused_aniso, fused_divform,
+                                        fused_imex, fused_rkc, fused_step)
+    from crdmodel_tpu_torch.ops.kernel_common import (
+        prepare_aniso_constants, prepare_divform_constants)
 
     phase("build", seconds=_build.build(), library=_build.library_path(),
-          ptxas_fused_divform=_build.ptxas_report("fused_divform.cu"))
+          ptxas_fused_divform=_build.ptxas_report("fused_divform.cu"),
+          ptxas_fused_rkc=_build.ptxas_report("fused_rkc.cu"),
+          ptxas_fused_aniso=_build.ptxas_report("fused_aniso.cu"))
+    cfg_ap, ap_build = bounded_tissue()
+    cfg_ap_rkc = dataclasses.replace(cfg_ap, method="rkc2")
+    cfg_wide = wide_sheet()
+    cfg_aniso, aniso_build = aniso_sheet()
     if sys.argv[1:] == ["--profile"]:
-        cfg_ap, ap_build = bounded_tissue()
         profile_run(cfg_ap, ap_build, 1.0, "DivformRhs")
+        profile_run(cfg_ap_rkc, ap_build, 1.0, "fused_rkc_step_kernel")
+        profile_run(cfg_aniso, aniso_build, 0.25, "AnisoRhs")
+        profile_run(cfg_wide, {}, 0.05, "fused_rkc_step_kernel")
         return
     if sys.argv[1:]:
         sys.exit(f"unknown arguments {sys.argv[1:]}; see the docstring")
@@ -620,7 +897,6 @@ def main():
     gb_torus = dataclasses.replace(cfg_gb, t_boundary=1.0)
     gb_flat = dataclasses.replace(cfg_gb, surface="flat", vary_beta=1,
                                   t_boundary=1.0)
-    cfg_ap, ap_build = bounded_tissue()
     mask = ap_build["obstacle_mask"]
     # Aliev-Panfilov on the bounded sheet's grid with periodic edges and a
     # freeze: the profile kernels' case of its kinetics. D = 0.1 keeps the
@@ -655,15 +931,56 @@ def main():
     torus_scar[700:780, 150:230] = False
     dfield = 0.05 + 0.1 * np.random.default_rng(SEED).random(
         (cfg_ap.ny, cfg_ap.nx))
-    worst4, k4_timing = check_divform_kernel([
+    divform_cases = [
         ("noflux_scar", dataclasses.replace(cfg_ap, t_boundary=1.0),
          ap_build),
         ("torus_obstacle", cfg, dict(obstacle_mask=torus_scar)),
-        ("flat_2d_field", ap_periodic, dict(diffusion_field=dfield))])
+        ("flat_2d_field", ap_periodic, dict(diffusion_field=dfield))]
+    worst4, k4_timing = check_field_kernel(
+        "k4_check", divform_cases, prepare_divform_constants,
+        fused_divform.fused_divform_step,
+        fused_divform.fused_divform_step_reference, K4_H, SEED + 3)
     phase("k4_timing", shape=[2, cfg_ap.ny, cfg_ap.nx], method="bs32",
           dtype="float32", kernel_us=k4_timing[0] * 1e3,
           plain_us=k4_timing[1] * 1e3, bound_us=k4_timing[2] * 1e3,
           bound_by=k4_timing[3], card=card)
+    # K2's divergence branch on K4's three cases, with rkc2
+    worst2d, timing2d = check_rkc_divform_kernel(
+        [(label, dataclasses.replace(c, method="rkc2"), kw)
+         for label, c, kw in divform_cases])
+    for s, t2 in timing2d.items():
+        phase("k2_divform_timing", shape=[2, cfg_ap.ny, cfg_ap.nx], s=s,
+              dtype="float32", kernel_us=t2[0] * 1e3, plain_us=t2[1] * 1e3,
+              bound_us=t2[2] * 1e3, bound_by=t2[3], card=card)
+    # K2 at K2b's shape, the wide sheet's
+    worst2b, timing2b = check_wide_rkc_kernel(cfg_wide)
+    for s, t2 in timing2b.items():
+        phase("k2b_timing", shape=[2, cfg_wide.ny, cfg_wide.nx], s=s,
+              dtype="float32", kernel_us=t2[0] * 1e3, plain_us=t2[1] * 1e3,
+              bound_us=t2[2] * 1e3, bound_by=t2[3],
+              samples=list(WIDE_TIMED), card=card)
+    # K5's cases at (2,1600,400), each with a freeze: the fibered sheet; a
+    # constant tensor inside no-flux walls; FHN on the flat sheet with the
+    # beta ramp and random SPD fields around D = 0.1
+    rng = np.random.default_rng(SEED + 6)
+    dxx = 0.05 + 0.1 * rng.random((cfg_flat.ny, cfg_flat.nx))
+    dyy = 0.03 + 0.1 * rng.random((cfg_flat.ny, cfg_flat.nx))
+    dxy = 0.9 * np.sqrt(dxx * dyy) * (2.0 * rng.random(dxx.shape) - 1.0)
+    worst5, k5_timing = check_field_kernel(
+        "k5_check",
+        [("fibres", dataclasses.replace(cfg_aniso, t_boundary=0.5),
+          aniso_build),
+         ("const_noflux", dataclasses.replace(cfg_aniso, t_boundary=0.5,
+                                              boundary="noflux"),
+          dict(diffusion_tensor=(1.0, 0.25, 0.15))),
+         ("random_beta_ramp", dataclasses.replace(cfg_flat, vary_beta=1),
+          dict(diffusion_tensor=(dxx, dyy, dxy)))],
+        prepare_aniso_constants, fused_aniso.fused_aniso_step,
+        fused_aniso.fused_aniso_step_reference, K5_H, SEED + 7)
+    phase("k5_timing", shape=[2, cfg_aniso.ny, cfg_aniso.nx], method="bs32",
+          dtype="float32", kernel_us=k5_timing[0] * 1e3,
+          plain_us=k5_timing[1] * 1e3, bound_us=k5_timing[2] * 1e3,
+          bound_by=k5_timing[3], card=card)
 
     probes = {}
     for key, path in PROBES.items():
@@ -695,6 +1012,27 @@ def main():
         "scripts/bench_suite.py::bounded_tissue aliev_panfilov flat, "
         "noflux walls + circular scar",
         build_kw=ap_build, extra_checks=scar_checks(ap_probes, mask))
+    # the bounded tissue with rkc2, through K2's divergence branch; its
+    # scar drifts by the recurrence's rounding (scar_checks), held to the
+    # probes' floor of 1e-4
+    ap_rkc_probes = probes["aliev_panfilov", "rkc2"]
+    run_main_path(
+        cfg_ap_rkc, ap_rkc_probes, fused_rkc.fused_rkc_step, 0.02,
+        "main_path_bounded_ap_rkc2",
+        "scripts/bench_suite.py::bounded_tissue aliev_panfilov flat, "
+        "noflux walls + circular scar, rkc2",
+        build_kw=ap_build,
+        extra_checks=scar_checks(ap_rkc_probes, mask, drift=1e-4))
+    launches2b = run_wide_sheet(cfg_wide, probes["fhn", "rkc2"])
+    aniso_probes = probes["aniso_sheet", "bs32"]
+    launches5 = run_main_path(
+        cfg_aniso, aniso_probes, fused_aniso.fused_aniso_step, 0.01,
+        "main_path_aniso",
+        "tests_tpu/test_aniso_tpu.py aliev_panfilov flat periodic, the "
+        "rotating fibres of examples/anisotropic_fibers.py",
+        build_kw=aniso_build,
+        extra_checks=tensor_checks(aniso_probes,
+                                   aniso_build["diffusion_tensor"]))
 
     k2_s = max(timing2)     # the stability-bound step: the larger time
     k3_shape = (2, cfg_gb.ny, cfg_gb.nx)    # the ark324 main path's shape
@@ -710,7 +1048,13 @@ def main():
                      worst3, timing3[k3_shape]),
         kernel_entry("fused_divform_step", "fused_divform.cu",
                      "crdmodel_tpu/ops/pallas_divform.py:130", launches4,
-                     worst4, k4_timing)]}))
+                     worst4, k4_timing),
+        kernel_entry("fused_rkc_step", "fused_rkc.cu",
+                     "crdmodel_tpu/ops/pallas_rkc.py:764", launches2b,
+                     worst2b, timing2b[max(timing2b)]),
+        kernel_entry("fused_aniso_step", "fused_aniso.cu",
+                     "crdmodel_tpu/ops/pallas_aniso.py:82", launches5,
+                     worst5, k5_timing)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,11 +4,11 @@ The stencil coefficients are computed in float64 numpy exactly as the JAX
 package computes them; only the final cast makes tensors, so both packages
 start from the same rounded values.
 
-Ported: Grid, the flat and torus geometries' stencil coefficients and
-divergence-form face coefficients, face_openness (no-flux walls and
-obstacles) and make_geometry for the flat and torus surfaces. Surfaces of
-revolution, the sphere and the 3-D box are not ported yet (ROADMAP queue
-1, items 12-13).
+Ported: Grid, the flat and torus geometries' stencil coefficients,
+divergence-form face coefficients and anisotropic tensor coefficients,
+face_openness (no-flux walls and obstacles) and make_geometry for the flat
+and torus surfaces. Surfaces of revolution, the sphere and the 3-D box
+are not ported yet (ROADMAP queue 1, items 12-13).
 """
 
 from __future__ import annotations
@@ -106,6 +106,49 @@ class FlatGeometry:
         aS = Ds * inv_dy2
         return _apply_face_mask((aE, aW, aN, aS), face_mask)
 
+    def tensor_coeffs(self, dxx, dyy, dxy, dtype, device,
+                      boundary: str = "periodic"):
+        """tensor_coeffs64 as tensors, cast once: ((aE, aW, aN, aS), Dxy,
+        inv4)."""
+        return _tensor_coeffs_as_tensors(
+            self.tensor_coeffs64(dxx, dyy, dxy, boundary), dtype, device)
+
+    def tensor_coeffs64(self, dxx, dyy, dxy, boundary: str = "periodic"):
+        """Float64 numpy coefficients of the anisotropic conservative
+        operator div(D grad u), D = [[Dxx, Dxy], [Dxy, Dyy]] an SPD tensor
+        field (crdmodel_tpu/core/grid.py:160): the axis terms in face-flux
+        form, aE(uE-u) + aW(uW-u) + aN(uN-u) + aS(uS-u) with arithmetic
+        face means of Dxx and Dyy, and the mixed terms Ax(Dxy Ay u) +
+        Ay(Dxy Ax u) with centred first differences, weighted by inv4 =
+        1/(4 dx dy) (ops/stencil.py::anisotropic_laplacian).
+
+        boundary "noflux"/"noflux_x"/"noflux_y" closes the domain walls:
+        the wall faces carry zero aE/aN and Dxy is zeroed on the
+        wall-adjacent layers of each closed axis, so every centred
+        difference across a wall multiplies zero; aW and aS are rolled
+        after the masking. Raises ValueError unless the tensor is SPD
+        pointwise. Returns ((aE, aW, aN, aS), Dxy (ny, nx), inv4)."""
+        g = self.grid
+        Dxx, Dyy, Dxy = _spd_tensor64(dxx, dyy, dxy, (g.ny, g.nx))
+        De = 0.5 * (Dxx + np.roll(Dxx, -1, axis=-1))
+        Dn = 0.5 * (Dyy + np.roll(Dyy, -1, axis=-2))
+        inv_dx2 = 1.0 / np.float64(g.dx) ** 2
+        inv_dy2 = 1.0 / np.float64(g.dy) ** 2
+        aE = (De * inv_dx2).copy()
+        aN = (Dn * inv_dy2).copy()
+        if boundary in ("noflux", "noflux_x"):
+            aE[..., -1] = 0.0
+            Dxy[..., 0] = 0.0
+            Dxy[..., -1] = 0.0
+        if boundary in ("noflux", "noflux_y"):
+            aN[..., -1, :] = 0.0
+            Dxy[..., 0, :] = 0.0
+            Dxy[..., -1, :] = 0.0
+        aW = np.roll(aE, 1, axis=-1)
+        aS = np.roll(aN, 1, axis=-2)
+        inv4 = 1.0 / (4.0 * np.float64(g.dx) * np.float64(g.dy))
+        return (aE, aW, aN, aS), Dxy, inv4
+
 
 @dataclasses.dataclass(frozen=True)
 class TorusGeometry:
@@ -182,6 +225,45 @@ class TorusGeometry:
         aS = Ds * cy
         return _apply_face_mask((aE, aW, aN, aS), face_mask)
 
+    def tensor_coeffs(self, dxx, dyy, dxy, dtype, device,
+                      boundary: str = "periodic"):
+        """tensor_coeffs64 as tensors, cast once: ((aE, aW, aN, aS), Dxy,
+        inv4 (nx,))."""
+        return _tensor_coeffs_as_tensors(
+            self.tensor_coeffs64(dxx, dyy, dxy, boundary), dtype, device)
+
+    def tensor_coeffs64(self, dxx, dyy, dxy, boundary: str = "periodic"):
+        """Float64 numpy coefficients of the anisotropic conservative
+        Laplace–Beltrami operator on the torus metric
+        (crdmodel_tpu/core/grid.py:347), D the SPD tensor in the physical
+        orthonormal frame (e_theta, e_phi): the axis terms in the face-flux
+        form of divergence_coeffs64 with Dxx on the theta faces and Dyy on
+        the phi faces, and the flat mixed pair weighted by the profile
+        inv4(th) = 1/(4 dx dy r ring(th)). The torus is closed: only
+        boundary="periodic". Returns ((aE, aW, aN, aS), Dxy (ny, nx),
+        inv4 (nx,))."""
+        if boundary != "periodic":
+            raise ValueError("the torus surface is closed: tensor "
+                             "boundaries other than 'periodic' do not "
+                             "exist on it")
+        g = self.grid
+        Dxx, Dyy, Dxy = _spd_tensor64(dxx, dyy, dxy, (g.ny, g.nx))
+        th = g.xmin + np.arange(g.nx, dtype=np.float64) * g.dx
+        R, r = np.float64(self.R), np.float64(self.r)
+        ring = R + r * np.cos(th)
+        ring_e = R + r * np.cos(th + 0.5 * g.dx)
+        cx = 1.0 / (r * r * np.float64(g.dx) ** 2)
+        cy = 1.0 / (ring * ring * np.float64(g.dy) ** 2)
+        De = 0.5 * (Dxx + np.roll(Dxx, -1, axis=-1))
+        Dn = 0.5 * (Dyy + np.roll(Dyy, -1, axis=-2))
+        flux_e = ring_e * De * cx
+        aE = flux_e / ring
+        aW = np.roll(flux_e, 1, axis=-1) / ring
+        aN = Dn * cy
+        aS = np.roll(aN, 1, axis=-2)
+        inv4 = 1.0 / (4.0 * np.float64(g.dx) * np.float64(g.dy) * r * ring)
+        return (aE, aW, aN, aS), Dxy, inv4
+
 
 Geometry = Union[FlatGeometry, TorusGeometry]
 
@@ -190,6 +272,27 @@ def _as_tensors(arrays, dtype, device):
     """float64 numpy arrays -> tensors, cast once."""
     return tuple(torch.tensor(np.asarray(a), dtype=dtype, device=device)
                  for a in arrays)
+
+
+def _tensor_coeffs_as_tensors(coeffs64, dtype, device):
+    """tensor_coeffs64's ((aE, aW, aN, aS), Dxy, inv4) as tensors."""
+    faces, dxy, inv4 = coeffs64
+    return (_as_tensors(faces, dtype, device),
+            *_as_tensors((dxy, inv4), dtype, device))
+
+
+def _spd_tensor64(dxx, dyy, dxy, shape):
+    """(Dxx, Dyy, Dxy) as float64 (ny, nx) arrays, Dxy a writable copy;
+    raises ValueError unless the tensor is SPD pointwise (up to a 1e-14
+    relative slack on the determinant)."""
+    Dxx = np.broadcast_to(np.asarray(dxx, np.float64), shape)
+    Dyy = np.broadcast_to(np.asarray(dyy, np.float64), shape)
+    Dxy = np.broadcast_to(np.asarray(dxy, np.float64), shape).copy()
+    if not (np.all(Dxx > 0.0) and np.all(Dyy > 0.0)
+            and np.all(Dxx * Dyy - Dxy * Dxy >= -1e-14 * Dxx * Dyy)):
+        raise ValueError("diffusion_tensor must be SPD pointwise "
+                         "(Dxx>0, Dyy>0, Dxx*Dyy >= Dxy^2)")
+    return Dxx, Dyy, Dxy
 
 
 def face_openness(ny: int, nx: int, boundary: str = "periodic",

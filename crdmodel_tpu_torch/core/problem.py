@@ -9,11 +9,13 @@ RHS semantics (reference src/FHNmodel_torus.cpp:504-667):
 
 Ported: the constant-D profile operator on the flat and torus surfaces;
 the divergence-form (face-coefficient) operator with user-supplied
-diffusion fields, no-flux domain walls and obstacle masks; their RKC2
+diffusion fields, no-flux domain walls and obstacle masks; the 2-D
+anisotropic tensor operator on the flat and torus surfaces; their RKC2
 spectral-radius bounds (make_rho_bound); and the IMEX split
 (make_rhs(split=True)) for ark324.
-Not ported yet: coupling="curvature" (ROADMAP queue 1, item 10), tensors
-(item 11), forcing (item 9) and pole coarsening (item 12).
+Not ported yet: coupling="curvature" (ROADMAP queue 1, item 10), the
+tensor on surfaces of revolution (item 12), forcing (item 9) and pole
+coarsening (item 12).
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ from crdmodel_tpu_torch.config import SimConfig
 from crdmodel_tpu_torch.core.grid import (Geometry, Grid, face_openness,
                                           make_geometry)
 from crdmodel_tpu_torch.models import ReactionModel, get_model
-from crdmodel_tpu_torch.ops.stencil import (divergence_laplacian,
+from crdmodel_tpu_torch.ops.stencil import (anisotropic_laplacian,
+                                            divergence_laplacian,
                                             flat_laplacian, torus_laplacian)
 
 
@@ -46,12 +49,15 @@ class Problem:
     # D values (scalar, (nx,) or (ny, nx)) when the operator takes the
     # divergence form, else None; face_mask, the face_openness masks of
     # no-flux walls and obstacles, or None; obstacle_mask, bool (ny, nx)
-    # with True = tissue, or None. forcing is not ported (ROADMAP queue 1,
-    # item 9) and stays None.
+    # with True = tissue, or None; diffusion_tensor, the (Dxx, Dyy, Dxy)
+    # float64 numpy arrays (each scalar or broadcastable to (ny, nx)) of
+    # the anisotropic operator, or None.
+    # forcing is not ported (ROADMAP queue 1, item 9) and stays None.
     diffusion_field: object = None
     face_mask: object = None
     obstacle_mask: object = None
     forcing: object = None
+    diffusion_tensor: object = None
 
     @property
     def grid(self) -> Grid:
@@ -169,7 +175,7 @@ def interior_rows(ny: int, dtype, device) -> torch.Tensor:
 
 def make_rhs(cfg: SimConfig, model: ReactionModel, geometry: Geometry, dtype,
              device, split: bool = False, diffusion_field=None,
-             face_mask=None, obstacle_mask=None):
+             face_mask=None, obstacle_mask=None, diffusion_tensor=None):
     """rhs(t, state, params) for the full grid
     (crdmodel_tpu/core/problem.py:341-541). t and params["_seg_end"] may be
     0-d tensors: the freeze decision stays on the device.
@@ -177,14 +183,24 @@ def make_rhs(cfg: SimConfig, model: ReactionModel, geometry: Geometry, dtype,
     The constant-D profile operator, or with diffusion_field (float64 D
     values, scalar / (nx,) / (ny, nx)) the conservative divergence form
     (ops/stencil.py::divergence_laplacian), whose closed faces face_mask
-    (core/grid.py::face_openness) zeroes. obstacle_mask: bool (ny, nx),
-    True = tissue; the other cells get ydot = 0 and hold their IC.
+    (core/grid.py::face_openness) zeroes. With diffusion_tensor, the
+    (Dxx, Dyy, Dxy) SPD fields, the anisotropic 9-point operator
+    (ops/stencil.py::anisotropic_laplacian; core/grid.py::tensor_coeffs64
+    with cfg.boundary's walls). obstacle_mask: bool (ny, nx), True =
+    tissue; the other cells get ydot = 0 and hold their IC.
 
     split=True returns (rhs_ex, rhs_im), the explicit (diffusion) and
     implicit (pointwise kinetics) parts for ark324 (integrate/imex.py),
     with the freeze and the tissue mask applied to each part, so that
     rhs_ex + rhs_im equals the composed rhs bitwise."""
-    if diffusion_field is not None:
+    if diffusion_tensor is not None:
+        faces, dxy, inv4 = geometry.tensor_coeffs(
+            *diffusion_tensor, dtype, device, boundary=cfg.boundary)
+        coeffs = None
+
+        def lap(u, _):
+            return anisotropic_laplacian(u, faces, dxy, inv4)
+    elif diffusion_field is not None:
         coeffs = geometry.divergence_coeffs(diffusion_field, dtype, device,
                                             face_mask=face_mask)
         lap = divergence_laplacian
@@ -270,17 +286,27 @@ def make_rho_bound(cfg: SimConfig, model: ReactionModel, geometry: Geometry,
     the diffusion operator (float64 numpy) plus the grid max of the model's
     pointwise kinetics Jacobian bound, a 0-d tensor on y's device.
 
-    Ported: the constant-D torus and flat operators and the divergence form
-    (diffusion_field, with face_mask closing faces). Not ported yet: the
-    tensor operator (ROADMAP queue 1, item 11) and max_reduce (sharding,
-    item 15)."""
-    if diffusion_tensor is not None:
-        raise NotImplementedError("the rho bound of a diffusion tensor is "
-                                  "not ported yet (ROADMAP queue 1, item 11)")
+    Ported: the constant-D torus and flat operators, the divergence form
+    (diffusion_field, with face_mask closing faces) and the 2-D tensor
+    operator (diffusion_tensor). Not ported yet: max_reduce (sharding,
+    ROADMAP queue 1, item 15)."""
     if max_reduce is not None:
         raise NotImplementedError("max_reduce is not ported yet (ROADMAP "
                                   "queue 1, item 15)")
-    if diffusion_field is not None:
+    if diffusion_tensor is not None:
+        # the axis part as the divergence bound below; the mixed pair has
+        # a zero diagonal and 8 off-diagonal entries of magnitude at most
+        # max|Dxy| inv4 a row, adding 8 max(inv4) max|Dxy| (inv4 is a
+        # scalar on the flat surface, an (nx,) profile on the torus)
+        faces, dxy, inv4 = geometry.tensor_coeffs64(
+            *diffusion_tensor, boundary=cfg.boundary)
+        row_sum = 0.0
+        for a in faces:
+            row_sum = row_sum + a
+        rho_diff = float(2.0 * np.max(row_sum))
+        rho_diff += float(8.0 * np.max(np.asarray(inv4))
+                          * np.max(np.abs(dxy)))
+    elif diffusion_field is not None:
         # divergence form: the diagonal is the sum of the face coefficients
         # and so is the off-diagonal row sum: Gershgorin gives 2 max row sum
         # (closed faces only shrink it)
@@ -321,10 +347,10 @@ def solver_breakpoints(cfg: SimConfig) -> tuple:
     return ()
 
 
-def build_problem(cfg: SimConfig, device, diffusion_field=None,
-                  obstacle_mask=None) -> Problem:
-    """Build the problem's tensors on `device` (no default: the caller says
-    where the run lives); crdmodel_tpu/core/problem.py:648.
+def build_problem(cfg: SimConfig, device="cuda", diffusion_field=None,
+                  obstacle_mask=None, diffusion_tensor=None) -> Problem:
+    """Build the problem's tensors on `device` (the card unless the caller
+    asks for the CPU); crdmodel_tpu/core/problem.py:648.
 
     diffusion_field: optional absolute D values (scalar, (nx,) or (ny, nx),
     non-negative) switching diffusion to the conservative divergence form.
@@ -332,9 +358,19 @@ def build_problem(cfg: SimConfig, device, diffusion_field=None,
     tissue; the other cells are inert: every face touching them closes and
     their kinetics freeze, so that they hold their IC exactly. It composes
     with cfg.boundary's no-flux walls; both take the divergence form, with
-    the constant cfg.diffusion as the field when none is given."""
+    the constant cfg.diffusion as the field when none is given.
+    diffusion_tensor: optional anisotropic SPD tensor (Dxx, Dyy, Dxy), each
+    scalar or broadcastable to (ny, nx), on the flat or torus surface: the
+    9-point operator, whose no-flux walls come from cfg.boundary
+    (core/grid.py::tensor_coeffs64); cfg.diffusion is ignored. Mutually
+    exclusive with diffusion_field and coupling, and refused with
+    obstacle_mask."""
     cfg = cfg.validate()
     device = torch.device(device)
+    if diffusion_tensor is not None and (diffusion_field is not None
+                                         or cfg.coupling != "none"):
+        raise ValueError("diffusion_tensor is mutually exclusive with "
+                         "diffusion_field / coupling")
     unported = {"coupling": (cfg.coupling != "none", 10),
                 "pole_coarsen": (bool(cfg.pole_coarsen), 12)}
     for name, (used, item) in unported.items():
@@ -346,6 +382,20 @@ def build_problem(cfg: SimConfig, device, diffusion_field=None,
     model = get_model(cfg.model)
     geometry = make_geometry(cfg)
     shape = geometry.grid.shape
+    if diffusion_tensor is not None:
+        if len(diffusion_tensor) != 3:
+            raise ValueError("diffusion_tensor must be (Dxx, Dyy, Dxy) on "
+                             "2-D surfaces (physical orthonormal-frame "
+                             "components)")
+        if obstacle_mask is not None:
+            raise ValueError("obstacle_mask is unsupported with "
+                             "diffusion_tensor (the mixed terms would need "
+                             "mask-aware one-sided differences); no-flux "
+                             "domain walls compose through cfg.boundary")
+        diffusion_tensor = tuple(np.asarray(c, dtype=np.float64)
+                                 for c in diffusion_tensor)
+        # SPD validation: bad tensors fail at build time, not first step
+        geometry.tensor_coeffs64(*diffusion_tensor, boundary=cfg.boundary)
     if diffusion_field is not None:
         diffusion_field = np.asarray(diffusion_field, dtype=np.float64)
         if not np.all(diffusion_field >= 0.0):
@@ -357,7 +407,8 @@ def build_problem(cfg: SimConfig, device, diffusion_field=None,
                 f"diffusion_field shape {diffusion_field.shape} does not "
                 f"broadcast to the grid {shape}") from None
     face_mask = None
-    if cfg.boundary != "periodic" or obstacle_mask is not None:
+    if diffusion_tensor is None and (cfg.boundary != "periodic"
+                                     or obstacle_mask is not None):
         if obstacle_mask is not None:
             try:
                 obstacle_mask = np.broadcast_to(
@@ -379,8 +430,10 @@ def build_problem(cfg: SimConfig, device, diffusion_field=None,
         cfg=cfg, model=model, geometry=geometry,
         rhs=make_rhs(cfg, model, geometry, dtype, device,
                      diffusion_field=diffusion_field, face_mask=face_mask,
-                     obstacle_mask=obstacle_mask),
+                     obstacle_mask=obstacle_mask,
+                     diffusion_tensor=diffusion_tensor),
         y0=initial_state(cfg, model, steady, dtype, device),
         params={"b": beta_field(cfg, dtype, device)},
         steady_state=steady, device=device, diffusion_field=diffusion_field,
-        face_mask=face_mask, obstacle_mask=obstacle_mask)
+        face_mask=face_mask, obstacle_mask=obstacle_mask,
+        diffusion_tensor=diffusion_tensor)

@@ -1,12 +1,16 @@
 // Device functions shared by the port's fused step kernels (K1
-// fused_step.cu, K2 fused_rkc.cu, K3 fused_imex.cu, K4 fused_divform.cu):
-// the periodic wrap, the 5-point profile operator on variable 0, the
-// kinetics of each ported family and their closed-form Jacobians, the RHS
-// at one point of a tile held in shared memory, and the per-block partial
-// sum. Counterpart of crdmodel_tpu/ops/kernel_common.py::make_rhs_block and
-// make_split_block; the plain torch versions are ops/kernel_common.py::
-// make_rhs_block and make_split_block, models/fhn.py, models/goldbeter.py
-// and models/aliev_panfilov.py, and the expressions below keep their
+// fused_step.cu, K2 fused_rkc.cu, K3 fused_imex.cu, K4 fused_divform.cu,
+// K5 fused_aniso.cu): the periodic wrap, the 5-point profile, divergence-
+// form and 9-point anisotropic operators on variable 0, the kinetics of
+// each ported family and their closed-form Jacobians, the RHS at one point
+// of a tile held in shared memory, and the per-block partial sum.
+// Counterpart of crdmodel_tpu/ops/kernel_common.py::make_rhs_block,
+// make_split_block and make_divform_rhs_block and of the operator of
+// crdmodel_tpu/ops/pallas_aniso.py; the plain torch versions are
+// ops/kernel_common.py::make_rhs_block, make_split_block,
+// make_divform_rhs_block and make_aniso_rhs_block, models/fhn.py,
+// models/goldbeter.py and models/aliev_panfilov.py, and the expressions
+// below keep their
 // association order, so that a kernel built
 // with -fmad=false rounds as PyTorch does. The constants fold in double,
 // as the Python expressions fold before they meet a tensor, and are cast
@@ -255,6 +259,76 @@ struct DivformRhs {
                                              int p, int W, int gy, int gx,
                                              T& du, T& dv) const {
     divform_rhs<Kin>(f, k, fz, su, sv, p, W, gy, gx, ny, nx, du, dv);
+  }
+};
+
+// The anisotropic operator's inputs: aE, aN and dxyw = Dxy/(4 dx dy) as
+// (ny, nx) fields, read through the read-only data cache. aW at (j, i) is
+// aE at (j, i - 1) and aS is aN at (j - 1, i), both wrapped.
+template <typename T>
+struct TensorConstants {
+  const T* aE;
+  const T* aN;
+  const T* dxyw;
+};
+
+// ydot at local point p (row stride W) of global (gy, gx) under the 9-point
+// anisotropic operator on variable 0 (ops/kernel_common.py::
+// aniso_kernel_laplacian, the TPU kernel's association):
+//   axis = aE(uE-u) + aW(uW-u) + aN(uN-u) + aS(uS-u)
+//   t1 = fx(j, i+1) - fx(j, i-1),  fx = dxyw (uN - uS)
+//   t2 = fy(j+1, i) - fy(j-1, i),  fy = dxyw (uE - uW)
+//   lap = axis + (t1 + t2)
+// then kinetics + lap, times live with a freeze. The fluxes at the four
+// neighbours read the diagonal points p +- W +- 1, one ring out like the
+// axis terms. Under no-flux walls the wrapped values meet zero aE/aN and
+// the zeroed Dxy wall layers, so they contribute exact zeros.
+template <int Kin, typename T>
+__device__ __forceinline__ void aniso_rhs(
+    const TensorConstants<T>& c, const RhsConstants<T>& k, T fz,
+    const T* su, const T* sv, int p, int W, int gy, int gx, int ny, int nx,
+    T& du_out, T& dv_out) {
+  const size_t row = static_cast<size_t>(gy) * nx;
+  const size_t row_n = static_cast<size_t>(gy == ny - 1 ? 0 : gy + 1) * nx;
+  const size_t row_s = static_cast<size_t>(gy == 0 ? ny - 1 : gy - 1) * nx;
+  const int gx_e = gx == nx - 1 ? 0 : gx + 1;
+  const int gx_w = gx == 0 ? nx - 1 : gx - 1;
+  const T u = su[p];
+  const T ue = su[p + 1], uw = su[p - 1];
+  const T un = su[p + W], us = su[p - W];
+  const T axis = __ldg(c.aE + row + gx) * (ue - u)
+                 + __ldg(c.aE + row + gx_w) * (uw - u)
+                 + __ldg(c.aN + row + gx) * (un - u)
+                 + __ldg(c.aN + row_s + gx) * (us - u);
+  const T fx_e = __ldg(c.dxyw + row + gx_e) * (su[p + W + 1] - su[p - W + 1]);
+  const T fx_w = __ldg(c.dxyw + row + gx_w) * (su[p + W - 1] - su[p - W - 1]);
+  const T fy_n = __ldg(c.dxyw + row_n + gx) * (su[p + W + 1] - su[p + W - 1]);
+  const T fy_s = __ldg(c.dxyw + row_s + gx) * (su[p - W + 1] - su[p - W - 1]);
+  const T lap = axis + ((fx_e - fx_w) + (fy_n - fy_s));
+  T du, dv;
+  kinetics<Kin>(u, sv[p], beta_at(k, gy), du, dv);
+  du = du + lap;
+  if (k.has_freeze) {
+    const T live = live_at(k, fz, gy);
+    du = du * live;
+    dv = dv * live;
+  }
+  du_out = du;
+  dv_out = dv;
+}
+
+// aniso_rhs as the functor the ERK tile kernel takes (erk_tile.cuh)
+template <int Kin, typename T>
+struct AnisoRhs {
+  TensorConstants<T> c;
+  RhsConstants<T> k;
+  int ny;
+  int nx;
+
+  __device__ __forceinline__ void operator()(T fz, const T* su, const T* sv,
+                                             int p, int W, int gy, int gx,
+                                             T& du, T& dv) const {
+    aniso_rhs<Kin>(c, k, fz, su, sv, p, W, gy, gx, ny, nx, du, dv);
   }
 };
 

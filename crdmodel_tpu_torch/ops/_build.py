@@ -37,18 +37,20 @@ _DOUBLE = ctypes.c_double
 _DOUBLEP = ctypes.POINTER(ctypes.c_double)
 
 # C signature of each exported launcher (csrc/fused_step.cu, fused_rkc.cu,
-# fused_imex.cu, fused_divform.cu)
+# fused_imex.cu, fused_divform.cu, fused_aniso.cu)
 _FUSED_STEP_ARGTYPES = ([_VOIDP] * 8 + [_INT, _VOIDP, _INT, _VOIDP]
                         + [_INT] * 7 + [_DOUBLEP] * 3
                         + [_DOUBLE, _DOUBLE, _VOIDP])
-_FUSED_RKC_ARGTYPES = ([_VOIDP] * 8 + [_INT] + [_VOIDP] * 3
-                       + [_INT, _VOIDP, _INT, _VOIDP] + [_INT] * 6
+_FUSED_RKC_ARGTYPES = ([_VOIDP] * 8 + [_INT] + [_VOIDP] * 3 + [_INT]
+                       + [_VOIDP] * 4 + [_VOIDP, _INT, _VOIDP] + [_INT] * 6
                        + [_DOUBLE, _DOUBLE, _VOIDP])
 _FUSED_IMEX_ARGTYPES = ([_VOIDP] * 8 + [_INT, _VOIDP, _INT, _VOIDP]
                         + [_INT] * 6 + [_DOUBLEP] * 4
                         + [_DOUBLE] * 3 + [_VOIDP])
 _FUSED_DIVFORM_ARGTYPES = ([_VOIDP] * 10 + [_INT, _VOIDP] + [_INT] * 7
                            + [_DOUBLEP] * 3 + [_DOUBLE, _DOUBLE, _VOIDP])
+_FUSED_ANISO_ARGTYPES = ([_VOIDP] * 9 + [_INT, _VOIDP] + [_INT] * 7
+                         + [_DOUBLEP] * 3 + [_DOUBLE, _DOUBLE, _VOIDP])
 SIGNATURES = {
     "crd_fused_erk_step_f32": _FUSED_STEP_ARGTYPES,
     "crd_fused_erk_step_f64": _FUSED_STEP_ARGTYPES,
@@ -58,6 +60,8 @@ SIGNATURES = {
     "crd_fused_imex_step_f64": _FUSED_IMEX_ARGTYPES,
     "crd_fused_divform_step_f32": _FUSED_DIVFORM_ARGTYPES,
     "crd_fused_divform_step_f64": _FUSED_DIVFORM_ARGTYPES,
+    "crd_fused_aniso_step_f32": _FUSED_ANISO_ARGTYPES,
+    "crd_fused_aniso_step_f64": _FUSED_ANISO_ARGTYPES,
 }
 
 

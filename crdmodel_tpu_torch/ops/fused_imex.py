@@ -60,8 +60,9 @@ def is_imex_supported(problem, dtype) -> bool:
     TPU strip-divisor rule, plus the port-only kinetics rule
     (kernel_common.kernel_ready_kinetics). Any forcing declines: the port
     has none yet (ROADMAP queue 1, item 9). Divergence-form problems
-    decline, as in the JAX package, and take the torch path."""
-    if needs_divform(problem):
+    decline, as in the JAX package, and take the torch path, as do
+    problems with a diffusion tensor (crdmodel_tpu/sim.py:240-251)."""
+    if needs_divform(problem) or problem.diffusion_tensor is not None:
         return False
     if fused_forcing(problem) is not None:
         return False

@@ -1,9 +1,11 @@
 """Fused RKC2 step, kernel K2 (counterpart of crdmodel_tpu/ops/pallas_rkc.py).
 
 One launch performs a whole RKC2 step (integrate/rkc.py) of the 5-point
-profile operator with the kinetics of any family with a device function
-(KernelConstants.kinetics_id, a template parameter of the kernel, as in K1
-and K3): F0 = f(y0), the s
+profile operator, or of the divergence-form operator of K4 (no-flux walls,
+obstacles, 2-D diffusion fields: kernel_common.needs_divform), with the
+kinetics of any family with a device function (KernelConstants.
+kinetics_id; the kinetics and the operator are template parameters of the
+kernel, as in K1, K3 and K4): F0 = f(y0), the s
 Chebyshev stages, F(y_new) for the order-2 error estimate, y_new and
 per-block partial sums of squared WRMS-scaled errors (csrc/fused_rkc.cu).
 The three-term recurrence keeps a live set of constant size (y0, F0,
@@ -25,8 +27,13 @@ coverage of s_cap stages (h_limit); the row freeze multiplies every
 evaluation by live = 1 - fz*(1 - m); the error weights come from the step's
 start. The TPU's VMEM strip plan (variant_plan, choose_blocking, P_LADDER)
 is layout and is gone: s_cap is S_MAX_KERNEL = 23 at every grid size, where
-the JAX package caps lower at very wide rows (ROADMAP queue 2, K2b). The
-state is (nvars, ny, nx), contiguous and unpadded.
+the JAX package caps lower at very wide rows, and so is the column-blocked
+layout of its K2b (pallas_rkc.py::_build_blocked), which exists only to fit
+a TPU row strip: the tiles here do not depend on nx, so K2 at K2b's shapes
+is K2b's step. The JAX package also caps s at 15 on divergence-form
+problems whose strip plan lacks its deep variant (ROADMAP queue 2). The
+divergence branch reads the face coefficients as K4 does (DivformConstants,
+aS = roll_y(aN)). The state is (nvars, ny, nx), contiguous and unpadded.
 """
 
 from __future__ import annotations
@@ -43,12 +50,16 @@ from crdmodel_tpu_torch.ops.kernel_common import (SMEM_BYTES,
                                                   KernelConstants,
                                                   check_constants,
                                                   check_tensor,
+                                                  face_coeffs64,
                                                   freeze_scalar,
                                                   fused_forcing,
                                                   kernel_ready_kinetics,
+                                                  make_divform_rhs_block,
                                                   make_rhs_block,
                                                   needs_divform,
-                                                  prepare_constants)
+                                                  prepare_constants,
+                                                  prepare_divform_constants,
+                                                  south_is_rolled_north)
 
 S_MAX_KERNEL = 23              # the TPU kernel's halo P=24 less one
 # (tile_x, tile_y) candidates, best first: larger tiles recompute less halo
@@ -58,20 +69,27 @@ TILES = ((32, 32), (32, 16), (16, 16), (16, 8), (8, 8))
 def is_rkc_supported(problem, dtype) -> bool:
     """The kernel's gate (crdmodel_tpu/ops/pallas_rkc.py:218) without the
     TPU strip plan, plus the port-only kinetics rule
-    (kernel_common.kernel_ready_kinetics). Divergence-form problems
-    decline: the kernel's divform branch is still to port (ROADMAP queue
-    2, K2), so they take the torch path."""
+    (kernel_common.kernel_ready_kinetics). Divergence-form problems take
+    the divergence branch on the flat and torus surfaces when aS ==
+    roll_y(aN) exactly on the float64 faces (pallas_rkc.py:239-253).
+    Problems with a diffusion tensor decline: rkc2 takes no kernel there
+    (crdmodel_tpu/sim.py:189-191)."""
     if fused_forcing(problem) is not None:
         return False            # the kernel takes no forcing yet (item 9)
     if dtype != torch.float32:
         return False
-    if needs_divform(problem):
+    if problem.diffusion_tensor is not None:
         return False
     if problem.model.jac_bound is None:
         return False
     # pallas_rkc.pole_inflated_rho declines only surfaces of revolution,
     # which the port has not yet (ROADMAP queue 1, item 12)
-    return kernel_ready_kinetics(problem)
+    if not kernel_ready_kinetics(problem):
+        return False
+    if needs_divform(problem):
+        return (problem.geometry.kind in ("flat", "torus")
+                and south_is_rolled_north(face_coeffs64(problem)))
+    return True
 
 
 def tile_plan(halo: int, itemsize: int):
@@ -159,9 +177,12 @@ def fused_rkc_step_reference(y, h, fz, s, mu1_tab, ctab_tab,
                              kc: KernelConstants, rtol: float, atol: float):
     """One step in plain torch: (y_new, ss) with ss a (1,) tensor holding
     the sum of squared WRMS-scaled errors. Reads the stage count s (a 0-d
-    int tensor) on the host."""
+    int tensor) on the host. kc is the profile operator's KernelConstants
+    or the divergence form's DivformConstants (K4's RHS,
+    kernel_common.make_divform_rhs_block)."""
     n = int(s)
-    rhs_block = make_rhs_block(kc, fz)
+    rhs_block = (make_divform_rhs_block(kc, fz) if kc.kind == "divform"
+                 else make_rhs_block(kc, fz))
     mu1 = mu1_tab[n]
     f0 = rhs_block(y)
     yjm1, yjm2 = y + (h * mu1) * f0, y
@@ -186,8 +207,10 @@ def fused_rkc_step(y, h, fz, s, mu1_tab, ctab_tab, kc: KernelConstants,
     mu1_tab/ctab_tab the static_stage_tables of some s_cap <= S_MAX_KERNEL,
     all on y's device: the kernel reads s and its table rows there, so a
     step needs no host sync. An s outside [2, s_cap] makes the kernel
-    return NaN partial sums (a rejected step). A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises.
+    return NaN partial sums (a rejected step). kc's type picks the
+    operator: KernelConstants the profile branch, DivformConstants the
+    divergence branch. A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel or raises.
     `fused_rkc_step.launches` counts kernel launches.
     """
     if y.device.type == "cpu":
@@ -222,10 +245,21 @@ def fused_rkc_step(y, h, fz, s, mu1_tab, ctab_tab, kc: KernelConstants,
     ss = torch.empty(n_blocks, dtype=dtype, device=device)
     launch = (lib.crd_fused_rkc_step_f32 if dtype == torch.float32
               else lib.crd_fused_rkc_step_f64)
+    # the operator: three profiles (or scalars) and the torus flag, or the
+    # face fields aE, aW, aN and the tissue field (a null pointer without
+    # an obstacle); the other operator's pointers are null
+    ptrs = [c.data_ptr() for c in kc.coeffs]
+    if kc.kind == "divform":
+        tissue = None if kc.tissue is None else kc.tissue.data_ptr()
+        operator = (None, None, None, 0, *ptrs, tissue)
+    elif kc.kind in ("torus", "flat"):
+        operator = (*ptrs, int(kc.kind == "torus"), None, None, None, None)
+    else:
+        raise ValueError(f"the RKC kernel takes profile or divergence-form "
+                         f"constants, not {kc.kind!r}")
     rc = launch(y.data_ptr(), y_new.data_ptr(), ss.data_ptr(), h.data_ptr(),
                 fz.data_ptr(), s.data_ptr(), mu1_tab.data_ptr(),
-                ctab_tab.data_ptr(), s_cap,
-                *(c.data_ptr() for c in kc.coeffs), int(kc.kind == "torus"),
+                ctab_tab.data_ptr(), s_cap, *operator,
                 kc.b.data_ptr(), int(kc.b_is_field), kc.mask.data_ptr(),
                 int(kc.has_freeze), kc.kinetics_id, ny, nx, tile_x, tile_y,
                 float(rtol), float(atol),
@@ -249,16 +283,19 @@ class FusedRKCStep:
 def build_fused_rkc_step(problem, dtype=torch.float32,
                          rho_fn=None) -> FusedRKCStep:
     """The fused RKC2 step of `problem` in `dtype` on its device
-    (crdmodel_tpu/ops/pallas_rkc.py:365, profile branch, one column
-    block). The freeze comes from params["_seg_end"]; t is unused (the
-    kinetics are autonomous)."""
+    (crdmodel_tpu/ops/pallas_rkc.py:365, the profile branch, or the
+    divergence branch when needs_divform(problem); one column block at
+    every width). The freeze comes from params["_seg_end"]; t is unused
+    (the kinetics are autonomous)."""
     cfg = problem.cfg
     device = problem.device
     if rho_fn is None:
         rho_fn = make_rho_bound(cfg, problem.model, problem.geometry, dtype,
                                 diffusion_field=problem.diffusion_field,
                                 face_mask=problem.face_mask)
-    kc = prepare_constants(problem, dtype, device)
+    prepare = (prepare_divform_constants if needs_divform(problem)
+               else prepare_constants)
+    kc = prepare(problem, dtype, device)
     rtol, atol = float(cfg.rtol), float(cfg.atol)
     t_boundary = float(cfg.t_boundary)
     s_cap = S_MAX_KERNEL

@@ -51,8 +51,9 @@ def is_supported(problem, tableau: Tableau, dtype) -> bool:
     TPU strip-divisor rule, plus the port-only kinetics rule
     (kernel_common.kernel_ready_kinetics: a family with a device function,
     KINETICS_IDS; the other families come with ROADMAP queue 1, item 6).
-    Divergence-form problems go to K4 (ops/fused_divform.py)."""
-    if needs_divform(problem):
+    Divergence-form problems go to K4 (ops/fused_divform.py), problems
+    with a diffusion tensor to K5 (ops/fused_aniso.py)."""
+    if needs_divform(problem) or problem.diffusion_tensor is not None:
         return False
     if fused_forcing(problem) is not None:
         return False            # the kernel takes no forcing yet
@@ -148,11 +149,12 @@ fused_step.launches = 0
 def launch_erk_tile(symbol, operator_args, y, h, fz, kc: KernelConstants,
                     tableau: Tableau, rtol: float, atol: float):
     """Launch one step of an ERK tile kernel of the built library (K1
-    `crd_fused_erk_step`, K4 `crd_fused_divform_step`; csrc/erk_tile.cuh):
-    the launcher `symbol`_f32 or _f64, with the kernel's four operator
-    arguments `operator_args` after fz. Checks every input first and
-    raises on what the kernel does not take, and on a launch error.
-    Returns (y_new (2, ny, nx), ss partials (n_blocks,))."""
+    `crd_fused_erk_step`, K4 `crd_fused_divform_step`, K5
+    `crd_fused_aniso_step`; csrc/erk_tile.cuh): the launcher `symbol`_f32
+    or _f64, with the kernel's operator arguments `operator_args` after
+    fz. Checks every input first and raises on what the kernel does not
+    take, and on a launch error. Returns (y_new (2, ny, nx), ss partials
+    (n_blocks,))."""
     dtype, device = y.dtype, y.device
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"the kernel takes float32 or float64, not {dtype}")

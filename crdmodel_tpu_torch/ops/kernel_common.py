@@ -5,10 +5,11 @@ The JAX package lane-pads every constant for its TPU layout; here the
 state stays (nvars, ny, nx), contiguous and unpadded, and the constants
 keep their natural shapes: the coefficient profiles (nx,) on the torus or
 three 0-d scalars on the flat surface, beta as a 0-d scalar or an (ny, 1)
-field, and the (ny, 1) interior-row mask. The divergence-form kernel takes
-its face coefficients aE, aW, aN and the tissue field as contiguous
-(ny, nx) tensors (DivformConstants). The kinetics family travels to the
-device code as an integer id (KINETICS_IDS, the Kinetics enum of
+field, and the (ny, 1) interior-row mask. The divergence-form kernels take
+their face coefficients aE, aW, aN and the tissue field as contiguous
+(ny, nx) tensors (DivformConstants), the anisotropic kernel aE, aN and
+Dxy/(4 dx dy) (AnisoConstants). The kinetics family travels to the device
+code as an integer id (KINETICS_IDS, the Kinetics enum of
 csrc/rhs_common.cuh).
 """
 
@@ -21,7 +22,9 @@ import torch
 
 from crdmodel_tpu_torch.core.problem import beta_field, interior_rows
 from crdmodel_tpu_torch.ops.stencil import (divergence_laplacian,
-                                            flat_laplacian, torus_laplacian)
+                                            flat_laplacian, shift_e,
+                                            shift_n, shift_s, shift_w,
+                                            torus_laplacian)
 
 SMEM_BYTES = 227 * 1024        # shared memory one H100 block may use
 # the kinetics families with a device function (csrc/rhs_common.cuh, enum
@@ -98,6 +101,14 @@ class DivformConstants(KernelConstants):
     roll_y(aN), read by the kernel from aN), tissue the (ny, nx) 0/1
     obstacle field or None."""
     tissue: object
+
+
+@dataclasses.dataclass(frozen=True)
+class AnisoConstants(KernelConstants):
+    """The anisotropic kernel's inputs: kind "aniso", coeffs (aE, aN,
+    dxyw) as contiguous (ny, nx) tensors, dxyw = Dxy/(4 dx dy) folded in
+    float64. aW and aS are not shipped: aW is aE at (j, i-1), aS is aN at
+    (j-1, i), both wrapped (exact: tensor_coeffs64 rolls them so)."""
 
 
 def kernel_stencil_coeffs(problem, dtype, device):
@@ -183,6 +194,23 @@ def prepare_divform_constants(problem, dtype, device) -> DivformConstants:
         tissue=tissue, **_rhs_inputs(problem, dtype, device))
 
 
+def prepare_aniso_constants(problem, dtype, device) -> AnisoConstants:
+    """The anisotropic kernel's inputs of `problem` on `device`
+    (crdmodel_tpu/ops/pallas_aniso.py:123-144): aE, aN and Dxy * inv4 from
+    the flat geometry's float64 tensor coefficients, each cast once."""
+    if problem.geometry.kind != "flat":
+        raise ValueError("the anisotropic kernel takes the flat surface "
+                         "(its inv4 is a scalar)")
+    (aE, _, aN, _), dxy, inv4 = problem.geometry.tensor_coeffs64(
+        *problem.diffusion_tensor, boundary=problem.cfg.boundary)
+    return AnisoConstants(
+        kind="aniso",
+        coeffs=tuple(torch.tensor(np.ascontiguousarray(a), dtype=dtype,
+                                  device=device)
+                     for a in (aE, aN, dxy * inv4)),
+        **_rhs_inputs(problem, dtype, device))
+
+
 def check_tensor(name, x, shape, dtype, device):
     """Raise unless x is a contiguous `dtype` tensor of `shape` on `device`:
     what a kernel launcher takes."""
@@ -198,7 +226,8 @@ def check_tensor(name, x, shape, dtype, device):
 
 def check_constants(kc: KernelConstants, ny: int, nx: int, dtype, device):
     """check_tensor on every constant a kernel reads."""
-    coeff_shape = {"torus": (nx,), "flat": (), "divform": (ny, nx)}[kc.kind]
+    coeff_shape = {"torus": (nx,), "flat": (), "divform": (ny, nx),
+                   "aniso": (ny, nx)}[kc.kind]
     for c in kc.coeffs:
         check_tensor("coefficient", c, coeff_shape, dtype, device)
     if getattr(kc, "tissue", None) is not None:
@@ -253,6 +282,46 @@ def make_divform_rhs_block(dc: DivformConstants, fz):
         if dc.tissue is not None:
             ydot = ydot * dc.tissue
         return ydot
+
+    return rhs_block
+
+
+def aniso_kernel_laplacian(u, aE, aN, dxyw):
+    """The anisotropic kernel's 9-point operator in plain torch
+    (crdmodel_tpu/ops/pallas_aniso.py:149-162): aW and aS rolled from aE
+    and aN, and the mixed terms on the folded dxyw = Dxy/(4 dx dy), with
+    the JAX kernel's association axis + (t1 + t2). The XLA path's
+    axis + inv4*(t1 + t2) (ops/stencil.py::anisotropic_laplacian) rounds
+    differently, so the two agree to f32 rounding, not bitwise (ROADMAP
+    queue 3). The JAX kernel's final ds * (...) is its sweep rescale
+    (dscale, ROADMAP queue 1, item 14), 1 until then: multiplying by an
+    exact 1 changes nothing, so it is left out."""
+    ue, uw = shift_e(u), shift_w(u)
+    un, us = shift_n(u), shift_s(u)
+    axis = (aE * (ue - u) + shift_w(aE) * (uw - u)
+            + aN * (un - u) + shift_s(aN) * (us - u))
+    fx = dxyw * (un - us)
+    t1 = shift_e(fx) - shift_w(fx)
+    fy = dxyw * (ue - uw)
+    t2 = shift_n(fy) - shift_s(fy)
+    return axis + (t1 + t2)
+
+
+def make_aniso_rhs_block(ac: AnisoConstants, fz):
+    """rhs_block(y) -> ydot: the anisotropic kernel's RHS in plain torch on
+    the whole (2, ny, nx) state (crdmodel_tpu/ops/pallas_aniso.py:164-178):
+    the kinetics plus aniso_kernel_laplacian on variable 0, times live when
+    the problem has a freeze. csrc/rhs_common.cuh::aniso_rhs computes the
+    same expressions in the same order."""
+    aE, aN, dxyw = ac.coeffs
+    live = _live(ac, fz)
+
+    def rhs_block(y):
+        react = ac.model.kinetics(y, ac.b)
+        ydot = torch.stack([react[0] + aniso_kernel_laplacian(y[0], aE, aN,
+                                                              dxyw),
+                            react[1]])
+        return ydot * live if live is not None else ydot
 
     return rhs_block
 

@@ -1,5 +1,5 @@
 """Periodic diffusion stencils on the torch path (counterpart of
-crdmodel_tpu/ops/stencil.py:20-84).
+crdmodel_tpu/ops/stencil.py:20-84, 145-163).
 
 Whole-array `torch.roll` shifts: on one device the periodic wrap is the
 reference's halo exchange. Arrays are (..., ny, nx): axis -1 is theta/x
@@ -66,3 +66,23 @@ def divergence_laplacian(u, face_coeffs):
     aE, aW, aN, aS = face_coeffs
     return (aE * (shift_e(u) - u) + aW * (shift_w(u) - u)
             + aN * (shift_n(u) - u) + aS * (shift_s(u) - u))
+
+
+def anisotropic_laplacian(u, face_coeffs, dxy, inv4):
+    """Conservative anisotropic diffusion div(D grad u), D = [[Dxx, Dxy],
+    [Dxy, Dyy]] (core/grid.py::tensor_coeffs64; the 9-point stencil): the
+    axis terms of divergence_laplacian plus the symmetric mixed pair
+    Ax(Dxy Ay u) + Ay(Dxy Ax u) with centred differences, weighted by inv4
+    (a scalar on the flat surface, an (nx,) profile on the torus):
+
+      out = axis + inv4*(t1 + t2)
+    """
+    axis = divergence_laplacian(u, face_coeffs)
+    un, us = shift_n(u), shift_s(u)
+    dys = un - us
+    fx = dxy * dys
+    t1 = shift_e(fx) - shift_w(fx)
+    dxs = shift_e(u) - shift_w(u)
+    fy = dxy * dxs
+    t2 = shift_n(fy) - shift_s(fy)
+    return axis + inv4 * (t1 + t2)

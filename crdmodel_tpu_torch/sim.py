@@ -1,23 +1,27 @@
 """High-level single-device simulation driver (counterpart of
 crdmodel_tpu/sim.py).
 
-`simulate(cfg, device)` builds the problem on `device`, integrates it over
-the Nt output intervals and returns the trajectory with the IC as row 0.
+`simulate(cfg, device="cuda")` builds the problem on `device`, integrates
+it over the Nt output intervals and returns the trajectory with the IC as
+row 0.
 
 Kernel selection (the counterpart of crdmodel_tpu/sim.py:77-144, 180-291):
 a method goes through its fused step kernel when `cfg.use_pallas` is True,
 or when it is None on a CUDA device above PALLAS_AUTO_POINTS grid points,
 and the kernel's gate accepts the problem: the ERK tableaus through K1
-(ops/fused_step.py::is_supported), or through K4 when the operator exists
+(ops/fused_step.py::is_supported), through K4 when the operator exists
 only in the divergence form (kernel_common.needs_divform: no-flux walls,
 obstacles, 2-D or flat diffusion fields; ops/fused_divform.py::
-is_divform_supported); rkc2 through K2 (ops/fused_rkc.py::
+is_divform_supported), or through K5 with a diffusion tensor on the flat
+surface (ops/fused_aniso.py::is_aniso_supported); rkc2 through K2, on
+the profile or the divergence-form operator (ops/fused_rkc.py::
 is_rkc_supported, and under auto selection only when the run is not
 provably quiescent, _quiescent_autonomous), ark324 through K3
-(ops/fused_imex.py::is_imex_supported). K2 and K3 decline divergence-form
-problems. Everything else takes the torch path (integrate/erk.py::
-make_stepper). On a CPU device the fused path runs the kernel's plain
-version, the counterpart of the JAX package's interpret=True.
+(ops/fused_imex.py::is_imex_supported). K3 declines divergence-form
+problems, and K2 and K3 decline diffusion tensors. Everything else takes
+the torch path (integrate/erk.py::make_stepper). On a CPU device the fused
+path runs the kernel's plain version, the counterpart of the JAX
+package's interpret=True.
 """
 
 from __future__ import annotations
@@ -36,8 +40,8 @@ from crdmodel_tpu_torch.core.problem import (Problem, build_problem,
 from crdmodel_tpu_torch.integrate import imex, rkc
 from crdmodel_tpu_torch.integrate.erk import (TABLEAUS, SolveStats,
                                               integrate_to_outputs)
-from crdmodel_tpu_torch.ops import (fused_divform, fused_imex, fused_rkc,
-                                    fused_step)
+from crdmodel_tpu_torch.ops import (fused_aniso, fused_divform, fused_imex,
+                                    fused_rkc, fused_step)
 from crdmodel_tpu_torch.ops.kernel_common import needs_divform
 
 STATUS_NAMES = {0: "ok", 1: "max-steps-exceeded", 2: "dt-underflow"}
@@ -126,6 +130,8 @@ def fused_eligible(problem: Problem) -> bool:
     if cfg.method == "ark324":
         return fused_imex.is_imex_supported(problem, dtype)
     tableau = TABLEAUS[cfg.method]
+    if problem.diffusion_tensor is not None:
+        return fused_aniso.is_aniso_supported(problem, tableau, dtype)
     if needs_divform(problem):
         return fused_divform.is_divform_supported(problem, tableau, dtype)
     return fused_step.is_supported(problem, tableau, dtype)
@@ -145,6 +151,7 @@ def make_run_fn(problem: Problem):
     if cfg.method == "rkc2":
         rho_fn = make_rho_bound(cfg, problem.model, problem.geometry, dtype,
                                 diffusion_field=problem.diffusion_field,
+                                diffusion_tensor=problem.diffusion_tensor,
                                 face_mask=problem.face_mask)
     rhs_split = None
     if cfg.method == "ark324":
@@ -153,7 +160,8 @@ def make_run_fn(problem: Problem):
                              problem.device, split=True,
                              diffusion_field=problem.diffusion_field,
                              face_mask=problem.face_mask,
-                             obstacle_mask=problem.obstacle_mask)
+                             obstacle_mask=problem.obstacle_mask,
+                             diffusion_tensor=problem.diffusion_tensor)
     kw = {}
     fused = fused_eligible(problem)
     if fused and cfg.method == "rkc2":
@@ -169,8 +177,12 @@ def make_run_fn(problem: Problem):
             err_order = imex.ERR_ORDER
         else:
             tableau = TABLEAUS[cfg.method]
-            build = (fused_divform.build_fused_divform_step
-                     if needs_divform(problem) else fused_step.build_fused_step)
+            if problem.diffusion_tensor is not None:
+                build = fused_aniso.build_fused_aniso_step
+            elif needs_divform(problem):
+                build = fused_divform.build_fused_divform_step
+            else:
+                build = fused_step.build_fused_step
             step_err = build(problem, tableau)
             err_order = tableau.err_order
         kw = dict(step_err=lambda t, y, h, p, carry: (*step_err(t, y, h, p), ()),
@@ -191,9 +203,10 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def simulate(cfg: SimConfig, device, problem: Optional[Problem] = None) -> SimResult:
-    """Run `cfg` on `device` (no default: the caller says where the run
-    lives). wall_time covers the integration, device work included."""
+def simulate(cfg: SimConfig, device="cuda",
+             problem: Optional[Problem] = None) -> SimResult:
+    """Run `cfg` on `device` (the card unless the caller asks for the CPU).
+    wall_time covers the integration, device work included."""
     problem = problem if problem is not None else build_problem(cfg, device)
     run, touts, fused = make_run_fn(problem)
     _sync(problem.device)

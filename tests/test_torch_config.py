@@ -72,7 +72,9 @@ def test_port_imports_no_jax():
             "crdmodel_tpu_torch.ops.fused_rkc, "
             "crdmodel_tpu_torch.models.goldbeter, "
             "crdmodel_tpu_torch.integrate.imex, "
-            "crdmodel_tpu_torch.ops.fused_imex; "
+            "crdmodel_tpu_torch.ops.fused_imex, "
+            "crdmodel_tpu_torch.ops.fused_divform, "
+            "crdmodel_tpu_torch.ops.fused_aniso; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'crdmodel_tpu.'))); "
             "print(bad); sys.exit(1 if bad else 0)")

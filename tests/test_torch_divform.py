@@ -4,7 +4,8 @@ package's (CPU): the face coefficients and openness masks bitwise; the RHS,
 its IMEX split and the RKC2 bound in f64 to 1e-13; the Aliev–Panfilov
 kinetics, bound, Jacobian and ICs; the adaptive driver on a bounded
 cardiac-tissue case; and the routing of divergence-form problems to the
-fused step K4 (ops/fused_divform.py) and off K1-K3."""
+fused step K4 (ops/fused_divform.py) for the ERK methods, to K2's
+divergence branch for rkc2, and off K1 and K3."""
 
 import dataclasses
 
@@ -270,8 +271,9 @@ def test_bounded_tissue_driver_matches_jax(method):
     rejected step sequences, trajectories within 1e-10, and the scar
     holding its IC bitwise. (At rtol 1e-4 the steps stay identical, but the
     large steps amplify the ulp differences of JAX's contracted a*b + c to
-    1e-9 by t = 2.) rkc2 and ark324 take the torch path on the card too (K2
-    and K3 decline the divergence form)."""
+    1e-9 by t = 2.) On the card ark324 takes the torch path too (K3
+    declines the divergence form); rkc2 takes K2's divergence branch
+    (tests/test_torch_fused_rkc.py)."""
     kw = dict(BOUNDED, method=method, rtol=1e-7, atol=1e-11)
     if method == "ark324":
         # its Newton stages cost ~10x a bs32 step: half the horizon
@@ -355,9 +357,9 @@ def _gate_problems():
 
 
 def test_gates_route_divform_cases_off_profile_kernels():
-    """Mirrors tests/test_divform_kernel.py's gate test. Port-only
-    difference: K2 declines the divergence form (its divform branch is
-    still to port), so rkc2 takes the torch path."""
+    """Mirrors tests/test_divform_kernel.py's gate test: K1 and K3 decline
+    the divergence form, K4 takes it for the ERK methods and K2's
+    divergence branch for rkc2 (crdmodel_tpu/ops/pallas_rkc.py:239-253)."""
     tab = TABLEAUS["bs32"]
     f32 = torch.float32
     cases, tor = _gate_problems()
@@ -366,7 +368,7 @@ def test_gates_route_divform_cases_off_profile_kernels():
         assert needs_divform(p)
         assert not fused_step.is_supported(p, tab, f32)
         assert not fused_imex.is_imex_supported(p, f32)
-        assert not fused_rkc.is_rkc_supported(p, f32)
+        assert fused_rkc.is_rkc_supported(p, f32)
         assert fd.is_divform_supported(p, tab, f32)
         assert fd.is_divform_supported(p, TABLEAUS["dopri54"], f32)
         assert not fd.is_divform_supported(p, tab, torch.float64)

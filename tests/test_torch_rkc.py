@@ -123,18 +123,19 @@ def test_rho_bound_matches_jax(case):
 def test_rho_bound_unported_operators():
     jp, tp = _problems("fhn_torus")
     args = (tp.cfg, tp.model, tp.geometry, torch.float64)
-    for kw, item in ((dict(diffusion_tensor=(1, 1, 0)), "item 11"),
-                     (dict(max_reduce=max), "item 15")):
-        with pytest.raises(NotImplementedError, match=item):
-            make_rho_bound(*args, **kw)
-    # the divergence form is ported: its bound is the JAX package's
-    field = np.ones(16)
-    want = jmake_rho_bound(jp.cfg, jp.model, jp.geometry, jnp.float64,
-                           diffusion_field=field)
-    got = make_rho_bound(*args, diffusion_field=field)
-    np.testing.assert_allclose(
-        float(got(0.0, tp.y0, tp.params)),
-        float(want(0.0, jp.y0, jp.params)), rtol=1e-14)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        make_rho_bound(*args, max_reduce=max)
+    # the divergence form and the tensor are ported: their bounds are the
+    # JAX package's
+    for kw in (dict(diffusion_field=np.ones(16)),
+               dict(diffusion_tensor=(1.0, 1.0, 0.0)),
+               dict(diffusion_tensor=(1.0, 0.25, 0.15))):
+        want = jmake_rho_bound(jp.cfg, jp.model, jp.geometry, jnp.float64,
+                               **kw)
+        got = make_rho_bound(*args, **kw)
+        np.testing.assert_allclose(
+            float(got(0.0, tp.y0, tp.params)),
+            float(want(0.0, jp.y0, jp.params)), rtol=1e-14)
     jd = build_problem(SimConfig(**{**BASE, **CASES["fhn_torus"],
                                     "just_diffusion": 1}), "cpu")
     rho = make_rho_bound(jd.cfg, jd.model, jd.geometry, torch.float64)
