@@ -11,8 +11,12 @@ operator, on the divergence form's three cases, and at the 41M-point shape
 of the JAX package's column-blocked K2b; K4, the fused divergence-form ERK
 step, on no-flux walls with a scar, a torus obstacle and a 2-D diffusion
 field; K5, the fused anisotropic-tensor ERK step, on rotating fibres, a
-constant tensor inside no-flux walls and random fields with a beta ramp),
-times each, then runs the port's main paths through simulate(): the
+constant tensor inside no-flux walls and random fields with a beta ramp;
+K6 and K7, the fused ERK and RKC2 steps on the 3-D box, in their four
+operator modes on the volumetric slab's 32x512x512 shape: no-flux walls,
+a scar column, a 3-D diffusion field and a transmural tensor, and on
+FitzHugh-Nagumo with a beta ramp), times each, then runs the port's main
+paths through simulate(): the
 canonical FitzHugh-Nagumo torus program (data/FHNmodelArgs.ini: 400x1600,
 f32, Tf=50) with its own method bs32 (through K1) and with method rkc2
 (through K2), the canonical Goldbeter torus program
@@ -23,19 +27,23 @@ no-flux walls and a circular scar, f32, Tf=8) with bs32 (through K4) and
 with rkc2 (through K2's divergence branch), the JAX suite's wide FHN sheet
 (flat 12800x3200, 41M points, rkc2, f32, Tf=0.5, through K2), and the
 fibered cardiac sheet (Aliev-Panfilov on a flat periodic 1600x400 sheet
-with rotating fibres, bs32, f32, Tf=1, through K5). Each run is checked
-against the JAX package's CPU runs recorded in
+with rotating fibres, bs32, f32, Tf=1, through K5), and the JAX suite's
+volumetric cardiac slab (Aliev-Panfilov on a 32x512x512 box, 8.4M points,
+no-flux walls, f32, Tf=0.5) with bs32 (through K6), with rkc2 (through K7)
+and with a scar column through every plane (through K6's tissue mode).
+Each run is checked against the JAX package's CPU runs recorded in
 tests/golden/torch_canonical_{fhn,goldbeter}[_method]_probes.npz,
 tests/golden/torch_bounded_ap[_rkc2]_probes.npz and
-tests/golden/torch_aniso_sheet_probes.npz, the wide sheet against the
-port's own torch-path rkc2 run on the card. Exits non-zero on any failure,
-and prints as its last line {"ok": true, "device": {...}} only when every
-phase passed. Imports nothing of JAX.
+tests/golden/torch_aniso_sheet_probes.npz, the wide sheet and the slab
+against the port's own torch path on the card. Exits non-zero on any
+failure, and prints as its last line {"ok": true, "device": {...}} only
+when every phase passed. Imports nothing of JAX.
 
-With --profile it checks nothing: it builds the kernels and traces the
-bounded cardiac-tissue run over a short horizon with torch.profiler, and
-prints the device's busy time and idle share, the kernels a step and K4's
-share (phase "profile").
+With --profile it checks nothing: it builds the kernels and traces, with
+torch.profiler, the bounded cardiac tissue with bs32 and rkc2, the fibered
+sheet and the wide sheet over short horizons, and the three slab runs over
+their whole horizon, and prints for each the device's busy time and idle
+share, the kernels a step and the fused kernel's share (phase "profile").
 """
 
 import dataclasses
@@ -86,6 +94,17 @@ K2B_STAGES = (5, 23)
 WIDE_TIMED = (10, 3)
 # K5's step: the fibered sheet's mean step, Tf/steps = 1/775 (JAX f32)
 K5_H = 1.3e-3
+# K6's and K7's checks on the 3-D box: a step inside bs32's and dopri54's
+# stability on the volumetric slab (rho ~ 3000 there); K7's stage counts up
+# to its cap C_RKC = 7, and the two it is timed at
+BOX_H = 5e-4
+K7_STAGES = (2, 5, 7)
+K7_TIMED_STAGES = (5, 7)
+# the box's timings (samples, calls a sample): a plain step at 8.4M points
+# moves some GB
+BOX_TIMED = (20, 5)
+BOX_PLAIN_TIMED = (5, 2)
+BOX_PROBES = 64     # probe values of the box runs at every output
 # the JAX package's wide sheet on a TPU: 265 steps (docs/PERF_NOTES.md,
 # "Column-blocked fused RKC"), history and no gate: a TPU's f32 step count
 # is no oracle
@@ -135,7 +154,11 @@ def median_ms(fn, n=N_TIMED, per_sample=BURST):
 # (du and dv), its closed-form Jacobian, and each operator on variable 0
 KINETICS_OPS = {"fhn": 7, "goldbeter": 24, "aliev_panfilov": 18}
 JACOBIAN_OPS = {"fhn": 3, "goldbeter": 30, "aliev_panfilov": 35}
-OPERATOR_OPS = {"torus": 12, "flat": 7, "divform": 11, "aniso": 23}
+OPERATOR_OPS = {"torus": 12, "flat": 7, "divform": 11, "aniso": 23,
+                # the box: six faces; the tissue mode's 12 openness
+                # products; the tensor's three mixed pairs (33) and weights
+                "box_profile": 17, "box_tissue": 29, "box_field": 17,
+                "box_tensor": 56}
 WEIGHT_OPS = 14     # 1/(rtol |y0| + atol), err * w, square, sum; two vars
 
 
@@ -183,8 +206,9 @@ def imex_ops(kc):
 def constant_bytes(kc):
     """Bytes of a kernel's constant inputs, each read once."""
     tensors = [*kc.coeffs, kc.b, kc.mask]
-    if getattr(kc, "tissue", None) is not None:
-        tensors.append(kc.tissue)
+    for extra in ("tissue", "invs"):
+        if getattr(kc, extra, None) is not None:
+            tensors.append(getattr(kc, extra))
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
@@ -195,7 +219,7 @@ def bound(y, kc, ops_per_point, extra_bytes=0):
     and its operations over the float32 rate."""
     state = y.numel() * y.element_size()
     n_bytes = 2 * state + constant_bytes(kc) + extra_bytes
-    ops = ops_per_point * y.shape[1] * y.shape[2]
+    ops = ops_per_point * y[0].numel()
     t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, ops / PEAK_F32_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -327,6 +351,7 @@ def problem_rho(problem, y):
     return float(make_rho_bound(
         problem.cfg, problem.model, problem.geometry, y.dtype,
         diffusion_field=problem.diffusion_field,
+        diffusion_tensor=problem.diffusion_tensor,
         face_mask=problem.face_mask)(0.0, y, problem.params))
 
 
@@ -534,6 +559,113 @@ def check_field_kernel(name, cases, prepare, step, reference, h_val, seed):
     return worst, timing
 
 
+def check_box_kernels(cases, seed):
+    """K6 (bs32 and dopri54, at BOX_H) and K7 (each s of K7_STAGES, h as in
+    check_rkc_kernel) against their plain versions, for each (label,
+    config, build arguments) of `cases`, f32 and f64, fz 0 and 1: y_new
+    bitwise equal, two launches bitwise equal; prints phases k6_check and
+    k7_check. Returns the max errors of K6 and of K7."""
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import fused_box3d as fb
+    from crdmodel_tpu_torch.ops import fused_box3d_rkc as fk
+    from crdmodel_tpu_torch.ops.fused_rkc import static_stage_tables
+    from crdmodel_tpu_torch.ops.kernel_common import prepare_box_constants
+
+    rng = np.random.default_rng(seed)
+    worst6 = {torch.float32: 0.0, torch.float64: 0.0}
+    worst7 = {torch.float32: 0.0, torch.float64: 0.0}
+    for label, cfg, build_kw in cases:
+        problem = build_problem(cfg, device="cuda", **build_kw)
+        y_np = random_state(cfg, tuple(problem.y0.shape), rng)
+        for dtype in (torch.float32, torch.float64):
+            bc = prepare_box_constants(problem, dtype, "cuda")
+            y = torch.tensor(y_np, dtype=dtype, device="cuda")
+            h = torch.tensor(BOX_H, dtype=dtype, device="cuda")
+            mu1, ctab = static_stage_tables(fk.C_RKC, dtype, "cuda")
+            rho = problem_rho(problem, y)
+            fields = dict(case=label, model=cfg.model, mode=bc.kind,
+                          shape=list(y.shape))
+            for fz in (0.0, 1.0):
+                fzt = torch.tensor(fz, dtype=dtype, device="cuda")
+                for method in ("bs32", "dopri54"):
+                    args = (y, h, fzt, bc, TABLEAUS[method], cfg.rtol,
+                            cfg.atol)
+                    err = check_pair(
+                        "k6_check", dict(fields, method=method, fz=fz),
+                        *fb.fused_box3d_step(*args),
+                        *fb.fused_box3d_step(*args),
+                        *fb.fused_box3d_step_reference(*args), dtype, y,
+                        bitwise=True)
+                    worst6[dtype] = max(worst6[dtype], err)
+                for s in K7_STAGES:
+                    hs, st = rkc_step_inputs(s, rho, dtype)
+                    args = (y, hs, fzt, st, mu1, ctab, bc, cfg.rtol,
+                            cfg.atol)
+                    err = check_pair(
+                        "k7_check", dict(fields, s=s, fz=fz),
+                        *fk.fused_box3d_rkc_step(*args),
+                        *fk.fused_box3d_rkc_step(*args),
+                        *fk.fused_box3d_rkc_step_reference(*args), dtype, y,
+                        bitwise=True)
+                    worst7[dtype] = max(worst7[dtype], err)
+            del y, bc
+        del problem
+    return worst6, worst7
+
+
+def box_timings(cases, card):
+    """K6 (bs32) and K7 (each s of K7_TIMED_STAGES) in each operator mode,
+    from the ICs of each (label, config, build arguments) of `cases` (the
+    volumetric slab's shape), f32, unfrozen; prints phases k6_timing and
+    k7_timing with each bound. Returns {(kernel, label, s or None):
+    (kernel ms, plain ms, bound ms, bound_by)}."""
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import fused_box3d as fb
+    from crdmodel_tpu_torch.ops import fused_box3d_rkc as fk
+    from crdmodel_tpu_torch.ops.fused_rkc import static_stage_tables
+    from crdmodel_tpu_torch.ops.kernel_common import prepare_box_constants
+
+    timings = {}
+    dtype = torch.float32
+    for label, cfg, build_kw in cases:
+        problem = build_problem(cfg, device="cuda", **build_kw)
+        bc = prepare_box_constants(problem, dtype, "cuda")
+        y = problem.y0.contiguous()
+        zero = torch.zeros((), dtype=dtype, device="cuda")
+        tab = TABLEAUS["bs32"]
+        args = (y, torch.tensor(BOX_H, device="cuda"), zero, bc, tab,
+                cfg.rtol, cfg.atol)
+        t6 = (median_ms(lambda: fb.fused_box3d_step(*args), *BOX_TIMED),
+              median_ms(lambda: fb.fused_box3d_step_reference(*args),
+                        *BOX_PLAIN_TIMED),
+              *bound(y, bc, erk_ops(bc, tab)))
+        timings["k6", label, None] = t6
+        phase("k6_timing", case=label, mode=bc.kind, shape=list(y.shape),
+              method="bs32", dtype="float32", kernel_us=t6[0] * 1e3,
+              plain_us=t6[1] * 1e3, bound_us=t6[2] * 1e3, bound_by=t6[3],
+              card=card)
+        mu1, ctab = static_stage_tables(fk.C_RKC, dtype, "cuda")
+        tables = sum(t.numel() * t.element_size() for t in (mu1, ctab))
+        rho = problem_rho(problem, y)
+        for s in K7_TIMED_STAGES:
+            hs, st = rkc_step_inputs(s, rho, dtype)
+            args = (y, hs, zero, st, mu1, ctab, bc, cfg.rtol, cfg.atol)
+            t7 = (median_ms(lambda: fk.fused_box3d_rkc_step(*args),
+                            *BOX_TIMED),
+                  median_ms(lambda: fk.fused_box3d_rkc_step_reference(*args),
+                            *BOX_PLAIN_TIMED),
+                  *bound(y, bc, rkc_ops(bc, s), tables))
+            timings["k7", label, s] = t7
+            phase("k7_timing", case=label, mode=bc.kind,
+                  shape=list(y.shape), s=s, dtype="float32",
+                  kernel_us=t7[0] * 1e3, plain_us=t7[1] * 1e3,
+                  bound_us=t7[2] * 1e3, bound_by=t7[3], card=card)
+        del problem, bc, y
+    return timings
+
+
 def bounded_tissue():
     """The bounded cardiac-tissue program of scripts/bench_suite.py::
     bounded_tissue, copied (this script imports nothing of the JAX package
@@ -590,6 +722,173 @@ def aniso_sheet():
                     atol=1e-7)
     return cfg, dict(diffusion_tensor=fiber_tensor(cfg, 1.0, 0.2, 0.0,
                                                    np.pi / 3))
+
+
+def volumetric_box():
+    """The JAX suite's volumetric slab (scripts/bench_suite.py:95-105, the
+    rows "AP box 32x512x512 (8.4M pts) Tf=0.5"), copied: Aliev-Panfilov on
+    a 32x512x512 box (8.4M points, a 67 MB f32 state), no-flux walls,
+    Tf=0.5, rtol 1e-4, bs32, auto selection."""
+    from crdmodel_tpu_torch.config import SimConfig
+    return SimConfig(model="aliev_panfilov", surface="box", x_mesh=512,
+                     y_mesh=512, z_mesh=32, surface_width=32.0,
+                     surface_length=32.0, surface_depth=2.0, diffusion=1.0,
+                     beta=0.10, wave_length=0.25, wave_width=0.5,
+                     t_final=0.5, output_timestep=1, dtype="float32",
+                     rtol=1e-4, atol=1e-7, boundary="noflux")
+
+
+def box_scar(cfg):
+    """The scarred slab's build arguments (scripts/bench_box3d.py:47-52,
+    box8M_scar), copied: an inert cylinder of radius 48 cells around
+    (256, 256), through every plane."""
+    yy, xx = np.meshgrid(np.arange(cfg.ny), np.arange(cfg.nx), indexing="ij")
+    scar = (yy - 256) ** 2 + (xx - 256) ** 2 < 48 ** 2
+    return dict(obstacle_mask=np.broadcast_to(~scar,
+                                              (cfg.nz, cfg.ny, cfg.nx)))
+
+
+def box_field(cfg):
+    """The +-20% random 3-D diffusion field of scripts/bench_box3d.py:
+    110-114 (box8M_field), copied."""
+    rng = np.random.default_rng(0)
+    return dict(diffusion_field=0.8 + 0.4 * rng.random((cfg.nz, cfg.ny,
+                                                        cfg.nx)))
+
+
+def transmural_tensor(cfg, d_par=1.0, d_perp=0.25, d_trans=0.02,
+                      angle0=-np.pi / 3, angle1=np.pi / 3):
+    """examples/fiber_rotation_3d.py:35-53, copied: the full 3x3 tensor
+    with the fibre in the (x, y) plane rotating linearly in z from angle0
+    to angle1. Returns the build arguments."""
+    th = np.linspace(angle0, angle1, cfg.nz).reshape(-1, 1, 1)
+    c, s = np.cos(th), np.sin(th)
+    shape = (cfg.nz, cfg.ny, cfg.nx)
+    return dict(diffusion_tensor=(
+        np.broadcast_to(d_par * c * c + d_perp * s * s, shape),
+        np.broadcast_to(d_par * s * s + d_perp * c * c, shape),
+        np.full(shape, d_trans),
+        np.broadcast_to((d_par - d_perp) * c * s, shape),
+        np.zeros(shape), np.zeros(shape)))
+
+
+def torch_path_run(cfg, build_kw, dtype):
+    """`cfg` (built with `build_kw`) through the port's torch path on the
+    card (use_pallas=False) in `dtype`; rkc2 with K7's h cap
+    (ops/fused_box3d_rkc.py::box_rkc_h_limit), so that it takes the stage
+    budget the kernel takes. Returns (trajectory, steps, wall s, ok)."""
+    import time
+
+    from crdmodel_tpu_torch.core.problem import (build_problem,
+                                                 make_rho_bound,
+                                                 solver_breakpoints)
+    from crdmodel_tpu_torch.integrate.erk import integrate_to_outputs
+    from crdmodel_tpu_torch.ops.fused_box3d_rkc import box_rkc_h_limit
+    from crdmodel_tpu_torch.sim import output_times, simulate
+
+    c = dataclasses.replace(cfg, use_pallas=False, dtype=dtype)
+    problem = build_problem(c, "cuda", **build_kw)
+    if c.method != "rkc2":
+        res = simulate(c, "cuda", problem=problem)
+        return res.trajectory, res.total_steps(), res.wall_time, res.ok
+    rho_fn = make_rho_bound(c, problem.model, problem.geometry,
+                            problem.y0.dtype,
+                            diffusion_field=problem.diffusion_field,
+                            diffusion_tensor=problem.diffusion_tensor,
+                            face_mask=problem.face_mask)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traj, stats = integrate_to_outputs(
+        problem.rhs, problem.y0, problem.params, 0.0, output_times(c),
+        rtol=c.rtol, atol=c.atol, method="rkc2", max_steps=c.max_steps,
+        breakpoints=solver_breakpoints(c), step_mode=c.step_mode,
+        rho_fn=rho_fn, h_limit_fn=box_rkc_h_limit(rho_fn, problem.y0.dtype))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (torch.cat([problem.y0[None], traj]), int(stats.steps.sum()),
+            wall, bool(torch.all(stats.status == 0)))
+
+
+def run_box_path(name, cfg, build_kw, kernel, label, min_step_tol,
+                 scar=None):
+    """A box program through simulate() on the card (auto selection), held
+    against the port's torch path on the card in f32 and f64 (a JAX CPU
+    run of 8.4M points is out of this script's reach): steps within
+    min_step_tol of the torch f32 run's, or within its own distance to the
+    torch f64 run where that is larger; BOX_PROBES probe values at every
+    output within 2x the torch f32-f64 gap plus 1e-4 of the torch f64
+    run's. With `scar` (the tissue mask), its inert cells hold their IC
+    bitwise at every output. Prints phase `name`; returns the launches of
+    `kernel`."""
+    res, counts = drive_main_path(cfg, build_kw)
+    launches = counts[kernel.__name__]
+    checks = run_checks(cfg, res, kernel, launches)
+    traj = res.trajectory
+    shape = tuple(traj.shape[1:])
+    rng = np.random.default_rng(SEED + 20)
+    idx = tuple(torch.as_tensor(rng.integers(0, n, BOX_PROBES),
+                                device="cuda") for n in shape)
+    got = traj[(slice(None), *idx)].double().cpu().numpy()
+    if scar is not None:
+        inert = torch.as_tensor(~scar, device="cuda")
+        held = traj[:, :, inert]
+        checks["scar cells hold their IC bitwise"] = bool(
+            (held == held[:1]).all())
+        phase("scar", cells=int(inert.sum()), outputs=int(traj.shape[0]),
+              held_ic_bitwise=checks["scar cells hold their IC bitwise"])
+    steps, wall, status = res.total_steps(), res.wall_time, res.describe()
+    stats = res.stats
+    del res, traj
+    refs = {}
+    for dtype in ("float32", "float64"):
+        ref_traj, ref_steps, ref_wall, ref_ok = torch_path_run(cfg, build_kw,
+                                                               dtype)
+        refs[dtype] = dict(steps=ref_steps, wall_s=ref_wall, ok=ref_ok,
+                           probes=ref_traj[(slice(None), *idx)].double()
+                           .cpu().numpy())
+        del ref_traj
+    r32, r64 = refs["float32"], refs["float64"]
+    step_tol = max(min_step_tol,
+                   abs(r32["steps"] - r64["steps"]) / r32["steps"])
+    f32_gap = float(np.abs(r32["probes"] - r64["probes"]).max())
+    gap = float(np.abs(got - r64["probes"]).max())
+    limit = 2.0 * f32_gap + 1e-4
+    points = int(np.prod(shape[1:]))
+    phase(name, config=label, selection=selection_note(cfg),
+          grid=list(shape[1:]), method=cfg.method, dtype=cfg.dtype,
+          status=status, fused=True, steps=steps,
+          accepted=int(stats.accepted.sum()),
+          rejected=int(stats.rejected.sum()), kernel=kernel.__name__,
+          launches=counts, launch_bound=launch_bound(cfg, steps),
+          wall_s=wall, us_per_step=wall / steps * 1e6,
+          points_steps_per_s=points * steps / wall,
+          torch_path={k: dict(steps=v["steps"], wall_s=v["wall_s"],
+                              ok=v["ok"]) for k, v in refs.items()},
+          step_limit=step_tol, probe_max_abs_err_vs_torch_f64=gap,
+          probe_limit=limit, torch_f32_probe_gap=f32_gap, card=card_line())
+    checks.update({
+        "torch path ok": r32["ok"] and r64["ok"],
+        f"steps within {step_tol:.2%} of the torch path f32":
+            abs(steps - r32["steps"]) <= step_tol * r32["steps"],
+        "probes vs the torch path f64": gap <= limit,
+    })
+    fail_unless(name, checks)
+    return launches
+
+
+def ptxas_summary(source):
+    """The most registers and spill bytes over the kernels of csrc/
+    <source> (ptxas, -Xptxas -v), after the build."""
+    import re
+
+    from crdmodel_tpu_torch.ops import _build
+    lines = _build.ptxas_report(source)
+    regs = [int(m.group(1)) for line in lines
+            for m in [re.search(r"Used (\d+) registers", line)] if m]
+    spills = [int(m.group(1)) for line in lines
+              for m in [re.search(r"(\d+) bytes spill stores", line)] if m]
+    return {"kernels": len(regs), "max_registers": max(regs),
+            "max_spill_store_bytes": max(spills)}
 
 
 def tensor_checks(probes, tensor):
@@ -661,13 +960,15 @@ def drive_main_path(cfg, build_kw):
     op), with every kernel's launch count set to 0 just before and read
     just after. Returns (result, {wrapper name: launches})."""
     from crdmodel_tpu_torch.core.problem import build_problem
-    from crdmodel_tpu_torch.ops import (fused_aniso, fused_divform,
+    from crdmodel_tpu_torch.ops import (fused_aniso, fused_box3d,
+                                        fused_box3d_rkc, fused_divform,
                                         fused_imex, fused_rkc, fused_step)
     from crdmodel_tpu_torch.sim import simulate
 
     wrappers = (fused_step.fused_step, fused_rkc.fused_rkc_step,
                 fused_imex.fused_imex_step, fused_divform.fused_divform_step,
-                fused_aniso.fused_aniso_step)
+                fused_aniso.fused_aniso_step, fused_box3d.fused_box3d_step,
+                fused_box3d_rkc.fused_box3d_rkc_step)
 
     def run(c):
         return simulate(c, device="cuda",
@@ -683,14 +984,19 @@ def drive_main_path(cfg, build_kw):
 
 def selection_note(cfg):
     """How the run's path was selected, for its phase line."""
-    from crdmodel_tpu_torch.config import PALLAS_AUTO_POINTS
+    from crdmodel_tpu_torch.config import (PALLAS_AUTO_POINTS,
+                                           PALLAS_BOX3D_AUTO_POINTS)
     points = cfg.nx * cfg.ny
+    name, threshold = "PALLAS_AUTO_POINTS", PALLAS_AUTO_POINTS
+    if cfg.surface == "box":
+        points *= cfg.nz
+        name, threshold = "PALLAS_BOX3D_AUTO_POINTS", PALLAS_BOX3D_AUTO_POINTS
     if cfg.use_pallas is None:
         return (f"auto (use_pallas=None): the fused path above "
-                f"PALLAS_AUTO_POINTS={PALLAS_AUTO_POINTS} points")
+                f"{name}={threshold} points")
     return (f"use_pallas={cfg.use_pallas}; {points} points, auto selection "
             f"would take the "
-            f"{'fused' if points >= PALLAS_AUTO_POINTS else 'torch'} path")
+            f"{'fused' if points >= threshold else 'torch'} path")
 
 
 def launch_bound(cfg, steps):
@@ -711,8 +1017,8 @@ def run_checks(cfg, res, kernel, launches):
     return {
         "status ok": res.ok,
         "fused path": res.fused,
-        "shape": tuple(traj.shape) == (cfg.output_timestep + 1, 2, cfg.ny,
-                                       cfg.nx),
+        "shape": tuple(traj.shape) == (cfg.output_timestep + 1,
+                                       *res.problem.y0.shape),
         "finite": bool(torch.isfinite(traj).all()),
         f"every step through {kernel.__name__}": least <= launches <= most,
     }
@@ -855,6 +1161,58 @@ def kernel_entry(name, source, replaces, launches, worst, timing):
             "library_ms": None}
 
 
+def box_phases(cfg_box, card):
+    """The 3-D box's phases: K6 and K7 against their plain versions
+    (k6_check, k7_check) on the volumetric slab's shape in the four
+    operator modes (the noflux slab, the scar column, the +-20% diffusion
+    field, the transmural tensor with noflux_z walls; each with a freeze)
+    and on FitzHugh-Nagumo with the beta ramp on a 16x256x256 box with
+    noflux_z walls; their timings in each mode (k6_timing, k7_timing); the
+    volumetric slab through simulate() with bs32 (main_path_box, K6), rkc2
+    (main_path_box_rkc2, K7) and the scar column (main_path_box_scar, K6's
+    tissue mode). Returns K6's and K7's entries of the kernels line."""
+    from crdmodel_tpu_torch.ops import fused_box3d, fused_box3d_rkc
+
+    frozen = dataclasses.replace(cfg_box, t_boundary=0.1)
+    modes = [("noflux_slab", cfg_box, {}),
+             ("scar_column", cfg_box, box_scar(cfg_box)),
+             ("field", cfg_box, box_field(cfg_box)),
+             ("transmural_tensor",
+              dataclasses.replace(cfg_box, boundary="noflux_z"),
+              transmural_tensor(cfg_box))]
+    fhn = dataclasses.replace(
+        frozen, model="fhn", boundary="noflux_z", vary_beta=1, beta=1.25,
+        beta_min=0.7, beta_max=1.7, x_mesh=256, y_mesh=256, z_mesh=16,
+        surface_width=16.0, surface_length=16.0, surface_depth=1.0)
+    worst6, worst7 = check_box_kernels(
+        [(label, dataclasses.replace(c, t_boundary=0.1), kw)
+         for label, c, kw in modes] + [("fhn_beta_ramp", fhn, {})],
+        SEED + 8)
+    timings = box_timings(modes, card)
+
+    label = ("scripts/bench_suite.py:95-105 aliev_panfilov box 32x512x512 "
+             "Tf=0.5, noflux")
+    launches6 = run_box_path("main_path_box", cfg_box, {},
+                             fused_box3d.fused_box3d_step, label + ", bs32",
+                             0.01)
+    launches7 = run_box_path(
+        "main_path_box_rkc2", dataclasses.replace(cfg_box, method="rkc2"), {},
+        fused_box3d_rkc.fused_box3d_rkc_step, label + ", rkc2", 0.02)
+    scar = box_scar(cfg_box)
+    run_box_path("main_path_box_scar", cfg_box, scar,
+                 fused_box3d.fused_box3d_step,
+                 label + ", the scar column of scripts/bench_box3d.py:47-52, "
+                 "bs32", 0.01, scar=scar["obstacle_mask"])
+    return [
+        kernel_entry("fused_box3d_step", "fused_box3d.cu",
+                     "crdmodel_tpu/ops/pallas_box3d.py:307", launches6,
+                     worst6, timings["k6", "noflux_slab", None]),
+        kernel_entry("fused_box3d_rkc_step", "fused_box3d_rkc.cu",
+                     "crdmodel_tpu/ops/pallas_box3d_rkc.py:119", launches7,
+                     worst7, timings["k7", "noflux_slab",
+                                     max(K7_TIMED_STAGES)])]
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("no CUDA device: chip_smoke.py needs an NVIDIA GPU")
@@ -874,16 +1232,27 @@ def main():
     phase("build", seconds=_build.build(), library=_build.library_path(),
           ptxas_fused_divform=_build.ptxas_report("fused_divform.cu"),
           ptxas_fused_rkc=_build.ptxas_report("fused_rkc.cu"),
-          ptxas_fused_aniso=_build.ptxas_report("fused_aniso.cu"))
+          ptxas_fused_aniso=_build.ptxas_report("fused_aniso.cu"),
+          ptxas_fused_box3d=ptxas_summary("fused_box3d.cu"),
+          ptxas_fused_box3d_rkc=ptxas_summary("fused_box3d_rkc.cu"))
     cfg_ap, ap_build = bounded_tissue()
     cfg_ap_rkc = dataclasses.replace(cfg_ap, method="rkc2")
     cfg_wide = wide_sheet()
     cfg_aniso, aniso_build = aniso_sheet()
+    cfg_box = volumetric_box()
     if sys.argv[1:] == ["--profile"]:
         profile_run(cfg_ap, ap_build, 1.0, "DivformRhs")
         profile_run(cfg_ap_rkc, ap_build, 1.0, "fused_rkc_step_kernel")
         profile_run(cfg_aniso, aniso_build, 0.25, "AnisoRhs")
         profile_run(cfg_wide, {}, 0.05, "fused_rkc_step_kernel")
+        # the slab's runs whole: the ~54 steps of Tf/10 are too few for a
+        # steady idle share (it read 12% and 39% in two runs)
+        tf = cfg_box.t_final
+        profile_run(cfg_box, {}, tf, "fused_box3d_step_kernel")
+        profile_run(dataclasses.replace(cfg_box, method="rkc2"), {}, tf,
+                    "fused_box3d_rkc_kernel")
+        profile_run(cfg_box, box_scar(cfg_box), tf,
+                    "fused_box3d_step_kernel")
         return
     if sys.argv[1:]:
         sys.exit(f"unknown arguments {sys.argv[1:]}; see the docstring")
@@ -1034,6 +1403,8 @@ def main():
         extra_checks=tensor_checks(aniso_probes,
                                    aniso_build["diffusion_tensor"]))
 
+    box_entries = box_phases(cfg_box, card)
+
     k2_s = max(timing2)     # the stability-bound step: the larger time
     k3_shape = (2, cfg_gb.ny, cfg_gb.nx)    # the ark324 main path's shape
     print(json.dumps({"kernels": [
@@ -1054,7 +1425,8 @@ def main():
                      worst2b, timing2b[max(timing2b)]),
         kernel_entry("fused_aniso_step", "fused_aniso.cu",
                      "crdmodel_tpu/ops/pallas_aniso.py:82", launches5,
-                     worst5, k5_timing)]}))
+                     worst5, k5_timing),
+        *box_entries]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -40,6 +40,12 @@ TWO_PI = 2.0 * math.pi
 # the crossover on the GPU has not been measured yet (ROADMAP).
 PALLAS_AUTO_POINTS = 150_000
 
+# use_pallas=None auto-threshold of the 3-D box's fused kernels
+# (ops/fused_box3d.py, ops/fused_box3d_rkc.py), on nz*ny*nx points. The
+# value is the JAX package's (crdmodel_tpu/config.py:36-42, measured on a
+# TPU); it has not been re-derived on the GPU (PERF.md section 7).
+PALLAS_BOX3D_AUTO_POINTS = 2_000_000
+
 # every kinetics family of the JAX package (crdmodel_tpu/models/); the port
 # registers those it has ported (models/)
 MODEL_NAMES = ("aliev_panfilov", "barkley", "brusselator", "fhn",

@@ -6,9 +6,10 @@ start from the same rounded values.
 
 Ported: Grid, the flat and torus geometries' stencil coefficients,
 divergence-form face coefficients and anisotropic tensor coefficients,
-face_openness (no-flux walls and obstacles) and make_geometry for the flat
-and torus surfaces. Surfaces of revolution, the sphere and the 3-D box
-are not ported yet (ROADMAP queue 1, items 12-13).
+face_openness (no-flux walls and obstacles), the 3-D box (BoxGeometry,
+face_openness3) and make_geometry for the flat, torus and box surfaces.
+Surfaces of revolution and the sphere are not ported yet (ROADMAP queue
+1, item 12).
 """
 
 from __future__ import annotations
@@ -24,7 +25,9 @@ from crdmodel_tpu_torch.config import SimConfig
 
 @dataclasses.dataclass(frozen=True)
 class Grid:
-    """Static 2-D grid descriptor; arrays are (..., ny, nx)."""
+    """Static grid descriptor; arrays are (..., ny, nx). nz > 0 marks a 3-D
+    box grid (surface="box"): arrays gain a leading z axis, (nz, ny, nx),
+    and the x/y axes keep their trailing positions."""
 
     nx: int
     ny: int
@@ -32,6 +35,9 @@ class Grid:
     xmax: float
     ymin: float
     ymax: float
+    nz: int = 0
+    zmin: float = 0.0
+    zmax: float = 0.0
 
     @property
     def dx(self) -> float:
@@ -42,7 +48,17 @@ class Grid:
         return (self.ymax - self.ymin) / (self.ny - 1.0)
 
     @property
+    def dz(self) -> float:
+        return (self.zmax - self.zmin) / (self.nz - 1.0)
+
+    def z_coords(self) -> np.ndarray:
+        """Depth values, float64 (nz,): z_k = ZMIN + k*dz (box only)."""
+        return self.zmin + np.arange(self.nz, dtype=np.float64) * self.dz
+
+    @property
     def shape(self) -> tuple:
+        if self.nz > 0:
+            return (self.nz, self.ny, self.nx)
         return (self.ny, self.nx)
 
 
@@ -265,7 +281,139 @@ class TorusGeometry:
         return (aE, aW, aN, aS), Dxy, inv4
 
 
-Geometry = Union[FlatGeometry, TorusGeometry]
+@dataclasses.dataclass(frozen=True)
+class BoxGeometry:
+    """3-D rectangular volume [0,W] x [0,L] x [0,depth], volumetric tissue
+    (crdmodel_tpu/core/grid.py:673). The operator is always the
+    conservative divergence form: six face arrays (aE, aW, aN, aS, aU, aD),
+    aE = D_{i+1/2}/dx^2 etc. with arithmetic face means, the 3-D extension
+    of FlatGeometry.divergence_coeffs64 with the same face-mask hook for
+    no-flux walls and 3-D obstacles (face_openness3). Axes: z leads
+    ((nz, ny, nx)); E/W = x (axis -1), N/S = y (axis -2), U/D = z
+    (axis -3). There is no constant-coefficient stencil form: build_problem
+    defaults diffusion_field to the constant cfg.diffusion."""
+
+    grid: Grid
+    diffusion: float
+
+    kind = "box"
+
+    def gaussian_curvature(self, dtype, device) -> torch.Tensor:
+        return torch.zeros((self.grid.nx,), dtype=dtype, device=device)
+
+    def divergence_coeffs(self, dfield, dtype, device, face_mask=None):
+        """divergence_coeffs64 as tensors, cast once. Shapes stay broadcast-
+        minimal: scalars for constant D, (nx,) profiles for x-profile D,
+        (nz, ny, nx) for full fields; face_mask entries multiply in."""
+        return _as_tensors(self.divergence_coeffs64(dfield, face_mask),
+                           dtype, device)
+
+    def divergence_coeffs64(self, dfield, face_mask=None):
+        """Float64 numpy face coefficients (aE, aW, aN, aS, aU, aD)
+        (crdmodel_tpu/core/grid.py:708). dfield: absolute D values, scalar /
+        (nx,) / broadcastable to (nz, ny, nx). An x-profile D(x) keeps
+        centre values on the N/S and U/D faces, which sit at the same x."""
+        g = self.grid
+        inv_dx2 = 1.0 / np.float64(g.dx) ** 2
+        inv_dy2 = 1.0 / np.float64(g.dy) ** 2
+        inv_dz2 = 1.0 / np.float64(g.dz) ** 2
+        D = np.asarray(dfield, dtype=np.float64)
+        if D.ndim == 0:
+            De = Dn = Du = D
+            roll_x = roll_y = roll_z = lambda a: a   # noqa: E731
+        elif D.ndim == 1:
+            D = np.broadcast_to(D, (g.nx,))
+            De = 0.5 * (D + np.roll(D, -1))
+            Dn = Du = D
+            roll_x = lambda a: np.roll(a, 1)   # noqa: E731
+            roll_y = roll_z = lambda a: a      # noqa: E731
+        else:
+            D = np.broadcast_to(D, (g.nz, g.ny, g.nx))
+            De = 0.5 * (D + np.roll(D, -1, axis=-1))
+            Dn = 0.5 * (D + np.roll(D, -1, axis=-2))
+            Du = 0.5 * (D + np.roll(D, -1, axis=-3))
+            roll_x = lambda a: np.roll(a, 1, axis=-1)   # noqa: E731
+            roll_y = lambda a: np.roll(a, 1, axis=-2)   # noqa: E731
+            roll_z = lambda a: np.roll(a, 1, axis=-3)   # noqa: E731
+        aE = De * inv_dx2
+        aN = Dn * inv_dy2
+        aU = Du * inv_dz2
+        faces = (aE, roll_x(aE), aN, roll_y(aN), aU, roll_z(aU))
+        return _apply_face_mask(faces, face_mask)
+
+    def tensor_coeffs(self, dxx, dyy, dzz, dxy, dxz, dyz, dtype, device,
+                      boundary: str = "periodic"):
+        """tensor_coeffs64 as tensors, cast once: (six faces, (Dxy, Dxz,
+        Dyz), (inv4_xy, inv4_xz, inv4_yz))."""
+        faces, mixed, invs = self.tensor_coeffs64(dxx, dyy, dzz, dxy, dxz,
+                                                  dyz, boundary)
+        return (_as_tensors(faces, dtype, device),
+                _as_tensors(mixed, dtype, device),
+                _as_tensors(invs, dtype, device))
+
+    def tensor_coeffs64(self, dxx, dyy, dzz, dxy, dxz, dyz,
+                        boundary: str = "periodic"):
+        """Float64 numpy coefficients of the 3-D anisotropic conservative
+        operator div(D grad u), D = [[Dxx,Dxy,Dxz],[Dxy,Dyy,Dyz],
+        [Dxz,Dyz,Dzz]] an SPD field (crdmodel_tpu/core/grid.py:740): the
+        diagonal terms in the 7-point face-flux form, the mixed terms as
+        Aa(Dab Ab u) + Ab(Dab Aa u) per axis pair with centred differences.
+        SPD is checked pointwise by Sylvester's criterion (ValueError).
+
+        boundary "noflux"/"noflux_x"/"noflux_y"/"noflux_z" closes walls:
+        zero diagonal faces at the walls, and each mixed field zeroed on the
+        wall-adjacent layers of its two axes when closed; the rolled faces
+        are built after the masking. Returns (six faces, (Dxy, Dxz, Dyz) as
+        (nz, ny, nx) arrays, (inv4_xy, inv4_xz, inv4_yz)) with inv4_ab =
+        1/(4 da db)."""
+        g = self.grid
+        shape = (g.nz, g.ny, g.nx)
+        Dxx, Dyy, Dzz, Dxy, Dxz, Dyz = (
+            np.broadcast_to(np.asarray(c, np.float64), shape)
+            for c in (dxx, dyy, dzz, dxy, dxz, dyz))
+        m2 = Dxx * Dyy - Dxy * Dxy
+        det = (Dxx * (Dyy * Dzz - Dyz * Dyz)
+               - Dxy * (Dxy * Dzz - Dyz * Dxz)
+               + Dxz * (Dxy * Dyz - Dyy * Dxz))
+        scale = Dxx * Dyy * Dzz
+        if not (np.all(Dxx > 0.0) and np.all(Dyy > 0.0)
+                and np.all(Dzz > 0.0)
+                and np.all(m2 >= -1e-14 * Dxx * Dyy)
+                and np.all(det >= -1e-14 * scale)):
+            raise ValueError("diffusion_tensor must be SPD pointwise "
+                             "(Sylvester: Dxx>0, Dyy>0, Dzz>0, "
+                             "Dxx*Dyy>=Dxy^2, det(D)>=0)")
+        De = 0.5 * (Dxx + np.roll(Dxx, -1, axis=-1))
+        Dn = 0.5 * (Dyy + np.roll(Dyy, -1, axis=-2))
+        Du = 0.5 * (Dzz + np.roll(Dzz, -1, axis=-3))
+        aE = (De / np.float64(g.dx) ** 2).copy()
+        aN = (Dn / np.float64(g.dy) ** 2).copy()
+        aU = (Du / np.float64(g.dz) ** 2).copy()
+        Dxy, Dxz, Dyz = Dxy.copy(), Dxz.copy(), Dyz.copy()
+        if boundary in ("noflux", "noflux_x"):
+            aE[..., -1] = 0.0
+            for Dab in (Dxy, Dxz):
+                Dab[..., 0] = 0.0
+                Dab[..., -1] = 0.0
+        if boundary in ("noflux", "noflux_y"):
+            aN[..., -1, :] = 0.0
+            for Dab in (Dxy, Dyz):
+                Dab[..., 0, :] = 0.0
+                Dab[..., -1, :] = 0.0
+        if boundary in ("noflux", "noflux_z"):
+            aU[-1, ...] = 0.0
+            for Dab in (Dxz, Dyz):
+                Dab[0, ...] = 0.0
+                Dab[-1, ...] = 0.0
+        faces = (aE, np.roll(aE, 1, axis=-1), aN, np.roll(aN, 1, axis=-2),
+                 aU, np.roll(aU, 1, axis=-3))
+        dx, dy, dz = (np.float64(g.dx), np.float64(g.dy), np.float64(g.dz))
+        invs = (1.0 / (4.0 * dx * dy), 1.0 / (4.0 * dx * dz),
+                1.0 / (4.0 * dy * dz))
+        return faces, (Dxy, Dxz, Dyz), invs
+
+
+Geometry = Union[FlatGeometry, TorusGeometry, BoxGeometry]
 
 
 def _as_tensors(arrays, dtype, device):
@@ -329,6 +477,45 @@ def face_openness(ny: int, nx: int, boundary: str = "periodic",
     return oE, oW, oN, oS
 
 
+def face_openness3(nz: int, ny: int, nx: int, boundary: str = "periodic",
+                   tissue=None):
+    """0/1 face-openness masks (oE, oW, oN, oS, oU, oD) of the box's
+    divergence operator, float64, or None when every face is open
+    (crdmodel_tpu/core/grid.py:828): the 3-D extension of face_openness,
+    with oW = roll_x(oE) etc., so both sides of a face close together.
+    boundary "noflux" closes all six domain walls, "noflux_x"/"noflux_y"/
+    "noflux_z" one axis pair; tissue (bool broadcastable to (nz, ny, nx),
+    True = active medium) closes every face touching a non-tissue cell.
+    Shapes: (nx,) for x, (ny, 1) for y, (nz, 1, 1) for z, (nz, ny, nx) once
+    there is a tissue mask."""
+    if boundary == "periodic" and tissue is None:
+        return None
+    oE = np.ones(nx, dtype=np.float64)
+    oW = np.ones(nx, dtype=np.float64)
+    oN = np.ones((ny, 1), dtype=np.float64)
+    oS = np.ones((ny, 1), dtype=np.float64)
+    oU = np.ones((nz, 1, 1), dtype=np.float64)
+    oD = np.ones((nz, 1, 1), dtype=np.float64)
+    if boundary in ("noflux", "noflux_x"):
+        oE[-1] = 0.0
+        oW[0] = 0.0
+    if boundary in ("noflux", "noflux_y"):
+        oN[-1, 0] = 0.0
+        oS[0, 0] = 0.0
+    if boundary in ("noflux", "noflux_z"):
+        oU[-1, 0, 0] = 0.0
+        oD[0, 0, 0] = 0.0
+    if tissue is not None:
+        T = np.broadcast_to(np.asarray(tissue, dtype=bool), (nz, ny, nx))
+        oE = oE * (T & np.roll(T, -1, axis=-1))
+        oW = oW * (T & np.roll(T, 1, axis=-1))
+        oN = oN * (T & np.roll(T, -1, axis=-2))
+        oS = oS * (T & np.roll(T, 1, axis=-2))
+        oU = oU * (T & np.roll(T, -1, axis=-3))
+        oD = oD * (T & np.roll(T, 1, axis=-3))
+    return oE, oW, oN, oS, oU, oD
+
+
 def _apply_face_mask(faces, face_mask):
     if face_mask is None:
         return faces
@@ -337,16 +524,18 @@ def _apply_face_mask(faces, face_mask):
 
 def make_grid(cfg: SimConfig) -> Grid:
     return Grid(nx=cfg.nx, ny=cfg.ny, xmin=cfg.xmin, xmax=cfg.xmax,
-                ymin=cfg.ymin, ymax=cfg.ymax)
+                ymin=cfg.ymin, ymax=cfg.ymax, nz=cfg.nz, zmin=cfg.zmin,
+                zmax=cfg.zmax)
 
 
 def make_geometry(cfg: SimConfig) -> Geometry:
+    if cfg.surface == "box":
+        return BoxGeometry(grid=make_grid(cfg), diffusion=cfg.diffusion)
     if cfg.surface == "torus":
         return TorusGeometry(grid=make_grid(cfg), diffusion=cfg.diffusion,
                              R=cfg.major_radius, r=cfg.minor_radius)
     if cfg.surface == "flat":
         return FlatGeometry(grid=make_grid(cfg), diffusion=cfg.diffusion)
-    item = 13 if cfg.surface == "box" else 12
     raise NotImplementedError(
         f"surface={cfg.surface!r} is not ported yet (ROADMAP queue 1, "
-        f"item {item})")
+        "item 12)")

@@ -10,9 +10,10 @@ RHS semantics (reference src/FHNmodel_torus.cpp:504-667):
 Ported: the constant-D profile operator on the flat and torus surfaces;
 the divergence-form (face-coefficient) operator with user-supplied
 diffusion fields, no-flux domain walls and obstacle masks; the 2-D
-anisotropic tensor operator on the flat and torus surfaces; their RKC2
-spectral-radius bounds (make_rho_bound); and the IMEX split
-(make_rhs(split=True)) for ark324.
+anisotropic tensor operator on the flat and torus surfaces; the 3-D box
+with its 7-point divergence operator and 19-point tensor operator (the
+state (nvars, nz, ny, nx)); their RKC2 spectral-radius bounds
+(make_rho_bound); and the IMEX split (make_rhs(split=True)) for ark324.
 Not ported yet: coupling="curvature" (ROADMAP queue 1, item 10), the
 tensor on surfaces of revolution (item 12), forcing (item 9) and pole
 coarsening (item 12).
@@ -28,10 +29,12 @@ import torch
 
 from crdmodel_tpu_torch.config import SimConfig
 from crdmodel_tpu_torch.core.grid import (Geometry, Grid, face_openness,
-                                          make_geometry)
+                                          face_openness3, make_geometry)
 from crdmodel_tpu_torch.models import ReactionModel, get_model
 from crdmodel_tpu_torch.ops.stencil import (anisotropic_laplacian,
+                                            anisotropic_laplacian3,
                                             divergence_laplacian,
+                                            divergence_laplacian3,
                                             flat_laplacian, torus_laplacian)
 
 
@@ -41,17 +44,18 @@ class Problem:
     model: ReactionModel
     geometry: Geometry
     rhs: Callable          # rhs(t, state, params) -> dstate, state (nvars, ny, nx)
-    y0: torch.Tensor       # (nvars, ny, nx)
+    y0: torch.Tensor       # (nvars, ny, nx); (nvars, nz, ny, nx) on the box
     params: dict           # {"b": 0-d or (ny, 1) tensor}
     steady_state: tuple    # background fixed point used in ICs
     device: torch.device
     # the operator inputs (build_problem): diffusion_field, float64 numpy
-    # D values (scalar, (nx,) or (ny, nx)) when the operator takes the
-    # divergence form, else None; face_mask, the face_openness masks of
-    # no-flux walls and obstacles, or None; obstacle_mask, bool (ny, nx)
-    # with True = tissue, or None; diffusion_tensor, the (Dxx, Dyy, Dxy)
-    # float64 numpy arrays (each scalar or broadcastable to (ny, nx)) of
-    # the anisotropic operator, or None.
+    # D values (scalar, (nx,) or the grid's shape) when the operator takes
+    # the divergence form, else None; face_mask, the face_openness (box:
+    # face_openness3) masks of no-flux walls and obstacles, or None;
+    # obstacle_mask, bool of the grid's shape with True = tissue, or None;
+    # diffusion_tensor, the (Dxx, Dyy, Dxy) float64 numpy arrays (box:
+    # (Dxx, Dyy, Dzz, Dxy, Dxz, Dyz)), each scalar or broadcastable to the
+    # grid, of the anisotropic operator, or None.
     # forcing is not ported (ROADMAP queue 1, item 9) and stays None.
     diffusion_field: object = None
     face_mask: object = None
@@ -78,7 +82,8 @@ def beta_field(cfg: SimConfig, dtype, device) -> torch.Tensor:
 def initial_state(cfg: SimConfig, model: ReactionModel, steady: tuple,
                   dtype, device, uniform=None) -> torch.Tensor:
     """Initial conditions, (nvars, ny, nx), computed in float64 numpy then
-    cast (SURVEY.md C9). FitzHugh–Nagumo, Goldbeter and Aliev–Panfilov;
+    cast (SURVEY.md C9); on the box the 2-D pattern extruded along z,
+    (nvars, nz, ny, nx). FitzHugh–Nagumo, Goldbeter and Aliev–Panfilov;
     the other families' ICs come with their kinetics (ROADMAP queue 1,
     item 6).
 
@@ -162,7 +167,12 @@ def initial_state(cfg: SimConfig, model: ReactionModel, steady: tuple,
         bg[:] = 1.4 * np.asarray(uniform, np.float32).astype(np.float64)
     else:
         raise ValueError(f"icType must be 0/1/2, got {cfg.ic_type}")
-    return torch.tensor(bg, dtype=dtype, device=device)
+    if cfg.surface == "box":
+        # the 2-D seed extruded along z (crdmodel_tpu/core/problem.py:
+        # 275-282): a broken front becomes a straight scroll-wave filament
+        # through the depth
+        bg = np.broadcast_to(bg[:, None], (model.nvars, cfg.nz, ny, nx))
+    return torch.tensor(np.ascontiguousarray(bg), dtype=dtype, device=device)
 
 
 def interior_rows(ny: int, dtype, device) -> torch.Tensor:
@@ -182,28 +192,34 @@ def make_rhs(cfg: SimConfig, model: ReactionModel, geometry: Geometry, dtype,
 
     The constant-D profile operator, or with diffusion_field (float64 D
     values, scalar / (nx,) / (ny, nx)) the conservative divergence form
-    (ops/stencil.py::divergence_laplacian), whose closed faces face_mask
-    (core/grid.py::face_openness) zeroes. With diffusion_tensor, the
-    (Dxx, Dyy, Dxy) SPD fields, the anisotropic 9-point operator
-    (ops/stencil.py::anisotropic_laplacian; core/grid.py::tensor_coeffs64
-    with cfg.boundary's walls). obstacle_mask: bool (ny, nx), True =
-    tissue; the other cells get ydot = 0 and hold their IC.
+    (ops/stencil.py::divergence_laplacian; divergence_laplacian3 with the
+    box's six faces), whose closed faces face_mask (core/grid.py::
+    face_openness, face_openness3) zeroes. With diffusion_tensor, the SPD
+    fields (Dxx, Dyy, Dxy), the anisotropic 9-point operator
+    (ops/stencil.py::anisotropic_laplacian), or on the box (Dxx, Dyy, Dzz,
+    Dxy, Dxz, Dyz), the 19-point anisotropic_laplacian3 (core/grid.py::
+    tensor_coeffs64 with cfg.boundary's walls). obstacle_mask: bool of the
+    grid's shape, True = tissue; the other cells get ydot = 0 and hold
+    their IC.
 
     split=True returns (rhs_ex, rhs_im), the explicit (diffusion) and
     implicit (pointwise kinetics) parts for ark324 (integrate/imex.py),
     with the freeze and the tissue mask applied to each part, so that
     rhs_ex + rhs_im equals the composed rhs bitwise."""
     if diffusion_tensor is not None:
-        faces, dxy, inv4 = geometry.tensor_coeffs(
+        faces, mixed, inv = geometry.tensor_coeffs(
             *diffusion_tensor, dtype, device, boundary=cfg.boundary)
         coeffs = None
+        aniso = (anisotropic_laplacian3 if geometry.kind == "box"
+                 else anisotropic_laplacian)
 
         def lap(u, _):
-            return anisotropic_laplacian(u, faces, dxy, inv4)
+            return aniso(u, faces, mixed, inv)
     elif diffusion_field is not None:
         coeffs = geometry.divergence_coeffs(diffusion_field, dtype, device,
                                             face_mask=face_mask)
-        lap = divergence_laplacian
+        lap = (divergence_laplacian3 if geometry.kind == "box"
+               else divergence_laplacian)
     elif face_mask is not None:
         raise ValueError("face_mask needs the divergence operator: pass "
                          "diffusion_field (build_problem defaults it to the "
@@ -288,8 +304,9 @@ def make_rho_bound(cfg: SimConfig, model: ReactionModel, geometry: Geometry,
 
     Ported: the constant-D torus and flat operators, the divergence form
     (diffusion_field, with face_mask closing faces) and the 2-D tensor
-    operator (diffusion_tensor). Not ported yet: max_reduce (sharding,
-    ROADMAP queue 1, item 15)."""
+    operator (diffusion_tensor), and on the box the six-face divergence
+    form and the 19-point tensor operator with its three mixed pairs. Not
+    ported yet: max_reduce (sharding, ROADMAP queue 1, item 15)."""
     if max_reduce is not None:
         raise NotImplementedError("max_reduce is not ported yet (ROADMAP "
                                   "queue 1, item 15)")
@@ -297,15 +314,20 @@ def make_rho_bound(cfg: SimConfig, model: ReactionModel, geometry: Geometry,
         # the axis part as the divergence bound below; the mixed pair has
         # a zero diagonal and 8 off-diagonal entries of magnitude at most
         # max|Dxy| inv4 a row, adding 8 max(inv4) max|Dxy| (inv4 is a
-        # scalar on the flat surface, an (nx,) profile on the torus)
-        faces, dxy, inv4 = geometry.tensor_coeffs64(
+        # scalar on the flat surface, an (nx,) profile on the torus); the
+        # box has three such pairs (xy, xz, yz), each with a scalar weight
+        faces, mixed, inv = geometry.tensor_coeffs64(
             *diffusion_tensor, boundary=cfg.boundary)
         row_sum = 0.0
         for a in faces:
             row_sum = row_sum + a
         rho_diff = float(2.0 * np.max(row_sum))
-        rho_diff += float(8.0 * np.max(np.asarray(inv4))
-                          * np.max(np.abs(dxy)))
+        if geometry.kind == "box":
+            for dab, inv_ab in zip(mixed, inv):
+                rho_diff += float(8.0 * inv_ab * np.max(np.abs(dab)))
+        else:
+            rho_diff += float(8.0 * np.max(np.asarray(inv))
+                              * np.max(np.abs(mixed)))
     elif diffusion_field is not None:
         # divergence form: the diagonal is the sum of the face coefficients
         # and so is the off-diagonal row sum: Gershgorin gives 2 max row sum
@@ -361,10 +383,16 @@ def build_problem(cfg: SimConfig, device="cuda", diffusion_field=None,
     the constant cfg.diffusion as the field when none is given.
     diffusion_tensor: optional anisotropic SPD tensor (Dxx, Dyy, Dxy), each
     scalar or broadcastable to (ny, nx), on the flat or torus surface: the
-    9-point operator, whose no-flux walls come from cfg.boundary
-    (core/grid.py::tensor_coeffs64); cfg.diffusion is ignored. Mutually
-    exclusive with diffusion_field and coupling, and refused with
-    obstacle_mask."""
+    9-point operator; on the box the full (Dxx, Dyy, Dzz, Dxy, Dxz, Dyz),
+    each broadcastable to (nz, ny, nx): the 19-point operator. Its no-flux
+    walls come from cfg.boundary (core/grid.py::tensor_coeffs64);
+    cfg.diffusion is ignored. Mutually exclusive with diffusion_field and
+    coupling, and refused with obstacle_mask.
+
+    The box (crdmodel_tpu/core/problem.py:705-730, 761-764) always takes
+    the divergence form, with the constant cfg.diffusion as the field when
+    neither a field nor a tensor is given; its walls and 3-D obstacles
+    close faces through core/grid.py::face_openness3."""
     cfg = cfg.validate()
     device = torch.device(device)
     if diffusion_tensor is not None and (diffusion_field is not None
@@ -383,7 +411,11 @@ def build_problem(cfg: SimConfig, device="cuda", diffusion_field=None,
     geometry = make_geometry(cfg)
     shape = geometry.grid.shape
     if diffusion_tensor is not None:
-        if len(diffusion_tensor) != 3:
+        if geometry.kind == "box":
+            if len(diffusion_tensor) != 6:
+                raise ValueError("diffusion_tensor must be (Dxx, Dyy, Dzz, "
+                                 "Dxy, Dxz, Dyz) on the 3-D box")
+        elif len(diffusion_tensor) != 3:
             raise ValueError("diffusion_tensor must be (Dxx, Dyy, Dxy) on "
                              "2-D surfaces (physical orthonormal-frame "
                              "components)")
@@ -406,6 +438,10 @@ def build_problem(cfg: SimConfig, device="cuda", diffusion_field=None,
             raise ValueError(
                 f"diffusion_field shape {diffusion_field.shape} does not "
                 f"broadcast to the grid {shape}") from None
+    if (diffusion_field is None and diffusion_tensor is None
+            and geometry.kind == "box"):
+        # the box has no constant-coefficient stencil form
+        diffusion_field = np.float64(cfg.diffusion)
     face_mask = None
     if diffusion_tensor is None and (cfg.boundary != "periodic"
                                      or obstacle_mask is not None):
@@ -419,8 +455,12 @@ def build_problem(cfg: SimConfig, device="cuda", diffusion_field=None,
                     f"broadcast to the grid {shape}") from None
             if not obstacle_mask.any():
                 raise ValueError("obstacle_mask is all-False (no tissue)")
-        face_mask = face_openness(cfg.ny, cfg.nx, cfg.boundary,
-                                  obstacle_mask)
+        if geometry.kind == "box":
+            face_mask = face_openness3(cfg.nz, cfg.ny, cfg.nx, cfg.boundary,
+                                       obstacle_mask)
+        else:
+            face_mask = face_openness(cfg.ny, cfg.nx, cfg.boundary,
+                                      obstacle_mask)
         if diffusion_field is None:
             # closed faces live in the face coefficients: the divergence
             # form even for constant D

@@ -1,0 +1,261 @@
+// The 3-D box's operator and the grid-wide scheme of the port's box kernels
+// (K6 fused_box3d.cu, K7 fused_box3d_rkc.cu).
+//
+// The state is (2, nz, ny, nx), contiguous; x and y wrap, and z is clamped:
+// the planes above the top and below the bottom read the top and bottom
+// planes, which is exact because the kernels take only closed z walls
+// (ops/kernel_common.py::box_mode), where the coefficients across the z
+// seam are zero. The operator on variable 0 comes in four modes (BoxMode),
+// a template parameter of each kernel, as the kinetics family is:
+//   profile  aE, aW (nx,), aN, aS (ny,), aU, aD (nz,): constant D with walls
+//   tissue   the profiles, each face times t * t_neighbour of the (nz, ny,
+//            nx) 0/1 tissue field (exact), and ydot times t
+//   field    aE, aN, aU as (nz, ny, nx) fields; aW is aE at i-1, aS is aN at
+//            j-1 (wrapped), aD is aU at k-1 and 0 at k = 0
+//   tensor   field's faces plus Dxy, Dxz, Dyz (nz, ny, nx) and the weights
+//            invs = (1/(4 dx dy), 1/(4 dx dz), 1/(4 dy dz)): 19 points
+// The expressions follow the plain version (ops/kernel_common.py::
+// box_kernel_laplacian, make_box_rhs_block) operation for operation, and
+// the library is built with -fmad=false, so each operation rounds as
+// PyTorch's does.
+//
+// The kernels are persistent: one cooperative launch of as many blocks as
+// the card keeps resident, each thread walking the points with a grid
+// stride, and a grid-wide barrier between stages, whose values live in a
+// scratch buffer in device memory (the wrapper's `work`). Coefficient and
+// tissue fields are read through the read-only data cache; the stage
+// values, written by the same launch, with plain loads.
+
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+#include <type_traits>
+
+#include "rhs_common.cuh"
+
+namespace crd {
+
+namespace cg = cooperative_groups;
+
+constexpr int kBoxThreads = 256;   // ops/fused_box3d.py THREADS
+
+enum BoxMode { kBoxProfile = 0, kBoxTissue = 1, kBoxField = 2, kBoxTensor = 3 };
+
+// The operator's inputs (see the modes above; unused pointers are null),
+// and beta, the interior-row mask and the freeze flag in k (its profile
+// pointers unused).
+template <typename T>
+struct BoxConstants {
+  const T* c[6];
+  const T* tissue;   // (nz, ny, nx) 0/1, or null
+  const T* invs;     // (3,), tensor mode only
+  RhsConstants<T> k;
+  int nz;
+  int ny;
+  int nx;
+
+  __device__ __forceinline__ size_t at(int kk, int jj, int ii) const {
+    return (static_cast<size_t>(kk) * ny + jj) * nx + ii;
+  }
+};
+
+// The operator at point (k, j, i), flat index g, of variable 0 held in su.
+template <int Mode, typename T>
+__device__ __forceinline__ T box_lap(const BoxConstants<T>& c, const T* su,
+                                     int k, int j, int i, size_t g) {
+  const int iE = i == c.nx - 1 ? 0 : i + 1;
+  const int iW = i == 0 ? c.nx - 1 : i - 1;
+  const int jN = j == c.ny - 1 ? 0 : j + 1;
+  const int jS = j == 0 ? c.ny - 1 : j - 1;
+  const int kU = k == c.nz - 1 ? k : k + 1;
+  const int kD = k == 0 ? 0 : k - 1;
+  const T u = su[g];
+  const T uE = su[c.at(k, j, iE)], uW = su[c.at(k, j, iW)];
+  const T uN = su[c.at(k, jN, i)], uS = su[c.at(k, jS, i)];
+  const T uU = su[c.at(kU, j, i)], uD = su[c.at(kD, j, i)];
+  T aE, aW, aN, aS, aU, aD;
+  if (Mode == kBoxProfile || Mode == kBoxTissue) {
+    aE = __ldg(c.c[0] + i);
+    aW = __ldg(c.c[1] + i);
+    aN = __ldg(c.c[2] + j);
+    aS = __ldg(c.c[3] + j);
+    aU = __ldg(c.c[4] + k);
+    aD = __ldg(c.c[5] + k);
+    if (Mode == kBoxTissue) {
+      const T t = __ldg(c.tissue + g);
+      aE = aE * (t * __ldg(c.tissue + c.at(k, j, iE)));
+      aW = aW * (t * __ldg(c.tissue + c.at(k, j, iW)));
+      aN = aN * (t * __ldg(c.tissue + c.at(k, jN, i)));
+      aS = aS * (t * __ldg(c.tissue + c.at(k, jS, i)));
+      aU = aU * (t * __ldg(c.tissue + c.at(kU, j, i)));
+      aD = aD * (t * __ldg(c.tissue + c.at(kD, j, i)));
+    }
+  } else {
+    aE = __ldg(c.c[0] + g);
+    aW = __ldg(c.c[0] + c.at(k, j, iW));
+    aN = __ldg(c.c[1] + g);
+    aS = __ldg(c.c[1] + c.at(k, jS, i));
+    aU = __ldg(c.c[2] + g);
+    aD = k == 0 ? T(0) : __ldg(c.c[2] + c.at(k - 1, j, i));
+  }
+  T lap = aE * (uE - u) + aW * (uW - u) + aN * (uN - u) + aS * (uS - u)
+          + aU * (uU - u) + aD * (uD - u);
+  if (Mode == kBoxTensor) {
+    const T* dxy = c.c[3];
+    const T* dxz = c.c[4];
+    const T* dyz = c.c[5];
+    // xy: fluxes Dxy (uN - uS) at i +- 1 and Dxy (uE - uW) at j +- 1
+    const T uNE = su[c.at(k, jN, iE)], uSE = su[c.at(k, jS, iE)];
+    const T uNW = su[c.at(k, jN, iW)], uSW = su[c.at(k, jS, iW)];
+    const T t_xy = (__ldg(dxy + c.at(k, j, iE)) * (uNE - uSE)
+                    - __ldg(dxy + c.at(k, j, iW)) * (uNW - uSW))
+                   + (__ldg(dxy + c.at(k, jN, i)) * (uNE - uNW)
+                      - __ldg(dxy + c.at(k, jS, i)) * (uSE - uSW));
+    // xz: Dxz (uU - uD) at i +- 1 and Dxz (uE - uW) on the planes k +- 1
+    const T uUE = su[c.at(kU, j, iE)], uDE = su[c.at(kD, j, iE)];
+    const T uUW = su[c.at(kU, j, iW)], uDW = su[c.at(kD, j, iW)];
+    const T t_xz = (__ldg(dxz + c.at(k, j, iE)) * (uUE - uDE)
+                    - __ldg(dxz + c.at(k, j, iW)) * (uUW - uDW))
+                   + (__ldg(dxz + c.at(kU, j, i)) * (uUE - uUW)
+                      - __ldg(dxz + c.at(kD, j, i)) * (uDE - uDW));
+    // yz: Dyz (uU - uD) at j +- 1 and Dyz (uN - uS) on the planes k +- 1
+    const T uUN = su[c.at(kU, jN, i)], uDN = su[c.at(kD, jN, i)];
+    const T uUS = su[c.at(kU, jS, i)], uDS = su[c.at(kD, jS, i)];
+    const T t_yz = (__ldg(dyz + c.at(k, jN, i)) * (uUN - uDN)
+                    - __ldg(dyz + c.at(k, jS, i)) * (uUS - uDS))
+                   + (__ldg(dyz + c.at(kU, j, i)) * (uUN - uUS)
+                      - __ldg(dyz + c.at(kD, j, i)) * (uDN - uDS));
+    lap = ((lap + __ldg(c.invs) * t_xy) + __ldg(c.invs + 1) * t_xz)
+          + __ldg(c.invs + 2) * t_yz;
+  }
+  return lap;
+}
+
+// ydot = f(u, v) at flat index g: the kinetics plus the operator on
+// variable 0, times live with a freeze, times the tissue field with an
+// obstacle.
+template <int Mode, int Kin, typename T>
+__device__ __forceinline__ void box_rhs(const BoxConstants<T>& c, T fz,
+                                        const T* su, const T* sv, size_t g,
+                                        T& du_out, T& dv_out) {
+  const int i = static_cast<int>(g % c.nx);
+  const size_t row = g / c.nx;
+  const int j = static_cast<int>(row % c.ny);
+  const int k = static_cast<int>(row / c.ny);
+  const T lap = box_lap<Mode>(c, su, k, j, i, g);
+  T du, dv;
+  kinetics<Kin>(su[g], sv[g], beta_at(c.k, j), du, dv);
+  du = du + lap;
+  if (c.k.has_freeze) {
+    const T live = live_at(c.k, fz, j);
+    du = du * live;
+    dv = dv * live;
+  }
+  if (c.tissue != nullptr) {
+    const T tis = __ldg(c.tissue + g);
+    du = du * tis;
+    dv = dv * tis;
+  }
+  du_out = du;
+  dv_out = dv;
+}
+
+// The constants of the launchers' common arguments; false when they are
+// out of range.
+template <typename T>
+bool make_box_constants(const void* const c[6], const void* tissue,
+                        const void* invs, int mode, const void* beta,
+                        int beta_field, const void* mask, int has_freeze,
+                        int nz, int ny, int nx, BoxConstants<T>* out) {
+  if (nz < 1 || ny < 1 || nx < 1 || mode < kBoxProfile || mode > kBoxTensor)
+    return false;
+  const int n_coeffs = mode == kBoxField ? 3 : 6;
+  for (int q = 0; q < n_coeffs; ++q)
+    if (c[q] == nullptr) return false;
+  if ((mode == kBoxTissue && tissue == nullptr)
+      || (mode == kBoxTensor && invs == nullptr))
+    return false;
+  *out = BoxConstants<T>{};
+  for (int q = 0; q < 6; ++q) out->c[q] = static_cast<const T*>(c[q]);
+  out->tissue = static_cast<const T*>(tissue);
+  out->invs = static_cast<const T*>(invs);
+  out->k = {nullptr, nullptr, nullptr, 0, static_cast<const T*>(beta),
+            beta_field, static_cast<const T*>(mask), has_freeze};
+  out->nz = nz;
+  out->ny = ny;
+  out->nx = nx;
+  return true;
+}
+
+// f(integral_constant<Mode>, integral_constant<Kinetics>) for the runtime
+// mode and kinetics ids: the kernel instantiation to launch.
+template <int Mode, class F>
+int dispatch_kinetics(int kinetics, F& f) {
+  using std::integral_constant;
+  if (kinetics == kFhn)
+    return f(integral_constant<int, Mode>{}, integral_constant<int, kFhn>{});
+  if (kinetics == kGoldbeter)
+    return f(integral_constant<int, Mode>{},
+             integral_constant<int, kGoldbeter>{});
+  return f(integral_constant<int, Mode>{},
+           integral_constant<int, kAlievPanfilov>{});
+}
+
+template <class F>
+int dispatch_box(int mode, int kinetics, F f) {
+  if (!valid_kinetics(kinetics)) return static_cast<int>(cudaErrorInvalidValue);
+  switch (mode) {
+    case kBoxProfile: return dispatch_kinetics<kBoxProfile>(kinetics, f);
+    case kBoxTissue: return dispatch_kinetics<kBoxTissue>(kinetics, f);
+    case kBoxField: return dispatch_kinetics<kBoxField>(kinetics, f);
+    case kBoxTensor: return dispatch_kinetics<kBoxTensor>(kinetics, f);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// A cooperative launch of `kernel` over n_points points: as many blocks as
+// stay resident on the card (every block must reach each grid barrier), at
+// most one a kBoxThreads points and at most `capacity` (the partial sums'
+// length). The grid size goes to *n_blocks; returns the CUDA error code.
+template <typename Kernel>
+int launch_cooperative(Kernel kernel, size_t n_points, int capacity,
+                       int* n_blocks, void** args, void* stream) {
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kBoxThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t want = (n_points + kBoxThreads - 1) / kBoxThreads;
+  size_t blocks = static_cast<size_t>(sms) * per_sm;
+  if (want < blocks) blocks = want;
+  if (static_cast<size_t>(capacity) < blocks) blocks = capacity;
+  if (blocks < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  *n_blocks = static_cast<int>(blocks);
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                    dim3(static_cast<unsigned>(blocks)),
+                                    dim3(kBoxThreads), args, 0,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace crd
+
+// The operator arguments every box launcher takes after its own: c0..c5
+// (null past the mode's count), the tissue field, the tensor weights, the
+// mode, beta, the mask, the freeze flag, the kinetics id and the shape.
+#define CRD_BOX_OPERATOR_ARGS                                                \
+  const void *c0, const void *c1, const void *c2, const void *c3,           \
+      const void *c4, const void *c5, const void *tissue, const void *invs, \
+      int mode, const void *beta, int beta_field, const void *mask,         \
+      int has_freeze, int kinetics, int nz, int ny, int nx, double rtol,    \
+      double atol, void *stream
+#define CRD_BOX_OPERATOR_PASS                                                \
+  c0, c1, c2, c3, c4, c5, tissue, invs, mode, beta, beta_field, mask,       \
+      has_freeze, kinetics, nz, ny, nx, rtol, atol, stream

@@ -1,0 +1,160 @@
+// Fused embedded-ERK step on the 3-D box, with FitzHugh-Nagumo, Goldbeter
+// or Aliev-Panfilov kinetics, in the box operator's four modes (kernel K6
+// of the port).
+//
+// Replaces crdmodel_tpu/ops/pallas_box3d.py::build_fused_box3d_step, the
+// Pallas TPU kernel that takes every attempted step of an ERK run on a box
+// (the volumetric cardiac slab). One launch performs a whole step: stage
+// inputs y0 + sum (h a[s][j]) k_j, k_s = kinetics + the box operator on
+// variable 0 (box3d.cuh::box_rhs), y_new = y0 + sum (h b_s) k_s and
+// err = sum (h d_s) k_s in the plain version's order, and one partial sum
+// of (err / (rtol |y0| + atol))^2 per block, in a fixed order (a block
+// walks a fixed set of points in a fixed order, no float atomics), so two
+// launches give bitwise-equal results.
+//
+// What bounds it on an H100: the step must read the state (2 x nz x ny x
+// nx) once and write y_new once, 134 MB at 32x512x512 in f32, some 40 us at
+// the published 3.35 TB/s, plus each coefficient field once (3 or 6 more
+// (nz, ny, nx) fields in the field and tensor modes). The arithmetic, some
+// 40 to 90 operations a point a stage, is far below the card's rate.
+//
+// Design: the TPU kernel streams planes along z through VMEM rings, one
+// ring a stage. In 227 KB of shared memory such rings leave a useful
+// in-plane tile for four stages at most (dopri54's 43 planes fit only an
+// 8x8 tile with a 7-ring halo, 7.5x in-plane recompute). This kernel
+// instead keeps every stage value in device memory and runs the stages in
+// turn inside one persistent cooperative launch (box3d.cuh): each stage
+// writes its input y0 + sum (h a) k_j, a grid barrier, then k_s = f(input)
+// at every point, another barrier. Any stage count up to 8 and any grid
+// fit, in f32 and f64 alike; the price is the stage traffic, some 2 + 3s
+// state sweeps a step where the bound is 2 (a state is 67 MB at 8.4M
+// points in f32, more than the 50 MB L2). No tensor cores, TMA or tuning
+// yet.
+
+#include <cuda_runtime.h>
+
+#include "box3d.cuh"
+#include "erk_tile.cuh"
+
+namespace {
+
+using crd::BoxConstants;
+using crd::StageTable;
+using crd::kBoxThreads;
+
+template <int Mode, int Kin, typename T>
+__global__ void __launch_bounds__(kBoxThreads) fused_box3d_step_kernel(
+    const T* __restrict__ y, T* __restrict__ y_new, T* __restrict__ ss,
+    T* work, const T* __restrict__ h_ptr, const T* __restrict__ fz_ptr,
+    BoxConstants<T> c, StageTable tab, T rtol, T atol) {
+  __shared__ T warp_sums[kBoxThreads / 32];
+  crd::cg::grid_group grid = crd::cg::this_grid();
+  const size_t n = static_cast<size_t>(c.nz) * c.ny * c.nx;
+  const size_t first = static_cast<size_t>(blockIdx.x) * blockDim.x
+                       + threadIdx.x;
+  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
+  const T h = *h_ptr;
+  const T fz = *fz_ptr;
+  T* yi = work;                 // the current stage input, both variables
+  T* ks = work + 2 * n;         // stage s: u at ks + 2sn, v after
+
+  for (int s = 0; s < tab.n; ++s) {
+    const T* arg = y;
+    if (s > 0) {
+      for (size_t g = first; g < n; g += stride) {
+        T u = y[g], v = y[n + g];
+        for (int j = 0; j < s; ++j) {
+          if (tab.a[s][j] != 0.0) {
+            const T ha = h * static_cast<T>(tab.a[s][j]);
+            u = u + ha * ks[2 * j * n + g];
+            v = v + ha * ks[(2 * j + 1) * n + g];
+          }
+        }
+        yi[g] = u;
+        yi[n + g] = v;
+      }
+      grid.sync();
+      arg = yi;
+    }
+    T* ku = ks + 2 * s * n;
+    for (size_t g = first; g < n; g += stride)
+      crd::box_rhs<Mode, Kin>(c, fz, arg, arg + n, g, ku[g], ku[n + g]);
+    grid.sync();
+  }
+
+  // y_new and the error; WRMS weights from the step's start
+  T acc = T(0);
+  for (size_t g = first; g < n; g += stride) {
+    const T u0 = y[g], v0 = y[n + g];
+    T nu = u0, nv = v0, eu = T(0), ev = T(0);
+    for (int s = 0; s < tab.n; ++s) {
+      const T* ku = ks + 2 * s * n;
+      if (tab.b[s] != 0.0) {
+        const T hb = h * static_cast<T>(tab.b[s]);
+        nu = nu + hb * ku[g];
+        nv = nv + hb * ku[n + g];
+      }
+      if (tab.d[s] != 0.0) {
+        const T hd = h * static_cast<T>(tab.d[s]);
+        eu = eu + hd * ku[g];
+        ev = ev + hd * ku[n + g];
+      }
+    }
+    y_new[g] = nu;
+    y_new[n + g] = nv;
+    const T wu = eu * (T(1) / (rtol * fabs(u0) + atol));
+    const T wv = ev * (T(1) / (rtol * fabs(v0) + atol));
+    acc = acc + wu * wu;
+    acc = acc + wv * wv;
+  }
+  crd::store_block_sum<T, kBoxThreads>(acc, warp_sums, ss);
+}
+
+template <typename T>
+int launch(const void* y, void* y_new, void* ss, int capacity,
+           int* n_blocks, void* work, const void* h, const void* fz,
+           int n_stages, const double* a, const double* b, const double* d,
+           CRD_BOX_OPERATOR_ARGS) {
+  StageTable tab;
+  BoxConstants<T> c;
+  const void* const coeffs[6] = {c0, c1, c2, c3, c4, c5};
+  if (n_stages < 2 || !crd::make_stage_table(n_stages, a, b, d, &tab)
+      || !crd::make_box_constants<T>(coeffs, tissue, invs, mode, beta,
+                                     beta_field, mask, has_freeze, nz, ny,
+                                     nx, &c))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const T* y_arg = static_cast<const T*>(y);
+  T* ynew_arg = static_cast<T*>(y_new);
+  T* ss_arg = static_cast<T*>(ss);
+  T* work_arg = static_cast<T*>(work);
+  const T* h_arg = static_cast<const T*>(h);
+  const T* fz_arg = static_cast<const T*>(fz);
+  T rtol_arg = static_cast<T>(rtol), atol_arg = static_cast<T>(atol);
+  void* args[] = {&y_arg, &ynew_arg, &ss_arg, &work_arg, &h_arg, &fz_arg,
+                  &c, &tab, &rtol_arg, &atol_arg};
+  const size_t n_points = static_cast<size_t>(nz) * ny * nx;
+  return crd::dispatch_box(mode, kinetics, [&](auto m, auto k) {
+    return crd::launch_cooperative(
+        &fused_box3d_step_kernel<decltype(m)::value, decltype(k)::value, T>,
+        n_points, capacity, n_blocks, args, stream);
+  });
+}
+
+}  // namespace
+
+#define CRD_FUSED_BOX3D_ARGS                                                 \
+  const void *y, void *y_new, void *ss, int capacity, int *n_blocks,        \
+      void *work, const void *h, const void *fz, int n_stages,              \
+      const double *a, const double *b, const double *d,                    \
+      CRD_BOX_OPERATOR_ARGS
+#define CRD_FUSED_BOX3D_PASS                                                 \
+  y, y_new, ss, capacity, n_blocks, work, h, fz, n_stages, a, b, d,         \
+      CRD_BOX_OPERATOR_PASS
+
+extern "C" int crd_fused_box3d_step_f32(CRD_FUSED_BOX3D_ARGS) {
+  return launch<float>(CRD_FUSED_BOX3D_PASS);
+}
+
+extern "C" int crd_fused_box3d_step_f64(CRD_FUSED_BOX3D_ARGS) {
+  return launch<double>(CRD_FUSED_BOX3D_PASS);
+}

@@ -35,9 +35,11 @@ _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
 _DOUBLE = ctypes.c_double
 _DOUBLEP = ctypes.POINTER(ctypes.c_double)
+_INTP = ctypes.POINTER(ctypes.c_int)
 
 # C signature of each exported launcher (csrc/fused_step.cu, fused_rkc.cu,
-# fused_imex.cu, fused_divform.cu, fused_aniso.cu)
+# fused_imex.cu, fused_divform.cu, fused_aniso.cu, fused_box3d.cu,
+# fused_box3d_rkc.cu)
 _FUSED_STEP_ARGTYPES = ([_VOIDP] * 8 + [_INT, _VOIDP, _INT, _VOIDP]
                         + [_INT] * 7 + [_DOUBLEP] * 3
                         + [_DOUBLE, _DOUBLE, _VOIDP])
@@ -51,6 +53,14 @@ _FUSED_DIVFORM_ARGTYPES = ([_VOIDP] * 10 + [_INT, _VOIDP] + [_INT] * 7
                            + [_DOUBLEP] * 3 + [_DOUBLE, _DOUBLE, _VOIDP])
 _FUSED_ANISO_ARGTYPES = ([_VOIDP] * 9 + [_INT, _VOIDP] + [_INT] * 7
                          + [_DOUBLEP] * 3 + [_DOUBLE, _DOUBLE, _VOIDP])
+# the box launchers' operator arguments (csrc/box3d.cuh
+# CRD_BOX_OPERATOR_ARGS) and their common head (y, y_new, ss, capacity,
+# n_blocks, work, h, fz)
+_BOX_OPERATOR = ([_VOIDP] * 8 + [_INT, _VOIDP, _INT, _VOIDP] + [_INT] * 5
+                 + [_DOUBLE, _DOUBLE, _VOIDP])
+_BOX_HEAD = [_VOIDP] * 3 + [_INT, _INTP] + [_VOIDP] * 3
+_FUSED_BOX3D_ARGTYPES = _BOX_HEAD + [_INT] + [_DOUBLEP] * 3 + _BOX_OPERATOR
+_FUSED_BOX3D_RKC_ARGTYPES = _BOX_HEAD + [_VOIDP] * 3 + [_INT] + _BOX_OPERATOR
 SIGNATURES = {
     "crd_fused_erk_step_f32": _FUSED_STEP_ARGTYPES,
     "crd_fused_erk_step_f64": _FUSED_STEP_ARGTYPES,
@@ -62,6 +72,10 @@ SIGNATURES = {
     "crd_fused_divform_step_f64": _FUSED_DIVFORM_ARGTYPES,
     "crd_fused_aniso_step_f32": _FUSED_ANISO_ARGTYPES,
     "crd_fused_aniso_step_f64": _FUSED_ANISO_ARGTYPES,
+    "crd_fused_box3d_step_f32": _FUSED_BOX3D_ARGTYPES,
+    "crd_fused_box3d_step_f64": _FUSED_BOX3D_ARGTYPES,
+    "crd_fused_box3d_rkc_step_f32": _FUSED_BOX3D_RKC_ARGTYPES,
+    "crd_fused_box3d_rkc_step_f64": _FUSED_BOX3D_RKC_ARGTYPES,
 }
 
 

@@ -1,0 +1,155 @@
+"""Fused RKC2 step on the 3-D box, kernel K7 (counterpart of
+crdmodel_tpu/ops/pallas_box3d_rkc.py).
+
+One launch performs a whole RKC2 step (integrate/rkc.py) on the
+(2, nz, ny, nx) state of a box, in K6's four operator modes
+(kernel_common.box_mode; csrc/fused_box3d_rkc.cu): F0 = f(y0),
+Y1 = y0 + (h mu1) F0, the recurrence
+
+    Y_j = (1 - mu - nu) y0 + mu Y_{j-1} + nu Y_{j-2} + (h mut) f(Y_{j-1})
+          + (h gt) F0,  j = 2..s,
+
+y_new = Y_s, F1 = f(y_new), the error estimate .8(y0 - y_new) +
+.4h(F0 + F1) and per-block partial sums of its squared WRMS-scaled values.
+It takes every attempted step of an rkc2 run on a box on the fused path
+(sim.py).
+
+  fused_box3d_rkc_step            the wrapper: launches the CUDA kernel for
+                                  a CUDA tensor, runs the plain version for
+                                  a CPU tensor
+  fused_box3d_rkc_step_reference  the same step in plain torch, the
+                                  kernel's oracle
+  build_fused_box3d_rkc_step      a problem's step_err and h_limit
+
+Semantics kept from the TPU kernel (pallas_box3d_rkc.py:476-650): the
+stage cap C_RKC = 7 (s = min(choose_stages(h, rho), 7)) and the driver's
+h cap STAB_FACTOR (C_RKC - 1)^2 / rho (h_limit). On a TPU the cap comes
+from the 8-ring halo of its plane pipeline; the kernel here could take any
+s, but the cap sets the step sequence, so it stays. The coefficients come
+from static_stage_tables(C_RKC) cast to the state's dtype and indexed by s
+on the device; an s outside [2, C_RKC] returns NaN partial sums. The
+operator, freeze and tissue follow K6 (fused_box3d.py).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from crdmodel_tpu_torch.core.problem import make_rho_bound
+from crdmodel_tpu_torch.integrate import rkc
+from crdmodel_tpu_torch.ops.fused_box3d import launch_box3d
+from crdmodel_tpu_torch.ops.fused_rkc import (S_MAX_KERNEL, FusedRKCStep,
+                                              rkc_step_reference,
+                                              static_stage_tables)
+from crdmodel_tpu_torch.ops.kernel_common import (KernelConstants,
+                                                  box_mode, check_tensor,
+                                                  freeze_scalar,
+                                                  fused_forcing,
+                                                  kernel_ready_kinetics,
+                                                  make_box_rhs_block,
+                                                  prepare_box_constants)
+
+C_RKC = 7       # the TPU kernel's stage cap (pallas_box3d_rkc.py:65)
+
+
+def is_box3d_rkc_supported(problem, dtype) -> bool:
+    """The kernel's gate (crdmodel_tpu/ops/pallas_box3d_rkc.py:93) without
+    the TPU strip rule: a box whose operator box_mode expresses (closed z
+    walls, a tensor included), f32, a model with a jac_bound, no forcing,
+    plus the port-only kinetics rule (kernel_common.kernel_ready_kinetics)."""
+    if fused_forcing(problem) is not None:
+        return False            # the kernel takes no forcing yet (item 9)
+    if problem.geometry.kind != "box":
+        return False
+    if dtype != torch.float32:
+        return False
+    if problem.model.jac_bound is None:
+        return False
+    if box_mode(problem)[0] is None:
+        return False
+    return kernel_ready_kinetics(problem)
+
+
+def fused_box3d_rkc_step_reference(y, h, fz, s, mu1_tab, ctab_tab,
+                                   bc: KernelConstants, rtol: float,
+                                   atol: float):
+    """One step in plain torch: (y_new, ss) with ss a (1,) tensor holding
+    the sum of squared WRMS-scaled errors; reads s on the host."""
+    return rkc_step_reference(y, h, s, mu1_tab, ctab_tab,
+                              make_box_rhs_block(bc, fz), rtol, atol)
+
+
+def fused_box3d_rkc_step(y, h, fz, s, mu1_tab, ctab_tab, bc: KernelConstants,
+                         rtol: float, atol: float):
+    """One fused RKC2 step: (y_new (2, nz, ny, nx), ss partials
+    (n_blocks,)).
+
+    h and fz are 0-d tensors in y's dtype, s a 0-d int32 tensor, and
+    mu1_tab/ctab_tab the static_stage_tables of some s_cap <= S_MAX_KERNEL,
+    all on y's device: the kernel reads s and its table rows there, so a
+    step needs no host sync. bc comes from
+    kernel_common.prepare_box_constants. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises.
+    `fused_box3d_rkc_step.launches` counts kernel launches.
+    """
+    if y.device.type == "cpu":
+        return fused_box3d_rkc_step_reference(y, h, fz, s, mu1_tab, ctab_tab,
+                                              bc, rtol, atol)
+    s_cap = mu1_tab.shape[0] - 1
+    if not 2 <= s_cap <= S_MAX_KERNEL:
+        raise ValueError(f"tables for s_cap={s_cap}; the kernel takes "
+                         f"2..{S_MAX_KERNEL}")
+    check_tensor("s", s, (), torch.int32, y.device)
+    check_tensor("mu1_tab", mu1_tab, (s_cap + 1,), y.dtype, y.device)
+    check_tensor("ctab_tab", ctab_tab, (s_cap + 1, S_MAX_KERNEL + 1, 4),
+                 y.dtype, y.device)
+    out = launch_box3d("crd_fused_box3d_rkc_step", y, h, fz, bc, 3,
+                       (s.data_ptr(), mu1_tab.data_ptr(), ctab_tab.data_ptr(),
+                        s_cap), rtol, atol)
+    fused_box3d_rkc_step.launches += 1
+    return out
+
+
+fused_box3d_rkc_step.launches = 0
+
+
+def build_fused_box3d_rkc_step(problem, dtype=torch.float32,
+                               rho_fn=None) -> FusedRKCStep:
+    """The fused box RKC2 step of `problem` in `dtype` on its device
+    (crdmodel_tpu/ops/pallas_box3d_rkc.py:119): step_err and the h cap of
+    C_RKC stages. The freeze comes from params["_seg_end"]; t is unused
+    (the kinetics are autonomous)."""
+    cfg = problem.cfg
+    if rho_fn is None:
+        rho_fn = make_rho_bound(cfg, problem.model, problem.geometry, dtype,
+                                diffusion_field=problem.diffusion_field,
+                                diffusion_tensor=problem.diffusion_tensor,
+                                face_mask=problem.face_mask)
+    bc = prepare_box_constants(problem, dtype, problem.device)
+    rtol, atol = float(cfg.rtol), float(cfg.atol)
+    t_boundary = float(cfg.t_boundary)
+    mu1_tab, ctab_tab = static_stage_tables(C_RKC, dtype, problem.device)
+
+    def step_err(t, y, h, params, carry=()):
+        rho = rho_fn(t, y, params).to(dtype)
+        s = torch.clamp_max(rkc.choose_stages(h, rho), C_RKC)
+        fz = freeze_scalar(params, bc.has_freeze, t_boundary, dtype)
+        y_new, ss = fused_box3d_rkc_step(y, h.to(dtype), fz, s, mu1_tab,
+                                         ctab_tab, bc, rtol, atol)
+        return y_new, torch.sum(ss), ()
+
+    return FusedRKCStep(step_err=step_err,
+                        h_limit=box_rkc_h_limit(rho_fn, dtype))
+
+
+def box_rkc_h_limit(rho_fn, dtype):
+    """h_limit(t, y, params): the largest h the C_RKC-stage budget
+    stabilizes, STAB_FACTOR (C_RKC - 1)^2 / rho
+    (crdmodel_tpu/ops/pallas_box3d_rkc.py:644-650); also the cap a torch-
+    path rkc2 run takes to follow the kernel's step sequence."""
+    def h_limit(t, y, params):
+        rho = rho_fn(t, y, params).to(dtype)
+        return (rkc.STAB_FACTOR * (C_RKC - 1) ** 2
+                / torch.clamp_min(rho, 1e-30)).to(dtype)
+
+    return h_limit

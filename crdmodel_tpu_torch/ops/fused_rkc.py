@@ -180,9 +180,19 @@ def fused_rkc_step_reference(y, h, fz, s, mu1_tab, ctab_tab,
     int tensor) on the host. kc is the profile operator's KernelConstants
     or the divergence form's DivformConstants (K4's RHS,
     kernel_common.make_divform_rhs_block)."""
-    n = int(s)
     rhs_block = (make_divform_rhs_block(kc, fz) if kc.kind == "divform"
                  else make_rhs_block(kc, fz))
+    return rkc_step_reference(y, h, s, mu1_tab, ctab_tab, rhs_block, rtol,
+                              atol)
+
+
+def rkc_step_reference(y, h, s, mu1_tab, ctab_tab, rhs_block, rtol: float,
+                       atol: float):
+    """One RKC2 step of s stages (a 0-d int tensor, read on the host) on
+    rhs_block(y) -> ydot in plain torch, in the order of the fused RKC
+    kernels (csrc/fused_rkc.cu, csrc/fused_box3d_rkc.cu): (y_new, ss) with
+    ss a (1,) tensor holding the sum of squared WRMS-scaled errors."""
+    n = int(s)
     mu1 = mu1_tab[n]
     f0 = rhs_block(y)
     yjm1, yjm2 = y + (h * mu1) * f0, y

@@ -8,18 +8,24 @@ three 0-d scalars on the flat surface, beta as a 0-d scalar or an (ny, 1)
 field, and the (ny, 1) interior-row mask. The divergence-form kernels take
 their face coefficients aE, aW, aN and the tissue field as contiguous
 (ny, nx) tensors (DivformConstants), the anisotropic kernel aE, aN and
-Dxy/(4 dx dy) (AnisoConstants). The kinetics family travels to the device
-code as an integer id (KINETICS_IDS, the Kinetics enum of
-csrc/rhs_common.cuh).
+Dxy/(4 dx dy) (AnisoConstants). The 3-D box kernels (K6, K7) take one of
+four operator modes, chosen by box_mode on the float64 faces: six
+profiles (BoxProfileConstants), the profiles with a 0/1 tissue field
+(BoxTissueConstants), three (nz, ny, nx) face fields (BoxFieldConstants)
+or the 19-point tensor's six fields (BoxTensorConstants). The kinetics
+family travels to the device code as an integer id (KINETICS_IDS, the
+Kinetics enum of csrc/rhs_common.cuh).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
 import numpy as np
 import torch
 
+from crdmodel_tpu_torch.core.grid import face_openness3
 from crdmodel_tpu_torch.core.problem import beta_field, interior_rows
 from crdmodel_tpu_torch.ops.stencil import (divergence_laplacian,
                                             flat_laplacian, shift_e,
@@ -351,6 +357,272 @@ def make_split_block(kc: KernelConstants, fz):
         return masked(kc.model.jacobian(y, kc.b))
 
     return ex_block, im_block, jac_block
+
+
+# --- the 3-D box (K6, K7) ---------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BoxProfileConstants(KernelConstants):
+    """The box kernels' profile mode: kind "box_profile", coeffs the six
+    face profiles aE, aW (nx,), aN, aS (ny,), aU, aD (nz,) of constant D
+    with optional no-flux walls."""
+
+
+@dataclasses.dataclass(frozen=True)
+class BoxTissueConstants(KernelConstants):
+    """The box kernels' tissue mode: kind "box_tissue", coeffs the six
+    wall-only face profiles (as BoxProfileConstants) and tissue the
+    (nz, ny, nx) 0/1 obstacle field. The kernels recover each face's
+    openness as the product of the tissue values on its two sides, exact
+    for 0/1 factors, and zero the kinetics of inert cells."""
+    tissue: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class BoxFieldConstants(KernelConstants):
+    """The box kernels' field mode: kind "box_field", coeffs (aE, aN, aU)
+    as contiguous (nz, ny, nx) tensors of a 3-D diffusion field with its
+    masks folded in; aW, aS and aD are read as aE at i-1, aN at j-1
+    (wrapped) and aU at k-1 (0 at k = 0). tissue: the 0/1 obstacle field
+    or None."""
+    tissue: object
+
+
+@dataclasses.dataclass(frozen=True)
+class BoxTensorConstants(KernelConstants):
+    """The box kernels' tensor mode: kind "box_tensor", coeffs (aE, aN, aU,
+    Dxy, Dxz, Dyz) as contiguous (nz, ny, nx) tensors (aW, aS, aD as in
+    field mode) and invs the (3,) mixed-pair weights 1/(4 da db)."""
+    invs: torch.Tensor
+
+
+def _box_profiles(problem):
+    """The six face coefficients as float64 1-D profiles (aE(x), aW(x),
+    aN(y), aS(y), aU(z), aD(z)), or None when the operator is not
+    profile-expressible (crdmodel_tpu/ops/pallas_box3d.py:116). With an
+    obstacle the faces factor exactly as profile x tissue openness, so the
+    profiles are built from the wall-only masks."""
+    g = problem.geometry.grid
+    face_mask = problem.face_mask
+    if problem.obstacle_mask is not None:
+        face_mask = face_openness3(g.nz, g.ny, g.nx, problem.cfg.boundary)
+    faces = problem.geometry.divergence_coeffs64(problem.diffusion_field,
+                                                 face_mask=face_mask)
+    aE, aW, aN, aS, aU, aD = (np.asarray(a, np.float64) for a in faces)
+    if aE.ndim > 1 or aW.ndim > 1:
+        return None
+    for a, n in ((aN, g.ny), (aS, g.ny)):
+        if a.ndim not in (0, 2) or (a.ndim == 2 and a.shape != (n, 1)):
+            return None
+    for a in (aU, aD):
+        if a.ndim not in (0, 3) or (a.ndim == 3 and a.shape != (g.nz, 1, 1)):
+            return None
+    return tuple(np.broadcast_to(a.reshape(-1), (n,)) for a, n in (
+        (aE, g.nx), (aW, g.nx), (aN, g.ny), (aS, g.ny), (aU, g.nz),
+        (aD, g.nz)))
+
+
+def _rolls_hold(aE, aW, aN, aS, aU, aD) -> bool:
+    """aW == roll_x(aE), aS == roll_y(aN) and aD == roll_z(aU) exactly on
+    the float64 fields: the kernels read aW, aS and aD through them."""
+    return (np.array_equal(aW, np.roll(aE, 1, axis=-1))
+            and np.array_equal(aS, np.roll(aN, 1, axis=-2))
+            and np.array_equal(aD, np.roll(aU, 1, axis=-3)))
+
+
+def _box_field_faces(problem):
+    """(aE, aN, aU) as float64 (nz, ny, nx) arrays when the operator is a
+    3-D diffusion field, else None (crdmodel_tpu/ops/pallas_box3d.py:165).
+    The roll identities the kernels rely on are checked explicitly, not
+    asserted: where they fail the operator is not expressible and the
+    problem keeps the torch path."""
+    if problem.diffusion_field is None or np.ndim(
+            problem.diffusion_field) <= 1:
+        return None
+    faces = problem.geometry.divergence_coeffs64(
+        problem.diffusion_field, face_mask=problem.face_mask)
+    faces = [np.asarray(a, np.float64) for a in faces]
+    if faces[0].ndim != 3 or not _rolls_hold(*faces):
+        return None
+    return faces[0], faces[2], faces[4]
+
+
+def _box_tensor_fields(problem):
+    """((aE, aN, aU, Dxy, Dxz, Dyz) as float64 (nz, ny, nx) arrays, (inv4_xy,
+    inv4_xz, inv4_yz)) of the 19-point operator, or None
+    (crdmodel_tpu/ops/pallas_box3d.py:202). It needs closed z walls (aU at
+    the top layer and the wall layers of Dxz and Dyz zero), so that the
+    kernels' clamped z reads meet zero coefficients, and the roll
+    identities."""
+    faces, mixed, invs = problem.geometry.tensor_coeffs64(
+        *problem.diffusion_tensor, boundary=problem.cfg.boundary)
+    faces = [np.asarray(a, np.float64) for a in faces]
+    dxy, dxz, dyz = (np.asarray(a, np.float64) for a in mixed)
+    aU = faces[4]
+    if np.any(aU[-1] != 0.0):
+        return None
+    if any(np.any(d[k] != 0.0) for d in (dxz, dyz) for k in (0, -1)):
+        return None
+    if not _rolls_hold(*faces):
+        return None
+    return (faces[0], faces[2], aU, dxy, dxz, dyz), tuple(
+        float(v) for v in invs)
+
+
+def _box_mode_uncached(problem):
+    if problem.geometry.kind != "box":
+        return None, None
+    if problem.diffusion_tensor is not None:
+        tf = _box_tensor_fields(problem)
+        return ("tensor", tf) if tf is not None else (None, None)
+    profs = _box_profiles(problem)
+    if profs is not None:
+        # the z walls must be closed: aU at the top, aD at the bottom zero
+        if profs[4][-1] != 0.0 or profs[5][0] != 0.0:
+            return None, None
+        return "profile", profs
+    fields = _box_field_faces(problem)
+    if fields is None or np.any(fields[2][-1] != 0.0):
+        return None, None       # aD[0] = roll_z(aU)[0] = aU[-1]
+    return "field", fields
+
+
+_BOX_MODE_CACHE: dict = {}
+
+
+def box_mode(problem):
+    """("profile", six float64 profiles) | ("field", (aE, aN, aU)) |
+    ("tensor", (six fields, invs)) | (None, None) of a problem
+    (crdmodel_tpu/ops/pallas_box3d.py:235-273): the operator mode of the box
+    kernels, None where they cannot express it (open z walls, broken roll
+    identities, not a box). Profile mode with an obstacle is the tissue
+    mode. Cached per Problem (keyed by id, guarded by a weak reference):
+    the gates and the builders each ask, and a field mode materialises
+    full (nz, ny, nx) float64 arrays."""
+    key = id(problem)
+    hit = _BOX_MODE_CACHE.get(key)
+    if hit is not None and hit[0]() is problem:
+        return hit[1]
+    result = _box_mode_uncached(problem)
+    _BOX_MODE_CACHE[key] = (weakref.ref(
+        problem, lambda _, k=key: _BOX_MODE_CACHE.pop(k, None)), result)
+    return result
+
+
+def prepare_box_constants(problem, dtype, device) -> KernelConstants:
+    """The box kernels' inputs of `problem` on `device`: the constants of
+    its box_mode, each cast once from float64. Raises ValueError where
+    box_mode is None."""
+    mode, data = box_mode(problem)
+    common = _rhs_inputs(problem, dtype, device)
+
+    def cast(arrays):
+        return tuple(torch.tensor(np.ascontiguousarray(a), dtype=dtype,
+                                  device=device) for a in arrays)
+
+    tissue = None
+    if problem.obstacle_mask is not None:
+        tissue = torch.tensor(np.asarray(problem.obstacle_mask, np.float64),
+                              dtype=dtype, device=device)
+    if mode == "profile" and tissue is None:
+        return BoxProfileConstants(kind="box_profile", coeffs=cast(data),
+                                   **common)
+    if mode == "profile":
+        return BoxTissueConstants(kind="box_tissue", coeffs=cast(data),
+                                  tissue=tissue, **common)
+    if mode == "field":
+        return BoxFieldConstants(kind="box_field", coeffs=cast(data),
+                                 tissue=tissue, **common)
+    if mode == "tensor":
+        fields, invs = data
+        return BoxTensorConstants(
+            kind="box_tensor", coeffs=cast(fields),
+            invs=torch.tensor(invs, dtype=dtype, device=device), **common)
+    raise ValueError("the box kernels cannot express this operator (open "
+                     "z walls, or not a box): box_mode is None")
+
+
+def _z_up(u):
+    """u at plane k+1, clamped at the top (u[nz-1] at k = nz-1)."""
+    return torch.cat([u[..., 1:, :, :], u[..., -1:, :, :]], dim=-3)
+
+
+def _z_down(u):
+    """u at plane k-1, clamped at the bottom (u[0] at k = 0)."""
+    return torch.cat([u[..., :1, :, :], u[..., :-1, :, :]], dim=-3)
+
+
+def box_kernel_laplacian(u, bc):
+    """The box kernels' operator on u (nz, ny, nx) in plain torch
+    (crdmodel_tpu/ops/pallas_box3d.py:557-645): x and y wrap, z is clamped
+    (exact under the closed z walls box_mode requires: the clamped reads
+    meet zero coefficients where the torch path's periodic roll wraps), the
+    six faces summed E, W, N, S, U, D as in ops/stencil.py::
+    divergence_laplacian3 and the tensor's mixed pairs in the JAX kernel's
+    association ((axis + ixy Txy) + ixz Txz) + iyz Tyz, which is also
+    anisotropic_laplacian3's. csrc/box3d.cuh computes the same expressions
+    in the same order."""
+    kind = bc.kind
+    ue, uw, un, us = shift_e(u), shift_w(u), shift_n(u), shift_s(u)
+    uu, ud = _z_up(u), _z_down(u)
+    if kind in ("box_profile", "box_tissue"):
+        aE, aW, aN, aS, aU, aD = bc.coeffs
+        aN, aS = aN.reshape(-1, 1), aS.reshape(-1, 1)
+        aU, aD = aU.reshape(-1, 1, 1), aD.reshape(-1, 1, 1)
+        if kind == "box_tissue":
+            t = bc.tissue
+            aE = aE * (t * shift_e(t))
+            aW = aW * (t * shift_w(t))
+            aN = aN * (t * shift_n(t))
+            aS = aS * (t * shift_s(t))
+            aU = aU * (t * _z_up(t))
+            aD = aD * (t * _z_down(t))
+    else:
+        aE, aN, aU = bc.coeffs[:3]
+        aW, aS = shift_w(aE), shift_s(aN)
+        aD = torch.cat([torch.zeros_like(aU[:1]), aU[:-1]], dim=0)
+    lap = (aE * (ue - u) + aW * (uw - u) + aN * (un - u) + aS * (us - u)
+           + aU * (uu - u) + aD * (ud - u))
+    if kind != "box_tensor":
+        return lap
+    dxy, dxz, dyz = bc.coeffs[3:]
+    ixy, ixz, iyz = bc.invs
+    fa = dxy * (un - us)
+    fb = dxy * (ue - uw)
+    t_xy = (shift_e(fa) - shift_w(fa)) + (shift_n(fb) - shift_s(fb))
+    dzs = uu - ud
+    fa = dxz * dzs
+    t_xz = (shift_e(fa) - shift_w(fa)) + (
+        _z_up(dxz) * (shift_e(uu) - shift_w(uu))
+        - _z_down(dxz) * (shift_e(ud) - shift_w(ud)))
+    fa = dyz * dzs
+    t_yz = (shift_n(fa) - shift_s(fa)) + (
+        _z_up(dyz) * (shift_n(uu) - shift_s(uu))
+        - _z_down(dyz) * (shift_n(ud) - shift_s(ud)))
+    return ((lap + ixy * t_xy) + ixz * t_xz) + iyz * t_yz
+
+
+def make_box_rhs_block(bc: KernelConstants, fz):
+    """rhs_block(y) -> ydot: the box kernels' RHS in plain torch on the
+    whole (2, nz, ny, nx) state: the kinetics plus box_kernel_laplacian on
+    variable 0, times live = 1 - fz*(1 - mask) with a freeze (rows j = 0
+    and ny-1 of every plane), times the 0/1 tissue field with an obstacle.
+    csrc/box3d.cuh computes the same expressions in the same order."""
+    live = _live(bc, fz)
+    tissue = getattr(bc, "tissue", None)
+
+    def rhs_block(y):
+        react = bc.model.kinetics(y, bc.b)
+        ydot = torch.stack([react[0] + box_kernel_laplacian(y[0], bc),
+                            react[1]])
+        if live is not None:
+            ydot = ydot * live
+        if tissue is not None:
+            ydot = ydot * tissue
+        return ydot
+
+    return rhs_block
 
 
 def freeze_scalar(params, has_freeze: bool, t_boundary: float, dtype):

@@ -1,9 +1,10 @@
 """Periodic diffusion stencils on the torch path (counterpart of
-crdmodel_tpu/ops/stencil.py:20-84, 145-163).
+crdmodel_tpu/ops/stencil.py:20-84, 102-124, 145-163, 183-212).
 
 Whole-array `torch.roll` shifts: on one device the periodic wrap is the
 reference's halo exchange. Arrays are (..., ny, nx): axis -1 is theta/x
-(E/W neighbours), axis -2 is phi/y (N/S neighbours). The expressions keep
+(E/W neighbours), axis -2 is phi/y (N/S neighbours); on the 3-D box,
+(..., nz, ny, nx), axis -3 is z (U/D neighbours). The expressions keep
 the JAX package's association order, so both packages round alike.
 """
 
@@ -86,3 +87,52 @@ def anisotropic_laplacian(u, face_coeffs, dxy, inv4):
     fy = dxy * dxs
     t2 = shift_n(fy) - shift_s(fy)
     return axis + inv4 * (t1 + t2)
+
+
+def shift_d(u):
+    """u[..., k-1, j, i] (down/depth- neighbour, periodic; box grids)."""
+    return torch.roll(u, 1, dims=-3)
+
+
+def shift_u3(u):
+    """u[..., k+1, j, i] (up/depth+ neighbour, periodic; box grids)."""
+    return torch.roll(u, -1, dims=-3)
+
+
+def divergence_laplacian3(u, face_coeffs):
+    """Conservative 7-point div(D grad u) on the 3-D box (..., nz, ny, nx);
+    face_coeffs = (aE, aW, aN, aS, aU, aD) from BoxGeometry.divergence_coeffs,
+    the same difference form as divergence_laplacian."""
+    aE, aW, aN, aS, aU, aD = face_coeffs
+    return (aE * (shift_e(u) - u) + aW * (shift_w(u) - u)
+            + aN * (shift_n(u) - u) + aS * (shift_s(u) - u)
+            + aU * (shift_u3(u) - u) + aD * (shift_d(u) - u))
+
+
+def _mixed_pair(u, dab, axis_a, axis_b):
+    """The symmetric mixed pair Aa(Dab * Ab u) + Ab(Dab * Aa u), Aa and Ab
+    the periodic centred differences along axis_a and axis_b, unweighted
+    (the caller multiplies by 1/(4 da db))."""
+    da = torch.roll(u, -1, axis_b) - torch.roll(u, 1, axis_b)
+    fa = dab * da
+    t1 = torch.roll(fa, -1, axis_a) - torch.roll(fa, 1, axis_a)
+    db = torch.roll(u, -1, axis_a) - torch.roll(u, 1, axis_a)
+    fb = dab * db
+    t2 = torch.roll(fb, -1, axis_b) - torch.roll(fb, 1, axis_b)
+    return t1 + t2
+
+
+def anisotropic_laplacian3(u, face_coeffs, mixed, invs):
+    """Conservative 3-D anisotropic diffusion div(D grad u) on the box, D a
+    full SPD 3x3 field (BoxGeometry.tensor_coeffs64; the 19-point stencil):
+    the 7-point axis part plus the xy, xz and yz mixed pairs, mixed =
+    (Dxy, Dxz, Dyz) and invs their 1/(4 da db) weights:
+
+      out = ((axis + ixy*Txy) + ixz*Txz) + iyz*Tyz
+    """
+    dxy, dxz, dyz = mixed
+    ixy, ixz, iyz = invs
+    return (divergence_laplacian3(u, face_coeffs)
+            + ixy * _mixed_pair(u, dxy, -1, -2)
+            + ixz * _mixed_pair(u, dxz, -1, -3)
+            + iyz * _mixed_pair(u, dyz, -2, -3))

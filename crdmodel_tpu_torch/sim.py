@@ -7,8 +7,14 @@ row 0.
 
 Kernel selection (the counterpart of crdmodel_tpu/sim.py:77-144, 180-291):
 a method goes through its fused step kernel when `cfg.use_pallas` is True,
-or when it is None on a CUDA device above PALLAS_AUTO_POINTS grid points,
-and the kernel's gate accepts the problem: the ERK tableaus through K1
+or when it is None on a CUDA device above PALLAS_AUTO_POINTS grid points
+(on the box, PALLAS_BOX3D_AUTO_POINTS nz*ny*nx points), and the kernel's
+gate accepts the problem. The 3-D box is routed first, since its operator
+always takes the divergence form: the ERK tableaus through K6
+(ops/fused_box3d.py::is_box3d_supported), rkc2 through K7
+(ops/fused_box3d_rkc.py::is_box3d_rkc_supported, a tensor included); K3
+declines the box, so ark324 there takes the torch path. Elsewhere the ERK
+tableaus go through K1
 (ops/fused_step.py::is_supported), through K4 when the operator exists
 only in the divergence form (kernel_common.needs_divform: no-flux walls,
 obstacles, 2-D or flat diffusion fields; ops/fused_divform.py::
@@ -33,15 +39,17 @@ from typing import Optional
 import numpy as np
 import torch
 
-from crdmodel_tpu_torch.config import PALLAS_AUTO_POINTS, SimConfig
+from crdmodel_tpu_torch.config import (PALLAS_AUTO_POINTS,
+                                      PALLAS_BOX3D_AUTO_POINTS, SimConfig)
 from crdmodel_tpu_torch.core.problem import (Problem, build_problem,
                                              make_rhs, make_rho_bound,
                                              solver_breakpoints)
 from crdmodel_tpu_torch.integrate import imex, rkc
 from crdmodel_tpu_torch.integrate.erk import (TABLEAUS, SolveStats,
                                               integrate_to_outputs)
-from crdmodel_tpu_torch.ops import (fused_aniso, fused_divform, fused_imex,
-                                    fused_rkc, fused_step)
+from crdmodel_tpu_torch.ops import (fused_aniso, fused_box3d,
+                                    fused_box3d_rkc, fused_divform,
+                                    fused_imex, fused_rkc, fused_step)
 from crdmodel_tpu_torch.ops.kernel_common import needs_divform
 
 STATUS_NAMES = {0: "ok", 1: "max-steps-exceeded", 2: "dt-underflow"}
@@ -51,7 +59,8 @@ STATUS_NAMES = {0: "ok", 1: "max-steps-exceeded", 2: "dt-underflow"}
 class SimResult:
     cfg: SimConfig
     problem: Problem
-    trajectory: torch.Tensor   # (Nt+1, nvars, ny, nx), IC first
+    trajectory: torch.Tensor   # (Nt+1, nvars, ny, nx) or, on the box,
+                               # (Nt+1, nvars, nz, ny, nx); IC first
     touts: np.ndarray          # (Nt+1,), starting at T0
     stats: SolveStats
     wall_time: float
@@ -62,7 +71,8 @@ class SimResult:
         return bool(torch.all(self.stats.status == 0))
 
     def field(self, var: int = 0) -> np.ndarray:
-        """(nt, ny, nx) array of one variable."""
+        """(nt, ny, nx) array of one variable; (nt, nz, ny, nx) on the
+        box."""
         return self.trajectory[:, var].cpu().numpy()
 
     def total_steps(self) -> int:
@@ -75,7 +85,8 @@ class SimResult:
         else:
             worst = int(s.status.max())
             status = f"FAILED ({STATUS_NAMES.get(worst, worst)})"
-        return (f"{self.cfg.program_name}: grid {self.cfg.ny}x{self.cfg.nx}, "
+        grid = "x".join(str(n) for n in self.trajectory.shape[2:])
+        return (f"{self.cfg.program_name}: grid {grid}, "
                 f"Tf={self.cfg.t_final}, steps={self.total_steps()} "
                 f"(acc {int(s.accepted.sum())}, rej {int(s.rejected.sum())}), "
                 f"status={status}, wall={self.wall_time:.3f}s")
@@ -119,17 +130,25 @@ def fused_eligible(problem: Problem) -> bool:
     cfg = problem.cfg
     if cfg.use_pallas is False:
         return False
+    box = problem.geometry.kind == "box"
+    points, threshold = ((cfg.nz * cfg.ny * cfg.nx,
+                          PALLAS_BOX3D_AUTO_POINTS) if box
+                         else (cfg.ny * cfg.nx, PALLAS_AUTO_POINTS))
     if cfg.use_pallas is None and (problem.device.type != "cuda"
-                                   or cfg.ny * cfg.nx < PALLAS_AUTO_POINTS):
+                                   or points < threshold):
         return False
     dtype = problem.y0.dtype
     if cfg.method == "rkc2":
         if cfg.use_pallas is None and _quiescent_autonomous(problem):
             return False
+        if box:
+            return fused_box3d_rkc.is_box3d_rkc_supported(problem, dtype)
         return fused_rkc.is_rkc_supported(problem, dtype)
     if cfg.method == "ark324":
         return fused_imex.is_imex_supported(problem, dtype)
     tableau = TABLEAUS[cfg.method]
+    if box:
+        return fused_box3d.is_box3d_supported(problem, tableau, dtype)
     if problem.diffusion_tensor is not None:
         return fused_aniso.is_aniso_supported(problem, tableau, dtype)
     if needs_divform(problem):
@@ -164,10 +183,13 @@ def make_run_fn(problem: Problem):
                              diffusion_tensor=problem.diffusion_tensor)
     kw = {}
     fused = fused_eligible(problem)
+    box = problem.geometry.kind == "box"
     if fused and cfg.method == "rkc2":
         # all Chebyshev stages in one launch; h capped to the kernel's
         # stage budget
-        frkc = fused_rkc.build_fused_rkc_step(problem, dtype, rho_fn=rho_fn)
+        build_rkc = (fused_box3d_rkc.build_fused_box3d_rkc_step if box
+                     else fused_rkc.build_fused_rkc_step)
+        frkc = build_rkc(problem, dtype, rho_fn=rho_fn)
         kw = dict(step_err=frkc.step_err, err_order=rkc.ERR_ORDER,
                   h_limit_fn=frkc.h_limit)
     elif fused:
@@ -177,7 +199,9 @@ def make_run_fn(problem: Problem):
             err_order = imex.ERR_ORDER
         else:
             tableau = TABLEAUS[cfg.method]
-            if problem.diffusion_tensor is not None:
+            if box:
+                build = fused_box3d.build_fused_box3d_step
+            elif problem.diffusion_tensor is not None:
                 build = fused_aniso.build_fused_aniso_step
             elif needs_divform(problem):
                 build = fused_divform.build_fused_divform_step

@@ -17,22 +17,37 @@ tests_tpu/test_aniso_tpu.py (Aliev-Panfilov on a flat periodic 1600x400
 sheet, bs32, Tf=1) with the rotating-fibre tensor of
 examples/anisotropic_fibers.py (d_par 1, d_perp 0.2, the fibre angle
 rotating from 0 to pi/3 across x), and writes
-tests/golden/torch_aniso_sheet_probes.npz. Each file holds:
+tests/golden/torch_aniso_sheet_probes.npz. With --config box it runs the
+volumetric cardiac slab of scripts/bench_suite.py::volumetric_box
+(Aliev-Panfilov on a 32x512x512 box, 8.4M points, no-flux walls, bs32,
+Tf=0.5) and writes tests/golden/torch_box_probes.npz; --config box_scar
+adds the cylindrical scar column of scripts/bench_box3d.py:47-52 (radius
+48 cells around (256, 256), through every plane) and writes
+tests/golden/torch_box_scar_probes.npz. With --method rkc2 on a box the
+run takes the h cap of the box kernels' stage budget, STAB_FACTOR
+(C - 1)^2 / rho with C = 7 (crdmodel_tpu/ops/pallas_box3d_rkc.py:644-650),
+through integrate_to_outputs' h_limit_fn, so that the XLA path takes the
+step sequence of the fused kernels (uncapped it takes some 20% fewer
+steps), and writes tests/golden/torch_box[_scar]_rkc2_probes.npz. Each
+file holds:
 
   steps_f32, accepted_f32, rejected_f32   per output interval, JAX f32 run
   steps_f64, accepted_f64, rejected_f64   the same for the f64 run
-  probe_var, probe_j, probe_i             64 probe points (seeded numpy)
+  probe_var, probe_j, probe_i             64 probe points (seeded numpy);
+                                          on a box also probe_k
   probes_f32, probes_f64                  (Nt+1, 64): the field at each
                                           probe point at every output time,
                                           IC first
   touts                                   (Nt+1,) output times, 0 first
 
-and the bounded-tissue file also
+and the bounded-tissue and scarred-box files also
 
-  obstacle_mask                           (ny, nx) bool, True = tissue
-  scar_j, scar_i, scar_ic                 16 scar cells (seeded numpy) and
-                                          the JAX IC (f64) of both
-                                          variables there, (2, 16)
+  obstacle_mask                           (ny, nx) or (nz, ny, nx) bool,
+                                          True = tissue
+  scar_j, scar_i, scar_ic                 16 scar cells (seeded numpy; on a
+                                          box also scar_k) and the JAX IC
+                                          (f64) of both variables there,
+                                          (2, 16)
 
 and the fibered-sheet file also
 
@@ -41,13 +56,16 @@ and the fibered-sheet file also
 chip_smoke.py holds the port's runs on the card against these numbers. On
 the CPU the JAX package takes its XLA path (no Pallas kernel). Each FHN run
 takes a few minutes on a CPU, each Goldbeter run seconds, each bounded-
-tissue run a few minutes:
+tissue run a few minutes; a box run moves an 8.4M-point state through
+some 120 to 420 steps and takes far longer:
 
     python scripts/torch_canonical_probes.py [--model goldbeter]
         [--method rkc2|ark324]
     python scripts/torch_canonical_probes.py --config bounded_ap
         [--method rkc2]
     python scripts/torch_canonical_probes.py --config aniso_sheet
+    python scripts/torch_canonical_probes.py --config box|box_scar
+        [--method rkc2]
 """
 
 import argparse
@@ -61,16 +79,21 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
+import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from crdmodel_tpu.config import SimConfig, config_from_ini  # noqa: E402
-from crdmodel_tpu.core.problem import build_problem  # noqa: E402
-from crdmodel_tpu.sim import simulate  # noqa: E402
+from crdmodel_tpu.core.problem import (build_problem,  # noqa: E402
+                                       make_rho_bound, solver_breakpoints)
+from crdmodel_tpu.integrate import rkc  # noqa: E402
+from crdmodel_tpu.integrate.erk import integrate_to_outputs  # noqa: E402
+from crdmodel_tpu.sim import SimResult, output_times, simulate  # noqa: E402
 from examples.anisotropic_fibers import fiber_tensor  # noqa: E402
-from scripts.bench_suite import bounded_tissue  # noqa: E402
+from scripts.bench_suite import (bounded_tissue,  # noqa: E402
+                                 volumetric_box)
 
 INIS = {"fhn": os.path.join(ROOT, "data", "FHNmodelArgs.ini"),
         "goldbeter": os.path.join(ROOT, "data", "GoldbeterModelArgs.ini")}
@@ -86,6 +109,8 @@ ANISO_SHEET = dict(model="aliev_panfilov", surface="flat", x_mesh=400,
                    beta=0.05, wave_length=0.1, wave_width=0.2, t_final=1.0,
                    output_timestep=2, dtype="float32", rtol=1e-4, atol=1e-7)
 FIBERS = dict(d_par=1.0, d_perp=0.2, angle0=0.0, angle1=np.pi / 3)
+# the box kernels' RKC2 stage cap (crdmodel_tpu/ops/pallas_box3d_rkc.py:65)
+BOX_RKC_STAGES = 7
 
 
 def out_path(name: str, method: str) -> str:
@@ -94,27 +119,74 @@ def out_path(name: str, method: str) -> str:
     return os.path.join(GOLDEN, f"torch_{name}{tag}_probes.npz")
 
 
-def probe_points(nvars, ny, nx):
-    """N_PROBES fixed grid points, half on each variable."""
+def probe_points(nvars, shape):
+    """N_PROBES fixed grid points of a (ny, nx) or (nz, ny, nx) grid, half
+    on each variable: (var, index arrays in the grid's axis order)."""
     rng = np.random.default_rng(PROBE_SEED)
     var = np.repeat(np.arange(nvars), N_PROBES // nvars)
-    j = rng.integers(0, ny, N_PROBES)
-    i = rng.integers(0, nx, N_PROBES)
-    return var, j, i
+    j = rng.integers(0, shape[-2], N_PROBES)
+    i = rng.integers(0, shape[-1], N_PROBES)
+    if len(shape) == 2:
+        return var, (j, i)
+    return var, (rng.integers(0, shape[0], N_PROBES), j, i)
 
 
 def scar_cells(obstacle_mask):
-    """N_SCAR fixed cells of the scar (obstacle_mask False)."""
-    jj, ii = np.nonzero(~obstacle_mask)
-    pick = np.random.default_rng(PROBE_SEED).choice(jj.size, N_SCAR,
+    """N_SCAR fixed cells of the scar (obstacle_mask False), as index
+    arrays in the mask's axis order."""
+    cells = np.nonzero(~obstacle_mask)
+    pick = np.random.default_rng(PROBE_SEED).choice(cells[0].size, N_SCAR,
                                                     replace=False)
-    return jj[pick], ii[pick]
+    return tuple(c[pick] for c in cells)
+
+
+def box_scar(cfg):
+    """The scar column of scripts/bench_box3d.py:47-52: an inert cylinder
+    of radius 48 cells around (256, 256), through every plane."""
+    yy, xx = np.meshgrid(np.arange(cfg.ny), np.arange(cfg.nx), indexing="ij")
+    scar = (yy - 256) ** 2 + (xx - 256) ** 2 < 48 ** 2
+    return dict(obstacle_mask=np.broadcast_to(~scar,
+                                              (cfg.nz, cfg.ny, cfg.nx)))
+
+
+def run_capped_rkc2(cfg, problem):
+    """rkc2 on the XLA path with the box kernels' h cap (BOX_RKC_STAGES):
+    the step sequence of the fused RKC kernels."""
+    rho_fn = make_rho_bound(cfg, problem.model, problem.geometry,
+                            jnp.dtype(cfg.dtype),
+                            diffusion_field=problem.diffusion_field,
+                            diffusion_tensor=problem.diffusion_tensor,
+                            face_mask=problem.face_mask)
+
+    def h_limit(t, y, params):
+        return (rkc.STAB_FACTOR * (BOX_RKC_STAGES - 1) ** 2
+                / jnp.maximum(rho_fn(t, y, params), 1e-30))
+
+    touts = output_times(cfg)
+
+    def run(y0, params):
+        return integrate_to_outputs(
+            problem.rhs, y0, params, 0.0, touts, rtol=cfg.rtol,
+            atol=cfg.atol, method="rkc2", max_steps=cfg.max_steps,
+            breakpoints=solver_breakpoints(cfg, problem.forcing),
+            rho_fn=rho_fn, step_mode=cfg.step_mode, h_limit_fn=h_limit)
+
+    t0 = time.perf_counter()
+    traj, stats = jax.jit(run)(problem.y0, problem.params)
+    traj = np.asarray(traj)
+    wall = time.perf_counter() - t0
+    return SimResult(cfg=cfg, problem=problem,
+                     trajectory=np.concatenate([np.asarray(problem.y0)[None],
+                                                traj]),
+                     touts=np.concatenate([[0.0], touts]), stats=stats,
+                     wall_time=wall)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", default="canonical",
-                    choices=("canonical", "bounded_ap", "aniso_sheet"))
+                    choices=("canonical", "bounded_ap", "aniso_sheet",
+                             "box", "box_scar"))
     ap.add_argument("--model", default="fhn", choices=sorted(INIS))
     ap.add_argument("--method", default="bs32",
                     choices=("bs32", "rkc2", "ark324"))
@@ -131,28 +203,42 @@ def main():
         build_kw = dict(diffusion_tensor=tensor)
         out.update(dxx=tensor[0], dyy=tensor[1], dxy=tensor[2])
         path = out_path("aniso_sheet", base.method)
+    elif args.config in ("box", "box_scar"):
+        base = dataclasses.replace(volumetric_box(), method=args.method)
+        if args.config == "box_scar":
+            build_kw = box_scar(base)
+        path = out_path(args.config, args.method)
     else:
         model, method = args.model, args.method
         base = config_from_ini(INIS[model], model=model, surface="torus")
         base = dataclasses.replace(base, method=method)
         path = out_path(f"canonical_{model}", method)
-    var, j, i = probe_points(2, base.ny, base.nx)
-    out.update(probe_var=var, probe_j=j, probe_i=i)
+    box = base.surface == "box"
+    shape = (base.nz, base.ny, base.nx) if box else (base.ny, base.nx)
+    axes = ("k", "j", "i")[-len(shape):]
+    var, idx = probe_points(2, shape)
+    out.update(probe_var=var, **{f"probe_{a}": v for a, v in zip(axes, idx)})
     if "obstacle_mask" in build_kw:
-        mask = build_kw["obstacle_mask"]
-        sj, si = scar_cells(mask)
+        mask = np.asarray(build_kw["obstacle_mask"])
+        cells = scar_cells(mask)
         y0 = np.asarray(build_problem(dataclasses.replace(
             base, dtype="float64"), **build_kw).y0)
-        out.update(obstacle_mask=mask, scar_j=sj, scar_i=si,
-                   scar_ic=y0[:, sj, si])
+        out.update(obstacle_mask=mask,
+                   scar_ic=y0[(slice(None), *cells)],
+                   **{f"scar_{a}": v for a, v in zip(axes, cells)})
     for dtype, tag in (("float32", "f32"), ("float64", "f64")):
         cfg = dataclasses.replace(base, dtype=dtype)
         t0 = time.perf_counter()
-        res = simulate(cfg, problem=build_problem(cfg, **build_kw))
+        problem = build_problem(cfg, **build_kw)
+        if box and cfg.method == "rkc2":
+            res = run_capped_rkc2(cfg, problem)
+        else:
+            res = simulate(cfg, problem=problem)
         wall = time.perf_counter() - t0
         assert res.ok, res.describe()
         traj = np.asarray(res.trajectory)
-        out[f"probes_{tag}"] = traj[:, var, j, i].astype(np.float64)
+        out[f"probes_{tag}"] = traj[(slice(None), var, *idx)].astype(
+            np.float64)
         out[f"steps_{tag}"] = np.asarray(res.stats.steps)
         out[f"accepted_{tag}"] = np.asarray(res.stats.accepted)
         out[f"rejected_{tag}"] = np.asarray(res.stats.rejected)

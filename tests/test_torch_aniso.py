@@ -235,11 +235,15 @@ def test_build_problem_validates_the_tensor():
                                obstacle_mask=np.ones((NY, NX), bool))
     with pytest.raises(ValueError, match="SPD"):
         tproblem.build_problem(cfg, "cpu", diffusion_tensor=(1.0, 0.25, 0.6))
-    for surface, item in ((dict(surface="box", z_mesh=4, surface_depth=2.0),
-                           "item 13"), (dict(surface="sphere"), "item 12")):
-        with pytest.raises(NotImplementedError, match=item):
-            tproblem.build_problem(dataclasses.replace(cfg, **surface),
-                                   "cpu", diffusion_tensor=tensor)
+    # the box takes the full 3x3 tensor
+    with pytest.raises(ValueError, match=r"\(Dxx, Dyy, Dzz, Dxy, Dxz, Dyz\)"):
+        tproblem.build_problem(
+            dataclasses.replace(cfg, surface="box", z_mesh=4,
+                                surface_depth=2.0),
+            "cpu", diffusion_tensor=tensor)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tproblem.build_problem(dataclasses.replace(cfg, surface="sphere"),
+                               "cpu", diffusion_tensor=tensor)
     # no-flux walls come from cfg.boundary, not from face masks
     p = tproblem.build_problem(dataclasses.replace(cfg, boundary="noflux"),
                                "cpu", diffusion_tensor=tensor)
