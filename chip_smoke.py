@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --profile     # a diagnostic, not the smoke test
+    python3 chip_smoke.py --sharded     # the sharded main paths alone
 
 Builds the CUDA kernels from crdmodel_tpu_torch/csrc, holds each against its
 plain PyTorch version on the card (K1, the fused ERK step, and K3, the fused
@@ -15,8 +16,11 @@ constant tensor inside no-flux walls and random fields with a beta ramp;
 K6 and K7, the fused ERK and RKC2 steps on the 3-D box, in their four
 operator modes on the volumetric slab's 32x512x512 shape: no-flux walls,
 a scar column, a 3-D diffusion field and a transmural tensor, and on
-FitzHugh-Nagumo with a beta ramp), times each, then runs the port's main
-paths through simulate(): the
+FitzHugh-Nagumo with a beta ramp; K8 and K9, the fused ERK and RKC2 steps
+on one shard of a mesh, on the canonical torus's 2x2 shards, the flat
+sheet's, an uneven 1x3 mesh whose last block carries mirror-pad cells, and
+K9 on the 2x2 shards of the 10.24M-point torus), times each, then runs the
+port's main paths through simulate(): the
 canonical FitzHugh-Nagumo torus program (data/FHNmodelArgs.ini: 400x1600,
 f32, Tf=50) with its own method bs32 (through K1) and with method rkc2
 (through K2), the canonical Goldbeter torus program
@@ -30,20 +34,31 @@ fibered cardiac sheet (Aliev-Panfilov on a flat periodic 1600x400 sheet
 with rotating fibres, bs32, f32, Tf=1, through K5), and the JAX suite's
 volumetric cardiac slab (Aliev-Panfilov on a 32x512x512 box, 8.4M points,
 no-flux walls, f32, Tf=0.5) with bs32 (through K6), with rkc2 (through K7)
-and with a scar column through every plane (through K6's tissue mode).
+and with a scar column through every plane (through K6's tissue mode);
+and through simulate_sharded() on a 2x2 mesh of shards, all on cuda:0
+(with four cards or more, once more with a shard on each card): the
+canonical FHN torus with bs32 (through K8) and the JAX suite's large FHN
+torus (6400x1600, 10.24M points, rkc2, f32, Tf=1, through K9).
 Each run is checked against the JAX package's CPU runs recorded in
 tests/golden/torch_canonical_{fhn,goldbeter}[_method]_probes.npz,
 tests/golden/torch_bounded_ap[_rkc2]_probes.npz and
 tests/golden/torch_aniso_sheet_probes.npz, the wide sheet and the slab
-against the port's own torch path on the card. Exits non-zero on any
+against the port's own torch path on the card, the sharded canonical run
+also against the single-device K1 run and the large torus against the
+port's single-device K2 run, both in the same call. Exits non-zero on any
 failure, and prints as its last line {"ok": true, "device": {...}} only
 when every phase passed. Imports nothing of JAX.
 
 With --profile it checks nothing: it builds the kernels and traces, with
 torch.profiler, the bounded cardiac tissue with bs32 and rkc2, the fibered
-sheet and the wide sheet over short horizons, and the three slab runs over
-their whole horizon, and prints for each the device's busy time and idle
-share, the kernels a step and the fused kernel's share (phase "profile").
+sheet and the wide sheet over short horizons, the three slab runs over
+their whole horizon, the sharded canonical FHN run over Tf=5 and the
+sharded large FHN torus over Tf=0.2, and prints for each the device's
+busy time and idle share, the kernels a step and the fused kernel's share
+(phase "profile"). With --sharded it builds the kernels and runs only the
+single-device canonical FHN run through K1 and the two sharded main paths
+with their checks (on four cards or more, again with a shard on each
+card); it prints no kernels line and no last line.
 """
 
 import dataclasses
@@ -113,6 +128,13 @@ N_TIMED = 60    # timed samples (median reported)
 BURST = 10      # back-to-back calls per sample
 # kernel vs plain version: f64 parity tool, f32 production tolerance
 LIMITS = {torch.float64: (1e-12, 1e-10), torch.float32: (2e-5, 1e-3)}
+# the sharded paths: the 2x2 mesh of the main paths; the uneven mesh of
+# the shard kernels' checks, whose 400 columns of the canonical torus go
+# to blocks of 134, 134 and 132; K9's stage counts checked and timed
+SHARD_MESH = (2, 2)
+UNEVEN_MESH = (1, 3)
+K9_STAGES = (2, 5, 23)
+K9_TIMED_STAGES = (5, 23)
 # the published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM
 # bytes/s and float32 operations/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -902,7 +924,8 @@ def tensor_checks(probes, tensor):
 
 
 def run_main_path(cfg, probes, kernel, min_step_tol, name, label,
-                  build_kw=None, extra_checks=None):
+                  build_kw=None, extra_checks=None, mesh=None, keep=None,
+                  versus=None):
     """The program `cfg` (built with `build_kw`) through simulate() on the
     card, with every kernel's launch count set to 0 just before and read
     just after; `kernel` is the wrapper whose kernel the path must take.
@@ -913,8 +936,14 @@ def run_main_path(cfg, probes, kernel, min_step_tol, name, label,
     The step count must lie within min_step_tol of the JAX f32 run's, or
     within that run's own distance to the JAX f64 run where that is larger:
     where the error estimate sits at the f32 rounding floor, the count
-    follows the rounding (as the probe limit follows the f32-f64 gap)."""
-    res, counts = drive_main_path(cfg, build_kw or {})
+    follows the rounding (as the probe limit follows the f32-f64 gap).
+
+    With `mesh`, the run goes through simulate_sharded on it. `keep`: a
+    dict that receives the run's steps and probe values; `versus`: such a
+    dict of an earlier run in this call, which this one is also held to:
+    steps within the same tolerance (the probes' distance is printed; both
+    runs are already held to the JAX f64 run's)."""
+    res, counts = drive_main_path(cfg, build_kw or {}, mesh)
     launches = counts[kernel.__name__]
 
     traj = res.trajectory
@@ -929,7 +958,18 @@ def run_main_path(cfg, probes, kernel, min_step_tol, name, label,
     f32_gap = float(np.abs(probes["probes_f32"] - probes["probes_f64"]).max())
     probe_limit = 2.0 * f32_gap + 1e-4
     wall = res.wall_time
-    phase(name, config=label, selection=selection_note(cfg),
+    extra = {}
+    if mesh is not None:
+        extra.update(mesh=list(mesh.shape),
+                     devices=[str(d) for d in mesh.device_list()])
+    if versus is not None:
+        extra.update(
+            versus_steps=versus["steps"],
+            probe_max_abs_err_vs_single_device=float(
+                np.abs(got - versus["probes"]).max()))
+    if keep is not None:
+        keep.update(steps=steps, probes=got)
+    phase(name, config=label, selection=selection_note(cfg), **extra,
           grid=[cfg.ny, cfg.nx], method=cfg.method, dtype=cfg.dtype,
           status=res.describe(), fused=res.fused, steps=steps,
           accepted=int(res.stats.accepted.sum()),
@@ -942,37 +982,60 @@ def run_main_path(cfg, probes, kernel, min_step_tol, name, label,
           points_steps_per_s=cfg.nx * cfg.ny * steps / wall,
           probe_max_abs_err_vs_jax_f64=gap, probe_limit=probe_limit,
           jax_f32_probe_gap=f32_gap, card=card_line())
-    checks = run_checks(cfg, res, kernel, launches)
+    checks = run_checks(cfg, res, kernel, launches,
+                        1 if mesh is None else mesh.size)
     checks.update({
         f"steps within {step_tol:.2%} of JAX f32":
             abs(steps - ref_steps) <= step_tol * ref_steps,
         "probes vs JAX f64": gap <= probe_limit,
     })
+    if versus is not None:
+        checks[f"steps within {step_tol:.2%} of the single-device run"] = (
+            abs(steps - versus["steps"]) <= step_tol * versus["steps"])
     if extra_checks is not None:
         checks.update(extra_checks(res))
     fail_unless(name, checks)
     return launches
 
 
-def drive_main_path(cfg, build_kw):
-    """Run `cfg` (built with `build_kw`) through simulate() on the card,
-    after a warm-up on a short horizon (the first launches of every torch
-    op), with every kernel's launch count set to 0 just before and read
-    just after. Returns (result, {wrapper name: launches})."""
-    from crdmodel_tpu_torch.core.problem import build_problem
+def kernel_wrappers():
+    """Every kernel's wrapper, whose `launches` counts its launches."""
     from crdmodel_tpu_torch.ops import (fused_aniso, fused_box3d,
                                         fused_box3d_rkc, fused_divform,
-                                        fused_imex, fused_rkc, fused_step)
+                                        fused_imex, fused_rkc,
+                                        fused_shard_rkc, fused_shard_step,
+                                        fused_step)
+    return (fused_step.fused_step, fused_rkc.fused_rkc_step,
+            fused_imex.fused_imex_step, fused_divform.fused_divform_step,
+            fused_aniso.fused_aniso_step, fused_box3d.fused_box3d_step,
+            fused_box3d_rkc.fused_box3d_rkc_step,
+            fused_shard_step.fused_shard_step,
+            fused_shard_rkc.fused_shard_rkc_step)
+
+
+def run_program(cfg, build_kw, mesh=None):
+    """`cfg` through simulate() on the card, or through simulate_sharded()
+    on `mesh`, the problem built on cuda:0 (the mesh's control device)."""
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.parallel.sharded import simulate_sharded
     from crdmodel_tpu_torch.sim import simulate
 
-    wrappers = (fused_step.fused_step, fused_rkc.fused_rkc_step,
-                fused_imex.fused_imex_step, fused_divform.fused_divform_step,
-                fused_aniso.fused_aniso_step, fused_box3d.fused_box3d_step,
-                fused_box3d_rkc.fused_box3d_rkc_step)
+    problem = build_problem(cfg, "cuda", **build_kw)
+    if mesh is None:
+        return simulate(cfg, device="cuda", problem=problem)
+    return simulate_sharded(cfg, mesh=mesh, problem=problem)
+
+
+def drive_main_path(cfg, build_kw, mesh=None):
+    """Run `cfg` (built with `build_kw`) through simulate() on the card, or
+    through simulate_sharded() on `mesh`, after a warm-up on a short
+    horizon (the first launches of every torch op), with every kernel's
+    launch count set to 0 just before and read just after. Returns (result,
+    {wrapper name: launches})."""
+    wrappers = kernel_wrappers()
 
     def run(c):
-        return simulate(c, device="cuda",
-                        problem=build_problem(c, "cuda", **build_kw))
+        return run_program(c, build_kw, mesh)
 
     run(dataclasses.replace(cfg, t_final=min(1.0, 0.1 * cfg.t_final),
                             output_timestep=1))
@@ -1009,11 +1072,12 @@ def launch_bound(cfg, steps):
     return [steps, steps + SYNC_EVERY * n_stops]
 
 
-def run_checks(cfg, res, kernel, launches):
+def run_checks(cfg, res, kernel, launches, shards=1):
     """The checks every main path's run passes: status, the fused path,
-    the trajectory's shape and finiteness, every step through `kernel`."""
+    the trajectory's shape and finiteness, every step through `kernel`
+    (once a shard a step on a mesh of `shards` shards)."""
     traj = res.trajectory
-    least, most = launch_bound(cfg, res.total_steps())
+    least, most = (shards * n for n in launch_bound(cfg, res.total_steps()))
     return {
         "status ok": res.ok,
         "fused path": res.fused,
@@ -1104,41 +1168,64 @@ def run_wide_sheet(cfg, rkc2_probes):
     return launches
 
 
-def profile_run(cfg, build_kw, t_final, kernel_tag):
-    """Trace `cfg` (built with `build_kw`) over [0, t_final] through
-    simulate() on the card with torch.profiler, after an untraced run of
-    the same horizon, and print phase "profile": device kernels a step,
-    the device's busy time (the sum of kernel durations in the trace) and
-    idle share over the traced wall, and the share of the kernels whose
-    name holds `kernel_tag`."""
+def traced_kernels(prof):
+    """The device kernels of a torch.profiler trace (chrome-trace events
+    of category "kernel", with their names and durations in µs)."""
     import tempfile
 
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    return [e for e in events if e.get("cat") == "kernel"]
+
+
+def device_ms(fn, tag, n=N_TIMED):
+    """The median device duration of the kernels whose name holds `tag`
+    over n calls of fn, from a torch.profiler trace: a kernel's own time
+    where the host's issue of each call takes longer than the kernel (the
+    shard kernels at the canonical shard, whose CUDA-event bursts time the
+    host)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from crdmodel_tpu_torch.core.problem import build_problem
-    from crdmodel_tpu_torch.sim import simulate
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    durs = [e["dur"] for e in traced_kernels(prof) if tag in e["name"]]
+    if len(durs) != n:
+        raise AssertionError(f"traced {len(durs)} {tag} kernels of {n} calls")
+    return float(np.median(durs)) / 1e3
+
+
+def profile_run(cfg, build_kw, t_final, kernel_tag, mesh=None):
+    """Trace `cfg` (built with `build_kw`) over [0, t_final] through
+    simulate() on the card (simulate_sharded() on `mesh`) with
+    torch.profiler, after an untraced run of the same horizon, and print
+    phase "profile": device kernels a step, the device's busy time (the sum
+    of kernel durations in the trace) and idle share over the traced wall,
+    and the share of the kernels whose name holds `kernel_tag`."""
+    from torch.profiler import ProfilerActivity, profile
 
     run_cfg = dataclasses.replace(cfg, t_final=t_final, output_timestep=1)
 
     def run():
-        return simulate(run_cfg, device="cuda",
-                        problem=build_problem(run_cfg, "cuda", **build_kw))
+        return run_program(run_cfg, build_kw, mesh)
 
     run()                               # warm-up
     plain = run()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         res = run()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as fh:
-            events = json.load(fh)["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel"]
+    kernels = traced_kernels(prof)
     busy_us = float(sum(e["dur"] for e in kernels))
     tagged = [e["dur"] for e in kernels if kernel_tag in e["name"]]
     steps = res.total_steps()
     phase("profile", config=cfg.program_name, t_final=t_final, steps=steps,
+          mesh=None if mesh is None else list(mesh.shape),
           wall_s=res.wall_time, untraced_wall_s=plain.wall_time,
           device_kernels=len(kernels), kernels_per_step=len(kernels) / steps,
           device_busy_ms=busy_us / 1e3,
@@ -1213,6 +1300,335 @@ def box_phases(cfg_box, card):
                                      max(K7_TIMED_STAGES)])]
 
 
+def large_fhn_torus():
+    """The JAX suite's large FHN torus (scripts/bench_suite.py:48-54, the
+    row "FHN torus 1600x6400 Tf=1 rkc2", 126-127), copied: torus 6400x1600
+    (10.24M points, an 82 MB f32 state), beta ramp, no freeze, rkc2, f32,
+    Tf=1, auto selection."""
+    from crdmodel_tpu_torch.config import SimConfig
+    return SimConfig(model="fhn", surface="torus", x_mesh=1600,
+                     surface_width=20, surface_length=80, t_final=1.0,
+                     output_timestep=2, vary_beta=1, beta_min=0.7,
+                     beta_max=1.7, t_boundary=0.0, dtype="float32",
+                     rtol=1e-5, atol=1e-8, method="rkc2")
+
+
+def shard_mesh(shape, devices=None):
+    """A mesh of `shape`: every shard on cuda:0 by default, or on the
+    given devices."""
+    from crdmodel_tpu_torch.parallel.mesh import make_mesh
+    n = shape[0] * shape[1]
+    return make_mesh(shape=shape, devices=devices or ["cuda:0"] * n)
+
+
+def shard_inputs(problem, mesh, y_np, dtype, halo):
+    """A global state on the card split over `mesh` into halo-padded
+    buffers, their halos exchanged (mirror-aware on a padded mesh), and
+    every shard's constants: (buffers, constants)."""
+    from crdmodel_tpu_torch.ops.kernel_common import make_shard_constants
+    from crdmodel_tpu_torch.parallel.halo import mirror_halo_pad
+    from crdmodel_tpu_torch.parallel.sharded import mesh_pad_spec, split_state
+
+    pad = mesh_pad_spec(problem.cfg, mesh)
+    y = torch.tensor(y_np, dtype=dtype, device="cuda")
+    blocks = split_state(y, mesh, pad, problem.cfg)
+    return (mirror_halo_pad(list(blocks), mesh, halo, pad),
+            make_shard_constants(problem, mesh, pad, halo, dtype))
+
+
+def check_shard_pair(name, fields, kernel, reference, args, dtype):
+    """check_pair on the blocks of a shard kernel's and its plain version's
+    y_new (the halo of y_new is the next exchange's), y_new bitwise."""
+    from crdmodel_tpu_torch.ops.fused_shard_step import interior
+    halo = next(a for a in args if hasattr(a, "halo")).halo
+    y_k, ss_k = kernel(*args)
+    y_k2, ss_k2 = kernel(*args)
+    y_r, ss_r = reference(*args)
+    return check_pair(name, fields, interior(y_k, halo), ss_k,
+                      interior(y_k2, halo), ss_k2, interior(y_r, halo), ss_r,
+                      dtype, interior(args[0], halo), bitwise=True)
+
+
+def check_shard_kernels(cases, seed):
+    """K8 (bs32 and dopri54, at H) and K9 (each s of K9_STAGES, h as in
+    check_rkc_kernel) against their plain versions on the shards of each
+    (label, config, mesh shape, shards checked, K9 too) of `cases`, f32
+    and f64, fz 0 and 1: y_new's block bitwise equal, two launches bitwise
+    equal; prints phases k8_check and k9_check. Returns the max errors of
+    K8 and of K9."""
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import fused_shard_rkc as f9
+    from crdmodel_tpu_torch.ops import fused_shard_step as f8
+    from crdmodel_tpu_torch.ops.fused_rkc import static_stage_tables
+
+    rng = np.random.default_rng(seed)
+    worst8 = {torch.float32: 0.0, torch.float64: 0.0}
+    worst9 = {torch.float32: 0.0, torch.float64: 0.0}
+    for label, cfg, shape, shards, with_k8, with_k9 in cases:
+        mesh = shard_mesh(shape)
+        problem = build_problem(cfg, device="cuda")
+        y_np = random_state(cfg, tuple(problem.y0.shape), rng)
+        for dtype in (torch.float32, torch.float64):
+            fields = dict(case=label, model=cfg.model, surface=cfg.surface,
+                          mesh=list(shape))
+            for fz in (0.0, 1.0):
+                fzt = torch.tensor(fz, dtype=dtype, device="cuda")
+                if with_k8:
+                    bufs, consts = shard_inputs(problem, mesh, y_np, dtype,
+                                                f8.HALO)
+                    h = torch.tensor(H, dtype=dtype, device="cuda")
+                    for method in ("bs32", "dopri54"):
+                        for k in shards:
+                            args = (bufs[k], h, fzt, consts[k],
+                                    TABLEAUS[method], cfg.rtol, cfg.atol)
+                            err = check_shard_pair(
+                                "k8_check", dict(
+                                    fields, shard=k, shape=list(bufs[k].shape),
+                                    valid=[consts[k].valid_rows,
+                                           consts[k].valid_cols],
+                                    method=method, fz=fz),
+                                f8.fused_shard_step,
+                                f8.fused_shard_step_reference, args, dtype)
+                            worst8[dtype] = max(worst8[dtype], err)
+                    del bufs, consts
+                if with_k9:
+                    bufs, consts = shard_inputs(problem, mesh, y_np, dtype,
+                                                f9.P_RKC)
+                    mu1, ctab = static_stage_tables(f9.S_MAX_KERNEL, dtype,
+                                                    "cuda")
+                    rho = problem_rho(problem, torch.tensor(
+                        y_np, dtype=dtype, device="cuda"))
+                    for s in K9_STAGES:
+                        hs, st = rkc_step_inputs(s, rho, dtype)
+                        for k in shards:
+                            args = (bufs[k], hs, fzt, st, mu1, ctab,
+                                    consts[k], cfg.rtol, cfg.atol)
+                            err = check_shard_pair(
+                                "k9_check", dict(
+                                    fields, shard=k, shape=list(bufs[k].shape),
+                                    valid=[consts[k].valid_rows,
+                                           consts[k].valid_cols],
+                                    s=s, fz=fz),
+                                f9.fused_shard_rkc_step,
+                                f9.fused_shard_rkc_step_reference, args,
+                                dtype)
+                            worst9[dtype] = max(worst9[dtype], err)
+                    del bufs, consts
+        del problem
+    return worst8, worst9
+
+
+def shard_bound(yp, sc, ops_per_point, extra_bytes=0):
+    """bound() of one shard kernel launch: the halo-padded buffer read
+    once, the block of y_new written once, the shard's constants read once;
+    the operations of the block's points."""
+    halo = sc.halo
+    block = yp.shape[0] * (yp.shape[1] - 2 * halo) * (yp.shape[2] - 2 * halo)
+    n_bytes = ((yp.numel() + block) * yp.element_size() + constant_bytes(sc)
+               + extra_bytes)
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
+    t_ops = ops_per_point * block / yp.shape[0] / PEAK_F32_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def shard_timings(cfg8, cfg9, card):
+    """K8 (bs32, shard 0 of the canonical torus on a 2x2 mesh) and K9 (each
+    s of K9_TIMED_STAGES, shard 0 of the large torus on a 2x2 mesh) from
+    the ICs, f32, unfrozen, with their plain versions and bounds (the
+    kernel's time its device time in a profiler trace, device_ms; the
+    CUDA-event time of a burst beside it as burst_us), and the
+    exchange of one step of each on the 2x2 mesh of shards on one card
+    (parallel/halo.py::refresh_halos, four shards); prints phases
+    k8_timing, k9_timing and halo_exchange_timing. Returns {("k8", None) |
+    ("k9", s): (kernel ms, plain ms, bound ms, bound_by)}."""
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import fused_shard_rkc as f9
+    from crdmodel_tpu_torch.ops import fused_shard_step as f8
+    from crdmodel_tpu_torch.ops.fused_rkc import static_stage_tables
+    from crdmodel_tpu_torch.parallel.halo import refresh_halos
+
+    timings = {}
+    dtype = torch.float32
+    zero = torch.zeros((), dtype=dtype, device="cuda")
+    mesh = shard_mesh(SHARD_MESH)
+    problem = build_problem(dataclasses.replace(cfg8, t_boundary=0.0),
+                            "cuda")
+    y_np = problem.y0.cpu().numpy()
+    bufs, consts = shard_inputs(problem, mesh, y_np, dtype, f8.HALO)
+    tab = TABLEAUS["bs32"]
+    args = (bufs[0], torch.tensor(H, device="cuda"), zero, consts[0], tab,
+            cfg8.rtol, cfg8.atol)
+    burst = median_ms(lambda: f8.fused_shard_step(*args))
+    t8 = (device_ms(lambda: f8.fused_shard_step(*args),
+                    "fused_erk_tile_kernel"),
+          median_ms(lambda: f8.fused_shard_step_reference(*args)),
+          *shard_bound(bufs[0], consts[0], erk_ops(consts[0], tab)))
+    timings["k8", None] = t8
+    phase("k8_timing", shape=list(bufs[0].shape), halo=f8.HALO,
+          method="bs32", dtype="float32", kernel_us=t8[0] * 1e3,
+          burst_us=burst * 1e3, plain_us=t8[1] * 1e3,
+          bound_us=t8[2] * 1e3, bound_by=t8[3], card=card)
+    ex8 = median_ms(lambda: refresh_halos(bufs, mesh, f8.HALO))
+    phase("halo_exchange_timing", mesh=list(SHARD_MESH), shards_on="cuda:0",
+          halo=f8.HALO, buffer=list(bufs[0].shape), exchange_us=ex8 * 1e3,
+          copies=4 * len(bufs), card=card)
+    del problem, bufs, consts
+
+    problem = build_problem(cfg9, "cuda")
+    y_np = problem.y0.cpu().numpy()
+    bufs, consts = shard_inputs(problem, mesh, y_np, dtype, f9.P_RKC)
+    mu1, ctab = static_stage_tables(f9.S_MAX_KERNEL, dtype, "cuda")
+    tables = sum(t.numel() * t.element_size() for t in (mu1, ctab))
+    rho = problem_rho(problem, problem.y0)
+    for s in K9_TIMED_STAGES:
+        hs, st = rkc_step_inputs(s, rho, dtype)
+        args = (bufs[0], hs, zero, st, mu1, ctab, consts[0], cfg9.rtol,
+                cfg9.atol)
+        burst = median_ms(lambda: f9.fused_shard_rkc_step(*args),
+                          *WIDE_TIMED)
+        t9 = (device_ms(lambda: f9.fused_shard_rkc_step(*args),
+                        "fused_rkc_step_kernel", WIDE_TIMED[0]),
+              median_ms(lambda: f9.fused_shard_rkc_step_reference(*args),
+                        *WIDE_TIMED),
+              *shard_bound(bufs[0], consts[0], rkc_ops(consts[0], s),
+                           tables))
+        timings["k9", s] = t9
+        phase("k9_timing", shape=list(bufs[0].shape), halo=f9.P_RKC, s=s,
+              dtype="float32", kernel_us=t9[0] * 1e3, burst_us=burst * 1e3,
+              plain_us=t9[1] * 1e3, bound_us=t9[2] * 1e3, bound_by=t9[3],
+              samples=list(WIDE_TIMED), card=card)
+    ex9 = median_ms(lambda: refresh_halos(bufs, mesh, f9.P_RKC))
+    phase("halo_exchange_timing", mesh=list(SHARD_MESH), shards_on="cuda:0",
+          halo=f9.P_RKC, buffer=list(bufs[0].shape), exchange_us=ex9 * 1e3,
+          copies=4 * len(bufs), card=card)
+    return timings
+
+
+def run_sharded_rkc2(cfg, rkc2_probes, mesh, name):
+    """The large FHN torus through simulate_sharded() on `mesh` (auto
+    selection: K9), held against the port's single-device run through K2
+    on the card, in this call: steps within the JAX f32-f64 distance of the
+    canonical rkc2 run (2.78%), the final field within that run's JAX
+    f32-f64 probe gap plus 1e-4 (as main_path_wide_fhn_rkc2). Prints phase
+    `name`; returns K9's launches."""
+    from crdmodel_tpu_torch.ops import fused_rkc, fused_shard_rkc
+
+    kernel = fused_shard_rkc.fused_shard_rkc_step
+    res, counts = drive_main_path(cfg, {}, mesh)
+    launches = counts[kernel.__name__]
+    checks = run_checks(cfg, res, kernel, launches, mesh.size)
+    final = res.trajectory[-1].clone()
+    steps, wall, status = res.total_steps(), res.wall_time, res.describe()
+    stats = res.stats
+    del res
+    fused_rkc.fused_rkc_step.launches = 0
+    ref = run_program(cfg, {})
+    ref_launches = fused_rkc.fused_rkc_step.launches
+    ref_steps = ref.total_steps()
+    gap = float((final - ref.trajectory[-1]).abs().max())
+    f32_gap = float(np.abs(rkc2_probes["probes_f32"]
+                           - rkc2_probes["probes_f64"]).max())
+    limit = f32_gap + 1e-4
+    step_tol = abs(int(rkc2_probes["steps_f32"].sum())
+                   - int(rkc2_probes["steps_f64"].sum())) / int(
+                       rkc2_probes["steps_f32"].sum())
+    points = cfg.nx * cfg.ny
+    phase(name, config="scripts/bench_suite.py:48-54 fhn torus 6400x1600 "
+          "Tf=1 rkc2", selection=selection_note(cfg),
+          mesh=list(mesh.shape),
+          devices=[str(d) for d in mesh.device_list()],
+          grid=[cfg.ny, cfg.nx], method=cfg.method, dtype=cfg.dtype,
+          status=status, steps=steps, accepted=int(stats.accepted.sum()),
+          rejected=int(stats.rejected.sum()), kernel=kernel.__name__,
+          launches=counts, wall_s=wall, us_per_step=wall / steps * 1e6,
+          points_steps_per_s=points * steps / wall,
+          single_device=dict(status=ref.describe(), fused=ref.fused,
+                             steps=ref_steps, wall_s=ref.wall_time,
+                             fused_rkc_step_launches=ref_launches,
+                             points_steps_per_s=points * ref_steps
+                             / ref.wall_time),
+          step_limit=step_tol, final_max_abs_vs_single_device=gap,
+          final_limit=limit, card=card_line())
+    least, _ = launch_bound(cfg, ref_steps)
+    checks.update({
+        "single-device run ok through K2": ref.ok and ref.fused
+            and ref_launches >= least,
+        f"steps within {step_tol:.2%} of the single-device run":
+            abs(steps - ref_steps) <= step_tol * ref_steps,
+        "final field vs the single-device run": gap <= limit,
+    })
+    fail_unless(name, checks)
+    return launches
+
+
+def sharded_main_paths(cfg, probes, single_fhn):
+    """main_path_sharded_fhn (the canonical FHN torus `cfg`, K8, held to the
+    JAX goldens and to the single-device K1 run `single_fhn`) and
+    main_path_sharded_fhn_rkc2 (the large FHN torus, K9) on a 2x2 mesh of
+    shards on cuda:0 and, with four cards or more, again (phases tagged
+    _4cards) with shard i on cuda:i. Returns the 2x2 runs' launches of K8
+    and K9."""
+    from crdmodel_tpu_torch.ops import fused_shard_step
+    meshes = [shard_mesh(SHARD_MESH)]
+    if torch.cuda.device_count() >= 4:
+        meshes.append(shard_mesh(SHARD_MESH, [f"cuda:{i}" for i in range(4)]))
+    launches = []
+    for i, mesh in enumerate(meshes):
+        tag = "" if i == 0 else "_4cards"
+        n8 = run_main_path(
+            cfg, probes["fhn", "bs32"], fused_shard_step.fused_shard_step,
+            0.01, "main_path_sharded_fhn" + tag,
+            "data/FHNmodelArgs.ini fhn torus", mesh=mesh, versus=single_fhn)
+        n9 = run_sharded_rkc2(large_fhn_torus(), probes["fhn", "rkc2"], mesh,
+                              "main_path_sharded_fhn_rkc2" + tag)
+        launches.append((n8, n9))
+    return launches[0]
+
+
+def load_probes():
+    """Every golden of PROBES: {(model, method): {name: array}}."""
+    probes = {}
+    for key, path in PROBES.items():
+        with np.load(path) as z:
+            probes[key] = {k: z[k] for k in z.files}
+    return probes
+
+
+def shard_phases(cfg, probes, single_fhn, card):
+    """The sharded paths' phases: K8 and K9 against their plain versions
+    (k8_check, k9_check) on the canonical torus's 2x2 shards (800x200; the
+    beta ramp, a freeze), the flat FHN's (scalar beta), the uneven 1x3 mesh
+    (blocks of 134, 134 and 132 columns, padded and mirrored) and K9 on the
+    large torus's 2x2 shards (3200x800); their timings and the halo
+    exchange's; the canonical FHN torus through simulate_sharded() on a 2x2
+    mesh (main_path_sharded_fhn, K8; held to the JAX goldens and to the
+    single-device K1 run `single_fhn` of this call) and the large FHN torus
+    with rkc2 (main_path_sharded_fhn_rkc2, K9; held to the single-device K2
+    run). Every shard lives on cuda:0; with four cards or more each path
+    runs again with one shard on each card. Returns K8's and K9's entries
+    of the kernels line."""
+    cfg_flat = dataclasses.replace(cfg, surface="flat", vary_beta=0)
+    cfg_large = large_fhn_torus()
+    worst8, worst9 = check_shard_kernels([
+        ("canonical_2x2", cfg, SHARD_MESH, (0, 3), True, True),
+        ("flat_2x2", cfg_flat, SHARD_MESH, (0, 3), True, True),
+        ("canonical_uneven_1x3", cfg, UNEVEN_MESH, (0, 1, 2), True, True),
+        ("large_rkc2_2x2", cfg_large, SHARD_MESH, (0,), False, True)],
+        SEED + 9)
+    timings = shard_timings(cfg, cfg_large, card)
+    launches8, launches9 = sharded_main_paths(cfg, probes, single_fhn)
+    return [
+        kernel_entry("fused_shard_step", "fused_shard_step.cu",
+                     "crdmodel_tpu/ops/pallas_shard_step.py:105", launches8,
+                     worst8, timings["k8", None]),
+        kernel_entry("fused_shard_rkc_step", "fused_shard_rkc.cu",
+                     "crdmodel_tpu/ops/pallas_shard_rkc.py:86", launches9,
+                     worst9, timings["k9", max(K9_TIMED_STAGES)])]
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("no CUDA device: chip_smoke.py needs an NVIDIA GPU")
@@ -1234,7 +1650,9 @@ def main():
           ptxas_fused_rkc=_build.ptxas_report("fused_rkc.cu"),
           ptxas_fused_aniso=_build.ptxas_report("fused_aniso.cu"),
           ptxas_fused_box3d=ptxas_summary("fused_box3d.cu"),
-          ptxas_fused_box3d_rkc=ptxas_summary("fused_box3d_rkc.cu"))
+          ptxas_fused_box3d_rkc=ptxas_summary("fused_box3d_rkc.cu"),
+          ptxas_fused_shard_step=ptxas_summary("fused_shard_step.cu"),
+          ptxas_fused_shard_rkc=ptxas_summary("fused_shard_rkc.cu"))
     cfg_ap, ap_build = bounded_tissue()
     cfg_ap_rkc = dataclasses.replace(cfg_ap, method="rkc2")
     cfg_wide = wide_sheet()
@@ -1253,11 +1671,22 @@ def main():
                     "fused_box3d_rkc_kernel")
         profile_run(cfg_box, box_scar(cfg_box), tf,
                     "fused_box3d_step_kernel")
+        profile_run(config_from_ini(INI, model="fhn", surface="torus"), {},
+                    5.0, "HaloGrid", mesh=shard_mesh(SHARD_MESH))
+        profile_run(large_fhn_torus(), {}, 0.2, "HaloGrid",
+                    mesh=shard_mesh(SHARD_MESH))
+        return
+    cfg = config_from_ini(INI, model="fhn", surface="torus")
+    fhn_label = "data/FHNmodelArgs.ini fhn torus"
+    if sys.argv[1:] == ["--sharded"]:
+        probes, single_fhn = load_probes(), {}
+        run_main_path(cfg, probes["fhn", "bs32"], fused_step.fused_step, 0.01,
+                      "main_path", fhn_label, keep=single_fhn)
+        sharded_main_paths(cfg, probes, single_fhn)
         return
     if sys.argv[1:]:
         sys.exit(f"unknown arguments {sys.argv[1:]}; see the docstring")
 
-    cfg = config_from_ini(INI, model="fhn", surface="torus")
     cfg_flat = dataclasses.replace(cfg, surface="flat", vary_beta=0)
     cfg_gb = config_from_ini(GB_INI, model="goldbeter", surface="torus",
                              use_pallas=True)
@@ -1351,15 +1780,12 @@ def main():
           plain_us=k5_timing[1] * 1e3, bound_us=k5_timing[2] * 1e3,
           bound_by=k5_timing[3], card=card)
 
-    probes = {}
-    for key, path in PROBES.items():
-        with np.load(path) as z:
-            probes[key] = {k: z[k] for k in z.files}
-    fhn_label = "data/FHNmodelArgs.ini fhn torus"
+    probes = load_probes()
     gb_label = "data/GoldbeterModelArgs.ini goldbeter torus"
+    single_fhn = {}
     launches = run_main_path(cfg, probes["fhn", "bs32"],
                              fused_step.fused_step, 0.01, "main_path",
-                             fhn_label)
+                             fhn_label, keep=single_fhn)
     # at least 2%: the JAX package's own fused and XLA rkc2 step counts
     # differ by 1.6% (docs/PERF_NOTES.md), and the card's fused run is held
     # against a CPU run of the XLA stepper; the JAX f32 and f64 rkc2 runs
@@ -1404,6 +1830,7 @@ def main():
                                    aniso_build["diffusion_tensor"]))
 
     box_entries = box_phases(cfg_box, card)
+    shard_entries = shard_phases(cfg, probes, single_fhn, card)
 
     k2_s = max(timing2)     # the stability-bound step: the larger time
     k3_shape = (2, cfg_gb.ny, cfg_gb.nx)    # the ark324 main path's shape
@@ -1426,7 +1853,7 @@ def main():
         kernel_entry("fused_aniso_step", "fused_aniso.cu",
                      "crdmodel_tpu/ops/pallas_aniso.py:82", launches5,
                      worst5, k5_timing),
-        *box_entries]}))
+        *box_entries, *shard_entries]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

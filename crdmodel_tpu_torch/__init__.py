@@ -11,6 +11,8 @@ __version__ = "0.1.0"
 from crdmodel_tpu_torch.config import SimConfig, config_from_ini, load_ini
 from crdmodel_tpu_torch.core.grid import FlatGeometry, Grid, TorusGeometry
 from crdmodel_tpu_torch.core.problem import Problem, build_problem
+from crdmodel_tpu_torch.parallel.mesh import make_mesh
+from crdmodel_tpu_torch.parallel.sharded import simulate_sharded
 from crdmodel_tpu_torch.sim import SimResult, simulate
 
 __all__ = [
@@ -23,6 +25,8 @@ __all__ = [
     "Problem",
     "build_problem",
     "simulate",
+    "simulate_sharded",
+    "make_mesh",
     "SimResult",
     "__version__",
 ]

@@ -305,11 +305,12 @@ def make_rho_bound(cfg: SimConfig, model: ReactionModel, geometry: Geometry,
     Ported: the constant-D torus and flat operators, the divergence form
     (diffusion_field, with face_mask closing faces) and the 2-D tensor
     operator (diffusion_tensor), and on the box the six-face divergence
-    form and the 19-point tensor operator with its three mixed pairs. Not
-    ported yet: max_reduce (sharding, ROADMAP queue 1, item 15)."""
-    if max_reduce is not None:
-        raise NotImplementedError("max_reduce is not ported yet (ROADMAP "
-                                  "queue 1, item 15)")
+    form and the 19-point tensor operator with its three mixed pairs.
+
+    max_reduce(fn, y, b): for a sharded state, the max over the shards of
+    fn(block, its beta) as one 0-d tensor on the control device
+    (parallel/sharded.py::make_max_reduce; JAX's pmax), so that every shard
+    takes the same stage count."""
     if diffusion_tensor is not None:
         # the axis part as the divergence bound below; the mixed pair has
         # a zero diagonal and 8 off-diagonal entries of magnitude at most
@@ -352,10 +353,16 @@ def make_rho_bound(cfg: SimConfig, model: ReactionModel, geometry: Geometry,
         raise ValueError(f"model {model.name} has no jac_bound; "
                          "rkc2 unsupported")
 
+    def kinetics_max(y, b):
+        return torch.max(model.jac_bound(y, b).to(dtype))
+
     def rho(t, y, params):
         if just_diffusion:
             return torch.full((), rho_diff, dtype=dtype, device=y.device)
-        jb = torch.max(model.jac_bound(y, params["b"]).to(dtype))
+        if max_reduce is None:
+            jb = kinetics_max(y, params["b"])
+        else:
+            jb = max_reduce(kinetics_max, y, params["b"])
         return jb + rho_diff
 
     return rho

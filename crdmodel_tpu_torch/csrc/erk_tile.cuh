@@ -1,7 +1,11 @@
 // The tile scheme of the port's fused embedded-ERK step kernels: K1
-// (fused_step.cu, the 5-point profile operator) and K4 (fused_divform.cu,
-// the divergence-form operator). The two differ only in the right-hand side
-// at a point, a functor the kernel template takes.
+// (fused_step.cu, the 5-point profile operator), K4 (fused_divform.cu, the
+// divergence-form operator), K5 (fused_aniso.cu) and K8
+// (fused_shard_step.cu, K1 on one shard of a mesh). They differ in the
+// right-hand side at a point, a functor the kernel template takes, and in
+// the grid the tile reads, a policy it takes (rhs_common.cuh): WrapGrid,
+// the periodic grid, whose halo is a modular index at load (K1, K4, K5),
+// or HaloGrid, one shard's block inside a halo the exchange filled (K8).
 //
 // One launch performs a whole step: every stage's stencil and kinetics, the
 // solution update, and one partial sum of squared WRMS-scaled errors per
@@ -9,7 +13,7 @@
 // launches on the same input give bitwise-equal results).
 //
 // Each thread block owns a tile of tile_y x tile_x points and loads it with
-// a halo of n_stages rings (the periodic wrap is a modular index at load).
+// a halo of n_stages rings, read through the grid policy.
 // Stage s is evaluated from shared memory on a region that shrinks by one
 // ring per stage, so the last stage is valid on the tile and no stage value
 // ever goes to device memory. All stages are evaluated (no FSAL). The
@@ -21,7 +25,8 @@
 //
 // The functor: rhs(fz, su, sv, p, W, gy, gx, du, dv) writes ydot at local
 // point p of a region with row stride W holding u in su and v in sv, whose
-// global indices are (gy, gx); fz is the freeze scalar of the segment.
+// indices into the RHS's constants are (gy, gx) = (grid.row, grid.col) of
+// the point; fz is the freeze scalar of the segment.
 
 #pragma once
 
@@ -63,11 +68,13 @@ inline size_t erk_tile_smem(int n_stages, int tile_x, int tile_y,
          * (tile_y + 2 * n_stages) * itemsize;
 }
 
-template <class Rhs, typename T>
+// ny x nx is the extent the tiles cover: the grid's, or the shard's block.
+template <class Rhs, class Grid, typename T>
 __global__ void __launch_bounds__(kErkThreads) fused_erk_tile_kernel(
     const T* __restrict__ y, T* __restrict__ y_new, T* __restrict__ ss,
     const T* __restrict__ h_ptr, const T* __restrict__ fz_ptr, Rhs rhs,
-    int ny, int nx, int tile_x, int tile_y, StageTable tab, T rtol, T atol) {
+    Grid grid, int ny, int nx, int tile_x, int tile_y, StageTable tab,
+    T rtol, T atol) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ T warp_sums[kErkThreads / 32];
   T* smem = reinterpret_cast<T*>(smem_raw);
@@ -83,12 +90,11 @@ __global__ void __launch_bounds__(kErkThreads) fused_erk_tile_kernel(
   T* ks = yiv + np;                   // stage s: u at ks + 2s*np, v after
   const int gx0 = blockIdx.x * tile_x - halo;
   const int gy0 = blockIdx.y * tile_y - halo;
-  const size_t plane = static_cast<size_t>(ny) * nx;
+  const size_t plane = grid.plane();
 
   for (int p = threadIdx.x; p < np; p += blockDim.x) {
     const int ly = p / W, lx = p - ly * W;
-    const size_t g = static_cast<size_t>(wrap(gy0 + ly, ny)) * nx
-                     + wrap(gx0 + lx, nx);
+    const size_t g = grid.at(gy0 + ly, gx0 + lx);
     y0u[p] = y[g];
     y0v[p] = y[plane + g];
   }
@@ -127,7 +133,7 @@ __global__ void __launch_bounds__(kErkThreads) fused_erk_tile_kernel(
     for (int q = threadIdx.x; q < w * r; q += blockDim.x) {
       const int ly = dep + q / w, lx = dep + q % w;
       const int p = ly * W + lx;
-      rhs(fz, su, sv, p, W, wrap(gy0 + ly, ny), wrap(gx0 + lx, nx), ku[p],
+      rhs(fz, su, sv, p, W, grid.row(gy0 + ly), grid.col(gx0 + lx), ku[p],
           kv[p]);
     }
     __syncthreads();
@@ -155,9 +161,10 @@ __global__ void __launch_bounds__(kErkThreads) fused_erk_tile_kernel(
         ev = ev + hd * ku[np + p];
       }
     }
-    const size_t g = static_cast<size_t>(gy) * nx + gx;
+    const size_t g = grid.at(gy, gx);
     y_new[g] = nu;
     y_new[plane + g] = nv;
+    if (!grid.counted(gy, gx)) continue;   // a pad cell of a padded mesh
     const T wu = eu * (T(1) / (rtol * fabs(u0) + atol));
     const T wv = ev * (T(1) / (rtol * fabs(v0) + atol));
     acc = acc + wu * wu;
@@ -167,27 +174,39 @@ __global__ void __launch_bounds__(kErkThreads) fused_erk_tile_kernel(
   store_block_sum<T, kErkThreads>(acc, warp_sums, ss);
 }
 
-// Launch one step of fused_erk_tile_kernel<Rhs, T> on `stream`; returns the
-// CUDA error code (0 on success), checked right after the launch.
+// Launch one step of fused_erk_tile_kernel<Rhs, Grid, T> over ny x nx
+// points on `stream`; returns the CUDA error code (0 on success), checked
+// right after the launch.
+template <class Rhs, typename T, class Grid>
+int launch_erk_tile_on(Rhs rhs, Grid grid, const void* y, void* y_new,
+                       void* ss, const void* h, const void* fz, int ny,
+                       int nx, int tile_x, int tile_y, const StageTable& tab,
+                       double rtol, double atol, void* stream) {
+  if (ny < 1 || nx < 1 || tile_x < 1 || tile_y < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = erk_tile_smem(tab.n, tile_x, tile_y, sizeof(T));
+  auto kernel = &fused_erk_tile_kernel<Rhs, Grid, T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 blocks((nx + tile_x - 1) / tile_x, (ny + tile_y - 1) / tile_y);
+  kernel<<<blocks, kErkThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(y), static_cast<T*>(y_new), static_cast<T*>(ss),
+      static_cast<const T*>(h), static_cast<const T*>(fz), rhs, grid, ny,
+      nx, tile_x, tile_y, tab, static_cast<T>(rtol), static_cast<T>(atol));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// launch_erk_tile_on the periodic ny x nx grid (K1, K4, K5)
 template <class Rhs, typename T>
 int launch_erk_tile(Rhs rhs, const void* y, void* y_new, void* ss,
                     const void* h, const void* fz, int ny, int nx, int tile_x,
                     int tile_y, const StageTable& tab, double rtol,
                     double atol, void* stream) {
-  if (ny < 1 || nx < 1 || tile_x < 1 || tile_y < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = erk_tile_smem(tab.n, tile_x, tile_y, sizeof(T));
-  auto kernel = &fused_erk_tile_kernel<Rhs, T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((nx + tile_x - 1) / tile_x, (ny + tile_y - 1) / tile_y);
-  kernel<<<grid, kErkThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(y), static_cast<T*>(y_new), static_cast<T*>(ss),
-      static_cast<const T*>(h), static_cast<const T*>(fz), rhs, ny, nx,
-      tile_x, tile_y, tab, static_cast<T>(rtol), static_cast<T>(atol));
-  return static_cast<int>(cudaGetLastError());
+  return launch_erk_tile_on<Rhs, T>(rhs, WrapGrid{ny, nx}, y, y_new, ss, h,
+                                    fz, ny, nx, tile_x, tile_y, tab, rtol,
+                                    atol, stream);
 }
 
 }  // namespace crd

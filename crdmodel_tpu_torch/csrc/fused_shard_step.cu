@@ -1,0 +1,94 @@
+// Fused embedded-ERK step of the 5-point profile operator on one shard of a
+// 2-D mesh, with FitzHugh-Nagumo, Goldbeter or Aliev-Panfilov kinetics
+// (kernel K8 of the port).
+//
+// Replaces crdmodel_tpu/ops/pallas_shard_step.py::build_fused_shard_step,
+// the Pallas TPU kernel that takes every attempted step of a sharded ERK
+// run (the JAX package's multi-chip hot path). It is K1 (fused_step.cu) on
+// one shard: one exchange of width P >= n_stages a step
+// (parallel/halo.py::refresh_halos) fills the halo of the shard's buffer,
+// and one launch computes every stage, the solution update, and one partial
+// sum of squared WRMS-scaled errors per thread block over the PHYSICAL
+// cells. The caller adds every shard's partials in a fixed order, so every
+// shard takes the same accept/reject decision.
+//
+// The tile scheme is K1's (erk_tile.cuh) with the HaloGrid policy
+// (rhs_common.cuh): the tile loads its n_stages-ring halo from the buffer,
+// no index wraps (the wrap is the exchange's job), and the RHS indexes the
+// shard's halo-padded constants (three (nxl + 2P) profiles or three
+// scalars, beta and the freeze mask as (nyl + 2P) rows). On a mesh that
+// does not divide the grid the kernel runs the JAX kernels' mirror-pad
+// semantics: pad cells step like their wrapped sources, whose constants
+// they carry, and only the first valid_rows x valid_cols cells of the block
+// enter the error sum. Only the block of y_new is written; its halo is the
+// next exchange's.
+//
+// What bounds it on an H100: the shard's buffer (2 x (nyl+2P) x (nxl+2P)) is
+// read once and y_new's block written once, as for K1: a step is bound by
+// latency, the block's barriers between stages and the shared stage
+// buffers, and by the host's launches and halo copies around the kernel.
+
+#include <cuda_runtime.h>
+
+#include "erk_tile.cuh"
+#include "rhs_common.cuh"
+
+namespace {
+
+using crd::HaloGrid;
+using crd::ProfileRhs;
+
+template <typename T>
+int launch(const void* y, void* y_new, void* ss, const void* h,
+           const void* fz, const void* c0, const void* c1, const void* c2,
+           int torus, const void* beta, int beta_field, const void* mask,
+           int has_freeze, int kinetics, int nyl, int nxl, int halo,
+           int valid_rows, int valid_cols, int tile_x, int tile_y,
+           int n_stages, const double* a, const double* b, const double* d,
+           double rtol, double atol, void* stream) {
+  crd::StageTable tab;
+  if (!crd::make_stage_table(n_stages, a, b, d, &tab)
+      || !crd::valid_kinetics(kinetics) || halo < n_stages
+      || valid_rows < 0 || valid_rows > nyl || valid_cols < 0
+      || valid_cols > nxl)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const crd::RhsConstants<T> k = {
+      static_cast<const T*>(c0), static_cast<const T*>(c1),
+      static_cast<const T*>(c2), torus, static_cast<const T*>(beta),
+      beta_field, static_cast<const T*>(mask), has_freeze};
+  const HaloGrid grid = {nyl, nxl, halo, valid_rows, valid_cols};
+  if (kinetics == crd::kFhn)
+    return crd::launch_erk_tile_on<ProfileRhs<crd::kFhn, T>, T>(
+        {k}, grid, y, y_new, ss, h, fz, nyl, nxl, tile_x, tile_y, tab, rtol,
+        atol, stream);
+  if (kinetics == crd::kGoldbeter)
+    return crd::launch_erk_tile_on<ProfileRhs<crd::kGoldbeter, T>, T>(
+        {k}, grid, y, y_new, ss, h, fz, nyl, nxl, tile_x, tile_y, tab, rtol,
+        atol, stream);
+  return crd::launch_erk_tile_on<ProfileRhs<crd::kAlievPanfilov, T>, T>(
+      {k}, grid, y, y_new, ss, h, fz, nyl, nxl, tile_x, tile_y, tab, rtol,
+      atol, stream);
+}
+
+}  // namespace
+
+#define CRD_FUSED_SHARD_STEP_ARGS                                            \
+  const void *y, void *y_new, void *ss, const void *h, const void *fz,      \
+      const void *c0, const void *c1, const void *c2, int torus,            \
+      const void *beta, int beta_field, const void *mask, int has_freeze,   \
+      int kinetics, int nyl, int nxl, int halo, int valid_rows,             \
+      int valid_cols, int tile_x, int tile_y, int n_stages,                 \
+      const double *a, const double *b, const double *d, double rtol,       \
+      double atol, void *stream
+#define CRD_FUSED_SHARD_STEP_PASS                                            \
+  y, y_new, ss, h, fz, c0, c1, c2, torus, beta, beta_field, mask,           \
+      has_freeze, kinetics, nyl, nxl, halo, valid_rows, valid_cols, tile_x, \
+      tile_y, n_stages, a, b, d, rtol, atol, stream
+
+extern "C" int crd_fused_shard_step_f32(CRD_FUSED_SHARD_STEP_ARGS) {
+  return launch<float>(CRD_FUSED_SHARD_STEP_PASS);
+}
+
+extern "C" int crd_fused_shard_step_f64(CRD_FUSED_SHARD_STEP_ARGS) {
+  return launch<double>(CRD_FUSED_SHARD_STEP_PASS);
+}

@@ -57,6 +57,66 @@ __device__ __forceinline__ int wrap(int i, int n) {
   return i < 0 ? i + n : i;
 }
 
+// The grid a kernel's tile reads. The tile's region covers points (gy, gx)
+// that may lie up to its halo outside the extent the tiles cover; at(gy,
+// gx) is a point's offset in one variable's plane of the state, plane()
+// that plane's size, row(gy) and col(gx) the indices of the point into the
+// RHS's row and column constants (beta, the freeze mask, the profiles), and
+// counted(gy, gx) whether a point of the extent enters the error sum.
+//
+// WrapGrid: the periodic ny x nx grid of the single-device kernels; the
+// wrap is a modular index.
+struct WrapGrid {
+  int ny;
+  int nx;
+
+  __device__ __forceinline__ int row(int gy) const { return wrap(gy, ny); }
+  __device__ __forceinline__ int col(int gx) const { return wrap(gx, nx); }
+  __device__ __forceinline__ size_t at(int gy, int gx) const {
+    return static_cast<size_t>(row(gy)) * nx + col(gx);
+  }
+  __device__ __forceinline__ size_t plane() const {
+    return static_cast<size_t>(ny) * nx;
+  }
+  __device__ __forceinline__ bool counted(int, int) const { return true; }
+};
+
+// HaloGrid: one shard's nyl x nxl block stored inside a halo of `halo`
+// rings, (nyl + 2 halo) x (nxl + 2 halo), which the exchange filled
+// (parallel/halo.py::refresh_halos): no index wraps. The constants are the
+// shard's, halo-padded the same way (ops/kernel_common.py::
+// make_shard_constants). On a padded mesh only the first valid_rows x
+// valid_cols points of the block are physical; the others are mirror-pad
+// cells, stepped like their sources and left out of the error sum. A
+// tile's region reaches at most `halo` rings before the block's start, but
+// the last tiles' regions can reach further than `halo` past its end; those
+// points are clamped onto the buffer's last row (column). They feed only
+// points at least `halo` - n rings beyond the block (n <= halo the rings a
+// step consumes), none of which is written.
+struct HaloGrid {
+  int nyl;
+  int nxl;
+  int halo;
+  int valid_rows;
+  int valid_cols;
+
+  __device__ __forceinline__ int row(int gy) const {
+    return min(gy + halo, nyl + 2 * halo - 1);
+  }
+  __device__ __forceinline__ int col(int gx) const {
+    return min(gx + halo, nxl + 2 * halo - 1);
+  }
+  __device__ __forceinline__ size_t at(int gy, int gx) const {
+    return static_cast<size_t>(row(gy)) * (nxl + 2 * halo) + col(gx);
+  }
+  __device__ __forceinline__ size_t plane() const {
+    return static_cast<size_t>(nyl + 2 * halo) * (nxl + 2 * halo);
+  }
+  __device__ __forceinline__ bool counted(int gy, int gx) const {
+    return gy < valid_rows && gx < valid_cols;
+  }
+};
+
 // The RHS's constant inputs, all on the device: the stencil (three (nx,)
 // profiles on the torus, three scalars on the flat surface), beta (a
 // scalar or an (ny,) field) and the (ny,) interior-row mask.

@@ -17,8 +17,11 @@ condition only once every `sync_every` iterations: a block of iterations
 may run past the end, and those iterations change nothing.
 
 Ported: scalar mode with step_mode="tstop", the ERK tableaus, RKC2
-(integrate/rkc.py, with the h cap h_limit_fn) and the ark324 IMEX pair
-(integrate/imex.py). Not ported yet (ROADMAP queue 1, item 14): member
+(integrate/rkc.py, with the h cap h_limit_fn), the ark324 IMEX pair
+(integrate/imex.py), and the sharded run's reduce_fn: with a state that is
+a parallel/shards.Shards, the steppers' sums stay per shard and reduce_fn
+adds them on the control device (parallel/sharded.py), so every shard
+takes the same steps. Not ported yet (ROADMAP queue 1, item 14): member
 batching, speculative K-step batching, ARK_NORMAL mode and sync_fn
 (ensembles).
 """
@@ -126,20 +129,23 @@ class SolveStats(NamedTuple):
     status: torch.Tensor    # 0 ok; 1 max-steps exceeded; 2 dt underflow
 
 
-def wrms_norm(e, y, rtol, atol, global_size=None):
-    """SUNDIALS weighted RMS norm of error e with weights from solution y."""
+def wrms_norm(e, y, rtol, atol, global_size=None, reduce_fn=None):
+    """SUNDIALS weighted RMS norm of error e with weights from solution y.
+    reduce_fn(x) -> 0-d sum of the squared scaled errors x (the sharded
+    run's cross-shard sum); None sums x on its device."""
     w = 1.0 / (rtol * torch.abs(y) + atol)
-    ss = torch.sum(torch.square(e * w))
+    sq = torch.square(e * w)
+    ss = torch.sum(sq) if reduce_fn is None else reduce_fn(sq)
     n = global_size if global_size is not None else e.numel()
     return torch.sqrt(ss / n)
 
 
 def _initial_step(rhs, t0, y0, f0, params, tout, rtol, atol, err_order,
-                  global_size):
+                  global_size, reduce_fn=None):
     """Hairer-style automatic initial step size, as a 0-d tensor in y0's
     dtype (crdmodel_tpu/integrate/erk.py:148)."""
     def nrm(v, ref):
-        return wrms_norm(v, ref, rtol, atol, global_size)
+        return wrms_norm(v, ref, rtol, atol, global_size, reduce_fn)
 
     d0 = nrm(y0, y0)
     d1 = nrm(f0, y0)
@@ -216,7 +222,8 @@ def make_default_step_err(tableau: Tableau, rhs: Callable, rtol, atol):
 def integrate_interval(step_err, t0, y0, h_init, err_prev_init, tout, params,
                        *, err_order, max_steps, global_size, carry0=(),
                        first_interval=False, status0=None,
-                       h_limit_fn=None, sync_every=SYNC_EVERY):
+                       h_limit_fn=None, sync_every=SYNC_EVERY,
+                       reduce_fn=None):
     """Integrate from (t0, y0) to tout with adaptive steps.
 
     t0, h_init, err_prev_init and tout are 0-d tensors in y0's dtype on
@@ -226,7 +233,10 @@ def integrate_interval(step_err, t0, y0, h_init, err_prev_init, tout, params,
     relaxes the growth cap to ETA_MAX_FIRST until the first accepted step
     (ARKode's etamx1). h_limit_fn(t, y, params) -> 0-d tensor: a hard cap
     on every attempted step, applied after the clamp onto tout (the fused
-    RKC kernel's stage budget, ops/fused_rkc.py).
+    RKC kernel's stage budget, ops/fused_rkc.py). reduce_fn(err_ss) -> the
+    0-d global sum of step_err's partial sums (crdmodel_tpu/integrate/
+    erk.py:342); None takes err_ss as the sum. With a Shards state, y's
+    dtype and device are those of shard 0, which holds the control state.
     """
     dtype, device = y0.dtype, y0.device
     inv_q = 1.0 / float(err_order)
@@ -241,6 +251,8 @@ def integrate_interval(step_err, t0, y0, h_init, err_prev_init, tout, params,
         last = hs >= tout - t
 
         y_new, err_ss, fc_new = step_err(t, y, hs, params, fc)
+        if reduce_fn is not None:
+            err_ss = reduce_fn(err_ss)
         err = torch.sqrt(err_ss / global_size).to(dtype)
         err = torch.where(torch.isfinite(err), err, torch.inf)
         raw_accept = err <= 1.0
@@ -270,7 +282,7 @@ def integrate_interval(step_err, t0, y0, h_init, err_prev_init, tout, params,
         y_next = torch.where(accept, y_new, y)
         ep_next = torch.where(accept, err_c, ep)
         epp_next = torch.where(accept, ep, epp)
-        if isinstance(fc, torch.Tensor):
+        if not isinstance(fc, tuple):     # () is the empty carry
             fc = torch.where(accept, fc_new, fc)
 
         # dt underflow: the step no longer advances time
@@ -350,7 +362,8 @@ def integrate_to_outputs(rhs, y0, params, t0, touts, *, rtol, atol,
                          err_order=None, step_mode="tstop", n_members=0,
                          spec_k=0, kstep_call=None, rho_fn=None,
                          h_limit_fn=None, rhs_split=None, sync_fn=None,
-                         sync_every=SYNC_EVERY):
+                         sync_every=SYNC_EVERY, reduce_fn=None,
+                         y_loop0=None, capture=None):
     """Integrate through each output time and return the state at each
     (reference src/FHNmodel_torus.cpp:413-478).
 
@@ -364,7 +377,11 @@ def integrate_to_outputs(rhs, y0, params, t0, touts, *, rtol, atol,
     through the composed rhs. rho_fn: the spectral-radius bound the rkc2
     stepper needs (core/problem.py::make_rho_bound). h_limit_fn(t, y,
     params): a hard cap on every attempted step, h0 included. rhs_split:
-    the (f_ex, f_im) pair the ark324 stepper needs.
+    the (f_ex, f_im) pair the ark324 stepper needs. reduce_fn: the
+    sharded run's cross-shard sum (integrate_interval), also of h0's norms.
+    y_loop0/capture: the state the loop carries when a fused kernel keeps
+    its own layout (the shard kernels' halo-padded buffers), and the map
+    back to what the trajectory records; by default y0 and the identity.
     """
     unported = {"n_members": n_members, "spec_k": spec_k,
                 "kstep_call": kstep_call, "sync_fn": sync_fn}
@@ -378,6 +395,10 @@ def integrate_to_outputs(rhs, y0, params, t0, touts, *, rtol, atol,
     dtype, device = y0.dtype, y0.device
     if global_size is None:
         global_size = y0.numel()
+    if y_loop0 is None:
+        y_loop0 = y0
+    if capture is None:
+        capture = lambda y: y   # noqa: E731
     if step_err is None:
         step_err, init_carry, err_order = make_stepper(method, rhs, rtol,
                                                        atol, rho_fn, rhs_split)
@@ -398,10 +419,11 @@ def integrate_to_outputs(rhs, y0, params, t0, touts, *, rtol, atol,
     t = torch.tensor(t0, dtype=dtype, device=device)
     f0 = rhs(t, y0, seg_params(stops[0]))
     h = _initial_step(rhs, t, y0, f0, seg_params(stops[0]), stops[0],
-                      rtol, atol, err_order, global_size)
+                      rtol, atol, err_order, global_size, reduce_fn)
     if h_limit_fn is not None:
-        h = torch.minimum(h, h_limit_fn(t, y0, seg_params(stops[0])).to(dtype))
-    y = y0
+        h = torch.minimum(h, h_limit_fn(t, y_loop0,
+                                        seg_params(stops[0])).to(dtype))
+    y = y_loop0
     errp = torch.ones((), dtype=dtype, device=device)
     status = torch.zeros((), dtype=torch.int32, device=device)
     traj, per_stop = [], []
@@ -413,11 +435,12 @@ def integrate_to_outputs(rhs, y0, params, t0, touts, *, rtol, atol,
             step_err, t, y, h, errp, stops[k], p, err_order=err_order,
             max_steps=max_steps, global_size=global_size,
             carry0=init_carry(t, y, p), first_interval=(k == 0),
-            status0=status, h_limit_fn=h_limit_fn, sync_every=sync_every)
+            status0=status, h_limit_fn=h_limit_fn, sync_every=sync_every,
+            reduce_fn=reduce_fn)
         status = stats[-1]
         per_stop.append(torch.stack(stats))
         if is_output[k]:
-            traj.append(y)
+            traj.append(capture(y))
 
     per_stop = torch.stack(per_stop)          # (n_stops, 4)
     seg = torch.as_tensor(seg_ids, device=device)

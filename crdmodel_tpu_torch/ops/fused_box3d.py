@@ -165,14 +165,17 @@ def launch_box3d(symbol, y, h, fz, bc: KernelConstants, work_states: int,
     ptrs = [c.data_ptr() for c in bc.coeffs] + [None] * (6 - len(bc.coeffs))
     launch = getattr(lib, symbol + ("_f32" if dtype == torch.float32
                                     else "_f64"))
-    rc = launch(y.data_ptr(), y_new.data_ptr(), ss.data_ptr(), capacity,
-                ctypes.byref(n_blocks), work.data_ptr(), h.data_ptr(),
-                fz.data_ptr(), *step_args, *ptrs,
-                None if tissue is None else tissue.data_ptr(),
-                None if invs is None else invs.data_ptr(), MODE_IDS[bc.kind],
-                bc.b.data_ptr(), int(bc.b_is_field), bc.mask.data_ptr(),
-                int(bc.has_freeze), bc.kinetics_id, nz, ny, nx, float(rtol),
-                float(atol), torch.cuda.current_stream(device).cuda_stream)
+    # the CUDA runtime launches on the current device: make it y's
+    with torch.cuda.device(device):
+        rc = launch(y.data_ptr(), y_new.data_ptr(), ss.data_ptr(), capacity,
+                    ctypes.byref(n_blocks), work.data_ptr(), h.data_ptr(),
+                    fz.data_ptr(), *step_args, *ptrs,
+                    None if tissue is None else tissue.data_ptr(),
+                    None if invs is None else invs.data_ptr(),
+                    MODE_IDS[bc.kind], bc.b.data_ptr(), int(bc.b_is_field),
+                    bc.mask.data_ptr(), int(bc.has_freeze), bc.kinetics_id, nz,
+                    ny, nx, float(rtol), float(atol),
+                    torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{symbol} launch failed: CUDA error {rc}")
     return y_new, ss[:n_blocks.value]

@@ -168,12 +168,16 @@ def fused_imex_step(y, h, fz, kc: KernelConstants, rtol: float, atol: float):
     ae, ai, b, d = _table()
     launch = (lib.crd_fused_imex_step_f32 if dtype == torch.float32
               else lib.crd_fused_imex_step_f64)
-    rc = launch(y.data_ptr(), y_new.data_ptr(), ss.data_ptr(), h.data_ptr(),
-                fz.data_ptr(), *(c.data_ptr() for c in kc.coeffs),
-                int(kc.kind == "torus"), kc.b.data_ptr(), int(kc.b_is_field),
-                kc.mask.data_ptr(), int(kc.has_freeze), kc.kinetics_id, ny,
-                nx, tile_x, tile_y, ae, ai, b, d, imex.GAMMA, float(rtol),
-                float(atol), torch.cuda.current_stream(device).cuda_stream)
+    # the CUDA runtime launches on the current device: make it y's
+    with torch.cuda.device(device):
+        rc = launch(y.data_ptr(), y_new.data_ptr(), ss.data_ptr(),
+                    h.data_ptr(), fz.data_ptr(),
+                    *(c.data_ptr() for c in kc.coeffs),
+                    int(kc.kind == "torus"), kc.b.data_ptr(),
+                    int(kc.b_is_field), kc.mask.data_ptr(), int(kc.has_freeze),
+                    kc.kinetics_id, ny, nx, tile_x, tile_y, ae, ai, b, d,
+                    imex.GAMMA, float(rtol), float(atol),
+                    torch.cuda.current_stream(device).cuda_stream)
     fused_imex_step.launches += 1
     if rc != 0:
         raise RuntimeError(f"fused IMEX step kernel launch failed: CUDA "

@@ -46,6 +46,7 @@ import torch
 
 from crdmodel_tpu_torch.core.problem import make_rho_bound
 from crdmodel_tpu_torch.integrate import rkc
+from crdmodel_tpu_torch.ops.fused_step import error_sum
 from crdmodel_tpu_torch.ops.kernel_common import (SMEM_BYTES,
                                                   KernelConstants,
                                                   check_constants,
@@ -192,6 +193,14 @@ def rkc_step_reference(y, h, s, mu1_tab, ctab_tab, rhs_block, rtol: float,
     rhs_block(y) -> ydot in plain torch, in the order of the fused RKC
     kernels (csrc/fused_rkc.cu, csrc/fused_box3d_rkc.cu): (y_new, ss) with
     ss a (1,) tensor holding the sum of squared WRMS-scaled errors."""
+    y_new, est = rkc_stages_reference(y, h, s, mu1_tab, ctab_tab, rhs_block)
+    return y_new, error_sum(est, y, rtol, atol)
+
+
+def rkc_stages_reference(y, h, s, mu1_tab, ctab_tab, rhs_block):
+    """(y_new, est) of one RKC2 step of s stages on rhs_block(y) in plain
+    torch, in the order of the fused RKC kernels; est is the order-2 error
+    estimate."""
     n = int(s)
     mu1 = mu1_tab[n]
     f0 = rhs_block(y)
@@ -205,8 +214,21 @@ def rkc_step_reference(y, h, s, mu1_tab, ctab_tab, rhs_block, rtol: float,
     y_new = yjm1
     f1 = rhs_block(y_new)
     est = 0.8 * (y - y_new) + (0.4 * h) * (f0 + f1)
-    scaled = est * (1.0 / (rtol * torch.abs(y) + atol))
-    return y_new, torch.sum(scaled * scaled).reshape(1)
+    return y_new, est
+
+
+def check_stage_tables(mu1_tab, ctab_tab, dtype, device) -> int:
+    """The s_cap of static_stage_tables mu1_tab, ctab_tab; raises unless
+    they are `dtype` tensors on `device` of some s_cap in
+    [2, S_MAX_KERNEL]."""
+    s_cap = mu1_tab.shape[0] - 1
+    if not 2 <= s_cap <= S_MAX_KERNEL:
+        raise ValueError(f"tables for s_cap={s_cap}; the kernel takes "
+                         f"2..{S_MAX_KERNEL}")
+    check_tensor("mu1_tab", mu1_tab, (s_cap + 1,), dtype, device)
+    check_tensor("ctab_tab", ctab_tab, (s_cap + 1, S_MAX_KERNEL + 1, 4),
+                 dtype, device)
+    return s_cap
 
 
 def fused_rkc_step(y, h, fz, s, mu1_tab, ctab_tab, kc: KernelConstants,
@@ -234,17 +256,11 @@ def fused_rkc_step(y, h, fz, s, mu1_tab, ctab_tab, kc: KernelConstants,
     if y.dim() != 3 or y.shape[0] != 2:
         raise ValueError(f"y must be (2, ny, nx), got {tuple(y.shape)}")
     _, ny, nx = y.shape
-    s_cap = mu1_tab.shape[0] - 1
-    if not 2 <= s_cap <= S_MAX_KERNEL:
-        raise ValueError(f"tables for s_cap={s_cap}; the kernel takes "
-                         f"2..{S_MAX_KERNEL}")
+    s_cap = check_stage_tables(mu1_tab, ctab_tab, dtype, device)
     check_tensor("y", y, y.shape, dtype, device)
     check_tensor("h", h, (), dtype, device)
     check_tensor("fz", fz, (), dtype, device)
     check_tensor("s", s, (), torch.int32, device)
-    check_tensor("mu1_tab", mu1_tab, (s_cap + 1,), dtype, device)
-    check_tensor("ctab_tab", ctab_tab, (s_cap + 1, S_MAX_KERNEL + 1, 4),
-                 dtype, device)
     check_constants(kc, ny, nx, dtype, device)
 
     from crdmodel_tpu_torch.ops._build import load_library
@@ -267,13 +283,15 @@ def fused_rkc_step(y, h, fz, s, mu1_tab, ctab_tab, kc: KernelConstants,
     else:
         raise ValueError(f"the RKC kernel takes profile or divergence-form "
                          f"constants, not {kc.kind!r}")
-    rc = launch(y.data_ptr(), y_new.data_ptr(), ss.data_ptr(), h.data_ptr(),
-                fz.data_ptr(), s.data_ptr(), mu1_tab.data_ptr(),
-                ctab_tab.data_ptr(), s_cap, *operator,
-                kc.b.data_ptr(), int(kc.b_is_field), kc.mask.data_ptr(),
-                int(kc.has_freeze), kc.kinetics_id, ny, nx, tile_x, tile_y,
-                float(rtol), float(atol),
-                torch.cuda.current_stream(device).cuda_stream)
+    # the CUDA runtime launches on the current device: make it y's
+    with torch.cuda.device(device):
+        rc = launch(y.data_ptr(), y_new.data_ptr(), ss.data_ptr(),
+                    h.data_ptr(), fz.data_ptr(), s.data_ptr(),
+                    mu1_tab.data_ptr(), ctab_tab.data_ptr(), s_cap, *operator,
+                    kc.b.data_ptr(), int(kc.b_is_field), kc.mask.data_ptr(),
+                    int(kc.has_freeze), kc.kinetics_id, ny, nx, tile_x, tile_y,
+                    float(rtol), float(atol),
+                    torch.cuda.current_stream(device).cuda_stream)
     fused_rkc_step.launches += 1
     if rc != 0:
         raise RuntimeError(f"fused RKC step kernel launch failed: CUDA "

@@ -1,0 +1,209 @@
+"""Fused RKC2 step on one shard of a mesh, kernel K9 (counterpart of
+crdmodel_tpu/ops/pallas_shard_rkc.py).
+
+K2's profile branch (ops/fused_rkc.py) per shard: one exchange of width
+P_RKC = 24 a step fills the halo of every shard's buffer
+(parallel/halo.py::refresh_halos), then one launch a shard computes all s
+Chebyshev stages, y_new and per-block partial sums of squared WRMS-scaled
+errors over the shard's PHYSICAL cells (csrc/fused_shard_rkc.cu). The
+spectral-radius bound is max-reduced across the shards (make_rho_bound's
+max_reduce), so every shard runs the same s and the same table rows; s,
+h, the freeze scalar and the tables reach each shard's device as tensors,
+and the host never reads s. The adaptive loop caps h at the kernel's
+stage budget (h_limit) and adds every shard's sums in a fixed order.
+
+  fused_shard_rkc_step            the wrapper: launches the CUDA kernel for
+                                  a CUDA tensor, runs the plain version for
+                                  a CPU tensor
+  fused_shard_rkc_step_reference  the same step in plain torch, the oracle
+  build_fused_shard_rkc           a sharded problem's step_err and h_limit
+
+The state layout is K8's (ops/fused_shard_step.py): halo-padded buffers,
+the block at [P, P + nyl) x [P, P + nxl), mirror-pad cells on a padded
+mesh. K2's divergence branch on a mesh belongs to kernel K11's slice
+(ROADMAP queue 1, item 15).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from crdmodel_tpu_torch.integrate import rkc
+from crdmodel_tpu_torch.ops.fused_rkc import (S_MAX_KERNEL,
+                                              check_stage_tables,
+                                              rkc_stages_reference,
+                                              static_stage_tables, tile_plan)
+from crdmodel_tpu_torch.ops.fused_shard_step import (check_shard_constants,
+                                                     interior,
+                                                     masked_error_sum,
+                                                     shard_buffers)
+from crdmodel_tpu_torch.ops.kernel_common import (ShardConstants,
+                                                  check_tensor,
+                                                  freeze_scalar,
+                                                  fused_forcing,
+                                                  kernel_ready_kinetics,
+                                                  make_rhs_block,
+                                                  make_shard_constants,
+                                                  needs_divform)
+from crdmodel_tpu_torch.parallel.halo import refresh_halos
+from crdmodel_tpu_torch.parallel.shards import Shards
+
+P_RKC = S_MAX_KERNEL + 1     # the exchange's width (pallas_rkc.py P_RKC)
+
+
+def is_shard_rkc_supported(problem, dtype, nyl: int, nxl: int) -> bool:
+    """The kernel's gate (crdmodel_tpu/ops/pallas_shard_rkc.py:53-73)
+    without the TPU strip rules: f32, a local block at least P_RKC deep on
+    both axes, a kinetics Jacobian bound; plus the port's rules of K2's
+    profile branch (ops/fused_rkc.py::is_rkc_supported): no forcing, the
+    profile operator, kinetics with a device function."""
+    if fused_forcing(problem) is not None or dtype != torch.float32:
+        return False
+    if nyl < P_RKC or nxl < P_RKC:
+        return False
+    if needs_divform(problem) or problem.diffusion_tensor is not None:
+        return False
+    if problem.geometry.kind == "box" or problem.model.jac_bound is None:
+        return False
+    return kernel_ready_kinetics(problem)
+
+
+def fused_shard_rkc_step_reference(yp, h, fz, s, mu1_tab, ctab_tab,
+                                   sc: ShardConstants, rtol: float,
+                                   atol: float):
+    """One step in plain torch on a halo-padded buffer: (y_new, ss), y_new
+    a buffer whose block is the step's (its halo is yp's), ss a (1,) tensor
+    holding the physical cells' sum of squared WRMS-scaled errors. Reads s
+    on the host. The stages run on the whole buffer, wrapping at its edge:
+    the s + 1 outer rings go wrong, and the block, P_RKC >= s + 1 rings in,
+    is the kernel's bitwise."""
+    rhs_block = make_rhs_block(sc, fz)
+    y_all, est = rkc_stages_reference(yp, h, s, mu1_tab, ctab_tab, rhs_block)
+    y_new = yp.clone()
+    interior(y_new, sc.halo).copy_(interior(y_all, sc.halo))
+    return y_new, masked_error_sum(est, yp, sc, rtol, atol)
+
+
+def fused_shard_rkc_step(yp, h, fz, s, mu1_tab, ctab_tab,
+                         sc: ShardConstants, rtol: float, atol: float):
+    """One fused RKC2 step on one shard: (y_new, ss partials (n_blocks,)).
+
+    yp is the shard's halo-padded buffer (2, nyl + 2P, nxl + 2P) with its
+    halo filled, P >= s_cap + 1; h and fz 0-d tensors in its dtype, s a 0-d
+    int32 tensor, and mu1_tab/ctab_tab the static_stage_tables of some
+    s_cap <= S_MAX_KERNEL, all on its device. Only the block of y_new is
+    written; an s outside [2, s_cap] gives NaN partial sums (a rejected
+    step). A CPU tensor takes the plain version; a CUDA tensor launches
+    the kernel or raises. `fused_shard_rkc_step.launches` counts kernel
+    launches."""
+    if yp.device.type == "cpu":
+        return fused_shard_rkc_step_reference(yp, h, fz, s, mu1_tab,
+                                              ctab_tab, sc, rtol, atol)
+    if yp.device.type != "cuda":
+        raise ValueError(f"no fused shard RKC kernel for device {yp.device}")
+    dtype, device = yp.dtype, yp.device
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the kernel takes float32 or float64, not {dtype}")
+    if sc.kind not in ("torus", "flat"):
+        raise ValueError(f"the shard RKC kernel takes profile constants, not "
+                         f"{sc.kind!r}")
+    if yp.dim() != 3 or yp.shape[0] != 2:
+        raise ValueError(f"yp must be (2, nyl+2P, nxl+2P), got "
+                         f"{tuple(yp.shape)}")
+    p = sc.halo
+    nyl, nxl = yp.shape[1] - 2 * p, yp.shape[2] - 2 * p
+    s_cap = check_stage_tables(mu1_tab, ctab_tab, dtype, device)
+    if p < s_cap + 1 or nyl < p or nxl < p:
+        raise ValueError(f"halo {p} and block {nyl}x{nxl}: the kernel needs "
+                         f"a halo of s_cap + 1 = {s_cap + 1} and a block at "
+                         "least the halo deep")
+    check_tensor("yp", yp, yp.shape, dtype, device)
+    check_tensor("h", h, (), dtype, device)
+    check_tensor("fz", fz, (), dtype, device)
+    check_tensor("s", s, (), torch.int32, device)
+    check_shard_constants(sc, nyl, nxl, dtype, device)
+
+    from crdmodel_tpu_torch.ops._build import load_library
+    lib = load_library()
+    tile_x, tile_y, _ = tile_plan(s_cap + 1, yp.element_size())
+    n_blocks = -(-nxl // tile_x) * -(-nyl // tile_y)
+    y_new = torch.empty_like(yp)
+    ss = torch.empty(n_blocks, dtype=dtype, device=device)
+    launch = (lib.crd_fused_shard_rkc_step_f32 if dtype == torch.float32
+              else lib.crd_fused_shard_rkc_step_f64)
+    # the CUDA runtime launches on the current device: make it the shard's
+    with torch.cuda.device(device):
+        rc = launch(yp.data_ptr(), y_new.data_ptr(), ss.data_ptr(),
+                    h.data_ptr(), fz.data_ptr(), s.data_ptr(),
+                    mu1_tab.data_ptr(), ctab_tab.data_ptr(), s_cap,
+                    *(c.data_ptr() for c in sc.coeffs),
+                    int(sc.kind == "torus"), sc.b.data_ptr(),
+                    int(sc.b_is_field), sc.mask.data_ptr(), int(sc.has_freeze),
+                    sc.kinetics_id, nyl, nxl, p, sc.valid_rows, sc.valid_cols,
+                    tile_x, tile_y, float(rtol), float(atol),
+                    torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused shard RKC kernel launch failed: CUDA "
+                           f"error {rc}")
+    fused_shard_rkc_step.launches += 1
+    return y_new, ss
+
+
+fused_shard_rkc_step.launches = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedShardRKC:
+    step_err: Callable   # (t, yp, h, params, carry=()) -> (y_new, sums, ())
+    h_limit: Callable    # (t, yp, params) -> stability-capped max h
+    pad: Callable
+    unpad: Callable
+    constants: list
+
+
+def build_fused_shard_rkc(problem, mesh, rho_fn,
+                          pad_spec=None) -> FusedShardRKC:
+    """The fused RKC2 step of `problem` on `mesh`
+    (crdmodel_tpu/ops/pallas_shard_rkc.py:86): rho_fn(t, y, params) must
+    max-reduce across the shards (make_rho_bound's max_reduce) and takes
+    the Shards of blocks; s = min(choose_stages(h, rho), S_MAX_KERNEL) is
+    chosen on the control device and copied to each shard's."""
+    if rho_fn is None:
+        raise ValueError("the sharded fused RKC needs a max-reduced rho_fn")
+    cfg = problem.cfg
+    dtype = problem.y0.dtype
+    consts = make_shard_constants(problem, mesh, pad_spec, P_RKC, dtype)
+    rtol, atol = float(cfg.rtol), float(cfg.atol)
+    t_boundary = float(cfg.t_boundary)
+    s_cap = S_MAX_KERNEL
+    tables = {d: static_stage_tables(s_cap, dtype, d)
+              for d in dict.fromkeys(mesh.device_list())}
+    pad, unpad = shard_buffers(P_RKC)
+
+    def step_err(t, yp, h, params, carry=()):
+        rho = rho_fn(t, unpad(yp), params).to(dtype)
+        s = torch.clamp_max(rkc.choose_stages(h, rho), s_cap)
+        bufs = refresh_halos(list(yp), mesh, P_RKC, pad_spec)
+        fz = freeze_scalar(params, consts[0].has_freeze, t_boundary, dtype)
+        h = h.to(dtype)
+        out, sums = [], []
+        for buf, sc in zip(bufs, consts):
+            dev = buf.device
+            y_new, ss = fused_shard_rkc_step(buf, h.to(dev), fz.to(dev),
+                                             s.to(dev), *tables[dev], sc,
+                                             rtol, atol)
+            out.append(y_new)
+            sums.append(torch.sum(ss))
+        return Shards(out), Shards(sums), ()
+
+    def h_limit(t, yp, params):
+        """Largest h the s_cap-stage budget stabilizes."""
+        rho = rho_fn(t, unpad(yp), params).to(dtype)
+        return (rkc.STAB_FACTOR * (s_cap - 1) ** 2
+                / torch.clamp_min(rho, 1e-30)).to(dtype)
+
+    return FusedShardRKC(step_err=step_err, h_limit=h_limit, pad=pad,
+                         unpad=unpad, constants=consts)

@@ -90,6 +90,20 @@ def erk_step_reference(y, h, rhs_block, tableau: Tableau, rtol: float,
     """One step of `tableau` on rhs_block(y) -> ydot in plain torch, in the
     order of the ERK tile kernels (csrc/erk_tile.cuh): (y_new, ss) with ss
     a (1,) tensor holding the sum of squared WRMS-scaled errors."""
+    y_new, err = erk_stages_reference(y, h, rhs_block, tableau)
+    return y_new, error_sum(err, y, rtol, atol)
+
+
+def error_sum(err, y, rtol: float, atol: float):
+    """(1,) sum of squared WRMS-scaled errors, weights from y, in the
+    kernels' order."""
+    scaled = err * (1.0 / (rtol * torch.abs(y) + atol))
+    return torch.sum(scaled * scaled).reshape(1)
+
+
+def erk_stages_reference(y, h, rhs_block, tableau: Tableau):
+    """(y_new, err) of one step of `tableau` on rhs_block(y) in plain torch,
+    in the order of the ERK tile kernels."""
     a, bw = tableau.a, tableau.b
     d = tableau.b - tableau.bhat
     n = tableau.stages
@@ -107,8 +121,7 @@ def erk_step_reference(y, h, rhs_block, tableau: Tableau, rtol: float,
             y_new = y_new + (h * float(bw[s])) * ks[s]
         if d[s] != 0.0:
             err = err + (h * float(d[s])) * ks[s]
-    scaled = err * (1.0 / (rtol * torch.abs(y) + atol))
-    return y_new, torch.sum(scaled * scaled).reshape(1)
+    return y_new, err
 
 
 def fused_step_reference(y, h, fz, kc: KernelConstants, tableau: Tableau,
@@ -178,12 +191,14 @@ def launch_erk_tile(symbol, operator_args, y, h, fz, kc: KernelConstants,
     a, b, d = _stage_arrays(tableau.name)
     launch = getattr(lib, symbol + ("_f32" if dtype == torch.float32
                                     else "_f64"))
-    rc = launch(y.data_ptr(), y_new.data_ptr(), ss.data_ptr(), h.data_ptr(),
-                fz.data_ptr(), *operator_args, kc.b.data_ptr(),
-                int(kc.b_is_field), kc.mask.data_ptr(), int(kc.has_freeze),
-                kc.kinetics_id, ny, nx, tile_x, tile_y, n, a, b, d,
-                float(rtol), float(atol),
-                torch.cuda.current_stream(device).cuda_stream)
+    # the CUDA runtime launches on the current device: make it y's
+    with torch.cuda.device(device):
+        rc = launch(y.data_ptr(), y_new.data_ptr(), ss.data_ptr(),
+                    h.data_ptr(), fz.data_ptr(), *operator_args,
+                    kc.b.data_ptr(), int(kc.b_is_field), kc.mask.data_ptr(),
+                    int(kc.has_freeze), kc.kinetics_id, ny, nx, tile_x, tile_y,
+                    n, a, b, d, float(rtol), float(atol),
+                    torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{symbol} launch failed: CUDA error {rc}")
     return y_new, ss

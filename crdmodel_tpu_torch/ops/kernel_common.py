@@ -117,6 +117,82 @@ class AnisoConstants(KernelConstants):
     (j-1, i), both wrapped (exact: tensor_coeffs64 rolls them so)."""
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardConstants(KernelConstants):
+    """One shard's inputs of the shard kernels (K8, K9; crdmodel_tpu/ops/
+    kernel_common.py:535-673): kind "torus" or "flat"; coeffs the three
+    profiles halo-padded to (nxl + 2 halo,) on the torus, three 0-d scalars
+    on the flat surface; b a 0-d scalar or the halo-padded (nyl + 2 halo, 1)
+    rows; mask the halo-padded (nyl + 2 halo, 1) interior-row mask.
+    valid_rows x valid_cols: the physical cells at the start of the block;
+    the others are mirror-pad cells of a padded mesh, which step like their
+    sources (their constants are their sources') and stay out of the error
+    sum, the counterpart of the JAX kernels' `_fused_vrow`/`_fused_cmask`."""
+    halo: int
+    valid_rows: int
+    valid_cols: int
+
+
+def make_shard_constants(problem, mesh, pad_spec, halo: int, dtype):
+    """Every shard's ShardConstants, in mesh order on its device: the
+    global constants of K1 (prepare_constants) wrap-padded to the padded
+    grid, split into blocks and halo-padded once by the mesh's exchange
+    (parallel/halo.py), mirror-aware along a padded axis, as the JAX
+    package's prepare_params does once a dispatch (kernel_common.py:625-
+    671)."""
+    from crdmodel_tpu_torch.parallel import halo as hx
+
+    cfg = problem.cfg
+    py, px = mesh.shape
+    pady = pad_spec is not None and pad_spec.y.active
+    padx = pad_spec is not None and pad_spec.x.active
+    nyl = pad_spec.y.blk if pad_spec is not None else cfg.ny // py
+    nxl = pad_spec.x.blk if pad_spec is not None else cfg.nx // px
+    devices = mesh.device_list()
+    kc = prepare_constants(problem, dtype, "cpu")
+
+    def rows(a):
+        """(ny, 1) -> each shard's halo-padded (nyl + 2 halo, 1) rows."""
+        if pad_spec is not None:
+            a = pad_spec.pad_rows(a)
+        blocks = [a[k // px * nyl:(k // px + 1) * nyl].to(d)
+                  for k, d in enumerate(devices)]
+        if pady:
+            return hx.mirror_halo_pad_rows(blocks, mesh, halo,
+                                           pad_spec.y.n, pad_spec.y.blk)
+        return hx.halo_pad_rows(blocks, mesh, halo)
+
+    def cols(a):
+        """(nx,) -> each shard's halo-padded (nxl + 2 halo,) profile."""
+        if pad_spec is not None:
+            a = pad_spec.pad_cols(a)
+        blocks = [a[k % px * nxl:(k % px + 1) * nxl].reshape(1, nxl).to(d)
+                  for k, d in enumerate(devices)]
+        if padx:
+            out = hx.mirror_halo_pad_cols(blocks, mesh, halo, pad_spec.x.n,
+                                          pad_spec.x.blk)
+        else:
+            out = hx.halo_pad_cols(blocks, mesh, halo)
+        return [c.reshape(-1) for c in out]
+
+    if kc.kind == "torus":
+        profiles = [cols(c) for c in kc.coeffs]
+        coeffs = [tuple(p[k] for p in profiles) for k in range(len(devices))]
+    else:
+        coeffs = [tuple(c.to(d) for c in kc.coeffs) for d in devices]
+    b = (rows(kc.b) if kc.b_is_field else [kc.b.to(d) for d in devices])
+    mask = rows(kc.mask)
+    out = []
+    for k, d in enumerate(devices):
+        iy, ix = divmod(k, px)
+        out.append(ShardConstants(
+            kind=kc.kind, coeffs=coeffs[k], b=b[k], mask=mask[k],
+            has_freeze=kc.has_freeze, model=kc.model, halo=halo,
+            valid_rows=min(nyl, max(0, cfg.ny - iy * nyl)),
+            valid_cols=min(nxl, max(0, cfg.nx - ix * nxl))))
+    return out
+
+
 def kernel_stencil_coeffs(problem, dtype, device):
     """The three coefficient profiles the profile kernels take
     (crdmodel_tpu/ops/kernel_common.py:308). Constant D: the geometry's

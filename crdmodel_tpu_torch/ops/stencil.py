@@ -56,6 +56,27 @@ def torus_laplacian(u, coeffs):
             + c_phi * (un - 2.0 * u + us))
 
 
+def laplacian_from_padded(up, coeffs, kind):
+    """The profile operator over a halo-padded block up (..., nyl+2,
+    nxl+2) whose halo came from the mesh's exchange (parallel/halo.py;
+    crdmodel_tpu/ops/stencil.py:252): the flat or torus expression of
+    flat_laplacian / torus_laplacian with the neighbours read from the
+    halo, not rolled. coeffs: the block's (nxl,) torus profiles or the
+    flat scalars."""
+    u = up[..., 1:-1, 1:-1]
+    uw = up[..., 1:-1, 0:-2]
+    ue = up[..., 1:-1, 2:]
+    us = up[..., 0:-2, 1:-1]
+    un = up[..., 2:, 1:-1]
+    if kind == "flat":
+        cu1, cu2, cu3 = coeffs
+        return cu1 * (uw + ue) + cu2 * (us + un) + cu3 * u
+    c_asym, c_theta, c_phi = coeffs
+    return (c_asym * (ue - uw)
+            + c_theta * (ue - 2.0 * u + uw)
+            + c_phi * (un - 2.0 * u + us))
+
+
 def divergence_laplacian(u, face_coeffs):
     """Conservative variable-coefficient diffusion div(D grad u); face_coeffs
     = (aE, aW, aN, aS) from Geometry.divergence_coeffs, each broadcastable

@@ -123,8 +123,14 @@ def test_rho_bound_matches_jax(case):
 def test_rho_bound_unported_operators():
     jp, tp = _problems("fhn_torus")
     args = (tp.cfg, tp.model, tp.geometry, torch.float64)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        make_rho_bound(*args, max_reduce=max)
+    # max_reduce is ported (the sharded run, ROADMAP queue 1, item 15): on
+    # a one-shard state it reduces the one kinetics max to itself
+    def one_shard(fn, y, b):
+        return max(fn(yi, bi) for yi, bi in zip(y, b))
+
+    reduced = make_rho_bound(*args, max_reduce=one_shard)
+    assert float(reduced(0.0, [tp.y0], {"b": [tp.params["b"]]})) == float(
+        make_rho_bound(*args)(0.0, tp.y0, tp.params))
     # the divergence form and the tensor are ported: their bounds are the
     # JAX package's
     for kw in (dict(diffusion_field=np.ones(16)),
