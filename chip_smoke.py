@@ -19,7 +19,13 @@ a scar column, a 3-D diffusion field and a transmural tensor, and on
 FitzHugh-Nagumo with a beta ramp; K8 and K9, the fused ERK and RKC2 steps
 on one shard of a mesh, on the canonical torus's 2x2 shards, the flat
 sheet's, an uneven 1x3 mesh whose last block carries mirror-pad cells, and
-K9 on the 2x2 shards of the 10.24M-point torus), times each, then runs the
+K9 on the 2x2 shards of the 10.24M-point torus; K10, the fused IMEX
+ark324 step on one shard, on the canonical Goldbeter and FHN tori's 2x2
+shards, the uneven 1x3 mesh and the 2.56M-point Goldbeter torus's 2x2
+shard; K11, the fused divergence-form and 2-D tensor ERK step on one shard,
+on the bounded tissue's 2x2 shards, a flat 2-D diffusion field, the uneven
+1x3 mesh, the rotating fibres flat and on the torus and a constant tensor
+inside no-flux walls), times each, then runs the
 port's main paths through simulate(): the
 canonical FitzHugh-Nagumo torus program (data/FHNmodelArgs.ini: 400x1600,
 f32, Tf=50) with its own method bs32 (through K1) and with method rkc2
@@ -37,28 +43,37 @@ no-flux walls, f32, Tf=0.5) with bs32 (through K6), with rkc2 (through K7)
 and with a scar column through every plane (through K6's tissue mode);
 and through simulate_sharded() on a 2x2 mesh of shards, all on cuda:0
 (with four cards or more, once more with a shard on each card): the
-canonical FHN torus with bs32 (through K8) and the JAX suite's large FHN
-torus (6400x1600, 10.24M points, rkc2, f32, Tf=1, through K9).
+canonical FHN torus with bs32 (through K8), the JAX suite's large FHN
+torus (6400x1600, 10.24M points, rkc2, f32, Tf=1, through K9), the
+bounded tissue and the fibered sheet (through K11, its aniso mode for the
+fibres), the same fibres on the torus (K11 with the inv4 profile), the
+canonical Goldbeter torus with ark324 and the JAX suite's large Goldbeter
+torus (3200x800, 2.56M points, ark324, f32, Tf=1; both through K10).
 Each run is checked against the JAX package's CPU runs recorded in
 tests/golden/torch_canonical_{fhn,goldbeter}[_method]_probes.npz,
 tests/golden/torch_bounded_ap[_rkc2]_probes.npz and
 tests/golden/torch_aniso_sheet_probes.npz, the wide sheet and the slab
-against the port's own torch path on the card, the sharded canonical run
-also against the single-device K1 run and the large torus against the
-port's single-device K2 run, both in the same call. Exits non-zero on any
+against the port's own torch path on the card, the sharded canonical runs,
+bounded tissue and fibered sheet also against the single-device K1, K3,
+K4 and K5 runs, the large FHN torus against the port's single-device K2
+run, the fibres on the torus against the port's single-device torch path
+and the large Goldbeter torus against the single-device K3 run, all in the
+same call. Exits non-zero on any
 failure, and prints as its last line {"ok": true, "device": {...}} only
 when every phase passed. Imports nothing of JAX.
 
 With --profile it checks nothing: it builds the kernels and traces, with
 torch.profiler, the bounded cardiac tissue with bs32 and rkc2, the fibered
 sheet and the wide sheet over short horizons, the three slab runs over
-their whole horizon, the sharded canonical FHN run over Tf=5 and the
-sharded large FHN torus over Tf=0.2, and prints for each the device's
-busy time and idle share, the kernels a step and the fused kernel's share
-(phase "profile"). With --sharded it builds the kernels and runs only the
-single-device canonical FHN run through K1 and the two sharded main paths
-with their checks (on four cards or more, again with a shard on each
-card); it prints no kernels line and no last line.
+their whole horizon, the sharded canonical FHN run over Tf=5, the sharded
+large FHN torus over Tf=0.2, the sharded bounded tissue over Tf=1 and the
+sharded large Goldbeter torus over Tf=0.2, and prints for each the
+device's busy time and idle share, the kernels a step and the fused
+kernel's share (phase "profile"). With --sharded it builds the kernels and
+runs only the single-device runs the sharded paths are held to (K1, K3,
+K4, K5) and the sharded main paths with their checks (on four cards or
+more, again with a shard on each card); it prints no kernels line and no
+last line.
 """
 
 import dataclasses
@@ -177,6 +192,9 @@ def median_ms(fn, n=N_TIMED, per_sample=BURST):
 KINETICS_OPS = {"fhn": 7, "goldbeter": 24, "aliev_panfilov": 18}
 JACOBIAN_OPS = {"fhn": 3, "goldbeter": 30, "aliev_panfilov": 35}
 OPERATOR_OPS = {"torus": 12, "flat": 7, "divform": 11, "aniso": 23,
+                # K11: the face operator; and its mixed pair on the raw Dxy
+                # with the weight outside (one more product than K5's)
+                "shard_divform": 11, "shard_aniso": 24,
                 # the box: six faces; the tissue mode's 12 openness
                 # products; the tensor's three mixed pairs (33) and weights
                 "box_profile": 17, "box_tissue": 29, "box_field": 17,
@@ -228,7 +246,7 @@ def imex_ops(kc):
 def constant_bytes(kc):
     """Bytes of a kernel's constant inputs, each read once."""
     tensors = [*kc.coeffs, kc.b, kc.mask]
-    for extra in ("tissue", "invs"):
+    for extra in ("tissue", "invs", "dxy", "inv4"):
         if getattr(kc, extra, None) is not None:
             tensors.append(getattr(kc, extra))
     return sum(t.numel() * t.element_size() for t in tensors)
@@ -259,26 +277,40 @@ def random_state(cfg, shape, rng):
     return rng.uniform(-2.0, 2.0, shape)
 
 
+def same_bits(a, b):
+    """a and b bitwise equal, NaN at the same points (a NaN's payload aside:
+    a step whose Newton diverges or whose 2x2 solve meets a zero
+    determinant gives NaN, in the kernel and its plain version alike)."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
+
+
 def check_pair(name, fields, y_k, ss_k, y_k2, ss_k2, y_r, ss_r, dtype,
                y_in, bitwise=False):
     """Hold a kernel's (y_new, partial sums) against its plain version's,
     and two launches against each other; print phase `name`; return the
-    max |y_kernel - y_plain|."""
+    max |y_kernel - y_plain| over the points where neither is NaN. NaN
+    must stand at the same points in both, and the sums must be NaN in
+    both or finite in both."""
     torch.cuda.synchronize()
-    if not (torch.equal(y_k, y_k2) and torch.equal(ss_k, ss_k2)):
+    if not (same_bits(y_k, y_k2) and same_bits(ss_k, ss_k2)):
         raise AssertionError(f"{name}: two launches differ")
-    err = float((y_k - y_r).abs().max())
-    y_scale = max(1.0, float(y_in.abs().max()), float(y_r.abs().max()))
+    nan = torch.isnan(y_r)
+    nan_match = torch.equal(torch.isnan(y_k), nan)
+    err = float((y_k - y_r)[~nan].abs().max())
+    y_scale = max(1.0, float(y_in.abs().max()),
+                  float(y_r[~nan].abs().max()))
     tol_y, tol_ss = LIMITS[dtype]
     sk, sr = float(ss_k.sum()), float(ss_r.sum())
-    rel = abs(sk - sr) / sr
+    rel = abs(sk - sr) / sr if np.isfinite(sr) else 0.0
     phase(name, **fields, dtype=str(dtype), max_abs_err=err,
-          bitwise=bool(torch.equal(y_k, y_r)), limit=tol_y * y_scale,
-          ss_rel_err=rel, ss_limit=tol_ss)
-    if not (np.isfinite(sk) and err <= tol_y * y_scale and rel <= tol_ss):
+          bitwise=same_bits(y_k, y_r), nan_points=int(nan.sum()),
+          limit=tol_y * y_scale, ss_rel_err=rel, ss_limit=tol_ss)
+    if not (nan_match and np.isfinite(sk) == np.isfinite(sr)
+            and err <= tol_y * y_scale and rel <= tol_ss):
         raise AssertionError(f"{name}: the kernel disagrees with its plain "
                              "version")
-    if bitwise and not torch.equal(y_k, y_r):
+    if bitwise and not same_bits(y_k, y_r):
         raise AssertionError(f"{name}: y_new not bitwise equal to the plain "
                              "version")
     return err
@@ -488,8 +520,8 @@ def check_wide_rkc_kernel(cfg):
 def check_imex_kernel(cases, timed):
     """K3 against its plain version at the main paths' shapes, for each
     config of `cases` (each with tBoundary > 0, so that fz 0 and 1 differ),
-    both dtypes, fz 0 and 1 and each h of K3_H, with two launches bitwise
-    equal; returns the max errors and {shape: (kernel ms, plain ms, bound
+    both dtypes, fz 0 and 1 and each h of K3_H: y_new bitwise equal, two
+    launches bitwise equal; returns the max errors and {shape: (kernel ms, plain ms, bound
     ms, bound_by)} from the ICs of each config of `timed`, f32, at
     h = K3_H[0]."""
     from crdmodel_tpu_torch.core.problem import build_problem
@@ -515,7 +547,8 @@ def check_imex_kernel(cases, timed):
                              beta="field" if kc.b_is_field else "scalar",
                              shape=list(y.shape), h=h_val, fz=fz),
                         *fi.fused_imex_step(*args), *fi.fused_imex_step(*args),
-                        *fi.fused_imex_step_reference(*args), dtype, y)
+                        *fi.fused_imex_step_reference(*args), dtype, y,
+                        bitwise=True)
                     worst[dtype] = max(worst[dtype], err)
 
     timing = {}
@@ -1003,14 +1036,17 @@ def kernel_wrappers():
     from crdmodel_tpu_torch.ops import (fused_aniso, fused_box3d,
                                         fused_box3d_rkc, fused_divform,
                                         fused_imex, fused_rkc,
-                                        fused_shard_rkc, fused_shard_step,
-                                        fused_step)
+                                        fused_shard_divform,
+                                        fused_shard_imex, fused_shard_rkc,
+                                        fused_shard_step, fused_step)
     return (fused_step.fused_step, fused_rkc.fused_rkc_step,
             fused_imex.fused_imex_step, fused_divform.fused_divform_step,
             fused_aniso.fused_aniso_step, fused_box3d.fused_box3d_step,
             fused_box3d_rkc.fused_box3d_rkc_step,
             fused_shard_step.fused_shard_step,
-            fused_shard_rkc.fused_shard_rkc_step)
+            fused_shard_rkc.fused_shard_rkc_step,
+            fused_shard_imex.fused_shard_imex_step,
+            fused_shard_divform.fused_shard_divform_step)
 
 
 def run_program(cfg, build_kw, mesh=None):
@@ -1181,24 +1217,29 @@ def traced_kernels(prof):
     return [e for e in events if e.get("cat") == "kernel"]
 
 
-def device_ms(fn, tag, n=N_TIMED):
+def device_ms(fn, tag, n=N_TIMED, attempts=3):
     """The median device duration of the kernels whose name holds `tag`
     over n calls of fn, from a torch.profiler trace: a kernel's own time
     where the host's issue of each call takes longer than the kernel (the
     shard kernels at the canonical shard, whose CUDA-event bursts time the
-    host)."""
+    host). A trace can miss kernels (up to two of ten on the H100), so it
+    takes n + 2 calls and the last n kernels it holds; a trace that holds
+    fewer than n is taken again, up to `attempts` times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    durs = [e["dur"] for e in traced_kernels(prof) if tag in e["name"]]
-    if len(durs) != n:
-        raise AssertionError(f"traced {len(durs)} {tag} kernels of {n} calls")
-    return float(np.median(durs)) / 1e3
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n + 2):
+                fn()
+            torch.cuda.synchronize()
+        traced = sorted((e for e in traced_kernels(prof)
+                         if tag in e["name"]), key=lambda e: e["ts"])
+        if len(traced) >= n:
+            return float(np.median([e["dur"] for e in traced[-n:]])) / 1e3
+    raise AssertionError(f"traced {len(traced)} {tag} kernels of {n + 2} "
+                         "calls")
 
 
 def profile_run(cfg, build_kw, t_final, kernel_tag, mesh=None):
@@ -1588,6 +1629,404 @@ def sharded_main_paths(cfg, probes, single_fhn):
     return launches[0]
 
 
+def large_goldbeter_torus():
+    """The JAX suite's large Goldbeter torus (scripts/bench_suite.py:39-45,
+    the row "Goldbeter torus 800x3200 Tf=1 ark324", 124-125), copied: torus
+    3200x800 (2.56M points), beta 0.4, rtol 1e-5, ark324, f32, Tf=1, auto
+    selection."""
+    from crdmodel_tpu_torch.config import SimConfig
+    return SimConfig(model="goldbeter", surface="torus", x_mesh=800,
+                     surface_width=20, surface_length=80, t_final=1.0,
+                     output_timestep=2, beta=0.4, wave_length=0.2,
+                     wave_width=0.5, wave_inside=1, dtype="float32",
+                     rtol=1e-5, atol=1e-8, method="ark324")
+
+
+def torus_fibres(cfg_aniso):
+    """The fibered sheet's program on the torus (surface_width 20 and
+    surface_length 80 as the torus's circumferences, 1600x400), with the
+    same rotating fibres: the tensor's mixed-pair weight becomes the
+    (nx,) profile 1/(4 dx dy r ring(theta)). Returns (cfg, build
+    arguments)."""
+    cfg = dataclasses.replace(cfg_aniso, surface="torus")
+    return cfg, dict(diffusion_tensor=fiber_tensor(cfg, 1.0, 0.2, 0.0,
+                                                   np.pi / 3))
+
+
+def shard_divform_inputs(problem, mesh, y_np, dtype, aniso):
+    """shard_inputs for K11: the halo-padded buffers and every shard's
+    ShardDivformConstants (the coefficient stack exchanged once)."""
+    from crdmodel_tpu_torch.ops import fused_shard_divform as f11
+    from crdmodel_tpu_torch.ops.kernel_common import (
+        make_shard_divform_constants)
+    from crdmodel_tpu_torch.parallel.halo import mirror_halo_pad
+    from crdmodel_tpu_torch.parallel.sharded import mesh_pad_spec, split_state
+
+    pad = mesh_pad_spec(problem.cfg, mesh)
+    y = torch.tensor(y_np, dtype=dtype, device="cuda")
+    blocks = split_state(y, mesh, pad, problem.cfg)
+    return (mirror_halo_pad(list(blocks), mesh, f11.HALO, pad),
+            make_shard_divform_constants(problem, mesh, pad, f11.HALO,
+                                         dtype, aniso=aniso))
+
+
+def check_shard_imex_kernel(cases, seed):
+    """K10 against its plain version on the shards of each (label, config,
+    mesh shape, shards checked) of `cases`, f32 and f64, each h of K3_H, fz
+    0 and 1: y_new's block bitwise equal, two launches bitwise equal;
+    prints phase k10_check. Returns the max errors."""
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.ops import fused_shard_imex as f10
+
+    rng = np.random.default_rng(seed)
+    worst = {torch.float32: 0.0, torch.float64: 0.0}
+    for label, cfg, shape, shards in cases:
+        mesh = shard_mesh(shape)
+        problem = build_problem(cfg, device="cuda")
+        y_np = random_state(cfg, tuple(problem.y0.shape), rng)
+        for dtype in (torch.float32, torch.float64):
+            bufs, consts = shard_inputs(problem, mesh, y_np, dtype, f10.HALO)
+            for h_val in K3_H:
+                h = torch.tensor(h_val, dtype=dtype, device="cuda")
+                for fz in (0.0, 1.0):
+                    fzt = torch.tensor(fz, dtype=dtype, device="cuda")
+                    for k in shards:
+                        args = (bufs[k], h, fzt, consts[k], cfg.rtol,
+                                cfg.atol)
+                        err = check_shard_pair(
+                            "k10_check", dict(
+                                case=label, model=cfg.model, mesh=list(shape),
+                                shard=k, shape=list(bufs[k].shape),
+                                valid=[consts[k].valid_rows,
+                                       consts[k].valid_cols],
+                                h=h_val, fz=fz),
+                            f10.fused_shard_imex_step,
+                            f10.fused_shard_imex_step_reference, args, dtype)
+                        worst[dtype] = max(worst[dtype], err)
+            del bufs, consts
+        del problem
+    return worst
+
+
+def check_shard_divform_kernel(cases, seed):
+    """K11 against its plain version on the shards of each (label, config,
+    build arguments, mesh shape, shards checked, aniso mode, h) of `cases`,
+    f32 and f64, bs32 and dopri54, fz 0 and 1: y_new's block bitwise equal,
+    two launches bitwise equal; prints phase k11_check. Returns the max
+    errors."""
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import fused_shard_divform as f11
+
+    rng = np.random.default_rng(seed)
+    worst = {torch.float32: 0.0, torch.float64: 0.0}
+    for label, cfg, build_kw, shape, shards, aniso, h_val in cases:
+        mesh = shard_mesh(shape)
+        problem = build_problem(cfg, device="cuda", **build_kw)
+        y_np = random_state(cfg, tuple(problem.y0.shape), rng)
+        for dtype in (torch.float32, torch.float64):
+            bufs, consts = shard_divform_inputs(problem, mesh, y_np, dtype,
+                                                aniso)
+            h = torch.tensor(h_val, dtype=dtype, device="cuda")
+            for method in ("bs32", "dopri54"):
+                for fz in (0.0, 1.0):
+                    fzt = torch.tensor(fz, dtype=dtype, device="cuda")
+                    for k in shards:
+                        args = (bufs[k], h, fzt, consts[k], TABLEAUS[method],
+                                cfg.rtol, cfg.atol)
+                        err = check_shard_pair(
+                            "k11_check", dict(
+                                case=label, mode=consts[k].kind,
+                                model=cfg.model, surface=cfg.surface,
+                                mesh=list(shape), shard=k,
+                                shape=list(bufs[k].shape),
+                                valid=[consts[k].valid_rows,
+                                       consts[k].valid_cols],
+                                method=method, fz=fz),
+                            f11.fused_shard_divform_step,
+                            f11.fused_shard_divform_step_reference, args,
+                            dtype)
+                        worst[dtype] = max(worst[dtype], err)
+            del bufs, consts
+        del problem
+    return worst
+
+
+def shard_field_timings(timed10, timed11, card):
+    """K10 (shard 0 of each config of `timed10` on a 2x2 mesh, from the ICs,
+    h = K3_H[0]) and K11 (shard 0 of each (label, config, build arguments,
+    aniso mode, h) of `timed11` on a 2x2 mesh, bs32), f32, unfrozen, with
+    their plain versions and bounds (the kernel's device time from a
+    profiler trace, device_ms; the CUDA-event time of a burst beside it);
+    prints phases k10_timing and k11_timing. Returns {("k10", shape) |
+    ("k11", label): (kernel ms, plain ms, bound ms, bound_by)}."""
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import fused_shard_divform as f11
+    from crdmodel_tpu_torch.ops import fused_shard_imex as f10
+
+    timings = {}
+    dtype = torch.float32
+    zero = torch.zeros((), dtype=dtype, device="cuda")
+    mesh = shard_mesh(SHARD_MESH)
+    for cfg in timed10:
+        problem = build_problem(dataclasses.replace(cfg, t_boundary=0.0),
+                                "cuda")
+        bufs, consts = shard_inputs(problem, mesh, problem.y0.cpu().numpy(),
+                                    dtype, f10.HALO)
+        args = (bufs[0], torch.tensor(K3_H[0], device="cuda"), zero,
+                consts[0], cfg.rtol, cfg.atol)
+        burst = median_ms(lambda: f10.fused_shard_imex_step(*args),
+                          *WIDE_TIMED)
+        t10 = (device_ms(lambda: f10.fused_shard_imex_step(*args),
+                         "fused_imex_tile_kernel", WIDE_TIMED[0]),
+               median_ms(lambda: f10.fused_shard_imex_step_reference(*args),
+                         *WIDE_TIMED),
+               *shard_bound(bufs[0], consts[0], imex_ops(consts[0])))
+        timings["k10", tuple(bufs[0].shape)] = t10
+        phase("k10_timing", config=cfg.program_name, shape=list(bufs[0].shape),
+              halo=f10.HALO, h=K3_H[0], dtype="float32",
+              kernel_us=t10[0] * 1e3, burst_us=burst * 1e3,
+              plain_us=t10[1] * 1e3, bound_us=t10[2] * 1e3,
+              bound_by=t10[3], samples=list(WIDE_TIMED), card=card)
+        del problem, bufs, consts
+    tab = TABLEAUS["bs32"]
+    for label, cfg, build_kw, aniso, h_val in timed11:
+        problem = build_problem(dataclasses.replace(cfg, t_boundary=0.0),
+                                "cuda", **build_kw)
+        bufs, consts = shard_divform_inputs(
+            problem, mesh, problem.y0.cpu().numpy(), dtype, aniso)
+        args = (bufs[0], torch.tensor(h_val, device="cuda"), zero,
+                consts[0], tab, cfg.rtol, cfg.atol)
+        burst = median_ms(lambda: f11.fused_shard_divform_step(*args))
+        t11 = (device_ms(lambda: f11.fused_shard_divform_step(*args),
+                         "fused_erk_tile_kernel"),
+               median_ms(lambda: f11.fused_shard_divform_step_reference(
+                   *args)),
+               *shard_bound(bufs[0], consts[0], erk_ops(consts[0], tab)))
+        timings["k11", label] = t11
+        phase("k11_timing", case=label, mode=consts[0].kind,
+              shape=list(bufs[0].shape), halo=f11.HALO, method="bs32",
+              dtype="float32", kernel_us=t11[0] * 1e3, burst_us=burst * 1e3,
+              plain_us=t11[1] * 1e3, bound_us=t11[2] * 1e3, bound_by=t11[3],
+              card=card)
+        del problem, bufs, consts
+    return timings
+
+
+def run_sharded_against(name, cfg, build_kw, kernel, label, mesh,
+                        single_kernel=None):
+    """A program without a JAX golden (`cfg`, built with `build_kw`)
+    through simulate_sharded() on `mesh`, with every kernel's launch count
+    set to 0 just before and read just after; `kernel` the wrapper its
+    steps must take. Held to a single-device f32 run of the same call: the
+    kernel `single_kernel` takes (auto selection), or the port's torch path
+    (use_pallas=False) when None; and to the torch path's f64 run on the
+    card: steps within 1% of the f32 run's, the final field within that
+    run's own distance to the f64 run plus 1e-4. Prints phase `name`;
+    returns the launches of `kernel`."""
+    res, counts = drive_main_path(cfg, build_kw, mesh)
+    launches = counts[kernel.__name__]
+    checks = run_checks(cfg, res, kernel, launches, mesh.size)
+    final = res.trajectory[-1].clone()
+    steps, wall, status = res.total_steps(), res.wall_time, res.describe()
+    stats = res.stats
+    del res
+    if single_kernel is None:
+        traj, ref_steps, ref_wall, ref_ok = torch_path_run(cfg, build_kw,
+                                                           "float32")
+        ref_final, ref_name = traj[-1].clone(), "torch path"
+        del traj
+    else:
+        single_kernel.launches = 0
+        ref = run_program(cfg, build_kw)
+        ref_final, ref_name = ref.trajectory[-1].clone(), single_kernel.__name__
+        ref_steps, ref_wall = ref.total_steps(), ref.wall_time
+        ref_ok = (ref.ok and ref.fused and single_kernel.launches
+                  >= launch_bound(cfg, ref_steps)[0])
+        del ref
+    traj64, steps64, wall64, ok64 = torch_path_run(cfg, build_kw, "float64")
+    f32_gap = float((ref_final.double() - traj64[-1]).abs().max())
+    del traj64
+    limit = f32_gap + 1e-4
+    gap = float((final - ref_final).abs().max())
+    points = cfg.nx * cfg.ny
+    phase(name, config=label, selection=selection_note(cfg),
+          mesh=list(mesh.shape), devices=[str(d) for d in mesh.device_list()],
+          grid=[cfg.ny, cfg.nx], method=cfg.method, dtype=cfg.dtype,
+          status=status, steps=steps, accepted=int(stats.accepted.sum()),
+          rejected=int(stats.rejected.sum()), kernel=kernel.__name__,
+          launches=counts, launch_bound=launch_bound(cfg, steps),
+          wall_s=wall, us_per_step=wall / steps * 1e6,
+          points_steps_per_s=points * steps / wall,
+          single_device=dict(path=ref_name, steps=ref_steps, wall_s=ref_wall,
+                             ok=ref_ok,
+                             points_steps_per_s=points * ref_steps / ref_wall),
+          torch_f64=dict(steps=steps64, wall_s=wall64, ok=ok64),
+          step_limit=0.01, final_max_abs_vs_single_device=gap,
+          final_limit=limit, single_device_f32_f64_gap=f32_gap,
+          card=card_line())
+    checks.update({
+        f"single-device run ok through {ref_name}": ref_ok,
+        "torch path f64 ok": ok64,
+        "steps within 1% of the single-device run":
+            abs(steps - ref_steps) <= 0.01 * ref_steps,
+        "final field vs the single-device run": gap <= limit,
+    })
+    fail_unless(name, checks)
+    return launches
+
+
+def sharded_field_main_paths(programs, probes, singles):
+    """The main paths of kernels K10 and K11 through simulate_sharded() on
+    a 2x2 mesh of shards on cuda:0 and, with four cards or more, again
+    (phases tagged _4cards) with shard i on cuda:i: the bounded tissue
+    (main_path_sharded_bounded_ap, K11) and the fibered sheet
+    (main_path_sharded_aniso, K11's aniso mode), held to their JAX goldens
+    and to the single-device K4 and K5 runs of `singles`; the fibres on the
+    torus (main_path_sharded_torus_tensor, K11 with the inv4 profile),
+    held to the port's single-device torch path; the canonical Goldbeter
+    torus with ark324 (main_path_sharded_goldbeter_ark324, K10), held to
+    its golden and the single-device K3 run; the large Goldbeter torus
+    (main_path_sharded_large_goldbeter_ark324, K10), held to the
+    single-device K3 run of the same call. Returns the 2x2 runs' launches
+    {name: n}."""
+    from crdmodel_tpu_torch.ops import (fused_imex, fused_shard_divform,
+                                        fused_shard_imex)
+    f10 = fused_shard_imex.fused_shard_imex_step
+    f11 = fused_shard_divform.fused_shard_divform_step
+    cfg_ap, ap_build = programs["bounded_ap"]
+    cfg_aniso, aniso_build = programs["aniso"]
+    cfg_torus, torus_build = programs["torus_tensor"]
+    cfg_gb = programs["goldbeter_ark324"]
+    ap_probes = probes["aliev_panfilov", "bs32"]
+    aniso_probes = probes["aniso_sheet", "bs32"]
+    meshes = [shard_mesh(SHARD_MESH)]
+    if torch.cuda.device_count() >= 4:
+        meshes.append(shard_mesh(SHARD_MESH, [f"cuda:{i}" for i in range(4)]))
+    launches = []
+    for i, mesh in enumerate(meshes):
+        tag = "" if i == 0 else "_4cards"
+        n = {}
+        n["bounded_ap"] = run_main_path(
+            cfg_ap, ap_probes, f11, 0.01, "main_path_sharded_bounded_ap" + tag,
+            "scripts/bench_suite.py::bounded_tissue aliev_panfilov flat, "
+            "noflux walls + circular scar", build_kw=ap_build,
+            extra_checks=scar_checks(ap_probes, ap_build["obstacle_mask"]),
+            mesh=mesh, versus=singles["bounded_ap"])
+        n["aniso"] = run_main_path(
+            cfg_aniso, aniso_probes, f11, 0.01,
+            "main_path_sharded_aniso" + tag,
+            "tests_tpu/test_aniso_tpu.py aliev_panfilov flat periodic, the "
+            "rotating fibres of examples/anisotropic_fibers.py",
+            build_kw=aniso_build,
+            extra_checks=tensor_checks(aniso_probes,
+                                       aniso_build["diffusion_tensor"]),
+            mesh=mesh, versus=singles["aniso"])
+        n["torus_tensor"] = run_sharded_against(
+            "main_path_sharded_torus_tensor" + tag, cfg_torus, torus_build,
+            f11, "the fibered sheet's program and fibres on the torus "
+            "(1600x400)", mesh)
+        n["goldbeter_ark324"] = run_main_path(
+            cfg_gb, probes["goldbeter", "ark324"], f10, 0.01,
+            "main_path_sharded_goldbeter_ark324" + tag,
+            "data/GoldbeterModelArgs.ini goldbeter torus, ark324", mesh=mesh,
+            versus=singles["goldbeter_ark324"])
+        n["large_goldbeter_ark324"] = run_sharded_against(
+            "main_path_sharded_large_goldbeter_ark324" + tag,
+            large_goldbeter_torus(), {}, f10,
+            "scripts/bench_suite.py:39-45 goldbeter torus 3200x800 Tf=1 "
+            "ark324", mesh, single_kernel=fused_imex.fused_imex_step)
+        launches.append(n)
+    return launches[0]
+
+
+def single_field_runs(programs, probes):
+    """The single-device runs the sharded K10 and K11 paths are held to
+    (the bounded tissue through K4, the fibered sheet through K5, the
+    canonical Goldbeter ark324 through K3), each with its checks: {name:
+    its steps and probes}."""
+    from crdmodel_tpu_torch.ops import fused_aniso, fused_divform, fused_imex
+    singles = {}
+    for key, kernel, probe_key, name in (
+            ("bounded_ap", fused_divform.fused_divform_step,
+             ("aliev_panfilov", "bs32"), "main_path_bounded_ap"),
+            ("aniso", fused_aniso.fused_aniso_step, ("aniso_sheet", "bs32"),
+             "main_path_aniso"),
+            ("goldbeter_ark324", fused_imex.fused_imex_step,
+             ("goldbeter", "ark324"), "main_path_goldbeter_ark324")):
+        prog = programs[key]
+        cfg, build_kw = prog if isinstance(prog, tuple) else (prog, {})
+        singles[key] = {}
+        run_main_path(cfg, probes[probe_key], kernel, 0.01, name,
+                      cfg.program_name, build_kw=build_kw,
+                      keep=singles[key])
+    return singles
+
+
+def shard_field_phases(cfg, programs, probes, singles, card):
+    """The phases of kernels K10 and K11: their checks against their plain
+    versions (k10_check: Goldbeter and FHN on the canonical tori's 2x2
+    shards with the beta ramp and a freeze, the uneven 1x3 mesh, the large
+    Goldbeter torus's 2x2 shard; k11_check: the bounded tissue's 2x2
+    shards, a flat 2-D diffusion field, the uneven 1x3 mesh, the rotating
+    fibres flat and on the torus, a constant tensor inside no-flux walls),
+    their timings (k10_timing, k11_timing) and the main paths of
+    sharded_field_main_paths. Returns K10's and K11's entries of the
+    kernels line."""
+    cfg_ap, ap_build = programs["bounded_ap"]
+    cfg_aniso, aniso_build = programs["aniso"]
+    cfg_torus, torus_build = programs["torus_tensor"]
+    cfg_gb = programs["goldbeter_ark324"]
+    cfg_large = large_goldbeter_torus()
+    fhn_ark = dataclasses.replace(cfg, method="ark324")
+    worst10 = check_shard_imex_kernel([
+        ("goldbeter_2x2", dataclasses.replace(cfg_gb, t_boundary=1.0),
+         SHARD_MESH, (0, 3)),
+        ("fhn_2x2", fhn_ark, SHARD_MESH, (0, 3)),
+        ("fhn_uneven_1x3", fhn_ark, UNEVEN_MESH, (0, 1, 2)),
+        ("large_goldbeter_2x2", cfg_large, SHARD_MESH, (0,))], SEED + 10)
+    frozen = dict(t_boundary=1.0)
+    dfield = 0.05 + 0.1 * np.random.default_rng(SEED).random(
+        (cfg_ap.ny, cfg_ap.nx))
+    ap_periodic = dataclasses.replace(cfg_ap, boundary="periodic",
+                                      diffusion=0.1, **frozen)
+    worst11 = check_shard_divform_kernel([
+        ("noflux_scar_2x2", dataclasses.replace(cfg_ap, **frozen), ap_build,
+         SHARD_MESH, (0, 3), False, K4_H),
+        ("flat_2d_field_2x2", ap_periodic, dict(diffusion_field=dfield),
+         SHARD_MESH, (0, 3), False, K4_H),
+        ("noflux_scar_uneven_1x3", dataclasses.replace(cfg_ap, **frozen),
+         ap_build, UNEVEN_MESH, (0, 1, 2), False, K4_H),
+        ("fibres_flat_2x2", dataclasses.replace(cfg_aniso, **frozen),
+         aniso_build, SHARD_MESH, (0, 3), True, K5_H),
+        ("fibres_torus_2x2", dataclasses.replace(cfg_torus, **frozen),
+         torus_build, SHARD_MESH, (0, 3), True, K5_H),
+        ("const_tensor_noflux_2x2",
+         dataclasses.replace(cfg_aniso, boundary="noflux", **frozen),
+         dict(diffusion_tensor=(1.0, 0.25, 0.15)), SHARD_MESH, (0, 3), True,
+         K5_H)], SEED + 11)
+    timings = shard_field_timings(
+        [cfg_gb, cfg_large],
+        [("bounded_ap", cfg_ap, ap_build, False, K4_H),
+         ("fibres_torus", cfg_torus, torus_build, True, K5_H)], card)
+    n = sharded_field_main_paths(programs, probes, singles)
+    large_shape = (2, cfg_large.ny // 2 + 16, cfg_large.nx // 2 + 16)
+    return [
+        kernel_entry("fused_shard_imex_step", "fused_shard_imex.cu",
+                     "crdmodel_tpu/ops/pallas_shard_imex.py:57",
+                     n["large_goldbeter_ark324"], worst10,
+                     timings["k10", large_shape]),
+        kernel_entry("fused_shard_divform_step", "fused_shard_divform.cu",
+                     "crdmodel_tpu/ops/pallas_shard_divform.py:139",
+                     n["bounded_ap"], worst11, timings["k11", "bounded_ap"]),
+        kernel_entry("fused_shard_divform_step (aniso mode)",
+                     "fused_shard_divform.cu",
+                     "crdmodel_tpu/ops/pallas_shard_divform.py:139",
+                     n["torus_tensor"], worst11,
+                     timings["k11", "fibres_torus"])]
+
+
 def load_probes():
     """Every golden of PROBES: {(model, method): {name: array}}."""
     probes = {}
@@ -1652,12 +2091,23 @@ def main():
           ptxas_fused_box3d=ptxas_summary("fused_box3d.cu"),
           ptxas_fused_box3d_rkc=ptxas_summary("fused_box3d_rkc.cu"),
           ptxas_fused_shard_step=ptxas_summary("fused_shard_step.cu"),
-          ptxas_fused_shard_rkc=ptxas_summary("fused_shard_rkc.cu"))
+          ptxas_fused_shard_rkc=ptxas_summary("fused_shard_rkc.cu"),
+          ptxas_fused_imex=ptxas_summary("fused_imex.cu"),
+          ptxas_fused_shard_imex=ptxas_summary("fused_shard_imex.cu"),
+          ptxas_fused_shard_divform=ptxas_summary("fused_shard_divform.cu"))
     cfg_ap, ap_build = bounded_tissue()
     cfg_ap_rkc = dataclasses.replace(cfg_ap, method="rkc2")
     cfg_wide = wide_sheet()
     cfg_aniso, aniso_build = aniso_sheet()
     cfg_box = volumetric_box()
+    cfg_gb = config_from_ini(GB_INI, model="goldbeter", surface="torus",
+                             use_pallas=True)
+    # the programs of K10's and K11's sharded main paths
+    programs = {"bounded_ap": (cfg_ap, ap_build),
+                "aniso": (cfg_aniso, aniso_build),
+                "torus_tensor": torus_fibres(cfg_aniso),
+                "goldbeter_ark324": dataclasses.replace(cfg_gb,
+                                                        method="ark324")}
     if sys.argv[1:] == ["--profile"]:
         profile_run(cfg_ap, ap_build, 1.0, "DivformRhs")
         profile_run(cfg_ap_rkc, ap_build, 1.0, "fused_rkc_step_kernel")
@@ -1675,6 +2125,10 @@ def main():
                     5.0, "HaloGrid", mesh=shard_mesh(SHARD_MESH))
         profile_run(large_fhn_torus(), {}, 0.2, "HaloGrid",
                     mesh=shard_mesh(SHARD_MESH))
+        profile_run(cfg_ap, ap_build, 1.0, "DivformRhs",
+                    mesh=shard_mesh(SHARD_MESH))
+        profile_run(large_goldbeter_torus(), {}, 0.2,
+                    "fused_imex_tile_kernel", mesh=shard_mesh(SHARD_MESH))
         return
     cfg = config_from_ini(INI, model="fhn", surface="torus")
     fhn_label = "data/FHNmodelArgs.ini fhn torus"
@@ -1683,13 +2137,13 @@ def main():
         run_main_path(cfg, probes["fhn", "bs32"], fused_step.fused_step, 0.01,
                       "main_path", fhn_label, keep=single_fhn)
         sharded_main_paths(cfg, probes, single_fhn)
+        sharded_field_main_paths(programs, probes,
+                                 single_field_runs(programs, probes))
         return
     if sys.argv[1:]:
         sys.exit(f"unknown arguments {sys.argv[1:]}; see the docstring")
 
     cfg_flat = dataclasses.replace(cfg, surface="flat", vary_beta=0)
-    cfg_gb = config_from_ini(GB_INI, model="goldbeter", surface="torus",
-                             use_pallas=True)
     # Goldbeter with a freeze (the ini has tBoundary=0), torus with a
     # scalar beta and flat with the beta ramp
     gb_torus = dataclasses.replace(cfg_gb, t_boundary=1.0)
@@ -1796,17 +2250,20 @@ def main():
                               "main_path_rkc2", fhn_label)
     run_main_path(cfg_gb, probes["goldbeter", "bs32"], fused_step.fused_step,
                   0.01, "main_path_goldbeter", gb_label)
+    singles = {key: {} for key in ("bounded_ap", "aniso",
+                                   "goldbeter_ark324")}
     launches3 = run_main_path(
-        dataclasses.replace(cfg_gb, method="ark324"),
-        probes["goldbeter", "ark324"], fused_imex.fused_imex_step, 0.01,
-        "main_path_goldbeter_ark324", gb_label)
+        programs["goldbeter_ark324"], probes["goldbeter", "ark324"],
+        fused_imex.fused_imex_step, 0.01, "main_path_goldbeter_ark324",
+        gb_label, keep=singles["goldbeter_ark324"])
     ap_probes = probes["aliev_panfilov", "bs32"]
     launches4 = run_main_path(
         cfg_ap, ap_probes, fused_divform.fused_divform_step, 0.01,
         "main_path_bounded_ap",
         "scripts/bench_suite.py::bounded_tissue aliev_panfilov flat, "
         "noflux walls + circular scar",
-        build_kw=ap_build, extra_checks=scar_checks(ap_probes, mask))
+        build_kw=ap_build, extra_checks=scar_checks(ap_probes, mask),
+        keep=singles["bounded_ap"])
     # the bounded tissue with rkc2, through K2's divergence branch; its
     # scar drifts by the recurrence's rounding (scar_checks), held to the
     # probes' floor of 1e-4
@@ -1827,10 +2284,12 @@ def main():
         "rotating fibres of examples/anisotropic_fibers.py",
         build_kw=aniso_build,
         extra_checks=tensor_checks(aniso_probes,
-                                   aniso_build["diffusion_tensor"]))
+                                   aniso_build["diffusion_tensor"]),
+        keep=singles["aniso"])
 
     box_entries = box_phases(cfg_box, card)
     shard_entries = shard_phases(cfg, probes, single_fhn, card)
+    field_entries = shard_field_phases(cfg, programs, probes, singles, card)
 
     k2_s = max(timing2)     # the stability-bound step: the larger time
     k3_shape = (2, cfg_gb.ny, cfg_gb.nx)    # the ark324 main path's shape
@@ -1853,7 +2312,7 @@ def main():
         kernel_entry("fused_aniso_step", "fused_aniso.cu",
                      "crdmodel_tpu/ops/pallas_aniso.py:82", launches5,
                      worst5, k5_timing),
-        *box_entries, *shard_entries]}))
+        *box_entries, *shard_entries, *field_entries]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,9 @@ come across as numpy arrays:
                                    device="cpu", dtype=torch.float64)
 
 The same function carries states drawn from np.random.default_rng(seed).
+A sharded run's global parameters (the JAX package's parallel/sharded.py::
+sharded_params, as numpy) come across with sharded_params_from_numpy,
+which keeps the masks boolean.
 """
 
 from __future__ import annotations
@@ -23,3 +26,20 @@ def inputs_from_numpy(y0, params, *, device, dtype):
         return torch.tensor(np.asarray(x), dtype=dtype, device=device)
 
     return move(y0), {k: move(v) for k, v in params.items()}
+
+
+# the boolean entries of a sharded run's parameters: the pad cells, the
+# freeze's interior rows and the obstacle's tissue
+MASKS = ("valid", "interior", "tissue")
+
+
+def sharded_params_from_numpy(params, *, device, dtype):
+    """The JAX package's sharded_params dict (numpy arrays, "coeffs" a
+    tuple) as the port's parallel/sharded.py::sharded_params on `device`:
+    the masks (MASKS) bool, every other entry in `dtype`, shapes kept."""
+    def move(name, x):
+        return torch.tensor(np.asarray(x), device=device,
+                            dtype=torch.bool if name in MASKS else dtype)
+
+    return {k: (tuple(move(k, c) for c in v) if k == "coeffs"
+                else move(k, v)) for k, v in params.items()}

@@ -1,11 +1,12 @@
 // The tile scheme of the port's fused embedded-ERK step kernels: K1
 // (fused_step.cu, the 5-point profile operator), K4 (fused_divform.cu, the
-// divergence-form operator), K5 (fused_aniso.cu) and K8
-// (fused_shard_step.cu, K1 on one shard of a mesh). They differ in the
-// right-hand side at a point, a functor the kernel template takes, and in
-// the grid the tile reads, a policy it takes (rhs_common.cuh): WrapGrid,
-// the periodic grid, whose halo is a modular index at load (K1, K4, K5),
-// or HaloGrid, one shard's block inside a halo the exchange filled (K8).
+// divergence-form operator), K5 (fused_aniso.cu), K8 (fused_shard_step.cu,
+// K1 on one shard of a mesh) and K11 (fused_shard_divform.cu, K4 and the
+// 2-D tensor on one shard). They differ in the right-hand side at a point,
+// a functor the kernel template takes, and in the grid the tile reads, a
+// policy it takes (rhs_common.cuh): WrapGrid, the periodic grid, whose
+// halo is a modular index at load (K1, K4, K5), or HaloGrid, one shard's
+// block inside a halo the exchange filled (K8, K11).
 //
 // One launch performs a whole step: every stage's stencil and kinetics, the
 // solution update, and one partial sum of squared WRMS-scaled errors per

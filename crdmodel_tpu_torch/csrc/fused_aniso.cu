@@ -40,7 +40,9 @@
 
 namespace {
 
-using crd::AnisoRhs;
+// the operator on the periodic grid
+template <int Kin, typename T>
+using Rhs = crd::AnisoRhs<Kin, T, crd::WrapGrid>;
 
 template <typename T>
 int launch(const void* y, void* y_new, void* ss, const void* h,
@@ -59,16 +61,17 @@ int launch(const void* y, void* y_new, void* ss, const void* h,
   const crd::RhsConstants<T> k = {
       nullptr, nullptr, nullptr, 0, static_cast<const T*>(beta), beta_field,
       static_cast<const T*>(mask), has_freeze};
+  const crd::WrapGrid grid = {ny, nx};
   if (kinetics == crd::kFhn)
-    return crd::launch_erk_tile<AnisoRhs<crd::kFhn, T>, T>(
-        {c, k, ny, nx}, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab,
+    return crd::launch_erk_tile<Rhs<crd::kFhn, T>, T>(
+        {c, k, grid}, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab,
         rtol, atol, stream);
   if (kinetics == crd::kGoldbeter)
-    return crd::launch_erk_tile<AnisoRhs<crd::kGoldbeter, T>, T>(
-        {c, k, ny, nx}, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab,
+    return crd::launch_erk_tile<Rhs<crd::kGoldbeter, T>, T>(
+        {c, k, grid}, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab,
         rtol, atol, stream);
-  return crd::launch_erk_tile<AnisoRhs<crd::kAlievPanfilov, T>, T>(
-      {c, k, ny, nx}, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab, rtol,
+  return crd::launch_erk_tile<Rhs<crd::kAlievPanfilov, T>, T>(
+      {c, k, grid}, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab, rtol,
       atol, stream);
 }
 

@@ -41,7 +41,9 @@
 
 namespace {
 
-using crd::DivformRhs;
+// the operator on the periodic grid
+template <int Kin, typename T>
+using Rhs = crd::DivformRhs<Kin, T, crd::WrapGrid>;
 
 template <typename T>
 int launch(const void* y, void* y_new, void* ss, const void* h,
@@ -61,16 +63,17 @@ int launch(const void* y, void* y_new, void* ss, const void* h,
   const crd::RhsConstants<T> k = {
       nullptr, nullptr, nullptr, 0, static_cast<const T*>(beta), beta_field,
       static_cast<const T*>(mask), has_freeze};
+  const crd::WrapGrid grid = {ny, nx};
   if (kinetics == crd::kFhn)
-    return crd::launch_erk_tile<DivformRhs<crd::kFhn, T>, T>(
-        {f, k, ny, nx}, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab,
+    return crd::launch_erk_tile<Rhs<crd::kFhn, T>, T>(
+        {f, k, grid}, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab,
         rtol, atol, stream);
   if (kinetics == crd::kGoldbeter)
-    return crd::launch_erk_tile<DivformRhs<crd::kGoldbeter, T>, T>(
-        {f, k, ny, nx}, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab,
+    return crd::launch_erk_tile<Rhs<crd::kGoldbeter, T>, T>(
+        {f, k, grid}, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab,
         rtol, atol, stream);
-  return crd::launch_erk_tile<DivformRhs<crd::kAlievPanfilov, T>, T>(
-      {f, k, ny, nx}, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab, rtol,
+  return crd::launch_erk_tile<Rhs<crd::kAlievPanfilov, T>, T>(
+      {f, k, grid}, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab, rtol,
       atol, stream);
 }
 

@@ -67,8 +67,9 @@ int launch_kinetics(const crd::RhsConstants<T>& k,
                     int s_cap, int ny, int nx, int tile_x, int tile_y,
                     double rtol, double atol, void* stream) {
   if (f.aE != nullptr)
-    return crd::launch_rkc_tile<crd::DivformRhs<Kin, T>, crd::WrapGrid, T>(
-        {f, k, ny, nx}, {ny, nx}, y, y_new, ss, h, fz, s, mu1_tab, ctab,
+    return crd::launch_rkc_tile<crd::DivformRhs<Kin, T, crd::WrapGrid>,
+                                 crd::WrapGrid, T>(
+        {f, k, {ny, nx}}, {ny, nx}, y, y_new, ss, h, fz, s, mu1_tab, ctab,
         s_cap, ny, nx, tile_x, tile_y, rtol, atol, stream);
   return crd::launch_rkc_tile<crd::ProfileRhs<Kin, T>, crd::WrapGrid, T>(
       {k}, {ny, nx}, y, y_new, ss, h, fz, s, mu1_tab, ctab, s_cap, ny, nx,

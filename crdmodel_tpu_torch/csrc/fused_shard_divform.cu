@@ -1,0 +1,133 @@
+// Fused embedded-ERK step of the divergence-form operator, or of the 2-D
+// tensor operator, with FitzHugh-Nagumo, Goldbeter or Aliev-Panfilov
+// kinetics on one shard of a 2-D mesh (kernel K11 of the port).
+//
+// Replaces crdmodel_tpu/ops/pallas_shard_divform.py::
+// build_fused_shard_divform, the Pallas TPU kernel that takes every
+// attempted step of a sharded ERK run of bounded tissue (no-flux walls,
+// obstacle scars, 2-D and flat diffusion fields) and, in its aniso mode, of
+// a 2-D diffusion tensor on the flat surface or the torus. It is K4
+// (fused_divform.cu) on one shard: one exchange of width P >= n_stages a
+// step (parallel/halo.py::refresh_halos) fills the halo of the shard's
+// buffer, and one launch computes every stage, the solution update, and one
+// partial sum of squared WRMS-scaled errors per thread block over the
+// PHYSICAL cells. The caller adds every shard's partials in a fixed order.
+//
+// The tile scheme is K1's (erk_tile.cuh) with the HaloGrid policy
+// (rhs_common.cuh), and the RHS is one of two functors over the shard's
+// halo-padded coefficient stack (ops/kernel_common.py::
+// make_shard_divform_constants), built and exchanged once a run:
+//   mode 0, DivformRhs: K4's face operator, aE, aW, aN and aS = aN of the
+//     row below, with the 0/1 tissue field of an obstacle as the fourth
+//     plane (obstacle cells get ydot = 0 and hold their IC bitwise);
+//   mode 1, MixedDivformRhs: the same axis terms plus the mixed pair on the
+//     raw Dxy (the fourth plane), axis + inv4 (t1 + t2), the XLA path's
+//     association, with inv4 a scalar (flat) or the halo-padded column
+//     profile (torus). K5's AnisoRhs folds Dxy inv4 and adds axis +
+//     (t1 + t2): the two round differently.
+// Closed faces carry zero coefficients, so the halo values they meet add
+// exact zeros. On a mesh that does not divide the grid the kernel runs the
+// JAX kernels' mirror-pad semantics, as K8 does. Only the block of y_new is
+// written; its halo is the next exchange's.
+//
+// What bounds it on an H100: the shard's buffer and its 3-4 coefficient
+// planes are read once and y_new's block written once, as for K4: a step is
+// bound by latency, the block's barriers between stages and the shared
+// stage buffers, and by the host's launches and halo copies around it.
+
+#include <cuda_runtime.h>
+
+#include "erk_tile.cuh"
+#include "rhs_common.cuh"
+
+namespace {
+
+using crd::HaloGrid;
+
+template <int Kin, typename T>
+int launch_kinetics(const crd::FaceConstants<T>& f,
+                    const crd::MixedConstants<T>& m,
+                    const crd::RhsConstants<T>& k, int mode,
+                    const HaloGrid& grid, const void* y, void* y_new,
+                    void* ss, const void* h, const void* fz, int tile_x,
+                    int tile_y, const crd::StageTable& tab, double rtol,
+                    double atol, void* stream) {
+  if (mode == 1)
+    return crd::launch_erk_tile_on<crd::MixedDivformRhs<Kin, T, HaloGrid>,
+                                   T>(
+        {f, m, k, grid}, grid, y, y_new, ss, h, fz, grid.nyl, grid.nxl,
+        tile_x, tile_y, tab, rtol, atol, stream);
+  return crd::launch_erk_tile_on<crd::DivformRhs<Kin, T, HaloGrid>, T>(
+      {f, k, grid}, grid, y, y_new, ss, h, fz, grid.nyl, grid.nxl, tile_x,
+      tile_y, tab, rtol, atol, stream);
+}
+
+template <typename T>
+int launch(const void* y, void* y_new, void* ss, const void* h,
+           const void* fz, const void* ae, const void* aw, const void* an,
+           const void* fourth, int mode, const void* inv4, int inv4_profile,
+           const void* beta, int beta_field, const void* mask,
+           int has_freeze, int kinetics, int nyl, int nxl, int halo,
+           int valid_rows, int valid_cols, int tile_x, int tile_y,
+           int n_stages, const double* a, const double* b, const double* d,
+           double rtol, double atol, void* stream) {
+  crd::StageTable tab;
+  if (!crd::make_stage_table(n_stages, a, b, d, &tab)
+      || !crd::valid_kinetics(kinetics) || halo < n_stages
+      || valid_rows < 0 || valid_rows > nyl || valid_cols < 0
+      || valid_cols > nxl || (mode != 0 && mode != 1)
+      || (mode == 1 && (fourth == nullptr || inv4 == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const crd::FaceConstants<T> f = {
+      static_cast<const T*>(ae), static_cast<const T*>(aw),
+      static_cast<const T*>(an),
+      mode == 0 ? static_cast<const T*>(fourth) : nullptr};
+  const crd::MixedConstants<T> m = {
+      mode == 1 ? static_cast<const T*>(fourth) : nullptr,
+      static_cast<const T*>(inv4), inv4_profile};
+  const crd::RhsConstants<T> k = {
+      nullptr, nullptr, nullptr, 0, static_cast<const T*>(beta), beta_field,
+      static_cast<const T*>(mask), has_freeze};
+  const HaloGrid grid = {nyl, nxl, halo, valid_rows, valid_cols};
+  if (kinetics == crd::kFhn)
+    return launch_kinetics<crd::kFhn, T>(f, m, k, mode, grid, y, y_new, ss,
+                                         h, fz, tile_x, tile_y, tab, rtol,
+                                         atol, stream);
+  if (kinetics == crd::kGoldbeter)
+    return launch_kinetics<crd::kGoldbeter, T>(f, m, k, mode, grid, y, y_new,
+                                               ss, h, fz, tile_x, tile_y, tab,
+                                               rtol, atol, stream);
+  return launch_kinetics<crd::kAlievPanfilov, T>(f, m, k, mode, grid, y,
+                                                 y_new, ss, h, fz, tile_x,
+                                                 tile_y, tab, rtol, atol,
+                                                 stream);
+}
+
+}  // namespace
+
+// fourth: the tissue field (mode 0, null without an obstacle) or Dxy (mode
+// 1); inv4: the mixed pair's weight, a scalar or, with inv4_profile, the
+// (nxl + 2 halo) column profile (mode 1; null in mode 0)
+#define CRD_FUSED_SHARD_DIVFORM_ARGS                                         \
+  const void *y, void *y_new, void *ss, const void *h, const void *fz,      \
+      const void *ae, const void *aw, const void *an, const void *fourth,   \
+      int mode, const void *inv4, int inv4_profile, const void *beta,       \
+      int beta_field, const void *mask, int has_freeze, int kinetics,       \
+      int nyl, int nxl, int halo, int valid_rows, int valid_cols,           \
+      int tile_x, int tile_y, int n_stages, const double *a,                \
+      const double *b, const double *d, double rtol, double atol,           \
+      void *stream
+#define CRD_FUSED_SHARD_DIVFORM_PASS                                         \
+  y, y_new, ss, h, fz, ae, aw, an, fourth, mode, inv4, inv4_profile, beta,  \
+      beta_field, mask, has_freeze, kinetics, nyl, nxl, halo, valid_rows,   \
+      valid_cols, tile_x, tile_y, n_stages, a, b, d, rtol, atol, stream
+
+extern "C" int crd_fused_shard_divform_step_f32(
+    CRD_FUSED_SHARD_DIVFORM_ARGS) {
+  return launch<float>(CRD_FUSED_SHARD_DIVFORM_PASS);
+}
+
+extern "C" int crd_fused_shard_divform_step_f64(
+    CRD_FUSED_SHARD_DIVFORM_ARGS) {
+  return launch<double>(CRD_FUSED_SHARD_DIVFORM_PASS);
+}

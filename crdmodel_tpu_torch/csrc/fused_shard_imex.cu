@@ -1,0 +1,81 @@
+// Fused IMEX ARK3(2)4L[2]SA step of the 5-point profile operator (explicit)
+// and pointwise FitzHugh-Nagumo, Goldbeter or Aliev-Panfilov kinetics
+// (implicit) on one shard of a 2-D mesh (kernel K10 of the port).
+//
+// Replaces crdmodel_tpu/ops/pallas_shard_imex.py::build_fused_shard_imex,
+// the Pallas TPU kernel that takes every attempted step of a sharded ark324
+// run. It is K3 (fused_imex.cu) on one shard: one exchange of width P >= 4 a
+// step (parallel/halo.py::refresh_halos) fills the halo of the shard's
+// buffer, and one launch computes the 4 explicit stencil evaluations, the 3
+// implicit stages by full Newton at every point (pointwise, so shard-local:
+// no exchange beyond the step's one), the update, and one partial sum per
+// thread block of the squared WRMS-scaled error plus (1/NEWTON_TOL)^2 times
+// the squared scaled last Newton updates, both over the PHYSICAL cells. The
+// caller adds every shard's partials in a fixed order, so the Newton
+// convergence test rides the error's cross-shard sum and every shard takes
+// the same accept/reject decision.
+//
+// The tile scheme is K3's (imex_tile.cuh) with the HaloGrid policy
+// (rhs_common.cuh): the tile loads its 4-ring halo from the buffer, no index
+// wraps, and the RHS indexes the shard's halo-padded constants (three
+// (nxl + 2P) profiles or three scalars, beta and the freeze mask as
+// (nyl + 2P) rows). On a mesh that does not divide the grid the kernel runs
+// the JAX kernels' mirror-pad semantics: pad cells step like their wrapped
+// sources, and only the first valid_rows x valid_cols cells of the block
+// enter either part of the sum. Only the block of y_new is written.
+//
+// What bounds it on an H100: as K3, the Newton's arithmetic (some 500 flops
+// and 70 divisions a point for Goldbeter), then the block's barriers between
+// stages; the buffer is read once and y_new's block written once.
+
+#include <cuda_runtime.h>
+
+#include "imex_tile.cuh"
+#include "rhs_common.cuh"
+
+namespace {
+
+template <typename T>
+int launch(const void* y, void* y_new, void* ss, const void* h,
+           const void* fz, const void* c0, const void* c1, const void* c2,
+           int torus, const void* beta, int beta_field, const void* mask,
+           int has_freeze, int kinetics, int nyl, int nxl, int halo,
+           int valid_rows, int valid_cols, int tile_x, int tile_y,
+           const double* ae, const double* ai, const double* b,
+           const double* d, double gamma, double rtol, double atol,
+           void* stream) {
+  if (halo < crd::kImexHalo || valid_rows < 0 || valid_rows > nyl
+      || valid_cols < 0 || valid_cols > nxl)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const crd::RhsConstants<T> k = {
+      static_cast<const T*>(c0), static_cast<const T*>(c1),
+      static_cast<const T*>(c2), torus, static_cast<const T*>(beta),
+      beta_field, static_cast<const T*>(mask), has_freeze};
+  const crd::HaloGrid grid = {nyl, nxl, halo, valid_rows, valid_cols};
+  return crd::launch_imex_tile<crd::HaloGrid, T>(
+      grid, y, y_new, ss, h, fz, k, kinetics, nyl, nxl, tile_x, tile_y,
+      crd::make_imex_table(ae, ai, b, d, gamma), rtol, atol, stream);
+}
+
+}  // namespace
+
+#define CRD_FUSED_SHARD_IMEX_ARGS                                            \
+  const void *y, void *y_new, void *ss, const void *h, const void *fz,      \
+      const void *c0, const void *c1, const void *c2, int torus,            \
+      const void *beta, int beta_field, const void *mask, int has_freeze,   \
+      int kinetics, int nyl, int nxl, int halo, int valid_rows,             \
+      int valid_cols, int tile_x, int tile_y, const double *ae,             \
+      const double *ai, const double *b, const double *d, double gamma,     \
+      double rtol, double atol, void *stream
+#define CRD_FUSED_SHARD_IMEX_PASS                                            \
+  y, y_new, ss, h, fz, c0, c1, c2, torus, beta, beta_field, mask,           \
+      has_freeze, kinetics, nyl, nxl, halo, valid_rows, valid_cols, tile_x, \
+      tile_y, ae, ai, b, d, gamma, rtol, atol, stream
+
+extern "C" int crd_fused_shard_imex_step_f32(CRD_FUSED_SHARD_IMEX_ARGS) {
+  return launch<float>(CRD_FUSED_SHARD_IMEX_PASS);
+}
+
+extern "C" int crd_fused_shard_imex_step_f64(CRD_FUSED_SHARD_IMEX_ARGS) {
+  return launch<double>(CRD_FUSED_SHARD_IMEX_PASS);
+}

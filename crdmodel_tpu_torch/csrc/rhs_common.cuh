@@ -1,9 +1,10 @@
 // Device functions shared by the port's fused step kernels (K1
 // fused_step.cu, K2 fused_rkc.cu, K3 fused_imex.cu, K4 fused_divform.cu,
-// K5 fused_aniso.cu): the periodic wrap, the 5-point profile, divergence-
-// form and 9-point anisotropic operators on variable 0, the kinetics of
-// each ported family and their closed-form Jacobians, the RHS at one point
-// of a tile held in shared memory, and the per-block partial sum.
+// K5 fused_aniso.cu and the shard kernels K8-K11): the grid policies, the
+// 5-point profile, divergence-form and 9-point anisotropic operators on
+// variable 0, the kinetics of each ported family and their closed-form
+// Jacobians, the RHS at one point of a tile held in shared memory, and the
+// per-block partial sum.
 // Counterpart of crdmodel_tpu/ops/kernel_common.py::make_rhs_block,
 // make_split_block and make_divform_rhs_block and of the operator of
 // crdmodel_tpu/ops/pallas_aniso.py; the plain torch versions are
@@ -62,7 +63,11 @@ __device__ __forceinline__ int wrap(int i, int n) {
 // gx) is a point's offset in one variable's plane of the state, plane()
 // that plane's size, row(gy) and col(gx) the indices of the point into the
 // RHS's row and column constants (beta, the freeze mask, the profiles), and
-// counted(gy, gx) whether a point of the extent enters the error sum.
+// counted(gy, gx) whether a point of the extent enters the error sum. The
+// field operators index their coefficient fields, which have the state's
+// plane layout, by such row and column indices: field(r, c) is the offset
+// of (r, c), north(r), south(r), east(c) and west(c) its neighbours'
+// indices.
 //
 // WrapGrid: the periodic ny x nx grid of the single-device kernels; the
 // wrap is a modular index.
@@ -72,11 +77,26 @@ struct WrapGrid {
 
   __device__ __forceinline__ int row(int gy) const { return wrap(gy, ny); }
   __device__ __forceinline__ int col(int gx) const { return wrap(gx, nx); }
+  __device__ __forceinline__ size_t field(int r, int c) const {
+    return static_cast<size_t>(r) * nx + c;
+  }
   __device__ __forceinline__ size_t at(int gy, int gx) const {
-    return static_cast<size_t>(row(gy)) * nx + col(gx);
+    return field(row(gy), col(gx));
   }
   __device__ __forceinline__ size_t plane() const {
     return static_cast<size_t>(ny) * nx;
+  }
+  __device__ __forceinline__ int north(int r) const {
+    return r == ny - 1 ? 0 : r + 1;
+  }
+  __device__ __forceinline__ int south(int r) const {
+    return r == 0 ? ny - 1 : r - 1;
+  }
+  __device__ __forceinline__ int east(int c) const {
+    return c == nx - 1 ? 0 : c + 1;
+  }
+  __device__ __forceinline__ int west(int c) const {
+    return c == 0 ? nx - 1 : c - 1;
   }
   __device__ __forceinline__ bool counted(int, int) const { return true; }
 };
@@ -85,14 +105,15 @@ struct WrapGrid {
 // rings, (nyl + 2 halo) x (nxl + 2 halo), which the exchange filled
 // (parallel/halo.py::refresh_halos): no index wraps. The constants are the
 // shard's, halo-padded the same way (ops/kernel_common.py::
-// make_shard_constants). On a padded mesh only the first valid_rows x
-// valid_cols points of the block are physical; the others are mirror-pad
-// cells, stepped like their sources and left out of the error sum. A
-// tile's region reaches at most `halo` rings before the block's start, but
-// the last tiles' regions can reach further than `halo` past its end; those
-// points are clamped onto the buffer's last row (column). They feed only
-// points at least `halo` - n rings beyond the block (n <= halo the rings a
-// step consumes), none of which is written.
+// make_shard_constants, make_shard_divform_constants). On a padded mesh
+// only the first valid_rows x valid_cols points of the block are physical;
+// the others are mirror-pad cells, stepped like their sources and left out
+// of the error sum. A tile's region reaches at most `halo` rings before the
+// block's start, but the last tiles' regions can reach further than `halo`
+// past its end; those points, and a field operator's neighbours past the
+// buffer's edge, are clamped onto the buffer's last (first) row or column.
+// They feed only points at least `halo` - n rings beyond the block (n <=
+// halo the rings a step consumes), none of which is written.
 struct HaloGrid {
   int nyl;
   int nxl;
@@ -106,12 +127,23 @@ struct HaloGrid {
   __device__ __forceinline__ int col(int gx) const {
     return min(gx + halo, nxl + 2 * halo - 1);
   }
+  __device__ __forceinline__ size_t field(int r, int c) const {
+    return static_cast<size_t>(r) * (nxl + 2 * halo) + c;
+  }
   __device__ __forceinline__ size_t at(int gy, int gx) const {
-    return static_cast<size_t>(row(gy)) * (nxl + 2 * halo) + col(gx);
+    return field(row(gy), col(gx));
   }
   __device__ __forceinline__ size_t plane() const {
     return static_cast<size_t>(nyl + 2 * halo) * (nxl + 2 * halo);
   }
+  __device__ __forceinline__ int north(int r) const {
+    return min(r + 1, nyl + 2 * halo - 1);
+  }
+  __device__ __forceinline__ int south(int r) const { return max(r - 1, 0); }
+  __device__ __forceinline__ int east(int c) const {
+    return min(c + 1, nxl + 2 * halo - 1);
+  }
+  __device__ __forceinline__ int west(int c) const { return max(c - 1, 0); }
   __device__ __forceinline__ bool counted(int gy, int gx) const {
     return gy < valid_rows && gx < valid_cols;
   }
@@ -261,8 +293,8 @@ struct ProfileRhs {
 };
 
 // The divergence-form operator's inputs: the face coefficients aE, aW, aN
-// as (ny, nx) fields (aS at (j, i) is aN at (j - 1, i), wrapped) and the
-// (ny, nx) 0/1 tissue field, or nullptr without an obstacle. All read
+// as fields of the grid's plane layout (aS at (r, c) is aN at (south(r),
+// c)) and the 0/1 tissue field, or nullptr without an obstacle. All read
 // through the read-only data cache.
 template <typename T>
 struct FaceConstants {
@@ -272,19 +304,20 @@ struct FaceConstants {
   const T* tissue;
 };
 
-// ydot at local point p (row stride W) of global (gy, gx) under the
-// divergence-form operator on variable 0 (ops/kernel_common.py::
-// make_divform_rhs_block): kinetics + aE(uE-u) + aW(uW-u) + aN(uN-u) +
-// aS(uS-u), times live with a freeze, times the tissue field with an
-// obstacle. Closed faces carry zero coefficients, so the wrapped halo
-// values they meet contribute exact zeros.
-template <int Kin, typename T>
+// ydot at local point p (row stride W) of row and column indices (gy, gx)
+// of `grid` under the divergence-form operator on variable 0
+// (ops/kernel_common.py::make_divform_rhs_block, make_shard_divform_rhs_
+// block): kinetics + aE(uE-u) + aW(uW-u) + aN(uN-u) + aS(uS-u), times live
+// with a freeze, times the tissue field with an obstacle. Closed faces
+// carry zero coefficients, so the halo values they meet contribute exact
+// zeros.
+template <int Kin, typename T, class Grid>
 __device__ __forceinline__ void divform_rhs(
-    const FaceConstants<T>& f, const RhsConstants<T>& k, T fz, const T* su,
-    const T* sv, int p, int W, int gy, int gx, int ny, int nx, T& du_out,
+    const FaceConstants<T>& f, const RhsConstants<T>& k, const Grid& grid,
+    T fz, const T* su, const T* sv, int p, int W, int gy, int gx, T& du_out,
     T& dv_out) {
-  const size_t g = static_cast<size_t>(gy) * nx + gx;
-  const size_t gs = static_cast<size_t>(gy == 0 ? ny - 1 : gy - 1) * nx + gx;
+  const size_t g = grid.field(gy, gx);
+  const size_t gs = grid.field(grid.south(gy), gx);
   const T u = su[p];
   const T lap = __ldg(f.aE + g) * (su[p + 1] - u)
                 + __ldg(f.aW + g) * (su[p - 1] - u)
@@ -307,24 +340,96 @@ __device__ __forceinline__ void divform_rhs(
   dv_out = dv;
 }
 
-// divform_rhs as the functor the ERK tile kernel takes (erk_tile.cuh)
-template <int Kin, typename T>
+// divform_rhs as the functor the tile kernels take (erk_tile.cuh,
+// rkc_tile.cuh): WrapGrid for K4 and K2's divergence branch, HaloGrid for
+// K11's divform mode
+template <int Kin, typename T, class Grid>
 struct DivformRhs {
   FaceConstants<T> f;
   RhsConstants<T> k;
-  int ny;
-  int nx;
+  Grid grid;
 
   __device__ __forceinline__ void operator()(T fz, const T* su, const T* sv,
                                              int p, int W, int gy, int gx,
                                              T& du, T& dv) const {
-    divform_rhs<Kin>(f, k, fz, su, sv, p, W, gy, gx, ny, nx, du, dv);
+    divform_rhs<Kin>(f, k, grid, fz, su, sv, p, W, gy, gx, du, dv);
+  }
+};
+
+// The mixed pair of K11's aniso mode: the raw Dxy field (the grid's plane
+// layout) and its weight inv4, a scalar (flat) or a column profile
+// (torus), outside the differences.
+template <typename T>
+struct MixedConstants {
+  const T* dxy;
+  const T* inv4;
+  int inv4_profile;
+};
+
+// ydot at local point p (row stride W) of row and column indices (gy, gx)
+// under the 2-D tensor operator of the XLA path (ops/stencil.py::
+// anisotropic_laplacian; K11's aniso mode, crdmodel_tpu/ops/
+// kernel_common.py:196-209):
+//   axis = aE(uE-u) + aW(uW-u) + aN(uN-u) + aS(uS-u)
+//   t1 = fx(j, i+1) - fx(j, i-1),  fx = Dxy (uN - uS)
+//   t2 = fy(j+1, i) - fy(j-1, i),  fy = Dxy (uE - uW)
+//   lap = axis + inv4 (t1 + t2)
+// then kinetics + lap, times live with a freeze. aniso_rhs (K5) associates
+// axis + (t1 + t2) on a folded Dxy*inv4 instead.
+template <int Kin, typename T, class Grid>
+__device__ __forceinline__ void mixed_divform_rhs(
+    const FaceConstants<T>& f, const MixedConstants<T>& m,
+    const RhsConstants<T>& k, const Grid& grid, T fz, const T* su,
+    const T* sv, int p, int W, int gy, int gx, T& du_out, T& dv_out) {
+  const size_t g = grid.field(gy, gx);
+  const int rn = grid.north(gy), rs = grid.south(gy);
+  const int ce = grid.east(gx), cw = grid.west(gx);
+  const T u = su[p];
+  const T axis = __ldg(f.aE + g) * (su[p + 1] - u)
+                 + __ldg(f.aW + g) * (su[p - 1] - u)
+                 + __ldg(f.aN + g) * (su[p + W] - u)
+                 + __ldg(f.aN + grid.field(rs, gx)) * (su[p - W] - u);
+  const T fx_e = __ldg(m.dxy + grid.field(gy, ce))
+                 * (su[p + W + 1] - su[p - W + 1]);
+  const T fx_w = __ldg(m.dxy + grid.field(gy, cw))
+                 * (su[p + W - 1] - su[p - W - 1]);
+  const T fy_n = __ldg(m.dxy + grid.field(rn, gx))
+                 * (su[p + W + 1] - su[p + W - 1]);
+  const T fy_s = __ldg(m.dxy + grid.field(rs, gx))
+                 * (su[p - W + 1] - su[p - W - 1]);
+  const T w4 = m.inv4_profile ? __ldg(m.inv4 + gx) : __ldg(m.inv4);
+  const T lap = axis + w4 * ((fx_e - fx_w) + (fy_n - fy_s));
+  T du, dv;
+  kinetics<Kin>(u, sv[p], beta_at(k, gy), du, dv);
+  du = du + lap;
+  if (k.has_freeze) {
+    const T live = live_at(k, fz, gy);
+    du = du * live;
+    dv = dv * live;
+  }
+  du_out = du;
+  dv_out = dv;
+}
+
+// mixed_divform_rhs as the functor the ERK tile kernel takes (K11's aniso
+// mode)
+template <int Kin, typename T, class Grid>
+struct MixedDivformRhs {
+  FaceConstants<T> f;
+  MixedConstants<T> m;
+  RhsConstants<T> k;
+  Grid grid;
+
+  __device__ __forceinline__ void operator()(T fz, const T* su, const T* sv,
+                                             int p, int W, int gy, int gx,
+                                             T& du, T& dv) const {
+    mixed_divform_rhs<Kin>(f, m, k, grid, fz, su, sv, p, W, gy, gx, du, dv);
   }
 };
 
 // The anisotropic operator's inputs: aE, aN and dxyw = Dxy/(4 dx dy) as
-// (ny, nx) fields, read through the read-only data cache. aW at (j, i) is
-// aE at (j, i - 1) and aS is aN at (j - 1, i), both wrapped.
+// fields of the grid's plane layout, read through the read-only data
+// cache. aW at (r, c) is aE at (r, west(c)) and aS is aN at (south(r), c).
 template <typename T>
 struct TensorConstants {
   const T* aE;
@@ -332,9 +437,10 @@ struct TensorConstants {
   const T* dxyw;
 };
 
-// ydot at local point p (row stride W) of global (gy, gx) under the 9-point
-// anisotropic operator on variable 0 (ops/kernel_common.py::
-// aniso_kernel_laplacian, the TPU kernel's association):
+// ydot at local point p (row stride W) of row and column indices (gy, gx)
+// under the 9-point anisotropic operator on variable 0
+// (ops/kernel_common.py::aniso_kernel_laplacian, the TPU kernel's
+// association):
 //   axis = aE(uE-u) + aW(uW-u) + aN(uN-u) + aS(uS-u)
 //   t1 = fx(j, i+1) - fx(j, i-1),  fx = dxyw (uN - uS)
 //   t2 = fy(j+1, i) - fy(j-1, i),  fy = dxyw (uE - uW)
@@ -343,27 +449,28 @@ struct TensorConstants {
 // neighbours read the diagonal points p +- W +- 1, one ring out like the
 // axis terms. Under no-flux walls the wrapped values meet zero aE/aN and
 // the zeroed Dxy wall layers, so they contribute exact zeros.
-template <int Kin, typename T>
+template <int Kin, typename T, class Grid>
 __device__ __forceinline__ void aniso_rhs(
-    const TensorConstants<T>& c, const RhsConstants<T>& k, T fz,
-    const T* su, const T* sv, int p, int W, int gy, int gx, int ny, int nx,
+    const TensorConstants<T>& c, const RhsConstants<T>& k, const Grid& grid,
+    T fz, const T* su, const T* sv, int p, int W, int gy, int gx,
     T& du_out, T& dv_out) {
-  const size_t row = static_cast<size_t>(gy) * nx;
-  const size_t row_n = static_cast<size_t>(gy == ny - 1 ? 0 : gy + 1) * nx;
-  const size_t row_s = static_cast<size_t>(gy == 0 ? ny - 1 : gy - 1) * nx;
-  const int gx_e = gx == nx - 1 ? 0 : gx + 1;
-  const int gx_w = gx == 0 ? nx - 1 : gx - 1;
+  const int rn = grid.north(gy), rs = grid.south(gy);
+  const int ce = grid.east(gx), cw = grid.west(gx);
   const T u = su[p];
   const T ue = su[p + 1], uw = su[p - 1];
   const T un = su[p + W], us = su[p - W];
-  const T axis = __ldg(c.aE + row + gx) * (ue - u)
-                 + __ldg(c.aE + row + gx_w) * (uw - u)
-                 + __ldg(c.aN + row + gx) * (un - u)
-                 + __ldg(c.aN + row_s + gx) * (us - u);
-  const T fx_e = __ldg(c.dxyw + row + gx_e) * (su[p + W + 1] - su[p - W + 1]);
-  const T fx_w = __ldg(c.dxyw + row + gx_w) * (su[p + W - 1] - su[p - W - 1]);
-  const T fy_n = __ldg(c.dxyw + row_n + gx) * (su[p + W + 1] - su[p + W - 1]);
-  const T fy_s = __ldg(c.dxyw + row_s + gx) * (su[p - W + 1] - su[p - W - 1]);
+  const T axis = __ldg(c.aE + grid.field(gy, gx)) * (ue - u)
+                 + __ldg(c.aE + grid.field(gy, cw)) * (uw - u)
+                 + __ldg(c.aN + grid.field(gy, gx)) * (un - u)
+                 + __ldg(c.aN + grid.field(rs, gx)) * (us - u);
+  const T fx_e = __ldg(c.dxyw + grid.field(gy, ce))
+                 * (su[p + W + 1] - su[p - W + 1]);
+  const T fx_w = __ldg(c.dxyw + grid.field(gy, cw))
+                 * (su[p + W - 1] - su[p - W - 1]);
+  const T fy_n = __ldg(c.dxyw + grid.field(rn, gx))
+                 * (su[p + W + 1] - su[p + W - 1]);
+  const T fy_s = __ldg(c.dxyw + grid.field(rs, gx))
+                 * (su[p - W + 1] - su[p - W - 1]);
   const T lap = axis + ((fx_e - fx_w) + (fy_n - fy_s));
   T du, dv;
   kinetics<Kin>(u, sv[p], beta_at(k, gy), du, dv);
@@ -377,18 +484,17 @@ __device__ __forceinline__ void aniso_rhs(
   dv_out = dv;
 }
 
-// aniso_rhs as the functor the ERK tile kernel takes (erk_tile.cuh)
-template <int Kin, typename T>
+// aniso_rhs as the functor the ERK tile kernel takes (K5, WrapGrid)
+template <int Kin, typename T, class Grid>
 struct AnisoRhs {
   TensorConstants<T> c;
   RhsConstants<T> k;
-  int ny;
-  int nx;
+  Grid grid;
 
   __device__ __forceinline__ void operator()(T fz, const T* su, const T* sv,
                                              int p, int W, int gy, int gx,
                                              T& du, T& dv) const {
-    aniso_rhs<Kin>(c, k, fz, su, sv, p, W, gy, gx, ny, nx, du, dv);
+    aniso_rhs<Kin>(c, k, grid, fz, su, sv, p, W, gy, gx, du, dv);
   }
 };
 

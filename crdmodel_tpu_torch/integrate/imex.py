@@ -33,6 +33,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from crdmodel_tpu_torch.parallel.shards import Shards
+
 ERR_ORDER = 3          # local error estimate ~ O(h^3): controller exponent 1/3
 NEWTON_ITERS = 3       # Newton iterations per implicit stage
 NEWTON_TOL = 0.1       # required WRMS size of the last Newton update
@@ -84,6 +86,16 @@ def tableau_arrays():
             np.array([float(x) for x in _BHAT]), np.array(C))
 
 
+def _one_hots(y):
+    """(nvars, *y.shape): tangent b is 1 on variable b, 0 elsewhere."""
+    nvars = y.shape[0]
+    tangents = torch.zeros((nvars,) + tuple(y.shape), dtype=y.dtype,
+                           device=y.device)
+    for b in range(nvars):
+        tangents[b, b] = 1.0
+    return tangents
+
+
 def pointwise_jacobian(f, t, y, params):
     """Jacobian of a POINTWISE vector field f(t, y, params) with respect to
     the leading (variable) axis of y, shape (nvars_out, nvars_in, *space):
@@ -91,17 +103,15 @@ def pointwise_jacobian(f, t, y, params):
     tangent along axis 0, so column b of every per-point Jacobian comes out
     as a field. The products run as one torch.func.vmap over the tangents,
     which halves the per-op overhead of forward-mode AD and rounds as the
-    products one by one do."""
-    nvars = y.shape[0]
-    tangents = torch.zeros((nvars,) + tuple(y.shape), dtype=y.dtype,
-                           device=y.device)
-    for b in range(nvars):
-        tangents[b, b] = 1.0
+    products one by one do. A sharded state (parallel/shards.py::Shards, a
+    pytree of its blocks) gives a Shards of its blocks' Jacobians."""
+    tangents = (y.map(_one_hots) if isinstance(y, Shards)
+                else _one_hots(y))
 
     def column(e):
         return torch.func.jvp(lambda s: f(t, s, params), (y,), (e,))[1]
 
-    return torch.func.vmap(column)(tangents).transpose(0, 1)
+    return torch.transpose(torch.func.vmap(column)(tangents), 0, 1)
 
 
 def solve_pointwise(m, r):
@@ -136,6 +146,24 @@ def solve_pointwise(m, r):
     return torch.movedim(xb, -1, 0)
 
 
+def _per_block(fn, x, *others):
+    """fn(x, *others) on a tensor; on a Shards, fn on each block (with each
+    other Shards' block i): the sharded state's Newton stays shard-local."""
+    return x.map(fn, *others) if isinstance(x, Shards) else fn(x, *others)
+
+
+def _eye(y):
+    """The (nvars, nvars, 1, ...) identity broadcasting over y's points."""
+    nvars = y.shape[0]
+    return torch.eye(nvars, dtype=y.dtype, device=y.device).reshape(
+        (nvars, nvars) + (1,) * (y.dim() - 1))
+
+
+def _zero(y):
+    """A 0-d zero in y's dtype on its device."""
+    return torch.zeros((), dtype=y.dtype, device=y.device)
+
+
 def make_imex_step_err(f_ex: Callable, f_im: Callable, rtol, atol):
     """(step_err, init_carry) with the framework stepper protocol
     (crdmodel_tpu/integrate/imex.py:157, with its defaults: full Newton,
@@ -147,22 +175,25 @@ def make_imex_step_err(f_ex: Callable, f_im: Callable, rtol, atol):
     Newton iterations, with the per-point Jacobian re-evaluated every
     iteration. The stage slope is recovered as
     k_I = (Y - rhs_known)/(h*gamma).
+
+    y may be a sharded state (parallel/shards.py::Shards): the Newton
+    solve, being pointwise, runs block by block with no exchange, and
+    err_ss, Newton term included, stays a Shards of per-shard sums for the
+    adaptive loop's reduce_fn (crdmodel_tpu/ops/pallas_shard_imex.py's
+    shard-local Newton on the XLA path).
     """
 
     def init_carry(t, y, params):
         return ()
 
     def step_err(t, y, h, params, carry):
-        dtype = y.dtype
         w = 1.0 / (rtol * torch.abs(y) + atol)
         hg = h * GAMMA
-        nvars = y.shape[0]
-        eye = torch.eye(nvars, dtype=dtype, device=y.device).reshape(
-            (nvars, nvars) + (1,) * (y.dim() - 1))
+        eye = _per_block(_eye, y)
 
         kE = [f_ex(t, y, params)]
         kI = [f_im(t, y, params)]
-        delta_ss = torch.zeros((), dtype=dtype, device=y.device)
+        delta_ss = _per_block(_zero, y)
 
         for i in range(1, STAGES):
             rhs_known = y
@@ -178,7 +209,7 @@ def make_imex_step_err(f_ex: Callable, f_im: Callable, rtol, atol):
             for _ in range(NEWTON_ITERS):
                 m = eye - hg * pointwise_jacobian(f_im, ti, yi, params)
                 resid = yi - hg * f_im(ti, yi, params) - rhs_known
-                dy = solve_pointwise(m, -resid)
+                dy = _per_block(solve_pointwise, m, -resid)
                 yi = yi + dy
             # convergence contribution: last update in the error-test metric
             scaled_dy = dy * w

@@ -39,7 +39,8 @@ _INTP = ctypes.POINTER(ctypes.c_int)
 
 # C signature of each exported launcher (csrc/fused_step.cu, fused_rkc.cu,
 # fused_imex.cu, fused_divform.cu, fused_aniso.cu, fused_box3d.cu,
-# fused_box3d_rkc.cu, fused_shard_step.cu, fused_shard_rkc.cu)
+# fused_box3d_rkc.cu, fused_shard_step.cu, fused_shard_rkc.cu,
+# fused_shard_imex.cu, fused_shard_divform.cu)
 _FUSED_STEP_ARGTYPES = ([_VOIDP] * 8 + [_INT, _VOIDP, _INT, _VOIDP]
                         + [_INT] * 7 + [_DOUBLEP] * 3
                         + [_DOUBLE, _DOUBLE, _VOIDP])
@@ -67,6 +68,13 @@ _FUSED_SHARD_STEP_ARGTYPES = ([_VOIDP] * 8 + [_INT, _VOIDP, _INT, _VOIDP]
 _FUSED_SHARD_RKC_ARGTYPES = ([_VOIDP] * 8 + [_INT] + [_VOIDP] * 3
                              + [_INT, _VOIDP, _INT, _VOIDP] + [_INT] * 9
                              + [_DOUBLE, _DOUBLE, _VOIDP])
+_FUSED_SHARD_IMEX_ARGTYPES = ([_VOIDP] * 8 + [_INT, _VOIDP, _INT, _VOIDP]
+                              + [_INT] * 9 + [_DOUBLEP] * 4
+                              + [_DOUBLE] * 3 + [_VOIDP])
+_FUSED_SHARD_DIVFORM_ARGTYPES = ([_VOIDP] * 9
+                                 + [_INT, _VOIDP, _INT, _VOIDP, _INT, _VOIDP]
+                                 + [_INT] * 10 + [_DOUBLEP] * 3
+                                 + [_DOUBLE, _DOUBLE, _VOIDP])
 SIGNATURES = {
     "crd_fused_erk_step_f32": _FUSED_STEP_ARGTYPES,
     "crd_fused_erk_step_f64": _FUSED_STEP_ARGTYPES,
@@ -86,6 +94,10 @@ SIGNATURES = {
     "crd_fused_shard_step_f64": _FUSED_SHARD_STEP_ARGTYPES,
     "crd_fused_shard_rkc_step_f32": _FUSED_SHARD_RKC_ARGTYPES,
     "crd_fused_shard_rkc_step_f64": _FUSED_SHARD_RKC_ARGTYPES,
+    "crd_fused_shard_imex_step_f32": _FUSED_SHARD_IMEX_ARGTYPES,
+    "crd_fused_shard_imex_step_f64": _FUSED_SHARD_IMEX_ARGTYPES,
+    "crd_fused_shard_divform_step_f32": _FUSED_SHARD_DIVFORM_ARGTYPES,
+    "crd_fused_shard_divform_step_f64": _FUSED_SHARD_DIVFORM_ARGTYPES,
 }
 
 

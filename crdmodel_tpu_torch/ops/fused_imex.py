@@ -88,14 +88,11 @@ def _table():
     return tuple((ctypes.c_double * len(x))(*x) for x in rows)
 
 
-def fused_imex_step_reference(y, h, fz, kc: KernelConstants, rtol: float,
-                              atol: float):
-    """One step in plain torch: (y_new, ss) with ss a (1,) tensor holding
-    the sum of squared WRMS-scaled errors plus (1/NEWTON_TOL)^2 times the
-    sum of the squared scaled last Newton updates of the three stages."""
+def imex_stages_reference(y, h, fz, kc: KernelConstants):
+    """(y_new, err, dys) of one step in plain torch, in the kernel's order:
+    dys holds each implicit stage's last Newton update."""
     ex_block, im_block, jac_block = make_split_block(kc, fz)
     AE, AI, B, D = imex.AE, imex.AI, imex.B, imex.D
-    w = 1.0 / (rtol * torch.abs(y) + atol)
     hg = h * imex.GAMMA
     nvars = y.shape[0]
     eye = torch.eye(nvars, dtype=y.dtype, device=y.device).reshape(
@@ -103,7 +100,7 @@ def fused_imex_step_reference(y, h, fz, kc: KernelConstants, rtol: float,
 
     kE = [ex_block(y)]
     kI = [im_block(y)]
-    delta_ss = torch.zeros((), dtype=y.dtype, device=y.device)
+    dys = []
     for s in range(1, imex.STAGES):
         rhs_known = y
         for j in range(s):
@@ -118,8 +115,7 @@ def fused_imex_step_reference(y, h, fz, kc: KernelConstants, rtol: float,
             resid = yi - hg * im_block(yi) - rhs_known
             dy = imex.solve_pointwise(m, -resid)
             yi = yi + dy
-        sdy = dy * w
-        delta_ss = delta_ss + torch.sum(sdy * sdy)
+        dys.append(dy)
         kE.append(ex_block(yi))
         kI.append((yi - rhs_known) / hg)
 
@@ -131,9 +127,29 @@ def fused_imex_step_reference(y, h, fz, kc: KernelConstants, rtol: float,
             y_new = y_new + (h * B[j]) * k_sum
         if D[j] != 0.0:
             err = err + (h * D[j]) * k_sum
+    return y_new, err, dys
+
+
+def imex_error_sum(err, dys, y, rtol: float, atol: float):
+    """(1,) sum of squared WRMS-scaled errors plus (1/NEWTON_TOL)^2 times
+    the sum of the squared scaled last Newton updates, weights from y."""
+    w = 1.0 / (rtol * torch.abs(y) + atol)
+    delta_ss = torch.zeros((), dtype=y.dtype, device=y.device)
+    for dy in dys:
+        sdy = dy * w
+        delta_ss = delta_ss + torch.sum(sdy * sdy)
     scaled = err * w
     pen = (1.0 / imex.NEWTON_TOL) ** 2
-    return y_new, (torch.sum(scaled * scaled) + pen * delta_ss).reshape(1)
+    return (torch.sum(scaled * scaled) + pen * delta_ss).reshape(1)
+
+
+def fused_imex_step_reference(y, h, fz, kc: KernelConstants, rtol: float,
+                              atol: float):
+    """One step in plain torch: (y_new, ss) with ss a (1,) tensor holding
+    the sum of squared WRMS-scaled errors plus (1/NEWTON_TOL)^2 times the
+    sum of the squared scaled last Newton updates of the three stages."""
+    y_new, err, dys = imex_stages_reference(y, h, fz, kc)
+    return y_new, imex_error_sum(err, dys, y, rtol, atol)
 
 
 def fused_imex_step(y, h, fz, kc: KernelConstants, rtol: float, atol: float):

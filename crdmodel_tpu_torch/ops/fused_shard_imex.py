@@ -1,0 +1,178 @@
+"""Fused IMEX ARK3(2)4L[2]SA step on one shard of a mesh, kernel K10
+(counterpart of crdmodel_tpu/ops/pallas_shard_imex.py).
+
+K3 (ops/fused_imex.py) per shard: one exchange of width HALO a step fills
+the halo of every shard's buffer (parallel/halo.py::refresh_halos), then
+one launch a shard computes the 4 explicit profile-stencil evaluations,
+the 3 implicit stages (3 full Newton iterations at every point, shard-local:
+the kinetics are pointwise), the update, and per-block partial sums of the
+squared WRMS-scaled error plus (1/NEWTON_TOL)^2 times the squared scaled
+last Newton updates, both over the shard's PHYSICAL cells
+(csrc/fused_shard_imex.cu). The adaptive loop adds every shard's sums in a
+fixed order (parallel/sharded.py::make_reduce), so the Newton convergence
+test rides the same cross-shard sum as the error, and every shard takes the
+same steps.
+
+  fused_shard_imex_step            the wrapper: launches the CUDA kernel
+                                   for a CUDA tensor, runs the plain
+                                   version for a CPU tensor
+  fused_shard_imex_step_reference  the same step in plain torch, the oracle
+  build_fused_shard_imex           a sharded problem's step_err on top of it
+
+The state layout is K8's (ops/fused_shard_step.py): halo-padded buffers
+(2, nyl + 2 HALO, nxl + 2 HALO), the block at [HALO, HALO + nyl) x
+[HALO, HALO + nxl), with the JAX kernels' mirror-pad semantics on a mesh
+that does not divide the grid. K3's 4 explicit stencils consume 4 rings a
+step, so 4 would do; HALO stays 8, the JAX package's, so that the kernel
+takes the blocks the JAX gate takes (at least 8 deep on both axes) and
+shares the exchange and the constants' layout of K8.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from crdmodel_tpu_torch.integrate import imex
+from crdmodel_tpu_torch.ops.fused_imex import (_table, imex_error_sum,
+                                               imex_stages_reference,
+                                               tile_plan)
+from crdmodel_tpu_torch.ops.fused_shard_step import (FusedShardStep,
+                                                     check_shard_constants,
+                                                     interior, shard_buffers)
+from crdmodel_tpu_torch.ops.kernel_common import (ShardConstants,
+                                                  check_tensor,
+                                                  freeze_scalar,
+                                                  fused_forcing,
+                                                  kernel_ready_kinetics,
+                                                  make_shard_constants,
+                                                  needs_divform)
+from crdmodel_tpu_torch.parallel.halo import refresh_halos
+from crdmodel_tpu_torch.parallel.shards import Shards
+
+HALO = 8      # the exchange's width (crdmodel_tpu/ops/pallas_step.py HALO)
+
+
+def is_shard_imex_supported(problem, dtype, nyl: int, nxl: int) -> bool:
+    """The kernel's gate (crdmodel_tpu/ops/pallas_shard_imex.py:39-47)
+    without the TPU strip rule: f32, a local block at least HALO deep on
+    both axes; plus the port's rules of K3 (ops/fused_imex.py::
+    is_imex_supported): the profile operator (theta-only torus fields
+    through its remap), no forcing, kinetics with a device function."""
+    if needs_divform(problem) or problem.diffusion_tensor is not None:
+        return False
+    if problem.geometry.kind == "box" or fused_forcing(problem) is not None:
+        return False
+    if dtype != torch.float32 or nyl < HALO or nxl < HALO:
+        return False
+    return kernel_ready_kinetics(problem)
+
+
+def fused_shard_imex_step_reference(yp, h, fz, sc: ShardConstants,
+                                    rtol: float, atol: float):
+    """One step in plain torch on a halo-padded buffer: (y_new, ss), y_new
+    a buffer whose block is the step's (its halo is yp's), ss a (1,) tensor
+    holding the physical cells' sum of squared WRMS-scaled errors plus
+    (1/NEWTON_TOL)^2 times their squared scaled last Newton updates. The
+    stages run on the whole buffer, wrapping at its edge: the 4 outer rings
+    go wrong, and the block, HALO >= 4 rings in, is the kernel's bitwise."""
+    y_all, err, dys = imex_stages_reference(yp, h, fz, sc)
+    y_new = yp.clone()
+    interior(y_new, sc.halo).copy_(interior(y_all, sc.halo))
+    p = sc.halo
+    cells = (Ellipsis, slice(p, p + sc.valid_rows),
+             slice(p, p + sc.valid_cols))
+    return y_new, imex_error_sum(err[cells], [dy[cells] for dy in dys],
+                                 yp[cells], rtol, atol)
+
+
+def fused_shard_imex_step(yp, h, fz, sc: ShardConstants, rtol: float,
+                          atol: float):
+    """One fused IMEX step on one shard: (y_new, ss partials (n_blocks,)).
+
+    yp is the shard's halo-padded buffer (2, nyl + 2P, nxl + 2P) with its
+    halo filled, P >= 4; h and fz are 0-d tensors on its device. Only the
+    block of y_new is written. A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel or raises.
+    `fused_shard_imex_step.launches` counts kernel launches."""
+    if yp.device.type == "cpu":
+        return fused_shard_imex_step_reference(yp, h, fz, sc, rtol, atol)
+    if yp.device.type != "cuda":
+        raise ValueError(f"no fused shard IMEX kernel for device {yp.device}")
+    dtype, device = yp.dtype, yp.device
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the kernel takes float32 or float64, not {dtype}")
+    if sc.kind not in ("torus", "flat"):
+        raise ValueError(f"the shard IMEX kernel takes profile constants, "
+                         f"not {sc.kind!r}")
+    if yp.dim() != 3 or yp.shape[0] != 2:
+        raise ValueError(f"yp must be (2, nyl+2P, nxl+2P), got "
+                         f"{tuple(yp.shape)}")
+    p = sc.halo
+    nyl, nxl = yp.shape[1] - 2 * p, yp.shape[2] - 2 * p
+    if p < imex.STAGES or nyl < p or nxl < p:
+        raise ValueError(f"halo {p} and block {nyl}x{nxl}: the kernel needs "
+                         f"a halo of at least {imex.STAGES} rings and a block "
+                         "at least as deep as the halo")
+    check_tensor("yp", yp, yp.shape, dtype, device)
+    check_tensor("h", h, (), dtype, device)
+    check_tensor("fz", fz, (), dtype, device)
+    check_shard_constants(sc, nyl, nxl, dtype, device)
+
+    from crdmodel_tpu_torch.ops._build import load_library
+    lib = load_library()
+    tile_x, tile_y, _ = tile_plan(yp.element_size())
+    n_blocks = -(-nxl // tile_x) * -(-nyl // tile_y)
+    y_new = torch.empty_like(yp)
+    ss = torch.empty(n_blocks, dtype=dtype, device=device)
+    ae, ai, b, d = _table()
+    launch = (lib.crd_fused_shard_imex_step_f32 if dtype == torch.float32
+              else lib.crd_fused_shard_imex_step_f64)
+    # the CUDA runtime launches on the current device: make it the shard's
+    with torch.cuda.device(device):
+        rc = launch(yp.data_ptr(), y_new.data_ptr(), ss.data_ptr(),
+                    h.data_ptr(), fz.data_ptr(),
+                    *(c.data_ptr() for c in sc.coeffs),
+                    int(sc.kind == "torus"), sc.b.data_ptr(),
+                    int(sc.b_is_field), sc.mask.data_ptr(),
+                    int(sc.has_freeze), sc.kinetics_id, nyl, nxl, p,
+                    sc.valid_rows, sc.valid_cols, tile_x, tile_y, ae, ai, b,
+                    d, imex.GAMMA, float(rtol), float(atol),
+                    torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused shard IMEX kernel launch failed: CUDA "
+                           f"error {rc}")
+    fused_shard_imex_step.launches += 1
+    return y_new, ss
+
+
+fused_shard_imex_step.launches = 0
+
+
+def build_fused_shard_imex(problem, mesh, pad_spec=None) -> FusedShardStep:
+    """step_err(t, yp, h, params) -> (y_new, err_ss) of `problem` on `mesh`
+    (crdmodel_tpu/ops/pallas_shard_imex.py:57): refresh every shard's halo,
+    then one launch a shard under its device; err_ss is the Shards of
+    per-shard sums for the adaptive loop's reduce_fn. t is unused (the
+    kinetics are autonomous)."""
+    cfg = problem.cfg
+    dtype = problem.y0.dtype
+    consts = make_shard_constants(problem, mesh, pad_spec, HALO, dtype)
+    rtol, atol = float(cfg.rtol), float(cfg.atol)
+    t_boundary = float(cfg.t_boundary)
+    pad, unpad = shard_buffers(HALO)
+
+    def step_err(t, yp, h, params):
+        bufs = refresh_halos(list(yp), mesh, HALO, pad_spec)
+        fz = freeze_scalar(params, consts[0].has_freeze, t_boundary, dtype)
+        h = h.to(dtype)
+        out, sums = [], []
+        for buf, sc in zip(bufs, consts):
+            y_new, ss = fused_shard_imex_step(buf, h.to(buf.device),
+                                              fz.to(buf.device), sc, rtol,
+                                              atol)
+            out.append(y_new)
+            sums.append(torch.sum(ss))
+        return Shards(out), Shards(sums)
+
+    return FusedShardStep(step_err=step_err, pad=pad, unpad=unpad,
+                          constants=consts)

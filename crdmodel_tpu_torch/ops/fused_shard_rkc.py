@@ -20,8 +20,8 @@ stage budget (h_limit) and adds every shard's sums in a fixed order.
 
 The state layout is K8's (ops/fused_shard_step.py): halo-padded buffers,
 the block at [P, P + nyl) x [P, P + nxl), mirror-pad cells on a padded
-mesh. K2's divergence branch on a mesh belongs to kernel K11's slice
-(ROADMAP queue 1, item 15).
+mesh. As in the JAX package, it declines the divergence form (no-flux
+walls, obstacles, 2-D fields), which runs rkc2 on the sharded torch path.
 """
 
 from __future__ import annotations

@@ -12,9 +12,12 @@ Dxy/(4 dx dy) (AnisoConstants). The 3-D box kernels (K6, K7) take one of
 four operator modes, chosen by box_mode on the float64 faces: six
 profiles (BoxProfileConstants), the profiles with a 0/1 tissue field
 (BoxTissueConstants), three (nz, ny, nx) face fields (BoxFieldConstants)
-or the 19-point tensor's six fields (BoxTensorConstants). The kinetics
-family travels to the device code as an integer id (KINETICS_IDS, the
-Kinetics enum of csrc/rhs_common.cuh).
+or the 19-point tensor's six fields (BoxTensorConstants). The shard
+kernels take each shard's constants halo-padded by the mesh's exchange:
+K8, K9 and K10 the profile operator's (ShardConstants), K11 a stack of
+face fields (ShardDivformConstants). The kinetics family travels to the
+device code as an integer id (KINETICS_IDS, the Kinetics enum of
+csrc/rhs_common.cuh).
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ import torch
 
 from crdmodel_tpu_torch.core.grid import face_openness3
 from crdmodel_tpu_torch.core.problem import beta_field, interior_rows
-from crdmodel_tpu_torch.ops.stencil import (divergence_laplacian,
+from crdmodel_tpu_torch.ops.stencil import (anisotropic_laplacian,
+                                            divergence_laplacian,
                                             flat_laplacian, shift_e,
                                             shift_n, shift_s, shift_w,
                                             torus_laplacian)
@@ -119,7 +123,7 @@ class AnisoConstants(KernelConstants):
 
 @dataclasses.dataclass(frozen=True)
 class ShardConstants(KernelConstants):
-    """One shard's inputs of the shard kernels (K8, K9; crdmodel_tpu/ops/
+    """One shard's inputs of the shard kernels (K8, K9, K10; crdmodel_tpu/ops/
     kernel_common.py:535-673): kind "torus" or "flat"; coeffs the three
     profiles halo-padded to (nxl + 2 halo,) on the torus, three 0-d scalars
     on the flat surface; b a 0-d scalar or the halo-padded (nyl + 2 halo, 1)
@@ -133,6 +137,89 @@ class ShardConstants(KernelConstants):
     valid_cols: int
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardDivformConstants(ShardConstants):
+    """One shard's inputs of K11 (ops/fused_shard_divform.py; crdmodel_tpu/
+    ops/pallas_shard_divform.py:212-265): kind "shard_divform" or
+    "shard_aniso"; stack the (3 or 4, nyl + 2 halo, nxl + 2 halo)
+    coefficient stack (aE, aW, aN, then the 0/1 tissue field of an
+    obstacle or, in aniso mode, the raw Dxy), halo-padded by the mesh's
+    exchange; coeffs its three face planes (views; aS is aN of the row
+    below, read through the roll); tissue and dxy the fourth plane or None;
+    inv4 the mixed pair's weight in aniso mode, a 0-d scalar (flat) or the
+    halo-padded (nxl + 2 halo,) column profile (torus), else None."""
+    stack: torch.Tensor
+    tissue: object
+    dxy: object
+    inv4: object
+
+
+def _shard_layout(cfg, mesh, pad_spec):
+    """(nyl, nxl) of a shard's block, and whether each axis is padded."""
+    py, px = mesh.shape
+    nyl = pad_spec.y.blk if pad_spec is not None else cfg.ny // py
+    nxl = pad_spec.x.blk if pad_spec is not None else cfg.nx // px
+    return (nyl, nxl, pad_spec is not None and pad_spec.y.active,
+            pad_spec is not None and pad_spec.x.active)
+
+
+def _halo_rows(a, cfg, mesh, pad_spec, halo):
+    """(ny, 1) -> each shard's halo-padded (nyl + 2 halo, 1) rows, on its
+    device, mirror-aware along a padded y axis."""
+    from crdmodel_tpu_torch.parallel import halo as hx
+    nyl, _, pady, _ = _shard_layout(cfg, mesh, pad_spec)
+    px = mesh.shape[1]
+    if pad_spec is not None:
+        a = pad_spec.pad_rows(a)
+    blocks = [a[k // px * nyl:(k // px + 1) * nyl].to(d)
+              for k, d in enumerate(mesh.device_list())]
+    if pady:
+        return hx.mirror_halo_pad_rows(blocks, mesh, halo, pad_spec.y.n,
+                                       pad_spec.y.blk)
+    return hx.halo_pad_rows(blocks, mesh, halo)
+
+
+def _halo_cols(a, cfg, mesh, pad_spec, halo):
+    """(nx,) -> each shard's halo-padded (nxl + 2 halo,) profile, on its
+    device, mirror-aware along a padded x axis."""
+    from crdmodel_tpu_torch.parallel import halo as hx
+    _, nxl, _, padx = _shard_layout(cfg, mesh, pad_spec)
+    px = mesh.shape[1]
+    if pad_spec is not None:
+        a = pad_spec.pad_cols(a)
+    blocks = [a[k % px * nxl:(k % px + 1) * nxl].reshape(1, nxl).to(d)
+              for k, d in enumerate(mesh.device_list())]
+    if padx:
+        out = hx.mirror_halo_pad_cols(blocks, mesh, halo, pad_spec.x.n,
+                                      pad_spec.x.blk)
+    else:
+        out = hx.halo_pad_cols(blocks, mesh, halo)
+    return [c.reshape(-1) for c in out]
+
+
+def _shard_rhs_inputs(problem, mesh, pad_spec, halo: int, dtype):
+    """Every shard's RHS inputs besides the operator, as ShardConstants
+    keywords: b (0-d or the halo-padded rows), mask (the halo-padded
+    interior-row mask), has_freeze, model, halo and the counts of physical
+    rows and columns at the start of its block."""
+    cfg = problem.cfg
+    nyl, nxl, _, _ = _shard_layout(cfg, mesh, pad_spec)
+    devices = mesh.device_list()
+    px = mesh.shape[1]
+    common = _rhs_inputs(problem, dtype, "cpu")
+    b = (_halo_rows(common["b"], cfg, mesh, pad_spec, halo)
+         if common["b"].dim() == 2 else [common["b"].to(d) for d in devices])
+    mask = _halo_rows(common["mask"], cfg, mesh, pad_spec, halo)
+    out = []
+    for k in range(len(devices)):
+        iy, ix = divmod(k, px)
+        out.append(dict(b=b[k], mask=mask[k], has_freeze=common["has_freeze"],
+                        model=common["model"], halo=halo,
+                        valid_rows=min(nyl, max(0, cfg.ny - iy * nyl)),
+                        valid_cols=min(nxl, max(0, cfg.nx - ix * nxl))))
+    return out
+
+
 def make_shard_constants(problem, mesh, pad_spec, halo: int, dtype):
     """Every shard's ShardConstants, in mesh order on its device: the
     global constants of K1 (prepare_constants) wrap-padded to the padded
@@ -140,56 +227,86 @@ def make_shard_constants(problem, mesh, pad_spec, halo: int, dtype):
     (parallel/halo.py), mirror-aware along a padded axis, as the JAX
     package's prepare_params does once a dispatch (kernel_common.py:625-
     671)."""
-    from crdmodel_tpu_torch.parallel import halo as hx
-
-    cfg = problem.cfg
-    py, px = mesh.shape
-    pady = pad_spec is not None and pad_spec.y.active
-    padx = pad_spec is not None and pad_spec.x.active
-    nyl = pad_spec.y.blk if pad_spec is not None else cfg.ny // py
-    nxl = pad_spec.x.blk if pad_spec is not None else cfg.nx // px
-    devices = mesh.device_list()
     kc = prepare_constants(problem, dtype, "cpu")
-
-    def rows(a):
-        """(ny, 1) -> each shard's halo-padded (nyl + 2 halo, 1) rows."""
-        if pad_spec is not None:
-            a = pad_spec.pad_rows(a)
-        blocks = [a[k // px * nyl:(k // px + 1) * nyl].to(d)
-                  for k, d in enumerate(devices)]
-        if pady:
-            return hx.mirror_halo_pad_rows(blocks, mesh, halo,
-                                           pad_spec.y.n, pad_spec.y.blk)
-        return hx.halo_pad_rows(blocks, mesh, halo)
-
-    def cols(a):
-        """(nx,) -> each shard's halo-padded (nxl + 2 halo,) profile."""
-        if pad_spec is not None:
-            a = pad_spec.pad_cols(a)
-        blocks = [a[k % px * nxl:(k % px + 1) * nxl].reshape(1, nxl).to(d)
-                  for k, d in enumerate(devices)]
-        if padx:
-            out = hx.mirror_halo_pad_cols(blocks, mesh, halo, pad_spec.x.n,
-                                          pad_spec.x.blk)
-        else:
-            out = hx.halo_pad_cols(blocks, mesh, halo)
-        return [c.reshape(-1) for c in out]
-
+    devices = mesh.device_list()
     if kc.kind == "torus":
-        profiles = [cols(c) for c in kc.coeffs]
+        profiles = [_halo_cols(c, problem.cfg, mesh, pad_spec, halo)
+                    for c in kc.coeffs]
         coeffs = [tuple(p[k] for p in profiles) for k in range(len(devices))]
     else:
         coeffs = [tuple(c.to(d) for c in kc.coeffs) for d in devices]
-    b = (rows(kc.b) if kc.b_is_field else [kc.b.to(d) for d in devices])
-    mask = rows(kc.mask)
+    return [ShardConstants(kind=kc.kind, coeffs=coeffs[k], **rows)
+            for k, rows in enumerate(_shard_rhs_inputs(problem, mesh,
+                                                       pad_spec, halo,
+                                                       dtype))]
+
+
+def shard_divform_fields64(problem, aniso: bool):
+    """K11's global float64 fields, each (ny, nx): aE, aW, aN, then the
+    tissue field of an obstacle (divform mode) or the raw Dxy (aniso
+    mode), and the mixed pair's weight inv4 (aniso mode: a scalar on the
+    flat surface, an (nx,) profile on the torus; else None). Raises
+    ValueError unless aS == roll_y(aN) exactly, which the kernel relies on
+    (crdmodel_tpu/ops/pallas_shard_divform.py:128-136)."""
+    shape = problem.geometry.grid.shape
+    inv4 = None
+    if aniso:
+        faces, dxy, inv4 = problem.geometry.tensor_coeffs64(
+            *problem.diffusion_tensor, boundary=problem.cfg.boundary)
+        fourth = [dxy]
+    else:
+        faces = face_coeffs64(problem)
+        fourth = ([] if problem.obstacle_mask is None
+                  else [np.asarray(problem.obstacle_mask, np.float64)])
+    if not south_is_rolled_north(faces):
+        raise ValueError("aS != roll_y(aN): the shard divergence kernel "
+                         "cannot read aS from aN (is_shard_divform_supported "
+                         "declines)")
+    fields = [np.broadcast_to(np.asarray(a, np.float64), shape)
+              for a in (*faces[:3], *fourth)]
+    return fields, inv4
+
+
+def make_shard_divform_constants(problem, mesh, pad_spec, halo: int, dtype,
+                                 aniso: bool = False):
+    """Every shard's ShardDivformConstants, in mesh order on its device
+    (crdmodel_tpu/ops/pallas_shard_divform.py:212-265): the coefficient
+    stack cast once from the global float64 fields (shard_divform_fields64),
+    wrap-padded to the padded grid, split into blocks and halo-padded once
+    by the mesh's exchange, mirror-aware along a padded axis
+    (parallel/halo.py::mirror_halo_pad), so that its corners carry the
+    true diagonal neighbours; in aniso mode on the torus the inv4 column
+    profile halo-padded the same way."""
+    from crdmodel_tpu_torch.parallel import halo as hx
+    cfg = problem.cfg
+    fields, inv4 = shard_divform_fields64(problem, aniso)
+    stack = torch.tensor(np.stack(fields), dtype=dtype)
+    if pad_spec is not None:
+        stack = pad_spec.pad_field(stack)
+    nyl, nxl, _, _ = _shard_layout(cfg, mesh, pad_spec)
+    devices = mesh.device_list()
+    px = mesh.shape[1]
+    blocks = [stack[:, k // px * nyl:(k // px + 1) * nyl,
+                    k % px * nxl:(k % px + 1) * nxl].contiguous().to(d)
+              for k, d in enumerate(devices)]
+    stacks = hx.mirror_halo_pad(blocks, mesh, halo, pad_spec)
+    if inv4 is None:
+        inv4s = [None] * len(devices)
+    elif np.ndim(inv4) > 0:
+        inv4s = _halo_cols(torch.tensor(inv4, dtype=dtype), cfg, mesh,
+                           pad_spec, halo)
+    else:
+        inv4s = [torch.tensor(inv4, dtype=dtype, device=d) for d in devices]
+    fourth = len(fields) == 4
     out = []
-    for k, d in enumerate(devices):
-        iy, ix = divmod(k, px)
-        out.append(ShardConstants(
-            kind=kc.kind, coeffs=coeffs[k], b=b[k], mask=mask[k],
-            has_freeze=kc.has_freeze, model=kc.model, halo=halo,
-            valid_rows=min(nyl, max(0, cfg.ny - iy * nyl)),
-            valid_cols=min(nxl, max(0, cfg.nx - ix * nxl))))
+    for k, rows in enumerate(_shard_rhs_inputs(problem, mesh, pad_spec, halo,
+                                               dtype)):
+        st = stacks[k]
+        out.append(ShardDivformConstants(
+            kind="shard_aniso" if aniso else "shard_divform",
+            coeffs=(st[0], st[1], st[2]), stack=st,
+            tissue=st[3] if fourth and not aniso else None,
+            dxy=st[3] if aniso else None, inv4=inv4s[k], **rows))
     return out
 
 
@@ -404,6 +521,40 @@ def make_aniso_rhs_block(ac: AnisoConstants, fz):
                                                               dxyw),
                             react[1]])
         return ydot * live if live is not None else ydot
+
+    return rhs_block
+
+
+def make_shard_divform_rhs_block(sc: ShardDivformConstants, fz):
+    """rhs_block(y) -> ydot: K11's RHS in plain torch on a shard's whole
+    halo-padded (2, nyl + 2 halo, nxl + 2 halo) buffer
+    (crdmodel_tpu/ops/kernel_common.py:165-246): the kinetics plus, on
+    variable 0, the face-form operator with aS = roll_y(aN)
+    (ops/stencil.py::divergence_laplacian) or, in aniso mode, the XLA
+    path's tensor operator axis + inv4*(t1 + t2) on the raw Dxy
+    (ops/stencil.py::anisotropic_laplacian), which K5 associates otherwise
+    (aniso_kernel_laplacian); times live with a freeze, times the tissue
+    field with an obstacle. The rolls wrap at the buffer's edge: the outer
+    rings go wrong, as the stages consume them. csrc/rhs_common.cuh::
+    divform_rhs and mixed_divform_rhs compute the same expressions in the
+    same order."""
+    aE, aW, aN = sc.coeffs
+    faces = (aE, aW, aN, torch.roll(aN, 1, dims=0))
+    live = _live(sc, fz)
+
+    def lap_of(u):
+        if sc.dxy is not None:
+            return anisotropic_laplacian(u, faces, sc.dxy, sc.inv4)
+        return divergence_laplacian(u, faces)
+
+    def rhs_block(y):
+        react = sc.model.kinetics(y, sc.b)
+        ydot = torch.stack([react[0] + lap_of(y[0]), react[1]])
+        if live is not None:
+            ydot = ydot * live
+        if sc.tissue is not None:
+            ydot = ydot * sc.tissue
+        return ydot
 
     return rhs_block
 

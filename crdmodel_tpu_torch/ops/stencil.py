@@ -1,5 +1,5 @@
 """Periodic diffusion stencils on the torch path (counterpart of
-crdmodel_tpu/ops/stencil.py:20-84, 102-124, 145-163, 183-212).
+crdmodel_tpu/ops/stencil.py:20-125, 145-212, 252).
 
 Whole-array `torch.roll` shifts: on one device the periodic wrap is the
 reference's halo exchange. Arrays are (..., ny, nx): axis -1 is theta/x
@@ -88,6 +88,37 @@ def divergence_laplacian(u, face_coeffs):
     aE, aW, aN, aS = face_coeffs
     return (aE * (shift_e(u) - u) + aW * (shift_w(u) - u)
             + aN * (shift_n(u) - u) + aS * (shift_s(u) - u))
+
+
+def divergence_from_padded(up, face_coeffs):
+    """divergence_laplacian over a halo-padded block up (..., nyl+2,
+    nxl+2) whose halo came from the mesh's exchange
+    (crdmodel_tpu/ops/stencil.py:87); face_coeffs are the block's own
+    faces, indexed at the centre point, so they need no halo."""
+    aE, aW, aN, aS = face_coeffs
+    u = up[..., 1:-1, 1:-1]
+    uw = up[..., 1:-1, 0:-2]
+    ue = up[..., 1:-1, 2:]
+    us = up[..., 0:-2, 1:-1]
+    un = up[..., 2:, 1:-1]
+    return (aE * (ue - u) + aW * (uw - u)
+            + aN * (un - u) + aS * (us - u))
+
+
+def anisotropic_from_padded(up, face_coeffs, dxy_p, inv4):
+    """anisotropic_laplacian over a halo-padded block up (..., nyl+2,
+    nxl+2) (crdmodel_tpu/ops/stencil.py:166). The mixed terms read the
+    corner halo cells, which the two-phase exchange fills with the true
+    diagonal neighbours (parallel/halo.py). dxy_p is Dxy with the same
+    width-1 halo: the fluxes Dxy*(du) are formed at the neighbours."""
+    axis = divergence_from_padded(up, face_coeffs)
+    dys = up[..., 2:, :] - up[..., 0:-2, :]
+    fx = dxy_p[..., 1:-1, :] * dys
+    t1 = fx[..., :, 2:] - fx[..., :, 0:-2]
+    dxs = up[..., :, 2:] - up[..., :, 0:-2]
+    fy = dxy_p[..., :, 1:-1] * dxs
+    t2 = fy[..., 2:, :] - fy[..., 0:-2, :]
+    return axis + inv4 * (t1 + t2)
 
 
 def anisotropic_laplacian(u, face_coeffs, dxy, inv4):

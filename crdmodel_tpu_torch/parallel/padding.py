@@ -9,7 +9,7 @@ grid up to the mesh-divisible size and masks the pad cells:
 - on the torch path, pad cells' RHS is zeroed every evaluation, so their
   values never move from the (finite, wrap-copied) initial fill, and the
   error norms exclude them;
-- the fused shard kernels (K8, K9) run mirror-pad semantics instead: pad
+- the fused shard kernels (K8-K11) run mirror-pad semantics instead: pad
   cells evolve as live copies of their wrapped physical sources, and the
   error sums are masked to the physical cells in-kernel
   (ops/kernel_common.py::ShardConstants);

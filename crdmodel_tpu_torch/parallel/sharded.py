@@ -1,5 +1,5 @@
 """Sharded simulation: the adaptive integration over a mesh of shards
-(counterpart of crdmodel_tpu/parallel/sharded.py, its ERK and rkc2 slice).
+(counterpart of crdmodel_tpu/parallel/sharded.py, its 2-D part).
 
 The JAX package runs the whole solver loop under `shard_map`: each device
 steps its own block, and every control decision (accept/reject, the next
@@ -13,13 +13,17 @@ the integrator of integrate/erk.py runs once over it, its control state on
 the mesh's first device; the per-shard sums are added there in a fixed
 order (make_reduce), so all shards take the same steps.
 
-Kernel selection: ERK tableaus through K8 (ops/fused_shard_step.py), rkc2
-through K9 (ops/fused_shard_rkc.py), with the gates of the JAX package's
-maybe_fused_shard_step / maybe_fused_shard_rkc; else the torch path
-(make_local_rhs: a width-1 exchange before every RHS evaluation). Not
-ported yet, each raising NotImplementedError with its ROADMAP item:
-ark324 (kernel K10), the divergence form and diffusion tensors (K11), the
-3-D box (K12, K13), streaming (item 5) and member lockstep (item 14).
+Kernel selection, in the JAX package's order (crdmodel_tpu/parallel/
+sharded.py:838-852): ERK tableaus through K8 (ops/fused_shard_step.py,
+the profile operator, theta-only torus fields through its profile remap),
+K11 (ops/fused_shard_divform.py: no-flux walls, obstacles, 2-D and flat
+diffusion fields) or K11's aniso mode (the 2-D tensor, flat and torus);
+ark324 through K10 (ops/fused_shard_imex.py); rkc2 through K9
+(ops/fused_shard_rkc.py); each with the gates of the JAX package's
+maybe_fused_shard_*; else the torch path (make_local_rhs: a width-1
+exchange before every RHS evaluation). Not ported yet, each raising
+NotImplementedError with its ROADMAP item: the 3-D box (K12, K13),
+forcing (item 9), streaming (item 5) and member lockstep (item 14).
 """
 
 from __future__ import annotations
@@ -36,10 +40,12 @@ from crdmodel_tpu_torch.core.problem import (Problem, beta_field,
                                              build_problem, interior_rows,
                                              make_rho_bound,
                                              solver_breakpoints)
-from crdmodel_tpu_torch.integrate import rkc
+from crdmodel_tpu_torch.integrate import imex, rkc
 from crdmodel_tpu_torch.integrate.erk import TABLEAUS, integrate_to_outputs
 from crdmodel_tpu_torch.ops.kernel_common import coeff_kind
-from crdmodel_tpu_torch.ops.stencil import laplacian_from_padded
+from crdmodel_tpu_torch.ops.stencil import (anisotropic_from_padded,
+                                            divergence_from_padded,
+                                            laplacian_from_padded)
 from crdmodel_tpu_torch.parallel.halo import halo_pad
 from crdmodel_tpu_torch.parallel.mesh import make_mesh
 from crdmodel_tpu_torch.parallel.padding import pad_spec_for
@@ -48,40 +54,51 @@ from crdmodel_tpu_torch.sim import SimResult, output_times
 
 
 def _unported(problem: Problem):
-    """Raise for what this slice of the sharded run does not take."""
-    cfg = problem.cfg
+    """Raise for what the sharded run does not take yet."""
     if problem.geometry.kind == "box":
         raise NotImplementedError("sharded 3-D boxes are not ported yet "
                                   "(ROADMAP queue 1, item 15: kernels K12 "
                                   "and K13)")
-    if problem.diffusion_tensor is not None:
-        raise NotImplementedError("sharded diffusion tensors are not ported "
-                                  "yet (ROADMAP queue 1, item 15: kernel "
-                                  "K11's aniso mode)")
-    if (problem.diffusion_field is not None or problem.face_mask is not None
-            or problem.obstacle_mask is not None):
-        raise NotImplementedError("the sharded divergence form is not ported "
-                                  "yet (ROADMAP queue 1, item 15: kernel "
-                                  "K11)")
-    if cfg.method == "ark324":
-        raise NotImplementedError("sharded ark324 is not ported yet (ROADMAP "
-                                  "queue 1, item 15: kernel K10)")
+    if problem.forcing is not None:
+        raise NotImplementedError("forcing is not ported yet (ROADMAP queue "
+                                  "1, item 9)")
+
+
+def tensor_weight(problem: Problem):
+    """make_local_rhs's tensor_inv4 of a problem with a diffusion tensor
+    (crdmodel_tpu/parallel/sharded.py:788-802): the flat surface's scalar
+    mixed-pair weight 1/(4 dx dy) as a Python float, or "param" for the
+    torus's (nx,) profile, which rides params["inv4"]; None without a
+    tensor."""
+    if problem.diffusion_tensor is None:
+        return None
+    inv4 = problem.geometry.tensor_coeffs64(
+        *problem.diffusion_tensor, boundary=problem.cfg.boundary)[2]
+    return "param" if np.ndim(inv4) > 0 else float(inv4)
 
 
 def make_local_rhs(cfg: SimConfig, model, kind: str, mesh, pad_spec=None,
-                   split: bool = False):
+                   split: bool = False, divergence: bool = False,
+                   tensor_inv4=None, tissue: bool = False):
     """rhs(t, state, params) over a Shards of local (nvars, nyl, nxl) blocks
     with width-1 exchanged halos (crdmodel_tpu/parallel/sharded.py:43-187,
-    the profile operator). params["local"]: each shard's dict of "coeffs"
-    (its (nxl,) torus profiles or the flat scalars), "b" (scalar or its
-    (nyl, 1) rows), "interior" ((nyl, 1) bool, False on global rows 0 and
-    ny-1) and, on a padded grid, "valid" ((nyl, nxl) bool, False on pad
-    cells: every derivative is zeroed there, so pad values never move and
-    the error sums exclude them). split=True (ark324's pair) waits for
-    kernel K10's slice."""
-    if split:
-        raise NotImplementedError("the sharded IMEX split is not ported yet "
-                                  "(ROADMAP queue 1, item 15: kernel K10)")
+    without forcing and pole bands). params["local"]: each shard's dict of
+    "coeffs" (the profile operator's (nxl,) torus profiles or flat scalars;
+    with divergence=True the four face arrays (aE, aW, aN, aS), (nxl,) or
+    (nyl, nxl)), "b" (scalar or its (nyl, 1) rows), "interior" ((nyl, 1)
+    bool, False on global rows 0 and ny-1), with tissue=True "tissue"
+    ((nyl, nxl) bool, False on obstacle cells, whose RHS is zeroed so they
+    hold their IC), with a tensor "_dxy_pad" (Dxy with a width-1 halo,
+    exchanged once a run: build_local_run) and, when tensor_inv4 is
+    "param", "inv4" (the (1, nxl) torus weights; else tensor_inv4 is the
+    flat scalar) and, on a padded grid, "valid" ((nyl, nxl) bool, False on
+    pad cells: every derivative is zeroed there, so pad values never move
+    and the error sums exclude them).
+
+    split=True returns (rhs_ex, rhs_im) for ark324: rhs_ex the diffusion
+    with the freeze applied, rhs_im the pointwise kinetics with the freeze,
+    with no exchange, so the Newton stage solves are shard-local; both
+    masked like rhs, so that rhs_ex + rhs_im is rhs."""
     just_diffusion = bool(cfg.just_diffusion)
     t_boundary = float(cfg.t_boundary)
     has_freeze = (t_boundary > 0.0) and not just_diffusion
@@ -91,6 +108,15 @@ def make_local_rhs(cfg: SimConfig, model, kind: str, mesh, pad_spec=None,
     seam_y = pad_spec.seam_y() if padded else None
     seam_x = pad_spec.seam_x() if padded else None
 
+    def operator(up, loc):
+        if tensor_inv4 is not None:
+            inv4 = loc["inv4"] if tensor_inv4 == "param" else tensor_inv4
+            return anisotropic_from_padded(up, loc["coeffs"], loc["_dxy_pad"],
+                                           inv4)
+        if divergence:
+            return divergence_from_padded(up, loc["coeffs"])
+        return laplacian_from_padded(up, loc["coeffs"], kind)
+
     def diffusion_terms(state, local):
         out = [[] for _ in local]
         for v in range(model.nvars):
@@ -99,34 +125,60 @@ def make_local_rhs(cfg: SimConfig, model, kind: str, mesh, pad_spec=None,
                 ups = halo_pad([blk[v] for blk in state], mesh, 1, seam_y,
                                seam_x)
                 for i, up in enumerate(ups):
-                    term = laplacian_from_padded(up, local[i]["coeffs"], kind)
+                    term = operator(up, local[i])
                     out[i].append(term if r == 1.0 else r * term)
             else:
                 for i, blk in enumerate(state):
                     out[i].append(torch.zeros_like(blk[v]))
         return [torch.stack(o) for o in out]
 
+    def freeze_flag(t, params):
+        seg_end = params.get("_seg_end")
+        freeze_now = torch.as_tensor(t < t_boundary)
+        if seg_end is not None:
+            freeze_now = freeze_now | (seg_end <= t_boundary)
+        return freeze_now
+
+    def finish(ydot, loc, freeze_now):
+        """The freeze (when freeze_now is not None), the tissue and the pad
+        masks on one shard's ydot."""
+        if freeze_now is not None:
+            frozen = torch.where(loc["interior"], ydot, 0.0)
+            ydot = torch.where(freeze_now.to(ydot.device), frozen, ydot)
+        if tissue:
+            ydot = torch.where(loc["tissue"], ydot, 0.0)
+        if padded:
+            ydot = torch.where(loc["valid"], ydot, 0.0)
+        return ydot
+
     def rhs(t, state, params):
         local = params["local"]
         diffs = diffusion_terms(state, local)
-        if has_freeze:
-            seg_end = params.get("_seg_end")
-            freeze_now = torch.as_tensor(t < t_boundary)
-            if seg_end is not None:
-                freeze_now = freeze_now | (seg_end <= t_boundary)
+        freeze_now = freeze_flag(t, params) if has_freeze else None
         out = []
         for blk, diff, loc in zip(state, diffs, local):
             ydot = (diff if just_diffusion
                     else model.kinetics(blk, loc["b"]) + diff)
-            if has_freeze:
-                frozen = torch.where(loc["interior"], ydot, 0.0)
-                ydot = torch.where(freeze_now.to(blk.device), frozen, ydot)
-            if padded:
-                ydot = torch.where(loc["valid"], ydot, 0.0)
-            out.append(ydot)
+            out.append(finish(ydot, loc, freeze_now))
         return Shards(out)
 
-    return rhs
+    if not split:
+        return rhs
+
+    def rhs_ex(t, state, params):
+        local = params["local"]
+        freeze_now = freeze_flag(t, params) if has_freeze else None
+        return Shards(finish(diff, loc, freeze_now) for diff, loc in
+                      zip(diffusion_terms(state, local), local))
+
+    def rhs_im(t, state, params):
+        if just_diffusion:
+            return torch.zeros_like(state)
+        freeze_now = freeze_flag(t, params) if has_freeze else None
+        return Shards(finish(model.kinetics(blk, loc["b"]), loc, freeze_now)
+                      for blk, loc in zip(state, params["local"]))
+
+    return rhs_ex, rhs_im
 
 
 def mesh_pad_spec(cfg, mesh):
@@ -137,26 +189,57 @@ def mesh_pad_spec(cfg, mesh):
 
 
 def sharded_params(problem: Problem, pad_spec=None) -> dict:
-    """The global parameter tensors of the profile operator, wrap-padded to
-    the mesh-divisible shape on a padded grid
-    (crdmodel_tpu/parallel/sharded.py:258-420): "coeffs" (three (nx,)
-    torus profiles or three flat scalars), "b" (scalar or (ny, 1) ramp),
-    "interior" ((ny, 1) bool) and, padded, "valid" ((nyp, nxp) bool). Wrap
-    fill keeps pad values inside the physical range, and gives the fused
-    kernels' mirror-pad cells their sources' values."""
+    """The global parameter tensors, wrap-padded to the mesh-divisible
+    shape on a padded grid (crdmodel_tpu/parallel/sharded.py:258-420,
+    without pole bands and forcing): "coeffs" (the profile operator's three
+    (nx,) torus profiles or flat scalars; the divergence form's four face
+    arrays, (nx,) or (ny, nx), with the closed faces of no-flux walls and
+    obstacles zeroed; a tensor's four axis faces (ny, nx)), with a tensor
+    "dxy" ((ny, nx)) and on the torus "inv4" (the (1, nx) mixed-pair
+    weights), with an obstacle "tissue" ((ny, nx) bool, True = tissue),
+    "b" (scalar or (ny, 1) ramp), "interior" ((ny, 1) bool) and, padded,
+    "valid" ((nyp, nxp) bool). Wrap fill keeps pad values inside the
+    physical range, and gives the fused kernels' mirror-pad cells their
+    sources' values."""
     cfg = problem.cfg
     dtype, device = problem.y0.dtype, problem.device
+    geometry = problem.geometry
     padded = pad_spec is not None and pad_spec.active
-    coeffs = problem.geometry.stencil_coeffs(dtype, device)
+    params = {}
+    if problem.diffusion_tensor is not None:
+        faces, dxy, inv4 = geometry.tensor_coeffs64(
+            *problem.diffusion_tensor, boundary=cfg.boundary)
+        coeffs = tuple(torch.tensor(a, dtype=dtype, device=device)
+                       for a in faces)
+        params["dxy"] = torch.tensor(dxy, dtype=dtype, device=device)
+        if np.ndim(inv4) > 0:
+            params["inv4"] = torch.tensor(np.reshape(inv4, (1, -1)),
+                                          dtype=dtype, device=device)
+    elif problem.diffusion_field is not None:
+        coeffs = geometry.divergence_coeffs(problem.diffusion_field, dtype,
+                                            device,
+                                            face_mask=problem.face_mask)
+    else:
+        coeffs = geometry.stencil_coeffs(dtype, device)
+    if problem.obstacle_mask is not None:
+        params["tissue"] = torch.tensor(np.broadcast_to(
+            np.asarray(problem.obstacle_mask, bool), geometry.grid.shape),
+            device=device)
     b = beta_field(cfg, dtype, device)
     interior = interior_rows(cfg.ny, torch.bool, device)
     if padded:
-        coeffs = tuple(pad_spec.pad_cols(c) if c.dim() == 1 else c
-                       for c in coeffs)
-        if b.dim() == 2:
-            b = pad_spec.pad_rows(b)
-        interior = pad_spec.pad_rows(interior)
-    params = {"coeffs": coeffs, "b": b, "interior": interior}
+        def pad(c):
+            # only the axes that span the grid (size-1 axes broadcast)
+            if c.dim() >= 1 and c.shape[-1] == cfg.nx:
+                c = pad_spec.pad_cols(c)
+            if c.dim() >= 2 and c.shape[-2] == cfg.ny:
+                c = pad_spec.pad_rows(c)
+            return c
+
+        coeffs = tuple(pad(c) for c in coeffs)
+        params = {k: pad(v) for k, v in params.items()}
+        b, interior = pad(b), pad(interior)
+    params.update(coeffs=tuple(coeffs), b=b, interior=interior)
     if padded:
         params["valid"] = torch.as_tensor(pad_spec.valid_mask(),
                                           device=device)
@@ -202,7 +285,7 @@ def shard_params(params: dict, mesh, pad_spec, cfg) -> dict:
 
     coeffs = list(zip(*(split(c) for c in params["coeffs"])))
     local = [{"coeffs": c} for c in coeffs]
-    for key in ("b", "interior", "valid"):
+    for key in ("b", "interior", "valid", "tissue", "dxy", "inv4"):
         if key in params:
             for loc, blk in zip(local, split(params[key])):
                 loc[key] = blk
@@ -210,6 +293,22 @@ def shard_params(params: dict, mesh, pad_spec, cfg) -> dict:
     if "valid" in params:
         out["valid"] = Shards(loc["valid"] for loc in local)
     return out
+
+
+def with_dxy_halo(params: dict, mesh, pad_spec=None) -> dict:
+    """params with each shard's "_dxy_pad": its Dxy block with a width-1
+    halo, the seam legs of a padded axis included. Dxy is static, so one
+    exchange a run serves every RHS evaluation (crdmodel_tpu/parallel/
+    sharded.py:876-884)."""
+    local = params["local"]
+    if "dxy" not in local[0]:
+        return params
+    padded = pad_spec is not None and pad_spec.active
+    ups = halo_pad([loc["dxy"] for loc in local], mesh, 1,
+                   pad_spec.seam_y() if padded else None,
+                   pad_spec.seam_x() if padded else None)
+    return {**params, "local": tuple({**loc, "_dxy_pad": up}
+                                     for loc, up in zip(local, ups))}
 
 
 def split_state(y, mesh, pad_spec, cfg) -> Shards:
@@ -284,6 +383,68 @@ def maybe_fused_shard_rkc(problem: Problem, mesh, rho_fn, pad_spec=None):
                                                  pad_spec)
 
 
+def maybe_fused_shard_divform(problem: Problem, mesh, pad_spec=None,
+                              aniso: bool = False):
+    """K11 (ops/fused_shard_divform.py) when the configuration supports it,
+    else None: the divergence form that K8 declines (no-flux walls,
+    obstacles, 2-D and flat diffusion fields) or, with aniso=True, the 2-D
+    diffusion tensor (crdmodel_tpu/parallel/sharded.py:539-601)."""
+    from crdmodel_tpu_torch.ops import fused_shard_divform
+    cfg = problem.cfg
+    if cfg.method not in TABLEAUS or not _shard_kernel_eligible(cfg, mesh):
+        return None
+    tableau = TABLEAUS[cfg.method]
+    nyl, nxl = _local_block_shape(cfg, mesh, pad_spec)
+    if not fused_shard_divform.is_shard_divform_supported(
+            problem, tableau, problem.y0.dtype, nyl, nxl, aniso=aniso):
+        return None
+    return fused_shard_divform.build_fused_shard_divform(
+        problem, tableau, mesh, pad_spec, aniso=aniso)
+
+
+def maybe_fused_shard_aniso(problem: Problem, mesh, pad_spec=None):
+    """K11's aniso mode when supported, else None (crdmodel_tpu/parallel/
+    sharded.py:571-601): the only fused route of a tensor on the torus."""
+    return maybe_fused_shard_divform(problem, mesh, pad_spec, aniso=True)
+
+
+def maybe_fused_shard_imex(problem: Problem, mesh, pad_spec=None):
+    """K10 (ops/fused_shard_imex.py) when supported, else None
+    (crdmodel_tpu/parallel/sharded.py:680-714)."""
+    from crdmodel_tpu_torch.ops import fused_shard_imex
+    cfg = problem.cfg
+    if cfg.method != "ark324" or not _shard_kernel_eligible(cfg, mesh):
+        return None
+    nyl, nxl = _local_block_shape(cfg, mesh, pad_spec)
+    if not fused_shard_imex.is_shard_imex_supported(
+            problem, problem.y0.dtype, nyl, nxl):
+        return None
+    return fused_shard_imex.build_fused_shard_imex(problem, mesh, pad_spec)
+
+
+def select_shard_kernel(problem: Problem, mesh, pad_spec=None,
+                        rho_fn=None):
+    """(name, kernel) of the fused shard kernel that takes `problem`'s
+    steps on `mesh`, in the JAX package's order of selection
+    (crdmodel_tpu/parallel/sharded.py:838-852 and run_local): "K8", "K11",
+    "K11 aniso", then "K10" (ark324), then "K9" (rkc2, with the run's
+    rho_fn); (None, None) for the torch path."""
+    chain = (("K8", lambda: maybe_fused_shard_step(problem, mesh, pad_spec)),
+             ("K11", lambda: maybe_fused_shard_divform(problem, mesh,
+                                                       pad_spec)),
+             ("K11 aniso", lambda: maybe_fused_shard_aniso(problem, mesh,
+                                                           pad_spec)),
+             ("K10", lambda: maybe_fused_shard_imex(problem, mesh,
+                                                    pad_spec)),
+             ("K9", lambda: maybe_fused_shard_rkc(problem, mesh, rho_fn,
+                                                  pad_spec)))
+    for name, build in chain:
+        kernel = build()
+        if kernel is not None:
+            return name, kernel
+    return None, None
+
+
 def make_reduce(mesh, valid=None):
     """The cross-shard sum for the WRMS norms (crdmodel_tpu/parallel/
     sharded.py:717-734, JAX's psum): x a Shards of per-shard partial sums
@@ -335,7 +496,10 @@ def sharded_rho_bound(problem: Problem, mesh, pad_spec=None):
     grid (crdmodel_tpu/parallel/sharded.py:818-829)."""
     rho_fn = make_rho_bound(problem.cfg, problem.model, problem.geometry,
                             problem.y0.dtype,
-                            max_reduce=make_max_reduce(mesh))
+                            max_reduce=make_max_reduce(mesh),
+                            diffusion_field=problem.diffusion_field,
+                            diffusion_tensor=problem.diffusion_tensor,
+                            face_mask=problem.face_mask)
     return _mask_rho(rho_fn) if pad_spec is not None else rho_fn
 
 
@@ -343,48 +507,56 @@ def build_local_run(problem: Problem, mesh):
     """run(y0, params) -> (traj, stats) of `problem` on `mesh`, with y0 a
     Shards of local blocks and params from shard_params, plus the pad_spec,
     the output times and whether a fused shard kernel takes the steps
-    (crdmodel_tpu/parallel/sharded.py:751-918, without member_sync and the
-    branches _unported names). traj is gathered on the control device,
-    without the pad cells."""
+    (crdmodel_tpu/parallel/sharded.py:751-918, without member_sync), the
+    kernel from select_shard_kernel. traj is gathered on the control
+    device, without the pad cells."""
     _unported(problem)
     cfg = problem.cfg
     model = problem.model
     kind = coeff_kind(problem.geometry.kind)
     touts = output_times(cfg)
     pad_spec = mesh_pad_spec(cfg, mesh)
-    local_rhs = make_local_rhs(cfg, model, kind, mesh, pad_spec=pad_spec)
+    operator = dict(divergence=problem.diffusion_field is not None,
+                    tensor_inv4=tensor_weight(problem),
+                    tissue=problem.obstacle_mask is not None)
+    local_rhs = make_local_rhs(cfg, model, kind, mesh, pad_spec=pad_spec,
+                               **operator)
+    rhs_split = (make_local_rhs(cfg, model, kind, mesh, pad_spec=pad_spec,
+                                split=True, **operator)
+                 if cfg.method == "ark324" else None)
     global_size = problem.y0.numel()     # the PHYSICAL cell count
     breakpoints = solver_breakpoints(cfg)
 
     rho_fn = (sharded_rho_bound(problem, mesh, pad_spec)
               if cfg.method == "rkc2" else None)
 
-    fused = maybe_fused_shard_step(problem, mesh, pad_spec=pad_spec)
-    frkc = maybe_fused_shard_rkc(problem, mesh, rho_fn, pad_spec=pad_spec)
-    kernel = fused if fused is not None else frkc
+    name, kernel = select_shard_kernel(problem, mesh, pad_spec, rho_fn)
 
     def capture(y):
         return gather(kernel.unpad(y) if kernel is not None else y, mesh,
                       pad_spec)
 
     def run(y0, params):
+        params = with_dxy_halo(params, mesh, pad_spec)
         reduce_fn = make_reduce(mesh, params.get("valid"))
         kw = {}
-        if fused is not None:
+        if name == "K9":
+            kw = dict(step_err=kernel.step_err, err_order=rkc.ERR_ORDER,
+                      h_limit_fn=kernel.h_limit)
+        elif kernel is not None:
+            # K8, K10 and K11 carry no state (init_carry's default ())
             kw = dict(step_err=lambda t, y, h, p, carry:
-                      (*fused.step_err(t, y, h, p), ()),
-                      err_order=TABLEAUS[cfg.method].err_order)
-        elif frkc is not None:
-            kw = dict(step_err=frkc.step_err, err_order=rkc.ERR_ORDER,
-                      h_limit_fn=frkc.h_limit)
+                      (*kernel.step_err(t, y, h, p), ()),
+                      err_order=(imex.ERR_ORDER if name == "K10"
+                                 else TABLEAUS[cfg.method].err_order))
         if kernel is not None:
             kw["y_loop0"] = kernel.pad(y0)
         return integrate_to_outputs(
             local_rhs, y0, params, 0.0, touts, rtol=cfg.rtol, atol=cfg.atol,
             method=cfg.method, max_steps=cfg.max_steps,
             breakpoints=breakpoints, step_mode=cfg.step_mode,
-            global_size=global_size, rho_fn=rho_fn, reduce_fn=reduce_fn,
-            capture=capture, **kw)
+            global_size=global_size, rho_fn=rho_fn, rhs_split=rhs_split,
+            reduce_fn=reduce_fn, capture=capture, **kw)
 
     return run, pad_spec, touts, kernel is not None
 

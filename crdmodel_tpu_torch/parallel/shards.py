@@ -9,12 +9,15 @@ shard by shard, with a tensor that is not sharded (h, the recurrence
 scalars, the control state, all 0-d on the control device) copied to each
 shard's device first. Reductions stay per shard (torch.sum gives a Shards
 of per-shard sums); the adaptive loop's reduce_fn adds them in a fixed order
-(parallel/sharded.py::make_reduce), JAX's psum.
+(parallel/sharded.py::make_reduce), JAX's psum. A Shards is a pytree of
+its blocks, so torch.func's transforms map over it too (the IMEX stepper's
+pointwise Jacobian, integrate/imex.py).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.utils._pytree as pytree
 
 
 def _on(x, device):
@@ -100,3 +103,9 @@ class Shards:
 
     def __neg__(self):
         return Shards(-b for b in self.blocks)
+
+
+# one forward-mode product a variable over every shard at once
+# (integrate/imex.py::pointwise_jacobian)
+pytree.register_pytree_node(Shards, lambda s: (list(s.blocks), None),
+                            lambda blocks, _: Shards(blocks))
