@@ -25,7 +25,10 @@ shards, the uneven 1x3 mesh and the 2.56M-point Goldbeter torus's 2x2
 shard; K11, the fused divergence-form and 2-D tensor ERK step on one shard,
 on the bounded tissue's 2x2 shards, a flat 2-D diffusion field, the uneven
 1x3 mesh, the rotating fibres flat and on the torus and a constant tensor
-inside no-flux walls), times each, then runs the
+inside no-flux walls; K12 and K13, the fused ERK and RKC2 steps on one
+shard of the 3-D box, on the slab's 2x2 shards in the four operator modes,
+FitzHugh-Nagumo's beta ramp on a 16x256x256 box's 2x2 shards and its
+uneven 1x3 mesh), times each, then runs the
 port's main paths through simulate(): the
 canonical FitzHugh-Nagumo torus program (data/FHNmodelArgs.ini: 400x1600,
 f32, Tf=50) with its own method bs32 (through K1) and with method rkc2
@@ -48,7 +51,9 @@ torus (6400x1600, 10.24M points, rkc2, f32, Tf=1, through K9), the
 bounded tissue and the fibered sheet (through K11, its aniso mode for the
 fibres), the same fibres on the torus (K11 with the inv4 profile), the
 canonical Goldbeter torus with ark324 and the JAX suite's large Goldbeter
-torus (3200x800, 2.56M points, ark324, f32, Tf=1; both through K10).
+torus (3200x800, 2.56M points, ark324, f32, Tf=1; both through K10),
+and the volumetric slab with bs32 (through K12), rkc2 (through K13) and
+the scar column (through K12's tissue mode).
 Each run is checked against the JAX package's CPU runs recorded in
 tests/golden/torch_canonical_{fhn,goldbeter}[_method]_probes.npz,
 tests/golden/torch_bounded_ap[_rkc2]_probes.npz and
@@ -57,8 +62,9 @@ against the port's own torch path on the card, the sharded canonical runs,
 bounded tissue and fibered sheet also against the single-device K1, K3,
 K4 and K5 runs, the large FHN torus against the port's single-device K2
 run, the fibres on the torus against the port's single-device torch path
-and the large Goldbeter torus against the single-device K3 run, all in the
-same call. Exits non-zero on any
+and the large Goldbeter torus against the single-device K3 run and the
+sharded slab against the single-device K6 and K7 runs, all in the same
+call. Exits non-zero on any
 failure, and prints as its last line {"ok": true, "device": {...}} only
 when every phase passed. Imports nothing of JAX.
 
@@ -66,12 +72,13 @@ With --profile it checks nothing: it builds the kernels and traces, with
 torch.profiler, the bounded cardiac tissue with bs32 and rkc2, the fibered
 sheet and the wide sheet over short horizons, the three slab runs over
 their whole horizon, the sharded canonical FHN run over Tf=5, the sharded
-large FHN torus over Tf=0.2, the sharded bounded tissue over Tf=1 and the
-sharded large Goldbeter torus over Tf=0.2, and prints for each the
+large FHN torus over Tf=0.2, the sharded bounded tissue over Tf=1, the
+sharded large Goldbeter torus over Tf=0.2 and the three sharded slab runs
+over their whole horizon, and prints for each the
 device's busy time and idle share, the kernels a step and the fused
 kernel's share (phase "profile"). With --sharded it builds the kernels and
 runs only the single-device runs the sharded paths are held to (K1, K3,
-K4, K5) and the sharded main paths with their checks (on four cards or
+K4, K5, K6, K7) and the sharded main paths with their checks (on four cards or
 more, again with a shard on each card); it prints no kernels line and no
 last line.
 """
@@ -865,7 +872,7 @@ def torch_path_run(cfg, build_kw, dtype):
 
 
 def run_box_path(name, cfg, build_kw, kernel, label, min_step_tol,
-                 scar=None):
+                 scar=None, keep=None):
     """A box program through simulate() on the card (auto selection), held
     against the port's torch path on the card in f32 and f64 (a JAX CPU
     run of 8.4M points is out of this script's reach): steps within
@@ -874,7 +881,9 @@ def run_box_path(name, cfg, build_kw, kernel, label, min_step_tol,
     output within 2x the torch f32-f64 gap plus 1e-4 of the torch f64
     run's. With `scar` (the tissue mask), its inert cells hold their IC
     bitwise at every output. Prints phase `name`; returns the launches of
-    `kernel`."""
+    `kernel`. `keep`: a dict that receives the run's steps, wall, final
+    field and that field's distance to the torch path's f64 run, which
+    the sharded slab's runs are held to (run_sharded_slab)."""
     res, counts = drive_main_path(cfg, build_kw)
     launches = counts[kernel.__name__]
     checks = run_checks(cfg, res, kernel, launches)
@@ -893,6 +902,7 @@ def run_box_path(name, cfg, build_kw, kernel, label, min_step_tol,
               held_ic_bitwise=checks["scar cells hold their IC bitwise"])
     steps, wall, status = res.total_steps(), res.wall_time, res.describe()
     stats = res.stats
+    final = traj[-1].clone()
     del res, traj
     refs = {}
     for dtype in ("float32", "float64"):
@@ -901,6 +911,10 @@ def run_box_path(name, cfg, build_kw, kernel, label, min_step_tol,
         refs[dtype] = dict(steps=ref_steps, wall_s=ref_wall, ok=ref_ok,
                            probes=ref_traj[(slice(None), *idx)].double()
                            .cpu().numpy())
+        if keep is not None and dtype == "float64":
+            keep.update(steps=steps, wall_s=wall, final=final,
+                        f64_gap=float((final.double() - ref_traj[-1])
+                                      .abs().max()))
         del ref_traj
     r32, r64 = refs["float32"], refs["float64"]
     step_tol = max(min_step_tol,
@@ -1036,6 +1050,8 @@ def kernel_wrappers():
     from crdmodel_tpu_torch.ops import (fused_aniso, fused_box3d,
                                         fused_box3d_rkc, fused_divform,
                                         fused_imex, fused_rkc,
+                                        fused_shard_box3d,
+                                        fused_shard_box3d_rkc,
                                         fused_shard_divform,
                                         fused_shard_imex, fused_shard_rkc,
                                         fused_shard_step, fused_step)
@@ -1046,7 +1062,9 @@ def kernel_wrappers():
             fused_shard_step.fused_shard_step,
             fused_shard_rkc.fused_shard_rkc_step,
             fused_shard_imex.fused_shard_imex_step,
-            fused_shard_divform.fused_shard_divform_step)
+            fused_shard_divform.fused_shard_divform_step,
+            fused_shard_box3d.fused_shard_box3d_step,
+            fused_shard_box3d_rkc.fused_shard_box3d_rkc_step)
 
 
 def run_program(cfg, build_kw, mesh=None):
@@ -1217,29 +1235,31 @@ def traced_kernels(prof):
     return [e for e in events if e.get("cat") == "kernel"]
 
 
-def device_ms(fn, tag, n=N_TIMED, attempts=3):
+def device_ms(fn, tag, n=N_TIMED, attempts=4):
     """The median device duration of the kernels whose name holds `tag`
-    over n calls of fn, from a torch.profiler trace: a kernel's own time
-    where the host's issue of each call takes longer than the kernel (the
-    shard kernels at the canonical shard, whose CUDA-event bursts time the
-    host). A trace can miss kernels (up to two of ten on the H100), so it
-    takes n + 2 calls and the last n kernels it holds; a trace that holds
-    fewer than n is taken again, up to `attempts` times."""
+    over at least n calls of fn, from torch.profiler traces: a kernel's own
+    time where the host's issue of each call takes longer than the kernel
+    (the shard kernels at the canonical shard, whose CUDA-event bursts time
+    the host). A trace can miss kernels (three of twelve on the H100), so
+    each trace takes n + n // 2 + 2 calls, and the kernels of up to
+    `attempts` traces are pooled until they number n."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    calls = n + n // 2 + 2
+    durations = []
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n + 2):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        traced = sorted((e for e in traced_kernels(prof)
-                         if tag in e["name"]), key=lambda e: e["ts"])
-        if len(traced) >= n:
-            return float(np.median([e["dur"] for e in traced[-n:]])) / 1e3
-    raise AssertionError(f"traced {len(traced)} {tag} kernels of {n + 2} "
-                         "calls")
+        durations += [e["dur"] for e in traced_kernels(prof)
+                      if tag in e["name"]]
+        if len(durations) >= n:
+            return float(np.median(durations)) / 1e3
+    raise AssertionError(f"traced {len(durations)} {tag} kernels of "
+                         f"{attempts * calls} calls")
 
 
 def profile_run(cfg, build_kw, t_final, kernel_tag, mesh=None):
@@ -1289,48 +1309,72 @@ def kernel_entry(name, source, replaces, launches, worst, timing):
             "library_ms": None}
 
 
+BOX_LABEL = ("scripts/bench_suite.py:95-105 aliev_panfilov box 32x512x512 "
+             "Tf=0.5, noflux")
+SCAR_LABEL = ", the scar column of scripts/bench_box3d.py:47-52, bs32"
+
+
+def box_modes(cfg_box):
+    """The box kernels' four operator modes on the volumetric slab: (label,
+    config, build arguments) of the noflux slab, the scar column, the
+    +-20% diffusion field and the transmural tensor with noflux_z walls."""
+    return [("noflux_slab", cfg_box, {}),
+            ("scar_column", cfg_box, box_scar(cfg_box)),
+            ("field", cfg_box, box_field(cfg_box)),
+            ("transmural_tensor",
+             dataclasses.replace(cfg_box, boundary="noflux_z"),
+             transmural_tensor(cfg_box))]
+
+
+def fhn_box(cfg_box):
+    """FitzHugh-Nagumo with the beta ramp and a freeze on a 16x256x256 box
+    with noflux_z walls: the box kernels' case of a beta field."""
+    return dataclasses.replace(
+        cfg_box, t_boundary=0.1, model="fhn", boundary="noflux_z",
+        vary_beta=1, beta=1.25, beta_min=0.7, beta_max=1.7, x_mesh=256,
+        y_mesh=256, z_mesh=16, surface_width=16.0, surface_length=16.0,
+        surface_depth=1.0)
+
+
+def box_main_paths(cfg_box):
+    """The volumetric slab through simulate() with bs32 (main_path_box,
+    K6), rkc2 (main_path_box_rkc2, K7) and the scar column
+    (main_path_box_scar, K6's tissue mode), each held to the port's torch
+    path. Returns K6's and K7's launches and {"bs32" | "rkc2" | "scar":
+    the run's keep (run_box_path)}."""
+    from crdmodel_tpu_torch.ops import fused_box3d, fused_box3d_rkc
+
+    singles = {key: {} for key in ("bs32", "rkc2", "scar")}
+    launches6 = run_box_path("main_path_box", cfg_box, {},
+                             fused_box3d.fused_box3d_step,
+                             BOX_LABEL + ", bs32", 0.01,
+                             keep=singles["bs32"])
+    launches7 = run_box_path(
+        "main_path_box_rkc2", dataclasses.replace(cfg_box, method="rkc2"), {},
+        fused_box3d_rkc.fused_box3d_rkc_step, BOX_LABEL + ", rkc2", 0.02,
+        keep=singles["rkc2"])
+    scar = box_scar(cfg_box)
+    run_box_path("main_path_box_scar", cfg_box, scar,
+                 fused_box3d.fused_box3d_step, BOX_LABEL + SCAR_LABEL, 0.01,
+                 scar=scar["obstacle_mask"], keep=singles["scar"])
+    return launches6, launches7, singles
+
+
 def box_phases(cfg_box, card):
     """The 3-D box's phases: K6 and K7 against their plain versions
     (k6_check, k7_check) on the volumetric slab's shape in the four
-    operator modes (the noflux slab, the scar column, the +-20% diffusion
-    field, the transmural tensor with noflux_z walls; each with a freeze)
-    and on FitzHugh-Nagumo with the beta ramp on a 16x256x256 box with
-    noflux_z walls; their timings in each mode (k6_timing, k7_timing); the
-    volumetric slab through simulate() with bs32 (main_path_box, K6), rkc2
-    (main_path_box_rkc2, K7) and the scar column (main_path_box_scar, K6's
-    tissue mode). Returns K6's and K7's entries of the kernels line."""
-    from crdmodel_tpu_torch.ops import fused_box3d, fused_box3d_rkc
-
-    frozen = dataclasses.replace(cfg_box, t_boundary=0.1)
-    modes = [("noflux_slab", cfg_box, {}),
-             ("scar_column", cfg_box, box_scar(cfg_box)),
-             ("field", cfg_box, box_field(cfg_box)),
-             ("transmural_tensor",
-              dataclasses.replace(cfg_box, boundary="noflux_z"),
-              transmural_tensor(cfg_box))]
-    fhn = dataclasses.replace(
-        frozen, model="fhn", boundary="noflux_z", vary_beta=1, beta=1.25,
-        beta_min=0.7, beta_max=1.7, x_mesh=256, y_mesh=256, z_mesh=16,
-        surface_width=16.0, surface_length=16.0, surface_depth=1.0)
+    operator modes of box_modes (each with a freeze) and on fhn_box; their
+    timings in each mode (k6_timing, k7_timing); box_main_paths. Returns
+    K6's and K7's entries of the kernels line and the single-device runs
+    of box_main_paths."""
+    modes = box_modes(cfg_box)
     worst6, worst7 = check_box_kernels(
         [(label, dataclasses.replace(c, t_boundary=0.1), kw)
-         for label, c, kw in modes] + [("fhn_beta_ramp", fhn, {})],
+         for label, c, kw in modes] + [("fhn_beta_ramp", fhn_box(cfg_box),
+                                        {})],
         SEED + 8)
     timings = box_timings(modes, card)
-
-    label = ("scripts/bench_suite.py:95-105 aliev_panfilov box 32x512x512 "
-             "Tf=0.5, noflux")
-    launches6 = run_box_path("main_path_box", cfg_box, {},
-                             fused_box3d.fused_box3d_step, label + ", bs32",
-                             0.01)
-    launches7 = run_box_path(
-        "main_path_box_rkc2", dataclasses.replace(cfg_box, method="rkc2"), {},
-        fused_box3d_rkc.fused_box3d_rkc_step, label + ", rkc2", 0.02)
-    scar = box_scar(cfg_box)
-    run_box_path("main_path_box_scar", cfg_box, scar,
-                 fused_box3d.fused_box3d_step,
-                 label + ", the scar column of scripts/bench_box3d.py:47-52, "
-                 "bs32", 0.01, scar=scar["obstacle_mask"])
+    launches6, launches7, singles = box_main_paths(cfg_box)
     return [
         kernel_entry("fused_box3d_step", "fused_box3d.cu",
                      "crdmodel_tpu/ops/pallas_box3d.py:307", launches6,
@@ -1338,7 +1382,268 @@ def box_phases(cfg_box, card):
         kernel_entry("fused_box3d_rkc_step", "fused_box3d_rkc.cu",
                      "crdmodel_tpu/ops/pallas_box3d_rkc.py:119", launches7,
                      worst7, timings["k7", "noflux_slab",
-                                     max(K7_TIMED_STAGES)])]
+                                     max(K7_TIMED_STAGES)])], singles
+
+
+def check_shard_box_kernels(cases, seed):
+    """K12 (bs32 and dopri54, at BOX_H) and K13 (each s of K7_STAGES, h as
+    in check_rkc_kernel) against their plain versions on the shards of
+    each (label, config, build arguments, mesh shape, shards checked) of
+    `cases`, f32 and f64, fz 0 and 1: y_new's block bitwise equal, two
+    launches bitwise equal; prints phases k12_check and k13_check. Returns
+    the max errors of K12 and of K13."""
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import fused_shard_box3d as f12
+    from crdmodel_tpu_torch.ops import fused_shard_box3d_rkc as f13
+    from crdmodel_tpu_torch.ops.fused_rkc import static_stage_tables
+    from crdmodel_tpu_torch.ops.kernel_common import make_shard_box_constants
+
+    rng = np.random.default_rng(seed)
+    worst12 = {torch.float32: 0.0, torch.float64: 0.0}
+    worst13 = {torch.float32: 0.0, torch.float64: 0.0}
+    for label, cfg, build_kw, shape, shards in cases:
+        mesh = shard_mesh(shape)
+        problem = build_problem(cfg, device="cuda", **build_kw)
+        y_np = random_state(cfg, tuple(problem.y0.shape), rng)
+        for dtype in (torch.float32, torch.float64):
+            bufs, consts = shard_inputs(problem, mesh, y_np, dtype, f12.HALO,
+                                        make_shard_box_constants)
+            mu1, ctab = static_stage_tables(f13.C_RKC, dtype, "cuda")
+            rho = problem_rho(problem, torch.tensor(y_np, dtype=dtype,
+                                                    device="cuda"))
+            h = torch.tensor(BOX_H, dtype=dtype, device="cuda")
+            for fz in (0.0, 1.0):
+                fzt = torch.tensor(fz, dtype=dtype, device="cuda")
+                for k in shards:
+                    fields = dict(case=label, model=cfg.model,
+                                  mesh=list(shape), shard=k,
+                                  mode=consts[k].kind,
+                                  shape=list(bufs[k].shape),
+                                  valid=[consts[k].valid_rows,
+                                         consts[k].valid_cols], fz=fz)
+                    for method in ("bs32", "dopri54"):
+                        args = (bufs[k], h, fzt, consts[k], TABLEAUS[method],
+                                cfg.rtol, cfg.atol)
+                        err = check_shard_pair(
+                            "k12_check", dict(fields, method=method),
+                            f12.fused_shard_box3d_step,
+                            f12.fused_shard_box3d_step_reference, args,
+                            dtype)
+                        worst12[dtype] = max(worst12[dtype], err)
+                    for s in K7_STAGES:
+                        hs, st = rkc_step_inputs(s, rho, dtype)
+                        args = (bufs[k], hs, fzt, st, mu1, ctab, consts[k],
+                                cfg.rtol, cfg.atol)
+                        err = check_shard_pair(
+                            "k13_check", dict(fields, s=s),
+                            f13.fused_shard_box3d_rkc_step,
+                            f13.fused_shard_box3d_rkc_step_reference, args,
+                            dtype)
+                        worst13[dtype] = max(worst13[dtype], err)
+            del bufs, consts
+        del problem
+    return worst12, worst13
+
+
+def shard_box_timings(cases, card):
+    """K12 (bs32) and K13 (each s of K7_TIMED_STAGES) on shard 0 of the
+    slab's 2x2 mesh, (2, 32, 272, 272), in each operator mode of `cases`
+    (box_modes), from the ICs, f32, unfrozen, with their plain versions
+    and bounds: the kernel's device time in a profiler trace (device_ms)
+    and the CUDA-event time of a burst beside it; and one step's exchange
+    of the four halo-padded 4-D buffers (halo_exchange_timing). Prints
+    phases k12_timing and k13_timing; returns {("k12", label, None) |
+    ("k13", label, s): (kernel ms, plain ms, bound ms, bound_by)}."""
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import fused_shard_box3d as f12
+    from crdmodel_tpu_torch.ops import fused_shard_box3d_rkc as f13
+    from crdmodel_tpu_torch.ops.fused_rkc import static_stage_tables
+    from crdmodel_tpu_torch.ops.kernel_common import make_shard_box_constants
+    from crdmodel_tpu_torch.parallel.halo import refresh_halos
+
+    timings = {}
+    dtype = torch.float32
+    zero = torch.zeros((), dtype=dtype, device="cuda")
+    mesh = shard_mesh(SHARD_MESH)
+    tab = TABLEAUS["bs32"]
+    n, burst_n = BOX_TIMED
+    for label, cfg, build_kw in cases:
+        problem = build_problem(cfg, "cuda", **build_kw)
+        bufs, consts = shard_inputs(problem, mesh, problem.y0.cpu().numpy(),
+                                    dtype, f12.HALO, make_shard_box_constants)
+        fields = dict(case=label, mode=consts[0].kind,
+                      shape=list(bufs[0].shape), halo=f12.HALO,
+                      dtype="float32", card=card)
+        args = (bufs[0], torch.tensor(BOX_H, device="cuda"), zero, consts[0],
+                tab, cfg.rtol, cfg.atol)
+        burst = median_ms(lambda: f12.fused_shard_box3d_step(*args), n,
+                          burst_n)
+        t12 = (device_ms(lambda: f12.fused_shard_box3d_step(*args),
+                         "fused_shard_box3d_kernel", n),
+               median_ms(lambda: f12.fused_shard_box3d_step_reference(*args),
+                         *BOX_PLAIN_TIMED),
+               *shard_bound(bufs[0], consts[0], erk_ops(consts[0], tab)))
+        timings["k12", label, None] = t12
+        phase("k12_timing", **fields, method="bs32", kernel_us=t12[0] * 1e3,
+              burst_us=burst * 1e3, plain_us=t12[1] * 1e3,
+              bound_us=t12[2] * 1e3, bound_by=t12[3])
+        mu1, ctab = static_stage_tables(f13.C_RKC, dtype, "cuda")
+        tables = sum(t.numel() * t.element_size() for t in (mu1, ctab))
+        rho = problem_rho(problem, problem.y0)
+        for s in K7_TIMED_STAGES:
+            hs, st = rkc_step_inputs(s, rho, dtype)
+            args = (bufs[0], hs, zero, st, mu1, ctab, consts[0], cfg.rtol,
+                    cfg.atol)
+            burst = median_ms(lambda: f13.fused_shard_box3d_rkc_step(*args),
+                              n, burst_n)
+            t13 = (device_ms(lambda: f13.fused_shard_box3d_rkc_step(*args),
+                             "fused_shard_box3d_rkc_kernel", n),
+                   median_ms(lambda: f13.fused_shard_box3d_rkc_step_reference(
+                       *args), *BOX_PLAIN_TIMED),
+                   *shard_bound(bufs[0], consts[0], rkc_ops(consts[0], s),
+                                tables))
+            timings["k13", label, s] = t13
+            phase("k13_timing", **fields, s=s, kernel_us=t13[0] * 1e3,
+                  burst_us=burst * 1e3, plain_us=t13[1] * 1e3,
+                  bound_us=t13[2] * 1e3, bound_by=t13[3])
+        if label == cases[0][0]:
+            ex = median_ms(lambda: refresh_halos(bufs, mesh, f12.HALO), n,
+                           burst_n)
+            phase("halo_exchange_timing", mesh=list(SHARD_MESH),
+                  shards_on="cuda:0", halo=f12.HALO,
+                  buffer=list(bufs[0].shape), exchange_us=ex * 1e3,
+                  copies=4 * len(bufs), card=card)
+        del problem, bufs, consts
+    return timings
+
+
+def selected_shard_kernel(cfg, build_kw, mesh):
+    """The name select_shard_kernel gives `cfg`'s run on `mesh` ("K12",
+    "K13", ..., or None for the torch path)."""
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.parallel.sharded import (mesh_pad_spec,
+                                                     select_shard_kernel,
+                                                     sharded_rho_bound)
+    problem = build_problem(cfg, "cuda", **build_kw)
+    pad = mesh_pad_spec(cfg, mesh)
+    rho_fn = (sharded_rho_bound(problem, mesh, pad)
+              if cfg.method == "rkc2" else None)
+    return select_shard_kernel(problem, mesh, pad, rho_fn)[0]
+
+
+def run_sharded_slab(name, cfg, build_kw, kernel, want, label, mesh, single,
+                     step_tol, scar=None):
+    """The slab `cfg` (built with `build_kw`) through simulate_sharded() on
+    `mesh` with the default selection, every kernel's launch count set to
+    0 just before and read just after: select_shard_kernel must name
+    `want` ("K12" or "K13") and every step go through `kernel`. Held to the
+    single-device K6 or K7 run of the same call, `single` (run_box_path's
+    keep): steps within step_tol, the final field within that run's own
+    distance to the torch path's f64 run plus 1e-4; with `scar` (the tissue
+    mask), the inert cells hold their IC bitwise at every output. Prints
+    phase `name`; returns the launches of `kernel`."""
+    selected = selected_shard_kernel(cfg, build_kw, mesh)
+    res, counts = drive_main_path(cfg, build_kw, mesh)
+    launches = counts[kernel.__name__]
+    checks = run_checks(cfg, res, kernel, launches, mesh.size)
+    checks[f"select_shard_kernel names {want}"] = selected == want
+    if scar is not None:
+        inert = torch.as_tensor(~scar, device=res.trajectory.device)
+        held = res.trajectory[:, :, inert]
+        checks["scar cells hold their IC bitwise"] = bool(
+            (held == held[:1]).all())
+        del held
+    final = res.trajectory[-1]
+    gap = float((final - single["final"].to(final.device)).abs().max())
+    limit = single["f64_gap"] + 1e-4
+    steps, wall = res.total_steps(), res.wall_time
+    points = cfg.nz * cfg.ny * cfg.nx
+    phase(name, config=label, selection=selection_note(cfg),
+          selected=selected, mesh=list(mesh.shape),
+          devices=[str(d) for d in mesh.device_list()],
+          grid=[cfg.nz, cfg.ny, cfg.nx], method=cfg.method, dtype=cfg.dtype,
+          status=res.describe(), steps=steps,
+          accepted=int(res.stats.accepted.sum()),
+          rejected=int(res.stats.rejected.sum()), kernel=kernel.__name__,
+          launches=counts, launch_bound=launch_bound(cfg, steps),
+          wall_s=wall, us_per_step=wall / steps * 1e6,
+          points_steps_per_s=points * steps / wall,
+          single_device=dict(steps=single["steps"], wall_s=single["wall_s"],
+                             f64_gap=single["f64_gap"]),
+          wall_vs_single_device=wall / single["wall_s"], step_limit=step_tol,
+          final_max_abs_vs_single_device=gap, final_limit=limit,
+          held_ic_bitwise=checks.get("scar cells hold their IC bitwise"),
+          card=card_line())
+    checks.update({
+        f"steps within {step_tol:.2%} of the single-device run":
+            abs(steps - single["steps"]) <= step_tol * single["steps"],
+        "final field vs the single-device run": gap <= limit,
+    })
+    fail_unless(name, checks)
+    return launches
+
+
+def sharded_slab_main_paths(cfg_box, singles):
+    """The volumetric slab through simulate_sharded() on a 2x2 mesh of
+    shards on cuda:0 and, with four cards or more, again (phases tagged
+    _4cards) with shard i on cuda:i: bs32 (main_path_sharded_slab, K12),
+    rkc2 (main_path_sharded_slab_rkc2, K13) and the scar column
+    (main_path_sharded_slab_scar, K12's tissue mode), each held to the
+    single-device run of `singles` (box_main_paths): steps within 1% (rkc2
+    within 2.78%, the JAX f32-f64 distance of the canonical rkc2 run).
+    Returns the 2x2 runs' launches of K12 and K13."""
+    from crdmodel_tpu_torch.ops import fused_shard_box3d, fused_shard_box3d_rkc
+    f12 = fused_shard_box3d.fused_shard_box3d_step
+    f13 = fused_shard_box3d_rkc.fused_shard_box3d_rkc_step
+    scar = box_scar(cfg_box)
+    meshes = [shard_mesh(SHARD_MESH)]
+    if torch.cuda.device_count() >= 4:
+        meshes.append(shard_mesh(SHARD_MESH, [f"cuda:{i}" for i in range(4)]))
+    launches = []
+    for i, mesh in enumerate(meshes):
+        tag = "" if i == 0 else "_4cards"
+        n12 = run_sharded_slab("main_path_sharded_slab" + tag, cfg_box, {},
+                               f12, "K12", BOX_LABEL + ", bs32", mesh,
+                               singles["bs32"], 0.01)
+        n13 = run_sharded_slab(
+            "main_path_sharded_slab_rkc2" + tag,
+            dataclasses.replace(cfg_box, method="rkc2"), {}, f13, "K13",
+            BOX_LABEL + ", rkc2", mesh, singles["rkc2"], 0.0278)
+        run_sharded_slab("main_path_sharded_slab_scar" + tag, cfg_box, scar,
+                         f12, "K12", BOX_LABEL + SCAR_LABEL, mesh,
+                         singles["scar"], 0.01, scar=scar["obstacle_mask"])
+        launches.append((n12, n13))
+    return launches[0]
+
+
+def shard_box_phases(cfg_box, singles, card):
+    """The sharded box's phases: K12 and K13 against their plain versions
+    (k12_check, k13_check) on the 2x2 shards of the slab in the four
+    operator modes of box_modes (each with a freeze; shards 0 and 3), on
+    fhn_box's 2x2 shards and on fhn_box's uneven 1x3 mesh (blocks of 86,
+    86 and 84 columns, mirror-pad cells); their timings in each mode
+    (k12_timing, k13_timing) and the exchange's; sharded_slab_main_paths.
+    Returns K12's and K13's entries of the kernels line."""
+    fhn = fhn_box(cfg_box)
+    cases = [(label, dataclasses.replace(c, t_boundary=0.1), kw,
+              SHARD_MESH, (0, 3))
+             for label, c, kw in box_modes(cfg_box)]
+    cases += [("fhn_beta_ramp_2x2", fhn, {}, SHARD_MESH, (0, 3)),
+              ("fhn_beta_ramp_uneven_1x3", fhn, {}, UNEVEN_MESH, (0, 1, 2))]
+    worst12, worst13 = check_shard_box_kernels(cases, SEED + 12)
+    timings = shard_box_timings(box_modes(cfg_box), card)
+    launches12, launches13 = sharded_slab_main_paths(cfg_box, singles)
+    return [
+        kernel_entry("fused_shard_box3d_step", "fused_shard_box3d.cu",
+                     "crdmodel_tpu/ops/pallas_shard_box3d.py:109",
+                     launches12, worst12,
+                     timings["k12", "noflux_slab", None]),
+        kernel_entry("fused_shard_box3d_rkc_step", "fused_shard_box3d_rkc.cu",
+                     "crdmodel_tpu/ops/pallas_shard_box3d_rkc.py:82",
+                     launches13, worst13,
+                     timings["k13", "noflux_slab", max(K7_TIMED_STAGES)])]
 
 
 def large_fhn_torus():
@@ -1362,10 +1667,11 @@ def shard_mesh(shape, devices=None):
     return make_mesh(shape=shape, devices=devices or ["cuda:0"] * n)
 
 
-def shard_inputs(problem, mesh, y_np, dtype, halo):
+def shard_inputs(problem, mesh, y_np, dtype, halo, constants=None):
     """A global state on the card split over `mesh` into halo-padded
     buffers, their halos exchanged (mirror-aware on a padded mesh), and
-    every shard's constants: (buffers, constants)."""
+    every shard's constants from `constants` (kernel_common.
+    make_shard_constants by default): (buffers, constants)."""
     from crdmodel_tpu_torch.ops.kernel_common import make_shard_constants
     from crdmodel_tpu_torch.parallel.halo import mirror_halo_pad
     from crdmodel_tpu_torch.parallel.sharded import mesh_pad_spec, split_state
@@ -1374,7 +1680,8 @@ def shard_inputs(problem, mesh, y_np, dtype, halo):
     y = torch.tensor(y_np, dtype=dtype, device="cuda")
     blocks = split_state(y, mesh, pad, problem.cfg)
     return (mirror_halo_pad(list(blocks), mesh, halo, pad),
-            make_shard_constants(problem, mesh, pad, halo, dtype))
+            (constants or make_shard_constants)(problem, mesh, pad, halo,
+                                                dtype))
 
 
 def check_shard_pair(name, fields, kernel, reference, args, dtype):
@@ -1463,9 +1770,10 @@ def check_shard_kernels(cases, seed):
 def shard_bound(yp, sc, ops_per_point, extra_bytes=0):
     """bound() of one shard kernel launch: the halo-padded buffer read
     once, the block of y_new written once, the shard's constants read once;
-    the operations of the block's points."""
+    the operations of the block's points (every plane's on the box)."""
     halo = sc.halo
-    block = yp.shape[0] * (yp.shape[1] - 2 * halo) * (yp.shape[2] - 2 * halo)
+    block = (int(np.prod(yp.shape[:-2])) * (yp.shape[-2] - 2 * halo)
+             * (yp.shape[-1] - 2 * halo))
     n_bytes = ((yp.numel() + block) * yp.element_size() + constant_bytes(sc)
                + extra_bytes)
     t_bytes = n_bytes / PEAK_BYTES_PER_S
@@ -2094,7 +2402,10 @@ def main():
           ptxas_fused_shard_rkc=ptxas_summary("fused_shard_rkc.cu"),
           ptxas_fused_imex=ptxas_summary("fused_imex.cu"),
           ptxas_fused_shard_imex=ptxas_summary("fused_shard_imex.cu"),
-          ptxas_fused_shard_divform=ptxas_summary("fused_shard_divform.cu"))
+          ptxas_fused_shard_divform=ptxas_summary("fused_shard_divform.cu"),
+          ptxas_fused_shard_box3d=ptxas_summary("fused_shard_box3d.cu"),
+          ptxas_fused_shard_box3d_rkc=ptxas_summary(
+              "fused_shard_box3d_rkc.cu"))
     cfg_ap, ap_build = bounded_tissue()
     cfg_ap_rkc = dataclasses.replace(cfg_ap, method="rkc2")
     cfg_wide = wide_sheet()
@@ -2129,6 +2440,13 @@ def main():
                     mesh=shard_mesh(SHARD_MESH))
         profile_run(large_goldbeter_torus(), {}, 0.2,
                     "fused_imex_tile_kernel", mesh=shard_mesh(SHARD_MESH))
+        profile_run(cfg_box, {}, tf, "fused_shard_box3d_kernel",
+                    mesh=shard_mesh(SHARD_MESH))
+        profile_run(dataclasses.replace(cfg_box, method="rkc2"), {}, tf,
+                    "fused_shard_box3d_rkc_kernel",
+                    mesh=shard_mesh(SHARD_MESH))
+        profile_run(cfg_box, box_scar(cfg_box), tf,
+                    "fused_shard_box3d_kernel", mesh=shard_mesh(SHARD_MESH))
         return
     cfg = config_from_ini(INI, model="fhn", surface="torus")
     fhn_label = "data/FHNmodelArgs.ini fhn torus"
@@ -2139,6 +2457,7 @@ def main():
         sharded_main_paths(cfg, probes, single_fhn)
         sharded_field_main_paths(programs, probes,
                                  single_field_runs(programs, probes))
+        sharded_slab_main_paths(cfg_box, box_main_paths(cfg_box)[2])
         return
     if sys.argv[1:]:
         sys.exit(f"unknown arguments {sys.argv[1:]}; see the docstring")
@@ -2287,9 +2606,10 @@ def main():
                                    aniso_build["diffusion_tensor"]),
         keep=singles["aniso"])
 
-    box_entries = box_phases(cfg_box, card)
+    box_entries, box_singles = box_phases(cfg_box, card)
     shard_entries = shard_phases(cfg, probes, single_fhn, card)
     field_entries = shard_field_phases(cfg, programs, probes, singles, card)
+    shard_box_entries = shard_box_phases(cfg_box, box_singles, card)
 
     k2_s = max(timing2)     # the stability-bound step: the larger time
     k3_shape = (2, cfg_gb.ny, cfg_gb.nx)    # the ark324 main path's shape
@@ -2312,7 +2632,8 @@ def main():
         kernel_entry("fused_aniso_step", "fused_aniso.cu",
                      "crdmodel_tpu/ops/pallas_aniso.py:82", launches5,
                      worst5, k5_timing),
-        *box_entries, *shard_entries, *field_entries]}))
+        *box_entries, *shard_entries, *field_entries,
+        *shard_box_entries]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

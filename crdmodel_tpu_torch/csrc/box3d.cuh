@@ -1,17 +1,25 @@
 // The 3-D box's operator and the grid-wide scheme of the port's box kernels
-// (K6 fused_box3d.cu, K7 fused_box3d_rkc.cu).
+// (K6 fused_box3d.cu, K7 fused_box3d_rkc.cu, and on one shard of a mesh K12
+// fused_shard_box3d.cu, K13 fused_shard_box3d_rkc.cu).
 //
-// The state is (2, nz, ny, nx), contiguous; x and y wrap, and z is clamped:
-// the planes above the top and below the bottom read the top and bottom
-// planes, which is exact because the kernels take only closed z walls
-// (ops/kernel_common.py::box_mode), where the coefficients across the z
-// seam are zero. The operator on variable 0 comes in four modes (BoxMode),
-// a template parameter of each kernel, as the kinetics family is:
+// The state is (2, nz, ny, nx), contiguous. z is clamped: the planes above
+// the top and below the bottom read the top and bottom planes, which is
+// exact because the kernels take only closed z walls (ops/kernel_common.py::
+// box_mode), where the coefficients across the z seam are zero. How x and y
+// find their neighbours is a grid policy, a template parameter of the
+// operator: BoxWrap (K6, K7) wraps them periodically on the whole box;
+// BoxHalo (K12, K13) reads them from a shard's halo-padded buffer, (nz,
+// nyl + 2 halo, nxl + 2 halo), whose halo the mesh's exchange filled, and
+// wraps nothing. A shard kernel indexes every constant by the buffer's
+// (k, j, i): its profiles, rows and fields are halo-padded the same way.
+// The operator on variable 0 comes in four modes (BoxMode), a template
+// parameter of each kernel, as the kinetics family is:
 //   profile  aE, aW (nx,), aN, aS (ny,), aU, aD (nz,): constant D with walls
 //   tissue   the profiles, each face times t * t_neighbour of the (nz, ny,
 //            nx) 0/1 tissue field (exact), and ydot times t
 //   field    aE, aN, aU as (nz, ny, nx) fields; aW is aE at i-1, aS is aN at
-//            j-1 (wrapped), aD is aU at k-1 and 0 at k = 0
+//            j-1 (the grid policy's neighbour), aD is aU at k-1 and 0 at
+//            k = 0
 //   tensor   field's faces plus Dxy, Dxz, Dyz (nz, ny, nx) and the weights
 //            invs = (1/(4 dx dy), 1/(4 dx dz), 1/(4 dy dz)): 19 points
 // The expressions follow the plain version (ops/kernel_common.py::
@@ -61,14 +69,39 @@ struct BoxConstants {
   }
 };
 
+// The grid policies: next(i, n) and prev(i, n), the neighbours of index i
+// along an in-plane axis of extent n (x with nx, y with ny).
+//
+// BoxWrap: the whole periodic box of K6 and K7.
+struct BoxWrap {
+  __device__ static __forceinline__ int next(int i, int n) {
+    return i == n - 1 ? 0 : i + 1;
+  }
+  __device__ static __forceinline__ int prev(int i, int n) {
+    return i == 0 ? n - 1 : i - 1;
+  }
+};
+
+// BoxHalo: one shard's halo-padded buffer (K12, K13). The kernels evaluate
+// points at most halo - 1 rings outside the block, so every neighbour lies
+// in the buffer; the clamp at its edge only keeps a stray index inside it.
+struct BoxHalo {
+  __device__ static __forceinline__ int next(int i, int n) {
+    return min(i + 1, n - 1);
+  }
+  __device__ static __forceinline__ int prev(int i, int n) {
+    return max(i - 1, 0);
+  }
+};
+
 // The operator at point (k, j, i), flat index g, of variable 0 held in su.
-template <int Mode, typename T>
+template <int Mode, class Grid, typename T>
 __device__ __forceinline__ T box_lap(const BoxConstants<T>& c, const T* su,
                                      int k, int j, int i, size_t g) {
-  const int iE = i == c.nx - 1 ? 0 : i + 1;
-  const int iW = i == 0 ? c.nx - 1 : i - 1;
-  const int jN = j == c.ny - 1 ? 0 : j + 1;
-  const int jS = j == 0 ? c.ny - 1 : j - 1;
+  const int iE = Grid::next(i, c.nx);
+  const int iW = Grid::prev(i, c.nx);
+  const int jN = Grid::next(j, c.ny);
+  const int jS = Grid::prev(j, c.ny);
   const int kU = k == c.nz - 1 ? k : k + 1;
   const int kD = k == 0 ? 0 : k - 1;
   const T u = su[g];
@@ -133,18 +166,15 @@ __device__ __forceinline__ T box_lap(const BoxConstants<T>& c, const T* su,
   return lap;
 }
 
-// ydot = f(u, v) at flat index g: the kinetics plus the operator on
-// variable 0, times live with a freeze, times the tissue field with an
-// obstacle.
-template <int Mode, int Kin, typename T>
-__device__ __forceinline__ void box_rhs(const BoxConstants<T>& c, T fz,
-                                        const T* su, const T* sv, size_t g,
-                                        T& du_out, T& dv_out) {
-  const int i = static_cast<int>(g % c.nx);
-  const size_t row = g / c.nx;
-  const int j = static_cast<int>(row % c.ny);
-  const int k = static_cast<int>(row / c.ny);
-  const T lap = box_lap<Mode>(c, su, k, j, i, g);
+// ydot = f(u, v) at point (k, j, i), flat index g: the kinetics plus the
+// operator on variable 0, times live with a freeze, times the tissue field
+// with an obstacle.
+template <int Mode, int Kin, class Grid, typename T>
+__device__ __forceinline__ void box_rhs_at(const BoxConstants<T>& c, T fz,
+                                           const T* su, const T* sv, int k,
+                                           int j, int i, size_t g,
+                                           T& du_out, T& dv_out) {
+  const T lap = box_lap<Mode, Grid>(c, su, k, j, i, g);
   T du, dv;
   kinetics<Kin>(su[g], sv[g], beta_at(c.k, j), du, dv);
   du = du + lap;
@@ -160,6 +190,72 @@ __device__ __forceinline__ void box_rhs(const BoxConstants<T>& c, T fz,
   }
   du_out = du;
   dv_out = dv;
+}
+
+// box_rhs_at on the whole periodic box (K6, K7) at flat index g.
+template <int Mode, int Kin, typename T>
+__device__ __forceinline__ void box_rhs(const BoxConstants<T>& c, T fz,
+                                        const T* su, const T* sv, size_t g,
+                                        T& du_out, T& dv_out) {
+  const int i = static_cast<int>(g % c.nx);
+  const size_t row = g / c.nx;
+  const int j = static_cast<int>(row % c.ny);
+  const int k = static_cast<int>(row / c.ny);
+  box_rhs_at<Mode, Kin, BoxWrap>(c, fz, su, sv, k, j, i, g, du_out, dv_out);
+}
+
+// One shard's block inside its halo-padded buffer (K12, K13): the buffer is
+// (nz, nyl + 2 halo, nxl + 2 halo), the block at [halo, halo + nyl) x
+// [halo, halo + nxl) of every plane; on a padded mesh only its first
+// valid_rows x valid_cols cells are physical, the others mirror-pad cells
+// that step like their sources and stay out of the error sum.
+struct BoxShard {
+  int halo;
+  int nyl;
+  int nxl;
+  int valid_rows;
+  int valid_cols;
+
+  __device__ __forceinline__ bool counted(int j, int i) const {
+    return j - halo < valid_rows && i - halo < valid_cols;
+  }
+};
+
+// The block and the r rings around it, every plane: size() points, the
+// q-th at (k, j, i) of the buffer, plane by plane and row by row.
+struct BoxRing {
+  int nz;
+  int rows;
+  int cols;
+  int first;     // the first row and column: halo - r
+
+  __device__ __forceinline__ BoxRing(const BoxShard& s, int nz_, int r)
+      : nz(nz_), rows(s.nyl + 2 * r), cols(s.nxl + 2 * r),
+        first(s.halo - r) {}
+  __device__ __forceinline__ size_t size() const {
+    return static_cast<size_t>(nz) * rows * cols;
+  }
+  __device__ __forceinline__ void point(size_t q, int& k, int& j,
+                                        int& i) const {
+    i = first + static_cast<int>(q % cols);
+    const size_t row = q / cols;
+    j = first + static_cast<int>(row % rows);
+    k = static_cast<int>(row / rows);
+  }
+};
+
+// The BoxShard of a shard launcher's arguments, whose buffer is (nz, ny,
+// nx); false unless it holds a block at least `halo` deep, `depth` <=
+// halo rings the kernel reads, and a physical extent inside the block.
+inline bool make_box_shard(int ny, int nx, int halo, int depth,
+                           int valid_rows, int valid_cols, BoxShard* out) {
+  const int nyl = ny - 2 * halo, nxl = nx - 2 * halo;
+  if (depth < 1 || halo < depth || nyl < halo || nxl < halo
+      || valid_rows < 0 || valid_rows > nyl || valid_cols < 0
+      || valid_cols > nxl)
+    return false;
+  *out = BoxShard{halo, nyl, nxl, valid_rows, valid_cols};
+  return true;
 }
 
 // The constants of the launchers' common arguments; false when they are

@@ -1,0 +1,193 @@
+// Fused embedded-ERK step on one shard of the 3-D box, with FitzHugh-Nagumo,
+// Goldbeter or Aliev-Panfilov kinetics, in the box operator's four modes
+// (kernel K12 of the port).
+//
+// Replaces crdmodel_tpu/ops/pallas_shard_box3d.py::build_fused_shard_box3d,
+// the Pallas TPU kernel that takes every attempted step of a sharded ERK
+// run on a box (the JAX package's pod-scale volumetric path). It is K6
+// (fused_box3d.cu) on one shard of a mesh that splits y and x and keeps z:
+// one exchange of width halo >= n_stages a step (parallel/halo.py::
+// refresh_halos) fills the (y, x) halo of the shard's (2, nz, nyl + 2 halo,
+// nxl + 2 halo) buffer, and one launch computes every stage, y_new on the
+// block and one partial sum of squared WRMS-scaled errors per thread block
+// over the PHYSICAL cells, in a fixed order, so two launches give bitwise
+// equal results. The caller adds every shard's partials in a fixed order,
+// so every shard takes the same accept/reject decision.
+//
+// The stage ladder: y_new on the block needs every k_s there; k_s on the
+// block and r rings around it needs its stage input on r + 1 rings, which
+// needs k_j (j < s) there. So k_s runs on n_stages - 1 - s rings, its
+// input on one more, and k_0 reads y on n_stages <= halo rings: the
+// exchange's. Each stage walks only its ring region, and the operator reads
+// its neighbours and the shard's halo-padded constants through the BoxHalo
+// policy (box3d.cuh): no index wraps; a read across the shard edge meets
+// the neighbour shard's value, which the exchange (the state) or the
+// once-a-run halo padding (the constants, ops/kernel_common.py::
+// make_shard_box_constants) put there. On a padded mesh, mirror-pad cells
+// step like their sources and stay out of the sum (BoxShard::counted).
+// Only the block of y_new is written; its halo is the next exchange's.
+//
+// What bounds it on an H100: as K6, the buffer read once and y_new's block
+// written once, 2 x 32 x 272 x 272 plus 2 x 32 x 256 x 256 values at the
+// sharded slab's shard (36 MB in f32, some 11 us at 3.35 TB/s), plus the
+// constants once; the arithmetic stays far below the card's rate.
+//
+// Design: K6's persistent cooperative launch (box3d.cuh), the stage values
+// in device memory, a grid barrier between stages, on the halo-padded
+// buffer's layout; the rings cost (nxl + 2r)(nyl + 2r) / (nxl nyl) of the
+// block's work, about 1.1x at the slab's 256 x 256 shard. The TPU kernel's
+// z-streaming plane rings, row strips and DMA semaphores have no place
+// here. No tensor cores, TMA or shared-memory z pipeline yet.
+
+#include <cuda_runtime.h>
+
+#include "box3d.cuh"
+#include "erk_tile.cuh"
+
+namespace {
+
+using crd::BoxConstants;
+using crd::BoxHalo;
+using crd::BoxRing;
+using crd::BoxShard;
+using crd::StageTable;
+using crd::kBoxThreads;
+
+template <int Mode, int Kin, typename T>
+__global__ void __launch_bounds__(kBoxThreads) fused_shard_box3d_kernel(
+    const T* __restrict__ y, T* __restrict__ y_new, T* __restrict__ ss,
+    T* work, const T* __restrict__ h_ptr, const T* __restrict__ fz_ptr,
+    BoxConstants<T> c, StageTable tab, BoxShard sh, T rtol, T atol) {
+  __shared__ T warp_sums[kBoxThreads / 32];
+  crd::cg::grid_group grid = crd::cg::this_grid();
+  const size_t n = static_cast<size_t>(c.nz) * c.ny * c.nx;   // the buffer
+  const size_t first = static_cast<size_t>(blockIdx.x) * blockDim.x
+                       + threadIdx.x;
+  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
+  const T h = *h_ptr;
+  const T fz = *fz_ptr;
+  T* yi = work;                 // the current stage input, both variables
+  T* ks = work + 2 * n;         // stage s: u at ks + 2sn, v after
+
+  for (int s = 0; s < tab.n; ++s) {
+    const int rings = tab.n - 1 - s;     // k_s's
+    const T* arg = y;
+    if (s > 0) {
+      const BoxRing in(sh, c.nz, rings + 1);
+      for (size_t q = first; q < in.size(); q += stride) {
+        int k, j, i;
+        in.point(q, k, j, i);
+        const size_t g = c.at(k, j, i);
+        T u = y[g], v = y[n + g];
+        for (int p = 0; p < s; ++p) {
+          if (tab.a[s][p] != 0.0) {
+            const T ha = h * static_cast<T>(tab.a[s][p]);
+            u = u + ha * ks[2 * p * n + g];
+            v = v + ha * ks[(2 * p + 1) * n + g];
+          }
+        }
+        yi[g] = u;
+        yi[n + g] = v;
+      }
+      grid.sync();
+      arg = yi;
+    }
+    T* ku = ks + 2 * s * n;
+    const BoxRing out(sh, c.nz, rings);
+    for (size_t q = first; q < out.size(); q += stride) {
+      int k, j, i;
+      out.point(q, k, j, i);
+      const size_t g = c.at(k, j, i);
+      crd::box_rhs_at<Mode, Kin, BoxHalo>(c, fz, arg, arg + n, k, j, i, g,
+                                          ku[g], ku[n + g]);
+    }
+    grid.sync();
+  }
+
+  // y_new on the block, the error on its physical cells; WRMS weights from
+  // the step's start
+  T acc = T(0);
+  const BoxRing block(sh, c.nz, 0);
+  for (size_t q = first; q < block.size(); q += stride) {
+    int k, j, i;
+    block.point(q, k, j, i);
+    const size_t g = c.at(k, j, i);
+    const T u0 = y[g], v0 = y[n + g];
+    T nu = u0, nv = v0, eu = T(0), ev = T(0);
+    for (int s = 0; s < tab.n; ++s) {
+      const T* ku = ks + 2 * s * n;
+      if (tab.b[s] != 0.0) {
+        const T hb = h * static_cast<T>(tab.b[s]);
+        nu = nu + hb * ku[g];
+        nv = nv + hb * ku[n + g];
+      }
+      if (tab.d[s] != 0.0) {
+        const T hd = h * static_cast<T>(tab.d[s]);
+        eu = eu + hd * ku[g];
+        ev = ev + hd * ku[n + g];
+      }
+    }
+    y_new[g] = nu;
+    y_new[n + g] = nv;
+    if (sh.counted(j, i)) {
+      const T wu = eu * (T(1) / (rtol * fabs(u0) + atol));
+      const T wv = ev * (T(1) / (rtol * fabs(v0) + atol));
+      acc = acc + wu * wu;
+      acc = acc + wv * wv;
+    }
+  }
+  crd::store_block_sum<T, kBoxThreads>(acc, warp_sums, ss);
+}
+
+template <typename T>
+int launch(const void* y, void* y_new, void* ss, int capacity,
+           int* n_blocks, void* work, const void* h, const void* fz,
+           int n_stages, const double* a, const double* b, const double* d,
+           int halo, int valid_rows, int valid_cols,
+           CRD_BOX_OPERATOR_ARGS) {
+  StageTable tab;
+  BoxConstants<T> c;
+  BoxShard sh;
+  const void* const coeffs[6] = {c0, c1, c2, c3, c4, c5};
+  if (n_stages < 2 || !crd::make_stage_table(n_stages, a, b, d, &tab)
+      || !crd::make_box_shard(ny, nx, halo, n_stages, valid_rows,
+                              valid_cols, &sh)
+      || !crd::make_box_constants<T>(coeffs, tissue, invs, mode, beta,
+                                     beta_field, mask, has_freeze, nz, ny,
+                                     nx, &c))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const T* y_arg = static_cast<const T*>(y);
+  T* ynew_arg = static_cast<T*>(y_new);
+  T* ss_arg = static_cast<T*>(ss);
+  T* work_arg = static_cast<T*>(work);
+  const T* h_arg = static_cast<const T*>(h);
+  const T* fz_arg = static_cast<const T*>(fz);
+  T rtol_arg = static_cast<T>(rtol), atol_arg = static_cast<T>(atol);
+  void* args[] = {&y_arg, &ynew_arg, &ss_arg, &work_arg, &h_arg, &fz_arg,
+                  &c, &tab, &sh, &rtol_arg, &atol_arg};
+  const size_t n_points = static_cast<size_t>(nz) * ny * nx;
+  return crd::dispatch_box(mode, kinetics, [&](auto m, auto k) {
+    return crd::launch_cooperative(
+        &fused_shard_box3d_kernel<decltype(m)::value, decltype(k)::value, T>,
+        n_points, capacity, n_blocks, args, stream);
+  });
+}
+
+}  // namespace
+
+#define CRD_FUSED_SHARD_BOX3D_ARGS                                           \
+  const void *y, void *y_new, void *ss, int capacity, int *n_blocks,        \
+      void *work, const void *h, const void *fz, int n_stages,              \
+      const double *a, const double *b, const double *d, int halo,          \
+      int valid_rows, int valid_cols, CRD_BOX_OPERATOR_ARGS
+#define CRD_FUSED_SHARD_BOX3D_PASS                                           \
+  y, y_new, ss, capacity, n_blocks, work, h, fz, n_stages, a, b, d, halo,   \
+      valid_rows, valid_cols, CRD_BOX_OPERATOR_PASS
+
+extern "C" int crd_fused_shard_box3d_step_f32(CRD_FUSED_SHARD_BOX3D_ARGS) {
+  return launch<float>(CRD_FUSED_SHARD_BOX3D_PASS);
+}
+
+extern "C" int crd_fused_shard_box3d_step_f64(CRD_FUSED_SHARD_BOX3D_ARGS) {
+  return launch<double>(CRD_FUSED_SHARD_BOX3D_PASS);
+}

@@ -40,7 +40,8 @@ _INTP = ctypes.POINTER(ctypes.c_int)
 # C signature of each exported launcher (csrc/fused_step.cu, fused_rkc.cu,
 # fused_imex.cu, fused_divform.cu, fused_aniso.cu, fused_box3d.cu,
 # fused_box3d_rkc.cu, fused_shard_step.cu, fused_shard_rkc.cu,
-# fused_shard_imex.cu, fused_shard_divform.cu)
+# fused_shard_imex.cu, fused_shard_divform.cu, fused_shard_box3d.cu,
+# fused_shard_box3d_rkc.cu)
 _FUSED_STEP_ARGTYPES = ([_VOIDP] * 8 + [_INT, _VOIDP, _INT, _VOIDP]
                         + [_INT] * 7 + [_DOUBLEP] * 3
                         + [_DOUBLE, _DOUBLE, _VOIDP])
@@ -62,6 +63,12 @@ _BOX_OPERATOR = ([_VOIDP] * 8 + [_INT, _VOIDP, _INT, _VOIDP] + [_INT] * 5
 _BOX_HEAD = [_VOIDP] * 3 + [_INT, _INTP] + [_VOIDP] * 3
 _FUSED_BOX3D_ARGTYPES = _BOX_HEAD + [_INT] + [_DOUBLEP] * 3 + _BOX_OPERATOR
 _FUSED_BOX3D_RKC_ARGTYPES = _BOX_HEAD + [_VOIDP] * 3 + [_INT] + _BOX_OPERATOR
+# the shard box launchers: K6's and K7's arguments, then the halo and the
+# physical extent (valid_rows, valid_cols) before the operator's
+_FUSED_SHARD_BOX3D_ARGTYPES = (_BOX_HEAD + [_INT] + [_DOUBLEP] * 3
+                               + [_INT] * 3 + _BOX_OPERATOR)
+_FUSED_SHARD_BOX3D_RKC_ARGTYPES = (_BOX_HEAD + [_VOIDP] * 3 + [_INT] * 4
+                                   + _BOX_OPERATOR)
 _FUSED_SHARD_STEP_ARGTYPES = ([_VOIDP] * 8 + [_INT, _VOIDP, _INT, _VOIDP]
                               + [_INT] * 10 + [_DOUBLEP] * 3
                               + [_DOUBLE, _DOUBLE, _VOIDP])
@@ -98,6 +105,10 @@ SIGNATURES = {
     "crd_fused_shard_imex_step_f64": _FUSED_SHARD_IMEX_ARGTYPES,
     "crd_fused_shard_divform_step_f32": _FUSED_SHARD_DIVFORM_ARGTYPES,
     "crd_fused_shard_divform_step_f64": _FUSED_SHARD_DIVFORM_ARGTYPES,
+    "crd_fused_shard_box3d_step_f32": _FUSED_SHARD_BOX3D_ARGTYPES,
+    "crd_fused_shard_box3d_step_f64": _FUSED_SHARD_BOX3D_ARGTYPES,
+    "crd_fused_shard_box3d_rkc_step_f32": _FUSED_SHARD_BOX3D_RKC_ARGTYPES,
+    "crd_fused_shard_box3d_rkc_step_f64": _FUSED_SHARD_BOX3D_RKC_ARGTYPES,
 }
 
 

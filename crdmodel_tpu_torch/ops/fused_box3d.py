@@ -114,12 +114,15 @@ fused_box3d_step.launches = 0
 def launch_box3d(symbol, y, h, fz, bc: KernelConstants, work_states: int,
                  step_args, rtol: float, atol: float):
     """Launch one step of a box kernel of the built library (K6
-    `crd_fused_box3d_step`, K7 `crd_fused_box3d_rkc_step`; csrc/box3d.cuh):
-    the launcher `symbol`_f32 or _f64 with scratch for `work_states` states
-    and the kernel's own arguments `step_args` after the operator. Checks
-    every input first and raises on what the kernel does not take, and on
-    a launch error. Returns (y_new (2, nz, ny, nx), ss partials
-    (n_blocks,))."""
+    `crd_fused_box3d_step`, K7 `crd_fused_box3d_rkc_step`, and on a
+    shard's halo-padded buffer K12 `crd_fused_shard_box3d_step` and K13
+    `crd_fused_shard_box3d_rkc_step`; csrc/box3d.cuh): the launcher
+    `symbol`_f32 or _f64 with scratch for `work_states` states of y's shape
+    and the kernel's own arguments `step_args` before the operator's. The
+    constants' shapes follow y's (nz, ny, nx): a shard's are halo-padded
+    like its buffer. Checks every input first and raises on what the
+    kernel does not take, and on a launch error. Returns (y_new (2, nz, ny,
+    nx), ss partials (n_blocks,))."""
     dtype, device = y.dtype, y.device
     if device.type != "cuda":
         raise ValueError(f"no box kernel for device {device}")

@@ -52,21 +52,18 @@ from crdmodel_tpu_torch.ops.fused_step import (MAX_STAGES, _stage_arrays,
                                                erk_stages_reference,
                                                tile_plan)
 from crdmodel_tpu_torch.ops.fused_shard_step import (HALO, FusedShardStep,
+                                                     build_shard_stepper,
                                                      interior,
-                                                     masked_error_sum,
-                                                     shard_buffers)
+                                                     masked_error_sum)
 from crdmodel_tpu_torch.ops.kernel_common import (ShardDivformConstants,
                                                   check_tensor,
                                                   face_coeffs64,
-                                                  freeze_scalar,
                                                   fused_forcing,
                                                   kernel_ready_kinetics,
                                                   make_shard_divform_constants,
                                                   make_shard_divform_rhs_block,
                                                   needs_divform,
                                                   south_is_rolled_north)
-from crdmodel_tpu_torch.parallel.halo import refresh_halos
-from crdmodel_tpu_torch.parallel.shards import Shards
 
 # the kernel's operator modes (csrc/fused_shard_divform.cu)
 MODES = {"shard_divform": 0, "shard_aniso": 1}
@@ -207,28 +204,12 @@ def build_fused_shard_divform(problem, tableau: Tableau, mesh, pad_spec=None,
     """step_err(t, yp, h, params) -> (y_new, err_ss) of `problem` on `mesh`
     (crdmodel_tpu/ops/pallas_shard_divform.py:139): the coefficient stack
     halo-padded once here, then a step refreshes every shard's halo and
-    launches once a shard under its device; err_ss is the Shards of
-    per-shard sums for the adaptive loop's reduce_fn."""
+    launches once a shard under its device (build_shard_stepper)."""
     cfg = problem.cfg
-    dtype = problem.y0.dtype
     consts = make_shard_divform_constants(problem, mesh, pad_spec, HALO,
-                                          dtype, aniso=aniso)
+                                          problem.y0.dtype, aniso=aniso)
     rtol, atol = float(cfg.rtol), float(cfg.atol)
-    t_boundary = float(cfg.t_boundary)
-    pad, unpad = shard_buffers(HALO)
-
-    def step_err(t, yp, h, params):
-        bufs = refresh_halos(list(yp), mesh, HALO, pad_spec)
-        fz = freeze_scalar(params, consts[0].has_freeze, t_boundary, dtype)
-        h = h.to(dtype)
-        out, sums = [], []
-        for buf, sc in zip(bufs, consts):
-            y_new, ss = fused_shard_divform_step(
-                buf, h.to(buf.device), fz.to(buf.device), sc, tableau, rtol,
-                atol)
-            out.append(y_new)
-            sums.append(torch.sum(ss))
-        return Shards(out), Shards(sums)
-
-    return FusedShardStep(step_err=step_err, pad=pad, unpad=unpad,
-                          constants=consts)
+    return build_shard_stepper(
+        problem, mesh, pad_spec, consts,
+        lambda buf, h, fz, sc: fused_shard_divform_step(buf, h, fz, sc,
+                                                        tableau, rtol, atol))

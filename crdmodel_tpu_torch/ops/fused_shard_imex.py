@@ -37,17 +37,15 @@ from crdmodel_tpu_torch.ops.fused_imex import (_table, imex_error_sum,
                                                imex_stages_reference,
                                                tile_plan)
 from crdmodel_tpu_torch.ops.fused_shard_step import (FusedShardStep,
+                                                     build_shard_stepper,
                                                      check_shard_constants,
-                                                     interior, shard_buffers)
+                                                     interior)
 from crdmodel_tpu_torch.ops.kernel_common import (ShardConstants,
                                                   check_tensor,
-                                                  freeze_scalar,
                                                   fused_forcing,
                                                   kernel_ready_kinetics,
                                                   make_shard_constants,
                                                   needs_divform)
-from crdmodel_tpu_torch.parallel.halo import refresh_halos
-from crdmodel_tpu_torch.parallel.shards import Shards
 
 HALO = 8      # the exchange's width (crdmodel_tpu/ops/pallas_step.py HALO)
 
@@ -151,28 +149,12 @@ fused_shard_imex_step.launches = 0
 def build_fused_shard_imex(problem, mesh, pad_spec=None) -> FusedShardStep:
     """step_err(t, yp, h, params) -> (y_new, err_ss) of `problem` on `mesh`
     (crdmodel_tpu/ops/pallas_shard_imex.py:57): refresh every shard's halo,
-    then one launch a shard under its device; err_ss is the Shards of
-    per-shard sums for the adaptive loop's reduce_fn. t is unused (the
-    kinetics are autonomous)."""
+    then one launch a shard under its device (build_shard_stepper)."""
     cfg = problem.cfg
-    dtype = problem.y0.dtype
-    consts = make_shard_constants(problem, mesh, pad_spec, HALO, dtype)
+    consts = make_shard_constants(problem, mesh, pad_spec, HALO,
+                                  problem.y0.dtype)
     rtol, atol = float(cfg.rtol), float(cfg.atol)
-    t_boundary = float(cfg.t_boundary)
-    pad, unpad = shard_buffers(HALO)
-
-    def step_err(t, yp, h, params):
-        bufs = refresh_halos(list(yp), mesh, HALO, pad_spec)
-        fz = freeze_scalar(params, consts[0].has_freeze, t_boundary, dtype)
-        h = h.to(dtype)
-        out, sums = [], []
-        for buf, sc in zip(bufs, consts):
-            y_new, ss = fused_shard_imex_step(buf, h.to(buf.device),
-                                              fz.to(buf.device), sc, rtol,
-                                              atol)
-            out.append(y_new)
-            sums.append(torch.sum(ss))
-        return Shards(out), Shards(sums)
-
-    return FusedShardStep(step_err=step_err, pad=pad, unpad=unpad,
-                          constants=consts)
+    return build_shard_stepper(
+        problem, mesh, pad_spec, consts,
+        lambda buf, h, fz, sc: fused_shard_imex_step(buf, h, fz, sc, rtol,
+                                                     atol))

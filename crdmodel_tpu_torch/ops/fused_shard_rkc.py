@@ -169,32 +169,48 @@ def build_fused_shard_rkc(problem, mesh, rho_fn,
     """The fused RKC2 step of `problem` on `mesh`
     (crdmodel_tpu/ops/pallas_shard_rkc.py:86): rho_fn(t, y, params) must
     max-reduce across the shards (make_rho_bound's max_reduce) and takes
-    the Shards of blocks; s = min(choose_stages(h, rho), S_MAX_KERNEL) is
-    chosen on the control device and copied to each shard's."""
+    the Shards of blocks; build_shard_rkc_stepper with s_cap
+    S_MAX_KERNEL."""
+    cfg = problem.cfg
+    consts = make_shard_constants(problem, mesh, pad_spec, P_RKC,
+                                  problem.y0.dtype)
+    rtol, atol = float(cfg.rtol), float(cfg.atol)
+    return build_shard_rkc_stepper(
+        problem, mesh, rho_fn, pad_spec, consts, S_MAX_KERNEL,
+        lambda buf, h, fz, s, mu1, ctab, sc: fused_shard_rkc_step(
+            buf, h, fz, s, mu1, ctab, sc, rtol, atol))
+
+
+def build_shard_rkc_stepper(problem, mesh, rho_fn, pad_spec, consts,
+                            s_cap: int, step) -> FusedShardRKC:
+    """The FusedShardRKC of an RKC2 shard kernel (K9, K13): s =
+    min(choose_stages(h, rho), s_cap) is chosen on the control device from
+    the max-reduced rho_fn (required: every shard must run the same s),
+    then step_err refreshes every shard's halo (the width of consts' halo)
+    and calls step(buf, h, fz, s, mu1_tab, ctab_tab, sc) -> (y_new, ss
+    partials) on each shard, with h, fz, s and the stage tables of s_cap
+    on the shard's device; h_limit is the largest h that s_cap stages
+    stabilize, STAB_FACTOR (s_cap - 1)^2 / rho."""
     if rho_fn is None:
         raise ValueError("the sharded fused RKC needs a max-reduced rho_fn")
-    cfg = problem.cfg
     dtype = problem.y0.dtype
-    consts = make_shard_constants(problem, mesh, pad_spec, P_RKC, dtype)
-    rtol, atol = float(cfg.rtol), float(cfg.atol)
-    t_boundary = float(cfg.t_boundary)
-    s_cap = S_MAX_KERNEL
+    halo = consts[0].halo
+    t_boundary = float(problem.cfg.t_boundary)
     tables = {d: static_stage_tables(s_cap, dtype, d)
               for d in dict.fromkeys(mesh.device_list())}
-    pad, unpad = shard_buffers(P_RKC)
+    pad, unpad = shard_buffers(halo)
 
     def step_err(t, yp, h, params, carry=()):
         rho = rho_fn(t, unpad(yp), params).to(dtype)
         s = torch.clamp_max(rkc.choose_stages(h, rho), s_cap)
-        bufs = refresh_halos(list(yp), mesh, P_RKC, pad_spec)
+        bufs = refresh_halos(list(yp), mesh, halo, pad_spec)
         fz = freeze_scalar(params, consts[0].has_freeze, t_boundary, dtype)
         h = h.to(dtype)
         out, sums = [], []
         for buf, sc in zip(bufs, consts):
             dev = buf.device
-            y_new, ss = fused_shard_rkc_step(buf, h.to(dev), fz.to(dev),
-                                             s.to(dev), *tables[dev], sc,
-                                             rtol, atol)
+            y_new, ss = step(buf, h.to(dev), fz.to(dev), s.to(dev),
+                             *tables[dev], sc)
             out.append(y_new)
             sums.append(torch.sum(ss))
         return Shards(out), Shards(sums), ()

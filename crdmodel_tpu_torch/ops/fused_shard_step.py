@@ -192,32 +192,45 @@ def shard_buffers(halo: int):
     return pad, unpad
 
 
-def build_fused_shard_step(problem, tableau: Tableau, mesh,
-                           pad_spec=None) -> FusedShardStep:
-    """step_err(t, yp, h, params) -> (y_new, err_ss) of `problem` on `mesh`
-    (crdmodel_tpu/ops/pallas_shard_step.py:105): refresh every shard's
-    halo, then one launch a shard; err_ss is the Shards of per-shard sums
-    for the adaptive loop's reduce_fn. h and the freeze scalar come from the
-    control device and are copied to each shard's device."""
-    cfg = problem.cfg
+def build_shard_stepper(problem, mesh, pad_spec, consts,
+                        step) -> FusedShardStep:
+    """The FusedShardStep of a shard kernel with one exchange a step (K8,
+    K10, K11, K12): step_err(t, yp, h, params) refreshes every shard's
+    halo (the width of consts' halo), then calls step(buf, h, fz, sc) ->
+    (y_new, ss partials) on each shard, with h and the freeze scalar of
+    the control device copied to the shard's; err_ss is the Shards of
+    per-shard sums for the adaptive loop's reduce_fn. t is unused (the
+    kinetics are autonomous)."""
     dtype = problem.y0.dtype
-    consts = make_shard_constants(problem, mesh, pad_spec, HALO, dtype)
-    rtol, atol = float(cfg.rtol), float(cfg.atol)
-    t_boundary = float(cfg.t_boundary)
-    pad, unpad = shard_buffers(HALO)
+    halo = consts[0].halo
+    t_boundary = float(problem.cfg.t_boundary)
+    pad, unpad = shard_buffers(halo)
 
     def step_err(t, yp, h, params):
-        bufs = refresh_halos(list(yp), mesh, HALO, pad_spec)
+        bufs = refresh_halos(list(yp), mesh, halo, pad_spec)
         fz = freeze_scalar(params, consts[0].has_freeze, t_boundary, dtype)
         h = h.to(dtype)
         out, sums = [], []
         for buf, sc in zip(bufs, consts):
-            y_new, ss = fused_shard_step(buf, h.to(buf.device),
-                                         fz.to(buf.device), sc, tableau,
-                                         rtol, atol)
+            y_new, ss = step(buf, h.to(buf.device), fz.to(buf.device), sc)
             out.append(y_new)
             sums.append(torch.sum(ss))
         return Shards(out), Shards(sums)
 
     return FusedShardStep(step_err=step_err, pad=pad, unpad=unpad,
                           constants=consts)
+
+
+def build_fused_shard_step(problem, tableau: Tableau, mesh,
+                           pad_spec=None) -> FusedShardStep:
+    """step_err(t, yp, h, params) -> (y_new, err_ss) of `problem` on `mesh`
+    (crdmodel_tpu/ops/pallas_shard_step.py:105): refresh every shard's
+    halo, then one launch a shard (build_shard_stepper)."""
+    cfg = problem.cfg
+    consts = make_shard_constants(problem, mesh, pad_spec, HALO,
+                                  problem.y0.dtype)
+    rtol, atol = float(cfg.rtol), float(cfg.atol)
+    return build_shard_stepper(
+        problem, mesh, pad_spec, consts,
+        lambda buf, h, fz, sc: fused_shard_step(buf, h, fz, sc, tableau,
+                                                rtol, atol))

@@ -15,7 +15,8 @@ profiles (BoxProfileConstants), the profiles with a 0/1 tissue field
 or the 19-point tensor's six fields (BoxTensorConstants). The shard
 kernels take each shard's constants halo-padded by the mesh's exchange:
 K8, K9 and K10 the profile operator's (ShardConstants), K11 a stack of
-face fields (ShardDivformConstants). The kinetics family travels to the
+face fields (ShardDivformConstants), K12 and K13 the box modes'
+(ShardBoxConstants). The kinetics family travels to the
 device code as an integer id (KINETICS_IDS, the Kinetics enum of
 csrc/rhs_common.cuh).
 """
@@ -850,6 +851,86 @@ def make_box_rhs_block(bc: KernelConstants, fz):
         return ydot
 
     return rhs_block
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardBoxConstants(ShardConstants):
+    """One shard's inputs of the box shard kernels (K12, K13; crdmodel_tpu/
+    ops/pallas_shard_box3d.py:607-680): kind one of the box modes
+    ("box_profile", "box_tissue", "box_field", "box_tensor"), its
+    constants halo-padded in (y, x) like the shard's (nvars, nz, nyl +
+    2 halo, nxl + 2 halo) buffer: aE, aW (nxl + 2 halo,), aN, aS (nyl +
+    2 halo,) and aU, aD (nz,) replicated (z stays on the shard); the field
+    and tensor modes' (nz, nyl + 2 halo, nxl + 2 halo) fields; tissue the
+    halo-padded 0/1 obstacle field or None; invs the tensor's (3,) weights
+    or None. b, mask, halo and the physical extent as ShardConstants."""
+    tissue: object
+    invs: object
+
+
+def make_shard_box_constants(problem, mesh, pad_spec, halo: int, dtype):
+    """Every shard's ShardBoxConstants, in mesh order on its device
+    (crdmodel_tpu/ops/pallas_shard_box3d.py:607-680), built once a run:
+    the float64 constants of box_mode cast once, wrap-padded to the padded
+    grid, split into blocks and halo-padded by the mesh's exchange,
+    mirror-aware along a padded axis, so that every read across a shard
+    edge (a tissue neighbour's openness, aW = aE at i-1, aS = aN at j-1)
+    meets the true neighbour's value. The z profiles and the tensor's
+    weights are replicated: they never go through an axis test, so a z
+    profile as long as nx or ny stays whole. Raises ValueError where
+    box_mode is None."""
+    from crdmodel_tpu_torch.parallel import halo as hx
+    cfg = problem.cfg
+    mode, data = box_mode(problem)
+    if mode is None:
+        raise ValueError("the box shard kernels cannot express this "
+                         "operator (open z walls, or not a box)")
+    nyl, nxl, _, _ = _shard_layout(cfg, mesh, pad_spec)
+    devices = mesh.device_list()
+    px = mesh.shape[1]
+
+    def cast(a):
+        return torch.tensor(np.ascontiguousarray(a), dtype=dtype)
+
+    def halo_fields(arrays):
+        """(nz, ny, nx) arrays -> each shard's halo-padded stack."""
+        st = cast(np.stack([np.broadcast_to(a, problem.geometry.grid.shape)
+                            for a in arrays]))
+        if pad_spec is not None:
+            st = pad_spec.pad_field(st)
+        blocks = [st[..., k // px * nyl:(k // px + 1) * nyl,
+                     k % px * nxl:(k % px + 1) * nxl].contiguous().to(d)
+                  for k, d in enumerate(devices)]
+        return hx.mirror_halo_pad(blocks, mesh, halo, pad_spec)
+
+    tissue = invs = [None] * len(devices)
+    if problem.obstacle_mask is not None:
+        tissue = [st[0] for st in halo_fields(
+            [np.asarray(problem.obstacle_mask, np.float64)])]
+    if mode == "profile":
+        aE, aW, aN, aS, aU, aD = data
+        cols = [_halo_cols(cast(a), cfg, mesh, pad_spec, halo)
+                for a in (aE, aW)]
+        rows = [_halo_rows(cast(a).reshape(-1, 1), cfg, mesh, pad_spec, halo)
+                for a in (aN, aS)]
+        coeffs = [(cols[0][k], cols[1][k], rows[0][k].reshape(-1),
+                   rows[1][k].reshape(-1), cast(aU).to(d), cast(aD).to(d))
+                  for k, d in enumerate(devices)]
+        kind = "box_profile" if problem.obstacle_mask is None else (
+            "box_tissue")
+    elif mode == "field":
+        coeffs = [tuple(st) for st in halo_fields(data)]
+        kind = "box_field"
+    else:
+        fields, weights = data
+        coeffs = [tuple(st) for st in halo_fields(fields)]
+        invs = [torch.tensor(weights, dtype=dtype, device=d) for d in devices]
+        kind = "box_tensor"
+    return [ShardBoxConstants(kind=kind, coeffs=coeffs[k], tissue=tissue[k],
+                              invs=invs[k], **rows_k)
+            for k, rows_k in enumerate(_shard_rhs_inputs(problem, mesh,
+                                                         pad_spec, halo,
+                                                         dtype))]
 
 
 def freeze_scalar(params, has_freeze: bool, t_boundary: float, dtype):

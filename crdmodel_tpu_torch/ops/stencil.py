@@ -1,5 +1,5 @@
 """Periodic diffusion stencils on the torch path (counterpart of
-crdmodel_tpu/ops/stencil.py:20-125, 145-212, 252).
+crdmodel_tpu/ops/stencil.py:20-271).
 
 Whole-array `torch.roll` shifts: on one device the periodic wrap is the
 reference's halo exchange. Arrays are (..., ny, nx): axis -1 is theta/x
@@ -188,3 +188,54 @@ def anisotropic_laplacian3(u, face_coeffs, mixed, invs):
             + ixy * _mixed_pair(u, dxy, -1, -2)
             + ixz * _mixed_pair(u, dxz, -1, -3)
             + iyz * _mixed_pair(u, dyz, -2, -3))
+
+
+def divergence3_from_padded(up, face_coeffs):
+    """divergence_laplacian3 over a block haloed in its trailing (y, x)
+    axes only, up (..., nz, nyl+2, nxl+2) (crdmodel_tpu/ops/stencil.py:
+    126): z stays on the shard, so the z neighbours come from a local
+    periodic roll; face_coeffs are the block's own six faces."""
+    aE, aW, aN, aS, aU, aD = face_coeffs
+    u = up[..., 1:-1, 1:-1]
+    uw = up[..., 1:-1, 0:-2]
+    ue = up[..., 1:-1, 2:]
+    us = up[..., 0:-2, 1:-1]
+    un = up[..., 2:, 1:-1]
+    ud = shift_d(u)
+    uu = shift_u3(u)
+    return (aE * (ue - u) + aW * (uw - u)
+            + aN * (un - u) + aS * (us - u)
+            + aU * (uu - u) + aD * (ud - u))
+
+
+def anisotropic3_from_padded(up, face_coeffs, mixed_p, invs):
+    """anisotropic_laplacian3 over a block haloed in its trailing (y, x)
+    axes only, up (..., nz, nyl+2, nxl+2) (crdmodel_tpu/ops/stencil.py:
+    214). The xy pair reads the corner halo cells (the two-phase exchange
+    fills them with the true diagonal neighbours), the xz and yz pairs
+    the x and y halos and local z rolls. mixed_p = (Dxy, Dxz, Dyz), each
+    with the state's width-1 (y, x) halo: the fluxes are formed at the
+    neighbours. Association as the JAX function's, axis + ixy Txy + ixz
+    Txz + iyz Tyz."""
+    axis = divergence3_from_padded(up, face_coeffs)
+    dxy_p, dxz_p, dyz_p = mixed_p
+    ixy, ixz, iyz = invs
+    dys = up[..., 2:, :] - up[..., 0:-2, :]
+    fx = dxy_p[..., 1:-1, :] * dys
+    t1 = fx[..., :, 2:] - fx[..., :, 0:-2]
+    dxs = up[..., :, 2:] - up[..., :, 0:-2]
+    fy = dxy_p[..., :, 1:-1] * dxs
+    t2 = fy[..., 2:, :] - fy[..., 0:-2, :]
+    t_xy = t1 + t2
+    dzs = shift_u3(up) - shift_d(up)
+    fx = dxz_p[..., 1:-1, :] * dzs[..., 1:-1, :]
+    t1 = fx[..., :, 2:] - fx[..., :, 0:-2]
+    fz = dxz_p[..., 1:-1, 1:-1] * dxs[..., 1:-1, :]
+    t2 = shift_u3(fz) - shift_d(fz)
+    t_xz = t1 + t2
+    fy = dyz_p[..., :, 1:-1] * dzs[..., :, 1:-1]
+    t1 = fy[..., 2:, :] - fy[..., 0:-2, :]
+    fz = dyz_p[..., 1:-1, 1:-1] * dys[..., :, 1:-1]
+    t2 = shift_u3(fz) - shift_d(fz)
+    t_yz = t1 + t2
+    return axis + ixy * t_xy + ixz * t_xz + iyz * t_yz

@@ -1,5 +1,5 @@
 """Sharded simulation: the adaptive integration over a mesh of shards
-(counterpart of crdmodel_tpu/parallel/sharded.py, its 2-D part).
+(counterpart of crdmodel_tpu/parallel/sharded.py).
 
 The JAX package runs the whole solver loop under `shard_map`: each device
 steps its own block, and every control decision (accept/reject, the next
@@ -13,16 +13,21 @@ the integrator of integrate/erk.py runs once over it, its control state on
 the mesh's first device; the per-shard sums are added there in a fixed
 order (make_reduce), so all shards take the same steps.
 
+The 3-D box shards its (y, x) axes over the mesh and keeps z on every
+shard: a block is (nvars, nz, nyl, nxl), and every exchange moves (y, x)
+halos of all nz planes.
+
 Kernel selection, in the JAX package's order (crdmodel_tpu/parallel/
 sharded.py:838-852): ERK tableaus through K8 (ops/fused_shard_step.py,
 the profile operator, theta-only torus fields through its profile remap),
 K11 (ops/fused_shard_divform.py: no-flux walls, obstacles, 2-D and flat
-diffusion fields) or K11's aniso mode (the 2-D tensor, flat and torus);
-ark324 through K10 (ops/fused_shard_imex.py); rkc2 through K9
-(ops/fused_shard_rkc.py); each with the gates of the JAX package's
-maybe_fused_shard_*; else the torch path (make_local_rhs: a width-1
-exchange before every RHS evaluation). Not ported yet, each raising
-NotImplementedError with its ROADMAP item: the 3-D box (K12, K13),
+diffusion fields), K11's aniso mode (the 2-D tensor, flat and torus) or,
+on the box, K12 (ops/fused_shard_box3d.py); ark324 through K10
+(ops/fused_shard_imex.py); rkc2 through K9 (ops/fused_shard_rkc.py) or,
+on the box, K13 (ops/fused_shard_box3d_rkc.py); each with the gates of
+the JAX package's maybe_fused_shard_*; else the torch path
+(make_local_rhs: a width-1 exchange before every RHS evaluation). Not
+ported yet, each raising NotImplementedError with its ROADMAP item:
 forcing (item 9), streaming (item 5) and member lockstep (item 14).
 """
 
@@ -35,7 +40,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from crdmodel_tpu_torch.config import PALLAS_AUTO_POINTS, SimConfig
+from crdmodel_tpu_torch.config import (PALLAS_AUTO_POINTS,
+                                       PALLAS_BOX3D_AUTO_POINTS, SimConfig)
 from crdmodel_tpu_torch.core.problem import (Problem, beta_field,
                                              build_problem, interior_rows,
                                              make_rho_bound,
@@ -43,7 +49,9 @@ from crdmodel_tpu_torch.core.problem import (Problem, beta_field,
 from crdmodel_tpu_torch.integrate import imex, rkc
 from crdmodel_tpu_torch.integrate.erk import TABLEAUS, integrate_to_outputs
 from crdmodel_tpu_torch.ops.kernel_common import coeff_kind
-from crdmodel_tpu_torch.ops.stencil import (anisotropic_from_padded,
+from crdmodel_tpu_torch.ops.stencil import (anisotropic3_from_padded,
+                                            anisotropic_from_padded,
+                                            divergence3_from_padded,
                                             divergence_from_padded,
                                             laplacian_from_padded)
 from crdmodel_tpu_torch.parallel.halo import halo_pad
@@ -55,10 +63,6 @@ from crdmodel_tpu_torch.sim import SimResult, output_times
 
 def _unported(problem: Problem):
     """Raise for what the sharded run does not take yet."""
-    if problem.geometry.kind == "box":
-        raise NotImplementedError("sharded 3-D boxes are not ported yet "
-                                  "(ROADMAP queue 1, item 15: kernels K12 "
-                                  "and K13)")
     if problem.forcing is not None:
         raise NotImplementedError("forcing is not ported yet (ROADMAP queue "
                                   "1, item 9)")
@@ -67,13 +71,15 @@ def _unported(problem: Problem):
 def tensor_weight(problem: Problem):
     """make_local_rhs's tensor_inv4 of a problem with a diffusion tensor
     (crdmodel_tpu/parallel/sharded.py:788-802): the flat surface's scalar
-    mixed-pair weight 1/(4 dx dy) as a Python float, or "param" for the
-    torus's (nx,) profile, which rides params["inv4"]; None without a
-    tensor."""
+    mixed-pair weight 1/(4 dx dy) as a Python float, "param" for the
+    torus's (nx,) profile, which rides params["inv4"], or the box's three
+    weights (xy, xz, yz) as a tuple of floats; None without a tensor."""
     if problem.diffusion_tensor is None:
         return None
     inv4 = problem.geometry.tensor_coeffs64(
         *problem.diffusion_tensor, boundary=problem.cfg.boundary)[2]
+    if problem.geometry.kind == "box":
+        return tuple(float(v) for v in inv4)
     return "param" if np.ndim(inv4) > 0 else float(inv4)
 
 
@@ -95,6 +101,13 @@ def make_local_rhs(cfg: SimConfig, model, kind: str, mesh, pad_spec=None,
     pad cells: every derivative is zeroed there, so pad values never move
     and the error sums exclude them).
 
+    On the box (kind "box") the blocks are (nvars, nz, nyl, nxl), z local:
+    the six faces in their broadcast-minimal shapes (aE (nxl,), aN (nyl,
+    1), aU (nz, 1, 1), or (nz, nyl, nxl) fields) through
+    divergence3_from_padded, a tensor through anisotropic3_from_padded with
+    "_dxy_pad" the stacked (3, nz, nyl+2, nxl+2) (Dxy, Dxz, Dyz) and
+    tensor_inv4 their three weights; "tissue" is (nz, nyl, nxl).
+
     split=True returns (rhs_ex, rhs_im) for ark324: rhs_ex the diffusion
     with the freeze applied, rhs_im the pointwise kinetics with the freeze,
     with no exchange, so the Newton stage solves are shard-local; both
@@ -109,6 +122,13 @@ def make_local_rhs(cfg: SimConfig, model, kind: str, mesh, pad_spec=None,
     seam_x = pad_spec.seam_x() if padded else None
 
     def operator(up, loc):
+        if kind == "box":
+            if tensor_inv4 is None:
+                return divergence3_from_padded(up, loc["coeffs"])
+            dp = loc["_dxy_pad"]
+            return anisotropic3_from_padded(up, loc["coeffs"],
+                                            (dp[0], dp[1], dp[2]),
+                                            tensor_inv4)
         if tensor_inv4 is not None:
             inv4 = loc["inv4"] if tensor_inv4 == "param" else tensor_inv4
             return anisotropic_from_padded(up, loc["coeffs"], loc["_dxy_pad"],
@@ -200,7 +220,14 @@ def sharded_params(problem: Problem, pad_spec=None) -> dict:
     "b" (scalar or (ny, 1) ramp), "interior" ((ny, 1) bool) and, padded,
     "valid" ((nyp, nxp) bool). Wrap fill keeps pad values inside the
     physical range, and gives the fused kernels' mirror-pad cells their
-    sources' values."""
+    sources' values.
+
+    On the box: the six faces in their broadcast-minimal shapes (aN
+    (ny, 1), aU (nz, 1, 1): sharded_params pads and split_field splits an
+    axis only where it spans the grid, so the z profiles stay replicated),
+    a tensor's "dxy" the stacked (3, nz, ny, nx) (Dxy, Dxz, Dyz) and no
+    "inv4" (its three weights are scalars: tensor_weight), "tissue"
+    (nz, ny, nx)."""
     cfg = problem.cfg
     dtype, device = problem.y0.dtype, problem.device
     geometry = problem.geometry
@@ -211,8 +238,11 @@ def sharded_params(problem: Problem, pad_spec=None) -> dict:
             *problem.diffusion_tensor, boundary=cfg.boundary)
         coeffs = tuple(torch.tensor(a, dtype=dtype, device=device)
                        for a in faces)
+        if geometry.kind == "box":
+            # one stack, so one exchange a run covers the three fields
+            dxy = np.stack(dxy)
         params["dxy"] = torch.tensor(dxy, dtype=dtype, device=device)
-        if np.ndim(inv4) > 0:
+        if geometry.kind != "box" and np.ndim(inv4) > 0:
             params["inv4"] = torch.tensor(np.reshape(inv4, (1, -1)),
                                           dtype=dtype, device=device)
     elif problem.diffusion_field is not None:
@@ -334,16 +364,19 @@ def gather(blocks, mesh, pad_spec=None):
 
 def _shard_kernel_eligible(cfg, mesh) -> bool:
     """Shard-kernel selection policy (crdmodel_tpu/parallel/sharded.py:
-    431-451): explicit use_pallas wins; auto takes the kernels only with
-    every shard on a CUDA device and a LOCAL block of at least
-    PALLAS_AUTO_POINTS points (the per-device work is nyl*nxl). On the CPU
-    the kernels' plain versions run, with use_pallas=True only (the JAX
+    431-451, 515-522): explicit use_pallas wins; auto takes the kernels
+    only with every shard on a CUDA device and a LOCAL block of at least
+    PALLAS_AUTO_POINTS points (the per-device work is nyl*nxl), on the box
+    a local VOLUME nz*nyl*nxl of at least PALLAS_BOX3D_AUTO_POINTS. On the
+    CPU the kernels' plain versions run, with use_pallas=True only (the JAX
     package's interpret=True)."""
     if cfg.use_pallas is not None:
         return bool(cfg.use_pallas)
     if any(d.type != "cuda" for d in mesh.device_list()):
         return False
     nyl, nxl = _local_block_shape(cfg, mesh)
+    if cfg.surface == "box":
+        return cfg.nz * nyl * nxl >= PALLAS_BOX3D_AUTO_POINTS
     return nyl * nxl >= PALLAS_AUTO_POINTS
 
 
@@ -363,10 +396,30 @@ def maybe_fused_shard_step(problem: Problem, mesh, pad_spec=None):
                                                    pad_spec)
 
 
+def maybe_fused_shard_box3d(problem: Problem, mesh, pad_spec=None):
+    """K12 (ops/fused_shard_box3d.py) when the configuration supports it,
+    else None: ERK tableaus on the 3-D box (crdmodel_tpu/parallel/
+    sharded.py:495-536)."""
+    from crdmodel_tpu_torch.ops import fused_shard_box3d
+    cfg = problem.cfg
+    if problem.geometry.kind != "box" or cfg.method not in TABLEAUS:
+        return None
+    if not _shard_kernel_eligible(cfg, mesh):
+        return None
+    tableau = TABLEAUS[cfg.method]
+    nyl, nxl = _local_block_shape(cfg, mesh, pad_spec)
+    if not fused_shard_box3d.is_shard_box3d_supported(
+            problem, tableau, problem.y0.dtype, nyl, nxl):
+        return None
+    return fused_shard_box3d.build_fused_shard_box3d(problem, tableau, mesh,
+                                                     pad_spec)
+
+
 def maybe_fused_shard_rkc(problem: Problem, mesh, rho_fn, pad_spec=None):
-    """K9 (ops/fused_shard_rkc.py) when supported, else None
-    (crdmodel_tpu/parallel/sharded.py:604-677, the profile branch)."""
-    from crdmodel_tpu_torch.ops import fused_shard_rkc
+    """K9 (ops/fused_shard_rkc.py) or, on the box, K13
+    (ops/fused_shard_box3d_rkc.py) when supported, else None
+    (crdmodel_tpu/parallel/sharded.py:604-677)."""
+    from crdmodel_tpu_torch.ops import fused_shard_box3d_rkc, fused_shard_rkc
     from crdmodel_tpu_torch.sim import _quiescent_autonomous
     cfg = problem.cfg
     if cfg.method != "rkc2":
@@ -376,8 +429,14 @@ def maybe_fused_shard_rkc(problem: Problem, mesh, rho_fn, pad_spec=None):
     if not _shard_kernel_eligible(cfg, mesh):
         return None
     nyl, nxl = _local_block_shape(cfg, mesh, pad_spec)
-    if not fused_shard_rkc.is_shard_rkc_supported(problem, problem.y0.dtype,
-                                                  nyl, nxl):
+    dtype = problem.y0.dtype
+    if problem.geometry.kind == "box":
+        if not fused_shard_box3d_rkc.is_shard_box3d_rkc_supported(
+                problem, dtype, nyl, nxl):
+            return None
+        return fused_shard_box3d_rkc.build_fused_shard_box3d_rkc(
+            problem, mesh, rho_fn, pad_spec)
+    if not fused_shard_rkc.is_shard_rkc_supported(problem, dtype, nyl, nxl):
         return None
     return fused_shard_rkc.build_fused_shard_rkc(problem, mesh, rho_fn,
                                                  pad_spec)
@@ -427,17 +486,21 @@ def select_shard_kernel(problem: Problem, mesh, pad_spec=None,
     """(name, kernel) of the fused shard kernel that takes `problem`'s
     steps on `mesh`, in the JAX package's order of selection
     (crdmodel_tpu/parallel/sharded.py:838-852 and run_local): "K8", "K11",
-    "K11 aniso", then "K10" (ark324), then "K9" (rkc2, with the run's
-    rho_fn); (None, None) for the torch path."""
+    "K11 aniso", "K12" (the box), then "K10" (ark324), then "K9" or, on
+    the box, "K13" (rkc2, with the run's rho_fn); (None, None) for the
+    torch path."""
+    rkc_name = "K13" if problem.geometry.kind == "box" else "K9"
     chain = (("K8", lambda: maybe_fused_shard_step(problem, mesh, pad_spec)),
              ("K11", lambda: maybe_fused_shard_divform(problem, mesh,
                                                        pad_spec)),
              ("K11 aniso", lambda: maybe_fused_shard_aniso(problem, mesh,
                                                            pad_spec)),
+             ("K12", lambda: maybe_fused_shard_box3d(problem, mesh,
+                                                     pad_spec)),
              ("K10", lambda: maybe_fused_shard_imex(problem, mesh,
                                                     pad_spec)),
-             ("K9", lambda: maybe_fused_shard_rkc(problem, mesh, rho_fn,
-                                                  pad_spec)))
+             (rkc_name, lambda: maybe_fused_shard_rkc(problem, mesh, rho_fn,
+                                                      pad_spec)))
     for name, build in chain:
         kernel = build()
         if kernel is not None:
@@ -540,11 +603,11 @@ def build_local_run(problem: Problem, mesh):
         params = with_dxy_halo(params, mesh, pad_spec)
         reduce_fn = make_reduce(mesh, params.get("valid"))
         kw = {}
-        if name == "K9":
+        if name in ("K9", "K13"):
             kw = dict(step_err=kernel.step_err, err_order=rkc.ERR_ORDER,
                       h_limit_fn=kernel.h_limit)
         elif kernel is not None:
-            # K8, K10 and K11 carry no state (init_carry's default ())
+            # K8, K10, K11 and K12 carry no state (init_carry's default ())
             kw = dict(step_err=lambda t, y, h, p, carry:
                       (*kernel.step_err(t, y, h, p), ()),
                       err_order=(imex.ERR_ORDER if name == "K10"

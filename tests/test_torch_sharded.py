@@ -204,14 +204,26 @@ def test_local_rhs_matches_full_grid_rhs():
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(surface="box", x_mesh=8, z_mesh=4, surface_depth=1.0,
+    (dict(surface="box", x_mesh=16, y_mesh=16, z_mesh=4, surface_depth=1.0,
           boundary="noflux", surface_width=8.0, surface_length=8.0,
-          model="aliev_panfilov"), "K12")])
+          model="aliev_panfilov", beta=0.1, dtype="float32",
+          use_pallas=True, t_final=0.1), "K12")])
 def test_unported_branches_raise(change, item):
+    """The sharded box, which raised until kernel `item` was ported
+    (ROADMAP item 15), runs through it; what stays unported on it,
+    forcing (item 9), raises NotImplementedError."""
+    import dataclasses
+
+    from crdmodel_tpu_torch.parallel.sharded import select_shard_kernel
     kw, _ = _cfg("fhn_flat")
     cfg = SimConfig(**{**kw, **change})
-    with pytest.raises(NotImplementedError, match=f"item 15.*{item}"):
-        simulate_sharded(cfg, mesh=_mesh((2, 2)))
+    mesh = _mesh((2, 2))
+    problem = build_problem(cfg, "cpu")
+    assert select_shard_kernel(problem, mesh)[0] == item
+    assert simulate_sharded(cfg, mesh=mesh, problem=problem).ok
+    with pytest.raises(NotImplementedError, match="item 9"):
+        simulate_sharded(cfg, mesh=mesh,
+                         problem=dataclasses.replace(problem, forcing=object()))
 
 
 @pytest.mark.parametrize("name", ["uneven_bs32", "ap_noflux_obstacle",
