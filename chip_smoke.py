@@ -28,7 +28,10 @@ on the bounded tissue's 2x2 shards, a flat 2-D diffusion field, the uneven
 inside no-flux walls; K12 and K13, the fused ERK and RKC2 steps on one
 shard of the 3-D box, on the slab's 2x2 shards in the four operator modes,
 FitzHugh-Nagumo's beta ramp on a 16x256x256 box's 2x2 shards and its
-uneven 1x3 mesh), times each, then runs the
+uneven 1x3 mesh; K14, the speculative K-step ERK kernel, on K1's five
+cases with bs32 at K = 2, 5, 10 and dopri54 at K = 2, committing sub-step
+0, 1, K-1 and K, against its plain version and against K1's launches,
+state and every partial sum bitwise), times each, then runs the
 port's main paths through simulate(): the
 canonical FitzHugh-Nagumo torus program (data/FHNmodelArgs.ini: 400x1600,
 f32, Tf=50) with its own method bs32 (through K1) and with method rkc2
@@ -40,7 +43,11 @@ no-flux walls and a circular scar, f32, Tf=8) with bs32 (through K4) and
 with rkc2 (through K2's divergence branch), the JAX suite's wide FHN sheet
 (flat 12800x3200, 41M points, rkc2, f32, Tf=0.5, through K2), and the
 fibered cardiac sheet (Aliev-Panfilov on a flat periodic 1600x400 sheet
-with rotating fibres, bs32, f32, Tf=1, through K5), and the JAX suite's
+with rotating fibres, bs32, f32, Tf=1, through K5), the canonical FHN
+torus with speculative_k=5 (K frozen-h sub-steps a launch through K14,
+each interval's tail through K1) and with step_mode="normal" (ARK_NORMAL,
+through K1), the canonical Goldbeter torus with speculative_k = 2, 5 and
+10 (K14), and the JAX suite's
 volumetric cardiac slab (Aliev-Panfilov on a 32x512x512 box, 8.4M points,
 no-flux walls, f32, Tf=0.5) with bs32 (through K6), with rkc2 (through K7)
 and with a scar column through every plane (through K6's tissue mode);
@@ -55,7 +62,11 @@ torus (3200x800, 2.56M points, ark324, f32, Tf=1; both through K10),
 and the volumetric slab with bs32 (through K12), rkc2 (through K13) and
 the scar column (through K12's tissue mode).
 Each run is checked against the JAX package's CPU runs recorded in
-tests/golden/torch_canonical_{fhn,goldbeter}[_method]_probes.npz,
+tests/golden/torch_canonical_{fhn,goldbeter}[_method]_probes.npz (the
+speculative and ARK_NORMAL runs against
+tests/golden/torch_canonical_fhn_{k5,normal}_probes.npz and
+tests/golden/torch_canonical_goldbeter_k{2,5,10}_probes.npz, the K = 5
+FHN run also against the per-step K1 run of the same call),
 tests/golden/torch_bounded_ap[_rkc2]_probes.npz and
 tests/golden/torch_aniso_sheet_probes.npz, the wide sheet and the slab
 against the port's own torch path on the card, the sharded canonical runs,
@@ -73,8 +84,9 @@ torch.profiler, the bounded cardiac tissue with bs32 and rkc2, the fibered
 sheet and the wide sheet over short horizons, the three slab runs over
 their whole horizon, the sharded canonical FHN run over Tf=5, the sharded
 large FHN torus over Tf=0.2, the sharded bounded tissue over Tf=1, the
-sharded large Goldbeter torus over Tf=0.2 and the three sharded slab runs
-over their whole horizon, and prints for each the
+sharded large Goldbeter torus over Tf=0.2, the three sharded slab runs
+over their whole horizon and the canonical FHN torus over Tf=5 per step
+(K1) and with speculative_k=5 (K14), and prints for each the
 device's busy time and idle share, the kernels a step and the fused
 kernel's share (phase "profile"). With --sharded it builds the kernels and
 runs only the single-device runs the sharded paths are held to (K1, K3,
@@ -107,6 +119,15 @@ PROBES["aliev_panfilov", "rkc2"] = os.path.join(
     GOLDEN, "torch_bounded_ap_rkc2_probes.npz")
 PROBES["aniso_sheet", "bs32"] = os.path.join(GOLDEN,
                                              "torch_aniso_sheet_probes.npz")
+# the speculative and ARK_NORMAL runs' goldens (the JAX package's XLA-side
+# speculation and free stepping on the CPU): keyed (model, "bs32_k<K>")
+# and ("fhn", "bs32_normal")
+K14_SPEC = 5            # main_path_kstep's speculative_k
+GB_KS = (2, 5, 10)      # JAX's own sweep, scripts/bench_goldbeter_k.py:64-67
+for _model, _tag in ([("fhn", f"k{K14_SPEC}"), ("fhn", "normal")]
+                     + [("goldbeter", f"k{k}") for k in GB_KS]):
+    PROBES[_model, f"bs32_{_tag}"] = os.path.join(
+        GOLDEN, f"torch_canonical_{_model}_{_tag}_probes.npz")
 SEED = 1234
 H = 2e-3        # about 1/rho(L) on the canonical grid: stage errors resolved
 K2_STAGES = (2, 5, 15, 23)   # K2's stage counts checked, up to S_MAX_KERNEL
@@ -157,6 +178,10 @@ SHARD_MESH = (2, 2)
 UNEVEN_MESH = (1, 3)
 K9_STAGES = (2, 5, 23)
 K9_TIMED_STAGES = (5, 23)
+# K14's checks: (tableau, K) of the JAX gate's reach at P = 8..32, the
+# n_commit values of each (0, 1, K-1, K), and the K it is timed at
+K14_BATCHES = (("bs32", 2), ("bs32", 5), ("bs32", 10), ("dopri54", 2))
+K14_TIMED = (2, 5, 10)
 # the published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM
 # bytes/s and float32 operations/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -972,7 +997,7 @@ def tensor_checks(probes, tensor):
 
 def run_main_path(cfg, probes, kernel, min_step_tol, name, label,
                   build_kw=None, extra_checks=None, mesh=None, keep=None,
-                  versus=None):
+                  versus=None, launch_checks=None, report=None):
     """The program `cfg` (built with `build_kw`) through simulate() on the
     card, with every kernel's launch count set to 0 just before and read
     just after; `kernel` is the wrapper whose kernel the path must take.
@@ -989,7 +1014,10 @@ def run_main_path(cfg, probes, kernel, min_step_tol, name, label,
     dict that receives the run's steps and probe values; `versus`: such a
     dict of an earlier run in this call, which this one is also held to:
     steps within the same tolerance (the probes' distance is printed; both
-    runs are already held to the JAX f64 run's)."""
+    runs are already held to the JAX f64 run's). launch_checks(res,
+    counts) -> {name: passed} replaces the check that `kernel` took every
+    step (a kernel-batched run's, kstep_launch_checks); report(res, counts)
+    -> dict adds fields to the phase line."""
     res, counts = drive_main_path(cfg, build_kw or {}, mesh)
     launches = counts[kernel.__name__]
 
@@ -1015,7 +1043,9 @@ def run_main_path(cfg, probes, kernel, min_step_tol, name, label,
             probe_max_abs_err_vs_single_device=float(
                 np.abs(got - versus["probes"]).max()))
     if keep is not None:
-        keep.update(steps=steps, probes=got)
+        keep.update(steps=steps, probes=got, wall_s=wall)
+    if report is not None:
+        extra.update(report(res, counts))
     phase(name, config=label, selection=selection_note(cfg), **extra,
           grid=[cfg.ny, cfg.nx], method=cfg.method, dtype=cfg.dtype,
           status=res.describe(), fused=res.fused, steps=steps,
@@ -1031,6 +1061,9 @@ def run_main_path(cfg, probes, kernel, min_step_tol, name, label,
           jax_f32_probe_gap=f32_gap, card=card_line())
     checks = run_checks(cfg, res, kernel, launches,
                         1 if mesh is None else mesh.size)
+    if launch_checks is not None:
+        del checks[f"every step through {kernel.__name__}"]
+        checks.update(launch_checks(res, counts))
     checks.update({
         f"steps within {step_tol:.2%} of JAX f32":
             abs(steps - ref_steps) <= step_tol * ref_steps,
@@ -1049,7 +1082,7 @@ def kernel_wrappers():
     """Every kernel's wrapper, whose `launches` counts its launches."""
     from crdmodel_tpu_torch.ops import (fused_aniso, fused_box3d,
                                         fused_box3d_rkc, fused_divform,
-                                        fused_imex, fused_rkc,
+                                        fused_imex, fused_kstep, fused_rkc,
                                         fused_shard_box3d,
                                         fused_shard_box3d_rkc,
                                         fused_shard_divform,
@@ -1064,7 +1097,8 @@ def kernel_wrappers():
             fused_shard_imex.fused_shard_imex_step,
             fused_shard_divform.fused_shard_divform_step,
             fused_shard_box3d.fused_shard_box3d_step,
-            fused_shard_box3d_rkc.fused_shard_box3d_rkc_step)
+            fused_shard_box3d_rkc.fused_shard_box3d_rkc_step,
+            fused_kstep.fused_kstep)
 
 
 def run_program(cfg, build_kw, mesh=None):
@@ -1085,7 +1119,10 @@ def drive_main_path(cfg, build_kw, mesh=None):
     through simulate_sharded() on `mesh`, after a warm-up on a short
     horizon (the first launches of every torch op), with every kernel's
     launch count set to 0 just before and read just after. Returns (result,
-    {wrapper name: launches})."""
+    {wrapper name: launches}), with K14's batches and recoveries that did
+    work (ops/fused_kstep.py::work_counts) under "fused_kstep_batches" and
+    "fused_kstep_recoveries"."""
+    from crdmodel_tpu_torch.ops import fused_kstep
     wrappers = kernel_wrappers()
 
     def run(c):
@@ -1093,10 +1130,15 @@ def drive_main_path(cfg, build_kw, mesh=None):
 
     run(dataclasses.replace(cfg, t_final=min(1.0, 0.1 * cfg.t_final),
                             output_timestep=1))
+    work = fused_kstep.work_counts("cuda")
     for w in wrappers:
         w.launches = 0
+    work.zero_()
     res = run(cfg)
-    return res, {w.__name__: w.launches for w in wrappers}
+    counts = {w.__name__: w.launches for w in wrappers}
+    counts["fused_kstep_batches"], counts["fused_kstep_recoveries"] = (
+        int(c) for c in work.tolist())
+    return res, counts
 
 
 def selection_note(cfg):
@@ -1268,7 +1310,8 @@ def profile_run(cfg, build_kw, t_final, kernel_tag, mesh=None):
     torch.profiler, after an untraced run of the same horizon, and print
     phase "profile": device kernels a step, the device's busy time (the sum
     of kernel durations in the trace) and idle share over the traced wall,
-    and the share of the kernels whose name holds `kernel_tag`."""
+    and the share of the kernels whose name holds `kernel_tag`; returns
+    the phase's fields."""
     from torch.profiler import ProfilerActivity, profile
 
     run_cfg = dataclasses.replace(cfg, t_final=t_final, output_timestep=1)
@@ -1285,16 +1328,19 @@ def profile_run(cfg, build_kw, t_final, kernel_tag, mesh=None):
     busy_us = float(sum(e["dur"] for e in kernels))
     tagged = [e["dur"] for e in kernels if kernel_tag in e["name"]]
     steps = res.total_steps()
-    phase("profile", config=cfg.program_name, t_final=t_final, steps=steps,
-          mesh=None if mesh is None else list(mesh.shape),
-          wall_s=res.wall_time, untraced_wall_s=plain.wall_time,
-          device_kernels=len(kernels), kernels_per_step=len(kernels) / steps,
-          device_busy_ms=busy_us / 1e3,
-          device_idle_share=1.0 - busy_us / (res.wall_time * 1e6),
-          kernel=kernel_tag, kernel_launches=len(tagged),
-          kernel_mean_us=float(np.mean(tagged)) if tagged else None,
-          kernel_share_of_busy=float(sum(tagged)) / busy_us,
-          card=card_line())
+    fields = dict(
+        config=cfg.program_name, t_final=t_final, steps=steps,
+        speculative_k=cfg.speculative_k, step_mode=cfg.step_mode,
+        mesh=None if mesh is None else list(mesh.shape),
+        wall_s=res.wall_time, untraced_wall_s=plain.wall_time,
+        device_kernels=len(kernels), kernels_per_step=len(kernels) / steps,
+        device_busy_ms=busy_us / 1e3,
+        device_idle_share=1.0 - busy_us / (res.wall_time * 1e6),
+        kernel=kernel_tag, kernel_launches=len(tagged),
+        kernel_mean_us=float(np.mean(tagged)) if tagged else None,
+        kernel_share_of_busy=float(sum(tagged)) / busy_us)
+    phase("profile", **fields, card=card_line())
+    return fields
 
 
 def kernel_entry(name, source, replaces, launches, worst, timing):
@@ -2335,6 +2381,228 @@ def shard_field_phases(cfg, programs, probes, singles, card):
                      timings["k11", "fibres_torus"])]
 
 
+def kstep_ops(kc, tableau, k):
+    """Operations a point of one K14 launch: K ERK steps less the K - 1
+    RHS evaluations FSAL saves."""
+    return k * erk_ops(kc, tableau) - (k - 1) * rhs_ops(kc)
+
+
+def check_kstep_kernel(cases):
+    """K14 against its plain version at the main paths' shape, for each
+    config of `cases` (K1's five), f32 and f64, each (tableau, K) of
+    K14_BATCHES, the freeze off and on, n_commit 0, 1, K-1 and K: the
+    committed state and every partial sum (the plain version's in the
+    kernel's tile order, fused_kstep.tile_error_sums) bitwise, and bitwise
+    the state and partial sums of n_commit K1 launches; two launches
+    bitwise equal. One phase k14_check a config, dtype and (tableau, K);
+    returns the max |y_kernel - y_plain| a dtype."""
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import fused_kstep as fk
+    from crdmodel_tpu_torch.ops import fused_step as fs
+    from crdmodel_tpu_torch.ops.kernel_common import prepare_constants
+
+    rng = np.random.default_rng(SEED + 14)
+    worst = {torch.float32: 0.0, torch.float64: 0.0}
+    for cfg in cases:
+        problem = build_problem(cfg, device="cuda")
+        y_np = random_state(cfg, tuple(problem.y0.shape), rng)
+        for dtype in (torch.float32, torch.float64):
+            kc = prepare_constants(problem, dtype, "cuda")
+            y = torch.tensor(y_np, dtype=dtype, device="cuda")
+            h = torch.tensor(H, dtype=dtype, device="cuda")
+            for method, k in K14_BATCHES:
+                tab = TABLEAUS[method]
+                _, tile_y, _ = fs.tile_plan(tab.stages, y.element_size())
+                commits = sorted({0, 1, k - 1, k})
+                result = dict(plain=True, k1=True, repeat=True, err=0.0,
+                              nan_points=0)
+                for fz in (0.0, 1.0):
+                    fzt = torch.tensor(fz, dtype=dtype, device="cuda")
+                    states, sums = [y], []
+                    for _ in range(k):
+                        y_j, ss_j = fs.fused_step(states[-1], h, fzt, kc, tab,
+                                                  cfg.rtol, cfg.atol)
+                        states.append(y_j)
+                        sums.append(ss_j)
+                    k1_sums = torch.stack(sums, dim=1)
+                    for n_commit in commits:
+                        args = (y, h, fzt, n_commit, kc, tab, k, cfg.rtol,
+                                cfg.atol)
+                        y_k, ss_k = fk.fused_kstep(*args)
+                        y_k2, ss_k2 = fk.fused_kstep(*args)
+                        y_r, ss_r = fk.fused_kstep_reference(*args,
+                                                             tile_y=tile_y)
+                        torch.cuda.synchronize()
+                        nan = torch.isnan(y_r)
+                        result["repeat"] &= (same_bits(y_k, y_k2)
+                                             and same_bits(ss_k, ss_k2))
+                        result["plain"] &= (same_bits(y_k, y_r)
+                                            and same_bits(ss_k, ss_r))
+                        result["k1"] &= (same_bits(y_k, states[n_commit])
+                                         and same_bits(ss_k, k1_sums))
+                        result["nan_points"] += int(nan.sum())
+                        if not nan.all():
+                            result["err"] = max(result["err"], float(
+                                (y_k - y_r)[~nan].abs().max()))
+                worst[dtype] = max(worst[dtype], result["err"])
+                phase("k14_check", model=cfg.model, surface=cfg.surface,
+                      beta="field" if kc.b_is_field else "scalar",
+                      method=method, k=k, dtype=str(dtype), fz=[0.0, 1.0],
+                      n_commit=commits, max_abs_err=result["err"],
+                      nan_points=result["nan_points"],
+                      bitwise_plain=result["plain"],
+                      bitwise_k1_launches=result["k1"],
+                      two_launches_equal=result["repeat"])
+                if not (result["plain"] and result["k1"]
+                        and result["repeat"]):
+                    raise AssertionError(
+                        f"k14_check {cfg.model} {cfg.surface} {method} k={k} "
+                        f"{dtype}: {result}")
+    return worst
+
+
+def kstep_timing(cfg, card):
+    """K14's timing at the canonical FHN shape, f32, bs32, for each K of
+    K14_TIMED: the kernel's device time (profiler trace) and a burst's time
+    a launch (CUDA events), a sub-step's share, the plain version's time,
+    the bound, and K1's time in this call. Prints k14_timing phases;
+    returns {K: (ms, plain_ms, bound_ms, bound_by)}."""
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import fused_kstep as fk
+    from crdmodel_tpu_torch.ops import fused_step as fs
+    from crdmodel_tpu_torch.ops.kernel_common import prepare_constants
+
+    problem = build_problem(cfg, device="cuda")
+    y = torch.tensor(random_state(cfg, tuple(problem.y0.shape),
+                                  np.random.default_rng(SEED + 15)),
+                     dtype=torch.float32, device="cuda")
+    kc = prepare_constants(problem, torch.float32, "cuda")
+    tab = TABLEAUS["bs32"]
+    h = torch.tensor(H, dtype=torch.float32, device="cuda")
+    fz = torch.zeros((), dtype=torch.float32, device="cuda")
+    k1_ms = median_ms(lambda: fs.fused_step(y, h, fz, kc, tab, cfg.rtol,
+                                            cfg.atol))
+    timings = {}
+    for k in K14_TIMED:
+        n = torch.tensor(k, dtype=torch.int32, device="cuda")
+
+        def launch():
+            return fk.fused_kstep(y, h, fz, n, kc, tab, k, cfg.rtol,
+                                  cfg.atol)
+
+        ms = device_ms(launch, "fused_kstep_kernel")
+        burst_ms = median_ms(launch)
+        plain_ms = median_ms(lambda: fk.fused_kstep_reference(
+            y, h, fz, k, kc, tab, k, cfg.rtol, cfg.atol), *WIDE_TIMED)
+        bound_ms, bound_by = bound(y, kc, kstep_ops(kc, tab, k))
+        timings[k] = (ms, plain_ms, bound_ms, bound_by)
+        phase("k14_timing", shape=list(y.shape), method="bs32", k=k,
+              dtype="float32", kernel_us=ms * 1e3,
+              kernel_us_per_substep=ms * 1e3 / k, burst_us=burst_ms * 1e3,
+              plain_us=plain_ms * 1e3, bound_us=bound_ms * 1e3,
+              bound_by=bound_by, k1_us=k1_ms * 1e3,
+              k1_us_times_k=k1_ms * 1e3 * k, card=card)
+    return timings
+
+
+def kstep_launch_checks(cfg, k):
+    """launch_checks of a kernel-batched run (run_main_path): K14 took
+    batches, each iteration two launches of which the masked ones are at
+    most the last block's at each stop, every attempted step came from a
+    batch or a K1 launch of a tail, and a rejected batch's recovery did
+    work at most once a batch."""
+    from crdmodel_tpu_torch.core.problem import solver_breakpoints
+    from crdmodel_tpu_torch.integrate.erk import SYNC_EVERY, merge_stops
+    from crdmodel_tpu_torch.sim import output_times
+    n_stops = len(merge_stops(output_times(cfg), solver_breakpoints(cfg))[0])
+    block = max(1, SYNC_EVERY // k)
+
+    def checks(res, counts):
+        launches = counts["fused_kstep"]
+        batches = counts["fused_kstep_batches"]
+        iterations = launches // 2
+        return {
+            "K14 took the batches": batches >= 1 and launches % 2 == 0,
+            "masked iterations at most a block less one a stop":
+                batches <= iterations <= batches + n_stops * (block - 1),
+            "every step through K14 or the K1 tail":
+                res.total_steps() <= k * batches + counts["fused_step"],
+            "recoveries at most one a batch":
+                counts["fused_kstep_recoveries"] <= batches,
+            "no other kernel": all(
+                v == 0 for name, v in counts.items()
+                if not name.startswith("fused_kstep")
+                and name != "fused_step"),
+        }
+    return checks
+
+
+def kstep_report(k):
+    """report of a kernel-batched run (run_main_path): the batches, K14's
+    launches, the recoveries that did work, the K1 tail's launches, the
+    masked iterations and launches, kernels of the port a step."""
+    def report(res, counts):
+        launches = counts["fused_kstep"]
+        batches = counts["fused_kstep_batches"]
+        masked = launches // 2 - batches
+        return dict(
+            speculative_k=k, batches=batches, k14_launches=launches,
+            recoveries_with_work=counts["fused_kstep_recoveries"],
+            k1_tail_launches=counts["fused_step"],
+            masked_iterations=masked, masked_k14_launches=2 * masked,
+            port_kernel_launches_per_step=(launches + counts["fused_step"])
+            / res.total_steps())
+    return report
+
+
+def kstep_main_paths(cfg, cfg_gb, probes, single_fhn, card):
+    """The K14 and ARK_NORMAL main paths, each held to its JAX golden:
+    main_path_kstep (the canonical FHN torus, speculative_k = K14_SPEC,
+    against the per-step K1 run `single_fhn` of this call, with both
+    traced over Tf = 5 for the kernels a step and the device's idle share),
+    main_path_goldbeter_kstep (the canonical Goldbeter torus,
+    use_pallas=True, each K of GB_KS) and main_path_normal (the canonical
+    FHN torus with step_mode="normal" through K1). Returns K14's launches
+    on main_path_kstep."""
+    from crdmodel_tpu_torch.ops import fused_kstep, fused_step
+
+    fhn_label = "data/FHNmodelArgs.ini fhn torus"
+    gb_label = "data/GoldbeterModelArgs.ini goldbeter torus"
+    kernel = fused_kstep.fused_kstep
+    cfg_k = dataclasses.replace(cfg, speculative_k=K14_SPEC)
+    kept = {}
+    launches = run_main_path(
+        cfg_k, probes["fhn", f"bs32_k{K14_SPEC}"], kernel, 0.01,
+        "main_path_kstep", f"{fhn_label}, speculative_k={K14_SPEC}",
+        launch_checks=kstep_launch_checks(cfg_k, K14_SPEC),
+        report=kstep_report(K14_SPEC), keep=kept)
+    traced = {name: profile_run(c, {}, 5.0, tag) for name, c, tag in (
+        ("per_step", cfg, "fused_erk_tile_kernel"),
+        ("kstep", cfg_k, "fused_kstep_kernel"))}
+    phase("kstep_vs_per_step", config=fhn_label, k=K14_SPEC,
+          steps=kept["steps"], per_step_steps=single_fhn["steps"],
+          wall_s=kept["wall_s"], per_step_wall_s=single_fhn["wall_s"],
+          wall_ratio=kept["wall_s"] / single_fhn["wall_s"],
+          steps_ratio=kept["steps"] / single_fhn["steps"],
+          kernels_per_step_tf5={n: t["kernels_per_step"]
+                                for n, t in traced.items()},
+          idle_share_tf5={n: t["device_idle_share"]
+                          for n, t in traced.items()}, card=card)
+    for k in GB_KS:
+        cfg_gk = dataclasses.replace(cfg_gb, speculative_k=k)
+        run_main_path(cfg_gk, probes["goldbeter", f"bs32_k{k}"], kernel, 0.01,
+                      "main_path_goldbeter_kstep",
+                      f"{gb_label}, speculative_k={k}",
+                      launch_checks=kstep_launch_checks(cfg_gk, k),
+                      report=kstep_report(k))
+    run_main_path(dataclasses.replace(cfg, step_mode="normal"),
+                  probes["fhn", "bs32_normal"], fused_step.fused_step, 0.01,
+                  "main_path_normal", f"{fhn_label}, step_mode=normal")
+    return launches
+
+
 def load_probes():
     """Every golden of PROBES: {(model, method): {name: array}}."""
     probes = {}
@@ -2405,7 +2673,8 @@ def main():
           ptxas_fused_shard_divform=ptxas_summary("fused_shard_divform.cu"),
           ptxas_fused_shard_box3d=ptxas_summary("fused_shard_box3d.cu"),
           ptxas_fused_shard_box3d_rkc=ptxas_summary(
-              "fused_shard_box3d_rkc.cu"))
+              "fused_shard_box3d_rkc.cu"),
+          ptxas_fused_kstep=ptxas_summary("fused_kstep.cu"))
     cfg_ap, ap_build = bounded_tissue()
     cfg_ap_rkc = dataclasses.replace(cfg_ap, method="rkc2")
     cfg_wide = wide_sheet()
@@ -2447,6 +2716,12 @@ def main():
                     mesh=shard_mesh(SHARD_MESH))
         profile_run(cfg_box, box_scar(cfg_box), tf,
                     "fused_shard_box3d_kernel", mesh=shard_mesh(SHARD_MESH))
+        # the canonical FHN torus over Tf=5, per step through K1 and in
+        # batches of K14_SPEC through K14
+        cfg_fhn = config_from_ini(INI, model="fhn", surface="torus")
+        profile_run(cfg_fhn, {}, 5.0, "fused_erk_tile_kernel")
+        profile_run(dataclasses.replace(cfg_fhn, speculative_k=K14_SPEC),
+                    {}, 5.0, "fused_kstep_kernel")
         return
     cfg = config_from_ini(INI, model="fhn", surface="torus")
     fhn_label = "data/FHNmodelArgs.ini fhn torus"
@@ -2606,6 +2881,11 @@ def main():
                                    aniso_build["diffusion_tensor"]),
         keep=singles["aniso"])
 
+    worst14 = check_kstep_kernel([cfg, cfg_flat, gb_torus, gb_flat,
+                                  ap_periodic])
+    timing14 = kstep_timing(cfg, card)
+    launches14 = kstep_main_paths(cfg, cfg_gb, probes, single_fhn, card)
+
     box_entries, box_singles = box_phases(cfg_box, card)
     shard_entries = shard_phases(cfg, probes, single_fhn, card)
     field_entries = shard_field_phases(cfg, programs, probes, singles, card)
@@ -2633,7 +2913,10 @@ def main():
                      "crdmodel_tpu/ops/pallas_aniso.py:82", launches5,
                      worst5, k5_timing),
         *box_entries, *shard_entries, *field_entries,
-        *shard_box_entries]}))
+        *shard_box_entries,
+        kernel_entry("fused_kstep", "fused_kstep.cu",
+                     "crdmodel_tpu/ops/pallas_kstep.py:112", launches14,
+                     worst14, timing14[K14_SPEC])]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

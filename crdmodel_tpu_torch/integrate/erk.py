@@ -16,13 +16,18 @@ masked no-op once the interval is done, so the host reads the loop
 condition only once every `sync_every` iterations: a block of iterations
 may run past the end, and those iterations change nothing.
 
-Ported: scalar mode with step_mode="tstop", the ERK tableaus, RKC2
-(integrate/rkc.py, with the h cap h_limit_fn), the ark324 IMEX pair
-(integrate/imex.py), and the sharded run's reduce_fn: with a state that is
-a parallel/shards.Shards, the steppers' sums stay per shard and reduce_fn
-adds them on the control device (parallel/sharded.py), so every shard
-takes the same steps. Not ported yet (ROADMAP queue 1, item 14): member
-batching, speculative K-step batching, ARK_NORMAL mode and sync_fn
+Ported: scalar mode in both step modes, "tstop" (the last step of every
+interval clamped onto its stop) and "normal" (ARKode's ARK_NORMAL: steps
+run freely past each output and the snapshot is cubic Hermite dense
+output, integrate_interval_free and hermite_interpolate); the ERK
+tableaus, RKC2 (integrate/rkc.py, with the h cap h_limit_fn), the ark324
+IMEX pair (integrate/imex.py); speculative K-step batching, on the torch
+path (integrate_interval_batched) and through a K-step kernel
+(integrate_interval_kernel_batched, ops/fused_kstep.py, kernel K14); and
+the sharded run's reduce_fn: with a state that is a parallel/shards.Shards,
+the steppers' sums stay per shard and reduce_fn adds them on the control
+device (parallel/sharded.py), so every shard takes the same steps. Not
+ported yet (ROADMAP queue 1, item 14): member batching and sync_fn
 (ensembles).
 """
 
@@ -313,6 +318,312 @@ def integrate_interval(step_err, t0, y0, h_init, err_prev_init, tout, params,
     return t, y, h, ep, (nstep, nacc, nrej, status)
 
 
+def integrate_interval_free(step_err, t0, y0, h_init, err_prev_init, tout,
+                            params, *, err_order, max_steps, global_size,
+                            carry0=(), bracket0=None, first_interval=False,
+                            status0=None, h_limit_fn=None, t_cap=None,
+                            sync_every=SYNC_EVERY, reduce_fn=None):
+    """ARK_NORMAL interval (crdmodel_tpu/integrate/erk.py:408-516): step
+    freely until t >= tout, the last accepted step overshooting it, and
+    keep the last accepted step's start (t_lo, y_lo) as the bracket the
+    caller interpolates in at tout (ARKode steps past tout and interpolates
+    back, src/FHNmodel_torus.cpp:423 with ARK_NORMAL).
+
+    bracket0: (t_lo, y_lo) carried in from the previous interval; when t0
+    already lies past tout (one step crossed several outputs) no step runs
+    and it still brackets tout. t_cap: a 0-d tensor, the next breakpoint
+    after tout (+inf where none lies ahead), which no step may cross; a
+    step clamped only by it keeps the unclamped h as controller memory.
+    The other arguments are integrate_interval's. Returns (t, y, h,
+    err_prev, (t_lo, y_lo), (nstep, nacc, nrej, status)).
+    """
+    dtype, device = y0.dtype, y0.device
+    inv_q = 1.0 / float(err_order)
+    eps = float(torch.finfo(dtype).eps)
+    if bracket0 is None:
+        bracket0 = (t0, y0)
+
+    def body(state):
+        t, y, h, ep, epp, fc, br_t, br_y, nstep, nacc, nrej, status = state
+        active = (t < tout) & (status == 0) & (nstep < max_steps)
+        hs = h
+        if h_limit_fn is not None:
+            hs = torch.minimum(hs, h_limit_fn(t, y, params).to(dtype))
+        if t_cap is not None:
+            at_cap = t + hs >= t_cap
+            hs = torch.where(at_cap, t_cap - t, hs)
+
+        y_new, err_ss, fc_new = step_err(t, y, hs, params, fc)
+        if reduce_fn is not None:
+            err_ss = reduce_fn(err_ss)
+        err = torch.sqrt(err_ss / global_size).to(dtype)
+        err = torch.where(torch.isfinite(err), err, torch.inf)
+        raw_accept = err <= 1.0
+        accept = raw_accept & active
+
+        err_c = torch.clamp_min(err, 1e-10)
+        eta = (SAFETY
+               * (ERR_BIAS * err_c) ** (-PID_K1 * inv_q)
+               * (ERR_BIAS * ep) ** (PID_K2 * inv_q)
+               * (ERR_BIAS * epp) ** (-PID_K3 * inv_q))
+        if first_interval:
+            eta_max = torch.where(nacc == 0, ETA_MAX_FIRST, ETA_MAX).to(dtype)
+            h_grow = hs * torch.minimum(torch.clamp_min(eta, ETA_MIN),
+                                        eta_max)
+        else:
+            h_grow = hs * torch.clamp(eta, ETA_MIN, ETA_MAX)
+        if t_cap is not None:
+            # cap-clamped steps say nothing about the error-limited h
+            h_grow = torch.where(at_cap, torch.maximum(h, h_grow), h_grow)
+        h_next = torch.where(
+            active, torch.where(raw_accept, h_grow,
+                                hs * torch.clamp(eta, ETA_MIN,
+                                                 ETA_REJECT_MAX)), h)
+
+        # the bracket: the state at the start of the accepted step
+        br_t = torch.where(accept, t, br_t)
+        br_y = torch.where(accept, y, br_y)
+        t_next = torch.where(accept, t + hs, t)
+        y_next = torch.where(accept, y_new, y)
+        ep_next = torch.where(accept, err_c, ep)
+        epp_next = torch.where(accept, ep, epp)
+        if not isinstance(fc, tuple):     # () is the empty carry
+            fc = torch.where(accept, fc_new, fc)
+
+        hmin = 16.0 * eps * torch.clamp_min(torch.abs(t), 1.0)
+        status = torch.where(active & ~raw_accept & (h_next < hmin), 2,
+                             status)
+        return (t_next, y_next, h_next, ep_next, epp_next, fc, br_t, br_y,
+                nstep + active.to(torch.int32),
+                nacc + accept.to(torch.int32),
+                nrej + (active & ~raw_accept).to(torch.int32), status)
+
+    zero = torch.zeros((), dtype=torch.int32, device=device)
+    status = zero if status0 is None else status0
+    state = (t0, y0, h_init, err_prev_init, torch.ones_like(err_prev_init),
+             carry0, bracket0[0], bracket0[1], zero, zero, zero, status)
+
+    def go(state):
+        t, nstep, status = state[0], state[8], state[11]
+        return bool(((t < tout) & (status == 0) & (nstep < max_steps)).item())
+
+    while go(state):
+        for _ in range(sync_every):
+            state = body(state)
+    t, y, h, ep, _, _, br_t, br_y, nstep, nacc, nrej, status = state
+    status = torch.where((t < tout) & (status == 0), 1, status)
+    return t, y, h, ep, (br_t, br_y), (nstep, nacc, nrej, status)
+
+
+def hermite_interpolate(rhs, t_lo, y_lo, t_hi, y_hi, tout, params):
+    """Cubic Hermite dense output on [t_lo, t_hi] at tout, ARKode's default
+    interpolation degree (crdmodel_tpu/integrate/erk.py:519-537); the end
+    slopes are two rhs evaluations. A degenerate bracket (t_hi == t_lo, as
+    after a clamped interval) or one that ends before tout gives y_hi."""
+    dtype = y_hi.dtype
+    d = (t_hi - t_lo).to(dtype)
+    ok = (d > 0) & (t_hi >= tout)
+    d_safe = torch.where(ok, d, torch.ones_like(d))
+    s = torch.clamp((tout.to(dtype) - t_lo) / d_safe, 0.0, 1.0)
+    f_lo = rhs(t_lo, y_lo, params)
+    f_hi = rhs(t_hi, y_hi, params)
+    h00 = (1 + 2 * s) * (1 - s) ** 2
+    h10 = s * (1 - s) ** 2
+    h01 = s * s * (3 - 2 * s)
+    h11 = s * s * (s - 1)
+    y_out = (h00 * y_lo + h01 * y_hi
+             + (h10 * d_safe) * f_lo + (h11 * d_safe) * f_hi)
+    return torch.where(ok, y_out, y_hi)
+
+
+def _pick(stack, index):
+    """stack[index] for a 0-d integer tensor index, without a host read."""
+    return stack.index_select(0, index.reshape(1).to(torch.long))[0]
+
+
+def _batch_control(evec, K, t, h, ep, epp, status, active, inv_q, eps):
+    """The controller of a speculative K-step batch
+    (crdmodel_tpu/integrate/erk.py:584-626, 677-720): from the K sub-step
+    error norms evec, the accepted prefix and, masked by `active`, the
+    batch's h, error history, status and counts. Returns (prefix, all_ok,
+    (h, ep, epp, status), (attempted, accepted, rejected))."""
+    dtype = evec.dtype
+    evec = torch.where(torch.isfinite(evec), evec, torch.inf)
+    acc = torch.cumprod((evec <= 1.0).to(torch.int32), 0)
+    prefix = torch.sum(acc, dtype=torch.int32)
+    all_ok = prefix == K
+
+    e_last = torch.clamp_min(_pick(evec, torch.clamp_min(prefix - 1, 0)),
+                             1e-10)
+    e_prev = torch.where(prefix > 1,
+                         _pick(evec, torch.clamp_min(prefix - 2, 0)), ep)
+    e_rej = torch.clamp_min(_pick(evec, torch.clamp_max(prefix, K - 1)),
+                            1e-10)
+    e_ctl = torch.where(all_ok, e_last, e_rej)
+    e1 = torch.where(all_ok, e_prev, e_last)
+    eta = (SAFETY * (ERR_BIAS * e_ctl) ** (-PID_K1 * inv_q)
+           * (ERR_BIAS * torch.clamp_min(e1, 1e-10)) ** (PID_K2 * inv_q)
+           * (ERR_BIAS * torch.clamp_min(ep, 1e-10)) ** (-PID_K3 * inv_q))
+    # growth cap: one oversized h rejects a whole batch, so stay
+    # conservative near the controller's equilibrium but ramp fast while
+    # the errors are far below target
+    grow_cap = torch.where(e_ctl < 0.1, ETA_MAX, 1.4).to(dtype)
+    eta_acc = torch.minimum(torch.clamp_min(0.95 * eta, ETA_MIN), grow_cap)
+    eta_rej = torch.clamp(eta, ETA_MIN, ETA_REJECT_MAX)
+    h_next = h * torch.where(all_ok, eta_acc, eta_rej)
+
+    ep_next = torch.where(prefix > 0, e_last, ep)
+    epp_next = torch.where(prefix > 0, torch.where(prefix > 1, e_prev, ep),
+                           epp)
+    hmin = 16.0 * eps * torch.clamp_min(torch.abs(t), 1.0)
+    status_next = torch.where(~all_ok & (h_next < hmin), 2, status)
+    rejected = (~all_ok).to(torch.int32)
+    zero = torch.zeros_like(prefix)
+    control = (torch.where(active, h_next, h),
+               torch.where(active, ep_next, ep),
+               torch.where(active, epp_next, epp),
+               torch.where(active, status_next, status))
+    counts = (torch.where(active, prefix + rejected, zero),
+              torch.where(active, prefix, zero),
+              torch.where(active, rejected, zero))
+    return prefix, all_ok, control, counts
+
+
+def _batch_go(K, tout, max_steps):
+    """The batch loops' condition: a whole batch fits before tout."""
+    def go(t, h, nstep, status):
+        return (t + K * h <= tout) & (t < tout) & (status == 0) & (
+            nstep < max_steps)
+    return go
+
+
+def _batch_block(K, sync_every):
+    """Batch iterations between two host reads of the loop condition: a
+    block runs past the interval's end by up to its length less one, each
+    such iteration a masked batch of K sub-steps."""
+    return max(1, sync_every // K)
+
+
+def integrate_interval_batched(step_err, K, t0, y0, h_init, errs0, tout,
+                               params, *, err_order, max_steps, global_size,
+                               carry0=(), status0=None,
+                               sync_every=SYNC_EVERY, reduce_fn=None):
+    """Speculative K-step batches on the torch path
+    (crdmodel_tpu/integrate/erk.py:540-640): each batch takes K sub-steps
+    with a frozen h, the FSAL carry threaded through, and commits the
+    longest accepted prefix by one index into the stacked states. Each
+    sub-step is validated against the WRMS test, so the tolerance contract
+    is the per-step loop's; only the h sequence differs (one controller
+    update a batch, _batch_control). Batches run while t + K h stays inside
+    the interval; the per-step loop finishes it (integrate_interval), with
+    no etamx1 and no h cap, and its own step budget, as in the JAX package.
+
+    errs0 = (ep, epp), the controller's error history. Returns like
+    integrate_interval.
+    """
+    dtype, device = y0.dtype, y0.device
+    inv_q = 1.0 / float(err_order)
+    eps = float(torch.finfo(dtype).eps)
+    go = _batch_go(K, tout, max_steps)
+
+    def body(state):
+        t, y, h, ep, epp, fc, nstep, nacc, nrej, status = state
+        active = go(t, h, nstep, status)
+        ys, fcs, es = [y], [fc], []
+        for j in range(K):
+            yn, ss, fcn = step_err(t + j * h, ys[-1], h, params, fcs[-1])
+            ys.append(yn)
+            fcs.append(fcn)
+            es.append(ss if reduce_fn is None else reduce_fn(ss))
+        evec = torch.sqrt(torch.stack(es) / global_size).to(dtype)
+        prefix, _, (h_n, ep, epp, status), (ns, na, nr) = _batch_control(
+            evec, K, t, h, ep, epp, status, active, inv_q, eps)
+        # commit the longest accepted prefix (none in a masked iteration)
+        take = torch.where(active, prefix, torch.zeros_like(prefix))
+        y = _pick(torch.stack(ys), take)
+        if not isinstance(fc, tuple):     # () is the empty carry
+            fc = _pick(torch.stack(fcs), take)
+        t = torch.where(active, t + prefix.to(dtype) * h, t)
+        return (t, y, h_n, ep, epp, fc, nstep + ns, nacc + na, nrej + nr,
+                status)
+
+    zero = torch.zeros((), dtype=torch.int32, device=device)
+    status = zero if status0 is None else status0
+    state = (t0, y0, h_init, errs0[0], errs0[1], carry0, zero, zero, zero,
+             status)
+    block = _batch_block(K, sync_every)
+    while bool(go(state[0], state[2], state[6], state[9]).item()):
+        for _ in range(block):
+            state = body(state)
+    t, y, h, ep, _, fc, nstep, nacc, nrej, status = state
+
+    # the tail: the per-step loop lands on tout
+    t, y, h, ep, (ns2, na2, nr2, status) = integrate_interval(
+        step_err, t, y, h, ep, tout, params, err_order=err_order,
+        max_steps=max_steps, global_size=global_size, carry0=fc,
+        status0=status, sync_every=sync_every, reduce_fn=reduce_fn)
+    return t, y, h, ep, (nstep + ns2, nacc + na2, nrej + nr2, status)
+
+
+def integrate_interval_kernel_batched(kcall, K, t0, y0, h_init, errs0, tout,
+                                      params, *, err_order, max_steps,
+                                      global_size, status0=None,
+                                      tail_step_err=None, tail_carry0=(),
+                                      sync_every=SYNC_EVERY):
+    """integrate_interval_batched through a K-step kernel
+    (crdmodel_tpu/integrate/erk.py:643-734; ops/fused_kstep.py, K14).
+
+    kcall(t, y, h, n_commit, params, full) -> (y_committed, partials
+    (n_blocks, K)): K frozen-h sub-steps in one launch, committing sub-step
+    n_commit (a 0-d int32 tensor), with each sub-step's partial error sums.
+    The K error norms come from one sum over the block axis. A batch issues
+    two launches and reads nothing on the host: the speculative one
+    (n_commit = K; -1 in a masked iteration, which returns at once) and a
+    recovery one (full=False) that recomputes the accepted prefix after a
+    mid-batch rejection (n_commit = prefix), returns at once when the whole
+    batch was accepted (-1), and copies y in a masked iteration (-2); one
+    torch.where picks the batch's result. The per-step loop through
+    tail_step_err (the single-step kernel, K1) lands on tout.
+    """
+    dtype, device = y0.dtype, y0.device
+    inv_q = 1.0 / float(err_order)
+    eps = float(torch.finfo(dtype).eps)
+    go = _batch_go(K, tout, max_steps)
+    i32 = dict(dtype=torch.int32, device=device)
+    spec_n, skip, copy = (torch.tensor(v, **i32) for v in (K, -1, -2))
+
+    def body(state):
+        t, y, h, ep, epp, nstep, nacc, nrej, status = state
+        active = go(t, h, nstep, status)
+        y_k, sss = kcall(t, y, h, torch.where(active, spec_n, skip), params,
+                         True)
+        evec = torch.sqrt(torch.sum(sss, dim=0) / global_size).to(dtype)
+        prefix, all_ok, (h_n, ep, epp, status), (ns, na, nr) = \
+            _batch_control(evec, K, t, h, ep, epp, status, active, inv_q,
+                           eps)
+        n_rec = torch.where(active, torch.where(all_ok, skip, prefix), copy)
+        y_rec, _ = kcall(t, y, h, n_rec, params, False)
+        y = torch.where(active & all_ok, y_k, y_rec)
+        t = torch.where(active, t + prefix.to(dtype) * h, t)
+        return (t, y, h_n, ep, epp, nstep + ns, nacc + na, nrej + nr,
+                status)
+
+    zero = torch.zeros((), **i32)
+    status = zero if status0 is None else status0
+    state = (t0, y0, h_init, errs0[0], errs0[1], zero, zero, zero, status)
+    block = _batch_block(K, sync_every)
+    while bool(go(state[0], state[2], state[5], state[8]).item()):
+        for _ in range(block):
+            state = body(state)
+    t, y, h, ep, _, nstep, nacc, nrej, status = state
+
+    t, y, h, ep, (ns2, na2, nr2, status) = integrate_interval(
+        tail_step_err, t, y, h, ep, tout, params, err_order=err_order,
+        max_steps=max_steps, global_size=global_size, carry0=tail_carry0,
+        status0=status, sync_every=sync_every)
+    return t, y, h, ep, (nstep + ns2, nacc + na2, nrej + nr2, status)
+
+
 def make_stepper(method, rhs, rtol, atol, rho_fn=None, rhs_split=None):
     """(step_err, init_carry, err_order) of a method name: the ERK tableaus,
     rkc2 and ark324 (crdmodel_tpu/integrate/erk.py:737-762). rhs_split:
@@ -382,16 +693,27 @@ def integrate_to_outputs(rhs, y0, params, t0, touts, *, rtol, atol,
     y_loop0/capture: the state the loop carries when a fused kernel keeps
     its own layout (the shard kernels' halo-padded buffers), and the map
     back to what the trajectory records; by default y0 and the identity.
+
+    spec_k > 1: speculative K-step batches, through kstep_call (a K-step
+    kernel, integrate_interval_kernel_batched; step_err is then its tail
+    stepper) or on step_err (integrate_interval_batched).
+    step_mode="normal": ARKode's ARK_NORMAL (crdmodel_tpu/integrate/
+    erk.py:944-1020): steps run freely past each output, whose snapshot is
+    cubic Hermite dense output on the plain fields (capture), while
+    breakpoints stay exact stops: a stop on a breakpoint is clamped and no
+    step crosses the next breakpoint. It takes no speculative batching.
     """
-    unported = {"n_members": n_members, "spec_k": spec_k,
-                "kstep_call": kstep_call, "sync_fn": sync_fn}
+    unported = {"n_members": n_members, "sync_fn": sync_fn}
     for name, value in unported.items():
         if value:
             raise NotImplementedError(f"{name} is not ported yet (ROADMAP "
                                       "queue 1, item 14)")
-    if step_mode != "tstop":
-        raise NotImplementedError(f"step_mode={step_mode!r} is not ported "
-                                  "yet (ROADMAP queue 1, item 14)")
+    if step_mode not in ("tstop", "normal"):
+        raise ValueError(f"step_mode must be tstop|normal, got {step_mode!r}")
+    if step_mode == "normal" and (spec_k or kstep_call is not None):
+        raise ValueError("step_mode='normal' does not support speculative "
+                         "K-step batching (its h sequence is already "
+                         "output-schedule-free)")
     dtype, device = y0.dtype, y0.device
     if global_size is None:
         global_size = y0.numel()
@@ -426,21 +748,58 @@ def integrate_to_outputs(rhs, y0, params, t0, touts, *, rtol, atol,
     y = y_loop0
     errp = torch.ones((), dtype=dtype, device=device)
     status = torch.zeros((), dtype=torch.int32, device=device)
+    common = dict(err_order=err_order, max_steps=max_steps,
+                  global_size=global_size, sync_every=sync_every)
     traj, per_stop = [], []
+    if step_mode == "normal":
+        # breakpoints stay exact stops: a stop on one is clamped, and no
+        # free step crosses the next one (t_cap)
+        bps = sorted(float(b) for b in breakpoints)
+        is_bp = np.array([any(np.isclose(s, b) for b in bps)
+                          for s in stop_times])
+        caps = [min([b for b in bps if b > s and not np.isclose(b, s)],
+                    default=np.inf) for s in stop_times]
+        use_free = is_output & ~is_bp
+        br_t, br_y = t, y
     for k in range(len(stop_times)):
         p = seg_params(stops[k])
         # fresh stepper cache per segment: the RHS may differ across a
         # breakpoint (freeze release)
-        t, y, h, errp, stats = integrate_interval(
-            step_err, t, y, h, errp, stops[k], p, err_order=err_order,
-            max_steps=max_steps, global_size=global_size,
-            carry0=init_carry(t, y, p), first_interval=(k == 0),
-            status0=status, h_limit_fn=h_limit_fn, sync_every=sync_every,
-            reduce_fn=reduce_fn)
+        fc0 = init_carry(t, y, p)
+        if step_mode == "normal" and use_free[k]:
+            t, y, h, errp, (br_t, br_y), stats = integrate_interval_free(
+                step_err, t, y, h, errp, stops[k], p, carry0=fc0,
+                bracket0=(br_t, br_y), first_interval=(k == 0),
+                status0=status, h_limit_fn=h_limit_fn,
+                t_cap=torch.tensor(caps[k], dtype=dtype, device=device),
+                reduce_fn=reduce_fn, **common)
+        elif kstep_call is not None and spec_k and spec_k > 1:
+            t, y, h, errp, stats = integrate_interval_kernel_batched(
+                kstep_call, int(spec_k), t, y, h,
+                (errp, torch.ones_like(errp)), stops[k], p, status0=status,
+                tail_step_err=step_err, tail_carry0=fc0, **common)
+        elif spec_k and spec_k > 1:
+            t, y, h, errp, stats = integrate_interval_batched(
+                step_err, int(spec_k), t, y, h,
+                (errp, torch.ones_like(errp)), stops[k], p, carry0=fc0,
+                status0=status, reduce_fn=reduce_fn, **common)
+        else:
+            t, y, h, errp, stats = integrate_interval(
+                step_err, t, y, h, errp, stops[k], p, carry0=fc0,
+                first_interval=(k == 0), status0=status,
+                h_limit_fn=h_limit_fn, reduce_fn=reduce_fn, **common)
+            if step_mode == "normal":
+                # a clamped stop: the bracket is degenerate, the snapshot y
+                br_t, br_y = t, y
         status = stats[-1]
         per_stop.append(torch.stack(stats))
         if is_output[k]:
-            traj.append(capture(y))
+            if step_mode == "normal":
+                # dense output on the plain fields: two rhs evaluations
+                traj.append(hermite_interpolate(rhs, br_t, capture(br_y), t,
+                                                capture(y), stops[k], p))
+            else:
+                traj.append(capture(y))
 
     per_stop = torch.stack(per_stop)          # (n_stops, 4)
     seg = torch.as_tensor(seg_ids, device=device)

@@ -41,7 +41,7 @@ _INTP = ctypes.POINTER(ctypes.c_int)
 # fused_imex.cu, fused_divform.cu, fused_aniso.cu, fused_box3d.cu,
 # fused_box3d_rkc.cu, fused_shard_step.cu, fused_shard_rkc.cu,
 # fused_shard_imex.cu, fused_shard_divform.cu, fused_shard_box3d.cu,
-# fused_shard_box3d_rkc.cu)
+# fused_shard_box3d_rkc.cu, fused_kstep.cu)
 _FUSED_STEP_ARGTYPES = ([_VOIDP] * 8 + [_INT, _VOIDP, _INT, _VOIDP]
                         + [_INT] * 7 + [_DOUBLEP] * 3
                         + [_DOUBLE, _DOUBLE, _VOIDP])
@@ -82,6 +82,12 @@ _FUSED_SHARD_DIVFORM_ARGTYPES = ([_VOIDP] * 9
                                  + [_INT, _VOIDP, _INT, _VOIDP, _INT, _VOIDP]
                                  + [_INT] * 10 + [_DOUBLEP] * 3
                                  + [_DOUBLE, _DOUBLE, _VOIDP])
+# K14: y, y_out, ss, work, h, fz, n_commit, counts; full, k; K1's
+# operator (c0..c2, torus, beta, beta_field, mask), then has_freeze,
+# kinetics, ny, nx, tile_y, n_stages and the tableau
+_FUSED_KSTEP_ARGTYPES = ([_VOIDP] * 8 + [_INT] * 2 + [_VOIDP] * 3
+                         + [_INT, _VOIDP, _INT, _VOIDP] + [_INT] * 6
+                         + [_DOUBLEP] * 3 + [_DOUBLE, _DOUBLE, _VOIDP])
 SIGNATURES = {
     "crd_fused_erk_step_f32": _FUSED_STEP_ARGTYPES,
     "crd_fused_erk_step_f64": _FUSED_STEP_ARGTYPES,
@@ -109,6 +115,8 @@ SIGNATURES = {
     "crd_fused_shard_box3d_step_f64": _FUSED_SHARD_BOX3D_ARGTYPES,
     "crd_fused_shard_box3d_rkc_step_f32": _FUSED_SHARD_BOX3D_RKC_ARGTYPES,
     "crd_fused_shard_box3d_rkc_step_f64": _FUSED_SHARD_BOX3D_RKC_ARGTYPES,
+    "crd_fused_kstep_f32": _FUSED_KSTEP_ARGTYPES,
+    "crd_fused_kstep_f64": _FUSED_KSTEP_ARGTYPES,
 }
 
 

@@ -104,11 +104,19 @@ def error_sum(err, y, rtol: float, atol: float):
 def erk_stages_reference(y, h, rhs_block, tableau: Tableau):
     """(y_new, err) of one step of `tableau` on rhs_block(y) in plain torch,
     in the order of the ERK tile kernels."""
+    y_new, err, _ = erk_stages_from(y, h, rhs_block, tableau, rhs_block(y))
+    return y_new, err
+
+
+def erk_stages_from(y, h, rhs_block, tableau: Tableau, k1):
+    """erk_stages_reference with the first stage k1 given, as an FSAL
+    tableau's previous step hands it on (ops/fused_kstep.py): (y_new, err,
+    k_last), k_last the last stage."""
     a, bw = tableau.a, tableau.b
     d = tableau.b - tableau.bhat
     n = tableau.stages
-    ks = []
-    for s in range(n):
+    ks = [k1]
+    for s in range(1, n):
         yi = y
         for j in range(s):
             if a[s, j] != 0.0:
@@ -121,7 +129,7 @@ def erk_stages_reference(y, h, rhs_block, tableau: Tableau):
             y_new = y_new + (h * float(bw[s])) * ks[s]
         if d[s] != 0.0:
             err = err + (h * float(d[s])) * ks[s]
-    return y_new, err
+    return y_new, err, ks[-1]
 
 
 def fused_step_reference(y, h, fz, kc: KernelConstants, tableau: Tableau,

@@ -28,7 +28,9 @@ on the box, K13 (ops/fused_shard_box3d_rkc.py); each with the gates of
 the JAX package's maybe_fused_shard_*; else the torch path
 (make_local_rhs: a width-1 exchange before every RHS evaluation). Not
 ported yet, each raising NotImplementedError with its ROADMAP item:
-forcing (item 9), streaming (item 5) and member lockstep (item 14).
+forcing (item 9), step_mode="normal" (item 15), streaming (item 5) and
+member lockstep (item 14). speculative_k is ignored, as in the JAX
+package's sharded driver: every shard steps one step at a time.
 """
 
 from __future__ import annotations
@@ -66,6 +68,10 @@ def _unported(problem: Problem):
     if problem.forcing is not None:
         raise NotImplementedError("forcing is not ported yet (ROADMAP queue "
                                   "1, item 9)")
+    if problem.cfg.step_mode != "tstop":
+        raise NotImplementedError(f"step_mode={problem.cfg.step_mode!r} on "
+                                  "a mesh is not ported yet (ROADMAP queue "
+                                  "1, item 15)")
 
 
 def tensor_weight(problem: Problem):

@@ -28,6 +28,16 @@ problems, and K2 and K3 decline diffusion tensors. Everything else takes
 the torch path (integrate/erk.py::make_stepper). On a CPU device the fused
 path runs the kernel's plain version, the counterpart of the JAX
 package's interpret=True.
+
+speculative_k = K > 1 (crdmodel_tpu/sim.py:270-300): on K1's route with
+step_mode "tstop", the K-step kernel K14 takes K frozen-h sub-steps a
+launch (ops/fused_kstep.py::is_kstep_supported) and K1 each interval's
+tail; where no ERK kernel takes the steps (the torch path, and ark324 on
+K3 or off it) the loop batches K steps of its stepper
+(integrate/erk.py::integrate_interval_batched); rkc2, step_mode "normal"
+and K4, K5 and K6 step one step at a time. Unlike the JAX package, whose
+interpret=True never selects K14, a CPU device with use_pallas=True runs
+K14's plain version.
 """
 
 from __future__ import annotations
@@ -49,7 +59,8 @@ from crdmodel_tpu_torch.integrate.erk import (TABLEAUS, SolveStats,
                                               integrate_to_outputs)
 from crdmodel_tpu_torch.ops import (fused_aniso, fused_box3d,
                                     fused_box3d_rkc, fused_divform,
-                                    fused_imex, fused_rkc, fused_step)
+                                    fused_imex, fused_kstep, fused_rkc,
+                                    fused_step)
 from crdmodel_tpu_torch.ops.kernel_common import needs_divform
 
 STATUS_NAMES = {0: "ok", 1: "max-steps-exceeded", 2: "dt-underflow"}
@@ -65,6 +76,7 @@ class SimResult:
     stats: SolveStats
     wall_time: float
     fused: bool                # True when the fused step took every step
+                               # (with speculative_k, K14 and K1 the tail)
 
     @property
     def ok(self) -> bool:
@@ -160,9 +172,6 @@ def make_run_fn(problem: Problem):
     """run(y0, params) -> (traj, stats), its output times, and whether it
     takes the fused path."""
     cfg = problem.cfg
-    if cfg.speculative_k > 1:
-        raise NotImplementedError("speculative_k is not ported yet (ROADMAP "
-                                  "queue 1, item 14; kernel K14)")
     touts = output_times(cfg)
     breakpoints = solver_breakpoints(cfg)
     dtype = problem.y0.dtype
@@ -184,6 +193,8 @@ def make_run_fn(problem: Problem):
     kw = {}
     fused = fused_eligible(problem)
     box = problem.geometry.kind == "box"
+    k = int(cfg.speculative_k)
+    kstep = None
     if fused and cfg.method == "rkc2":
         # all Chebyshev stages in one launch; h capped to the kernel's
         # stage budget
@@ -207,17 +218,32 @@ def make_run_fn(problem: Problem):
                 build = fused_divform.build_fused_divform_step
             else:
                 build = fused_step.build_fused_step
+                if (k > 1 and cfg.step_mode == "tstop"
+                        and fused_kstep.is_kstep_supported(problem, tableau,
+                                                           dtype, k)):
+                    kstep = fused_kstep.build_fused_kstep(problem, tableau, k)
             step_err = build(problem, tableau)
             err_order = tableau.err_order
         kw = dict(step_err=lambda t, y, h, p, carry: (*step_err(t, y, h, p), ()),
                   err_order=err_order)
+        if kstep is not None:
+            kw["kstep_call"] = kstep.call
+    # speculation batches the steps of the torch path, of K3, or of K14;
+    # rkc2 (its h cap wants per-step control), ARK_NORMAL and K4-K6 step
+    # one step at a time
+    erk_kernel = fused and cfg.method not in ("rkc2", "ark324")
+    if cfg.method == "rkc2" or cfg.step_mode == "normal" or (
+            erk_kernel and kstep is None):
+        spec_k = 0
+    else:
+        spec_k = k
 
     def run(y0, params):
         return integrate_to_outputs(
             problem.rhs, y0, params, 0.0, touts, rtol=cfg.rtol,
             atol=cfg.atol, method=cfg.method, max_steps=cfg.max_steps,
             breakpoints=breakpoints, step_mode=cfg.step_mode, rho_fn=rho_fn,
-            rhs_split=rhs_split, **kw)
+            rhs_split=rhs_split, spec_k=spec_k, **kw)
 
     return run, touts, fused
 

@@ -28,8 +28,15 @@ run takes the h cap of the box kernels' stage budget, STAB_FACTOR
 (C - 1)^2 / rho with C = 7 (crdmodel_tpu/ops/pallas_box3d_rkc.py:644-650),
 through integrate_to_outputs' h_limit_fn, so that the XLA path takes the
 step sequence of the fused kernels (uncapped it takes some 20% fewer
-steps), and writes tests/golden/torch_box[_scar]_rkc2_probes.npz. Each
-file holds:
+steps), and writes tests/golden/torch_box[_scar]_rkc2_probes.npz. With
+--speculative-k K (K > 1) the run takes K-step speculative batches (on the
+CPU the JAX package's XLA-side speculation, integrate/erk.py::
+integrate_interval_batched) and the file name gains _k<K>; with
+--step-mode normal it steps freely past each output and interpolates back
+(ARK_NORMAL, integrate/erk.py::integrate_interval_free), and the name
+gains _normal: e.g. tests/golden/torch_canonical_fhn_k5_probes.npz,
+tests/golden/torch_canonical_goldbeter_k10_probes.npz,
+tests/golden/torch_canonical_fhn_normal_probes.npz. Each file holds:
 
   steps_f32, accepted_f32, rejected_f32   per output interval, JAX f32 run
   steps_f64, accepted_f64, rejected_f64   the same for the f64 run
@@ -60,7 +67,7 @@ tissue run a few minutes; a box run moves an 8.4M-point state through
 some 120 to 420 steps and takes far longer:
 
     python scripts/torch_canonical_probes.py [--model goldbeter]
-        [--method rkc2|ark324]
+        [--method rkc2|ark324] [--speculative-k K] [--step-mode normal]
     python scripts/torch_canonical_probes.py --config bounded_ap
         [--method rkc2]
     python scripts/torch_canonical_probes.py --config aniso_sheet
@@ -113,9 +120,15 @@ FIBERS = dict(d_par=1.0, d_perp=0.2, angle0=0.0, angle1=np.pi / 3)
 BOX_RKC_STAGES = 7
 
 
-def out_path(name: str, method: str) -> str:
-    """The probe file of a program and method; bs32 has no method tag."""
+def out_path(name: str, method: str, speculative_k: int = 0,
+             step_mode: str = "tstop") -> str:
+    """The probe file of a program and method; bs32 has no method tag, the
+    per-step TSTOP run no stepping tag."""
     tag = "" if method == "bs32" else f"_{method}"
+    if speculative_k > 1:
+        tag += f"_k{speculative_k}"
+    if step_mode != "tstop":
+        tag += f"_{step_mode}"
     return os.path.join(GOLDEN, f"torch_{name}{tag}_probes.npz")
 
 
@@ -190,29 +203,35 @@ def main():
     ap.add_argument("--model", default="fhn", choices=sorted(INIS))
     ap.add_argument("--method", default="bs32",
                     choices=("bs32", "rkc2", "ark324"))
+    ap.add_argument("--speculative-k", type=int, default=0)
+    ap.add_argument("--step-mode", default="tstop",
+                    choices=("tstop", "normal"))
     args = ap.parse_args()
+    stepping = dict(speculative_k=args.speculative_k,
+                    step_mode=args.step_mode)
     build_kw = {}
     out = {}
     if args.config == "bounded_ap":
         base, build_kw = bounded_tissue()
-        base = dataclasses.replace(base, method=args.method)
-        path = out_path("bounded_ap", args.method)
+        base = dataclasses.replace(base, method=args.method, **stepping)
+        path = out_path("bounded_ap", args.method, **stepping)
     elif args.config == "aniso_sheet":
-        base = SimConfig(**ANISO_SHEET)
+        base = SimConfig(**ANISO_SHEET, **stepping)
         tensor = fiber_tensor(base, **FIBERS)
         build_kw = dict(diffusion_tensor=tensor)
         out.update(dxx=tensor[0], dyy=tensor[1], dxy=tensor[2])
-        path = out_path("aniso_sheet", base.method)
+        path = out_path("aniso_sheet", base.method, **stepping)
     elif args.config in ("box", "box_scar"):
-        base = dataclasses.replace(volumetric_box(), method=args.method)
+        base = dataclasses.replace(volumetric_box(), method=args.method,
+                                   **stepping)
         if args.config == "box_scar":
             build_kw = box_scar(base)
-        path = out_path(args.config, args.method)
+        path = out_path(args.config, args.method, **stepping)
     else:
         model, method = args.model, args.method
         base = config_from_ini(INIS[model], model=model, surface="torus")
-        base = dataclasses.replace(base, method=method)
-        path = out_path(f"canonical_{model}", method)
+        base = dataclasses.replace(base, method=method, **stepping)
+        path = out_path(f"canonical_{model}", method, **stepping)
     box = base.surface == "box"
     shape = (base.nz, base.ny, base.nx) if box else (base.ny, base.nx)
     axes = ("k", "j", "i")[-len(shape):]
