@@ -130,7 +130,9 @@ for _model, _tag in ([("fhn", f"k{K14_SPEC}"), ("fhn", "normal")]
         GOLDEN, f"torch_canonical_{_model}_{_tag}_probes.npz")
 SEED = 1234
 H = 2e-3        # about 1/rho(L) on the canonical grid: stage errors resolved
-K2_STAGES = (2, 5, 15, 23)   # K2's stage counts checked, up to S_MAX_KERNEL
+# K2's stage counts checked, up to S_MAX_KERNEL, with those around its
+# chunk boundaries (k2_stages: D - 1, D, D + 1 and 2D, D the chunk depth)
+K2_STAGES = (2, 15, 23)
 K2_TIMED_STAGES = (5, 23)    # an accuracy-limited and a stability-bound step
 # K2's longest step checked: the Goldbeter and Aliev-Panfilov kinetics set
 # rho on their grids, and the coverage of 22 stages there would leave the
@@ -149,6 +151,8 @@ K2_DIVFORM_STAGES = (2, 5, 23)
 # stability-bound stage count; timed with fewer samples (a plain step at
 # s = 23 moves some 40 GB there)
 K2B_STAGES = (5, 23)
+# and timed, with s = 9 about the wide run's mean stage count
+K2B_TIMED_STAGES = (5, 9, 23)
 WIDE_TIMED = (10, 3)
 # K5's step: the fibered sheet's mean step, Tf/steps = 1/775 (JAX f32)
 K5_H = 1.3e-3
@@ -390,11 +394,20 @@ def check_kernel(cases):
     return worst, timing
 
 
+def k2_stages():
+    """K2's checked stage counts: K2_STAGES and those around its chunk
+    boundaries, D - 1, D, D + 1 and 2D (ops/fused_rkc.py CHUNK)."""
+    from crdmodel_tpu_torch.ops.fused_rkc import CHUNK
+    return tuple(sorted({*K2_STAGES, CHUNK - 1, CHUNK, CHUNK + 1,
+                         2 * CHUNK}))
+
+
 def check_rkc_kernel(cases):
     """K2 against its plain version at the main paths' shapes, for each
-    config of `cases` (the FHN torus first), each of K2_STAGES with h the
-    stability coverage of s - 1 stages, at most K2_MAX_H; returns the f32
-    max error and
+    config of `cases` (the FHN torus first; a grid smaller than a chunk's
+    halo among them), each of k2_stages() with h the stability coverage of
+    s - 1 stages, at most K2_MAX_H, f32 and f64, fz 0 and 1: y_new bitwise
+    equal, two launches bitwise equal; returns the max errors and
     {s: (kernel ms, plain ms, bound ms, bound_by)} at the canonical shape."""
     from crdmodel_tpu_torch.core.problem import build_problem
     from crdmodel_tpu_torch.ops import fused_rkc as fr
@@ -411,7 +424,7 @@ def check_rkc_kernel(cases):
             mu1, ctab = fr.static_stage_tables(fr.S_MAX_KERNEL, dtype, "cuda")
             y = torch.tensor(y_np, dtype=dtype, device="cuda")
             rho = problem_rho(problem, y)
-            for s in K2_STAGES:
+            for s in k2_stages():
                 h, st = rkc_step_inputs(s, rho, dtype)
                 for fz in (0.0, 1.0):
                     fzt = torch.tensor(fz, dtype=dtype, device="cuda")
@@ -419,10 +432,12 @@ def check_rkc_kernel(cases):
                     err = check_pair(
                         "k2_check",
                         dict(model=cfg.model, surface=cfg.surface,
+                             shape=list(y.shape),
                              beta="field" if kc.b_is_field else "scalar",
-                             s=s, fz=fz),
+                             s=s, fz=fz, chunks=len(fr.chunk_schedule(s))),
                         *fr.fused_rkc_step(*args), *fr.fused_rkc_step(*args),
-                        *fr.fused_rkc_step_reference(*args), dtype, y)
+                        *fr.fused_rkc_step_reference(*args), dtype, y,
+                        bitwise=True)
                     worst[dtype] = max(worst[dtype], err)
                 if (cfg is cases[0] and dtype == torch.float32
                         and s in K2_TIMED_STAGES):
@@ -450,15 +465,38 @@ def rkc_step_inputs(s, rho, dtype):
 
 
 def rkc_timing(y, h, st, mu1, ctab, kc, cfg, timed=(N_TIMED, BURST)):
-    """(kernel ms, plain ms, bound ms, bound_by) of one K2 step on y at the
-    stage count st, unfrozen; `timed` = (samples, calls a sample)."""
+    """(kernel ms, plain ms, bound ms, bound_by, design) of one K2 step on
+    y at the stage count st, unfrozen; `timed` = (samples, calls a
+    sample); design: k2_design's fields."""
     from crdmodel_tpu_torch.ops import fused_rkc as fr
     args = (y, h, torch.zeros((), dtype=y.dtype, device="cuda"), st, mu1,
             ctab, kc, cfg.rtol, cfg.atol)
     tables = sum(t.numel() * t.element_size() for t in (mu1, ctab))
-    return (median_ms(lambda: fr.fused_rkc_step(*args), *timed),
-            median_ms(lambda: fr.fused_rkc_step_reference(*args), *timed),
-            *bound(y, kc, rkc_ops(kc, int(st)), tables))
+    timing = (median_ms(lambda: fr.fused_rkc_step(*args), *timed),
+              median_ms(lambda: fr.fused_rkc_step_reference(*args), *timed),
+              *bound(y, kc, rkc_ops(kc, int(st)), tables))
+    return (*timing, k2_design(kc, y, int(st), timing))
+
+
+def k2_design(kc, y, s, timing):
+    """K2's design beside a timing (kernel ms, plain ms, bound ms, ...) at
+    stage count s on y: the launched kernel's registers, resident blocks an
+    SM and shared bytes (ops/fused_rkc.py::kernel_info), ptxas's most
+    registers and spills over fused_rkc.cu, its chunks and grid barriers a
+    launch, its time over its bound, and the device traffic its chunk
+    boundaries add beyond the bound's bytes (each boundary writes the
+    pair of 4 planes, the next chunk reads it, y0 and F0 back: 12 planes,
+    and F0's 2 planes once), with that traffic's time at the HBM rate."""
+    from crdmodel_tpu_torch.ops import fused_rkc as fr
+    info = fr.kernel_info(y.dtype, kc.kind == "divform", kc.kinetics_id)
+    barriers = fr.grid_barriers(s)
+    extra = (12 * barriers + 2 * (barriers > 0)) * y[0].numel() \
+        * y.element_size()
+    return dict(**info, ptxas=ptxas_summary("fused_rkc.cu"),
+                chunk_depth=fr.CHUNK, chunks=barriers + 1,
+                grid_barriers=barriers, times_bound=timing[0] / timing[2],
+                chunk_traffic_bytes=extra,
+                chunk_traffic_ms=extra / PEAK_BYTES_PER_S * 1e3)
 
 
 def check_rkc_divform_kernel(cases):
@@ -515,8 +553,8 @@ def check_wide_rkc_kernel(cfg):
     sheet's (2,12800,3200), against its plain version from a random state,
     each s of K2B_STAGES (h as in check_rkc_kernel), f32 (the sheet has no
     freeze: fz 0): y_new bitwise equal, two launches bitwise equal. Returns
-    the max errors and {s: (kernel ms, plain ms, bound ms, bound_by)} from
-    the sheet's ICs, with WIDE_TIMED samples."""
+    the max errors and {s: rkc_timing} from the sheet's ICs for each s of
+    K2B_TIMED_STAGES, with WIDE_TIMED samples."""
     from crdmodel_tpu_torch.core.problem import build_problem
     from crdmodel_tpu_torch.ops import fused_rkc as fr
     from crdmodel_tpu_torch.ops.kernel_common import prepare_constants
@@ -545,7 +583,7 @@ def check_wide_rkc_kernel(cfg):
     rho = problem_rho(problem, y)
     timing = {s: rkc_timing(y, *rkc_step_inputs(s, rho, dtype), mu1, ctab,
                             kc, cfg, timed=WIDE_TIMED)
-              for s in K2B_STAGES}
+              for s in K2B_TIMED_STAGES}
     return worst, timing
 
 
@@ -1218,8 +1256,9 @@ def run_wide_sheet(cfg, rkc2_probes):
     torch-path rkc2 (use_pallas=False), both on the card: steps within the
     rkc2 gate (2%), and the final fields within the JAX f32-f64 probe gap
     of the canonical rkc2 run plus 1e-4 (the sheet has no JAX golden: a
-    JAX CPU run of 41M points at this horizon is out of reach). Prints
-    phase main_path_wide_fhn_rkc2; returns K2's launches."""
+    JAX CPU run of 41M points at this horizon is out of reach); K2's mean
+    device time a launch from a traced second run. Prints phase
+    main_path_wide_fhn_rkc2; returns K2's launches."""
     from crdmodel_tpu_torch.core.problem import build_problem
     from crdmodel_tpu_torch.ops import fused_rkc
     from crdmodel_tpu_torch.sim import simulate
@@ -1233,6 +1272,8 @@ def run_wide_sheet(cfg, rkc2_probes):
     steps, wall, status = res.total_steps(), res.wall_time, res.describe()
     stats = res.stats
     del res
+    k2_us = traced_mean_us(lambda: run_program(cfg, {}),
+                           "fused_rkc_chunk_kernel")
     torch_cfg = dataclasses.replace(cfg, use_pallas=False)
     ref = simulate(torch_cfg, device="cuda",
                    problem=build_problem(torch_cfg, "cuda"))
@@ -1249,6 +1290,7 @@ def run_wide_sheet(cfg, rkc2_probes):
           launches=counts, launch_bound=launch_bound(cfg, steps),
           wall_s=wall, us_per_step=wall / steps * 1e6,
           points_steps_per_s=cfg.nx * cfg.ny * steps / wall,
+          k2_traced_run=k2_us,
           torch_path=dict(status=ref.describe(), fused=ref.fused,
                           steps=ref_steps, wall_s=ref.wall_time),
           step_limit=0.02, final_max_abs_vs_torch_path=gap,
@@ -1275,6 +1317,21 @@ def traced_kernels(prof):
         with open(path) as fh:
             events = json.load(fh)["traceEvents"]
     return [e for e in events if e.get("cat") == "kernel"]
+
+
+def traced_mean_us(run, tag):
+    """One call of run() (a whole run through the entry point) traced
+    with torch.profiler: the launches of the kernels whose name holds
+    `tag` and their mean device µs a launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    durations = [e["dur"] for e in traced_kernels(prof) if tag in e["name"]]
+    return dict(launches=len(durations),
+                mean_device_us=float(np.mean(durations)) if durations
+                else None)
 
 
 def device_ms(fn, tag, n=N_TIMED, attempts=4):
@@ -1344,8 +1401,9 @@ def profile_run(cfg, build_kw, t_final, kernel_tag, mesh=None):
 
 
 def kernel_entry(name, source, replaces, launches, worst, timing):
-    """One kernel's entry of the `kernels` line."""
-    ms, plain_ms, bound_ms, bound_by = timing
+    """One kernel's entry of the `kernels` line; timing (ms, plain ms,
+    bound ms, bound_by, ...)."""
+    ms, plain_ms, bound_ms, bound_by = timing[:4]
     return {"name": name, "route": "cuda",
             "source": f"crdmodel_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches,
@@ -2466,8 +2524,11 @@ def kstep_timing(cfg, card):
     """K14's timing at the canonical FHN shape, f32, bs32, for each K of
     K14_TIMED: the kernel's device time (profiler trace) and a burst's time
     a launch (CUDA events), a sub-step's share, the plain version's time,
-    the bound, and K1's time in this call. Prints k14_timing phases;
-    returns {K: (ms, plain_ms, bound_ms, bound_by)}."""
+    the bound and the time over it, the kernel's registers, resident
+    blocks an SM and shared bytes (ops/fused_kstep.py::kernel_info),
+    ptxas's most registers and spills over fused_kstep.cu, its grid
+    barriers a launch, and K1's time in this call. Prints k14_timing
+    phases; returns {K: (ms, plain_ms, bound_ms, bound_by)}."""
     from crdmodel_tpu_torch.core.problem import build_problem
     from crdmodel_tpu_torch.integrate.erk import TABLEAUS
     from crdmodel_tpu_torch.ops import fused_kstep as fk
@@ -2502,7 +2563,10 @@ def kstep_timing(cfg, card):
               dtype="float32", kernel_us=ms * 1e3,
               kernel_us_per_substep=ms * 1e3 / k, burst_us=burst_ms * 1e3,
               plain_us=plain_ms * 1e3, bound_us=bound_ms * 1e3,
-              bound_by=bound_by, k1_us=k1_ms * 1e3,
+              bound_by=bound_by, times_bound=ms / bound_ms,
+              **fk.kernel_info(torch.float32, kc.kinetics_id, tab.stages),
+              ptxas=ptxas_summary("fused_kstep.cu"),
+              grid_barriers=fk.grid_barriers(k), k1_us=k1_ms * 1e3,
               k1_us_times_k=k1_ms * 1e3 * k, card=card)
     return timings
 
@@ -2690,9 +2754,9 @@ def main():
                                                         method="ark324")}
     if sys.argv[1:] == ["--profile"]:
         profile_run(cfg_ap, ap_build, 1.0, "DivformRhs")
-        profile_run(cfg_ap_rkc, ap_build, 1.0, "fused_rkc_step_kernel")
+        profile_run(cfg_ap_rkc, ap_build, 1.0, "fused_rkc_chunk_kernel")
         profile_run(cfg_aniso, aniso_build, 0.25, "AnisoRhs")
-        profile_run(cfg_wide, {}, 0.05, "fused_rkc_step_kernel")
+        profile_run(cfg_wide, {}, 0.05, "fused_rkc_chunk_kernel")
         # the slab's runs whole: the ~54 steps of Tf/10 are too few for a
         # steady idle share (it read 12% and 39% in two runs)
         tf = cfg_box.t_final
@@ -2756,12 +2820,15 @@ def main():
           dtype="float32", kernel_us=k1_timing[0] * 1e3,
           plain_us=k1_timing[1] * 1e3, bound_us=k1_timing[2] * 1e3,
           bound_by=k1_timing[3], card=card)
+    # K2's cases: K1's four, and the canonical torus cut to 4 columns, a
+    # grid smaller than a chunk's halo, which the wrap covers many times
     worst2, timing2 = check_rkc_kernel([cfg, cfg_flat, gb_torus,
-                                        ap_periodic])
+                                        ap_periodic,
+                                        dataclasses.replace(cfg, x_mesh=4)])
     for s, t2 in timing2.items():
         phase("k2_timing", shape=[2, cfg.ny, cfg.nx], s=s, dtype="float32",
               kernel_us=t2[0] * 1e3, plain_us=t2[1] * 1e3,
-              bound_us=t2[2] * 1e3, bound_by=t2[3], card=card)
+              bound_us=t2[2] * 1e3, bound_by=t2[3], **t2[4], card=card)
     cfg_big = config_from_ini(GB_INI, model="goldbeter", surface="torus",
                               x_mesh=K3_BIG_MESH)
     worst3, timing3 = check_imex_kernel(
@@ -2797,13 +2864,13 @@ def main():
     for s, t2 in timing2d.items():
         phase("k2_divform_timing", shape=[2, cfg_ap.ny, cfg_ap.nx], s=s,
               dtype="float32", kernel_us=t2[0] * 1e3, plain_us=t2[1] * 1e3,
-              bound_us=t2[2] * 1e3, bound_by=t2[3], card=card)
+              bound_us=t2[2] * 1e3, bound_by=t2[3], **t2[4], card=card)
     # K2 at K2b's shape, the wide sheet's
     worst2b, timing2b = check_wide_rkc_kernel(cfg_wide)
     for s, t2 in timing2b.items():
         phase("k2b_timing", shape=[2, cfg_wide.ny, cfg_wide.nx], s=s,
               dtype="float32", kernel_us=t2[0] * 1e3, plain_us=t2[1] * 1e3,
-              bound_us=t2[2] * 1e3, bound_by=t2[3],
+              bound_us=t2[2] * 1e3, bound_by=t2[3], **t2[4],
               samples=list(WIDE_TIMED), card=card)
     # K5's cases at (2,1600,400), each with a freeze: the fibered sheet; a
     # constant tensor inside no-flux walls; FHN on the flat sheet with the

@@ -150,7 +150,10 @@ class SimConfig:
     # (True on a CPU device runs the kernel's plain torch version).
     use_pallas: Optional[bool] = None
     # Speculative K-step batching (crdmodel_tpu/integrate/erk.py::
-    # integrate_interval_batched). 0 = off; not ported yet (ROADMAP).
+    # integrate_interval_batched): K frozen-h steps a batch, on the torch
+    # path, through K3, or through the K-step kernel K14 on K1's problems
+    # (sim.py::make_run_fn). 0 = off; rkc2, ARK_NORMAL and the other
+    # fused ERK kernels step one step at a time.
     speculative_k: int = 0
     # Spatially-varying diffusion (conservative flux form,
     # ops/stencil.py::divergence_laplacian). "none" = the reference's

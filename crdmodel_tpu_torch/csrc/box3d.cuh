@@ -313,11 +313,13 @@ int dispatch_box(int mode, int kinetics, F f) {
 
 // A cooperative launch of `kernel` over n_points points: as many blocks as
 // stay resident on the card (every block must reach each grid barrier), at
-// most one a kBoxThreads points and at most `capacity` (the partial sums'
-// length). The grid size goes to *n_blocks; returns the CUDA error code.
+// most one a `threads` points and at most `capacity` (the partial sums'
+// length), each of `threads` threads with `smem` bytes of dynamic shared
+// memory. The grid size goes to *n_blocks; returns the CUDA error code.
 template <typename Kernel>
 int launch_cooperative(Kernel kernel, size_t n_points, int capacity,
-                       int* n_blocks, void** args, void* stream) {
+                       int* n_blocks, void** args, void* stream,
+                       size_t smem = 0, int threads = kBoxThreads) {
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
@@ -325,9 +327,9 @@ int launch_cooperative(Kernel kernel, size_t n_points, int capacity,
                                  device);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kBoxThreads, 0);
+                                                        threads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t want = (n_points + kBoxThreads - 1) / kBoxThreads;
+  const size_t want = (n_points + threads - 1) / threads;
   size_t blocks = static_cast<size_t>(sms) * per_sm;
   if (want < blocks) blocks = want;
   if (static_cast<size_t>(capacity) < blocks) blocks = capacity;
@@ -335,7 +337,7 @@ int launch_cooperative(Kernel kernel, size_t n_points, int capacity,
   *n_blocks = static_cast<int>(blocks);
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
                                     dim3(static_cast<unsigned>(blocks)),
-                                    dim3(kBoxThreads), args, 0,
+                                    dim3(threads), args, smem,
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

@@ -14,7 +14,8 @@
 // shards before s is chosen, so every shard runs the same s and the same
 // table rows, and adds every shard's partials in a fixed order.
 //
-// The tile scheme is K2's (rkc_tile.cuh) with the HaloGrid policy
+// The tile scheme is rkc_tile.cuh's one pass over s + 1 rings with the
+// HaloGrid policy
 // (rhs_common.cuh): the tile loads its s + 1 rings from the buffer, no index
 // wraps, and the RHS indexes the shard's halo-padded constants. Mirror-pad
 // cells of a mesh that does not divide the grid step like their sources

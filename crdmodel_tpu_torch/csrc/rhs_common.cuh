@@ -262,14 +262,15 @@ __device__ __forceinline__ void jacobian(T u, T v, T b, T& j00, T& j01,
 }
 
 // ydot = f(u, v) at local point p of a region with row stride W, whose
-// global indices are (gy, gx); fz is the freeze scalar of the segment.
+// global indices are (gy, gx), v the point's variable 1 (only variable 0
+// is read at neighbours); fz is the freeze scalar of the segment.
 template <int Kin, typename T>
-__device__ __forceinline__ void profile_rhs(
-    const RhsConstants<T>& k, T fz, const T* su, const T* sv, int p, int W,
-    int gy, int gx, T& du_out, T& dv_out) {
+__device__ __forceinline__ void profile_rhs_v(
+    const RhsConstants<T>& k, T fz, const T* su, T v, int p, int W, int gy,
+    int gx, T& du_out, T& dv_out) {
   const T lap = profile_lap(k, su, p, W, gx);
   T du, dv;
-  kinetics<Kin>(su[p], sv[p], beta_at(k, gy), du, dv);
+  kinetics<Kin>(su[p], v, beta_at(k, gy), du, dv);
   du = du + lap;
   if (k.has_freeze) {
     const T live = live_at(k, fz, gy);
@@ -280,7 +281,8 @@ __device__ __forceinline__ void profile_rhs(
   dv_out = dv;
 }
 
-// profile_rhs as the functor the ERK tile kernel takes (erk_tile.cuh)
+// profile_rhs_v as the functor the tile kernels take (erk_tile.cuh):
+// operator() reads v at p of the region sv, at() takes it by value
 template <int Kin, typename T>
 struct ProfileRhs {
   RhsConstants<T> k;
@@ -288,7 +290,11 @@ struct ProfileRhs {
   __device__ __forceinline__ void operator()(T fz, const T* su, const T* sv,
                                              int p, int W, int gy, int gx,
                                              T& du, T& dv) const {
-    profile_rhs<Kin>(k, fz, su, sv, p, W, gy, gx, du, dv);
+    profile_rhs_v<Kin>(k, fz, su, sv[p], p, W, gy, gx, du, dv);
+  }
+  __device__ __forceinline__ void at(T fz, const T* su, T v, int p, int W,
+                                     int gy, int gx, T& du, T& dv) const {
+    profile_rhs_v<Kin>(k, fz, su, v, p, W, gy, gx, du, dv);
   }
 };
 
@@ -305,7 +311,8 @@ struct FaceConstants {
 };
 
 // ydot at local point p (row stride W) of row and column indices (gy, gx)
-// of `grid` under the divergence-form operator on variable 0
+// of `grid`, v the point's variable 1, under the divergence-form operator
+// on variable 0
 // (ops/kernel_common.py::make_divform_rhs_block, make_shard_divform_rhs_
 // block): kinetics + aE(uE-u) + aW(uW-u) + aN(uN-u) + aS(uS-u), times live
 // with a freeze, times the tissue field with an obstacle. Closed faces
@@ -314,7 +321,7 @@ struct FaceConstants {
 template <int Kin, typename T, class Grid>
 __device__ __forceinline__ void divform_rhs(
     const FaceConstants<T>& f, const RhsConstants<T>& k, const Grid& grid,
-    T fz, const T* su, const T* sv, int p, int W, int gy, int gx, T& du_out,
+    T fz, const T* su, T v, int p, int W, int gy, int gx, T& du_out,
     T& dv_out) {
   const size_t g = grid.field(gy, gx);
   const size_t gs = grid.field(grid.south(gy), gx);
@@ -324,7 +331,7 @@ __device__ __forceinline__ void divform_rhs(
                 + __ldg(f.aN + g) * (su[p + W] - u)
                 + __ldg(f.aN + gs) * (su[p - W] - u);
   T du, dv;
-  kinetics<Kin>(u, sv[p], beta_at(k, gy), du, dv);
+  kinetics<Kin>(u, v, beta_at(k, gy), du, dv);
   du = du + lap;
   if (k.has_freeze) {
     const T live = live_at(k, fz, gy);
@@ -341,8 +348,9 @@ __device__ __forceinline__ void divform_rhs(
 }
 
 // divform_rhs as the functor the tile kernels take (erk_tile.cuh,
-// rkc_tile.cuh): WrapGrid for K4 and K2's divergence branch, HaloGrid for
-// K11's divform mode
+// fused_rkc.cu): WrapGrid for K4 and K2's divergence branch, HaloGrid for
+// K11's divform mode; operator() reads v at p of the region sv, at()
+// takes it by value
 template <int Kin, typename T, class Grid>
 struct DivformRhs {
   FaceConstants<T> f;
@@ -352,7 +360,11 @@ struct DivformRhs {
   __device__ __forceinline__ void operator()(T fz, const T* su, const T* sv,
                                              int p, int W, int gy, int gx,
                                              T& du, T& dv) const {
-    divform_rhs<Kin>(f, k, grid, fz, su, sv, p, W, gy, gx, du, dv);
+    divform_rhs<Kin>(f, k, grid, fz, su, sv[p], p, W, gy, gx, du, dv);
+  }
+  __device__ __forceinline__ void at(T fz, const T* su, T v, int p, int W,
+                                     int gy, int gx, T& du, T& dv) const {
+    divform_rhs<Kin>(f, k, grid, fz, su, v, p, W, gy, gx, du, dv);
   }
 };
 

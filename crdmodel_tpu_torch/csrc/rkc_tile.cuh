@@ -1,7 +1,8 @@
-// The tile scheme of the port's fused RKC2 step kernels: K2 (fused_rkc.cu,
-// the profile and divergence-form operators on the periodic grid) and K9
-// (fused_shard_rkc.cu, K2's profile branch on one shard of a mesh). One
-// launch performs a whole step of s Chebyshev stages (integrate/rkc.py):
+// The one-pass tile scheme of the fused RKC2 step on one shard of a mesh,
+// kernel K9 (fused_shard_rkc.cu); K2 (fused_rkc.cu) runs the same step in
+// chunks of stages instead, and shares quiet_nan and kRkcMaxStages from
+// here. One launch performs a whole step of s Chebyshev stages
+// (integrate/rkc.py):
 // F0 = f(y0), Y1 = y0 + (h mu1) F0, for j = 2..s
 //   Yj = (1 - mu - nu) y0 + mu Yj-1 + nu Yj-2 + (h mut) f(Yj-1) + (h gt) F0,
 // y_new = Ys, F1 = f(y_new), the order-2 error estimate

@@ -45,8 +45,10 @@ _INTP = ctypes.POINTER(ctypes.c_int)
 _FUSED_STEP_ARGTYPES = ([_VOIDP] * 8 + [_INT, _VOIDP, _INT, _VOIDP]
                         + [_INT] * 7 + [_DOUBLEP] * 3
                         + [_DOUBLE, _DOUBLE, _VOIDP])
-_FUSED_RKC_ARGTYPES = ([_VOIDP] * 8 + [_INT] + [_VOIDP] * 3 + [_INT]
-                       + [_VOIDP] * 4 + [_VOIDP, _INT, _VOIDP] + [_INT] * 6
+# K2: y, y_new, ss, work, h, fz, s, mu1_tab, ctab; s_cap; c0..c2; torus;
+# aE, aW, aN, tissue; beta, beta_field, mask; has_freeze, kinetics, ny, nx
+_FUSED_RKC_ARGTYPES = ([_VOIDP] * 9 + [_INT] + [_VOIDP] * 3 + [_INT]
+                       + [_VOIDP] * 4 + [_VOIDP, _INT, _VOIDP] + [_INT] * 4
                        + [_DOUBLE, _DOUBLE, _VOIDP])
 _FUSED_IMEX_ARGTYPES = ([_VOIDP] * 8 + [_INT, _VOIDP, _INT, _VOIDP]
                         + [_INT] * 6 + [_DOUBLEP] * 4
@@ -117,6 +119,10 @@ SIGNATURES = {
     "crd_fused_shard_box3d_rkc_step_f64": _FUSED_SHARD_BOX3D_RKC_ARGTYPES,
     "crd_fused_kstep_f32": _FUSED_KSTEP_ARGTYPES,
     "crd_fused_kstep_f64": _FUSED_KSTEP_ARGTYPES,
+    # (f64, kinetics, n_stages, tile_y, out[3]) and (f64, divform,
+    # kinetics, out[3]): a kernel's blocks an SM, registers, shared bytes
+    "crd_fused_kstep_info": [_INT] * 4 + [_INTP],
+    "crd_fused_rkc_info": [_INT] * 3 + [_INTP],
 }
 
 
@@ -202,6 +208,20 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def kernel_info(name: str, *args) -> dict:
+    """A launcher's kernel on the current card through its query
+    crd_*_info(*args, out): resident blocks an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the launch's threads
+    and dynamic shared memory), registers a thread and shared bytes a
+    block. Raises if the query fails."""
+    out = (ctypes.c_int * 3)()
+    rc = getattr(load_library(), name)(*args, out)
+    if rc != 0:
+        raise RuntimeError(f"{name}{args}: CUDA error {rc}")
+    return {"blocks_per_sm": out[0], "registers": out[1],
+            "shared_bytes": out[2]}
 
 
 def build() -> float:

@@ -23,14 +23,15 @@ sub-step's last; its error weights come from the state before it; its
 state is committed iff n_commit >= j + 1, so n_commit = 0 is the identity.
 Sub-step j's state is therefore bitwise j plain K1 steps. The TPU layout
 is gone (row strips, the deep halo P = halo_for(tableau, K) ring a RHS
-evaluation, the lane padding): the CUDA kernel keeps the stage values in
-device memory and puts a grid barrier after each RHS evaluation, so any K
-fits, and its partial sums are K1's, one per K1 tile and sub-step, in K1's
-order. Two device codes of n_commit serve the loop's launches without a
-host read: n_commit < 0 returns at once (a masked speculative launch, or
-a recovery launch after an accepted batch); a recovery launch (full=False)
-with n_commit <= -2 copies y (a masked iteration). A recovery launch
-computes only the first n_commit sub-steps, and its sums are unspecified.
+evaluation, the lane padding): the CUDA kernel takes each sub-step in one
+pass over K1's tiles with n - 1 rings (kstep_plan) and a grid barrier
+between sub-steps, so any K fits, and its partial sums are K1's, one per
+K1 tile and sub-step, in K1's order. Two device codes of n_commit serve the
+loop's launches without a host read: n_commit < 0 returns at once (a masked
+speculative launch, or a recovery launch after an accepted batch); a
+recovery launch (full=False) with n_commit <= -2 copies y (a masked
+iteration). A recovery launch computes only the first n_commit sub-steps,
+and its sums are unspecified.
 """
 
 from __future__ import annotations
@@ -53,6 +54,10 @@ from crdmodel_tpu_torch.ops.kernel_common import (KernelConstants,
                                                   prepare_constants)
 
 HALO = 8        # crdmodel_tpu/ops/pallas_step.py HALO, max_k's default
+THREADS = 512   # the kernel's blocks (csrc/fused_kstep.cu kThreads)
+# (n_stages, tile_y) of the kernel's instantiations a dtype's item size:
+# bs32 and dopri54, the FSAL tableaus, at K1's tiles
+KERNEL_TILES = {4: {(4, 32), (7, 32)}, 8: {(4, 32), (7, 16)}}
 
 
 def halo_for(tableau: Tableau, k: int) -> int:
@@ -88,6 +93,43 @@ def is_kstep_supported(problem, tableau: Tableau, dtype, k: int) -> bool:
     if not fused_step.is_supported(problem, tableau, dtype):
         return False
     return k <= max_k(tableau, P)
+
+
+def kstep_plan(n_stages: int, itemsize: int):
+    """(tile_y, halo, slots, shared bytes) of the kernel's blocks for an
+    n_stages tableau: K1's tile (fused_step.tile_plan) and n_stages - 1
+    rings, each of the block's THREADS threads owning `slots` of the
+    region's points; the static shared memory holds two planes of the
+    stage input's variable 0 on the region, each with a guard of a row
+    and a point on either side (csrc/tile_slots.cuh), two of the tile's
+    squared errors, the tableau's h a and h d, and the warps' sums."""
+    _, tile_y, _ = tile_plan(n_stages, itemsize)
+    halo = n_stages - 1
+    width = fused_step.TILE_X + 2 * halo
+    region = width * (tile_y + 2 * halo)
+    slots = -(-region // THREADS)
+    smem = (2 * (region + 2 * (width + 1))
+            + 2 * fused_step.TILE_X * tile_y + n_stages ** 2 + n_stages
+            + THREADS // 32) * itemsize
+    return tile_y, halo, slots, smem
+
+
+def grid_barriers(steps: int) -> int:
+    """The kernel's grid barriers in a launch that computes `steps`
+    sub-steps: one after the pre-pass that evaluates k_0 = f(y), one
+    between sub-steps."""
+    return steps
+
+
+def kernel_info(dtype, kinetics_id: int, n_stages: int) -> dict:
+    """The CUDA kernel of (dtype, kinetics, tableau) on the current card:
+    its resident blocks an SM, registers a thread and static shared bytes
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor, cudaFuncGetAttributes)."""
+    from crdmodel_tpu_torch.ops._build import kernel_info as query
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    tile_y = kstep_plan(n_stages, itemsize)[0]
+    return query("crd_fused_kstep_info", int(itemsize == 8), kinetics_id,
+                 n_stages, tile_y)
 
 
 def tile_error_sums(err, y, rtol: float, atol: float, tile_y: int,
@@ -207,6 +249,10 @@ def fused_kstep(y, h, fz, n_commit, kc: KernelConstants, tableau: Tableau,
                          f"of 2..{MAX_STAGES} stages")
     if k < 1:
         raise ValueError(f"k = {k}; the kernel takes k >= 1")
+    tile_y = kstep_plan(n_stages, y.element_size())[0]
+    if (n_stages, tile_y) not in KERNEL_TILES[y.element_size()]:
+        raise ValueError(f"{tableau.name}: no K-step kernel for "
+                         f"{n_stages} stages in {dtype}")
     _, ny, nx = y.shape
     check_tensor("y", y, y.shape, dtype, device)
     check_tensor("h", h, (), dtype, device)
@@ -216,12 +262,11 @@ def fused_kstep(y, h, fz, n_commit, kc: KernelConstants, tableau: Tableau,
 
     from crdmodel_tpu_torch.ops._build import load_library
     lib = load_library()
-    _, tile_y, _ = tile_plan(n_stages, y.element_size())
     y_out = torch.empty_like(y)
     ss = torch.empty((_n_tiles(ny, nx, tile_y), k), dtype=dtype,
                      device=device)
-    # two sub-step states and one state a stage slot
-    work = torch.empty((2 + n_stages, *y.shape), dtype=dtype, device=device)
+    # two sub-step states and two first stages, each in turns
+    work = torch.empty((4, *y.shape), dtype=dtype, device=device)
     a, b, d = _stage_arrays(tableau.name)
     launch = (lib.crd_fused_kstep_f32 if dtype == torch.float32
               else lib.crd_fused_kstep_f64)

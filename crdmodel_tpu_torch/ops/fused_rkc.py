@@ -7,11 +7,14 @@ kinetics of any family with a device function (KernelConstants.
 kinetics_id; the kinetics and the operator are template parameters of the
 kernel, as in K1, K3 and K4): F0 = f(y0), the s
 Chebyshev stages, F(y_new) for the order-2 error estimate, y_new and
-per-block partial sums of squared WRMS-scaled errors (csrc/fused_rkc.cu).
+per-tile partial sums of squared WRMS-scaled errors (csrc/fused_rkc.cu).
 The three-term recurrence keeps a live set of constant size (y0, F0,
-Y_{j-1}, Y_{j-2}), so a tile loaded once with a halo of s+1 rings carries
-any stage count up to S_MAX_KERNEL. It takes every attempted step of an
-rkc2 run on the fused path (sim.py).
+Y_{j-1}, Y_{j-2}), so the s + 1 RHS evaluations run in chunks of at most
+CHUNK (chunk_schedule), each a pass over CHUNK_TILE-square tiles with a
+halo of its own evaluations, the live set handed from chunk to chunk
+through device memory at a grid barrier, in one launch for any stage
+count up to S_MAX_KERNEL. It takes every attempted step of an rkc2 run on
+the fused path (sim.py).
 
   fused_rkc_step            the wrapper: launches the CUDA kernel for a CUDA
                             tensor, runs fused_rkc_step_reference for a CPU
@@ -63,8 +66,20 @@ from crdmodel_tpu_torch.ops.kernel_common import (SMEM_BYTES,
                                                   south_is_rolled_north)
 
 S_MAX_KERNEL = 23              # the TPU kernel's halo P=24 less one
+# K9's one-pass tiles (ops/fused_shard_rkc.py, csrc/rkc_tile.cuh):
 # (tile_x, tile_y) candidates, best first: larger tiles recompute less halo
 TILES = ((32, 32), (32, 16), (16, 16), (16, 8), (8, 8))
+# K2's chunked tiles (csrc/fused_rkc.cu): the most RHS evaluations a chunk
+# takes (its halo's rings), the square tile's side, the block's threads,
+# and the shared planes of a region (y0 and F0, two variables each, and
+# two of Y_{j-1}'s variable 0)
+CHUNK = 6
+CHUNK_TILE = 32
+CHUNK_THREADS = 512
+CHUNK_PLANES = 6
+# the scratch planes a launch hands its chunks through: F0 and two
+# (Y_{j-1}, Y_{j-2}) pairs in turns, two variables each
+SCRATCH_PLANES = 10
 
 
 def is_rkc_supported(problem, dtype) -> bool:
@@ -93,8 +108,57 @@ def is_rkc_supported(problem, dtype) -> bool:
     return True
 
 
+def chunk_schedule(s: int, depth: int = CHUNK):
+    """The chunks of one K2 step of s stages: [(first, count), ...] over
+    its s + 1 RHS evaluations (0: F0 and Y1; e in 1..s-1: Y_{e+1} from
+    f(Y_e); s: F1), C = ceil((s+1)/depth) chunks split evenly, chunk c
+    taking evaluations [c (s+1) // C, (c+1) (s+1) // C), as the kernel
+    computes them. A chunk of n evaluations takes its i-th (from 0) on
+    the points depth - n + i + 1 rings or more inside its tile's region,
+    so its last lands on the tile."""
+    n_evals = s + 1
+    n_chunks = -(-n_evals // depth)
+    firsts = [c * n_evals // n_chunks for c in range(n_chunks + 1)]
+    return [(a, b - a) for a, b in zip(firsts, firsts[1:])]
+
+
+def grid_barriers(s: int) -> int:
+    """K2's grid barriers in a launch of stage count s: one between
+    chunks."""
+    return len(chunk_schedule(s)) - 1
+
+
+def chunk_plan(itemsize: int):
+    """(tile, halo, slots, shared bytes) of K2's blocks: a CHUNK_TILE-square
+    tile with a CHUNK-ring halo, each of the block's CHUNK_THREADS threads
+    owning `slots` of the region's points, and CHUNK_PLANES planes of the
+    region in dynamic shared memory, each with a guard of a row and a
+    point on either side (csrc/tile_slots.cuh), plus the warps' sums and
+    the tile's squared errors, two variables, in static shared memory."""
+    side = CHUNK_TILE + 2 * CHUNK
+    slots = -(-side * side // CHUNK_THREADS)
+    smem = (CHUNK_PLANES * (side * side + 2 * (side + 1))
+            + CHUNK_THREADS // 32 + 2 * CHUNK_TILE ** 2) * itemsize
+    return CHUNK_TILE, CHUNK, slots, smem
+
+
+def n_chunk_tiles(ny: int, nx: int) -> int:
+    """K2's tiles on an ny x nx grid: the length of its partial sums."""
+    return -(-ny // CHUNK_TILE) * -(-nx // CHUNK_TILE)
+
+
+def kernel_info(dtype, divform: bool, kinetics_id: int) -> dict:
+    """K2's CUDA kernel of (dtype, operator, kinetics) on the current
+    card: its resident blocks an SM, registers a thread and shared bytes a
+    block (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+    cudaFuncGetAttributes)."""
+    from crdmodel_tpu_torch.ops._build import kernel_info as query
+    f64 = int(torch.empty((), dtype=dtype).element_size() == 8)
+    return query("crd_fused_rkc_info", f64, int(divform), kinetics_id)
+
+
 def tile_plan(halo: int, itemsize: int):
-    """(tile_x, tile_y, shared bytes) of the kernel's tiles: the first of
+    """(tile_x, tile_y, shared bytes) of K9's one-pass tiles: the first of
     TILES whose four live buffers (y0, F0, Y_{j-1}, Y_{j-2}), two variables
     each, with a `halo`-ring border fit in shared memory."""
     for tile_x, tile_y in TILES:
@@ -233,7 +297,8 @@ def check_stage_tables(mu1_tab, ctab_tab, dtype, device) -> int:
 
 def fused_rkc_step(y, h, fz, s, mu1_tab, ctab_tab, kc: KernelConstants,
                    rtol: float, atol: float):
-    """One fused RKC2 step: (y_new (2, ny, nx), ss partials (n_blocks,)).
+    """One fused RKC2 step: (y_new (2, ny, nx), ss partials
+    (n_chunk_tiles(ny, nx),)).
 
     h and fz are 0-d tensors in y's dtype, s a 0-d int32 tensor, and
     mu1_tab/ctab_tab the static_stage_tables of some s_cap <= S_MAX_KERNEL,
@@ -265,10 +330,9 @@ def fused_rkc_step(y, h, fz, s, mu1_tab, ctab_tab, kc: KernelConstants,
 
     from crdmodel_tpu_torch.ops._build import load_library
     lib = load_library()
-    tile_x, tile_y, _ = tile_plan(s_cap + 1, y.element_size())
-    n_blocks = -(-nx // tile_x) * -(-ny // tile_y)
     y_new = torch.empty_like(y)
-    ss = torch.empty(n_blocks, dtype=dtype, device=device)
+    ss = torch.empty(n_chunk_tiles(ny, nx), dtype=dtype, device=device)
+    work = torch.empty((SCRATCH_PLANES, ny, nx), dtype=dtype, device=device)
     launch = (lib.crd_fused_rkc_step_f32 if dtype == torch.float32
               else lib.crd_fused_rkc_step_f64)
     # the operator: three profiles (or scalars) and the torus flag, or the
@@ -286,11 +350,11 @@ def fused_rkc_step(y, h, fz, s, mu1_tab, ctab_tab, kc: KernelConstants,
     # the CUDA runtime launches on the current device: make it y's
     with torch.cuda.device(device):
         rc = launch(y.data_ptr(), y_new.data_ptr(), ss.data_ptr(),
-                    h.data_ptr(), fz.data_ptr(), s.data_ptr(),
-                    mu1_tab.data_ptr(), ctab_tab.data_ptr(), s_cap, *operator,
-                    kc.b.data_ptr(), int(kc.b_is_field), kc.mask.data_ptr(),
-                    int(kc.has_freeze), kc.kinetics_id, ny, nx, tile_x, tile_y,
-                    float(rtol), float(atol),
+                    work.data_ptr(), h.data_ptr(), fz.data_ptr(),
+                    s.data_ptr(), mu1_tab.data_ptr(), ctab_tab.data_ptr(),
+                    s_cap, *operator, kc.b.data_ptr(), int(kc.b_is_field),
+                    kc.mask.data_ptr(), int(kc.has_freeze), kc.kinetics_id,
+                    ny, nx, float(rtol), float(atol),
                     torch.cuda.current_stream(device).cuda_stream)
     fused_rkc_step.launches += 1
     if rc != 0:

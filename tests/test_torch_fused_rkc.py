@@ -25,9 +25,11 @@ from crdmodel_tpu_torch.config import SimConfig
 from crdmodel_tpu_torch.convert import inputs_from_numpy
 from crdmodel_tpu_torch.core.problem import build_problem, make_rho_bound
 from crdmodel_tpu_torch.integrate import rkc
+from crdmodel_tpu_torch.ops import fused_kstep as fk
 from crdmodel_tpu_torch.ops import fused_rkc as fr
 from crdmodel_tpu_torch.core.grid import face_openness
 from crdmodel_tpu_torch.ops.kernel_common import (SMEM_BYTES,
+                                                  make_rhs_block,
                                                   prepare_constants,
                                                   prepare_divform_constants)
 
@@ -310,6 +312,65 @@ def test_tile_plan_fits(itemsize):
     tx, ty, smem = fr.tile_plan(fr.S_MAX_KERNEL + 1, itemsize)
     assert smem <= SMEM_BYTES - 1024 and tx >= 8 and ty >= 8
     assert smem == 8 * (tx + 48) * (ty + 48) * itemsize
+
+
+# the chunk depth D and the stage counts around its boundaries
+D = fr.CHUNK
+CHUNK_STAGES = (D - 1, D, D + 1, 2 * D, fr.S_MAX_KERNEL)
+
+
+@pytest.mark.parametrize("s", CHUNK_STAGES)
+def test_chunk_schedule_evaluates_each_stage_once(s):
+    """K2's chunks cover its s + 1 RHS evaluations (F0 with Y1, Y2 .. Ys,
+    F1) once each and in order, each chunk at most D of them, split
+    evenly; every evaluation's input lies one ring further out than its
+    own points, inside the chunk's region, and F1 lands on the tile."""
+    chunks = fr.chunk_schedule(s)
+    evals = [first + i for first, n in chunks for i in range(n)]
+    assert evals == list(range(s + 1))
+    sizes = [n for _, n in chunks]
+    assert len(chunks) == -(-(s + 1) // D) and max(sizes) <= D
+    assert max(sizes) - min(sizes) <= 1
+    assert fr.grid_barriers(s) == len(chunks) - 1
+    produced = []                   # the stage each evaluation forms
+    for first, n in chunks:
+        loaded = D - n              # the input's rings, loaded from memory
+        for i in range(n):
+            ring = D - n + i + 1    # the evaluation's points: ring and in
+            assert ring - 1 >= loaded and ring <= D
+            e = first + i
+            if e < s:
+                produced.append(e + 1)
+        # the chunk's last evaluation lands on the tile: handed on, or F1
+        assert ring == D
+    assert produced == list(range(1, s + 1))
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_chunk_plan_fits_every_stage_count(itemsize):
+    """K2's blocks: shared memory sized for D whatever s (2..S_MAX_KERNEL)
+    fits an H100 block, and two blocks an SM in f32; the threads' slots
+    cover the region."""
+    tile, halo, slots, smem = fr.chunk_plan(itemsize)
+    assert (tile, halo) == (fr.CHUNK_TILE, D)
+    side = tile + 2 * halo
+    assert slots * fr.CHUNK_THREADS >= side * side
+    assert (slots - 1) * fr.CHUNK_THREADS < side * side
+    assert smem == (fr.CHUNK_PLANES * (side * side + 2 * (side + 1))
+                    + fr.CHUNK_THREADS // 32 + 2 * tile * tile) * itemsize
+    for s in range(2, fr.S_MAX_KERNEL + 1):
+        assert len(fr.chunk_schedule(s)) >= 1
+        assert smem <= SMEM_BYTES - 1024
+    if itemsize == 4:
+        assert 2 * (smem + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("shape,tiles", [((1600, 400), 650),
+                                         ((12800, 3200), 40000),
+                                         ((16, 5), 1), ((33, 64), 4)])
+def test_partial_sums_length_is_the_tile_count(shape, tiles):
+    """ss has one partial sum a CHUNK_TILE-square tile of the grid."""
+    assert fr.n_chunk_tiles(*shape) == tiles
 
 
 def test_wrapper_refuses_other_devices():
@@ -742,3 +803,50 @@ def test_cuda_divform_kernel_matches_plain(name, dtype):
             assert torch.equal(y_k, y_r)
             rel = abs(float(ss_k.sum()) - float(ss_r.sum())) / float(ss_r.sum())
             assert rel <= (1e-5 if dtype == torch.float32 else 1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs a CUDA card and nvcc")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("x_mesh", [4, 96])
+def test_cuda_kernel_chunk_boundaries(x_mesh, dtype):
+    """K2 at the stage counts around its chunk boundaries (D - 1, D,
+    D + 1, 2D, 23), on a torus smaller than a chunk's halo (4 columns) and
+    on one larger than its region: y_new bitwise the plain version's, two
+    launches equal, one partial sum a tile, each bitwise the plain
+    version's in the one-pass kernel's order (CHUNK_THREADS threads over a
+    tile, fused_kstep.tile_error_sums); the kernel's shared bytes are
+    chunk_plan's."""
+    p = build_problem(SimConfig(**_cfg("torus", x_mesh=x_mesh,
+                                       diffusion=1000.0)), device="cuda")
+    kc = prepare_constants(p, dtype, "cuda")
+    mu1_tab, ctab_tab = fr.static_stage_tables(fr.S_MAX_KERNEL, dtype, "cuda")
+    y = torch.tensor(_state(tuple(p.y0.shape), p.y0.cpu().numpy()),
+                     dtype=dtype, device="cuda")
+    _, ny, nx = y.shape
+    rho = float(make_rho_bound(p.cfg, p.model, p.geometry, dtype)(
+        0.0, y, p.params))
+    for s in CHUNK_STAGES:
+        h = torch.tensor(0.65 * (s - 1) ** 2 / rho, dtype=dtype, device="cuda")
+        st = torch.tensor(s, dtype=torch.int32, device="cuda")
+        for fz in (0.0, 1.0):
+            fzt = torch.tensor(fz, dtype=dtype, device="cuda")
+            args = (y, h, fzt, st, mu1_tab, ctab_tab, kc, 1e-5, 1e-8)
+            y_k, ss_k = fr.fused_rkc_step(*args)
+            y_k2, ss_k2 = fr.fused_rkc_step(*args)
+            y_r, ss_r = fr.fused_rkc_step_reference(*args)
+            torch.cuda.synchronize()
+            assert ss_k.shape == (fr.n_chunk_tiles(ny, nx),)
+            assert torch.equal(y_k, y_k2) and torch.equal(ss_k, ss_k2)
+            assert torch.equal(y_k, y_r)
+            _, est = fr.rkc_stages_reference(
+                y, h, st, mu1_tab, ctab_tab, make_rhs_block(kc, fzt))
+            assert torch.equal(ss_k, fk.tile_error_sums(
+                est, y, 1e-5, 1e-8, fr.CHUNK_TILE, fr.CHUNK_TILE,
+                fr.CHUNK_THREADS))
+            rel = abs(float(ss_k.sum()) - float(ss_r.sum())) / float(ss_r.sum())
+            assert rel <= (1e-5 if dtype == torch.float32 else 1e-12)
+    info = fr.kernel_info(dtype, False, kc.kinetics_id)
+    assert info["shared_bytes"] == fr.chunk_plan(y.element_size())[3]
+    assert info["blocks_per_sm"] >= (2 if dtype == torch.float32 else 1)

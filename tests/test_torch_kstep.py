@@ -27,7 +27,7 @@ from crdmodel_tpu_torch.core.problem import build_problem
 from crdmodel_tpu_torch.integrate.erk import TABLEAUS, integrate_to_outputs
 from crdmodel_tpu_torch.ops import fused_kstep as fk
 from crdmodel_tpu_torch.ops import fused_step as fs
-from crdmodel_tpu_torch.ops.kernel_common import prepare_constants
+from crdmodel_tpu_torch.ops.kernel_common import SMEM_BYTES, prepare_constants
 from crdmodel_tpu_torch.sim import make_run_fn, output_times, simulate
 
 # 64 rows: the JAX kernel's deepest halo (P = 32 at K = 10) on 32 rows is
@@ -161,6 +161,25 @@ def test_plain_kstep_recovery_and_skip_codes():
                                 full=full)
         assert torch.equal(y_c, y)
     assert (counts - before).tolist() == [1, 1]
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("method,k", BATCHES)
+def test_kstep_plan_fits(method, k, itemsize):
+    """K14's blocks for each tableau and K the gate takes: K1's tile with
+    n - 1 rings, an instantiated (stages, tile) pair, the threads' slots
+    covering the region, static shared memory within a block's 48 KB (and
+    so the 227 KB an H100 block may use), at most K grid barriers."""
+    tab = TABLEAUS[method]
+    tile_y, halo, slots, smem = fk.kstep_plan(tab.stages, itemsize)
+    assert tile_y == fs.tile_plan(tab.stages, itemsize)[1]
+    assert halo == tab.stages - 1
+    assert (tab.stages, tile_y) in fk.KERNEL_TILES[itemsize]
+    region = (fs.TILE_X + 2 * halo) * (tile_y + 2 * halo)
+    assert slots * fk.THREADS >= region > (slots - 1) * fk.THREADS
+    assert smem <= 48 * 1024 <= SMEM_BYTES
+    assert fk.grid_barriers(k) <= k
+    assert fk.THREADS % 256 == 0      # K1's 256-thread order fits whole
 
 
 def test_tile_error_sums_order():
@@ -446,3 +465,39 @@ def test_cuda_kernel_matches_plain(surface, method, k, dtype):
             assert torch.equal(y_k, y_r) and torch.equal(ss_k, ss_r)
             assert torch.equal(y_k, k1_states[n_commit])
             assert torch.equal(ss_k, torch.stack(ss1, dim=1))
+
+
+@pytest.mark.cuda
+@CUDA
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("method,k", [("bs32", 5), ("dopri54", 2)])
+def test_cuda_kernel_on_a_grid_smaller_than_its_halo(method, k, dtype):
+    """K14 on a 4-column torus, fewer columns than a tile's halo wraps
+    onto: bitwise its plain version and j K1 launches, n_commit 0, 1,
+    K-1, K; the kernel's static shared bytes are kstep_plan's."""
+    cfg = SimConfig(**{**BASE, **SURFACES["torus"], "x_mesh": 4,
+                       "surface_length": 40})
+    p = build_problem(cfg, device="cuda")
+    kc = prepare_constants(p, dtype, "cuda")
+    tab = TABLEAUS[method]
+    y = torch.tensor(_state(tuple(p.y0.shape)), dtype=dtype, device="cuda")
+    h = torch.tensor(H_OF[method], dtype=dtype, device="cuda")
+    tile_y = fk.kstep_plan(tab.stages, y.element_size())[0]
+    fzt = torch.tensor(1.0, dtype=dtype, device="cuda")
+    k1_states, ss1 = [y], []
+    for _ in range(k):
+        y1, ss = fs.fused_step(k1_states[-1], h, fzt, kc, tab, 1e-4, 1e-6)
+        k1_states.append(y1)
+        ss1.append(ss)
+    for n_commit in sorted({0, 1, k - 1, k}):
+        args = (y, h, fzt, n_commit, kc, tab, k, 1e-4, 1e-6)
+        y_k, ss_k = fk.fused_kstep(*args)
+        y_r, ss_r = fk.fused_kstep_reference(*args, tile_y=tile_y)
+        torch.cuda.synchronize()
+        assert torch.equal(y_k, y_r) and torch.equal(ss_k, ss_r)
+        assert torch.equal(y_k, k1_states[n_commit])
+        assert torch.equal(ss_k, torch.stack(ss1, dim=1))
+    info = fk.kernel_info(dtype, kc.kinetics_id, tab.stages)
+    assert info["shared_bytes"] == fk.kstep_plan(tab.stages,
+                                                 y.element_size())[3]
+    assert info["blocks_per_sm"] >= 1
