@@ -8,10 +8,11 @@ Builds the CUDA kernels from crdmodel_tpu_torch/csrc, holds each against its
 plain PyTorch version on the card (K1, the fused ERK step, and K3, the fused
 IMEX ark324 step, with the FitzHugh-Nagumo, Goldbeter and Aliev-Panfilov
 kinetics; K2, the fused RKC2 step, with the same three, on the profile
-operator, on the divergence form's three cases, and at the 41M-point shape
+operator, on K4's five divergence-form cases, and at the 41M-point shape
 of the JAX package's column-blocked K2b; K4, the fused divergence-form ERK
-step, on no-flux walls with a scar, a torus obstacle and a 2-D diffusion
-field; K5, the fused anisotropic-tensor ERK step, on rotating fibres, a
+step, on no-flux walls with a scar, a torus obstacle, a 2-D diffusion
+field, a torus narrower than a tile's rings and an odd grid, with bs32,
+zonneveld43 and dopri54, every partial sum bitwise; K5, the fused anisotropic-tensor ERK step, on rotating fibres, a
 constant tensor inside no-flux walls and random fields with a beta ramp;
 K6 and K7, the fused ERK and RKC2 steps on the 3-D box, in their four
 operator modes on the volumetric slab's 32x512x512 shape: no-flux walls,
@@ -24,8 +25,9 @@ ark324 step on one shard, on the canonical Goldbeter and FHN tori's 2x2
 shards, the uneven 1x3 mesh and the 2.56M-point Goldbeter torus's 2x2
 shard; K11, the fused divergence-form and 2-D tensor ERK step on one shard,
 on the bounded tissue's 2x2 shards, a flat 2-D diffusion field, the uneven
-1x3 mesh, the rotating fibres flat and on the torus and a constant tensor
-inside no-flux walls; K12 and K13, the fused ERK and RKC2 steps on one
+1x3 mesh, an uneven 2x2 mesh with mirror-pad cells on both axes, the
+rotating fibres flat and on the torus and a constant tensor inside no-flux
+walls, with bs32, zonneveld43 and dopri54, every partial sum bitwise; K12 and K13, the fused ERK and RKC2 steps on one
 shard of the 3-D box, on the slab's 2x2 shards in the four operator modes,
 FitzHugh-Nagumo's beta ramp on a 16x256x256 box's 2x2 shards and its
 uneven 1x3 mesh; K14, the speculative K-step ERK kernel, on K1's five
@@ -145,6 +147,9 @@ K3_BIG_MESH = 800   # (2,3200,800): the JAX suite's "Goldbeter torus
                     # 800x3200 Tf=1 ark324" row (scripts/bench_suite.py:124)
 # K4's step: the bounded run's mean step, Tf/steps = 8/10189 (JAX f32)
 K4_H = 8e-4
+# the tableaus K4's and K11's gates take: bs32 through the register-resident
+# scheme, zonneveld43 and dopri54 through K1's (ops/erk_slots.py)
+ERK_METHODS = ("bs32", "zonneveld43", "dopri54")
 # K2's divergence branch: the stage counts checked and timed
 K2_DIVFORM_STAGES = (2, 5, 23)
 # K2 at K2b's shape (the wide sheet): an accuracy-limited and a
@@ -322,12 +327,14 @@ def same_bits(a, b):
 
 
 def check_pair(name, fields, y_k, ss_k, y_k2, ss_k2, y_r, ss_r, dtype,
-               y_in, bitwise=False):
+               y_in, bitwise=False, ss_tiles=None):
     """Hold a kernel's (y_new, partial sums) against its plain version's,
     and two launches against each other; print phase `name`; return the
     max |y_kernel - y_plain| over the points where neither is NaN. NaN
     must stand at the same points in both, and the sums must be NaN in
-    both or finite in both."""
+    both or finite in both. With ss_tiles, the plain version's partial
+    sums in the kernel's order, every partial sum must equal its own
+    bitwise."""
     torch.cuda.synchronize()
     if not (same_bits(y_k, y_k2) and same_bits(ss_k, ss_k2)):
         raise AssertionError(f"{name}: two launches differ")
@@ -339,13 +346,21 @@ def check_pair(name, fields, y_k, ss_k, y_k2, ss_k2, y_r, ss_r, dtype,
     tol_y, tol_ss = LIMITS[dtype]
     sk, sr = float(ss_k.sum()), float(ss_r.sum())
     rel = abs(sk - sr) / sr if np.isfinite(sr) else 0.0
+    partials = {} if ss_tiles is None else dict(
+        partials=int(ss_k.numel()),
+        partials_bitwise=ss_k.shape == ss_tiles.shape
+        and same_bits(ss_k, ss_tiles))
     phase(name, **fields, dtype=str(dtype), max_abs_err=err,
           bitwise=same_bits(y_k, y_r), nan_points=int(nan.sum()),
-          limit=tol_y * y_scale, ss_rel_err=rel, ss_limit=tol_ss)
+          limit=tol_y * y_scale, ss_rel_err=rel, ss_limit=tol_ss,
+          **partials)
     if not (nan_match and np.isfinite(sk) == np.isfinite(sr)
             and err <= tol_y * y_scale and rel <= tol_ss):
         raise AssertionError(f"{name}: the kernel disagrees with its plain "
                              "version")
+    if ss_tiles is not None and not partials["partials_bitwise"]:
+        raise AssertionError(f"{name}: the partial sums are not bitwise "
+                             "the plain version's")
     if bitwise and not same_bits(y_k, y_r):
         raise AssertionError(f"{name}: y_new not bitwise equal to the plain "
                              "version")
@@ -635,16 +650,23 @@ def check_imex_kernel(cases, timed):
     return worst, timing
 
 
-def check_field_kernel(name, cases, prepare, step, reference, h_val, seed):
+def check_field_kernel(name, cases, prepare, step, reference, h_val, seed,
+                       methods=("bs32", "dopri54"), tile_sums=None,
+                       device_tag=None):
     """An ERK tile kernel on (ny, nx) coefficient fields (K4, K5) against
-    its plain version at the main path's shape (2,1600,400), for each
-    (label, config, build arguments) of `cases` (each with tBoundary > 0,
-    so that fz 0 and 1 differ; the main path's program first), f32 and
-    f64, bs32 and dopri54, fz 0 and 1, at step h_val: y_new bitwise equal,
-    two launches bitwise equal; prints phase `name`. prepare(problem,
-    dtype, device) makes the kernel's constants, step and reference are
-    its wrapper and plain version. Returns the max errors and (kernel ms,
-    plain ms, bound ms, bound_by) of the first case's ICs, bs32, f32."""
+    its plain version, for each (label, config, build arguments) of
+    `cases` (each with tBoundary > 0, so that fz 0 and 1 differ; the main
+    path's program, at its shape (2,1600,400), first), f32 and f64, each
+    tableau of `methods`, fz 0 and 1, at step h_val: y_new bitwise equal,
+    two launches bitwise equal and, with tile_sums (the plain version of
+    the partial sums, called as the wrapper), every partial sum bitwise;
+    prints phase `name`. prepare(problem, dtype, device) makes the
+    kernel's constants, step and reference are its wrapper and plain
+    version. Returns the max errors and (kernel ms, plain ms, bound ms,
+    bound_by, burst ms) of the first case's ICs, bs32, f32: the kernel's
+    time from CUDA events around bursts, or with device_tag its device
+    time in profiler traces (device_ms; a kernel faster than the host's
+    issue of a call), the burst's beside it."""
     from crdmodel_tpu_torch.core.problem import build_problem
     from crdmodel_tpu_torch.integrate.erk import TABLEAUS
 
@@ -657,7 +679,7 @@ def check_field_kernel(name, cases, prepare, step, reference, h_val, seed):
             kc = prepare(problem, dtype, "cuda")
             y = torch.tensor(y_np, dtype=dtype, device="cuda")
             h = torch.tensor(h_val, dtype=dtype, device="cuda")
-            for method in ("bs32", "dopri54"):
+            for method in methods:
                 for fz in (0.0, 1.0):
                     fzt = torch.tensor(fz, dtype=dtype, device="cuda")
                     args = (y, h, fzt, kc, TABLEAUS[method], cfg.rtol,
@@ -667,7 +689,8 @@ def check_field_kernel(name, cases, prepare, step, reference, h_val, seed):
                         dict(case=label, model=cfg.model, surface=cfg.surface,
                              shape=list(y.shape), method=method, fz=fz),
                         *step(*args), *step(*args), *reference(*args), dtype,
-                        y, bitwise=True)
+                        y, bitwise=True,
+                        ss_tiles=tile_sums and tile_sums(*args))
                     worst[dtype] = max(worst[dtype], err)
 
     _, cfg, build_kw = cases[0]
@@ -678,9 +701,11 @@ def check_field_kernel(name, cases, prepare, step, reference, h_val, seed):
     tab = TABLEAUS["bs32"]
     args = (y, torch.tensor(h_val, device="cuda"),
             torch.zeros((), device="cuda"), kc, tab, cfg.rtol, cfg.atol)
-    timing = (median_ms(lambda: step(*args)),
+    burst = median_ms(lambda: step(*args))
+    timing = (burst if device_tag is None
+              else device_ms(lambda: step(*args), device_tag),
               median_ms(lambda: reference(*args)),
-              *bound(y, kc, erk_ops(kc, tab)))
+              *bound(y, kc, erk_ops(kc, tab)), burst)
     return worst, timing
 
 
@@ -803,10 +828,15 @@ def bounded_tissue():
                     beta=0.10, wave_length=0.25, wave_width=0.5,
                     t_final=8.0, output_timestep=2, dtype="float32",
                     rtol=1e-4, atol=1e-7, boundary="noflux")
+    return cfg, dict(obstacle_mask=circular_scar(cfg))
+
+
+def circular_scar(cfg):
+    """The bounded tissue's obstacle mask on cfg's grid: False on a disc of
+    radius 0.09 nx around (ny/2, 0.55 nx)."""
     ny, nx = cfg.ny, cfg.nx
     jj, ii = np.mgrid[0:ny, 0:nx]
-    scar = (jj - ny * 0.5) ** 2 + (ii - nx * 0.55) ** 2 <= (nx * 0.09) ** 2
-    return cfg, dict(obstacle_mask=~scar)
+    return (jj - ny * 0.5) ** 2 + (ii - nx * 0.55) ** 2 > (nx * 0.09) ** 2
 
 
 def wide_sheet():
@@ -1008,17 +1038,26 @@ def run_box_path(name, cfg, build_kw, kernel, label, min_step_tol,
     return launches
 
 
-def ptxas_summary(source):
+def ptxas_summary(source, tag=None):
     """The most registers and spill bytes over the kernels of csrc/
-    <source> (ptxas, -Xptxas -v), after the build."""
+    <source> (ptxas, -Xptxas -v), after the build; with `tag`, over those
+    whose entry name holds it."""
     import re
 
     from crdmodel_tpu_torch.ops import _build
-    lines = _build.ptxas_report(source)
-    regs = [int(m.group(1)) for line in lines
-            for m in [re.search(r"Used (\d+) registers", line)] if m]
-    spills = [int(m.group(1)) for line in lines
-              for m in [re.search(r"(\d+) bytes spill stores", line)] if m]
+    regs, spills, entry = [], [], ""
+    for line in _build.ptxas_report(source):
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+        if tag is not None and tag not in entry:
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            regs.append(int(m.group(1)))
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spills.append(int(m.group(1)))
     return {"kernels": len(regs), "max_registers": max(regs),
             "max_spill_store_bytes": max(spills)}
 
@@ -1788,9 +1827,12 @@ def shard_inputs(problem, mesh, y_np, dtype, halo, constants=None):
                                                 dtype))
 
 
-def check_shard_pair(name, fields, kernel, reference, args, dtype):
+def check_shard_pair(name, fields, kernel, reference, args, dtype,
+                     tile_sums=None):
     """check_pair on the blocks of a shard kernel's and its plain version's
-    y_new (the halo of y_new is the next exchange's), y_new bitwise."""
+    y_new (the halo of y_new is the next exchange's), y_new bitwise; with
+    tile_sums (the plain version of the partial sums, called as the
+    kernel), every partial sum bitwise."""
     from crdmodel_tpu_torch.ops.fused_shard_step import interior
     halo = next(a for a in args if hasattr(a, "halo")).halo
     y_k, ss_k = kernel(*args)
@@ -1798,7 +1840,8 @@ def check_shard_pair(name, fields, kernel, reference, args, dtype):
     y_r, ss_r = reference(*args)
     return check_pair(name, fields, interior(y_k, halo), ss_k,
                       interior(y_k2, halo), ss_k2, interior(y_r, halo), ss_r,
-                      dtype, interior(args[0], halo), bitwise=True)
+                      dtype, interior(args[0], halo), bitwise=True,
+                      ss_tiles=tile_sums and tile_sums(*args))
 
 
 def check_shard_kernels(cases, seed):
@@ -2123,9 +2166,10 @@ def check_shard_imex_kernel(cases, seed):
 def check_shard_divform_kernel(cases, seed):
     """K11 against its plain version on the shards of each (label, config,
     build arguments, mesh shape, shards checked, aniso mode, h) of `cases`,
-    f32 and f64, bs32 and dopri54, fz 0 and 1: y_new's block bitwise equal,
-    two launches bitwise equal; prints phase k11_check. Returns the max
-    errors."""
+    f32 and f64, each tableau of ERK_METHODS, fz 0 and 1: y_new's block
+    bitwise equal, two launches bitwise equal, every partial sum bitwise
+    the plain version's over the physical cells (fused_shard_divform_
+    tile_sums); prints phase k11_check. Returns the max errors."""
     from crdmodel_tpu_torch.core.problem import build_problem
     from crdmodel_tpu_torch.integrate.erk import TABLEAUS
     from crdmodel_tpu_torch.ops import fused_shard_divform as f11
@@ -2140,7 +2184,7 @@ def check_shard_divform_kernel(cases, seed):
             bufs, consts = shard_divform_inputs(problem, mesh, y_np, dtype,
                                                 aniso)
             h = torch.tensor(h_val, dtype=dtype, device="cuda")
-            for method in ("bs32", "dopri54"):
+            for method in ERK_METHODS:
                 for fz in (0.0, 1.0):
                     fzt = torch.tensor(fz, dtype=dtype, device="cuda")
                     for k in shards:
@@ -2157,7 +2201,7 @@ def check_shard_divform_kernel(cases, seed):
                                 method=method, fz=fz),
                             f11.fused_shard_divform_step,
                             f11.fused_shard_divform_step_reference, args,
-                            dtype)
+                            dtype, f11.fused_shard_divform_tile_sums)
                         worst[dtype] = max(worst[dtype], err)
             del bufs, consts
         del problem
@@ -2174,6 +2218,7 @@ def shard_field_timings(timed10, timed11, card):
     ("k11", label): (kernel ms, plain ms, bound ms, bound_by)}."""
     from crdmodel_tpu_torch.core.problem import build_problem
     from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import erk_slots
     from crdmodel_tpu_torch.ops import fused_shard_divform as f11
     from crdmodel_tpu_torch.ops import fused_shard_imex as f10
 
@@ -2212,7 +2257,7 @@ def shard_field_timings(timed10, timed11, card):
                 consts[0], tab, cfg.rtol, cfg.atol)
         burst = median_ms(lambda: f11.fused_shard_divform_step(*args))
         t11 = (device_ms(lambda: f11.fused_shard_divform_step(*args),
-                         "fused_erk_tile_kernel"),
+                         erk_slots.kernel_name(tab)),
                median_ms(lambda: f11.fused_shard_divform_step_reference(
                    *args)),
                *shard_bound(bufs[0], consts[0], erk_ops(consts[0], tab)))
@@ -2221,6 +2266,9 @@ def shard_field_timings(timed10, timed11, card):
               shape=list(bufs[0].shape), halo=f11.HALO, method="bs32",
               dtype="float32", kernel_us=t11[0] * 1e3, burst_us=burst * 1e3,
               plain_us=t11[1] * 1e3, bound_us=t11[2] * 1e3, bound_by=t11[3],
+              times_bound=t11[0] / t11[2], kernel=erk_slots.kernel_name(tab),
+              **erk_slots.kernel_info("crd_fused_shard_divform_info", dtype,
+                                      int(aniso), consts[0].kinetics_id),
               card=card)
         del problem, bufs, consts
     return timings
@@ -2381,8 +2429,9 @@ def shard_field_phases(cfg, programs, probes, singles, card):
     versions (k10_check: Goldbeter and FHN on the canonical tori's 2x2
     shards with the beta ramp and a freeze, the uneven 1x3 mesh, the large
     Goldbeter torus's 2x2 shard; k11_check: the bounded tissue's 2x2
-    shards, a flat 2-D diffusion field, the uneven 1x3 mesh, the rotating
-    fibres flat and on the torus, a constant tensor inside no-flux walls),
+    shards, a flat 2-D diffusion field, the uneven 1x3 mesh, an uneven
+    2x2 mesh, the rotating fibres flat and on the torus, a constant tensor
+    inside no-flux walls),
     their timings (k10_timing, k11_timing) and the main paths of
     sharded_field_main_paths. Returns K10's and K11's entries of the
     kernels line."""
@@ -2403,6 +2452,10 @@ def shard_field_phases(cfg, programs, probes, singles, card):
         (cfg_ap.ny, cfg_ap.nx))
     ap_periodic = dataclasses.replace(cfg_ap, boundary="periodic",
                                       diffusion=0.1, **frozen)
+    # 1599x399 on the 2x2 mesh: blocks of 800x200 whose last row or column
+    # (or both) are mirror-pad cells
+    ap_uneven = dataclasses.replace(cfg_ap, x_mesh=399, y_mesh=1599,
+                                    **frozen)
     worst11 = check_shard_divform_kernel([
         ("noflux_scar_2x2", dataclasses.replace(cfg_ap, **frozen), ap_build,
          SHARD_MESH, (0, 3), False, K4_H),
@@ -2410,6 +2463,9 @@ def shard_field_phases(cfg, programs, probes, singles, card):
          SHARD_MESH, (0, 3), False, K4_H),
         ("noflux_scar_uneven_1x3", dataclasses.replace(cfg_ap, **frozen),
          ap_build, UNEVEN_MESH, (0, 1, 2), False, K4_H),
+        ("noflux_scar_uneven_2x2", ap_uneven,
+         dict(obstacle_mask=circular_scar(ap_uneven)), SHARD_MESH,
+         (0, 1, 2, 3), False, K4_H),
         ("fibres_flat_2x2", dataclasses.replace(cfg_aniso, **frozen),
          aniso_build, SHARD_MESH, (0, 3), True, K5_H),
         ("fibres_torus_2x2", dataclasses.replace(cfg_torus, **frozen),
@@ -2719,13 +2775,14 @@ def main():
           count=torch.cuda.device_count(), tf32="off (matmul and cudnn)")
 
     from crdmodel_tpu_torch.config import config_from_ini
-    from crdmodel_tpu_torch.ops import (_build, fused_aniso, fused_divform,
-                                        fused_imex, fused_rkc, fused_step)
+    from crdmodel_tpu_torch.ops import (_build, erk_slots, fused_aniso,
+                                        fused_divform, fused_imex, fused_rkc,
+                                        fused_step)
     from crdmodel_tpu_torch.ops.kernel_common import (
-        prepare_aniso_constants, prepare_divform_constants)
+        KINETICS_IDS, prepare_aniso_constants, prepare_divform_constants)
 
     phase("build", seconds=_build.build(), library=_build.library_path(),
-          ptxas_fused_divform=_build.ptxas_report("fused_divform.cu"),
+          ptxas_fused_divform=ptxas_summary("fused_divform.cu"),
           ptxas_fused_rkc=_build.ptxas_report("fused_rkc.cu"),
           ptxas_fused_aniso=_build.ptxas_report("fused_aniso.cu"),
           ptxas_fused_box3d=ptxas_summary("fused_box3d.cu"),
@@ -2839,25 +2896,47 @@ def main():
               bound_us=t3[2] * 1e3, bound_by=t3[3], card=card)
     # K4's cases at (2,1600,400), each with a freeze: the bounded tissue; a
     # torus obstacle (FHN, the canonical torus with a scar of its own); a
-    # flat 2-D diffusion field around D = 0.1
+    # flat 2-D diffusion field around D = 0.1; and the edges of bs32's
+    # register-resident scheme: the canonical torus cut to 4 columns, a
+    # grid narrower than a tile's rings, which the wrap covers many times,
+    # and the bounded tissue on an odd 301x75 grid, partial tiles on both
+    # axes
     torus_scar = np.ones((cfg.ny, cfg.nx), bool)
     torus_scar[700:780, 150:230] = False
     dfield = 0.05 + 0.1 * np.random.default_rng(SEED).random(
         (cfg_ap.ny, cfg_ap.nx))
+    torus4 = dataclasses.replace(cfg, x_mesh=4)
+    torus4_scar = np.ones((torus4.ny, torus4.nx), bool)
+    torus4_scar[6:9, 1:3] = False
+    ap_odd = dataclasses.replace(cfg_ap, x_mesh=75, y_mesh=301,
+                                 t_boundary=1.0)
     divform_cases = [
         ("noflux_scar", dataclasses.replace(cfg_ap, t_boundary=1.0),
          ap_build),
         ("torus_obstacle", cfg, dict(obstacle_mask=torus_scar)),
-        ("flat_2d_field", ap_periodic, dict(diffusion_field=dfield))]
+        ("flat_2d_field", ap_periodic, dict(diffusion_field=dfield)),
+        ("torus_4_columns", torus4, dict(obstacle_mask=torus4_scar)),
+        ("noflux_scar_odd", ap_odd,
+         dict(obstacle_mask=circular_scar(ap_odd)))]
     worst4, k4_timing = check_field_kernel(
         "k4_check", divform_cases, prepare_divform_constants,
         fused_divform.fused_divform_step,
-        fused_divform.fused_divform_step_reference, K4_H, SEED + 3)
+        fused_divform.fused_divform_step_reference, K4_H, SEED + 3,
+        methods=ERK_METHODS,
+        tile_sums=fused_divform.fused_divform_tile_sums,
+        device_tag=erk_slots.SLOTS_KERNEL)
     phase("k4_timing", shape=[2, cfg_ap.ny, cfg_ap.nx], method="bs32",
           dtype="float32", kernel_us=k4_timing[0] * 1e3,
+          burst_us=k4_timing[4] * 1e3,
           plain_us=k4_timing[1] * 1e3, bound_us=k4_timing[2] * 1e3,
-          bound_by=k4_timing[3], card=card)
-    # K2's divergence branch on K4's three cases, with rkc2
+          bound_by=k4_timing[3],
+          times_bound=k4_timing[0] / k4_timing[2],
+          kernel=erk_slots.SLOTS_KERNEL,
+          **erk_slots.kernel_info("crd_fused_divform_info", torch.float32,
+                                  KINETICS_IDS["aliev_panfilov"]),
+          ptxas=ptxas_summary("fused_divform.cu", erk_slots.SLOTS_KERNEL),
+          card=card)
+    # K2's divergence branch on K4's five cases, with rkc2
     worst2d, timing2d = check_rkc_divform_kernel(
         [(label, dataclasses.replace(c, method="rkc2"), kw)
          for label, c, kw in divform_cases])

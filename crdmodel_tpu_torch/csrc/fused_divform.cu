@@ -18,25 +18,30 @@
 // the three face fields and the tissue field (ny x nx each) once and writes
 // y_new once: about 20.5 MB a bs32 step on 1600x400 in f32, some 6 us at
 // the published 3.35 TB/s. The arithmetic is a few dozen flops a point a
-// stage. As in K1, the step is bound by latency (barriers between stages,
-// the shared-memory stage buffers) long before either.
+// stage. The step is bound by latency and issue long before either.
 //
-// Design: the state tiles, their n_stages-ring halos (loaded by modular
-// index: under no-flux walls and obstacles the wrapped values meet zero
-// face coefficients) and the stage buffers live in shared memory as in K1.
-// The coefficients do not: halo points evaluate stages too, so they are
-// read at every evaluation through the read-only data cache (__ldg), where
-// the repeated reads of a tile's region hit. aS is not shipped: it is aN of
-// the row above, wrapped, exact because the wrapper checks
-// aS == roll_y(aN) on the float64 fields before it builds the constants.
-// aW ships: on the torus it is not a roll of aE. The arithmetic follows the
-// plain version (ops/fused_divform.py::fused_divform_step_reference)
-// operation for operation, and the library is built with -fmad=false. No
-// tensor cores, TMA or tuning yet.
+// Design: bs32, the main path's tableau, takes erk_slots.cuh's scheme on
+// K1's tiles: 512 threads fixed to the tile and its n - 1 rings, a point's
+// stage inputs and error accumulating in its thread's registers, its
+// coefficients read from device memory once a launch into registers
+// (DivformRhs::point), the stage input's variable 0 in two shared planes,
+// one block barrier a stage; a tile whose region lies inside the grid
+// takes code without the wrap, the others wrap by loops (under no-flux
+// walls and obstacles the wrapped values meet zero face coefficients).
+// zonneveld43 and dopri54 take K1's scheme (erk_tile.cuh), by the
+// launcher's dispatch on the stage count (launch_erk_slots_on). aS is not
+// shipped: it is aN of the row below, wrapped, exact because the wrapper
+// checks aS == roll_y(aN) on the float64 fields before it builds the
+// constants. aW ships: on the torus it is not a roll of aE. The arithmetic
+// follows the plain version (ops/fused_divform.py::
+// fused_divform_step_reference) operation for operation, and the library
+// is built with -fmad=false; each partial sum adds its tile's points in
+// erk_tile.cuh's order, so y_new and every partial sum are bitwise those
+// of the plain version and of K1's scheme. No tensor cores or TMA.
 
 #include <cuda_runtime.h>
 
-#include "erk_tile.cuh"
+#include "erk_slots.cuh"
 #include "rhs_common.cuh"
 
 namespace {
@@ -65,16 +70,30 @@ int launch(const void* y, void* y_new, void* ss, const void* h,
       static_cast<const T*>(mask), has_freeze};
   const crd::WrapGrid grid = {ny, nx};
   if (kinetics == crd::kFhn)
-    return crd::launch_erk_tile<Rhs<crd::kFhn, T>, T>(
-        {f, k, grid}, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab,
+    return crd::launch_erk_slots_on<Rhs<crd::kFhn, T>, T>(
+        {f, k, grid}, grid, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab,
         rtol, atol, stream);
   if (kinetics == crd::kGoldbeter)
-    return crd::launch_erk_tile<Rhs<crd::kGoldbeter, T>, T>(
-        {f, k, grid}, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab,
+    return crd::launch_erk_slots_on<Rhs<crd::kGoldbeter, T>, T>(
+        {f, k, grid}, grid, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab,
         rtol, atol, stream);
-  return crd::launch_erk_tile<Rhs<crd::kAlievPanfilov, T>, T>(
-      {f, k, grid}, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab, rtol,
-      atol, stream);
+  return crd::launch_erk_slots_on<Rhs<crd::kAlievPanfilov, T>, T>(
+      {f, k, grid}, grid, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab,
+      rtol, atol, stream);
+}
+
+// crd::slots_kernel_info of the bs32 kernel of `kinetics` in T
+template <typename T>
+int info(int kinetics, int* out) {
+  if (kinetics == crd::kFhn)
+    return crd::slots_kernel_info<Rhs<crd::kFhn, T>, crd::WrapGrid, T>(out);
+  if (kinetics == crd::kGoldbeter)
+    return crd::slots_kernel_info<Rhs<crd::kGoldbeter, T>, crd::WrapGrid,
+                                  T>(out);
+  if (kinetics == crd::kAlievPanfilov)
+    return crd::slots_kernel_info<Rhs<crd::kAlievPanfilov, T>, crd::WrapGrid,
+                                  T>(out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -97,4 +116,8 @@ extern "C" int crd_fused_divform_step_f32(CRD_FUSED_DIVFORM_ARGS) {
 
 extern "C" int crd_fused_divform_step_f64(CRD_FUSED_DIVFORM_ARGS) {
   return launch<double>(CRD_FUSED_DIVFORM_PASS);
+}
+
+extern "C" int crd_fused_divform_info(int f64, int kinetics, int* out) {
+  return f64 ? info<double>(kinetics, out) : info<float>(kinetics, out);
 }

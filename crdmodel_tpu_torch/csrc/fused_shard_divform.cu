@@ -13,10 +13,13 @@
 // partial sum of squared WRMS-scaled errors per thread block over the
 // PHYSICAL cells. The caller adds every shard's partials in a fixed order.
 //
-// The tile scheme is K1's (erk_tile.cuh) with the HaloGrid policy
-// (rhs_common.cuh), and the RHS is one of two functors over the shard's
-// halo-padded coefficient stack (ops/kernel_common.py::
-// make_shard_divform_constants), built and exchanged once a run:
+// The tile scheme is erk_slots.cuh's with the HaloGrid policy
+// (rhs_common.cuh) for bs32, the main path's tableau, and K1's
+// (erk_tile.cuh) for zonneveld43 and dopri54, by the launcher's dispatch
+// on the stage count (launch_erk_slots_on). The RHS is one of two
+// functors over the shard's halo-padded coefficient stack
+// (ops/kernel_common.py::make_shard_divform_constants), built and
+// exchanged once a run:
 //   mode 0, DivformRhs: K4's face operator, aE, aW, aN and aS = aN of the
 //     row below, with the 0/1 tissue field of an obstacle as the fourth
 //     plane (obstacle cells get ydot = 0 and hold their IC bitwise);
@@ -31,13 +34,22 @@
 // written; its halo is the next exchange's.
 //
 // What bounds it on an H100: the shard's buffer and its 3-4 coefficient
-// planes are read once and y_new's block written once, as for K4: a step is
-// bound by latency, the block's barriers between stages and the shared
-// stage buffers, and by the host's launches and halo copies around it.
+// planes are read once and y_new's block written once, as for K4: a step
+// is bound by latency and issue, and by the host's launches and halo
+// copies around it. The design is K4's: 512 threads fixed to a tile and
+// its n - 1 rings, the stage inputs, error and coefficients of a point in
+// its thread's registers (the coefficients read once a launch:
+// DivformRhs::point, MixedDivformRhs::point), the stage input's variable 0
+// and, in aniso mode, Dxy (read at neighbours) in shared planes. The
+// exchange filled HALO >= n rings, so a full tile's region never clamps;
+// only the partial tiles at the block's last rows and columns take the
+// clamped code. Each partial sum adds its tile's points in erk_tile.cuh's
+// order: y_new's block and every partial sum are bitwise those of the
+// plain version and of K1's scheme.
 
 #include <cuda_runtime.h>
 
-#include "erk_tile.cuh"
+#include "erk_slots.cuh"
 #include "rhs_common.cuh"
 
 namespace {
@@ -53,13 +65,34 @@ int launch_kinetics(const crd::FaceConstants<T>& f,
                     int tile_y, const crd::StageTable& tab, double rtol,
                     double atol, void* stream) {
   if (mode == 1)
-    return crd::launch_erk_tile_on<crd::MixedDivformRhs<Kin, T, HaloGrid>,
-                                   T>(
+    return crd::launch_erk_slots_on<crd::MixedDivformRhs<Kin, T, HaloGrid>,
+                                    T>(
         {f, m, k, grid}, grid, y, y_new, ss, h, fz, grid.nyl, grid.nxl,
         tile_x, tile_y, tab, rtol, atol, stream);
-  return crd::launch_erk_tile_on<crd::DivformRhs<Kin, T, HaloGrid>, T>(
+  return crd::launch_erk_slots_on<crd::DivformRhs<Kin, T, HaloGrid>, T>(
       {f, k, grid}, grid, y, y_new, ss, h, fz, grid.nyl, grid.nxl, tile_x,
       tile_y, tab, rtol, atol, stream);
+}
+
+// crd::slots_kernel_info of the bs32 kernel of (mode, kinetics) in T
+template <int Kin, typename T>
+int info_kinetics(int mode, int* out) {
+  if (mode == 1)
+    return crd::slots_kernel_info<crd::MixedDivformRhs<Kin, T, HaloGrid>,
+                                  HaloGrid, T>(out);
+  return crd::slots_kernel_info<crd::DivformRhs<Kin, T, HaloGrid>, HaloGrid,
+                                T>(out);
+}
+
+template <typename T>
+int info(int mode, int kinetics, int* out) {
+  if (mode != 0 && mode != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (kinetics == crd::kFhn) return info_kinetics<crd::kFhn, T>(mode, out);
+  if (kinetics == crd::kGoldbeter)
+    return info_kinetics<crd::kGoldbeter, T>(mode, out);
+  if (kinetics == crd::kAlievPanfilov)
+    return info_kinetics<crd::kAlievPanfilov, T>(mode, out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
@@ -130,4 +163,10 @@ extern "C" int crd_fused_shard_divform_step_f32(
 extern "C" int crd_fused_shard_divform_step_f64(
     CRD_FUSED_SHARD_DIVFORM_ARGS) {
   return launch<double>(CRD_FUSED_SHARD_DIVFORM_PASS);
+}
+
+extern "C" int crd_fused_shard_divform_info(int f64, int mode, int kinetics,
+                                            int* out) {
+  return f64 ? info<double>(mode, kinetics, out)
+             : info<float>(mode, kinetics, out);
 }

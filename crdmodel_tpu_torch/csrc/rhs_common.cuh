@@ -347,12 +347,58 @@ __device__ __forceinline__ void divform_rhs(
   dv_out = dv;
 }
 
+// The face operators' coefficients at one point, read once a launch by the
+// register-resident tile kernels (erk_slots.cuh): aE, aW, aN and aS (aN of
+// the row below), x (the tissue field's value, 1 without an obstacle; the
+// mixed pair's weight inv4 in the tensor mode), and beta and live of the
+// point's row (live 1 without a freeze).
+template <typename T>
+struct FacePoint {
+  T ae;
+  T aw;
+  T an;
+  T as;
+  T x;
+  T beta;
+  T live;
+};
+
+// divform_rhs on a point's coefficients read before (FacePoint), the same
+// operations in the same order; freeze and tissue say whether the run has
+// a freeze and an obstacle
+template <int Kin, typename T>
+__device__ __forceinline__ void divform_point_rhs(
+    const FacePoint<T>& c, bool freeze, bool tissue, const T* su, T v,
+    int p, int W, T& du_out, T& dv_out) {
+  const T u = su[p];
+  const T lap = c.ae * (su[p + 1] - u) + c.aw * (su[p - 1] - u)
+                + c.an * (su[p + W] - u) + c.as * (su[p - W] - u);
+  T du, dv;
+  kinetics<Kin>(u, v, c.beta, du, dv);
+  du = du + lap;
+  if (freeze) {
+    du = du * c.live;
+    dv = dv * c.live;
+  }
+  if (tissue) {
+    du = du * c.x;
+    dv = dv * c.x;
+  }
+  du_out = du;
+  dv_out = dv;
+}
+
 // divform_rhs as the functor the tile kernels take (erk_tile.cuh,
-// fused_rkc.cu): WrapGrid for K4 and K2's divergence branch, HaloGrid for
-// K11's divform mode; operator() reads v at p of the region sv, at()
-// takes it by value
+// fused_rkc.cu, erk_slots.cuh): WrapGrid for K4 and K2's divergence
+// branch, HaloGrid for K11's divform mode; operator() reads v at p of the
+// region sv, at() takes it by value; point() reads the coefficients of the
+// point at field offset g (gs the offset of the row below, r and c its row
+// and column indices) once, at_point() evaluates on them.
 template <int Kin, typename T, class Grid>
 struct DivformRhs {
+  // shared planes the operator reads at neighbours (erk_slots.cuh): none
+  static constexpr int kPlanes = 0;
+
   FaceConstants<T> f;
   RhsConstants<T> k;
   Grid grid;
@@ -365,6 +411,23 @@ struct DivformRhs {
   __device__ __forceinline__ void at(T fz, const T* su, T v, int p, int W,
                                      int gy, int gx, T& du, T& dv) const {
     divform_rhs<Kin>(f, k, grid, fz, su, v, p, W, gy, gx, du, dv);
+  }
+  __device__ __forceinline__ FacePoint<T> point(T fz, size_t g, size_t gs,
+                                                int r, int) const {
+    return {__ldg(f.aE + g),
+            __ldg(f.aW + g),
+            __ldg(f.aN + g),
+            __ldg(f.aN + gs),
+            f.tissue != nullptr ? __ldg(f.tissue + g) : T(1),
+            beta_at(k, r),
+            k.has_freeze ? live_at(k, fz, r) : T(1)};
+  }
+  __device__ __forceinline__ T plane(int, size_t) const { return T(0); }
+  __device__ __forceinline__ void at_point(const FacePoint<T>& c, const T*,
+                                           const T* su, T v, int p, int W,
+                                           T& du, T& dv) const {
+    divform_point_rhs<Kin>(c, k.has_freeze, f.tissue != nullptr, su, v, p,
+                           W, du, dv);
   }
 };
 
@@ -423,10 +486,40 @@ __device__ __forceinline__ void mixed_divform_rhs(
   dv_out = dv;
 }
 
-// mixed_divform_rhs as the functor the ERK tile kernel takes (K11's aniso
-// mode)
+// mixed_divform_rhs on a point's coefficients read before (FacePoint, x
+// the weight inv4) and the raw Dxy in a plane sx of the region's layout,
+// the same operations in the same order
+template <int Kin, typename T>
+__device__ __forceinline__ void mixed_point_rhs(
+    const FacePoint<T>& c, bool freeze, const T* sx, const T* su, T v,
+    int p, int W, T& du_out, T& dv_out) {
+  const T u = su[p];
+  const T axis = c.ae * (su[p + 1] - u) + c.aw * (su[p - 1] - u)
+                 + c.an * (su[p + W] - u) + c.as * (su[p - W] - u);
+  const T fx_e = sx[p + 1] * (su[p + W + 1] - su[p - W + 1]);
+  const T fx_w = sx[p - 1] * (su[p + W - 1] - su[p - W - 1]);
+  const T fy_n = sx[p + W] * (su[p + W + 1] - su[p + W - 1]);
+  const T fy_s = sx[p - W] * (su[p - W + 1] - su[p - W - 1]);
+  const T lap = axis + c.x * ((fx_e - fx_w) + (fy_n - fy_s));
+  T du, dv;
+  kinetics<Kin>(u, v, c.beta, du, dv);
+  du = du + lap;
+  if (freeze) {
+    du = du * c.live;
+    dv = dv * c.live;
+  }
+  du_out = du;
+  dv_out = dv;
+}
+
+// mixed_divform_rhs as the functor the ERK tile kernels take (K11's aniso
+// mode; erk_tile.cuh, erk_slots.cuh); point() and at_point() as
+// DivformRhs's, with Dxy, which the operator reads at neighbours, in a
+// shared plane (plane(0, g) its value at field offset g)
 template <int Kin, typename T, class Grid>
 struct MixedDivformRhs {
+  static constexpr int kPlanes = 1;
+
   FaceConstants<T> f;
   MixedConstants<T> m;
   RhsConstants<T> k;
@@ -436,6 +529,25 @@ struct MixedDivformRhs {
                                              int p, int W, int gy, int gx,
                                              T& du, T& dv) const {
     mixed_divform_rhs<Kin>(f, m, k, grid, fz, su, sv, p, W, gy, gx, du, dv);
+  }
+  __device__ __forceinline__ FacePoint<T> point(T fz, size_t g, size_t gs,
+                                                int r, int c) const {
+    return {__ldg(f.aE + g),
+            __ldg(f.aW + g),
+            __ldg(f.aN + g),
+            __ldg(f.aN + gs),
+            m.inv4_profile ? __ldg(m.inv4 + c) : __ldg(m.inv4),
+            beta_at(k, r),
+            k.has_freeze ? live_at(k, fz, r) : T(1)};
+  }
+  __device__ __forceinline__ T plane(int, size_t g) const {
+    return __ldg(m.dxy + g);
+  }
+  __device__ __forceinline__ void at_point(const FacePoint<T>& c,
+                                           const T* sx, const T* su, T v,
+                                           int p, int W, T& du,
+                                           T& dv) const {
+    mixed_point_rhs<Kin>(c, k.has_freeze, sx, su, v, p, W, du, dv);
   }
 };
 

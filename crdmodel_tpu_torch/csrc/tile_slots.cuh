@@ -1,6 +1,7 @@
 // A fixed map of a block's threads onto the points of a tile's region, the
-// scheme of the port's register-resident tile kernels: K14 (fused_kstep.cu)
-// and K2 (fused_rkc.cu). The region is the tile and its halo, W x R points
+// scheme of the port's register-resident tile kernels: K14 (fused_kstep.cu),
+// K2 (fused_rkc.cu), and K4 and K11 (erk_slots.cuh). The region is the tile
+// and its halo, W x R points
 // row-major, both compile-time; thread t owns the points p = t + Threads m,
 // its slots m = 0 .. kSlots - 1, for the whole launch. A value read only
 // at its own point (a stage, the step's start) stays in the owner's

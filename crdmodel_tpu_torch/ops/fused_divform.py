@@ -19,6 +19,8 @@ those problems.
                                 CPU tensor
   fused_divform_step_reference  the same step in plain torch, the kernel's
                                 oracle
+  fused_divform_tile_sums       the plain version of the kernel's partial
+                                sums, one a tile in its order
   build_fused_divform_step      a problem's step_err(t, y, h, params)
 
 Semantics kept from the TPU kernel (pallas_divform.py:221-289): the stage
@@ -39,9 +41,11 @@ from __future__ import annotations
 import torch
 
 from crdmodel_tpu_torch.integrate.erk import Tableau
+from crdmodel_tpu_torch.ops.fused_kstep import tile_error_sums
 from crdmodel_tpu_torch.ops.fused_step import (MAX_STAGES,
+                                               erk_stages_reference,
                                                erk_step_reference,
-                                               launch_erk_tile)
+                                               launch_erk_tile, tile_plan)
 from crdmodel_tpu_torch.ops.kernel_common import (DivformConstants,
                                                   face_coeffs64,
                                                   freeze_scalar,
@@ -82,6 +86,18 @@ def fused_divform_step_reference(y, h, fz, dc: DivformConstants,
                               rtol, atol)
 
 
+def fused_divform_tile_sums(y, h, fz, dc: DivformConstants,
+                            tableau: Tableau, rtol: float, atol: float):
+    """The kernel's partial sums in plain torch: (n_tiles,) sums of
+    squared WRMS-scaled errors, one a tile of tile_plan, each in the ERK
+    tile kernels' order (fused_kstep.tile_error_sums), as both of the
+    kernel's schemes write them (csrc/erk_slots.cuh, erk_tile.cuh)."""
+    _, err = erk_stages_reference(y, h, make_divform_rhs_block(dc, fz),
+                                  tableau)
+    tile_y = tile_plan(tableau.stages, y.element_size())[1]
+    return tile_error_sums(err, y, rtol, atol, tile_y)
+
+
 def fused_divform_step(y, h, fz, dc: DivformConstants, tableau: Tableau,
                        rtol: float, atol: float):
     """One fused step: (y_new (2, ny, nx), ss partials (n_blocks,)).
@@ -89,8 +105,10 @@ def fused_divform_step(y, h, fz, dc: DivformConstants, tableau: Tableau,
     h and fz are 0-d tensors in y's dtype on y's device: the kernel reads
     them there, so a step needs no host sync. A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel (float32, or float64 as a
-    parity tool) or raises. `fused_divform_step.launches` counts kernel
-    launches.
+    parity tool) or raises. bs32 runs the register-resident scheme
+    (csrc/erk_slots.cuh), zonneveld43 and dopri54 K1's (erk_tile.cuh): the
+    launcher's dispatch on the stage count (erk_slots.kernel_name).
+    `fused_divform_step.launches` counts kernel launches.
     """
     if y.device.type == "cpu":
         return fused_divform_step_reference(y, h, fz, dc, tableau, rtol,

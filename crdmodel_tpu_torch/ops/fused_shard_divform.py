@@ -28,6 +28,8 @@ the XLA path and agrees with the sharded torch path to rounding.
                                       for a CUDA tensor, runs the plain
                                       version for a CPU tensor
   fused_shard_divform_step_reference  the same step in plain torch
+  fused_shard_divform_tile_sums       the plain version of the kernel's
+                                      partial sums
   build_fused_shard_divform           a sharded problem's step_err
 
 The coefficients are static, so the (3 or 4, nyl + 2 HALO, nxl + 2 HALO)
@@ -48,6 +50,7 @@ import numpy as np
 import torch
 
 from crdmodel_tpu_torch.integrate.erk import Tableau
+from crdmodel_tpu_torch.ops.fused_kstep import tile_error_sums
 from crdmodel_tpu_torch.ops.fused_step import (MAX_STAGES, _stage_arrays,
                                                erk_stages_reference,
                                                tile_plan)
@@ -113,6 +116,22 @@ def fused_shard_divform_step_reference(yp, h, fz, sc: ShardDivformConstants,
     return y_new, masked_error_sum(err, yp, sc, rtol, atol)
 
 
+def fused_shard_divform_tile_sums(yp, h, fz, sc: ShardDivformConstants,
+                                  tableau: Tableau, rtol: float,
+                                  atol: float):
+    """The kernel's partial sums in plain torch: (n_tiles,) sums over the
+    block's tiles (tile_plan) of the physical cells' squared WRMS-scaled
+    errors, each in the ERK tile kernels' order (fused_kstep.
+    tile_error_sums; a mirror-pad cell adds +0.0, as the kernel's skip)."""
+    _, err = erk_stages_reference(
+        yp, h, make_shard_divform_rhs_block(sc, fz), tableau)
+    err = interior(err, sc.halo).clone()
+    err[:, sc.valid_rows:] = 0.0
+    err[:, :, sc.valid_cols:] = 0.0
+    tile_y = tile_plan(tableau.stages, yp.element_size())[1]
+    return tile_error_sums(err, interior(yp, sc.halo), rtol, atol, tile_y)
+
+
 def check_shard_divform_constants(sc: ShardDivformConstants, nyl: int,
                                   nxl: int, dtype, device):
     """check_tensor on every constant K11 reads."""
@@ -135,7 +154,9 @@ def fused_shard_divform_step(yp, h, fz, sc: ShardDivformConstants,
     yp is the shard's halo-padded buffer (2, nyl + 2 HALO, nxl + 2 HALO)
     with its halo filled; h and fz are 0-d tensors on its device. Only the
     block of y_new is written. A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel or raises.
+    CUDA tensor launches the kernel or raises. bs32 runs the
+    register-resident scheme (csrc/erk_slots.cuh), zonneveld43 and dopri54
+    K1's (erk_tile.cuh): erk_slots.kernel_name.
     `fused_shard_divform_step.launches` counts kernel launches."""
     if yp.device.type == "cpu":
         return fused_shard_divform_step_reference(yp, h, fz, sc, tableau,

@@ -1,21 +1,34 @@
-"""Time the port's K14 and K2 kernels of one tree on the card, or of two
-trees in turns in one call.
+"""Time the port's redesigned kernels (K14 and K2; K4 and K11) of one tree
+on the card, or of two trees in turns in one call.
 
     python3 scripts/kernel_ab.py [--tree DIR] [--label NAME] [--runs]
-    python3 scripts/kernel_ab.py --compare OTHER_DIR [--runs]
+                                 [--measure all|kstep_rkc|divform]
+    python3 scripts/kernel_ab.py --compare OTHER_DIR [--runs] [--measure ...]
 
 One tree: imports crdmodel_tpu_torch and chip_smoke.py from DIR (default:
-this checkout), builds its kernels and prints one JSON line a measurement:
-K14 (bs32, f32, the canonical FHN torus's (2,1600,400), a random state) at
-K = 2, 5, 10 (device time from profiler traces, a sub-step's share, and a
-burst's time a launch from CUDA events); K2 (f32, unfrozen) at
-(2,1600,400) and at the wide sheet's (2,12800,3200) for s = 5, 9, 23
-(CUDA events around bursts). With --runs also the wide FHN sheet's run
-through simulate() (wall, steps, K2's mean device time a launch from a
-traced second run) and the canonical FHN torus with speculative_k = 5
-over Tf = 5 (chip_smoke.profile_run: device-busy time, kernels a step,
-idle share). Only the wrappers' public signatures are used, so an older
-tree of the port times the same way.
+this checkout), builds its kernels and prints one JSON line a measurement.
+--measure kstep_rkc: K14 (bs32, f32, the canonical FHN torus's
+(2,1600,400), a random state) at K = 2, 5, 10 (device time from profiler
+traces, a sub-step's share, and a burst's time a launch from CUDA events);
+K2 (f32, unfrozen) at (2,1600,400) and at the wide sheet's (2,12800,3200)
+for s = 5, 9, 23 (CUDA events around bursts); with --runs also the wide
+FHN sheet's run through simulate() (wall, steps, K2's mean device time a
+launch from a traced second run) and the canonical FHN torus with
+speculative_k = 5 over Tf = 5 (chip_smoke.profile_run: device-busy time,
+kernels a step, idle share). --measure divform: K4 (bs32, f32, the
+bounded tissue's (2,1600,400) from its ICs: a burst's time a launch from
+CUDA events and the device time from profiler traces, as chip_smoke's
+k4_timing), K11 (bs32, f32, shard 0 of the bounded tissue's and of the torus
+fibres' 2x2 meshes, (2,816,216): device time and burst, as k11_timing),
+and beside them K1, K5 and K8, which keep K1's scheme (erk_tile.cuh), as
+chip_smoke's k1, k5 and k8_timing (K1 and K5 also their device time);
+the registers and blocks an SM of K4's and K11's bs32 kernels where the
+tree has their queries; with --runs also the bounded tissue's bs32 run
+over Tf = 1 on one device and on a 2x2 mesh of shards on cuda:0
+(profile_run: device-busy time, kernels a step, idle share, wall, K4's
+or K11's launches and mean device time). --measure all (the default)
+takes both. Only the wrappers' public signatures are used,
+so an older tree of the port times the same way.
 
 --compare OTHER_DIR runs OTHER_DIR, this checkout, this checkout,
 OTHER_DIR (each in its own process) and prints the lines of all four,
@@ -36,31 +49,48 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 K14_KS = (2, 5, 10)
 K2_STAGES = (5, 9, 23)
 K2_SAMPLES = {"canonical": (60, 10), "wide": (5, 3)}
+# the profiler tag of K4's and K11's kernels in either tree: both schemes'
+# kernels take the operator functor (DivformRhs, MixedDivformRhs)
+TAG = "DivformRhs"
+RUN_FIELDS = ("steps", "wall_s", "untraced_wall_s", "device_busy_ms",
+              "kernels_per_step", "device_idle_share", "kernel_launches",
+              "kernel_mean_us")
 
 
 def emit(label, name, **fields):
     print(json.dumps({"tree": label, "measure": name, **fields}), flush=True)
 
 
-def time_one_tree(tree, label, runs):
+def time_one_tree(tree, label, runs, measure):
     sys.path.insert(0, tree)
     os.chdir(tree)
-    import numpy as np
     import torch
 
     import chip_smoke as cs
-    from crdmodel_tpu_torch.config import config_from_ini
-    from crdmodel_tpu_torch.core.problem import build_problem
-    from crdmodel_tpu_torch.integrate.erk import TABLEAUS
-    from crdmodel_tpu_torch.ops import _build, fused_kstep, fused_rkc
-    from crdmodel_tpu_torch.ops.kernel_common import prepare_constants
+    from crdmodel_tpu_torch.ops import _build
 
     if not torch.cuda.is_available():
         sys.exit("no CUDA device: kernel_ab.py needs an NVIDIA GPU")
     card = cs.card_line()
     emit(label, "build", seconds=_build.build(), card=card,
-         ptxas_fused_kstep=cs.ptxas_summary("fused_kstep.cu"),
-         ptxas_fused_rkc=cs.ptxas_summary("fused_rkc.cu"))
+         **{f"ptxas_{src}": cs.ptxas_summary(src + ".cu") for src in (
+             "fused_kstep", "fused_rkc", "fused_divform",
+             "fused_shard_divform")})
+    if measure in ("all", "kstep_rkc"):
+        time_kstep_rkc(cs, label, card, runs)
+    if measure in ("all", "divform"):
+        time_divform(cs, label, card, runs)
+
+
+def time_kstep_rkc(cs, label, card, runs):
+    import numpy as np
+    import torch
+
+    from crdmodel_tpu_torch.config import config_from_ini
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import fused_kstep, fused_rkc
+    from crdmodel_tpu_torch.ops.kernel_common import prepare_constants
 
     cfg = config_from_ini(cs.INI, model="fhn", surface="torus")
     problem = build_problem(cfg, device="cuda")
@@ -119,19 +149,135 @@ def time_one_tree(tree, label, runs):
          card=card)
     fields = cs.profile_run(dataclasses.replace(cfg, speculative_k=5), {},
                             5.0, "fused_kstep_kernel")
-    emit(label, "kstep_run", **{k: fields[k] for k in (
-        "steps", "wall_s", "untraced_wall_s", "device_busy_ms",
-        "kernels_per_step", "device_idle_share", "kernel_launches",
-        "kernel_mean_us")}, card=card)
+    emit(label, "kstep_run", **{k: fields[k] for k in RUN_FIELDS}, card=card)
 
 
-def compare(other, runs):
+def slot_info(symbol, *args):
+    """The registers, blocks an SM and shared bytes of K4's or K11's bs32
+    kernel, where the tree has the query (ops/erk_slots.py), else {}."""
+    import torch
+    try:
+        from crdmodel_tpu_torch.ops import erk_slots
+    except ImportError:
+        return {}
+    return erk_slots.kernel_info(symbol, torch.float32, *args)
+
+
+def time_divform(cs, label, card, runs):
+    import numpy as np
+    import torch
+
+    from crdmodel_tpu_torch.config import config_from_ini
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import fused_aniso, fused_divform
+    from crdmodel_tpu_torch.ops import fused_shard_divform as f11
+    from crdmodel_tpu_torch.ops import fused_shard_step as f8
+    from crdmodel_tpu_torch.ops import fused_step
+    from crdmodel_tpu_torch.ops.kernel_common import (
+        prepare_aniso_constants, prepare_constants, prepare_divform_constants)
+
+    f32 = torch.float32
+    zero = torch.zeros((), dtype=f32, device="cuda")
+    tab = TABLEAUS["bs32"]
+    cfg_ap, ap_build = cs.bounded_tissue()
+    problem = build_problem(dataclasses.replace(cfg_ap, t_boundary=0.0),
+                            "cuda", **ap_build)
+    dc = prepare_divform_constants(problem, f32, "cuda")
+    y = problem.y0.contiguous()
+    args = (y, torch.tensor(cs.K4_H, device="cuda"), zero, dc, tab,
+            cfg_ap.rtol, cfg_ap.atol)
+
+    def k4():
+        return fused_divform.fused_divform_step(*args)
+
+    emit(label, "k4", shape=list(y.shape), kernel_us=cs.median_ms(k4) * 1e3,
+         device_us=cs.device_ms(k4, TAG) * 1e3,
+         **slot_info("crd_fused_divform_info", dc.kinetics_id), card=card)
+    del problem, dc, y, args
+
+    cfg_aniso, aniso_build = cs.aniso_sheet()
+    cfg_torus, torus_build = cs.torus_fibres(cfg_aniso)
+    mesh = cs.shard_mesh(cs.SHARD_MESH)
+    for case, cfg, build_kw, aniso, h in (
+            ("bounded_ap", cfg_ap, ap_build, False, cs.K4_H),
+            ("fibres_torus", cfg_torus, torus_build, True, cs.K5_H)):
+        problem = build_problem(dataclasses.replace(cfg, t_boundary=0.0),
+                                "cuda", **build_kw)
+        bufs, consts = cs.shard_divform_inputs(
+            problem, mesh, problem.y0.cpu().numpy(), f32, aniso)
+        args = (bufs[0], torch.tensor(h, device="cuda"), zero, consts[0],
+                tab, cfg.rtol, cfg.atol)
+
+        def k11():
+            return f11.fused_shard_divform_step(*args)
+
+        emit(label, "k11", case=case, shape=list(bufs[0].shape),
+             device_us=cs.device_ms(k11, TAG) * 1e3,
+             burst_us=cs.median_ms(k11) * 1e3,
+             **slot_info("crd_fused_shard_divform_info", int(aniso),
+                         consts[0].kinetics_id), card=card)
+        del problem, bufs, consts, args
+
+    # K1, K5 and K8 (K1's scheme, unchanged): the timings of chip_smoke's
+    # k1, k5 and k8_timing
+    cfg = config_from_ini(cs.INI, model="fhn", surface="torus")
+    problem = build_problem(cfg, "cuda")
+    kc = prepare_constants(problem, f32, "cuda")
+    y = torch.tensor(cs.random_state(cfg, tuple(problem.y0.shape),
+                                     np.random.default_rng(cs.SEED)),
+                     dtype=f32, device="cuda")
+    args = (y, torch.tensor(cs.H, dtype=f32, device="cuda"), zero, kc, tab,
+            cfg.rtol, cfg.atol)
+
+    def k1():
+        return fused_step.fused_step(*args)
+
+    emit(label, "k1", shape=list(y.shape), kernel_us=cs.median_ms(k1) * 1e3,
+         device_us=cs.device_ms(k1, "fused_erk_tile_kernel") * 1e3,
+         card=card)
+    problem = build_problem(dataclasses.replace(cfg_aniso, t_boundary=0.0),
+                            "cuda", **aniso_build)
+    ac = prepare_aniso_constants(problem, f32, "cuda")
+    y = problem.y0.contiguous()
+    args = (y, torch.tensor(cs.K5_H, device="cuda"), zero, ac, tab,
+            cfg_aniso.rtol, cfg_aniso.atol)
+
+    def k5():
+        return fused_aniso.fused_aniso_step(*args)
+
+    emit(label, "k5", shape=list(y.shape), kernel_us=cs.median_ms(k5) * 1e3,
+         device_us=cs.device_ms(k5, "AnisoRhs") * 1e3, card=card)
+    problem = build_problem(cfg, "cuda")
+    bufs, consts = cs.shard_inputs(problem, mesh, problem.y0.cpu().numpy(),
+                                   f32, f8.HALO)
+    args = (bufs[0], torch.tensor(cs.H, device="cuda"), zero, consts[0], tab,
+            cfg.rtol, cfg.atol)
+
+    def k8():
+        return f8.fused_shard_step(*args)
+
+    emit(label, "k8", shape=list(bufs[0].shape),
+         device_us=cs.device_ms(k8, "fused_erk_tile_kernel") * 1e3,
+         burst_us=cs.median_ms(k8) * 1e3, card=card)
+    del problem, bufs, consts, args, y
+
+    if not runs:
+        return
+    for name, run_mesh in (("bounded_ap_run", None),
+                           ("sharded_bounded_ap_run", mesh)):
+        fields = cs.profile_run(cfg_ap, ap_build, 1.0, TAG, mesh=run_mesh)
+        emit(label, name, **{k: fields[k] for k in RUN_FIELDS}, card=card)
+
+
+def compare(other, runs, measure):
     order = [(other, "other"), (HERE, "this"), (HERE, "this"),
              (other, "other")]
     lines = []
     for tree, label in order:
         cmd = [sys.executable, os.path.abspath(__file__), "--tree", tree,
-               "--label", label] + (["--runs"] if runs else [])
+               "--label", label, "--measure", measure] + (
+                   ["--runs"] if runs else [])
         proc = subprocess.run(cmd, capture_output=True, text=True)
         sys.stdout.write(proc.stdout)
         if proc.returncode != 0:
@@ -144,10 +290,12 @@ def compare(other, runs):
                   if "tree" in rec]
     summary = {}
     for rec in lines:
-        key = "/".join(str(rec[f]) for f in ("measure", "k", "s", "shape")
-                       if f in rec)
-        for f in ("kernel_us", "kernel_us_per_substep", "wall_s",
-                  "k2_mean_device_us", "device_busy_ms", "kernels_per_step"):
+        key = "/".join(str(rec[f]) for f in ("measure", "case", "k", "s",
+                                             "shape") if f in rec)
+        for f in ("kernel_us", "kernel_us_per_substep", "device_us",
+                  "burst_us", "wall_s", "untraced_wall_s",
+                  "k2_mean_device_us", "device_busy_ms", "kernels_per_step",
+                  "device_idle_share", "kernel_mean_us"):
             if f in rec:
                 summary.setdefault(f"{key}/{f}", {}).setdefault(
                     rec["tree"], []).append(rec[f])
@@ -162,11 +310,14 @@ def main():
     ap.add_argument("--label", default="this")
     ap.add_argument("--compare", metavar="OTHER_DIR")
     ap.add_argument("--runs", action="store_true")
+    ap.add_argument("--measure", default="all",
+                    choices=("all", "kstep_rkc", "divform"))
     args = ap.parse_args()
     if args.compare:
-        compare(os.path.abspath(args.compare), args.runs)
+        compare(os.path.abspath(args.compare), args.runs, args.measure)
     else:
-        time_one_tree(os.path.abspath(args.tree), args.label, args.runs)
+        time_one_tree(os.path.abspath(args.tree), args.label, args.runs,
+                      args.measure)
 
 
 if __name__ == "__main__":

@@ -6,9 +6,16 @@ kernel (ops/pallas_divform.py) run in interpret mode, f32, one step from a
 numpy-seeded state, on three cases: no-flux walls with a scar
 (Aliev–Panfilov, with a freeze), a torus obstacle (FitzHugh–Nagumo) and a
 flat 2-D diffusion field (dopri54); and the gate.
+The register-resident scheme of bs32 (csrc/erk_slots.cuh, ops/
+erk_slots.py): its plan's arithmetic, the launcher's dispatch on the
+stage count for each tableau the gate takes, the partial sums' length
+(one a tile) at the main path's and odd shapes, and the plain partial sums
+(fused_divform_tile_sums) against the plain total.
 On a CUDA card (marker `cuda`): the CUDA kernel against the plain version,
-y_new bitwise. The JAX package is imported inside the test that uses it, so
-that the card tests run where JAX is not installed:
+y_new bitwise, and every partial sum bitwise the plain version's in the
+kernel's order, on the cases above, a torus narrower than the halo and an
+odd flat grid, with each tableau. The JAX package is imported inside the
+test that uses it, so that the card tests run where JAX is not installed:
 
     python -m pytest tests/test_torch_fused_divform.py -m cuda --noconftest
 """
@@ -24,8 +31,11 @@ from crdmodel_tpu_torch.convert import inputs_from_numpy
 from crdmodel_tpu_torch.core.grid import face_openness
 from crdmodel_tpu_torch.core.problem import build_problem
 from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+from crdmodel_tpu_torch.ops import erk_slots
 from crdmodel_tpu_torch.ops import fused_divform as fd
-from crdmodel_tpu_torch.ops.kernel_common import prepare_divform_constants
+from crdmodel_tpu_torch.ops.fused_step import TILE_X, tile_plan
+from crdmodel_tpu_torch.ops.kernel_common import (SMEM_BYTES,
+                                                  prepare_divform_constants)
 
 FLAT = dict(surface="flat", x_mesh=48, surface_width=20.0,
             surface_length=20.0)
@@ -227,3 +237,152 @@ def test_cuda_kernel_matches_plain(name, method, dtype):
         assert torch.equal(y_k, y_r)
         rel = abs(float(ss_k.sum()) - float(ss_r.sum())) / float(ss_r.sum())
         assert rel <= (1e-5 if dtype == torch.float32 else 1e-12)
+
+
+# the shared memory and registers of one H100 SM
+SM_SHARED_BYTES = 228 * 1024
+SM_REGISTERS = 65536
+# the edges of the register-resident scheme: a torus narrower than a
+# tile's rings (the wrap loops run more than once) and a flat grid whose
+# sides are no multiple of the tile (partial tiles); each with a freeze
+EDGE_CASES = {
+    "fhn_torus_4_columns": (
+        dict(model="fhn", surface="torus", x_mesh=4, beta=1.25,
+             t_boundary=0.4),
+        dict(obstacle_mask=_scar(16, 4, slice(6, 9), slice(1, 3))),
+        "bs32", 0.05),
+    "ap_noflux_odd": (
+        dict(FLAT, model="aliev_panfilov", x_mesh=37, beta=0.1,
+             diffusion=1.0, boundary="noflux", t_boundary=0.4),
+        {}, "bs32", 0.02),
+}
+
+
+@pytest.mark.parametrize("op_planes", [0, 1])
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_slots_plan(itemsize, op_planes):
+    """K1's tile for bs32 with its rings; the slots cover the tile and
+    its first STAGES - 1 rings, no slot row of threads to spare; the
+    shared bytes fit a block (SMEM_BYTES less the static kilobyte), and
+    two f32 blocks of 64 registers a thread fit an SM."""
+    tile_y, (width, rows), slots, smem = erk_slots.slots_plan(itemsize,
+                                                              op_planes)
+    assert tile_y == tile_plan(erk_slots.STAGES, itemsize)[1] == 32
+    assert (width, rows) == (TILE_X + 8, tile_y + 8)
+    points = (width - 2) * (rows - 2)
+    assert (slots - 1) * erk_slots.THREADS < points <= (
+        slots * erk_slots.THREADS)
+    assert smem <= SMEM_BYTES - 1024
+    if itemsize == 4:
+        assert 2 * (smem + 1024) <= SM_SHARED_BYTES
+        assert 2 * erk_slots.THREADS * 64 <= SM_REGISTERS
+
+
+@pytest.mark.parametrize("method", sorted(TABLEAUS))
+def test_dispatch_names_a_kernel_for_each_tableau(method):
+    """Every tableau the gate takes has a kernel: bs32 the
+    register-resident scheme, the others K1's scheme."""
+    kw, build, _, _ = _case("ap_noflux_scar")
+    p = build_problem(SimConfig(**kw), "cpu", **build)
+    tab = TABLEAUS[method]
+    assert fd.is_divform_supported(p, tab, torch.float32)
+    assert erk_slots.uses_slots(tab) == (method == "bs32")
+    assert erk_slots.kernel_name(tab) == (
+        erk_slots.SLOTS_KERNEL if method == "bs32" else
+        erk_slots.TILE_KERNEL)
+
+
+@pytest.mark.parametrize("x_mesh,want", [(400, 650), (200, 175), (37, 10),
+                                         (101, 52)])
+def test_partial_sums_one_a_tile(x_mesh, want):
+    """The plain partial sums number the kernel's tiles: 650 at the
+    bounded tissue's 1600x400, 175 at a 2x2 shard's 800x200, and partial
+    tiles at odd sides."""
+    kw, _, _, h = _edge_case("ap_noflux_odd", x_mesh=x_mesh,
+                             surface_length=80.0)
+    p = build_problem(SimConfig(**kw), "cpu")
+    assert p.cfg.ny == 4 * x_mesh
+    ny, nx = p.cfg.ny, p.cfg.nx
+    assert -(-nx // TILE_X) * -(-ny // 32) == want
+    dc = prepare_divform_constants(p, torch.float32, "cpu")
+    y = torch.tensor(_state(tuple(p.y0.shape), kw["model"]),
+                     dtype=torch.float32)
+    sums = fd.fused_divform_tile_sums(y, torch.tensor(h), torch.tensor(0.0),
+                                      dc, TABLEAUS["bs32"], 1e-4, 1e-7)
+    assert sums.shape == (want,)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", sorted(CASES) + sorted(EDGE_CASES))
+def test_tile_sums_add_to_the_plain_total(name, dtype):
+    """The plain partial sums, in the kernel's tile order, add up to the
+    plain version's total to rounding, for each tableau and freeze."""
+    kw, build, _, h = _edge_case(name, t_boundary=0.4)
+    p = build_problem(SimConfig(**kw), "cpu", **build)
+    dc = prepare_divform_constants(p, dtype, "cpu")
+    y = torch.tensor(_state(tuple(p.y0.shape), kw["model"]), dtype=dtype)
+    for method in sorted(TABLEAUS):
+        for _, _, fz in SEGMENTS:
+            args = (y, torch.tensor(h, dtype=dtype),
+                    torch.tensor(fz, dtype=dtype), dc, TABLEAUS[method],
+                    1e-4, 1e-7)
+            sums = fd.fused_divform_tile_sums(*args)
+            _, total = fd.fused_divform_step_reference(*args)
+            tile_y = tile_plan(TABLEAUS[method].stages, y.element_size())[1]
+            ny, nx = p.cfg.ny, p.cfg.nx
+            assert sums.shape == (-(-nx // TILE_X) * -(-ny // tile_y),)
+            rel = 1e-5 if dtype == torch.float32 else 1e-12
+            np.testing.assert_allclose(float(sums.sum()), float(total),
+                                       rtol=rel)
+
+
+def _edge_case(name, **over):
+    if name in EDGE_CASES:
+        kw, build, method, h = EDGE_CASES[name]
+        return {**COMMON, **kw, **over}, build, method, h
+    return _case(name, **over)
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs a CUDA card and nvcc")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("method", sorted(TABLEAUS))
+@pytest.mark.parametrize("name", sorted(CASES) + sorted(EDGE_CASES))
+def test_cuda_partial_sums_bitwise(name, method, dtype):
+    """Both schemes on every case, frozen and not: y_new bitwise the
+    plain version's, two launches equal, one partial sum a tile, each
+    bitwise the plain version's in the kernel's order
+    (fused_divform_tile_sums); the launch runs the kernel the dispatch
+    names (erk_slots.kernel_name), and the register-resident kernel's
+    shared bytes are slots_plan's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    kw, build, _, h = _edge_case(name, t_boundary=0.4)
+    p = build_problem(SimConfig(**kw), "cuda", **build)
+    dc = prepare_divform_constants(p, dtype, "cuda")
+    y = torch.tensor(_state(tuple(p.y0.shape), kw["model"]), dtype=dtype,
+                     device="cuda")
+    tab = TABLEAUS[method]
+    for _, _, fz in SEGMENTS:
+        args = (y, torch.tensor(h, dtype=dtype, device="cuda"),
+                torch.tensor(fz, dtype=dtype, device="cuda"), dc, tab, 1e-4,
+                1e-7)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            y_k, ss_k = fd.fused_divform_step(*args)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()]
+        assert any(erk_slots.kernel_name(tab) in n for n in names), names
+        y_k2, ss_k2 = fd.fused_divform_step(*args)
+        y_r, _ = fd.fused_divform_step_reference(*args)
+        sums = fd.fused_divform_tile_sums(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(y_k, y_k2) and torch.equal(ss_k, ss_k2)
+        assert torch.equal(y_k, y_r)
+        assert ss_k.shape == sums.shape and torch.equal(ss_k, sums)
+    if erk_slots.uses_slots(tab):
+        info = erk_slots.kernel_info("crd_fused_divform_info", dtype,
+                                     dc.kinetics_id)
+        smem = erk_slots.slots_plan(y.element_size())[3]
+        assert info["shared_bytes"] == smem
+        assert info["blocks_per_sm"] >= (2 if dtype == torch.float32 else 1)

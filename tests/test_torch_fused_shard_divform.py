@@ -10,9 +10,14 @@ surface and on the torus), on even and uneven meshes: physical cells to
 2e-5 and the error sum to 1e-3 relative (K8's limits); each mode's plain
 version in f64 against a step of the sharded torch path to 1e-12; whole
 small runs through the plain K11 against the sharded torch path; the scar
-held bitwise at its IC; the mirror-pad invariant of uneven meshes. On a
-CUDA card (marker `cuda`): the CUDA kernel against its plain version,
-y_new's block bitwise:
+held bitwise at its IC; the mirror-pad invariant of uneven meshes; the
+plain partial sums (fused_shard_divform_tile_sums: one a tile of the
+block, over the physical cells) against the plain total, and their length
+at a 2x2 shard of the bounded tissue and at odd blocks. On a CUDA card
+(marker `cuda`): the CUDA kernel against its plain version, y_new's block
+bitwise, and every partial sum bitwise the plain version's, on both modes,
+an uneven 2x2 mesh with mirror pads on both axes, and each tableau the
+gate takes:
 
     python -m pytest tests/test_torch_fused_shard_divform.py -m cuda --noconftest
 """
@@ -26,6 +31,7 @@ import torch
 from crdmodel_tpu_torch.config import SimConfig
 from crdmodel_tpu_torch.core.problem import build_problem
 from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+from crdmodel_tpu_torch.ops import erk_slots
 from crdmodel_tpu_torch.ops import fused_shard_divform as f11
 from crdmodel_tpu_torch.parallel.mesh import make_mesh
 from crdmodel_tpu_torch.parallel.sharded import (gather, make_reduce,
@@ -334,3 +340,135 @@ def test_kernel_matches_plain_version(name, shape, dtype):
             tol = 1e-10 if dtype == torch.float64 else 1e-3
             assert abs(float(ss_k.sum()) - float(ss_r.sum())) <= (
                 tol * float(ss_r.sum()))
+
+
+# an odd grid on a 2x2 mesh: 37x37 in blocks of 19 whose last row and
+# column are mirror-pad cells, one partial tile a block
+UNEVEN = {"noflux_uneven": (dict(AP, x_mesh=37, surface_length=19.0),
+                            lambda cfg: {}, "bs32", False, 0.01)}
+
+
+def _any_case(name, **over):
+    if name in UNEVEN:
+        kw, build, method, aniso, h = UNEVEN[name]
+        kw = {**kw, "method": method, **over}
+        return kw, build(SimConfig(**kw)), aniso, h
+    return _case(name, **over)
+
+
+def _shard_inputs(kw, build_kw, aniso, shape, dtype, device):
+    """Every shard's halo-padded buffer of the seeded state, its halo
+    exchanged, and its K11 constants."""
+    from crdmodel_tpu_torch.ops.kernel_common import (
+        make_shard_divform_constants)
+    from crdmodel_tpu_torch.parallel.halo import mirror_halo_pad
+
+    cfg = SimConfig(**kw)
+    problem = build_problem(cfg, device, **build_kw)
+    mesh = _mesh(shape, device)
+    pad = mesh_pad_spec(cfg, mesh)
+    y = torch.tensor(_state(cfg), dtype=dtype, device=device)
+    bufs = mirror_halo_pad(list(split_state(y, mesh, pad, cfg)), mesh,
+                           f11.HALO, pad)
+    return bufs, make_shard_divform_constants(problem, mesh, pad, f11.HALO,
+                                              dtype, aniso=aniso)
+
+
+@pytest.mark.parametrize("kw,shape,want", [
+    (dict(AP, x_mesh=400, surface_length=40.0), (2, 2), 175),
+    (dict(AP, x_mesh=101, surface_length=40.0), (2, 2), 14),
+    (dict(AP, x_mesh=75, surface_length=40.0), (1, 3), 10)])
+def test_shard_partial_sums_one_a_tile(kw, shape, want):
+    """The plain partial sums number the kernel's tiles of the block: 175
+    at a 2x2 shard (800x200) of the bounded tissue's 1600x400, and the
+    partial tiles of odd blocks (202x51, 300x25)."""
+    bufs, consts = _shard_inputs(kw, {}, False, shape, torch.float32, "cpu")
+    sc = consts[0]
+    nyl = bufs[0].shape[1] - 2 * f11.HALO
+    nxl = bufs[0].shape[2] - 2 * f11.HALO
+    assert -(-nxl // 32) * -(-nyl // 32) == want
+    sums = f11.fused_shard_divform_tile_sums(
+        bufs[0], torch.tensor(0.01), torch.tensor(0.0), sc,
+        TABLEAUS["bs32"], 1e-5, 1e-8)
+    assert sums.shape == (want,)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(2, 2), (1, 3)])
+@pytest.mark.parametrize("name", sorted(CASES) + sorted(UNEVEN))
+def test_shard_tile_sums_add_to_the_plain_total(name, shape, dtype):
+    """The plain partial sums of every shard, in the kernel's tile order
+    over the physical cells, add up to the plain version's total to
+    rounding, for each tableau, frozen and not."""
+    kw, build_kw, aniso, h = _any_case(name)
+    bufs, consts = _shard_inputs(kw, build_kw, aniso, shape, dtype, "cpu")
+    rel = 1e-5 if dtype == torch.float32 else 1e-12
+    for method in sorted(TABLEAUS):
+        for fz in (0.0, 1.0):
+            for buf, sc in zip(bufs, consts):
+                args = (buf, torch.tensor(h, dtype=dtype),
+                        torch.tensor(fz, dtype=dtype), sc, TABLEAUS[method],
+                        kw["rtol"], kw["atol"])
+                sums = f11.fused_shard_divform_tile_sums(*args)
+                _, total = f11.fused_shard_divform_step_reference(*args)
+                np.testing.assert_allclose(float(sums.sum()), float(total),
+                                           rtol=rel)
+
+
+def test_uneven_mesh_pads_both_axes():
+    """The uneven case's 2x2 mesh pads both axes: each shard's block is
+    19x19, the last shards' last row or column mirror-pad cells."""
+    kw, build_kw, aniso, _ = _any_case("noflux_uneven")
+    bufs, consts = _shard_inputs(kw, build_kw, aniso, (2, 2),
+                                 torch.float32, "cpu")
+    assert all(b.shape == (2, 19 + 2 * f11.HALO, 19 + 2 * f11.HALO)
+               for b in bufs)
+    assert sorted((sc.valid_rows, sc.valid_cols) for sc in consts) == [
+        (18, 18), (18, 19), (19, 18), (19, 19)]
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs an NVIDIA GPU and nvcc")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("method", sorted(TABLEAUS))
+@pytest.mark.parametrize("name", sorted(CASES) + sorted(UNEVEN))
+def test_cuda_shard_partial_sums_bitwise(name, method, dtype):
+    """Both schemes, both modes, on every shard of a 2x2 mesh, frozen and
+    not: y_new's block bitwise the plain version's, two launches equal,
+    every partial sum bitwise the plain version's over the physical cells
+    (fused_shard_divform_tile_sums); the launch runs the kernel the
+    dispatch names, and the register-resident kernel's shared bytes are
+    slots_plan's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from crdmodel_tpu_torch.ops.fused_shard_step import interior
+
+    kw, build_kw, aniso, h = _any_case(name)
+    bufs, consts = _shard_inputs(kw, build_kw, aniso, (2, 2), dtype, "cuda")
+    tab = TABLEAUS[method]
+    p = f11.HALO
+    for fz in (0.0, 1.0):
+        for buf, sc in zip(bufs, consts):
+            args = (buf, torch.tensor(h, dtype=dtype, device="cuda"),
+                    torch.tensor(fz, dtype=dtype, device="cuda"), sc, tab,
+                    kw["rtol"], kw["atol"])
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                y_k, ss_k = f11.fused_shard_divform_step(*args)
+                torch.cuda.synchronize()
+            names = [e.key for e in prof.key_averages()]
+            assert any(erk_slots.kernel_name(tab) in n for n in names), names
+            y_k2, ss_k2 = f11.fused_shard_divform_step(*args)
+            y_r, _ = f11.fused_shard_divform_step_reference(*args)
+            sums = f11.fused_shard_divform_tile_sums(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(interior(y_k, p), interior(y_k2, p))
+            assert torch.equal(ss_k, ss_k2)
+            assert torch.equal(interior(y_k, p), interior(y_r, p))
+            assert ss_k.shape == sums.shape and torch.equal(ss_k, sums)
+    if erk_slots.uses_slots(tab):
+        info = erk_slots.kernel_info("crd_fused_shard_divform_info", dtype,
+                                     int(aniso), consts[0].kinetics_id)
+        smem = erk_slots.slots_plan(bufs[0].element_size(), int(aniso))[3]
+        assert info["shared_bytes"] == smem
+        assert info["blocks_per_sm"] >= (2 if dtype == torch.float32 else 1)
