@@ -5,9 +5,10 @@
     python3 chip_smoke.py --sharded     # the sharded main paths alone
 
 Builds the CUDA kernels from crdmodel_tpu_torch/csrc, holds each against its
-plain PyTorch version on the card (K1, the fused ERK step, and K3, the fused
-IMEX ark324 step, with the FitzHugh-Nagumo, Goldbeter and Aliev-Panfilov
-kinetics; K2, the fused RKC2 step, with the same three, on the profile
+plain PyTorch version on the card (K1, the fused ERK step, y_new and every
+partial sum bitwise with bs32 and dopri54 and the launched kernel traced,
+and K3, the fused IMEX ark324 step, with the FitzHugh-Nagumo, Goldbeter
+and Aliev-Panfilov kinetics; K2, the fused RKC2 step, with the same three, on the profile
 operator, on K4's five divergence-form cases, and at the 41M-point shape
 of the JAX package's column-blocked K2b; K4, the fused divergence-form ERK
 step, on no-flux walls with a scar, a torus obstacle, a 2-D diffusion
@@ -20,7 +21,8 @@ a scar column, a 3-D diffusion field and a transmural tensor, and on
 FitzHugh-Nagumo with a beta ramp; K8 and K9, the fused ERK and RKC2 steps
 on one shard of a mesh, on the canonical torus's 2x2 shards, the flat
 sheet's, an uneven 1x3 mesh whose last block carries mirror-pad cells, and
-K9 on the 2x2 shards of the 10.24M-point torus; K10, the fused IMEX
+K9 on the 2x2 shards of the 10.24M-point torus, K8's partial sums bitwise
+and its launched kernel traced as K1's; K10, the fused IMEX
 ark324 step on one shard, on the canonical Goldbeter and FHN tori's 2x2
 shards, the uneven 1x3 mesh and the 2.56M-point Goldbeter torus's 2x2
 shard; K11, the fused divergence-form and 2-D tensor ERK step on one shard,
@@ -367,12 +369,47 @@ def check_pair(name, fields, y_k, ss_k, y_k2, ss_k2, y_r, ss_r, dtype,
     return err
 
 
+def check_dispatch(name, fn, tableau):
+    """The kernel that calls of fn (a launch of an ERK tile kernel's
+    wrapper: K1, K4, K8, K11) run, from torch.profiler traces: raises
+    unless it is the one the launcher's dispatch names (ops/erk_slots.py::
+    kernel_name) and the other scheme's kernel did not run. A trace can
+    miss kernels, a few or all of them (device_ms), so it takes traces of
+    3, 10, 30 and 100 calls in turn until one holds the kernel. Returns
+    the kernel's name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from crdmodel_tpu_torch.ops import erk_slots
+    want = erk_slots.kernel_name(tableau)
+    other = ({erk_slots.SLOTS_KERNEL, erk_slots.TILE_KERNEL} - {want}).pop()
+    names = []
+    for n in (3, 10, 30, 100):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        names += [e["name"] for e in traced_kernels(prof)]
+        if any(want in k for k in names):
+            break
+    if not any(want in k for k in names) or any(other in k for k in names):
+        raise AssertionError(f"{name}: {tableau.name} ran "
+                             f"{sorted(set(names))}, not {want}")
+    return want
+
+
 def check_kernel(cases):
     """K1 against its plain version at the main paths' shapes, for each
-    config of `cases` (the FHN torus first); returns the max errors, the
-    two times and the bound at the canonical FHN bs32 shape."""
+    config of `cases` (the FHN torus first), f32 and f64, bs32 and dopri54,
+    fz 0 and 1: y_new bitwise equal, two launches bitwise equal, every
+    partial sum bitwise the plain version's in the kernel's tile order
+    (fused_step_tile_sums), the kernel the dispatch names (check_dispatch).
+    Returns the max errors and (kernel ms, plain ms, bound ms, bound_by,
+    burst ms) at the canonical FHN bs32 shape: the kernel's device time
+    from profiler traces (device_ms; it is faster than the host issues a
+    launch), the CUDA-event time of a burst beside it."""
     from crdmodel_tpu_torch.core.problem import build_problem
     from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import erk_slots
     from crdmodel_tpu_torch.ops import fused_step as fs
     from crdmodel_tpu_torch.ops.kernel_common import prepare_constants
 
@@ -391,21 +428,28 @@ def check_kernel(cases):
                 for fz in (0.0, 1.0):
                     fzt = torch.tensor(fz, dtype=dtype, device="cuda")
                     args = (y, h, fzt, kc, tab, cfg.rtol, cfg.atol)
+                    kernel = check_dispatch(
+                        "k1_check", lambda: fs.fused_step(*args), tab)
                     err = check_pair(
                         "k1_check",
                         dict(model=cfg.model, surface=cfg.surface,
+                             shape=list(y.shape),
                              beta="field" if kc.b_is_field else "scalar",
-                             method=method, fz=fz),
+                             method=method, fz=fz, kernel=kernel),
                         *fs.fused_step(*args), *fs.fused_step(*args),
-                        *fs.fused_step_reference(*args), dtype, y)
+                        *fs.fused_step_reference(*args), dtype, y,
+                        bitwise=True,
+                        ss_tiles=fs.fused_step_tile_sums(*args))
                     worst[dtype] = max(worst[dtype], err)
             if cfg is cases[0] and dtype == torch.float32:
                 tab = TABLEAUS[cfg.method]
                 args = (y, h, torch.zeros((), dtype=dtype, device="cuda"),
                         kc, tab, cfg.rtol, cfg.atol)
-                timing = (median_ms(lambda: fs.fused_step(*args)),
+                timing = (device_ms(lambda: fs.fused_step(*args),
+                                    erk_slots.kernel_name(tab)),
                           median_ms(lambda: fs.fused_step_reference(*args)),
-                          *bound(y, kc, erk_ops(kc, tab)))
+                          *bound(y, kc, erk_ops(kc, tab)),
+                          median_ms(lambda: fs.fused_step(*args)))
     return worst, timing
 
 
@@ -1038,26 +1082,42 @@ def run_box_path(name, cfg, build_kw, kernel, label, min_step_tol,
     return launches
 
 
-def ptxas_summary(source, tag=None):
-    """The most registers and spill bytes over the kernels of csrc/
-    <source> (ptxas, -Xptxas -v), after the build; with `tag`, over those
-    whose entry name holds it."""
+def ptxas_entries(source, tag=""):
+    """ptxas's report (-Xptxas -v) of each kernel of csrc/<source> whose
+    entry name holds `tag`, after the build: [{"kernel": the name (with a
+    tag, the mangled name's template arguments after it: the RHS
+    functor's, the grid's, the type's), "registers": n,
+    "spill_store_bytes": the most of its spill lines}]; the lines before
+    the first entry stand under the name ""."""
     import re
 
     from crdmodel_tpu_torch.ops import _build
-    regs, spills, entry = [], [], ""
+    entries = [{"kernel": ""}]
     for line in _build.ptxas_report(source):
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            entry = m.group(1)
-        if tag is not None and tag not in entry:
+            entries.append({"kernel": m.group(1)})
             continue
+        e = entries[-1]
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            regs.append(int(m.group(1)))
+            e["registers"] = int(m.group(1))
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
-            spills.append(int(m.group(1)))
+            e["spill_store_bytes"] = max(e.get("spill_store_bytes", 0),
+                                         int(m.group(1)))
+    return [dict(e, kernel=e["kernel"].split(tag, 1)[1].split("EvPK")[0])
+            if tag else e for e in entries if tag in e["kernel"]]
+
+
+def ptxas_summary(source, tag=None):
+    """The most registers and spill bytes over the kernels of csrc/
+    <source> (ptxas_entries); with `tag`, over those whose entry name
+    holds it."""
+    entries = ptxas_entries(source, tag or "")
+    regs = [e["registers"] for e in entries if "registers" in e]
+    spills = [e["spill_store_bytes"] for e in entries
+              if "spill_store_bytes" in e]
     return {"kernels": len(regs), "max_registers": max(regs),
             "max_spill_store_bytes": max(spills)}
 
@@ -1847,10 +1907,12 @@ def check_shard_pair(name, fields, kernel, reference, args, dtype,
 def check_shard_kernels(cases, seed):
     """K8 (bs32 and dopri54, at H) and K9 (each s of K9_STAGES, h as in
     check_rkc_kernel) against their plain versions on the shards of each
-    (label, config, mesh shape, shards checked, K9 too) of `cases`, f32
-    and f64, fz 0 and 1: y_new's block bitwise equal, two launches bitwise
-    equal; prints phases k8_check and k9_check. Returns the max errors of
-    K8 and of K9."""
+    (label, config, mesh shape, shards checked, K8 too, K9 too) of
+    `cases`, f32 and f64, fz 0 and 1: y_new's block bitwise equal, two
+    launches bitwise equal; K8 also every partial sum bitwise the plain
+    version's over the physical cells (fused_shard_step_tile_sums) and the
+    kernel the dispatch names (check_dispatch); prints phases k8_check and
+    k9_check. Returns the max errors of K8 and of K9."""
     from crdmodel_tpu_torch.core.problem import build_problem
     from crdmodel_tpu_torch.integrate.erk import TABLEAUS
     from crdmodel_tpu_torch.ops import fused_shard_rkc as f9
@@ -1877,14 +1939,19 @@ def check_shard_kernels(cases, seed):
                         for k in shards:
                             args = (bufs[k], h, fzt, consts[k],
                                     TABLEAUS[method], cfg.rtol, cfg.atol)
+                            kernel = check_dispatch(
+                                "k8_check",
+                                lambda: f8.fused_shard_step(*args),
+                                TABLEAUS[method])
                             err = check_shard_pair(
                                 "k8_check", dict(
                                     fields, shard=k, shape=list(bufs[k].shape),
                                     valid=[consts[k].valid_rows,
                                            consts[k].valid_cols],
-                                    method=method, fz=fz),
+                                    method=method, fz=fz, kernel=kernel),
                                 f8.fused_shard_step,
-                                f8.fused_shard_step_reference, args, dtype)
+                                f8.fused_shard_step_reference, args, dtype,
+                                f8.fused_shard_step_tile_sums)
                             worst8[dtype] = max(worst8[dtype], err)
                     del bufs, consts
                 if with_k9:
@@ -1934,13 +2001,16 @@ def shard_timings(cfg8, cfg9, card):
     s of K9_TIMED_STAGES, shard 0 of the large torus on a 2x2 mesh) from
     the ICs, f32, unfrozen, with their plain versions and bounds (the
     kernel's time its device time in a profiler trace, device_ms; the
-    CUDA-event time of a burst beside it as burst_us), and the
+    CUDA-event time of a burst beside it as burst_us; K8's time over its
+    bound, the kernel the dispatch names, its registers, blocks an SM,
+    shared bytes and ptxas's summary beside them), and the
     exchange of one step of each on the 2x2 mesh of shards on one card
     (parallel/halo.py::refresh_halos, four shards); prints phases
     k8_timing, k9_timing and halo_exchange_timing. Returns {("k8", None) |
     ("k9", s): (kernel ms, plain ms, bound ms, bound_by)}."""
     from crdmodel_tpu_torch.core.problem import build_problem
     from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import erk_slots
     from crdmodel_tpu_torch.ops import fused_shard_rkc as f9
     from crdmodel_tpu_torch.ops import fused_shard_step as f8
     from crdmodel_tpu_torch.ops.fused_rkc import static_stage_tables
@@ -1959,14 +2029,19 @@ def shard_timings(cfg8, cfg9, card):
             cfg8.rtol, cfg8.atol)
     burst = median_ms(lambda: f8.fused_shard_step(*args))
     t8 = (device_ms(lambda: f8.fused_shard_step(*args),
-                    "fused_erk_tile_kernel"),
+                    erk_slots.kernel_name(tab)),
           median_ms(lambda: f8.fused_shard_step_reference(*args)),
           *shard_bound(bufs[0], consts[0], erk_ops(consts[0], tab)))
     timings["k8", None] = t8
     phase("k8_timing", shape=list(bufs[0].shape), halo=f8.HALO,
           method="bs32", dtype="float32", kernel_us=t8[0] * 1e3,
           burst_us=burst * 1e3, plain_us=t8[1] * 1e3,
-          bound_us=t8[2] * 1e3, bound_by=t8[3], card=card)
+          bound_us=t8[2] * 1e3, bound_by=t8[3],
+          times_bound=t8[0] / t8[2], kernel=erk_slots.kernel_name(tab),
+          **erk_slots.kernel_info("crd_fused_shard_step_info", dtype,
+                                  consts[0].kinetics_id),
+          ptxas=ptxas_summary("fused_shard_step.cu", erk_slots.SLOTS_KERNEL),
+          card=card)
     ex8 = median_ms(lambda: refresh_halos(bufs, mesh, f8.HALO))
     phase("halo_exchange_timing", mesh=list(SHARD_MESH), shards_on="cuda:0",
           halo=f8.HALO, buffer=list(bufs[0].shape), exchange_us=ex8 * 1e3,
@@ -2686,7 +2761,8 @@ def kstep_main_paths(cfg, cfg_gb, probes, single_fhn, card):
     use_pallas=True, each K of GB_KS) and main_path_normal (the canonical
     FHN torus with step_mode="normal" through K1). Returns K14's launches
     on main_path_kstep."""
-    from crdmodel_tpu_torch.ops import fused_kstep, fused_step
+    from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import erk_slots, fused_kstep, fused_step
 
     fhn_label = "data/FHNmodelArgs.ini fhn torus"
     gb_label = "data/GoldbeterModelArgs.ini goldbeter torus"
@@ -2699,7 +2775,7 @@ def kstep_main_paths(cfg, cfg_gb, probes, single_fhn, card):
         launch_checks=kstep_launch_checks(cfg_k, K14_SPEC),
         report=kstep_report(K14_SPEC), keep=kept)
     traced = {name: profile_run(c, {}, 5.0, tag) for name, c, tag in (
-        ("per_step", cfg, "fused_erk_tile_kernel"),
+        ("per_step", cfg, erk_slots.kernel_name(TABLEAUS[cfg.method])),
         ("kstep", cfg_k, "fused_kstep_kernel"))}
     phase("kstep_vs_per_step", config=fhn_label, k=K14_SPEC,
           steps=kept["steps"], per_step_steps=single_fhn["steps"],
@@ -2782,6 +2858,11 @@ def main():
         KINETICS_IDS, prepare_aniso_constants, prepare_divform_constants)
 
     phase("build", seconds=_build.build(), library=_build.library_path(),
+          ptxas_slots_kernels={
+              src: ptxas_entries(src, erk_slots.SLOTS_KERNEL)
+              for src in ("fused_step.cu", "fused_shard_step.cu",
+                          "fused_divform.cu", "fused_shard_divform.cu")},
+          ptxas_fused_step=ptxas_summary("fused_step.cu"),
           ptxas_fused_divform=ptxas_summary("fused_divform.cu"),
           ptxas_fused_rkc=_build.ptxas_report("fused_rkc.cu"),
           ptxas_fused_aniso=_build.ptxas_report("fused_aniso.cu"),
@@ -2840,7 +2921,7 @@ def main():
         # the canonical FHN torus over Tf=5, per step through K1 and in
         # batches of K14_SPEC through K14
         cfg_fhn = config_from_ini(INI, model="fhn", surface="torus")
-        profile_run(cfg_fhn, {}, 5.0, "fused_erk_tile_kernel")
+        profile_run(cfg_fhn, {}, 5.0, erk_slots.SLOTS_KERNEL)
         profile_run(dataclasses.replace(cfg_fhn, speculative_k=K14_SPEC),
                     {}, 5.0, "fused_kstep_kernel")
         return
@@ -2875,8 +2956,15 @@ def main():
                                      ap_periodic])
     phase("k1_timing", shape=[2, cfg.ny, cfg.nx], method=cfg.method,
           dtype="float32", kernel_us=k1_timing[0] * 1e3,
+          burst_us=k1_timing[4] * 1e3,
           plain_us=k1_timing[1] * 1e3, bound_us=k1_timing[2] * 1e3,
-          bound_by=k1_timing[3], card=card)
+          bound_by=k1_timing[3],
+          times_bound=k1_timing[0] / k1_timing[2],
+          kernel=erk_slots.SLOTS_KERNEL,
+          **erk_slots.kernel_info("crd_fused_erk_step_info", torch.float32,
+                                  KINETICS_IDS["fhn"]),
+          ptxas=ptxas_summary("fused_step.cu", erk_slots.SLOTS_KERNEL),
+          card=card)
     # K2's cases: K1's four, and the canonical torus cut to 4 columns, a
     # grid smaller than a chunk's halo, which the wrap covers many times
     worst2, timing2 = check_rkc_kernel([cfg, cfg_flat, gb_torus,

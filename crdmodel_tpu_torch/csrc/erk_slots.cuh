@@ -1,9 +1,11 @@
 // The register-resident tile scheme of the port's fused embedded-ERK step
-// kernels on the face-coefficient operators: K4 (fused_divform.cu, the
-// periodic grid, WrapGrid) and K11 (fused_shard_divform.cu, one shard's
-// block in the halo the exchange filled, HaloGrid), both through a functor
-// with a "coefficients read once" entry (rhs_common.cuh::DivformRhs,
-// MixedDivformRhs: point(), at_point(), plane()).
+// kernels on the 5-point profile operator and the face-coefficient
+// operators: K1 and K4 (fused_step.cu, fused_divform.cu, the periodic
+// grid, WrapGrid) and K8 and K11 (fused_shard_step.cu,
+// fused_shard_divform.cu, one shard's block in the halo the exchange
+// filled, HaloGrid), each through a functor with a "coefficients read
+// once" entry (rhs_common.cuh::ProfileRhs, DivformRhs, MixedDivformRhs:
+// Point, point(), at_point(), plane()).
 //
 // One launch performs a whole step, as erk_tile.cuh's kernel does, on the
 // same tiles (ops/fused_step.py::tile_plan: 32 x tile_y with n rings), and
@@ -14,17 +16,19 @@
 // thread to kSlots of them, for the whole launch. A point's stage inputs to
 // come and its error accumulate in its thread's registers as each stage k_s
 // is formed, in the plain version's order (erk_tile.cuh:146-159), and its
-// coefficients (aE, aW, aN, aS, the tissue field or the mixed weight, beta,
-// live) are read from device memory once, not once an evaluation. Only the
-// stage input's variable 0, which the stencil reads at neighbours, goes
-// through shared memory: two planes on the tile and its n rings (the outer
-// ring feeds only the first stage's stencil, from the step's start, and is
-// loaded by threads of its own, so that every load of the step's start is
-// issued before one barrier), one block barrier a stage; an operator that
-// reads a coefficient at neighbours (the mixed pair's Dxy) holds it in a
-// plane of its own. Every stage before the last runs at every point of the
-// slots, the rings whose values no longer matter included, so the slots'
-// code has no branches; the last runs on the tile.
+// coefficients (the operator's Point: the three profiles at its column, or
+// aE, aW, aN, aS and the tissue field or the mixed weight; beta and live
+// of its row) are read from device memory once, not once an evaluation.
+// Only the stage input's variable 0, which the stencil reads at
+// neighbours, goes through shared memory: two planes on the tile and its n
+// rings (the outer ring feeds only the first stage's stencil, from the
+// step's start, and is loaded by threads of its own, so that every load of
+// the step's start is issued before one barrier), one block barrier a
+// stage; an operator that reads a coefficient at neighbours (the mixed
+// pair's Dxy) holds it in a plane of its own. Every stage before the last
+// runs at every point of the slots, the rings whose values no longer
+// matter included, so the slots' code has no branches; the last runs on
+// the tile.
 //
 // The scheme takes an FSAL tableau of kSlotStages stages (bs32): its last
 // stage's input is the update (a[n-1] == b), so y_new is that input and
@@ -206,7 +210,7 @@ __global__ void __launch_bounds__(kSlotThreads, (kSlotMinBlocks<T>))
     // (in[s - 1], y0 until the stages before add to them) and the error
     T inu[NS - 1][S], inv[NS - 1][S];
     T eu[S], ev[S];
-    FacePoint<T> cf[S];
+    typename Op::Point cf[S];
     const auto local = [](int m) {   // slot m's index on the region
       const int q = Reg::point(m);
       return (Reg::row(q) + 1) * kW + Reg::col(q) + 1;

@@ -1,8 +1,10 @@
-// The tile scheme of the port's fused embedded-ERK step kernels: K1
-// (fused_step.cu, the 5-point profile operator), K4 (fused_divform.cu, the
-// divergence-form operator), K5 (fused_aniso.cu), K8 (fused_shard_step.cu,
-// K1 on one shard of a mesh) and K11 (fused_shard_divform.cu, K4 and the
-// 2-D tensor on one shard). They differ in the right-hand side at a point,
+// The tile scheme of the port's fused embedded-ERK step kernels: K5
+// (fused_aniso.cu), and K1 (fused_step.cu, the 5-point profile operator),
+// K4 (fused_divform.cu, the divergence-form operator), K8
+// (fused_shard_step.cu, K1 on one shard of a mesh) and K11
+// (fused_shard_divform.cu, K4 and the 2-D tensor on one shard) for the
+// tableaus other than bs32, which those four take on erk_slots.cuh's
+// register-resident scheme. They differ in the right-hand side at a point,
 // a functor the kernel template takes, and in the grid the tile reads, a
 // policy it takes (rhs_common.cuh): WrapGrid, the periodic grid, whose
 // halo is a modular index at load (K1, K4, K5), or HaloGrid, one shard's

@@ -7,7 +7,7 @@
 // operator exists only in the divergence form: no-flux domain walls,
 // obstacle scars, 2-D diffusion fields, and diffusion fields on the flat
 // surface (the bounded cardiac-tissue program). One launch performs a whole
-// step, with the tile scheme of K1 (erk_tile.cuh): stage inputs
+// step, with the tile scheme of K1 (erk_slots.cuh): stage inputs
 // y0 + sum (h a[s][j]) k_j; k_s = kinetics + aE(uE-u) + aW(uW-u) + aN(uN-u)
 // + aS(uS-u) on variable 0, times live = 1 - fz(1 - mask) with a freeze,
 // times the 0/1 tissue field with an obstacle; y_new = y0 + sum (h b_s) k_s
@@ -28,7 +28,7 @@
 // one block barrier a stage; a tile whose region lies inside the grid
 // takes code without the wrap, the others wrap by loops (under no-flux
 // walls and obstacles the wrapped values meet zero face coefficients).
-// zonneveld43 and dopri54 take K1's scheme (erk_tile.cuh), by the
+// zonneveld43 and dopri54 take erk_tile.cuh's scheme, by the
 // launcher's dispatch on the stage count (launch_erk_slots_on). aS is not
 // shipped: it is aN of the row below, wrapped, exact because the wrapper
 // checks aS == roll_y(aN) on the float64 fields before it builds the
@@ -37,7 +37,7 @@
 // fused_divform_step_reference) operation for operation, and the library
 // is built with -fmad=false; each partial sum adds its tile's points in
 // erk_tile.cuh's order, so y_new and every partial sum are bitwise those
-// of the plain version and of K1's scheme. No tensor cores or TMA.
+// of the plain version and of erk_tile.cuh's. No tensor cores or TMA.
 
 #include <cuda_runtime.h>
 

@@ -45,7 +45,7 @@
 // only the partial tiles at the block's last rows and columns take the
 // clamped code. Each partial sum adds its tile's points in erk_tile.cuh's
 // order: y_new's block and every partial sum are bitwise those of the
-// plain version and of K1's scheme.
+// plain version and of erk_tile.cuh's scheme.
 
 #include <cuda_runtime.h>
 

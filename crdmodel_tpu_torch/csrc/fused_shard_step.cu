@@ -12,25 +12,37 @@
 // cells. The caller adds every shard's partials in a fixed order, so every
 // shard takes the same accept/reject decision.
 //
-// The tile scheme is K1's (erk_tile.cuh) with the HaloGrid policy
-// (rhs_common.cuh): the tile loads its n_stages-ring halo from the buffer,
-// no index wraps (the wrap is the exchange's job), and the RHS indexes the
-// shard's halo-padded constants (three (nxl + 2P) profiles or three
-// scalars, beta and the freeze mask as (nyl + 2P) rows). On a mesh that
-// does not divide the grid the kernel runs the JAX kernels' mirror-pad
-// semantics: pad cells step like their wrapped sources, whose constants
-// they carry, and only the first valid_rows x valid_cols cells of the block
-// enter the error sum. Only the block of y_new is written; its halo is the
-// next exchange's.
+// The tile scheme is K1's with the HaloGrid policy (rhs_common.cuh): the
+// tile reads its n_stages-ring region from the buffer, no index wraps (the
+// wrap is the exchange's job), and the RHS indexes the shard's halo-padded
+// constants (three (nxl + 2P) profiles or three scalars, beta and the
+// freeze mask as (nyl + 2P) rows). bs32, the main path's tableau, takes
+// erk_slots.cuh's register-resident scheme (SlotOrigin<HaloGrid>): the
+// exchange filled P = 8 >= n rings, so a full tile's region lies inside
+// the buffer and takes code without the clamp; only the partial tiles at
+// the block's last rows and columns clamp. zonneveld43 and dopri54 take
+// erk_tile.cuh's scheme, by the launcher's dispatch on the stage count
+// (launch_erk_slots_on). On a mesh that does not divide the grid the kernel
+// runs the JAX kernels' mirror-pad semantics: pad cells step like their
+// wrapped sources, whose constants they carry, and only the first
+// valid_rows x valid_cols cells of the block enter the error sum. Only the
+// block of y_new is written; its halo is the next exchange's. Each partial
+// sum adds its tile's points in erk_tile.cuh's order, so y_new's block and
+// every partial sum are bitwise those of the plain version and of
+// erk_tile.cuh's scheme.
 //
 // What bounds it on an H100: the shard's buffer (2 x (nyl+2P) x (nxl+2P)) is
-// read once and y_new's block written once, as for K1: a step is bound by
-// latency, the block's barriers between stages and the shared stage
-// buffers, and by the host's launches and halo copies around the kernel.
+// read once and y_new's block written once, as for K1 (about 2.7 MB a bs32
+// step on the canonical torus's (816,216) shard in f32, 0.8 us at 3.35
+// TB/s): a step is bound by latency and issue, and by the host's launches
+// and halo copies around the kernel. The design is K1's: a point's stage
+// inputs, error and coefficients in its thread's registers, read once a
+// launch (ProfileRhs::point), the stage input's variable 0 in two shared
+// planes, one block barrier a stage.
 
 #include <cuda_runtime.h>
 
-#include "erk_tile.cuh"
+#include "erk_slots.cuh"
 #include "rhs_common.cuh"
 
 namespace {
@@ -58,16 +70,30 @@ int launch(const void* y, void* y_new, void* ss, const void* h,
       beta_field, static_cast<const T*>(mask), has_freeze};
   const HaloGrid grid = {nyl, nxl, halo, valid_rows, valid_cols};
   if (kinetics == crd::kFhn)
-    return crd::launch_erk_tile_on<ProfileRhs<crd::kFhn, T>, T>(
+    return crd::launch_erk_slots_on<ProfileRhs<crd::kFhn, T>, T>(
         {k}, grid, y, y_new, ss, h, fz, nyl, nxl, tile_x, tile_y, tab, rtol,
         atol, stream);
   if (kinetics == crd::kGoldbeter)
-    return crd::launch_erk_tile_on<ProfileRhs<crd::kGoldbeter, T>, T>(
+    return crd::launch_erk_slots_on<ProfileRhs<crd::kGoldbeter, T>, T>(
         {k}, grid, y, y_new, ss, h, fz, nyl, nxl, tile_x, tile_y, tab, rtol,
         atol, stream);
-  return crd::launch_erk_tile_on<ProfileRhs<crd::kAlievPanfilov, T>, T>(
+  return crd::launch_erk_slots_on<ProfileRhs<crd::kAlievPanfilov, T>, T>(
       {k}, grid, y, y_new, ss, h, fz, nyl, nxl, tile_x, tile_y, tab, rtol,
       atol, stream);
+}
+
+// crd::slots_kernel_info of the bs32 kernel of `kinetics` in T
+template <typename T>
+int info(int kinetics, int* out) {
+  if (kinetics == crd::kFhn)
+    return crd::slots_kernel_info<ProfileRhs<crd::kFhn, T>, HaloGrid, T>(out);
+  if (kinetics == crd::kGoldbeter)
+    return crd::slots_kernel_info<ProfileRhs<crd::kGoldbeter, T>, HaloGrid,
+                                  T>(out);
+  if (kinetics == crd::kAlievPanfilov)
+    return crd::slots_kernel_info<ProfileRhs<crd::kAlievPanfilov, T>,
+                                  HaloGrid, T>(out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -91,4 +117,8 @@ extern "C" int crd_fused_shard_step_f32(CRD_FUSED_SHARD_STEP_ARGS) {
 
 extern "C" int crd_fused_shard_step_f64(CRD_FUSED_SHARD_STEP_ARGS) {
   return launch<double>(CRD_FUSED_SHARD_STEP_PASS);
+}
+
+extern "C" int crd_fused_shard_step_info(int f64, int kinetics, int* out) {
+  return f64 ? info<double>(kinetics, out) : info<float>(kinetics, out);
 }

@@ -7,27 +7,45 @@
 // torus runs with their own method, bs32.
 // One launch performs a whole step: every stage's stencil and kinetics, the
 // solution update, and one partial sum of squared WRMS-scaled errors per
-// thread block (the tile scheme of erk_tile.cuh).
+// thread block.
 //
 // What bounds it on an H100: the state (2 x ny x nx) is read once and
-// y_new written once (about 10 MB a bs32 step on 400x1600 in f32), and the
-// stage arithmetic is a few dozen flops a point. Neither bandwidth nor
-// flops is near its limit; a step is bound by latency: the block's
-// barriers between stages, the shared-memory traffic of the stage
-// buffers, and the host's launches around the kernel.
+// y_new written once (about 10 MB a bs32 step on 400x1600 in f32, some
+// 3 us at the published 3.35 TB/s), and the stage arithmetic is a few
+// dozen flops a point. Neither bandwidth nor flops is near its limit; a
+// step is bound by latency and issue: the block's barriers between stages,
+// the shared-memory traffic of the stage values, and the host's launches
+// around the kernel.
 //
-// The RHS at a point is the shared functor crd::ProfileRhs of
-// rhs_common.cuh, with the kinetics family a template parameter (one
-// instance per family). No tensor cores, TMA or tuning yet.
+// Design: bs32, the main path's tableau, takes erk_slots.cuh's scheme on
+// 32x32 tiles: 512 threads fixed to the tile and its n - 1 rings, a
+// point's stage inputs and error accumulating in its thread's registers,
+// its coefficients (the three column profiles on the torus, the three
+// scalars on the flat surface, beta and live of its row) read from device
+// memory once a launch into registers (ProfileRhs::point), the stage
+// input's variable 0 in two shared planes, one block barrier a stage; a
+// tile whose region lies inside the grid takes code without the wrap, the
+// others (the grid's edges, and every tile of a grid narrower than the
+// region) wrap by loops. zonneveld43 and dopri54 take erk_tile.cuh's
+// scheme, which holds every stage of the tile in shared memory, by the
+// launcher's dispatch on the stage count (launch_erk_slots_on). The RHS at
+// a point is the shared functor crd::ProfileRhs of rhs_common.cuh, with
+// the kinetics family a template parameter (one instance per family). The
+// arithmetic follows the plain version (ops/fused_step.py::
+// fused_step_reference) operation for operation, the library is built with
+// -fmad=false, and each partial sum adds its tile's points in
+// erk_tile.cuh's order: y_new and every partial sum are bitwise those of
+// the plain version and of erk_tile.cuh's scheme. No tensor cores or TMA.
 
 #include <cuda_runtime.h>
 
-#include "erk_tile.cuh"
+#include "erk_slots.cuh"
 #include "rhs_common.cuh"
 
 namespace {
 
 using crd::ProfileRhs;
+using crd::WrapGrid;
 
 template <typename T>
 int launch(const void* y, void* y_new, void* ss, const void* h,
@@ -44,17 +62,32 @@ int launch(const void* y, void* y_new, void* ss, const void* h,
       static_cast<const T*>(c0), static_cast<const T*>(c1),
       static_cast<const T*>(c2), torus, static_cast<const T*>(beta),
       beta_field, static_cast<const T*>(mask), has_freeze};
+  const WrapGrid grid = {ny, nx};
   if (kinetics == crd::kFhn)
-    return crd::launch_erk_tile<ProfileRhs<crd::kFhn, T>, T>(
-        {k}, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab, rtol, atol,
-        stream);
+    return crd::launch_erk_slots_on<ProfileRhs<crd::kFhn, T>, T>(
+        {k}, grid, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab, rtol,
+        atol, stream);
   if (kinetics == crd::kGoldbeter)
-    return crd::launch_erk_tile<ProfileRhs<crd::kGoldbeter, T>, T>(
-        {k}, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab, rtol, atol,
-        stream);
-  return crd::launch_erk_tile<ProfileRhs<crd::kAlievPanfilov, T>, T>(
-      {k}, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab, rtol, atol,
-      stream);
+    return crd::launch_erk_slots_on<ProfileRhs<crd::kGoldbeter, T>, T>(
+        {k}, grid, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab, rtol,
+        atol, stream);
+  return crd::launch_erk_slots_on<ProfileRhs<crd::kAlievPanfilov, T>, T>(
+      {k}, grid, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab, rtol,
+      atol, stream);
+}
+
+// crd::slots_kernel_info of the bs32 kernel of `kinetics` in T
+template <typename T>
+int info(int kinetics, int* out) {
+  if (kinetics == crd::kFhn)
+    return crd::slots_kernel_info<ProfileRhs<crd::kFhn, T>, WrapGrid, T>(out);
+  if (kinetics == crd::kGoldbeter)
+    return crd::slots_kernel_info<ProfileRhs<crd::kGoldbeter, T>, WrapGrid,
+                                  T>(out);
+  if (kinetics == crd::kAlievPanfilov)
+    return crd::slots_kernel_info<ProfileRhs<crd::kAlievPanfilov, T>,
+                                  WrapGrid, T>(out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -77,4 +110,8 @@ extern "C" int crd_fused_erk_step_f32(CRD_FUSED_STEP_ARGS) {
 
 extern "C" int crd_fused_erk_step_f64(CRD_FUSED_STEP_ARGS) {
   return launch<double>(CRD_FUSED_STEP_PASS);
+}
+
+extern "C" int crd_fused_erk_step_info(int f64, int kinetics, int* out) {
+  return f64 ? info<double>(kinetics, out) : info<float>(kinetics, out);
 }

@@ -281,10 +281,55 @@ __device__ __forceinline__ void profile_rhs_v(
   dv_out = dv;
 }
 
-// profile_rhs_v as the functor the tile kernels take (erk_tile.cuh):
-// operator() reads v at p of the region sv, at() takes it by value
+// The profile operator's coefficients at one point, read once a launch by
+// the register-resident tile kernels (erk_slots.cuh): the three profiles
+// at the point's column (torus) or the three scalars (flat), and beta and
+// live of the point's row (live 1 without a freeze).
+template <typename T>
+struct ProfilePoint {
+  T c0;
+  T c1;
+  T c2;
+  T beta;
+  T live;
+};
+
+// profile_rhs_v on a point's coefficients read before (ProfilePoint), the
+// same operations in the same order (profile_lap's); torus and freeze say
+// whether the operator takes the torus's profiles and whether the run has
+// a freeze
+template <int Kin, typename T>
+__device__ __forceinline__ void profile_point_rhs(
+    const ProfilePoint<T>& c, bool torus, bool freeze, const T* su, T v,
+    int p, int W, T& du_out, T& dv_out) {
+  const T u = su[p];
+  const T uw = su[p - 1], ue = su[p + 1];
+  const T us = su[p - W], un = su[p + W];
+  const T lap = torus ? c.c0 * (ue - uw) + c.c1 * (ue - T(2) * u + uw)
+                            + c.c2 * (un - T(2) * u + us)
+                      : c.c0 * (uw + ue) + c.c1 * (us + un) + c.c2 * u;
+  T du, dv;
+  kinetics<Kin>(u, v, c.beta, du, dv);
+  du = du + lap;
+  if (freeze) {
+    du = du * c.live;
+    dv = dv * c.live;
+  }
+  du_out = du;
+  dv_out = dv;
+}
+
+// profile_rhs_v as the functor the tile kernels take (erk_tile.cuh,
+// erk_slots.cuh, fused_rkc.cu, fused_kstep.cu): operator() reads v at p of
+// the region sv, at() takes it by value; point() reads the coefficients of
+// the point of row and column indices (r, c) once, at_point() evaluates on
+// them
 template <int Kin, typename T>
 struct ProfileRhs {
+  // shared planes the operator reads at neighbours (erk_slots.cuh): none
+  static constexpr int kPlanes = 0;
+  using Point = ProfilePoint<T>;
+
   RhsConstants<T> k;
 
   __device__ __forceinline__ void operator()(T fz, const T* su, const T* sv,
@@ -295,6 +340,19 @@ struct ProfileRhs {
   __device__ __forceinline__ void at(T fz, const T* su, T v, int p, int W,
                                      int gy, int gx, T& du, T& dv) const {
     profile_rhs_v<Kin>(k, fz, su, v, p, W, gy, gx, du, dv);
+  }
+  __device__ __forceinline__ Point point(T fz, size_t, size_t, int r,
+                                         int c) const {
+    const int i = k.torus ? c : 0;
+    return {__ldg(k.c0 + i), __ldg(k.c1 + i), __ldg(k.c2 + i),
+            beta_at(k, r), k.has_freeze ? live_at(k, fz, r) : T(1)};
+  }
+  __device__ __forceinline__ T plane(int, size_t) const { return T(0); }
+  __device__ __forceinline__ void at_point(const Point& c, const T*,
+                                           const T* su, T v, int p, int W,
+                                           T& du, T& dv) const {
+    profile_point_rhs<Kin>(c, k.torus != 0, k.has_freeze != 0, su, v, p, W,
+                           du, dv);
   }
 };
 
@@ -398,6 +456,7 @@ template <int Kin, typename T, class Grid>
 struct DivformRhs {
   // shared planes the operator reads at neighbours (erk_slots.cuh): none
   static constexpr int kPlanes = 0;
+  using Point = FacePoint<T>;
 
   FaceConstants<T> f;
   RhsConstants<T> k;
@@ -519,6 +578,7 @@ __device__ __forceinline__ void mixed_point_rhs(
 template <int Kin, typename T, class Grid>
 struct MixedDivformRhs {
   static constexpr int kPlanes = 1;
+  using Point = FacePoint<T>;
 
   FaceConstants<T> f;
   MixedConstants<T> m;

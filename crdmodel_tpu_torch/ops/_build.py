@@ -124,7 +124,9 @@ SIGNATURES = {
     # a kernel's blocks an SM, registers, shared bytes
     "crd_fused_kstep_info": [_INT] * 4 + [_INTP],
     "crd_fused_rkc_info": [_INT] * 3 + [_INTP],
+    "crd_fused_erk_step_info": [_INT] * 2 + [_INTP],
     "crd_fused_divform_info": [_INT] * 2 + [_INTP],
+    "crd_fused_shard_step_info": [_INT] * 2 + [_INTP],
     "crd_fused_shard_divform_info": [_INT] * 3 + [_INTP],
 }
 

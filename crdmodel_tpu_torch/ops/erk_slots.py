@@ -1,4 +1,4 @@
-"""The register-resident ERK tile scheme of kernels K4 and K11
+"""The register-resident ERK tile scheme of kernels K1, K4, K8 and K11
 (csrc/erk_slots.cuh): its plan and its dispatch on the tableau, mirrored
 here for the tests and for chip_smoke.py's reports, and the kernels'
 attribute queries.
@@ -34,7 +34,7 @@ def uses_slots(tableau: Tableau) -> bool:
 
 
 def kernel_name(tableau: Tableau) -> str:
-    """The kernel a K4 or K11 launch of `tableau` runs."""
+    """The kernel a K1, K4, K8 or K11 launch of `tableau` runs."""
     return SLOTS_KERNEL if uses_slots(tableau) else TILE_KERNEL
 
 
@@ -55,8 +55,9 @@ def slots_plan(itemsize: int, op_planes: int = 0):
 
 
 def kernel_info(symbol: str, dtype, *args) -> dict:
-    """The bs32 kernel of a launcher's info query (K4
-    `crd_fused_divform_info` with args (kinetics,), K11
+    """The bs32 kernel of a launcher's info query (K1
+    `crd_fused_erk_step_info`, K4 `crd_fused_divform_info` and K8
+    `crd_fused_shard_step_info` with args (kinetics,), K11
     `crd_fused_shard_divform_info` with (mode, kinetics)) on the current
     card: resident blocks an SM, registers a thread, shared bytes a block."""
     import torch

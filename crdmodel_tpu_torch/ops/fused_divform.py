@@ -106,7 +106,7 @@ def fused_divform_step(y, h, fz, dc: DivformConstants, tableau: Tableau,
     them there, so a step needs no host sync. A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel (float32, or float64 as a
     parity tool) or raises. bs32 runs the register-resident scheme
-    (csrc/erk_slots.cuh), zonneveld43 and dopri54 K1's (erk_tile.cuh): the
+    (csrc/erk_slots.cuh), zonneveld43 and dopri54 erk_tile.cuh's: the
     launcher's dispatch on the stage count (erk_slots.kernel_name).
     `fused_divform_step.launches` counts kernel launches.
     """

@@ -156,7 +156,7 @@ def fused_shard_divform_step(yp, h, fz, sc: ShardDivformConstants,
     block of y_new is written. A CPU tensor takes the plain version; a
     CUDA tensor launches the kernel or raises. bs32 runs the
     register-resident scheme (csrc/erk_slots.cuh), zonneveld43 and dopri54
-    K1's (erk_tile.cuh): erk_slots.kernel_name.
+    erk_tile.cuh's: erk_slots.kernel_name.
     `fused_shard_divform_step.launches` counts kernel launches."""
     if yp.device.type == "cpu":
         return fused_shard_divform_step_reference(yp, h, fz, sc, tableau,

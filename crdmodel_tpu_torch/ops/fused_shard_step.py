@@ -14,6 +14,8 @@ same steps.
                               CUDA tensor, runs the plain version for a CPU
                               tensor
   fused_shard_step_reference  the same step in plain torch, the oracle
+  fused_shard_step_tile_sums  the plain version of the kernel's partial
+                              sums
   build_fused_shard_step      a sharded problem's step_err on top of it
 
 The loop state is a Shards of halo-padded buffers (nvars, nyl + 2 HALO,
@@ -24,7 +26,10 @@ halo in place and the kernel reads it, no index wraps. HALO is 8, the JAX
 package's (pallas_step.py HALO), for every tableau: bs32 consumes 4 rings
 a step, dopri54 7. On a mesh that does not divide the grid the kernel
 runs the JAX kernels' mirror-pad semantics (kernel_common.py::
-ShardConstants).
+ShardConstants). bs32 runs K1's register-resident scheme
+(csrc/erk_slots.cuh), whose full tiles read the buffer without a clamp
+because HALO >= 4; zonneveld43 and dopri54 run erk_tile.cuh's
+(ops/erk_slots.py::kernel_name).
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from typing import Callable
 import torch
 
 from crdmodel_tpu_torch.integrate.erk import Tableau
+from crdmodel_tpu_torch.ops.fused_kstep import tile_error_sums
 from crdmodel_tpu_torch.ops.fused_step import (MAX_STAGES, _stage_arrays,
                                                erk_stages_reference,
                                                error_sum, tile_plan)
@@ -97,6 +103,20 @@ def fused_shard_step_reference(yp, h, fz, sc: ShardConstants,
     return y_new, masked_error_sum(err, yp, sc, rtol, atol)
 
 
+def fused_shard_step_tile_sums(yp, h, fz, sc: ShardConstants,
+                               tableau: Tableau, rtol: float, atol: float):
+    """The kernel's partial sums in plain torch: (n_tiles,) sums over the
+    block's tiles (tile_plan) of the physical cells' squared WRMS-scaled
+    errors, each in the ERK tile kernels' order (fused_kstep.
+    tile_error_sums; a mirror-pad cell adds +0.0, as the kernel's skip)."""
+    _, err = erk_stages_reference(yp, h, make_rhs_block(sc, fz), tableau)
+    err = interior(err, sc.halo).clone()
+    err[:, sc.valid_rows:] = 0.0
+    err[:, :, sc.valid_cols:] = 0.0
+    tile_y = tile_plan(tableau.stages, yp.element_size())[1]
+    return tile_error_sums(err, interior(yp, sc.halo), rtol, atol, tile_y)
+
+
 def check_shard_constants(sc: ShardConstants, nyl: int, nxl: int, dtype,
                           device):
     """check_tensor on every constant the shard kernels read."""
@@ -116,8 +136,10 @@ def fused_shard_step(yp, h, fz, sc: ShardConstants, tableau: Tableau,
     yp is the shard's halo-padded buffer (2, nyl + 2 HALO, nxl + 2 HALO)
     with its halo filled; h and fz are 0-d tensors on its device. Only the
     block of y_new is written. A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel or raises. `fused_shard_step.launches`
-    counts kernel launches."""
+    tensor launches the kernel or raises: bs32 the register-resident scheme
+    (csrc/erk_slots.cuh), zonneveld43 and dopri54 erk_tile.cuh's
+    (erk_slots.kernel_name). `fused_shard_step.launches` counts kernel
+    launches."""
     if yp.device.type == "cpu":
         return fused_shard_step_reference(yp, h, fz, sc, tableau, rtol, atol)
     if yp.device.type != "cuda":

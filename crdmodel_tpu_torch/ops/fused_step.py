@@ -12,7 +12,16 @@ step of a run on the fused path (sim.py).
   fused_step            the wrapper: launches the CUDA kernel for a CUDA
                         tensor, runs fused_step_reference for a CPU tensor
   fused_step_reference  the same step in plain torch, the kernel's oracle
+  fused_step_tile_sums  the plain version of the kernel's partial sums, one
+                        a tile in its order
   build_fused_step      a problem's step_err(t, y, h, params) on top of it
+
+bs32, the main path's tableau, runs the register-resident scheme
+(csrc/erk_slots.cuh: a point's stage values and coefficients in its
+thread's registers), zonneveld43 and dopri54 the one-pass tile of
+csrc/erk_tile.cuh: the launcher's dispatch on the stage count
+(ops/erk_slots.py::kernel_name). Both write one partial sum a tile, in
+the same order, so y_new and the sums do not depend on the scheme.
 
 Semantics kept from the TPU kernel (pallas_step.py:194-255): all stages
 are evaluated (no FSAL), without t (the kinetics are autonomous); stage
@@ -140,6 +149,19 @@ def fused_step_reference(y, h, fz, kc: KernelConstants, tableau: Tableau,
                               atol)
 
 
+def fused_step_tile_sums(y, h, fz, kc: KernelConstants, tableau: Tableau,
+                         rtol: float, atol: float):
+    """The kernel's partial sums in plain torch: (n_tiles,) sums of
+    squared WRMS-scaled errors, one a tile of tile_plan, each in the ERK
+    tile kernels' order (fused_kstep.tile_error_sums), as both of the
+    kernel's schemes write them (csrc/erk_slots.cuh, erk_tile.cuh)."""
+    # imported here: fused_kstep imports this module
+    from crdmodel_tpu_torch.ops.fused_kstep import tile_error_sums
+    _, err = erk_stages_reference(y, h, make_rhs_block(kc, fz), tableau)
+    tile_y = tile_plan(tableau.stages, y.element_size())[1]
+    return tile_error_sums(err, y, rtol, atol, tile_y)
+
+
 def fused_step(y, h, fz, kc: KernelConstants, tableau: Tableau,
                rtol: float, atol: float):
     """One fused step: (y_new (nvars, ny, nx), ss partials (n_blocks,)).
@@ -147,7 +169,10 @@ def fused_step(y, h, fz, kc: KernelConstants, tableau: Tableau,
     y lives on the device the step runs on. h and fz are 0-d tensors on the
     same device: the kernel reads them there, so a step needs no host sync.
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises. `fused_step.launches` counts kernel launches.
+    (float32, or float64 as a parity tool) or raises. bs32 runs the
+    register-resident scheme (csrc/erk_slots.cuh), zonneveld43 and dopri54
+    erk_tile.cuh's (erk_slots.kernel_name). `fused_step.launches` counts
+    kernel launches.
     """
     if y.device.type == "cpu":
         return fused_step_reference(y, h, fz, kc, tableau, rtol, atol)
@@ -170,8 +195,9 @@ fused_step.launches = 0
 def launch_erk_tile(symbol, operator_args, y, h, fz, kc: KernelConstants,
                     tableau: Tableau, rtol: float, atol: float):
     """Launch one step of an ERK tile kernel of the built library (K1
-    `crd_fused_erk_step`, K4 `crd_fused_divform_step`, K5
-    `crd_fused_aniso_step`; csrc/erk_tile.cuh): the launcher `symbol`_f32
+    `crd_fused_erk_step` and K4 `crd_fused_divform_step`, csrc/
+    erk_slots.cuh for bs32 and erk_tile.cuh for the others; K5
+    `crd_fused_aniso_step`, erk_tile.cuh): the launcher `symbol`_f32
     or _f64, with the kernel's operator arguments `operator_args` after
     fz. Checks every input first and raises on what the kernel does not
     take, and on a launch error. Returns (y_new (2, ny, nx), ss partials

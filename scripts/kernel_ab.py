@@ -1,8 +1,8 @@
-"""Time the port's redesigned kernels (K14 and K2; K4 and K11) of one tree
-on the card, or of two trees in turns in one call.
+"""Time the port's redesigned kernels (K14 and K2; K4 and K11; K1 and K8)
+of one tree on the card, or of two trees in turns in one call.
 
     python3 scripts/kernel_ab.py [--tree DIR] [--label NAME] [--runs]
-                                 [--measure all|kstep_rkc|divform]
+                                 [--measure all|kstep_rkc|divform|profile]
     python3 scripts/kernel_ab.py --compare OTHER_DIR [--runs] [--measure ...]
 
 One tree: imports crdmodel_tpu_torch and chip_smoke.py from DIR (default:
@@ -20,15 +20,27 @@ bounded tissue's (2,1600,400) from its ICs: a burst's time a launch from
 CUDA events and the device time from profiler traces, as chip_smoke's
 k4_timing), K11 (bs32, f32, shard 0 of the bounded tissue's and of the torus
 fibres' 2x2 meshes, (2,816,216): device time and burst, as k11_timing),
-and beside them K1, K5 and K8, which keep K1's scheme (erk_tile.cuh), as
-chip_smoke's k1, k5 and k8_timing (K1 and K5 also their device time);
+and beside them K1, K5 and K8 (K5 on erk_tile.cuh), as chip_smoke's k1,
+k5 and k8_timing (K1 and K5 also their device time);
 the registers and blocks an SM of K4's and K11's bs32 kernels where the
 tree has their queries; with --runs also the bounded tissue's bs32 run
 over Tf = 1 on one device and on a 2x2 mesh of shards on cuda:0
 (profile_run: device-busy time, kernels a step, idle share, wall, K4's
-or K11's launches and mean device time). --measure all (the default)
-takes both. Only the wrappers' public signatures are used,
-so an older tree of the port times the same way.
+or K11's launches and mean device time). --measure profile: K1 (bs32,
+f32, the canonical FHN torus's (2,1600,400), a random state, as
+chip_smoke's k1_timing; and the canonical Goldbeter torus's (2,400,100)
+from its ICs, device time only) and K8 (bs32, f32, shard 0 of the
+canonical torus's 2x2 mesh, (2,816,216), from the ICs, as k8_timing),
+each its device time from profiler traces and a burst's time a launch,
+with the registers, blocks an SM and shared bytes of their bs32 kernels
+where the tree has the queries; beside them K2 (the same shape, s = 5 and 23), K9
+(shard 0 of the 10.24M-point torus's 2x2 mesh, s = 5 and 23) and K14 (K
+= 5), which share K1's operator (rhs_common.cuh::ProfileRhs), each its
+device time; with --runs also the canonical FHN torus per step over Tf =
+5 on one device and on a 2x2 mesh of shards on cuda:0 (profile_run, K1's
+or K8's launches and mean device time). --measure all (the default)
+takes the first two. Only the wrappers' public signatures are used, so an
+older tree of the port times the same way.
 
 --compare OTHER_DIR runs OTHER_DIR, this checkout, this checkout,
 OTHER_DIR (each in its own process) and prints the lines of all four,
@@ -52,6 +64,8 @@ K2_SAMPLES = {"canonical": (60, 10), "wide": (5, 3)}
 # the profiler tag of K4's and K11's kernels in either tree: both schemes'
 # kernels take the operator functor (DivformRhs, MixedDivformRhs)
 TAG = "DivformRhs"
+# and of K1's and K8's (ProfileRhs, which K2, K9 and K14 also take)
+PROFILE_TAG = "ProfileRhs"
 RUN_FIELDS = ("steps", "wall_s", "untraced_wall_s", "device_busy_ms",
               "kernels_per_step", "device_idle_share", "kernel_launches",
               "kernel_mean_us")
@@ -75,11 +89,25 @@ def time_one_tree(tree, label, runs, measure):
     emit(label, "build", seconds=_build.build(), card=card,
          **{f"ptxas_{src}": cs.ptxas_summary(src + ".cu") for src in (
              "fused_kstep", "fused_rkc", "fused_divform",
-             "fused_shard_divform")})
+             "fused_shard_divform", "fused_step", "fused_shard_step")},
+         **{f"ptxas_slots_{src}": slots_ptxas(cs, src + ".cu") for src in (
+             "fused_divform", "fused_shard_divform", "fused_step",
+             "fused_shard_step")})
     if measure in ("all", "kstep_rkc"):
         time_kstep_rkc(cs, label, card, runs)
     if measure in ("all", "divform"):
         time_divform(cs, label, card, runs)
+    if measure == "profile":
+        time_profile(cs, label, card, runs)
+
+
+def slots_ptxas(cs, source):
+    """ptxas's most registers and spills over the register-resident
+    scheme's kernels of csrc/<source>, or None where it has none."""
+    try:
+        return cs.ptxas_summary(source, "fused_erk_slots_kernel")
+    except ValueError:      # no such kernel: max() of nothing
+        return None
 
 
 def time_kstep_rkc(cs, label, card, runs):
@@ -153,12 +181,17 @@ def time_kstep_rkc(cs, label, card, runs):
 
 
 def slot_info(symbol, *args):
-    """The registers, blocks an SM and shared bytes of K4's or K11's bs32
-    kernel, where the tree has the query (ops/erk_slots.py), else {}."""
+    """The registers, blocks an SM and shared bytes of a bs32 kernel of
+    the register-resident scheme (K1, K4, K8, K11), where the tree has its
+    query (ops/erk_slots.py, ops/_build.py SIGNATURES), else {}."""
     import torch
+
+    from crdmodel_tpu_torch.ops import _build
     try:
         from crdmodel_tpu_torch.ops import erk_slots
     except ImportError:
+        return {}
+    if symbol not in _build.SIGNATURES:
         return {}
     return erk_slots.kernel_info(symbol, torch.float32, *args)
 
@@ -219,8 +252,7 @@ def time_divform(cs, label, card, runs):
                          consts[0].kinetics_id), card=card)
         del problem, bufs, consts, args
 
-    # K1, K5 and K8 (K1's scheme, unchanged): the timings of chip_smoke's
-    # k1, k5 and k8_timing
+    # K1, K5 and K8: the timings of chip_smoke's k1, k5 and k8_timing
     cfg = config_from_ini(cs.INI, model="fhn", surface="torus")
     problem = build_problem(cfg, "cuda")
     kc = prepare_constants(problem, f32, "cuda")
@@ -234,7 +266,7 @@ def time_divform(cs, label, card, runs):
         return fused_step.fused_step(*args)
 
     emit(label, "k1", shape=list(y.shape), kernel_us=cs.median_ms(k1) * 1e3,
-         device_us=cs.device_ms(k1, "fused_erk_tile_kernel") * 1e3,
+         device_us=cs.device_ms(k1, PROFILE_TAG) * 1e3,
          card=card)
     problem = build_problem(dataclasses.replace(cfg_aniso, t_boundary=0.0),
                             "cuda", **aniso_build)
@@ -258,7 +290,7 @@ def time_divform(cs, label, card, runs):
         return f8.fused_shard_step(*args)
 
     emit(label, "k8", shape=list(bufs[0].shape),
-         device_us=cs.device_ms(k8, "fused_erk_tile_kernel") * 1e3,
+         device_us=cs.device_ms(k8, PROFILE_TAG) * 1e3,
          burst_us=cs.median_ms(k8) * 1e3, card=card)
     del problem, bufs, consts, args, y
 
@@ -267,6 +299,108 @@ def time_divform(cs, label, card, runs):
     for name, run_mesh in (("bounded_ap_run", None),
                            ("sharded_bounded_ap_run", mesh)):
         fields = cs.profile_run(cfg_ap, ap_build, 1.0, TAG, mesh=run_mesh)
+        emit(label, name, **{k: fields[k] for k in RUN_FIELDS}, card=card)
+
+
+def time_profile(cs, label, card, runs):
+    import numpy as np
+    import torch
+
+    from crdmodel_tpu_torch.config import config_from_ini
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import fused_kstep, fused_rkc
+    from crdmodel_tpu_torch.ops import fused_shard_rkc as f9
+    from crdmodel_tpu_torch.ops import fused_shard_step as f8
+    from crdmodel_tpu_torch.ops import fused_step
+    from crdmodel_tpu_torch.ops.kernel_common import prepare_constants
+
+    f32 = torch.float32
+    zero = torch.zeros((), dtype=f32, device="cuda")
+    tab = TABLEAUS["bs32"]
+    cfg = config_from_ini(cs.INI, model="fhn", surface="torus")
+    problem = build_problem(cfg, "cuda")
+    kc = prepare_constants(problem, f32, "cuda")
+    y = torch.tensor(cs.random_state(cfg, tuple(problem.y0.shape),
+                                     np.random.default_rng(cs.SEED)),
+                     dtype=f32, device="cuda")
+    h = torch.tensor(cs.H, dtype=f32, device="cuda")
+
+    def k1():
+        return fused_step.fused_step(y, h, zero, kc, tab, cfg.rtol,
+                                     cfg.atol)
+
+    emit(label, "k1", shape=list(y.shape),
+         device_us=cs.device_ms(k1, PROFILE_TAG) * 1e3,
+         burst_us=cs.median_ms(k1) * 1e3,
+         **slot_info("crd_fused_erk_step_info", kc.kinetics_id), card=card)
+    cfg_gb = config_from_ini(cs.GB_INI, model="goldbeter", surface="torus",
+                             use_pallas=True)
+    gb = build_problem(cfg_gb, "cuda")
+    gc = prepare_constants(gb, f32, "cuda")
+    y_gb = gb.y0.contiguous()
+    emit(label, "k1_goldbeter", shape=list(y_gb.shape),
+         device_us=cs.device_ms(
+             lambda: fused_step.fused_step(y_gb, h, zero, gc, tab,
+                                           cfg_gb.rtol, cfg_gb.atol),
+             PROFILE_TAG) * 1e3,
+         **slot_info("crd_fused_erk_step_info", gc.kinetics_id), card=card)
+    del gb, gc, y_gb
+    n = torch.tensor(5, dtype=torch.int32, device="cuda")
+    emit(label, "k14", shape=list(y.shape), k=5,
+         device_us=cs.device_ms(
+             lambda: fused_kstep.fused_kstep(y, h, zero, n, kc, tab, 5,
+                                             cfg.rtol, cfg.atol),
+             "fused_kstep_kernel") * 1e3, card=card)
+    mu1, ctab = fused_rkc.static_stage_tables(fused_rkc.S_MAX_KERNEL, f32,
+                                              "cuda")
+    rho = cs.problem_rho(problem, problem.y0)
+    for s in (5, 23):
+        hs, st = cs.rkc_step_inputs(s, rho, f32)
+        emit(label, "k2", shape=list(y.shape), s=s,
+             device_us=cs.device_ms(
+                 lambda: fused_rkc.fused_rkc_step(y, hs, zero, st, mu1, ctab,
+                                                  kc, cfg.rtol, cfg.atol),
+                 "fused_rkc") * 1e3, card=card)
+    del problem, kc, y
+
+    mesh = cs.shard_mesh(cs.SHARD_MESH)
+    problem = build_problem(cfg, "cuda")
+    bufs, consts = cs.shard_inputs(problem, mesh, problem.y0.cpu().numpy(),
+                                   f32, f8.HALO)
+    args = (bufs[0], h, zero, consts[0], tab, cfg.rtol, cfg.atol)
+
+    def k8():
+        return f8.fused_shard_step(*args)
+
+    emit(label, "k8", shape=list(bufs[0].shape),
+         device_us=cs.device_ms(k8, PROFILE_TAG) * 1e3,
+         burst_us=cs.median_ms(k8) * 1e3,
+         **slot_info("crd_fused_shard_step_info", consts[0].kinetics_id),
+         card=card)
+    del problem, bufs, consts, args
+
+    large = cs.large_fhn_torus()
+    problem = build_problem(large, "cuda")
+    bufs, consts = cs.shard_inputs(problem, mesh, problem.y0.cpu().numpy(),
+                                   f32, f9.P_RKC)
+    mu1, ctab = fused_rkc.static_stage_tables(f9.S_MAX_KERNEL, f32, "cuda")
+    rho = cs.problem_rho(problem, problem.y0)
+    for s in (5, 23):
+        hs, st = cs.rkc_step_inputs(s, rho, f32)
+        emit(label, "k9", shape=list(bufs[0].shape), s=s,
+             device_us=cs.device_ms(
+                 lambda: f9.fused_shard_rkc_step(bufs[0], hs, zero, st, mu1,
+                                                 ctab, consts[0], large.rtol,
+                                                 large.atol),
+                 "fused_rkc_step_kernel", cs.WIDE_TIMED[0]) * 1e3,
+             card=card)
+    del problem, bufs, consts
+
+    if not runs:
+        return
+    for name, run_mesh in (("fhn_run", None), ("sharded_fhn_run", mesh)):
+        fields = cs.profile_run(cfg, {}, 5.0, PROFILE_TAG, mesh=run_mesh)
         emit(label, name, **{k: fields[k] for k in RUN_FIELDS}, card=card)
 
 
@@ -311,7 +445,7 @@ def main():
     ap.add_argument("--compare", metavar="OTHER_DIR")
     ap.add_argument("--runs", action="store_true")
     ap.add_argument("--measure", default="all",
-                    choices=("all", "kstep_rkc", "divform"))
+                    choices=("all", "kstep_rkc", "divform", "profile"))
     args = ap.parse_args()
     if args.compare:
         compare(os.path.abspath(args.compare), args.runs, args.measure)

@@ -7,8 +7,14 @@ virtual devices, f32, from a numpy-seeded state (physical cells to 2e-5,
 the error sum to 1e-3 relative: the limits of K1's test), on even and
 uneven meshes; whole small
 runs through the plain K8 against the port's sharded torch path; and the
-mirror-pad invariant of uneven meshes. On a CUDA card (marker `cuda`): the
-CUDA kernel against its plain version, y_new's block bitwise:
+mirror-pad invariant of uneven meshes; the launcher's dispatch on the
+stage count (ops/erk_slots.py) for each tableau the gate takes, the
+partial sums' length (one a tile of the block) at the main path's shard
+and odd blocks, and the plain partial sums (fused_shard_step_tile_sums)
+against the plain total. On a CUDA card (marker `cuda`): the CUDA kernel
+against its plain version, y_new's block bitwise; and y_new's block and
+every partial sum bitwise on the torus, the flat surface, Goldbeter,
+Aliev–Panfilov and a padded mesh, with each tableau:
 
     python -m pytest tests/test_torch_fused_shard_step.py -m cuda --noconftest
 """
@@ -254,3 +260,162 @@ def test_shards_on_separate_cards(method, cards):
     np.testing.assert_array_equal(spread.stats.steps.cpu().numpy(),
                                   one_card.stats.steps.cpu().numpy())
     assert torch.equal(spread.trajectory.cpu(), one_card.trajectory.cpu())
+
+
+# The register-resident scheme's cases on a mesh (csrc/erk_slots.cuh,
+# SlotOrigin<HaloGrid>): (config keywords, mesh shape, state, h); the
+# blocks of the 2x2 meshes are 64x32 (full tiles), the padded 3x2 mesh's
+# 25x19 with mirror-pad cells on both axes (partial tiles only)
+GB = dict(model="goldbeter", beta=0.4, vary_beta=0, wave_inside=1,
+          wave_length=0.2)
+AP = dict(model="aliev_panfilov", beta=0.15, vary_beta=0, diffusion=1.0,
+          wave_length=0.25, wave_width=0.5)
+
+
+def _gb_state(y0, seed=11):
+    return y0 * np.exp(0.05 * np.random.default_rng(seed).standard_normal(
+        y0.shape))
+
+
+def _ap_state(y0, seed=11):
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.uniform(-0.1, 1.1, y0.shape[1:]),
+                     rng.uniform(0.0, 2.0, y0.shape[1:])])
+
+
+SLOT_CASES = {
+    "torus": (dict(BASE, x_mesh=64), (2, 2), lambda y0: _state(y0.shape), H),
+    "flat": (dict(BASE, **FLAT, x_mesh=64), (2, 2),
+             lambda y0: _state(y0.shape), H),
+    "goldbeter": (dict(BASE, **GB, x_mesh=64), (2, 2), _gb_state, 0.01),
+    "aliev_panfilov": (dict(BASE, **AP, x_mesh=64), (2, 2), _ap_state, 0.02),
+    "padded_3x2": (dict(BASE, x_mesh=37), (3, 2),
+                   lambda y0: _state(y0.shape), H)}
+
+
+def _shard_inputs(name, dtype, device, shape=None, **over):
+    """Every shard's halo-padded buffer of a SLOT_CASES case's seeded
+    state, its halo exchanged, its K8 constants, and the case's h."""
+    from crdmodel_tpu_torch.ops.kernel_common import make_shard_constants
+    from crdmodel_tpu_torch.parallel.halo import mirror_halo_pad
+
+    kw, mesh_shape, state, h = SLOT_CASES[name]
+    cfg = SimConfig(**{**kw, **over})
+    problem = build_problem(cfg, device)
+    mesh = _mesh(shape or mesh_shape, device)
+    pad = mesh_pad_spec(cfg, mesh)
+    y = torch.tensor(state(problem.y0.cpu().numpy()), dtype=dtype,
+                     device=device)
+    bufs = mirror_halo_pad(list(split_state(y, mesh, pad, cfg)), mesh,
+                           f8.HALO, pad)
+    return (bufs, make_shard_constants(problem, mesh, pad, f8.HALO, dtype),
+            torch.tensor(h, dtype=dtype, device=device), cfg)
+
+
+@pytest.mark.parametrize("method", sorted(TABLEAUS))
+def test_dispatch_names_a_kernel_for_each_tableau(method):
+    """Every tableau the gate takes has a kernel: bs32 the
+    register-resident scheme, the others erk_tile.cuh's."""
+    from crdmodel_tpu_torch.ops import erk_slots
+    problem = build_problem(SimConfig(**BASE), "cpu")
+    tab = TABLEAUS[method]
+    assert f8.is_shard_supported(problem, tab, torch.float32, 64, 32)
+    assert erk_slots.uses_slots(tab) == (method == "bs32")
+    assert erk_slots.kernel_name(tab) == (
+        erk_slots.SLOTS_KERNEL if method == "bs32" else
+        erk_slots.TILE_KERNEL)
+
+
+@pytest.mark.parametrize("x_mesh,shape,want", [(400, (2, 2), 175),
+                                               (101, (2, 2), 14),
+                                               (75, (1, 3), 10)])
+def test_shard_partial_sums_one_a_tile(x_mesh, shape, want):
+    """The plain partial sums number the kernel's tiles of the block: 175
+    at a 2x2 shard (800x200) of the canonical torus's 1600x400, and the
+    partial tiles of odd blocks (202x51, 300x25)."""
+    bufs, consts, h, _ = _shard_inputs("torus", torch.float32, "cpu", shape,
+                                       x_mesh=x_mesh, surface_length=80.0)
+    nyl = bufs[0].shape[1] - 2 * f8.HALO
+    nxl = bufs[0].shape[2] - 2 * f8.HALO
+    assert -(-nxl // 32) * -(-nyl // 32) == want
+    sums = f8.fused_shard_step_tile_sums(bufs[0], h, torch.tensor(0.0),
+                                         consts[0], TABLEAUS["bs32"], 1e-5,
+                                         1e-8)
+    assert sums.shape == (want,)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", sorted(SLOT_CASES))
+def test_shard_tile_sums_add_to_the_plain_total(name, dtype):
+    """The plain partial sums of every shard, in the kernel's tile order
+    over the physical cells, add up to the plain version's total to
+    rounding, for each tableau, frozen and not."""
+    bufs, consts, h, cfg = _shard_inputs(name, dtype, "cpu")
+    rel = 1e-5 if dtype == torch.float32 else 1e-12
+    for method in sorted(TABLEAUS):
+        for fz in (0.0, 1.0):
+            for buf, sc in zip(bufs, consts):
+                args = (buf, h, torch.tensor(fz, dtype=dtype), sc,
+                        TABLEAUS[method], cfg.rtol, cfg.atol)
+                sums = f8.fused_shard_step_tile_sums(*args)
+                _, total = f8.fused_shard_step_reference(*args)
+                np.testing.assert_allclose(float(sums.sum()), float(total),
+                                           rtol=rel)
+
+
+def test_padded_case_pads_both_axes():
+    """The padded case's 3x2 mesh pads both axes: each block is 25x19,
+    the last shards' last rows or column mirror-pad cells."""
+    bufs, consts, _, cfg = _shard_inputs("padded_3x2", torch.float32, "cpu")
+    assert (cfg.ny, cfg.nx) == (74, 37)
+    assert all(b.shape == (2, 25 + 2 * f8.HALO, 19 + 2 * f8.HALO)
+               for b in bufs)
+    assert sorted({(sc.valid_rows, sc.valid_cols) for sc in consts}) == [
+        (24, 18), (24, 19), (25, 18), (25, 19)]
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs an NVIDIA GPU and nvcc")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("method", sorted(TABLEAUS))
+@pytest.mark.parametrize("name", sorted(SLOT_CASES))
+def test_cuda_shard_partial_sums_bitwise(name, method, dtype):
+    """Both schemes on every shard of each case, frozen and not: y_new's
+    block bitwise the plain version's, two launches equal, every partial
+    sum bitwise the plain version's over the physical cells
+    (fused_shard_step_tile_sums); the launch runs the kernel the dispatch
+    names, and the register-resident kernel's shared bytes are
+    slots_plan's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from crdmodel_tpu_torch.ops import erk_slots
+
+    bufs, consts, h, cfg = _shard_inputs(name, dtype, "cuda")
+    tab = TABLEAUS[method]
+    p = f8.HALO
+    for fz in (0.0, 1.0):
+        for buf, sc in zip(bufs, consts):
+            args = (buf, h, torch.tensor(fz, dtype=dtype, device="cuda"), sc,
+                    tab, cfg.rtol, cfg.atol)
+            # a trace can miss a kernel: three launches
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    y_k, ss_k = f8.fused_shard_step(*args)
+                torch.cuda.synchronize()
+            names = [e.key for e in prof.key_averages()]
+            assert any(erk_slots.kernel_name(tab) in n for n in names), names
+            y_k2, ss_k2 = f8.fused_shard_step(*args)
+            y_r, _ = f8.fused_shard_step_reference(*args)
+            sums = f8.fused_shard_step_tile_sums(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(f8.interior(y_k, p), f8.interior(y_k2, p))
+            assert torch.equal(ss_k, ss_k2)
+            assert torch.equal(f8.interior(y_k, p), f8.interior(y_r, p))
+            assert ss_k.shape == sums.shape and torch.equal(ss_k, sums)
+    if erk_slots.uses_slots(tab):
+        info = erk_slots.kernel_info("crd_fused_shard_step_info", dtype,
+                                     consts[0].kinetics_id)
+        assert info["shared_bytes"] == erk_slots.slots_plan(
+            bufs[0].element_size())[3]
+        assert info["blocks_per_sm"] >= (2 if dtype == torch.float32 else 1)

@@ -1,8 +1,16 @@
 """Kernel K1, the fused ERK step (crdmodel_tpu_torch/ops/fused_step.py).
 
 On the CPU: the kernel's plain version against the JAX package's Pallas
-kernel run in interpret mode, f32, one step from a numpy-seeded state.
-On a CUDA card (marker `cuda`): the CUDA kernel against the plain version.
+kernel run in interpret mode, f32, one step from a numpy-seeded state;
+the launcher's dispatch on the stage count (ops/erk_slots.py: bs32 on the
+register-resident scheme, the others on erk_tile.cuh's) for each tableau
+the gate takes, the partial sums' length (one a tile) at the main path's
+and odd shapes, and the plain partial sums (fused_step_tile_sums) against
+the plain total.
+On a CUDA card (marker `cuda`): the CUDA kernel against the plain version,
+and y_new and every partial sum bitwise the plain version's in the
+kernel's order on the torus, the flat surface, Goldbeter, Aliev–Panfilov,
+a torus narrower than a tile's region and an odd grid, with each tableau.
 The JAX package is imported inside the test that uses it, so that the card
 tests run where JAX is not installed:
 
@@ -296,3 +304,130 @@ def test_cuda_aliev_panfilov_kernel_matches_plain(method, dtype):
         assert torch.equal(y_k, y_r)
         rel = abs(float(ss_k.sum()) - float(ss_r.sum())) / float(ss_r.sum())
         assert rel <= (1e-5 if dtype == torch.float32 else 1e-12)
+
+
+# The register-resident scheme's cases (csrc/erk_slots.cuh): 400x100 grids
+# with interior tiles, tiles at the wrap and a partial tile column; the
+# beta field and the scalar; each kinetics family; a torus of 4 columns,
+# narrower than a tile's region, which the wrap covers many times; an odd
+# 148x37 grid, partial tiles on both axes. (config keywords, state of y0's
+# shape, h)
+WIDE = dict(x_mesh=100, surface_length=80)
+SLOT_CASES = {
+    "torus": ({**BASE, **SURFACES["torus"], **WIDE}, _state, H),
+    "flat": ({**BASE, **SURFACES["flat"], **WIDE}, _state, H),
+    "goldbeter": ({**GB_KW, **WIDE}, None, GB_H),
+    "aliev_panfilov": ({**AP_KW, **WIDE}, _ap_state, AP_H),
+    "torus_4_columns": ({**BASE, **SURFACES["torus"], "x_mesh": 4,
+                         "surface_length": 80}, _state, H),
+    "odd": ({**BASE, **SURFACES["flat"], "x_mesh": 37,
+             "surface_length": 80}, _state, H)}
+
+
+def _slot_inputs(name, dtype, device):
+    """(problem, constants, y, h) of a case of SLOT_CASES (Goldbeter's
+    state a perturbation of its y0)."""
+    kw, state, h = SLOT_CASES[name]
+    p = build_problem(SimConfig(**kw), device=device)
+    y_np = (_gb_state(p.y0.cpu().numpy()) if state is None
+            else state(tuple(p.y0.shape)))
+    y = torch.tensor(y_np, dtype=dtype, device=device)
+    return (p, prepare_constants(p, dtype, device), y,
+            torch.tensor(h, dtype=dtype, device=device))
+
+
+@pytest.mark.parametrize("method", sorted(TABLEAUS))
+def test_dispatch_names_a_kernel_for_each_tableau(method):
+    """Every tableau the gate takes has a kernel: bs32 the
+    register-resident scheme, the others erk_tile.cuh's."""
+    from crdmodel_tpu_torch.ops import erk_slots
+    p = build_problem(SimConfig(**{**BASE, **SURFACES["torus"]}), "cpu")
+    tab = TABLEAUS[method]
+    assert fs.is_supported(p, tab, torch.float32)
+    assert erk_slots.uses_slots(tab) == (method == "bs32")
+    assert erk_slots.kernel_name(tab) == (
+        erk_slots.SLOTS_KERNEL if method == "bs32" else
+        erk_slots.TILE_KERNEL)
+
+
+@pytest.mark.parametrize("x_mesh,want", [(400, 650), (200, 175), (37, 10),
+                                         (101, 52)])
+def test_partial_sums_one_a_tile(x_mesh, want):
+    """The plain partial sums number the kernel's tiles: 650 at the
+    canonical torus's 1600x400, 175 at 800x200, and partial tiles at odd
+    sides (148x37, 404x101)."""
+    cfg = SimConfig(**{**BASE, **SURFACES["torus"], "x_mesh": x_mesh,
+                       "surface_length": 80})
+    assert (cfg.ny, cfg.nx) == (4 * x_mesh, x_mesh)
+    p = build_problem(cfg, "cpu")
+    kc = prepare_constants(p, torch.float32, "cpu")
+    y = torch.tensor(_state(tuple(p.y0.shape)), dtype=torch.float32)
+    sums = fs.fused_step_tile_sums(y, torch.tensor(H), torch.tensor(0.0), kc,
+                                   TABLEAUS["bs32"], 1e-4, 1e-6)
+    assert -(-cfg.nx // fs.TILE_X) * -(-cfg.ny // 32) == want
+    assert sums.shape == (want,)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", sorted(SLOT_CASES))
+def test_tile_sums_add_to_the_plain_total(name, dtype):
+    """The plain partial sums, in the kernel's tile order, add up to the
+    plain version's total to rounding, for each tableau, frozen and not."""
+    p, kc, y, h = _slot_inputs(name, dtype, "cpu")
+    assert kc.has_freeze
+    ny, nx = p.cfg.ny, p.cfg.nx
+    for method in sorted(TABLEAUS):
+        for fz in (0.0, 1.0):
+            args = (y, h, torch.tensor(fz, dtype=dtype), kc,
+                    TABLEAUS[method], 1e-4, 1e-6)
+            sums = fs.fused_step_tile_sums(*args)
+            _, total = fs.fused_step_reference(*args)
+            tile_y = fs.tile_plan(TABLEAUS[method].stages,
+                                  y.element_size())[1]
+            assert sums.shape == (-(-nx // fs.TILE_X) * -(-ny // tile_y),)
+            rel = 1e-5 if dtype == torch.float32 else 1e-12
+            np.testing.assert_allclose(float(sums.sum()), float(total),
+                                       rtol=rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs a CUDA card and nvcc")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("method", sorted(TABLEAUS))
+@pytest.mark.parametrize("name", sorted(SLOT_CASES))
+def test_cuda_partial_sums_bitwise(name, method, dtype):
+    """Both schemes on every case, frozen and not: y_new bitwise the plain
+    version's, two launches equal, one partial sum a tile, each bitwise
+    the plain version's in the kernel's order (fused_step_tile_sums); the
+    launch runs the kernel the dispatch names (erk_slots.kernel_name), and
+    the register-resident kernel's shared bytes are slots_plan's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from crdmodel_tpu_torch.ops import erk_slots
+
+    _, kc, y, h = _slot_inputs(name, dtype, "cuda")
+    tab = TABLEAUS[method]
+    for fz in (0.0, 1.0):
+        args = (y, h, torch.tensor(fz, dtype=dtype, device="cuda"), kc, tab,
+                1e-4, 1e-6)
+        # a trace can miss a kernel: three launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                y_k, ss_k = fs.fused_step(*args)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()]
+        assert any(erk_slots.kernel_name(tab) in n for n in names), names
+        y_k2, ss_k2 = fs.fused_step(*args)
+        y_r, _ = fs.fused_step_reference(*args)
+        sums = fs.fused_step_tile_sums(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(y_k, y_k2) and torch.equal(ss_k, ss_k2)
+        assert torch.equal(y_k, y_r)
+        assert ss_k.shape == sums.shape and torch.equal(ss_k, sums)
+    if erk_slots.uses_slots(tab):
+        info = erk_slots.kernel_info("crd_fused_erk_step_info", dtype,
+                                     kc.kinetics_id)
+        assert info["shared_bytes"] == erk_slots.slots_plan(
+            y.element_size())[3]
+        assert info["blocks_per_sm"] >= (2 if dtype == torch.float32 else 1)
