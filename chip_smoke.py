@@ -21,11 +21,13 @@ a scar column, a 3-D diffusion field and a transmural tensor, and on
 FitzHugh-Nagumo with a beta ramp; K8 and K9, the fused ERK and RKC2 steps
 on one shard of a mesh, on the canonical torus's 2x2 shards, the flat
 sheet's, an uneven 1x3 mesh whose last block carries mirror-pad cells, and
-K9 on the 2x2 shards of the 10.24M-point torus, K8's partial sums bitwise
-and its launched kernel traced as K1's; K10, the fused IMEX
-ark324 step on one shard, on the canonical Goldbeter and FHN tori's 2x2
-shards, the uneven 1x3 mesh and the 2.56M-point Goldbeter torus's 2x2
-shard; K11, the fused divergence-form and 2-D tensor ERK step on one shard,
+K9 on the 2x2 shards of the 10.24M-point torus (s = 2, 5, 23 and at its
+chunk boundaries, and an s beyond its tables), every partial sum of both
+bitwise, K8's launched kernel traced as K1's; K10, the fused IMEX ark324
+step on one shard, on the canonical Goldbeter and FHN tori's 2x2 shards,
+the uneven 1x3 mesh, the 2.56M-point Goldbeter torus's 2x2 shard and FHN
+and Aliev-Panfilov on both Goldbeter tori's shards, every partial sum
+bitwise; K11, the fused divergence-form and 2-D tensor ERK step on one shard,
 on the bounded tissue's 2x2 shards, a flat 2-D diffusion field, the uneven
 1x3 mesh, an uneven 2x2 mesh with mirror-pad cells on both axes, the
 rotating fibres flat and on the torus and a constant tensor inside no-flux
@@ -187,8 +189,12 @@ LIMITS = {torch.float64: (1e-12, 1e-10), torch.float32: (2e-5, 1e-3)}
 # to blocks of 134, 134 and 132; K9's stage counts checked and timed
 SHARD_MESH = (2, 2)
 UNEVEN_MESH = (1, 3)
-K9_STAGES = (2, 5, 23)
-K9_TIMED_STAGES = (5, 23)
+# K9's checked stage counts: K2_STAGES' ends and one to three chunk
+# boundaries (ops/fused_rkc.py CHUNK = 6: s + 1 = 7, 13, 18 evaluations)
+K9_STAGES = (2, 5, 6, 12, 17, 23)
+# an accuracy-limited step, the sharded 10.24M-point run's most common
+# stage count, a stability-bound step
+K9_TIMED_STAGES = (5, 12, 23)
 # K14's checks: (tableau, K) of the JAX gate's reach at P = 8..32, the
 # n_commit values of each (0, 1, K-1, K), and the K it is timed at
 K14_BATCHES = (("bs32", 2), ("bs32", 5), ("bs32", 10), ("dopri54", 2))
@@ -1909,10 +1915,12 @@ def check_shard_kernels(cases, seed):
     check_rkc_kernel) against their plain versions on the shards of each
     (label, config, mesh shape, shards checked, K8 too, K9 too) of
     `cases`, f32 and f64, fz 0 and 1: y_new's block bitwise equal, two
-    launches bitwise equal; K8 also every partial sum bitwise the plain
-    version's over the physical cells (fused_shard_step_tile_sums) and the
-    kernel the dispatch names (check_dispatch); prints phases k8_check and
-    k9_check. Returns the max errors of K8 and of K9."""
+    launches bitwise equal, every partial sum bitwise the plain version's
+    over the physical cells (fused_shard_step_tile_sums,
+    fused_shard_rkc_tile_sums); K8 also the kernel the dispatch names
+    (check_dispatch); K9 also an s beyond its tables on the first shard
+    of each case (y_new's block y's, every sum NaN); prints phases
+    k8_check and k9_check. Returns the max errors of K8 and of K9."""
     from crdmodel_tpu_torch.core.problem import build_problem
     from crdmodel_tpu_torch.integrate.erk import TABLEAUS
     from crdmodel_tpu_torch.ops import fused_shard_rkc as f9
@@ -1974,11 +1982,37 @@ def check_shard_kernels(cases, seed):
                                     s=s, fz=fz),
                                 f9.fused_shard_rkc_step,
                                 f9.fused_shard_rkc_step_reference, args,
-                                dtype)
+                                dtype, f9.fused_shard_rkc_tile_sums)
                             worst9[dtype] = max(worst9[dtype], err)
+                    check_rkc_refusal(
+                        "k9_check", dict(fields, shard=shards[0], fz=fz),
+                        f9.fused_shard_rkc_step, f9.fused_shard_rkc_tile_sums,
+                        (bufs[shards[0]], hs, fzt, st, mu1, ctab,
+                         consts[shards[0]], cfg.rtol, cfg.atol))
                     del bufs, consts
         del problem
     return worst8, worst9
+
+
+def check_rkc_refusal(name, fields, kernel, tile_sums, args):
+    """A shard RKC kernel at an s beyond its tables (args with s replaced
+    by s_cap + 1): y_new's block must be y's, every partial sum NaN, as
+    its plain sums; prints phase `name` with s = s_cap + 1."""
+    from crdmodel_tpu_torch.ops.fused_shard_step import interior
+    yp, h, fz, _, mu1 = args[:5]
+    beyond = (yp, h, fz, torch.tensor(mu1.shape[0], dtype=torch.int32,
+                                      device=yp.device), *args[4:])
+    halo = args[6].halo
+    y_k, ss_k = kernel(*beyond)
+    torch.cuda.synchronize()
+    ok = (torch.equal(interior(y_k, halo), interior(yp, halo))
+          and bool(torch.isnan(ss_k).all())
+          and ss_k.shape == tile_sums(*beyond).shape)
+    phase(name, **fields, s=int(beyond[3]), refused=ok,
+          partials=int(ss_k.numel()))
+    if not ok:
+        raise AssertionError(f"{name}: an s beyond the tables was not "
+                             "refused with y kept and NaN sums")
 
 
 def shard_bound(yp, sc, ops_per_point, extra_bytes=0):
@@ -2061,7 +2095,7 @@ def shard_timings(cfg8, cfg9, card):
         burst = median_ms(lambda: f9.fused_shard_rkc_step(*args),
                           *WIDE_TIMED)
         t9 = (device_ms(lambda: f9.fused_shard_rkc_step(*args),
-                        "fused_rkc_step_kernel", WIDE_TIMED[0]),
+                        "fused_rkc_chunk_kernel", WIDE_TIMED[0]),
               median_ms(lambda: f9.fused_shard_rkc_step_reference(*args),
                         *WIDE_TIMED),
               *shard_bound(bufs[0], consts[0], rkc_ops(consts[0], s),
@@ -2070,7 +2104,12 @@ def shard_timings(cfg8, cfg9, card):
         phase("k9_timing", shape=list(bufs[0].shape), halo=f9.P_RKC, s=s,
               dtype="float32", kernel_us=t9[0] * 1e3, burst_us=burst * 1e3,
               plain_us=t9[1] * 1e3, bound_us=t9[2] * 1e3, bound_by=t9[3],
-              samples=list(WIDE_TIMED), card=card)
+              times_bound=t9[0] / t9[2], samples=list(WIDE_TIMED),
+              chunks=len(f9.extent_rings(s)),
+              grid_barriers=len(f9.extent_rings(s)) - 1,
+              extent_rings=[r for _, _, r in f9.extent_rings(s)],
+              **f9.kernel_info(dtype, consts[0].kinetics_id),
+              ptxas=ptxas_summary("fused_shard_rkc.cu"), card=card)
     ex9 = median_ms(lambda: refresh_halos(bufs, mesh, f9.P_RKC))
     phase("halo_exchange_timing", mesh=list(SHARD_MESH), shards_on="cuda:0",
           halo=f9.P_RKC, buffer=list(bufs[0].shape), exchange_us=ex9 * 1e3,
@@ -2203,8 +2242,10 @@ def shard_divform_inputs(problem, mesh, y_np, dtype, aniso):
 def check_shard_imex_kernel(cases, seed):
     """K10 against its plain version on the shards of each (label, config,
     mesh shape, shards checked) of `cases`, f32 and f64, each h of K3_H, fz
-    0 and 1: y_new's block bitwise equal, two launches bitwise equal;
-    prints phase k10_check. Returns the max errors."""
+    0 and 1: y_new's block bitwise equal (NaN at the same points), two
+    launches bitwise equal, every partial sum bitwise the plain version's
+    in the kernel's order (fused_shard_imex_tile_sums); prints phase
+    k10_check. Returns the max errors."""
     from crdmodel_tpu_torch.core.problem import build_problem
     from crdmodel_tpu_torch.ops import fused_shard_imex as f10
 
@@ -2231,7 +2272,8 @@ def check_shard_imex_kernel(cases, seed):
                                        consts[k].valid_cols],
                                 h=h_val, fz=fz),
                             f10.fused_shard_imex_step,
-                            f10.fused_shard_imex_step_reference, args, dtype)
+                            f10.fused_shard_imex_step_reference, args, dtype,
+                            f10.fused_shard_imex_tile_sums)
                         worst[dtype] = max(worst[dtype], err)
             del bufs, consts
         del problem
@@ -2311,7 +2353,7 @@ def shard_field_timings(timed10, timed11, card):
         burst = median_ms(lambda: f10.fused_shard_imex_step(*args),
                           *WIDE_TIMED)
         t10 = (device_ms(lambda: f10.fused_shard_imex_step(*args),
-                         "fused_imex_tile_kernel", WIDE_TIMED[0]),
+                         "fused_imex_slots_kernel", WIDE_TIMED[0]),
                median_ms(lambda: f10.fused_shard_imex_step_reference(*args),
                          *WIDE_TIMED),
                *shard_bound(bufs[0], consts[0], imex_ops(consts[0])))
@@ -2320,7 +2362,11 @@ def shard_field_timings(timed10, timed11, card):
               halo=f10.HALO, h=K3_H[0], dtype="float32",
               kernel_us=t10[0] * 1e3, burst_us=burst * 1e3,
               plain_us=t10[1] * 1e3, bound_us=t10[2] * 1e3,
-              bound_by=t10[3], samples=list(WIDE_TIMED), card=card)
+              bound_by=t10[3], times_bound=t10[0] / t10[2],
+              samples=list(WIDE_TIMED),
+              **f10.kernel_info(dtype, consts[0].kinetics_id),
+              ptxas=ptxas_entries("fused_shard_imex.cu",
+                                  "fused_imex_slots_kernel"), card=card)
         del problem, bufs, consts
     tab = TABLEAUS["bs32"]
     for label, cfg, build_kw, aniso, h_val in timed11:
@@ -2503,7 +2549,8 @@ def shard_field_phases(cfg, programs, probes, singles, card):
     """The phases of kernels K10 and K11: their checks against their plain
     versions (k10_check: Goldbeter and FHN on the canonical tori's 2x2
     shards with the beta ramp and a freeze, the uneven 1x3 mesh, the large
-    Goldbeter torus's 2x2 shard; k11_check: the bounded tissue's 2x2
+    Goldbeter torus's 2x2 shard, FHN and Aliev-Panfilov on both Goldbeter
+    tori's shards; every partial sum bitwise; k11_check: the bounded tissue's 2x2
     shards, a flat 2-D diffusion field, the uneven 1x3 mesh, an uneven
     2x2 mesh, the rotating fibres flat and on the torus, a constant tensor
     inside no-flux walls),
@@ -2516,12 +2563,21 @@ def shard_field_phases(cfg, programs, probes, singles, card):
     cfg_gb = programs["goldbeter_ark324"]
     cfg_large = large_goldbeter_torus()
     fhn_ark = dataclasses.replace(cfg, method="ark324")
+    # the three kinetics on the Goldbeter tori's shards, (2,216,66) and
+    # (2,1616,416), besides the canonical FHN torus's and its uneven mesh
+    small = dataclasses.replace(cfg_gb, t_boundary=1.0)
+    other = dict(fhn=dict(model="fhn", beta=1.25),
+                 aliev_panfilov=dict(model="aliev_panfilov", beta=0.1))
     worst10 = check_shard_imex_kernel([
-        ("goldbeter_2x2", dataclasses.replace(cfg_gb, t_boundary=1.0),
-         SHARD_MESH, (0, 3)),
+        ("goldbeter_2x2", small, SHARD_MESH, (0, 3)),
         ("fhn_2x2", fhn_ark, SHARD_MESH, (0, 3)),
         ("fhn_uneven_1x3", fhn_ark, UNEVEN_MESH, (0, 1, 2)),
-        ("large_goldbeter_2x2", cfg_large, SHARD_MESH, (0,))], SEED + 10)
+        ("large_goldbeter_2x2", cfg_large, SHARD_MESH, (0,)),
+        *((f"{m}_small_2x2", dataclasses.replace(small, **kw), SHARD_MESH,
+           (0, 3)) for m, kw in other.items()),
+        *((f"{m}_large_2x2", dataclasses.replace(cfg_large, t_boundary=0.5,
+                                                 **kw), SHARD_MESH, (0,))
+          for m, kw in other.items())], SEED + 10)
     frozen = dict(t_boundary=1.0)
     dfield = 0.05 + 0.1 * np.random.default_rng(SEED).random(
         (cfg_ap.ny, cfg_ap.nx))
@@ -2869,9 +2925,11 @@ def main():
           ptxas_fused_box3d=ptxas_summary("fused_box3d.cu"),
           ptxas_fused_box3d_rkc=ptxas_summary("fused_box3d_rkc.cu"),
           ptxas_fused_shard_step=ptxas_summary("fused_shard_step.cu"),
-          ptxas_fused_shard_rkc=ptxas_summary("fused_shard_rkc.cu"),
+          ptxas_fused_shard_rkc=ptxas_entries("fused_shard_rkc.cu",
+                                              "fused_rkc_chunk_kernel"),
           ptxas_fused_imex=ptxas_summary("fused_imex.cu"),
-          ptxas_fused_shard_imex=ptxas_summary("fused_shard_imex.cu"),
+          ptxas_fused_shard_imex=ptxas_entries("fused_shard_imex.cu",
+                                               "fused_imex_slots_kernel"),
           ptxas_fused_shard_divform=ptxas_summary("fused_shard_divform.cu"),
           ptxas_fused_shard_box3d=ptxas_summary("fused_shard_box3d.cu"),
           ptxas_fused_shard_box3d_rkc=ptxas_summary(
@@ -2910,7 +2968,7 @@ def main():
         profile_run(cfg_ap, ap_build, 1.0, "DivformRhs",
                     mesh=shard_mesh(SHARD_MESH))
         profile_run(large_goldbeter_torus(), {}, 0.2,
-                    "fused_imex_tile_kernel", mesh=shard_mesh(SHARD_MESH))
+                    "fused_imex_slots_kernel", mesh=shard_mesh(SHARD_MESH))
         profile_run(cfg_box, {}, tf, "fused_shard_box3d_kernel",
                     mesh=shard_mesh(SHARD_MESH))
         profile_run(dataclasses.replace(cfg_box, method="rkc2"), {}, tf,

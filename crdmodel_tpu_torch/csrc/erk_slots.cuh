@@ -59,73 +59,6 @@ constexpr int kSlotStages = 4;      // the tableau the scheme takes: bs32
 constexpr int kSlotTileX = 32;      // ops/fused_step.py TILE_X
 constexpr int kSlotTileY = 32;      // tile_plan's tile_y for bs32
 
-// A tile's region on the grid a kernel reads, whose tile starts at (gy0,
-// gx0) and whose region, `halo` rings around it, is w x r points: row(ly)
-// and col(lx) are the row and column indices of local row ly and column
-// lx (into the state's planes and the RHS's constants), by addition where
-// the region lies inside (Inner, a tile's compile-time case), else
-// wrapped or clamped; ld() the state's row stride and plane() its plane;
-// in_block(ly, lx) whether the point is one of the extent the tiles cover
-// (its y_new is written), counted(ly, lx) whether it enters the sums.
-template <class Grid>
-struct SlotOrigin;
-
-// The periodic grid: tile_slots.cuh's TileOrigin, the wrap written as loops
-template <>
-struct SlotOrigin<WrapGrid> : TileOrigin {
-  __device__ __forceinline__ SlotOrigin(const WrapGrid& g, int gy0, int gx0,
-                                        int halo, int w, int r)
-      : TileOrigin(gy0, gx0, halo, w, r, g.ny, g.nx) {}
-
-  __device__ __forceinline__ int ld() const { return nx; }
-  __device__ __forceinline__ size_t plane() const {
-    return static_cast<size_t>(ny) * nx;
-  }
-  __device__ __forceinline__ bool in_block(int ly, int lx) const {
-    return in_grid(ly, lx);
-  }
-  __device__ __forceinline__ bool counted(int, int) const { return true; }
-};
-
-// One shard's block inside its halo (HaloGrid): the exchange filled halo
-// >= n rings, so a full tile's region lies inside the buffer; only the
-// partial tiles at the block's last rows and columns reach past it, and
-// clamp there as HaloGrid::row and col do (those points feed none that is
-// written). Mirror-pad cells step like the others and stay out of the
-// sums.
-template <>
-struct SlotOrigin<HaloGrid> {
-  HaloGrid g;
-  int y0;       // the region's first row and column, block coordinates
-  int x0;
-  bool inner;   // the region lies inside the buffer: nothing clamps
-
-  __device__ __forceinline__ SlotOrigin(const HaloGrid& g_, int gy0, int gx0,
-                                        int halo, int w, int r)
-      : g(g_), y0(gy0 - halo), x0(gx0 - halo),
-        inner(gy0 - halo + r <= g_.nyl + g_.halo
-              && gx0 - halo + w <= g_.nxl + g_.halo) {}
-
-  template <bool Inner>
-  __device__ __forceinline__ int row(int ly) const {
-    const int r = y0 + ly + g.halo;
-    return Inner ? r : min(r, g.nyl + 2 * g.halo - 1);
-  }
-  template <bool Inner>
-  __device__ __forceinline__ int col(int lx) const {
-    const int c = x0 + lx + g.halo;
-    return Inner ? c : min(c, g.nxl + 2 * g.halo - 1);
-  }
-  __device__ __forceinline__ int ld() const { return g.nxl + 2 * g.halo; }
-  __device__ __forceinline__ size_t plane() const { return g.plane(); }
-  __device__ __forceinline__ bool in_block(int ly, int lx) const {
-    return y0 + ly < g.nyl && x0 + lx < g.nxl;
-  }
-  __device__ __forceinline__ bool counted(int ly, int lx) const {
-    return g.counted(y0 + ly, x0 + lx);
-  }
-};
-
 // The block's region: the tile and kSlotStages rings (the stage planes,
 // kRegW x kRegR points), and the slots on all of it but the outer ring
 template <int TileY>

@@ -15,21 +15,33 @@
 // convergence test rides the error's cross-shard sum and every shard takes
 // the same accept/reject decision.
 //
-// The tile scheme is K3's (imex_tile.cuh) with the HaloGrid policy
-// (rhs_common.cuh): the tile loads its 4-ring halo from the buffer, no index
-// wraps, and the RHS indexes the shard's halo-padded constants (three
+// Design: imex_slots.cuh's register-resident scheme with the HaloGrid
+// policy (tile_slots.cuh::SlotOrigin): 512 threads fixed to a 32x32 tile
+// (two points each) and its Newton rings (at most one point each), the
+// rhs_known of the later stages, the predictor's kI and the tile's update
+// and error sums in registers; y0's u and the stage value of variable 0
+// in three shared planes of the 40x40 region; a full tile's region lies
+// inside the buffer (the exchange's 8 >= 4 rings) and takes code without
+// the clamp. The RHS indexes the shard's halo-padded constants (three
 // (nxl + 2P) profiles or three scalars, beta and the freeze mask as
-// (nyl + 2P) rows). On a mesh that does not divide the grid the kernel runs
-// the JAX kernels' mirror-pad semantics: pad cells step like their wrapped
-// sources, and only the first valid_rows x valid_cols cells of the block
-// enter either part of the sum. Only the block of y_new is written.
+// (nyl + 2P) rows). On a mesh that does not divide the grid the kernel
+// runs the JAX kernels' mirror-pad semantics: pad cells step like their
+// wrapped sources, and only the first valid_rows x valid_cols cells of the
+// block enter either part of the sum. Only the block of y_new is written.
+// The partial sums replay imex_tile.cuh's 256-thread order, so y_new and
+// every partial sum are bitwise the plain version's and imex_tile.cuh's,
+// and a run takes the same steps.
 //
-// What bounds it on an H100: as K3, the Newton's arithmetic (some 500 flops
-// and 70 divisions a point for Goldbeter), then the block's barriers between
-// stages; the buffer is read once and y_new's block written once.
+// What bounds it on an H100: the Newton's arithmetic, some 500 flops and
+// 70 IEEE divisions a point for Goldbeter (10.15 us at (2,1616,416) at 67
+// TFLOP/s), on 1.27x the tile's points (the Newton's rings); the buffer is
+// read once and y_new's block written once. Each thread carries at most
+// three points through the stages, where imex_tile.cuh's 256 threads
+// carried some six each through shared memory.
 
 #include <cuda_runtime.h>
 
+#include "imex_slots.cuh"
 #include "imex_tile.cuh"
 #include "rhs_common.cuh"
 
@@ -51,9 +63,11 @@ int launch(const void* y, void* y_new, void* ss, const void* h,
       static_cast<const T*>(c0), static_cast<const T*>(c1),
       static_cast<const T*>(c2), torus, static_cast<const T*>(beta),
       beta_field, static_cast<const T*>(mask), has_freeze};
+  if (tile_x != crd::kImexTile || tile_y != crd::kImexTile)
+    return static_cast<int>(cudaErrorInvalidValue);
   const crd::HaloGrid grid = {nyl, nxl, halo, valid_rows, valid_cols};
-  return crd::launch_imex_tile<crd::HaloGrid, T>(
-      grid, y, y_new, ss, h, fz, k, kinetics, nyl, nxl, tile_x, tile_y,
+  return crd::launch_imex_slots<crd::HaloGrid, T>(
+      grid, y, y_new, ss, h, fz, k, kinetics, nyl, nxl,
       crd::make_imex_table(ae, ai, b, d, gamma), rtol, atol, stream);
 }
 
@@ -78,4 +92,9 @@ extern "C" int crd_fused_shard_imex_step_f32(CRD_FUSED_SHARD_IMEX_ARGS) {
 
 extern "C" int crd_fused_shard_imex_step_f64(CRD_FUSED_SHARD_IMEX_ARGS) {
   return launch<double>(CRD_FUSED_SHARD_IMEX_PASS);
+}
+
+extern "C" int crd_fused_shard_imex_info(int f64, int kinetics, int* out) {
+  return f64 ? crd::imex_slots_info<crd::HaloGrid, double>(kinetics, out)
+             : crd::imex_slots_info<crd::HaloGrid, float>(kinetics, out);
 }

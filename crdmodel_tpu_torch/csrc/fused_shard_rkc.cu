@@ -8,44 +8,85 @@
 // diffusion-limited large grids). It is K2's profile branch (fused_rkc.cu)
 // on one shard: one exchange of width P = 24 = S_MAX_KERNEL + 1 a step
 // (parallel/halo.py::refresh_halos) fills the halo of the shard's buffer,
-// and one launch computes all s Chebyshev stages, y_new and one partial
-// sum of squared WRMS-scaled errors per thread block over the PHYSICAL
-// cells. The caller max-reduces the spectral-radius bound across the
-// shards before s is chosen, so every shard runs the same s and the same
-// table rows, and adds every shard's partials in a fixed order.
+// and one launch computes all s Chebyshev stages, y_new and the partial
+// sums of squared WRMS-scaled errors over the PHYSICAL cells. The caller
+// max-reduces the spectral-radius bound across the shards before s is
+// chosen, so every shard runs the same s and the same table rows, and adds
+// every shard's partials in a fixed order.
 //
-// The tile scheme is rkc_tile.cuh's one pass over s + 1 rings with the
-// HaloGrid policy
-// (rhs_common.cuh): the tile loads its s + 1 rings from the buffer, no index
-// wraps, and the RHS indexes the shard's halo-padded constants. Mirror-pad
-// cells of a mesh that does not divide the grid step like their sources
-// and stay out of the error sum, as in K8 (fused_shard_step.cu). Only the
-// block of y_new is written.
+// Design: K2's kernel (rkc_chunk.cuh) with the HaloGrid policy: the s + 1
+// evaluations in chunks of at most 6, each a pass over 32x32 tiles with a
+// halo as deep as the chunk, one persistent cooperative launch with a grid
+// barrier between chunks, a point's recurrence values in its thread's
+// registers. The exchange's P >= s + 1 rings hold the block's whole cone
+// of dependence, so the chunks need no exchange of their own: chunk c's
+// tiles cover the block grown by the s + 1 - e1 evaluations still to come,
+// the rings beyond it going wrong from the buffer's edge inwards without
+// reaching the block. Mirror-pad cells of a mesh that does not divide the
+// grid step like their sources and stay out of the error sum, as in K8
+// (fused_shard_step.cu). Only the block of y_new is written. The partial
+// sums are the one-pass tile kernel's that this step first ran on: one a
+// tile of ops/fused_rkc.py::tile_plan (32x32 in f32, 16x8 in f64),
+// anchored at the block's first cell, each added in that kernel's
+// 512-thread order, so that a run takes the same steps.
 //
-// What bounds it on an H100: as K2, the buffer read once and y_new's block
-// written once whatever s; the halo recompute of s + 1 rings a tile and the
-// barriers between stages bound a step long before device memory does.
+// What bounds it on an H100: the buffer read once and y_new's block
+// written once whatever s, the shard's constants read once (12.7 us at
+// (2,3248,848) in f32, 3.35 TB/s); at s = 23 the s + 1 right-hand sides a
+// point bound it (34.5 us at 67 TFLOP/s). The chunked scheme computes at
+// most 24 x 44^2 evaluations a tile at s = 23 (an evaluation skips the
+// rows outside its depth) where the one-pass tile computed 77,200, at two
+// blocks an SM, the operator's coefficients staged in shared memory once
+// a tile; what is left over the bound is the chunks' halo (up to 1.9x at
+// 6 rings), the grid barriers and the hand-off through device memory (12
+// planes of the buffer a chunk boundary).
 
 #include <cuda_runtime.h>
 
 #include "rhs_common.cuh"
-#include "rkc_tile.cuh"
+#include "rkc_chunk.cuh"
 
 namespace {
 
 using crd::HaloGrid;
 using crd::ProfileRhs;
 
+// go(rhs) for the kinetics id
+template <typename T, class F>
+int dispatch(const crd::RhsConstants<T>& k, int kinetics, F go) {
+  if (kinetics == crd::kFhn) return go(ProfileRhs<crd::kFhn, T>{k});
+  if (kinetics == crd::kGoldbeter)
+    return go(ProfileRhs<crd::kGoldbeter, T>{k});
+  return go(ProfileRhs<crd::kAlievPanfilov, T>{k});
+}
+
+// The most tiles a chunk of a step of at most s_cap stages has on an
+// nyl x nxl block: its extent grows by the evaluations still to come after
+// the first chunk (rkc_chunk.cuh::extent_rings).
+int max_tiles(int s_cap, int nyl, int nxl) {
+  int most = 0;
+  for (int s = 2; s <= s_cap; ++s) {
+    const int n = s + 1;
+    const int chunks = (n + crd::kRkcChunk - 1) / crd::kRkcChunk;
+    const int rings = n - n / chunks;
+    const int t = crd::kRkcTile;
+    const int tiles = ((nyl + 2 * rings + t - 1) / t)
+                      * ((nxl + 2 * rings + t - 1) / t);
+    if (tiles > most) most = tiles;
+  }
+  return most;
+}
+
 template <typename T>
-int launch(const void* y, void* y_new, void* ss, const void* h,
+int launch(const void* y, void* y_new, void* ss, void* work, const void* h,
            const void* fz, const void* s, const void* mu1_tab,
            const void* ctab, int s_cap, const void* c0, const void* c1,
            const void* c2, int torus, const void* beta, int beta_field,
            const void* mask, int has_freeze, int kinetics, int nyl, int nxl,
-           int halo, int valid_rows, int valid_cols, int tile_x, int tile_y,
+           int halo, int valid_rows, int valid_cols, int sum_tx, int sum_ty,
            double rtol, double atol, void* stream) {
   if (s_cap < 2 || s_cap > crd::kRkcMaxStages || halo < s_cap + 1
-      || nyl < 1 || nxl < 1 || tile_x < 1 || tile_y < 1
+      || nyl < 1 || nxl < 1 || sum_tx < 1 || sum_ty < 1
       || !crd::valid_kinetics(kinetics) || valid_rows < 0
       || valid_rows > nyl || valid_cols < 0 || valid_cols > nxl)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -54,34 +95,44 @@ int launch(const void* y, void* y_new, void* ss, const void* h,
       static_cast<const T*>(c2), torus, static_cast<const T*>(beta),
       beta_field, static_cast<const T*>(mask), has_freeze};
   const HaloGrid grid = {nyl, nxl, halo, valid_rows, valid_cols};
-  if (kinetics == crd::kFhn)
-    return crd::launch_rkc_tile<ProfileRhs<crd::kFhn, T>, HaloGrid, T>(
-        {k}, grid, y, y_new, ss, h, fz, s, mu1_tab, ctab, s_cap, nyl, nxl,
-        tile_x, tile_y, rtol, atol, stream);
-  if (kinetics == crd::kGoldbeter)
-    return crd::launch_rkc_tile<ProfileRhs<crd::kGoldbeter, T>, HaloGrid, T>(
-        {k}, grid, y, y_new, ss, h, fz, s, mu1_tab, ctab, s_cap, nyl, nxl,
-        tile_x, tile_y, rtol, atol, stream);
-  return crd::launch_rkc_tile<ProfileRhs<crd::kAlievPanfilov, T>, HaloGrid,
-                              T>(
-      {k}, grid, y, y_new, ss, h, fz, s, mu1_tab, ctab, s_cap, nyl, nxl,
-      tile_x, tile_y, rtol, atol, stream);
+  const int sums_x = (nxl + sum_tx - 1) / sum_tx;
+  const crd::RkcPlan plan = {nyl,    nxl,    sum_tx,
+                             sum_ty, sums_x, sums_x * ((nyl + sum_ty - 1)
+                                                       / sum_ty)};
+  const int most = max_tiles(s_cap, nyl, nxl);
+  return dispatch<T>(k, kinetics, [&](auto rhs) {
+    return crd::launch_rkc_chunk<decltype(rhs), HaloGrid, T>(
+        rhs, grid, plan, most, y, y_new, ss, work, h, fz, s, mu1_tab, ctab,
+        s_cap, rtol, atol, stream);
+  });
+}
+
+// crd::rkc_chunk_info of the kernel of `kinetics` in T
+template <typename T>
+int info(int kinetics, int* out) {
+  if (!crd::valid_kinetics(kinetics))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<T>(crd::RhsConstants<T>{}, kinetics, [&](auto rhs) {
+    return crd::rkc_chunk_info<decltype(rhs), HaloGrid, T>(out);
+  });
 }
 
 }  // namespace
 
+// work: ten planes of the buffer's shape; (sum_tx, sum_ty): the partial
+// sums' tiles, each dividing 32
 #define CRD_FUSED_SHARD_RKC_ARGS                                             \
-  const void *y, void *y_new, void *ss, const void *h, const void *fz,      \
-      const void *s, const void *mu1_tab, const void *ctab, int s_cap,      \
-      const void *c0, const void *c1, const void *c2, int torus,            \
+  const void *y, void *y_new, void *ss, void *work, const void *h,          \
+      const void *fz, const void *s, const void *mu1_tab, const void *ctab, \
+      int s_cap, const void *c0, const void *c1, const void *c2, int torus, \
       const void *beta, int beta_field, const void *mask, int has_freeze,   \
       int kinetics, int nyl, int nxl, int halo, int valid_rows,             \
-      int valid_cols, int tile_x, int tile_y, double rtol, double atol,     \
+      int valid_cols, int sum_tx, int sum_ty, double rtol, double atol,     \
       void *stream
 #define CRD_FUSED_SHARD_RKC_PASS                                             \
-  y, y_new, ss, h, fz, s, mu1_tab, ctab, s_cap, c0, c1, c2, torus, beta,    \
-      beta_field, mask, has_freeze, kinetics, nyl, nxl, halo, valid_rows,   \
-      valid_cols, tile_x, tile_y, rtol, atol, stream
+  y, y_new, ss, work, h, fz, s, mu1_tab, ctab, s_cap, c0, c1, c2, torus,    \
+      beta, beta_field, mask, has_freeze, kinetics, nyl, nxl, halo,         \
+      valid_rows, valid_cols, sum_tx, sum_ty, rtol, atol, stream
 
 extern "C" int crd_fused_shard_rkc_step_f32(CRD_FUSED_SHARD_RKC_ARGS) {
   return launch<float>(CRD_FUSED_SHARD_RKC_PASS);
@@ -89,4 +140,8 @@ extern "C" int crd_fused_shard_rkc_step_f32(CRD_FUSED_SHARD_RKC_ARGS) {
 
 extern "C" int crd_fused_shard_rkc_step_f64(CRD_FUSED_SHARD_RKC_ARGS) {
   return launch<double>(CRD_FUSED_SHARD_RKC_PASS);
+}
+
+extern "C" int crd_fused_shard_rkc_info(int f64, int kinetics, int* out) {
+  return f64 ? info<double>(kinetics, out) : info<float>(kinetics, out);
 }

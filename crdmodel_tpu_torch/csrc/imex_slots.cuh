@@ -1,0 +1,497 @@
+// The register-resident tile scheme of the port's fused IMEX ARK3(2)4L[2]SA
+// step: K10 (fused_shard_imex.cu, one shard's block in the halo the
+// exchange filled, HaloGrid); written over the grid policy (SlotOrigin,
+// tile_slots.cuh), so that K3 (fused_imex.cu, WrapGrid, on imex_tile.cuh's
+// one-pass scheme today) can take it.
+//
+// One launch performs a whole additive Runge-Kutta step
+// (integrate/imex.py::make_imex_step_err), as imex_tile.cuh's kernel does,
+// on the same 32x32 tiles with 4 rings, and writes the same y_new and the
+// same partial sums, bit for bit: the 4 explicit stencil evaluations
+// kE_i = f_ex(Y_i); the 3 implicit stages, each solving
+// Y = rhs_known + (h gamma) f_im(Y) at every point by 3 full Newton
+// iterations (closed-form 2x2 Jacobian, residual, Cramer solve with IEEE
+// divisions); kI_i = (Y_i - rhs_known_i)/(h gamma); y_new = y0 +
+// sum (h B_j)(kE_j + kI_j); err = sum (h D_j)(kE_j + kI_j); and one partial
+// sum a tile of sum (err w)^2 + (1/NEWTON_TOL)^2 sum_stages (dy w)^2, with
+// w = 1/(rtol |y0| + atol) and dy each stage's last Newton update, over the
+// points the grid counts. A zero determinant gives NaN, which reaches the
+// sum (a rejected step): nothing is masked.
+//
+// What differs from imex_tile.cuh is where the values live. A block of
+// kImexSlotThreads threads owns a tile; each thread is fixed to two points
+// of the tile (q = t and t + 512) and to at most one point of the 3 rings
+// around it that the Newton also runs on (420 points: the stage values
+// there feed the stencils of the later stages; stage s runs on the rings
+// at depth >= s, as in imex_tile.cuh, the rings ordered by depth so that
+// whole warps skip), for the whole launch; the outer ring, which only the
+// first stencil reads, is loaded by threads of its own. A point's pointwise state stays in its thread's registers: the
+// rhs_known of the stages to come, each accumulated as its terms become
+// known (j order, AE before AI within a j, as imex_stages_reference), the
+// predictor's kI of the stage before, and on the tile the weights and the
+// update's and the error's sums (B and D in j order). Only what a stencil
+// reads at neighbours goes through shared memory: y0's u and the stage
+// value of variable 0, three planes of the 40x40 region in all, one block
+// barrier a stage. The operator's coefficients (the three profiles of the
+// region's columns, beta and live of its rows) and the tableau's products
+// h AE, h AI, h B, h D are staged in shared memory once a block, the
+// tableau from T values prepared on the host; the zero pattern of
+// ARK3(2)4L[2]SA (every AE and AI entry below the diagonal, every B and D
+// non-zero) is the kernel's at compile time, and the launcher refuses a
+// tableau of another pattern. Each point's arithmetic follows the plain
+// version (ops/fused_imex.py::imex_stages_reference) operation for
+// operation, and the library is built with -fmad=false.
+//
+// The partial sums keep imex_tile.cuh's order, so that the Newton's share
+// of the convergence test, which rides the cross-shard error sum, and with
+// it a run's steps, do not move: the squared scaled Newton updates of the
+// three stages and the squared scaled errors of the tile's points are
+// staged in shared memory, and threads 0..255 replay what imex_tile.cuh's
+// 256 threads added: thread t its Newton points of stage s in the strided
+// order over the (40 - 2s)^2 region, restricted to the tile's counted
+// cells, then its tile points (stride 256, u then v), then acc + 100 dacc;
+// the block's reduction adds the other warps' +0.0 (exact).
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <type_traits>
+
+#include "imex_tile.cuh"
+#include "rhs_common.cuh"
+#include "tile_slots.cuh"
+
+namespace crd {
+
+constexpr int kImexSlotThreads = 512;   // ops/fused_shard_imex.py THREADS
+constexpr int kImexTile = 32;           // ops/fused_imex.py TILE
+constexpr int kImexRegW = kImexTile + 2 * kImexHalo;    // 40
+constexpr int kImexRegion = kImexRegW * kImexRegW;      // 1600 points
+constexpr int kImexTilePoints = kImexTile * kImexTile;  // 1024
+// the Newton's rings around the tile (depth 1..3), one point a thread
+constexpr int kImexRing = (kImexRegW - 2) * (kImexRegW - 2) - kImexTilePoints;
+constexpr int kImexOuter = 4 * (kImexRegW - 1);         // depth 0: 156
+// the stages' staged terms: the Newton updates of 3 stages and the errors,
+// two variables each, on the tile
+constexpr int kImexStaged = 2 * kImexStages * kImexTilePoints;
+static_assert(kImexTilePoints == 2 * kImexSlotThreads, "two tile slots");
+static_assert(kImexRing <= kImexSlotThreads, "one ring slot");
+static_assert(kImexOuter <= kImexSlotThreads, "one outer point a thread");
+
+// f32: two blocks an SM (at most 64 registers); f64: one
+template <typename T>
+constexpr int kImexMinBlocks = sizeof(T) == 4 ? 2 : 1;
+
+// dynamic shared memory (in T): y0's u and two stage planes of the region,
+// the staged terms (ops/fused_shard_imex.py::slots_plan)
+constexpr int kImexSlotElements = 3 * kImexRegion + kImexStaged;
+
+// The tableau in T, prepared on the host (rows and columns as ImexTable's)
+template <typename T>
+struct ImexCoeffs {
+  T ae[kImexStages][kImexStages];
+  T ai[kImexStages][kImexStages];
+  T b[kImexStages];
+  T d[kImexStages];
+  T gamma;
+};
+
+// The pattern the kernel takes at compile time: every AE and AI entry
+// below the diagonal, every B and D non-zero (ARK3(2)4L[2]SA's); the T
+// values of `tab` into *out.
+template <typename T>
+inline bool imex_slots_take(const ImexTable& tab, ImexCoeffs<T>* out) {
+  *out = {};
+  for (int s = 0; s < kImexStages; ++s) {
+    for (int j = 0; j < s; ++j) {
+      if (tab.ae[s][j] == 0.0 || tab.ai[s][j] == 0.0) return false;
+      out->ae[s][j] = static_cast<T>(tab.ae[s][j]);
+      out->ai[s][j] = static_cast<T>(tab.ai[s][j]);
+    }
+    if (tab.b[s] == 0.0 || tab.d[s] == 0.0) return false;
+    out->b[s] = static_cast<T>(tab.b[s]);
+    out->d[s] = static_cast<T>(tab.d[s]);
+  }
+  out->gamma = static_cast<T>(tab.gamma);
+  return true;
+}
+
+// the local index of point i of the region's square ring at depth d
+__device__ __forceinline__ int imex_ring_point(int d, int i) {
+  constexpr int W = kImexRegW;
+  const int L = W - 2 * d;
+  if (i < L) return d * W + d + i;                        // first row
+  if (i < 2 * L) return (d + L - 1) * W + d + i - L;      // last row
+  const int j = i - 2 * L;
+  return (d + 1 + j / 2) * W + ((j & 1) ? d + L - 1 : d);
+}
+
+// the points of the square ring at depth d of the region
+__host__ __device__ constexpr int imex_ring_size(int d) {
+  return 4 * (kImexRegW - 2 * d - 1);
+}
+
+// The Newton of one implicit stage at one point: Y = rhs_known +
+// (h gamma) f_im(Y) from the predictor (Yu, Yv), the last update in
+// (du, dv); imex_tile.cuh's arithmetic, operation for operation.
+template <int Kin, typename T>
+__device__ __forceinline__ void imex_newton(T hg, T ru, T rv, T b, T live,
+                                            bool freeze, T& Yu, T& Yv, T& du,
+                                            T& dv) {
+  du = T(0);
+  dv = T(0);
+#pragma unroll 1
+  for (int it = 0; it < kImexNewtonIters; ++it) {
+    T j00, j01, j10, j11, fu, fv;
+    jacobian<Kin>(Yu, Yv, b, j00, j01, j10, j11);
+    kinetics<Kin>(Yu, Yv, b, fu, fv);
+    if (freeze) {
+      j00 = j00 * live;
+      j01 = j01 * live;
+      j10 = j10 * live;
+      j11 = j11 * live;
+      fu = fu * live;
+      fv = fv * live;
+    }
+    const T m00 = T(1) - hg * j00, m01 = T(0) - hg * j01;
+    const T m10 = T(0) - hg * j10, m11 = T(1) - hg * j11;
+    const T r0 = -((Yu - hg * fu) - ru);
+    const T r1 = -((Yv - hg * fv) - rv);
+    const T det = m00 * m11 - m01 * m10;
+    du = (m11 * r0 - m01 * r1) / det;
+    dv = (m00 * r1 - m10 * r0) / det;
+    Yu = Yu + du;
+    Yv = Yv + dv;
+  }
+}
+
+// One step over the extent the grid's tiles cover (the grid's, or the
+// shard's block), a 32x32 tile a block.
+template <int Kin, class Grid, typename T>
+__global__ void __launch_bounds__(kImexSlotThreads, (kImexMinBlocks<T>))
+    fused_imex_slots_kernel(const T* __restrict__ y, T* __restrict__ y_new,
+                            T* __restrict__ ss, const T* __restrict__ h_ptr,
+                            const T* __restrict__ fz_ptr, RhsConstants<T> k,
+                            Grid grid, ImexCoeffs<T> tab, T rtol, T atol) {
+  constexpr int NS = kImexStages;
+  constexpr int W = kImexRegW;
+  constexpr int kTile = kImexTile;
+  constexpr int kTP = kImexTilePoints;
+  constexpr int kT = kImexSlotThreads;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T warp_sums[kT / 32];
+  // h times the tableau's entries, formed once a block
+  __shared__ T hae[NS][NS], hai[NS][NS], hb[NS], hd[NS];
+  // the profile operator's coefficients of the region's columns (c0, c1,
+  // c2) and rows (beta, live), read once a block
+  __shared__ T colc[3][W], rowc[2][W];
+  T* const u0s = reinterpret_cast<T*>(smem_raw);   // y0's u on the region
+  T* const ys[2] = {u0s + kImexRegion,             // the stage value's u:
+                    u0s + 2 * kImexRegion};        // stages 1, 3 / 2
+  // the staged terms: dy2[(s - 1) * 2 + var][q] and e2[var][q] on the tile
+  T* const dy2 = u0s + 3 * kImexRegion;
+  T* const e2 = dy2 + 2 * (NS - 1) * kTP;
+  const SlotOrigin<Grid> o(grid, blockIdx.y * kTile, blockIdx.x * kTile,
+                           kImexHalo, W, W);
+  const size_t plane = o.plane();
+  const T h = *h_ptr;
+  const T fz = k.has_freeze ? *fz_ptr : T(0);
+  const T hg = h * tab.gamma;
+  const bool freeze = k.has_freeze != 0;
+  if (threadIdx.x < NS) {
+    const int s = threadIdx.x;
+    for (int j = 0; j < s; ++j) {
+      hae[s][j] = h * tab.ae[s][j];
+      hai[s][j] = h * tab.ai[s][j];
+    }
+    hb[s] = h * tab.b[s];
+    hd[s] = h * tab.d[s];
+  }
+  // thread t's Newton ring point: the rings at depth 1, 2, 3 in turn, so
+  // that the warps whose points a stage no longer needs skip it whole
+  const int t = threadIdx.x;
+  constexpr int kD1 = imex_ring_size(1), kD2 = kD1 + imex_ring_size(2);
+  const int ring_depth = t < kD1 ? 1 : t < kD2 ? 2 : t < kImexRing ? 3 : 0;
+  const int ring_p = imex_ring_point(
+      ring_depth > 0 ? ring_depth : 1,
+      t < kD1 ? t : t < kD2 ? t - kD1 : t < kImexRing ? t - kD2 : 0);
+
+  // the step on the tile; kIn: the region lies inside the grid
+  const auto step = [&](auto inner) {
+    constexpr bool kIn = decltype(inner)::value;
+    const auto row = [&](int p) { return o.template row<kIn>(p / W); };
+    const auto col = [&](int p) { return o.template col<kIn>(p % W); };
+    const auto at = [&](int p) {
+      return static_cast<size_t>(row(p)) * o.ld() + col(p);
+    };
+    // the slots: 0 and 1 on the tile, 2 on the Newton's rings
+    constexpr int S = 3;
+    int pt[S];
+    pt[0] = (kImexHalo + (t >> 5)) * W + kImexHalo + (t & 31);
+    pt[1] = pt[0] + (kT / kTile) * W;
+    pt[2] = ring_p;
+    // slot m is needed by what runs on the points `depth` or more rings in
+    const auto live_slot = [&](int m, int depth) {
+      return m < 2 || ring_depth >= depth;
+    };
+    // the coefficients, the columns by threads 0..W-1 and the rows by
+    // threads 64..64+W-1
+    if (t < W) {
+      const int c = k.torus ? o.template col<kIn>(t) : 0;
+      colc[0][t] = k.c0[c];
+      colc[1][t] = k.c1[c];
+      colc[2][t] = k.c2[c];
+    } else if (t >= 64 && t < 64 + W) {
+      const int r = o.template row<kIn>(t - 64);
+      rowc[0][t - 64] = beta_at(k, r);
+      rowc[1][t - 64] = freeze ? live_at(k, fz, r) : T(1);
+    }
+    // the operator at local point p on the plane su, from the staged
+    // coefficients
+    const auto lap_at = [&](const T* su, int p) {
+      const int lx = p % W;
+      return profile_lap_of(colc[0][lx], colc[1][lx], colc[2][lx],
+                            k.torus != 0, su, p, W);
+    };
+    // the step's start: u on the region, the outer ring by the first
+    // kImexOuter threads, the slots' points by their own threads
+    if (t < kImexOuter) {
+      const int p = imex_ring_point(0, t);
+      u0s[p] = y[at(p)];
+    }
+    T v0[S];
+#pragma unroll
+    for (int m = 0; m < S; ++m) {
+      v0[m] = T(0);
+      if (!live_slot(m, 1)) continue;
+      const size_t g = at(pt[m]);
+      u0s[pt[m]] = y[g];
+      v0[m] = y[plane + g];
+    }
+    __syncthreads();
+
+    // rhs_known of stages 1..3, the predictor's kI, and on the tile the
+    // weights and the update's and the error's sums
+    T rku[S][NS - 1], rkv[S][NS - 1], kiu[S], kiv[S];
+    T wu[2], wv[2], nu[2], nv[2], eu[2], ev[2];
+    // stage 0: kE_0 = f_ex(y0), kI_0 = f_im(y0)
+#pragma unroll
+    for (int m = 0; m < S; ++m) {
+      if (!live_slot(m, 1)) continue;
+      const int p = pt[m];
+      const int ly = p / W;
+      const T u0 = u0s[p];
+      T lap = lap_at(u0s, p);
+      T fu, fv;
+      kinetics<Kin>(u0, v0[m], rowc[0][ly], fu, fv);
+      if (freeze) {
+        const T live = rowc[1][ly];
+        lap = lap * live;
+        fu = fu * live;
+        fv = fv * live;
+      }
+#pragma unroll
+      for (int s = 1; s < NS; ++s) {
+        rku[m][s - 1] = u0 + hae[s][0] * lap;
+        rku[m][s - 1] = rku[m][s - 1] + hai[s][0] * fu;
+        rkv[m][s - 1] = v0[m] + hai[s][0] * fv;
+      }
+      kiu[m] = fu;
+      kiv[m] = fv;
+      if (m < 2) {
+        wu[m] = T(1) / (rtol * fabs(u0) + atol);
+        wv[m] = T(1) / (rtol * fabs(v0[m]) + atol);
+        const T ksu = lap + fu;
+        nu[m] = u0 + hb[0] * ksu;
+        nv[m] = v0[m] + hb[0] * fv;
+        eu[m] = T(0) + hd[0] * ksu;
+        ev[m] = T(0) + hd[0] * fv;
+      }
+    }
+
+    // implicit stages s = 1..3, each followed by its explicit evaluation
+    // (kE_3 on the tile after the loop)
+#pragma unroll
+    for (int s = 1; s < NS; ++s) {
+      T* const yp = ys[(s - 1) & 1];
+#pragma unroll
+      for (int m = 0; m < S; ++m) {
+        if (!live_slot(m, s)) continue;
+        const int p = pt[m];
+        const int ly = p / W;
+        const T ru = rku[m][s - 1], rv = rkv[m][s - 1];
+        T Yu = ru + hg * kiu[m];
+        T Yv = rv + hg * kiv[m];
+        T du, dv;
+        imex_newton<Kin>(hg, ru, rv, rowc[0][ly], rowc[1][ly], freeze, Yu,
+                         Yv, du, dv);
+        yp[p] = Yu;
+        kiu[m] = (Yu - ru) / hg;
+        kiv[m] = (Yv - rv) / hg;
+        if (m < 2) {
+          const int q = t + kT * m;
+          const int ly = p / W, lx = p % W;
+          const bool on = o.in_block(ly, lx) && o.counted(ly, lx);
+          const T su = du * wu[m], sv = dv * wv[m];
+          dy2[(2 * s - 2) * kTP + q] = on ? su * su : T(0);
+          dy2[(2 * s - 1) * kTP + q] = on ? sv * sv : T(0);
+        }
+      }
+      __syncthreads();
+      if (s == NS - 1) break;
+      // kE_s on the slots, into the later stages' rhs_known and the sums
+#pragma unroll
+      for (int m = 0; m < S; ++m) {
+        if (!live_slot(m, s + 1)) continue;
+        const int p = pt[m];
+        T lap = lap_at(yp, p);
+        if (freeze) lap = lap * rowc[1][p / W];
+#pragma unroll
+        for (int r = s + 1; r < NS; ++r) {
+          rku[m][r - 1] = rku[m][r - 1] + hae[r][s] * lap;
+          rku[m][r - 1] = rku[m][r - 1] + hai[r][s] * kiu[m];
+          rkv[m][r - 1] = rkv[m][r - 1] + hai[r][s] * kiv[m];
+        }
+        if (m < 2) {
+          const T ksu = lap + kiu[m];
+          nu[m] = nu[m] + hb[s] * ksu;
+          nv[m] = nv[m] + hb[s] * kiv[m];
+          eu[m] = eu[m] + hd[s] * ksu;
+          ev[m] = ev[m] + hd[s] * kiv[m];
+        }
+      }
+    }
+
+    // kE_3, y_new and the error on the tile
+    const T* const y3 = ys[(NS - 2) & 1];
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int p = pt[m];
+      const int q = t + kT * m;
+      const int ly = p / W, lx = p % W;
+      if (!o.in_block(ly, lx)) {   // adds +0.0 below: exact
+        e2[q] = T(0);
+        e2[kTP + q] = T(0);
+        continue;
+      }
+      T lap = lap_at(y3, p);
+      if (freeze) lap = lap * rowc[1][ly];
+      const T ksu = lap + kiu[m];
+      const T fu = nu[m] + hb[NS - 1] * ksu;
+      const T fv = nv[m] + hb[NS - 1] * kiv[m];
+      const T gu = eu[m] + hd[NS - 1] * ksu;
+      const T gv = ev[m] + hd[NS - 1] * kiv[m];
+      const size_t g = at(p);
+      y_new[g] = fu;
+      y_new[plane + g] = fv;
+      if (!o.counted(ly, lx)) {    // a pad cell of a padded mesh
+        e2[q] = T(0);
+        e2[kTP + q] = T(0);
+        continue;
+      }
+      const T au = gu * wu[m], av = gv * wv[m];
+      e2[q] = au * au;
+      e2[kTP + q] = av * av;
+    }
+  };
+  if (o.inner)
+    step(std::true_type{});
+  else
+    step(std::false_type{});
+  __syncthreads();
+
+  // the partial sum in imex_tile.cuh's order: its 256 threads add their
+  // Newton points of each stage in the strided order over the stage's
+  // region, restricted to the tile, then their tile points; the others
+  // add +0.0 (exact)
+  T acc = T(0);
+  if (t < kImexThreads) {
+    T dacc = T(0);
+#pragma unroll
+    for (int s = 1; s < NS; ++s) {
+      const int w = W - 2 * s;
+      for (int q = t; q < w * w; q += kImexThreads) {
+        const int ty = s + q / w - kImexHalo, tx = s + q % w - kImexHalo;
+        if (ty < 0 || ty >= kTile || tx < 0 || tx >= kTile) continue;
+        const int i = ty * kTile + tx;
+        dacc = dacc + dy2[(2 * s - 2) * kTP + i];
+        dacc = dacc + dy2[(2 * s - 1) * kTP + i];
+      }
+    }
+    for (int q = t; q < kTP; q += kImexThreads) {
+      acc = acc + e2[q];
+      acc = acc + e2[kTP + q];
+    }
+    acc = acc + static_cast<T>(kImexNewtonPenalty) * dacc;
+  }
+  store_block_sum<T, kT>(acc, warp_sums, ss);
+}
+
+template <typename T>
+constexpr size_t imex_slots_smem() {
+  return static_cast<size_t>(kImexSlotElements) * sizeof(T);
+}
+
+// The kernel of `kinetics` for a Grid and T
+template <class Grid, typename T>
+auto imex_slots_kernel(int kinetics) {
+  return kinetics == kFhn ? &fused_imex_slots_kernel<kFhn, Grid, T>
+         : kinetics == kGoldbeter
+             ? &fused_imex_slots_kernel<kGoldbeter, Grid, T>
+             : &fused_imex_slots_kernel<kAlievPanfilov, Grid, T>;
+}
+
+// Launch one step of fused_imex_slots_kernel over ny x nx points of `grid`
+// on `stream` with the kinetics `kinetics`, on 32x32 tiles; returns the
+// CUDA error code (0 on success), checked right after the launch. A
+// tableau of another zero pattern than the kernel's is refused.
+template <class Grid, typename T>
+int launch_imex_slots(Grid grid, const void* y, void* y_new, void* ss,
+                      const void* h, const void* fz, const RhsConstants<T>& k,
+                      int kinetics, int ny, int nx, const ImexTable& table,
+                      double rtol, double atol, void* stream) {
+  ImexCoeffs<T> tab;
+  if (ny < 1 || nx < 1 || !valid_kinetics(kinetics)
+      || !imex_slots_take(table, &tab))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = imex_slots_kernel<Grid, T>(kinetics);
+  const size_t smem = imex_slots_smem<T>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 blocks((nx + kImexTile - 1) / kImexTile,
+                    (ny + kImexTile - 1) / kImexTile);
+  kernel<<<blocks, kImexSlotThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(y), static_cast<T*>(y_new), static_cast<T*>(ss),
+      static_cast<const T*>(h), static_cast<const T*>(fz), k, grid, tab,
+      static_cast<T>(rtol), static_cast<T>(atol));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out[0] the resident blocks an SM, out[1] the registers a thread, out[2]
+// the shared bytes a block (static and dynamic) of the kernel of
+// `kinetics` for a Grid and T; returns the CUDA error code.
+template <class Grid, typename T>
+int imex_slots_info(int kinetics, int* out) {
+  if (!valid_kinetics(kinetics))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = imex_slots_kernel<Grid, T>(kinetics);
+  const size_t smem = imex_slots_smem<T>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, kernel, kImexSlotThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[1] = attr.numRegs;
+  out[2] = static_cast<int>(attr.sharedSizeBytes + smem);
+  return 0;
+}
+
+}  // namespace crd

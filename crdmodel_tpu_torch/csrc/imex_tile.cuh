@@ -1,10 +1,11 @@
-// The tile scheme of the port's fused IMEX ARK3(2)4L[2]SA step kernels: K3
-// (fused_imex.cu, the periodic grid) and K10 (fused_shard_imex.cu, K3 on one
-// shard of a mesh). They differ only in the grid the tile reads, a policy
-// the kernel template takes (rhs_common.cuh): WrapGrid, whose halo is a
-// modular index at load (K3), or HaloGrid, one shard's block inside a halo
-// the exchange filled (K10), whose mirror-pad cells counted() leaves out of
-// both parts of the partial sum.
+// The one-pass tile scheme of the port's fused IMEX ARK3(2)4L[2]SA step
+// kernel K3 (fused_imex.cu, the periodic grid). Its grid policy is a
+// template parameter (rhs_common.cuh): WrapGrid, whose halo is a modular
+// index at load, or HaloGrid, one shard's block inside a halo the exchange
+// filled, whose mirror-pad cells counted() leaves out of both parts of the
+// partial sum. K10's register-resident scheme (imex_slots.cuh) shares its
+// tableau (ImexTable) and constants and keeps its partial sums' order bit
+// for bit.
 //
 // One launch performs a whole additive Runge-Kutta step
 // (integrate/imex.py::make_imex_step_err): the 4 explicit stencil

@@ -178,6 +178,21 @@ __device__ __forceinline__ T profile_lap(const RhsConstants<T>& k,
   return k.c0[0] * (uw + ue) + k.c1[0] * (us + un) + k.c2[0] * u;
 }
 
+// profile_lap on the coefficients c0, c1, c2 read before (those of p's
+// column on the torus, the scalars on the flat surface): the same
+// operations in the same order
+template <typename T>
+__device__ __forceinline__ T profile_lap_of(T c0, T c1, T c2, bool torus,
+                                            const T* su, int p, int W) {
+  const T u = su[p];
+  const T uw = su[p - 1], ue = su[p + 1];
+  const T us = su[p - W], un = su[p + W];
+  if (torus)
+    return c0 * (ue - uw) + c1 * (ue - T(2) * u + uw)
+           + c2 * (un - T(2) * u + us);
+  return c0 * (uw + ue) + c1 * (us + un) + c2 * u;
+}
+
 template <typename T>
 __device__ __forceinline__ T beta_at(const RhsConstants<T>& k, int gy) {
   return k.beta_field ? k.beta[gy] : k.beta[0];
@@ -302,14 +317,9 @@ template <int Kin, typename T>
 __device__ __forceinline__ void profile_point_rhs(
     const ProfilePoint<T>& c, bool torus, bool freeze, const T* su, T v,
     int p, int W, T& du_out, T& dv_out) {
-  const T u = su[p];
-  const T uw = su[p - 1], ue = su[p + 1];
-  const T us = su[p - W], un = su[p + W];
-  const T lap = torus ? c.c0 * (ue - uw) + c.c1 * (ue - T(2) * u + uw)
-                            + c.c2 * (un - T(2) * u + us)
-                      : c.c0 * (uw + ue) + c.c1 * (us + un) + c.c2 * u;
+  const T lap = profile_lap_of(c.c0, c.c1, c.c2, torus, su, p, W);
   T du, dv;
-  kinetics<Kin>(u, v, c.beta, du, dv);
+  kinetics<Kin>(su[p], v, c.beta, du, dv);
   du = du + lap;
   if (freeze) {
     du = du * c.live;

@@ -74,7 +74,10 @@ _FUSED_SHARD_BOX3D_RKC_ARGTYPES = (_BOX_HEAD + [_VOIDP] * 3 + [_INT] * 4
 _FUSED_SHARD_STEP_ARGTYPES = ([_VOIDP] * 8 + [_INT, _VOIDP, _INT, _VOIDP]
                               + [_INT] * 10 + [_DOUBLEP] * 3
                               + [_DOUBLE, _DOUBLE, _VOIDP])
-_FUSED_SHARD_RKC_ARGTYPES = ([_VOIDP] * 8 + [_INT] + [_VOIDP] * 3
+# K9: K2's head (y, y_new, ss, work, h, fz, s, mu1_tab, ctab; s_cap), the
+# profile operator, then has_freeze, kinetics, nyl, nxl, halo, valid_rows,
+# valid_cols and the sum tiles' sum_tx, sum_ty
+_FUSED_SHARD_RKC_ARGTYPES = ([_VOIDP] * 9 + [_INT] + [_VOIDP] * 3
                              + [_INT, _VOIDP, _INT, _VOIDP] + [_INT] * 9
                              + [_DOUBLE, _DOUBLE, _VOIDP])
 _FUSED_SHARD_IMEX_ARGTYPES = ([_VOIDP] * 8 + [_INT, _VOIDP, _INT, _VOIDP]
@@ -127,6 +130,8 @@ SIGNATURES = {
     "crd_fused_erk_step_info": [_INT] * 2 + [_INTP],
     "crd_fused_divform_info": [_INT] * 2 + [_INTP],
     "crd_fused_shard_step_info": [_INT] * 2 + [_INTP],
+    "crd_fused_shard_rkc_info": [_INT] * 2 + [_INTP],
+    "crd_fused_shard_imex_info": [_INT] * 2 + [_INTP],
     "crd_fused_shard_divform_info": [_INT] * 3 + [_INTP],
 }
 

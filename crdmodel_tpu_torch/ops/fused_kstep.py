@@ -148,19 +148,30 @@ def tile_error_sums(err, y, rtol: float, atol: float, tile_y: int,
     sq = torch.nn.functional.pad(sq, (0, pad_x, 0, pad_y))
     n_ty, n_tx = (ny + pad_y) // tile_y, (nx + pad_x) // tile_x
     per_tile = tile_y * tile_x
+    slots = -(-per_tile // threads)
     pts = (sq.reshape(2, n_ty, tile_y, n_tx, tile_x).permute(0, 1, 3, 2, 4)
-           .reshape(2, n_ty * n_tx, -(-per_tile // threads), threads))
+           .reshape(2, n_ty * n_tx, per_tile))
+    # a tile smaller than the block: its last threads add +0.0 (exact)
+    pts = torch.nn.functional.pad(pts, (0, slots * threads - per_tile))
+    pts = pts.reshape(2, n_ty * n_tx, slots, threads)
     acc = torch.zeros_like(pts[0, :, 0])
     for m in range(pts.shape[2]):
         acc = acc + pts[0, :, m]
         acc = acc + pts[1, :, m]
-    acc = acc.reshape(acc.shape[0], threads // 32, 32)
+    return block_sums(acc)
+
+
+def block_sums(acc):
+    """(n,) the sums of n blocks' per-thread values acc (n, threads) in the
+    kernels' order (rhs_common.cuh::store_block_sum): a warp-shuffle tree
+    in each warp of 32 threads, then the warps' sums in order."""
+    acc = acc.reshape(acc.shape[0], acc.shape[1] // 32, 32)
     off = 16
     while off:
         acc = acc[..., :off] + acc[..., off:2 * off]
         off //= 2
     total = torch.zeros_like(acc[:, 0, 0])
-    for w in range(threads // 32):
+    for w in range(acc.shape[1]):
         total = total + acc[:, w, 0]
     return total
 

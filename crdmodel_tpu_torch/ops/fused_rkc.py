@@ -66,8 +66,9 @@ from crdmodel_tpu_torch.ops.kernel_common import (SMEM_BYTES,
                                                   south_is_rolled_north)
 
 S_MAX_KERNEL = 23              # the TPU kernel's halo P=24 less one
-# K9's one-pass tiles (ops/fused_shard_rkc.py, csrc/rkc_tile.cuh):
-# (tile_x, tile_y) candidates, best first: larger tiles recompute less halo
+# the tiles of the one-pass RKC kernel the shard step first ran on, which
+# define K9's partial sums (tile_plan): (tile_x, tile_y) candidates, best
+# first
 TILES = ((32, 32), (32, 16), (16, 16), (16, 8), (8, 8))
 # K2's chunked tiles (csrc/fused_rkc.cu): the most RHS evaluations a chunk
 # takes (its halo's rings), the square tile's side, the block's threads,
@@ -129,15 +130,17 @@ def grid_barriers(s: int) -> int:
 
 
 def chunk_plan(itemsize: int):
-    """(tile, halo, slots, shared bytes) of K2's blocks: a CHUNK_TILE-square
-    tile with a CHUNK-ring halo, each of the block's CHUNK_THREADS threads
-    owning `slots` of the region's points, and CHUNK_PLANES planes of the
-    region in dynamic shared memory, each with a guard of a row and a
-    point on either side (csrc/tile_slots.cuh), plus the warps' sums and
-    the tile's squared errors, two variables, in static shared memory."""
+    """(tile, halo, slots, shared bytes) of K2's (and K9's) blocks: a
+    CHUNK_TILE-square tile with a CHUNK-ring halo, each of the block's
+    CHUNK_THREADS threads owning `slots` of the region's points, and
+    CHUNK_PLANES planes of the region in dynamic shared memory, each with a
+    guard of a row and a point on either side (csrc/tile_slots.cuh), and
+    the profile operator's coefficients of the region's columns (three)
+    and rows (beta and live); plus the warps' sums and the tile's squared
+    errors, two variables, in static shared memory."""
     side = CHUNK_TILE + 2 * CHUNK
     slots = -(-side * side // CHUNK_THREADS)
-    smem = (CHUNK_PLANES * (side * side + 2 * (side + 1))
+    smem = (CHUNK_PLANES * (side * side + 2 * (side + 1)) + 5 * side
             + CHUNK_THREADS // 32 + 2 * CHUNK_TILE ** 2) * itemsize
     return CHUNK_TILE, CHUNK, slots, smem
 
@@ -158,9 +161,12 @@ def kernel_info(dtype, divform: bool, kinetics_id: int) -> dict:
 
 
 def tile_plan(halo: int, itemsize: int):
-    """(tile_x, tile_y, shared bytes) of K9's one-pass tiles: the first of
-    TILES whose four live buffers (y0, F0, Y_{j-1}, Y_{j-2}), two variables
-    each, with a `halo`-ring border fit in shared memory."""
+    """(tile_x, tile_y, shared bytes) of the one-pass RKC tile the shard
+    step first ran on: the first of TILES whose four live buffers (y0, F0,
+    Y_{j-1}, Y_{j-2}), two variables each, with a `halo`-ring border fit in
+    shared memory. No kernel runs these tiles now; they define K9's partial
+    sums (fused_shard_rkc.sum_tiles), so that a sharded run's error sums,
+    and its steps, stay those of that kernel."""
     for tile_x, tile_y in TILES:
         smem = 8 * (tile_x + 2 * halo) * (tile_y + 2 * halo) * itemsize
         if smem <= SMEM_BYTES - 1024:       # room for the static reduction

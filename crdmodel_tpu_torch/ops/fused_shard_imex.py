@@ -5,18 +5,22 @@ K3 (ops/fused_imex.py) per shard: one exchange of width HALO a step fills
 the halo of every shard's buffer (parallel/halo.py::refresh_halos), then
 one launch a shard computes the 4 explicit profile-stencil evaluations,
 the 3 implicit stages (3 full Newton iterations at every point, shard-local:
-the kinetics are pointwise), the update, and per-block partial sums of the
+the kinetics are pointwise), the update, and per-tile partial sums of the
 squared WRMS-scaled error plus (1/NEWTON_TOL)^2 times the squared scaled
 last Newton updates, both over the shard's PHYSICAL cells
-(csrc/fused_shard_imex.cu). The adaptive loop adds every shard's sums in a
-fixed order (parallel/sharded.py::make_reduce), so the Newton convergence
-test rides the same cross-shard sum as the error, and every shard takes the
-same steps.
+(csrc/fused_shard_imex.cu on csrc/imex_slots.cuh: THREADS threads fixed to
+a 32x32 tile and its Newton rings, a point's pointwise state in its
+thread's registers, the partial sums in K3's 256-thread order). The
+adaptive loop adds every shard's sums in a fixed order
+(parallel/sharded.py::make_reduce), so the Newton convergence test rides
+the same cross-shard sum as the error, and every shard takes the same
+steps.
 
   fused_shard_imex_step            the wrapper: launches the CUDA kernel
                                    for a CUDA tensor, runs the plain
                                    version for a CPU tensor
   fused_shard_imex_step_reference  the same step in plain torch, the oracle
+  fused_shard_imex_tile_sums       the kernel's partial sums in plain torch
   build_fused_shard_imex           a sharded problem's step_err on top of it
 
 The state layout is K8's (ops/fused_shard_step.py): halo-padded buffers
@@ -33,9 +37,11 @@ from __future__ import annotations
 import torch
 
 from crdmodel_tpu_torch.integrate import imex
-from crdmodel_tpu_torch.ops.fused_imex import (_table, imex_error_sum,
+from crdmodel_tpu_torch.ops.fused_imex import (HALO as RINGS, TILE, _table,
+                                               imex_error_sum,
                                                imex_stages_reference,
                                                tile_plan)
+from crdmodel_tpu_torch.ops.fused_kstep import block_sums
 from crdmodel_tpu_torch.ops.fused_shard_step import (FusedShardStep,
                                                      build_shard_stepper,
                                                      check_shard_constants,
@@ -48,6 +54,8 @@ from crdmodel_tpu_torch.ops.kernel_common import (ShardConstants,
                                                   needs_divform)
 
 HALO = 8      # the exchange's width (crdmodel_tpu/ops/pallas_step.py HALO)
+THREADS = 512           # csrc/imex_slots.cuh kImexSlotThreads
+SUM_THREADS = 256       # the partial sums' order: csrc/imex_tile.cuh's block
 
 
 def is_shard_imex_supported(problem, dtype, nyl: int, nxl: int) -> bool:
@@ -81,6 +89,84 @@ def fused_shard_imex_step_reference(yp, h, fz, sc: ShardConstants,
              slice(p, p + sc.valid_cols))
     return y_new, imex_error_sum(err[cells], [dy[cells] for dy in dys],
                                  yp[cells], rtol, atol)
+
+
+def slots_plan(itemsize: int):
+    """(region, slots, shared bytes) of K10's blocks in a dtype of
+    `itemsize` bytes: the TILE-square tile with RINGS rings (`region` its
+    side); THREADS threads, each on two tile points and at most one point
+    of the Newton's RINGS - 1 inner rings (`slots` = 3); dynamic shared
+    memory for y0's u and two stage planes of the region and the staged
+    squares (3 stages' Newton updates and the error, two variables, on
+    the tile), static for the warps' sums, the tableau's products and the
+    profile operator's coefficients of the region's columns (three) and
+    rows (beta and live)."""
+    side = TILE + 2 * RINGS
+    dynamic = 3 * side * side + 2 * 4 * TILE * TILE
+    static = THREADS // 32 + 2 * 4 * 4 + 2 * 4 + 5 * side
+    return side, 3, (dynamic + static) * itemsize
+
+
+def fused_shard_imex_tile_sums(yp, h, fz, sc: ShardConstants, rtol: float,
+                               atol: float):
+    """The kernel's partial sums in plain torch: (n_tiles,), one a
+    TILE-square tile of the block, in csrc/imex_tile.cuh's order, which the
+    kernel replays: thread t of SUM_THREADS adds its points of each
+    implicit stage s's (TILE + 2 (RINGS - s))^2 region, in its strided
+    order, restricted to the tile's physical cells (squared scaled last
+    Newton updates, u then v), and apart its tile points' squared scaled
+    errors (stride SUM_THREADS, u then v), then acc + (1/NEWTON_TOL)^2
+    dacc, then the block's reduction (fused_kstep.block_sums). A mirror-pad
+    cell adds +0.0, as the kernel's skip."""
+    _, err, dys = imex_stages_reference(yp, h, fz, sc)
+    p = sc.halo
+    y0 = interior(yp, p)
+    nyl, nxl = y0.shape[-2:]
+    w = 1.0 / (rtol * torch.abs(y0) + atol)
+    n_ty, n_tx = -(-nyl // TILE), -(-nxl // TILE)
+
+    def tile_squares(a):
+        """(2, n_tiles, TILE * TILE) squares of a's scaled block values."""
+        sq = interior(a, p) * w
+        sq = sq * sq
+        sq[:, sc.valid_rows:] = 0.0
+        sq[:, :, sc.valid_cols:] = 0.0
+        sq = torch.nn.functional.pad(sq, (0, n_tx * TILE - nxl,
+                                          0, n_ty * TILE - nyl))
+        return (sq.reshape(2, n_ty, TILE, n_tx, TILE).permute(0, 1, 3, 2, 4)
+                .reshape(2, n_ty * n_tx, TILE * TILE))
+
+    threads = torch.arange(SUM_THREADS, device=yp.device)
+    dacc = torch.zeros((n_ty * n_tx, SUM_THREADS), dtype=yp.dtype,
+                       device=yp.device)
+    for s, dy in enumerate(dys, start=1):
+        sq = tile_squares(dy)
+        side = TILE + 2 * (RINGS - s)
+        for m in range(-(-side * side // SUM_THREADS)):
+            q = threads + SUM_THREADS * m
+            ty = s + q // side - RINGS
+            tx = s + q % side - RINGS
+            on = ((q < side * side) & (ty >= 0) & (ty < TILE) & (tx >= 0)
+                  & (tx < TILE))
+            i = torch.where(on, ty * TILE + tx, 0)
+            for var in range(2):
+                dacc = dacc + torch.where(on, sq[var][:, i], 0.0)
+    sq = tile_squares(err)
+    acc = torch.zeros_like(dacc)
+    for m in range(TILE * TILE // SUM_THREADS):
+        cells = slice(SUM_THREADS * m, SUM_THREADS * (m + 1))
+        acc = acc + sq[0][:, cells]
+        acc = acc + sq[1][:, cells]
+    acc = acc + (1.0 / imex.NEWTON_TOL) ** 2 * dacc
+    return block_sums(acc)
+
+
+def kernel_info(dtype, kinetics_id: int) -> dict:
+    """K10's CUDA kernel of (dtype, kinetics) on the current card: its
+    resident blocks an SM, registers a thread and shared bytes a block."""
+    from crdmodel_tpu_torch.ops._build import kernel_info as query
+    f64 = int(torch.empty((), dtype=dtype).element_size() == 8)
+    return query("crd_fused_shard_imex_info", f64, kinetics_id)
 
 
 def fused_shard_imex_step(yp, h, fz, sc: ShardConstants, rtol: float,

@@ -4,18 +4,25 @@ crdmodel_tpu/ops/pallas_shard_rkc.py).
 K2's profile branch (ops/fused_rkc.py) per shard: one exchange of width
 P_RKC = 24 a step fills the halo of every shard's buffer
 (parallel/halo.py::refresh_halos), then one launch a shard computes all s
-Chebyshev stages, y_new and per-block partial sums of squared WRMS-scaled
-errors over the shard's PHYSICAL cells (csrc/fused_shard_rkc.cu). The
-spectral-radius bound is max-reduced across the shards (make_rho_bound's
-max_reduce), so every shard runs the same s and the same table rows; s,
-h, the freeze scalar and the tables reach each shard's device as tensors,
-and the host never reads s. The adaptive loop caps h at the kernel's
-stage budget (h_limit) and adds every shard's sums in a fixed order.
+Chebyshev stages, y_new and partial sums of squared WRMS-scaled errors
+over the shard's PHYSICAL cells (csrc/fused_shard_rkc.cu, on K2's kernel
+csrc/rkc_chunk.cuh: the s + 1 evaluations in chunks of at most CHUNK, a
+grid barrier between them). The exchange's P_RKC >= s + 1 rings hold the
+block's cone of dependence for the whole step, so the chunks exchange
+nothing: chunk c's tiles cover the block grown by the evaluations still to
+come (extent_rings), and the rings beyond go wrong from the buffer's edge
+inwards without reaching the block. The spectral-radius bound is
+max-reduced across the shards (make_rho_bound's max_reduce), so every
+shard runs the same s and the same table rows; s, h, the freeze scalar
+and the tables reach each shard's device as tensors, and the host never
+reads s. The adaptive loop caps h at the kernel's stage budget (h_limit)
+and adds every shard's sums in a fixed order.
 
   fused_shard_rkc_step            the wrapper: launches the CUDA kernel for
                                   a CUDA tensor, runs the plain version for
                                   a CPU tensor
   fused_shard_rkc_step_reference  the same step in plain torch, the oracle
+  fused_shard_rkc_tile_sums       the kernel's partial sums in plain torch
   build_fused_shard_rkc           a sharded problem's step_err and h_limit
 
 The state layout is K8's (ops/fused_shard_step.py): halo-padded buffers,
@@ -32,8 +39,11 @@ from typing import Callable
 import torch
 
 from crdmodel_tpu_torch.integrate import rkc
-from crdmodel_tpu_torch.ops.fused_rkc import (S_MAX_KERNEL,
+from crdmodel_tpu_torch.ops.fused_kstep import tile_error_sums
+from crdmodel_tpu_torch.ops.fused_rkc import (CHUNK, CHUNK_THREADS,
+                                              S_MAX_KERNEL, SCRATCH_PLANES,
                                               check_stage_tables,
+                                              chunk_schedule,
                                               rkc_stages_reference,
                                               static_stage_tables, tile_plan)
 from crdmodel_tpu_torch.ops.fused_shard_step import (check_shard_constants,
@@ -71,6 +81,24 @@ def is_shard_rkc_supported(problem, dtype, nyl: int, nxl: int) -> bool:
     return kernel_ready_kinetics(problem)
 
 
+def extent_rings(s: int, depth: int = CHUNK):
+    """The chunks of one K9 step of s stages, [(first, count, rings), ...]:
+    chunk_schedule's chunks, each computed on tiles over the block grown by
+    `rings` = the evaluations still to come after it (csrc/rkc_chunk.cuh::
+    extent_rings), so that the last chunk's tiles are the block's."""
+    return [(first, n, s + 1 - first - n)
+            for first, n in chunk_schedule(s, depth)]
+
+
+def sum_tiles(s_cap: int, itemsize: int):
+    """(tile_x, tile_y) of K9's partial sums: the tiles of the one-pass
+    kernel the step first ran on (fused_rkc.tile_plan with s_cap + 1
+    rings), anchored at the block's first cell; 32x32 in f32 and 16x8 in
+    f64 at s_cap = S_MAX_KERNEL."""
+    tile_x, tile_y, _ = tile_plan(s_cap + 1, itemsize)
+    return tile_x, tile_y
+
+
 def fused_shard_rkc_step_reference(yp, h, fz, s, mu1_tab, ctab_tab,
                                    sc: ShardConstants, rtol: float,
                                    atol: float):
@@ -87,9 +115,42 @@ def fused_shard_rkc_step_reference(yp, h, fz, s, mu1_tab, ctab_tab,
     return y_new, masked_error_sum(est, yp, sc, rtol, atol)
 
 
+def fused_shard_rkc_tile_sums(yp, h, fz, s, mu1_tab, ctab_tab,
+                              sc: ShardConstants, rtol: float, atol: float):
+    """The kernel's partial sums in plain torch: one a sum tile (sum_tiles)
+    of the block, each over the tile's physical cells in the one-pass
+    kernel's order (CHUNK_THREADS threads, fused_kstep.tile_error_sums; a
+    mirror-pad cell adds +0.0, as the kernel's skip). Reads s on the host;
+    an s outside [2, s_cap] gives NaN sums, as the kernel."""
+    p = sc.halo
+    nyl, nxl = yp.shape[1] - 2 * p, yp.shape[2] - 2 * p
+    s_cap = mu1_tab.shape[0] - 1
+    tile_x, tile_y = sum_tiles(s_cap, yp.element_size())
+    if not 2 <= int(s) <= s_cap:
+        n = -(-nyl // tile_y) * -(-nxl // tile_x)
+        return torch.full((n,), float("nan"), dtype=yp.dtype,
+                          device=yp.device)
+    _, est = rkc_stages_reference(yp, h, s, mu1_tab, ctab_tab,
+                                  make_rhs_block(sc, fz))
+    err = interior(est, p).clone()
+    err[:, sc.valid_rows:] = 0.0
+    err[:, :, sc.valid_cols:] = 0.0
+    return tile_error_sums(err, interior(yp, p), rtol, atol, tile_y, tile_x,
+                           CHUNK_THREADS)
+
+
+def kernel_info(dtype, kinetics_id: int) -> dict:
+    """K9's CUDA kernel of (dtype, kinetics) on the current card: its
+    resident blocks an SM, registers a thread and shared bytes a block."""
+    from crdmodel_tpu_torch.ops._build import kernel_info as query
+    f64 = int(torch.empty((), dtype=dtype).element_size() == 8)
+    return query("crd_fused_shard_rkc_info", f64, kinetics_id)
+
+
 def fused_shard_rkc_step(yp, h, fz, s, mu1_tab, ctab_tab,
                          sc: ShardConstants, rtol: float, atol: float):
-    """One fused RKC2 step on one shard: (y_new, ss partials (n_blocks,)).
+    """One fused RKC2 step on one shard: (y_new, ss partials, one a sum
+    tile of the block (sum_tiles)).
 
     yp is the shard's halo-padded buffer (2, nyl + 2P, nxl + 2P) with its
     halo filled, P >= s_cap + 1; h and fz 0-d tensors in its dtype, s a 0-d
@@ -128,16 +189,19 @@ def fused_shard_rkc_step(yp, h, fz, s, mu1_tab, ctab_tab,
 
     from crdmodel_tpu_torch.ops._build import load_library
     lib = load_library()
-    tile_x, tile_y, _ = tile_plan(s_cap + 1, yp.element_size())
-    n_blocks = -(-nxl // tile_x) * -(-nyl // tile_y)
+    tile_x, tile_y = sum_tiles(s_cap, yp.element_size())
     y_new = torch.empty_like(yp)
-    ss = torch.empty(n_blocks, dtype=dtype, device=device)
+    ss = torch.empty(-(-nxl // tile_x) * -(-nyl // tile_y), dtype=dtype,
+                     device=device)
+    # the chunks' hand-off (F0 and two pairs in turns), on the shard's device
+    work = torch.empty((SCRATCH_PLANES, *yp.shape[1:]), dtype=dtype,
+                       device=device)
     launch = (lib.crd_fused_shard_rkc_step_f32 if dtype == torch.float32
               else lib.crd_fused_shard_rkc_step_f64)
     # the CUDA runtime launches on the current device: make it the shard's
     with torch.cuda.device(device):
         rc = launch(yp.data_ptr(), y_new.data_ptr(), ss.data_ptr(),
-                    h.data_ptr(), fz.data_ptr(), s.data_ptr(),
+                    work.data_ptr(), h.data_ptr(), fz.data_ptr(), s.data_ptr(),
                     mu1_tab.data_ptr(), ctab_tab.data_ptr(), s_cap,
                     *(c.data_ptr() for c in sc.coeffs),
                     int(sc.kind == "torus"), sc.b.data_ptr(),

@@ -1,8 +1,8 @@
-"""Time the port's redesigned kernels (K14 and K2; K4 and K11; K1 and K8)
-of one tree on the card, or of two trees in turns in one call.
+"""Time the port's redesigned kernels (K14 and K2; K4 and K11; K1 and K8;
+K9 and K10) of one tree on the card, or of two trees in turns in one call.
 
     python3 scripts/kernel_ab.py [--tree DIR] [--label NAME] [--runs]
-                                 [--measure all|kstep_rkc|divform|profile]
+        [--measure all|kstep_rkc|divform|profile|shard_rkc_imex]
     python3 scripts/kernel_ab.py --compare OTHER_DIR [--runs] [--measure ...]
 
 One tree: imports crdmodel_tpu_torch and chip_smoke.py from DIR (default:
@@ -38,9 +38,26 @@ where the tree has the queries; beside them K2 (the same shape, s = 5 and 23), K
 = 5), which share K1's operator (rhs_common.cuh::ProfileRhs), each its
 device time; with --runs also the canonical FHN torus per step over Tf =
 5 on one device and on a 2x2 mesh of shards on cuda:0 (profile_run, K1's
-or K8's launches and mean device time). --measure all (the default)
-takes the first two. Only the wrappers' public signatures are used, so an
-older tree of the port times the same way.
+or K8's launches and mean device time). --measure shard_rkc_imex: K9
+(f32, shard 0 of the 10.24M-point FHN torus's 2x2 mesh, (2,3248,848),
+from the ICs, s = 5, 9, 12, 13 and 23) and K10 (f32, Goldbeter from the ICs,
+shard 0 of the 2.56M-point torus's 2x2 mesh, (2,1616,416), and of the
+canonical torus's, (2,216,66)), each its device time from profiler
+traces and a burst's time a launch, with the registers, blocks an SM and
+shared bytes of the launched kernel and K9's chunks and grid barriers
+where the tree has the queries; beside them K2 (s = 5 and 23 at the
+canonical torus's (2,1600,400), its divergence branch at the bounded
+tissue's, s = 23 at the wide sheet's (2,12800,3200)), K3 (Goldbeter at
+(2,400,100) and (2,3200,800)) and K14 (K = 5), device times; with --runs
+also the sharded 10.24M FHN rkc2 run and the sharded 2.56M Goldbeter
+ark324 run over Tf = 1 on a 2x2 mesh of shards on cuda:0 (profile_run,
+K9's or K10's launches and mean device time), a fourth untraced run of
+the first that records K9's stage count at each launch (a host read of
+s a launch: its histogram), and the steps (attempted, accepted,
+rejected) of those two runs and of the canonical Goldbeter ark324 run on
+a 2x2 mesh. --measure all (the default) takes the first two. Only the
+wrappers' public signatures are used, so an older tree of the port times
+the same way.
 
 --compare OTHER_DIR runs OTHER_DIR, this checkout, this checkout,
 OTHER_DIR (each in its own process) and prints the lines of all four,
@@ -60,6 +77,8 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 K14_KS = (2, 5, 10)
 K2_STAGES = (5, 9, 23)
+# K9's: K2's, and the sharded 10.24M-point run's most common stage counts
+K9_STAGES = (5, 9, 12, 13, 23)
 K2_SAMPLES = {"canonical": (60, 10), "wide": (5, 3)}
 # the profiler tag of K4's and K11's kernels in either tree: both schemes'
 # kernels take the operator functor (DivformRhs, MixedDivformRhs)
@@ -99,6 +118,8 @@ def time_one_tree(tree, label, runs, measure):
         time_divform(cs, label, card, runs)
     if measure == "profile":
         time_profile(cs, label, card, runs)
+    if measure == "shard_rkc_imex":
+        time_shard_rkc_imex(cs, label, card, runs)
 
 
 def slots_ptxas(cs, source):
@@ -393,7 +414,7 @@ def time_profile(cs, label, card, runs):
                  lambda: f9.fused_shard_rkc_step(bufs[0], hs, zero, st, mu1,
                                                  ctab, consts[0], large.rtol,
                                                  large.atol),
-                 "fused_rkc_step_kernel", cs.WIDE_TIMED[0]) * 1e3,
+                 "fused_rkc", cs.WIDE_TIMED[0]) * 1e3,
              card=card)
     del problem, bufs, consts
 
@@ -402,6 +423,171 @@ def time_profile(cs, label, card, runs):
     for name, run_mesh in (("fhn_run", None), ("sharded_fhn_run", mesh)):
         fields = cs.profile_run(cfg, {}, 5.0, PROFILE_TAG, mesh=run_mesh)
         emit(label, name, **{k: fields[k] for k in RUN_FIELDS}, card=card)
+
+
+def tree_info(module, name, *args):
+    """module.<name>(*args) where the tree has the query (a kernel's
+    registers, blocks an SM, shared bytes), else {}."""
+    query = getattr(module, name, None)
+    return {} if query is None else query(*args)
+
+
+def steps_of(res):
+    """A run's attempted, accepted and rejected steps."""
+    return dict(steps=res.total_steps(),
+                accepted=int(res.stats.accepted.sum()),
+                rejected=int(res.stats.rejected.sum()))
+
+
+def time_shard_rkc_imex(cs, label, card, runs):
+    import collections
+
+    import torch
+
+    from crdmodel_tpu_torch.config import config_from_ini
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import fused_imex, fused_kstep, fused_rkc
+    from crdmodel_tpu_torch.ops import fused_shard_imex as f10
+    from crdmodel_tpu_torch.ops import fused_shard_rkc as f9
+    from crdmodel_tpu_torch.ops.kernel_common import (
+        prepare_constants, prepare_divform_constants)
+
+    f32 = torch.float32
+    zero = torch.zeros((), dtype=f32, device="cuda")
+    mesh = cs.shard_mesh(cs.SHARD_MESH)
+    mu1, ctab = fused_rkc.static_stage_tables(fused_rkc.S_MAX_KERNEL, f32,
+                                              "cuda")
+    emit(label, "ptxas", card=card,
+         **{src: cs.ptxas_entries(src + ".cu", tag) for src, tag in (
+             ("fused_shard_rkc", "fused_rkc"),
+             ("fused_shard_imex", "fused_imex"),
+             ("fused_rkc", "fused_rkc"))})
+
+    # K9 at shard 0 of the 10.24M-point torus
+    large = cs.large_fhn_torus()
+    problem = build_problem(large, "cuda")
+    bufs, consts = cs.shard_inputs(problem, mesh, problem.y0.cpu().numpy(),
+                                   f32, f9.P_RKC)
+    rho = cs.problem_rho(problem, problem.y0)
+    for s in K9_STAGES:
+        hs, st = cs.rkc_step_inputs(s, rho, f32)
+        args = (bufs[0], hs, zero, st, mu1, ctab, consts[0], large.rtol,
+                large.atol)
+
+        def k9():
+            return f9.fused_shard_rkc_step(*args)
+
+        chunks = getattr(f9, "extent_rings", None)
+        emit(label, "k9", shape=list(bufs[0].shape), s=s,
+             device_us=cs.device_ms(k9, "fused_rkc", cs.WIDE_TIMED[0]) * 1e3,
+             burst_us=cs.median_ms(k9, *cs.WIDE_TIMED) * 1e3,
+             **({} if chunks is None else dict(
+                 chunks=len(chunks(s)), grid_barriers=len(chunks(s)) - 1)),
+             **tree_info(f9, "kernel_info", f32, consts[0].kinetics_id),
+             card=card)
+    del problem, bufs, consts
+
+    # K10 from the ICs of the two Goldbeter tori's shards
+    cfg_gb = config_from_ini(cs.GB_INI, model="goldbeter", surface="torus",
+                             use_pallas=True, method="ark324")
+    for cfg in (cs.large_goldbeter_torus(), cfg_gb):
+        problem = build_problem(cfg, "cuda")
+        bufs, consts = cs.shard_inputs(problem, mesh,
+                                       problem.y0.cpu().numpy(), f32,
+                                       f10.HALO)
+        args = (bufs[0], torch.tensor(cs.K3_H[0], device="cuda"), zero,
+                consts[0], cfg.rtol, cfg.atol)
+
+        def k10():
+            return f10.fused_shard_imex_step(*args)
+
+        emit(label, "k10", shape=list(bufs[0].shape),
+             device_us=cs.device_ms(k10, "fused_imex",
+                                    cs.WIDE_TIMED[0]) * 1e3,
+             burst_us=cs.median_ms(k10, *cs.WIDE_TIMED) * 1e3,
+             **tree_info(f10, "kernel_info", f32, consts[0].kinetics_id),
+             card=card)
+        del problem, bufs, consts
+
+    # K2 (both operators, both widths), K3 and K14 beside them
+    cfg = config_from_ini(cs.INI, model="fhn", surface="torus")
+    cfg_ap, ap_build = cs.bounded_tissue()
+    for case, c, build_kw, prepare, stages in (
+            ("canonical", cfg, {}, prepare_constants, (5, 23)),
+            ("bounded_ap", dataclasses.replace(cfg_ap, t_boundary=0.0),
+             ap_build, prepare_divform_constants, (5, 23)),
+            ("wide", cs.wide_sheet(), {}, prepare_constants, (23,))):
+        problem = build_problem(c, "cuda", **build_kw)
+        kc = prepare(problem, f32, "cuda")
+        y = problem.y0.contiguous()
+        rho = cs.problem_rho(problem, y)
+        for s in stages:
+            hs, st = cs.rkc_step_inputs(s, rho, f32)
+            emit(label, "k2", case=case, shape=list(y.shape), s=s,
+                 device_us=cs.device_ms(
+                     lambda: fused_rkc.fused_rkc_step(
+                         y, hs, zero, st, mu1, ctab, kc, c.rtol, c.atol),
+                     "fused_rkc", *(() if case != "wide"
+                                    else (cs.WIDE_TIMED[0],))) * 1e3,
+                 card=card)
+        del problem, kc, y
+    for c in (config_from_ini(cs.GB_INI, model="goldbeter", surface="torus"),
+              config_from_ini(cs.GB_INI, model="goldbeter", surface="torus",
+                              x_mesh=cs.K3_BIG_MESH)):
+        problem = build_problem(c, "cuda")
+        kc = prepare_constants(problem, f32, "cuda")
+        y = problem.y0.contiguous()
+        h = torch.tensor(cs.K3_H[0], device="cuda")
+        emit(label, "k3", shape=list(y.shape),
+             device_us=cs.device_ms(
+                 lambda: fused_imex.fused_imex_step(y, h, zero, kc, c.rtol,
+                                                    c.atol),
+                 "fused_imex_tile_kernel") * 1e3, card=card)
+        del problem, kc, y
+    problem = build_problem(cfg, "cuda")
+    kc = prepare_constants(problem, f32, "cuda")
+    y = problem.y0.contiguous()
+    h = torch.tensor(cs.H, dtype=f32, device="cuda")
+    n = torch.tensor(5, dtype=torch.int32, device="cuda")
+    emit(label, "k14", shape=list(y.shape), k=5,
+         device_us=cs.device_ms(
+             lambda: fused_kstep.fused_kstep(y, h, zero, n, kc,
+                                             TABLEAUS["bs32"], 5, cfg.rtol,
+                                             cfg.atol),
+             "fused_kstep_kernel") * 1e3, card=card)
+    del problem, kc, y
+
+    if not runs:
+        return
+    for name, c, tag in (("sharded_large_fhn_rkc2_run", large, "fused_rkc"),
+                         ("sharded_large_goldbeter_ark324_run",
+                          cs.large_goldbeter_torus(), "fused_imex")):
+        fields = cs.profile_run(c, {}, c.t_final, tag, mesh=mesh)
+        emit(label, name, **{k: fields[k] for k in RUN_FIELDS}, card=card)
+    # K9's stage counts, a host read of s a launch (untraced, unreported
+    # time), and the three sharded runs' steps
+    seen = collections.Counter()
+    step = f9.fused_shard_rkc_step
+
+    def counted(buf, h, fz, s, *rest):
+        seen[int(s)] += 1
+        return step(buf, h, fz, s, *rest)
+
+    counted.launches = 0   # the wrapper counts its launches on its own name
+    f9.fused_shard_rkc_step = counted
+    try:
+        res = cs.run_program(large, {}, mesh)
+    finally:
+        f9.fused_shard_rkc_step = step
+    emit(label, "k9_stage_counts", config=large.program_name,
+         histogram={str(k): seen[k] for k in sorted(seen)},
+         launches=sum(seen.values()), **steps_of(res), card=card)
+    for name, c in (("sharded_large_goldbeter_ark324",
+                     cs.large_goldbeter_torus()),
+                    ("sharded_goldbeter_ark324", cfg_gb)):
+        emit(label, name + "_steps", **steps_of(cs.run_program(c, {}, mesh)),
+             card=card)
 
 
 def compare(other, runs, measure):
@@ -445,7 +631,8 @@ def main():
     ap.add_argument("--compare", metavar="OTHER_DIR")
     ap.add_argument("--runs", action="store_true")
     ap.add_argument("--measure", default="all",
-                    choices=("all", "kstep_rkc", "divform", "profile"))
+                    choices=("all", "kstep_rkc", "divform", "profile",
+                             "shard_rkc_imex"))
     args = ap.parse_args()
     if args.compare:
         compare(os.path.abspath(args.compare), args.runs, args.measure)

@@ -357,7 +357,8 @@ def test_chunk_plan_fits_every_stage_count(itemsize):
     assert slots * fr.CHUNK_THREADS >= side * side
     assert (slots - 1) * fr.CHUNK_THREADS < side * side
     assert smem == (fr.CHUNK_PLANES * (side * side + 2 * (side + 1))
-                    + fr.CHUNK_THREADS // 32 + 2 * tile * tile) * itemsize
+                    + 5 * side + fr.CHUNK_THREADS // 32
+                    + 2 * tile * tile) * itemsize
     for s in range(2, fr.S_MAX_KERNEL + 1):
         assert len(fr.chunk_schedule(s)) >= 1
         assert smem <= SMEM_BYTES - 1024

@@ -11,8 +11,11 @@ Jacobian), the error sum to 1e-4 relative where the error estimate
 dominates it (h = 0.1 for FHN; at h = 0.01 the Newton term's f32 rounding
 is a tenth of it, ROADMAP queue 3); whole small runs through the plain K10
 against the port's sharded torch path; the mirror-pad invariant of uneven
-meshes. On a CUDA card (marker `cuda`): the CUDA kernel against its plain
-version, y_new's block bitwise:
+meshes; the plain version of the kernel's partial sums
+(fused_shard_imex_tile_sums: their number, and their total against the
+plain step's sum) on even and mirror-padded meshes. On a CUDA card (marker
+`cuda`): the CUDA kernel against its plain version, y_new's block and
+every partial sum bitwise:
 
     python -m pytest tests/test_torch_fused_shard_imex.py -m cuda --noconftest
 """
@@ -210,6 +213,43 @@ def test_cpu_wrapper_is_the_plain_version():
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(2, 2), (3, 1), (3, 2)])
+@pytest.mark.parametrize("model", sorted(BETAS))
+def test_tile_sums_are_the_one_pass_kernels(model, shape, dtype):
+    """The plain partial sums have the one-pass kernel's length (one a
+    32x32 tile of the block, fused_imex.tile_plan) on every shard,
+    mirror-padded ones included, and add up to the plain step's sum (the
+    error and the Newton's updates over the physical cells) within f32
+    rounding (f64: 1e-13), frozen and released."""
+    from crdmodel_tpu_torch.ops.fused_imex import tile_plan
+    from crdmodel_tpu_torch.ops.kernel_common import make_shard_constants
+    from crdmodel_tpu_torch.parallel.halo import mirror_halo_pad
+
+    cfg = SimConfig(**_kw(model))
+    problem = build_problem(cfg, "cpu")
+    mesh = _mesh(shape)
+    pad = mesh_pad_spec(cfg, mesh)
+    y = torch.tensor(_state(problem.y0.numpy()), dtype=dtype)
+    bufs = mirror_halo_pad(list(split_state(y, mesh, pad, cfg)), mesh,
+                           f10.HALO, pad)
+    consts = make_shard_constants(problem, mesh, pad, f10.HALO, dtype)
+    tile_x, tile_y, _ = tile_plan(y.element_size())
+    tol = 1e-5 if dtype == torch.float32 else 1e-13
+    for buf, sc in zip(bufs, consts):
+        nyl, nxl = (n - 2 * f10.HALO for n in buf.shape[1:])
+        for fz in (0.0, 1.0):
+            args = (buf, torch.tensor(0.01, dtype=dtype),
+                    torch.tensor(fz, dtype=dtype), sc, cfg.rtol, cfg.atol)
+            sums = f10.fused_shard_imex_tile_sums(*args)
+            _, total = f10.fused_shard_imex_step_reference(*args)
+            assert sums.shape == (-(-nyl // tile_y) * -(-nxl // tile_x),)
+            assert abs(float(sums.sum()) - float(total)) <= tol * float(total)
+    padded = any(sc.valid_rows < buf.shape[1] - 2 * f10.HALO
+                 for buf, sc in zip(bufs, consts))
+    assert padded == (shape[0] == 3)
+
+
 @pytest.mark.cuda
 @pytest.mark.skipif("not torch.cuda.is_available()",
                     reason="needs an NVIDIA GPU and nvcc")
@@ -218,7 +258,9 @@ def test_cpu_wrapper_is_the_plain_version():
 @pytest.mark.parametrize("model", sorted(BETAS))
 def test_kernel_matches_plain_version(model, shape, dtype):
     """The CUDA kernel against its plain version on every shard: y_new's
-    block bitwise, the error sums to rounding, two launches bitwise."""
+    block and every partial sum bitwise (fused_shard_imex_tile_sums), the
+    error sums' total to rounding, two launches bitwise; the kernel's
+    shared bytes are slots_plan's, two blocks an SM in f32."""
     from crdmodel_tpu_torch.ops.fused_shard_step import interior
     from crdmodel_tpu_torch.ops.kernel_common import make_shard_constants
     from crdmodel_tpu_torch.parallel.halo import mirror_halo_pad
@@ -245,6 +287,10 @@ def test_kernel_matches_plain_version(model, shape, dtype):
             assert torch.equal(interior(y_k, p), interior(y_k2, p))
             assert torch.equal(ss_k, ss_k2)
             assert torch.equal(interior(y_k, p), interior(y_r, p))
+            assert torch.equal(ss_k, f10.fused_shard_imex_tile_sums(*args))
             tol = 1e-10 if dtype == torch.float64 else 1e-3
             assert abs(float(ss_k.sum()) - float(ss_r.sum())) <= (
                 tol * float(ss_r.sum()))
+    info = f10.kernel_info(dtype, consts[0].kinetics_id)
+    assert info["shared_bytes"] == f10.slots_plan(y.element_size())[2]
+    assert info["blocks_per_sm"] >= (2 if dtype == torch.float32 else 1)

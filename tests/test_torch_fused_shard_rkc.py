@@ -7,8 +7,12 @@ virtual devices, f32, from a numpy-seeded state, the stage count chosen
 from the cross-shard max of rho on both sides (physical cells to 2e-5,
 the error sum to 1e-3 relative: the limits of K2's test), on even and
 uneven meshes; whole small runs through the plain K9 against the port's
-sharded torch path. On a CUDA card (marker `cuda`): the CUDA kernel
-against its plain version, y_new's block bitwise:
+sharded torch path; the plain version of the kernel's partial sums
+(fused_shard_rkc_tile_sums: the one-pass kernel's tiles, their number and
+their total) on even and mirror-padded meshes; a model of the chunks'
+cone of dependence over the padded shard. On a CUDA card (marker
+`cuda`): the CUDA kernel against its plain version, y_new's block and
+every partial sum bitwise, also at the chunk boundaries:
 
     python -m pytest tests/test_torch_fused_shard_rkc.py -m cuda --noconftest
 """
@@ -155,6 +159,171 @@ def test_gate():
         f9.build_fused_shard_rkc(problem, _mesh((2, 2)), None)
 
 
+def _shard_inputs(case, dtype, device="cpu"):
+    """(config, halo-padded buffers, shard constants, stage tables) of a
+    CASES entry from _state on `device`."""
+    from crdmodel_tpu_torch.ops.fused_rkc import static_stage_tables
+    from crdmodel_tpu_torch.ops.kernel_common import make_shard_constants
+    from crdmodel_tpu_torch.parallel.halo import mirror_halo_pad
+
+    change, shape = CASES[case]
+    cfg = SimConfig(**{**BASE, **change})
+    problem = build_problem(cfg, device)
+    mesh = _mesh(shape, device)
+    pad = mesh_pad_spec(cfg, mesh)
+    y = torch.tensor(_state((2, cfg.ny, cfg.nx)), dtype=dtype, device=device)
+    bufs = mirror_halo_pad(list(split_state(y, mesh, pad, cfg)), mesh,
+                           f9.P_RKC, pad)
+    consts = make_shard_constants(problem, mesh, pad, f9.P_RKC, dtype)
+    return (cfg, bufs, consts,
+            static_stage_tables(f9.S_MAX_KERNEL, dtype, device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_tile_sums_are_the_one_pass_kernels(case, dtype):
+    """The plain partial sums have the one-pass kernel's length (one a
+    tile of fused_rkc.tile_plan(S_MAX_KERNEL + 1): 32x32 in f32, 16x8 in
+    f64, over the block) on every shard, mirror-padded ones included, and
+    add up to the plain step's error sum over the physical cells within
+    f32 rounding (f64: 1e-13); an s beyond the tables gives NaN sums."""
+    from crdmodel_tpu_torch.ops.fused_rkc import tile_plan
+
+    cfg, bufs, consts, (mu1, ctab) = _shard_inputs(case, dtype)
+    tile_x, tile_y, _ = tile_plan(f9.S_MAX_KERNEL + 1, bufs[0].element_size())
+    assert f9.sum_tiles(f9.S_MAX_KERNEL, bufs[0].element_size()) == (
+        tile_x, tile_y) == ((32, 32) if dtype == torch.float32 else (16, 8))
+    tol = 1e-5 if dtype == torch.float32 else 1e-13
+    for buf, sc in zip(bufs, consts):
+        nyl, nxl = (n - 2 * f9.P_RKC for n in buf.shape[1:])
+        n_tiles = -(-nyl // tile_y) * -(-nxl // tile_x)
+        for s in (2, 6, 17, 23):
+            args = (buf, torch.tensor(0.05, dtype=dtype),
+                    torch.tensor(1.0, dtype=dtype),
+                    torch.tensor(s, dtype=torch.int32), mu1, ctab, sc,
+                    cfg.rtol, cfg.atol)
+            sums = f9.fused_shard_rkc_tile_sums(*args)
+            _, total = f9.fused_shard_rkc_step_reference(*args)
+            assert sums.shape == (n_tiles,)
+            assert abs(float(sums.sum()) - float(total)) <= tol * float(total)
+        beyond = (buf, *args[1:3], torch.tensor(f9.S_MAX_KERNEL + 1,
+                                                dtype=torch.int32), *args[4:])
+        assert bool(torch.isnan(f9.fused_shard_rkc_tile_sums(*beyond)).all())
+    padded = any(sc.valid_rows < buf.shape[1] - 2 * f9.P_RKC
+                 for buf, sc in zip(bufs, consts))
+    assert padded == (case == "torus_uneven_3x1")
+
+
+def _cone(s, n, tile_x, halo=f9.P_RKC, tile=32, depth=6):
+    """A model of K9's step along one axis of a shard whose block has n
+    cells inside `halo` rings: the chunks of f9.extent_rings(s), each over
+    tiles of `tile` cells covering the block grown by its rings, each tile
+    loading its region `count` cells out (csrc/rkc_chunk.cuh), reading
+    the buffer (right on [-halo, n + halo); clamped, so wrong, beyond), the
+    hand-off of the chunk before (written on its extent only) and F0
+    (written by the first chunk on its extent). Every evaluation is right
+    where its input is right one cell either side. Returns the interval
+    on which y_new is right and asserts, chunk by chunk, that a region
+    reads no further out than the exchange's halo."""
+    def meet(a, b):
+        return max(a[0], b[0]), min(a[1], b[1])
+
+    buffer = (-halo, n + halo)
+    pair = f0 = buffer
+    for first, count, rings in f9.extent_rings(s, depth):
+        extent = (-rings, n + rings)
+        tiles_end = -rings + tile * -(-(n + 2 * rings) // tile)
+        load = (-rings - count, tiles_end + count)
+        assert load[0] >= -halo, "a region reads before the buffer"
+        right = meet(meet(load, pair), buffer)
+        for e in range(first, first + count):
+            right = (right[0] + 1, right[1] - 1)
+            if e == 0:      # F0, in shared memory for the rest of the chunk
+                f0 = right
+            else:           # every later evaluation reads F0 at its point
+                right = meet(right, f0)
+        if first == 0:      # F0 handed on, on the first chunk's extent
+            f0 = meet(f0, extent)
+        pair = meet(right, extent)
+    assert rings == 0
+    return pair
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("s", range(2, f9.S_MAX_KERNEL + 1))
+def test_chunk_cone_stays_inside_the_halo(s, itemsize):
+    """For every stage count and both dtypes' sum tiles: the block lies
+    P_RKC >= s + 1 rings in; each chunk's region reads only rings inside
+    the exchange's halo, and only values still right at that evaluation
+    reach the block: y_new is right on every cell of the block, so on every
+    sum tile, and each sum tile lies inside one of the last chunk's
+    tiles."""
+    tile_x, tile_y = f9.sum_tiles(f9.S_MAX_KERNEL, itemsize)
+    assert f9.P_RKC >= s + 1
+    assert 32 % tile_x == 0 and 32 % tile_y == 0
+    for n in (f9.P_RKC, 33, 100, 848, 3248):
+        lo, hi = _cone(s, n, tile_x)
+        assert lo <= 0 and hi >= n
+    # the model fails where the halo is too shallow for the step
+    with pytest.raises(AssertionError):
+        lo, hi = _cone(s, 100, tile_x, halo=s)
+        assert lo <= 0 and hi >= 100
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif("not torch.cuda.is_available()",
+                    reason="needs an NVIDIA GPU and nvcc")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["torus_2x2", "torus_uneven_1x3"])
+def test_cuda_kernel_chunk_boundaries(case, dtype):
+    """K9 at the stage counts around its chunk boundaries (D - 1, D,
+    D + 1, 2D, 17, 23), on a 2x2 and an uneven 1x3 mesh: y_new's block
+    bitwise the plain version's, two launches equal, every partial sum
+    bitwise fused_shard_rkc_tile_sums'; the kernel's shared bytes are
+    K2's (chunk_plan), two blocks an SM in f32."""
+    from crdmodel_tpu_torch.ops import fused_rkc as fr
+    from crdmodel_tpu_torch.ops.fused_shard_step import interior
+
+    from crdmodel_tpu_torch.core.problem import make_rho_bound
+    from crdmodel_tpu_torch.ops.kernel_common import make_shard_constants
+    from crdmodel_tpu_torch.parallel.halo import mirror_halo_pad
+
+    # 96x48 on 2x2 (blocks of 48x24), 160x80 on 1x3 (27, 27, 26 columns)
+    shape, x_mesh = ((2, 2), 48) if case == "torus_2x2" else ((1, 3), 80)
+    cfg = SimConfig(**{**BASE, "diffusion": 1000.0, "x_mesh": x_mesh})
+    problem = build_problem(cfg, "cuda")
+    mesh = _mesh(shape, "cuda")
+    pad = mesh_pad_spec(cfg, mesh)
+    y = torch.tensor(_state((2, cfg.ny, cfg.nx)), dtype=dtype, device="cuda")
+    rho = float(make_rho_bound(cfg, problem.model, problem.geometry, dtype)(
+        0.0, y, problem.params))
+    bufs = mirror_halo_pad(list(split_state(y, mesh, pad, cfg)), mesh,
+                           f9.P_RKC, pad)
+    consts = make_shard_constants(problem, mesh, pad, f9.P_RKC, dtype)
+    mu1, ctab = fr.static_stage_tables(f9.S_MAX_KERNEL, dtype, "cuda")
+    d = fr.CHUNK
+    for s in (d - 1, d, d + 1, 2 * d, 17, f9.S_MAX_KERNEL):
+        st = torch.tensor(s, dtype=torch.int32, device="cuda")
+        h = torch.tensor(0.65 * (s - 1) ** 2 / rho, dtype=dtype,
+                         device="cuda")
+        for fz in (0.0, 1.0):
+            fzt = torch.tensor(fz, dtype=dtype, device="cuda")
+            for buf, sc in zip(bufs, consts):
+                args = (buf, h, fzt, st, mu1, ctab, sc, cfg.rtol, cfg.atol)
+                y_k, ss_k = f9.fused_shard_rkc_step(*args)
+                y_k2, ss_k2 = f9.fused_shard_rkc_step(*args)
+                y_r, _ = f9.fused_shard_rkc_step_reference(*args)
+                torch.cuda.synchronize()
+                p = f9.P_RKC
+                assert torch.equal(interior(y_k, p), interior(y_k2, p))
+                assert torch.equal(ss_k, ss_k2)
+                assert torch.equal(interior(y_k, p), interior(y_r, p))
+                assert torch.equal(ss_k, f9.fused_shard_rkc_tile_sums(*args))
+    info = f9.kernel_info(dtype, consts[0].kinetics_id)
+    assert info["shared_bytes"] == fr.chunk_plan(bufs[0].element_size())[3]
+    assert info["blocks_per_sm"] >= (2 if dtype == torch.float32 else 1)
+
+
 @pytest.mark.cuda
 @pytest.mark.skipif("not torch.cuda.is_available()",
                     reason="needs an NVIDIA GPU and nvcc")
@@ -162,8 +331,8 @@ def test_gate():
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_kernel_matches_plain_version(case, dtype):
     """The CUDA kernel against its plain version on every shard at s = 2,
-    5 and 23: y_new's block bitwise, the error sums to rounding, two
-    launches bitwise."""
+    5 and 23: y_new's block and every partial sum bitwise, the error sums'
+    total to rounding, two launches bitwise."""
     from crdmodel_tpu_torch.ops.fused_rkc import static_stage_tables
     from crdmodel_tpu_torch.ops.fused_shard_step import interior
     from crdmodel_tpu_torch.ops.kernel_common import make_shard_constants
@@ -194,6 +363,7 @@ def test_kernel_matches_plain_version(case, dtype):
                 assert torch.equal(interior(y_k, p), interior(y_k2, p))
                 assert torch.equal(ss_k, ss_k2)
                 assert torch.equal(interior(y_k, p), interior(y_r, p))
+                assert torch.equal(ss_k, f9.fused_shard_rkc_tile_sums(*args))
                 tol = 1e-10 if dtype == torch.float64 else 1e-3
                 assert abs(float(ss_k.sum()) - float(ss_r.sum())) <= (
                     tol * float(ss_r.sum()))
