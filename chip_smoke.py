@@ -18,7 +18,9 @@ constant tensor inside no-flux walls and random fields with a beta ramp;
 K6 and K7, the fused ERK and RKC2 steps on the 3-D box, in their four
 operator modes on the volumetric slab's 32x512x512 shape: no-flux walls,
 a scar column, a 3-D diffusion field and a transmural tensor, and on
-FitzHugh-Nagumo with a beta ramp; K8 and K9, the fused ERK and RKC2 steps
+FitzHugh-Nagumo with a beta ramp (K6's bs32 through its z-streaming
+kernel, every partial sum bitwise, the launched kernel traced, also on a
+5x150x90 scarred box and a 2-plane FHN box); K8 and K9, the fused ERK and RKC2 steps
 on one shard of a mesh, on the canonical torus's 2x2 shards, the flat
 sheet's, an uneven 1x3 mesh whose last block carries mirror-pad cells, and
 K9 on the 2x2 shards of the 10.24M-point torus (s = 2, 5, 23 and at its
@@ -34,7 +36,7 @@ rotating fibres flat and on the torus and a constant tensor inside no-flux
 walls, with bs32, zonneveld43 and dopri54, every partial sum bitwise; K12 and K13, the fused ERK and RKC2 steps on one
 shard of the 3-D box, on the slab's 2x2 shards in the four operator modes,
 FitzHugh-Nagumo's beta ramp on a 16x256x256 box's 2x2 shards and its
-uneven 1x3 mesh; K14, the speculative K-step ERK kernel, on K1's five
+uneven 1x3 mesh (K12's bs32 as K6's); K14, the speculative K-step ERK kernel, on K1's five
 cases with bs32 at K = 2, 5, 10 and dopri54 at K = 2, committing sub-step
 0, 1, K-1 and K, against its plain version and against K1's launches,
 state and every partial sum bitwise), times each, then runs the
@@ -375,28 +377,21 @@ def check_pair(name, fields, y_k, ss_k, y_k2, ss_k2, y_r, ss_r, dtype,
     return err
 
 
-def check_dispatch(name, fn, tableau):
-    """The kernel that calls of fn (a launch of an ERK tile kernel's
-    wrapper: K1, K4, K8, K11) run, from torch.profiler traces: raises
-    unless it is the one the launcher's dispatch names (ops/erk_slots.py::
-    kernel_name) and the other scheme's kernel did not run. A trace can
-    miss kernels, a few or all of them (device_ms), so it takes traces of
-    3, 10, 30 and 100 calls in turn until one holds the kernel. Returns
-    the kernel's name."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from crdmodel_tpu_torch.ops import erk_slots
-    want = erk_slots.kernel_name(tableau)
-    other = ({erk_slots.SLOTS_KERNEL, erk_slots.TILE_KERNEL} - {want}).pop()
-    names = []
-    for n in (3, 10, 30, 100):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        names += [e["name"] for e in traced_kernels(prof)]
-        if any(want in k for k in names):
-            break
+def check_dispatch(name, fn, tableau, shard=None):
+    """The kernel that calls of fn run, from pooled torch.profiler traces
+    (ops/trace.py::kernel_names): fn launches a wrapper whose launcher
+    dispatches on the tableau, K1, K4, K8 or K11 (ops/erk_slots.py), or
+    with shard K6 (False) or K12 (True) (ops/box_stream.py). Raises
+    unless the kernel the dispatch names ran and the other scheme's did
+    not. Returns the kernel's name."""
+    from crdmodel_tpu_torch.ops import box_stream, erk_slots, trace
+    if shard is None:
+        want, pair = erk_slots.kernel_name(tableau), erk_slots.KERNELS
+    else:
+        want = box_stream.kernel_name(tableau, shard)
+        pair = box_stream.kernels(shard)
+    other = (set(pair) - {want}).pop()
+    names = trace.kernel_names(fn)
     if not any(want in k for k in names) or any(other in k for k in names):
         raise AssertionError(f"{name}: {tableau.name} ran "
                              f"{sorted(set(names))}, not {want}")
@@ -762,11 +757,16 @@ def check_field_kernel(name, cases, prepare, step, reference, h_val, seed,
 def check_box_kernels(cases, seed):
     """K6 (bs32 and dopri54, at BOX_H) and K7 (each s of K7_STAGES, h as in
     check_rkc_kernel) against their plain versions, for each (label,
-    config, build arguments) of `cases`, f32 and f64, fz 0 and 1: y_new
-    bitwise equal, two launches bitwise equal; prints phases k6_check and
-    k7_check. Returns the max errors of K6 and of K7."""
+    config, build arguments, planes) of `cases` (planes: the box's first
+    planes kept, box_stream.box_planes, or None), f32 and f64, fz 0 and 1:
+    y_new bitwise equal, two launches bitwise equal, a bs32 step's every
+    partial sum bitwise the plain version's in the stream kernel's order
+    (fused_box3d_tile_sums), K6's launched kernel the one its dispatch
+    names (check_dispatch); prints phases k6_check and k7_check. Returns
+    the max errors of K6 and of K7."""
     from crdmodel_tpu_torch.core.problem import build_problem
     from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import box_stream
     from crdmodel_tpu_torch.ops import fused_box3d as fb
     from crdmodel_tpu_torch.ops import fused_box3d_rkc as fk
     from crdmodel_tpu_torch.ops.fused_rkc import static_stage_tables
@@ -775,30 +775,41 @@ def check_box_kernels(cases, seed):
     rng = np.random.default_rng(seed)
     worst6 = {torch.float32: 0.0, torch.float64: 0.0}
     worst7 = {torch.float32: 0.0, torch.float64: 0.0}
-    for label, cfg, build_kw in cases:
+    for label, cfg, build_kw, planes in cases:
         problem = build_problem(cfg, device="cuda", **build_kw)
-        y_np = random_state(cfg, tuple(problem.y0.shape), rng)
+        shape = tuple(problem.y0.shape)
+        if planes is not None:
+            shape = (2, planes, *shape[2:])
+        y_np = random_state(cfg, shape, rng)
         for dtype in (torch.float32, torch.float64):
             bc = prepare_box_constants(problem, dtype, "cuda")
+            if planes is not None:
+                bc = box_stream.box_planes(bc, planes)
             y = torch.tensor(y_np, dtype=dtype, device="cuda")
             h = torch.tensor(BOX_H, dtype=dtype, device="cuda")
             mu1, ctab = static_stage_tables(fk.C_RKC, dtype, "cuda")
-            rho = problem_rho(problem, y)
+            rho = problem_rho(problem, y) if planes is None else None
             fields = dict(case=label, model=cfg.model, mode=bc.kind,
                           shape=list(y.shape))
             for fz in (0.0, 1.0):
                 fzt = torch.tensor(fz, dtype=dtype, device="cuda")
                 for method in ("bs32", "dopri54"):
-                    args = (y, h, fzt, bc, TABLEAUS[method], cfg.rtol,
-                            cfg.atol)
+                    tab = TABLEAUS[method]
+                    args = (y, h, fzt, bc, tab, cfg.rtol, cfg.atol)
+                    kernel = check_dispatch(
+                        "k6_check", lambda: fb.fused_box3d_step(*args), tab,
+                        shard=False)
                     err = check_pair(
-                        "k6_check", dict(fields, method=method, fz=fz),
+                        "k6_check",
+                        dict(fields, method=method, fz=fz, kernel=kernel),
                         *fb.fused_box3d_step(*args),
                         *fb.fused_box3d_step(*args),
                         *fb.fused_box3d_step_reference(*args), dtype, y,
-                        bitwise=True)
+                        bitwise=True,
+                        ss_tiles=(fb.fused_box3d_tile_sums(*args)
+                                  if box_stream.uses_stream(tab) else None))
                     worst6[dtype] = max(worst6[dtype], err)
-                for s in K7_STAGES:
+                for s in K7_STAGES if rho is not None else ():
                     hs, st = rkc_step_inputs(s, rho, dtype)
                     args = (y, hs, fzt, st, mu1, ctab, bc, cfg.rtol,
                             cfg.atol)
@@ -817,13 +828,18 @@ def check_box_kernels(cases, seed):
 def box_timings(cases, card):
     """K6 (bs32) and K7 (each s of K7_TIMED_STAGES) in each operator mode,
     from the ICs of each (label, config, build arguments) of `cases` (the
-    volumetric slab's shape), f32, unfrozen; prints phases k6_timing and
-    k7_timing with each bound. Returns {(kernel, label, s or None):
-    (kernel ms, plain ms, bound ms, bound_by)}."""
+    volumetric slab's shape), f32, unfrozen; prints phases k6_timing (the
+    kernel's device time from profiler traces, device_ms, the CUDA-event
+    time of a burst beside it, the stream plan and the kernel's registers,
+    blocks an SM and shared bytes) and k7_timing (bursts) with each bound.
+    Returns {(kernel, label, s or None): (kernel ms, plain ms, bound ms,
+    bound_by)}."""
     from crdmodel_tpu_torch.core.problem import build_problem
     from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import box_stream
     from crdmodel_tpu_torch.ops import fused_box3d as fb
     from crdmodel_tpu_torch.ops import fused_box3d_rkc as fk
+    from crdmodel_tpu_torch.ops.fused_box3d import MODE_IDS
     from crdmodel_tpu_torch.ops.fused_rkc import static_stage_tables
     from crdmodel_tpu_torch.ops.kernel_common import prepare_box_constants
 
@@ -837,14 +853,20 @@ def box_timings(cases, card):
         tab = TABLEAUS["bs32"]
         args = (y, torch.tensor(BOX_H, device="cuda"), zero, bc, tab,
                 cfg.rtol, cfg.atol)
-        t6 = (median_ms(lambda: fb.fused_box3d_step(*args), *BOX_TIMED),
+        burst = median_ms(lambda: fb.fused_box3d_step(*args), *BOX_TIMED)
+        t6 = (device_ms(lambda: fb.fused_box3d_step(*args),
+                        box_stream.kernel_name(tab), BOX_TIMED[0]),
               median_ms(lambda: fb.fused_box3d_step_reference(*args),
                         *BOX_PLAIN_TIMED),
               *bound(y, bc, erk_ops(bc, tab)))
         timings["k6", label, None] = t6
         phase("k6_timing", case=label, mode=bc.kind, shape=list(y.shape),
               method="bs32", dtype="float32", kernel_us=t6[0] * 1e3,
-              plain_us=t6[1] * 1e3, bound_us=t6[2] * 1e3, bound_by=t6[3],
+              burst_us=burst * 1e3, plain_us=t6[1] * 1e3,
+              bound_us=t6[2] * 1e3, bound_by=t6[3],
+              plan=box_stream.stream_plan(4, tuple(y.shape[1:]))[:3],
+              **box_stream.kernel_info("crd_fused_box3d_info", dtype,
+                                       MODE_IDS[bc.kind], bc.kinetics_id),
               card=card)
         mu1, ctab = static_stage_tables(fk.C_RKC, dtype, "cuda")
         tables = sum(t.numel() * t.element_size() for t in (mu1, ctab))
@@ -1412,16 +1434,9 @@ def run_wide_sheet(cfg, rkc2_probes):
 
 
 def traced_kernels(prof):
-    """The device kernels of a torch.profiler trace (chrome-trace events
-    of category "kernel", with their names and durations in µs)."""
-    import tempfile
-
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as fh:
-            events = json.load(fh)["traceEvents"]
-    return [e for e in events if e.get("cat") == "kernel"]
+    """The device kernels of a torch.profiler trace (ops/trace.py)."""
+    from crdmodel_tpu_torch.ops import trace
+    return trace.traced_kernels(prof)
 
 
 def traced_mean_us(run, tag):
@@ -1439,31 +1454,13 @@ def traced_mean_us(run, tag):
                 else None)
 
 
-def device_ms(fn, tag, n=N_TIMED, attempts=4):
+def device_ms(fn, tag, n=N_TIMED):
     """The median device duration of the kernels whose name holds `tag`
-    over at least n calls of fn, from torch.profiler traces: a kernel's own
-    time where the host's issue of each call takes longer than the kernel
-    (the shard kernels at the canonical shard, whose CUDA-event bursts time
-    the host). A trace can miss kernels (three of twelve on the H100), so
-    each trace takes n + n // 2 + 2 calls, and the kernels of up to
-    `attempts` traces are pooled until they number n."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    calls = n + n // 2 + 2
-    durations = []
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        durations += [e["dur"] for e in traced_kernels(prof)
-                      if tag in e["name"]]
-        if len(durations) >= n:
-            return float(np.median(durations)) / 1e3
-    raise AssertionError(f"traced {len(durations)} {tag} kernels of "
-                         f"{attempts * calls} calls")
+    over at least n calls of fn, from pooled torch.profiler traces
+    (ops/trace.py::device_ms): a kernel's own time where the host's issue
+    of each call takes longer than the kernel."""
+    from crdmodel_tpu_torch.ops import trace
+    return trace.device_ms(fn, tag, n)
 
 
 def profile_run(cfg, build_kw, t_final, kernel_tag, mesh=None):
@@ -1545,6 +1542,27 @@ def fhn_box(cfg_box):
         surface_depth=1.0)
 
 
+def stream_edge_boxes(cfg_box):
+    """K6's stream scheme at its edges, as (label, config, build
+    arguments, planes) of check_box_kernels: a 5x150x90 box (no tile
+    divides 150 x 90) with a scar (the tissue mode) and no-flux walls,
+    and FitzHugh-Nagumo's beta ramp on a 70x40 box of 2 planes with x
+    and y periodic (edge tiles wrap; both z walls in one ring of planes),
+    cut from a 3-plane box (box_stream.box_planes)."""
+    odd = dataclasses.replace(cfg_box, t_boundary=0.1, x_mesh=90,
+                              y_mesh=150, z_mesh=5, surface_width=5.625,
+                              surface_length=9.375, surface_depth=0.25)
+    yy, xx = np.meshgrid(np.arange(150), np.arange(90), indexing="ij")
+    scar = (yy - 75) ** 2 + (xx - 44) ** 2 < 20 ** 2
+    two = dataclasses.replace(fhn_box(cfg_box), x_mesh=70, y_mesh=40,
+                              z_mesh=3, surface_width=4.375,
+                              surface_length=2.5, surface_depth=0.1875)
+    return [("odd_grid_scar", odd,
+             dict(obstacle_mask=np.broadcast_to(~scar, (5, 150, 90))),
+             None),
+            ("two_planes_fhn", two, {}, 2)]
+
+
 def box_main_paths(cfg_box):
     """The volumetric slab through simulate() with bs32 (main_path_box,
     K6), rkc2 (main_path_box_rkc2, K7) and the scar column
@@ -1572,16 +1590,17 @@ def box_main_paths(cfg_box):
 def box_phases(cfg_box, card):
     """The 3-D box's phases: K6 and K7 against their plain versions
     (k6_check, k7_check) on the volumetric slab's shape in the four
-    operator modes of box_modes (each with a freeze) and on fhn_box; their
+    operator modes of box_modes (each with a freeze), on fhn_box and (K6
+    alone) on stream_edge_boxes; their
     timings in each mode (k6_timing, k7_timing); box_main_paths. Returns
     K6's and K7's entries of the kernels line and the single-device runs
     of box_main_paths."""
     modes = box_modes(cfg_box)
     worst6, worst7 = check_box_kernels(
-        [(label, dataclasses.replace(c, t_boundary=0.1), kw)
-         for label, c, kw in modes] + [("fhn_beta_ramp", fhn_box(cfg_box),
-                                        {})],
-        SEED + 8)
+        [(label, dataclasses.replace(c, t_boundary=0.1), kw, None)
+         for label, c, kw in modes]
+        + [("fhn_beta_ramp", fhn_box(cfg_box), {}, None)]
+        + stream_edge_boxes(cfg_box), SEED + 8)
     timings = box_timings(modes, card)
     launches6, launches7, singles = box_main_paths(cfg_box)
     return [
@@ -1599,10 +1618,14 @@ def check_shard_box_kernels(cases, seed):
     in check_rkc_kernel) against their plain versions on the shards of
     each (label, config, build arguments, mesh shape, shards checked) of
     `cases`, f32 and f64, fz 0 and 1: y_new's block bitwise equal, two
-    launches bitwise equal; prints phases k12_check and k13_check. Returns
-    the max errors of K12 and of K13."""
+    launches bitwise equal, a bs32 step's every partial sum bitwise the
+    plain version's in the stream kernel's order
+    (fused_shard_box3d_tile_sums), K12's launched kernel the one its
+    dispatch names (check_dispatch); prints phases k12_check and
+    k13_check. Returns the max errors of K12 and of K13."""
     from crdmodel_tpu_torch.core.problem import build_problem
     from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import box_stream
     from crdmodel_tpu_torch.ops import fused_shard_box3d as f12
     from crdmodel_tpu_torch.ops import fused_shard_box3d_rkc as f13
     from crdmodel_tpu_torch.ops.fused_rkc import static_stage_tables
@@ -1632,13 +1655,22 @@ def check_shard_box_kernels(cases, seed):
                                   valid=[consts[k].valid_rows,
                                          consts[k].valid_cols], fz=fz)
                     for method in ("bs32", "dopri54"):
-                        args = (bufs[k], h, fzt, consts[k], TABLEAUS[method],
-                                cfg.rtol, cfg.atol)
+                        tab = TABLEAUS[method]
+                        args = (bufs[k], h, fzt, consts[k], tab, cfg.rtol,
+                                cfg.atol)
+                        kernel = check_dispatch(
+                            "k12_check",
+                            lambda: f12.fused_shard_box3d_step(*args), tab,
+                            shard=True)
                         err = check_shard_pair(
-                            "k12_check", dict(fields, method=method),
+                            "k12_check",
+                            dict(fields, method=method, kernel=kernel),
                             f12.fused_shard_box3d_step,
                             f12.fused_shard_box3d_step_reference, args,
-                            dtype)
+                            dtype,
+                            tile_sums=(f12.fused_shard_box3d_tile_sums
+                                       if box_stream.uses_stream(tab)
+                                       else None))
                         worst12[dtype] = max(worst12[dtype], err)
                     for s in K7_STAGES:
                         hs, st = rkc_step_inputs(s, rho, dtype)
@@ -1666,8 +1698,10 @@ def shard_box_timings(cases, card):
     ("k13", label, s): (kernel ms, plain ms, bound ms, bound_by)}."""
     from crdmodel_tpu_torch.core.problem import build_problem
     from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import box_stream
     from crdmodel_tpu_torch.ops import fused_shard_box3d as f12
     from crdmodel_tpu_torch.ops import fused_shard_box3d_rkc as f13
+    from crdmodel_tpu_torch.ops.fused_box3d import MODE_IDS
     from crdmodel_tpu_torch.ops.fused_rkc import static_stage_tables
     from crdmodel_tpu_torch.ops.kernel_common import make_shard_box_constants
     from crdmodel_tpu_torch.parallel.halo import refresh_halos
@@ -1690,14 +1724,19 @@ def shard_box_timings(cases, card):
         burst = median_ms(lambda: f12.fused_shard_box3d_step(*args), n,
                           burst_n)
         t12 = (device_ms(lambda: f12.fused_shard_box3d_step(*args),
-                         "fused_shard_box3d_kernel", n),
+                         box_stream.kernel_name(tab, shard=True), n),
                median_ms(lambda: f12.fused_shard_box3d_step_reference(*args),
                          *BOX_PLAIN_TIMED),
                *shard_bound(bufs[0], consts[0], erk_ops(consts[0], tab)))
         timings["k12", label, None] = t12
         phase("k12_timing", **fields, method="bs32", kernel_us=t12[0] * 1e3,
               burst_us=burst * 1e3, plain_us=t12[1] * 1e3,
-              bound_us=t12[2] * 1e3, bound_by=t12[3])
+              bound_us=t12[2] * 1e3, bound_by=t12[3],
+              plan=box_stream.stream_plan(4, tuple(bufs[0].shape[1:]),
+                                          f12.HALO)[:3],
+              **box_stream.kernel_info("crd_fused_shard_box3d_info", dtype,
+                                       MODE_IDS[consts[0].kind],
+                                       consts[0].kinetics_id))
         mu1, ctab = static_stage_tables(f13.C_RKC, dtype, "cuda")
         tables = sum(t.numel() * t.element_size() for t in (mu1, ctab))
         rho = problem_rho(problem, problem.y0)
@@ -2907,9 +2946,9 @@ def main():
           count=torch.cuda.device_count(), tf32="off (matmul and cudnn)")
 
     from crdmodel_tpu_torch.config import config_from_ini
-    from crdmodel_tpu_torch.ops import (_build, erk_slots, fused_aniso,
-                                        fused_divform, fused_imex, fused_rkc,
-                                        fused_step)
+    from crdmodel_tpu_torch.ops import (_build, box_stream, erk_slots,
+                                        fused_aniso, fused_divform,
+                                        fused_imex, fused_rkc, fused_step)
     from crdmodel_tpu_torch.ops.kernel_common import (
         KINETICS_IDS, prepare_aniso_constants, prepare_divform_constants)
 
@@ -2922,6 +2961,9 @@ def main():
           ptxas_fused_divform=ptxas_summary("fused_divform.cu"),
           ptxas_fused_rkc=_build.ptxas_report("fused_rkc.cu"),
           ptxas_fused_aniso=_build.ptxas_report("fused_aniso.cu"),
+          ptxas_stream_kernels={
+              src: ptxas_entries(src, box_stream.STREAM_KERNEL)
+              for src in ("fused_box3d.cu", "fused_shard_box3d.cu")},
           ptxas_fused_box3d=ptxas_summary("fused_box3d.cu"),
           ptxas_fused_box3d_rkc=ptxas_summary("fused_box3d_rkc.cu"),
           ptxas_fused_shard_step=ptxas_summary("fused_shard_step.cu"),
@@ -2956,11 +2998,11 @@ def main():
         # the slab's runs whole: the ~54 steps of Tf/10 are too few for a
         # steady idle share (it read 12% and 39% in two runs)
         tf = cfg_box.t_final
-        profile_run(cfg_box, {}, tf, "fused_box3d_step_kernel")
+        profile_run(cfg_box, {}, tf, box_stream.STREAM_KERNEL)
         profile_run(dataclasses.replace(cfg_box, method="rkc2"), {}, tf,
                     "fused_box3d_rkc_kernel")
         profile_run(cfg_box, box_scar(cfg_box), tf,
-                    "fused_box3d_step_kernel")
+                    box_stream.STREAM_KERNEL)
         profile_run(config_from_ini(INI, model="fhn", surface="torus"), {},
                     5.0, "HaloGrid", mesh=shard_mesh(SHARD_MESH))
         profile_run(large_fhn_torus(), {}, 0.2, "HaloGrid",
@@ -2969,13 +3011,13 @@ def main():
                     mesh=shard_mesh(SHARD_MESH))
         profile_run(large_goldbeter_torus(), {}, 0.2,
                     "fused_imex_slots_kernel", mesh=shard_mesh(SHARD_MESH))
-        profile_run(cfg_box, {}, tf, "fused_shard_box3d_kernel",
+        profile_run(cfg_box, {}, tf, box_stream.STREAM_KERNEL,
                     mesh=shard_mesh(SHARD_MESH))
         profile_run(dataclasses.replace(cfg_box, method="rkc2"), {}, tf,
                     "fused_shard_box3d_rkc_kernel",
                     mesh=shard_mesh(SHARD_MESH))
         profile_run(cfg_box, box_scar(cfg_box), tf,
-                    "fused_shard_box3d_kernel", mesh=shard_mesh(SHARD_MESH))
+                    box_stream.STREAM_KERNEL, mesh=shard_mesh(SHARD_MESH))
         # the canonical FHN torus over Tf=5, per step through K1 and in
         # batches of K14_SPEC through K14
         cfg_fhn = config_from_ini(INI, model="fhn", surface="torus")

@@ -27,11 +27,13 @@
 // the library is built with -fmad=false, so each operation rounds as
 // PyTorch's does.
 //
-// The kernels are persistent: one cooperative launch of as many blocks as
-// the card keeps resident, each thread walking the points with a grid
-// stride, and a grid-wide barrier between stages, whose values live in a
-// scratch buffer in device memory (the wrapper's `work`). Coefficient and
-// tissue fields are read through the read-only data cache; the stage
+// The persistent scheme here is K7's and K13's, and K6's and K12's for the
+// tableaus other than bs32 (zonneveld43, dopri54), whose bs32 steps run
+// box_stream.cuh's z-streaming pass: one cooperative launch of as many
+// blocks as the card keeps resident, each thread walking the points with a
+// grid stride, and a grid-wide barrier between stages, whose values live
+// in a scratch buffer in device memory (the wrapper's `work`). Coefficient
+// and tissue fields are read through the read-only data cache; the stage
 // values, written by the same launch, with plain loads.
 
 #pragma once

@@ -263,13 +263,6 @@ __global__ void __launch_bounds__(kSlotThreads, (kSlotMinBlocks<T>))
   store_block_sum<T, kSlotThreads>(acc, warp_sums, ss);
 }
 
-// The tableau is FSAL: its last stage's input is the update (a[n-1] == b).
-inline bool stage_table_is_fsal(const StageTable& tab) {
-  for (int j = 0; j < tab.n; ++j)
-    if (tab.a[tab.n - 1][j] != tab.b[j]) return false;
-  return true;
-}
-
 // The scheme takes the tableau: kSlotStages stages, FSAL (ops/erk_slots.py::
 // uses_slots).
 inline bool slots_take(const StageTable& tab) {

@@ -63,6 +63,13 @@ inline bool make_stage_table(int n, const double* a, const double* b,
   return true;
 }
 
+// The tableau is FSAL: its last stage's input is the update (a[n-1] == b).
+inline bool stage_table_is_fsal(const StageTable& tab) {
+  for (int j = 0; j < tab.n; ++j)
+    if (tab.a[tab.n - 1][j] != tab.b[j]) return false;
+  return true;
+}
+
 // shared bytes of a tile: y0, yi and n k's, two variables each, with an
 // n-ring halo (ops/fused_step.py::tile_plan)
 inline size_t erk_tile_smem(int n_stages, int tile_x, int tile_y,

@@ -6,11 +6,10 @@
 // Pallas TPU kernel that takes every attempted step of an ERK run on a box
 // (the volumetric cardiac slab). One launch performs a whole step: stage
 // inputs y0 + sum (h a[s][j]) k_j, k_s = kinetics + the box operator on
-// variable 0 (box3d.cuh::box_rhs), y_new = y0 + sum (h b_s) k_s and
-// err = sum (h d_s) k_s in the plain version's order, and one partial sum
-// of (err / (rtol |y0| + atol))^2 per block, in a fixed order (a block
-// walks a fixed set of points in a fixed order, no float atomics), so two
-// launches give bitwise-equal results.
+// variable 0, y_new = y0 + sum (h b_s) k_s and err = sum (h d_s) k_s in the
+// plain version's order, and partial sums of (err / (rtol |y0| + atol))^2
+// in a fixed order (no float atomics), so two launches give bitwise-equal
+// results.
 //
 // What bounds it on an H100: the step must read the state (2 x nz x ny x
 // nx) once and write y_new once, 134 MB at 32x512x512 in f32, some 40 us at
@@ -18,22 +17,23 @@
 // (nz, ny, nx) fields in the field and tensor modes). The arithmetic, some
 // 40 to 90 operations a point a stage, is far below the card's rate.
 //
-// Design: the TPU kernel streams planes along z through VMEM rings, one
-// ring a stage. In 227 KB of shared memory such rings leave a useful
-// in-plane tile for four stages at most (dopri54's 43 planes fit only an
-// 8x8 tile with a 7-ring halo, 7.5x in-plane recompute). This kernel
-// instead keeps every stage value in device memory and runs the stages in
-// turn inside one persistent cooperative launch (box3d.cuh): each stage
-// writes its input y0 + sum (h a) k_j, a grid barrier, then k_s = f(input)
-// at every point, another barrier. Any stage count up to 8 and any grid
-// fit, in f32 and f64 alike; the price is the stage traffic, some 2 + 3s
-// state sweeps a step where the bound is 2 (a state is 67 MB at 8.4M
-// points in f32, more than the 50 MB L2). No tensor cores, TMA or tuning
-// yet.
+// Design: two schemes, chosen by the launcher on the tableau. bs32, the
+// main paths' (an FSAL tableau of four stages), runs box_stream.cuh's
+// z-streaming pass: one block a 32 x 16 tile and z chunk, the stage
+// inputs' variable 0 in rings of three planes in shared memory, everything
+// pointwise in registers, so y is read about once and no stage value goes
+// to device memory; one partial sum a tile and chunk. The other tableaus
+// the gate takes (zonneveld43, dopri54: dopri54's 7 stages would need 7
+// rings of 3 planes on a 7-ring region) run the persistent scheme
+// (box3d.cuh): one cooperative launch, each stage writes its input y0 +
+// sum (h a) k_j to device memory, a grid barrier, then k_s = f(input) at
+// every point, another barrier, one partial sum a resident block; some 2 +
+// 3s state sweeps a step where the bound is 2. No tensor cores or TMA.
 
 #include <cuda_runtime.h>
 
 #include "box3d.cuh"
+#include "box_stream.cuh"
 #include "erk_tile.cuh"
 
 namespace {
@@ -114,7 +114,7 @@ template <typename T>
 int launch(const void* y, void* y_new, void* ss, int capacity,
            int* n_blocks, void* work, const void* h, const void* fz,
            int n_stages, const double* a, const double* b, const double* d,
-           CRD_BOX_OPERATOR_ARGS) {
+           int tile_y, int z_chunk, CRD_BOX_OPERATOR_ARGS) {
   StageTable tab;
   BoxConstants<T> c;
   const void* const coeffs[6] = {c0, c1, c2, c3, c4, c5};
@@ -123,6 +123,11 @@ int launch(const void* y, void* y_new, void* ss, int capacity,
                                      beta_field, mask, has_freeze, nz, ny,
                                      nx, &c))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (crd::stream_take(tab))
+    return crd::launch_box_stream<T>(c, crd::StreamWrap{ny, nx}, mode,
+                                     kinetics, y, y_new, ss, capacity,
+                                     n_blocks, h, fz, tab, tile_y, z_chunk,
+                                     rtol, atol, stream);
   const T* y_arg = static_cast<const T*>(y);
   T* ynew_arg = static_cast<T*>(y_new);
   T* ss_arg = static_cast<T*>(ss);
@@ -142,14 +147,17 @@ int launch(const void* y, void* y_new, void* ss, int capacity,
 
 }  // namespace
 
+// tile_y and z_chunk: the stream scheme's plan (ops/box_stream.py::
+// stream_plan), unused by the persistent one; work: the persistent
+// scheme's scratch, unused by the stream one
 #define CRD_FUSED_BOX3D_ARGS                                                 \
   const void *y, void *y_new, void *ss, int capacity, int *n_blocks,        \
       void *work, const void *h, const void *fz, int n_stages,              \
-      const double *a, const double *b, const double *d,                    \
-      CRD_BOX_OPERATOR_ARGS
+      const double *a, const double *b, const double *d, int tile_y,        \
+      int z_chunk, CRD_BOX_OPERATOR_ARGS
 #define CRD_FUSED_BOX3D_PASS                                                 \
-  y, y_new, ss, capacity, n_blocks, work, h, fz, n_stages, a, b, d,         \
-      CRD_BOX_OPERATOR_PASS
+  y, y_new, ss, capacity, n_blocks, work, h, fz, n_stages, a, b, d, tile_y, \
+      z_chunk, CRD_BOX_OPERATOR_PASS
 
 extern "C" int crd_fused_box3d_step_f32(CRD_FUSED_BOX3D_ARGS) {
   return launch<float>(CRD_FUSED_BOX3D_PASS);
@@ -157,4 +165,15 @@ extern "C" int crd_fused_box3d_step_f32(CRD_FUSED_BOX3D_ARGS) {
 
 extern "C" int crd_fused_box3d_step_f64(CRD_FUSED_BOX3D_ARGS) {
   return launch<double>(CRD_FUSED_BOX3D_PASS);
+}
+
+// The stream kernel of (mode, kinetics) on the whole box: out[0]
+// blocks an SM, out[1] registers a thread, out[2] shared bytes a block
+// (ops/box_stream.py::kernel_info).
+extern "C" int crd_fused_box3d_info(int f64, int mode, int kinetics,
+                                    int* out) {
+  return f64 ? crd::stream_kernel_info<double, crd::StreamWrap>(
+                   mode, kinetics, out)
+             : crd::stream_kernel_info<float, crd::StreamWrap>(
+                   mode, kinetics, out);
 }

@@ -32,16 +32,22 @@
 // sharded slab's shard (36 MB in f32, some 11 us at 3.35 TB/s), plus the
 // constants once; the arithmetic stays far below the card's rate.
 //
-// Design: K6's persistent cooperative launch (box3d.cuh), the stage values
-// in device memory, a grid barrier between stages, on the halo-padded
-// buffer's layout; the rings cost (nxl + 2r)(nyl + 2r) / (nxl nyl) of the
-// block's work, about 1.1x at the slab's 256 x 256 shard. The TPU kernel's
-// z-streaming plane rings, row strips and DMA semaphores have no place
-// here. No tensor cores, TMA or shared-memory z pipeline yet.
+// Design: K6's two schemes on the halo-padded buffer's layout. bs32 runs
+// box_stream.cuh's z-streaming pass (StreamHalo): the tiles cover the
+// block, each reading its rings from the halo, and at the slab's 256 x 256
+// shard the 128 tiles of 32 x 16 are cut into z chunks so that a launch
+// fills a round of two blocks on each SM (ops/box_stream.py::stream_plan);
+// one partial sum a tile and chunk over its physical cells. zonneveld43
+// and dopri54 run the persistent scheme (box3d.cuh) on a ring ladder of
+// stages, the stage values in device memory, a grid barrier between
+// stages; the rings cost (nxl + 2r)(nyl + 2r) / (nxl nyl) of the block's
+// work, about 1.1x at the slab's shard. The TPU kernel's row strips and
+// DMA semaphores have no place here.
 
 #include <cuda_runtime.h>
 
 #include "box3d.cuh"
+#include "box_stream.cuh"
 #include "erk_tile.cuh"
 
 namespace {
@@ -143,8 +149,8 @@ template <typename T>
 int launch(const void* y, void* y_new, void* ss, int capacity,
            int* n_blocks, void* work, const void* h, const void* fz,
            int n_stages, const double* a, const double* b, const double* d,
-           int halo, int valid_rows, int valid_cols,
-           CRD_BOX_OPERATOR_ARGS) {
+           int halo, int valid_rows, int valid_cols, int tile_y,
+           int z_chunk, CRD_BOX_OPERATOR_ARGS) {
   StageTable tab;
   BoxConstants<T> c;
   BoxShard sh;
@@ -156,6 +162,11 @@ int launch(const void* y, void* y_new, void* ss, int capacity,
                                      beta_field, mask, has_freeze, nz, ny,
                                      nx, &c))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (crd::stream_take(tab))
+    return crd::launch_box_stream<T>(c, crd::StreamHalo{sh, ny, nx}, mode,
+                                     kinetics, y, y_new, ss, capacity,
+                                     n_blocks, h, fz, tab, tile_y, z_chunk,
+                                     rtol, atol, stream);
   const T* y_arg = static_cast<const T*>(y);
   T* ynew_arg = static_cast<T*>(y_new);
   T* ss_arg = static_cast<T*>(ss);
@@ -179,10 +190,11 @@ int launch(const void* y, void* y_new, void* ss, int capacity,
   const void *y, void *y_new, void *ss, int capacity, int *n_blocks,        \
       void *work, const void *h, const void *fz, int n_stages,              \
       const double *a, const double *b, const double *d, int halo,          \
-      int valid_rows, int valid_cols, CRD_BOX_OPERATOR_ARGS
+      int valid_rows, int valid_cols, int tile_y, int z_chunk,              \
+      CRD_BOX_OPERATOR_ARGS
 #define CRD_FUSED_SHARD_BOX3D_PASS                                           \
   y, y_new, ss, capacity, n_blocks, work, h, fz, n_stages, a, b, d, halo,   \
-      valid_rows, valid_cols, CRD_BOX_OPERATOR_PASS
+      valid_rows, valid_cols, tile_y, z_chunk, CRD_BOX_OPERATOR_PASS
 
 extern "C" int crd_fused_shard_box3d_step_f32(CRD_FUSED_SHARD_BOX3D_ARGS) {
   return launch<float>(CRD_FUSED_SHARD_BOX3D_PASS);
@@ -190,4 +202,15 @@ extern "C" int crd_fused_shard_box3d_step_f32(CRD_FUSED_SHARD_BOX3D_ARGS) {
 
 extern "C" int crd_fused_shard_box3d_step_f64(CRD_FUSED_SHARD_BOX3D_ARGS) {
   return launch<double>(CRD_FUSED_SHARD_BOX3D_PASS);
+}
+
+// The stream kernel of (mode, kinetics) on a shard's buffer:
+// out[0] blocks an SM, out[1] registers a thread, out[2] shared bytes a
+// block (ops/box_stream.py::kernel_info).
+extern "C" int crd_fused_shard_box3d_info(int f64, int mode, int kinetics,
+                                          int* out) {
+  return f64 ? crd::stream_kernel_info<double, crd::StreamHalo>(
+                   mode, kinetics, out)
+             : crd::stream_kernel_info<float, crd::StreamHalo>(
+                   mode, kinetics, out);
 }

@@ -63,12 +63,15 @@ _FUSED_ANISO_ARGTYPES = ([_VOIDP] * 9 + [_INT, _VOIDP] + [_INT] * 7
 _BOX_OPERATOR = ([_VOIDP] * 8 + [_INT, _VOIDP, _INT, _VOIDP] + [_INT] * 5
                  + [_DOUBLE, _DOUBLE, _VOIDP])
 _BOX_HEAD = [_VOIDP] * 3 + [_INT, _INTP] + [_VOIDP] * 3
-_FUSED_BOX3D_ARGTYPES = _BOX_HEAD + [_INT] + [_DOUBLEP] * 3 + _BOX_OPERATOR
+# K6: n_stages, the tableau, then the stream scheme's tile_y and z_chunk
+_FUSED_BOX3D_ARGTYPES = (_BOX_HEAD + [_INT] + [_DOUBLEP] * 3 + [_INT] * 2
+                         + _BOX_OPERATOR)
 _FUSED_BOX3D_RKC_ARGTYPES = _BOX_HEAD + [_VOIDP] * 3 + [_INT] + _BOX_OPERATOR
 # the shard box launchers: K6's and K7's arguments, then the halo and the
-# physical extent (valid_rows, valid_cols) before the operator's
+# physical extent (valid_rows, valid_cols) before the operator's (K12:
+# then tile_y and z_chunk)
 _FUSED_SHARD_BOX3D_ARGTYPES = (_BOX_HEAD + [_INT] + [_DOUBLEP] * 3
-                               + [_INT] * 3 + _BOX_OPERATOR)
+                               + [_INT] * 5 + _BOX_OPERATOR)
 _FUSED_SHARD_BOX3D_RKC_ARGTYPES = (_BOX_HEAD + [_VOIDP] * 3 + [_INT] * 4
                                    + _BOX_OPERATOR)
 _FUSED_SHARD_STEP_ARGTYPES = ([_VOIDP] * 8 + [_INT, _VOIDP, _INT, _VOIDP]
@@ -133,6 +136,9 @@ SIGNATURES = {
     "crd_fused_shard_rkc_info": [_INT] * 2 + [_INTP],
     "crd_fused_shard_imex_info": [_INT] * 2 + [_INTP],
     "crd_fused_shard_divform_info": [_INT] * 3 + [_INTP],
+    # (f64, mode, kinetics, out[3]): the box stream kernels
+    "crd_fused_box3d_info": [_INT] * 3 + [_INTP],
+    "crd_fused_shard_box3d_info": [_INT] * 3 + [_INTP],
 }
 
 

@@ -24,6 +24,7 @@ THREADS = 512           # csrc/erk_slots.cuh kSlotThreads
 STAGES = 4              # kSlotStages: bs32
 SLOTS_KERNEL = "fused_erk_slots_kernel"
 TILE_KERNEL = "fused_erk_tile_kernel"
+KERNELS = (SLOTS_KERNEL, TILE_KERNEL)
 
 
 def uses_slots(tableau: Tableau) -> bool:

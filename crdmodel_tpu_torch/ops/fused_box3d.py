@@ -19,7 +19,14 @@ every attempted step of an ERK run on a box on the fused path (sim.py).
                               tensor
   fused_box3d_step_reference  the same step in plain torch, the kernel's
                               oracle
+  fused_box3d_tile_sums       the stream scheme's partial sums in plain
+                              torch
   build_fused_box3d_step      a problem's step_err(t, y, h, params)
+
+bs32 runs the z-streaming scheme (csrc/box_stream.cuh, ops/box_stream.py:
+one block a tile and z chunk, one partial sum each in a fixed order); the
+other tableaus the gate takes run the persistent scheme (csrc/box3d.cuh:
+one partial sum a resident block, in an order the card's occupancy sets).
 
 Semantics kept from the TPU kernel (pallas_box3d.py:533-713): the stage
 inputs, update and error of K1 (ops/fused_step.py); the seven-point sum
@@ -39,7 +46,9 @@ import ctypes
 import torch
 
 from crdmodel_tpu_torch.integrate.erk import Tableau
+from crdmodel_tpu_torch.ops import box_stream
 from crdmodel_tpu_torch.ops.fused_step import (MAX_STAGES, _stage_arrays,
+                                               erk_stages_reference,
                                                erk_step_reference)
 from crdmodel_tpu_torch.ops.kernel_common import (KernelConstants,
                                                   box_mode, check_tensor,
@@ -85,6 +94,24 @@ def fused_box3d_step_reference(y, h, fz, bc: KernelConstants,
                               rtol, atol)
 
 
+def fused_box3d_tile_sums(y, h, fz, bc: KernelConstants, tableau: Tableau,
+                          rtol: float, atol: float):
+    """The stream scheme's partial sums in plain torch: (n_tiles,) sums of
+    squared WRMS-scaled errors, one a tile and z chunk of the plan
+    (box_stream.stream_plan), each in the kernel's order
+    (box_stream.stream_tile_sums). Raises ValueError for a tableau the
+    stream scheme does not take: the persistent scheme's order depends on
+    the card's occupancy."""
+    if not box_stream.uses_stream(tableau):
+        raise ValueError(f"{tableau.name} runs the persistent scheme, whose "
+                         "partial sums no plain version replays")
+    _, err = erk_stages_reference(y, h, make_box_rhs_block(bc, fz), tableau)
+    tile_y, z_chunk, _, _ = box_stream.stream_plan(y.element_size(),
+                                                   tuple(y.shape[1:]))
+    return box_stream.stream_tile_sums(
+        box_stream.scaled_squares(err, y, rtol, atol), tile_y, z_chunk)
+
+
 def fused_box3d_step(y, h, fz, bc: KernelConstants, tableau: Tableau,
                      rtol: float, atol: float):
     """One fused step: (y_new (2, nz, ny, nx), ss partials (n_blocks,)).
@@ -102,8 +129,15 @@ def fused_box3d_step(y, h, fz, bc: KernelConstants, tableau: Tableau,
     if not 2 <= n <= MAX_STAGES:
         raise ValueError(f"{n} stages; the kernel takes 2..{MAX_STAGES}")
     a, b, d = _stage_arrays(tableau.name)
-    out = launch_box3d("crd_fused_box3d_step", y, h, fz, bc, n + 1,
-                       (n, a, b, d), rtol, atol)
+    if box_stream.uses_stream(tableau):
+        tile_y, z_chunk, tiles, _ = box_stream.stream_plan(
+            y.element_size(), tuple(y.shape[1:]))
+        out = launch_box3d("crd_fused_box3d_step", y, h, fz, bc, 0,
+                           (n, a, b, d, tile_y, z_chunk), rtol, atol,
+                           partials=tiles)
+    else:
+        out = launch_box3d("crd_fused_box3d_step", y, h, fz, bc, n + 1,
+                           (n, a, b, d, 0, 0), rtol, atol)
     fused_box3d_step.launches += 1
     return out
 
@@ -112,17 +146,21 @@ fused_box3d_step.launches = 0
 
 
 def launch_box3d(symbol, y, h, fz, bc: KernelConstants, work_states: int,
-                 step_args, rtol: float, atol: float):
+                 step_args, rtol: float, atol: float,
+                 partials: int | None = None):
     """Launch one step of a box kernel of the built library (K6
     `crd_fused_box3d_step`, K7 `crd_fused_box3d_rkc_step`, and on a
     shard's halo-padded buffer K12 `crd_fused_shard_box3d_step` and K13
-    `crd_fused_shard_box3d_rkc_step`; csrc/box3d.cuh): the launcher
-    `symbol`_f32 or _f64 with scratch for `work_states` states of y's shape
-    and the kernel's own arguments `step_args` before the operator's. The
-    constants' shapes follow y's (nz, ny, nx): a shard's are halo-padded
-    like its buffer. Checks every input first and raises on what the
-    kernel does not take, and on a launch error. Returns (y_new (2, nz, ny,
-    nx), ss partials (n_blocks,))."""
+    `crd_fused_shard_box3d_rkc_step`; csrc/box3d.cuh, box_stream.cuh): the
+    launcher `symbol`_f32 or _f64 with scratch for `work_states` states of
+    y's shape and the kernel's own arguments `step_args` before the
+    operator's. A persistent launch writes a partial sum for each of at
+    most as many blocks as the card keeps resident; a stream launch
+    (`partials`, the plan's tile count) one for each tile and needs no
+    scratch. The constants' shapes follow y's (nz, ny, nx): a shard's are
+    halo-padded like its buffer. Checks every input first and raises on
+    what the kernel does not take, and on a launch error. Returns (y_new
+    (2, nz, ny, nx), ss partials (n_blocks,))."""
     dtype, device = y.dtype, y.device
     if device.type != "cuda":
         raise ValueError(f"no box kernel for device {device}")
@@ -157,13 +195,18 @@ def launch_box3d(symbol, y, h, fz, bc: KernelConstants, work_states: int,
 
     from crdmodel_tpu_torch.ops._build import load_library
     lib = load_library()
-    # at most the blocks one launch can keep resident: a cooperative launch
-    # (every block alive at the grid barriers); 2048 threads an SM
-    capacity = (torch.cuda.get_device_properties(device).multi_processor_count
-                * (2048 // THREADS))
+    if partials is None:
+        # at most the blocks one launch can keep resident: a cooperative
+        # launch (every block alive at the grid barriers); 2048 threads an
+        # SM
+        capacity = (torch.cuda.get_device_properties(device)
+                    .multi_processor_count * (2048 // THREADS))
+    else:
+        capacity = partials
     y_new = torch.empty_like(y)
     ss = torch.empty(capacity, dtype=dtype, device=device)
-    work = torch.empty((work_states, *y.shape), dtype=dtype, device=device)
+    work = (torch.empty((work_states, *y.shape), dtype=dtype, device=device)
+            if work_states else None)
     n_blocks = ctypes.c_int(0)
     ptrs = [c.data_ptr() for c in bc.coeffs] + [None] * (6 - len(bc.coeffs))
     launch = getattr(lib, symbol + ("_f32" if dtype == torch.float32
@@ -171,7 +214,8 @@ def launch_box3d(symbol, y, h, fz, bc: KernelConstants, work_states: int,
     # the CUDA runtime launches on the current device: make it y's
     with torch.cuda.device(device):
         rc = launch(y.data_ptr(), y_new.data_ptr(), ss.data_ptr(), capacity,
-                    ctypes.byref(n_blocks), work.data_ptr(), h.data_ptr(),
+                    ctypes.byref(n_blocks),
+                    None if work is None else work.data_ptr(), h.data_ptr(),
                     fz.data_ptr(), *step_args, *ptrs,
                     None if tissue is None else tissue.data_ptr(),
                     None if invs is None else invs.data_ptr(),

@@ -18,6 +18,8 @@ the same steps.
                                     version for a CPU tensor
   fused_shard_box3d_step_reference  the same step in plain torch, the
                                     oracle
+  fused_shard_box3d_tile_sums       the stream scheme's partial sums in
+                                    plain torch
   build_fused_shard_box3d           a sharded problem's step_err
 
 The constants are each shard's, halo-padded once a run
@@ -28,9 +30,12 @@ the closed walls the gate requires, as in K6. The stages run on a ladder
 of rings: stage j on the block and the n_stages - 1 - j rings around it,
 so the update needs no more than the n_stages <= HALO rings the exchange
 filled. On a mesh that does not divide the grid the kernel runs the JAX
-kernels' mirror-pad semantics (kernel_common.ShardConstants). Gone with
-the TPU layout: the z-streaming plane rings, the lane padding, the row
-strips and their DMAs, and the strip rule of the gate.
+kernels' mirror-pad semantics (kernel_common.ShardConstants). bs32 runs
+K6's z-streaming scheme on the block's tiles (ops/box_stream.py: the plan
+cuts z into chunks where a plane's tiles are too few to fill the card),
+the other tableaus the persistent scheme on the ring ladder. Gone with the
+TPU layout: the lane padding, the row strips and their DMAs, and the strip
+rule of the gate.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from __future__ import annotations
 import torch
 
 from crdmodel_tpu_torch.integrate.erk import Tableau
+from crdmodel_tpu_torch.ops import box_stream
 from crdmodel_tpu_torch.ops.fused_box3d import launch_box3d
 from crdmodel_tpu_torch.ops.fused_shard_step import (HALO, FusedShardStep,
                                                      build_shard_stepper,
@@ -107,6 +113,38 @@ def fused_shard_box3d_step_reference(yp, h, fz, sc: ShardBoxConstants,
     return y_new, masked_error_sum(err, yp, sc, rtol, atol)
 
 
+def fused_shard_box3d_tile_sums(yp, h, fz, sc: ShardBoxConstants,
+                                tableau: Tableau, rtol: float, atol: float):
+    """The stream scheme's partial sums in plain torch: (n_tiles,) sums
+    over the block's tiles and z chunks (box_stream.stream_plan) of the
+    physical cells' squared WRMS-scaled errors, each in the kernel's order
+    (box_stream.stream_tile_sums; a mirror-pad cell adds +0.0, as the
+    kernel's skip). Raises ValueError for a tableau the stream scheme does
+    not take."""
+    if not box_stream.uses_stream(tableau):
+        raise ValueError(f"{tableau.name} runs the persistent scheme, whose "
+                         "partial sums no plain version replays")
+    _, err = erk_stages_reference(yp, h, make_box_rhs_block(sc, fz),
+                                  tableau)
+    tile_y, z_chunk, _, _ = box_stream.stream_plan(
+        yp.element_size(), tuple(yp.shape[1:]), sc.halo)
+    return box_stream.stream_tile_sums(
+        physical_squares(err, yp, sc, rtol, atol), tile_y, z_chunk)
+
+
+def physical_squares(err, yp, sc: ShardBoxConstants, rtol: float,
+                     atol: float):
+    """The block's squared WRMS-scaled errors of halo-padded err and yp,
+    +0.0 at the mirror-pad cells: what each of the block's points adds to
+    the stream scheme's partial sums."""
+    p = sc.halo
+    sq = box_stream.scaled_squares(interior(err, p), interior(yp, p), rtol,
+                                   atol)
+    sq[:, :, sc.valid_rows:] = 0.0
+    sq[:, :, :, sc.valid_cols:] = 0.0
+    return sq
+
+
 def fused_shard_box3d_step(yp, h, fz, sc: ShardBoxConstants,
                            tableau: Tableau, rtol: float, atol: float):
     """One fused step on one shard: (y_new, ss partials (n_blocks,)).
@@ -125,9 +163,16 @@ def fused_shard_box3d_step(yp, h, fz, sc: ShardBoxConstants,
         raise ValueError(f"{n} stages; the kernel takes 2..{MAX_STAGES}")
     check_shard_box_block(yp, sc, n)
     a, b, d = _stage_arrays(tableau.name)
-    out = launch_box3d("crd_fused_shard_box3d_step", yp, h, fz, sc, n + 1,
-                       (n, a, b, d, sc.halo, sc.valid_rows, sc.valid_cols),
-                       rtol, atol)
+    shard = (n, a, b, d, sc.halo, sc.valid_rows, sc.valid_cols)
+    if box_stream.uses_stream(tableau):
+        tile_y, z_chunk, tiles, _ = box_stream.stream_plan(
+            yp.element_size(), tuple(yp.shape[1:]), sc.halo)
+        out = launch_box3d("crd_fused_shard_box3d_step", yp, h, fz, sc, 0,
+                           (*shard, tile_y, z_chunk), rtol, atol,
+                           partials=tiles)
+    else:
+        out = launch_box3d("crd_fused_shard_box3d_step", yp, h, fz, sc,
+                           n + 1, (*shard, 0, 0), rtol, atol)
     fused_shard_box3d_step.launches += 1
     return out
 

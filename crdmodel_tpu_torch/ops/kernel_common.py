@@ -781,54 +781,102 @@ def _z_down(u):
     return torch.cat([u[..., :1, :, :], u[..., :-1, :, :]], dim=-3)
 
 
-def box_kernel_laplacian(u, bc):
-    """The box kernels' operator on u (nz, ny, nx) in plain torch
-    (crdmodel_tpu/ops/pallas_box3d.py:557-645): x and y wrap, z is clamped
-    (exact under the closed z walls box_mode requires: the clamped reads
-    meet zero coefficients where the torch path's periodic roll wraps), the
-    six faces summed E, W, N, S, U, D as in ops/stencil.py::
-    divergence_laplacian3 and the tensor's mixed pairs in the JAX kernel's
-    association ((axis + ixy Txy) + ixz Txz) + iyz Tyz, which is also
-    anisotropic_laplacian3's. csrc/box3d.cuh computes the same expressions
-    in the same order."""
+class _Volume:
+    """The planes of box_operator's constants on the whole (nz, ny, nx)
+    volume: a field as it is, its planes above and below (clamped), the
+    plane below with 0 at k = 0, and a (nz,) z profile by plane."""
+    at = staticmethod(lambda a: a)
+    up = staticmethod(_z_up)
+    down = staticmethod(_z_down)
+
+    @staticmethod
+    def below0(a):
+        return torch.cat([torch.zeros_like(a[:1]), a[:-1]], dim=0)
+
+    @staticmethod
+    def profile(p):
+        return p.reshape(-1, 1, 1)
+
+
+class _Plane:
+    """The same selections at plane q of nz (box_plane_rhs)."""
+
+    def __init__(self, q: int, nz: int):
+        self.q, self.kU, self.kD = q, min(q + 1, nz - 1), max(q - 1, 0)
+
+    def at(self, a):
+        return a[self.q]
+
+    def up(self, a):
+        return a[self.kU]
+
+    def down(self, a):
+        return a[self.kD]
+
+    def below0(self, a):
+        return a[self.q - 1] if self.q > 0 else torch.zeros_like(a[0])
+
+    def profile(self, p):
+        return p[self.q]
+
+
+def box_operator(u, uu, ud, bc, z=_Volume):
+    """The box kernels' operator on u, given its planes above (uu) and
+    below (ud), clamped at the z walls, in plain torch (crdmodel_tpu/ops/
+    pallas_box3d.py:557-645): x and y wrap, the six faces summed E, W, N,
+    S, U, D as in ops/stencil.py::divergence_laplacian3 and the tensor's
+    mixed pairs in the JAX kernel's association ((axis + ixy Txy) + ixz
+    Txz) + iyz Tyz, which is also anisotropic_laplacian3's. z selects the
+    constants' planes: _Volume for u (nz, ny, nx), _Plane(q, nz) for u the
+    plane q. csrc/box3d.cuh and box_stream.cuh compute the same
+    expressions in the same order."""
     kind = bc.kind
     ue, uw, un, us = shift_e(u), shift_w(u), shift_n(u), shift_s(u)
-    uu, ud = _z_up(u), _z_down(u)
     if kind in ("box_profile", "box_tissue"):
         aE, aW, aN, aS, aU, aD = bc.coeffs
         aN, aS = aN.reshape(-1, 1), aS.reshape(-1, 1)
-        aU, aD = aU.reshape(-1, 1, 1), aD.reshape(-1, 1, 1)
+        aU, aD = z.profile(aU), z.profile(aD)
         if kind == "box_tissue":
-            t = bc.tissue
+            t = z.at(bc.tissue)
             aE = aE * (t * shift_e(t))
             aW = aW * (t * shift_w(t))
             aN = aN * (t * shift_n(t))
             aS = aS * (t * shift_s(t))
-            aU = aU * (t * _z_up(t))
-            aD = aD * (t * _z_down(t))
+            aU = aU * (t * z.up(bc.tissue))
+            aD = aD * (t * z.down(bc.tissue))
     else:
-        aE, aN, aU = bc.coeffs[:3]
+        aE, aN = z.at(bc.coeffs[0]), z.at(bc.coeffs[1])
+        aU = z.at(bc.coeffs[2])
         aW, aS = shift_w(aE), shift_s(aN)
-        aD = torch.cat([torch.zeros_like(aU[:1]), aU[:-1]], dim=0)
+        aD = z.below0(bc.coeffs[2])
     lap = (aE * (ue - u) + aW * (uw - u) + aN * (un - u) + aS * (us - u)
            + aU * (uu - u) + aD * (ud - u))
     if kind != "box_tensor":
         return lap
     dxy, dxz, dyz = bc.coeffs[3:]
     ixy, ixz, iyz = bc.invs
+    dxy = z.at(dxy)
     fa = dxy * (un - us)
     fb = dxy * (ue - uw)
     t_xy = (shift_e(fa) - shift_w(fa)) + (shift_n(fb) - shift_s(fb))
     dzs = uu - ud
-    fa = dxz * dzs
+    fa = z.at(dxz) * dzs
     t_xz = (shift_e(fa) - shift_w(fa)) + (
-        _z_up(dxz) * (shift_e(uu) - shift_w(uu))
-        - _z_down(dxz) * (shift_e(ud) - shift_w(ud)))
-    fa = dyz * dzs
+        z.up(dxz) * (shift_e(uu) - shift_w(uu))
+        - z.down(dxz) * (shift_e(ud) - shift_w(ud)))
+    fa = z.at(dyz) * dzs
     t_yz = (shift_n(fa) - shift_s(fa)) + (
-        _z_up(dyz) * (shift_n(uu) - shift_s(uu))
-        - _z_down(dyz) * (shift_n(ud) - shift_s(ud)))
+        z.up(dyz) * (shift_n(uu) - shift_s(uu))
+        - z.down(dyz) * (shift_n(ud) - shift_s(ud)))
     return ((lap + ixy * t_xy) + ixz * t_xz) + iyz * t_yz
+
+
+def box_kernel_laplacian(u, bc):
+    """The box kernels' operator on u (nz, ny, nx) in plain torch: z is
+    clamped (exact under the closed z walls box_mode requires: the clamped
+    reads meet zero coefficients where the torch path's periodic roll
+    wraps); box_operator on the whole volume."""
+    return box_operator(u, _z_up(u), _z_down(u), bc)
 
 
 def make_box_rhs_block(bc: KernelConstants, fz):
@@ -851,6 +899,29 @@ def make_box_rhs_block(bc: KernelConstants, fz):
         return ydot
 
     return rhs_block
+
+
+def box_plane_rhs(bc: KernelConstants, fz, nz: int):
+    """rhs(q, ud, yq, uu) -> ydot (2, ny, nx): make_box_rhs_block's RHS at
+    plane q of a box of nz planes, from the state's two variables yq there and
+    variable 0 on the planes below (ud) and above (uu), clamped at the z
+    walls: the same operations on the same values, so each plane of it is
+    bitwise the whole-volume RHS's (ops/box_stream.py::box_stream_model)."""
+    live = _live(bc, fz)
+    tissue = getattr(bc, "tissue", None)
+
+    def rhs(q, ud, yq, uu):
+        z = _Plane(q, nz)
+        react = bc.model.kinetics(yq, bc.b)
+        ydot = torch.stack([react[0] + box_operator(yq[0], uu, ud, bc, z),
+                            react[1]])
+        if live is not None:
+            ydot = ydot * live
+        if tissue is not None:
+            ydot = ydot * tissue[q]
+        return ydot
+
+    return rhs
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,8 +1,9 @@
 """Time the port's redesigned kernels (K14 and K2; K4 and K11; K1 and K8;
-K9 and K10) of one tree on the card, or of two trees in turns in one call.
+K9 and K10; K6 and K12) of one tree on the card, or of two trees in turns
+in one call.
 
     python3 scripts/kernel_ab.py [--tree DIR] [--label NAME] [--runs]
-        [--measure all|kstep_rkc|divform|profile|shard_rkc_imex]
+        [--measure all|kstep_rkc|divform|profile|shard_rkc_imex|box]
     python3 scripts/kernel_ab.py --compare OTHER_DIR [--runs] [--measure ...]
 
 One tree: imports crdmodel_tpu_torch and chip_smoke.py from DIR (default:
@@ -55,7 +56,20 @@ K9's or K10's launches and mean device time), a fourth untraced run of
 the first that records K9's stage count at each launch (a host read of
 s a launch: its histogram), and the steps (attempted, accepted,
 rejected) of those two runs and of the canonical Goldbeter ark324 run on
-a 2x2 mesh. --measure all (the default) takes the first two. Only the
+a 2x2 mesh. --measure box: K6 (bs32, f32, the volumetric slab's
+(2,32,512,512) from its ICs) and K12 (bs32, f32, shard 0 of the slab's
+2x2 mesh, (2,32,272,272)) in the four operator modes (the no-flux slab,
+the scar column, the 3-D field, the transmural tensor), each its device
+time from profiler traces and a burst's time a launch, with the
+registers, blocks an SM, shared bytes and plan of the stream kernel where
+the tree has them, and in this tree's scheme the stream kernel on other
+plans (z chunks from one to four) in the profile and tissue modes; beside them K7 and K13 (s = 5, 7, the same modes), device
+times; with --runs also the slab's bs32 run, its scar run and its bs32
+run on a 2x2 mesh of shards on cuda:0 over their whole Tf = 0.5
+(profile_run: device-busy time, kernels a step, idle share, walls, the
+box kernel's launches and mean device time) and each run's attempted,
+accepted and rejected steps from one more untraced run. --measure all
+(the default) takes the first two. Only the
 wrappers' public signatures are used, so an older tree of the port times
 the same way.
 
@@ -120,6 +134,8 @@ def time_one_tree(tree, label, runs, measure):
         time_profile(cs, label, card, runs)
     if measure == "shard_rkc_imex":
         time_shard_rkc_imex(cs, label, card, runs)
+    if measure == "box":
+        time_box(cs, label, card, runs)
 
 
 def slots_ptxas(cs, source):
@@ -590,6 +606,130 @@ def time_shard_rkc_imex(cs, label, card, runs):
              card=card)
 
 
+def box_tags():
+    """The profiler tags of K6's and K12's bs32 kernels in the tree: the
+    stream kernel where it has one, else the persistent kernels."""
+    try:
+        from crdmodel_tpu_torch.ops import box_stream
+    except ImportError:
+        return None, "fused_box3d_step_kernel", "fused_shard_box3d_kernel"
+    return box_stream, box_stream.STREAM_KERNEL, box_stream.STREAM_KERNEL
+
+
+# the stream kernel's plans timed beside the tree's own: MIN_TILES, which
+# sets the z chunks (one; three at K12's shape, the default; four)
+BOX_PLANS = (1, 264, 512)
+
+
+def time_box(cs, label, card, runs):
+    import torch
+
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import fused_box3d as f6
+    from crdmodel_tpu_torch.ops import fused_box3d_rkc as f7
+    from crdmodel_tpu_torch.ops import fused_shard_box3d as f12
+    from crdmodel_tpu_torch.ops import fused_shard_box3d_rkc as f13
+    from crdmodel_tpu_torch.ops.fused_box3d import MODE_IDS
+    from crdmodel_tpu_torch.ops.fused_rkc import static_stage_tables
+    from crdmodel_tpu_torch.ops.kernel_common import (
+        make_shard_box_constants, prepare_box_constants)
+
+    f32 = torch.float32
+    zero = torch.zeros((), dtype=f32, device="cuda")
+    h = torch.tensor(cs.BOX_H, device="cuda")
+    tab = TABLEAUS["bs32"]
+    n, burst_n = cs.BOX_TIMED
+    stream, tag6, tag12 = box_tags()
+    mesh = cs.shard_mesh(cs.SHARD_MESH)
+    mu1, ctab = static_stage_tables(f7.C_RKC, f32, "cuda")
+    emit(label, "ptxas", card=card,
+         **{src: cs.ptxas_entries(src + ".cu", stream.STREAM_KERNEL)
+            for src in ("fused_box3d", "fused_shard_box3d")
+            if stream is not None})
+    cfg_box = cs.volumetric_box()
+    for case, cfg, build_kw in cs.box_modes(cfg_box):
+        problem = build_problem(cfg, "cuda", **build_kw)
+        bc = prepare_box_constants(problem, f32, "cuda")
+        y = problem.y0.contiguous()
+        bufs, consts = cs.shard_inputs(problem, mesh, y.cpu().numpy(), f32,
+                                       f12.HALO, make_shard_box_constants)
+        args6 = (y, h, zero, bc, tab, cfg.rtol, cfg.atol)
+        args12 = (bufs[0], h, zero, consts[0], tab, cfg.rtol, cfg.atol)
+
+        def k6():
+            return f6.fused_box3d_step(*args6)
+
+        def k12():
+            return f12.fused_shard_box3d_step(*args12)
+
+        for name, fn, tag, x, symbol in (
+                ("k6", k6, tag6, y, "crd_fused_box3d_info"),
+                ("k12", k12, tag12, bufs[0], "crd_fused_shard_box3d_info")):
+            info = {} if stream is None else dict(
+                plan=stream.stream_plan(
+                    4, tuple(x.shape[1:]),
+                    f12.HALO if name == "k12" else None)[:3],
+                **stream.kernel_info(symbol, f32, MODE_IDS[bc.kind],
+                                     bc.kinetics_id))
+            emit(label, name, case=case, shape=list(x.shape),
+                 device_us=cs.device_ms(fn, tag, n) * 1e3,
+                 burst_us=cs.median_ms(fn, n, burst_n) * 1e3, **info,
+                 card=card)
+        if stream is not None and case in ("noflux_slab", "scar_column"):
+            time_box_plans(cs, label, card, stream, case, k6, k12, y,
+                           bufs[0])
+        rho = cs.problem_rho(problem, y)
+        for s in cs.K7_TIMED_STAGES:
+            hs, st = cs.rkc_step_inputs(s, rho, f32)
+            a7 = (y, hs, zero, st, mu1, ctab, bc, cfg.rtol, cfg.atol)
+            a13 = (bufs[0], hs, zero, st, mu1, ctab, consts[0], cfg.rtol,
+                   cfg.atol)
+            emit(label, "k7", case=case, s=s, device_us=cs.device_ms(
+                lambda: f7.fused_box3d_rkc_step(*a7),
+                "fused_box3d_rkc_kernel", n) * 1e3, card=card)
+            emit(label, "k13", case=case, s=s, device_us=cs.device_ms(
+                lambda: f13.fused_shard_box3d_rkc_step(*a13),
+                "fused_shard_box3d_rkc_kernel", n) * 1e3, card=card)
+        del problem, bc, y, bufs, consts
+
+    if not runs:
+        return
+    scar = cs.box_scar(cfg_box)
+    for name, build_kw, run_mesh, tag in (
+            ("slab_bs32_run", {}, None, tag6),
+            ("slab_scar_run", scar, None, tag6),
+            ("sharded_slab_bs32_run", {}, mesh, tag12)):
+        fields = cs.profile_run(cfg_box, build_kw, cfg_box.t_final, tag,
+                                mesh=run_mesh)
+        steps = steps_of(cs.run_program(cfg_box, build_kw, run_mesh))
+        emit(label, name, **{k: fields[k] for k in RUN_FIELDS},
+             accepted=steps["accepted"], rejected=steps["rejected"],
+             card=card)
+
+
+def time_box_plans(cs, label, card, stream, case, k6, k12, y, buf):
+    """The stream kernel of K6 and K12 on each plan of BOX_PLANS (the
+    module's MIN_TILES set for the call, then restored): device time and
+    the plan."""
+    from crdmodel_tpu_torch.ops.fused_shard_box3d import HALO
+
+    saved = stream.MIN_TILES
+    try:
+        for min_tiles in BOX_PLANS:
+            stream.MIN_TILES = min_tiles
+            for name, fn, x, halo in (("k6_plan", k6, y, None),
+                                      ("k12_plan", k12, buf, HALO)):
+                emit(label, name, case=case, min_tiles=min_tiles,
+                     plan=stream.stream_plan(4, tuple(x.shape[1:]),
+                                             halo)[:3],
+                     device_us=cs.device_ms(fn, stream.STREAM_KERNEL,
+                                            cs.BOX_TIMED[0]) * 1e3,
+                     card=card)
+    finally:
+        stream.MIN_TILES = saved
+
+
 def compare(other, runs, measure):
     order = [(other, "other"), (HERE, "this"), (HERE, "this"),
              (other, "other")]
@@ -611,11 +751,13 @@ def compare(other, runs, measure):
     summary = {}
     for rec in lines:
         key = "/".join(str(rec[f]) for f in ("measure", "case", "k", "s",
-                                             "shape") if f in rec)
+                                             "min_tiles", "shape")
+                       if f in rec)
         for f in ("kernel_us", "kernel_us_per_substep", "device_us",
                   "burst_us", "wall_s", "untraced_wall_s",
                   "k2_mean_device_us", "device_busy_ms", "kernels_per_step",
-                  "device_idle_share", "kernel_mean_us"):
+                  "device_idle_share", "kernel_mean_us", "steps",
+                  "accepted"):
             if f in rec:
                 summary.setdefault(f"{key}/{f}", {}).setdefault(
                     rec["tree"], []).append(rec[f])
@@ -632,7 +774,7 @@ def main():
     ap.add_argument("--runs", action="store_true")
     ap.add_argument("--measure", default="all",
                     choices=("all", "kstep_rkc", "divform", "profile",
-                             "shard_rkc_imex"))
+                             "shard_rkc_imex", "box"))
     args = ap.parse_args()
     if args.compare:
         compare(os.path.abspath(args.compare), args.runs, args.measure)

@@ -356,7 +356,7 @@ def test_cuda_partial_sums_bitwise(name, method, dtype):
     (fused_divform_tile_sums); the launch runs the kernel the dispatch
     names (erk_slots.kernel_name), and the register-resident kernel's
     shared bytes are slots_plan's."""
-    from torch.profiler import ProfilerActivity, profile
+    from crdmodel_tpu_torch.ops import trace
 
     kw, build, _, h = _edge_case(name, t_boundary=0.4)
     p = build_problem(SimConfig(**kw), "cuda", **build)
@@ -368,11 +368,10 @@ def test_cuda_partial_sums_bitwise(name, method, dtype):
         args = (y, torch.tensor(h, dtype=dtype, device="cuda"),
                 torch.tensor(fz, dtype=dtype, device="cuda"), dc, tab, 1e-4,
                 1e-7)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            y_k, ss_k = fd.fused_divform_step(*args)
-            torch.cuda.synchronize()
-        names = [e.key for e in prof.key_averages()]
+        # a trace can miss kernels, or hold none: pooled traces
+        names = trace.kernel_names(lambda: fd.fused_divform_step(*args))
         assert any(erk_slots.kernel_name(tab) in n for n in names), names
+        y_k, ss_k = fd.fused_divform_step(*args)
         y_k2, ss_k2 = fd.fused_divform_step(*args)
         y_r, _ = fd.fused_divform_step_reference(*args)
         sums = fd.fused_divform_tile_sums(*args)

@@ -12,9 +12,17 @@ tests/test_torch_fused_box3d.py: the rounding of the stage sums over
 rtol |y|, where the controller accepts at 1); whole small runs through
 the plain K12 against the port's sharded torch path (the same steps,
 fields to f32 rounding); the mirror-pad invariant of uneven meshes; the
-gate. On a CUDA card (marker `cuda`): the CUDA kernel against its plain
-version, y_new's block bitwise. The JAX package is imported inside the
-tests that use it, so that the card tests run where JAX is not installed:
+gate. The z-streaming scheme on a shard (ops/box_stream.py): its
+schedule's model against the plain step, the block bitwise, in every
+mode, on the uneven and (1,4) meshes, f32 and f64; its partial sums,
+every physical cell in exactly one (the mirror-pad cells in none, also on
+a padded 1x3 mesh), adding up to the plain step's error sum; the plan's
+tiles at the sharded slab's shard. On a CUDA card (marker `cuda`): the
+CUDA kernel against its plain version, y_new's block bitwise, a bs32
+launch's every partial sum bitwise in the kernel's order, the launched
+kernel the dispatch names, the stream kernel's shared bytes and blocks an
+SM. The JAX package is imported inside the tests that use it, so that the
+card tests run where JAX is not installed:
 
     python -m pytest tests/test_torch_fused_shard_box3d.py -m cuda --noconftest
 """
@@ -28,6 +36,7 @@ import torch
 from crdmodel_tpu_torch.config import SimConfig
 from crdmodel_tpu_torch.core.problem import build_problem
 from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+from crdmodel_tpu_torch.ops import box_stream as bs
 from crdmodel_tpu_torch.ops import fused_shard_box3d as f12
 from crdmodel_tpu_torch.parallel.mesh import make_mesh
 from crdmodel_tpu_torch.parallel.sharded import (gather, make_reduce,
@@ -328,6 +337,112 @@ def test_cpu_wrapper_is_the_plain_version():
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
+def shard_case(name, dtype, mesh_shape=None, device="cpu"):
+    """(buffers, constants) of CASES[name] on its mesh (or mesh_shape),
+    halo-padded, from a seeded state, t_boundary 0.5."""
+    from crdmodel_tpu_torch.ops.kernel_common import make_shard_box_constants
+    from crdmodel_tpu_torch.parallel.halo import mirror_halo_pad
+
+    kw, build_kw, shape = CASES[name]
+    cfg = SimConfig(**{**kw, "t_boundary": 0.5})
+    problem = build_problem(cfg, device, **build_kw)
+    mesh = _mesh(mesh_shape or shape, device)
+    pad = mesh_pad_spec(cfg, mesh)
+    y = torch.tensor(_state((2, cfg.nz, cfg.ny, cfg.nx)), dtype=dtype,
+                     device=device)
+    bufs = mirror_halo_pad(list(split_state(y, mesh, pad, cfg)), mesh,
+                           f12.HALO, pad)
+    return bufs, make_shard_box_constants(problem, mesh, pad, f12.HALO,
+                                          dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_stream_model_matches_plain_shard_step(name, dtype):
+    """The stream scheme's schedule (box_stream_model) on each shard's
+    buffer gives the plain step's block bitwise, y_new and the error, in
+    the plan's z chunks and in chunks of 1 and 4 planes."""
+    from crdmodel_tpu_torch.ops.fused_step import erk_stages_reference
+    from crdmodel_tpu_torch.ops.kernel_common import make_box_rhs_block
+
+    bufs, consts = shard_case(name, dtype)
+    tab = TABLEAUS["bs32"]
+    h = torch.tensor(H, dtype=dtype)
+    p = f12.HALO
+    for buf, sc in zip(bufs, consts):
+        plan_chunk = bs.stream_plan(buf.element_size(), tuple(buf.shape[1:]),
+                                    p)[1]
+        for fz in (0.0, 1.0):
+            fzt = torch.tensor(fz, dtype=dtype)
+            want_y, want_err = erk_stages_reference(
+                buf, h, make_box_rhs_block(sc, fzt), tab)
+            for z_chunk in sorted({1, 4, plan_chunk}):
+                got_y, got_err = bs.box_stream_model(buf, h, fzt, sc, tab,
+                                                     z_chunk)
+                assert torch.equal(f12.interior(got_y, p),
+                                   f12.interior(want_y, p))
+                assert torch.equal(f12.interior(got_err, p),
+                                   f12.interior(want_err, p))
+
+
+@pytest.mark.parametrize("name,mesh_shape", [("uneven", None),
+                                             ("profile", (1, 3)),
+                                             ("fhn_ramp_freeze", None)])
+def test_stream_tile_sums_cover_physical_cells_once(name, mesh_shape):
+    """Each shard's partial sums add every physical cell of its block once
+    and no mirror-pad cell: unit squares (err 1, y 0, atol 1) sum to twice
+    the physical cells of each tile and chunk."""
+    bufs, consts = shard_case(name, torch.float32, mesh_shape)
+    p = f12.HALO
+    padded = False
+    for buf, sc in zip(bufs, consts):
+        nz, nyl, nxl = buf.shape[1], buf.shape[2] - 2 * p, buf.shape[3] - 2 * p
+        padded |= (sc.valid_rows, sc.valid_cols) != (nyl, nxl)
+        sq = f12.physical_squares(torch.ones_like(buf), torch.zeros_like(buf),
+                                  sc, 0.0, 1.0)
+        tile_y, z_chunk, tiles, _ = bs.stream_plan(4, tuple(buf.shape[1:]), p)
+        got = bs.stream_tile_sums(sq, tile_y, z_chunk)
+        assert got.shape == (tiles,)
+        want = []
+        for z0 in range(0, nz, z_chunk):
+            dz = min(z_chunk, nz - z0)
+            for y0 in range(0, nyl, tile_y):
+                for x0 in range(0, nxl, bs.TILE_X):
+                    rows = max(0, min(y0 + tile_y, sc.valid_rows) - y0)
+                    cols = max(0, min(x0 + bs.TILE_X, sc.valid_cols) - x0)
+                    want.append(2.0 * dz * rows * cols)
+        assert got.tolist() == want
+        assert float(got.sum()) == 2.0 * nz * sc.valid_rows * sc.valid_cols
+    assert padded == (name != "fhn_ramp_freeze")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["profile", "tissue", "uneven"])
+def test_stream_tile_sums_add_up_to_error_sum(name, dtype):
+    bufs, consts = shard_case(name, dtype)
+    for buf, sc in zip(bufs, consts):
+        args = (buf, torch.tensor(H, dtype=dtype), torch.tensor(1.0,
+                                                                dtype=dtype),
+                sc, TABLEAUS["bs32"], 1e-4, 1e-7)
+        sums = f12.fused_shard_box3d_tile_sums(*args)
+        _, ss = f12.fused_shard_box3d_step_reference(*args)
+        rel = abs(float(sums.sum()) - float(ss)) / float(ss)
+        assert rel <= (1e-5 if dtype == torch.float32 else 1e-13)
+
+
+def test_stream_plan_fills_the_card_at_the_slab_shard():
+    """The sharded slab's shard, (2, 32, 272, 272) with a halo of 8: its
+    256 x 256 block's 128 tiles of 32 x 16 in three z chunks, at least two
+    blocks for each of the H100's 132 SMs; bs32 takes the stream kernel,
+    dopri54 the persistent one."""
+    tile_y, z_chunk, tiles, _ = bs.stream_plan(4, (32, 272, 272), f12.HALO)
+    assert tiles >= 264
+    assert (tile_y, z_chunk, tiles) == (16, 11, 384)
+    assert bs.kernel_name(TABLEAUS["bs32"], shard=True) == bs.STREAM_KERNEL
+    assert bs.kernel_name(TABLEAUS["dopri54"], shard=True) == (
+        "fused_shard_box3d_kernel")
+
+
 @pytest.mark.cuda
 @pytest.mark.skipif("not torch.cuda.is_available()",
                     reason="needs an NVIDIA GPU and nvcc")
@@ -336,26 +451,26 @@ def test_cpu_wrapper_is_the_plain_version():
 @pytest.mark.parametrize("method", ["bs32", "dopri54"])
 def test_kernel_matches_plain_version(method, name, dtype):
     """The CUDA kernel against its plain version on every shard, frozen
-    and released: y_new's block bitwise, the error sums to rounding, two
-    launches bitwise."""
-    from crdmodel_tpu_torch.ops.kernel_common import make_shard_box_constants
-    from crdmodel_tpu_torch.parallel.halo import mirror_halo_pad
+    and released: y_new's block bitwise, two launches bitwise; a bs32
+    launch's partial sums bitwise the plain version's in the stream
+    kernel's order, a dopri54 launch's total to rounding; the launched
+    kernel the dispatch names; the stream kernel's shared bytes the plan's
+    and, in f32, at least two blocks an SM."""
+    from crdmodel_tpu_torch.ops import trace
+    from crdmodel_tpu_torch.ops.fused_box3d import MODE_IDS
 
-    kw, build_kw, shape = CASES[name]
-    cfg = SimConfig(**{**kw, "t_boundary": 0.5})
-    problem = build_problem(cfg, "cuda", **build_kw)
-    mesh = _mesh(shape, "cuda")
-    pad = mesh_pad_spec(cfg, mesh)
-    y = torch.tensor(_state((2, cfg.nz, cfg.ny, cfg.nx)), dtype=dtype,
-                     device="cuda")
-    bufs = mirror_halo_pad(list(split_state(y, mesh, pad, cfg)), mesh,
-                           f12.HALO, pad)
-    consts = make_shard_box_constants(problem, mesh, pad, f12.HALO, dtype)
+    kw, _, _ = CASES[name]
+    cfg = SimConfig(**kw)
+    bufs, consts = shard_case(name, dtype, device="cuda")
+    tab = TABLEAUS[method]
+    want, other = bs.kernels(shard=True)
+    if not bs.uses_stream(tab):
+        want, other = other, want
     for fz in (0.0, 1.0):
         for buf, sc in zip(bufs, consts):
             args = (buf, torch.tensor(H, dtype=dtype, device="cuda"),
                     torch.tensor(fz, dtype=dtype, device="cuda"), sc,
-                    TABLEAUS[method], cfg.rtol, cfg.atol)
+                    tab, cfg.rtol, cfg.atol)
             y_k, ss_k = f12.fused_shard_box3d_step(*args)
             y_k2, ss_k2 = f12.fused_shard_box3d_step(*args)
             y_r, ss_r = f12.fused_shard_box3d_step_reference(*args)
@@ -364,6 +479,22 @@ def test_kernel_matches_plain_version(method, name, dtype):
             assert torch.equal(block(y_k, f12.HALO), block(y_k2, f12.HALO))
             assert torch.equal(ss_k, ss_k2)
             assert torch.equal(block(y_k, f12.HALO), block(y_r, f12.HALO))
-            tol = 1e-10 if dtype == torch.float64 else 1e-3
-            assert abs(float(ss_k.sum()) - float(ss_r.sum())) <= (
-                tol * float(ss_r.sum()))
+            if bs.uses_stream(tab):
+                sums = f12.fused_shard_box3d_tile_sums(*args)
+                assert ss_k.shape == sums.shape and torch.equal(ss_k, sums)
+            else:
+                tol = 1e-10 if dtype == torch.float64 else 1e-3
+                assert abs(float(ss_k.sum()) - float(ss_r.sum())) <= (
+                    tol * float(ss_r.sum()))
+            names = trace.kernel_names(
+                lambda: f12.fused_shard_box3d_step(*args))
+            assert any(want in n for n in names), names
+            assert not any(other in n for n in names), names
+    if bs.uses_stream(tab):
+        info = bs.kernel_info("crd_fused_shard_box3d_info", dtype,
+                              MODE_IDS[consts[0].kind], consts[0].kinetics_id)
+        assert info["shared_bytes"] == bs.stream_plan(
+            bufs[0].element_size(), tuple(bufs[0].shape[1:]), f12.HALO,
+            consts[0].kind)[3]
+        assert info["blocks_per_sm"] >= (2 if dtype == torch.float32
+                                         else 1)

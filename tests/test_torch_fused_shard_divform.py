@@ -440,8 +440,7 @@ def test_cuda_shard_partial_sums_bitwise(name, method, dtype):
     (fused_shard_divform_tile_sums); the launch runs the kernel the
     dispatch names, and the register-resident kernel's shared bytes are
     slots_plan's."""
-    from torch.profiler import ProfilerActivity, profile
-
+    from crdmodel_tpu_torch.ops import trace
     from crdmodel_tpu_torch.ops.fused_shard_step import interior
 
     kw, build_kw, aniso, h = _any_case(name)
@@ -453,11 +452,11 @@ def test_cuda_shard_partial_sums_bitwise(name, method, dtype):
             args = (buf, torch.tensor(h, dtype=dtype, device="cuda"),
                     torch.tensor(fz, dtype=dtype, device="cuda"), sc, tab,
                     kw["rtol"], kw["atol"])
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                y_k, ss_k = f11.fused_shard_divform_step(*args)
-                torch.cuda.synchronize()
-            names = [e.key for e in prof.key_averages()]
+            # a trace can miss kernels, or hold none: pooled traces
+            names = trace.kernel_names(
+                lambda: f11.fused_shard_divform_step(*args))
             assert any(erk_slots.kernel_name(tab) in n for n in names), names
+            y_k, ss_k = f11.fused_shard_divform_step(*args)
             y_k2, ss_k2 = f11.fused_shard_divform_step(*args)
             y_r, _ = f11.fused_shard_divform_step_reference(*args)
             sums = f11.fused_shard_divform_tile_sums(*args)
