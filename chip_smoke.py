@@ -1443,11 +1443,10 @@ def traced_mean_us(run, tag):
     """One call of run() (a whole run through the entry point) traced
     with torch.profiler: the launches of the kernels whose name holds
     `tag` and their mean device µs a launch."""
-    from torch.profiler import ProfilerActivity, profile
+    from crdmodel_tpu_torch.ops import trace
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with trace.window() as prof:
         run()
-        torch.cuda.synchronize()
     durations = [e["dur"] for e in traced_kernels(prof) if tag in e["name"]]
     return dict(launches=len(durations),
                 mean_device_us=float(np.mean(durations)) if durations
@@ -1471,7 +1470,7 @@ def profile_run(cfg, build_kw, t_final, kernel_tag, mesh=None):
     of kernel durations in the trace) and idle share over the traced wall,
     and the share of the kernels whose name holds `kernel_tag`; returns
     the phase's fields."""
-    from torch.profiler import ProfilerActivity, profile
+    from crdmodel_tpu_torch.ops import trace
 
     run_cfg = dataclasses.replace(cfg, t_final=t_final, output_timestep=1)
 
@@ -1480,8 +1479,7 @@ def profile_run(cfg, build_kw, t_final, kernel_tag, mesh=None):
 
     run()                               # warm-up
     plain = run()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with trace.window(cpu=True) as prof:
         res = run()
     kernels = traced_kernels(prof)
     busy_us = float(sum(e["dur"] for e in kernels))

@@ -1,12 +1,20 @@
-"""Kernel names and device times from torch.profiler traces, pooled.
+"""Kernel names and device times from torch.profiler traces, padded and
+pooled.
 
-On the H100 a trace of a few launches sometimes holds no device event at
-all (in one run every one of 30 traces of a fresh process came back
-empty, 0-2 of 30 in later runs), and a trace can miss some of its kernels
-(three of twelve). So both queries take up to `attempts` traces of the
-same calls and pool what they hold, and raise only if every trace comes
-back empty (kernel_names) or too short (device_ms).
+A trace's device timestamps, put on the host's clock, are off by up to a
+few ms, differently in each trace, on the H100 (kernels placed up to 4.1
+ms before their own launch; scripts/trace_probe.py), and the profiler
+keeps only the kernels that fall inside its window. A window of a few
+launches (1-2 ms) so lost all of its kernels now and then, or some of
+them (one empty and one short trace in each 40-150 such probe traces).
+So every trace here opens `PAD_S` before the first call and closes
+`PAD_S` after the last kernel has finished (`window`): no kernel of 390
+probe traces padded by 5, 20 or 50 ms fell outside. Both queries still
+take up to `attempts` traces of the same calls and pool what they hold,
+and raise only if every trace comes back empty (kernel_names) or too
+short (device_ms).
 
+  window          a padded torch.profiler trace around a block of calls
   traced_kernels  the device kernels of one finished trace
   kernel_names    the names of the kernels that n calls of fn ran
   device_ms       the median device time of the kernels whose name holds
@@ -17,13 +25,16 @@ Only for a CUDA card: torch.profiler is imported inside the functions.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import tempfile
+import time
 
 import numpy as np
 
 ATTEMPTS = 4
+PAD_S = 0.02    # s of idle trace before the first call and after the last
 
 
 def traced_kernels(prof) -> list:
@@ -37,16 +48,30 @@ def traced_kernels(prof) -> list:
     return [e for e in events if e.get("cat") == "kernel"]
 
 
-def _trace(fn, calls: int) -> list:
-    """The device kernels of one trace of `calls` calls of fn."""
+@contextlib.contextmanager
+def window(cpu: bool = False):
+    """A torch.profiler trace of the CUDA kernels (and the host's ops with
+    cpu) of the body, with `PAD_S` of idle window before the body and
+    after its last kernel has finished; yields the profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
     torch.cuda.synchronize()        # no earlier work in the window
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities) as prof:
+        time.sleep(PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(PAD_S)
+
+
+def _trace(fn, calls: int) -> list:
+    """The device kernels of one trace of `calls` calls of fn."""
+    with window() as prof:
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
     return traced_kernels(prof)
 
 
