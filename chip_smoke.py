@@ -398,6 +398,22 @@ def check_dispatch(name, fn, tableau, shard=None):
     return want
 
 
+def check_rkc_dispatch(name, fn, mode, shard):
+    """The kernels calls of fn run, each a K7 (K13 with shard) step in
+    operator `mode`, from pooled torch.profiler traces (ops/trace.py::
+    kernel_names): raises unless the kernel the dispatch names
+    (ops/box_stream.py::rkc_kernel_name: the chunk kernel or the
+    persistent one) ran and the other did not. Returns the kernel's
+    name."""
+    from crdmodel_tpu_torch.ops import box_stream, trace
+    names = trace.kernel_names(fn, n=1)
+    want = box_stream.rkc_kernel_name(mode, shard)
+    if not names or not all(want in k for k in names):
+        raise AssertionError(f"{name}: {mode} ran {sorted(set(names))}, "
+                             f"not {want}")
+    return want
+
+
 def check_kernel(cases):
     """K1 against its plain version at the main paths' shapes, for each
     config of `cases` (the FHN torus first), f32 and f64, bs32 and dopri54,
@@ -759,11 +775,13 @@ def check_box_kernels(cases, seed):
     check_rkc_kernel) against their plain versions, for each (label,
     config, build arguments, planes) of `cases` (planes: the box's first
     planes kept, box_stream.box_planes, or None), f32 and f64, fz 0 and 1:
-    y_new bitwise equal, two launches bitwise equal, a bs32 step's every
-    partial sum bitwise the plain version's in the stream kernel's order
-    (fused_box3d_tile_sums), K6's launched kernel the one its dispatch
-    names (check_dispatch); prints phases k6_check and k7_check. Returns
-    the max errors of K6 and of K7."""
+    y_new bitwise equal, two launches bitwise equal, a bs32 step's and a
+    K7 chunk-kernel step's every partial sum bitwise the plain version's in
+    the stream kernels' order (fused_box3d_tile_sums,
+    fused_box3d_rkc_tile_sums), K6's launched kernel the one its dispatch
+    names (check_dispatch), K7's traced in f32 (check_rkc_dispatch);
+    prints phases k6_check and k7_check. Returns the max errors of K6 and
+    of K7."""
     from crdmodel_tpu_torch.core.problem import build_problem
     from crdmodel_tpu_torch.integrate.erk import TABLEAUS
     from crdmodel_tpu_torch.ops import box_stream
@@ -813,12 +831,21 @@ def check_box_kernels(cases, seed):
                     hs, st = rkc_step_inputs(s, rho, dtype)
                     args = (y, hs, fzt, st, mu1, ctab, bc, cfg.rtol,
                             cfg.atol)
+                    traced = dtype == torch.float32 and fz == 0.0
                     err = check_pair(
-                        "k7_check", dict(fields, s=s, fz=fz),
+                        "k7_check", dict(fields, s=s, fz=fz, kernel=(
+                            check_rkc_dispatch(
+                                "k7_check",
+                                lambda: fk.fused_box3d_rkc_step(*args),
+                                bc.kind, shard=False)
+                            if traced else None)),
                         *fk.fused_box3d_rkc_step(*args),
                         *fk.fused_box3d_rkc_step(*args),
                         *fk.fused_box3d_rkc_step_reference(*args), dtype, y,
-                        bitwise=True)
+                        bitwise=True,
+                        ss_tiles=(fk.fused_box3d_rkc_tile_sums(*args)
+                                  if box_stream.rkc_uses_stream(bc.kind)
+                                  else None))
                     worst7[dtype] = max(worst7[dtype], err)
             del y, bc
         del problem
@@ -831,7 +858,10 @@ def box_timings(cases, card):
     volumetric slab's shape), f32, unfrozen; prints phases k6_timing (the
     kernel's device time from profiler traces, device_ms, the CUDA-event
     time of a burst beside it, the stream plan and the kernel's registers,
-    blocks an SM and shared bytes) and k7_timing (bursts) with each bound.
+    blocks an SM and shared bytes) and k7_timing (the device time of a
+    step's launches, device_ms with their group, the burst, and for the
+    chunk kernel the chunks, plan, registers, blocks an SM and shared
+    bytes) with each bound.
     Returns {(kernel, label, s or None): (kernel ms, plain ms, bound ms,
     bound_by)}."""
     from crdmodel_tpu_torch.core.problem import build_problem
@@ -874,16 +904,32 @@ def box_timings(cases, card):
         for s in K7_TIMED_STAGES:
             hs, st = rkc_step_inputs(s, rho, dtype)
             args = (y, hs, zero, st, mu1, ctab, bc, cfg.rtol, cfg.atol)
-            t7 = (median_ms(lambda: fk.fused_box3d_rkc_step(*args),
-                            *BOX_TIMED),
+            stream = box_stream.rkc_uses_stream(bc.kind)
+            burst = median_ms(lambda: fk.fused_box3d_rkc_step(*args),
+                              *BOX_TIMED)
+            t7 = (device_ms(lambda: fk.fused_box3d_rkc_step(*args),
+                            box_stream.rkc_kernel_name(bc.kind),
+                            BOX_TIMED[0],
+                            group=(box_stream.rkc_launches(fk.C_RKC)
+                                   if stream else 1)),
                   median_ms(lambda: fk.fused_box3d_rkc_step_reference(*args),
                             *BOX_PLAIN_TIMED),
                   *bound(y, bc, rkc_ops(bc, s), tables))
             timings["k7", label, s] = t7
             phase("k7_timing", case=label, mode=bc.kind,
                   shape=list(y.shape), s=s, dtype="float32",
-                  kernel_us=t7[0] * 1e3, plain_us=t7[1] * 1e3,
-                  bound_us=t7[2] * 1e3, bound_by=t7[3], card=card)
+                  kernel=box_stream.rkc_kernel_name(bc.kind),
+                  kernel_us=t7[0] * 1e3, burst_us=burst * 1e3,
+                  plain_us=t7[1] * 1e3, bound_us=t7[2] * 1e3,
+                  bound_by=t7[3], **({} if not stream else dict(
+                      chunks=box_stream.rkc_chunks(s),
+                      plan=box_stream.stream_plan(
+                          4, tuple(y.shape[1:]),
+                          min_tiles=box_stream.RKC_MIN_TILES)[:3],
+                      **box_stream.kernel_info(
+                          "crd_fused_box3d_rkc_info", dtype,
+                          MODE_IDS[bc.kind], bc.kinetics_id))),
+                  card=card)
         del problem, bc, y
     return timings
 
@@ -1453,13 +1499,14 @@ def traced_mean_us(run, tag):
                 else None)
 
 
-def device_ms(fn, tag, n=N_TIMED):
+def device_ms(fn, tag, n=N_TIMED, group=1):
     """The median device duration of the kernels whose name holds `tag`
     over at least n calls of fn, from pooled torch.profiler traces
-    (ops/trace.py::device_ms): a kernel's own time where the host's issue
-    of each call takes longer than the kernel."""
+    (ops/trace.py::device_ms; with `group`, the sum of a call's `group`
+    such kernels): a kernel's own time where the host's issue of each call
+    takes longer than the kernel."""
     from crdmodel_tpu_torch.ops import trace
-    return trace.device_ms(fn, tag, n)
+    return trace.device_ms(fn, tag, n, group=group)
 
 
 def profile_run(cfg, build_kw, t_final, kernel_tag, mesh=None):
@@ -1616,11 +1663,13 @@ def check_shard_box_kernels(cases, seed):
     in check_rkc_kernel) against their plain versions on the shards of
     each (label, config, build arguments, mesh shape, shards checked) of
     `cases`, f32 and f64, fz 0 and 1: y_new's block bitwise equal, two
-    launches bitwise equal, a bs32 step's every partial sum bitwise the
-    plain version's in the stream kernel's order
-    (fused_shard_box3d_tile_sums), K12's launched kernel the one its
-    dispatch names (check_dispatch); prints phases k12_check and
-    k13_check. Returns the max errors of K12 and of K13."""
+    launches bitwise equal, a bs32 step's and a K13 chunk-kernel step's
+    every partial sum bitwise the plain version's in the stream kernels'
+    order (fused_shard_box3d_tile_sums, fused_shard_box3d_rkc_tile_sums),
+    K12's launched kernel the one its dispatch names (check_dispatch),
+    K13's traced in f32 on the first shard (check_rkc_dispatch); prints
+    phases k12_check and k13_check. Returns the max errors of K12 and of
+    K13."""
     from crdmodel_tpu_torch.core.problem import build_problem
     from crdmodel_tpu_torch.integrate.erk import TABLEAUS
     from crdmodel_tpu_torch.ops import box_stream
@@ -1674,11 +1723,21 @@ def check_shard_box_kernels(cases, seed):
                         hs, st = rkc_step_inputs(s, rho, dtype)
                         args = (bufs[k], hs, fzt, st, mu1, ctab, consts[k],
                                 cfg.rtol, cfg.atol)
+                        traced = (dtype == torch.float32 and fz == 0.0
+                                  and k == shards[0])
+                        stream = box_stream.rkc_uses_stream(consts[k].kind)
                         err = check_shard_pair(
-                            "k13_check", dict(fields, s=s),
+                            "k13_check", dict(fields, s=s, kernel=(
+                                check_rkc_dispatch(
+                                    "k13_check",
+                                    lambda: f13.fused_shard_box3d_rkc_step(
+                                        *args), consts[k].kind, shard=True)
+                                if traced else None)),
                             f13.fused_shard_box3d_rkc_step,
                             f13.fused_shard_box3d_rkc_step_reference, args,
-                            dtype)
+                            dtype,
+                            tile_sums=(f13.fused_shard_box3d_rkc_tile_sums
+                                       if stream else None))
                         worst13[dtype] = max(worst13[dtype], err)
             del bufs, consts
         del problem
@@ -1742,18 +1801,31 @@ def shard_box_timings(cases, card):
             hs, st = rkc_step_inputs(s, rho, dtype)
             args = (bufs[0], hs, zero, st, mu1, ctab, consts[0], cfg.rtol,
                     cfg.atol)
+            stream = box_stream.rkc_uses_stream(consts[0].kind)
             burst = median_ms(lambda: f13.fused_shard_box3d_rkc_step(*args),
                               n, burst_n)
             t13 = (device_ms(lambda: f13.fused_shard_box3d_rkc_step(*args),
-                             "fused_shard_box3d_rkc_kernel", n),
+                             box_stream.rkc_kernel_name(consts[0].kind,
+                                                        shard=True), n,
+                             group=(box_stream.rkc_launches(f13.C_RKC)
+                                    if stream else 1)),
                    median_ms(lambda: f13.fused_shard_box3d_rkc_step_reference(
                        *args), *BOX_PLAIN_TIMED),
                    *shard_bound(bufs[0], consts[0], rkc_ops(consts[0], s),
                                 tables))
             timings["k13", label, s] = t13
-            phase("k13_timing", **fields, s=s, kernel_us=t13[0] * 1e3,
-                  burst_us=burst * 1e3, plain_us=t13[1] * 1e3,
-                  bound_us=t13[2] * 1e3, bound_by=t13[3])
+            phase("k13_timing", **fields, s=s,
+                  kernel=box_stream.rkc_kernel_name(consts[0].kind,
+                                                    shard=True),
+                  kernel_us=t13[0] * 1e3, burst_us=burst * 1e3,
+                  plain_us=t13[1] * 1e3, bound_us=t13[2] * 1e3,
+                  bound_by=t13[3], **({} if not stream else dict(
+                      chunks=box_stream.rkc_chunks(s, shard=True),
+                      launch_blocks=box_stream.rkc_launch_blocks(
+                          tuple(bufs[0].shape[1:]), f12.HALO, f13.C_RKC),
+                      **box_stream.kernel_info(
+                          "crd_fused_shard_box3d_rkc_info", dtype,
+                          MODE_IDS[consts[0].kind], consts[0].kinetics_id))))
         if label == cases[0][0]:
             ex = median_ms(lambda: refresh_halos(bufs, mesh, f12.HALO), n,
                            burst_n)
@@ -2962,6 +3034,10 @@ def main():
           ptxas_stream_kernels={
               src: ptxas_entries(src, box_stream.STREAM_KERNEL)
               for src in ("fused_box3d.cu", "fused_shard_box3d.cu")},
+          ptxas_rkc_stream_kernels={
+              src: ptxas_entries(src, box_stream.RKC_STREAM_KERNEL)
+              for src in ("fused_box3d_rkc.cu",
+                          "fused_shard_box3d_rkc.cu")},
           ptxas_fused_box3d=ptxas_summary("fused_box3d.cu"),
           ptxas_fused_box3d_rkc=ptxas_summary("fused_box3d_rkc.cu"),
           ptxas_fused_shard_step=ptxas_summary("fused_shard_step.cu"),
@@ -2998,7 +3074,7 @@ def main():
         tf = cfg_box.t_final
         profile_run(cfg_box, {}, tf, box_stream.STREAM_KERNEL)
         profile_run(dataclasses.replace(cfg_box, method="rkc2"), {}, tf,
-                    "fused_box3d_rkc_kernel")
+                    box_stream.rkc_kernel_name("box_profile"))
         profile_run(cfg_box, box_scar(cfg_box), tf,
                     box_stream.STREAM_KERNEL)
         profile_run(config_from_ini(INI, model="fhn", surface="torus"), {},
@@ -3012,7 +3088,7 @@ def main():
         profile_run(cfg_box, {}, tf, box_stream.STREAM_KERNEL,
                     mesh=shard_mesh(SHARD_MESH))
         profile_run(dataclasses.replace(cfg_box, method="rkc2"), {}, tf,
-                    "fused_shard_box3d_rkc_kernel",
+                    box_stream.rkc_kernel_name("box_profile", shard=True),
                     mesh=shard_mesh(SHARD_MESH))
         profile_run(cfg_box, box_scar(cfg_box), tf,
                     box_stream.STREAM_KERNEL, mesh=shard_mesh(SHARD_MESH))

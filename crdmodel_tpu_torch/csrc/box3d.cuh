@@ -7,10 +7,13 @@
 // exact because the kernels take only closed z walls (ops/kernel_common.py::
 // box_mode), where the coefficients across the z seam are zero. How x and y
 // find their neighbours is a grid policy, a template parameter of the
-// operator: BoxWrap (K6, K7) wraps them periodically on the whole box;
-// BoxHalo (K12, K13) reads them from a shard's halo-padded buffer, (nz,
+// operator: BoxWrap (K6) wraps them periodically on the whole box;
+// BoxHalo (K12) reads them from a shard's halo-padded buffer, (nz,
 // nyl + 2 halo, nxl + 2 halo), whose halo the mesh's exchange filled, and
-// wraps nothing. A shard kernel indexes every constant by the buffer's
+// wraps nothing (box_stream.cuh's StreamWrap and StreamHalo are the same
+// policies for the streaming passes of K6, K7, K12 and K13, on which the
+// shard kernels index the buffer alike). A shard kernel indexes every
+// constant by the buffer's
 // (k, j, i): its profiles, rows and fields are halo-padded the same way.
 // The operator on variable 0 comes in four modes (BoxMode), a template
 // parameter of each kernel, as the kinetics family is:
@@ -27,14 +30,15 @@
 // the library is built with -fmad=false, so each operation rounds as
 // PyTorch's does.
 //
-// The persistent scheme here is K7's and K13's, and K6's and K12's for the
-// tableaus other than bs32 (zonneveld43, dopri54), whose bs32 steps run
-// box_stream.cuh's z-streaming pass: one cooperative launch of as many
-// blocks as the card keeps resident, each thread walking the points with a
-// grid stride, and a grid-wide barrier between stages, whose values live
-// in a scratch buffer in device memory (the wrapper's `work`). Coefficient
-// and tissue fields are read through the read-only data cache; the stage
-// values, written by the same launch, with plain loads.
+// The persistent scheme here is K6's and K12's for the tableaus other than
+// bs32 (zonneveld43, dopri54); their bs32 steps and every step of K7 and
+// K13 run box_stream.cuh's z-streaming passes (box_rkc_stream.cuh for
+// RKC2): one cooperative launch of as many blocks as the card keeps
+// resident, each thread walking the points with a grid stride, and a
+// grid-wide barrier between stages, whose values live in a scratch buffer
+// in device memory (the wrapper's `work`). Coefficient and tissue fields
+// are read through the read-only data cache; the stage values, written by
+// the same launch, with plain loads.
 
 #pragma once
 
@@ -74,7 +78,7 @@ struct BoxConstants {
 // The grid policies: next(i, n) and prev(i, n), the neighbours of index i
 // along an in-plane axis of extent n (x with nx, y with ny).
 //
-// BoxWrap: the whole periodic box of K6 and K7.
+// BoxWrap: the whole periodic box of K6.
 struct BoxWrap {
   __device__ static __forceinline__ int next(int i, int n) {
     return i == n - 1 ? 0 : i + 1;
@@ -84,7 +88,7 @@ struct BoxWrap {
   }
 };
 
-// BoxHalo: one shard's halo-padded buffer (K12, K13). The kernels evaluate
+// BoxHalo: one shard's halo-padded buffer (K12). The kernels evaluate
 // points at most halo - 1 rings outside the block, so every neighbour lies
 // in the buffer; the clamp at its edge only keeps a stray index inside it.
 struct BoxHalo {
@@ -194,7 +198,7 @@ __device__ __forceinline__ void box_rhs_at(const BoxConstants<T>& c, T fz,
   dv_out = dv;
 }
 
-// box_rhs_at on the whole periodic box (K6, K7) at flat index g.
+// box_rhs_at on the whole periodic box (K6) at flat index g.
 template <int Mode, int Kin, typename T>
 __device__ __forceinline__ void box_rhs(const BoxConstants<T>& c, T fz,
                                         const T* su, const T* sv, size_t g,

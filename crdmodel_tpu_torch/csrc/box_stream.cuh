@@ -1,22 +1,25 @@
-// The z-streaming scheme of the port's fused embedded-ERK step kernels on
-// the 3-D box: K6 (fused_box3d.cu, the whole box, StreamWrap) and K12
-// (fused_shard_box3d.cu, one shard's block inside the halo the exchange
-// filled, StreamHalo), for an FSAL tableau of kStreamStages stages (bs32).
-// The launchers send the other tableaus the gates take (zonneveld43,
+// The z-streaming scheme of the port's fused step kernels on the 3-D box:
+// its region, rings and offsets (StreamPlan, StreamSlots, the ring of
+// variable 0, the chunk cones), shared by the embedded-ERK kernels K6
+// (fused_box3d.cu, the whole box, StreamWrap) and K12 (fused_shard_box3d.cu,
+// one shard's block inside the halo the exchange filled, StreamHalo) for an
+// FSAL tableau of kStreamStages stages (bs32), defined here, and the RKC2
+// chunk kernels K7 and K13 (box_rkc_stream.cuh) on the same grid policies.
+// The launchers send the other ERK tableaus the gates take (zonneveld43,
 // dopri54) to box3d.cuh's persistent kernels (ops/box_stream.py::
 // uses_stream).
 //
 // An ordinary launch: each block owns one in-plane tile of kStreamTileX x
 // kStreamTileY output points and one chunk of z_chunk planes
 // (ops/box_stream.py::stream_plan), and marches up z through a software
-// pipeline, as the TPU kernel's "3.5-D blocking" does
-// (crdmodel_tpu/ops/pallas_box3d.py:10-35).
-// Iteration p evaluates k_0 at plane p, k_1 at p - 1, k_2 at p - 2 and k_3
-// at p - 3, in that order: k_s(q) reads its stage input Y_s at planes q - 1,
-// q, q + 1, and Y_s(q) is complete once k_{s-1}(q) has been added, earlier
-// in the same iteration. Only variable 0 of each Y_s is read at
-// neighbours: it lives in a ring of three planes in shared memory, plane q
-// in slot q % 3, on the tile and its kStreamStages rings. What is
+// pipeline of at most kStreamDepth evaluations, as the TPU kernel's "3.5-D
+// blocking" does (crdmodel_tpu/ops/pallas_box3d.py:10-35).
+// For bs32, iteration p evaluates k_0 at plane p, k_1 at p - 1, k_2 at p - 2
+// and k_3 at p - 3, in that order: k_s(q) reads its stage input Y_s at
+// planes q - 1, q, q + 1, and Y_s(q) is complete once k_{s-1}(q) has been
+// added, earlier in the same iteration. Only variable 0 of each Y_s is read
+// at neighbours: it lives in a ring of three planes in shared memory, plane
+// q in slot q % 3, on the tile and its kStreamDepth rings. What is
 // pointwise stays with its point: a block's 512 threads are fixed to the
 // points of the region for the whole launch (the tile first, row-major,
 // then ring after ring, so a stage that needs fewer rings skips whole
@@ -33,14 +36,14 @@
 // plane above the top reads the top's slot, the one below the bottom the
 // bottom's, as box3d.cuh's operator clamps y (boxes with nz < 4 too).
 //
-// Stage s runs on the tile and its n - 1 - s rings, at the planes its cone
-// needs: a chunk [z0, z1) evaluates k_s on [z0 - (n-1-s), z1 + (n-1-s)),
-// clamped to the box, so a chunk recomputes the n - 1 planes of the cone at
-// its lower end and runs on past its upper end only where the box goes on.
-// Four barriers an iteration: after the y plane enters ring 0 and after
-// each stage's writes to the next ring. y is read about once (the rings
-// and chunk cones aside), y_new written once, and no stage value goes to
-// device memory.
+// Evaluation s of a pipeline of depth n runs on the tile and its n - 1 - s
+// rings, at the planes its cone needs: a chunk [z0, z1) evaluates it on
+// [z0 - (n-1-s), z1 + (n-1-s)), clamped to the box (stream_cone), so a chunk
+// recomputes the n - 1 planes of the cone at its lower end and runs on past
+// its upper end only where the box goes on. Four barriers an iteration:
+// after the y plane enters ring 0 and after each stage's writes to the next
+// ring. y is read about once (the rings and chunk cones aside), y_new
+// written once, and no stage value goes to device memory.
 //
 // Each tile-and-chunk block writes one partial sum of its points' squared
 // WRMS-scaled errors, in a fixed order that no occupancy changes: each
@@ -65,7 +68,10 @@
 namespace crd {
 
 constexpr int kStreamThreads = 512;   // ops/box_stream.py THREADS
-constexpr int kStreamStages = 4;      // STAGES: bs32
+// the region's rings, and the most evaluations a pass pipelines: bs32's
+// four stages, an RKC2 chunk's at most four evaluations
+constexpr int kStreamDepth = 4;       // DEPTH
+constexpr int kStreamStages = kStreamDepth;   // STAGES: bs32
 constexpr int kStreamTileX = 32;      // TILE_X
 
 // Where a tile point keeps its error (fused_box_stream_kernel): in shared
@@ -81,12 +87,12 @@ constexpr int kStreamTileY = 16;      // TILE_Y
 template <typename T>
 constexpr int kStreamMinBlocks = sizeof(T) == 4 ? 2 : 1;
 
-// The block's region: the tile and kStreamStages rings, kW x kR points;
+// The block's region: the tile and kStreamDepth rings, kW x kR points;
 // the slots of its points in onion order (the tile, then rings 1, 2, ...);
-// k_0 runs on the tile and n - 1 rings (kEval points), the outer ring is
-// only read.
+// the first evaluation of a pipeline kN deep runs on the tile and n - 1
+// rings (kEval points), the outer ring is only read.
 struct StreamPlan {
-  static constexpr int kN = kStreamStages;
+  static constexpr int kN = kStreamDepth;
   static constexpr int kTile = kStreamTileX * kStreamTileY;
   static constexpr int kW = kStreamTileX + 2 * kN;
   static constexpr int kR = kStreamTileY + 2 * kN;
@@ -101,14 +107,13 @@ struct StreamPlan {
   static_assert(kTile % kStreamThreads == 0, "a tile fills whole slots");
 
   // dynamic shared memory: a ring of three planes for each stage input's
-  // variable 0, the tile's errors of both variables on the kN planes in
-  // flight where the mode keeps them there (err_shared), and the region's
+  // variable 0, then `pointwise` values the kernel keeps in its threads'
+  // own shared slots (bs32: the tile's errors of both variables on the kN
+  // planes in flight where the mode keeps them there), then the region's
   // in-plane offsets (ops/box_stream.py::shared_bytes adds the static
   // warp sums)
-  static constexpr size_t bytes(size_t itemsize, bool err_shared) {
-    return static_cast<size_t>(3 * kN * kRegion
-                               + (err_shared ? 2 * kN * kTile : 0))
-               * itemsize
+  static constexpr size_t bytes(size_t itemsize, size_t pointwise) {
+    return (static_cast<size_t>(3 * kN * kRegion) + pointwise) * itemsize
            + static_cast<size_t>(kRegion) * sizeof(int);
   }
 
@@ -148,13 +153,26 @@ struct StreamPlan {
   }
 };
 
+// The planes of a z chunk: as few equal chunks as bring a launch of
+// in_plane tiles a plane to min_tiles blocks, at most one a plane
+// (ops/box_stream.py::stream_plan).
+__host__ __device__ inline int stream_z_chunk(int nz, int in_plane,
+                                              int min_tiles) {
+  const int want = (min_tiles + in_plane - 1) / in_plane;
+  const int chunks = want < nz ? want : nz;
+  return (nz + chunks - 1) / chunks;
+}
+
 // The grid policies: the row and column of the state's plane (and of the
-// constants) of extent point (y, x), whether its y_new is written
-// (in_block) and whether it enters the error sum (counted).
+// constants) of extent point (y, x), whether it lies in the extent grown
+// by `rings` (in_extent: its y_new, or a chunk's hand-on values, are
+// written), whether it enters the error sum (counted), and the rings
+// beyond the extent that an RKC2 chunk with n_rest evaluations to come
+// must cover (extent_rings).
 //
-// StreamWrap: the whole box of K6, x and y periodic (the wrap is a loop,
-// once a launch a point; more than one step only on grids smaller than the
-// region).
+// StreamWrap: the whole box of K6 and K7, x and y periodic (the wrap is a
+// loop, once a launch a point; more than one step only on grids smaller
+// than the region); a chunk covers the box.
 struct StreamWrap {
   int ny;
   int nx;
@@ -169,21 +187,25 @@ struct StreamWrap {
     while (x >= nx) x -= nx;
     return x;
   }
-  __device__ __forceinline__ bool in_block(int y, int x) const {
+  __device__ __forceinline__ bool in_extent(int y, int x, int) const {
     return y < ny && x < nx;
   }
   __device__ __forceinline__ bool counted(int y, int x) const {
-    return in_block(y, x);
+    return in_extent(y, x, 0);
   }
-  int extent_y() const { return ny; }
-  int extent_x() const { return nx; }
+  __host__ __device__ int extent_rings(int) const { return 0; }
+  __host__ __device__ int extent_y() const { return ny; }
+  __host__ __device__ int extent_x() const { return nx; }
 };
 
 // StreamHalo: one shard's block in its (nz, nyl + 2 halo, nxl + 2 halo)
-// buffer (K12); a full tile's region lies inside the buffer (halo >= the
-// scheme's rings), the clamp at its edge only keeps the partial tiles'
-// stray points inside it (they feed no point that is written). Mirror-pad
-// cells step like the others and stay out of the sum.
+// buffer (K12, K13); a region lies inside the buffer (halo >= the scheme's
+// rings plus the extent's), the clamp at its edge only keeps the partial
+// tiles' stray points inside it (they feed no point that is written). An
+// RKC2 chunk covers the block grown by the evaluations still to come, so
+// that its last chunk's tiles are the block's (ops/fused_shard_rkc.py::
+// extent_rings). Mirror-pad cells step like the others and stay out of the
+// sum.
 struct StreamHalo {
   BoxShard s;
   int ny;    // the buffer's rows and columns
@@ -195,14 +217,15 @@ struct StreamHalo {
   __device__ __forceinline__ int col(int x) const {
     return min(max(x + s.halo, 0), nx - 1);
   }
-  __device__ __forceinline__ bool in_block(int y, int x) const {
-    return y < s.nyl && x < s.nxl;
+  __device__ __forceinline__ bool in_extent(int y, int x, int rings) const {
+    return y < s.nyl + rings && x < s.nxl + rings;
   }
   __device__ __forceinline__ bool counted(int y, int x) const {
     return y < s.valid_rows && x < s.valid_cols;
   }
-  int extent_y() const { return s.nyl; }
-  int extent_x() const { return s.nxl; }
+  __host__ __device__ int extent_rings(int n_rest) const { return n_rest; }
+  __host__ __device__ int extent_y() const { return s.nyl; }
+  __host__ __device__ int extent_x() const { return s.nxl; }
 };
 
 // A point's constants, read once a launch: the profile modes' four
@@ -333,7 +356,132 @@ __device__ __forceinline__ void stream_rhs(const BoxConstants<T>& c,
   dv_out = dv;
 }
 
-// One step on the tile (blockIdx.x, blockIdx.y) of kStreamTileX x
+// A thread's points of its block's region, fixed for the launch: slot m
+// holds region point threadIdx.x + kStreamThreads m (onion order). lr: its
+// local index and, from bit 16, its ring (kN + 1: no point); go: its
+// in-plane offset. The tile's slots (m < kTileSlots, ring 0) keep the
+// point's constants and whether it lies in the extent (its y_new or hand-on
+// values are written) and is counted; the rings' slots keep its row and
+// column (rc, row from bit 16) and read the constants at each evaluation,
+// which leaves their registers to the planes in flight.
+template <typename T>
+struct StreamSlots {
+  int lr[StreamPlan::kSlots];
+  int go[StreamPlan::kSlots];
+  int rc[StreamPlan::kSlots];
+  StreamPoint<T> pt[StreamPlan::kTileSlots];
+  bool write[StreamPlan::kTileSlots];
+  bool count[StreamPlan::kTileSlots];
+
+  // slot m holds a point of the tile or of its first `rings` rings
+  __device__ __forceinline__ bool within(int m, int rings) const {
+    return lr[m] < (rings + 1) << 16;
+  }
+  __device__ __forceinline__ int local(int m) const { return lr[m] & 0xffff; }
+  // the constants of slot m's point
+  template <int Mode>
+  __device__ __forceinline__ StreamPoint<T> point(const BoxConstants<T>& c,
+                                                  T fz, int m) const {
+    return m < StreamPlan::kTileSlots
+               ? pt[m]
+               : stream_point<Mode>(c, fz, rc[m] >> 16, rc[m] & 0xffff);
+  }
+};
+
+// The slots of the region of the tile whose first point is extent point
+// (ey0, ex0), the extent grown by `rings`; the region's in-plane offsets
+// into goff.
+template <int Mode, class Grid, typename T>
+__device__ __forceinline__ void stream_slots(const BoxConstants<T>& c, T fz,
+                                             const Grid& grid, int ey0,
+                                             int ex0, int rings, int* goff,
+                                             StreamSlots<T>& sl) {
+  using P = StreamPlan;
+  constexpr int NS = P::kN;
+#pragma unroll
+  for (int m = 0; m < P::kSlots; ++m) {
+    const int q = static_cast<int>(threadIdx.x) + kStreamThreads * m;
+    sl.lr[m] = (NS + 1) << 16;
+    sl.go[m] = 0;
+    sl.rc[m] = 0;
+    if (q >= P::kRegion) continue;
+    int ly, lx, r;
+    P::point(q, ly, lx, r);
+    const int ey = ey0 + ly - NS;
+    const int ex = ex0 + lx - NS;
+    const int row = grid.row(ey), col = grid.col(ex);
+    const int li = ly * P::kW + lx;
+    sl.lr[m] = m < P::kTileSlots ? li : li | r << 16;
+    sl.go[m] = row * c.nx + col;
+    sl.rc[m] = row << 16 | col;
+    goff[li] = sl.go[m];
+    if (m < P::kTileSlots) {
+      sl.pt[m] = stream_point<Mode>(c, fz, row, col);
+      sl.write[m] = grid.in_extent(ey, ex, rings);
+      sl.count[m] = grid.counted(ey, ex);
+    }
+  }
+}
+
+// The cones of a pipeline of depth n on the z chunk [z0, z1) of a box of nz
+// planes: evaluation i runs at the planes [lo[i], hi[i]).
+template <int N>
+__device__ __forceinline__ void stream_cone(int n, int z0, int z1, int nz,
+                                            int (&lo)[N], int (&hi)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    lo[i] = max(z0 - (n - 1 - i), 0);
+    hi[i] = min(z1 + (n - 1 - i), nz);
+  }
+}
+
+// Ring 0, the first evaluation's input: on the slots of the tile and its
+// first `rings` rings, planes p0 - 1 (clamped) and p0 of variable 0 of src
+// (planes `plane` apart) into their slots, plane p0 + 1 into nu
+// (stream_ring0_store puts it in place).
+template <typename T, typename Off>
+__device__ __forceinline__ void stream_ring0_begin(
+    const T* src, T* ring0, const StreamSlots<T>& sl, int rings, int p0,
+    int nz, Off plane, T (&nu)[StreamPlan::kSlots]) {
+  constexpr int L = StreamPlan::kRegion;
+  const Off kd = max(p0 - 1, 0) * plane;
+  const Off k0 = p0 * plane;
+  const Off kn = min(p0 + 1, nz - 1) * plane;
+#pragma unroll
+  for (int m = 0; m < StreamPlan::kSlots; ++m) {
+    if (!sl.within(m, rings)) continue;
+    const int li = sl.local(m);
+    ring0[(max(p0 - 1, 0) % 3) * L + li] = src[kd + sl.go[m]];
+    ring0[(p0 % 3) * L + li] = src[k0 + sl.go[m]];
+    nu[m] = src[kn + sl.go[m]];
+  }
+}
+
+// Iteration p: ring 0 takes plane p + 1 (nu); the plane above the top is
+// the top's (reads clamp), never stored.
+template <typename T>
+__device__ __forceinline__ void stream_ring0_store(
+    T* ring0, const StreamSlots<T>& sl, int rings, int p, int nz,
+    const T (&nu)[StreamPlan::kSlots]) {
+  if (p + 1 >= nz) return;
+#pragma unroll
+  for (int m = 0; m < StreamPlan::kSlots; ++m)
+    if (sl.within(m, rings))
+      ring0[((p + 1) % 3) * StreamPlan::kRegion + sl.local(m)] = nu[m];
+}
+
+// and reads plane p + 2 (clamped) of src into nu, for the next iteration
+template <typename T, typename Off>
+__device__ __forceinline__ void stream_ring0_load(
+    const T* src, const StreamSlots<T>& sl, int rings, int p, int nz,
+    Off plane, T (&nu)[StreamPlan::kSlots]) {
+  const Off kn = min(p + 2, nz - 1) * plane;
+#pragma unroll
+  for (int m = 0; m < StreamPlan::kSlots; ++m)
+    if (sl.within(m, rings)) nu[m] = src[kn + sl.go[m]];
+}
+
+// One bs32 step on the tile (blockIdx.x, blockIdx.y) of kStreamTileX x
 // kStreamTileY extent points and the z chunk blockIdx.z of z_chunk planes.
 template <int Mode, int Kin, class Grid, typename T>
 __global__ void __launch_bounds__(kStreamThreads, (kStreamMinBlocks<T>))
@@ -369,46 +517,15 @@ __global__ void __launch_bounds__(kStreamThreads, (kStreamMinBlocks<T>))
   const int z0 = blockIdx.z * z_chunk;
   const int z1 = min(z0 + z_chunk, nz);
 
-  // the slots, each a region point's for the launch: lr its local index
-  // and, from bit 16, its ring (NS + 1: no point); go its in-plane
-  // offset. The tile's slots (m < ST, ring 0) keep the point's constants
-  // and whether its y_new is written and counted; the rings' slots keep
-  // its row and column (rc, row from bit 16) and read the constants at
-  // each evaluation, which leaves their registers to the planes in flight.
-  int lr[S], go[S], rc[S];
-  StreamPoint<T> pt[ST];
-  bool write[ST], count[ST];
-#pragma unroll
-  for (int m = 0; m < S; ++m) {
-    const int q = static_cast<int>(threadIdx.x) + kStreamThreads * m;
-    lr[m] = (NS + 1) << 16;
-    go[m] = 0;
-    rc[m] = 0;
-    if (q >= L) continue;
-    int ly, lx, r;
-    P::point(q, ly, lx, r);
-    const int ey = static_cast<int>(blockIdx.y) * kStreamTileY + ly - NS;
-    const int ex = static_cast<int>(blockIdx.x) * kStreamTileX + lx - NS;
-    const int row = grid.row(ey), col = grid.col(ex);
-    const int li = ly * W + lx;
-    lr[m] = m < ST ? li : li | r << 16;
-    go[m] = row * c.nx + col;
-    rc[m] = row << 16 | col;
-    goff[li] = go[m];
-    if (m < ST) {
-      pt[m] = stream_point<Mode>(c, fz, row, col);
-      write[m] = grid.in_block(ey, ex);
-      count[m] = grid.counted(ey, ex);
-    }
-  }
+  StreamSlots<T> sl;
+  stream_slots<Mode>(c, fz, grid,
+                     static_cast<int>(blockIdx.y) * kStreamTileY,
+                     static_cast<int>(blockIdx.x) * kStreamTileX, 0, goff,
+                     sl);
 
   // stage s runs at planes [lo[s], hi[s]); iteration p takes k_s(p - s)
   int lo[NS], hi[NS];
-#pragma unroll
-  for (int s = 0; s < NS; ++s) {
-    lo[s] = max(z0 - (NS - 1 - s), 0);
-    hi[s] = min(z1 + (NS - 1 - s), nz);
-  }
+  stream_cone(NS, z0, z1, nz, lo, hi);
   const int p_first = lo[0];
   const int p_end = z1 + NS - 1;
 
@@ -416,19 +533,7 @@ __global__ void __launch_bounds__(kStreamThreads, (kStreamMinBlocks<T>))
   // p_first now, plane p + 1 from iteration p on, loaded one iteration
   // ahead (nu)
   T nu[S];
-  {
-    const Off kd = max(p_first - 1, 0) * plane;
-    const Off k0 = p_first * plane;
-    const Off kn = min(p_first + 1, nz - 1) * plane;
-#pragma unroll
-    for (int m = 0; m < S; ++m) {
-      if (lr[m] >= (NS + 1) << 16) continue;
-      const int li = lr[m] & 0xffff;
-      rings[(max(p_first - 1, 0) % 3) * L + li] = y[kd + go[m]];
-      rings[(p_first % 3) * L + li] = y[k0 + go[m]];
-      nu[m] = y[kn + go[m]];
-    }
-  }
+  stream_ring0_begin(y, rings, sl, NS, p_first, nz, plane, nu);
 
   // the planes in flight, lag by lag (lag l: plane p - l, after k_0 ..
   // k_{l-1}): su[l][t], sv[l][t] Y_t's u and v (u of t > l; Y_l's u is in
@@ -443,29 +548,21 @@ __global__ void __launch_bounds__(kStreamThreads, (kStreamMinBlocks<T>))
   T w0u[ST], w0v[ST];
   T acc = T(0);
   for (int p = p_first; p < p_end; ++p) {
-    // ring 0 takes plane p + 1; the plane above the top is the top's
-    // (reads clamp), never stored
-    if (p + 1 < nz) {
-#pragma unroll
-      for (int m = 0; m < S; ++m)
-        if (lr[m] < (NS + 1) << 16)
-          rings[((p + 1) % 3) * L + (lr[m] & 0xffff)] = nu[m];
-    }
+    stream_ring0_store(rings, sl, NS, p, nz, nu);
     // variable 1 of plane p; plane p + 2's variable 0 for the next
     // iteration; y0 of plane p - (NS - 1)
     T v0[SE];
+    stream_ring0_load(y, sl, NS, p, nz, plane, nu);
     {
       const Off k0 = min(p, nz - 1) * plane;
-      const Off kn = min(p + 2, nz - 1) * plane;
       const Off kw = max(p - (NS - 1), 0) * plane;
 #pragma unroll
-      for (int m = 0; m < S; ++m) {
-        if (lr[m] >= (NS + 1) << 16) continue;
-        nu[m] = y[kn + go[m]];
-        if (m < SE) v0[m] = y[var1 + k0 + go[m]];
+      for (int m = 0; m < SE; ++m) {
+        if (!sl.within(m, NS)) continue;
+        v0[m] = y[var1 + k0 + sl.go[m]];
         if (kW0Ahead && m < ST) {
-          w0u[m] = y[kw + go[m]];
-          w0v[m] = y[var1 + kw + go[m]];
+          w0u[m] = y[kw + sl.go[m]];
+          w0v[m] = y[var1 + kw + sl.go[m]];
         }
       }
     }
@@ -483,20 +580,18 @@ __global__ void __launch_bounds__(kStreamThreads, (kStreamMinBlocks<T>))
 #pragma unroll
       for (int m = 0; m < SE; ++m) {
         // stage s on the tile and NS - 1 - s rings
-        if (m >= ST && lr[m] >= (NS - s) << 16) continue;
-        const int li = lr[m] & 0xffff;
+        if (m >= ST && !sl.within(m, NS - 1 - s)) continue;
+        const int li = sl.local(m);
         if (s == 0) {        // the plane's stage inputs start from y0
 #pragma unroll
           for (int t = 1; t < NS; ++t) su[0][t][m] = um[li];
 #pragma unroll
           for (int t = 0; t < NS; ++t) sv[0][t][m] = v0[m];
         }
-        const StreamPoint<T> ptm =
-            m < ST ? pt[m]
-                   : stream_point<Mode>(c, fz, rc[m] >> 16, rc[m] & 0xffff);
         T du, dv;
-        stream_rhs<Mode, Kin, W>(c, ptm, ud, um, uu, goff, li, q, kD, kU,
-                                 plane, sv[s][s][m], du, dv);
+        stream_rhs<Mode, Kin, W>(c, sl.template point<Mode>(c, fz, m), ud,
+                                 um, uu, goff, li, q, kD, kU, plane,
+                                 sv[s][s][m], du, dv);
         // k_s into the inputs of the stages after it and the error, each
         // in stage order
 #pragma unroll
@@ -535,12 +630,12 @@ __global__ void __launch_bounds__(kStreamThreads, (kStreamMinBlocks<T>))
         }
         if (s == NS - 1) {
           // y_new is the last stage's input (FSAL); the error is complete
-          const Off g = q * plane + go[m];
-          if (write[m]) {
+          const Off g = q * plane + sl.go[m];
+          if (sl.write[m]) {
             y_new[g] = su[s][s][m];
             y_new[var1 + g] = sv[s][s][m];
           }
-          if (count[m]) {      // the weights from y0
+          if (sl.count[m]) {      // the weights from y0
             const T fu = kErrShared ? e[0] : eu[s][m];
             const T fv = kErrShared ? e[P::kTile] : ev[s][m];
             const T yu = kW0Ahead ? w0u[m] : y[g];
@@ -580,6 +675,15 @@ inline bool stream_take(const StageTable& tab) {
   return tab.n == kStreamStages && stage_table_is_fsal(tab);
 }
 
+// Shared bytes of the bs32 kernel in `mode` (ops/box_stream.py::
+// shared_bytes, less the static warp sums).
+constexpr size_t stream_bytes(size_t itemsize, int mode) {
+  return StreamPlan::bytes(
+      itemsize, stream_err_shared(mode)
+                    ? 2 * StreamPlan::kN * StreamPlan::kTile
+                    : 0);
+}
+
 // Launch one step over the tiles of grid's extent on `stream`: ntx x nty
 // tiles of kStreamTileX x kStreamTileY (tile_y, the plan's, must be it),
 // ceil(nz / z_chunk) chunks, one partial sum each (at most `capacity`,
@@ -606,8 +710,7 @@ int launch_box_stream(const BoxConstants<T>& c, Grid grid, int mode,
     auto kernel =
         &fused_box_stream_kernel<decltype(m)::value, decltype(k)::value, Grid,
                                  T>;
-    const size_t smem = StreamPlan::bytes(
-        sizeof(T), stream_err_shared(decltype(m)::value));
+    const size_t smem = stream_bytes(sizeof(T), decltype(m)::value);
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
@@ -622,28 +725,33 @@ int launch_box_stream(const BoxConstants<T>& c, Grid grid, int mode,
 }
 
 // out[0] the resident blocks an SM, out[1] the registers a thread, out[2]
-// the shared bytes a block (static and dynamic) of the stream kernel of
-// (mode, kinetics) on the grid policy Grid; returns the CUDA error code.
+// the shared bytes a block (static and dynamic) of `kernel` with `smem`
+// bytes of dynamic shared memory; returns the CUDA error code.
+template <typename Kernel>
+int stream_info(Kernel kernel, size_t smem, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel,
+                                                        kStreamThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[1] = attr.numRegs;
+  out[2] = static_cast<int>(attr.sharedSizeBytes + smem);
+  return 0;
+}
+
+// stream_info of the bs32 kernel of (mode, kinetics) on the grid policy
+// Grid.
 template <typename T, class Grid>
 int stream_kernel_info(int mode, int kinetics, int* out) {
   return dispatch_box(mode, kinetics, [&](auto m, auto k) {
-    auto kernel =
+    return stream_info(
         &fused_box_stream_kernel<decltype(m)::value, decltype(k)::value, Grid,
-                                 T>;
-    const size_t smem = StreamPlan::bytes(
-        sizeof(T), stream_err_shared(decltype(m)::value));
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    cudaFuncAttributes attr;
-    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          out, kernel, kStreamThreads, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    out[1] = attr.numRegs;
-    out[2] = static_cast<int>(attr.sharedSizeBytes + smem);
-    return 0;
+                                 T>,
+        stream_bytes(sizeof(T), decltype(m)::value), out);
   });
 }
 

@@ -4,35 +4,42 @@
 //
 // Replaces crdmodel_tpu/ops/pallas_box3d_rkc.py::build_fused_box3d_rkc_step,
 // the Pallas TPU kernel that takes every attempted step of an rkc2 run on a
-// box. One launch performs a whole step of s Chebyshev stages
-// (integrate/rkc.py): F0 = f(y0), Y1 = y0 + (h mu1) F0, for j = 2..s
+// box. A step of s Chebyshev stages (integrate/rkc.py): F0 = f(y0),
+// Y1 = y0 + (h mu1) F0, for j = 2..s
 //   Yj = (1 - mu - nu) y0 + mu Yj-1 + nu Yj-2 + (h mut) f(Yj-1) + (h gt) F0,
 // y_new = Ys, F1 = f(y_new), est = 0.8 (y0 - y_new) + (0.4 h)(F0 + F1),
-// and one partial sum of squared WRMS-scaled errors per block in a fixed
-// order (bitwise-equal across launches). s, h, the freeze scalar and the
-// coefficient tables live on the device; an s outside [2, s_cap] keeps y
-// and returns NaN partial sums, which the adaptive loop rejects.
+// and partial sums of squared WRMS-scaled errors in a fixed order
+// (bitwise-equal across launches). s, h, the freeze scalar and
+// the coefficient tables live on the device; an s outside [2, s_cap] keeps
+// y and returns NaN partial sums, which the adaptive loop rejects.
 //
 // What bounds it on an H100: as K6, the state read once and y_new written
 // once (134 MB at 32x512x512 in f32, some 40 us at 3.35 TB/s), plus each
-// coefficient field once, whatever s; the arithmetic (s + 2 right-hand
-// sides a point) stays far below the card's rate.
+// coefficient field once, whatever s; at s = 7 the arithmetic of s + 1
+// right-hand sides a point comes close.
 //
-// Design: the TPU kernel streams planes along z with a ring for y0, F0 and
-// each Yj (47 planes at its cap of 7 stages), which in 227 KB of shared
-// memory fits only an 8x8 in-plane tile with an 8-ring halo, 9x in-plane
-// recompute. This kernel is persistent instead, as K6 (box3d.cuh): one
-// cooperative launch, F0 and Y1 at every point, a grid barrier, then each
-// stage's Yj at every point and a barrier, the recurrence's live set (F0,
-// Yj-1, Yj-2; y0 is the input) in three scratch states in device memory.
-// Yj overwrites Yj-2 in place: a point reads Yj-2 only at itself. The step
-// moves some 4 + 5s state sweeps where the bound is 2. The stage cap of the
-// TPU kernel stays (ops/fused_box3d_rkc.py C_RKC): it sets the step
-// sequence. No tensor cores, TMA or tuning yet.
+// Design: two schemes, chosen by the launcher on the operator mode
+// (box_rkc_stream.cuh::rkc_stream_take), each the faster at the slab's
+// shapes on the H100 (PERF.md, section 6). The tensor mode runs
+// box_rkc_stream.cuh on the whole periodic box (StreamWrap): the s + 1
+// evaluations in chunks of at most four, each chunk one z-streaming launch
+// over 32 x 16 tiles and z chunks, the stage inputs' variable 0 in rings of
+// three shared planes, the pointwise values with their points; the first
+// chunk hands F0 and its last two stage values to the second through
+// `work`: two launches a step at s >= 4, one partial sum a tile and z
+// chunk. The profile, tissue and field modes run the persistent scheme:
+// one cooperative launch, F0 and Y1 at every point, a grid barrier, then
+// each stage's Yj at every point and a barrier, the recurrence's live set
+// (F0, Yj-1, Yj-2; y0 is the input) in `work`'s three states; Yj
+// overwrites Yj-2 in place (a point reads Yj-2 only at itself); some 4 + 5s
+// state sweeps a step where the bound is 2, one partial sum a resident
+// block. The TPU kernel's stage cap (ops/fused_box3d_rkc.py C_RKC = 7) is
+// this kernel's too: two chunks of four. No tensor cores or TMA.
 
 #include <cuda_runtime.h>
 
 #include "box3d.cuh"
+#include "box_rkc_stream.cuh"
 
 namespace {
 
@@ -41,17 +48,7 @@ using crd::kBoxThreads;
 
 constexpr int kMaxStages = 23;    // ops/fused_rkc.py S_MAX_KERNEL: ctab rows
 
-template <typename T>
-__device__ __forceinline__ T quiet_nan();
-template <>
-__device__ __forceinline__ float quiet_nan<float>() {
-  return __int_as_float(0x7fc00000);
-}
-template <>
-__device__ __forceinline__ double quiet_nan<double>() {
-  return __longlong_as_double(0x7ff8000000000000LL);
-}
-
+// The persistent scheme's step.
 template <int Mode, int Kin, typename T>
 __global__ void __launch_bounds__(kBoxThreads) fused_box3d_rkc_kernel(
     const T* __restrict__ y, T* __restrict__ y_new, T* __restrict__ ss,
@@ -69,7 +66,7 @@ __global__ void __launch_bounds__(kBoxThreads) fused_box3d_rkc_kernel(
     // no table row for this stage count (uniform: every block leaves
     // before any barrier): keep y, poison the error sum
     for (size_t g = first; g < 2 * n; g += stride) y_new[g] = y[g];
-    if (threadIdx.x == 0) ss[blockIdx.x] = quiet_nan<T>();
+    if (threadIdx.x == 0) ss[blockIdx.x] = crd::quiet_nan<T>();
     return;
   }
   crd::cg::grid_group grid = crd::cg::this_grid();
@@ -140,14 +137,19 @@ template <typename T>
 int launch(const void* y, void* y_new, void* ss, int capacity,
            int* n_blocks, void* work, const void* h, const void* fz,
            const void* s, const void* mu1_tab, const void* ctab, int s_cap,
-           CRD_BOX_OPERATOR_ARGS) {
+           int min_tiles, CRD_BOX_OPERATOR_ARGS) {
   BoxConstants<T> c;
   const void* const coeffs[6] = {c0, c1, c2, c3, c4, c5};
-  if (s_cap < 2 || s_cap > kMaxStages
+  if (s_cap < 2 || s_cap > crd::kRkcStreamStages
       || !crd::make_box_constants<T>(coeffs, tissue, invs, mode, beta,
                                      beta_field, mask, has_freeze, nz, ny,
                                      nx, &c))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (crd::rkc_stream_take(mode))
+    return crd::launch_box_rkc_stream<T>(
+        c, crd::StreamWrap{ny, nx}, mode, kinetics, y, y_new, ss, capacity,
+        n_blocks, work, h, fz, s, mu1_tab, ctab, s_cap, min_tiles, rtol,
+        atol, stream);
   const T* y_arg = static_cast<const T*>(y);
   T* ynew_arg = static_cast<T*>(y_new);
   T* ss_arg = static_cast<T*>(ss);
@@ -171,14 +173,17 @@ int launch(const void* y, void* y_new, void* ss, int capacity,
 
 }  // namespace
 
+// min_tiles: the stream scheme's blocks a launch should reach
+// (ops/box_stream.py RKC_MIN_TILES), unused by the persistent one; work:
+// three states of y's shape
 #define CRD_FUSED_BOX3D_RKC_ARGS                                             \
   const void *y, void *y_new, void *ss, int capacity, int *n_blocks,        \
       void *work, const void *h, const void *fz, const void *s,             \
-      const void *mu1_tab, const void *ctab, int s_cap,                     \
+      const void *mu1_tab, const void *ctab, int s_cap, int min_tiles,      \
       CRD_BOX_OPERATOR_ARGS
 #define CRD_FUSED_BOX3D_RKC_PASS                                             \
   y, y_new, ss, capacity, n_blocks, work, h, fz, s, mu1_tab, ctab, s_cap,   \
-      CRD_BOX_OPERATOR_PASS
+      min_tiles, CRD_BOX_OPERATOR_PASS
 
 extern "C" int crd_fused_box3d_rkc_step_f32(CRD_FUSED_BOX3D_RKC_ARGS) {
   return launch<float>(CRD_FUSED_BOX3D_RKC_PASS);
@@ -186,4 +191,15 @@ extern "C" int crd_fused_box3d_rkc_step_f32(CRD_FUSED_BOX3D_RKC_ARGS) {
 
 extern "C" int crd_fused_box3d_rkc_step_f64(CRD_FUSED_BOX3D_RKC_ARGS) {
   return launch<double>(CRD_FUSED_BOX3D_RKC_PASS);
+}
+
+// The stream scheme's kernel of (mode, kinetics) on the whole box: out[0]
+// blocks an SM, out[1] registers a thread, out[2] shared bytes a block
+// (ops/box_stream.py::kernel_info).
+extern "C" int crd_fused_box3d_rkc_info(int f64, int mode, int kinetics,
+                                        int* out) {
+  return f64 ? crd::rkc_stream_kernel_info<double, crd::StreamWrap>(
+                   mode, kinetics, out)
+             : crd::rkc_stream_kernel_info<float, crd::StreamWrap>(
+                   mode, kinetics, out);
 }

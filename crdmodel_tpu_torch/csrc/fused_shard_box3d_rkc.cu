@@ -7,38 +7,47 @@
 // attempted step of a sharded rkc2 run on a box. It is K7
 // (fused_box3d_rkc.cu) on one shard, with K12's layout (fused_shard_box3d.cu):
 // one exchange of width halo a step fills the (y, x) halo of the shard's
-// (2, nz, nyl + 2 halo, nxl + 2 halo) buffer, and one launch computes the
+// (2, nz, nyl + 2 halo, nxl + 2 halo) buffer, and one step computes the
 // s Chebyshev stages
 //   F0 = f(y0), Y1 = y0 + (h mu1) F0, for j = 2..s
 //   Yj = (1 - mu - nu) y0 + mu Yj-1 + nu Yj-2 + (h mut) f(Yj-1) + (h gt) F0,
 // y_new = Ys and F1 = f(y_new) on the block, est = 0.8 (y0 - y_new) +
-// (0.4 h)(F0 + F1), and one partial sum of squared WRMS-scaled errors per
-// thread block over the PHYSICAL cells, in a fixed order. s, h, the freeze
-// scalar and the coefficient tables live on the device; the caller
+// (0.4 h)(F0 + F1), and partial sums of squared WRMS-scaled errors over
+// the PHYSICAL cells, in a fixed order. s, h, the
+// freeze scalar and the coefficient tables live on the device; the caller
 // max-reduces the spectral-radius bound across the shards, so every shard
 // runs the same s. An s outside [2, s_cap] keeps y and returns NaN partial
 // sums, which the adaptive loop rejects.
 //
-// The stage ladder: F1 on the block needs Ys on 1 ring, Yj on s + 1 - j
-// rings (Yj-1 one ring wider), F0 and Y1 on s rings, so y0 on s + 1 <= halo
-// rings: the launcher takes s_cap <= halo - 1, and with the exchange's 8
-// rings the TPU kernel's stage cap C_RKC = 7 is this kernel's bound too.
-// Mirror-pad cells and the BoxHalo reads are K12's.
+// The block's cone: F1 on the block needs Ys on 1 ring, Yj on s + 1 - j
+// rings, F0 and Y1 on s rings, so y0 on s + 1 <= halo rings: the launcher
+// takes s_cap <= halo - 1, and with the exchange's 8 rings the TPU kernel's
+// stage cap C_RKC = 7 is this kernel's bound too. Mirror-pad cells step
+// like their sources and stay out of the sums.
 //
 // What bounds it on an H100: as K12, the buffer read once and y_new's
 // block written once whatever s (36 MB at the sharded slab's shard in f32,
 // some 11 us at 3.35 TB/s); at s = 7 the arithmetic of s + 1 right-hand
 // sides a point comes close.
 //
-// Design: K7's persistent cooperative launch, the recurrence's live set
-// (F0, Yj-1, Yj-2; y0 is the input) in three scratch states of the
-// buffer's size in device memory, a grid barrier between stages; Yj
+// Design: K7's two schemes on the shard, chosen on the mode alike
+// (box_rkc_stream.cuh::rkc_stream_take). The tensor mode runs K7's chunks
+// (box_rkc_stream.cuh, StreamHalo): each chunk a z-streaming launch over
+// 32 x 16 tiles of the block grown by the evaluations still to come
+// (ops/fused_shard_rkc.py::extent_rings with depth 4: the block and 4
+// rings at s = 7, read 8 rings out), so the exchange's halo holds the
+// whole step and the chunks exchange nothing; the last chunk's tiles are
+// the block's. The other modes run the persistent scheme on a ladder of
+// rings: F0 and Y1 on the block and s rings around it, Yj on s + 1 - j
+// rings, F1 on the block; the live set (F0, Yj-1, Yj-2) in three scratch
+// states of the buffer's size, a grid barrier between stages; Yj
 // overwrites Yj-2 in place (a point reads Yj-2 only at itself, and Yj's
-// rings lie inside Yj-2's). No tensor cores, TMA or tuning yet.
+// rings lie inside Yj-2's). No tensor cores or TMA.
 
 #include <cuda_runtime.h>
 
 #include "box3d.cuh"
+#include "box_rkc_stream.cuh"
 
 namespace {
 
@@ -50,17 +59,7 @@ using crd::kBoxThreads;
 
 constexpr int kMaxStages = 23;    // ops/fused_rkc.py S_MAX_KERNEL: ctab rows
 
-template <typename T>
-__device__ __forceinline__ T quiet_nan();
-template <>
-__device__ __forceinline__ float quiet_nan<float>() {
-  return __int_as_float(0x7fc00000);
-}
-template <>
-__device__ __forceinline__ double quiet_nan<double>() {
-  return __longlong_as_double(0x7ff8000000000000LL);
-}
-
+// The persistent scheme's step.
 template <int Mode, int Kin, typename T>
 __global__ void __launch_bounds__(kBoxThreads) fused_shard_box3d_rkc_kernel(
     const T* __restrict__ y, T* __restrict__ y_new, T* __restrict__ ss,
@@ -78,7 +77,7 @@ __global__ void __launch_bounds__(kBoxThreads) fused_shard_box3d_rkc_kernel(
     // no table row for this stage count (uniform: every block leaves
     // before any barrier): keep y, poison the error sum
     for (size_t g = first; g < 2 * n; g += stride) y_new[g] = y[g];
-    if (threadIdx.x == 0) ss[blockIdx.x] = quiet_nan<T>();
+    if (threadIdx.x == 0) ss[blockIdx.x] = crd::quiet_nan<T>();
     return;
   }
   crd::cg::grid_group grid = crd::cg::this_grid();
@@ -166,18 +165,23 @@ template <typename T>
 int launch(const void* y, void* y_new, void* ss, int capacity,
            int* n_blocks, void* work, const void* h, const void* fz,
            const void* s, const void* mu1_tab, const void* ctab, int s_cap,
-           int halo, int valid_rows, int valid_cols,
+           int min_tiles, int halo, int valid_rows, int valid_cols,
            CRD_BOX_OPERATOR_ARGS) {
   BoxConstants<T> c;
   BoxShard sh;
   const void* const coeffs[6] = {c0, c1, c2, c3, c4, c5};
-  if (s_cap < 2 || s_cap > kMaxStages
+  if (s_cap < 2 || s_cap > crd::kRkcStreamStages
       || !crd::make_box_shard(ny, nx, halo, s_cap + 1, valid_rows,
                               valid_cols, &sh)
       || !crd::make_box_constants<T>(coeffs, tissue, invs, mode, beta,
                                      beta_field, mask, has_freeze, nz, ny,
                                      nx, &c))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (crd::rkc_stream_take(mode))
+    return crd::launch_box_rkc_stream<T>(
+        c, crd::StreamHalo{sh, ny, nx}, mode, kinetics, y, y_new, ss,
+        capacity, n_blocks, work, h, fz, s, mu1_tab, ctab, s_cap, min_tiles,
+        rtol, atol, stream);
   const T* y_arg = static_cast<const T*>(y);
   T* ynew_arg = static_cast<T*>(y_new);
   T* ss_arg = static_cast<T*>(ss);
@@ -205,11 +209,11 @@ int launch(const void* y, void* y_new, void* ss, int capacity,
 #define CRD_FUSED_SHARD_BOX3D_RKC_ARGS                                       \
   const void *y, void *y_new, void *ss, int capacity, int *n_blocks,        \
       void *work, const void *h, const void *fz, const void *s,             \
-      const void *mu1_tab, const void *ctab, int s_cap, int halo,           \
-      int valid_rows, int valid_cols, CRD_BOX_OPERATOR_ARGS
+      const void *mu1_tab, const void *ctab, int s_cap, int min_tiles,      \
+      int halo, int valid_rows, int valid_cols, CRD_BOX_OPERATOR_ARGS
 #define CRD_FUSED_SHARD_BOX3D_RKC_PASS                                       \
   y, y_new, ss, capacity, n_blocks, work, h, fz, s, mu1_tab, ctab, s_cap,   \
-      halo, valid_rows, valid_cols, CRD_BOX_OPERATOR_PASS
+      min_tiles, halo, valid_rows, valid_cols, CRD_BOX_OPERATOR_PASS
 
 extern "C" int crd_fused_shard_box3d_rkc_step_f32(
     CRD_FUSED_SHARD_BOX3D_RKC_ARGS) {
@@ -219,4 +223,15 @@ extern "C" int crd_fused_shard_box3d_rkc_step_f32(
 extern "C" int crd_fused_shard_box3d_rkc_step_f64(
     CRD_FUSED_SHARD_BOX3D_RKC_ARGS) {
   return launch<double>(CRD_FUSED_SHARD_BOX3D_RKC_PASS);
+}
+
+// The stream scheme's kernel of (mode, kinetics) on a shard's buffer:
+// out[0] blocks an SM, out[1] registers a thread, out[2] shared bytes a
+// block (ops/box_stream.py::kernel_info).
+extern "C" int crd_fused_shard_box3d_rkc_info(int f64, int mode,
+                                              int kinetics, int* out) {
+  return f64 ? crd::rkc_stream_kernel_info<double, crd::StreamHalo>(
+                   mode, kinetics, out)
+             : crd::rkc_stream_kernel_info<float, crd::StreamHalo>(
+                   mode, kinetics, out);
 }

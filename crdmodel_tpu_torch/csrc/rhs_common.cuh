@@ -23,6 +23,19 @@
 
 namespace crd {
 
+// A quiet NaN of T: the partial sums of a step the kernel refuses (an RKC2
+// stage count outside its tables), which the adaptive loop rejects.
+template <typename T>
+__device__ __forceinline__ T quiet_nan();
+template <>
+__device__ __forceinline__ float quiet_nan<float>() {
+  return __int_as_float(0x7fc00000);
+}
+template <>
+__device__ __forceinline__ double quiet_nan<double>() {
+  return __longlong_as_double(0x7ff8000000000000LL);
+}
+
 // The kinetics families with a device function; the ids are
 // ops/kernel_common.py::KINETICS_IDS.
 enum Kinetics { kFhn = 0, kGoldbeter = 1, kAlievPanfilov = 2 };

@@ -114,17 +114,6 @@ struct IsProfileRhs : std::false_type {};
 template <int Kin, typename T>
 struct IsProfileRhs<ProfileRhs<Kin, T>> : std::true_type {};
 
-template <typename T>
-__device__ __forceinline__ T quiet_nan();
-template <>
-__device__ __forceinline__ float quiet_nan<float>() {
-  return __int_as_float(0x7fc00000);
-}
-template <>
-__device__ __forceinline__ double quiet_nan<double>() {
-  return __longlong_as_double(0x7ff8000000000000LL);
-}
-
 // The launch's shape: ny x nx the extent of the last chunk's tiles (the
 // grid, or the shard's block); the partial sums' tiles, sum_tiles_x a row
 // of them, n_sums in all.

@@ -66,13 +66,15 @@ _BOX_HEAD = [_VOIDP] * 3 + [_INT, _INTP] + [_VOIDP] * 3
 # K6: n_stages, the tableau, then the stream scheme's tile_y and z_chunk
 _FUSED_BOX3D_ARGTYPES = (_BOX_HEAD + [_INT] + [_DOUBLEP] * 3 + [_INT] * 2
                          + _BOX_OPERATOR)
-_FUSED_BOX3D_RKC_ARGTYPES = _BOX_HEAD + [_VOIDP] * 3 + [_INT] + _BOX_OPERATOR
+# K7: s, mu1_tab, ctab; s_cap and the plan's min_tiles
+_FUSED_BOX3D_RKC_ARGTYPES = (_BOX_HEAD + [_VOIDP] * 3 + [_INT] * 2
+                             + _BOX_OPERATOR)
 # the shard box launchers: K6's and K7's arguments, then the halo and the
 # physical extent (valid_rows, valid_cols) before the operator's (K12:
 # then tile_y and z_chunk)
 _FUSED_SHARD_BOX3D_ARGTYPES = (_BOX_HEAD + [_INT] + [_DOUBLEP] * 3
                                + [_INT] * 5 + _BOX_OPERATOR)
-_FUSED_SHARD_BOX3D_RKC_ARGTYPES = (_BOX_HEAD + [_VOIDP] * 3 + [_INT] * 4
+_FUSED_SHARD_BOX3D_RKC_ARGTYPES = (_BOX_HEAD + [_VOIDP] * 3 + [_INT] * 5
                                    + _BOX_OPERATOR)
 _FUSED_SHARD_STEP_ARGTYPES = ([_VOIDP] * 8 + [_INT, _VOIDP, _INT, _VOIDP]
                               + [_INT] * 10 + [_DOUBLEP] * 3
@@ -139,6 +141,8 @@ SIGNATURES = {
     # (f64, mode, kinetics, out[3]): the box stream kernels
     "crd_fused_box3d_info": [_INT] * 3 + [_INTP],
     "crd_fused_shard_box3d_info": [_INT] * 3 + [_INTP],
+    "crd_fused_box3d_rkc_info": [_INT] * 3 + [_INTP],
+    "crd_fused_shard_box3d_rkc_info": [_INT] * 3 + [_INTP],
 }
 
 

@@ -1,7 +1,7 @@
 """Fused RKC2 step on the 3-D box, kernel K7 (counterpart of
 crdmodel_tpu/ops/pallas_box3d_rkc.py).
 
-One launch performs a whole RKC2 step (integrate/rkc.py) on the
+One call performs a whole RKC2 step (integrate/rkc.py) on the
 (2, nz, ny, nx) state of a box, in K6's four operator modes
 (kernel_common.box_mode; csrc/fused_box3d_rkc.cu): F0 = f(y0),
 Y1 = y0 + (h mu1) F0, the recurrence
@@ -10,25 +10,38 @@ Y1 = y0 + (h mu1) F0, the recurrence
           + (h gt) F0,  j = 2..s,
 
 y_new = Y_s, F1 = f(y_new), the error estimate .8(y0 - y_new) +
-.4h(F0 + F1) and per-block partial sums of its squared WRMS-scaled values.
-It takes every attempted step of an rkc2 run on a box on the fused path
-(sim.py).
+.4h(F0 + F1) and partial sums of its squared WRMS-scaled values. It takes
+every attempted step of an rkc2 run on a box on the fused path (sim.py).
 
   fused_box3d_rkc_step            the wrapper: launches the CUDA kernel for
                                   a CUDA tensor, runs the plain version for
                                   a CPU tensor
   fused_box3d_rkc_step_reference  the same step in plain torch, the
                                   kernel's oracle
+  fused_box3d_rkc_tile_sums       the chunk kernel's partial sums in plain
+                                  torch
   build_fused_box3d_rkc_step      a problem's step_err and h_limit
+
+Two schemes, chosen on the operator mode (box_stream.rkc_uses_stream),
+each the faster at the slab's shapes on the H100. The tensor mode runs the
+s + 1 evaluations in chunks of at most box_stream.DEPTH = 4, each chunk one
+launch of K6's z-streaming scheme (csrc/box_rkc_stream.cuh,
+ops/box_stream.py: one block a 32x16 tile and z chunk), the first chunk
+handing F0 and its last two stage values to the second through device
+memory: two launches a step, one partial sum a tile and z chunk in
+fused_box3d_rkc_tile_sums' order. The profile, tissue and field modes run
+the persistent scheme (one cooperative launch, every stage through device
+memory, one partial sum a resident block, in an order the card's
+occupancy sets).
 
 Semantics kept from the TPU kernel (pallas_box3d_rkc.py:476-650): the
 stage cap C_RKC = 7 (s = min(choose_stages(h, rho), 7)) and the driver's
 h cap STAB_FACTOR (C_RKC - 1)^2 / rho (h_limit). On a TPU the cap comes
-from the 8-ring halo of its plane pipeline; the kernel here could take any
-s, but the cap sets the step sequence, so it stays. The coefficients come
-from static_stage_tables(C_RKC) cast to the state's dtype and indexed by s
-on the device; an s outside [2, C_RKC] returns NaN partial sums. The
-operator, freeze and tissue follow K6 (fused_box3d.py).
+from the 8-ring halo of its plane pipeline; here the chunk kernel's two
+chunks of four evaluations hold it, and it sets the step sequence. The
+coefficients come from static_stage_tables(C_RKC) cast to the state's
+dtype and indexed by s on the device; an s outside [2, C_RKC] returns NaN
+partial sums. The operator, freeze and tissue follow K6 (fused_box3d.py).
 """
 
 from __future__ import annotations
@@ -37,8 +50,11 @@ import torch
 
 from crdmodel_tpu_torch.core.problem import make_rho_bound
 from crdmodel_tpu_torch.integrate import rkc
+from crdmodel_tpu_torch.ops import box_stream
 from crdmodel_tpu_torch.ops.fused_box3d import launch_box3d
-from crdmodel_tpu_torch.ops.fused_rkc import (S_MAX_KERNEL, FusedRKCStep,
+from crdmodel_tpu_torch.ops.fused_rkc import (FusedRKCStep,
+                                              check_stage_tables,
+                                              rkc_stages_reference,
                                               rkc_step_reference,
                                               static_stage_tables)
 from crdmodel_tpu_torch.ops.kernel_common import (KernelConstants,
@@ -79,33 +95,70 @@ def fused_box3d_rkc_step_reference(y, h, fz, s, mu1_tab, ctab_tab,
                               make_box_rhs_block(bc, fz), rtol, atol)
 
 
+def fused_box3d_rkc_tile_sums(y, h, fz, s, mu1_tab, ctab_tab,
+                              bc: KernelConstants, rtol: float, atol: float):
+    """The chunk kernel's partial sums in plain torch: (n_tiles,) sums of
+    squared WRMS-scaled errors, one a tile and z chunk of its plan
+    (box_stream.stream_plan with RKC_MIN_TILES), each in the kernel's order
+    (box_stream.stream_tile_sums). Reads s on the host; an s outside
+    [2, s_cap] gives NaN sums, as the kernel. Raises ValueError for a mode
+    the persistent scheme takes: its order depends on the card's
+    occupancy."""
+    if not box_stream.rkc_uses_stream(bc.kind):
+        raise ValueError(f"{bc.kind} runs the persistent scheme, whose "
+                         "partial sums no plain version replays")
+    tile_y, z_chunk, tiles, _ = box_stream.stream_plan(
+        y.element_size(), tuple(y.shape[1:]),
+        min_tiles=box_stream.RKC_MIN_TILES)
+    if not 2 <= int(s) <= mu1_tab.shape[0] - 1:
+        return torch.full((tiles,), float("nan"), dtype=y.dtype,
+                          device=y.device)
+    _, est = rkc_stages_reference(y, h, s, mu1_tab, ctab_tab,
+                                  make_box_rhs_block(bc, fz))
+    return box_stream.stream_tile_sums(
+        box_stream.scaled_squares(est, y, rtol, atol), tile_y, z_chunk)
+
+
+def check_rkc_tables(mu1_tab, ctab_tab, dtype, device) -> int:
+    """The s_cap of static_stage_tables mu1_tab, ctab_tab; raises unless
+    they are `dtype` tensors on `device` of some s_cap in [2, C_RKC], the
+    stages two chunks of the stream scheme hold."""
+    s_cap = check_stage_tables(mu1_tab, ctab_tab, dtype, device)
+    if s_cap > C_RKC:
+        raise ValueError(f"tables for s_cap={s_cap}; the box RKC kernels "
+                         f"take 2..{C_RKC}")
+    return s_cap
+
+
 def fused_box3d_rkc_step(y, h, fz, s, mu1_tab, ctab_tab, bc: KernelConstants,
                          rtol: float, atol: float):
     """One fused RKC2 step: (y_new (2, nz, ny, nx), ss partials
-    (n_blocks,)).
+    (n_blocks,); in the chunk kernel's modes fused_box3d_rkc_tile_sums').
 
     h and fz are 0-d tensors in y's dtype, s a 0-d int32 tensor, and
-    mu1_tab/ctab_tab the static_stage_tables of some s_cap <= S_MAX_KERNEL,
-    all on y's device: the kernel reads s and its table rows there, so a
-    step needs no host sync. bc comes from
-    kernel_common.prepare_box_constants. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises.
-    `fused_box3d_rkc_step.launches` counts kernel launches.
+    mu1_tab/ctab_tab the static_stage_tables of some s_cap <= C_RKC, all on
+    y's device: the kernel reads s and its table rows there, so a step
+    needs no host sync. bc comes from kernel_common.prepare_box_constants.
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (the chunk kernel once a chunk of evaluations, or the persistent
+    one) or raises. `fused_box3d_rkc_step.launches` counts steps launched.
     """
     if y.device.type == "cpu":
         return fused_box3d_rkc_step_reference(y, h, fz, s, mu1_tab, ctab_tab,
                                               bc, rtol, atol)
-    s_cap = mu1_tab.shape[0] - 1
-    if not 2 <= s_cap <= S_MAX_KERNEL:
-        raise ValueError(f"tables for s_cap={s_cap}; the kernel takes "
-                         f"2..{S_MAX_KERNEL}")
+    s_cap = check_rkc_tables(mu1_tab, ctab_tab, y.dtype, y.device)
     check_tensor("s", s, (), torch.int32, y.device)
-    check_tensor("mu1_tab", mu1_tab, (s_cap + 1,), y.dtype, y.device)
-    check_tensor("ctab_tab", ctab_tab, (s_cap + 1, S_MAX_KERNEL + 1, 4),
-                 y.dtype, y.device)
-    out = launch_box3d("crd_fused_box3d_rkc_step", y, h, fz, bc, 3,
-                       (s.data_ptr(), mu1_tab.data_ptr(), ctab_tab.data_ptr(),
-                        s_cap), rtol, atol)
+    args = (s.data_ptr(), mu1_tab.data_ptr(), ctab_tab.data_ptr(), s_cap,
+            box_stream.RKC_MIN_TILES)
+    if box_stream.rkc_uses_stream(bc.kind):
+        tiles = box_stream.stream_plan(
+            y.element_size(), tuple(y.shape[1:]),
+            min_tiles=box_stream.RKC_MIN_TILES)[2]
+        out = launch_box3d("crd_fused_box3d_rkc_step", y, h, fz, bc, 3, args,
+                           rtol, atol, partials=tiles)
+    else:
+        out = launch_box3d("crd_fused_box3d_rkc_step", y, h, fz, bc, 3, args,
+                           rtol, atol)
     fused_box3d_rkc_step.launches += 1
     return out
 

@@ -4,22 +4,29 @@ crdmodel_tpu/ops/pallas_shard_box3d_rkc.py).
 K7 (ops/fused_box3d_rkc.py) per shard, with K12's layout and exchange
 (ops/fused_shard_box3d.py): one exchange of width HALO = 8 a step fills
 the (y, x) halo of every shard's (2, nz, nyl + 2 HALO, nxl + 2 HALO)
-buffer, then one launch a shard computes all s Chebyshev stages, y_new
-and per-block partial sums of squared WRMS-scaled errors over the shard's
-PHYSICAL cells (csrc/fused_shard_box3d_rkc.cu). The stages run on a
-ladder of rings: F0 and Y1 on the block and s rings around it, Yj on
-s + 1 - j rings, so that F1 = f(y_new) on the block needs y0 on s + 1 <=
-HALO rings: the stage cap C_RKC = HALO - 1 = 7 of the TPU kernel
-(pallas_box3d_rkc.py:65) is this kernel's bound too. The spectral-radius
-bound is max-reduced across the shards (make_rho_bound's max_reduce), so
-every shard runs the same s and the same table rows; the adaptive loop
-caps h at STAB_FACTOR (C_RKC - 1)^2 / rho (h_limit) and adds every
-shard's sums in a fixed order.
+buffer, then the shard's step computes all s Chebyshev stages, y_new and
+partial sums of squared WRMS-scaled errors over the shard's PHYSICAL
+cells (csrc/fused_shard_box3d_rkc.cu), in K7's two schemes chosen on the
+mode: in the tensor mode K7's chunks of at most four evaluations on
+csrc/box_rkc_stream.cuh, one launch each, one partial sum a tile and z
+chunk of the block, a chunk's tiles over the block grown by the
+evaluations still to come (box_stream.rkc_chunks,
+fused_shard_rkc.extent_rings); in the others the persistent scheme on a
+ladder of rings. F1 = f(y_new) on the block needs y0 on s + 1 <= HALO
+rings: the stage
+cap C_RKC = HALO - 1 = 7 of the TPU kernel (pallas_box3d_rkc.py:65) is
+this kernel's bound too. The spectral-radius bound is max-reduced across
+the shards (make_rho_bound's max_reduce), so every shard runs the same s
+and the same table rows; the adaptive loop caps h at STAB_FACTOR
+(C_RKC - 1)^2 / rho (h_limit) and adds every shard's sums in a fixed
+order.
 
   fused_shard_box3d_rkc_step            the wrapper: launches the CUDA
                                         kernel for a CUDA tensor, runs the
                                         plain version for a CPU tensor
   fused_shard_box3d_rkc_step_reference  the same step in plain torch
+  fused_shard_box3d_rkc_tile_sums       the chunk kernel's partial sums in
+                                        plain torch
   build_fused_shard_box3d_rkc           a sharded problem's step_err and
                                         h_limit
 
@@ -32,12 +39,13 @@ from __future__ import annotations
 
 import torch
 
+from crdmodel_tpu_torch.ops import box_stream
 from crdmodel_tpu_torch.ops.fused_box3d import launch_box3d
-from crdmodel_tpu_torch.ops.fused_box3d_rkc import (C_RKC,
+from crdmodel_tpu_torch.ops.fused_box3d_rkc import (C_RKC, check_rkc_tables,
                                                     is_box3d_rkc_supported)
-from crdmodel_tpu_torch.ops.fused_rkc import (check_stage_tables,
-                                              rkc_stages_reference)
-from crdmodel_tpu_torch.ops.fused_shard_box3d import check_shard_box_block
+from crdmodel_tpu_torch.ops.fused_rkc import rkc_stages_reference
+from crdmodel_tpu_torch.ops.fused_shard_box3d import (check_shard_box_block,
+                                                      physical_squares)
 from crdmodel_tpu_torch.ops.fused_shard_rkc import (FusedShardRKC,
                                                     build_shard_rkc_stepper)
 from crdmodel_tpu_torch.ops.fused_shard_step import (HALO, interior,
@@ -75,29 +83,63 @@ def fused_shard_box3d_rkc_step_reference(yp, h, fz, s, mu1_tab, ctab_tab,
     return y_new, masked_error_sum(est, yp, sc, rtol, atol)
 
 
+def fused_shard_box3d_rkc_tile_sums(yp, h, fz, s, mu1_tab, ctab_tab,
+                                    sc: ShardBoxConstants, rtol: float,
+                                    atol: float):
+    """The chunk kernel's partial sums in plain torch: (n_tiles,) sums over
+    the block's tiles and z chunks (box_stream.stream_plan with
+    RKC_MIN_TILES) of the physical cells' squared WRMS-scaled errors, each
+    in the kernel's order (box_stream.stream_tile_sums; a mirror-pad cell
+    adds +0.0, as the kernel's skip). Reads s on the host; an s outside
+    [2, s_cap] gives NaN sums, as the kernel. Raises ValueError for a mode
+    the persistent scheme takes."""
+    if not box_stream.rkc_uses_stream(sc.kind):
+        raise ValueError(f"{sc.kind} runs the persistent scheme, whose "
+                         "partial sums no plain version replays")
+    tile_y, z_chunk, tiles, _ = box_stream.stream_plan(
+        yp.element_size(), tuple(yp.shape[1:]), sc.halo,
+        min_tiles=box_stream.RKC_MIN_TILES)
+    if not 2 <= int(s) <= mu1_tab.shape[0] - 1:
+        return torch.full((tiles,), float("nan"), dtype=yp.dtype,
+                          device=yp.device)
+    _, est = rkc_stages_reference(yp, h, s, mu1_tab, ctab_tab,
+                                  make_box_rhs_block(sc, fz))
+    return box_stream.stream_tile_sums(
+        physical_squares(est, yp, sc, rtol, atol), tile_y, z_chunk)
+
+
 def fused_shard_box3d_rkc_step(yp, h, fz, s, mu1_tab, ctab_tab,
                                sc: ShardBoxConstants, rtol: float,
                                atol: float):
-    """One fused RKC2 step on one shard: (y_new, ss partials (n_blocks,)).
+    """One fused RKC2 step on one shard: (y_new, ss partials (n_blocks,);
+    in the chunk kernel's modes fused_shard_box3d_rkc_tile_sums').
 
     yp is the shard's halo-padded buffer (2, nz, nyl + 2P, nxl + 2P) with
     its halo filled, P >= s_cap + 1; h and fz 0-d tensors in its dtype, s a
     0-d int32 tensor, and mu1_tab/ctab_tab the static_stage_tables of some
-    s_cap <= S_MAX_KERNEL, all on its device. Only the block of y_new is
-    written; an s outside [2, s_cap] keeps y and gives NaN partial sums (a
-    rejected step). A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel or raises. `fused_shard_box3d_rkc_step.launches`
-    counts kernel launches."""
+    s_cap <= C_RKC, all on its device. Only the block of y_new is written;
+    an s outside [2, s_cap] keeps y and gives NaN partial sums (a rejected
+    step). A CPU tensor takes the plain version; a CUDA tensor launches
+    the kernel (the chunk kernel once a chunk of evaluations, or the
+    persistent one) or raises. `fused_shard_box3d_rkc_step.launches`
+    counts steps launched."""
     if yp.device.type == "cpu":
         return fused_shard_box3d_rkc_step_reference(
             yp, h, fz, s, mu1_tab, ctab_tab, sc, rtol, atol)
-    s_cap = check_stage_tables(mu1_tab, ctab_tab, yp.dtype, yp.device)
+    s_cap = check_rkc_tables(mu1_tab, ctab_tab, yp.dtype, yp.device)
     check_shard_box_block(yp, sc, s_cap + 1)
     check_tensor("s", s, (), torch.int32, yp.device)
-    out = launch_box3d("crd_fused_shard_box3d_rkc_step", yp, h, fz, sc, 3,
-                       (s.data_ptr(), mu1_tab.data_ptr(), ctab_tab.data_ptr(),
-                        s_cap, sc.halo, sc.valid_rows, sc.valid_cols),
-                       rtol, atol)
+    args = (s.data_ptr(), mu1_tab.data_ptr(), ctab_tab.data_ptr(), s_cap,
+            box_stream.RKC_MIN_TILES, sc.halo, sc.valid_rows, sc.valid_cols)
+    if box_stream.rkc_uses_stream(sc.kind):
+        tiles = box_stream.stream_plan(
+            yp.element_size(), tuple(yp.shape[1:]), sc.halo,
+            min_tiles=box_stream.RKC_MIN_TILES)[2]
+        out = launch_box3d("crd_fused_shard_box3d_rkc_step", yp, h, fz, sc,
+                           3, args, rtol, atol, partials=tiles)
+    else:
+        out = launch_box3d("crd_fused_shard_box3d_rkc_step", yp, h, fz, sc,
+                           3, args, rtol, atol)
     fused_shard_box3d_rkc_step.launches += 1
     return out
 

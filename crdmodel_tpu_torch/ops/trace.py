@@ -18,7 +18,8 @@ short (device_ms).
   traced_kernels  the device kernels of one finished trace
   kernel_names    the names of the kernels that n calls of fn ran
   device_ms       the median device time of the kernels whose name holds
-                  a tag, over at least n calls of fn
+                  a tag (or of a call's `group` of them), over at least n
+                  calls of fn
 
 Only for a CUDA card: torch.profiler is imported inside the functions.
 """
@@ -90,13 +91,18 @@ def kernel_names(fn, n: int = 3, attempts: int = ATTEMPTS) -> list:
                          "held no kernel")
 
 
-def device_ms(fn, tag: str, n: int = 60, attempts: int = ATTEMPTS) -> float:
+def device_ms(fn, tag: str, n: int = 60, attempts: int = ATTEMPTS,
+              group: int = 1) -> float:
     """The median device duration in ms of the kernels whose name holds
     `tag` over at least n calls of fn: a kernel's own time where the host's
     issue of each call takes longer than the kernel. Each trace takes n +
     n // 2 + 2 calls after one untraced call, and the kernels of up to
     `attempts` traces are pooled until they number n; raises
-    AssertionError if they never do."""
+    AssertionError if they never do. With `group` > 1, each call launches
+    that many such kernels, and a call's time is the mean over a trace's
+    calls of their sum (the traces on the H100 gained or lost a kernel of
+    such steps now and then, so pairing them in launch order misled): the
+    median over the traces, at least n calls' worth."""
     import torch
 
     fn()
@@ -104,8 +110,11 @@ def device_ms(fn, tag: str, n: int = 60, attempts: int = ATTEMPTS) -> float:
     calls = n + n // 2 + 2
     durations = []
     for _ in range(attempts):
-        durations += [e["dur"] for e in _trace(fn, calls)
-                      if tag in e["name"]]
+        kernels = [e["dur"] for e in _trace(fn, calls) if tag in e["name"]]
+        if group == 1:
+            durations += kernels
+        elif kernels:
+            durations += [sum(kernels) / calls] * calls
         if len(durations) >= n:
             return float(np.median(durations)) / 1e3
     raise AssertionError(f"traced {len(durations)} {tag} kernels of "

@@ -1,6 +1,6 @@
 """Time the port's redesigned kernels (K14 and K2; K4 and K11; K1 and K8;
-K9 and K10; K6 and K12) of one tree on the card, or of two trees in turns
-in one call.
+K9 and K10; K6 and K12; K7 and K13) of one tree on the card, or of two
+trees in turns in one call.
 
     python3 scripts/kernel_ab.py [--tree DIR] [--label NAME] [--runs]
         [--measure all|kstep_rkc|divform|profile|shard_rkc_imex|box]
@@ -63,12 +63,19 @@ the scar column, the 3-D field, the transmural tensor), each its device
 time from profiler traces and a burst's time a launch, with the
 registers, blocks an SM, shared bytes and plan of the stream kernel where
 the tree has them, and in this tree's scheme the stream kernel on other
-plans (z chunks from one to four) in the profile and tissue modes; beside them K7 and K13 (s = 5, 7, the same modes), device
-times; with --runs also the slab's bs32 run, its scar run and its bs32
-run on a 2x2 mesh of shards on cuda:0 over their whole Tf = 0.5
-(profile_run: device-busy time, kernels a step, idle share, walls, the
-box kernel's launches and mean device time) and each run's attempted,
-accepted and rejected steps from one more untraced run. --measure all
+plans (z chunks from one to four) in the profile and tissue modes; K7
+(f32, the slab from its ICs) and K13 (f32, shard 0 of its 2x2 mesh) at
+s = 5 and 7 in the same modes, each the device time of a step (its chunk
+launches summed) and a burst's time a step, with the chunks, plan,
+registers, blocks an SM and shared bytes of the chunk kernel where the
+tree has it; with --runs also the slab's bs32 run, its scar run, its
+bs32 run on a 2x2 mesh of shards on cuda:0, its rkc2 run (K7) and its
+rkc2 run on the 2x2 mesh (K13) over their whole Tf = 0.5 (profile_run:
+device-busy time, kernels a step, idle share, walls, the box kernel's
+launches and mean device time) and each run's attempted, accepted and
+rejected steps from one more untraced run, and one untraced run of each
+rkc2 program that records K7's and K13's stage count at each step (a
+host read of s a step: its histogram). --measure all
 (the default) takes the first two. Only the
 wrappers' public signatures are used, so an older tree of the port times
 the same way.
@@ -616,6 +623,81 @@ def box_tags():
     return box_stream, box_stream.STREAM_KERNEL, box_stream.STREAM_KERNEL
 
 
+def new_rkc(stream, mode):
+    """The tree runs K7's and K13's chunk kernel in operator `mode`."""
+    return (stream is not None and hasattr(stream, "rkc_uses_stream")
+            and stream.rkc_uses_stream(mode))
+
+
+def rkc_tag(stream, shard, mode):
+    """The profiler tag of K7's (K13's with shard) kernel in `mode` in the
+    tree: its dispatch's, else the persistent kernel."""
+    if stream is not None and hasattr(stream, "rkc_kernel_name"):
+        return stream.rkc_kernel_name(mode, shard)
+    return ("fused_shard_box3d_rkc_kernel" if shard
+            else "fused_box3d_rkc_kernel")
+
+
+def rkc_launches(stream, s_cap, mode):
+    """K7's (K13's) kernel launches a step in `mode` with tables of s_cap
+    stages in the tree: one a chunk of the chunk kernel, else one."""
+    return stream.rkc_launches(s_cap) if new_rkc(stream, mode) else 1
+
+
+def rkc_device_us(cs, fn, tag, group, n):
+    """The device µs of a call of fn, its `group` kernels whose name holds
+    `tag`: the median over padded profiler traces of the tree's
+    ops/trace.py of each trace's tagged time a call (a trace on the H100
+    gains or loses a kernel of such steps now and then, which pairing
+    kernels in launch order would misread), at least n calls' worth."""
+    import numpy as np
+    import torch
+
+    from crdmodel_tpu_torch.ops import trace
+
+    fn()
+    torch.cuda.synchronize()
+    calls = n + n // 2 + 2
+    means = []
+    for _ in range(4):
+        with trace.window() as prof:
+            for _ in range(calls):
+                fn()
+        kernels = [e["dur"] for e in trace.traced_kernels(prof)
+                   if tag in e["name"]]
+        if kernels:
+            means.append(sum(kernels) / calls)
+        if len(means) * calls >= n:
+            return float(np.median(means))
+    raise AssertionError(f"traced no call of {tag} ({group} kernels)")
+
+
+def stage_counts(cs, label, card, name, module, attr, cfg, build_kw,
+                 mesh=None):
+    """One untraced run of cfg through the entry point with the wrapper
+    module.<attr> replaced by one that records the stage count s of each
+    step it launches (a host read of s a step, so its time is not
+    reported): the histogram and the run's steps."""
+    import collections
+
+    seen = collections.Counter()
+    step = getattr(module, attr)
+
+    def counted(y, h, fz, s, *rest):
+        seen[int(s)] += 1
+        return step(y, h, fz, s, *rest)
+
+    counted.launches = 0   # the wrapper counts its launches on its own name
+    setattr(module, attr, counted)
+    try:
+        res = cs.run_program(cfg, build_kw, mesh)
+    finally:
+        setattr(module, attr, step)
+    emit(label, name, config=cfg.program_name,
+         histogram={str(k): seen[k] for k in sorted(seen)},
+         launches=sum(seen.values()), **steps_of(res), card=card)
+
+
 # the stream kernel's plans timed beside the tree's own: MIN_TILES, which
 # sets the z chunks (one; three at K12's shape, the default; four)
 BOX_PLANS = (1, 264, 512)
@@ -646,7 +728,11 @@ def time_box(cs, label, card, runs):
     emit(label, "ptxas", card=card,
          **{src: cs.ptxas_entries(src + ".cu", stream.STREAM_KERNEL)
             for src in ("fused_box3d", "fused_shard_box3d")
-            if stream is not None})
+            if stream is not None},
+         **{src: cs.ptxas_entries(src + ".cu", stream.RKC_STREAM_KERNEL)
+            if stream is not None and hasattr(stream, "RKC_STREAM_KERNEL")
+            else cs.ptxas_summary(src + ".cu")
+            for src in ("fused_box3d_rkc", "fused_shard_box3d_rkc")})
     cfg_box = cs.volumetric_box()
     for case, cfg, build_kw in cs.box_modes(cfg_box):
         problem = build_problem(cfg, "cuda", **build_kw)
@@ -685,27 +771,53 @@ def time_box(cs, label, card, runs):
             a7 = (y, hs, zero, st, mu1, ctab, bc, cfg.rtol, cfg.atol)
             a13 = (bufs[0], hs, zero, st, mu1, ctab, consts[0], cfg.rtol,
                    cfg.atol)
-            emit(label, "k7", case=case, s=s, device_us=cs.device_ms(
-                lambda: f7.fused_box3d_rkc_step(*a7),
-                "fused_box3d_rkc_kernel", n) * 1e3, card=card)
-            emit(label, "k13", case=case, s=s, device_us=cs.device_ms(
-                lambda: f13.fused_shard_box3d_rkc_step(*a13),
-                "fused_shard_box3d_rkc_kernel", n) * 1e3, card=card)
+            for name, fn, shard, symbol, x in (
+                    ("k7", lambda: f7.fused_box3d_rkc_step(*a7), False,
+                     "crd_fused_box3d_rkc_info", y),
+                    ("k13", lambda: f13.fused_shard_box3d_rkc_step(*a13),
+                     True, "crd_fused_shard_box3d_rkc_info", bufs[0])):
+                group = rkc_launches(stream, f7.C_RKC, bc.kind)
+                info = {} if not new_rkc(stream, bc.kind) else dict(
+                    launches_a_step=group,
+                    chunks=stream.rkc_chunks(s, shard),
+                    plan=stream.stream_plan(
+                        4, tuple(x.shape[1:]), f12.HALO if shard else None,
+                        min_tiles=stream.RKC_MIN_TILES)[:3],
+                    **stream.kernel_info(symbol, f32, MODE_IDS[bc.kind],
+                                         bc.kinetics_id))
+                emit(label, name, case=case, s=s,
+                     kernel=rkc_tag(stream, shard, bc.kind),
+                     device_us=rkc_device_us(cs, fn,
+                                             rkc_tag(stream, shard, bc.kind),
+                                             group, n),
+                     burst_us=cs.median_ms(fn, n, burst_n) * 1e3, **info,
+                     card=card)
         del problem, bc, y, bufs, consts
 
     if not runs:
         return
     scar = cs.box_scar(cfg_box)
-    for name, build_kw, run_mesh, tag in (
-            ("slab_bs32_run", {}, None, tag6),
-            ("slab_scar_run", scar, None, tag6),
-            ("sharded_slab_bs32_run", {}, mesh, tag12)):
-        fields = cs.profile_run(cfg_box, build_kw, cfg_box.t_final, tag,
+    rkc2 = dataclasses.replace(cfg_box, method="rkc2")
+    for name, cfg, build_kw, run_mesh, tag in (
+            ("slab_bs32_run", cfg_box, {}, None, tag6),
+            ("slab_scar_run", cfg_box, scar, None, tag6),
+            ("sharded_slab_bs32_run", cfg_box, {}, mesh, tag12),
+            ("slab_rkc2_run", rkc2, {}, None,
+             rkc_tag(stream, False, "box_profile")),
+            ("sharded_slab_rkc2_run", rkc2, {}, mesh,
+             rkc_tag(stream, True, "box_profile"))):
+        fields = cs.profile_run(cfg, build_kw, cfg.t_final, tag,
                                 mesh=run_mesh)
-        steps = steps_of(cs.run_program(cfg_box, build_kw, run_mesh))
+        steps = steps_of(cs.run_program(cfg, build_kw, run_mesh))
         emit(label, name, **{k: fields[k] for k in RUN_FIELDS},
              accepted=steps["accepted"], rejected=steps["rejected"],
              card=card)
+    # K7's and K13's stage counts, a host read of s a step (untraced,
+    # unreported time)
+    stage_counts(cs, label, card, "k7_stage_counts", f7,
+                 "fused_box3d_rkc_step", rkc2, {})
+    stage_counts(cs, label, card, "k13_stage_counts", f13,
+                 "fused_shard_box3d_rkc_step", rkc2, {}, mesh)
 
 
 def time_box_plans(cs, label, card, stream, case, k6, k12, y, buf):

@@ -10,8 +10,14 @@ reach 5 and the cap: physical cells within 1e-5 of the state's scale (JAX's
 own bar for K13, tests/test_shard_box3d.py:233) and the WRMS error norm
 as K12's test holds it; whole small runs through the plain K13 against the
 port's sharded torch path and against the single-device plain K7; the
-gate. On a CUDA card (marker `cuda`): the CUDA
-kernel against its plain version at s = 2, 5 and 7, y_new's block bitwise:
+gate; the kernel's chunked schedule on each shard's buffer
+(ops/box_stream.py::box_rkc_stream_model, each chunk's tiles over the
+block grown by the evaluations still to come, NaN outside what the chunk
+before handed on) against the plain step, the block bitwise, at every s
+and z chunking; the partial sums' cover, totals and plan. On a CUDA card
+(marker `cuda`): the CUDA kernel against its plain version at s = 2, 5
+and 7, y_new's block and every partial sum bitwise, the launched kernel
+traced:
 
     python -m pytest tests/test_torch_fused_shard_box3d_rkc.py -m cuda --noconftest
 """
@@ -35,7 +41,7 @@ from crdmodel_tpu_torch.parallel.sharded import (gather, make_reduce,
                                                  split_state)
 from crdmodel_tpu_torch.sim import simulate
 from test_torch_fused_shard_box3d import (CASES, _state, assert_wrms_close,
-                                          box_kw, jax_shard_step)
+                                          box_kw, jax_shard_step, shard_case)
 
 # steps whose stage counts reach about 5 and the cap on the cases' grids
 H = {"s5": 0.05, "cap": 0.3}
@@ -128,6 +134,111 @@ def test_gate():
                                                 16)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_stream_model_matches_plain_shard_step(name, dtype):
+    """The kernel's schedule (box_rkc_stream_model with the shard's
+    halo: chunk c's tiles over the block grown by extent_rings(s, 4), the
+    hand-on planes NaN outside that extent) on each shard's buffer gives
+    the plain step's block bitwise, y_new and the estimate, at every s up
+    to the cap, in the plan's z chunks and in chunks of 1, 2, 3 and all
+    planes."""
+    from crdmodel_tpu_torch.ops import box_stream as bs
+    from crdmodel_tpu_torch.ops.fused_rkc import (rkc_stages_reference,
+                                                  static_stage_tables)
+    from crdmodel_tpu_torch.ops.fused_shard_rkc import extent_rings
+    from crdmodel_tpu_torch.ops.kernel_common import make_box_rhs_block
+
+    bufs, consts = shard_case(name, dtype)
+    mu1, ctab = static_stage_tables(f13.C_RKC, dtype)
+    h = torch.tensor(2e-3, dtype=dtype)
+    p = f13.HALO
+    for s in range(2, f13.C_RKC + 1):
+        assert bs.rkc_chunks(s, shard=True) == extent_rings(s, bs.DEPTH)
+    for k, (buf, sc) in enumerate(zip(bufs, consts)):
+        nz = buf.shape[1]
+        plan_chunk = bs.stream_plan(buf.element_size(), tuple(buf.shape[1:]),
+                                    p)[1]
+        fzt = torch.tensor(float(k % 2), dtype=dtype)
+        for s in range(2, f13.C_RKC + 1):
+            want_y, want_est = rkc_stages_reference(
+                buf, h, torch.tensor(s), mu1, ctab,
+                make_box_rhs_block(sc, fzt))
+            for z_chunk in sorted({1, 2, 3, nz, plan_chunk}):
+                got_y, got_est = bs.box_rkc_stream_model(
+                    buf, h, s, mu1, ctab, fzt, sc, z_chunk, halo=p)
+                assert torch.equal(f13.interior(got_y, p),
+                                   f13.interior(want_y, p)), (s, z_chunk)
+                assert torch.equal(f13.interior(got_est, p),
+                                   f13.interior(want_est, p)), (s, z_chunk)
+                # past the first chunk's extent the hand-on planes are NaN,
+                # and so is what the last chunk computes from them there
+                if len(bs.rkc_chunks(s)) > 1:
+                    assert torch.isnan(got_y[:, :, 0]).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_tile_sums_add_up_to_error_sum(name, dtype):
+    """The chunk kernel's partial sums in plain torch (one a tile and z
+    chunk of the block, mirror-pad cells out) add up to the plain step's
+    error sum at s = 2, 5 and 7, and are NaN at an s outside the tables; in
+    the persistent scheme's modes no plain version replays them."""
+    from crdmodel_tpu_torch.ops import box_stream as bs
+    from crdmodel_tpu_torch.ops.fused_rkc import static_stage_tables
+
+    bufs, consts = shard_case(name, dtype)
+    mu1, ctab = static_stage_tables(f13.C_RKC, dtype)
+    for buf, sc in zip(bufs, consts):
+        if not bs.rkc_uses_stream(sc.kind):
+            with pytest.raises(ValueError, match="persistent"):
+                f13.fused_shard_box3d_rkc_tile_sums(
+                    buf, torch.tensor(2e-3, dtype=dtype),
+                    torch.tensor(1.0, dtype=dtype),
+                    torch.tensor(5, dtype=torch.int32), mu1, ctab, sc, 1e-4,
+                    1e-7)
+            continue
+        tiles = bs.stream_plan(buf.element_size(), tuple(buf.shape[1:]),
+                               sc.halo, min_tiles=bs.RKC_MIN_TILES)[2]
+        for s in (2, 5, 7, 1, f13.C_RKC + 1):
+            args = (buf, torch.tensor(2e-3, dtype=dtype),
+                    torch.tensor(1.0, dtype=dtype),
+                    torch.tensor(s, dtype=torch.int32), mu1, ctab, sc, 1e-4,
+                    1e-7)
+            sums = f13.fused_shard_box3d_rkc_tile_sums(*args)
+            assert sums.shape == (tiles,)
+            if not 2 <= s <= f13.C_RKC:
+                assert torch.isnan(sums).all()
+                continue
+            _, ss = f13.fused_shard_box3d_rkc_step_reference(*args)
+            rel = abs(float(sums.sum()) - float(ss)) / float(ss)
+            assert rel <= (1e-5 if dtype == torch.float32 else 1e-13)
+
+
+def test_launches_at_the_slab_shard():
+    """The sharded slab's shard (2, 32, 272, 272): the first chunk's tiles
+    cover the block and 4 rings at s = 6 and 7 (9 x 17 tiles in two z
+    chunks of 16: 306 blocks), 3 rings at s = 4 and 5; the last chunk's are
+    the block's 128 tiles in two z chunks, 256 blocks, one round of the
+    card's 264 resident blocks, which the first launch also takes at
+    s <= 3 (one chunk). The first chunk's extent plus the region's 4 rings
+    fit the halo of 8."""
+    from crdmodel_tpu_torch.ops import box_stream as bs
+
+    shape = (32, 272, 272)
+    assert bs.rkc_chunks(7, shard=True) == [(0, 4, 4), (4, 4, 0)]
+    assert bs.rkc_chunks(5, shard=True) == [(0, 3, 3), (3, 3, 0)]
+    assert bs.rkc_chunks(3, shard=True) == [(0, 4, 0)]
+    mt = bs.RKC_MIN_TILES
+    assert bs.stream_plan(4, shape, f13.HALO, rings=4,
+                          min_tiles=mt)[1:3] == (16, 306)
+    assert bs.stream_plan(4, shape, f13.HALO, min_tiles=mt)[1:3] == (16, 256)
+    assert bs.rkc_launch_blocks(shape, f13.HALO, f13.C_RKC) == [306, 256]
+    assert max(r for s in range(2, f13.C_RKC + 1)
+               for _, _, r in bs.rkc_chunks(s, shard=True)) + bs.DEPTH <= (
+        f13.HALO)
+
+
 @pytest.mark.cuda
 @pytest.mark.skipif("not torch.cuda.is_available()",
                     reason="needs an NVIDIA GPU and nvcc")
@@ -135,9 +246,14 @@ def test_gate():
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_kernel_matches_plain_version(name, dtype):
     """The CUDA kernel against its plain version on every shard at s = 2,
-    5 and 7, frozen and released: y_new's block bitwise, the error sums to
-    rounding, two launches bitwise."""
+    5 and 7, frozen and released: y_new's block bitwise, two launches
+    bitwise; in the tensor mode every partial sum bitwise
+    (fused_shard_box3d_rkc_tile_sums) and the chunk kernel launched once a
+    chunk of the tables' largest s, in the others the error sums to
+    rounding and the persistent kernel once (traced)."""
     from crdmodel_tpu_torch.core.problem import make_rho_bound
+    from crdmodel_tpu_torch.ops import box_stream as bs
+    from crdmodel_tpu_torch.ops import trace
     from crdmodel_tpu_torch.ops.fused_rkc import static_stage_tables
     from crdmodel_tpu_torch.ops.kernel_common import make_shard_box_constants
     from crdmodel_tpu_torch.parallel.halo import mirror_halo_pad
@@ -153,6 +269,7 @@ def test_kernel_matches_plain_version(name, dtype):
                            f13.HALO, pad)
     consts = make_shard_box_constants(problem, mesh, pad, f13.HALO, dtype)
     mu1, ctab = static_stage_tables(f13.C_RKC, dtype, "cuda")
+    stream = bs.rkc_uses_stream(consts[0].kind)
     rho = float(make_rho_bound(cfg, problem.model, problem.geometry, dtype,
                                diffusion_field=problem.diffusion_field,
                                diffusion_tensor=problem.diffusion_tensor,
@@ -177,6 +294,16 @@ def test_kernel_matches_plain_version(name, dtype):
                 assert torch.equal(ss_k, ss_k2)
                 assert torch.equal(block(y_k, f13.HALO),
                                    block(y_r, f13.HALO))
-                tol = 1e-10 if dtype == torch.float64 else 1e-3
-                assert abs(float(ss_k.sum()) - float(ss_r.sum())) <= (
-                    tol * float(ss_r.sum()))
+                if stream:
+                    sums = f13.fused_shard_box3d_rkc_tile_sums(*args)
+                    assert ss_k.shape == sums.shape
+                    assert torch.equal(ss_k, sums)
+                else:
+                    tol = 1e-10 if dtype == torch.float64 else 1e-3
+                    assert abs(float(ss_k.sum()) - float(ss_r.sum())) <= (
+                        tol * float(ss_r.sum()))
+        names = trace.kernel_names(
+            lambda: f13.fused_shard_box3d_rkc_step(*args), n=1)
+        assert len(names) == (bs.rkc_launches(f13.C_RKC) if stream else 1)
+        assert all(bs.rkc_kernel_name(consts[0].kind, shard=True) in k
+                   for k in names), names
