@@ -8,13 +8,18 @@ Builds the CUDA kernels from crdmodel_tpu_torch/csrc, holds each against its
 plain PyTorch version on the card (K1, the fused ERK step, y_new and every
 partial sum bitwise with bs32 and dopri54 and the launched kernel traced,
 and K3, the fused IMEX ark324 step, with the FitzHugh-Nagumo, Goldbeter
-and Aliev-Panfilov kinetics; K2, the fused RKC2 step, with the same three, on the profile
-operator, on K4's five divergence-form cases, and at the 41M-point shape
-of the JAX package's column-blocked K2b; K4, the fused divergence-form ERK
+and Aliev-Panfilov kinetics, also on the Goldbeter torus cut to 4 columns
+and an odd grid, every partial sum bitwise on the plan sized to the grid,
+the launched kernel traced; K2, the fused RKC2 step, with the same
+three, on the profile operator, on K4's five divergence-form cases, and
+at the 41M-point shape of the JAX package's column-blocked K2b; K4, the fused divergence-form ERK
 step, on no-flux walls with a scar, a torus obstacle, a 2-D diffusion
 field, a torus narrower than a tile's rings and an odd grid, with bs32,
-zonneveld43 and dopri54, every partial sum bitwise; K5, the fused anisotropic-tensor ERK step, on rotating fibres, a
-constant tensor inside no-flux walls and random fields with a beta ramp;
+zonneveld43 and dopri54, every partial sum bitwise; K5, the fused
+anisotropic-tensor ERK step, on rotating fibres, a constant tensor inside
+no-flux walls, random fields with a beta ramp, a sheet cut to 4 columns
+and an odd sheet, with bs32, zonneveld43 and dopri54, every partial sum
+bitwise, each tableau's launched kernel traced;
 K6 and K7, the fused ERK and RKC2 steps on the 3-D box, in their four
 operator modes on the volumetric slab's 32x512x512 shape: no-flux walls,
 a scar column, a 3-D diffusion field and a transmural tensor, and on
@@ -664,14 +669,19 @@ def check_wide_rkc_kernel(cfg):
 
 
 def check_imex_kernel(cases, timed):
-    """K3 against its plain version at the main paths' shapes, for each
-    config of `cases` (each with tBoundary > 0, so that fz 0 and 1 differ),
-    both dtypes, fz 0 and 1 and each h of K3_H: y_new bitwise equal, two
-    launches bitwise equal; returns the max errors and {shape: (kernel ms, plain ms, bound
-    ms, bound_by)} from the ICs of each config of `timed`, f32, at
-    h = K3_H[0]."""
+    """K3 against its plain version at the main paths' shapes and its
+    edges, for each config of `cases` (each with tBoundary > 0, so that fz
+    0 and 1 differ), both dtypes, fz 0 and 1 and each h of K3_H: y_new and
+    every partial sum bitwise equal (fused_imex_tile_sums, on the tiles of
+    the plan sized to the grid, ops/fused_imex.py::slots_plan), two
+    launches bitwise equal, the slots kernel traced once a config; returns
+    the max errors and {shape: (device ms, plain ms, bound ms, bound_by,
+    burst ms, plan)} from the ICs of each config of `timed`, f32, at h =
+    K3_H[0]: the kernel's device time from profiler traces, a burst's time
+    a launch from CUDA events beside it."""
     from crdmodel_tpu_torch.core.problem import build_problem
     from crdmodel_tpu_torch.ops import fused_imex as fi
+    from crdmodel_tpu_torch.ops import trace
     from crdmodel_tpu_torch.ops.kernel_common import prepare_constants
 
     rng = np.random.default_rng(SEED + 2)
@@ -679,6 +689,7 @@ def check_imex_kernel(cases, timed):
     for cfg in cases:
         problem = build_problem(cfg, device="cuda")
         y_np = random_state(cfg, tuple(problem.y0.shape), rng)
+        plan = fi.slots_plan(cfg.ny, cfg.nx, 4)
         for dtype in (torch.float32, torch.float64):
             kc = prepare_constants(problem, dtype, "cuda")
             y = torch.tensor(y_np, dtype=dtype, device="cuda")
@@ -687,14 +698,22 @@ def check_imex_kernel(cases, timed):
                 for fz in (0.0, 1.0):
                     fzt = torch.tensor(fz, dtype=dtype, device="cuda")
                     args = (y, h, fzt, kc, cfg.rtol, cfg.atol)
+                    if dtype == torch.float32 and h_val == K3_H[0] and fz:
+                        names = trace.kernel_names(
+                            lambda: fi.fused_imex_step(*args))
+                        if not all(fi.SLOTS_KERNEL in n for n in names):
+                            raise AssertionError(
+                                f"k3_check: ran {sorted(set(names))}, not "
+                                f"{fi.SLOTS_KERNEL}")
                     err = check_pair(
                         "k3_check",
                         dict(model=cfg.model, surface=cfg.surface,
                              beta="field" if kc.b_is_field else "scalar",
-                             shape=list(y.shape), h=h_val, fz=fz),
+                             shape=list(y.shape), h=h_val, fz=fz,
+                             tile=[plan.tile_y, plan.tile_x]),
                         *fi.fused_imex_step(*args), *fi.fused_imex_step(*args),
                         *fi.fused_imex_step_reference(*args), dtype, y,
-                        bitwise=True)
+                        bitwise=True, ss_tiles=fi.fused_imex_tile_sums(*args))
                     worst[dtype] = max(worst[dtype], err)
 
     timing = {}
@@ -704,10 +723,15 @@ def check_imex_kernel(cases, timed):
         y = problem.y0.contiguous()
         args = (y, torch.tensor(K3_H[0], device="cuda"),
                 torch.zeros((), device="cuda"), kc, cfg.rtol, cfg.atol)
+
+        def k3():
+            return fi.fused_imex_step(*args)
+
         timing[tuple(y.shape)] = (
-            median_ms(lambda: fi.fused_imex_step(*args)),
+            device_ms(k3, fi.SLOTS_KERNEL),
             median_ms(lambda: fi.fused_imex_step_reference(*args)),
-            *bound(y, kc, imex_ops(kc)))
+            *bound(y, kc, imex_ops(kc)), median_ms(k3),
+            fi.slots_plan(cfg.ny, cfg.nx, y.element_size()))
     return worst, timing
 
 
@@ -768,6 +792,29 @@ def check_field_kernel(name, cases, prepare, step, reference, h_val, seed,
               median_ms(lambda: reference(*args)),
               *bound(y, kc, erk_ops(kc, tab)), burst)
     return worst, timing
+
+
+def check_aniso_dispatch(cfg, build_kw):
+    """The kernel each tableau's K5 launch runs at cfg's shape, from pooled
+    profiler traces (check_dispatch): bs32 the slots kernel, zonneveld43
+    and dopri54 erk_tile.cuh's; returns {method: kernel}."""
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import fused_aniso
+    from crdmodel_tpu_torch.ops.kernel_common import prepare_aniso_constants
+
+    problem = build_problem(cfg, device="cuda", **build_kw)
+    ac = prepare_aniso_constants(problem, torch.float32, "cuda")
+    y = problem.y0.contiguous()
+    ran = {}
+    for method in ERK_METHODS:
+        args = (y, torch.tensor(K5_H, device="cuda"),
+                torch.zeros((), device="cuda"), ac, TABLEAUS[method],
+                cfg.rtol, cfg.atol)
+        ran[method] = check_dispatch(
+            "k5_dispatch", lambda: fused_aniso.fused_aniso_step(*args),
+            TABLEAUS[method])
+    return ran
 
 
 def check_box_kernels(cases, seed):
@@ -1479,21 +1526,15 @@ def run_wide_sheet(cfg, rkc2_probes):
     return launches
 
 
-def traced_kernels(prof):
-    """The device kernels of a torch.profiler trace (ops/trace.py)."""
-    from crdmodel_tpu_torch.ops import trace
-    return trace.traced_kernels(prof)
-
-
 def traced_mean_us(run, tag):
     """One call of run() (a whole run through the entry point) traced
-    with torch.profiler: the launches of the kernels whose name holds
-    `tag` and their mean device µs a launch."""
+    with torch.profiler (ops/trace.py::traced, every launch's kernel
+    held): the launches of the kernels whose name holds `tag` and their
+    mean device µs a launch."""
     from crdmodel_tpu_torch.ops import trace
 
-    with trace.window() as prof:
-        run()
-    durations = [e["dur"] for e in traced_kernels(prof) if tag in e["name"]]
+    kernels, _ = trace.traced(run)
+    durations = [e["dur"] for e in kernels if tag in e["name"]]
     return dict(launches=len(durations),
                 mean_device_us=float(np.mean(durations)) if durations
                 else None)
@@ -1526,9 +1567,7 @@ def profile_run(cfg, build_kw, t_final, kernel_tag, mesh=None):
 
     run()                               # warm-up
     plain = run()
-    with trace.window(cpu=True) as prof:
-        res = run()
-    kernels = traced_kernels(prof)
+    kernels, res = trace.traced(run, cpu=True)
     busy_us = float(sum(e["dur"] for e in kernels))
     tagged = [e["dur"] for e in kernels if kernel_tag in e["name"]]
     steps = res.total_steps()
@@ -3026,11 +3065,12 @@ def main():
           ptxas_slots_kernels={
               src: ptxas_entries(src, erk_slots.SLOTS_KERNEL)
               for src in ("fused_step.cu", "fused_shard_step.cu",
-                          "fused_divform.cu", "fused_shard_divform.cu")},
+                          "fused_divform.cu", "fused_shard_divform.cu",
+                          "fused_aniso.cu")},
           ptxas_fused_step=ptxas_summary("fused_step.cu"),
           ptxas_fused_divform=ptxas_summary("fused_divform.cu"),
           ptxas_fused_rkc=_build.ptxas_report("fused_rkc.cu"),
-          ptxas_fused_aniso=_build.ptxas_report("fused_aniso.cu"),
+          ptxas_fused_aniso=ptxas_summary("fused_aniso.cu"),
           ptxas_stream_kernels={
               src: ptxas_entries(src, box_stream.STREAM_KERNEL)
               for src in ("fused_box3d.cu", "fused_shard_box3d.cu")},
@@ -3043,7 +3083,8 @@ def main():
           ptxas_fused_shard_step=ptxas_summary("fused_shard_step.cu"),
           ptxas_fused_shard_rkc=ptxas_entries("fused_shard_rkc.cu",
                                               "fused_rkc_chunk_kernel"),
-          ptxas_fused_imex=ptxas_summary("fused_imex.cu"),
+          ptxas_fused_imex=ptxas_entries("fused_imex.cu",
+                                         "fused_imex_slots_kernel"),
           ptxas_fused_shard_imex=ptxas_entries("fused_shard_imex.cu",
                                                "fused_imex_slots_kernel"),
           ptxas_fused_shard_divform=ptxas_summary("fused_shard_divform.cu"),
@@ -3150,12 +3191,28 @@ def main():
               bound_us=t2[2] * 1e3, bound_by=t2[3], **t2[4], card=card)
     cfg_big = config_from_ini(GB_INI, model="goldbeter", surface="torus",
                               x_mesh=K3_BIG_MESH)
+    # K3's cases: Goldbeter on the canonical torus and flat with the beta
+    # ramp (the plan's 32x16 tiles), FHN's and Aliev-Panfilov's at
+    # (2,1600,400) (32x32), and the edges of the slots scheme: the
+    # Goldbeter torus cut to 4 columns, which the wrap covers many times,
+    # and an odd 301x75 grid, partial tiles on both axes
     worst3, timing3 = check_imex_kernel(
-        [gb_torus, gb_flat, cfg, cfg_flat, ap_periodic], [cfg_gb, cfg_big])
+        [gb_torus, gb_flat, cfg, cfg_flat, ap_periodic,
+         dataclasses.replace(gb_torus, x_mesh=4),
+         dataclasses.replace(gb_flat, x_mesh=75, y_mesh=301)],
+        [cfg_gb, cfg_big])
     for shape, t3 in timing3.items():
+        plan = t3[5]
         phase("k3_timing", shape=list(shape), h=K3_H[0], dtype="float32",
-              kernel_us=t3[0] * 1e3, plain_us=t3[1] * 1e3,
-              bound_us=t3[2] * 1e3, bound_by=t3[3], card=card)
+              kernel_us=t3[0] * 1e3, burst_us=t3[4] * 1e3,
+              plain_us=t3[1] * 1e3, bound_us=t3[2] * 1e3, bound_by=t3[3],
+              times_bound=t3[0] / t3[2], kernel=fused_imex.SLOTS_KERNEL,
+              plan=plan._asdict(),
+              **fused_imex.kernel_info(torch.float32,
+                                       KINETICS_IDS["goldbeter"],
+                                       plan.tile_y),
+              ptxas=ptxas_summary("fused_imex.cu", fused_imex.SLOTS_KERNEL),
+              card=card)
     # K4's cases at (2,1600,400), each with a freeze: the bounded tissue; a
     # torus obstacle (FHN, the canonical torus with a scar of its own); a
     # flat 2-D diffusion field around D = 0.1; and the edges of bs32's
@@ -3228,13 +3285,33 @@ def main():
                                               boundary="noflux"),
           dict(diffusion_tensor=(1.0, 0.25, 0.15))),
          ("random_beta_ramp", dataclasses.replace(cfg_flat, vary_beta=1),
-          dict(diffusion_tensor=(dxx, dyy, dxy)))],
+          dict(diffusion_tensor=(dxx, dyy, dxy))),
+         # the edges of bs32's slots scheme: a sheet cut to 4 columns and
+         # an odd 301x75 sheet, a constant tensor on each
+         ("const_4_columns", dataclasses.replace(cfg_aniso, x_mesh=4,
+                                                 t_boundary=0.5),
+          dict(diffusion_tensor=(1.0, 0.25, 0.15))),
+         ("const_odd", dataclasses.replace(cfg_aniso, x_mesh=75, y_mesh=301,
+                                           t_boundary=0.5),
+          dict(diffusion_tensor=(1.0, 0.25, 0.15)))],
         prepare_aniso_constants, fused_aniso.fused_aniso_step,
-        fused_aniso.fused_aniso_step_reference, K5_H, SEED + 7)
+        fused_aniso.fused_aniso_step_reference, K5_H, SEED + 7,
+        methods=ERK_METHODS, tile_sums=fused_aniso.fused_aniso_tile_sums,
+        device_tag=erk_slots.SLOTS_KERNEL)
+    # the dispatch at the fibered sheet's shape: bs32 the slots kernel,
+    # the other tableaus erk_tile.cuh's
+    k5_kernels = check_aniso_dispatch(cfg_aniso, aniso_build)
     phase("k5_timing", shape=[2, cfg_aniso.ny, cfg_aniso.nx], method="bs32",
           dtype="float32", kernel_us=k5_timing[0] * 1e3,
+          burst_us=k5_timing[4] * 1e3,
           plain_us=k5_timing[1] * 1e3, bound_us=k5_timing[2] * 1e3,
-          bound_by=k5_timing[3], card=card)
+          bound_by=k5_timing[3],
+          times_bound=k5_timing[0] / k5_timing[2],
+          kernel=erk_slots.SLOTS_KERNEL, dispatch=k5_kernels,
+          **erk_slots.kernel_info("crd_fused_aniso_info", torch.float32,
+                                  KINETICS_IDS["aliev_panfilov"]),
+          ptxas=ptxas_summary("fused_aniso.cu", erk_slots.SLOTS_KERNEL),
+          card=card)
 
     probes = load_probes()
     gb_label = "data/GoldbeterModelArgs.ini goldbeter torus"
@@ -3299,6 +3376,10 @@ def main():
     field_entries = shard_field_phases(cfg, programs, probes, singles, card)
     shard_box_entries = shard_box_phases(cfg_box, box_singles, card)
 
+    # the profiler traces of the run, and those taken again with more
+    # primers after one lost kernels (ops/trace.py::traced)
+    from crdmodel_tpu_torch.ops import trace
+    phase("traces", taken=trace.traced.taken, retaken=trace.traced.retaken)
     k2_s = max(timing2)     # the stability-bound step: the larger time
     k3_shape = (2, cfg_gb.ny, cfg_gb.nx)    # the ark324 main path's shape
     print(json.dumps({"kernels": [

@@ -1,11 +1,11 @@
 // The register-resident tile scheme of the port's fused embedded-ERK step
-// kernels on the 5-point profile operator and the face-coefficient
-// operators: K1 and K4 (fused_step.cu, fused_divform.cu, the periodic
-// grid, WrapGrid) and K8 and K11 (fused_shard_step.cu,
-// fused_shard_divform.cu, one shard's block in the halo the exchange
-// filled, HaloGrid), each through a functor with a "coefficients read
-// once" entry (rhs_common.cuh::ProfileRhs, DivformRhs, MixedDivformRhs:
-// Point, point(), at_point(), plane()).
+// kernels on the 5-point profile operator, the face-coefficient operators
+// and the 2-D tensor: K1, K4 and K5 (fused_step.cu, fused_divform.cu,
+// fused_aniso.cu, the periodic grid, WrapGrid) and K8 and K11
+// (fused_shard_step.cu, fused_shard_divform.cu, one shard's block in the
+// halo the exchange filled, HaloGrid), each through a functor with a
+// "coefficients read once" entry (rhs_common.cuh::ProfileRhs, DivformRhs,
+// MixedDivformRhs, AnisoRhs: Point, point(), at_point(), plane()).
 //
 // One launch performs a whole step, as erk_tile.cuh's kernel does, on the
 // same tiles (ops/fused_step.py::tile_plan: 32 x tile_y with n rings), and
@@ -25,10 +25,10 @@
 // step's start, and is loaded by threads of its own, so that every load of
 // the step's start is issued before one barrier), one block barrier a
 // stage; an operator that reads a coefficient at neighbours (the mixed
-// pair's Dxy) holds it in a plane of its own. Every stage before the last
-// runs at every point of the slots, the rings whose values no longer
-// matter included, so the slots' code has no branches; the last runs on
-// the tile.
+// pair's Dxy, the tensor's dxyw) holds it in a plane of its own. Every
+// stage before the last runs at every point of the slots, the rings whose
+// values no longer matter included, so the slots' code has no branches;
+// the last runs on the tile.
 //
 // The scheme takes an FSAL tableau of kSlotStages stages (bs32): its last
 // stage's input is the update (a[n-1] == b), so y_new is that input and

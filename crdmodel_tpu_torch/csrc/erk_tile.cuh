@@ -1,9 +1,9 @@
-// The tile scheme of the port's fused embedded-ERK step kernels: K5
-// (fused_aniso.cu), and K1 (fused_step.cu, the 5-point profile operator),
-// K4 (fused_divform.cu, the divergence-form operator), K8
+// The tile scheme of the port's fused embedded-ERK step kernels K1
+// (fused_step.cu, the 5-point profile operator), K4 (fused_divform.cu, the
+// divergence-form operator), K5 (fused_aniso.cu, the 2-D tensor), K8
 // (fused_shard_step.cu, K1 on one shard of a mesh) and K11
 // (fused_shard_divform.cu, K4 and the 2-D tensor on one shard) for the
-// tableaus other than bs32, which those four take on erk_slots.cuh's
+// tableaus other than bs32, which those five take on erk_slots.cuh's
 // register-resident scheme. They differ in the right-hand side at a point,
 // a functor the kernel template takes, and in the grid the tile reads, a
 // policy it takes (rhs_common.cuh): WrapGrid, the periodic grid, whose
@@ -206,17 +206,6 @@ int launch_erk_tile_on(Rhs rhs, Grid grid, const void* y, void* y_new,
       static_cast<const T*>(h), static_cast<const T*>(fz), rhs, grid, ny,
       nx, tile_x, tile_y, tab, static_cast<T>(rtol), static_cast<T>(atol));
   return static_cast<int>(cudaGetLastError());
-}
-
-// launch_erk_tile_on the periodic ny x nx grid (K1, K4, K5)
-template <class Rhs, typename T>
-int launch_erk_tile(Rhs rhs, const void* y, void* y_new, void* ss,
-                    const void* h, const void* fz, int ny, int nx, int tile_x,
-                    int tile_y, const StageTable& tab, double rtol,
-                    double atol, void* stream) {
-  return launch_erk_tile_on<Rhs, T>(rhs, WrapGrid{ny, nx}, y, y_new, ss, h,
-                                    fz, ny, nx, tile_x, tile_y, tab, rtol,
-                                    atol, stream);
 }
 
 }  // namespace crd

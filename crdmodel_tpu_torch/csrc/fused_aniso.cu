@@ -5,9 +5,9 @@
 // Replaces crdmodel_tpu/ops/pallas_aniso.py::build_fused_aniso_step, the
 // Pallas TPU kernel that takes every attempted step of an ERK run with a
 // diffusion tensor on the flat surface (cardiac fibre anisotropy). One
-// launch performs a whole step, with the tile scheme of K1 and K4
-// (erk_tile.cuh): stage inputs y0 + sum (h a[s][j]) k_j; k_s = kinetics +
-// axis + (t1 + t2) on variable 0 (rhs_common.cuh::aniso_rhs), times
+// launch performs a whole step: stage inputs y0 + sum (h a[s][j]) k_j;
+// k_s = kinetics + axis + (t1 + t2) on variable 0 (rhs_common.cuh::
+// aniso_rhs, the JAX kernel's association on the folded dxyw), times
 // live = 1 - fz(1 - mask) with a freeze; y_new = y0 + sum (h b_s) k_s and
 // err = sum (h d_s) k_s in the plain version's order; one partial sum of
 // (err / (rtol |y0| + atol))^2 per block, in a fixed order.
@@ -16,26 +16,35 @@
 // the three coefficient fields aE, aN, dxyw (ny x nx each) once and writes
 // y_new once: about 17.9 MB a step on 1600x400 in f32, some 5.3 us at the
 // published 3.35 TB/s. The arithmetic is about 40 operations a point a
-// stage. As in K1 and K4, the step is bound by latency (barriers between
-// stages, the shared-memory stage buffers) long before either.
+// stage. As in K1 and K4, the step is bound by latency and issue long
+// before either.
 //
-// Design: the state tiles, their n_stages-ring halos (loaded by modular
-// index) and the stage buffers live in shared memory as in K1. The 9-point
-// stencil reads the diagonal neighbours, which lie in the same one-cell
-// ring as the axis neighbours, so each stage still consumes one ring and
-// the region arithmetic of erk_tile.cuh holds unchanged. The coefficients
-// are read through the read-only data cache (__ldg) at every evaluation,
-// as in K4: aE and aN at the point, aE at (j, i-1) for aW, aN at (j-1, i)
-// for aS, and dxyw at the four neighbours for the mixed fluxes, all with
-// the modular wrap of the state. Under no-flux walls the wrapped values
-// meet zero aE/aN faces and zero Dxy wall layers, so they contribute exact
-// zeros. The arithmetic follows the plain version (ops/fused_aniso.py::
+// Design: bs32, the main path's tableau, takes erk_slots.cuh's scheme on
+// K1's 32x32 tiles: 512 threads fixed to the tile and its n - 1 rings, a
+// point's stage inputs and error accumulating in its thread's registers,
+// its coefficients read from device memory once a launch into registers
+// (AnisoRhs::point: aE and aN at the point, aE at the west neighbour for
+// aW, aN at the row below for aS, beta and live), dxyw, which the mixed
+// fluxes read at the four neighbours, in one shared plane of the region
+// loaded with the step's start, the stage input's variable 0 in two
+// shared planes, one block barrier a stage; a tile whose region lies
+// inside the grid takes code without the wrap, the others wrap by loops.
+// zonneveld43 and dopri54 take erk_tile.cuh's scheme, which reads the
+// coefficients through the read-only data cache at every evaluation, by
+// the launcher's dispatch on the stage count (launch_erk_slots_on). The
+// 9-point stencil reads the diagonal neighbours, which lie in the same
+// one-cell ring as the axis neighbours, so each stage consumes one ring in
+// both schemes. Under no-flux walls the wrapped values meet zero aE/aN
+// faces and zero Dxy wall layers, so they contribute exact zeros. The
+// arithmetic follows the plain version (ops/fused_aniso.py::
 // fused_aniso_step_reference) operation for operation, and the library is
-// built with -fmad=false. No tensor cores, TMA or tuning yet.
+// built with -fmad=false; each partial sum adds its tile's points in
+// erk_tile.cuh's order, so y_new and every partial sum are bitwise those
+// of the plain version and of erk_tile.cuh's. No tensor cores or TMA.
 
 #include <cuda_runtime.h>
 
-#include "erk_tile.cuh"
+#include "erk_slots.cuh"
 #include "rhs_common.cuh"
 
 namespace {
@@ -63,16 +72,30 @@ int launch(const void* y, void* y_new, void* ss, const void* h,
       static_cast<const T*>(mask), has_freeze};
   const crd::WrapGrid grid = {ny, nx};
   if (kinetics == crd::kFhn)
-    return crd::launch_erk_tile<Rhs<crd::kFhn, T>, T>(
-        {c, k, grid}, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab,
+    return crd::launch_erk_slots_on<Rhs<crd::kFhn, T>, T>(
+        {c, k, grid}, grid, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab,
         rtol, atol, stream);
   if (kinetics == crd::kGoldbeter)
-    return crd::launch_erk_tile<Rhs<crd::kGoldbeter, T>, T>(
-        {c, k, grid}, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab,
+    return crd::launch_erk_slots_on<Rhs<crd::kGoldbeter, T>, T>(
+        {c, k, grid}, grid, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab,
         rtol, atol, stream);
-  return crd::launch_erk_tile<Rhs<crd::kAlievPanfilov, T>, T>(
-      {c, k, grid}, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab, rtol,
-      atol, stream);
+  return crd::launch_erk_slots_on<Rhs<crd::kAlievPanfilov, T>, T>(
+      {c, k, grid}, grid, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab,
+      rtol, atol, stream);
+}
+
+// crd::slots_kernel_info of the bs32 kernel of `kinetics` in T
+template <typename T>
+int info(int kinetics, int* out) {
+  if (kinetics == crd::kFhn)
+    return crd::slots_kernel_info<Rhs<crd::kFhn, T>, crd::WrapGrid, T>(out);
+  if (kinetics == crd::kGoldbeter)
+    return crd::slots_kernel_info<Rhs<crd::kGoldbeter, T>, crd::WrapGrid,
+                                  T>(out);
+  if (kinetics == crd::kAlievPanfilov)
+    return crd::slots_kernel_info<Rhs<crd::kAlievPanfilov, T>, crd::WrapGrid,
+                                  T>(out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -95,4 +118,8 @@ extern "C" int crd_fused_aniso_step_f32(CRD_FUSED_ANISO_ARGS) {
 
 extern "C" int crd_fused_aniso_step_f64(CRD_FUSED_ANISO_ARGS) {
   return launch<double>(CRD_FUSED_ANISO_PASS);
+}
+
+extern "C" int crd_fused_aniso_info(int f64, int kinetics, int* out) {
+  return f64 ? info<double>(kinetics, out) : info<float>(kinetics, out);
 }

@@ -20,18 +20,30 @@
 // y_new written once (about 41 MB a step on 800x3200 in f32, some 12 us at
 // the published 3.35 TB/s). The work is the Newton: 9 iterations a point,
 // each a Jacobian, a kinetics evaluation and a solve, with about 8 IEEE
-// divisions for Goldbeter, some 500 flops and 70 divisions a point. So the
-// step is bound by arithmetic, divisions first, and by the block's barriers
-// between stages at small grids.
+// divisions for Goldbeter, some 500 flops and 70 divisions a point, on
+// 1.27x the tile's points (the Newton's rings). So the step is bound by
+// arithmetic, divisions first, and at small grids by how few blocks there
+// are to spread it over.
 //
-// Design: the tile scheme of imex_tile.cuh with the WrapGrid policy
-// (rhs_common.cuh): each block loads its tile with a halo of 4 rings by
-// modular index (the periodic wrap), one ring per explicit evaluation; the
-// Newton work is pointwise and stays in registers.
+// Design: imex_slots.cuh's register-resident scheme with the WrapGrid
+// policy (tile_slots.cuh::SlotOrigin<WrapGrid>): 512 threads fixed to a
+// tile's points and its Newton rings, the pointwise state in registers, y0's
+// u and the stage value of variable 0 in three shared planes of the
+// region; a tile whose 4-ring region lies inside the grid takes code
+// without the wrap, the others wrap by loops (as often as a grid narrower
+// than the region needs). The plan is sized to the grid
+// (ops/fused_imex.py::slots_plan): 32x32 tiles, or 32x16 ones (one tile
+// point and at most one ring point a thread) where 32x32 tiles would
+// number fewer than the card's SMs; the caller passes the plan's tile.
+// y_new is bitwise the plain version's (ops/fused_imex.py::
+// imex_stages_reference), and each partial sum adds its tile's terms in
+// the order of K3's first port, a 256-thread one-pass block on the same
+// tile (ops/fused_imex.py::imex_tile_sums), so a run at the 32x32 plan
+// takes that kernel's steps exactly.
 
 #include <cuda_runtime.h>
 
-#include "imex_tile.cuh"
+#include "imex_slots.cuh"
 #include "rhs_common.cuh"
 
 namespace {
@@ -48,9 +60,29 @@ int launch(const void* y, void* y_new, void* ss, const void* h,
       static_cast<const T*>(c0), static_cast<const T*>(c1),
       static_cast<const T*>(c2), torus, static_cast<const T*>(beta),
       beta_field, static_cast<const T*>(mask), has_freeze};
-  return crd::launch_imex_tile<crd::WrapGrid, T>(
-      {ny, nx}, y, y_new, ss, h, fz, k, kinetics, ny, nx, tile_x, tile_y,
-      crd::make_imex_table(ae, ai, b, d, gamma), rtol, atol, stream);
+  const crd::WrapGrid grid = {ny, nx};
+  const crd::ImexTable tab = crd::make_imex_table(ae, ai, b, d, gamma);
+  if (tile_x != crd::kImexTile)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (tile_y == 32)
+    return crd::launch_imex_slots<crd::WrapGrid, T, 32>(
+        grid, y, y_new, ss, h, fz, k, kinetics, ny, nx, tab, rtol, atol,
+        stream);
+  if (tile_y == 16)
+    return crd::launch_imex_slots<crd::WrapGrid, T, 16>(
+        grid, y, y_new, ss, h, fz, k, kinetics, ny, nx, tab, rtol, atol,
+        stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// crd::imex_slots_info of the kernel of `kinetics` on 32 x tile_y tiles
+template <typename T>
+int info(int kinetics, int tile_y, int* out) {
+  if (tile_y == 32)
+    return crd::imex_slots_info<crd::WrapGrid, T, 32>(kinetics, out);
+  if (tile_y == 16)
+    return crd::imex_slots_info<crd::WrapGrid, T, 16>(kinetics, out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -73,4 +105,10 @@ extern "C" int crd_fused_imex_step_f32(CRD_FUSED_IMEX_ARGS) {
 
 extern "C" int crd_fused_imex_step_f64(CRD_FUSED_IMEX_ARGS) {
   return launch<double>(CRD_FUSED_IMEX_PASS);
+}
+
+extern "C" int crd_fused_imex_info(int f64, int kinetics, int tile_y,
+                                   int* out) {
+  return f64 ? info<double>(kinetics, tile_y, out)
+             : info<float>(kinetics, tile_y, out);
 }

@@ -28,21 +28,20 @@
 // runs the JAX kernels' mirror-pad semantics: pad cells step like their
 // wrapped sources, and only the first valid_rows x valid_cols cells of the
 // block enter either part of the sum. Only the block of y_new is written.
-// The partial sums replay imex_tile.cuh's 256-thread order, so y_new and
-// every partial sum are bitwise the plain version's and imex_tile.cuh's,
-// and a run takes the same steps.
+// The partial sums replay the 256-thread order of K3's first port, so
+// y_new and every partial sum are bitwise the plain version's and that
+// kernel's, and a run takes the same steps.
 //
 // What bounds it on an H100: the Newton's arithmetic, some 500 flops and
 // 70 IEEE divisions a point for Goldbeter (10.15 us at (2,1616,416) at 67
 // TFLOP/s), on 1.27x the tile's points (the Newton's rings); the buffer is
 // read once and y_new's block written once. Each thread carries at most
-// three points through the stages, where imex_tile.cuh's 256 threads
+// three points through the stages, where the first port's 256 threads
 // carried some six each through shared memory.
 
 #include <cuda_runtime.h>
 
 #include "imex_slots.cuh"
-#include "imex_tile.cuh"
 #include "rhs_common.cuh"
 
 namespace {
@@ -66,7 +65,7 @@ int launch(const void* y, void* y_new, void* ss, const void* h,
   if (tile_x != crd::kImexTile || tile_y != crd::kImexTile)
     return static_cast<int>(cudaErrorInvalidValue);
   const crd::HaloGrid grid = {nyl, nxl, halo, valid_rows, valid_cols};
-  return crd::launch_imex_slots<crd::HaloGrid, T>(
+  return crd::launch_imex_slots<crd::HaloGrid, T, crd::kImexTile>(
       grid, y, y_new, ss, h, fz, k, kinetics, nyl, nxl,
       crd::make_imex_table(ae, ai, b, d, gamma), rtol, atol, stream);
 }
@@ -95,6 +94,8 @@ extern "C" int crd_fused_shard_imex_step_f64(CRD_FUSED_SHARD_IMEX_ARGS) {
 }
 
 extern "C" int crd_fused_shard_imex_info(int f64, int kinetics, int* out) {
-  return f64 ? crd::imex_slots_info<crd::HaloGrid, double>(kinetics, out)
-             : crd::imex_slots_info<crd::HaloGrid, float>(kinetics, out);
+  return f64 ? crd::imex_slots_info<crd::HaloGrid, double, crd::kImexTile>(
+                   kinetics, out)
+             : crd::imex_slots_info<crd::HaloGrid, float, crd::kImexTile>(
+                   kinetics, out);
 }

@@ -1,13 +1,11 @@
 // The register-resident tile scheme of the port's fused IMEX ARK3(2)4L[2]SA
-// step: K10 (fused_shard_imex.cu, one shard's block in the halo the
-// exchange filled, HaloGrid); written over the grid policy (SlotOrigin,
-// tile_slots.cuh), so that K3 (fused_imex.cu, WrapGrid, on imex_tile.cuh's
-// one-pass scheme today) can take it.
+// step: K3 (fused_imex.cu, the periodic grid, WrapGrid) and K10
+// (fused_shard_imex.cu, one shard's block in the halo the exchange filled,
+// HaloGrid), written over the grid policy (SlotOrigin, tile_slots.cuh).
 //
 // One launch performs a whole additive Runge-Kutta step
-// (integrate/imex.py::make_imex_step_err), as imex_tile.cuh's kernel does,
-// on the same 32x32 tiles with 4 rings, and writes the same y_new and the
-// same partial sums, bit for bit: the 4 explicit stencil evaluations
+// (integrate/imex.py::make_imex_step_err) on 32 x TileY tiles with 4 rings,
+// one ring per explicit evaluation: the 4 explicit stencil evaluations
 // kE_i = f_ex(Y_i); the 3 implicit stages, each solving
 // Y = rhs_known + (h gamma) f_im(Y) at every point by 3 full Newton
 // iterations (closed-form 2x2 Jacobian, residual, Cramer solve with IEEE
@@ -15,42 +13,49 @@
 // sum (h B_j)(kE_j + kI_j); err = sum (h D_j)(kE_j + kI_j); and one partial
 // sum a tile of sum (err w)^2 + (1/NEWTON_TOL)^2 sum_stages (dy w)^2, with
 // w = 1/(rtol |y0| + atol) and dy each stage's last Newton update, over the
-// points the grid counts. A zero determinant gives NaN, which reaches the
-// sum (a rejected step): nothing is masked.
+// points the grid counts (summed by the caller; no float atomics, so two
+// launches on the same input give bitwise-equal results). A zero
+// determinant gives NaN, which reaches the sum (a rejected step): nothing
+// is masked. Stage s's Newton runs on every point at depth >= s (the tile
+// grown by 4 - s rings), because stage s + 1's stencil reads Y_s there.
 //
-// What differs from imex_tile.cuh is where the values live. A block of
-// kImexSlotThreads threads owns a tile; each thread is fixed to two points
-// of the tile (q = t and t + 512) and to at most one point of the 3 rings
-// around it that the Newton also runs on (420 points: the stage values
-// there feed the stencils of the later stages; stage s runs on the rings
-// at depth >= s, as in imex_tile.cuh, the rings ordered by depth so that
-// whole warps skip), for the whole launch; the outer ring, which only the
-// first stencil reads, is loaded by threads of its own. A point's pointwise state stays in its thread's registers: the
-// rhs_known of the stages to come, each accumulated as its terms become
-// known (j order, AE before AI within a j, as imex_stages_reference), the
-// predictor's kI of the stage before, and on the tile the weights and the
-// update's and the error's sums (B and D in j order). Only what a stencil
+// A block of kImexSlotThreads threads owns a tile; each thread is fixed
+// to kTileSlots points of the tile (q = t + 512 m: two on a 32x32 tile,
+// one on a 32x16 one) and to at most one point of the 3 rings around it
+// that the Newton also runs on (420 or 324 points: the stage values there
+// feed the stencils of the later stages; stage s runs on the rings at
+// depth >= s, the rings ordered by depth so that whole warps skip), for
+// the whole launch; the outer ring, which only the first stencil reads,
+// is loaded by threads of its own. A point's pointwise state stays in its
+// thread's registers: the rhs_known of the stages to come, each
+// accumulated as its terms become known (j order, AE before AI within a
+// j, as imex_stages_reference), the predictor's kI of the stage before,
+// and on the tile the weights and the update's and the error's sums (B
+// and D in j order). Only variable 0 diffuses, so only what its stencil
 // reads at neighbours goes through shared memory: y0's u and the stage
-// value of variable 0, three planes of the 40x40 region in all, one block
-// barrier a stage. The operator's coefficients (the three profiles of the
-// region's columns, beta and live of its rows) and the tableau's products
-// h AE, h AI, h B, h D are staged in shared memory once a block, the
-// tableau from T values prepared on the host; the zero pattern of
-// ARK3(2)4L[2]SA (every AE and AI entry below the diagonal, every B and D
-// non-zero) is the kernel's at compile time, and the launcher refuses a
-// tableau of another pattern. Each point's arithmetic follows the plain
+// value of variable 0, three planes of the region in all, one block
+// barrier a stage; kE of variable 1 is 0 and never formed. The operator's
+// coefficients (the three profiles of the region's columns, beta and live
+// of its rows) and the tableau's products h AE, h AI, h B, h D are staged
+// in shared memory once a block, the tableau from T values prepared on the
+// host; the zero pattern of ARK3(2)4L[2]SA (every AE and AI entry below
+// the diagonal, every B and D non-zero) is the kernel's at compile time,
+// and the launcher refuses a tableau of another pattern. A tile whose
+// region lies inside the grid (or the shard's buffer) takes code without
+// the wrap (or the clamp). Each point's arithmetic follows the plain
 // version (ops/fused_imex.py::imex_stages_reference) operation for
 // operation, and the library is built with -fmad=false.
 //
-// The partial sums keep imex_tile.cuh's order, so that the Newton's share
-// of the convergence test, which rides the cross-shard error sum, and with
+// The partial sums keep the order of the 256-thread one-pass block of K3's
+// first port, so that the Newton's share of the convergence test, and with
 // it a run's steps, do not move: the squared scaled Newton updates of the
 // three stages and the squared scaled errors of the tile's points are
-// staged in shared memory, and threads 0..255 replay what imex_tile.cuh's
-// 256 threads added: thread t its Newton points of stage s in the strided
-// order over the (40 - 2s)^2 region, restricted to the tile's counted
-// cells, then its tile points (stride 256, u then v), then acc + 100 dacc;
-// the block's reduction adds the other warps' +0.0 (exact).
+// staged in shared memory, and threads 0..255 replay what that block's 256
+// threads added: thread t its Newton points of stage s in the strided
+// order over the (40 - 2s) x (TileY + 8 - 2s) region, restricted to the
+// tile's counted cells, then its tile points (stride 256, u then v), then
+// acc + 100 dacc; the block's reduction adds the other warps' +0.0
+// (exact). ops/fused_imex.py::imex_tile_sums is its plain model.
 
 #pragma once
 
@@ -58,34 +63,87 @@
 
 #include <type_traits>
 
-#include "imex_tile.cuh"
 #include "rhs_common.cuh"
 #include "tile_slots.cuh"
 
 namespace crd {
 
-constexpr int kImexSlotThreads = 512;   // ops/fused_shard_imex.py THREADS
-constexpr int kImexTile = 32;           // ops/fused_imex.py TILE
-constexpr int kImexRegW = kImexTile + 2 * kImexHalo;    // 40
-constexpr int kImexRegion = kImexRegW * kImexRegW;      // 1600 points
-constexpr int kImexTilePoints = kImexTile * kImexTile;  // 1024
-// the Newton's rings around the tile (depth 1..3), one point a thread
-constexpr int kImexRing = (kImexRegW - 2) * (kImexRegW - 2) - kImexTilePoints;
-constexpr int kImexOuter = 4 * (kImexRegW - 1);         // depth 0: 156
-// the stages' staged terms: the Newton updates of 3 stages and the errors,
-// two variables each, on the tile
-constexpr int kImexStaged = 2 * kImexStages * kImexTilePoints;
-static_assert(kImexTilePoints == 2 * kImexSlotThreads, "two tile slots");
-static_assert(kImexRing <= kImexSlotThreads, "one ring slot");
-static_assert(kImexOuter <= kImexSlotThreads, "one outer point a thread");
+constexpr int kImexStages = 4;
+constexpr int kImexHalo = 4;             // one ring per explicit evaluation
+constexpr int kImexNewtonIters = 3;      // integrate/imex.py NEWTON_ITERS
+constexpr double kImexNewtonPenalty = 100.0;   // (1 / NEWTON_TOL)^2
+constexpr int kImexSlotThreads = 512;    // ops/fused_imex.py THREADS
+constexpr int kImexSumThreads = 256;     // the partial sums' order
+constexpr int kImexTile = 32;            // the tiles' width (x, contiguous)
+
+struct ImexTable {
+  double ae[kImexStages][kImexStages];
+  double ai[kImexStages][kImexStages];
+  double b[kImexStages];
+  double d[kImexStages];                 // b - bhat
+  double gamma;
+};
+
+// AE and AI row-major (4 x 4), B and D of 4 stages, and gamma
+inline ImexTable make_imex_table(const double* ae, const double* ai,
+                                 const double* b, const double* d,
+                                 double gamma) {
+  ImexTable tab = {};
+  for (int s = 0; s < kImexStages; ++s) {
+    for (int j = 0; j < kImexStages; ++j) {
+      tab.ae[s][j] = ae[s * kImexStages + j];
+      tab.ai[s][j] = ai[s * kImexStages + j];
+    }
+    tab.b[s] = b[s];
+    tab.d[s] = d[s];
+  }
+  tab.gamma = gamma;
+  return tab;
+}
+
+// The block's plan for 32 x TileY tiles (ops/fused_imex.py::slots_plan):
+// the region, W x R points, the tile and its 4 rings; the tile's slots a
+// thread; the Newton's 3 rings around the tile (depth 1..3, one point a
+// thread) and the outer ring (depth 0)
+template <int TileY>
+struct ImexPlan {
+  static constexpr int kW = kImexTile + 2 * kImexHalo;    // 40
+  static constexpr int kR = TileY + 2 * kImexHalo;        // 40 or 24
+  static constexpr int kRegion = kW * kR;
+  static constexpr int kTilePoints = kImexTile * TileY;
+  static constexpr int kTileSlots = kTilePoints / kImexSlotThreads;
+  static constexpr int kRing = (kW - 2) * (kR - 2) - kTilePoints;
+  static constexpr int kOuter = 2 * (kW + kR) - 4;
+  // the stages' staged terms: the Newton updates of 3 stages and the
+  // errors, two variables each, on the tile
+  static constexpr int kStaged = 2 * kImexStages * kTilePoints;
+  // dynamic shared memory (in T): y0's u and two stage planes of the
+  // region, the staged terms
+  static constexpr int kElements = 3 * kRegion + kStaged;
+  static_assert(kTileSlots * kImexSlotThreads == kTilePoints,
+                "whole tile slots");
+  static_assert(kRing <= kImexSlotThreads, "one ring slot");
+  static_assert(kOuter <= kImexSlotThreads, "one outer point a thread");
+  static_assert(kR <= 64 && kW <= 64, "the coefficients' staging threads");
+
+  // the points of the region's rectangular ring at depth d
+  static __host__ __device__ constexpr int ring_size(int d) {
+    return 2 * (kW + kR) - 8 * d - 4;
+  }
+  // the local index of point i of the ring at depth d: its first row, its
+  // last row, then its side columns two a row
+  static __device__ __forceinline__ int ring_point(int d, int i) {
+    const int L = kW - 2 * d, H = kR - 2 * d;
+    if (i < L) return d * kW + d + i;
+    if (i < 2 * L) return (d + H - 1) * kW + d + i - L;
+    const int j = i - 2 * L;
+    return (d + 1 + j / 2) * kW + ((j & 1) ? d + L - 1 : d);
+  }
+};
 
 // f32: two blocks an SM (at most 64 registers); f64: one
 template <typename T>
 constexpr int kImexMinBlocks = sizeof(T) == 4 ? 2 : 1;
-
-// dynamic shared memory (in T): y0's u and two stage planes of the region,
-// the staged terms (ops/fused_shard_imex.py::slots_plan)
-constexpr int kImexSlotElements = 3 * kImexRegion + kImexStaged;
 
 // The tableau in T, prepared on the host (rows and columns as ImexTable's)
 template <typename T>
@@ -117,24 +175,9 @@ inline bool imex_slots_take(const ImexTable& tab, ImexCoeffs<T>* out) {
   return true;
 }
 
-// the local index of point i of the region's square ring at depth d
-__device__ __forceinline__ int imex_ring_point(int d, int i) {
-  constexpr int W = kImexRegW;
-  const int L = W - 2 * d;
-  if (i < L) return d * W + d + i;                        // first row
-  if (i < 2 * L) return (d + L - 1) * W + d + i - L;      // last row
-  const int j = i - 2 * L;
-  return (d + 1 + j / 2) * W + ((j & 1) ? d + L - 1 : d);
-}
-
-// the points of the square ring at depth d of the region
-__host__ __device__ constexpr int imex_ring_size(int d) {
-  return 4 * (kImexRegW - 2 * d - 1);
-}
-
 // The Newton of one implicit stage at one point: Y = rhs_known +
 // (h gamma) f_im(Y) from the predictor (Yu, Yv), the last update in
-// (du, dv); imex_tile.cuh's arithmetic, operation for operation.
+// (du, dv); imex_stages_reference's arithmetic, operation for operation.
 template <int Kin, typename T>
 __device__ __forceinline__ void imex_newton(T hg, T ru, T rv, T b, T live,
                                             bool freeze, T& Yu, T& Yv, T& du,
@@ -167,17 +210,20 @@ __device__ __forceinline__ void imex_newton(T hg, T ru, T rv, T b, T live,
 }
 
 // One step over the extent the grid's tiles cover (the grid's, or the
-// shard's block), a 32x32 tile a block.
-template <int Kin, class Grid, typename T>
+// shard's block), a 32 x TileY tile a block.
+template <int Kin, class Grid, typename T, int TileY>
 __global__ void __launch_bounds__(kImexSlotThreads, (kImexMinBlocks<T>))
     fused_imex_slots_kernel(const T* __restrict__ y, T* __restrict__ y_new,
                             T* __restrict__ ss, const T* __restrict__ h_ptr,
                             const T* __restrict__ fz_ptr, RhsConstants<T> k,
                             Grid grid, ImexCoeffs<T> tab, T rtol, T atol) {
+  using Plan = ImexPlan<TileY>;
   constexpr int NS = kImexStages;
-  constexpr int W = kImexRegW;
+  constexpr int W = Plan::kW;
+  constexpr int R = Plan::kR;
   constexpr int kTile = kImexTile;
-  constexpr int kTP = kImexTilePoints;
+  constexpr int kTP = Plan::kTilePoints;
+  constexpr int kTS = Plan::kTileSlots;
   constexpr int kT = kImexSlotThreads;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ T warp_sums[kT / 32];
@@ -185,15 +231,15 @@ __global__ void __launch_bounds__(kImexSlotThreads, (kImexMinBlocks<T>))
   __shared__ T hae[NS][NS], hai[NS][NS], hb[NS], hd[NS];
   // the profile operator's coefficients of the region's columns (c0, c1,
   // c2) and rows (beta, live), read once a block
-  __shared__ T colc[3][W], rowc[2][W];
+  __shared__ T colc[3][W], rowc[2][R];
   T* const u0s = reinterpret_cast<T*>(smem_raw);   // y0's u on the region
-  T* const ys[2] = {u0s + kImexRegion,             // the stage value's u:
-                    u0s + 2 * kImexRegion};        // stages 1, 3 / 2
+  T* const ys[2] = {u0s + Plan::kRegion,           // the stage value's u:
+                    u0s + 2 * Plan::kRegion};      // stages 1, 3 / 2
   // the staged terms: dy2[(s - 1) * 2 + var][q] and e2[var][q] on the tile
-  T* const dy2 = u0s + 3 * kImexRegion;
+  T* const dy2 = u0s + 3 * Plan::kRegion;
   T* const e2 = dy2 + 2 * (NS - 1) * kTP;
-  const SlotOrigin<Grid> o(grid, blockIdx.y * kTile, blockIdx.x * kTile,
-                           kImexHalo, W, W);
+  const SlotOrigin<Grid> o(grid, blockIdx.y * TileY, blockIdx.x * kTile,
+                           kImexHalo, W, R);
   const size_t plane = o.plane();
   const T h = *h_ptr;
   const T fz = k.has_freeze ? *fz_ptr : T(0);
@@ -211,11 +257,12 @@ __global__ void __launch_bounds__(kImexSlotThreads, (kImexMinBlocks<T>))
   // thread t's Newton ring point: the rings at depth 1, 2, 3 in turn, so
   // that the warps whose points a stage no longer needs skip it whole
   const int t = threadIdx.x;
-  constexpr int kD1 = imex_ring_size(1), kD2 = kD1 + imex_ring_size(2);
-  const int ring_depth = t < kD1 ? 1 : t < kD2 ? 2 : t < kImexRing ? 3 : 0;
-  const int ring_p = imex_ring_point(
+  constexpr int kD1 = Plan::ring_size(1);
+  constexpr int kD2 = kD1 + Plan::ring_size(2);
+  const int ring_depth = t < kD1 ? 1 : t < kD2 ? 2 : t < Plan::kRing ? 3 : 0;
+  const int ring_p = Plan::ring_point(
       ring_depth > 0 ? ring_depth : 1,
-      t < kD1 ? t : t < kD2 ? t - kD1 : t < kImexRing ? t - kD2 : 0);
+      t < kD1 ? t : t < kD2 ? t - kD1 : t < Plan::kRing ? t - kD2 : 0);
 
   // the step on the tile; kIn: the region lies inside the grid
   const auto step = [&](auto inner) {
@@ -225,24 +272,26 @@ __global__ void __launch_bounds__(kImexSlotThreads, (kImexMinBlocks<T>))
     const auto at = [&](int p) {
       return static_cast<size_t>(row(p)) * o.ld() + col(p);
     };
-    // the slots: 0 and 1 on the tile, 2 on the Newton's rings
-    constexpr int S = 3;
+    // the slots: 0 .. kTS - 1 on the tile, kTS on the Newton's rings
+    constexpr int S = kTS + 1;
     int pt[S];
-    pt[0] = (kImexHalo + (t >> 5)) * W + kImexHalo + (t & 31);
-    pt[1] = pt[0] + (kT / kTile) * W;
-    pt[2] = ring_p;
+#pragma unroll
+    for (int m = 0; m < kTS; ++m)
+      pt[m] = (kImexHalo + (t >> 5) + m * (kT / kTile)) * W + kImexHalo
+              + (t & 31);
+    pt[kTS] = ring_p;
     // slot m is needed by what runs on the points `depth` or more rings in
     const auto live_slot = [&](int m, int depth) {
-      return m < 2 || ring_depth >= depth;
+      return m < kTS || ring_depth >= depth;
     };
     // the coefficients, the columns by threads 0..W-1 and the rows by
-    // threads 64..64+W-1
+    // threads 64..64+R-1
     if (t < W) {
       const int c = k.torus ? o.template col<kIn>(t) : 0;
       colc[0][t] = k.c0[c];
       colc[1][t] = k.c1[c];
       colc[2][t] = k.c2[c];
-    } else if (t >= 64 && t < 64 + W) {
+    } else if (t >= 64 && t < 64 + R) {
       const int r = o.template row<kIn>(t - 64);
       rowc[0][t - 64] = beta_at(k, r);
       rowc[1][t - 64] = freeze ? live_at(k, fz, r) : T(1);
@@ -255,9 +304,9 @@ __global__ void __launch_bounds__(kImexSlotThreads, (kImexMinBlocks<T>))
                             k.torus != 0, su, p, W);
     };
     // the step's start: u on the region, the outer ring by the first
-    // kImexOuter threads, the slots' points by their own threads
-    if (t < kImexOuter) {
-      const int p = imex_ring_point(0, t);
+    // kOuter threads, the slots' points by their own threads
+    if (t < Plan::kOuter) {
+      const int p = Plan::ring_point(0, t);
       u0s[p] = y[at(p)];
     }
     T v0[S];
@@ -274,7 +323,7 @@ __global__ void __launch_bounds__(kImexSlotThreads, (kImexMinBlocks<T>))
     // rhs_known of stages 1..3, the predictor's kI, and on the tile the
     // weights and the update's and the error's sums
     T rku[S][NS - 1], rkv[S][NS - 1], kiu[S], kiv[S];
-    T wu[2], wv[2], nu[2], nv[2], eu[2], ev[2];
+    T wu[kTS], wv[kTS], nu[kTS], nv[kTS], eu[kTS], ev[kTS];
     // stage 0: kE_0 = f_ex(y0), kI_0 = f_im(y0)
 #pragma unroll
     for (int m = 0; m < S; ++m) {
@@ -299,7 +348,7 @@ __global__ void __launch_bounds__(kImexSlotThreads, (kImexMinBlocks<T>))
       }
       kiu[m] = fu;
       kiv[m] = fv;
-      if (m < 2) {
+      if (m < kTS) {
         wu[m] = T(1) / (rtol * fabs(u0) + atol);
         wv[m] = T(1) / (rtol * fabs(v0[m]) + atol);
         const T ksu = lap + fu;
@@ -329,9 +378,9 @@ __global__ void __launch_bounds__(kImexSlotThreads, (kImexMinBlocks<T>))
         yp[p] = Yu;
         kiu[m] = (Yu - ru) / hg;
         kiv[m] = (Yv - rv) / hg;
-        if (m < 2) {
+        if (m < kTS) {
           const int q = t + kT * m;
-          const int ly = p / W, lx = p % W;
+          const int lx = p % W;
           const bool on = o.in_block(ly, lx) && o.counted(ly, lx);
           const T su = du * wu[m], sv = dv * wv[m];
           dy2[(2 * s - 2) * kTP + q] = on ? su * su : T(0);
@@ -353,7 +402,7 @@ __global__ void __launch_bounds__(kImexSlotThreads, (kImexMinBlocks<T>))
           rku[m][r - 1] = rku[m][r - 1] + hai[r][s] * kiu[m];
           rkv[m][r - 1] = rkv[m][r - 1] + hai[r][s] * kiv[m];
         }
-        if (m < 2) {
+        if (m < kTS) {
           const T ksu = lap + kiu[m];
           nu[m] = nu[m] + hb[s] * ksu;
           nv[m] = nv[m] + hb[s] * kiv[m];
@@ -366,7 +415,7 @@ __global__ void __launch_bounds__(kImexSlotThreads, (kImexMinBlocks<T>))
     // kE_3, y_new and the error on the tile
     const T* const y3 = ys[(NS - 2) & 1];
 #pragma unroll
-    for (int m = 0; m < 2; ++m) {
+    for (int m = 0; m < kTS; ++m) {
       const int p = pt[m];
       const int q = t + kT * m;
       const int ly = p / W, lx = p % W;
@@ -401,25 +450,25 @@ __global__ void __launch_bounds__(kImexSlotThreads, (kImexMinBlocks<T>))
     step(std::false_type{});
   __syncthreads();
 
-  // the partial sum in imex_tile.cuh's order: its 256 threads add their
-  // Newton points of each stage in the strided order over the stage's
-  // region, restricted to the tile, then their tile points; the others
-  // add +0.0 (exact)
+  // the partial sum in the one-pass block's order: its 256 threads add
+  // their Newton points of each stage in the strided order over the
+  // stage's region, restricted to the tile, then their tile points; the
+  // others add +0.0 (exact)
   T acc = T(0);
-  if (t < kImexThreads) {
+  if (t < kImexSumThreads) {
     T dacc = T(0);
 #pragma unroll
     for (int s = 1; s < NS; ++s) {
-      const int w = W - 2 * s;
-      for (int q = t; q < w * w; q += kImexThreads) {
+      const int w = W - 2 * s, r = R - 2 * s;
+      for (int q = t; q < w * r; q += kImexSumThreads) {
         const int ty = s + q / w - kImexHalo, tx = s + q % w - kImexHalo;
-        if (ty < 0 || ty >= kTile || tx < 0 || tx >= kTile) continue;
+        if (ty < 0 || ty >= TileY || tx < 0 || tx >= kTile) continue;
         const int i = ty * kTile + tx;
         dacc = dacc + dy2[(2 * s - 2) * kTP + i];
         dacc = dacc + dy2[(2 * s - 1) * kTP + i];
       }
     }
-    for (int q = t; q < kTP; q += kImexThreads) {
+    for (int q = t; q < kTP; q += kImexSumThreads) {
       acc = acc + e2[q];
       acc = acc + e2[kTP + q];
     }
@@ -428,25 +477,25 @@ __global__ void __launch_bounds__(kImexSlotThreads, (kImexMinBlocks<T>))
   store_block_sum<T, kT>(acc, warp_sums, ss);
 }
 
-template <typename T>
+template <typename T, int TileY>
 constexpr size_t imex_slots_smem() {
-  return static_cast<size_t>(kImexSlotElements) * sizeof(T);
+  return static_cast<size_t>(ImexPlan<TileY>::kElements) * sizeof(T);
 }
 
-// The kernel of `kinetics` for a Grid and T
-template <class Grid, typename T>
+// The kernel of `kinetics` for a Grid, T and TileY
+template <class Grid, typename T, int TileY>
 auto imex_slots_kernel(int kinetics) {
-  return kinetics == kFhn ? &fused_imex_slots_kernel<kFhn, Grid, T>
+  return kinetics == kFhn ? &fused_imex_slots_kernel<kFhn, Grid, T, TileY>
          : kinetics == kGoldbeter
-             ? &fused_imex_slots_kernel<kGoldbeter, Grid, T>
-             : &fused_imex_slots_kernel<kAlievPanfilov, Grid, T>;
+             ? &fused_imex_slots_kernel<kGoldbeter, Grid, T, TileY>
+             : &fused_imex_slots_kernel<kAlievPanfilov, Grid, T, TileY>;
 }
 
 // Launch one step of fused_imex_slots_kernel over ny x nx points of `grid`
-// on `stream` with the kinetics `kinetics`, on 32x32 tiles; returns the
-// CUDA error code (0 on success), checked right after the launch. A
+// on `stream` with the kinetics `kinetics`, on 32 x TileY tiles; returns
+// the CUDA error code (0 on success), checked right after the launch. A
 // tableau of another zero pattern than the kernel's is refused.
-template <class Grid, typename T>
+template <class Grid, typename T, int TileY>
 int launch_imex_slots(Grid grid, const void* y, void* y_new, void* ss,
                       const void* h, const void* fz, const RhsConstants<T>& k,
                       int kinetics, int ny, int nx, const ImexTable& table,
@@ -455,14 +504,14 @@ int launch_imex_slots(Grid grid, const void* y, void* y_new, void* ss,
   if (ny < 1 || nx < 1 || !valid_kinetics(kinetics)
       || !imex_slots_take(table, &tab))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = imex_slots_kernel<Grid, T>(kinetics);
-  const size_t smem = imex_slots_smem<T>();
+  auto kernel = imex_slots_kernel<Grid, T, TileY>(kinetics);
+  const size_t smem = imex_slots_smem<T, TileY>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 blocks((nx + kImexTile - 1) / kImexTile,
-                    (ny + kImexTile - 1) / kImexTile);
+                    (ny + TileY - 1) / TileY);
   kernel<<<blocks, kImexSlotThreads, smem,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(y), static_cast<T*>(y_new), static_cast<T*>(ss),
@@ -473,13 +522,13 @@ int launch_imex_slots(Grid grid, const void* y, void* y_new, void* ss,
 
 // out[0] the resident blocks an SM, out[1] the registers a thread, out[2]
 // the shared bytes a block (static and dynamic) of the kernel of
-// `kinetics` for a Grid and T; returns the CUDA error code.
-template <class Grid, typename T>
+// `kinetics` for a Grid, T and TileY; returns the CUDA error code.
+template <class Grid, typename T, int TileY>
 int imex_slots_info(int kinetics, int* out) {
   if (!valid_kinetics(kinetics))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = imex_slots_kernel<Grid, T>(kinetics);
-  const size_t smem = imex_slots_smem<T>();
+  auto kernel = imex_slots_kernel<Grid, T, TileY>(kinetics);
+  const size_t smem = imex_slots_smem<T, TileY>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

@@ -691,9 +691,44 @@ __device__ __forceinline__ void aniso_rhs(
   dv_out = dv;
 }
 
-// aniso_rhs as the functor the ERK tile kernel takes (K5, WrapGrid)
+// aniso_rhs on a point's coefficients read before (FacePoint: aE, aW, aN,
+// aS, beta and live; x unused) and dxyw in a plane sx of the region's
+// layout, the same operations in the same order: K5's association axis +
+// ((fx_e - fx_w) + (fy_n - fy_s)) on the folded dxyw, not K11's
+// (mixed_point_rhs)
+template <int Kin, typename T>
+__device__ __forceinline__ void aniso_point_rhs(
+    const FacePoint<T>& c, bool freeze, const T* sx, const T* su, T v,
+    int p, int W, T& du_out, T& dv_out) {
+  const T u = su[p];
+  const T axis = c.ae * (su[p + 1] - u) + c.aw * (su[p - 1] - u)
+                 + c.an * (su[p + W] - u) + c.as * (su[p - W] - u);
+  const T fx_e = sx[p + 1] * (su[p + W + 1] - su[p - W + 1]);
+  const T fx_w = sx[p - 1] * (su[p + W - 1] - su[p - W - 1]);
+  const T fy_n = sx[p + W] * (su[p + W + 1] - su[p + W - 1]);
+  const T fy_s = sx[p - W] * (su[p - W + 1] - su[p - W - 1]);
+  const T lap = axis + ((fx_e - fx_w) + (fy_n - fy_s));
+  T du, dv;
+  kinetics<Kin>(u, v, c.beta, du, dv);
+  du = du + lap;
+  if (freeze) {
+    du = du * c.live;
+    dv = dv * c.live;
+  }
+  du_out = du;
+  dv_out = dv;
+}
+
+// aniso_rhs as the functor the ERK tile kernels take (K5, WrapGrid;
+// erk_tile.cuh, erk_slots.cuh); point() reads aE and aN at the point, aW
+// as aE at the west neighbour's column and aS as aN at the row below (gs),
+// once; plane(0, g) is dxyw at field offset g, which the mixed fluxes read
+// at the four neighbours, for a shared plane; at_point() evaluates on them
 template <int Kin, typename T, class Grid>
 struct AnisoRhs {
+  static constexpr int kPlanes = 1;
+  using Point = FacePoint<T>;
+
   TensorConstants<T> c;
   RhsConstants<T> k;
   Grid grid;
@@ -702,6 +737,25 @@ struct AnisoRhs {
                                              int p, int W, int gy, int gx,
                                              T& du, T& dv) const {
     aniso_rhs<Kin>(c, k, grid, fz, su, sv, p, W, gy, gx, du, dv);
+  }
+  __device__ __forceinline__ FacePoint<T> point(T fz, size_t g, size_t gs,
+                                                int r, int col) const {
+    return {__ldg(c.aE + g),
+            __ldg(c.aE + grid.field(r, grid.west(col))),
+            __ldg(c.aN + g),
+            __ldg(c.aN + gs),
+            T(1),
+            beta_at(k, r),
+            k.has_freeze ? live_at(k, fz, r) : T(1)};
+  }
+  __device__ __forceinline__ T plane(int, size_t g) const {
+    return __ldg(c.dxyw + g);
+  }
+  __device__ __forceinline__ void at_point(const FacePoint<T>& cf,
+                                           const T* sx, const T* su, T v,
+                                           int p, int W, T& du,
+                                           T& dv) const {
+    aniso_point_rhs<Kin>(cf, k.has_freeze, sx, su, v, p, W, du, dv);
   }
 };
 

@@ -128,12 +128,15 @@ SIGNATURES = {
     "crd_fused_kstep_f32": _FUSED_KSTEP_ARGTYPES,
     "crd_fused_kstep_f64": _FUSED_KSTEP_ARGTYPES,
     # (f64, kinetics, n_stages, tile_y, out[3]), (f64, divform, kinetics,
-    # out[3]), (f64, kinetics, out[3]) and (f64, mode, kinetics, out[3]):
-    # a kernel's blocks an SM, registers, shared bytes
+    # out[3]), (f64, kinetics, out[3]), (f64, kinetics, tile_y, out[3]) and
+    # (f64, mode, kinetics, out[3]): a kernel's blocks an SM, registers,
+    # shared bytes
     "crd_fused_kstep_info": [_INT] * 4 + [_INTP],
     "crd_fused_rkc_info": [_INT] * 3 + [_INTP],
     "crd_fused_erk_step_info": [_INT] * 2 + [_INTP],
+    "crd_fused_imex_info": [_INT] * 3 + [_INTP],
     "crd_fused_divform_info": [_INT] * 2 + [_INTP],
+    "crd_fused_aniso_info": [_INT] * 2 + [_INTP],
     "crd_fused_shard_step_info": [_INT] * 2 + [_INTP],
     "crd_fused_shard_rkc_info": [_INT] * 2 + [_INTP],
     "crd_fused_shard_imex_info": [_INT] * 2 + [_INTP],

@@ -1,4 +1,4 @@
-"""The register-resident ERK tile scheme of kernels K1, K4, K8 and K11
+"""The register-resident ERK tile scheme of kernels K1, K4, K5, K8 and K11
 (csrc/erk_slots.cuh): its plan and its dispatch on the tableau, mirrored
 here for the tests and for chip_smoke.py's reports, and the kernels'
 attribute queries.
@@ -35,7 +35,7 @@ def uses_slots(tableau: Tableau) -> bool:
 
 
 def kernel_name(tableau: Tableau) -> str:
-    """The kernel a K1, K4, K8 or K11 launch of `tableau` runs."""
+    """The kernel a K1, K4, K5, K8 or K11 launch of `tableau` runs."""
     return SLOTS_KERNEL if uses_slots(tableau) else TILE_KERNEL
 
 
@@ -45,8 +45,8 @@ def slots_plan(itemsize: int, op_planes: int = 0):
     rings (`region` = (width, rows) of the stage planes); the slots cover
     the region less its outer ring, THREADS threads `slots` points each;
     the dynamic shared memory holds the two stage planes, the operator's
-    `op_planes` planes (K11's aniso mode: Dxy) and the tile's squared
-    errors of both variables; the static the warps' sums."""
+    `op_planes` planes (K11's aniso mode: Dxy; K5: dxyw) and the tile's
+    squared errors of both variables; the static the warps' sums."""
     tile_x, tile_y, _ = fused_step.tile_plan(STAGES, itemsize)
     width, rows = tile_x + 2 * STAGES, tile_y + 2 * STAGES
     slots = -(-(width - 2) * (rows - 2) // THREADS)
@@ -57,8 +57,9 @@ def slots_plan(itemsize: int, op_planes: int = 0):
 
 def kernel_info(symbol: str, dtype, *args) -> dict:
     """The bs32 kernel of a launcher's info query (K1
-    `crd_fused_erk_step_info`, K4 `crd_fused_divform_info` and K8
-    `crd_fused_shard_step_info` with args (kinetics,), K11
+    `crd_fused_erk_step_info`, K4 `crd_fused_divform_info`, K5
+    `crd_fused_aniso_info` and K8 `crd_fused_shard_step_info` with args
+    (kinetics,), K11
     `crd_fused_shard_divform_info` with (mode, kinetics)) on the current
     card: resident blocks an SM, registers a thread, shared bytes a block."""
     import torch

@@ -19,7 +19,15 @@ surface; the other kernels' gates decline tensors.
                               tensor
   fused_aniso_step_reference  the same step in plain torch, the kernel's
                               oracle
+  fused_aniso_tile_sums       the plain version of the kernel's partial
+                              sums, one a tile in its order
   build_fused_aniso_step      a problem's step_err(t, y, h, params)
+
+bs32 runs the register-resident scheme (csrc/erk_slots.cuh, through
+rhs_common.cuh::AnisoRhs's read-once entry), zonneveld43 and dopri54
+erk_tile.cuh's: the launcher's dispatch on the stage count
+(erk_slots.kernel_name). Both keep the association below and add each
+tile's errors in erk_tile.cuh's order.
 
 Semantics kept from the TPU kernel (pallas_aniso.py:149-229): the stage
 inputs, update and error of K1 (ops/fused_step.py); the three fields aE, aN
@@ -37,9 +45,11 @@ from __future__ import annotations
 import torch
 
 from crdmodel_tpu_torch.integrate.erk import Tableau
+from crdmodel_tpu_torch.ops.fused_kstep import tile_error_sums
 from crdmodel_tpu_torch.ops.fused_step import (MAX_STAGES,
+                                               erk_stages_reference,
                                                erk_step_reference,
-                                               launch_erk_tile)
+                                               launch_erk_tile, tile_plan)
 from crdmodel_tpu_torch.ops.kernel_common import (AnisoConstants,
                                                   freeze_scalar,
                                                   fused_forcing,
@@ -74,6 +84,18 @@ def fused_aniso_step_reference(y, h, fz, ac: AnisoConstants,
                               rtol, atol)
 
 
+def fused_aniso_tile_sums(y, h, fz, ac: AnisoConstants, tableau: Tableau,
+                          rtol: float, atol: float):
+    """The kernel's partial sums in plain torch: (n_tiles,) sums of
+    squared WRMS-scaled errors, one a tile of tile_plan, each in the ERK
+    tile kernels' order (fused_kstep.tile_error_sums), as both of the
+    kernel's schemes write them (csrc/erk_slots.cuh, erk_tile.cuh)."""
+    _, err = erk_stages_reference(y, h, make_aniso_rhs_block(ac, fz),
+                                  tableau)
+    tile_y = tile_plan(tableau.stages, y.element_size())[1]
+    return tile_error_sums(err, y, rtol, atol, tile_y)
+
+
 def fused_aniso_step(y, h, fz, ac: AnisoConstants, tableau: Tableau,
                      rtol: float, atol: float):
     """One fused step: (y_new (2, ny, nx), ss partials (n_blocks,)).
@@ -81,8 +103,9 @@ def fused_aniso_step(y, h, fz, ac: AnisoConstants, tableau: Tableau,
     h and fz are 0-d tensors in y's dtype on y's device: the kernel reads
     them there, so a step needs no host sync. A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel (float32, or float64 as a
-    parity tool) or raises. `fused_aniso_step.launches` counts kernel
-    launches.
+    parity tool) or raises: bs32 the register-resident scheme, the other
+    tableaus erk_tile.cuh's (erk_slots.kernel_name).
+    `fused_aniso_step.launches` counts kernel launches.
     """
     if y.device.type == "cpu":
         return fused_aniso_step_reference(y, h, fz, ac, tableau, rtol, atol)

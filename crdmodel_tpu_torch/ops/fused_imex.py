@@ -4,9 +4,12 @@ crdmodel_tpu/ops/pallas_imex.py).
 One launch performs a whole additive Runge–Kutta step of integrate/imex.py
 on the (2, ny, nx) state: the 4 explicit profile-stencil evaluations, the 3
 implicit stages solved at every point by 3 full Newton iterations, the
-solution and error assembly, and per-block partial sums of the squared
+solution and error assembly, and per-tile partial sums of the squared
 WRMS-scaled error plus (1/NEWTON_TOL)^2 times the squared scaled last
-Newton updates (csrc/fused_imex.cu). It takes every attempted step of an
+Newton updates (csrc/fused_imex.cu on csrc/imex_slots.cuh: THREADS threads
+fixed to a tile and its Newton rings, a point's pointwise state in its
+thread's registers, the partial sums in the order of the first port's
+SUM_THREADS-thread one-pass block). It takes every attempted step of an
 ark324 run on the fused path (sim.py).
 
   fused_imex_step            the wrapper: launches the CUDA kernel for a
@@ -14,6 +17,10 @@ ark324 run on the fused path (sim.py).
                              for a CPU tensor
   fused_imex_step_reference  the same step in plain torch, the kernel's
                              oracle
+  slots_plan                 the launch's plan, sized to the grid: its
+                             tile, threads, slots, shared bytes, blocks
+  fused_imex_tile_sums       the kernel's partial sums in plain torch, one
+                             a tile of the plan in its order
   build_fused_imex_step      a problem's step_err(t, y, h, params) on top
                              of it
 
@@ -29,18 +36,21 @@ start. One port-only difference: the Jacobian is the model's closed form
 with jax.jvp inside the kernel, so the two agree to rounding, not bitwise.
 The TPU's lane padding and 8-row halo are gone: the state is (nvars, ny,
 nx), contiguous, and a tile carries the 4 rings its 4 stencils consume.
+The plan is sized to the grid (slots_plan); at the 32x32 plan the partial
+sums, and so a run's steps, are those of the port's first K3 kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from crdmodel_tpu_torch.integrate import imex
-from crdmodel_tpu_torch.ops.kernel_common import (SMEM_BYTES,
-                                                  KernelConstants,
+from crdmodel_tpu_torch.ops.fused_kstep import block_sums
+from crdmodel_tpu_torch.ops.kernel_common import (KernelConstants,
                                                   check_constants,
                                                   check_tensor,
                                                   freeze_scalar,
@@ -51,8 +61,14 @@ from crdmodel_tpu_torch.ops.kernel_common import (SMEM_BYTES,
                                                   prepare_constants)
 
 HALO = 4                       # one ring per explicit stencil evaluation
-N_ARRAYS = 14                  # the kernel's shared arrays (fused_imex.cu)
-TILE = 32                      # square tiles: f32 and f64 both fit at 32x32
+TILE = 32                      # the tiles' width; and the 32x32 plan's rows
+SMALL_TILE_Y = 16              # the small-grid plan's rows
+THREADS = 512                  # csrc/imex_slots.cuh kImexSlotThreads
+SUM_THREADS = 256              # kImexSumThreads: the partial sums' order
+# the SMs of an H100 SXM: a grid that 32x32 tiles cover in fewer blocks
+# than this takes 32x16 tiles (slots_plan)
+SMS = 132
+SLOTS_KERNEL = "fused_imex_slots_kernel"
 
 
 def is_imex_supported(problem, dtype) -> bool:
@@ -71,13 +87,45 @@ def is_imex_supported(problem, dtype) -> bool:
     return kernel_ready_kinetics(problem)
 
 
-def tile_plan(itemsize: int):
-    """(tile_x, tile_y, shared bytes) of the kernel's TILE x TILE tiles:
-    N_ARRAYS region arrays with a HALO-ring border (179,200 B in f64)."""
-    smem = N_ARRAYS * (TILE + 2 * HALO) ** 2 * itemsize
-    if smem > SMEM_BYTES - 1024:            # room for the static reduction
-        raise ValueError("the IMEX tile does not fit in shared memory")
-    return TILE, TILE, smem
+class SlotsPlan(NamedTuple):
+    """A K3 launch: tile_y x tile_x tiles, one block of `threads` a tile,
+    each thread on `slots` points (its tile points and at most one of the
+    Newton's rings), `shared_bytes` a block, `blocks` blocks (and partial
+    sums)."""
+    tile_y: int
+    tile_x: int
+    threads: int
+    slots: int
+    shared_bytes: int
+    blocks: int
+
+
+def slots_bytes(tile_y: int, itemsize: int) -> int:
+    """The shared bytes a block of 32 x tile_y tiles (csrc/imex_slots.cuh
+    ImexPlan): dynamic for y0's u and two stage planes of the region (the
+    tile and HALO rings) and the staged squares (3 stages' Newton updates
+    and the error, two variables, on the tile); static for the warps'
+    sums, the tableau's products (h AE, h AI, h B, h D) and the profile
+    operator's coefficients of the region's columns (three) and rows (beta
+    and live)."""
+    width, rows = TILE + 2 * HALO, tile_y + 2 * HALO
+    dynamic = 3 * width * rows + 2 * imex.STAGES * TILE * tile_y
+    static = (THREADS // 32 + 2 * imex.STAGES ** 2 + 2 * imex.STAGES
+              + 3 * width + 2 * rows)
+    return (dynamic + static) * itemsize
+
+
+def slots_plan(ny: int, nx: int, itemsize: int) -> SlotsPlan:
+    """K3's plan on a (2, ny, nx) state in a dtype of `itemsize` bytes:
+    32x32 tiles (two tile points a thread), or 32x16 ones (one) where
+    32x32 tiles would number fewer than SMS, so that a small grid spreads
+    over more SMs; each thread also takes at most one point of the
+    Newton's HALO - 1 rings."""
+    small = -(-nx // TILE) * -(-ny // TILE) < SMS
+    tile_y = SMALL_TILE_Y if small else TILE
+    return SlotsPlan(tile_y, TILE, THREADS, TILE * tile_y // THREADS + 1,
+                     slots_bytes(tile_y, itemsize),
+                     -(-nx // TILE) * -(-ny // tile_y))
 
 
 @functools.cache
@@ -152,8 +200,85 @@ def fused_imex_step_reference(y, h, fz, kc: KernelConstants, rtol: float,
     return y_new, imex_error_sum(err, dys, y, rtol, atol)
 
 
+def imex_tile_sums(err, dys, y0, rtol: float, atol: float, tile_y: int,
+                   counted=None):
+    """The IMEX kernels' partial sums (K3, K10) in plain torch from a
+    step's error, its stages' last Newton updates and its start, each
+    (2, ny, nx) on the extent the tiles cover: (n_tiles,), one a TILE x
+    tile_y tile, row-major, in the order of the SUM_THREADS-thread one-pass
+    block that csrc/imex_slots.cuh replays: thread t adds its points of
+    each implicit stage s's (TILE + 2 (HALO - s)) x (tile_y + 2 (HALO -
+    s)) region, in its strided order, restricted to the tile's counted
+    cells (squared scaled last Newton updates, u then v), and apart its
+    tile points' squared scaled errors (stride SUM_THREADS, u then v), then
+    acc + (1/NEWTON_TOL)^2 dacc, then the block's reduction
+    (fused_kstep.block_sums). counted = (rows, cols): only the first rows
+    x cols cells count (K10's physical cells), default all; a cell that
+    does not adds +0.0, as the kernel's skip."""
+    ny, nx = y0.shape[-2:]
+    w = 1.0 / (rtol * torch.abs(y0) + atol)
+    n_ty, n_tx = -(-ny // tile_y), -(-nx // TILE)
+    rows, cols = (ny, nx) if counted is None else counted
+
+    def tile_squares(a):
+        """(2, n_tiles, TILE * tile_y) squares of a's scaled values."""
+        sq = a * w
+        sq = sq * sq
+        sq[:, rows:] = 0.0
+        sq[:, :, cols:] = 0.0
+        sq = torch.nn.functional.pad(sq, (0, n_tx * TILE - nx,
+                                          0, n_ty * tile_y - ny))
+        return (sq.reshape(2, n_ty, tile_y, n_tx, TILE)
+                .permute(0, 1, 3, 2, 4).reshape(2, n_ty * n_tx,
+                                                 tile_y * TILE))
+
+    threads = torch.arange(SUM_THREADS, device=y0.device)
+    dacc = torch.zeros((n_ty * n_tx, SUM_THREADS), dtype=y0.dtype,
+                       device=y0.device)
+    for s, dy in enumerate(dys, start=1):
+        sq = tile_squares(dy)
+        width, height = TILE + 2 * (HALO - s), tile_y + 2 * (HALO - s)
+        for m in range(-(-width * height // SUM_THREADS)):
+            q = threads + SUM_THREADS * m
+            ty = s + q // width - HALO
+            tx = s + q % width - HALO
+            on = ((q < width * height) & (ty >= 0) & (ty < tile_y)
+                  & (tx >= 0) & (tx < TILE))
+            i = torch.where(on, ty * TILE + tx, 0)
+            for var in range(2):
+                dacc = dacc + torch.where(on, sq[var][:, i], 0.0)
+    sq = tile_squares(err)
+    acc = torch.zeros_like(dacc)
+    for m in range(TILE * tile_y // SUM_THREADS):
+        cells = slice(SUM_THREADS * m, SUM_THREADS * (m + 1))
+        acc = acc + sq[0][:, cells]
+        acc = acc + sq[1][:, cells]
+    acc = acc + (1.0 / imex.NEWTON_TOL) ** 2 * dacc
+    return block_sums(acc)
+
+
+def fused_imex_tile_sums(y, h, fz, kc: KernelConstants, rtol: float,
+                         atol: float):
+    """The kernel's partial sums in plain torch: (n_blocks,), one a tile of
+    slots_plan, each in the kernel's order (imex_tile_sums)."""
+    _, err, dys = imex_stages_reference(y, h, fz, kc)
+    _, ny, nx = y.shape
+    tile_y = slots_plan(ny, nx, y.element_size()).tile_y
+    return imex_tile_sums(err, dys, y, rtol, atol, tile_y)
+
+
+def kernel_info(dtype, kinetics_id: int, tile_y: int) -> dict:
+    """K3's CUDA kernel of (dtype, kinetics) on 32 x tile_y tiles on the
+    current card: its resident blocks an SM, registers a thread and shared
+    bytes a block."""
+    from crdmodel_tpu_torch.ops._build import kernel_info as query
+    f64 = int(torch.empty((), dtype=dtype).element_size() == 8)
+    return query("crd_fused_imex_info", f64, kinetics_id, tile_y)
+
+
 def fused_imex_step(y, h, fz, kc: KernelConstants, rtol: float, atol: float):
-    """One fused IMEX step: (y_new (2, ny, nx), ss partials (n_blocks,)).
+    """One fused IMEX step: (y_new (2, ny, nx), ss partials (n_blocks,)),
+    on the tiles of slots_plan.
 
     h and fz are 0-d tensors in y's dtype on y's device: the kernel reads
     them there, so a step needs no host sync. A CPU tensor takes the plain
@@ -177,10 +302,9 @@ def fused_imex_step(y, h, fz, kc: KernelConstants, rtol: float, atol: float):
 
     from crdmodel_tpu_torch.ops._build import load_library
     lib = load_library()
-    tile_x, tile_y, _ = tile_plan(y.element_size())
-    n_blocks = -(-nx // tile_x) * -(-ny // tile_y)
+    plan = slots_plan(ny, nx, y.element_size())
     y_new = torch.empty_like(y)
-    ss = torch.empty(n_blocks, dtype=dtype, device=device)
+    ss = torch.empty(plan.blocks, dtype=dtype, device=device)
     ae, ai, b, d = _table()
     launch = (lib.crd_fused_imex_step_f32 if dtype == torch.float32
               else lib.crd_fused_imex_step_f64)
@@ -191,8 +315,8 @@ def fused_imex_step(y, h, fz, kc: KernelConstants, rtol: float, atol: float):
                     *(c.data_ptr() for c in kc.coeffs),
                     int(kc.kind == "torus"), kc.b.data_ptr(),
                     int(kc.b_is_field), kc.mask.data_ptr(), int(kc.has_freeze),
-                    kc.kinetics_id, ny, nx, tile_x, tile_y, ae, ai, b, d,
-                    imex.GAMMA, float(rtol), float(atol),
+                    kc.kinetics_id, ny, nx, plan.tile_x, plan.tile_y, ae,
+                    ai, b, d, imex.GAMMA, float(rtol), float(atol),
                     torch.cuda.current_stream(device).cuda_stream)
     fused_imex_step.launches += 1
     if rc != 0:

@@ -8,7 +8,7 @@ the 3 implicit stages (3 full Newton iterations at every point, shard-local:
 the kinetics are pointwise), the update, and per-tile partial sums of the
 squared WRMS-scaled error plus (1/NEWTON_TOL)^2 times the squared scaled
 last Newton updates, both over the shard's PHYSICAL cells
-(csrc/fused_shard_imex.cu on csrc/imex_slots.cuh: THREADS threads fixed to
+(csrc/fused_shard_imex.cu on csrc/imex_slots.cuh: 512 threads fixed to
 a 32x32 tile and its Newton rings, a point's pointwise state in its
 thread's registers, the partial sums in K3's 256-thread order). The
 adaptive loop adds every shard's sums in a fixed order
@@ -40,8 +40,7 @@ from crdmodel_tpu_torch.integrate import imex
 from crdmodel_tpu_torch.ops.fused_imex import (HALO as RINGS, TILE, _table,
                                                imex_error_sum,
                                                imex_stages_reference,
-                                               tile_plan)
-from crdmodel_tpu_torch.ops.fused_kstep import block_sums
+                                               imex_tile_sums, slots_bytes)
 from crdmodel_tpu_torch.ops.fused_shard_step import (FusedShardStep,
                                                      build_shard_stepper,
                                                      check_shard_constants,
@@ -54,8 +53,6 @@ from crdmodel_tpu_torch.ops.kernel_common import (ShardConstants,
                                                   needs_divform)
 
 HALO = 8      # the exchange's width (crdmodel_tpu/ops/pallas_step.py HALO)
-THREADS = 512           # csrc/imex_slots.cuh kImexSlotThreads
-SUM_THREADS = 256       # the partial sums' order: csrc/imex_tile.cuh's block
 
 
 def is_shard_imex_supported(problem, dtype, nyl: int, nxl: int) -> bool:
@@ -93,72 +90,25 @@ def fused_shard_imex_step_reference(yp, h, fz, sc: ShardConstants,
 
 def slots_plan(itemsize: int):
     """(region, slots, shared bytes) of K10's blocks in a dtype of
-    `itemsize` bytes: the TILE-square tile with RINGS rings (`region` its
-    side); THREADS threads, each on two tile points and at most one point
-    of the Newton's RINGS - 1 inner rings (`slots` = 3); dynamic shared
-    memory for y0's u and two stage planes of the region and the staged
-    squares (3 stages' Newton updates and the error, two variables, on
-    the tile), static for the warps' sums, the tableau's products and the
-    profile operator's coefficients of the region's columns (three) and
-    rows (beta and live)."""
-    side = TILE + 2 * RINGS
-    dynamic = 3 * side * side + 2 * 4 * TILE * TILE
-    static = THREADS // 32 + 2 * 4 * 4 + 2 * 4 + 5 * side
-    return side, 3, (dynamic + static) * itemsize
+    `itemsize` bytes: K3's 32x32 plan (fused_imex.slots_plan), the
+    TILE-square tile with RINGS rings (`region` its side); 512 threads,
+    each on two tile points and at most one point of the Newton's RINGS -
+    1 inner rings (`slots` = 3); fused_imex.slots_bytes's shared memory."""
+    return TILE + 2 * RINGS, 3, slots_bytes(TILE, itemsize)
 
 
 def fused_shard_imex_tile_sums(yp, h, fz, sc: ShardConstants, rtol: float,
                                atol: float):
     """The kernel's partial sums in plain torch: (n_tiles,), one a
-    TILE-square tile of the block, in csrc/imex_tile.cuh's order, which the
-    kernel replays: thread t of SUM_THREADS adds its points of each
-    implicit stage s's (TILE + 2 (RINGS - s))^2 region, in its strided
-    order, restricted to the tile's physical cells (squared scaled last
-    Newton updates, u then v), and apart its tile points' squared scaled
-    errors (stride SUM_THREADS, u then v), then acc + (1/NEWTON_TOL)^2
-    dacc, then the block's reduction (fused_kstep.block_sums). A mirror-pad
-    cell adds +0.0, as the kernel's skip."""
+    TILE-square tile of the block, in the order of K3's first port, which
+    the kernel replays (fused_imex.imex_tile_sums on the block), the
+    physical cells only: a mirror-pad cell adds +0.0, as the kernel's
+    skip."""
     _, err, dys = imex_stages_reference(yp, h, fz, sc)
     p = sc.halo
-    y0 = interior(yp, p)
-    nyl, nxl = y0.shape[-2:]
-    w = 1.0 / (rtol * torch.abs(y0) + atol)
-    n_ty, n_tx = -(-nyl // TILE), -(-nxl // TILE)
-
-    def tile_squares(a):
-        """(2, n_tiles, TILE * TILE) squares of a's scaled block values."""
-        sq = interior(a, p) * w
-        sq = sq * sq
-        sq[:, sc.valid_rows:] = 0.0
-        sq[:, :, sc.valid_cols:] = 0.0
-        sq = torch.nn.functional.pad(sq, (0, n_tx * TILE - nxl,
-                                          0, n_ty * TILE - nyl))
-        return (sq.reshape(2, n_ty, TILE, n_tx, TILE).permute(0, 1, 3, 2, 4)
-                .reshape(2, n_ty * n_tx, TILE * TILE))
-
-    threads = torch.arange(SUM_THREADS, device=yp.device)
-    dacc = torch.zeros((n_ty * n_tx, SUM_THREADS), dtype=yp.dtype,
-                       device=yp.device)
-    for s, dy in enumerate(dys, start=1):
-        sq = tile_squares(dy)
-        side = TILE + 2 * (RINGS - s)
-        for m in range(-(-side * side // SUM_THREADS)):
-            q = threads + SUM_THREADS * m
-            ty = s + q // side - RINGS
-            tx = s + q % side - RINGS
-            on = ((q < side * side) & (ty >= 0) & (ty < TILE) & (tx >= 0)
-                  & (tx < TILE))
-            i = torch.where(on, ty * TILE + tx, 0)
-            for var in range(2):
-                dacc = dacc + torch.where(on, sq[var][:, i], 0.0)
-    sq = tile_squares(err)
-    acc = torch.zeros_like(dacc)
-    for m in range(TILE * TILE // SUM_THREADS):
-        cells = slice(SUM_THREADS * m, SUM_THREADS * (m + 1))
-        acc = acc + sq[0][:, cells]
-        acc = acc + sq[1][:, cells]
-    acc = acc + (1.0 / imex.NEWTON_TOL) ** 2 * dacc
-    return block_sums(acc)
+    return imex_tile_sums(interior(err, p), [interior(dy, p) for dy in dys],
+                          interior(yp, p), rtol, atol, TILE,
+                          (sc.valid_rows, sc.valid_cols))
 
 
 def kernel_info(dtype, kinetics_id: int) -> dict:
@@ -204,7 +154,7 @@ def fused_shard_imex_step(yp, h, fz, sc: ShardConstants, rtol: float,
 
     from crdmodel_tpu_torch.ops._build import load_library
     lib = load_library()
-    tile_x, tile_y, _ = tile_plan(yp.element_size())
+    tile_x = tile_y = TILE
     n_blocks = -(-nxl // tile_x) * -(-nyl // tile_y)
     y_new = torch.empty_like(yp)
     ss = torch.empty(n_blocks, dtype=dtype, device=device)

@@ -195,9 +195,9 @@ fused_step.launches = 0
 def launch_erk_tile(symbol, operator_args, y, h, fz, kc: KernelConstants,
                     tableau: Tableau, rtol: float, atol: float):
     """Launch one step of an ERK tile kernel of the built library (K1
-    `crd_fused_erk_step` and K4 `crd_fused_divform_step`, csrc/
-    erk_slots.cuh for bs32 and erk_tile.cuh for the others; K5
-    `crd_fused_aniso_step`, erk_tile.cuh): the launcher `symbol`_f32
+    `crd_fused_erk_step`, K4 `crd_fused_divform_step` and K5
+    `crd_fused_aniso_step`, csrc/erk_slots.cuh for bs32 and erk_tile.cuh
+    for the others): the launcher `symbol`_f32
     or _f64, with the kernel's operator arguments `operator_args` after
     fz. Checks every input first and raises on what the kernel does not
     take, and on a launch error. Returns (y_new (2, ny, nx), ss partials

@@ -1,9 +1,10 @@
 """Time the port's redesigned kernels (K14 and K2; K4 and K11; K1 and K8;
-K9 and K10; K6 and K12; K7 and K13) of one tree on the card, or of two
-trees in turns in one call.
+K9 and K10; K6 and K12; K7 and K13; K3 and K5) of one tree on the card, or
+of two trees in turns in one call.
 
     python3 scripts/kernel_ab.py [--tree DIR] [--label NAME] [--runs]
-        [--measure all|kstep_rkc|divform|profile|shard_rkc_imex|box]
+        [--measure all|kstep_rkc|divform|profile|shard_rkc_imex|box|
+                   imex_aniso]
     python3 scripts/kernel_ab.py --compare OTHER_DIR [--runs] [--measure ...]
 
 One tree: imports crdmodel_tpu_torch and chip_smoke.py from DIR (default:
@@ -75,8 +76,22 @@ device-busy time, kernels a step, idle share, walls, the box kernel's
 launches and mean device time) and each run's attempted, accepted and
 rejected steps from one more untraced run, and one untraced run of each
 rkc2 program that records K7's and K13's stage count at each step (a
-host read of s a step: its histogram). --measure all
-(the default) takes the first two. Only the
+host read of s a step: its histogram). --measure imex_aniso: K3 (f32,
+Goldbeter from the ICs at the canonical torus's (2,400,100) and the
+2.56M-point torus's (2,3200,800), h = K3_H[0]) on the tree's plan and, in
+a tree whose plan sizes the tiles to the grid, at (2,400,100) also on the
+32x32 plan (case forced_32x32); K5 (bs32, f32, (2,1600,400) from the ICs
+of k5_check's three cases: the fibres, a constant tensor inside no-flux
+walls, random fields with the beta ramp); each its device time from
+profiler traces (either tree's kernel: K3's by "fused_imex", K5's by
+"AnisoRhs"), a burst's time a launch, the kernels it ran, and the plan,
+registers, blocks an SM and shared bytes where the tree has the queries,
+with ptxas's report of both sources; with --runs also the canonical
+Goldbeter ark324 run, the single-device 2.56M-point Goldbeter ark324 run
+over Tf = 1 and the fibered sheet's bs32 run (profile_run: device-busy
+time, kernels a step, idle share, walls, the kernel's launches and mean
+device time) and each run's attempted, accepted and rejected steps from
+one more untraced run. --measure all (the default) takes the first two. Only the
 wrappers' public signatures are used, so an older tree of the port times
 the same way.
 
@@ -143,6 +158,8 @@ def time_one_tree(tree, label, runs, measure):
         time_shard_rkc_imex(cs, label, card, runs)
     if measure == "box":
         time_box(cs, label, card, runs)
+    if measure == "imex_aniso":
+        time_imex_aniso(cs, label, card, runs)
 
 
 def slots_ptxas(cs, source):
@@ -210,11 +227,7 @@ def time_kstep_rkc(cs, label, card, runs):
     res = cs.run_program(wide, {})
     steps, wall = res.total_steps(), res.wall_time
     del res
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        cs.run_program(wide, {})
-        torch.cuda.synchronize()
-    k2 = [e["dur"] for e in cs.traced_kernels(prof)
+    k2 = [e["dur"] for e in traced_kernels(lambda: cs.run_program(wide, {}))
           if "fused_rkc" in e["name"]]
     emit(label, "wide_run", steps=steps, wall_s=wall,
          k2_launches_traced=len(k2), k2_mean_device_us=float(np.mean(k2)),
@@ -566,7 +579,7 @@ def time_shard_rkc_imex(cs, label, card, runs):
              device_us=cs.device_ms(
                  lambda: fused_imex.fused_imex_step(y, h, zero, kc, c.rtol,
                                                     c.atol),
-                 "fused_imex_tile_kernel") * 1e3, card=card)
+                 K3_TAG) * 1e3, card=card)
         del problem, kc, y
     problem = build_problem(cfg, "cuda")
     kc = prepare_constants(problem, f32, "cuda")
@@ -613,6 +626,135 @@ def time_shard_rkc_imex(cs, label, card, runs):
              card=card)
 
 
+# the profiler tags of K3's and K5's kernels in either tree: K3's first
+# port (fused_imex_tile_kernel) and its slots kernel
+# (fused_imex_slots_kernel) both hold "fused_imex"; both of K5's schemes
+# (fused_erk_tile_kernel, fused_erk_slots_kernel) take AnisoRhs
+K3_TAG = "fused_imex"
+K5_TAG = "AnisoRhs"
+K3_KERNELS = ("fused_imex_tile_kernel", "fused_imex_slots_kernel")
+K5_KERNELS = ("fused_erk_tile_kernel", "fused_erk_slots_kernel")
+
+
+def launched(fn, names):
+    """Which of `names` the calls of fn ran (pooled profiler traces)."""
+    from crdmodel_tpu_torch.ops import trace
+    ran = trace.kernel_names(fn)
+    return sorted(n for n in names if any(n in k for k in ran))
+
+
+def time_imex_aniso(cs, label, card, runs):
+    import numpy as np
+    import torch
+
+    from crdmodel_tpu_torch.config import config_from_ini
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import _build, fused_aniso, fused_imex
+    from crdmodel_tpu_torch.ops.kernel_common import (
+        prepare_aniso_constants, prepare_constants)
+
+    f32 = torch.float32
+    zero = torch.zeros((), dtype=f32, device="cuda")
+    emit(label, "ptxas", card=card,
+         **{src: cs.ptxas_entries(src + ".cu", tag) for src, tag in (
+             ("fused_imex", "fused_imex"), ("fused_aniso", "fused_erk"))})
+
+    # K3 from the Goldbeter ICs at the canonical torus's shape and the
+    # 2.56M-point one's, on the tree's plan; in a tree with the
+    # small-grid plan, also on the 32x32 plan (SMS = 0)
+    plan_of = getattr(fused_imex, "slots_plan", None)
+    for mesh in (None, cs.K3_BIG_MESH):
+        c = config_from_ini(cs.GB_INI, model="goldbeter", surface="torus",
+                            **({} if mesh is None else {"x_mesh": mesh}))
+        problem = build_problem(c, "cuda")
+        kc = prepare_constants(problem, f32, "cuda")
+        y = problem.y0.contiguous()
+        h = torch.tensor(cs.K3_H[0], device="cuda")
+
+        def k3():
+            return fused_imex.fused_imex_step(y, h, zero, kc, c.rtol, c.atol)
+
+        forced = ([None] if plan_of is None
+                  or plan_of(c.ny, c.nx, 4).tile_y == fused_imex.TILE
+                  else [None, 0])
+        for sms in forced:
+            saved = getattr(fused_imex, "SMS", None)
+            if sms is not None:
+                fused_imex.SMS = sms
+            try:
+                plan = None if plan_of is None else plan_of(c.ny, c.nx, 4)
+                emit(label, "k3", shape=list(y.shape),
+                     **({} if sms is None else {"case": "forced_32x32"}),
+                     plan="first port" if plan is None
+                     else f"{plan.tile_x}x{plan.tile_y}",
+                     device_us=cs.device_ms(k3, K3_TAG) * 1e3,
+                     burst_us=cs.median_ms(k3) * 1e3,
+                     kernels=launched(k3, K3_KERNELS),
+                     **({} if plan is None else dict(
+                         blocks=plan.blocks,
+                         **fused_imex.kernel_info(f32, kc.kinetics_id,
+                                                  plan.tile_y))),
+                     card=card)
+            finally:
+                if sms is not None:
+                    fused_imex.SMS = saved
+        del problem, kc, y
+
+    # K5 bs32 at (2,1600,400) in k5_check's three cases, from their ICs
+    cfg_aniso, aniso_build = cs.aniso_sheet()
+    cfg_flat = dataclasses.replace(
+        config_from_ini(cs.INI, model="fhn", surface="torus"),
+        surface="flat", vary_beta=1)
+    rng = np.random.default_rng(cs.SEED + 6)
+    dxx = 0.05 + 0.1 * rng.random((cfg_flat.ny, cfg_flat.nx))
+    dyy = 0.03 + 0.1 * rng.random((cfg_flat.ny, cfg_flat.nx))
+    dxy = 0.9 * np.sqrt(dxx * dyy) * (2.0 * rng.random(dxx.shape) - 1.0)
+    tab = TABLEAUS["bs32"]
+    info = ("crd_fused_aniso_info" in _build.SIGNATURES)
+    for case, c, build_kw in (
+            ("fibres", cfg_aniso, aniso_build),
+            ("const_noflux", dataclasses.replace(cfg_aniso,
+                                                 boundary="noflux"),
+             dict(diffusion_tensor=(1.0, 0.25, 0.15))),
+            ("random_beta_ramp", cfg_flat,
+             dict(diffusion_tensor=(dxx, dyy, dxy)))):
+        problem = build_problem(dataclasses.replace(c, t_boundary=0.0),
+                                "cuda", **build_kw)
+        ac = prepare_aniso_constants(problem, f32, "cuda")
+        y = problem.y0.contiguous()
+        args = (y, torch.tensor(cs.K5_H, device="cuda"), zero, ac, tab,
+                c.rtol, c.atol)
+
+        def k5():
+            return fused_aniso.fused_aniso_step(*args)
+
+        emit(label, "k5", case=case, shape=list(y.shape),
+             device_us=cs.device_ms(k5, K5_TAG) * 1e3,
+             burst_us=cs.median_ms(k5) * 1e3,
+             kernels=launched(k5, K5_KERNELS),
+             **(slot_info("crd_fused_aniso_info", ac.kinetics_id)
+                if info else {}), card=card)
+        del problem, ac, y, args
+
+    if not runs:
+        return
+    # the canonical Goldbeter ark324 run and the single-device 2.56M-point
+    # Goldbeter ark324 run over Tf = 1 (K3), the fibered sheet's bs32 run
+    # (K5): profile_run, then one more untraced run for its steps
+    cfg_gb = config_from_ini(cs.GB_INI, model="goldbeter", surface="torus",
+                             use_pallas=True, method="ark324")
+    for name, c, build_kw, tag in (
+            ("goldbeter_ark324_run", cfg_gb, {}, K3_TAG),
+            ("large_goldbeter_ark324_run", cs.large_goldbeter_torus(), {},
+             K3_TAG),
+            ("aniso_sheet_run", cfg_aniso, aniso_build, K5_TAG)):
+        fields = cs.profile_run(c, build_kw, c.t_final, tag)
+        emit(label, name, **{**{k: fields[k] for k in RUN_FIELDS},
+                             **steps_of(cs.run_program(c, build_kw))},
+             card=card)
+
+
 def box_tags():
     """The profiler tags of K6's and K12's bs32 kernels in the tree: the
     stream kernel where it has one, else the persistent kernels."""
@@ -644,32 +786,35 @@ def rkc_launches(stream, s_cap, mode):
     return stream.rkc_launches(s_cap) if new_rkc(stream, mode) else 1
 
 
+def traced_kernels(body):
+    """The device kernels of one trace of body() by the tree's
+    ops/trace.py: a trace checked to hold every launch's kernel (traced)
+    where the tree has it, else an older tree's padded window."""
+    from crdmodel_tpu_torch.ops import trace
+
+    if hasattr(trace, "traced"):
+        return trace.traced(body)[0]
+    with trace.window() as prof:
+        body()
+    return trace.traced_kernels(prof)
+
+
 def rkc_device_us(cs, fn, tag, group, n):
     """The device µs of a call of fn, its `group` kernels whose name holds
-    `tag`: the median over padded profiler traces of the tree's
-    ops/trace.py of each trace's tagged time a call (a trace on the H100
-    gains or loses a kernel of such steps now and then, which pairing
-    kernels in launch order would misread), at least n calls' worth."""
-    import numpy as np
+    `tag`: their summed time over a trace of n + n // 2 + 2 calls
+    (traced_kernels) a call (a trace that lost a kernel of such steps, as
+    older trees' could, would misread if kernels were paired in launch
+    order)."""
     import torch
-
-    from crdmodel_tpu_torch.ops import trace
 
     fn()
     torch.cuda.synchronize()
     calls = n + n // 2 + 2
-    means = []
-    for _ in range(4):
-        with trace.window() as prof:
-            for _ in range(calls):
-                fn()
-        kernels = [e["dur"] for e in trace.traced_kernels(prof)
-                   if tag in e["name"]]
-        if kernels:
-            means.append(sum(kernels) / calls)
-        if len(means) * calls >= n:
-            return float(np.median(means))
-    raise AssertionError(f"traced no call of {tag} ({group} kernels)")
+    tagged = [e["dur"] for e in traced_kernels(
+        lambda: [fn() for _ in range(calls)]) if tag in e["name"]]
+    if not tagged:
+        raise AssertionError(f"traced no call of {tag} ({group} kernels)")
+    return float(sum(tagged)) / calls
 
 
 def stage_counts(cs, label, card, name, module, attr, cfg, build_kw,
@@ -869,7 +1014,7 @@ def compare(other, runs, measure):
                   "burst_us", "wall_s", "untraced_wall_s",
                   "k2_mean_device_us", "device_busy_ms", "kernels_per_step",
                   "device_idle_share", "kernel_mean_us", "steps",
-                  "accepted"):
+                  "accepted", "rejected"):
             if f in rec:
                 summary.setdefault(f"{key}/{f}", {}).setdefault(
                     rec["tree"], []).append(rec[f])
@@ -886,7 +1031,7 @@ def main():
     ap.add_argument("--runs", action="store_true")
     ap.add_argument("--measure", default="all",
                     choices=("all", "kstep_rkc", "divform", "profile",
-                             "shard_rkc_imex", "box"))
+                             "shard_rkc_imex", "box", "imex_aniso"))
     args = ap.parse_args()
     if args.compare:
         compare(os.path.abspath(args.compare), args.runs, args.measure)

@@ -4,7 +4,8 @@ by chunk, in one tree of the port.
 For the volumetric slab's four operator modes (chip_smoke.py::box_modes,
 from the ICs, f32, unfrozen) and s = 5 and 7, it traces 24 steps of K7 at
 (2,32,512,512) and of K13 on shard 0 of the slab's 2x2 mesh
-(2,32,272,272) with torch.profiler (ops/trace.py::window) and prints one
+(2,32,272,272) with torch.profiler (ops/trace.py::traced, or an older
+tree's padded window) and prints one
 JSON line a measurement: where the tree runs the chunk kernel
 (ops/box_stream.py::rkc_uses_stream), the median device µs of the first
 and of the second launch of a step and of their sum; elsewhere of the one
@@ -29,6 +30,17 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STAGES = (5, 7)
 STEPS = 24
+
+
+def traced_kernels(trace, body):
+    """The device kernels of one trace of body() by the tree's
+    ops/trace.py: a trace checked to hold every launch's kernel (traced)
+    where the tree has it, else an older tree's padded window."""
+    if hasattr(trace, "traced"):
+        return trace.traced(body)[0]
+    with trace.window() as prof:
+        body()
+    return trace.traced_kernels(prof)
 
 
 def main():
@@ -88,15 +100,14 @@ def main():
                 try:
                     fn()
                     torch.cuda.synchronize()
-                    with trace.window() as prof:
-                        for _ in range(STEPS):
-                            fn()
+                    kernels = traced_kernels(
+                        trace, lambda: [fn() for _ in range(STEPS)])
                 finally:
                     if min_tiles is not None:
                         box_stream.RKC_MIN_TILES = saved
                 d = [e["dur"] for e in sorted(
-                    (e for e in trace.traced_kernels(prof)
-                     if "rkc" in e["name"]), key=lambda e: e["ts"])]
+                    (e for e in kernels if "rkc" in e["name"]),
+                    key=lambda e: e["ts"])]
                 rec = dict(tree=args.label, kernel=name, case=case,
                            mode=bc.kind, s=s, launches=len(d),
                            min_tiles=min_tiles, card=card)

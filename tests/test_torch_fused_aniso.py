@@ -8,9 +8,13 @@ Aliev–Panfilov and a freeze, a constant tensor inside no-flux walls
 (dopri54), and random SPD fields with FitzHugh–Nagumo's beta ramp and a
 freeze; the plain step against the torch path's, f64 and f32; the
 constants.
-On a CUDA card (marker `cuda`): the CUDA kernel against the plain version,
-y_new bitwise. The JAX package is imported inside the test that uses it, so
-that the card tests run where JAX is not installed:
+The plain version of the kernel's partial sums (fused_aniso_tile_sums:
+their number, and their total against the plain step's sum), also on a
+sheet narrower than a tile's rings and an odd sheet; the dispatch on the
+tableau. On a CUDA card (marker `cuda`): the CUDA kernel against the plain
+version, y_new and every partial sum bitwise, the launched kernel traced.
+The JAX package is imported inside the test that uses it, so that the card
+tests run where JAX is not installed:
 
     python -m pytest tests/test_torch_fused_aniso.py -m cuda --noconftest
 """
@@ -23,6 +27,7 @@ from crdmodel_tpu_torch.config import SimConfig
 from crdmodel_tpu_torch.convert import inputs_from_numpy
 from crdmodel_tpu_torch.core.problem import build_problem
 from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+from crdmodel_tpu_torch.ops import erk_slots
 from crdmodel_tpu_torch.ops import fused_aniso as fa
 from crdmodel_tpu_torch.ops.kernel_common import prepare_aniso_constants
 
@@ -63,6 +68,19 @@ CASES = {
              beta_max=1.7, t_boundary=0.4),
         _random_spd(NY, NX), "bs32", 0.02),
 }
+# the edges of bs32's register-resident scheme, each with a freeze: a sheet
+# narrower than a tile's rings (the wrap loops run more than once) and an
+# odd sheet, partial tiles on both axes
+EDGE_CASES = {
+    "ap_fibres_4_columns": (
+        dict(FLAT, model="aliev_panfilov", beta=0.05, t_boundary=0.4,
+             x_mesh=4),
+        fiber_tensor(8, 4), "bs32", 0.05),
+    "fhn_random_odd": (
+        dict(FLAT, model="fhn", beta=1.25, vary_beta=1, beta_min=0.7,
+             beta_max=1.7, t_boundary=0.4, x_mesh=37, y_mesh=75),
+        _random_spd(75, 37), "bs32", 0.02),
+}
 # (t, segment end, fz): frozen and released (segments never straddle
 # tBoundary)
 SEGMENTS = ((0.1, 0.4, 1.0), (0.5, 1.0, 0.0))
@@ -77,7 +95,7 @@ def _state(shape, model, seed=3):
 
 
 def _case(name, **over):
-    kw, tensor, method, h = CASES[name]
+    kw, tensor, method, h = {**CASES, **EDGE_CASES}[name]
     return {**COMMON, **kw, **over}, tensor, method, h
 
 
@@ -183,31 +201,87 @@ def test_wrapper_refuses_other_devices_and_the_torus():
         prepare_aniso_constants(torus, torch.float32, "cpu")
 
 
+@pytest.mark.parametrize("method", sorted(TABLEAUS))
+def test_dispatch_names_a_kernel_for_each_tableau(method):
+    """Every tableau the gate takes has a kernel: bs32 the
+    register-resident scheme, the others erk_tile.cuh's."""
+    kw, tensor, _, _ = _case("ap_fibres_freeze")
+    p = build_problem(SimConfig(**kw), "cpu", diffusion_tensor=tensor)
+    tab = TABLEAUS[method]
+    assert fa.is_aniso_supported(p, tab, torch.float32)
+    assert erk_slots.kernel_name(tab) == (
+        erk_slots.SLOTS_KERNEL if method == "bs32" else
+        erk_slots.TILE_KERNEL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", sorted(CASES) + sorted(EDGE_CASES))
+def test_tile_sums_add_to_the_plain_total(name, dtype):
+    """The plain partial sums, one a tile of K1's plan (32x32 for bs32,
+    32x16 for dopri54) in the kernel's order, add up to the plain
+    version's total to rounding, for each tableau and freeze."""
+    from crdmodel_tpu_torch.ops.fused_step import tile_plan
+
+    kw, tensor, _, h = _case(name)
+    p = build_problem(SimConfig(**kw), "cpu", diffusion_tensor=tensor)
+    ac = prepare_aniso_constants(p, dtype, "cpu")
+    y = torch.tensor(_state(tuple(p.y0.shape), kw["model"]), dtype=dtype)
+    _, ny, nx = y.shape
+    for method in sorted(TABLEAUS):
+        for _, _, fz in SEGMENTS:
+            args = (y, torch.tensor(h, dtype=dtype),
+                    torch.tensor(fz, dtype=dtype), ac, TABLEAUS[method],
+                    1e-4, 1e-7)
+            sums = fa.fused_aniso_tile_sums(*args)
+            _, total = fa.fused_aniso_step_reference(*args)
+            tile_y = tile_plan(TABLEAUS[method].stages, y.element_size())[1]
+            assert sums.shape == (-(-nx // 32) * -(-ny // tile_y),)
+            rel = 1e-5 if dtype == torch.float32 else 1e-12
+            np.testing.assert_allclose(float(sums.sum()), float(total),
+                                       rtol=rel)
+
+
 @pytest.mark.cuda
 @pytest.mark.skipif("not torch.cuda.is_available()",
                     reason="needs a CUDA card and nvcc")
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("method", ["bs32", "dopri54"])
-@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("name", sorted(CASES) + sorted(EDGE_CASES))
 def test_cuda_kernel_matches_plain(name, method, dtype):
     """y_new bitwise equal to the plain version (the same operations in
-    the same order, -fmad=false); the per-block error sums to rounding."""
+    the same order, -fmad=false), two launches equal, one partial sum a
+    tile, each bitwise the plain version's in the kernel's order
+    (fused_aniso_tile_sums); the launch runs the kernel the dispatch
+    names (erk_slots.kernel_name), and the register-resident kernel's
+    shared bytes are slots_plan's with the dxyw plane."""
+    from crdmodel_tpu_torch.ops import trace
+
     kw, tensor, _, h = _case(name)
     p = build_problem(SimConfig(**kw), "cuda", diffusion_tensor=tensor)
     ac = prepare_aniso_constants(p, dtype, "cuda")
     y = torch.tensor(_state(tuple(p.y0.shape), kw["model"]), dtype=dtype,
                      device="cuda")
     ht = torch.tensor(h, dtype=dtype, device="cuda")
+    tab = TABLEAUS[method]
     for _, _, fz in SEGMENTS:
         fzt = torch.tensor(fz, dtype=dtype, device="cuda")
-        args = (y, ht, fzt, ac, TABLEAUS[method], 1e-4, 1e-7)
+        args = (y, ht, fzt, ac, tab, 1e-4, 1e-7)
+        # a trace can miss kernels, or hold none: pooled traces
+        names = trace.kernel_names(lambda: fa.fused_aniso_step(*args))
+        assert any(erk_slots.kernel_name(tab) in n for n in names), names
         before = fa.fused_aniso_step.launches
         y_k, ss_k = fa.fused_aniso_step(*args)
         y_k2, ss_k2 = fa.fused_aniso_step(*args)
         assert fa.fused_aniso_step.launches == before + 2
-        y_r, ss_r = fa.fused_aniso_step_reference(*args)
+        y_r, _ = fa.fused_aniso_step_reference(*args)
+        sums = fa.fused_aniso_tile_sums(*args)
         torch.cuda.synchronize()
         assert torch.equal(y_k, y_k2) and torch.equal(ss_k, ss_k2)
         assert torch.equal(y_k, y_r)
-        rel = abs(float(ss_k.sum()) - float(ss_r.sum())) / float(ss_r.sum())
-        assert rel <= (1e-5 if dtype == torch.float32 else 1e-12)
+        assert ss_k.shape == sums.shape and torch.equal(ss_k, sums)
+    if erk_slots.uses_slots(tab):
+        info = erk_slots.kernel_info("crd_fused_aniso_info", dtype,
+                                     ac.kinetics_id)
+        smem = erk_slots.slots_plan(y.element_size(), op_planes=1)[3]
+        assert info["shared_bytes"] == smem
+        assert info["blocks_per_sm"] >= (2 if dtype == torch.float32 else 1)

@@ -4,10 +4,14 @@
 On the CPU: the kernel's plain version against the JAX package's Pallas
 kernel run in interpret mode (f32) and against the port's torch-path
 ark324 step (f64); simulate() through the fused path against the JAX
-package's fused run in interpret mode.
-On a CUDA card (marker `cuda`): the CUDA kernel against the plain version.
-The JAX package is imported inside the tests that use it, so that the card
-tests run where JAX is not installed:
+package's fused run in interpret mode; the launch's plan (slots_plan) and
+the plain version of the kernel's partial sums (fused_imex_tile_sums:
+their number, and their total against the plain step's sum) on the
+4-column torus, an odd flat grid and a torus, at both plans' tiles.
+On a CUDA card (marker `cuda`): the CUDA kernel against the plain version,
+y_new and every partial sum bitwise, at the plan sized to the grid and at
+the 32x32 plan. The JAX package is imported inside the tests that use it,
+so that the card tests run where JAX is not installed:
 
     python -m pytest tests/test_torch_fused_imex.py -m cuda --noconftest
 """
@@ -216,11 +220,103 @@ def test_gate():
     assert not fi.is_imex_supported(p_jd, torch.float32)
 
 
+# the shared memory and registers of one H100 SM
+SM_SHARED_BYTES = 228 * 1024
+SM_REGISTERS = 65536
+# (ny, nx) and the plan's (tile_y, blocks): the canonical Goldbeter torus
+# (32x32 tiles would fill 52 of the 132 SMs: 32x16), the 2.56M-point one,
+# the 4-column torus, an odd grid, and the smallest 32x32 plan
+PLANS = [(400, 100, 16, 100), (3200, 800, 32, 2500), (16, 4, 16, 1),
+         (75, 37, 16, 10), (384, 352, 32, 132)]
+
+
+@pytest.mark.parametrize("ny,nx,tile_y,blocks", PLANS)
 @pytest.mark.parametrize("itemsize", [4, 8])
-def test_tile_plan_fits(itemsize):
-    tx, ty, smem = fi.tile_plan(itemsize)
-    assert smem <= SMEM_BYTES - 1024 and (tx, ty) == (32, 32)
-    assert smem == fi.N_ARRAYS * (tx + 8) * (ty + 8) * itemsize
+def test_slots_plan(ny, nx, tile_y, blocks, itemsize, monkeypatch):
+    """32x16 tiles where 32x32 ones number fewer than the SMs, else 32x32;
+    the threads cover the tile in whole slots, the Newton's three rings
+    and the outer ring one point each; the shared bytes fit a block and,
+    in f32, two blocks of 64 registers a thread an SM."""
+    plan = fi.slots_plan(ny, nx, itemsize)
+    assert (plan.tile_y, plan.tile_x, plan.blocks) == (tile_y, 32, blocks)
+    assert blocks == -(-nx // 32) * -(-ny // tile_y)
+    width, rows = 32 + 2 * fi.HALO, tile_y + 2 * fi.HALO
+    tile = 32 * tile_y
+    assert plan.threads == fi.THREADS
+    assert tile == (plan.slots - 1) * plan.threads
+    assert (width - 2) * (rows - 2) - tile <= plan.threads
+    assert 2 * (width + rows) - 4 <= plan.threads
+    assert plan.shared_bytes == fi.slots_bytes(tile_y, itemsize)
+    assert plan.shared_bytes <= SMEM_BYTES - 1024
+    if itemsize == 4:
+        assert 2 * plan.shared_bytes <= SM_SHARED_BYTES
+        assert 2 * plan.threads * 64 <= SM_REGISTERS
+    monkeypatch.setattr(fi, "SMS", 0)
+    assert fi.slots_plan(ny, nx, itemsize).tile_y == 32
+
+
+# the partial sums' cases: the 4-column torus, which the wrap covers many
+# times; an odd flat grid with the beta ramp, partial tiles on both axes;
+# Aliev-Panfilov on a torus
+SUM_CASES = {
+    "goldbeter_torus_4_columns": ("goldbeter", "torus", dict(x_mesh=4)),
+    "fhn_flat_odd": ("fhn", "flat", dict(x_mesh=37, y_mesh=75, vary_beta=1)),
+    "aliev_panfilov_torus": ("aliev_panfilov", "torus", dict(x_mesh=24)),
+}
+
+
+def _sum_cfg(name):
+    model, surface, over = SUM_CASES[name]
+    return _cfg(model, surface, **over)
+
+
+def _sum_case(name, dtype):
+    kw = _sum_cfg(name)
+    p = build_problem(SimConfig(**kw), device="cpu")
+    kc = prepare_constants(p, dtype, "cpu")
+    y = torch.tensor(_state(p.y0.numpy(), seed=2), dtype=dtype)
+    return kw, kc, y
+
+
+@pytest.mark.parametrize("tile_y", [16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", sorted(SUM_CASES))
+def test_tile_sums_add_to_the_plain_total(name, dtype, tile_y):
+    """The plain partial sums at both plans' tiles, one a tile, add up to
+    the plain step's sum (the error and the Newton's updates) within f32
+    rounding (f64: 1e-13), frozen and released."""
+    _, kc, y = _sum_case(name, dtype)
+    _, ny, nx = y.shape
+    for fz in (0.0, 1.0):
+        args = (y, torch.tensor(0.01, dtype=dtype),
+                torch.tensor(fz, dtype=dtype), kc, 1e-5, 1e-8)
+        _, err, dys = fi.imex_stages_reference(*args[:4])
+        sums = fi.imex_tile_sums(err, dys, y, 1e-5, 1e-8, tile_y)
+        _, total = fi.fused_imex_step_reference(*args)
+        assert sums.shape == (-(-nx // 32) * -(-ny // tile_y),)
+        rel = 1e-5 if dtype == torch.float32 else 1e-13
+        np.testing.assert_allclose(float(sums.sum()), float(total), rtol=rel)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", sorted(SUM_CASES))
+def test_tile_sums_follow_the_plan(name, dtype, monkeypatch):
+    """fused_imex_tile_sums has one sum a block of slots_plan, each the
+    replay on the plan's tiles: 32x16 on these small grids, 32x32 where
+    the plan takes it (SMS forced to 0)."""
+    _, kc, y = _sum_case(name, dtype)
+    _, ny, nx = y.shape
+    args = (y, torch.tensor(0.01, dtype=dtype), torch.tensor(1.0, dtype=dtype),
+            kc, 1e-5, 1e-8)
+    _, err, dys = fi.imex_stages_reference(*args[:4])
+    for sms, tile_y in ((fi.SMS, 16), (0, 32)):
+        monkeypatch.setattr(fi, "SMS", sms)
+        plan = fi.slots_plan(ny, nx, y.element_size())
+        assert plan.tile_y == tile_y
+        sums = fi.fused_imex_tile_sums(*args)
+        assert sums.shape == (plan.blocks,)
+        assert torch.equal(sums, fi.imex_tile_sums(err, dys, y, 1e-5, 1e-8,
+                                                   tile_y))
 
 
 def test_wrapper_refuses_other_devices():
@@ -235,30 +331,50 @@ def test_wrapper_refuses_other_devices():
 @pytest.mark.cuda
 @pytest.mark.skipif("not torch.cuda.is_available()",
                     reason="needs a CUDA card and nvcc")
+@pytest.mark.parametrize("plan", ["grid", "32x32"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("model,surface", CASES, ids=IDS)
-def test_cuda_kernel_matches_plain(model, surface, dtype):
-    # x_mesh=40: ragged tiles in both directions (nx=40, ny=160)
-    p = build_problem(SimConfig(**_cfg(model, surface, x_mesh=40,
-                                       vary_beta=int(surface == "flat"))),
-                      device="cuda")
+@pytest.mark.parametrize("name", IDS + sorted(SUM_CASES))
+def test_cuda_kernel_matches_plain(name, dtype, plan, monkeypatch):
+    """The CUDA kernel against the plain version: y_new and every partial
+    sum bitwise (fused_imex_tile_sums), two launches bitwise equal, frozen
+    and released, at h = 2.5e-3 and 2e-2, on the plan sized to the grid
+    (32x16 tiles here) and on the 32x32 plan; the launch runs the slots
+    kernel, whose shared bytes are the plan's, two blocks an SM in f32."""
+    from crdmodel_tpu_torch.ops import trace
+
+    if plan == "32x32":
+        monkeypatch.setattr(fi, "SMS", 0)
+    if name in SUM_CASES:
+        kw = _sum_cfg(name)
+    else:
+        # x_mesh=40: ragged tiles in both directions (nx=40, ny=160)
+        model, surface = name.split("-")
+        kw = _cfg(model, surface, x_mesh=40,
+                  vary_beta=int(surface == "flat"))
+    p = build_problem(SimConfig(**kw), device="cuda")
     kc = prepare_constants(p, dtype, "cuda")
     y = torch.tensor(_state(p.y0.cpu().numpy()), dtype=dtype, device="cuda")
-    tol = 2e-5 if dtype == torch.float32 else 1e-12
     for h_val in (2.5e-3, 2e-2):
         h = torch.tensor(h_val, dtype=dtype, device="cuda")
         for fz in (0.0, 1.0):
             fzt = torch.tensor(fz, dtype=dtype, device="cuda")
             args = (y, h, fzt, kc, 1e-5, 1e-8)
+            # a trace can miss kernels, or hold none: pooled traces
+            names = trace.kernel_names(lambda: fi.fused_imex_step(*args))
+            assert all(fi.SLOTS_KERNEL in n for n in names), names
             before = fi.fused_imex_step.launches
             y_k, ss_k = fi.fused_imex_step(*args)
             y_k2, ss_k2 = fi.fused_imex_step(*args)
             assert fi.fused_imex_step.launches == before + 2
-            y_r, ss_r = fi.fused_imex_step_reference(*args)
+            y_r, _ = fi.fused_imex_step_reference(*args)
+            sums = fi.fused_imex_tile_sums(*args)
             torch.cuda.synchronize()
             assert bool(torch.isfinite(y_r).all())
             assert torch.equal(y_k, y_k2) and torch.equal(ss_k, ss_k2)
-            scale = max(1.0, float(y_r.abs().max()))
-            assert float((y_k - y_r).abs().max()) <= tol * scale
-            rel = abs(float(ss_k.sum()) - float(ss_r.sum())) / float(ss_r.sum())
-            assert rel <= (1e-3 if dtype == torch.float32 else 1e-10)
+            assert torch.equal(y_k, y_r)
+            assert ss_k.shape == sums.shape and torch.equal(ss_k, sums)
+    want = fi.slots_plan(*y.shape[1:], y.element_size())
+    assert want.tile_y == (32 if plan == "32x32" else 16)
+    info = fi.kernel_info(dtype, kc.kinetics_id, want.tile_y)
+    assert info["shared_bytes"] == want.shared_bytes
+    assert info["blocks_per_sm"] >= (2 if dtype == torch.float32 else 1)

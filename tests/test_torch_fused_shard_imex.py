@@ -218,11 +218,11 @@ def test_cpu_wrapper_is_the_plain_version():
 @pytest.mark.parametrize("model", sorted(BETAS))
 def test_tile_sums_are_the_one_pass_kernels(model, shape, dtype):
     """The plain partial sums have the one-pass kernel's length (one a
-    32x32 tile of the block, fused_imex.tile_plan) on every shard,
+    32x32 tile of the block, fused_imex's 32x32 plan) on every shard,
     mirror-padded ones included, and add up to the plain step's sum (the
     error and the Newton's updates over the physical cells) within f32
     rounding (f64: 1e-13), frozen and released."""
-    from crdmodel_tpu_torch.ops.fused_imex import tile_plan
+    from crdmodel_tpu_torch.ops.fused_imex import TILE
     from crdmodel_tpu_torch.ops.kernel_common import make_shard_constants
     from crdmodel_tpu_torch.parallel.halo import mirror_halo_pad
 
@@ -234,7 +234,7 @@ def test_tile_sums_are_the_one_pass_kernels(model, shape, dtype):
     bufs = mirror_halo_pad(list(split_state(y, mesh, pad, cfg)), mesh,
                            f10.HALO, pad)
     consts = make_shard_constants(problem, mesh, pad, f10.HALO, dtype)
-    tile_x, tile_y, _ = tile_plan(y.element_size())
+    tile_x = tile_y = TILE
     tol = 1e-5 if dtype == torch.float32 else 1e-13
     for buf, sc in zip(bufs, consts):
         nyl, nxl = (n - 2 * f10.HALO for n in buf.shape[1:])
