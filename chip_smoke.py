@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --profile     # a diagnostic, not the smoke test
     python3 chip_smoke.py --sharded     # the sharded main paths alone
+    python3 chip_smoke.py --stream      # the run entry point's phases alone
 
 Builds the CUDA kernels from crdmodel_tpu_torch/csrc, holds each against its
 plain PyTorch version on the card (K1, the fused ERK step, y_new and every
@@ -73,7 +74,18 @@ fibres), the same fibres on the torus (K11 with the inv4 profile), the
 canonical Goldbeter torus with ark324 and the JAX suite's large Goldbeter
 torus (3200x800, 2.56M points, ark324, f32, Tf=1; both through K10),
 and the volumetric slab with bs32 (through K12), rkc2 (through K13) and
-the scar column (through K12's tissue mode).
+the scar column (through K12's tissue mode). Last, the run entry point
+and the streaming drivers: `python -m crdmodel_tpu_torch run` of the
+canonical FHN torus through cli.main in this process with --npz and
+--map-torus (cli_run_fhn: K1 on every step, steps and trajectory bitwise
+the simulate() run's, the reference-format files read back exactly, the
+manifest's counts), of the canonical Goldbeter torus with ark324 through
+K3 in a subprocess with four ranks of files (cli_run_goldbeter_ark324,
+bitwise an in-process simulate_streaming), simulate_sharded_streaming of
+the canonical FHN torus on the 2x2 mesh with the sharded writer
+(stream_sharded_fhn, K8, bitwise simulate_sharded, the four ranks' files
+exactly), and the host-offload copies' timing beside the solve's kernels
+(stream_host_offload).
 Each run is checked against the JAX package's CPU runs recorded in
 tests/golden/torch_canonical_{fhn,goldbeter}[_method]_probes.npz (the
 speculative and ARK_NORMAL runs against
@@ -105,7 +117,10 @@ kernel's share (phase "profile"). With --sharded it builds the kernels and
 runs only the single-device runs the sharded paths are held to (K1, K3,
 K4, K5, K6, K7) and the sharded main paths with their checks (on four cards or
 more, again with a shard on each card); it prints no kernels line and no
-last line.
+last line. With --stream it builds the kernels and runs the canonical FHN
+torus through simulate() and simulate_sharded() on the 2x2 mesh, then the
+run entry point's and the streaming drivers' phases above; no kernels
+line and no last line either.
 """
 
 import dataclasses
@@ -1281,15 +1296,8 @@ def run_main_path(cfg, probes, kernel, min_step_tol, name, label,
 
     traj = res.trajectory
     steps = res.total_steps()
-    ref_steps = int(probes["steps_f32"].sum())
-    step_tol = max(min_step_tol,
-                   abs(ref_steps - int(probes["steps_f64"].sum())) / ref_steps)
-    var, j, i = (torch.as_tensor(probes[k], device=traj.device)
-                 for k in ("probe_var", "probe_j", "probe_i"))
-    got = traj[:, var, j, i].double().cpu().numpy()
-    gap = float(np.abs(got - probes["probes_f64"]).max())
-    f32_gap = float(np.abs(probes["probes_f32"] - probes["probes_f64"]).max())
-    probe_limit = 2.0 * f32_gap + 1e-4
+    gate, gate_checks, got = golden_gate(traj, steps, probes, min_step_tol)
+    step_tol = gate["step_limit"]
     wall = res.wall_time
     extra = {}
     if mesh is not None:
@@ -1301,32 +1309,26 @@ def run_main_path(cfg, probes, kernel, min_step_tol, name, label,
             probe_max_abs_err_vs_single_device=float(
                 np.abs(got - versus["probes"]).max()))
     if keep is not None:
-        keep.update(steps=steps, probes=got, wall_s=wall)
+        keep.update(steps=steps, probes=got, wall_s=wall, trajectory=traj,
+                    stats=res.stats)
     if report is not None:
         extra.update(report(res, counts))
     phase(name, config=label, selection=selection_note(cfg), **extra,
           grid=[cfg.ny, cfg.nx], method=cfg.method, dtype=cfg.dtype,
           status=res.describe(), fused=res.fused, steps=steps,
           accepted=int(res.stats.accepted.sum()),
-          rejected=int(res.stats.rejected.sum()),
-          jax_f32_cpu_steps=ref_steps,
-          jax_f64_cpu_steps=int(probes["steps_f64"].sum()),
-          step_limit=step_tol, kernel=kernel.__name__,
+          rejected=int(res.stats.rejected.sum()), **gate,
+          kernel=kernel.__name__,
           launches=counts, launch_bound=launch_bound(cfg, steps),
           wall_s=wall, us_per_step=wall / steps * 1e6,
           points_steps_per_s=cfg.nx * cfg.ny * steps / wall,
-          probe_max_abs_err_vs_jax_f64=gap, probe_limit=probe_limit,
-          jax_f32_probe_gap=f32_gap, card=card_line())
+          card=card_line())
     checks = run_checks(cfg, res, kernel, launches,
                         1 if mesh is None else mesh.size)
     if launch_checks is not None:
         del checks[f"every step through {kernel.__name__}"]
         checks.update(launch_checks(res, counts))
-    checks.update({
-        f"steps within {step_tol:.2%} of JAX f32":
-            abs(steps - ref_steps) <= step_tol * ref_steps,
-        "probes vs JAX f64": gap <= probe_limit,
-    })
+    checks.update(gate_checks)
     if versus is not None:
         checks[f"steps within {step_tol:.2%} of the single-device run"] = (
             abs(steps - versus["steps"]) <= step_tol * versus["steps"])
@@ -2322,13 +2324,13 @@ def run_sharded_rkc2(cfg, rkc2_probes, mesh, name):
     return launches
 
 
-def sharded_main_paths(cfg, probes, single_fhn):
+def sharded_main_paths(cfg, probes, single_fhn, keep=None):
     """main_path_sharded_fhn (the canonical FHN torus `cfg`, K8, held to the
     JAX goldens and to the single-device K1 run `single_fhn`) and
     main_path_sharded_fhn_rkc2 (the large FHN torus, K9) on a 2x2 mesh of
     shards on cuda:0 and, with four cards or more, again (phases tagged
     _4cards) with shard i on cuda:i. Returns the 2x2 runs' launches of K8
-    and K9."""
+    and K9; `keep` receives the 2x2 cuda:0 FHN run (run_main_path)."""
     from crdmodel_tpu_torch.ops import fused_shard_step
     meshes = [shard_mesh(SHARD_MESH)]
     if torch.cuda.device_count() >= 4:
@@ -2339,7 +2341,8 @@ def sharded_main_paths(cfg, probes, single_fhn):
         n8 = run_main_path(
             cfg, probes["fhn", "bs32"], fused_shard_step.fused_shard_step,
             0.01, "main_path_sharded_fhn" + tag,
-            "data/FHNmodelArgs.ini fhn torus", mesh=mesh, versus=single_fhn)
+            "data/FHNmodelArgs.ini fhn torus", mesh=mesh, versus=single_fhn,
+            keep=keep if i == 0 else None)
         n9 = run_sharded_rkc2(large_fhn_torus(), probes["fhn", "rkc2"], mesh,
                               "main_path_sharded_fhn_rkc2" + tag)
         launches.append((n8, n9))
@@ -3003,6 +3006,346 @@ def kstep_main_paths(cfg, cfg_gb, probes, single_fhn, card):
     return launches
 
 
+def zero_launches():
+    """Set every kernel wrapper's launch count to 0; returns a function that
+    reads them ({wrapper name: launches})."""
+    wrappers = kernel_wrappers()
+    for w in wrappers:
+        w.launches = 0
+    return lambda: {w.__name__: w.launches for w in wrappers}
+
+
+def golden_gate(traj, steps, probes, min_step_tol):
+    """The gate of a trajectory (a tensor on any device, or a host array)
+    of `steps` steps against the JAX CPU runs in `probes`: steps within
+    min_step_tol of the JAX f32 run's (or its distance to the f64 run's),
+    the probes within 2x the JAX f32-f64 gap plus 1e-4 of the f64 run's.
+    Returns (fields, checks, the probe values as host float64)."""
+    ref_steps = int(probes["steps_f32"].sum())
+    f64_steps = int(probes["steps_f64"].sum())
+    step_tol = max(min_step_tol, abs(ref_steps - f64_steps) / ref_steps)
+    traj = torch.as_tensor(traj)
+    var, j, i = (torch.as_tensor(probes[k], device=traj.device)
+                 for k in ("probe_var", "probe_j", "probe_i"))
+    got = traj[:, var, j, i].double().cpu().numpy()
+    gap = float(np.abs(got - probes["probes_f64"]).max())
+    f32_gap = float(np.abs(probes["probes_f32"] - probes["probes_f64"]).max())
+    limit = 2.0 * f32_gap + 1e-4
+    return (dict(jax_f32_cpu_steps=ref_steps, jax_f64_cpu_steps=f64_steps,
+                 step_limit=step_tol, probe_max_abs_err_vs_jax_f64=gap,
+                 probe_limit=limit, jax_f32_probe_gap=f32_gap),
+            {f"steps within {step_tol:.2%} of JAX f32":
+                 abs(steps - ref_steps) <= step_tol * ref_steps,
+             "probes vs JAX f64": gap <= limit},
+            got)
+
+
+def same_stats(stats, other):
+    """Per-interval steps, accepted, rejected and status all equal (host
+    arrays or tensors, in SolveStats order)."""
+    return all(np.array_equal(torch.as_tensor(a).cpu().numpy(),
+                              torch.as_tensor(b).cpu().numpy())
+               for a, b in zip(stats, other))
+
+
+def read_back(outdir, cfg, model):
+    """The reference-format files of `outdir` reassembled as (nt, nvars
+    written, ny, nx) float64, and their rank count."""
+    from crdmodel_tpu_torch.io.trajectory import (probe_nprocs,
+                                                  read_reference_files)
+    n = model.nvars if cfg.include_all_vars else 1
+    fields = [read_reference_files(outdir, cfg.program_name,
+                                   model.var_names[v])[0] for v in range(n)]
+    return np.stack(fields, axis=1), probe_nprocs(outdir, cfg.program_name)
+
+
+def cli_run_fhn(cfg, probes, single, card):
+    """`run` of the canonical FHN torus through cli.main in this process,
+    with --npz and --map-torus: K1 on every step, the steps and trajectory
+    bitwise those of the main_path phase's simulate() run `single`, the
+    files read back equal to that trajectory exactly, the probes in the
+    golden gate, the manifest's counts the run's; the integration's wall,
+    the text's MB, seconds and writer, the .vtp files."""
+    import contextlib
+    import io
+    import re
+    import shutil
+    import tempfile
+    import time
+
+    from crdmodel_tpu_torch import cli
+    from crdmodel_tpu_torch.io import trajectory
+    from crdmodel_tpu_torch.models import get_model
+    out = tempfile.mkdtemp(prefix="cli_run_fhn_")
+    try:
+        read = zero_launches()
+        trajectory.WRITES.clear()
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            rc = cli.main(["run", INI, "--model", "fhn", "--surface",
+                           "torus", "--outdir", out, "--npz", "--map-torus",
+                           "--quiet"])
+        total = time.perf_counter() - t0
+        counts = read()
+        prog = cfg.program_name
+        with np.load(os.path.join(out, f"{prog}.npz")) as z:
+            run = {k: z[k] for k in ("trajectory", "steps", "accepted",
+                                     "rejected", "status")}
+        with open(os.path.join(out, f"{prog}_manifest.json")) as fh:
+            manifest = json.load(fh)
+        traj = run["trajectory"]
+        steps = int(run["steps"].sum())
+        files, ranks = read_back(out, cfg, get_model("fhn"))
+        m = re.search(r"\(([\d.]+) MB in ([\d.]+) s, writer (\S+)\)",
+                      log.getvalue())
+        vtps = [f for _, _, fs in os.walk(out) for f in fs
+                if f.endswith(".vtp")]
+        gate, checks, _ = golden_gate(traj, steps, probes, 0.01)
+        least, most = launch_bound(cfg, steps)
+        phase("cli_run_fhn", command="python -m crdmodel_tpu_torch run "
+              "data/FHNmodelArgs.ini --model fhn --surface torus --npz "
+              "--map-torus --quiet (cli.main, in process)", exit_code=rc,
+              steps=steps, main_path_steps=single["steps"], launches=counts,
+              integration_wall_s=manifest["wall_time"],
+              main_path_wall_s=single["wall_s"],
+              text_mb=float(m.group(1)) if m else None,
+              text_write_s=float(m.group(2)) if m else None,
+              writer=m.group(3) if m else None,
+              files_by_writer=dict(trajectory.WRITES), vtp_files=len(vtps),
+              cli_total_s=total, rows=int(traj.shape[0]), **gate,
+              card=card)
+        checks.update({
+            "exit code 0": rc == 0,
+            "every step through fused_step":
+                least <= counts["fused_step"] <= most,
+            "trajectory bitwise main_path's": np.array_equal(
+                traj, single["trajectory"].cpu().numpy()),
+            "per-interval stats main_path's": same_stats(
+                [run[k] for k in ("steps", "accepted", "rejected",
+                                  "status")], single["stats"]),
+            "files read back exactly": np.array_equal(
+                files, traj[:, :files.shape[1]].astype(np.float64)),
+            "one rank": ranks == 1,
+            "manifest counts": (
+                manifest["total_steps"] == steps
+                and manifest["accepted"] == int(run["accepted"].sum())
+                and manifest["rejected"] == int(run["rejected"].sum())
+                and manifest["status"] == run["status"].tolist()
+                and manifest["backend"] == "cuda"),
+            "a vtp a row and the mesh's": len(vtps) == traj.shape[0] + 1,
+        })
+        fail_unless("cli_run_fhn", checks)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def cli_run_goldbeter_ark324(cfg, card):
+    """`python -m crdmodel_tpu_torch run` of the canonical Goldbeter torus
+    with ark324 through K3 (use_pallas=true) in a subprocess, its files
+    written as four ranks: exit code 0, the ranks reassembled bitwise equal
+    to an in-process simulate_streaming of the same config `cfg`, whose K3
+    launches are at least its steps."""
+    import shutil
+    import tempfile
+    import time
+
+    from crdmodel_tpu_torch.sim import simulate_streaming
+    out = tempfile.mkdtemp(prefix="cli_run_goldbeter_")
+    try:
+        cmd = [sys.executable, "-m", "crdmodel_tpu_torch", "run", GB_INI,
+               "--model", "goldbeter", "--surface", "torus", "--method",
+               "ark324", "--set", "use_pallas=true", "--nprocs-files", "4",
+               "--outdir", out]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=600)
+        sub_s = time.perf_counter() - t0
+        read = zero_launches()
+        res = simulate_streaming(cfg, device="cuda")
+        counts = read()
+        files, ranks = read_back(out, cfg, res.problem.model)
+        want = res.trajectory[:, :files.shape[1]].double().cpu().numpy()
+        run_line = [x for x in proc.stdout.splitlines()
+                    if x.startswith(cfg.program_name)]
+        phase("cli_run_goldbeter_ark324",
+              command=" ".join(["python -m crdmodel_tpu_torch"] + cmd[3:]),
+              exit_code=proc.returncode, subprocess_s=sub_s,
+              run_line=run_line[-1] if run_line else None,
+              stderr_tail=proc.stderr[-2000:], ranks=ranks,
+              in_process=res.describe(), launches=counts, card=card)
+        fail_unless("cli_run_goldbeter_ark324", {
+            "exit code 0": proc.returncode == 0,
+            "four ranks": ranks == 4,
+            "in-process run ok through K3": res.ok and res.fused,
+            "K3 launches >= steps":
+                counts["fused_imex_step"] >= res.total_steps(),
+            "ranks reassemble bitwise": np.array_equal(files, want),
+        })
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def stream_sharded_fhn(cfg, probes, sharded, card):
+    """simulate_sharded_streaming of the canonical FHN torus on the 2x2
+    mesh on cuda:0 with the port's ShardedReferenceWriter: K8 on every
+    step of every shard, the steps and trajectory bitwise those of
+    simulate_sharded's run `sharded` on the same mesh, the four ranks'
+    files reassembled to that trajectory exactly."""
+    import shutil
+    import tempfile
+    import time
+
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.io.trajectory import ShardedReferenceWriter
+    from crdmodel_tpu_torch.parallel.sharded import \
+        simulate_sharded_streaming
+    mesh = shard_mesh(SHARD_MESH)
+    out = tempfile.mkdtemp(prefix="stream_sharded_fhn_")
+    try:
+        problem = build_problem(cfg, "cuda")
+        writer = ShardedReferenceWriter(out, cfg, problem.model, mesh)
+        write_s = [0.0]
+
+        def timed_writer(k, blocks):
+            t0 = time.perf_counter()
+            writer(k, blocks)
+            write_s[0] += time.perf_counter() - t0
+
+        read = zero_launches()
+        res = simulate_sharded_streaming(cfg, mesh=mesh, problem=problem,
+                                         on_snapshot=timed_writer)
+        counts = read()
+        files, ranks = read_back(out, cfg, problem.model)
+        traj = res.trajectory.cpu().numpy()
+        steps = res.total_steps()
+        least, most = (mesh.size * n for n in launch_bound(cfg, steps))
+        gate, checks, _ = golden_gate(traj, steps, probes, 0.01)
+        phase("stream_sharded_fhn", mesh=list(mesh.shape),
+              devices=[str(d) for d in mesh.device_list()],
+              status=res.describe(), steps=steps,
+              simulate_sharded_steps=sharded["steps"], launches=counts,
+              wall_s=res.wall_time, writer_s=write_s[0],
+              simulate_sharded_wall_s=sharded["wall_s"], ranks=ranks,
+              **gate, card=card)
+        checks.update({
+            "status ok, fused": res.ok and res.fused,
+            "every step of every shard through fused_shard_step":
+                least <= counts["fused_shard_step"] <= most,
+            "trajectory bitwise simulate_sharded's": torch.equal(
+                res.trajectory, sharded["trajectory"]),
+            "per-interval stats simulate_sharded's": same_stats(
+                res.stats, sharded["stats"]),
+            "four ranks": ranks == 4,
+            "files read back exactly": np.array_equal(
+                files, traj[:, :files.shape[1]].astype(np.float64)),
+        })
+        fail_unless("stream_sharded_fhn", checks)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def copy_overlap(events, min_bytes):
+    """From a trace's device events: for each device-to-host copy of at
+    least `min_bytes` (a snapshot's copy into pinned memory), (its µs, the
+    µs of it during which a kernel of another stream ran, the µs from its
+    end to the start of the first kernel of another stream that starts
+    after it started: positive when the copy was done before the solve's
+    next kernel began). A snapshot's copy waits for an event recorded at
+    the end of its interval, so a kernel beside or after it belongs to a
+    later interval."""
+    kernels = [(e["ts"], e["ts"] + e["dur"], e["args"].get("stream"))
+               for e in events if e.get("cat") == "kernel"]
+    rows = []
+    for c in events:
+        if (c.get("cat") != "gpu_memcpy" or "DtoH" not in c.get("name", "")
+                or c.get("args", {}).get("bytes", 0) < min_bytes):
+            continue
+        lo, hi = c["ts"], c["ts"] + c["dur"]
+        others = [(a, b) for a, b, st in kernels
+                  if st != c["args"].get("stream")]
+        spans = sorted((max(a, lo), min(b, hi)) for a, b in others
+                       if b > lo and a < hi)
+        covered, end = 0.0, lo
+        for a, b in spans:
+            if b > end:
+                covered += b - max(a, end)
+                end = b
+        nxt = min((a for a, _ in others if a >= lo), default=None)
+        rows.append((c["dur"], covered,
+                     None if nxt is None else nxt - hi))
+    return rows
+
+
+def stream_host_offload(cfg, card):
+    """The snapshot copies of snapshot_mode "host" (sim.py::HostOffload)
+    on the canonical FHN torus over Tf = 5 with 20 outputs: the walls of
+    the device, host and none modes (two untraced runs each, alternating),
+    the host mode's rows bitwise the device mode's, and from one traced
+    host run each copy's duration and the share of it during which a
+    kernel of the solve's stream ran (a measurement, not a check)."""
+    import time
+
+    from crdmodel_tpu_torch.ops import trace
+    from crdmodel_tpu_torch.sim import simulate_streaming
+    c5 = dataclasses.replace(cfg, t_final=5.0, output_timestep=20)
+    walls = {"device": [], "host": [], "none": []}
+    runs = {}
+    simulate_streaming(c5, device="cuda")        # warm-up
+    for mode in ("device", "host", "none") * 2:
+        t0 = time.perf_counter()
+        runs[mode] = simulate_streaming(c5, device="cuda", snapshot_mode=mode)
+        walls[mode].append(time.perf_counter() - t0)
+    snap = runs["device"].trajectory[0]
+    snap_bytes = snap.numel() * snap.element_size()
+    events, res = trace.device_events(
+        lambda: simulate_streaming(c5, device="cuda", snapshot_mode="host"))
+    rows = copy_overlap(events, snap_bytes)
+    dur = [r[0] for r in rows]
+    leads = [r[2] for r in rows if r[2] is not None]
+    phase("stream_host_offload", config="data/FHNmodelArgs.ini fhn torus, "
+          "Tf=5, 20 outputs", steps=res.total_steps(), walls_s=walls,
+          snapshot_mb=snap_bytes / 1e6, copies=len(rows),
+          copy_us_mean=float(np.mean(dur)) if dur else None,
+          copy_us_max=float(np.max(dur)) if dur else None,
+          copies_beside_a_kernel=sum(r[1] > 0 for r in rows),
+          copy_time_beside_kernels_share=(
+              sum(r[1] for r in rows) / sum(dur) if dur else None),
+          copies_done_before_next_kernel=sum(x >= 0 for x in leads),
+          next_kernel_after_copy_us_median=(
+              float(np.median(leads)) if leads else None),
+          kernels_in_trace=sum(e.get("cat") == "kernel" for e in events),
+          card=card)
+    fail_unless("stream_host_offload", {
+        "host rows bitwise the device mode's": torch.equal(
+            runs["host"].trajectory, runs["device"].trajectory.cpu()),
+        "host rows pinned": runs["host"].trajectory.is_pinned(),
+        "none: the final state": torch.equal(
+            runs["none"].trajectory[0], runs["device"].trajectory[-1]),
+    })
+
+
+def stream_phases(cfg, cfg_gb_ark, probes, single_fhn, sharded_fhn, card):
+    """The `run` entry point and the streaming drivers on the card:
+    cli_run_fhn, cli_run_goldbeter_ark324, stream_sharded_fhn and the
+    host-offload measurement stream_host_offload; their seconds in phase
+    "stream_phases"."""
+    import time
+    t0 = time.perf_counter()
+    cli_run_fhn(cfg, probes["fhn", "bs32"], single_fhn, card)
+    t1 = time.perf_counter()
+    cli_run_goldbeter_ark324(cfg_gb_ark, card)
+    t2 = time.perf_counter()
+    stream_sharded_fhn(cfg, probes["fhn", "bs32"], sharded_fhn, card)
+    t3 = time.perf_counter()
+    stream_host_offload(cfg, card)
+    t4 = time.perf_counter()
+    phase("stream_phases", seconds={
+        "cli_run_fhn": t1 - t0, "cli_run_goldbeter_ark324": t2 - t1,
+        "stream_sharded_fhn": t3 - t2, "stream_host_offload": t4 - t3},
+        card=card)
+
+
 def load_probes():
     """Every golden of PROBES: {(model, method): {name: array}}."""
     probes = {}
@@ -3012,7 +3355,7 @@ def load_probes():
     return probes
 
 
-def shard_phases(cfg, probes, single_fhn, card):
+def shard_phases(cfg, probes, single_fhn, card, keep=None):
     """The sharded paths' phases: K8 and K9 against their plain versions
     (k8_check, k9_check) on the canonical torus's 2x2 shards (800x200; the
     beta ramp, a freeze), the flat FHN's (scalar beta), the uneven 1x3 mesh
@@ -3024,7 +3367,7 @@ def shard_phases(cfg, probes, single_fhn, card):
     with rkc2 (main_path_sharded_fhn_rkc2, K9; held to the single-device K2
     run). Every shard lives on cuda:0; with four cards or more each path
     runs again with one shard on each card. Returns K8's and K9's entries
-    of the kernels line."""
+    of the kernels line; `keep` receives the 2x2 FHN run."""
     cfg_flat = dataclasses.replace(cfg, surface="flat", vary_beta=0)
     cfg_large = large_fhn_torus()
     worst8, worst9 = check_shard_kernels([
@@ -3034,7 +3377,8 @@ def shard_phases(cfg, probes, single_fhn, card):
         ("large_rkc2_2x2", cfg_large, SHARD_MESH, (0,), False, True)],
         SEED + 9)
     timings = shard_timings(cfg, cfg_large, card)
-    launches8, launches9 = sharded_main_paths(cfg, probes, single_fhn)
+    launches8, launches9 = sharded_main_paths(cfg, probes, single_fhn,
+                                              keep)
     return [
         kernel_entry("fused_shard_step", "fused_shard_step.cu",
                      "crdmodel_tpu/ops/pallas_shard_step.py:105", launches8,
@@ -3150,6 +3494,19 @@ def main():
         sharded_field_main_paths(programs, probes,
                                  single_field_runs(programs, probes))
         sharded_slab_main_paths(cfg_box, box_main_paths(cfg_box)[2])
+        return
+    if sys.argv[1:] == ["--stream"]:
+        from crdmodel_tpu_torch.ops import fused_shard_step
+        probes, single_fhn, sharded_fhn = load_probes(), {}, {}
+        run_main_path(cfg, probes["fhn", "bs32"], fused_step.fused_step, 0.01,
+                      "main_path", fhn_label, keep=single_fhn)
+        run_main_path(cfg, probes["fhn", "bs32"],
+                      fused_shard_step.fused_shard_step, 0.01,
+                      "main_path_sharded_fhn", fhn_label,
+                      mesh=shard_mesh(SHARD_MESH), versus=single_fhn,
+                      keep=sharded_fhn)
+        stream_phases(cfg, programs["goldbeter_ark324"], probes, single_fhn,
+                      sharded_fhn, card)
         return
     if sys.argv[1:]:
         sys.exit(f"unknown arguments {sys.argv[1:]}; see the docstring")
@@ -3372,9 +3729,12 @@ def main():
     launches14 = kstep_main_paths(cfg, cfg_gb, probes, single_fhn, card)
 
     box_entries, box_singles = box_phases(cfg_box, card)
-    shard_entries = shard_phases(cfg, probes, single_fhn, card)
+    sharded_fhn = {}
+    shard_entries = shard_phases(cfg, probes, single_fhn, card, sharded_fhn)
     field_entries = shard_field_phases(cfg, programs, probes, singles, card)
     shard_box_entries = shard_box_phases(cfg_box, box_singles, card)
+    stream_phases(cfg, programs["goldbeter_ark324"], probes, single_fhn,
+                  sharded_fhn, card)
 
     # the profiler traces of the run, and those taken again with more
     # primers after one lost kernels (ops/trace.py::traced)

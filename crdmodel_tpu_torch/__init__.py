@@ -12,8 +12,9 @@ from crdmodel_tpu_torch.config import SimConfig, config_from_ini, load_ini
 from crdmodel_tpu_torch.core.grid import FlatGeometry, Grid, TorusGeometry
 from crdmodel_tpu_torch.core.problem import Problem, build_problem
 from crdmodel_tpu_torch.parallel.mesh import make_mesh
-from crdmodel_tpu_torch.parallel.sharded import simulate_sharded
-from crdmodel_tpu_torch.sim import SimResult, simulate
+from crdmodel_tpu_torch.parallel.sharded import (simulate_sharded,
+                                                 simulate_sharded_streaming)
+from crdmodel_tpu_torch.sim import SimResult, simulate, simulate_streaming
 
 __all__ = [
     "SimConfig",
@@ -25,7 +26,9 @@ __all__ = [
     "Problem",
     "build_problem",
     "simulate",
+    "simulate_streaming",
     "simulate_sharded",
+    "simulate_sharded_streaming",
     "make_mesh",
     "SimResult",
     "__version__",

@@ -667,32 +667,184 @@ def merge_stops(touts, breakpoints, t0=0.0):
             np.array([o for _, o in stops], dtype=bool))
 
 
-def integrate_to_outputs(rhs, y0, params, t0, touts, *, rtol, atol,
-                         method="bs32", max_steps=200_000, global_size=None,
-                         breakpoints=(), step_err=None, init_carry=None,
-                         err_order=None, step_mode="tstop", n_members=0,
-                         spec_k=0, kstep_call=None, rho_fn=None,
-                         h_limit_fn=None, rhs_split=None, sync_fn=None,
-                         sync_every=SYNC_EVERY, reduce_fn=None,
-                         y_loop0=None, capture=None):
+def make_normal_stream_plan(stops, breakpoints) -> dict:
+    """Per-stop ARK_NORMAL plan: {float(stop): (free, cap)}
+    (crdmodel_tpu/sim.py:673-691). stops: (stop time, is_output) pairs.
+
+    free: integrate the interval freely (overshoot + dense output): output
+    stops that are not breakpoints. Breakpoints (and outputs coinciding
+    with one) stay exact clamped stops: the RHS is discontinuous there and
+    interpolating across one would be wrong. cap: the next breakpoint
+    strictly after this stop, which a free interval's overshoot must not
+    cross (+inf when none lies ahead)."""
+    bps = sorted(float(b) for b in breakpoints)
+    plan = {}
+    for stop, is_out in stops:
+        s = float(stop)
+        is_bp = any(np.isclose(s, b) for b in bps)
+        cap = min([b for b in bps if b > s and not np.isclose(b, s)],
+                  default=np.inf)
+        plan[s] = (bool(is_out) and not is_bp, cap)
+    return plan
+
+
+class StopLoop:
+    """The integration of integrate_to_outputs stop by stop: its set-up
+    (the stops, the stepper, h0) and its per-stop body, shared by
+    integrate_to_outputs and the streaming drivers (sim.py::
+    simulate_streaming, parallel/sharded.py::simulate_sharded_streaming),
+    so that a streaming run makes the same calls and takes the same steps.
+
+    The arguments are integrate_to_outputs'. After construction, stop_times
+    and is_output are merge_stops' (breakpoints merged into the outputs),
+    and the loop state (t, y, h, errp, status and, in ARK_NORMAL, the
+    bracket br_t, br_y) is that before the first stop: t0, y_loop0, h0
+    estimated on the plain y0 through the composed rhs.
+    """
+
+    def __init__(self, rhs, y0, params, t0, touts, *, rtol, atol,
+                 method="bs32", max_steps=200_000, global_size=None,
+                 breakpoints=(), step_err=None, init_carry=None,
+                 err_order=None, step_mode="tstop", n_members=0, spec_k=0,
+                 kstep_call=None, rho_fn=None, h_limit_fn=None,
+                 rhs_split=None, sync_fn=None, sync_every=SYNC_EVERY,
+                 reduce_fn=None, y_loop0=None, capture=None):
+        unported = {"n_members": n_members, "sync_fn": sync_fn}
+        for name, value in unported.items():
+            if value:
+                raise NotImplementedError(f"{name} is not ported yet "
+                                          "(ROADMAP queue 1, item 14)")
+        if step_mode not in ("tstop", "normal"):
+            raise ValueError(f"step_mode must be tstop|normal, got "
+                             f"{step_mode!r}")
+        if step_mode == "normal" and (spec_k or kstep_call is not None):
+            raise ValueError("step_mode='normal' does not support "
+                             "speculative K-step batching (its h sequence "
+                             "is already output-schedule-free)")
+        dtype, device = y0.dtype, y0.device
+        if global_size is None:
+            global_size = y0.numel()
+        if y_loop0 is None:
+            y_loop0 = y0
+        self.capture = capture if capture is not None else (lambda y: y)
+        if step_err is None:
+            step_err, init_carry, err_order = make_stepper(
+                method, rhs, rtol, atol, rho_fn, rhs_split)
+        else:
+            if err_order is None:
+                err_order = TABLEAUS[method].err_order
+            if init_carry is None:
+                init_carry = lambda t, y, params: ()   # noqa: E731
+        self.rhs, self.params = rhs, params
+        self.step_err, self.init_carry = step_err, init_carry
+        self.h_limit_fn, self.reduce_fn = h_limit_fn, reduce_fn
+        self.kstep_call, self.spec_k = kstep_call, spec_k
+        self.normal = step_mode == "normal"
+        self.dtype, self.device = dtype, device
+        self.common = dict(err_order=err_order, max_steps=max_steps,
+                           global_size=global_size, sync_every=sync_every)
+
+        self.stop_times, self.is_output = merge_stops(touts, breakpoints,
+                                                      float(t0))
+        self.stops = torch.tensor(self.stop_times, dtype=dtype, device=device)
+        t = torch.tensor(t0, dtype=dtype, device=device)
+        p0 = self.seg_params(0)
+        f0 = rhs(t, y0, p0)
+        h = _initial_step(rhs, t, y0, f0, p0, self.stops[0], rtol, atol,
+                          err_order, global_size, reduce_fn)
+        if h_limit_fn is not None:
+            h = torch.minimum(h, h_limit_fn(t, y_loop0, p0).to(dtype))
+        self.t, self.y, self.h = t, y_loop0, h
+        self.errp = torch.ones((), dtype=dtype, device=device)
+        self.status = torch.zeros((), dtype=torch.int32, device=device)
+        if self.normal:
+            plan = make_normal_stream_plan(
+                zip(self.stop_times, self.is_output), breakpoints)
+            self.use_free, self.caps = zip(*(plan[float(s)]
+                                             for s in self.stop_times))
+            self.br_t, self.br_y = t, self.y
+
+    def seg_params(self, k: int) -> dict:
+        # the RHS tells the segments apart by their end (the boundary freeze)
+        return {**self.params, "_seg_end": self.stops[k]}
+
+    def advance(self, k: int, first: bool) -> tuple:
+        """Integrate to stop k; `first` relaxes the growth cap until the
+        first accepted step (integrate_interval's first_interval). Returns
+        the stop's (nstep, nacc, nrej, status), 0-d tensors."""
+        dtype, device = self.dtype, self.device
+        t, y, h, errp, status = self.t, self.y, self.h, self.errp, self.status
+        tout, p = self.stops[k], self.seg_params(k)
+        # fresh stepper cache per segment: the RHS may differ across a
+        # breakpoint (freeze release)
+        fc0 = self.init_carry(t, y, p)
+        spec_k = int(self.spec_k or 0)
+        if self.normal and self.use_free[k]:
+            t, y, h, errp, (self.br_t, self.br_y), stats = \
+                integrate_interval_free(
+                    self.step_err, t, y, h, errp, tout, p, carry0=fc0,
+                    bracket0=(self.br_t, self.br_y), first_interval=first,
+                    status0=status, h_limit_fn=self.h_limit_fn,
+                    t_cap=torch.tensor(self.caps[k], dtype=dtype,
+                                       device=device),
+                    reduce_fn=self.reduce_fn, **self.common)
+        elif self.kstep_call is not None and spec_k > 1:
+            t, y, h, errp, stats = integrate_interval_kernel_batched(
+                self.kstep_call, spec_k, t, y, h,
+                (errp, torch.ones_like(errp)), tout, p, status0=status,
+                tail_step_err=self.step_err, tail_carry0=fc0, **self.common)
+        elif spec_k > 1:
+            t, y, h, errp, stats = integrate_interval_batched(
+                self.step_err, spec_k, t, y, h,
+                (errp, torch.ones_like(errp)), tout, p, carry0=fc0,
+                status0=status, reduce_fn=self.reduce_fn, **self.common)
+        else:
+            t, y, h, errp, stats = integrate_interval(
+                self.step_err, t, y, h, errp, tout, p, carry0=fc0,
+                first_interval=first, status0=status,
+                h_limit_fn=self.h_limit_fn, reduce_fn=self.reduce_fn,
+                **self.common)
+            if self.normal:
+                # a clamped stop: the bracket is degenerate, the snapshot y
+                self.br_t, self.br_y = t, y
+        self.t, self.y, self.h, self.errp = t, y, h, errp
+        self.status = stats[-1]
+        return stats
+
+    def output(self, k: int):
+        """The state recorded at output stop k: capture(y) or, in
+        ARK_NORMAL, cubic Hermite dense output on the plain fields (two rhs
+        evaluations)."""
+        if self.normal:
+            return hermite_interpolate(self.rhs, self.br_t,
+                                       self.capture(self.br_y), self.t,
+                                       self.capture(self.y), self.stops[k],
+                                       self.seg_params(k))
+        return self.capture(self.y)
+
+
+def integrate_to_outputs(rhs, y0, params, t0, touts, **kw):
     """Integrate through each output time and return the state at each
     (reference src/FHNmodel_torus.cpp:413-478).
 
     touts: increasing output times (t0 excluded). Returns (traj, stats):
     traj (len(touts), *y0.shape); stats tensors per output interval.
-    breakpoints: times where the RHS is discontinuous in t; integration
-    stops exactly there and the sub-interval's stats join the next output
-    interval. step_err/init_carry: a caller-supplied stepper (the fused
-    kernels, ops/fused_step.py, ops/fused_rkc.py and ops/fused_imex.py) in
-    place of the torch-path stepper; h0 is always estimated on the plain y0
-    through the composed rhs. rho_fn: the spectral-radius bound the rkc2
-    stepper needs (core/problem.py::make_rho_bound). h_limit_fn(t, y,
-    params): a hard cap on every attempted step, h0 included. rhs_split:
-    the (f_ex, f_im) pair the ark324 stepper needs. reduce_fn: the
-    sharded run's cross-shard sum (integrate_interval), also of h0's norms.
-    y_loop0/capture: the state the loop carries when a fused kernel keeps
-    its own layout (the shard kernels' halo-padded buffers), and the map
-    back to what the trajectory records; by default y0 and the identity.
+    Keyword arguments (StopLoop's): rtol, atol, method ("bs32"),
+    max_steps (200000), global_size, breakpoints: times where the RHS is
+    discontinuous in t; integration stops exactly there and the
+    sub-interval's stats join the next output interval. step_err/init_carry/
+    err_order: a caller-supplied stepper (the fused kernels,
+    ops/fused_step.py, ops/fused_rkc.py and ops/fused_imex.py) in place of
+    the torch-path stepper; h0 is always estimated on the plain y0 through
+    the composed rhs. rho_fn: the spectral-radius bound the rkc2 stepper
+    needs (core/problem.py::make_rho_bound). h_limit_fn(t, y, params): a
+    hard cap on every attempted step, h0 included. rhs_split: the (f_ex,
+    f_im) pair the ark324 stepper needs. reduce_fn: the sharded run's
+    cross-shard sum (integrate_interval), also of h0's norms. y_loop0/
+    capture: the state the loop carries when a fused kernel keeps its own
+    layout (the shard kernels' halo-padded buffers), and the map back to
+    what the trajectory records; by default y0 and the identity.
+    sync_every: integrate_interval's.
 
     spec_k > 1: speculative K-step batches, through kstep_call (a K-step
     kernel, integrate_interval_kernel_batched; step_err is then its tail
@@ -702,106 +854,20 @@ def integrate_to_outputs(rhs, y0, params, t0, touts, *, rtol, atol,
     cubic Hermite dense output on the plain fields (capture), while
     breakpoints stay exact stops: a stop on a breakpoint is clamped and no
     step crosses the next breakpoint. It takes no speculative batching.
+    n_members and sync_fn raise NotImplementedError (ROADMAP queue 1,
+    item 14).
     """
-    unported = {"n_members": n_members, "sync_fn": sync_fn}
-    for name, value in unported.items():
-        if value:
-            raise NotImplementedError(f"{name} is not ported yet (ROADMAP "
-                                      "queue 1, item 14)")
-    if step_mode not in ("tstop", "normal"):
-        raise ValueError(f"step_mode must be tstop|normal, got {step_mode!r}")
-    if step_mode == "normal" and (spec_k or kstep_call is not None):
-        raise ValueError("step_mode='normal' does not support speculative "
-                         "K-step batching (its h sequence is already "
-                         "output-schedule-free)")
-    dtype, device = y0.dtype, y0.device
-    if global_size is None:
-        global_size = y0.numel()
-    if y_loop0 is None:
-        y_loop0 = y0
-    if capture is None:
-        capture = lambda y: y   # noqa: E731
-    if step_err is None:
-        step_err, init_carry, err_order = make_stepper(method, rhs, rtol,
-                                                       atol, rho_fn, rhs_split)
-    else:
-        if err_order is None:
-            err_order = TABLEAUS[method].err_order
-        if init_carry is None:
-            init_carry = lambda t, y, params: ()   # noqa: E731
-
-    stop_times, is_output = merge_stops(touts, breakpoints, float(t0))
-    seg_ids = np.cumsum(is_output) - is_output.astype(int)
-    stops = torch.tensor(stop_times, dtype=dtype, device=device)
-
-    def seg_params(tout):
-        # the RHS tells the segments apart by their end (the boundary freeze)
-        return {**params, "_seg_end": tout}
-
-    t = torch.tensor(t0, dtype=dtype, device=device)
-    f0 = rhs(t, y0, seg_params(stops[0]))
-    h = _initial_step(rhs, t, y0, f0, seg_params(stops[0]), stops[0],
-                      rtol, atol, err_order, global_size, reduce_fn)
-    if h_limit_fn is not None:
-        h = torch.minimum(h, h_limit_fn(t, y_loop0,
-                                        seg_params(stops[0])).to(dtype))
-    y = y_loop0
-    errp = torch.ones((), dtype=dtype, device=device)
-    status = torch.zeros((), dtype=torch.int32, device=device)
-    common = dict(err_order=err_order, max_steps=max_steps,
-                  global_size=global_size, sync_every=sync_every)
+    loop = StopLoop(rhs, y0, params, t0, touts, **kw)
+    device = loop.device
     traj, per_stop = [], []
-    if step_mode == "normal":
-        # breakpoints stay exact stops: a stop on one is clamped, and no
-        # free step crosses the next one (t_cap)
-        bps = sorted(float(b) for b in breakpoints)
-        is_bp = np.array([any(np.isclose(s, b) for b in bps)
-                          for s in stop_times])
-        caps = [min([b for b in bps if b > s and not np.isclose(b, s)],
-                    default=np.inf) for s in stop_times]
-        use_free = is_output & ~is_bp
-        br_t, br_y = t, y
-    for k in range(len(stop_times)):
-        p = seg_params(stops[k])
-        # fresh stepper cache per segment: the RHS may differ across a
-        # breakpoint (freeze release)
-        fc0 = init_carry(t, y, p)
-        if step_mode == "normal" and use_free[k]:
-            t, y, h, errp, (br_t, br_y), stats = integrate_interval_free(
-                step_err, t, y, h, errp, stops[k], p, carry0=fc0,
-                bracket0=(br_t, br_y), first_interval=(k == 0),
-                status0=status, h_limit_fn=h_limit_fn,
-                t_cap=torch.tensor(caps[k], dtype=dtype, device=device),
-                reduce_fn=reduce_fn, **common)
-        elif kstep_call is not None and spec_k and spec_k > 1:
-            t, y, h, errp, stats = integrate_interval_kernel_batched(
-                kstep_call, int(spec_k), t, y, h,
-                (errp, torch.ones_like(errp)), stops[k], p, status0=status,
-                tail_step_err=step_err, tail_carry0=fc0, **common)
-        elif spec_k and spec_k > 1:
-            t, y, h, errp, stats = integrate_interval_batched(
-                step_err, int(spec_k), t, y, h,
-                (errp, torch.ones_like(errp)), stops[k], p, carry0=fc0,
-                status0=status, reduce_fn=reduce_fn, **common)
-        else:
-            t, y, h, errp, stats = integrate_interval(
-                step_err, t, y, h, errp, stops[k], p, carry0=fc0,
-                first_interval=(k == 0), status0=status,
-                h_limit_fn=h_limit_fn, reduce_fn=reduce_fn, **common)
-            if step_mode == "normal":
-                # a clamped stop: the bracket is degenerate, the snapshot y
-                br_t, br_y = t, y
-        status = stats[-1]
-        per_stop.append(torch.stack(stats))
-        if is_output[k]:
-            if step_mode == "normal":
-                # dense output on the plain fields: two rhs evaluations
-                traj.append(hermite_interpolate(rhs, br_t, capture(br_y), t,
-                                                capture(y), stops[k], p))
-            else:
-                traj.append(capture(y))
+    for k in range(len(loop.stop_times)):
+        per_stop.append(torch.stack(loop.advance(k, first=(k == 0))))
+        if loop.is_output[k]:
+            traj.append(loop.output(k))
 
     per_stop = torch.stack(per_stop)          # (n_stops, 4)
+    is_output = loop.is_output
+    seg_ids = np.cumsum(is_output) - is_output.astype(int)
     seg = torch.as_tensor(seg_ids, device=device)
     nseg = len(touts)
     counts = torch.zeros((nseg, 3), dtype=torch.int32, device=device)

@@ -28,6 +28,7 @@ lost any is taken again with `PRIME_GROWTH` times as many primers, up to
   kernel_names    the names of the kernels that n calls of fn ran
   device_ms       the median device time of the kernels whose name holds
                   a tag (or of a call's `group` of them) over n calls of fn
+  device_events   the kernels and memory copies of one trace, unchecked
 
 Only for a CUDA card: torch and torch.profiler are imported inside the
 functions that trace; own_kernels reads a trace's events and runs
@@ -167,3 +168,16 @@ def device_ms(fn, tag: str, n: int = 60, attempts: int = ATTEMPTS,
     if group == 1:
         return float(np.median(durations)) / 1e3
     return float(sum(durations)) / calls / 1e3
+
+
+def device_events(body, prime: int = PRIME) -> tuple:
+    """(the device's kernel and memory-copy events of one padded, primed
+    trace of body(), in trace order; body's result). Unlike traced, the
+    trace is not checked whole: for measurements that read copies beside
+    the kernels, such as a copy's overlap with the kernels of another
+    stream."""
+    with _window(False, prime) as prof:
+        result = body()
+    events = [e for e in _events(prof)
+              if e.get("cat") in ("kernel", "gpu_memcpy")]
+    return events, result

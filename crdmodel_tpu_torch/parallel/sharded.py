@@ -28,16 +28,21 @@ on the box, K13 (ops/fused_shard_box3d_rkc.py); each with the gates of
 the JAX package's maybe_fused_shard_*; else the torch path
 (make_local_rhs: a width-1 exchange before every RHS evaluation). Not
 ported yet, each raising NotImplementedError with its ROADMAP item:
-forcing (item 9), step_mode="normal" (item 15), streaming (item 5) and
+forcing (item 9), step_mode="normal" (item 15), checkpoints (item 14) and
 member lockstep (item 14). speculative_k is ignored, as in the JAX
 package's sharded driver: every shard steps one step at a time.
+
+simulate_sharded runs the whole solve in one call; simulate_sharded_
+streaming one stop at a time, handing each output's per-shard blocks to
+a writer (io/trajectory.py::ShardedReferenceWriter). Both build their
+steps from local_stepping, so they take the same steps bitwise.
 """
 
 from __future__ import annotations
 
 import functools
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -49,7 +54,8 @@ from crdmodel_tpu_torch.core.problem import (Problem, beta_field,
                                              make_rho_bound,
                                              solver_breakpoints)
 from crdmodel_tpu_torch.integrate import imex, rkc
-from crdmodel_tpu_torch.integrate.erk import TABLEAUS, integrate_to_outputs
+from crdmodel_tpu_torch.integrate.erk import (TABLEAUS, StopLoop,
+                                              integrate_to_outputs)
 from crdmodel_tpu_torch.ops.kernel_common import coeff_kind
 from crdmodel_tpu_torch.ops.stencil import (anisotropic3_from_padded,
                                             anisotropic_from_padded,
@@ -60,7 +66,9 @@ from crdmodel_tpu_torch.parallel.halo import halo_pad
 from crdmodel_tpu_torch.parallel.mesh import make_mesh
 from crdmodel_tpu_torch.parallel.padding import pad_spec_for
 from crdmodel_tpu_torch.parallel.shards import Shards
-from crdmodel_tpu_torch.sim import SimResult, output_times
+from crdmodel_tpu_torch.sim import (SimResult, output_times,
+                                   refuse_checkpoints, run_stream,
+                                   snapshot_policy)
 
 
 def _unported(problem: Problem):
@@ -572,18 +580,44 @@ def sharded_rho_bound(problem: Problem, mesh, pad_spec=None):
     return _mask_rho(rho_fn) if pad_spec is not None else rho_fn
 
 
-def build_local_run(problem: Problem, mesh):
-    """run(y0, params) -> (traj, stats) of `problem` on `mesh`, with y0 a
-    Shards of local blocks and params from shard_params, plus the pad_spec,
-    the output times and whether a fused shard kernel takes the steps
-    (crdmodel_tpu/parallel/sharded.py:751-918, without member_sync), the
-    kernel from select_shard_kernel. traj is gathered on the control
-    device, without the pad cells."""
+class LocalStepping(NamedTuple):
+    """The pieces of a sharded run (crdmodel_tpu/parallel/sharded.py:
+    751-918, without member_sync), which the batch and the streaming
+    drivers share, so that both take the same steps: the local RHS, the pad
+    plan, the output times and the fused shard kernel (select_shard_kernel;
+    None on the torch path) with its name."""
+    rhs: object
+    pad_spec: object
+    touts: np.ndarray
+    name: Optional[str]
+    kernel: object
+    loop_kw: dict       # StopLoop's keywords, but reduce_fn and y_loop0
+    mesh: object
+
+    def unpad(self, y):
+        """The loop state's blocks without the kernel's halo (a Shards of
+        the padded grid's equal blocks)."""
+        return self.kernel.unpad(y) if self.kernel is not None else y
+
+    def loop_args(self, y0, params) -> tuple:
+        """(params, keywords) of the StopLoop that starts from the Shards
+        y0 with shard_params' params: Dxy's halo exchanged once, the
+        cross-shard reduce_fn, the kernel's padded y_loop0."""
+        params = with_dxy_halo(params, self.mesh, self.pad_spec)
+        kw = dict(self.loop_kw,
+                  reduce_fn=make_reduce(self.mesh, params.get("valid")))
+        if self.kernel is not None:
+            kw["y_loop0"] = self.kernel.pad(y0)
+        return params, kw
+
+
+def local_stepping(problem: Problem, mesh) -> LocalStepping:
+    """The LocalStepping of `problem` on `mesh`, the kernel from
+    select_shard_kernel."""
     _unported(problem)
     cfg = problem.cfg
     model = problem.model
     kind = coeff_kind(problem.geometry.kind)
-    touts = output_times(cfg)
     pad_spec = mesh_pad_spec(cfg, mesh)
     operator = dict(divergence=problem.diffusion_field is not None,
                     tensor_inv4=tensor_weight(problem),
@@ -593,47 +627,59 @@ def build_local_run(problem: Problem, mesh):
     rhs_split = (make_local_rhs(cfg, model, kind, mesh, pad_spec=pad_spec,
                                 split=True, **operator)
                  if cfg.method == "ark324" else None)
-    global_size = problem.y0.numel()     # the PHYSICAL cell count
-    breakpoints = solver_breakpoints(cfg)
-
     rho_fn = (sharded_rho_bound(problem, mesh, pad_spec)
               if cfg.method == "rkc2" else None)
-
     name, kernel = select_shard_kernel(problem, mesh, pad_spec, rho_fn)
+    kw = dict(rtol=cfg.rtol, atol=cfg.atol, method=cfg.method,
+              max_steps=cfg.max_steps,
+              breakpoints=solver_breakpoints(cfg), step_mode=cfg.step_mode,
+              global_size=problem.y0.numel(),    # the PHYSICAL cell count
+              rho_fn=rho_fn, rhs_split=rhs_split)
+    if name in ("K9", "K13"):
+        kw.update(step_err=kernel.step_err, err_order=rkc.ERR_ORDER,
+                  h_limit_fn=kernel.h_limit)
+    elif kernel is not None:
+        # K8, K10, K11 and K12 carry no state (init_carry's default ())
+        kw.update(step_err=lambda t, y, h, p, carry:
+                  (*kernel.step_err(t, y, h, p), ()),
+                  err_order=(imex.ERR_ORDER if name == "K10"
+                             else TABLEAUS[cfg.method].err_order))
+    return LocalStepping(local_rhs, pad_spec, output_times(cfg), name,
+                         kernel, kw, mesh)
+
+
+def build_local_run(problem: Problem, mesh):
+    """run(y0, params) -> (traj, stats) of `problem` on `mesh`, with y0 a
+    Shards of local blocks and params from shard_params, plus the pad_spec,
+    the output times and whether a fused shard kernel takes the steps
+    (local_stepping). traj is gathered on the control device, without the
+    pad cells."""
+    st = local_stepping(problem, mesh)
 
     def capture(y):
-        return gather(kernel.unpad(y) if kernel is not None else y, mesh,
-                      pad_spec)
+        return gather(st.unpad(y), mesh, st.pad_spec)
 
     def run(y0, params):
-        params = with_dxy_halo(params, mesh, pad_spec)
-        reduce_fn = make_reduce(mesh, params.get("valid"))
-        kw = {}
-        if name in ("K9", "K13"):
-            kw = dict(step_err=kernel.step_err, err_order=rkc.ERR_ORDER,
-                      h_limit_fn=kernel.h_limit)
-        elif kernel is not None:
-            # K8, K10, K11 and K12 carry no state (init_carry's default ())
-            kw = dict(step_err=lambda t, y, h, p, carry:
-                      (*kernel.step_err(t, y, h, p), ()),
-                      err_order=(imex.ERR_ORDER if name == "K10"
-                                 else TABLEAUS[cfg.method].err_order))
-        if kernel is not None:
-            kw["y_loop0"] = kernel.pad(y0)
-        return integrate_to_outputs(
-            local_rhs, y0, params, 0.0, touts, rtol=cfg.rtol, atol=cfg.atol,
-            method=cfg.method, max_steps=cfg.max_steps,
-            breakpoints=breakpoints, step_mode=cfg.step_mode,
-            global_size=global_size, rho_fn=rho_fn, rhs_split=rhs_split,
-            reduce_fn=reduce_fn, capture=capture, **kw)
+        params, kw = st.loop_args(y0, params)
+        return integrate_to_outputs(st.rhs, y0, params, 0.0, st.touts,
+                                    capture=capture, **kw)
 
-    return run, pad_spec, touts, kernel is not None
+    return run, st.pad_spec, st.touts, st.kernel is not None
 
 
 def _sync(mesh):
     for d in dict.fromkeys(mesh.device_list()):
         if d.type == "cuda":
             torch.cuda.synchronize(d)
+
+
+def default_mesh(cfg: SimConfig, n_devices: Optional[int], device):
+    """One shard on each of n_devices CUDA cards (all visible by default)
+    or, with a CPU `device`, n_devices shards on it."""
+    dev = torch.device(device)
+    devices = None if dev.type == "cuda" else [dev] * (n_devices or 1)
+    return make_mesh(n_devices=n_devices, grid_shape=(cfg.ny, cfg.nx),
+                     devices=devices)
 
 
 def simulate_sharded(cfg: SimConfig, mesh=None,
@@ -647,10 +693,7 @@ def simulate_sharded(cfg: SimConfig, mesh=None,
     trajectory unpadded and gathered there, the IC first; wall_time covers
     the integration, device work included."""
     if mesh is None:
-        dev = torch.device(device)
-        devices = None if dev.type == "cuda" else [dev] * (n_devices or 1)
-        mesh = make_mesh(n_devices=n_devices, grid_shape=(cfg.ny, cfg.nx),
-                         devices=devices)
+        mesh = default_mesh(cfg, n_devices, device)
     problem = (problem if problem is not None
                else build_problem(cfg, mesh.control))
     run, pad_spec, touts, fused = build_local_run(problem, mesh)
@@ -667,3 +710,72 @@ def simulate_sharded(cfg: SimConfig, mesh=None,
                      trajectory=torch.cat([ic[None], traj], dim=0),
                      touts=np.concatenate([[0.0], touts]),
                      stats=stats, wall_time=wall, fused=fused)
+
+
+def physical_blocks(blocks: Shards, mesh, pad_spec=None) -> Shards:
+    """Each shard's block without its pad cells (parallel/padding.py: pads
+    sit past the last physical row and column, so a shard keeps its leading
+    rows and columns)."""
+    if pad_spec is None:
+        return blocks
+    px = mesh.shape[1]
+    out = []
+    for k, blk in enumerate(blocks):
+        iy, ix = divmod(k, px)
+        nyl, nxl = blk.shape[-2:]
+        rows = max(0, min(nyl, pad_spec.y.n - iy * nyl))
+        cols = max(0, min(nxl, pad_spec.x.n - ix * nxl))
+        out.append(blk[..., :rows, :cols])
+    return Shards(out)
+
+
+def simulate_sharded_streaming(cfg: SimConfig, mesh=None,
+                               n_devices: Optional[int] = None,
+                               problem: Optional[Problem] = None,
+                               on_snapshot=None, progress: bool = False,
+                               checkpoint_every: Optional[int] = None,
+                               checkpoint_dir: Optional[str] = None,
+                               resume_dir: Optional[str] = None,
+                               host_offload: bool = False,
+                               snapshot_mode: Optional[str] = None,
+                               device="cuda") -> SimResult:
+    """Streaming sharded run (crdmodel_tpu/parallel/sharded.py:1180-1391):
+    simulate_sharded's steps (local_stepping, the same StopLoop calls), one
+    stop at a time, with sim.py::simulate_streaming's snapshot modes,
+    progress line and sticky failure. The mesh and problem default as in
+    simulate_sharded. After each output, `on_snapshot(k, blocks)` receives
+    a Shards of each shard's physical block, pad cells removed, on its
+    device (io/trajectory.py::ShardedReferenceWriter writes them as the
+    reference's per-rank files); the trajectory's rows are gathered on the
+    control device. checkpoint_every, checkpoint_dir and resume_dir raise
+    NotImplementedError (ROADMAP queue 1, item 14)."""
+    snapshot_mode = snapshot_policy(snapshot_mode, host_offload, on_snapshot,
+                                    None)
+    refuse_checkpoints(checkpoint_every=checkpoint_every,
+                       checkpoint_dir=checkpoint_dir, resume_dir=resume_dir)
+    if mesh is None:
+        mesh = default_mesh(cfg, n_devices, device)
+    problem = (problem if problem is not None
+               else build_problem(cfg, mesh.control))
+    cfg = problem.cfg
+    st = local_stepping(problem, mesh)
+    params = shard_params(sharded_params(problem, st.pad_spec), mesh,
+                          st.pad_spec, cfg)
+    y0 = split_state(problem.y0, mesh, st.pad_spec, cfg)
+    _sync(mesh)
+    t_start = time.perf_counter()
+    params, kw = st.loop_args(y0, params)
+    loop = StopLoop(st.rhs, y0, params, 0.0, st.touts, capture=st.unpad,
+                    **kw)
+    emit = None
+    if on_snapshot is not None:
+        def emit(k, snap):
+            on_snapshot(k, physical_blocks(snap, mesh, st.pad_spec))
+    traj, tout_axis, stats = run_stream(
+        loop, st.touts, snapshot_mode, emit, progress, t_start,
+        row=lambda snap: gather(snap, mesh, st.pad_spec))
+    _sync(mesh)
+    return SimResult(cfg=cfg, problem=problem, trajectory=traj,
+                     touts=tout_axis, stats=stats,
+                     wall_time=time.perf_counter() - t_start,
+                     fused=st.kernel is not None)

@@ -66,18 +66,20 @@ def test_validation_matches_jax():
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, crdmodel_tpu_torch, crdmodel_tpu_torch.sim, "
-            "crdmodel_tpu_torch.convert, crdmodel_tpu_torch.ops._build, "
-            "crdmodel_tpu_torch.integrate.rkc, "
-            "crdmodel_tpu_torch.ops.fused_rkc, "
-            "crdmodel_tpu_torch.models.goldbeter, "
-            "crdmodel_tpu_torch.integrate.imex, "
-            "crdmodel_tpu_torch.ops.fused_imex, "
-            "crdmodel_tpu_torch.ops.fused_divform, "
-            "crdmodel_tpu_torch.ops.fused_aniso; "
+    """Every module of the port (pkgutil.walk_packages over the package)
+    imports without jax or anything of the JAX package."""
+    code = ("import importlib, pkgutil, sys, crdmodel_tpu_torch as pkg; "
+            "mods = [m.name for m in pkgutil.walk_packages("
+            "pkg.__path__, 'crdmodel_tpu_torch.') "
+            "if m.name != 'crdmodel_tpu_torch.__main__']; "
+            "[importlib.import_module(m) for m in mods]; "
             "bad = sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'crdmodel_tpu.'))); "
-            "print(bad); sys.exit(1 if bad else 0)")
+            "need = {'crdmodel_tpu_torch.' + m for m in ("
+            "'cli', 'io.trajectory', 'native.build', 'utils.profiling', "
+            "'viz.plots', 'parallel.sharded', 'ops.fused_step')}; "
+            "print(len(mods), bad, sorted(need - set(mods))); "
+            "sys.exit(1 if bad or need - set(mods) else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True)
     assert proc.returncode == 0, proc.stdout + proc.stderr
