@@ -4,6 +4,7 @@
     python3 chip_smoke.py --profile     # a diagnostic, not the smoke test
     python3 chip_smoke.py --sharded     # the sharded main paths alone
     python3 chip_smoke.py --stream      # the run entry point's phases alone
+    python3 chip_smoke.py --forced      # the forcing slice's phases alone
 
 Builds the CUDA kernels from crdmodel_tpu_torch/csrc, holds each against its
 plain PyTorch version on the card (K1, the fused ERK step, y_new and every
@@ -86,6 +87,25 @@ the canonical FHN torus on the 2x2 mesh with the sharded writer
 (stream_sharded_fhn, K8, bitwise simulate_sharded, the four ranks' files
 exactly), and the host-offload copies' timing beside the solve's kernels
 (stream_host_offload).
+The forcing and curvature slice (forced_phases, after the fibered sheet):
+K1 and K4 with a structured forcing (the paced FHN torus's pulse train on
+a row band and smooth drive, the bounded tissue's s1s2_protocol, each with
+a sinusoid on variable 1; bs32 and dopri54), K2 in both branches with
+gated and smooth waveforms at s = 5 and 23 (one chunk and four)
+and K3 on the Goldbeter torus with its pulse train, f32 and f64, fz 0 and
+1: y_new and every partial sum bitwise the plain version's, the forced
+instantiation traced; each timed forced and unforced in one call
+(k*_forced_timing: the kernels a step with and without the amplitudes),
+K1 also at the JAX package's own forcing shape (scripts/bench_round4.py::
+section_forcing, (2,6400,1600)); then five paths through simulate(),
+each checked by launch counts and a trace of its kernel and against its
+JAX CPU golden (tests/golden/torch_{curvature_fhn,s1s2_rkc2,
+canonical_fhn_paced,canonical_goldbeter_ark324_paced,bounded_ap_paced}_
+probes.npz, whose stimuli the paced runs rebuild): the JAX suite's
+curvature-coupled FHN torus (Tf=5, K1), examples/s1s2_pacing.py's
+configuration and protocol (K2's divergence branch, re-entrant at t=120),
+and the paced canonical FHN torus (K1), Goldbeter torus with ark324 (K3)
+and bounded tissue (K4).
 Each run is checked against the JAX package's CPU runs recorded in
 tests/golden/torch_canonical_{fhn,goldbeter}[_method]_probes.npz (the
 speculative and ARK_NORMAL runs against
@@ -104,6 +124,8 @@ call. Exits non-zero on any
 failure, and prints as its last line {"ok": true, "device": {...}} only
 when every phase passed. Imports nothing of JAX.
 
+With --forced it builds the kernels and runs only the forcing slice's
+phases; no kernels line and no last line.
 With --profile it checks nothing: it builds the kernels and traces, with
 torch.profiler, the bounded cardiac tissue with bs32 and rkc2, the fibered
 sheet and the wide sheet over short horizons, the three slab runs over
@@ -1319,7 +1341,8 @@ def run_main_path(cfg, probes, kernel, min_step_tol, name, label,
           accepted=int(res.stats.accepted.sum()),
           rejected=int(res.stats.rejected.sum()), **gate,
           kernel=kernel.__name__,
-          launches=counts, launch_bound=launch_bound(cfg, steps),
+          launches=counts,
+          launch_bound=launch_bound(cfg, steps, res.problem.forcing),
           wall_s=wall, us_per_step=wall / steps * 1e6,
           points_steps_per_s=cfg.nx * cfg.ny * steps / wall,
           card=card_line())
@@ -1418,13 +1441,15 @@ def selection_note(cfg):
             f"{'fused' if points >= threshold else 'torch'} path")
 
 
-def launch_bound(cfg, steps):
+def launch_bound(cfg, steps, forcing=None):
     """[least, most] kernel launches of a fused run of `steps` steps: every
-    step, and the no-op iterations of the last block of each stop."""
+    step, and the no-op iterations of the last block of each stop (the
+    forcing's pulse edges among the stops)."""
     from crdmodel_tpu_torch.core.problem import solver_breakpoints
     from crdmodel_tpu_torch.integrate.erk import SYNC_EVERY, merge_stops
     from crdmodel_tpu_torch.sim import output_times
-    n_stops = len(merge_stops(output_times(cfg), solver_breakpoints(cfg))[0])
+    n_stops = len(merge_stops(output_times(cfg),
+                              solver_breakpoints(cfg, forcing))[0])
     return [steps, steps + SYNC_EVERY * n_stops]
 
 
@@ -1433,7 +1458,8 @@ def run_checks(cfg, res, kernel, launches, shards=1):
     the trajectory's shape and finiteness, every step through `kernel`
     (once a shard a step on a mesh of `shards` shards)."""
     traj = res.trajectory
-    least, most = (shards * n for n in launch_bound(cfg, res.total_steps()))
+    least, most = (shards * n for n in launch_bound(
+        cfg, res.total_steps(), res.problem.forcing))
     return {
         "status ok": res.ok,
         "fused path": res.fused,
@@ -1588,9 +1614,11 @@ def profile_run(cfg, build_kw, t_final, kernel_tag, mesh=None):
     return fields
 
 
-def kernel_entry(name, source, replaces, launches, worst, timing):
+def kernel_entry(name, source, replaces, launches, worst, timing,
+                 forced=None):
     """One kernel's entry of the `kernels` line; timing (ms, plain ms,
-    bound ms, bound_by, ...)."""
+    bound ms, bound_by, ...); forced: its forced fields (forced_fields),
+    for K1-K4."""
     ms, plain_ms, bound_ms, bound_by = timing[:4]
     return {"name": name, "route": "cuda",
             "source": f"crdmodel_tpu_torch/csrc/{source}",
@@ -1598,7 +1626,7 @@ def kernel_entry(name, source, replaces, launches, worst, timing):
             "max_abs_err": worst[torch.float32], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             # no single PyTorch call computes a fused step
-            "library_ms": None}
+            "library_ms": None, **(forced or {})}
 
 
 BOX_LABEL = ("scripts/bench_suite.py:95-105 aliev_panfilov box 32x512x512 "
@@ -3346,6 +3374,621 @@ def stream_phases(cfg, cfg_gb_ark, probes, single_fhn, sharded_fhn, card):
         card=card)
 
 
+# --- the forcing and curvature slice: K1-K4 with a structured forcing ---
+
+# the paced programs' goldens (scripts/torch_canonical_probes.py
+# --forcing, --config curvature_fhn, --config s1s2); a forced file's
+# stimuli come with it as plain data (stim_*)
+FORCED_PROBES = {name: os.path.join(GOLDEN, f"torch_{name}_probes.npz")
+                 for name in ("curvature_fhn", "s1s2_rkc2",
+                              "canonical_fhn_paced",
+                              "canonical_goldbeter_ark324_paced",
+                              "bounded_ap_paced")}
+# K2's forced stage counts: an accuracy-limited step (one chunk) and the
+# paths' largest (four chunks)
+K2_FORCED_STAGES = (5, 23)
+# the cross drive the kernel checks add on variable 1: amp sin(2 pi t /
+# period) on a Gaussian column band, so that every kernel forces both
+# variables
+CROSS_DRIVE = (0.3, 5.0)
+# the JAX package's own forcing measurement (scripts/bench_round4.py::
+# section_forcing): a flat FHN sheet, x_mesh 1600 (10.24M points),
+# s1s2_protocol with S1 at 0.01 and S2 at 0.03, amplitude 1, duration 0.005
+ROUND4_FORCING = dict(model="fhn", surface="flat", x_mesh=1600,
+                      surface_width=20.0, surface_length=80.0, t_final=0.05,
+                      output_timestep=1, beta=1.25, dtype="float32",
+                      rtol=1e-5, atol=1e-8)
+
+
+def sine_wave(amplitude, period):
+    """amp sin(2 pi t / period) on the device, elementwise: the torch twin
+    of scripts/torch_canonical_probes.py::sine_wave (the same operations)."""
+    def waveform(t, seg_end=None):
+        return amplitude * torch.sin((2.0 * np.pi / period) * t)
+    return waveform
+
+
+def golden_forcing(probes, extra=()):
+    """The port's SeparableForcing of a forced golden's stimuli (stim_*),
+    through convert.forcing_from_numpy: its pulse trains as data, its
+    sinusoid drives as their torch twins; `extra` stimuli's data after
+    them."""
+    from crdmodel_tpu_torch.convert import forcing_from_numpy
+    stimuli = []
+    for j, var in enumerate(probes["stim_var"]):
+        st = dict(var=int(var), row=probes["stim_row"][j],
+                  col=probes["stim_col"][j])
+        starts = probes["stim_pulse_starts"][j]
+        if np.all(np.isnan(starts)):
+            st["waveform"] = sine_wave(*(float(x)
+                                         for x in probes["stim_sine"][j]))
+        else:
+            st["pulses"] = (starts[~np.isnan(starts)].tolist(),
+                            float(probes["stim_pulse_duration"][j]),
+                            float(probes["stim_pulse_amplitude"][j]))
+        stimuli.append(st)
+    return forcing_from_numpy([*stimuli, *extra])
+
+
+def cross_drive(cfg):
+    """CROSS_DRIVE's stimulus data on cfg's grid: variable 1, a Gaussian
+    column band around nx/2."""
+    from crdmodel_tpu_torch.core.forcing import gaussian_profile
+    return dict(var=1, col=gaussian_profile(cfg.nx, cfg.nx / 2, cfg.nx / 8),
+                waveform=sine_wave(*CROSS_DRIVE))
+
+
+def load_forced_probes():
+    probes = {}
+    for key, path in FORCED_PROBES.items():
+        with np.load(path) as z:
+            probes[key] = {k: z[k] for k in z.files}
+    return probes
+
+
+def stim_ops(stim, n_evals):
+    """Operations a point the forcing needs in a launch of n_evals RHS
+    evaluations: a stimulus is rank-1, so amp * row is one product a row,
+    which leaves one product and one sum a point, a stimulus and an
+    evaluation. The sums the kernel's order adds beyond these (from +0,
+    then into the RHS) are its cost, not the bound's."""
+    return n_evals * 2 * stim.n_stim
+
+
+def stim_bytes(stim, amps):
+    """Bytes the forcing adds to a launch, each read once: the profiles and
+    the amplitude table."""
+    return sum(t.numel() * t.element_size()
+               for t in (stim.rows, stim.cols, amps))
+
+
+def ptxas_split(source, tag):
+    """ptxas_summary of csrc/<source>'s f32 kernels whose entry name holds
+    `tag` (a double among the mangled template arguments, a "d" after "E",
+    "I" or "_" and before "E", "L", "N" or "S", marks an f64 one), apart
+    for the forced (StimTable) and unforced (NoStim) instantiations."""
+    import re
+    entries = [e for e in ptxas_entries(source)
+               if tag in e["kernel"] and not re.search(
+                   r"(?<=[EI_])d(?=[ELNS])", e["kernel"].split("EvPK")[0])]
+    out = {}
+    for label, key in (("forced", "StimTable"), ("unforced", "NoStim")):
+        sel = [e for e in entries if key in e["kernel"]]
+        out[label] = {
+            "kernels": len(sel),
+            "max_registers": max(e.get("registers", 0) for e in sel),
+            "max_spill_store_bytes": max(e.get("spill_store_bytes", 0)
+                                         for e in sel)}
+    return out
+
+
+def check_forced_trace(name, fn, tag):
+    """Raise unless the kernels one call of fn runs include `tag`'s forced
+    instantiation (its name holds StimTable) and none of its unforced one;
+    returns the kernel's name."""
+    from crdmodel_tpu_torch.ops import trace
+    names = trace.kernel_names(fn, n=1)
+    mine = [n for n in names if tag in n]
+    if not mine or not all("StimTable" in n for n in mine):
+        raise AssertionError(f"{name}: ran {sorted(set(names))}, not the "
+                             f"forced {tag}")
+    return mine[0].split("(")[0]
+
+
+def kernels_a_step(problem, build, t, y, h, seg):
+    """The device kernels of one call of the step_err that build(problem)
+    makes, its amplitudes included, with the problem's forcing and without
+    it: {"forced": n, "unforced": n}."""
+    from crdmodel_tpu_torch.ops import trace
+    out = {}
+    for label, prob in (("forced", problem),
+                        ("unforced", dataclasses.replace(problem,
+                                                         forcing=None))):
+        step_err = build(prob)
+        params = {**prob.params, "_seg_end": seg}
+        out[label] = len(trace.kernel_names(
+            lambda: step_err(t, y, h, params), n=1))
+    return out
+
+
+def forced_timing(name, y, kc, stim, amps, forced_call, plain_call,
+                  reference, tag, ops, n_evals, extra_bytes, per_step,
+                  source, card, **fields):
+    """Print phase `name`: the forced and the unforced launch's device
+    times in one call (device_ms), the forced plain version's, the bounds
+    of both (the forcing's profile and amplitude bytes and its operations
+    added), the kernels a step and ptxas's forced and unforced registers
+    and spills. Returns the forced (ms, plain ms, bound ms, bound_by) and
+    the unforced device ms."""
+    ms_f = device_ms(forced_call, tag)
+    ms_u = device_ms(plain_call, tag)
+    timing = (ms_f, median_ms(reference),
+              *bound(y, kc, ops + stim_ops(stim, n_evals),
+                     extra_bytes + stim_bytes(stim, amps)))
+    unforced_bound = bound(y, kc, ops, extra_bytes)
+    phase(name, shape=list(y.shape), dtype=str(y.dtype), n_stim=stim.n_stim,
+          **fields, forced_us=ms_f * 1e3, unforced_us=ms_u * 1e3,
+          forced_over_unforced=ms_f / ms_u, forced_plain_us=timing[1] * 1e3,
+          bound_us=timing[2] * 1e3, bound_by=timing[3],
+          unforced_bound_us=unforced_bound[0] * 1e3,
+          times_bound=ms_f / timing[2], kernels_a_step=per_step,
+          kernel=tag, ptxas=ptxas_split(source, tag), card=card)
+    return timing, ms_u
+
+
+def forced_erk_cases(cfg, cfg_ap, ap_build, fprobes):
+    """K1's and K4's forced cases: (name, the ops module, its constants'
+    prepare, config, build arguments, forcing, (t, seg_end) windows inside
+    a pulse, h)."""
+    from crdmodel_tpu_torch.ops import fused_divform, fused_step
+    from crdmodel_tpu_torch.ops.kernel_common import (
+        prepare_constants, prepare_divform_constants)
+    fhn = dataclasses.replace(cfg, t_boundary=1.0)
+    ap = dataclasses.replace(cfg_ap, t_boundary=1.0)
+    return [
+        # the paced FHN torus's two S1 pulses on a row band and smooth
+        # drive, and the cross drive; inside the first pulse
+        ("k1", fused_step, prepare_constants, fhn, {},
+         golden_forcing(fprobes["canonical_fhn_paced"], [cross_drive(fhn)]),
+         ((2.3, 2.5),), H),
+        # the bounded tissue's s1s2_protocol and the cross drive; in S1 and
+        # in S2
+        ("k4", fused_divform, prepare_divform_constants, ap, ap_build,
+         golden_forcing(fprobes["bounded_ap_paced"], [cross_drive(ap)]),
+         ((0.6, 0.8), (4.1, 4.3)), K4_H)]
+
+
+def check_forced_erk_kernels(cases, card):
+    """K1 and K4 with a forcing against their plain versions at the main
+    paths' shapes, f32 and f64, bs32 and dopri54, fz 0 and 1, in each
+    window: y_new and every partial sum bitwise, two launches bitwise, the
+    forced instantiation traced; then each timed forced and unforced
+    (forced_timing, bs32, f32). Returns {name: (worst errors, forced
+    timing, unforced ms)}; each check's line names the kernel traced in
+    its case's f32 launch."""
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import erk_slots
+    from crdmodel_tpu_torch.ops.kernel_common import (prepare_stim_constants,
+                                                      stage_amplitudes)
+    rng = np.random.default_rng(SEED + 11)
+    out = {}
+    for name, mod, prepare, cfg, build, frc, windows, h_val in cases:
+        divform = name == "k4"
+        step = mod.fused_divform_step if divform else mod.fused_step
+        reference = (mod.fused_divform_step_reference if divform
+                     else mod.fused_step_reference)
+        tile_sums = (mod.fused_divform_tile_sums if divform
+                     else mod.fused_step_tile_sums)
+        problem = build_problem(cfg, "cuda", forcing=frc, **build)
+        y_np = random_state(cfg, tuple(problem.y0.shape), rng)
+        worst = {torch.float32: 0.0, torch.float64: 0.0}
+        traced = {}
+        for dtype in (torch.float32, torch.float64):
+            kc = prepare(problem, dtype, "cuda")
+            stim = prepare_stim_constants(problem, dtype, "cuda")
+            y = torch.tensor(y_np, dtype=dtype, device="cuda")
+            h = torch.tensor(h_val, dtype=dtype, device="cuda")
+            for method in ("bs32", "dopri54"):
+                tab = TABLEAUS[method]
+                for t, seg in windows:
+                    amps = stage_amplitudes(
+                        frc, torch.tensor(t, dtype=dtype, device="cuda"), h,
+                        torch.tensor(tab.c, dtype=dtype, device="cuda"),
+                        {"_seg_end": torch.tensor(seg, dtype=dtype,
+                                                  device="cuda")}, dtype)
+                    for fz in (0.0, 1.0):
+                        fzt = torch.tensor(fz, dtype=dtype, device="cuda")
+                        args = (y, h, fzt, kc, tab, cfg.rtol, cfg.atol, stim,
+                                amps)
+                        if dtype == torch.float32 and not fz and (
+                                (t, seg) == windows[0]):
+                            traced[method] = check_forced_trace(
+                                f"{name}_forced_check", lambda: step(*args),
+                                erk_slots.kernel_name(tab))
+                        err = check_pair(
+                            f"{name}_forced_check",
+                            dict(model=cfg.model, surface=cfg.surface,
+                                 shape=list(y.shape), method=method, t=t,
+                                 seg_end=seg, fz=fz, n_stim=stim.n_stim,
+                                 amps_stage0=amps[:, 0].tolist(),
+                                 traced_f32_kernel=traced[method]),
+                            *step(*args), *step(*args), *reference(*args),
+                            dtype, y, bitwise=True, ss_tiles=tile_sums(*args))
+                        worst[dtype] = max(worst[dtype], err)
+        # timed at the case's shape on its ICs, bs32, f32, in the first
+        # window
+        tab = TABLEAUS["bs32"]
+        kc = prepare(problem, torch.float32, "cuda")
+        stim = prepare_stim_constants(problem, torch.float32, "cuda")
+        y = problem.y0.contiguous()
+        h = torch.tensor(h_val, device="cuda")
+        zero = torch.zeros((), device="cuda")
+        t, seg = (torch.tensor(x, device="cuda") for x in windows[0])
+        c_nodes = torch.tensor(tab.c, dtype=torch.float32, device="cuda")
+        amps = stage_amplitudes(frc, t, h, c_nodes, {"_seg_end": seg},
+                                torch.float32)
+        base = (y, h, zero, kc, tab, cfg.rtol, cfg.atol)
+        build_step = (mod.build_fused_divform_step if divform
+                      else mod.build_fused_step)
+        timing, ms_u = forced_timing(
+            f"{name}_forced_timing", y, kc, stim, amps,
+            lambda: step(*base, stim, amps), lambda: step(*base),
+            lambda: reference(*base, stim, amps), erk_slots.SLOTS_KERNEL,
+            erk_ops(kc, tab), tab.stages, 0,
+            kernels_a_step(problem, lambda p: build_step(p, tab), t, y, h,
+                           seg),
+            "fused_divform.cu" if divform else "fused_step.cu", card,
+            method="bs32", h=h_val, window=list(windows[0]))
+        out[name] = (worst, timing, ms_u)
+    return out
+
+
+def forced_round4_timing(card):
+    """K1 forced and unforced at the JAX package's own forcing measurement
+    shape (ROUND4_FORCING: (2,6400,1600), s1s2_protocol), bs32, f32, in
+    S1: phase k1_forced_round4_timing."""
+    from crdmodel_tpu_torch.config import SimConfig
+    from crdmodel_tpu_torch.core.forcing import s1s2_protocol
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import erk_slots
+    from crdmodel_tpu_torch.ops import fused_step as fs
+    from crdmodel_tpu_torch.ops.kernel_common import (prepare_constants,
+                                                      prepare_stim_constants,
+                                                      stage_amplitudes)
+    cfg = SimConfig(**ROUND4_FORCING)
+    frc = s1s2_protocol(cfg, amplitude=1.0, s1_times=[0.01], s2_time=0.03,
+                        duration=0.005)
+    problem = build_problem(cfg, "cuda", forcing=frc)
+    tab = TABLEAUS["bs32"]
+    kc = prepare_constants(problem, torch.float32, "cuda")
+    stim = prepare_stim_constants(problem, torch.float32, "cuda")
+    y = problem.y0.contiguous()
+    h = torch.tensor(1e-4, device="cuda")
+    zero = torch.zeros((), device="cuda")
+    t, seg = (torch.tensor(x, device="cuda") for x in (0.011, 0.012))
+    c_nodes = torch.tensor(tab.c, dtype=torch.float32, device="cuda")
+    amps = stage_amplitudes(frc, t, h, c_nodes, {"_seg_end": seg},
+                            torch.float32)
+    base = (y, h, zero, kc, tab, cfg.rtol, cfg.atol)
+    forced_timing(
+        "k1_forced_round4_timing", y, kc, stim, amps,
+        lambda: fs.fused_step(*base, stim, amps), lambda: fs.fused_step(*base),
+        lambda: fs.fused_step_reference(*base, stim, amps),
+        erk_slots.SLOTS_KERNEL, erk_ops(kc, tab), tab.stages, 0,
+        kernels_a_step(problem, lambda p: fs.build_fused_step(p, tab), t, y,
+                       h, seg),
+        "fused_step.cu", card, method="bs32",
+        config="scripts/bench_round4.py::section_forcing fhn flat "
+               "x_mesh=1600, s1s2_protocol S1 0.01 S2 0.03")
+
+
+def forced_rkc_cases(cfg, cfg_ap, ap_build, fprobes):
+    """K2's forced cases: (name, config, build arguments, forcing, (t,
+    seg_end) window): both branches, gated (pulse trains alone: one
+    amplitude column) and smooth (a sinusoid beside them: a column a stage
+    time)."""
+    fhn = dataclasses.replace(cfg, t_boundary=1.0, method="rkc2")
+    ap = dataclasses.replace(cfg_ap, t_boundary=1.0, method="rkc2")
+    fhn_probes = fprobes["canonical_fhn_paced"]
+    pulses = {k: v[:1] for k, v in fhn_probes.items()
+              if k.startswith("stim_")}
+    ap_probes = fprobes["bounded_ap_paced"]
+    return [
+        ("profile_gated", fhn, {}, golden_forcing(pulses), (2.3, 2.5)),
+        ("profile_smooth", fhn, {},
+         golden_forcing(fhn_probes, [cross_drive(fhn)]), (2.3, 2.5)),
+        ("divform_gated", ap, ap_build, golden_forcing(ap_probes),
+         (0.6, 0.8)),
+        ("divform_smooth", ap, ap_build,
+         golden_forcing(ap_probes, [cross_drive(ap)]), (0.6, 0.8))]
+
+
+def check_forced_rkc_kernel(cases, card):
+    """K2 with a forcing against its plain version in both branches, gated
+    and smooth, at each of K2_FORCED_STAGES (one chunk and four),
+    f32 and f64, fz 0 and 1: y_new and every partial sum bitwise
+    (fused_rkc_tile_sums), two launches bitwise, the forced instantiation
+    traced; then each branch timed forced (smooth) and unforced at s = 5
+    and 23 (forced_timing). Returns (worst errors, {(branch, s): (forced
+    timing, unforced ms)})."""
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.ops import fused_rkc as fr
+    from crdmodel_tpu_torch.ops.kernel_common import (
+        needs_divform, prepare_constants, prepare_divform_constants,
+        prepare_stim_constants)
+    rng = np.random.default_rng(SEED + 12)
+    worst = {torch.float32: 0.0, torch.float64: 0.0}
+    timing = {}
+    for label, cfg, build, frc, (t_val, seg_val) in cases:
+        problem = build_problem(cfg, "cuda", forcing=frc, **build)
+        prepare = (prepare_divform_constants if needs_divform(problem)
+                   else prepare_constants)
+        y_np = random_state(cfg, tuple(problem.y0.shape), rng)
+        for dtype in (torch.float32, torch.float64):
+            kc = prepare(problem, dtype, "cuda")
+            stim = prepare_stim_constants(problem, dtype, "cuda")
+            mu1, ctab, ctimes = fr.static_stage_tables(
+                fr.S_MAX_KERNEL, dtype, "cuda", with_times=True)
+            y = torch.tensor(y_np, dtype=dtype, device="cuda")
+            rho = problem_rho(problem, y)
+            t = torch.tensor(t_val, dtype=dtype, device="cuda")
+            seg = {"_seg_end": torch.tensor(seg_val, dtype=dtype,
+                                            device="cuda")}
+            for s in K2_FORCED_STAGES:
+                h, st = rkc_step_inputs(s, rho, dtype)
+                amps = fr.stage_times_amplitudes(frc, t, h, st, ctimes, seg,
+                                                 dtype)
+                for fz in (0.0, 1.0):
+                    fzt = torch.tensor(fz, dtype=dtype, device="cuda")
+                    args = (y, h, fzt, st, mu1, ctab, kc, cfg.rtol, cfg.atol,
+                            stim, amps)
+                    if dtype == torch.float32 and not fz and (
+                            s == K2_FORCED_STAGES[0]):
+                        kernel = check_forced_trace(
+                            "k2_forced_check",
+                            lambda: fr.fused_rkc_step(*args),
+                            "fused_rkc_chunk_kernel")
+                    err = check_pair(
+                        "k2_forced_check",
+                        dict(case=label, model=cfg.model,
+                             shape=list(y.shape), s=s, fz=fz,
+                             chunks=len(fr.chunk_schedule(s)),
+                             n_stim=stim.n_stim, amp_columns=amps.shape[1],
+                             traced_f32_kernel=kernel),
+                        *fr.fused_rkc_step(*args), *fr.fused_rkc_step(*args),
+                        *fr.fused_rkc_step_reference(*args), dtype, y,
+                        bitwise=True,
+                        ss_tiles=fr.fused_rkc_tile_sums(*args))
+                    worst[dtype] = max(worst[dtype], err)
+        if not label.endswith("smooth"):
+            continue
+        # timed on the ICs, f32, at an accuracy-limited and a
+        # stability-bound stage count
+        kc = prepare(problem, torch.float32, "cuda")
+        stim = prepare_stim_constants(problem, torch.float32, "cuda")
+        mu1, ctab, ctimes = fr.static_stage_tables(
+            fr.S_MAX_KERNEL, torch.float32, "cuda", with_times=True)
+        y = problem.y0.contiguous()
+        rho = problem_rho(problem, y)
+        t = torch.tensor(t_val, device="cuda")
+        seg = torch.tensor(seg_val, device="cuda")
+        zero = torch.zeros((), device="cuda")
+        for s in K2_TIMED_STAGES:
+            h, st = rkc_step_inputs(s, rho, torch.float32)
+            amps = fr.stage_times_amplitudes(frc, t, h, st, ctimes,
+                                             {"_seg_end": seg},
+                                             torch.float32)
+            base = (y, h, zero, st, mu1, ctab, kc, cfg.rtol, cfg.atol)
+            tables = sum(x.numel() * x.element_size() for x in (mu1, ctab))
+            per_step = kernels_a_step(
+                problem, lambda p: fr.build_fused_rkc_step(
+                    p, torch.float32).step_err, t, y, h, seg)
+            timing[label.split("_")[0], s] = forced_timing(
+                "k2_forced_timing", y, kc, stim, amps,
+                lambda: fr.fused_rkc_step(*base, stim, amps),
+                lambda: fr.fused_rkc_step(*base),
+                lambda: fr.fused_rkc_step_reference(*base, stim, amps),
+                "fused_rkc_chunk_kernel", rkc_ops(kc, s), s + 1, tables,
+                per_step, "fused_rkc.cu", card, case=label, s=s,
+                chunks=len(fr.chunk_schedule(s)))
+    return worst, timing
+
+
+def check_forced_imex_kernel(cfg_gb, fprobes, card):
+    """K3 with a forcing (the paced Goldbeter torus's pulse train and the
+    cross drive) against its plain version on the canonical Goldbeter
+    torus with a freeze, f32 and f64, each h of K3_H, fz 0 and 1: y_new
+    and every partial sum bitwise (fused_imex_tile_sums), two launches
+    bitwise, the forced instantiation traced; then timed forced and
+    unforced (forced_timing). Returns (worst errors, forced timing,
+    unforced ms)."""
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.integrate import imex
+    from crdmodel_tpu_torch.ops import fused_imex as fi
+    from crdmodel_tpu_torch.ops.kernel_common import (prepare_constants,
+                                                      prepare_stim_constants,
+                                                      stage_amplitudes)
+    cfg = dataclasses.replace(cfg_gb, t_boundary=1.0, method="ark324")
+    frc = golden_forcing(fprobes["canonical_goldbeter_ark324_paced"],
+                         [cross_drive(cfg)])
+    problem = build_problem(cfg, "cuda", forcing=frc)
+    y_np = random_state(cfg, tuple(problem.y0.shape),
+                        np.random.default_rng(SEED + 13))
+    worst = {torch.float32: 0.0, torch.float64: 0.0}
+    window = (0.55, 0.7)        # inside the first pulse
+    for dtype in (torch.float32, torch.float64):
+        kc = prepare_constants(problem, dtype, "cuda")
+        stim = prepare_stim_constants(problem, dtype, "cuda")
+        y = torch.tensor(y_np, dtype=dtype, device="cuda")
+        t, seg = (torch.tensor(x, dtype=dtype, device="cuda")
+                  for x in window)
+        for h_val in K3_H:
+            h = torch.tensor(h_val, dtype=dtype, device="cuda")
+            amps = stage_amplitudes(
+                frc, t, h, torch.tensor(imex.C, dtype=dtype, device="cuda"),
+                {"_seg_end": seg}, dtype)
+            for fz in (0.0, 1.0):
+                fzt = torch.tensor(fz, dtype=dtype, device="cuda")
+                args = (y, h, fzt, kc, cfg.rtol, cfg.atol, stim, amps)
+                if dtype == torch.float32 and not fz and h_val == K3_H[0]:
+                    kernel = check_forced_trace(
+                        "k3_forced_check", lambda: fi.fused_imex_step(*args),
+                        fi.SLOTS_KERNEL)
+                err = check_pair(
+                    "k3_forced_check",
+                    dict(model=cfg.model, surface=cfg.surface,
+                         shape=list(y.shape), h=h_val, fz=fz,
+                         n_stim=stim.n_stim, traced_f32_kernel=kernel),
+                    *fi.fused_imex_step(*args), *fi.fused_imex_step(*args),
+                    *fi.fused_imex_step_reference(*args), dtype, y,
+                    bitwise=True, ss_tiles=fi.fused_imex_tile_sums(*args))
+                worst[dtype] = max(worst[dtype], err)
+    kc = prepare_constants(problem, torch.float32, "cuda")
+    stim = prepare_stim_constants(problem, torch.float32, "cuda")
+    y = problem.y0.contiguous()
+    h = torch.tensor(K3_H[0], device="cuda")
+    zero = torch.zeros((), device="cuda")
+    t, seg = (torch.tensor(x, device="cuda") for x in window)
+    c_nodes = torch.tensor(imex.C, dtype=torch.float32, device="cuda")
+    amps = stage_amplitudes(frc, t, h, c_nodes, {"_seg_end": seg},
+                            torch.float32)
+    base = (y, h, zero, kc, cfg.rtol, cfg.atol)
+    timing, ms_u = forced_timing(
+        "k3_forced_timing", y, kc, stim, amps,
+        lambda: fi.fused_imex_step(*base, stim, amps),
+        lambda: fi.fused_imex_step(*base),
+        lambda: fi.fused_imex_step_reference(*base, stim, amps),
+        fi.SLOTS_KERNEL, imex_ops(kc), imex.STAGES, 0,
+        kernels_a_step(problem, fi.build_fused_imex_step, t, y, h, seg),
+        "fused_imex.cu", card, h=K3_H[0], window=list(window))
+    return worst, timing, ms_u
+
+
+def traced_path(tag, forced, fields=None):
+    """report(res, counts) of a forced or coupled main path: a short run of
+    the same problem traced (ops/trace.py::traced), raising unless it ran
+    `tag`'s kernel, in its forced instantiation (StimTable) when `forced`,
+    else its unforced one (NoStim); fields(res) -> more fields of the
+    phase line."""
+    from crdmodel_tpu_torch.ops import trace
+    from crdmodel_tpu_torch.sim import simulate
+
+    def report(res, counts):
+        cfg = dataclasses.replace(res.cfg, t_final=res.cfg.t_final / 50,
+                                  output_timestep=1)
+        problem = dataclasses.replace(res.problem, cfg=cfg)
+        kernels, _ = trace.traced(lambda: simulate(cfg, device="cuda",
+                                                   problem=problem))
+        names = [e["name"] for e in kernels]
+        mine = [n for n in names if tag in n]
+        want = "StimTable" if forced else "NoStim"
+        if not mine or not all(want in n for n in mine):
+            raise AssertionError(f"traced path: ran {sorted(set(names))}, "
+                                 f"not {tag} with {want}")
+        return dict(traced_kernel=mine[0].split("(")[0],
+                    traced_launches=len(mine),
+                    **(fields(res) if fields is not None else {}))
+    return report
+
+
+def forced_main_paths(cfg, cfg_gb, cfg_ap, ap_build, fprobes):
+    """The slice's paths through simulate() on the card, each through the
+    kernel the slice names, checked by launch counts and by a trace, and
+    against its JAX CPU golden: the JAX suite's curvature-coupled FHN torus
+    (K1), examples/s1s2_pacing.py (K2's divergence branch), the paced
+    canonical FHN torus (K1), Goldbeter torus with ark324 (K3) and bounded
+    tissue (K4). Returns {name: launches}."""
+    from crdmodel_tpu_torch.config import SimConfig
+    from crdmodel_tpu_torch.ops import (fused_divform, fused_imex,
+                                        fused_rkc, fused_step)
+    launches = {}
+    curv = dataclasses.replace(cfg, coupling="curvature", t_final=5.0,
+                               output_timestep=2)
+    launches["curvature_fhn"] = run_main_path(
+        curv, fprobes["curvature_fhn"], fused_step.fused_step, 0.01,
+        "curvature_fhn",
+        "scripts/bench_suite.py:70-75 fhn torus 400x1600 Tf=5 bs32 "
+        "coupling=curvature",
+        report=traced_path("fused_erk_slots_kernel", False))
+    s1s2 = fprobes["s1s2_rkc2"]
+    cfg_s1s2 = SimConfig(
+        model="aliev_panfilov", surface="flat", x_mesh=256,
+        surface_width=25.0, surface_length=25.0, diffusion=1.0, beta=0.075,
+        wave_length=0.0, wave_width=0.0, t_final=120.0, output_timestep=24,
+        boundary="noflux", method="rkc2", dtype="float32", rtol=1e-4,
+        atol=1e-6, use_pallas=True)
+
+    def reentrant(res):
+        u_end = float(res.trajectory[-1, 0].max())
+        return {f"re-entrant at t=120 (max u {u_end:.3f} > 0.4)":
+                u_end > 0.4}
+
+    launches["s1s2_pacing_rkc2"] = run_main_path(
+        cfg_s1s2, s1s2, fused_rkc.fused_rkc_step, 0.02, "s1s2_pacing_rkc2",
+        "examples/s1s2_pacing.py aliev_panfilov flat 256x256 noflux rkc2, "
+        "S1 t=1 S2 t=60 amplitude 3 duration 1; use_pallas=True (auto "
+        "selection keeps 65536 points on the torch path)",
+        build_kw=dict(forcing=golden_forcing(s1s2)),
+        extra_checks=reentrant,
+        report=traced_path("fused_rkc_chunk_kernel", True, lambda res: dict(
+            final_max_u=float(res.trajectory[-1, 0].max()),
+            jax_f32_final_max_u=float(s1s2["final_max_u"]))))
+    paced = fprobes["canonical_fhn_paced"]
+    launches["paced_fhn_bs32"] = run_main_path(
+        cfg, paced, fused_step.fused_step, 0.01, "paced_fhn_bs32",
+        "data/FHNmodelArgs.ini fhn torus, two S1 pulses (t=2, 20, "
+        "duration 1, amplitude 1) on rows ny/8..ny/4 and 0.1 sin(2 pi t / "
+        "12.5) on a Gaussian column band",
+        build_kw=dict(forcing=golden_forcing(paced)),
+        report=traced_path("fused_erk_slots_kernel", True))
+    gb = fprobes["canonical_goldbeter_ark324_paced"]
+    launches["paced_goldbeter_ark324"] = run_main_path(
+        dataclasses.replace(cfg_gb, method="ark324"), gb,
+        fused_imex.fused_imex_step, 0.01, "paced_goldbeter_ark324",
+        "data/GoldbeterModelArgs.ini goldbeter torus ark324, pulses at "
+        "t=0.5, 2 (duration 0.25, amplitude 0.5) on columns 0..nx/4",
+        build_kw=dict(forcing=golden_forcing(gb)),
+        report=traced_path("fused_imex_slots_kernel", True))
+    ap = fprobes["bounded_ap_paced"]
+    launches["paced_bounded_ap_bs32"] = run_main_path(
+        cfg_ap, ap, fused_divform.fused_divform_step, 0.01,
+        "paced_bounded_ap_bs32",
+        "scripts/bench_suite.py::bounded_tissue aliev_panfilov flat, noflux "
+        "walls + circular scar, s1s2_protocol S1 t=0.5 S2 t=4 amplitude 3 "
+        "duration 0.5",
+        build_kw=dict(ap_build, forcing=golden_forcing(ap)),
+        extra_checks=scar_checks(ap, ap_build["obstacle_mask"]),
+        report=traced_path("fused_erk_slots_kernel", True))
+    return launches
+
+
+def forced_phases(cfg, cfg_gb, cfg_ap, ap_build, card):
+    """The forcing slice: its kernel checks and timings, then its paths.
+    Returns (erk results, (K2 worst, K2 timings), K3 results, launches)."""
+    fprobes = load_forced_probes()
+    erk = check_forced_erk_kernels(
+        forced_erk_cases(cfg, cfg_ap, ap_build, fprobes), card)
+    forced_round4_timing(card)
+    rkc = check_forced_rkc_kernel(
+        forced_rkc_cases(cfg, cfg_ap, ap_build, fprobes), card)
+    imx = check_forced_imex_kernel(cfg_gb, fprobes, card)
+    launches = forced_main_paths(cfg, cfg_gb, cfg_ap, ap_build, fprobes)
+    return erk, rkc, imx, launches
+
+
+def forced_fields(worst, timing, ms_u, launches):
+    """A kernel entry's forced fields: the forced cases' worst difference,
+    the forced launch's time, plain time and bound beside the unforced
+    time of the same call, and the forced paths' launches."""
+    ms, plain_ms, bound_ms, bound_by = timing[:4]
+    return {"forced": {"max_abs_err": worst[torch.float32], "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "unforced_ms": ms_u,
+                       "launches": launches}}
+
+
 def load_probes():
     """Every golden of PROBES: {(model, method): {name: array}}."""
     probes = {}
@@ -3507,6 +4150,9 @@ def main():
                       keep=sharded_fhn)
         stream_phases(cfg, programs["goldbeter_ark324"], probes, single_fhn,
                       sharded_fhn, card)
+        return
+    if sys.argv[1:] == ["--forced"]:
+        forced_phases(cfg, cfg_gb, cfg_ap, ap_build, card)
         return
     if sys.argv[1:]:
         sys.exit(f"unknown arguments {sys.argv[1:]}; see the docstring")
@@ -3722,6 +4368,9 @@ def main():
         extra_checks=tensor_checks(aniso_probes,
                                    aniso_build["diffusion_tensor"]),
         keep=singles["aniso"])
+    # the forcing and curvature slice: K1-K4 forced, and its five paths
+    forced_erk, (worst2f, timing2f), forced_k3, forced_launches = \
+        forced_phases(cfg, cfg_gb, cfg_ap, ap_build, card)
 
     worst14 = check_kstep_kernel([cfg, cfg_flat, gb_torus, gb_flat,
                                   ap_periodic])
@@ -3745,16 +4394,24 @@ def main():
     print(json.dumps({"kernels": [
         kernel_entry("fused_erk_step", "fused_step.cu",
                      "crdmodel_tpu/ops/pallas_step.py:117", launches, worst,
-                     k1_timing),
+                     k1_timing, forced_fields(
+                         *forced_erk["k1"],
+                         forced_launches["paced_fhn_bs32"])),
         kernel_entry("fused_rkc_step", "fused_rkc.cu",
                      "crdmodel_tpu/ops/pallas_rkc.py:365", launches2, worst2,
-                     timing2[k2_s]),
+                     timing2[k2_s], forced_fields(
+                         worst2f, *timing2f["divform", k2_s],
+                         forced_launches["s1s2_pacing_rkc2"])),
         kernel_entry("fused_imex_step", "fused_imex.cu",
                      "crdmodel_tpu/ops/pallas_imex.py:155", launches3,
-                     worst3, timing3[k3_shape]),
+                     worst3, timing3[k3_shape], forced_fields(
+                         *forced_k3,
+                         forced_launches["paced_goldbeter_ark324"])),
         kernel_entry("fused_divform_step", "fused_divform.cu",
                      "crdmodel_tpu/ops/pallas_divform.py:130", launches4,
-                     worst4, k4_timing),
+                     worst4, k4_timing, forced_fields(
+                         *forced_erk["k4"],
+                         forced_launches["paced_bounded_ap_bs32"])),
         kernel_entry("fused_rkc_step", "fused_rkc.cu",
                      "crdmodel_tpu/ops/pallas_rkc.py:764", launches2b,
                      worst2b, timing2b[max(timing2b)]),

@@ -1,7 +1,9 @@
 """Command-line interface of the port (counterpart of crdmodel_tpu/cli.py):
-the `run` subcommand.
+the `run` and `curvature` subcommands.
 
   python -m crdmodel_tpu_torch run <ini> --model fhn --surface torus [options]
+  python -m crdmodel_tpu_torch curvature <ini> --model fhn --surface torus
+      [--outdir DIR] [--profiles]
 
 `run` mirrors the reference pipeline (util/ShellScripts/run*.sh: mpirun ->
 plot -> MapOutputToTorus): the banner (sim.py::print_banner), the
@@ -14,10 +16,16 @@ the npz, the movie frames and the ParaView torus mapping (the box: npz and
 line parses the same way, plus --device (default cuda: the card; a missing
 card is an error, never a switch to the CPU). The checkpoint flags parse
 and raise NotImplementedError (ROADMAP queue 1, item 14). The JAX
-package's other subcommands (plot, gentorus, curvature, sweep,
-steadystate, stability, tips, maps) are not ported yet (ROADMAP queue 1).
+package's other subcommands (plot, gentorus, sweep, steadystate,
+stability, tips, maps) are not ported yet (ROADMAP queue 1, item 5b).
 
 The exit code is 0 when the run is ok, else 1.
+
+`curvature` writes the torus mesh with its Gaussian curvature and
+coupling-strength cell arrays (viz/curvature.py; the reference's
+util/GenCurvatureCoupling.py) under the reference's file name, and with
+--profiles the K(theta) and C(theta) plot (util/PlotGaussianAndCoupling.py,
+needs matplotlib). It computes with numpy only and needs no device.
 """
 
 from __future__ import annotations
@@ -218,6 +226,20 @@ def _run_simulation(args, cfg, problem):
                               snapshot_mode=args.snapshot_mode)
 
 
+def cmd_curvature(args):
+    """The torus's curvature/coupling .vtp (crdmodel_tpu/cli.py:241-250)."""
+    from crdmodel_tpu_torch.viz.curvature import (
+        generate_curvature_coupling_vtp, plot_curvature_profiles)
+    cfg = _cfg_from_args(args)
+    path = generate_curvature_coupling_vtp(cfg, args.outdir)
+    print(f"Saving output to file {path}")
+    if args.profiles:
+        p = plot_curvature_profiles(
+            os.path.join(args.outdir, "curvature_profiles.png"))
+        print(f"Saving profiles to {p}")
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="crdmodel_tpu_torch",
                                  description=__doc__.split("\n")[0])
@@ -266,6 +288,14 @@ def main(argv=None):
     p.add_argument("--resume", default=None,
                    help="resume from a checkpoint file; not ported yet")
     p.set_defaults(fn=cmd_run)
+
+    p = sub.add_parser("curvature",
+                       help="curvature/coupling vtp (GenCurvatureCoupling.py)")
+    _add_model_args(p)
+    p.add_argument("--outdir", default=".")
+    p.add_argument("--profiles", action="store_true",
+                   help="also plot K/C profiles (PlotGaussianAndCoupling.py)")
+    p.set_defaults(fn=cmd_curvature)
 
     args = ap.parse_args(argv)
     return args.fn(args)

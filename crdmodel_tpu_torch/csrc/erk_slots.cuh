@@ -41,6 +41,15 @@
 // tile's points pass through shared memory, so that each partial sum adds
 // them in erk_tile.cuh's 256-thread order (store_block_sum): the partial
 // sums are erk_tile.cuh's, and a run takes the same steps.
+//
+// A structured forcing (K1 and K4: Stim = StimTable, rhs_common.cuh) adds
+// stimulus j's (amps[j][s] * rows[j][r]) * cols[j][c] to stage s's
+// right-hand side at each slot, (r, c) the row and column indices the
+// slot's state is loaded from (the wrapped ones on a ring of the periodic
+// grid), kept in the thread's registers beside the point's coefficients;
+// the amplitudes and the profiles are read through the read-only data
+// cache. Stim = NoStim compiles it out: the unforced kernels are the ones
+// before it.
 
 #pragma once
 
@@ -91,12 +100,12 @@ template <typename T>
 constexpr int kSlotMinBlocks = sizeof(T) == 4 ? 2 : 1;
 
 // ny x nx is the extent the tiles cover: the grid's, or the shard's block.
-template <class Op, class Grid, typename T, int TileY>
+template <class Op, class Grid, typename T, int TileY, class Stim>
 __global__ void __launch_bounds__(kSlotThreads, (kSlotMinBlocks<T>))
     fused_erk_slots_kernel(const T* __restrict__ y, T* __restrict__ y_new,
                            T* __restrict__ ss, const T* __restrict__ h_ptr,
                            const T* __restrict__ fz_ptr, Op op, Grid grid,
-                           StageTable tab, T rtol, T atol) {
+                           StageTable tab, T rtol, T atol, Stim stim) {
   using Plan = SlotPlan<TileY>;
   using Reg = typename Plan::Slots;
   static_assert(Plan::kRing <= kSlotThreads, "a thread a ring point");
@@ -144,9 +153,20 @@ __global__ void __launch_bounds__(kSlotThreads, (kSlotMinBlocks<T>))
     T inu[NS - 1][S], inv[NS - 1][S];
     T eu[S], ev[S];
     typename Op::Point cf[S];
+    int sr[S], sc[S];   // the forcing's row and column indices
     const auto local = [](int m) {   // slot m's index on the region
       const int q = Reg::point(m);
       return (Reg::row(q) + 1) * kW + Reg::col(q) + 1;
+    };
+    // k_s at slot m on the stage input `in` (v the slot's variable 1)
+    const auto rhs = [&](int s, int m, const T* in, T v, T& du, T& dv) {
+      if constexpr (Stim::kOn) {
+        T fu, fv;
+        stim.at(s, sr[m], sc[m], fu, fv);
+        op.at_point(cf[m], sx, in, v, local(m), kW, fu, fv, du, dv);
+      } else {
+        op.at_point(cf[m], sx, in, v, local(m), kW, du, dv);
+      }
     };
 #pragma unroll
     for (int m = 0; m < S; ++m) {
@@ -166,6 +186,10 @@ __global__ void __launch_bounds__(kSlotThreads, (kSlotMinBlocks<T>))
       eu[m] = T(0);
       ev[m] = T(0);
       cf[m] = op.point(fz, g, gs, r, c);
+      if constexpr (Stim::kOn) {
+        sr[m] = r;
+        sc[m] = c;
+      }
     }
     __syncthreads();
     // stage s is right on the points s or more rings inside the slots
@@ -186,7 +210,7 @@ __global__ void __launch_bounds__(kSlotThreads, (kSlotMinBlocks<T>))
         // stage 0's input is y0, whose v every in[] still holds
         const T v = inv[s > 0 ? s - 1 : 0][m];
         T du, dv;
-        op.at_point(cf[m], sx, in, v, local(m), kW, du, dv);
+        rhs(s, m, in, v, du, dv);
         // k_s into the inputs of the stages after it and the error, each
         // in stage order
 #pragma unroll
@@ -224,7 +248,7 @@ __global__ void __launch_bounds__(kSlotThreads, (kSlotMinBlocks<T>))
       }
       const T nu = inu[kLast - 1][m], nv = inv[kLast - 1][m];
       T du, dv;
-      op.at_point(cf[m], sx, last, nv, local(m), kW, du, dv);
+      rhs(kLast, m, last, nv, du, dv);
       T fu = eu[m], fv = ev[m];
       if (tab.d[kLast] != 0.0) {
         const T hd = h * static_cast<T>(tab.d[kLast]);
@@ -277,21 +301,23 @@ size_t slots_smem_bytes() {
 
 // Launch one step over ny x nx points on `stream`: fused_erk_slots_kernel
 // for a tableau the scheme takes (slots_take, on K1's 32 x 32 tiles),
-// erk_tile.cuh's kernel for the others; returns the CUDA error code (0 on
-// success), checked right after the launch.
-template <class Op, typename T, class Grid>
+// erk_tile.cuh's kernel for the others; stim: the structured forcing
+// (StimTable) or NoStim; returns the CUDA error code (0 on success),
+// checked right after the launch.
+template <class Op, typename T, class Grid, class Stim = NoStim>
 int launch_erk_slots_on(Op op, Grid grid, const void* y, void* y_new,
                         void* ss, const void* h, const void* fz, int ny,
                         int nx, int tile_x, int tile_y, const StageTable& tab,
-                        double rtol, double atol, void* stream) {
+                        double rtol, double atol, void* stream,
+                        Stim stim = Stim{}) {
   if (!slots_take(tab))
     return launch_erk_tile_on<Op, T>(op, grid, y, y_new, ss, h, fz, ny, nx,
                                      tile_x, tile_y, tab, rtol, atol,
-                                     stream);
+                                     stream, stim);
   if (ny < 1 || nx < 1 || tile_x != kSlotTileX || tile_y != kSlotTileY)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = slots_smem_bytes<Op, Grid, T>();
-  auto kernel = &fused_erk_slots_kernel<Op, Grid, T, kSlotTileY>;
+  auto kernel = &fused_erk_slots_kernel<Op, Grid, T, kSlotTileY, Stim>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -301,16 +327,17 @@ int launch_erk_slots_on(Op op, Grid grid, const void* y, void* y_new,
   kernel<<<blocks, kSlotThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(y), static_cast<T*>(y_new), static_cast<T*>(ss),
       static_cast<const T*>(h), static_cast<const T*>(fz), op, grid, tab,
-      static_cast<T>(rtol), static_cast<T>(atol));
+      static_cast<T>(rtol), static_cast<T>(atol), stim);
   return static_cast<int>(cudaGetLastError());
 }
 
 // out[0] the resident blocks an SM, out[1] the registers a thread, out[2]
 // the shared bytes a block (static and dynamic) of
-// fused_erk_slots_kernel<Op, Grid, T>; returns the CUDA error code.
+// fused_erk_slots_kernel<Op, Grid, T> (unforced); returns the CUDA error
+// code.
 template <class Op, class Grid, typename T>
 int slots_kernel_info(int* out) {
-  auto kernel = &fused_erk_slots_kernel<Op, Grid, T, kSlotTileY>;
+  auto kernel = &fused_erk_slots_kernel<Op, Grid, T, kSlotTileY, NoStim>;
   const size_t smem = slots_smem_bytes<Op, Grid, T>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -29,7 +29,11 @@
 // The functor: rhs(fz, su, sv, p, W, gy, gx, du, dv) writes ydot at local
 // point p of a region with row stride W holding u in su and v in sv, whose
 // indices into the RHS's constants are (gy, gx) = (grid.row, grid.col) of
-// the point; fz is the freeze scalar of the segment.
+// the point; fz is the freeze scalar of the segment. With a structured
+// forcing (Stim = StimTable, rhs_common.cuh; K1 and K4), stage s adds
+// stimulus j's (amps[j][s] * rows[j][gy]) * cols[j][gx] through the
+// functor's forced call rhs(fz, su, sv, p, W, gy, gx, fu, fv, du, dv);
+// Stim = NoStim compiles it out.
 
 #pragma once
 
@@ -79,12 +83,12 @@ inline size_t erk_tile_smem(int n_stages, int tile_x, int tile_y,
 }
 
 // ny x nx is the extent the tiles cover: the grid's, or the shard's block.
-template <class Rhs, class Grid, typename T>
+template <class Rhs, class Grid, typename T, class Stim>
 __global__ void __launch_bounds__(kErkThreads) fused_erk_tile_kernel(
     const T* __restrict__ y, T* __restrict__ y_new, T* __restrict__ ss,
     const T* __restrict__ h_ptr, const T* __restrict__ fz_ptr, Rhs rhs,
     Grid grid, int ny, int nx, int tile_x, int tile_y, StageTable tab,
-    T rtol, T atol) {
+    T rtol, T atol, Stim stim) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ T warp_sums[kErkThreads / 32];
   T* smem = reinterpret_cast<T*>(smem_raw);
@@ -143,8 +147,14 @@ __global__ void __launch_bounds__(kErkThreads) fused_erk_tile_kernel(
     for (int q = threadIdx.x; q < w * r; q += blockDim.x) {
       const int ly = dep + q / w, lx = dep + q % w;
       const int p = ly * W + lx;
-      rhs(fz, su, sv, p, W, grid.row(gy0 + ly), grid.col(gx0 + lx), ku[p],
-          kv[p]);
+      const int gy = grid.row(gy0 + ly), gx = grid.col(gx0 + lx);
+      if constexpr (Stim::kOn) {
+        T fu, fv;
+        stim.at(s, gy, gx, fu, fv);
+        rhs(fz, su, sv, p, W, gy, gx, fu, fv, ku[p], kv[p]);
+      } else {
+        rhs(fz, su, sv, p, W, gy, gx, ku[p], kv[p]);
+      }
     }
     __syncthreads();
   }
@@ -184,18 +194,19 @@ __global__ void __launch_bounds__(kErkThreads) fused_erk_tile_kernel(
   store_block_sum<T, kErkThreads>(acc, warp_sums, ss);
 }
 
-// Launch one step of fused_erk_tile_kernel<Rhs, Grid, T> over ny x nx
-// points on `stream`; returns the CUDA error code (0 on success), checked
-// right after the launch.
-template <class Rhs, typename T, class Grid>
+// Launch one step of fused_erk_tile_kernel<Rhs, Grid, T, Stim> over
+// ny x nx points on `stream`; returns the CUDA error code (0 on success),
+// checked right after the launch.
+template <class Rhs, typename T, class Grid, class Stim = NoStim>
 int launch_erk_tile_on(Rhs rhs, Grid grid, const void* y, void* y_new,
                        void* ss, const void* h, const void* fz, int ny,
                        int nx, int tile_x, int tile_y, const StageTable& tab,
-                       double rtol, double atol, void* stream) {
+                       double rtol, double atol, void* stream,
+                       Stim stim = Stim{}) {
   if (ny < 1 || nx < 1 || tile_x < 1 || tile_y < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = erk_tile_smem(tab.n, tile_x, tile_y, sizeof(T));
-  auto kernel = &fused_erk_tile_kernel<Rhs, Grid, T>;
+  auto kernel = &fused_erk_tile_kernel<Rhs, Grid, T, Stim>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -204,7 +215,8 @@ int launch_erk_tile_on(Rhs rhs, Grid grid, const void* y, void* y_new,
   kernel<<<blocks, kErkThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(y), static_cast<T*>(y_new), static_cast<T*>(ss),
       static_cast<const T*>(h), static_cast<const T*>(fz), rhs, grid, ny,
-      nx, tile_x, tile_y, tab, static_cast<T>(rtol), static_cast<T>(atol));
+      nx, tile_x, tile_y, tab, static_cast<T>(rtol), static_cast<T>(atol),
+      stim);
   return static_cast<int>(cudaGetLastError());
 }
 

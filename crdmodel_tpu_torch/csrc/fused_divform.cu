@@ -38,6 +38,16 @@
 // is built with -fmad=false; each partial sum adds its tile's points in
 // erk_tile.cuh's order, so y_new and every partial sum are bitwise those
 // of the plain version and of erk_tile.cuh's. No tensor cores or TMA.
+//
+// A structured forcing enters as in K1 (fused_step.cu;
+// pallas_divform.py:171-198, 249-256, 344): stage s adds
+// (amps[j][s] * rows[j][r]) * cols[j][c] to its variable's right-hand
+// side, before the live factor and the tissue field (make_rhs's
+// mask_tissue). The ring points of a tile read the profiles at the
+// wrapped indices their state comes from; under no-flux walls those
+// points are the periodic grid's, whose values meet zero face
+// coefficients, so the forcing there reaches no point of the tile. n_stim
+// = 0 takes the unforced instantiation.
 
 #include <cuda_runtime.h>
 
@@ -50,9 +60,33 @@ namespace {
 template <int Kin, typename T>
 using Rhs = crd::DivformRhs<Kin, T, crd::WrapGrid>;
 
+template <typename T, class Stim>
+int launch_with(const crd::FaceConstants<T>& f, const crd::RhsConstants<T>& k,
+                int kinetics, const void* y, void* y_new, void* ss,
+                const void* h, const void* fz, int ny, int nx, int tile_x,
+                int tile_y, const crd::StageTable& tab, double rtol,
+                double atol, void* stream, Stim stim) {
+  const crd::WrapGrid grid = {ny, nx};
+  if (kinetics == crd::kFhn)
+    return crd::launch_erk_slots_on<Rhs<crd::kFhn, T>, T>(
+        {f, k, grid}, grid, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab,
+        rtol, atol, stream, stim);
+  if (kinetics == crd::kGoldbeter)
+    return crd::launch_erk_slots_on<Rhs<crd::kGoldbeter, T>, T>(
+        {f, k, grid}, grid, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab,
+        rtol, atol, stream, stim);
+  return crd::launch_erk_slots_on<Rhs<crd::kAlievPanfilov, T>, T>(
+      {f, k, grid}, grid, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab,
+      rtol, atol, stream, stim);
+}
+
+// amps, rows, cols, n_stim, n_cols, var1: the structured forcing
+// (n_stim = 0 and null pointers without one)
 template <typename T>
 int launch(const void* y, void* y_new, void* ss, const void* h,
-           const void* fz, const void* ae, const void* aw, const void* an,
+           const void* fz, const void* amps, const void* rows,
+           const void* cols, int n_stim, int n_cols, int var1,
+           const void* ae, const void* aw, const void* an,
            const void* tissue, const void* beta, int beta_field,
            const void* mask, int has_freeze, int kinetics, int ny, int nx,
            int tile_x, int tile_y, int n_stages, const double* a,
@@ -68,18 +102,17 @@ int launch(const void* y, void* y_new, void* ss, const void* h,
   const crd::RhsConstants<T> k = {
       nullptr, nullptr, nullptr, 0, static_cast<const T*>(beta), beta_field,
       static_cast<const T*>(mask), has_freeze};
-  const crd::WrapGrid grid = {ny, nx};
-  if (kinetics == crd::kFhn)
-    return crd::launch_erk_slots_on<Rhs<crd::kFhn, T>, T>(
-        {f, k, grid}, grid, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab,
-        rtol, atol, stream);
-  if (kinetics == crd::kGoldbeter)
-    return crd::launch_erk_slots_on<Rhs<crd::kGoldbeter, T>, T>(
-        {f, k, grid}, grid, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab,
-        rtol, atol, stream);
-  return crd::launch_erk_slots_on<Rhs<crd::kAlievPanfilov, T>, T>(
-      {f, k, grid}, grid, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab,
-      rtol, atol, stream);
+  if (n_stim == 0)
+    return launch_with<T>(f, k, kinetics, y, y_new, ss, h, fz, ny, nx,
+                          tile_x, tile_y, tab, rtol, atol, stream,
+                          crd::NoStim{});
+  crd::StimTable<T> stim;
+  if (n_cols != n_stages
+      || !crd::make_stim_table(amps, rows, cols, n_stim, n_cols, var1, ny,
+                               nx, &stim))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_with<T>(f, k, kinetics, y, y_new, ss, h, fz, ny, nx, tile_x,
+                        tile_y, tab, rtol, atol, stream, stim);
 }
 
 // crd::slots_kernel_info of the bs32 kernel of `kinetics` in T
@@ -98,17 +131,19 @@ int info(int kinetics, int* out) {
 
 }  // namespace
 
-#define CRD_FUSED_DIVFORM_ARGS                                               \
+#define CRD_FUSED_DIVFORM_ARGS                                              \
   const void *y, void *y_new, void *ss, const void *h, const void *fz,      \
-      const void *ae, const void *aw, const void *an, const void *tissue,   \
-      const void *beta, int beta_field, const void *mask, int has_freeze,   \
-      int kinetics, int ny, int nx, int tile_x, int tile_y, int n_stages,   \
+      const void *amps, const void *rows, const void *cols, int n_stim,     \
+      int n_cols, int var1, const void *ae, const void *aw,                 \
+      const void *an, const void *tissue, const void *beta,                 \
+      int beta_field, const void *mask, int has_freeze, int kinetics,       \
+      int ny, int nx, int tile_x, int tile_y, int n_stages,                 \
       const double *a, const double *b, const double *d, double rtol,       \
       double atol, void *stream
-#define CRD_FUSED_DIVFORM_PASS                                               \
-  y, y_new, ss, h, fz, ae, aw, an, tissue, beta, beta_field, mask,          \
-      has_freeze, kinetics, ny, nx, tile_x, tile_y, n_stages, a, b, d,      \
-      rtol, atol, stream
+#define CRD_FUSED_DIVFORM_PASS                                              \
+  y, y_new, ss, h, fz, amps, rows, cols, n_stim, n_cols, var1, ae, aw,      \
+      an, tissue, beta, beta_field, mask, has_freeze, kinetics, ny, nx,     \
+      tile_x, tile_y, n_stages, a, b, d, rtol, atol, stream
 
 extern "C" int crd_fused_divform_step_f32(CRD_FUSED_DIVFORM_ARGS) {
   return launch<float>(CRD_FUSED_DIVFORM_PASS);

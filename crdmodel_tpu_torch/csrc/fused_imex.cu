@@ -40,6 +40,13 @@
 // the order of K3's first port, a 256-thread one-pass block on the same
 // tile (ops/fused_imex.py::imex_tile_sums), so a run at the 32x32 plan
 // takes that kernel's steps exactly.
+//
+// A structured forcing (pallas_imex.py:190-217, 232-240, 312) comes in as
+// an amplitude table amps[n_stim][4], the explicit stages' amplitudes at
+// the ARK c nodes computed on the device before the launch, and the
+// stimuli's profiles; it joins the explicit evaluations only
+// (imex_slots.cuh), so the Newton stages stay autonomous. n_stim = 0 takes
+// the unforced instantiation.
 
 #include <cuda_runtime.h>
 
@@ -48,9 +55,30 @@
 
 namespace {
 
+template <typename T, class Stim>
+int launch_with(const crd::WrapGrid& grid, const void* y, void* y_new,
+                void* ss, const void* h, const void* fz,
+                const crd::RhsConstants<T>& k, int kinetics, int ny, int nx,
+                int tile_y, const crd::ImexTable& tab, double rtol,
+                double atol, void* stream, Stim stim) {
+  if (tile_y == 32)
+    return crd::launch_imex_slots<crd::WrapGrid, T, 32>(
+        grid, y, y_new, ss, h, fz, k, kinetics, ny, nx, tab, rtol, atol,
+        stream, stim);
+  if (tile_y == 16)
+    return crd::launch_imex_slots<crd::WrapGrid, T, 16>(
+        grid, y, y_new, ss, h, fz, k, kinetics, ny, nx, tab, rtol, atol,
+        stream, stim);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// amps, rows, cols, n_stim, n_cols, var1: the structured forcing of the
+// explicit stages (n_stim = 0 and null pointers without one)
 template <typename T>
 int launch(const void* y, void* y_new, void* ss, const void* h,
-           const void* fz, const void* c0, const void* c1, const void* c2,
+           const void* fz, const void* amps, const void* rows,
+           const void* cols, int n_stim, int n_cols, int var1,
+           const void* c0, const void* c1, const void* c2,
            int torus, const void* beta, int beta_field, const void* mask,
            int has_freeze, int kinetics, int ny, int nx, int tile_x,
            int tile_y, const double* ae, const double* ai, const double* b,
@@ -64,15 +92,16 @@ int launch(const void* y, void* y_new, void* ss, const void* h,
   const crd::ImexTable tab = crd::make_imex_table(ae, ai, b, d, gamma);
   if (tile_x != crd::kImexTile)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (tile_y == 32)
-    return crd::launch_imex_slots<crd::WrapGrid, T, 32>(
-        grid, y, y_new, ss, h, fz, k, kinetics, ny, nx, tab, rtol, atol,
-        stream);
-  if (tile_y == 16)
-    return crd::launch_imex_slots<crd::WrapGrid, T, 16>(
-        grid, y, y_new, ss, h, fz, k, kinetics, ny, nx, tab, rtol, atol,
-        stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (n_stim == 0)
+    return launch_with<T>(grid, y, y_new, ss, h, fz, k, kinetics, ny, nx,
+                          tile_y, tab, rtol, atol, stream, crd::NoStim{});
+  crd::StimTable<T> stim;
+  if (n_cols != crd::kImexStages
+      || !crd::make_stim_table(amps, rows, cols, n_stim, n_cols, var1, ny,
+                               nx, &stim))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_with<T>(grid, y, y_new, ss, h, fz, k, kinetics, ny, nx,
+                        tile_y, tab, rtol, atol, stream, stim);
 }
 
 // crd::imex_slots_info of the kernel of `kinetics` on 32 x tile_y tiles
@@ -88,16 +117,18 @@ int info(int kinetics, int tile_y, int* out) {
 }  // namespace
 
 #define CRD_FUSED_IMEX_ARGS                                                  \
-  const void *y, void *y_new, void *ss, const void *h, const void *fz,      \
-      const void *c0, const void *c1, const void *c2, int torus,            \
-      const void *beta, int beta_field, const void *mask, int has_freeze,   \
-      int kinetics, int ny, int nx, int tile_x, int tile_y,                 \
-      const double *ae, const double *ai, const double *b, const double *d, \
-      double gamma, double rtol, double atol, void *stream
+  const void *y, void *y_new, void *ss, const void *h, const void *fz,       \
+      const void *amps, const void *rows, const void *cols, int n_stim,      \
+      int n_cols, int var1, const void *c0, const void *c1,                  \
+      const void *c2, int torus, const void *beta, int beta_field,           \
+      const void *mask, int has_freeze, int kinetics, int ny, int nx,        \
+      int tile_x, int tile_y, const double *ae, const double *ai,            \
+      const double *b, const double *d, double gamma, double rtol,           \
+      double atol, void *stream
 #define CRD_FUSED_IMEX_PASS                                                  \
-  y, y_new, ss, h, fz, c0, c1, c2, torus, beta, beta_field, mask,           \
-      has_freeze, kinetics, ny, nx, tile_x, tile_y, ae, ai, b, d, gamma,    \
-      rtol, atol, stream
+  y, y_new, ss, h, fz, amps, rows, cols, n_stim, n_cols, var1, c0, c1,       \
+      c2, torus, beta, beta_field, mask, has_freeze, kinetics, ny, nx,       \
+      tile_x, tile_y, ae, ai, b, d, gamma, rtol, atol, stream
 
 extern "C" int crd_fused_imex_step_f32(CRD_FUSED_IMEX_ARGS) {
   return launch<float>(CRD_FUSED_IMEX_PASS);

@@ -44,6 +44,20 @@
 // (K4's operator, whose face coefficients are read through the read-only
 // data cache), each over the kinetics family. No tensor cores, TMA or
 // tuning yet.
+//
+// A structured forcing (pallas_rkc.py:434-468, 517-551, 715-735) comes in
+// as an amplitude table amps[n_stim][n_cols] computed on the device before
+// the launch and the stimuli's row and column profiles: n_cols = 1 when
+// every stimulus is segment-gated (a pulse train: the amplitude is
+// constant over the step), else one column per stage time of the JAX
+// package's with_times table (S_MAX_KERNEL + 2), the Chebyshev stage
+// times of this step's s, indexed by the step's evaluation, not by its
+// place in its chunk (rkc_chunk.cuh::rkc_amp_column). Evaluation e adds
+// (amps[j][a] * rows[j][r]) * cols[j][c] before the live factor and the
+// tissue field, in both branches. The JAX package declines forcing on
+// its column-blocked K2b layout (pallas_rkc.py:230-234); this kernel has
+// no column blocks and takes it at every width. n_stim = 0 takes the
+// unforced instantiation.
 
 #include <cuda_runtime.h>
 
@@ -74,9 +88,13 @@ int dispatch(const crd::RhsConstants<T>& k, const crd::FaceConstants<T>& f,
   return pick(std::integral_constant<int, crd::kAlievPanfilov>{});
 }
 
+// amps, rows, cols, n_stim, n_cols, var1: the structured forcing
+// (n_stim = 0 and null pointers without one)
 template <typename T>
 int launch(const void* y, void* y_new, void* ss, void* work, const void* h,
-           const void* fz, const void* s, const void* mu1_tab,
+           const void* fz, const void* amps, const void* rows,
+           const void* cols, int n_stim, int n_cols, int var1,
+           const void* s, const void* mu1_tab,
            const void* ctab, int s_cap, const void* c0, const void* c1,
            const void* c2, int torus, const void* ae, const void* aw,
            const void* an, const void* tissue, const void* beta,
@@ -99,10 +117,21 @@ int launch(const void* y, void* y_new, void* ss, void* work, const void* h,
   const int n_tiles = tiles_x * ((ny + crd::kRkcTile - 1) / crd::kRkcTile);
   const crd::RkcPlan plan = {ny,      nx,      crd::kRkcTile, crd::kRkcTile,
                              tiles_x, n_tiles};
+  if (n_stim == 0)
+    return dispatch<T>(k, f, wg, kinetics, [&](auto rhs) {
+      return crd::launch_rkc_chunk<decltype(rhs), WrapGrid, T>(
+          rhs, wg, plan, n_tiles, y, y_new, ss, work, h, fz, s, mu1_tab,
+          ctab, s_cap, rtol, atol, stream);
+    });
+  crd::StimTable<T> stim;
+  if ((n_cols != 1 && n_cols != crd::kRkcMaxStages + 2)
+      || !crd::make_stim_table(amps, rows, cols, n_stim, n_cols, var1, ny,
+                               nx, &stim))
+    return static_cast<int>(cudaErrorInvalidValue);
   return dispatch<T>(k, f, wg, kinetics, [&](auto rhs) {
     return crd::launch_rkc_chunk<decltype(rhs), WrapGrid, T>(
         rhs, wg, plan, n_tiles, y, y_new, ss, work, h, fz, s, mu1_tab, ctab,
-        s_cap, rtol, atol, stream);
+        s_cap, rtol, atol, stream, stim);
   });
 }
 
@@ -125,21 +154,24 @@ int info(int divform, int kinetics, int* out) {
 
 }  // namespace
 
-// c0, c1, c2 and torus: the profile operator (null without it); ae, aw, an
+// amps, rows, cols, n_stim, n_cols and var1: the structured forcing; c0,
+// c1, c2 and torus: the profile operator (null without it); ae, aw, an
 // and tissue: the divergence form's face fields and the 0/1 tissue field
 // (all null without it; tissue null without an obstacle); work: ten planes
 // of the state's shape
 #define CRD_FUSED_RKC_ARGS                                                   \
-  const void *y, void *y_new, void *ss, void *work, const void *h,          \
-      const void *fz, const void *s, const void *mu1_tab, const void *ctab, \
-      int s_cap, const void *c0, const void *c1, const void *c2, int torus, \
-      const void *ae, const void *aw, const void *an, const void *tissue,   \
-      const void *beta, int beta_field, const void *mask, int has_freeze,   \
-      int kinetics, int ny, int nx, double rtol, double atol, void *stream
+  const void *y, void *y_new, void *ss, void *work, const void *h,           \
+      const void *fz, const void *amps, const void *rows, const void *cols,  \
+      int n_stim, int n_cols, int var1, const void *s, const void *mu1_tab,  \
+      const void *ctab, int s_cap, const void *c0, const void *c1,           \
+      const void *c2, int torus, const void *ae, const void *aw,             \
+      const void *an, const void *tissue, const void *beta, int beta_field,  \
+      const void *mask, int has_freeze, int kinetics, int ny, int nx,        \
+      double rtol, double atol, void *stream
 #define CRD_FUSED_RKC_PASS                                                   \
-  y, y_new, ss, work, h, fz, s, mu1_tab, ctab, s_cap, c0, c1, c2, torus,    \
-      ae, aw, an, tissue, beta, beta_field, mask, has_freeze, kinetics, ny, \
-      nx, rtol, atol, stream
+  y, y_new, ss, work, h, fz, amps, rows, cols, n_stim, n_cols, var1, s,      \
+      mu1_tab, ctab, s_cap, c0, c1, c2, torus, ae, aw, an, tissue, beta,     \
+      beta_field, mask, has_freeze, kinetics, ny, nx, rtol, atol, stream
 
 extern "C" int crd_fused_rkc_step_f32(CRD_FUSED_RKC_ARGS) {
   return launch<float>(CRD_FUSED_RKC_PASS);

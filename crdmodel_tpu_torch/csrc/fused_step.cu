@@ -36,6 +36,19 @@
 // -fmad=false, and each partial sum adds its tile's points in
 // erk_tile.cuh's order: y_new and every partial sum are bitwise those of
 // the plain version and of erk_tile.cuh's scheme. No tensor cores or TMA.
+//
+// A structured forcing (core/forcing.py::SeparableForcing, rank-1
+// stimuli; pallas_step.py:164-192, 212-222, 303-308) comes in as an
+// amplitude table amps[n_stim][n_stages], computed on the device at the
+// stage times before the launch, and each stimulus's row and column
+// profiles; stage s adds (amps[j][s] * rows[j][r]) * cols[j][c] to its
+// variable's right-hand side before the freeze's live factor
+// (rhs_common.cuh::StimTable). Each point of a tile's rings reads the
+// profiles at the wrapped indices its state comes from, as the JAX
+// kernel wrap-pads them (pallas_step.py:178-186). It costs 2 n_stim
+// cached loads and 3 n_stim operations a point a stage; without a forcing
+// (n_stim = 0) the launcher takes the unforced instantiation, which has
+// none of it.
 
 #include <cuda_runtime.h>
 
@@ -47,9 +60,33 @@ namespace {
 using crd::ProfileRhs;
 using crd::WrapGrid;
 
+template <typename T, class Stim>
+int launch_with(const crd::RhsConstants<T>& k, int kinetics,
+                const void* y, void* y_new, void* ss, const void* h,
+                const void* fz, int ny, int nx, int tile_x, int tile_y,
+                const crd::StageTable& tab, double rtol, double atol,
+                void* stream, Stim stim) {
+  const WrapGrid grid = {ny, nx};
+  if (kinetics == crd::kFhn)
+    return crd::launch_erk_slots_on<ProfileRhs<crd::kFhn, T>, T>(
+        {k}, grid, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab, rtol,
+        atol, stream, stim);
+  if (kinetics == crd::kGoldbeter)
+    return crd::launch_erk_slots_on<ProfileRhs<crd::kGoldbeter, T>, T>(
+        {k}, grid, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab, rtol,
+        atol, stream, stim);
+  return crd::launch_erk_slots_on<ProfileRhs<crd::kAlievPanfilov, T>, T>(
+      {k}, grid, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab, rtol,
+      atol, stream, stim);
+}
+
+// amps, rows, cols, n_stim, n_cols, var1: the structured forcing
+// (n_stim = 0 and null pointers without one)
 template <typename T>
 int launch(const void* y, void* y_new, void* ss, const void* h,
-           const void* fz, const void* c0, const void* c1, const void* c2,
+           const void* fz, const void* amps, const void* rows,
+           const void* cols, int n_stim, int n_cols, int var1,
+           const void* c0, const void* c1, const void* c2,
            int torus, const void* beta, int beta_field, const void* mask,
            int has_freeze, int kinetics, int ny, int nx, int tile_x,
            int tile_y, int n_stages, const double* a, const double* b,
@@ -62,18 +99,16 @@ int launch(const void* y, void* y_new, void* ss, const void* h,
       static_cast<const T*>(c0), static_cast<const T*>(c1),
       static_cast<const T*>(c2), torus, static_cast<const T*>(beta),
       beta_field, static_cast<const T*>(mask), has_freeze};
-  const WrapGrid grid = {ny, nx};
-  if (kinetics == crd::kFhn)
-    return crd::launch_erk_slots_on<ProfileRhs<crd::kFhn, T>, T>(
-        {k}, grid, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab, rtol,
-        atol, stream);
-  if (kinetics == crd::kGoldbeter)
-    return crd::launch_erk_slots_on<ProfileRhs<crd::kGoldbeter, T>, T>(
-        {k}, grid, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab, rtol,
-        atol, stream);
-  return crd::launch_erk_slots_on<ProfileRhs<crd::kAlievPanfilov, T>, T>(
-      {k}, grid, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab, rtol,
-      atol, stream);
+  if (n_stim == 0)
+    return launch_with<T>(k, kinetics, y, y_new, ss, h, fz, ny, nx, tile_x,
+                          tile_y, tab, rtol, atol, stream, crd::NoStim{});
+  crd::StimTable<T> stim;
+  if (n_cols != n_stages
+      || !crd::make_stim_table(amps, rows, cols, n_stim, n_cols, var1, ny,
+                               nx, &stim))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_with<T>(k, kinetics, y, y_new, ss, h, fz, ny, nx, tile_x,
+                        tile_y, tab, rtol, atol, stream, stim);
 }
 
 // crd::slots_kernel_info of the bs32 kernel of `kinetics` in T
@@ -92,17 +127,19 @@ int info(int kinetics, int* out) {
 
 }  // namespace
 
-#define CRD_FUSED_STEP_ARGS                                                  \
+#define CRD_FUSED_STEP_ARGS                                                 \
   const void *y, void *y_new, void *ss, const void *h, const void *fz,      \
-      const void *c0, const void *c1, const void *c2, int torus,            \
-      const void *beta, int beta_field, const void *mask, int has_freeze,   \
-      int kinetics, int ny, int nx, int tile_x, int tile_y, int n_stages,   \
-      const double *a, const double *b, const double *d, double rtol,       \
-      double atol, void *stream
-#define CRD_FUSED_STEP_PASS                                                  \
-  y, y_new, ss, h, fz, c0, c1, c2, torus, beta, beta_field, mask,           \
-      has_freeze, kinetics, ny, nx, tile_x, tile_y, n_stages, a, b, d,      \
-      rtol, atol, stream
+      const void *amps, const void *rows, const void *cols, int n_stim,     \
+      int n_cols, int var1, const void *c0, const void *c1,                 \
+      const void *c2, int torus, const void *beta, int beta_field,          \
+      const void *mask, int has_freeze, int kinetics, int ny, int nx,       \
+      int tile_x, int tile_y, int n_stages, const double *a,                \
+      const double *b, const double *d, double rtol, double atol,           \
+      void *stream
+#define CRD_FUSED_STEP_PASS                                                 \
+  y, y_new, ss, h, fz, amps, rows, cols, n_stim, n_cols, var1, c0, c1,      \
+      c2, torus, beta, beta_field, mask, has_freeze, kinetics, ny, nx,      \
+      tile_x, tile_y, n_stages, a, b, d, rtol, atol, stream
 
 extern "C" int crd_fused_erk_step_f32(CRD_FUSED_STEP_ARGS) {
   return launch<float>(CRD_FUSED_STEP_PASS);

@@ -56,6 +56,16 @@
 // tile's counted cells, then its tile points (stride 256, u then v), then
 // acc + 100 dacc; the block's reduction adds the other warps' +0.0
 // (exact). ops/fused_imex.py::imex_tile_sums is its plain model.
+//
+// A structured forcing (K3: Stim = StimTable, rhs_common.cuh;
+// pallas_imex.py:190-217, 232-240, 312) joins the explicit evaluations
+// only, at the ARK c nodes: kE_i = (lap + f_u, f_v) times live, f the
+// stimuli's (amps[j][i] * rows[j][r]) * cols[j][c] at the point's row
+// and column indices (r, c) (the wrapped ones on the rings). The Newton
+// stages stay pointwise and autonomous. kE of variable 1, f_v times live,
+// then enters rhs_known, the update and the error as kE of variable 0
+// does. Stim = NoStim compiles it out: the unforced kernels are the ones
+// before it.
 
 #pragma once
 
@@ -211,12 +221,13 @@ __device__ __forceinline__ void imex_newton(T hg, T ru, T rv, T b, T live,
 
 // One step over the extent the grid's tiles cover (the grid's, or the
 // shard's block), a 32 x TileY tile a block.
-template <int Kin, class Grid, typename T, int TileY>
+template <int Kin, class Grid, typename T, int TileY, class Stim>
 __global__ void __launch_bounds__(kImexSlotThreads, (kImexMinBlocks<T>))
     fused_imex_slots_kernel(const T* __restrict__ y, T* __restrict__ y_new,
                             T* __restrict__ ss, const T* __restrict__ h_ptr,
                             const T* __restrict__ fz_ptr, RhsConstants<T> k,
-                            Grid grid, ImexCoeffs<T> tab, T rtol, T atol) {
+                            Grid grid, ImexCoeffs<T> tab, T rtol, T atol,
+                            Stim stim) {
   using Plan = ImexPlan<TileY>;
   constexpr int NS = kImexStages;
   constexpr int W = Plan::kW;
@@ -303,6 +314,22 @@ __global__ void __launch_bounds__(kImexSlotThreads, (kImexMinBlocks<T>))
       return profile_lap_of(colc[0][lx], colc[1][lx], colc[2][lx],
                             k.torus != 0, su, p, W);
     };
+    // explicit evaluation i at local point p: kE_i's variable 0 into lap
+    // and, with a forcing, variable 1 into xv, both times live
+    const auto explicit_at = [&](int i, const T* su, int p, T& lap, T& xv) {
+      lap = lap_at(su, p);
+      xv = T(0);
+      if constexpr (Stim::kOn) {
+        T gu;
+        stim.at(i, row(p), col(p), gu, xv);
+        lap = lap + gu;
+      }
+      if (freeze) {
+        const T live = rowc[1][p / W];
+        lap = lap * live;
+        if constexpr (Stim::kOn) xv = xv * live;
+      }
+    };
     // the step's start: u on the region, the outer ring by the first
     // kOuter threads, the slots' points by their own threads
     if (t < Plan::kOuter) {
@@ -331,12 +358,12 @@ __global__ void __launch_bounds__(kImexSlotThreads, (kImexMinBlocks<T>))
       const int p = pt[m];
       const int ly = p / W;
       const T u0 = u0s[p];
-      T lap = lap_at(u0s, p);
+      T lap, xv;
+      explicit_at(0, u0s, p, lap, xv);
       T fu, fv;
       kinetics<Kin>(u0, v0[m], rowc[0][ly], fu, fv);
       if (freeze) {
         const T live = rowc[1][ly];
-        lap = lap * live;
         fu = fu * live;
         fv = fv * live;
       }
@@ -344,7 +371,12 @@ __global__ void __launch_bounds__(kImexSlotThreads, (kImexMinBlocks<T>))
       for (int s = 1; s < NS; ++s) {
         rku[m][s - 1] = u0 + hae[s][0] * lap;
         rku[m][s - 1] = rku[m][s - 1] + hai[s][0] * fu;
-        rkv[m][s - 1] = v0[m] + hai[s][0] * fv;
+        if constexpr (Stim::kOn) {
+          rkv[m][s - 1] = v0[m] + hae[s][0] * xv;
+          rkv[m][s - 1] = rkv[m][s - 1] + hai[s][0] * fv;
+        } else {
+          rkv[m][s - 1] = v0[m] + hai[s][0] * fv;
+        }
       }
       kiu[m] = fu;
       kiv[m] = fv;
@@ -352,10 +384,11 @@ __global__ void __launch_bounds__(kImexSlotThreads, (kImexMinBlocks<T>))
         wu[m] = T(1) / (rtol * fabs(u0) + atol);
         wv[m] = T(1) / (rtol * fabs(v0[m]) + atol);
         const T ksu = lap + fu;
+        const T ksv = Stim::kOn ? xv + fv : fv;
         nu[m] = u0 + hb[0] * ksu;
-        nv[m] = v0[m] + hb[0] * fv;
+        nv[m] = v0[m] + hb[0] * ksv;
         eu[m] = T(0) + hd[0] * ksu;
-        ev[m] = T(0) + hd[0] * fv;
+        ev[m] = T(0) + hd[0] * ksv;
       }
     }
 
@@ -394,20 +427,23 @@ __global__ void __launch_bounds__(kImexSlotThreads, (kImexMinBlocks<T>))
       for (int m = 0; m < S; ++m) {
         if (!live_slot(m, s + 1)) continue;
         const int p = pt[m];
-        T lap = lap_at(yp, p);
-        if (freeze) lap = lap * rowc[1][p / W];
+        T lap, xv;
+        explicit_at(s, yp, p, lap, xv);
 #pragma unroll
         for (int r = s + 1; r < NS; ++r) {
           rku[m][r - 1] = rku[m][r - 1] + hae[r][s] * lap;
           rku[m][r - 1] = rku[m][r - 1] + hai[r][s] * kiu[m];
+          if constexpr (Stim::kOn)
+            rkv[m][r - 1] = rkv[m][r - 1] + hae[r][s] * xv;
           rkv[m][r - 1] = rkv[m][r - 1] + hai[r][s] * kiv[m];
         }
         if (m < kTS) {
           const T ksu = lap + kiu[m];
+          const T ksv = Stim::kOn ? xv + kiv[m] : kiv[m];
           nu[m] = nu[m] + hb[s] * ksu;
-          nv[m] = nv[m] + hb[s] * kiv[m];
+          nv[m] = nv[m] + hb[s] * ksv;
           eu[m] = eu[m] + hd[s] * ksu;
-          ev[m] = ev[m] + hd[s] * kiv[m];
+          ev[m] = ev[m] + hd[s] * ksv;
         }
       }
     }
@@ -424,13 +460,14 @@ __global__ void __launch_bounds__(kImexSlotThreads, (kImexMinBlocks<T>))
         e2[kTP + q] = T(0);
         continue;
       }
-      T lap = lap_at(y3, p);
-      if (freeze) lap = lap * rowc[1][ly];
+      T lap, xv;
+      explicit_at(NS - 1, y3, p, lap, xv);
       const T ksu = lap + kiu[m];
+      const T ksv = Stim::kOn ? xv + kiv[m] : kiv[m];
       const T fu = nu[m] + hb[NS - 1] * ksu;
-      const T fv = nv[m] + hb[NS - 1] * kiv[m];
+      const T fv = nv[m] + hb[NS - 1] * ksv;
       const T gu = eu[m] + hd[NS - 1] * ksu;
-      const T gv = ev[m] + hd[NS - 1] * kiv[m];
+      const T gv = ev[m] + hd[NS - 1] * ksv;
       const size_t g = at(p);
       y_new[g] = fu;
       y_new[plane + g] = fv;
@@ -482,29 +519,33 @@ constexpr size_t imex_slots_smem() {
   return static_cast<size_t>(ImexPlan<TileY>::kElements) * sizeof(T);
 }
 
-// The kernel of `kinetics` for a Grid, T and TileY
-template <class Grid, typename T, int TileY>
+// The kernel of `kinetics` for a Grid, T, TileY and Stim
+template <class Grid, typename T, int TileY, class Stim = NoStim>
 auto imex_slots_kernel(int kinetics) {
-  return kinetics == kFhn ? &fused_imex_slots_kernel<kFhn, Grid, T, TileY>
+  return kinetics == kFhn
+             ? &fused_imex_slots_kernel<kFhn, Grid, T, TileY, Stim>
          : kinetics == kGoldbeter
-             ? &fused_imex_slots_kernel<kGoldbeter, Grid, T, TileY>
-             : &fused_imex_slots_kernel<kAlievPanfilov, Grid, T, TileY>;
+             ? &fused_imex_slots_kernel<kGoldbeter, Grid, T, TileY, Stim>
+             : &fused_imex_slots_kernel<kAlievPanfilov, Grid, T, TileY,
+                                        Stim>;
 }
 
 // Launch one step of fused_imex_slots_kernel over ny x nx points of `grid`
 // on `stream` with the kinetics `kinetics`, on 32 x TileY tiles; returns
 // the CUDA error code (0 on success), checked right after the launch. A
-// tableau of another zero pattern than the kernel's is refused.
-template <class Grid, typename T, int TileY>
+// tableau of another zero pattern than the kernel's is refused. stim: the
+// structured forcing (StimTable) or NoStim.
+template <class Grid, typename T, int TileY, class Stim = NoStim>
 int launch_imex_slots(Grid grid, const void* y, void* y_new, void* ss,
                       const void* h, const void* fz, const RhsConstants<T>& k,
                       int kinetics, int ny, int nx, const ImexTable& table,
-                      double rtol, double atol, void* stream) {
+                      double rtol, double atol, void* stream,
+                      Stim stim = Stim{}) {
   ImexCoeffs<T> tab;
   if (ny < 1 || nx < 1 || !valid_kinetics(kinetics)
       || !imex_slots_take(table, &tab))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = imex_slots_kernel<Grid, T, TileY>(kinetics);
+  auto kernel = imex_slots_kernel<Grid, T, TileY, Stim>(kinetics);
   const size_t smem = imex_slots_smem<T, TileY>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -516,7 +557,7 @@ int launch_imex_slots(Grid grid, const void* y, void* y_new, void* ss,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(y), static_cast<T*>(y_new), static_cast<T*>(ss),
       static_cast<const T*>(h), static_cast<const T*>(fz), k, grid, tab,
-      static_cast<T>(rtol), static_cast<T>(atol));
+      static_cast<T>(rtol), static_cast<T>(atol), stim);
   return static_cast<int>(cudaGetLastError());
 }
 

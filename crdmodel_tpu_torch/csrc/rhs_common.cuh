@@ -3,8 +3,8 @@
 // K5 fused_aniso.cu and the shard kernels K8-K11): the grid policies, the
 // 5-point profile, divergence-form and 9-point anisotropic operators on
 // variable 0, the kinetics of each ported family and their closed-form
-// Jacobians, the RHS at one point of a tile held in shared memory, and the
-// per-block partial sum.
+// Jacobians, the RHS at one point of a tile held in shared memory, the
+// structured forcing of K1-K4 (StimTable) and the per-block partial sum.
 // Counterpart of crdmodel_tpu/ops/kernel_common.py::make_rhs_block,
 // make_split_block and make_divform_rhs_block and of the operator of
 // crdmodel_tpu/ops/pallas_aniso.py; the plain torch versions are
@@ -177,6 +177,80 @@ struct RhsConstants {
   int has_freeze;
 };
 
+// The structured forcing of K1, K2, K3 and K4 (core/forcing.py::
+// SeparableForcing, every stimulus rank-1; ops/kernel_common.py::
+// StimConstants): stimulus j adds (amps[j][a] * rows[j][r]) * cols[j][c]
+// to the right-hand side of its variable at the point of row and column
+// indices (r, c), a being the amplitude column of the evaluation (a stage
+// of the step). The amplitudes are computed on the device before the
+// launch (ops/kernel_common.py::stage_amplitudes) and read here from
+// device memory, like the profiles, through the read-only data cache.
+// Each variable's forcing adds its stimuli in order from +0.0, as
+// ops/kernel_common.py::stim_terms; the right-hand side then takes
+// kinetics + (operator + f_u) and kinetics + f_v, before the freeze's
+// live factor and the tissue field (the torch path's make_rhs). A kernel
+// without a forcing takes NoStim, which compiles all of it out.
+constexpr int kStimMaskBits = 31;  // var1's bits (STIM_MASK_BITS)
+
+struct NoStim {
+  static constexpr bool kOn = false;
+};
+
+template <typename T>
+struct StimTable {
+  static constexpr bool kOn = true;
+  const T* amps;   // (n, n_cols)
+  const T* rows;   // (n, ny)
+  const T* cols;   // (n, nx)
+  int n;
+  int n_cols;
+  int ny;
+  int nx;
+  int var1;        // bit j: stimulus j drives variable 1, else variable 0
+
+  // (f_u, f_v) at amplitude column a and row and column indices (r, c)
+  __device__ __forceinline__ void at(int a, int r, int c, T& fu,
+                                     T& fv) const {
+    fu = T(0);
+    fv = T(0);
+    for (int j = 0; j < n; ++j) {
+      const T x = __ldg(amps + j * n_cols + a) * __ldg(rows + j * ny + r)
+                  * __ldg(cols + j * nx + c);
+      if ((var1 >> j) & 1)
+        fv = fv + x;
+      else
+        fu = fu + x;
+    }
+  }
+};
+
+// A StimTable from the launchers' arguments, or false when they are not
+// one (more stimuli than var1 has bits, a missing table)
+template <typename T>
+inline bool make_stim_table(const void* amps, const void* rows,
+                            const void* cols, int n_stim, int n_cols,
+                            int var1, int ny, int nx, StimTable<T>* out) {
+  if (n_stim < 1 || n_stim > kStimMaskBits || n_cols < 1 || amps == nullptr
+      || rows == nullptr || cols == nullptr)
+    return false;
+  *out = {static_cast<const T*>(amps), static_cast<const T*>(rows),
+          static_cast<const T*>(cols), n_stim, n_cols, ny, nx, var1};
+  return true;
+}
+
+// kinetics (du, dv) plus the operator's lap on variable 0 and, forced,
+// kinetics + (lap + fu) and kinetics + fv
+template <bool kForced, typename T>
+__device__ __forceinline__ void add_operator(T lap, T fu, T fv, T& du,
+                                             T& dv) {
+  if constexpr (kForced) {
+    du = du + (lap + fu);
+    dv = dv + fv;
+  } else {
+    du = du + lap;
+  }
+}
+
 // The profile operator at local point p of a region with row stride W
 // holding variable 0; gx is p's global column.
 template <typename T>
@@ -292,14 +366,14 @@ __device__ __forceinline__ void jacobian(T u, T v, T b, T& j00, T& j01,
 // ydot = f(u, v) at local point p of a region with row stride W, whose
 // global indices are (gy, gx), v the point's variable 1 (only variable 0
 // is read at neighbours); fz is the freeze scalar of the segment.
-template <int Kin, typename T>
+template <int Kin, typename T, bool kForced = false>
 __device__ __forceinline__ void profile_rhs_v(
     const RhsConstants<T>& k, T fz, const T* su, T v, int p, int W, int gy,
-    int gx, T& du_out, T& dv_out) {
+    int gx, T& du_out, T& dv_out, T fu = T(0), T fv = T(0)) {
   const T lap = profile_lap(k, su, p, W, gx);
   T du, dv;
   kinetics<Kin>(su[p], v, beta_at(k, gy), du, dv);
-  du = du + lap;
+  add_operator<kForced>(lap, fu, fv, du, dv);
   if (k.has_freeze) {
     const T live = live_at(k, fz, gy);
     du = du * live;
@@ -325,15 +399,15 @@ struct ProfilePoint {
 // profile_rhs_v on a point's coefficients read before (ProfilePoint), the
 // same operations in the same order (profile_lap's); torus and freeze say
 // whether the operator takes the torus's profiles and whether the run has
-// a freeze
-template <int Kin, typename T>
+// a freeze; kForced adds the point's forcing (fu, fv)
+template <int Kin, typename T, bool kForced = false>
 __device__ __forceinline__ void profile_point_rhs(
     const ProfilePoint<T>& c, bool torus, bool freeze, const T* su, T v,
-    int p, int W, T& du_out, T& dv_out) {
+    int p, int W, T& du_out, T& dv_out, T fu = T(0), T fv = T(0)) {
   const T lap = profile_lap_of(c.c0, c.c1, c.c2, torus, su, p, W);
   T du, dv;
   kinetics<Kin>(su[p], v, c.beta, du, dv);
-  du = du + lap;
+  add_operator<kForced>(lap, fu, fv, du, dv);
   if (freeze) {
     du = du * c.live;
     dv = dv * c.live;
@@ -346,7 +420,7 @@ __device__ __forceinline__ void profile_point_rhs(
 // erk_slots.cuh, fused_rkc.cu, fused_kstep.cu): operator() reads v at p of
 // the region sv, at() takes it by value; point() reads the coefficients of
 // the point of row and column indices (r, c) once, at_point() evaluates on
-// them
+// them; each with (fu, fv) before the outputs adds the point's forcing
 template <int Kin, typename T>
 struct ProfileRhs {
   // shared planes the operator reads at neighbours (erk_slots.cuh): none
@@ -364,6 +438,13 @@ struct ProfileRhs {
                                      int gy, int gx, T& du, T& dv) const {
     profile_rhs_v<Kin>(k, fz, su, v, p, W, gy, gx, du, dv);
   }
+  __device__ __forceinline__ void operator()(T fz, const T* su, const T* sv,
+                                             int p, int W, int gy, int gx,
+                                             T fu, T fv, T& du,
+                                             T& dv) const {
+    profile_rhs_v<Kin, T, true>(k, fz, su, sv[p], p, W, gy, gx, du, dv, fu,
+                                fv);
+  }
   __device__ __forceinline__ Point point(T fz, size_t, size_t, int r,
                                          int c) const {
     const int i = k.torus ? c : 0;
@@ -376,6 +457,12 @@ struct ProfileRhs {
                                            T& du, T& dv) const {
     profile_point_rhs<Kin>(c, k.torus != 0, k.has_freeze != 0, su, v, p, W,
                            du, dv);
+  }
+  __device__ __forceinline__ void at_point(const Point& c, const T*,
+                                           const T* su, T v, int p, int W,
+                                           T fu, T fv, T& du, T& dv) const {
+    profile_point_rhs<Kin, T, true>(c, k.torus != 0, k.has_freeze != 0, su,
+                                    v, p, W, du, dv, fu, fv);
   }
 };
 
@@ -399,11 +486,11 @@ struct FaceConstants {
 // with a freeze, times the tissue field with an obstacle. Closed faces
 // carry zero coefficients, so the halo values they meet contribute exact
 // zeros.
-template <int Kin, typename T, class Grid>
+template <int Kin, typename T, class Grid, bool kForced = false>
 __device__ __forceinline__ void divform_rhs(
     const FaceConstants<T>& f, const RhsConstants<T>& k, const Grid& grid,
     T fz, const T* su, T v, int p, int W, int gy, int gx, T& du_out,
-    T& dv_out) {
+    T& dv_out, T fu = T(0), T fv = T(0)) {
   const size_t g = grid.field(gy, gx);
   const size_t gs = grid.field(grid.south(gy), gx);
   const T u = su[p];
@@ -413,7 +500,7 @@ __device__ __forceinline__ void divform_rhs(
                 + __ldg(f.aN + gs) * (su[p - W] - u);
   T du, dv;
   kinetics<Kin>(u, v, beta_at(k, gy), du, dv);
-  du = du + lap;
+  add_operator<kForced>(lap, fu, fv, du, dv);
   if (k.has_freeze) {
     const T live = live_at(k, fz, gy);
     du = du * live;
@@ -446,17 +533,17 @@ struct FacePoint {
 
 // divform_rhs on a point's coefficients read before (FacePoint), the same
 // operations in the same order; freeze and tissue say whether the run has
-// a freeze and an obstacle
-template <int Kin, typename T>
+// a freeze and an obstacle; kForced adds the point's forcing (fu, fv)
+template <int Kin, typename T, bool kForced = false>
 __device__ __forceinline__ void divform_point_rhs(
     const FacePoint<T>& c, bool freeze, bool tissue, const T* su, T v,
-    int p, int W, T& du_out, T& dv_out) {
+    int p, int W, T& du_out, T& dv_out, T fu = T(0), T fv = T(0)) {
   const T u = su[p];
   const T lap = c.ae * (su[p + 1] - u) + c.aw * (su[p - 1] - u)
                 + c.an * (su[p + W] - u) + c.as * (su[p - W] - u);
   T du, dv;
   kinetics<Kin>(u, v, c.beta, du, dv);
-  du = du + lap;
+  add_operator<kForced>(lap, fu, fv, du, dv);
   if (freeze) {
     du = du * c.live;
     dv = dv * c.live;
@@ -474,7 +561,8 @@ __device__ __forceinline__ void divform_point_rhs(
 // branch, HaloGrid for K11's divform mode; operator() reads v at p of the
 // region sv, at() takes it by value; point() reads the coefficients of the
 // point at field offset g (gs the offset of the row below, r and c its row
-// and column indices) once, at_point() evaluates on them.
+// and column indices) once, at_point() evaluates on them; each with
+// (fu, fv) before the outputs adds the point's forcing.
 template <int Kin, typename T, class Grid>
 struct DivformRhs {
   // shared planes the operator reads at neighbours (erk_slots.cuh): none
@@ -494,6 +582,19 @@ struct DivformRhs {
                                      int gy, int gx, T& du, T& dv) const {
     divform_rhs<Kin>(f, k, grid, fz, su, v, p, W, gy, gx, du, dv);
   }
+  __device__ __forceinline__ void operator()(T fz, const T* su, const T* sv,
+                                             int p, int W, int gy, int gx,
+                                             T fu, T fv, T& du,
+                                             T& dv) const {
+    divform_rhs<Kin, T, Grid, true>(f, k, grid, fz, su, sv[p], p, W, gy, gx,
+                                    du, dv, fu, fv);
+  }
+  __device__ __forceinline__ void at(T fz, const T* su, T v, int p, int W,
+                                     int gy, int gx, T fu, T fv, T& du,
+                                     T& dv) const {
+    divform_rhs<Kin, T, Grid, true>(f, k, grid, fz, su, v, p, W, gy, gx, du,
+                                    dv, fu, fv);
+  }
   __device__ __forceinline__ FacePoint<T> point(T fz, size_t g, size_t gs,
                                                 int r, int) const {
     return {__ldg(f.aE + g),
@@ -510,6 +611,12 @@ struct DivformRhs {
                                            T& du, T& dv) const {
     divform_point_rhs<Kin>(c, k.has_freeze, f.tissue != nullptr, su, v, p,
                            W, du, dv);
+  }
+  __device__ __forceinline__ void at_point(const FacePoint<T>& c, const T*,
+                                           const T* su, T v, int p, int W,
+                                           T fu, T fv, T& du, T& dv) const {
+    divform_point_rhs<Kin, T, true>(c, k.has_freeze, f.tissue != nullptr,
+                                    su, v, p, W, du, dv, fu, fv);
   }
 };
 

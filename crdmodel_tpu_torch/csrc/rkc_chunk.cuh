@@ -71,6 +71,17 @@
 // added as kRkcThreads threads added it there: thread t the points t,
 // t + kRkcThreads, ... of the sum tile, u then v, then the block's
 // warp-shuffle tree and its warps in order.
+//
+// A structured forcing (K2: Stim = StimTable, rhs_common.cuh;
+// pallas_rkc.py:434-468, 517-551, 715-735) adds stimulus j's
+// (amps[j][a] * rows[j][r]) * cols[j][c] to evaluation e's right-hand
+// side at the point of row and column indices (r, c) (the wrapped ones on
+// a region's rings). a is the amplitude column of the step's evaluation e,
+// whichever chunk runs it: the one column of a table whose stimuli are all
+// segment-gated (constant over the step), else the JAX package's stage
+// time index of that evaluation (ops/fused_rkc.py::static_stage_tables
+// with_times: 0 for F0, e + 1 for f(Y_e) and for F1). Stim = NoStim
+// compiles it out.
 
 #pragma once
 
@@ -214,7 +225,13 @@ __device__ __forceinline__ void store_tile_sum(T acc, T* warp_sums, T* out) {
 // The functor: rhs.at(fz, su, v, p, W, r, c, du, dv) writes ydot at local
 // point p of a region with row stride W holding variable 0 in su, v the
 // point's variable 1, r and c its row and column indices.
-template <class Rhs, class Grid, typename T>
+// The amplitude column of a step's RHS evaluation e (0: F0 and Y1; e in
+// 1..s-1: f(Y_e); s: F1) in an amplitude table of n_cols columns
+__host__ __device__ __forceinline__ int rkc_amp_column(int e, int n_cols) {
+  return n_cols == 1 || e == 0 ? 0 : e + 1;
+}
+
+template <class Rhs, class Grid, typename T, class Stim>
 __global__ void __launch_bounds__(kRkcThreads, (kRkcMinBlocks<T>))
     fused_rkc_chunk_kernel(const T* __restrict__ y, T* __restrict__ y_new,
                            T* __restrict__ ss, T* work,
@@ -223,7 +240,8 @@ __global__ void __launch_bounds__(kRkcThreads, (kRkcMinBlocks<T>))
                            const int* __restrict__ s_ptr,
                            const T* __restrict__ mu1_tab,
                            const T* __restrict__ ctab, int s_cap, Rhs rhs,
-                           Grid grid, RkcPlan plan, T rtol, T atol) {
+                           Grid grid, RkcPlan plan, T rtol, T atol,
+                           Stim stim) {
   using Reg = RkcRegion;
   using Origin = ChunkOrigin<Grid>;
   constexpr int W = Reg::kW;
@@ -305,19 +323,32 @@ __global__ void __launch_bounds__(kRkcThreads, (kRkcMinBlocks<T>))
       // the chunk on one tile; kIn: its region lies inside the grid
       const auto chunk = [&](auto inner) {
         constexpr bool kIn = decltype(inner)::value;
-        // f(u, v) at local point p (row ly, column lx), u read from the
-        // plane su at p and its neighbours: ProfileRhs on the staged
-        // coefficients (ProfileRhs::at's operations, at_point), any other
-        // functor on its own reads
-        const auto f = [&](const T* su, T v, int p, int ly, int lx, T& du,
-                           T& dv) {
-          if constexpr (kProfile)
+        // f(u, v) of evaluation e at local point p (row ly, column lx),
+        // u read from the plane su at p and its neighbours: ProfileRhs on
+        // the staged coefficients (ProfileRhs::at's operations, at_point),
+        // any other functor on its own reads; with a forcing, its value at
+        // the point added
+        const auto f = [&](int e, const T* su, T v, int p, int ly, int lx,
+                           T& du, T& dv) {
+          if constexpr (Stim::kOn) {
+            const int r = o.template row<kIn>(ly);
+            const int c = o.template col<kIn>(lx);
+            T gu, gv;
+            stim.at(rkc_amp_column(e, stim.n_cols), r, c, gu, gv);
+            if constexpr (kProfile)
+              rhs.at_point({colc[lx], colc[W + lx], colc[2 * W + lx],
+                            rowc[ly], rowc[Reg::kR + ly]},
+                           nullptr, su, v, p, W, gu, gv, du, dv);
+            else
+              rhs.at(fz, su, v, p, W, r, c, gu, gv, du, dv);
+          } else if constexpr (kProfile) {
             rhs.at_point({colc[lx], colc[W + lx], colc[2 * W + lx],
                           rowc[ly], rowc[Reg::kR + ly]},
                          nullptr, su, v, p, W, du, dv);
-          else
+          } else {
             rhs.at(fz, su, v, p, W, o.template row<kIn>(ly),
                    o.template col<kIn>(lx), du, dv);
+          }
         };
         if constexpr (kProfile) {
           const int i = threadIdx.x;
@@ -374,7 +405,7 @@ __global__ void __launch_bounds__(kRkcThreads, (kRkcMinBlocks<T>))
               const int ly = Reg::row(p), lx = Reg::col(p);
               const T u0 = y0u[p], v0 = y0v[p];
               T du, dv;
-              f(y0u, v0, p, ly, lx, du, dv);
+              f(e, y0u, v0, p, ly, lx, du, dv);
               f0u[p] = du;
               f0v[p] = dv;
               nxt[p] = u0 + hmu1 * du;
@@ -395,7 +426,7 @@ __global__ void __launch_bounds__(kRkcThreads, (kRkcMinBlocks<T>))
               const int p = Reg::point(m);
               const int ly = Reg::row(p), lx = Reg::col(p);
               T fu, fv;
-              f(cur, ycv[m], p, ly, lx, fu, fv);
+              f(e, cur, ycv[m], p, ly, lx, fu, fv);
               const T cu = cur[p], cv = ycv[m];
               nxt[p] = cy0 * y0u[p] + mu * cu + nu * ypu[m] + hmut * fu
                        + hgt * f0u[p];
@@ -419,7 +450,7 @@ __global__ void __launch_bounds__(kRkcThreads, (kRkcMinBlocks<T>))
                 continue;
               }
               T f1u, f1v;
-              f(cur, ycv[m], p, ly, lx, f1u, f1v);
+              f(e, cur, ycv[m], p, ly, lx, f1u, f1v);
               const T yu = cur[p], yv = ycv[m];
               const size_t g = o.template at<kIn>(ly, lx);
               y_new[g] = yu;
@@ -497,21 +528,23 @@ cudaError_t rkc_chunk_smem(Kernel kernel) {
                               static_cast<int>(kRkcSmem<T>));
 }
 
-// One step of fused_rkc_chunk_kernel<Rhs, Grid, T> on `stream`: a
+// One step of fused_rkc_chunk_kernel<Rhs, Grid, T, Stim> on `stream`: a
 // cooperative launch of as many blocks as stay resident, at most
-// max_tiles (the most tiles a chunk has); returns the CUDA error code (0
-// on success), checked right after the launch.
-template <class Rhs, class Grid, typename T>
+// max_tiles (the most tiles a chunk has); stim: the structured forcing
+// (StimTable) or NoStim; returns the CUDA error code (0 on success),
+// checked right after the launch.
+template <class Rhs, class Grid, typename T, class Stim = NoStim>
 int launch_rkc_chunk(Rhs rhs, Grid grid, RkcPlan plan, int max_tiles,
                      const void* y, void* y_new, void* ss, void* work,
                      const void* h, const void* fz, const void* s,
                      const void* mu1_tab, const void* ctab, int s_cap,
-                     double rtol, double atol, void* stream) {
+                     double rtol, double atol, void* stream,
+                     Stim stim = Stim{}) {
   if (s_cap < 2 || s_cap > kRkcMaxStages || plan.ny < 1 || plan.nx < 1
       || plan.sum_tx < 1 || plan.sum_ty < 1 || kRkcTile % plan.sum_tx != 0
       || kRkcTile % plan.sum_ty != 0 || max_tiles < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = &fused_rkc_chunk_kernel<Rhs, Grid, T>;
+  auto kernel = &fused_rkc_chunk_kernel<Rhs, Grid, T, Stim>;
   const cudaError_t err = rkc_chunk_smem<T>(kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   const T* y_arg = static_cast<const T*>(y);
@@ -526,7 +559,7 @@ int launch_rkc_chunk(Rhs rhs, Grid grid, RkcPlan plan, int max_tiles,
   T rtol_arg = static_cast<T>(rtol), atol_arg = static_cast<T>(atol);
   void* args[] = {&y_arg, &ynew_arg, &ss_arg, &work_arg, &h_arg, &fz_arg,
                   &s_arg, &mu1_arg, &ctab_arg, &s_cap, &rhs, &grid, &plan,
-                  &rtol_arg, &atol_arg};
+                  &rtol_arg, &atol_arg, &stim};
   int n_blocks = 0;
   return launch_cooperative(kernel,
                             static_cast<size_t>(max_tiles) * kRkcThreads,
@@ -535,11 +568,11 @@ int launch_rkc_chunk(Rhs rhs, Grid grid, RkcPlan plan, int max_tiles,
 }
 
 // out[0] the resident blocks an SM, out[1] the registers a thread, out[2]
-// the shared bytes (dynamic and static) a block of
+// the shared bytes (dynamic and static) a block of the unforced
 // fused_rkc_chunk_kernel<Rhs, Grid, T>; returns the CUDA error code.
 template <class Rhs, class Grid, typename T>
 int rkc_chunk_info(int* out) {
-  auto kernel = &fused_rkc_chunk_kernel<Rhs, Grid, T>;
+  auto kernel = &fused_rkc_chunk_kernel<Rhs, Grid, T, NoStim>;
   cudaFuncAttributes attr;
   cudaError_t err = rkc_chunk_smem<T>(kernel);
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);

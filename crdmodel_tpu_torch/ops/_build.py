@@ -42,18 +42,26 @@ _INTP = ctypes.POINTER(ctypes.c_int)
 # fused_box3d_rkc.cu, fused_shard_step.cu, fused_shard_rkc.cu,
 # fused_shard_imex.cu, fused_shard_divform.cu, fused_shard_box3d.cu,
 # fused_shard_box3d_rkc.cu, fused_kstep.cu)
-_FUSED_STEP_ARGTYPES = ([_VOIDP] * 8 + [_INT, _VOIDP, _INT, _VOIDP]
+# the structured forcing of K1-K4 after fz: amps, rows, cols; n_stim,
+# n_cols, var1 (ops/kernel_common.py::StimConstants.launch_args)
+_STIM = [_VOIDP] * 3 + [_INT] * 3
+_FUSED_STEP_ARGTYPES = ([_VOIDP] * 5 + _STIM + [_VOIDP] * 3
+                        + [_INT, _VOIDP, _INT, _VOIDP]
                         + [_INT] * 7 + [_DOUBLEP] * 3
                         + [_DOUBLE, _DOUBLE, _VOIDP])
-# K2: y, y_new, ss, work, h, fz, s, mu1_tab, ctab; s_cap; c0..c2; torus;
-# aE, aW, aN, tissue; beta, beta_field, mask; has_freeze, kinetics, ny, nx
-_FUSED_RKC_ARGTYPES = ([_VOIDP] * 9 + [_INT] + [_VOIDP] * 3 + [_INT]
+# K2: y, y_new, ss, work, h, fz; the forcing; s, mu1_tab, ctab; s_cap;
+# c0..c2; torus; aE, aW, aN, tissue; beta, beta_field, mask; has_freeze,
+# kinetics, ny, nx
+_FUSED_RKC_ARGTYPES = ([_VOIDP] * 6 + _STIM + [_VOIDP] * 3 + [_INT]
+                       + [_VOIDP] * 3 + [_INT]
                        + [_VOIDP] * 4 + [_VOIDP, _INT, _VOIDP] + [_INT] * 4
                        + [_DOUBLE, _DOUBLE, _VOIDP])
-_FUSED_IMEX_ARGTYPES = ([_VOIDP] * 8 + [_INT, _VOIDP, _INT, _VOIDP]
+_FUSED_IMEX_ARGTYPES = ([_VOIDP] * 5 + _STIM + [_VOIDP] * 3
+                        + [_INT, _VOIDP, _INT, _VOIDP]
                         + [_INT] * 6 + [_DOUBLEP] * 4
                         + [_DOUBLE] * 3 + [_VOIDP])
-_FUSED_DIVFORM_ARGTYPES = ([_VOIDP] * 10 + [_INT, _VOIDP] + [_INT] * 7
+_FUSED_DIVFORM_ARGTYPES = ([_VOIDP] * 5 + _STIM + [_VOIDP] * 5
+                           + [_INT, _VOIDP] + [_INT] * 7
                            + [_DOUBLEP] * 3 + [_DOUBLE, _DOUBLE, _VOIDP])
 _FUSED_ANISO_ARGTYPES = ([_VOIDP] * 9 + [_INT, _VOIDP] + [_INT] * 7
                          + [_DOUBLEP] * 3 + [_DOUBLE, _DOUBLE, _VOIDP])

@@ -38,6 +38,12 @@ The TPU's lane padding and 8-row halo are gone: the state is (nvars, ny,
 nx), contiguous, and a tile carries the 4 rings its 4 stencils consume.
 The plan is sized to the grid (slots_plan); at the 32x32 plan the partial
 sums, and so a run's steps, are those of the port's first K3 kernel.
+
+A structured forcing (core/forcing.py::SeparableForcing, rank-1 stimuli;
+pallas_imex.py:190-217, 232-240, 312) joins the explicit evaluations only,
+at the ARK c nodes (imex.C): the step computes the four amplitudes on the
+device (kernel_common.stage_amplitudes) and kE_i = (lap + F0, F1) times
+live; the Newton stages stay autonomous.
 """
 
 from __future__ import annotations
@@ -50,15 +56,19 @@ import torch
 
 from crdmodel_tpu_torch.integrate import imex
 from crdmodel_tpu_torch.ops.fused_kstep import block_sums
-from crdmodel_tpu_torch.ops.kernel_common import (KernelConstants,
+from crdmodel_tpu_torch.ops.kernel_common import (NO_STIM_ARGS,
+                                                  KernelConstants,
                                                   check_constants,
                                                   check_tensor,
+                                                  forcing_of,
                                                   freeze_scalar,
                                                   fused_forcing,
                                                   kernel_ready_kinetics,
                                                   make_split_block,
                                                   needs_divform,
-                                                  prepare_constants)
+                                                  prepare_constants,
+                                                  prepare_stim_constants,
+                                                  stage_amplitudes)
 
 HALO = 4                       # one ring per explicit stencil evaluation
 TILE = 32                      # the tiles' width; and the 32x32 plan's rows
@@ -74,13 +84,13 @@ SLOTS_KERNEL = "fused_imex_slots_kernel"
 def is_imex_supported(problem, dtype) -> bool:
     """The kernel's gate (crdmodel_tpu/ops/pallas_imex.py:60) without the
     TPU strip-divisor rule, plus the port-only kinetics rule
-    (kernel_common.kernel_ready_kinetics). Any forcing declines: the port
-    has none yet (ROADMAP queue 1, item 9). Divergence-form problems
-    decline, as in the JAX package, and take the torch path, as do
-    problems with a diffusion tensor (crdmodel_tpu/sim.py:240-251)."""
+    (kernel_common.kernel_ready_kinetics). A structured forcing is taken
+    (kernel_common.fused_forcing). Divergence-form problems decline, as
+    in the JAX package, and take the torch path, as do problems with a
+    diffusion tensor (crdmodel_tpu/sim.py:240-251)."""
     if needs_divform(problem) or problem.diffusion_tensor is not None:
         return False
-    if fused_forcing(problem) is not None:
+    if fused_forcing(problem) is False:
         return False
     if dtype != torch.float32:
         return False
@@ -136,17 +146,25 @@ def _table():
     return tuple((ctypes.c_double * len(x))(*x) for x in rows)
 
 
-def imex_stages_reference(y, h, fz, kc: KernelConstants):
+def imex_stages_reference(y, h, fz, kc: KernelConstants, stim=None,
+                          amps=None):
     """(y_new, err, dys) of one step in plain torch, in the kernel's order:
-    dys holds each implicit stage's last Newton update."""
-    ex_block, im_block, jac_block = make_split_block(kc, fz)
+    dys holds each implicit stage's last Newton update. stim, amps: a
+    structured forcing's StimConstants and its (n_stim, STAGES)
+    amplitudes, added to the explicit evaluations, or None."""
+    split_ex, im_block, jac_block = make_split_block(kc, fz)
+    fs = forcing_of(stim, amps, y)
+
+    def ex_block(x, s):
+        return split_ex(x) if fs is None else split_ex(x, fs(s))
+
     AE, AI, B, D = imex.AE, imex.AI, imex.B, imex.D
     hg = h * imex.GAMMA
     nvars = y.shape[0]
     eye = torch.eye(nvars, dtype=y.dtype, device=y.device).reshape(
         nvars, nvars, 1, 1)
 
-    kE = [ex_block(y)]
+    kE = [ex_block(y, 0)]
     kI = [im_block(y)]
     dys = []
     for s in range(1, imex.STAGES):
@@ -164,7 +182,7 @@ def imex_stages_reference(y, h, fz, kc: KernelConstants):
             dy = imex.solve_pointwise(m, -resid)
             yi = yi + dy
         dys.append(dy)
-        kE.append(ex_block(yi))
+        kE.append(ex_block(yi, s))
         kI.append((yi - rhs_known) / hg)
 
     y_new = y
@@ -192,11 +210,11 @@ def imex_error_sum(err, dys, y, rtol: float, atol: float):
 
 
 def fused_imex_step_reference(y, h, fz, kc: KernelConstants, rtol: float,
-                              atol: float):
+                              atol: float, stim=None, amps=None):
     """One step in plain torch: (y_new, ss) with ss a (1,) tensor holding
     the sum of squared WRMS-scaled errors plus (1/NEWTON_TOL)^2 times the
     sum of the squared scaled last Newton updates of the three stages."""
-    y_new, err, dys = imex_stages_reference(y, h, fz, kc)
+    y_new, err, dys = imex_stages_reference(y, h, fz, kc, stim, amps)
     return y_new, imex_error_sum(err, dys, y, rtol, atol)
 
 
@@ -258,10 +276,10 @@ def imex_tile_sums(err, dys, y0, rtol: float, atol: float, tile_y: int,
 
 
 def fused_imex_tile_sums(y, h, fz, kc: KernelConstants, rtol: float,
-                         atol: float):
+                         atol: float, stim=None, amps=None):
     """The kernel's partial sums in plain torch: (n_blocks,), one a tile of
     slots_plan, each in the kernel's order (imex_tile_sums)."""
-    _, err, dys = imex_stages_reference(y, h, fz, kc)
+    _, err, dys = imex_stages_reference(y, h, fz, kc, stim, amps)
     _, ny, nx = y.shape
     tile_y = slots_plan(ny, nx, y.element_size()).tile_y
     return imex_tile_sums(err, dys, y, rtol, atol, tile_y)
@@ -276,17 +294,21 @@ def kernel_info(dtype, kinetics_id: int, tile_y: int) -> dict:
     return query("crd_fused_imex_info", f64, kinetics_id, tile_y)
 
 
-def fused_imex_step(y, h, fz, kc: KernelConstants, rtol: float, atol: float):
+def fused_imex_step(y, h, fz, kc: KernelConstants, rtol: float, atol: float,
+                    stim=None, amps=None):
     """One fused IMEX step: (y_new (2, ny, nx), ss partials (n_blocks,)),
     on the tiles of slots_plan.
 
     h and fz are 0-d tensors in y's dtype on y's device: the kernel reads
-    them there, so a step needs no host sync. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises.
-    `fused_imex_step.launches` counts kernel launches.
+    them there, so a step needs no host sync. stim, amps: a structured
+    forcing's StimConstants and its (n_stim, STAGES) amplitudes of the
+    explicit stages on the same device, or None (the unforced kernel). A
+    CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    or raises. `fused_imex_step.launches` counts kernel launches.
     """
     if y.device.type == "cpu":
-        return fused_imex_step_reference(y, h, fz, kc, rtol, atol)
+        return fused_imex_step_reference(y, h, fz, kc, rtol, atol, stim,
+                                         amps)
     if y.device.type != "cuda":
         raise ValueError(f"no fused IMEX step kernel for device {y.device}")
     dtype, device = y.dtype, y.device
@@ -299,6 +321,12 @@ def fused_imex_step(y, h, fz, kc: KernelConstants, rtol: float, atol: float):
     check_tensor("h", h, (), dtype, device)
     check_tensor("fz", fz, (), dtype, device)
     check_constants(kc, ny, nx, dtype, device)
+    forcing_args = NO_STIM_ARGS
+    if stim is not None:
+        if amps.shape[-1] != imex.STAGES:
+            raise ValueError(f"amps has {amps.shape[-1]} columns for "
+                             f"{imex.STAGES} explicit stages")
+        forcing_args = stim.launch_args(amps)
 
     from crdmodel_tpu_torch.ops._build import load_library
     lib = load_library()
@@ -311,7 +339,7 @@ def fused_imex_step(y, h, fz, kc: KernelConstants, rtol: float, atol: float):
     # the CUDA runtime launches on the current device: make it y's
     with torch.cuda.device(device):
         rc = launch(y.data_ptr(), y_new.data_ptr(), ss.data_ptr(),
-                    h.data_ptr(), fz.data_ptr(),
+                    h.data_ptr(), fz.data_ptr(), *forcing_args,
                     *(c.data_ptr() for c in kc.coeffs),
                     int(kc.kind == "torus"), kc.b.data_ptr(),
                     int(kc.b_is_field), kc.mask.data_ptr(), int(kc.has_freeze),
@@ -332,16 +360,22 @@ def build_fused_imex_step(problem):
     """step_err(t, y, h, params) -> (y_new, err_ss) of `problem` through the
     fused IMEX step, in the problem's dtype on its device
     (crdmodel_tpu/ops/pallas_imex.py:155). The freeze comes from
-    params["_seg_end"]; t is unused (the kinetics are autonomous)."""
+    params["_seg_end"]; t enters only through a structured forcing's
+    amplitudes at the explicit stages (the kinetics are autonomous)."""
     cfg = problem.cfg
     dtype = problem.y0.dtype
     kc = prepare_constants(problem, dtype, problem.device)
+    stim = prepare_stim_constants(problem, dtype, problem.device)
+    c_nodes = torch.tensor(imex.C, dtype=dtype, device=problem.device)
     rtol, atol = float(cfg.rtol), float(cfg.atol)
     t_boundary = float(cfg.t_boundary)
 
     def step_err(t, y, h, params):
+        h = h.to(dtype)
         fz = freeze_scalar(params, kc.has_freeze, t_boundary, dtype)
-        y_new, ss = fused_imex_step(y, h.to(dtype), fz, kc, rtol, atol)
+        amps = (None if stim is None else stage_amplitudes(
+            stim.forcing, t, h, c_nodes, params, dtype))
+        y_new, ss = fused_imex_step(y, h, fz, kc, rtol, atol, stim, amps)
         return y_new, torch.sum(ss)
 
     return step_err

@@ -37,6 +37,18 @@ is K2b's step. The JAX package also caps s at 15 on divergence-form
 problems whose strip plan lacks its deep variant (ROADMAP queue 2). The
 divergence branch reads the face coefficients as K4 does (DivformConstants,
 aS = roll_y(aN)). The state is (nvars, ny, nx), contiguous and unpadded.
+
+A structured forcing (core/forcing.py::SeparableForcing, rank-1 stimuli;
+pallas_rkc.py:434-468, 517-551, 715-735) adds its terms to every RHS
+evaluation, before the freeze and the tissue field, in both branches. When
+every stimulus is segment-gated (pulse trains) the amplitudes are constant
+over the step: one column, waveform(t, seg_end). Otherwise one column per
+stage time of static_stage_tables(with_times=True), the true Chebyshev
+stage times t + c h of the step's s, computed on the device
+(stage_times_amplitudes); evaluation e reads column amp_column(e), the
+step's evaluation index, whatever chunk runs it. The JAX package declines
+forcing on its column-blocked K2b (pallas_rkc.py:230-234), a layout this
+kernel does not have: it takes forcing at every width.
 """
 
 from __future__ import annotations
@@ -50,11 +62,13 @@ import torch
 from crdmodel_tpu_torch.core.problem import make_rho_bound
 from crdmodel_tpu_torch.integrate import rkc
 from crdmodel_tpu_torch.ops.fused_step import error_sum
-from crdmodel_tpu_torch.ops.kernel_common import (SMEM_BYTES,
+from crdmodel_tpu_torch.ops.kernel_common import (NO_STIM_ARGS, SMEM_BYTES,
                                                   KernelConstants,
                                                   check_constants,
                                                   check_tensor,
                                                   face_coeffs64,
+                                                  forcing_amplitudes,
+                                                  forcing_of,
                                                   freeze_scalar,
                                                   fused_forcing,
                                                   kernel_ready_kinetics,
@@ -63,6 +77,7 @@ from crdmodel_tpu_torch.ops.kernel_common import (SMEM_BYTES,
                                                   needs_divform,
                                                   prepare_constants,
                                                   prepare_divform_constants,
+                                                  prepare_stim_constants,
                                                   south_is_rolled_north)
 
 S_MAX_KERNEL = 23              # the TPU kernel's halo P=24 less one
@@ -90,9 +105,12 @@ def is_rkc_supported(problem, dtype) -> bool:
     the divergence branch on the flat and torus surfaces when aS ==
     roll_y(aN) exactly on the float64 faces (pallas_rkc.py:239-253).
     Problems with a diffusion tensor decline: rkc2 takes no kernel there
-    (crdmodel_tpu/sim.py:189-191)."""
-    if fused_forcing(problem) is not None:
-        return False            # the kernel takes no forcing yet (item 9)
+    (crdmodel_tpu/sim.py:189-191). A structured forcing is taken, gated
+    and smooth waveforms alike (kernel_common.fused_forcing), at every
+    width: the JAX package's K2b predicate (pallas_rkc.py:230-234) is its
+    column-blocked layout's, which this kernel does not have."""
+    if fused_forcing(problem) is False:
+        return False
     if dtype != torch.float32:
         return False
     if problem.diffusion_tensor is not None:
@@ -210,13 +228,20 @@ def rkc_stage_coeffs(s, dtype):
     return mu1, tab
 
 
-def static_stage_tables(s_cap: int, dtype, device="cpu"):
+def static_stage_tables(s_cap: int, dtype, device="cpu",
+                        with_times: bool = False):
     """mu1[s] (s_cap+1,) and ctab[s] (s_cap+1, S_MAX_KERNEL+1, 4) =
     rkc_stage_coeffs(s) for every s in [2, s_cap], computed in float64
-    numpy and cast to `dtype` (crdmodel_tpu/ops/pallas_rkc.py:300-353). The
-    stage times (with_times) come with forcing (ROADMAP queue 1, item 9)."""
+    numpy and cast to `dtype` (crdmodel_tpu/ops/pallas_rkc.py:300-353).
+
+    with_times: also ctimes[s, a] (s_cap+1, S_MAX_KERNEL+2), the normalised
+    stage time of the RHS evaluation of amplitude column a (the offsets of
+    the torch path's rkc2, integrate/rkc.py): a = 0 is F0 at t, a = j for
+    j in [2, s] is f(Y_{j-1}) at t + c_{j-1} h, a = s + 1 is F1 at t + h
+    (amp_column maps the kernel's evaluations onto them)."""
     mu1 = np.zeros((s_cap + 1,), np.float64)
     ctab = np.zeros((s_cap + 1, S_MAX_KERNEL + 1, 4), np.float64)
+    ctimes = np.zeros((s_cap + 1, S_MAX_KERNEL + 2), np.float64)
     for s in range(2, s_cap + 1):
         w0 = 1.0 + rkc.EPS_DAMP / (s * s)
         T = np.zeros(s + 1)
@@ -240,51 +265,110 @@ def static_stage_tables(s_cap: int, dtype, device="cpu"):
             mut = 2 * b[j] * w1 / b[j - 1]
             gt = -(1.0 - b[j - 1] * T[j - 1]) * mut
             ctab[s, j] = (mu, nu, mut, gt)
+            # c_{j-1} = w1 T''_{j-1} / T'_{j-1}, c_1 = w1 / (4 w0)
+            ctimes[s, j] = (0.25 * w1 / w0 if j == 2
+                            else w1 * d2T[j - 1] / dT[j - 1])
+        ctimes[s, s + 1] = 1.0
+    tables = (mu1, ctab, ctimes) if with_times else (mu1, ctab)
     return tuple(torch.tensor(a, dtype=dtype, device=device)
-                 for a in (mu1, ctab))
+                 for a in tables)
+
+
+def amp_column(e: int, n_cols: int) -> int:
+    """The amplitude column of a step's RHS evaluation e (0: F0 and Y1; e
+    in 1..s-1: f(Y_e); s: F1) in a table of n_cols columns
+    (csrc/rkc_chunk.cuh::rkc_amp_column): 0 with one column, else the
+    with_times index, 0 for F0 and e + 1 after."""
+    return 0 if n_cols == 1 or e == 0 else e + 1
+
+
+def stage_times_amplitudes(forcing, t, h, s, ctimes_tab, params, dtype):
+    """The (n_stim, n_cols) amplitude table of one K2 step on t's device:
+    (n_stim, 1) at t (segment-gated waveforms at params["_seg_end"]) when
+    every stimulus is segment-gated, else (n_stim, S_MAX_KERNEL + 2) at
+    the stage times t + ctimes[s] h of the step's stage count s (a 0-d
+    int tensor, never read on the host) (crdmodel_tpu/ops/pallas_rkc.py:
+    715-735)."""
+    if all(getattr(st.waveform, "segment_gated", False)
+           for st in forcing.stimuli):
+        return forcing_amplitudes(forcing, t.reshape(1), params, dtype)
+    ct = torch.index_select(ctimes_tab, 0, s.reshape(1).long())[0]
+    return forcing_amplitudes(forcing, t + ct * h, params, dtype)
+
+
+def rkc_forcing(stim, amps, y):
+    """fe(e) -> the forcing of a K2 step's RHS evaluation e (amp_column of
+    the table amps), or None without a forcing."""
+    fs = forcing_of(stim, amps, y)
+    if fs is None:
+        return None
+    return lambda e: fs(amp_column(e, amps.shape[-1]))
 
 
 def fused_rkc_step_reference(y, h, fz, s, mu1_tab, ctab_tab,
-                             kc: KernelConstants, rtol: float, atol: float):
+                             kc: KernelConstants, rtol: float, atol: float,
+                             stim=None, amps=None):
     """One step in plain torch: (y_new, ss) with ss a (1,) tensor holding
     the sum of squared WRMS-scaled errors. Reads the stage count s (a 0-d
     int tensor) on the host. kc is the profile operator's KernelConstants
     or the divergence form's DivformConstants (K4's RHS,
-    kernel_common.make_divform_rhs_block)."""
+    kernel_common.make_divform_rhs_block); stim, amps a structured
+    forcing's StimConstants and amplitude table, or None."""
     rhs_block = (make_divform_rhs_block(kc, fz) if kc.kind == "divform"
                  else make_rhs_block(kc, fz))
     return rkc_step_reference(y, h, s, mu1_tab, ctab_tab, rhs_block, rtol,
-                              atol)
+                              atol, rkc_forcing(stim, amps, y))
 
 
 def rkc_step_reference(y, h, s, mu1_tab, ctab_tab, rhs_block, rtol: float,
-                       atol: float):
+                       atol: float, fe=None):
     """One RKC2 step of s stages (a 0-d int tensor, read on the host) on
     rhs_block(y) -> ydot in plain torch, in the order of the fused RKC
     kernels (csrc/fused_rkc.cu, csrc/fused_box3d_rkc.cu): (y_new, ss) with
-    ss a (1,) tensor holding the sum of squared WRMS-scaled errors."""
-    y_new, est = rkc_stages_reference(y, h, s, mu1_tab, ctab_tab, rhs_block)
+    ss a (1,) tensor holding the sum of squared WRMS-scaled errors. fe(e)
+    -> evaluation e's forcing (rkc_forcing), or None."""
+    y_new, est = rkc_stages_reference(y, h, s, mu1_tab, ctab_tab, rhs_block,
+                                      fe)
     return y_new, error_sum(est, y, rtol, atol)
 
 
-def rkc_stages_reference(y, h, s, mu1_tab, ctab_tab, rhs_block):
+def rkc_stages_reference(y, h, s, mu1_tab, ctab_tab, rhs_block, fe=None):
     """(y_new, est) of one RKC2 step of s stages on rhs_block(y) in plain
     torch, in the order of the fused RKC kernels; est is the order-2 error
-    estimate."""
+    estimate; fe(e) -> the forcing of RHS evaluation e (0: F0; e in
+    1..s-1: f(Y_e); s: F1), or None."""
+    def f(e, x):
+        return rhs_block(x) if fe is None else rhs_block(x, fe(e))
+
     n = int(s)
     mu1 = mu1_tab[n]
-    f0 = rhs_block(y)
+    f0 = f(0, y)
     yjm1, yjm2 = y + (h * mu1) * f0, y
     for j in range(2, n + 1):
         mu, nu, mut, gt = ctab_tab[n, j]
-        fy = rhs_block(yjm1)
+        fy = f(j - 1, yjm1)
         yj = ((1.0 - mu - nu) * y + mu * yjm1 + nu * yjm2
               + (h * mut) * fy + (h * gt) * f0)
         yjm1, yjm2 = yj, yjm1
     y_new = yjm1
-    f1 = rhs_block(y_new)
+    f1 = f(n, y_new)
     est = 0.8 * (y - y_new) + (0.4 * h) * (f0 + f1)
     return y_new, est
+
+
+def fused_rkc_tile_sums(y, h, fz, s, mu1_tab, ctab_tab, kc: KernelConstants,
+                        rtol: float, atol: float, stim=None, amps=None):
+    """The kernel's partial sums in plain torch: (n_chunk_tiles(ny, nx),),
+    one a CHUNK_TILE-square tile, each in the one-pass kernel's order
+    (CHUNK_THREADS threads over the tile, fused_kstep.tile_error_sums)."""
+    # imported here: fused_kstep imports fused_step, as this module does
+    from crdmodel_tpu_torch.ops.fused_kstep import tile_error_sums
+    rhs_block = (make_divform_rhs_block(kc, fz) if kc.kind == "divform"
+                 else make_rhs_block(kc, fz))
+    _, est = rkc_stages_reference(y, h, s, mu1_tab, ctab_tab, rhs_block,
+                                  rkc_forcing(stim, amps, y))
+    return tile_error_sums(est, y, rtol, atol, CHUNK_TILE, CHUNK_TILE,
+                           CHUNK_THREADS)
 
 
 def check_stage_tables(mu1_tab, ctab_tab, dtype, device) -> int:
@@ -302,7 +386,7 @@ def check_stage_tables(mu1_tab, ctab_tab, dtype, device) -> int:
 
 
 def fused_rkc_step(y, h, fz, s, mu1_tab, ctab_tab, kc: KernelConstants,
-                   rtol: float, atol: float):
+                   rtol: float, atol: float, stim=None, amps=None):
     """One fused RKC2 step: (y_new (2, ny, nx), ss partials
     (n_chunk_tiles(ny, nx),)).
 
@@ -312,13 +396,15 @@ def fused_rkc_step(y, h, fz, s, mu1_tab, ctab_tab, kc: KernelConstants,
     step needs no host sync. An s outside [2, s_cap] makes the kernel
     return NaN partial sums (a rejected step). kc's type picks the
     operator: KernelConstants the profile branch, DivformConstants the
-    divergence branch. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel or raises.
-    `fused_rkc_step.launches` counts kernel launches.
+    divergence branch. stim, amps: a structured forcing's StimConstants
+    and its amplitude table on y's device (stage_times_amplitudes: one
+    column, or S_MAX_KERNEL + 2), or None (the unforced kernel). A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel or
+    raises. `fused_rkc_step.launches` counts kernel launches.
     """
     if y.device.type == "cpu":
         return fused_rkc_step_reference(y, h, fz, s, mu1_tab, ctab_tab, kc,
-                                        rtol, atol)
+                                        rtol, atol, stim, amps)
     if y.device.type != "cuda":
         raise ValueError(f"no fused RKC step kernel for device {y.device}")
     dtype, device = y.dtype, y.device
@@ -333,6 +419,12 @@ def fused_rkc_step(y, h, fz, s, mu1_tab, ctab_tab, kc: KernelConstants,
     check_tensor("fz", fz, (), dtype, device)
     check_tensor("s", s, (), torch.int32, device)
     check_constants(kc, ny, nx, dtype, device)
+    forcing_args = NO_STIM_ARGS
+    if stim is not None:
+        if amps.shape[-1] not in (1, S_MAX_KERNEL + 2):
+            raise ValueError(f"amps has {amps.shape[-1]} columns; the kernel "
+                             f"takes 1 or {S_MAX_KERNEL + 2}")
+        forcing_args = stim.launch_args(amps)
 
     from crdmodel_tpu_torch.ops._build import load_library
     lib = load_library()
@@ -357,8 +449,8 @@ def fused_rkc_step(y, h, fz, s, mu1_tab, ctab_tab, kc: KernelConstants,
     with torch.cuda.device(device):
         rc = launch(y.data_ptr(), y_new.data_ptr(), ss.data_ptr(),
                     work.data_ptr(), h.data_ptr(), fz.data_ptr(),
-                    s.data_ptr(), mu1_tab.data_ptr(), ctab_tab.data_ptr(),
-                    s_cap, *operator, kc.b.data_ptr(), int(kc.b_is_field),
+                    *forcing_args, s.data_ptr(), mu1_tab.data_ptr(),
+                    ctab_tab.data_ptr(), s_cap, *operator, kc.b.data_ptr(), int(kc.b_is_field),
                     kc.mask.data_ptr(), int(kc.has_freeze), kc.kinetics_id,
                     ny, nx, float(rtol), float(atol),
                     torch.cuda.current_stream(device).cuda_stream)
@@ -383,8 +475,9 @@ def build_fused_rkc_step(problem, dtype=torch.float32,
     """The fused RKC2 step of `problem` in `dtype` on its device
     (crdmodel_tpu/ops/pallas_rkc.py:365, the profile branch, or the
     divergence branch when needs_divform(problem); one column block at
-    every width). The freeze comes from params["_seg_end"]; t is unused
-    (the kinetics are autonomous)."""
+    every width). The freeze comes from params["_seg_end"]; t enters only
+    through a structured forcing's amplitudes (the kinetics are
+    autonomous)."""
     cfg = problem.cfg
     device = problem.device
     if rho_fn is None:
@@ -394,17 +487,22 @@ def build_fused_rkc_step(problem, dtype=torch.float32,
     prepare = (prepare_divform_constants if needs_divform(problem)
                else prepare_constants)
     kc = prepare(problem, dtype, device)
+    stim = prepare_stim_constants(problem, dtype, device)
     rtol, atol = float(cfg.rtol), float(cfg.atol)
     t_boundary = float(cfg.t_boundary)
     s_cap = S_MAX_KERNEL
-    mu1_tab, ctab_tab = static_stage_tables(s_cap, dtype, device)
+    mu1_tab, ctab_tab, ctimes_tab = static_stage_tables(s_cap, dtype, device,
+                                                        with_times=True)
 
     def step_err(t, y, h, params, carry=()):
+        h = h.to(dtype)
         rho = rho_fn(t, y, params).to(dtype)
         s = torch.clamp_max(rkc.choose_stages(h, rho), s_cap)
         fz = freeze_scalar(params, kc.has_freeze, t_boundary, dtype)
-        y_new, ss = fused_rkc_step(y, h.to(dtype), fz, s, mu1_tab, ctab_tab,
-                                   kc, rtol, atol)
+        amps = (None if stim is None else stage_times_amplitudes(
+            stim.forcing, t, h, s, ctimes_tab, params, dtype))
+        y_new, ss = fused_rkc_step(y, h, fz, s, mu1_tab, ctab_tab, kc, rtol,
+                                   atol, stim, amps)
         return y_new, torch.sum(ss), ()
 
     def h_limit(t, y, params):

@@ -28,8 +28,14 @@ are evaluated (no FSAL), without t (the kinetics are autonomous); stage
 inputs are y0 + (h*a[s][j])*k_j, the update and error (h*b[s])*k_s and
 (h*d[s])*k_s with d = b - bhat, in that order; the row freeze multiplies
 each stage by live = 1 - fz*(1 - m); the error weights come from the
-step's start. The lane padding and strip alignment of the TPU layout are
-gone: the state is (nvars, ny, nx), contiguous.
+step's start. A structured forcing (core/forcing.py::SeparableForcing,
+rank-1 stimuli; pallas_step.py:164-192, 212-222, 303-308) is the one
+place t enters: the step computes the stages' amplitudes at t + c_s h on
+the device (kernel_common.stage_amplitudes) and the kernel adds
+(amps[j, s] * row_j) * col_j to stage s's right-hand side before the
+freeze (kernel_common.stim_terms in the plain version). The lane padding
+and strip alignment of the TPU layout are gone: the state is (nvars, ny,
+nx), contiguous.
 """
 
 from __future__ import annotations
@@ -40,16 +46,19 @@ import functools
 import torch
 
 from crdmodel_tpu_torch.integrate.erk import TABLEAUS, Tableau
-from crdmodel_tpu_torch.ops.kernel_common import (SMEM_BYTES,
+from crdmodel_tpu_torch.ops.kernel_common import (NO_STIM_ARGS, SMEM_BYTES,
                                                   KernelConstants,
                                                   check_constants,
                                                   check_tensor,
+                                                  forcing_of,
                                                   freeze_scalar,
                                                   fused_forcing,
                                                   kernel_ready_kinetics,
                                                   make_rhs_block,
                                                   needs_divform,
-                                                  prepare_constants)
+                                                  prepare_constants,
+                                                  prepare_stim_constants,
+                                                  stage_amplitudes)
 
 MAX_STAGES = 8                 # the kernel's StageTable bound
 TILE_X = 32                    # tile width along x (contiguous)
@@ -61,11 +70,13 @@ def is_supported(problem, tableau: Tableau, dtype) -> bool:
     (kernel_common.kernel_ready_kinetics: a family with a device function,
     KINETICS_IDS; the other families come with ROADMAP queue 1, item 6).
     Divergence-form problems go to K4 (ops/fused_divform.py), problems
-    with a diffusion tensor to K5 (ops/fused_aniso.py)."""
+    with a diffusion tensor to K5 (ops/fused_aniso.py). A structured
+    forcing is taken (kernel_common.fused_forcing: not a free-form
+    one)."""
     if needs_divform(problem) or problem.diffusion_tensor is not None:
         return False
-    if fused_forcing(problem) is not None:
-        return False            # the kernel takes no forcing yet
+    if fused_forcing(problem) is False:
+        return False
     if dtype != torch.float32:
         return False
     if tableau.stages > MAX_STAGES:
@@ -95,11 +106,12 @@ def _stage_arrays(name: str):
 
 
 def erk_step_reference(y, h, rhs_block, tableau: Tableau, rtol: float,
-                       atol: float):
+                       atol: float, fs=None):
     """One step of `tableau` on rhs_block(y) -> ydot in plain torch, in the
     order of the ERK tile kernels (csrc/erk_tile.cuh): (y_new, ss) with ss
-    a (1,) tensor holding the sum of squared WRMS-scaled errors."""
-    y_new, err = erk_stages_reference(y, h, rhs_block, tableau)
+    a (1,) tensor holding the sum of squared WRMS-scaled errors. fs(s) ->
+    stage s's forcing (kernel_common.forcing_of), or None."""
+    y_new, err = erk_stages_reference(y, h, rhs_block, tableau, fs)
     return y_new, error_sum(err, y, rtol, atol)
 
 
@@ -110,14 +122,16 @@ def error_sum(err, y, rtol: float, atol: float):
     return torch.sum(scaled * scaled).reshape(1)
 
 
-def erk_stages_reference(y, h, rhs_block, tableau: Tableau):
+def erk_stages_reference(y, h, rhs_block, tableau: Tableau, fs=None):
     """(y_new, err) of one step of `tableau` on rhs_block(y) in plain torch,
-    in the order of the ERK tile kernels."""
-    y_new, err, _ = erk_stages_from(y, h, rhs_block, tableau, rhs_block(y))
+    in the order of the ERK tile kernels; fs(s) -> stage s's forcing
+    (rhs_block(y, fs(s))), or None."""
+    k1 = rhs_block(y) if fs is None else rhs_block(y, fs(0))
+    y_new, err, _ = erk_stages_from(y, h, rhs_block, tableau, k1, fs)
     return y_new, err
 
 
-def erk_stages_from(y, h, rhs_block, tableau: Tableau, k1):
+def erk_stages_from(y, h, rhs_block, tableau: Tableau, k1, fs=None):
     """erk_stages_reference with the first stage k1 given, as an FSAL
     tableau's previous step hands it on (ops/fused_kstep.py): (y_new, err,
     k_last), k_last the last stage."""
@@ -130,7 +144,7 @@ def erk_stages_from(y, h, rhs_block, tableau: Tableau, k1):
         for j in range(s):
             if a[s, j] != 0.0:
                 yi = yi + (h * float(a[s, j])) * ks[j]
-        ks.append(rhs_block(yi))
+        ks.append(rhs_block(yi) if fs is None else rhs_block(yi, fs(s)))
     y_new = y
     err = torch.zeros_like(y)
     for s in range(n):
@@ -142,32 +156,38 @@ def erk_stages_from(y, h, rhs_block, tableau: Tableau, k1):
 
 
 def fused_step_reference(y, h, fz, kc: KernelConstants, tableau: Tableau,
-                         rtol: float, atol: float):
+                         rtol: float, atol: float, stim=None, amps=None):
     """One step in plain torch: (y_new, ss) with ss a (1,) tensor holding
-    the sum of squared WRMS-scaled errors."""
+    the sum of squared WRMS-scaled errors. stim: the StimConstants of a
+    structured forcing and amps its (n_stim, n_stages) amplitudes, or
+    None."""
     return erk_step_reference(y, h, make_rhs_block(kc, fz), tableau, rtol,
-                              atol)
+                              atol, forcing_of(stim, amps, y))
 
 
 def fused_step_tile_sums(y, h, fz, kc: KernelConstants, tableau: Tableau,
-                         rtol: float, atol: float):
+                         rtol: float, atol: float, stim=None, amps=None):
     """The kernel's partial sums in plain torch: (n_tiles,) sums of
     squared WRMS-scaled errors, one a tile of tile_plan, each in the ERK
     tile kernels' order (fused_kstep.tile_error_sums), as both of the
     kernel's schemes write them (csrc/erk_slots.cuh, erk_tile.cuh)."""
     # imported here: fused_kstep imports this module
     from crdmodel_tpu_torch.ops.fused_kstep import tile_error_sums
-    _, err = erk_stages_reference(y, h, make_rhs_block(kc, fz), tableau)
+    _, err = erk_stages_reference(y, h, make_rhs_block(kc, fz), tableau,
+                                  forcing_of(stim, amps, y))
     tile_y = tile_plan(tableau.stages, y.element_size())[1]
     return tile_error_sums(err, y, rtol, atol, tile_y)
 
 
 def fused_step(y, h, fz, kc: KernelConstants, tableau: Tableau,
-               rtol: float, atol: float):
+               rtol: float, atol: float, stim=None, amps=None):
     """One fused step: (y_new (nvars, ny, nx), ss partials (n_blocks,)).
 
     y lives on the device the step runs on. h and fz are 0-d tensors on the
     same device: the kernel reads them there, so a step needs no host sync.
+    stim, amps: a structured forcing's StimConstants and its (n_stim,
+    n_stages) amplitude table on the same device (stage_amplitudes), or
+    None (the unforced kernel).
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (float32, or float64 as a parity tool) or raises. bs32 runs the
     register-resident scheme (csrc/erk_slots.cuh), zonneveld43 and dopri54
@@ -175,7 +195,8 @@ def fused_step(y, h, fz, kc: KernelConstants, tableau: Tableau,
     kernel launches.
     """
     if y.device.type == "cpu":
-        return fused_step_reference(y, h, fz, kc, tableau, rtol, atol)
+        return fused_step_reference(y, h, fz, kc, tableau, rtol, atol, stim,
+                                    amps)
     if y.device.type != "cuda":
         raise ValueError(f"no fused step kernel for device {y.device}")
     if kc.kind not in ("torus", "flat"):
@@ -184,7 +205,7 @@ def fused_step(y, h, fz, kc: KernelConstants, tableau: Tableau,
     out = launch_erk_tile(
         "crd_fused_erk_step",
         (*(c.data_ptr() for c in kc.coeffs), int(kc.kind == "torus")),
-        y, h, fz, kc, tableau, rtol, atol)
+        y, h, fz, kc, tableau, rtol, atol, stim_args(stim, amps, tableau))
     fused_step.launches += 1
     return out
 
@@ -192,13 +213,26 @@ def fused_step(y, h, fz, kc: KernelConstants, tableau: Tableau,
 fused_step.launches = 0
 
 
+def stim_args(stim, amps, tableau: Tableau):
+    """The launchers' forcing arguments of K1 and K4: a stage's amplitude
+    column each (amps (n_stim, n_stages)), or none (NO_STIM_ARGS)."""
+    if stim is None:
+        return NO_STIM_ARGS
+    if amps.shape[-1] != tableau.stages:
+        raise ValueError(f"amps has {amps.shape[-1]} columns for "
+                         f"{tableau.stages} stages")
+    return stim.launch_args(amps)
+
+
 def launch_erk_tile(symbol, operator_args, y, h, fz, kc: KernelConstants,
-                    tableau: Tableau, rtol: float, atol: float):
+                    tableau: Tableau, rtol: float, atol: float,
+                    forcing_args=()):
     """Launch one step of an ERK tile kernel of the built library (K1
     `crd_fused_erk_step`, K4 `crd_fused_divform_step` and K5
     `crd_fused_aniso_step`, csrc/erk_slots.cuh for bs32 and erk_tile.cuh
     for the others): the launcher `symbol`_f32
-    or _f64, with the kernel's operator arguments `operator_args` after
+    or _f64, with the forcing's arguments `forcing_args` (K1 and K4:
+    stim_args) and the kernel's operator arguments `operator_args` after
     fz. Checks every input first and raises on what the kernel does not
     take, and on a launch error. Returns (y_new (2, ny, nx), ss partials
     (n_blocks,))."""
@@ -228,7 +262,8 @@ def launch_erk_tile(symbol, operator_args, y, h, fz, kc: KernelConstants,
     # the CUDA runtime launches on the current device: make it y's
     with torch.cuda.device(device):
         rc = launch(y.data_ptr(), y_new.data_ptr(), ss.data_ptr(),
-                    h.data_ptr(), fz.data_ptr(), *operator_args,
+                    h.data_ptr(), fz.data_ptr(), *forcing_args,
+                    *operator_args,
                     kc.b.data_ptr(), int(kc.b_is_field), kc.mask.data_ptr(),
                     int(kc.has_freeze), kc.kinetics_id, ny, nx, tile_x, tile_y,
                     n, a, b, d, float(rtol), float(atol),
@@ -241,16 +276,23 @@ def launch_erk_tile(symbol, operator_args, y, h, fz, kc: KernelConstants,
 def build_fused_step(problem, tableau: Tableau):
     """step_err(t, y, h, params) -> (y_new, err_ss) of `problem` through the
     fused step, in the problem's dtype on its device. The freeze comes from
-    params["_seg_end"]; t is unused (the kinetics are autonomous)."""
+    params["_seg_end"]; t enters only through a structured forcing's stage
+    amplitudes (the kinetics are autonomous)."""
     cfg = problem.cfg
     dtype = problem.y0.dtype
     kc = prepare_constants(problem, dtype, problem.device)
+    stim = prepare_stim_constants(problem, dtype, problem.device)
+    c_nodes = torch.tensor(tableau.c, dtype=dtype, device=problem.device)
     rtol, atol = float(cfg.rtol), float(cfg.atol)
     t_boundary = float(cfg.t_boundary)
 
     def step_err(t, y, h, params):
+        h = h.to(dtype)
         fz = freeze_scalar(params, kc.has_freeze, t_boundary, dtype)
-        y_new, ss = fused_step(y, h.to(dtype), fz, kc, tableau, rtol, atol)
+        amps = (None if stim is None else stage_amplitudes(
+            stim.forcing, t, h, c_nodes, params, dtype))
+        y_new, ss = fused_step(y, h, fz, kc, tableau, rtol, atol, stim,
+                               amps)
         return y_new, torch.sum(ss)
 
     return step_err

@@ -18,7 +18,11 @@ K8, K9 and K10 the profile operator's (ShardConstants), K11 a stack of
 face fields (ShardDivformConstants), K12 and K13 the box modes'
 (ShardBoxConstants). The kinetics family travels to the
 device code as an integer id (KINETICS_IDS, the Kinetics enum of
-csrc/rhs_common.cuh).
+csrc/rhs_common.cuh). A structured forcing (core/forcing.py::
+SeparableForcing, every stimulus rank-1) travels to K1, K2, K3 and K4 as
+StimConstants (its row and column profiles) and an amplitude table the
+step computes on the device (stage_amplitudes); the kernels' plain
+versions add it as stim_terms does.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import weakref
 import numpy as np
 import torch
 
+from crdmodel_tpu_torch.core.forcing import SeparableForcing
 from crdmodel_tpu_torch.core.grid import face_openness3
 from crdmodel_tpu_torch.core.problem import beta_field, interior_rows
 from crdmodel_tpu_torch.ops.stencil import (anisotropic_laplacian,
@@ -59,11 +64,138 @@ def needs_divform(problem) -> bool:
 
 
 def fused_forcing(problem):
-    """The forcing the step kernel would evaluate in-kernel: None when the
-    problem has none. The port has no forcing yet (ROADMAP queue 1, item 9),
-    so a forcing, when there is one, is returned as False: not
-    kernel-consumable (crdmodel_tpu/ops/kernel_common.py:62)."""
-    return None if problem.forcing is None else False
+    """The structured forcing the step kernels evaluate in-kernel
+    (crdmodel_tpu/ops/kernel_common.py:62-77): the problem's
+    SeparableForcing when every stimulus is rank-1 (core/forcing.py), None
+    when the problem has no forcing, or False when it has one the kernels
+    cannot take (a free-form callable, a full 2-D `spatial`, a depth
+    profile off the box): the callers then decline to the torch path."""
+    f = problem.forcing
+    if f is None:
+        return None
+    if isinstance(f, SeparableForcing) and f.separable:
+        if (problem.geometry.kind != "box"
+                and any(st.zprof is not None for st in f.stimuli)):
+            return False
+        return f
+    return False
+
+
+def stage_amplitudes(forcing, t, h, c_nodes, params, dtype):
+    """(n_stim, n_stages) amplitudes of a step's stages at the true stage
+    times t + c_s h, a contiguous tensor on t's device
+    (crdmodel_tpu/ops/kernel_common.py:80-94). c_nodes: the tableau's c
+    as a 1-d tensor in `dtype` on that device, which the caller makes once
+    (a host-to-device copy a step would wait for the device). Each
+    waveform is evaluated once on the 1-d tensor of the stage times (the
+    waveform contract of core/forcing.py), so a step costs a few launches
+    and no host read. Segment-gated waveforms (pulse trains) take
+    params["_seg_end"] instead, which makes their amplitude constant over
+    the step."""
+    return forcing_amplitudes(forcing, t + c_nodes * h, params, dtype)
+
+
+def forcing_amplitudes(forcing, times, params, dtype):
+    """(n_stim, len(times)) amplitudes of `forcing`'s stimuli at the 1-d
+    tensor `times` (stage_amplitudes; K2's Chebyshev stage times): a
+    segment-gated waveform at params["_seg_end"] where the drivers pass
+    it, broadcast along the times (core/forcing.py::SeparableForcing.
+    amplitudes: all pulse trains in one pass)."""
+    seg = params.get("_seg_end") if isinstance(params, dict) else None
+    return forcing.amplitudes(times, seg, dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class StimConstants:
+    """A structured forcing's inputs of the fused kernels K1-K4: the
+    stimuli's row and column profiles as contiguous (n_stim, ny) and
+    (n_stim, nx) tensors (ones where a stimulus has none), the variable
+    each drives, and the SeparableForcing whose waveforms give the
+    amplitudes. The kernel reads a stimulus j at point (y, x) of
+    amplitude column a as (amps[j, a] * rows[j, y]) * cols[j, x]; the
+    points of a tile's rings are read at the wrapped indices their state
+    is loaded from."""
+    forcing: object
+    rows: torch.Tensor
+    cols: torch.Tensor
+    vars: tuple
+
+    @property
+    def n_stim(self) -> int:
+        return len(self.vars)
+
+    @property
+    def var1_mask(self) -> int:
+        """Bit j set: stimulus j drives variable 1 (else variable 0)."""
+        return sum(1 << j for j, v in enumerate(self.vars) if v == 1)
+
+    def launch_args(self, amps):
+        """The launchers' forcing arguments: amps (n_stim, n_cols), the
+        profiles, n_stim, n_cols and var1_mask."""
+        check_tensor("amps", amps, (self.n_stim, amps.shape[-1]),
+                     self.rows.dtype, self.rows.device)
+        return (amps.data_ptr(), self.rows.data_ptr(), self.cols.data_ptr(),
+                self.n_stim, amps.shape[-1], self.var1_mask)
+
+
+# the most stimuli a launch takes: the bits of its var1 mask, an int
+# (csrc/rhs_common.cuh kStimMaskBits)
+STIM_MASK_BITS = 31
+
+
+def forcing_of(stim, amps, like):
+    """fs(a) -> (F0, F1), the forcing at amplitude column a (stim_terms) for
+    a kernel's plain version, or None without a forcing (stim None)."""
+    if stim is None:
+        return None
+    return lambda a: stim_terms(stim, amps, a, like)
+
+
+# the launchers' forcing arguments without a forcing: the unforced kernels
+NO_STIM_ARGS = (None, None, None, 0, 0, 0)
+
+
+def prepare_stim_constants(problem, dtype, device):
+    """StimConstants of `problem`'s structured forcing on `device`, or None
+    without one (fused_forcing)."""
+    forcing = fused_forcing(problem)
+    if forcing is None:
+        return None
+    if forcing is False:
+        raise ValueError("the fused kernels take only rank-1 stimuli "
+                         "(kernel_common.fused_forcing)")
+    vars_ = tuple(int(st.var) for st in forcing.stimuli)
+    if len(vars_) > STIM_MASK_BITS:
+        raise ValueError(f"{len(vars_)} stimuli: a launch takes at most "
+                         f"{STIM_MASK_BITS} (its var1 mask's bits)")
+    if any(v not in (0, 1) for v in vars_):
+        raise ValueError(f"stimulus variables {vars_}: the kernels' models "
+                         "have two variables (kernel_ready_kinetics)")
+    ny, nx = problem.cfg.ny, problem.cfg.nx
+
+    def stack(profiles, n):
+        return torch.tensor(np.stack([
+            np.ones(n) if p is None
+            else np.asarray(p, np.float64).reshape(n) for p in profiles]),
+            dtype=dtype, device=device)
+
+    return StimConstants(
+        forcing=forcing,
+        rows=stack([st.row for st in forcing.stimuli], ny),
+        cols=stack([st.col for st in forcing.stimuli], nx),
+        vars=vars_)
+
+
+def stim_terms(sc: StimConstants, amps, col: int, like):
+    """(F0, F1), the forcing of variables 0 and 1 at amplitude column `col`
+    in plain torch, each of like[0]'s (ny, nx) shape: the sum over the
+    stimuli of each variable, in stimulus order from zero, of
+    (amps[j, col] * rows[j, y]) * cols[j, x], as the kernels add it
+    (csrc/rhs_common.cuh::StimTable::at)."""
+    f = [torch.zeros_like(like[0]), torch.zeros_like(like[0])]
+    for j, v in enumerate(sc.vars):
+        f[v] = f[v] + (amps[j, col] * sc.rows[j][:, None]) * sc.cols[j]
+    return f
 
 
 def kernel_ready_kinetics(problem) -> bool:
@@ -442,41 +574,53 @@ def _live(kc: KernelConstants, fz):
     return 1.0 - fz * (1.0 - kc.mask) if kc.has_freeze else None
 
 
+def add_terms(react, lap, f):
+    """ydot before the masks: kinetics + operator on variable 0, and with
+    a forcing f = (F0, F1) (stim_terms) kinetics + (operator + F0) and
+    kinetics + F1 (crdmodel_tpu/ops/kernel_common.py:133-149, the torch
+    path's kinetics + (diffusion + forcing))."""
+    if f is None:
+        return torch.stack([react[0] + lap, react[1]])
+    return torch.stack([react[0] + (lap + f[0]), react[1] + f[1]])
+
+
 def make_rhs_block(kc: KernelConstants, fz):
-    """rhs_block(y) -> ydot: the kernels' per-tile RHS in plain torch, on
-    the whole (2, ny, nx) state (crdmodel_tpu/ops/kernel_common.py:110):
-    the model's kinetics plus the profile operator on variable 0, times
-    live = 1 - fz*(1 - mask) when the problem has a freeze. The device
-    functions of csrc/rhs_common.cuh compute the same expressions in the
-    same order."""
+    """rhs_block(y, f=None) -> ydot: the kernels' per-tile RHS in plain
+    torch, on the whole (2, ny, nx) state (crdmodel_tpu/ops/
+    kernel_common.py:110): the model's kinetics plus the profile operator
+    on variable 0, plus the stage's forcing f = (F0, F1) (stim_terms) when
+    given, times live = 1 - fz*(1 - mask) when the problem has a freeze.
+    The device functions of csrc/rhs_common.cuh compute the same
+    expressions in the same order."""
     lap_of = torus_laplacian if kc.kind == "torus" else flat_laplacian
     live = _live(kc, fz)
 
-    def rhs_block(y):
+    def rhs_block(y, f=None):
         react = kc.model.kinetics(y, kc.b)
-        ydot = torch.stack([react[0] + lap_of(y[0], kc.coeffs), react[1]])
+        ydot = add_terms(react, lap_of(y[0], kc.coeffs), f)
         return ydot * live if live is not None else ydot
 
     return rhs_block
 
 
 def make_divform_rhs_block(dc: DivformConstants, fz):
-    """rhs_block(y) -> ydot: the divergence kernel's RHS in plain torch on
-    the whole (2, ny, nx) state (crdmodel_tpu/ops/kernel_common.py:165,
-    without the mixed tensor terms and the dscale rescale): the kinetics
-    plus the face-form operator on variable 0 (ops/stencil.py::
-    divergence_laplacian's grouping, aS = roll_y(aN)), times live when the
-    problem has a freeze, times the 0/1 tissue field when it has an
-    obstacle. csrc/fused_divform.cu computes the same expressions in the
-    same order."""
+    """rhs_block(y, f=None) -> ydot: the divergence kernel's RHS in plain
+    torch on the whole (2, ny, nx) state (crdmodel_tpu/ops/
+    kernel_common.py:165, without the mixed tensor terms and the dscale
+    rescale): the kinetics plus the face-form operator on variable 0
+    (ops/stencil.py::divergence_laplacian's grouping, aS = roll_y(aN)),
+    plus the stage's forcing f = (F0, F1) when given (add_terms), times
+    live when the problem has a freeze, times the 0/1 tissue field when it
+    has an obstacle (the forcing before the masks, as make_rhs's
+    mask_tissue). csrc/fused_divform.cu computes the same expressions in
+    the same order."""
     aE, aW, aN = dc.coeffs
     faces = (aE, aW, aN, torch.roll(aN, 1, dims=0))
     live = _live(dc, fz)
 
-    def rhs_block(y):
+    def rhs_block(y, f=None):
         react = dc.model.kinetics(y, dc.b)
-        ydot = torch.stack([react[0] + divergence_laplacian(y[0], faces),
-                            react[1]])
+        ydot = add_terms(react, divergence_laplacian(y[0], faces), f)
         if live is not None:
             ydot = ydot * live
         if dc.tissue is not None:
@@ -563,19 +707,23 @@ def make_shard_divform_rhs_block(sc: ShardDivformConstants, fz):
 def make_split_block(kc: KernelConstants, fz):
     """(ex_block, im_block, jac_block), the IMEX split of make_rhs_block
     for the fused IMEX step (crdmodel_tpu/ops/kernel_common.py:282):
-    ex_block(y) the profile operator on variable 0 (0 on variable 1),
-    im_block(y) the pointwise kinetics, jac_block(y) the kinetics' closed-
-    form Jacobian (2, 2, ny, nx) (ReactionModel.jacobian), each times live
-    when the problem has a freeze; ex + im equals make_rhs_block's value
-    bitwise."""
+    ex_block(y, f=None) the profile operator on variable 0 (0 on variable
+    1), with the stage's forcing f = (F0, F1) the operator plus F0 and F1
+    (the explicit part: make_rhs's rhs_ex), im_block(y) the pointwise
+    kinetics, jac_block(y) the kinetics' closed-form Jacobian (2, 2, ny,
+    nx) (ReactionModel.jacobian), each times live when the problem has a
+    freeze; ex + im equals make_rhs_block's value bitwise without a
+    forcing."""
     lap_of = torus_laplacian if kc.kind == "torus" else flat_laplacian
     live = _live(kc, fz)
 
     def masked(x):
         return x * live if live is not None else x
 
-    def ex_block(y):
+    def ex_block(y, f=None):
         lap = lap_of(y[0], kc.coeffs)
+        if f is not None:
+            return masked(torch.stack([lap + f[0], f[1]]))
         return masked(torch.stack([lap, torch.zeros_like(lap)]))
 
     def im_block(y):

@@ -74,8 +74,9 @@ from crdmodel_tpu_torch.sim import (SimResult, output_times,
 def _unported(problem: Problem):
     """Raise for what the sharded run does not take yet."""
     if problem.forcing is not None:
-        raise NotImplementedError("forcing is not ported yet (ROADMAP queue "
-                                  "1, item 9)")
+        raise NotImplementedError(
+            "forcing on a mesh is not ported yet (ROADMAP queue 1, item 9's "
+            "mesh part: the stimulus profiles of sharded_params, K8-K11)")
     if problem.cfg.step_mode != "tstop":
         raise NotImplementedError(f"step_mode={problem.cfg.step_mode!r} on "
                                   "a mesh is not ported yet (ROADMAP queue "
@@ -632,7 +633,8 @@ def local_stepping(problem: Problem, mesh) -> LocalStepping:
     name, kernel = select_shard_kernel(problem, mesh, pad_spec, rho_fn)
     kw = dict(rtol=cfg.rtol, atol=cfg.atol, method=cfg.method,
               max_steps=cfg.max_steps,
-              breakpoints=solver_breakpoints(cfg), step_mode=cfg.step_mode,
+              breakpoints=solver_breakpoints(cfg, problem.forcing),
+              step_mode=cfg.step_mode,
               global_size=problem.y0.numel(),    # the PHYSICAL cell count
               rho_fn=rho_fn, rhs_split=rhs_split)
     if name in ("K9", "K13"):

@@ -33,6 +33,15 @@ the torch path (integrate/erk.py::make_stepper). On a CPU device the fused
 path runs the kernel's plain version, the counterpart of the JAX
 package's interpret=True.
 
+A forcing (build_problem(forcing=); crdmodel_tpu/sim.py:77-85's
+allow_forcing=True gates): K1, K2 (both branches, gated and smooth
+waveforms), K3 and K4 take a structured one, core/forcing.py::
+SeparableForcing with rank-1 stimuli, their amplitudes computed on the
+device each step; a free-form callable, a full 2-D `spatial` stimulus,
+and any forcing on K5, K6, K7 or K14 decline to the torch path, which
+evaluates the forcing at the true stage times. The pulse edges are
+integrator breakpoints (solver_breakpoints).
+
 speculative_k = K > 1 (crdmodel_tpu/sim.py:270-300): on K1's route with
 step_mode "tstop", the K-step kernel K14 takes K frozen-h sub-steps a
 launch (ops/fused_kstep.py::is_kstep_supported) and K1 each interval's
@@ -212,7 +221,8 @@ def select_stepper(problem: Problem, streaming: bool = False) -> tuple:
             cfg, problem.model, problem.geometry, dtype, problem.device,
             split=True, diffusion_field=problem.diffusion_field,
             face_mask=problem.face_mask, obstacle_mask=problem.obstacle_mask,
-            diffusion_tensor=problem.diffusion_tensor)
+            diffusion_tensor=problem.diffusion_tensor,
+            forcing=problem.forcing)
     fused = fused_eligible(problem, streaming)
     box = problem.geometry.kind == "box"
     k = 0 if streaming else int(cfg.speculative_k)
@@ -266,7 +276,7 @@ def make_run_fn(problem: Problem):
     takes the fused path."""
     cfg = problem.cfg
     touts = output_times(cfg)
-    breakpoints = solver_breakpoints(cfg)
+    breakpoints = solver_breakpoints(cfg, problem.forcing)
     kw, fused = select_stepper(problem)
     spec_k = kw.pop("spec_k")
 
@@ -411,7 +421,7 @@ def simulate_streaming(cfg: SimConfig, device="cuda",
     loop = StopLoop(problem.rhs, problem.y0, problem.params, 0.0, touts,
                     rtol=cfg.rtol, atol=cfg.atol, method=cfg.method,
                     max_steps=cfg.max_steps,
-                    breakpoints=solver_breakpoints(cfg),
+                    breakpoints=solver_breakpoints(cfg, problem.forcing),
                     step_mode=cfg.step_mode, **kw)
     emit = None
     if on_snapshot is not None:

@@ -91,7 +91,15 @@ Goldbeter ark324 run, the single-device 2.56M-point Goldbeter ark324 run
 over Tf = 1 and the fibered sheet's bs32 run (profile_run: device-busy
 time, kernels a step, idle share, walls, the kernel's launches and mean
 device time) and each run's attempted, accepted and rejected steps from
-one more untraced run. --measure all (the default) takes the first two. Only the
+one more untraced run. --measure unforced: K1 (the canonical FHN torus's
+(2,1600,400), a random state, bs32 and dopri54), K4 (the bounded
+tissue's, bs32 and dopri54), K2 (s = 5 and 23, the profile branch there
+and the divergence branch on the bounded tissue) and K3 (the canonical
+Goldbeter torus's (2,400,100)), each with a freeze, fz 0 and 1, f32 and
+f64, without a forcing: a digest of each launch's y_new and partial sums
+(sha256 of their bytes), which the summary holds equal across the two
+trees (`bitwise_across_trees`), and the device time of the f32 launches
+at fz 0. --measure all (the default) takes the first two. Only the
 wrappers' public signatures are used, so an older tree of the port times
 the same way.
 
@@ -160,6 +168,106 @@ def time_one_tree(tree, label, runs, measure):
         time_box(cs, label, card, runs)
     if measure == "imex_aniso":
         time_imex_aniso(cs, label, card, runs)
+    if measure == "unforced":
+        time_unforced(cs, label, card)
+
+
+def time_unforced(cs, label, card):
+    """--measure unforced: K1-K4 without a forcing, a digest and (f32, fz 0)
+    the device time of each launch."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from crdmodel_tpu_torch.config import config_from_ini
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import (fused_divform, fused_imex,
+                                        fused_rkc, fused_step)
+    from crdmodel_tpu_torch.ops.kernel_common import (
+        prepare_constants, prepare_divform_constants)
+
+    def digest(y_new, ss):
+        torch.cuda.synchronize()
+        return hashlib.sha256(y_new.cpu().numpy().tobytes()
+                              + ss.cpu().numpy().tobytes()).hexdigest()[:16]
+
+    def state(cfg, problem, seed):
+        return cs.random_state(cfg, tuple(problem.y0.shape),
+                               np.random.default_rng(seed))
+
+    fhn = dataclasses.replace(config_from_ini(cs.INI, model="fhn",
+                                              surface="torus"),
+                              t_boundary=1.0)
+    cfg_ap, ap_build = cs.bounded_tissue()
+    ap = dataclasses.replace(cfg_ap, t_boundary=1.0)
+    gb = dataclasses.replace(config_from_ini(cs.GB_INI, model="goldbeter",
+                                             surface="torus"),
+                             t_boundary=1.0)
+    p_fhn = build_problem(fhn, "cuda")
+    p_ap = build_problem(ap, "cuda", **ap_build)
+    p_gb = build_problem(gb, "cuda")
+    y_fhn, y_ap, y_gb = (state(fhn, p_fhn, cs.SEED), state(ap, p_ap, cs.SEED),
+                         state(gb, p_gb, cs.SEED))
+    for dtype in (torch.float32, torch.float64):
+        kcs = {"k1": prepare_constants(p_fhn, dtype, "cuda"),
+               "k4": prepare_divform_constants(p_ap, dtype, "cuda")}
+        ys = {"k1": torch.tensor(y_fhn, dtype=dtype, device="cuda"),
+              "k4": torch.tensor(y_ap, dtype=dtype, device="cuda")}
+        hs = {"k1": cs.H, "k4": cs.K4_H}
+        steps = {"k1": fused_step.fused_step,
+                 "k4": fused_divform.fused_divform_step}
+        tags = {"k1": PROFILE_TAG, "k4": TAG}
+        for fz in (0.0, 1.0):
+            fzt = torch.tensor(fz, dtype=dtype, device="cuda")
+            for name in ("k1", "k4"):
+                cfg = fhn if name == "k1" else ap
+                h = torch.tensor(hs[name], dtype=dtype, device="cuda")
+                for method in ("bs32", "dopri54"):
+                    args = (ys[name], h, fzt, kcs[name], TABLEAUS[method],
+                            cfg.rtol, cfg.atol)
+                    fields = {}
+                    if dtype == torch.float32 and not fz:
+                        fields["device_us"] = cs.device_ms(
+                            lambda: steps[name](*args), tags[name]) * 1e3
+                    emit(label, f"unforced_{name}",
+                         case=f"{method}/fz{fz:g}/{dtype}",
+                         digest=digest(*steps[name](*args)), **fields,
+                         card=card)
+            mu1, ctab = fused_rkc.static_stage_tables(fused_rkc.S_MAX_KERNEL,
+                                                      dtype, "cuda")
+            for branch, problem, y_np, cfg in (
+                    ("profile", p_fhn, y_fhn, fhn),
+                    ("divform", p_ap, y_ap, ap)):
+                kc = (prepare_divform_constants if branch == "divform"
+                      else prepare_constants)(problem, dtype, "cuda")
+                y = torch.tensor(y_np, dtype=dtype, device="cuda")
+                rho = cs.problem_rho(problem, y)
+                for s_val in (5, 23):
+                    h, st = cs.rkc_step_inputs(s_val, rho, dtype)
+                    args = (y, h, fzt, st, mu1, ctab, kc, cfg.rtol, cfg.atol)
+                    fields = {}
+                    if dtype == torch.float32 and not fz:
+                        fields["device_us"] = cs.device_ms(
+                            lambda: fused_rkc.fused_rkc_step(*args),
+                            "fused_rkc") * 1e3
+                    emit(label, "unforced_k2",
+                         case=f"{branch}/s{s_val}/fz{fz:g}/{dtype}",
+                         digest=digest(*fused_rkc.fused_rkc_step(*args)),
+                         **fields, card=card)
+            kc = prepare_constants(p_gb, dtype, "cuda")
+            y = torch.tensor(y_gb, dtype=dtype, device="cuda")
+            args = (y, torch.tensor(cs.K3_H[0], dtype=dtype, device="cuda"),
+                    fzt, kc, gb.rtol, gb.atol)
+            fields = {}
+            if dtype == torch.float32 and not fz:
+                fields["device_us"] = cs.device_ms(
+                    lambda: fused_imex.fused_imex_step(*args),
+                    "fused_imex") * 1e3
+            emit(label, "unforced_k3", case=f"fz{fz:g}/{dtype}",
+                 digest=digest(*fused_imex.fused_imex_step(*args)), **fields,
+                 card=card)
 
 
 def slots_ptxas(cs, source):
@@ -1021,6 +1129,15 @@ def compare(other, runs, measure):
     print(json.dumps({"summary": {
         k: {t: sum(v) / len(v) for t, v in trees.items()}
         for k, trees in summary.items()}}))
+    digests = {}
+    for rec in lines:
+        if "digest" in rec:
+            digests.setdefault(f"{rec['measure']}/{rec['case']}",
+                               set()).add(rec["digest"])
+    if digests:
+        same = {k: len(v) == 1 for k, v in digests.items()}
+        print(json.dumps({"bitwise_across_trees": same,
+                          "all_bitwise": all(same.values())}))
 
 
 def main():
@@ -1031,7 +1148,8 @@ def main():
     ap.add_argument("--runs", action="store_true")
     ap.add_argument("--measure", default="all",
                     choices=("all", "kstep_rkc", "divform", "profile",
-                             "shard_rkc_imex", "box", "imex_aniso"))
+                             "shard_rkc_imex", "box", "imex_aniso",
+                             "unforced"))
     args = ap.parse_args()
     if args.compare:
         compare(os.path.abspath(args.compare), args.runs, args.measure)

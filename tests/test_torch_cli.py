@@ -2,7 +2,9 @@
 package's (crdmodel_tpu/cli.py) on the same command line, on the CPU: the
 same set of files, the subdomain files byte for byte, the values, the
 ParaView files and the manifests' step counts; the banner; the module
-entry point and its exit codes; the card as the default device."""
+entry point and its exit codes; the card as the default device. The
+`curvature` command against the JAX package's: the same .vtp file name,
+mesh and cell arrays, the values to 1e-12."""
 
 import filecmp
 import json
@@ -207,3 +209,32 @@ def test_jax_run_command_lines_parse():
                      ("include_all_vars", "1")):
         assert cli._coerce_override(key, hints[key], val) == \
             jcoerce(key, hints[key], val)
+
+
+@pytest.mark.parametrize("extra", [[], ["--set", "x_mesh=24"]])
+def test_curvature_writes_what_jax_curvature_writes(tmp_path, capsys,
+                                                    extra):
+    """`curvature` writes the JAX package's .vtp (util/
+    GenCurvatureCoupling.py's file name): the same points and cells, the
+    'Gaussian Curvature' and 'Coupling Strength' cell arrays, their values
+    the JAX functions' to 1e-12; it needs no device."""
+    from crdmodel_tpu import cli as jcli
+    from crdmodel_tpu.viz.vtp import read_vtp
+    args = ["curvature", FHN_INI, "--model", "fhn", "--surface", "torus",
+            *extra]
+    ours, theirs = tmp_path / "ours", tmp_path / "jax"
+    assert cli.main([*args, "--outdir", str(ours)]) == 0
+    assert "Saving output to file" in capsys.readouterr().out
+    assert jcli.main([*args, "--outdir", str(theirs)]) == 0
+    names = os.listdir(ours)
+    assert names == os.listdir(theirs) and len(names) == 1
+    assert names[0].startswith("CurvatureCoupling_torus_R")
+    points, tris, cells = read_vtp(str(ours / names[0]))
+    jpoints, jtris, jcells = read_vtp(str(theirs / names[0]))
+    np.testing.assert_array_equal(points, jpoints)
+    np.testing.assert_array_equal(tris, jtris)
+    assert sorted(cells) == sorted(jcells) == [
+        "Coupling Strength", "Gaussian Curvature"]
+    for name, values in jcells.items():
+        np.testing.assert_allclose(cells[name], values, rtol=0, atol=1e-12)
+

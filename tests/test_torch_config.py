@@ -77,7 +77,8 @@ def test_port_imports_no_jax():
             "if m == 'jax' or m.startswith(('jax.', 'crdmodel_tpu.'))); "
             "need = {'crdmodel_tpu_torch.' + m for m in ("
             "'cli', 'io.trajectory', 'native.build', 'utils.profiling', "
-            "'viz.plots', 'parallel.sharded', 'ops.fused_step')}; "
+            "'viz.plots', 'parallel.sharded', 'ops.fused_step', "
+            "'core.forcing', 'viz.curvature')}; "
             "print(len(mods), bad, sorted(need - set(mods))); "
             "sys.exit(1 if bad or need - set(mods) else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -182,9 +182,15 @@ def test_build_problem_refuses_bad_inputs():
         tproblem.build_problem(cfg, "cpu", obstacle_mask=np.ones((3, 5)))
     with pytest.raises(ValueError, match="non-negative"):
         tproblem.build_problem(cfg, "cpu", diffusion_field=-np.ones(NX))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tproblem.build_problem(SimConfig(**{**COMMON, **TORUS, "model": "fhn",
-                                            "coupling": "curvature"}), "cpu")
+    # coupling="curvature", which raised until ROADMAP item 10 was ported,
+    # builds its theta-only field; with a diffusion tensor it is refused
+    coupled = SimConfig(**{**COMMON, **TORUS, "model": "fhn",
+                           "coupling": "curvature"})
+    field = tproblem.build_problem(coupled, "cpu").diffusion_field
+    assert field.shape == (coupled.nx,) and np.all(field > 0)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        tproblem.build_problem(coupled, "cpu",
+                               diffusion_tensor=(1.0, 1.0, 0.0))
 
 
 @pytest.mark.parametrize("beta", ["scalar", "field"])

@@ -188,8 +188,19 @@ def test_just_diffusion_rhs_matches_jax():
 
 @pytest.mark.parametrize("cfg_kw,item", [
     (dict(surface="sphere"), "item 12"), (dict(model="barkley"), "item 6"),
-    (dict(coupling="curvature", surface="torus"), "item 10")])
+    (dict(coupling="curvature", surface="torus"), None)])
 def test_unported_inputs_raise(cfg_kw, item):
+    """What is not ported raises NotImplementedError naming its ROADMAP
+    item; coupling="curvature", which raised until item 10 was ported,
+    builds, with the JAX package's D(theta) field to 1e-15 (item None)."""
     cfg = SimConfig(**{**BASE, "surface": "torus", **cfg_kw})
-    with pytest.raises(NotImplementedError, match=item):
-        tproblem.build_problem(cfg, device="cpu")
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            tproblem.build_problem(cfg, device="cpu")
+        return
+    problem = tproblem.build_problem(cfg, device="cpu")
+    jcfg = JSimConfig(**{**BASE, "surface": "torus", **cfg_kw})
+    want = jproblem.build_problem(jcfg).diffusion_field
+    assert problem.diffusion_field.shape == (cfg.nx,)
+    np.testing.assert_allclose(problem.diffusion_field, want, rtol=0,
+                               atol=1e-15)
