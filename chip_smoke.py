@@ -106,6 +106,27 @@ curvature-coupled FHN torus (Tf=5, K1), examples/s1s2_pacing.py's
 configuration and protocol (K2's divergence branch, re-entrant at t=120),
 and the paced canonical FHN torus (K1), Goldbeter torus with ark324 (K3)
 and bounded tissue (K4).
+Forcing on a mesh (mesh_forced_phases, after them): K8 (bs32, dopri54)
+and K9 (gated and smooth at s = 2, 5, 7, 12, 23) on the paced canonical
+FHN torus's shards, K10 on the paced Goldbeter torus's and K11 on the
+paced bounded tissue's (divform mode) and the torus fibres' (aniso mode,
+the bounded tissue's stimuli), each with the cross drive, on shard 0 and
+the last shard of the 2x2 mesh (fz 0 and 1) and of the uneven 1x3 mesh
+(mirror pads; fz 0), f32 and f64: y_new's block and every partial sum
+bitwise the plain version's, the forced instantiation traced
+(k8..k11_forced_check);
+each timed forced and unforced in one call on shard 0 of the 2x2 mesh
+with the bound of its shard (k8..k11_forced_timing: kernels a sharded
+step, ptxas's forced and unforced registers and spills); then the paced
+paths through simulate_sharded() on a 2x2 mesh of shards on cuda:0, each
+traced through its forced kernel: the paced FHN torus
+(paced_sharded_fhn_bs32, K8), Goldbeter torus with ark324
+(paced_sharded_goldbeter_ark324, K10) and bounded tissue
+(paced_sharded_bounded_ap_bs32, K11, the scar bitwise), each held to its
+golden and to the single-device paced run of this call, and the paced
+FHN torus with rkc2 over Tf=25 (paced_sharded_fhn_rkc2, K9), held to a
+single-device forced K2 run of this call. The kernels line's K8-K11
+entries carry their forced fields.
 Each run is checked against the JAX package's CPU runs recorded in
 tests/golden/torch_canonical_{fhn,goldbeter}[_method]_probes.npz (the
 speculative and ARK_NORMAL runs against
@@ -125,7 +146,7 @@ failure, and prints as its last line {"ok": true, "device": {...}} only
 when every phase passed. Imports nothing of JAX.
 
 With --forced it builds the kernels and runs only the forcing slice's
-phases; no kernels line and no last line.
+phases, on one device and on a mesh; no kernels line and no last line.
 With --profile it checks nothing: it builds the kernels and traces, with
 torch.profiler, the bounded cardiac tissue with bs32 and rkc2, the fibered
 sheet and the wide sheet over short horizons, the three slab runs over
@@ -1618,7 +1639,7 @@ def kernel_entry(name, source, replaces, launches, worst, timing,
                  forced=None):
     """One kernel's entry of the `kernels` line; timing (ms, plain ms,
     bound ms, bound_by, ...); forced: its forced fields (forced_fields),
-    for K1-K4."""
+    for K1-K4 (K8-K11 have theirs added from mesh_forced_phases)."""
     ms, plain_ms, bound_ms, bound_by = timing[:4]
     return {"name": name, "route": "cuda",
             "source": f"crdmodel_tpu_torch/csrc/{source}",
@@ -2295,25 +2316,32 @@ def shard_timings(cfg8, cfg9, card):
     return timings
 
 
-def run_sharded_rkc2(cfg, rkc2_probes, mesh, name):
-    """The large FHN torus through simulate_sharded() on `mesh` (auto
-    selection: K9), held against the port's single-device run through K2
-    on the card, in this call: steps within the JAX f32-f64 distance of the
-    canonical rkc2 run (2.78%), the final field within that run's JAX
-    f32-f64 probe gap plus 1e-4 (as main_path_wide_fhn_rkc2). Prints phase
-    `name`; returns K9's launches."""
+def run_sharded_rkc2(cfg, rkc2_probes, mesh, name, build_kw=None,
+                     label="scripts/bench_suite.py:48-54 fhn torus "
+                           "6400x1600 Tf=1 rkc2", report=None):
+    """An rkc2 program (the large FHN torus by default; built with
+    `build_kw`) through simulate_sharded() on `mesh` (auto selection: K9),
+    held against the port's single-device run through K2 on the card, in
+    this call: steps within the JAX f32-f64 distance of the canonical rkc2
+    run (2.78%), the final field within that run's JAX f32-f64 probe gap
+    plus 1e-4 (as main_path_wide_fhn_rkc2). report(res, counts) -> more
+    fields of the phase line. Prints phase `name`; returns K9's
+    launches."""
     from crdmodel_tpu_torch.ops import fused_rkc, fused_shard_rkc
 
+    build_kw = build_kw or {}
+    forcing = build_kw.get("forcing")
     kernel = fused_shard_rkc.fused_shard_rkc_step
-    res, counts = drive_main_path(cfg, {}, mesh)
+    res, counts = drive_main_path(cfg, build_kw, mesh)
     launches = counts[kernel.__name__]
     checks = run_checks(cfg, res, kernel, launches, mesh.size)
+    extra = report(res, counts) if report is not None else {}
     final = res.trajectory[-1].clone()
     steps, wall, status = res.total_steps(), res.wall_time, res.describe()
     stats = res.stats
     del res
     fused_rkc.fused_rkc_step.launches = 0
-    ref = run_program(cfg, {})
+    ref = run_program(cfg, build_kw)
     ref_launches = fused_rkc.fused_rkc_step.launches
     ref_steps = ref.total_steps()
     gap = float((final - ref.trajectory[-1]).abs().max())
@@ -2324,15 +2352,14 @@ def run_sharded_rkc2(cfg, rkc2_probes, mesh, name):
                    - int(rkc2_probes["steps_f64"].sum())) / int(
                        rkc2_probes["steps_f32"].sum())
     points = cfg.nx * cfg.ny
-    phase(name, config="scripts/bench_suite.py:48-54 fhn torus 6400x1600 "
-          "Tf=1 rkc2", selection=selection_note(cfg),
+    phase(name, config=label, selection=selection_note(cfg),
           mesh=list(mesh.shape),
           devices=[str(d) for d in mesh.device_list()],
           grid=[cfg.ny, cfg.nx], method=cfg.method, dtype=cfg.dtype,
           status=status, steps=steps, accepted=int(stats.accepted.sum()),
           rejected=int(stats.rejected.sum()), kernel=kernel.__name__,
           launches=counts, wall_s=wall, us_per_step=wall / steps * 1e6,
-          points_steps_per_s=points * steps / wall,
+          points_steps_per_s=points * steps / wall, **extra,
           single_device=dict(status=ref.describe(), fused=ref.fused,
                              steps=ref_steps, wall_s=ref.wall_time,
                              fused_rkc_step_launches=ref_launches,
@@ -2340,7 +2367,7 @@ def run_sharded_rkc2(cfg, rkc2_probes, mesh, name):
                              / ref.wall_time),
           step_limit=step_tol, final_max_abs_vs_single_device=gap,
           final_limit=limit, card=card_line())
-    least, _ = launch_bound(cfg, ref_steps)
+    least, _ = launch_bound(cfg, ref_steps, forcing)
     checks.update({
         "single-device run ok through K2": ref.ok and ref.fused
             and ref_launches >= least,
@@ -3513,19 +3540,21 @@ def kernels_a_step(problem, build, t, y, h, seg):
 
 def forced_timing(name, y, kc, stim, amps, forced_call, plain_call,
                   reference, tag, ops, n_evals, extra_bytes, per_step,
-                  source, card, **fields):
+                  source, card, bound_of=bound, **fields):
     """Print phase `name`: the forced and the unforced launch's device
-    times in one call (device_ms), the forced plain version's, the bounds
-    of both (the forcing's profile and amplitude bytes and its operations
-    added), the kernels a step and ptxas's forced and unforced registers
-    and spills. Returns the forced (ms, plain ms, bound ms, bound_by) and
-    the unforced device ms."""
+    times in one call (device_ms), the forced plain version's (WIDE_TIMED's
+    samples: the plain versions take milliseconds a call), the bounds
+    of both (bound_of(y, constants, operations a point, extra bytes):
+    bound, or shard_bound for a shard's buffer; the forcing's profile and
+    amplitude bytes and its operations added), the kernels a step and
+    ptxas's forced and unforced registers and spills. Returns the forced
+    (ms, plain ms, bound ms, bound_by) and the unforced device ms."""
     ms_f = device_ms(forced_call, tag)
     ms_u = device_ms(plain_call, tag)
-    timing = (ms_f, median_ms(reference),
-              *bound(y, kc, ops + stim_ops(stim, n_evals),
-                     extra_bytes + stim_bytes(stim, amps)))
-    unforced_bound = bound(y, kc, ops, extra_bytes)
+    timing = (ms_f, median_ms(reference, *WIDE_TIMED),
+              *bound_of(y, kc, ops + stim_ops(stim, n_evals),
+                        extra_bytes + stim_bytes(stim, amps)))
+    unforced_bound = bound_of(y, kc, ops, extra_bytes)
     phase(name, shape=list(y.shape), dtype=str(y.dtype), n_stim=stim.n_stim,
           **fields, forced_us=ms_f * 1e3, unforced_us=ms_u * 1e3,
           forced_over_unforced=ms_f / ms_u, forced_plain_us=timing[1] * 1e3,
@@ -3866,21 +3895,27 @@ def check_forced_imex_kernel(cfg_gb, fprobes, card):
     return worst, timing, ms_u
 
 
-def traced_path(tag, forced, fields=None):
+def traced_path(tag, forced, fields=None, mesh=None):
     """report(res, counts) of a forced or coupled main path: a short run of
-    the same problem traced (ops/trace.py::traced), raising unless it ran
-    `tag`'s kernel, in its forced instantiation (StimTable) when `forced`,
-    else its unforced one (NoStim); fields(res) -> more fields of the
-    phase line."""
+    the same problem traced (ops/trace.py::traced), through
+    simulate_sharded on `mesh` when given, raising unless it ran `tag`'s
+    kernel, in its forced instantiation (StimTable) when `forced`, else its
+    unforced one (NoStim); fields(res) -> more fields of the phase line."""
     from crdmodel_tpu_torch.ops import trace
+    from crdmodel_tpu_torch.parallel.sharded import simulate_sharded
     from crdmodel_tpu_torch.sim import simulate
 
     def report(res, counts):
         cfg = dataclasses.replace(res.cfg, t_final=res.cfg.t_final / 50,
                                   output_timestep=1)
         problem = dataclasses.replace(res.problem, cfg=cfg)
-        kernels, _ = trace.traced(lambda: simulate(cfg, device="cuda",
-                                                   problem=problem))
+        if mesh is None:
+            def run():
+                return simulate(cfg, device="cuda", problem=problem)
+        else:
+            def run():
+                return simulate_sharded(cfg, mesh=mesh, problem=problem)
+        kernels, _ = trace.traced(run)
         names = [e["name"] for e in kernels]
         mine = [n for n in names if tag in n]
         want = "StimTable" if forced else "NoStim"
@@ -3893,13 +3928,18 @@ def traced_path(tag, forced, fields=None):
     return report
 
 
-def forced_main_paths(cfg, cfg_gb, cfg_ap, ap_build, fprobes):
+def forced_main_paths(cfg, cfg_gb, cfg_ap, ap_build, fprobes, keep=None):
     """The slice's paths through simulate() on the card, each through the
     kernel the slice names, checked by launch counts and by a trace, and
     against its JAX CPU golden: the JAX suite's curvature-coupled FHN torus
     (K1), examples/s1s2_pacing.py (K2's divergence branch), the paced
     canonical FHN torus (K1), Goldbeter torus with ark324 (K3) and bounded
-    tissue (K4). Returns {name: launches}."""
+    tissue (K4). Returns {name: launches}; `keep`, a dict, receives each
+    paced run (run_main_path's keep) under its phase's name."""
+    keep = {} if keep is None else keep
+    for name in ("paced_fhn_bs32", "paced_goldbeter_ark324",
+                 "paced_bounded_ap_bs32"):
+        keep[name] = {}
     from crdmodel_tpu_torch.config import SimConfig
     from crdmodel_tpu_torch.ops import (fused_divform, fused_imex,
                                         fused_rkc, fused_step)
@@ -3942,7 +3982,8 @@ def forced_main_paths(cfg, cfg_gb, cfg_ap, ap_build, fprobes):
         "duration 1, amplitude 1) on rows ny/8..ny/4 and 0.1 sin(2 pi t / "
         "12.5) on a Gaussian column band",
         build_kw=dict(forcing=golden_forcing(paced)),
-        report=traced_path("fused_erk_slots_kernel", True))
+        report=traced_path("fused_erk_slots_kernel", True),
+        keep=keep["paced_fhn_bs32"])
     gb = fprobes["canonical_goldbeter_ark324_paced"]
     launches["paced_goldbeter_ark324"] = run_main_path(
         dataclasses.replace(cfg_gb, method="ark324"), gb,
@@ -3950,7 +3991,8 @@ def forced_main_paths(cfg, cfg_gb, cfg_ap, ap_build, fprobes):
         "data/GoldbeterModelArgs.ini goldbeter torus ark324, pulses at "
         "t=0.5, 2 (duration 0.25, amplitude 0.5) on columns 0..nx/4",
         build_kw=dict(forcing=golden_forcing(gb)),
-        report=traced_path("fused_imex_slots_kernel", True))
+        report=traced_path("fused_imex_slots_kernel", True),
+        keep=keep["paced_goldbeter_ark324"])
     ap = fprobes["bounded_ap_paced"]
     launches["paced_bounded_ap_bs32"] = run_main_path(
         cfg_ap, ap, fused_divform.fused_divform_step, 0.01,
@@ -3960,13 +4002,15 @@ def forced_main_paths(cfg, cfg_gb, cfg_ap, ap_build, fprobes):
         "duration 0.5",
         build_kw=dict(ap_build, forcing=golden_forcing(ap)),
         extra_checks=scar_checks(ap, ap_build["obstacle_mask"]),
-        report=traced_path("fused_erk_slots_kernel", True))
+        report=traced_path("fused_erk_slots_kernel", True),
+        keep=keep["paced_bounded_ap_bs32"])
     return launches
 
 
-def forced_phases(cfg, cfg_gb, cfg_ap, ap_build, card):
+def forced_phases(cfg, cfg_gb, cfg_ap, ap_build, card, keep=None):
     """The forcing slice: its kernel checks and timings, then its paths.
-    Returns (erk results, (K2 worst, K2 timings), K3 results, launches)."""
+    Returns (erk results, (K2 worst, K2 timings), K3 results, launches);
+    `keep` receives the paced runs (forced_main_paths)."""
     fprobes = load_forced_probes()
     erk = check_forced_erk_kernels(
         forced_erk_cases(cfg, cfg_ap, ap_build, fprobes), card)
@@ -3974,7 +4018,8 @@ def forced_phases(cfg, cfg_gb, cfg_ap, ap_build, card):
     rkc = check_forced_rkc_kernel(
         forced_rkc_cases(cfg, cfg_ap, ap_build, fprobes), card)
     imx = check_forced_imex_kernel(cfg_gb, fprobes, card)
-    launches = forced_main_paths(cfg, cfg_gb, cfg_ap, ap_build, fprobes)
+    launches = forced_main_paths(cfg, cfg_gb, cfg_ap, ap_build, fprobes,
+                                 keep)
     return erk, rkc, imx, launches
 
 
@@ -3987,6 +4032,434 @@ def forced_fields(worst, timing, ms_u, launches):
                        "plain_ms": plain_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by, "unforced_ms": ms_u,
                        "launches": launches}}
+
+
+# ---------------------------------------------------------------------------
+# Forcing on a mesh: K8-K11 forced, and the paced paths on a 2x2 mesh
+
+
+# the forced shard kernels' meshes, the shards checked on each and the
+# freeze scalars: shard 0 and the last shard of the 2x2 mesh, frozen and
+# not, and of the uneven 1x3 mesh (its last shard holds mirror-pad
+# columns), not frozen
+FORCED_MESHES = ((SHARD_MESH, (0, 3), (0.0, 1.0)),
+                 (UNEVEN_MESH, (0, 2), (0.0,)))
+# K9's forced stage counts: s + 1 = 3, 6, 8, 13, 24 evaluations, one to
+# four chunks of at most 6; and the two it is timed at
+K9_FORCED_STAGES = (2, 5, 7, 12, 23)
+K9_FORCED_TIMED = (5, 23)
+# paced_sharded_fhn_rkc2 runs the paced FHN torus's first 10 of its 20
+# output intervals (Tf = 25, past both S1 pulses at t = 2 and 20), so
+# that the script stays inside its time limit; no golden holds the run,
+# which is held to a single-device run of the same horizon
+PACED_RKC2_INTERVALS = 10
+
+
+def mesh_forced_cases(cfg, cfg_gb, cfg_ap, ap_build, cfg_torus,
+                      torus_build, fprobes):
+    """The forced shard kernels' cases: (kernel, label, config, build
+    arguments, forcing, (t, seg_end) inside a pulse). K8 and K9 on the
+    paced canonical FHN torus (its golden's stimuli and the cross drive;
+    K9 gated, its pulse train alone, and smooth), K10 on the paced
+    Goldbeter torus with the cross drive, K11 on the paced bounded tissue
+    (divform mode) and on the torus fibres (aniso mode) with the bounded
+    tissue's s1s2 stimuli and the cross drive (the same 1600x400 grid);
+    each with a freeze."""
+    fhn = dataclasses.replace(cfg, t_boundary=1.0)
+    paced = fprobes["canonical_fhn_paced"]
+    pulses = {k: v[:1] for k, v in paced.items() if k.startswith("stim_")}
+    gb = dataclasses.replace(cfg_gb, t_boundary=1.0, method="ark324")
+    ap = dataclasses.replace(cfg_ap, t_boundary=1.0)
+    torus = dataclasses.replace(cfg_torus, t_boundary=1.0)
+    ap_paced = fprobes["bounded_ap_paced"]
+    return [
+        ("k8", "paced_fhn", fhn, {},
+         golden_forcing(paced, [cross_drive(fhn)]), (2.3, 2.5)),
+        ("k9", "paced_fhn_gated", dataclasses.replace(fhn, method="rkc2"),
+         {}, golden_forcing(pulses), (2.3, 2.5)),
+        ("k9", "paced_fhn_smooth", dataclasses.replace(fhn, method="rkc2"),
+         {}, golden_forcing(paced, [cross_drive(fhn)]), (2.3, 2.5)),
+        ("k10", "paced_goldbeter", gb, {},
+         golden_forcing(fprobes["canonical_goldbeter_ark324_paced"],
+                        [cross_drive(gb)]), (0.55, 0.7)),
+        ("k11", "paced_bounded_ap", ap, ap_build,
+         golden_forcing(ap_paced, [cross_drive(ap)]), (0.6, 0.8)),
+        ("k11", "torus_fibres_s1s2", torus, torus_build,
+         golden_forcing(ap_paced, [cross_drive(torus)]), (0.6, 0.8))]
+
+
+def shard_stim_inputs(problem, mesh, y_np, dtype, halo, constants=None):
+    """shard_inputs with every shard's StimConstants (kernel_common.
+    prepare_shard_stim_constants): (buffers, constants, stims)."""
+    from crdmodel_tpu_torch.ops.kernel_common import (
+        prepare_shard_stim_constants)
+    from crdmodel_tpu_torch.parallel.sharded import mesh_pad_spec
+    bufs, consts = shard_inputs(problem, mesh, y_np, dtype, halo, constants)
+    return bufs, consts, prepare_shard_stim_constants(
+        problem, mesh, mesh_pad_spec(problem.cfg, mesh), halo, dtype)
+
+
+def forced_shard_kernel(key, problem):
+    """(step, plain version, plain partial sums, halo, constants(problem,
+    mesh, pad, halo, dtype), device tag, source) of shard kernel `key`."""
+    from crdmodel_tpu_torch.ops import erk_slots
+    from crdmodel_tpu_torch.ops import fused_shard_divform as f11
+    from crdmodel_tpu_torch.ops import fused_shard_imex as f10
+    from crdmodel_tpu_torch.ops import fused_shard_rkc as f9
+    from crdmodel_tpu_torch.ops import fused_shard_step as f8
+    from crdmodel_tpu_torch.ops.kernel_common import (
+        make_shard_constants, make_shard_divform_constants)
+    if key == "k8":
+        return (f8.fused_shard_step, f8.fused_shard_step_reference,
+                f8.fused_shard_step_tile_sums, f8.HALO, make_shard_constants,
+                erk_slots.SLOTS_KERNEL, "fused_shard_step.cu")
+    if key == "k9":
+        return (f9.fused_shard_rkc_step, f9.fused_shard_rkc_step_reference,
+                f9.fused_shard_rkc_tile_sums, f9.P_RKC, make_shard_constants,
+                "fused_rkc_chunk_kernel", "fused_shard_rkc.cu")
+    if key == "k10":
+        return (f10.fused_shard_imex_step,
+                f10.fused_shard_imex_step_reference,
+                f10.fused_shard_imex_tile_sums, f10.HALO,
+                make_shard_constants, "fused_imex_slots_kernel",
+                "fused_shard_imex.cu")
+    aniso = problem.diffusion_tensor is not None
+    return (f11.fused_shard_divform_step,
+            f11.fused_shard_divform_step_reference,
+            f11.fused_shard_divform_tile_sums, f11.HALO,
+            lambda p, m, pad, halo, d: make_shard_divform_constants(
+                p, m, pad, halo, d, aniso=aniso),
+            erk_slots.SLOTS_KERNEL, "fused_shard_divform.cu")
+
+
+def forced_shard_variants(key, problem, frc, y, t, seg, dtype):
+    """[(fields, h, args(buf, fz, sc, stim))] of shard kernel `key`'s
+    forced launches: K8 and K11 bs32 and dopri54, K10 each h of K3_H, K9
+    each s of K9_FORCED_STAGES (h as in check_rkc_kernel), each with the
+    step's amplitudes (kernel_common.stage_amplitudes, fused_rkc.
+    stage_times_amplitudes) on the card."""
+    from crdmodel_tpu_torch.integrate import imex
+    from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import fused_rkc as fr
+    from crdmodel_tpu_torch.ops.kernel_common import stage_amplitudes
+    cfg = problem.cfg
+    params = {"_seg_end": seg}
+    out = []
+    if key == "k9":
+        mu1, ctab, ctimes = fr.static_stage_tables(
+            fr.S_MAX_KERNEL, dtype, "cuda", with_times=True)
+        rho = problem_rho(problem, y)
+        for s in K9_FORCED_STAGES:
+            h, st = rkc_step_inputs(s, rho, dtype)
+            amps = fr.stage_times_amplitudes(frc, t, h, st, ctimes, params,
+                                             dtype)
+            out.append((dict(s=s, chunks=len(fr.chunk_schedule(s)),
+                             amp_columns=amps.shape[1]),
+                        lambda buf, fz, sc, stim, h=h, st=st, a=amps: (
+                            buf, h, fz, st, mu1, ctab, sc, cfg.rtol,
+                            cfg.atol, stim, a)))
+        return out
+    if key == "k10":
+        for h_val in K3_H:
+            h = torch.tensor(h_val, dtype=dtype, device="cuda")
+            amps = stage_amplitudes(frc, t, h, torch.tensor(
+                imex.C, dtype=dtype, device="cuda"), params, dtype)
+            out.append((dict(h=h_val),
+                        lambda buf, fz, sc, stim, h=h, a=amps: (
+                            buf, h, fz, sc, cfg.rtol, cfg.atol, stim, a)))
+        return out
+    h = torch.tensor(H if key == "k8" else K4_H, dtype=dtype, device="cuda")
+    for method in ("bs32", "dopri54"):
+        tab = TABLEAUS[method]
+        amps = stage_amplitudes(frc, t, h, torch.tensor(
+            tab.c, dtype=dtype, device="cuda"), params, dtype)
+        out.append((dict(method=method),
+                    lambda buf, fz, sc, stim, tab=tab, a=amps: (
+                        buf, h, fz, sc, tab, cfg.rtol, cfg.atol, stim, a)))
+    return out
+
+
+def check_forced_shard_kernels(cases, seed):
+    """K8-K11 with a structured forcing against their plain versions on
+    FORCED_MESHES' shards of each case (mesh_forced_cases), f32 and f64,
+    with its freeze scalars, inside a pulse: y_new's block and every partial sum bitwise
+    (check_shard_pair with the plain partial sums), two launches bitwise;
+    each case's first f32 launch of each scheme (K8's and K11's bs32 and
+    dopri54 kernels, K9's and K10's one) traced to the forced
+    instantiation. Prints phases k8_forced_check .. k11_forced_check;
+    returns {kernel: its max errors}."""
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import erk_slots
+    rng = np.random.default_rng(seed)
+    worst = {}
+    for key, label, cfg, build_kw, frc, (t_val, seg_val) in cases:
+        problem = build_problem(cfg, "cuda", forcing=frc, **build_kw)
+        step, reference, tile_sums, halo, constants, tag, _ = (
+            forced_shard_kernel(key, problem))
+        y_np = random_state(cfg, tuple(problem.y0.shape), rng)
+        w = worst.setdefault(key, {torch.float32: 0.0, torch.float64: 0.0})
+        name = f"{key}_forced_check"
+        traced = {}     # the traced kernel of each of the case's schemes
+        for shape, shards, fzs in FORCED_MESHES:
+            mesh = shard_mesh(shape)
+            for dtype in (torch.float32, torch.float64):
+                bufs, consts, stims = shard_stim_inputs(
+                    problem, mesh, y_np, dtype, halo, constants)
+                y = torch.tensor(y_np, dtype=dtype, device="cuda")
+                t, seg = (torch.tensor(v, dtype=dtype, device="cuda")
+                          for v in (t_val, seg_val))
+                for fields, make in forced_shard_variants(
+                        key, problem, frc, y, t, seg, dtype):
+                    method = fields.get("method")
+                    want = (erk_slots.kernel_name(TABLEAUS[method])
+                            if method else tag)
+                    if dtype == torch.float32 and want not in traced:
+                        zero = torch.zeros((), dtype=dtype, device="cuda")
+                        args = make(bufs[shards[0]], zero, consts[shards[0]],
+                                    stims[shards[0]])
+                        traced[want] = check_forced_trace(
+                            name, lambda: step(*args), want)
+                    for fz in fzs:
+                        fzt = torch.tensor(fz, dtype=dtype, device="cuda")
+                        for k in shards:
+                            args = make(bufs[k], fzt, consts[k], stims[k])
+                            err = check_shard_pair(
+                                name, dict(
+                                    case=label, model=cfg.model,
+                                    surface=cfg.surface, mesh=list(shape),
+                                    shard=k, shape=list(bufs[k].shape),
+                                    valid=[consts[k].valid_rows,
+                                           consts[k].valid_cols],
+                                    **fields, fz=fz, t=t_val, seg_end=seg_val,
+                                    n_stim=stims[k].n_stim,
+                                    traced_f32_kernel=traced.get(want)),
+                                step, reference, args, dtype, tile_sums)
+                            w[dtype] = max(w[dtype], err)
+                del bufs, consts, stims
+        del problem
+    return worst
+
+
+def shard_kernels_a_step(problem, mesh, build, t, h, seg):
+    """The device kernels of one call of the sharded step_err that
+    build(problem, pad_spec) makes on `mesh` (the exchange, the
+    amplitudes and a launch a shard), with the problem's forcing and
+    without it: {"forced": n, "unforced": n}."""
+    from crdmodel_tpu_torch.ops import trace
+    from crdmodel_tpu_torch.parallel.sharded import (mesh_pad_spec,
+                                                     shard_params,
+                                                     sharded_params,
+                                                     split_state)
+    cfg = problem.cfg
+    pad = mesh_pad_spec(cfg, mesh)
+    out = {}
+    for label, prob in (("forced", problem),
+                        ("unforced", dataclasses.replace(problem,
+                                                         forcing=None))):
+        fused = build(prob, pad)
+        params = {**shard_params(sharded_params(prob, pad), mesh, pad, cfg),
+                  "_seg_end": seg}
+        yp = fused.pad(split_state(prob.y0, mesh, pad, cfg))
+        out[label] = len(trace.kernel_names(
+            lambda: fused.step_err(t, yp, h, params), n=1))
+    return out
+
+
+def mesh_forced_timings(cases, card):
+    """Each forced shard kernel timed forced and unforced in one call on
+    shard 0 of its case's 2x2 mesh (forced_timing with shard_bound: the
+    forcing's bytes and operations added), from the ICs, f32, unfrozen,
+    inside the case's pulse: K8 and K11 bs32, K10 at K3_H[0], K9 smooth at
+    K9_FORCED_TIMED; with the kernels a step of a sharded step_err and
+    ptxas's forced and unforced registers and spills. Prints phases
+    k8_forced_timing .. k11_forced_timing; returns {(kernel, label, s):
+    (forced timing, unforced ms)}."""
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.integrate import imex
+    from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import fused_rkc as fr
+    from crdmodel_tpu_torch.ops import fused_shard_divform as f11
+    from crdmodel_tpu_torch.ops import fused_shard_imex as f10
+    from crdmodel_tpu_torch.ops import fused_shard_rkc as f9
+    from crdmodel_tpu_torch.ops import fused_shard_step as f8
+    from crdmodel_tpu_torch.ops.kernel_common import stage_amplitudes
+    from crdmodel_tpu_torch.parallel.sharded import sharded_rho_bound
+    dtype = torch.float32
+    zero = torch.zeros((), device="cuda")
+    mesh = shard_mesh(SHARD_MESH)
+    tab = TABLEAUS["bs32"]
+    out = {}
+    for key, label, cfg, build_kw, frc, window in cases:
+        if label == "paced_fhn_gated":
+            continue
+        cfg = dataclasses.replace(cfg, t_boundary=0.0)
+        problem = build_problem(cfg, "cuda", forcing=frc, **build_kw)
+        step, reference, _, halo, constants, tag, source = (
+            forced_shard_kernel(key, problem))
+        bufs, consts, stims = shard_stim_inputs(
+            problem, mesh, problem.y0.cpu().numpy(), dtype, halo, constants)
+        buf, sc, stim = bufs[0], consts[0], stims[0]
+        t, seg = (torch.tensor(v, device="cuda") for v in window)
+        rtol, atol = cfg.rtol, cfg.atol
+        if key == "k9":
+            mu1, ctab, ctimes = fr.static_stage_tables(
+                fr.S_MAX_KERNEL, dtype, "cuda", with_times=True)
+            tables = sum(x.numel() * x.element_size() for x in (mu1, ctab))
+            rho = problem_rho(problem, problem.y0)
+            per_step = shard_kernels_a_step(
+                problem, mesh, lambda p, pad: f9.build_fused_shard_rkc(
+                    p, mesh, sharded_rho_bound(p, mesh, pad), pad),
+                t, rkc_step_inputs(max(K9_FORCED_TIMED), rho, dtype)[0], seg)
+            for s in K9_FORCED_TIMED:
+                h, st = rkc_step_inputs(s, rho, dtype)
+                amps = fr.stage_times_amplitudes(frc, t, h, st, ctimes,
+                                                 {"_seg_end": seg}, dtype)
+                base = (buf, h, zero, st, mu1, ctab, sc, rtol, atol)
+                out[key, label, s] = forced_timing(
+                    f"{key}_forced_timing", buf, sc, stim, amps,
+                    lambda: step(*base, stim, amps), lambda: step(*base),
+                    lambda: reference(*base, stim, amps), tag,
+                    rkc_ops(sc, s), s + 1, tables, per_step, source, card,
+                    bound_of=shard_bound, case=label, s=s,
+                    chunks=len(f9.extent_rings(s)))
+            continue
+        if key == "k10":
+            h = torch.tensor(K3_H[0], device="cuda")
+            c_nodes, ops, n_evals = imex.C, imex_ops(sc), imex.STAGES
+            base = (buf, h, zero, sc, rtol, atol)
+
+            def build(p, pad):
+                return f10.build_fused_shard_imex(p, mesh, pad)
+        else:
+            h = torch.tensor(H if key == "k8" else K4_H, device="cuda")
+            c_nodes, ops, n_evals = tab.c, erk_ops(sc, tab), tab.stages
+            base = (buf, h, zero, sc, tab, rtol, atol)
+
+            if key == "k8":
+                def build(p, pad):
+                    return f8.build_fused_shard_step(p, tab, mesh, pad)
+            else:
+                def build(p, pad, aniso=problem.diffusion_tensor is not None):
+                    return f11.build_fused_shard_divform(p, tab, mesh, pad,
+                                                         aniso=aniso)
+        amps = stage_amplitudes(frc, t, h, torch.tensor(
+            c_nodes, dtype=dtype, device="cuda"), {"_seg_end": seg}, dtype)
+        out[key, label, None] = forced_timing(
+            f"{key}_forced_timing", buf, sc, stim, amps,
+            lambda: step(*base, stim, amps), lambda: step(*base),
+            lambda: reference(*base, stim, amps), tag, ops, n_evals, 0,
+            shard_kernels_a_step(problem, mesh, build, t, h, seg), source,
+            card, bound_of=shard_bound, case=label, mode=sc.kind,
+            h=float(h), window=list(window))
+        del problem, bufs, consts, stims
+    return out
+
+
+def paced_sharded_fhn_rkc2(cfg, rkc2_probes, fprobes, mesh):
+    """paced_sharded_fhn_rkc2: the paced canonical FHN torus with rkc2
+    over its first PACED_RKC2_INTERVALS output intervals, through
+    simulate_sharded() on `mesh` (K9, forced), held as
+    main_path_sharded_fhn_rkc2 to this call's single-device forced run
+    through K2 (run_sharded_rkc2: no golden holds the paced rkc2 run), and
+    traced through K9's forced instantiation. Returns K9's launches."""
+    n = PACED_RKC2_INTERVALS
+    cfg = dataclasses.replace(cfg, method="rkc2",
+                              t_final=cfg.t_final * n / cfg.output_timestep,
+                              output_timestep=n)
+    return run_sharded_rkc2(
+        cfg, rkc2_probes, mesh, "paced_sharded_fhn_rkc2",
+        build_kw=dict(forcing=golden_forcing(fprobes["canonical_fhn_paced"])),
+        label="data/FHNmodelArgs.ini fhn torus rkc2, the paced golden's "
+              f"stimuli (two S1 pulses, a sinusoid), Tf={cfg.t_final}",
+        report=traced_path("fused_rkc_chunk_kernel", True, mesh=mesh))
+
+
+def mesh_forced_paths(cfg, cfg_gb, cfg_ap, ap_build, fprobes, probes,
+                      singles):
+    """The paced paths on one card's 2x2 mesh of shards at full grid size,
+    each through the kernel named (launch counts, and a traced short run
+    of the same problem through its forced instantiation) and held to its
+    JAX CPU golden and to this call's single-device forced run (`singles`,
+    forced_main_paths' keep): the paced FHN torus
+    (paced_sharded_fhn_bs32, K8), Goldbeter torus with ark324
+    (paced_sharded_goldbeter_ark324, K10), bounded tissue with its scar
+    checks (paced_sharded_bounded_ap_bs32, K11) and the paced FHN torus
+    with rkc2 over its first PACED_RKC2_INTERVALS output intervals
+    (paced_sharded_fhn_rkc2, K9; held to a single-device K2 run instead).
+    Returns {name: launches}."""
+    from crdmodel_tpu_torch.ops import (fused_shard_divform,
+                                        fused_shard_imex, fused_shard_step)
+    mesh = shard_mesh(SHARD_MESH)
+    tag = "fused_erk_slots_kernel"
+    launches = {}
+    paced = fprobes["canonical_fhn_paced"]
+    launches["paced_sharded_fhn_bs32"] = run_main_path(
+        cfg, paced, fused_shard_step.fused_shard_step, 0.01,
+        "paced_sharded_fhn_bs32",
+        "data/FHNmodelArgs.ini fhn torus, two S1 pulses (t=2, 20, "
+        "duration 1, amplitude 1) on rows ny/8..ny/4 and 0.1 sin(2 pi t / "
+        "12.5) on a Gaussian column band",
+        build_kw=dict(forcing=golden_forcing(paced)), mesh=mesh,
+        versus=singles["paced_fhn_bs32"],
+        report=traced_path(tag, True, mesh=mesh))
+    gb = fprobes["canonical_goldbeter_ark324_paced"]
+    launches["paced_sharded_goldbeter_ark324"] = run_main_path(
+        dataclasses.replace(cfg_gb, method="ark324"), gb,
+        fused_shard_imex.fused_shard_imex_step, 0.01,
+        "paced_sharded_goldbeter_ark324",
+        "data/GoldbeterModelArgs.ini goldbeter torus ark324, pulses at "
+        "t=0.5, 2 (duration 0.25, amplitude 0.5) on columns 0..nx/4",
+        build_kw=dict(forcing=golden_forcing(gb)), mesh=mesh,
+        versus=singles["paced_goldbeter_ark324"],
+        report=traced_path("fused_imex_slots_kernel", True, mesh=mesh))
+    ap = fprobes["bounded_ap_paced"]
+    launches["paced_sharded_bounded_ap_bs32"] = run_main_path(
+        cfg_ap, ap, fused_shard_divform.fused_shard_divform_step, 0.01,
+        "paced_sharded_bounded_ap_bs32",
+        "scripts/bench_suite.py::bounded_tissue aliev_panfilov flat, noflux "
+        "walls + circular scar, s1s2_protocol S1 t=0.5 S2 t=4 amplitude 3 "
+        "duration 0.5",
+        build_kw=dict(ap_build, forcing=golden_forcing(ap)),
+        extra_checks=scar_checks(ap, ap_build["obstacle_mask"]), mesh=mesh,
+        versus=singles["paced_bounded_ap_bs32"],
+        report=traced_path(tag, True, mesh=mesh))
+    launches["paced_sharded_fhn_rkc2"] = paced_sharded_fhn_rkc2(
+        cfg, probes["fhn", "rkc2"], fprobes, mesh)
+    return launches
+
+
+def mesh_forced_phases(cfg, cfg_gb, cfg_ap, ap_build, cfg_torus,
+                       torus_build, probes, singles, card):
+    """Forcing on a mesh: the forced shard kernels' checks
+    (check_forced_shard_kernels) and timings (mesh_forced_timings), then
+    the paced paths on a 2x2 mesh (mesh_forced_paths). Returns each shard
+    kernel entry's forced fields (forced_fields), by the entry's name; no
+    forced path drives K11's aniso mode, so its forced launches are
+    None."""
+    fprobes = load_forced_probes()
+    cases = mesh_forced_cases(cfg, cfg_gb, cfg_ap, ap_build, cfg_torus,
+                              torus_build, fprobes)
+    worst = check_forced_shard_kernels(cases, SEED + 14)
+    timings = mesh_forced_timings(cases, card)
+    n = mesh_forced_paths(cfg, cfg_gb, cfg_ap, ap_build, fprobes, probes,
+                          singles)
+    return {
+        "fused_shard_step": forced_fields(
+            worst["k8"], *timings["k8", "paced_fhn", None],
+            n["paced_sharded_fhn_bs32"]),
+        "fused_shard_rkc_step": forced_fields(
+            worst["k9"], *timings["k9", "paced_fhn_smooth",
+                                  max(K9_FORCED_TIMED)],
+            n["paced_sharded_fhn_rkc2"]),
+        "fused_shard_imex_step": forced_fields(
+            worst["k10"], *timings["k10", "paced_goldbeter", None],
+            n["paced_sharded_goldbeter_ark324"]),
+        "fused_shard_divform_step": forced_fields(
+            worst["k11"], *timings["k11", "paced_bounded_ap", None],
+            n["paced_sharded_bounded_ap_bs32"]),
+        "fused_shard_divform_step (aniso mode)": forced_fields(
+            worst["k11"], *timings["k11", "torus_fibres_s1s2", None], None)}
 
 
 def load_probes():
@@ -4152,7 +4625,11 @@ def main():
                       sharded_fhn, card)
         return
     if sys.argv[1:] == ["--forced"]:
-        forced_phases(cfg, cfg_gb, cfg_ap, ap_build, card)
+        paced = {}
+        forced_phases(cfg, cfg_gb, cfg_ap, ap_build, card, paced)
+        mesh_forced_phases(cfg, cfg_gb, cfg_ap, ap_build,
+                           *programs["torus_tensor"], load_probes(), paced,
+                           card)
         return
     if sys.argv[1:]:
         sys.exit(f"unknown arguments {sys.argv[1:]}; see the docstring")
@@ -4368,9 +4845,15 @@ def main():
         extra_checks=tensor_checks(aniso_probes,
                                    aniso_build["diffusion_tensor"]),
         keep=singles["aniso"])
-    # the forcing and curvature slice: K1-K4 forced, and its five paths
+    # the forcing and curvature slice: K1-K4 forced, and its five paths;
+    # then forcing on a mesh: K8-K11 forced, and the paced paths on 2x2
+    # shards, held to the single-device paced runs
+    paced = {}
     forced_erk, (worst2f, timing2f), forced_k3, forced_launches = \
-        forced_phases(cfg, cfg_gb, cfg_ap, ap_build, card)
+        forced_phases(cfg, cfg_gb, cfg_ap, ap_build, card, paced)
+    mesh_forced = mesh_forced_phases(cfg, cfg_gb, cfg_ap, ap_build,
+                                     *programs["torus_tensor"], probes,
+                                     paced, card)
 
     worst14 = check_kstep_kernel([cfg, cfg_flat, gb_torus, gb_flat,
                                   ap_periodic])
@@ -4381,6 +4864,8 @@ def main():
     sharded_fhn = {}
     shard_entries = shard_phases(cfg, probes, single_fhn, card, sharded_fhn)
     field_entries = shard_field_phases(cfg, programs, probes, singles, card)
+    for entry in (*shard_entries, *field_entries):
+        entry.update(mesh_forced[entry["name"]])
     shard_box_entries = shard_box_phases(cfg_box, box_singles, card)
     stream_phases(cfg, programs["goldbeter_ark324"], probes, single_fhn,
                   sharded_fhn, card)

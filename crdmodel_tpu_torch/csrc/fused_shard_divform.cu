@@ -46,6 +46,17 @@
 // clamped code. Each partial sum adds its tile's points in erk_tile.cuh's
 // order: y_new's block and every partial sum are bitwise those of the
 // plain version and of erk_tile.cuh's scheme.
+//
+// A structured forcing (pallas_shard_divform.py:99-101, 204-211, 263-271,
+// 343-352, 444-467), in both modes, comes in as K4's (fused_divform.cu): an
+// amplitude table amps[n_stim][n_stages] computed on the device before
+// the launch, and each stimulus's row and column profiles halo-padded to
+// the shard's buffer (ops/kernel_common.py::prepare_shard_stim_constants);
+// stage s adds (amps[j][s] * rows[j][r]) * cols[j][c] at the buffer's
+// (r, c) its state comes from, before the live factor and the tissue
+// field (rhs_common.cuh::StimTable, add_operator). A cell outside the
+// no-flux walls meets zero faces but still reads its profile at its
+// source index. n_stim = 0 takes the unforced instantiation (NoStim).
 
 #include <cuda_runtime.h>
 
@@ -56,22 +67,22 @@ namespace {
 
 using crd::HaloGrid;
 
-template <int Kin, typename T>
+template <int Kin, typename T, class Stim>
 int launch_kinetics(const crd::FaceConstants<T>& f,
                     const crd::MixedConstants<T>& m,
                     const crd::RhsConstants<T>& k, int mode,
                     const HaloGrid& grid, const void* y, void* y_new,
                     void* ss, const void* h, const void* fz, int tile_x,
                     int tile_y, const crd::StageTable& tab, double rtol,
-                    double atol, void* stream) {
+                    double atol, void* stream, Stim stim) {
   if (mode == 1)
     return crd::launch_erk_slots_on<crd::MixedDivformRhs<Kin, T, HaloGrid>,
                                     T>(
         {f, m, k, grid}, grid, y, y_new, ss, h, fz, grid.nyl, grid.nxl,
-        tile_x, tile_y, tab, rtol, atol, stream);
+        tile_x, tile_y, tab, rtol, atol, stream, stim);
   return crd::launch_erk_slots_on<crd::DivformRhs<Kin, T, HaloGrid>, T>(
       {f, k, grid}, grid, y, y_new, ss, h, fz, grid.nyl, grid.nxl, tile_x,
-      tile_y, tab, rtol, atol, stream);
+      tile_y, tab, rtol, atol, stream, stim);
 }
 
 // crd::slots_kernel_info of the bs32 kernel of (mode, kinetics) in T
@@ -95,9 +106,14 @@ int info(int mode, int kinetics, int* out) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// amps, rows, cols, n_stim, n_cols, var1: the structured forcing, its
+// profiles halo-padded to the buffer (n_stim = 0 and null pointers
+// without one)
 template <typename T>
 int launch(const void* y, void* y_new, void* ss, const void* h,
-           const void* fz, const void* ae, const void* aw, const void* an,
+           const void* fz, const void* amps, const void* rows,
+           const void* cols, int n_stim, int n_cols, int var1,
+           const void* ae, const void* aw, const void* an,
            const void* fourth, int mode, const void* inv4, int inv4_profile,
            const void* beta, int beta_field, const void* mask,
            int has_freeze, int kinetics, int nyl, int nxl, int halo,
@@ -122,37 +138,38 @@ int launch(const void* y, void* y_new, void* ss, const void* h,
       nullptr, nullptr, nullptr, 0, static_cast<const T*>(beta), beta_field,
       static_cast<const T*>(mask), has_freeze};
   const HaloGrid grid = {nyl, nxl, halo, valid_rows, valid_cols};
-  if (kinetics == crd::kFhn)
-    return launch_kinetics<crd::kFhn, T>(f, m, k, mode, grid, y, y_new, ss,
-                                         h, fz, tile_x, tile_y, tab, rtol,
-                                         atol, stream);
-  if (kinetics == crd::kGoldbeter)
-    return launch_kinetics<crd::kGoldbeter, T>(f, m, k, mode, grid, y, y_new,
-                                               ss, h, fz, tile_x, tile_y, tab,
-                                               rtol, atol, stream);
-  return launch_kinetics<crd::kAlievPanfilov, T>(f, m, k, mode, grid, y,
-                                                 y_new, ss, h, fz, tile_x,
-                                                 tile_y, tab, rtol, atol,
-                                                 stream);
+  return crd::with_stim<T>(
+      amps, rows, cols, n_stim, n_cols, var1, n_cols == n_stages,
+      nyl + 2 * halo, nxl + 2 * halo, [&](auto stim) {
+        return crd::with_kinetics(kinetics, [&](auto kin) {
+          return launch_kinetics<decltype(kin)::value, T>(
+              f, m, k, mode, grid, y, y_new, ss, h, fz, tile_x, tile_y, tab,
+              rtol, atol, stream, stim);
+        });
+      });
 }
 
 }  // namespace
 
-// fourth: the tissue field (mode 0, null without an obstacle) or Dxy (mode
-// 1); inv4: the mixed pair's weight, a scalar or, with inv4_profile, the
+// amps, rows, cols, n_stim, n_cols, var1: the structured forcing; fourth:
+// the tissue field (mode 0, null without an obstacle) or Dxy (mode 1);
+// inv4: the mixed pair's weight, a scalar or, with inv4_profile, the
 // (nxl + 2 halo) column profile (mode 1; null in mode 0)
 #define CRD_FUSED_SHARD_DIVFORM_ARGS                                         \
-  const void *y, void *y_new, void *ss, const void *h, const void *fz,      \
-      const void *ae, const void *aw, const void *an, const void *fourth,   \
-      int mode, const void *inv4, int inv4_profile, const void *beta,       \
-      int beta_field, const void *mask, int has_freeze, int kinetics,       \
-      int nyl, int nxl, int halo, int valid_rows, int valid_cols,           \
-      int tile_x, int tile_y, int n_stages, const double *a,                \
-      const double *b, const double *d, double rtol, double atol,           \
+  const void *y, void *y_new, void *ss, const void *h, const void *fz,       \
+      const void *amps, const void *rows, const void *cols, int n_stim,      \
+      int n_cols, int var1, const void *ae, const void *aw,                  \
+      const void *an, const void *fourth, int mode,                          \
+      const void *inv4, int inv4_profile, const void *beta,                  \
+      int beta_field, const void *mask, int has_freeze, int kinetics,        \
+      int nyl, int nxl, int halo, int valid_rows, int valid_cols,            \
+      int tile_x, int tile_y, int n_stages, const double *a,                 \
+      const double *b, const double *d, double rtol, double atol,            \
       void *stream
 #define CRD_FUSED_SHARD_DIVFORM_PASS                                         \
-  y, y_new, ss, h, fz, ae, aw, an, fourth, mode, inv4, inv4_profile, beta,  \
-      beta_field, mask, has_freeze, kinetics, nyl, nxl, halo, valid_rows,   \
+  y, y_new, ss, h, fz, amps, rows, cols, n_stim, n_cols, var1, ae, aw, an,   \
+      fourth, mode, inv4, inv4_profile, beta,                                \
+      beta_field, mask, has_freeze, kinetics, nyl, nxl, halo, valid_rows,    \
       valid_cols, tile_x, tile_y, n_stages, a, b, d, rtol, atol, stream
 
 extern "C" int crd_fused_shard_divform_step_f32(

@@ -38,6 +38,15 @@
 // read once and y_new's block written once. Each thread carries at most
 // three points through the stages, where the first port's 256 threads
 // carried some six each through shared memory.
+//
+// A structured forcing (pallas_shard_imex.py:90-124, 147-155, 243-255)
+// rides the explicit stages only, as K3's (fused_imex.cu): an amplitude
+// table amps[n_stim][4] at the ARK's c nodes, computed on the device
+// before the launch, and each stimulus's row and column profiles
+// halo-padded to the shard's buffer (ops/kernel_common.py::
+// prepare_shard_stim_constants), read at the buffer's (r, c) a point's
+// state comes from (imex_slots.cuh, rhs_common.cuh::StimTable). n_stim = 0
+// takes the unforced instantiation (NoStim).
 
 #include <cuda_runtime.h>
 
@@ -46,9 +55,14 @@
 
 namespace {
 
+// amps, rows, cols, n_stim, n_cols, var1: the structured forcing of the
+// explicit stages, its profiles halo-padded to the buffer (n_stim = 0 and
+// null pointers without one)
 template <typename T>
 int launch(const void* y, void* y_new, void* ss, const void* h,
-           const void* fz, const void* c0, const void* c1, const void* c2,
+           const void* fz, const void* amps, const void* rows,
+           const void* cols, int n_stim, int n_cols, int var1,
+           const void* c0, const void* c1, const void* c2,
            int torus, const void* beta, int beta_field, const void* mask,
            int has_freeze, int kinetics, int nyl, int nxl, int halo,
            int valid_rows, int valid_cols, int tile_x, int tile_y,
@@ -65,25 +79,32 @@ int launch(const void* y, void* y_new, void* ss, const void* h,
   if (tile_x != crd::kImexTile || tile_y != crd::kImexTile)
     return static_cast<int>(cudaErrorInvalidValue);
   const crd::HaloGrid grid = {nyl, nxl, halo, valid_rows, valid_cols};
-  return crd::launch_imex_slots<crd::HaloGrid, T, crd::kImexTile>(
-      grid, y, y_new, ss, h, fz, k, kinetics, nyl, nxl,
-      crd::make_imex_table(ae, ai, b, d, gamma), rtol, atol, stream);
+  const crd::ImexTable tab = crd::make_imex_table(ae, ai, b, d, gamma);
+  return crd::with_stim<T>(
+      amps, rows, cols, n_stim, n_cols, var1, n_cols == crd::kImexStages,
+      nyl + 2 * halo, nxl + 2 * halo, [&](auto stim) {
+        return crd::launch_imex_slots<crd::HaloGrid, T, crd::kImexTile>(
+            grid, y, y_new, ss, h, fz, k, kinetics, nyl, nxl, tab, rtol,
+            atol, stream, stim);
+      });
 }
 
 }  // namespace
 
 #define CRD_FUSED_SHARD_IMEX_ARGS                                            \
-  const void *y, void *y_new, void *ss, const void *h, const void *fz,      \
-      const void *c0, const void *c1, const void *c2, int torus,            \
-      const void *beta, int beta_field, const void *mask, int has_freeze,   \
-      int kinetics, int nyl, int nxl, int halo, int valid_rows,             \
-      int valid_cols, int tile_x, int tile_y, const double *ae,             \
-      const double *ai, const double *b, const double *d, double gamma,     \
-      double rtol, double atol, void *stream
+  const void *y, void *y_new, void *ss, const void *h, const void *fz,       \
+      const void *amps, const void *rows, const void *cols, int n_stim,      \
+      int n_cols, int var1, const void *c0, const void *c1, const void *c2,  \
+      int torus, const void *beta, int beta_field, const void *mask,         \
+      int has_freeze, int kinetics, int nyl, int nxl, int halo,              \
+      int valid_rows, int valid_cols, int tile_x, int tile_y,                \
+      const double *ae, const double *ai, const double *b, const double *d,  \
+      double gamma, double rtol, double atol, void *stream
 #define CRD_FUSED_SHARD_IMEX_PASS                                            \
-  y, y_new, ss, h, fz, c0, c1, c2, torus, beta, beta_field, mask,           \
-      has_freeze, kinetics, nyl, nxl, halo, valid_rows, valid_cols, tile_x, \
-      tile_y, ae, ai, b, d, gamma, rtol, atol, stream
+  y, y_new, ss, h, fz, amps, rows, cols, n_stim, n_cols, var1, c0, c1,       \
+      c2, torus, beta, beta_field, mask, has_freeze, kinetics, nyl, nxl,     \
+      halo, valid_rows, valid_cols, tile_x, tile_y, ae, ai, b, d, gamma,     \
+      rtol, atol, stream
 
 extern "C" int crd_fused_shard_imex_step_f32(CRD_FUSED_SHARD_IMEX_ARGS) {
   return launch<float>(CRD_FUSED_SHARD_IMEX_PASS);

@@ -40,6 +40,17 @@
 // a tile; what is left over the bound is the chunks' halo (up to 1.9x at
 // 6 rings), the grid barriers and the hand-off through device memory (12
 // planes of the buffer a chunk boundary).
+//
+// A structured forcing (pallas_shard_rkc.py:54-57, 123-160, 191-199,
+// 335-356) comes in as K2's (fused_rkc.cu): an amplitude table
+// amps[n_stim][n_cols], one column when every stimulus is segment-gated,
+// else S_MAX_KERNEL + 2 at the Chebyshev stage times of the s all shards
+// run, computed on the device before the launch; evaluation e reads column
+// rkc_amp_column(e) whichever chunk runs it. Each stimulus's row and
+// column profiles are halo-padded to the shard's P = 24 rings
+// (ops/kernel_common.py::prepare_shard_stim_constants) and read at the
+// buffer's (r, c) a point's state comes from (rkc_chunk.cuh's
+// ChunkOrigin<HaloGrid>). n_stim = 0 takes the unforced instantiation.
 
 #include <cuda_runtime.h>
 
@@ -50,15 +61,6 @@ namespace {
 
 using crd::HaloGrid;
 using crd::ProfileRhs;
-
-// go(rhs) for the kinetics id
-template <typename T, class F>
-int dispatch(const crd::RhsConstants<T>& k, int kinetics, F go) {
-  if (kinetics == crd::kFhn) return go(ProfileRhs<crd::kFhn, T>{k});
-  if (kinetics == crd::kGoldbeter)
-    return go(ProfileRhs<crd::kGoldbeter, T>{k});
-  return go(ProfileRhs<crd::kAlievPanfilov, T>{k});
-}
 
 // The most tiles a chunk of a step of at most s_cap stages has on an
 // nyl x nxl block: its extent grows by the evaluations still to come after
@@ -77,9 +79,14 @@ int max_tiles(int s_cap, int nyl, int nxl) {
   return most;
 }
 
+// amps, rows, cols, n_stim, n_cols, var1: the structured forcing, its
+// profiles halo-padded to the buffer (n_stim = 0 and null pointers
+// without one)
 template <typename T>
 int launch(const void* y, void* y_new, void* ss, void* work, const void* h,
-           const void* fz, const void* s, const void* mu1_tab,
+           const void* fz, const void* amps, const void* rows,
+           const void* cols, int n_stim, int n_cols, int var1,
+           const void* s, const void* mu1_tab,
            const void* ctab, int s_cap, const void* c0, const void* c1,
            const void* c2, int torus, const void* beta, int beta_field,
            const void* mask, int has_freeze, int kinetics, int nyl, int nxl,
@@ -100,11 +107,17 @@ int launch(const void* y, void* y_new, void* ss, void* work, const void* h,
                              sum_ty, sums_x, sums_x * ((nyl + sum_ty - 1)
                                                        / sum_ty)};
   const int most = max_tiles(s_cap, nyl, nxl);
-  return dispatch<T>(k, kinetics, [&](auto rhs) {
-    return crd::launch_rkc_chunk<decltype(rhs), HaloGrid, T>(
-        rhs, grid, plan, most, y, y_new, ss, work, h, fz, s, mu1_tab, ctab,
-        s_cap, rtol, atol, stream);
-  });
+  return crd::with_stim<T>(
+      amps, rows, cols, n_stim, n_cols, var1,
+      n_cols == 1 || n_cols == crd::kRkcMaxStages + 2, nyl + 2 * halo,
+      nxl + 2 * halo, [&](auto stim) {
+        return crd::with_kinetics(kinetics, [&](auto kin) {
+          using Rhs = ProfileRhs<decltype(kin)::value, T>;
+          return crd::launch_rkc_chunk<Rhs, HaloGrid, T>(
+              Rhs{k}, grid, plan, most, y, y_new, ss, work, h, fz, s,
+              mu1_tab, ctab, s_cap, rtol, atol, stream, stim);
+        });
+      });
 }
 
 // crd::rkc_chunk_info of the kernel of `kinetics` in T
@@ -112,26 +125,31 @@ template <typename T>
 int info(int kinetics, int* out) {
   if (!crd::valid_kinetics(kinetics))
     return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch<T>(crd::RhsConstants<T>{}, kinetics, [&](auto rhs) {
-    return crd::rkc_chunk_info<decltype(rhs), HaloGrid, T>(out);
+  return crd::with_kinetics(kinetics, [&](auto kin) {
+    return crd::rkc_chunk_info<ProfileRhs<decltype(kin)::value, T>, HaloGrid,
+                               T>(out);
   });
 }
 
 }  // namespace
 
+// amps, rows, cols, n_stim, n_cols and var1: the structured forcing;
 // work: ten planes of the buffer's shape; (sum_tx, sum_ty): the partial
 // sums' tiles, each dividing 32
 #define CRD_FUSED_SHARD_RKC_ARGS                                             \
-  const void *y, void *y_new, void *ss, void *work, const void *h,          \
-      const void *fz, const void *s, const void *mu1_tab, const void *ctab, \
-      int s_cap, const void *c0, const void *c1, const void *c2, int torus, \
-      const void *beta, int beta_field, const void *mask, int has_freeze,   \
-      int kinetics, int nyl, int nxl, int halo, int valid_rows,             \
-      int valid_cols, int sum_tx, int sum_ty, double rtol, double atol,     \
+  const void *y, void *y_new, void *ss, void *work, const void *h,           \
+      const void *fz, const void *amps, const void *rows,                    \
+      const void *cols, int n_stim, int n_cols, int var1, const void *s,     \
+      const void *mu1_tab, const void *ctab,                                 \
+      int s_cap, const void *c0, const void *c1, const void *c2, int torus,  \
+      const void *beta, int beta_field, const void *mask, int has_freeze,    \
+      int kinetics, int nyl, int nxl, int halo, int valid_rows,              \
+      int valid_cols, int sum_tx, int sum_ty, double rtol, double atol,      \
       void *stream
 #define CRD_FUSED_SHARD_RKC_PASS                                             \
-  y, y_new, ss, work, h, fz, s, mu1_tab, ctab, s_cap, c0, c1, c2, torus,    \
-      beta, beta_field, mask, has_freeze, kinetics, nyl, nxl, halo,         \
+  y, y_new, ss, work, h, fz, amps, rows, cols, n_stim, n_cols, var1, s,      \
+      mu1_tab, ctab, s_cap, c0, c1, c2, torus,                               \
+      beta, beta_field, mask, has_freeze, kinetics, nyl, nxl, halo,          \
       valid_rows, valid_cols, sum_tx, sum_ty, rtol, atol, stream
 
 extern "C" int crd_fused_shard_rkc_step_f32(CRD_FUSED_SHARD_RKC_ARGS) {

@@ -39,6 +39,17 @@
 // inputs, error and coefficients in its thread's registers, read once a
 // launch (ProfileRhs::point), the stage input's variable 0 in two shared
 // planes, one block barrier a stage.
+//
+// A structured forcing (pallas_shard_step.py:149-230, 281-288, 331-352)
+// comes in as K1's does (fused_step.cu): an amplitude table
+// amps[n_stim][n_stages], computed on the device before the launch, and
+// each stimulus's row and column profiles, here halo-padded to the
+// shard's buffer (nyl + 2P and nxl + 2P entries, the exchange's values
+// and, on a padded mesh, the mirror-pad cells' sources':
+// ops/kernel_common.py::prepare_shard_stim_constants). A point reads them
+// at the buffer's (r, c) its state comes from (HaloGrid's row and col),
+// through rhs_common.cuh::StimTable; n_stim = 0 takes the unforced
+// instantiation (NoStim), which has none of it.
 
 #include <cuda_runtime.h>
 
@@ -50,9 +61,14 @@ namespace {
 using crd::HaloGrid;
 using crd::ProfileRhs;
 
+// amps, rows, cols, n_stim, n_cols, var1: the structured forcing, its
+// profiles halo-padded to the buffer (n_stim = 0 and null pointers
+// without one)
 template <typename T>
 int launch(const void* y, void* y_new, void* ss, const void* h,
-           const void* fz, const void* c0, const void* c1, const void* c2,
+           const void* fz, const void* amps, const void* rows,
+           const void* cols, int n_stim, int n_cols, int var1,
+           const void* c0, const void* c1, const void* c2,
            int torus, const void* beta, int beta_field, const void* mask,
            int has_freeze, int kinetics, int nyl, int nxl, int halo,
            int valid_rows, int valid_cols, int tile_x, int tile_y,
@@ -69,17 +85,16 @@ int launch(const void* y, void* y_new, void* ss, const void* h,
       static_cast<const T*>(c2), torus, static_cast<const T*>(beta),
       beta_field, static_cast<const T*>(mask), has_freeze};
   const HaloGrid grid = {nyl, nxl, halo, valid_rows, valid_cols};
-  if (kinetics == crd::kFhn)
-    return crd::launch_erk_slots_on<ProfileRhs<crd::kFhn, T>, T>(
-        {k}, grid, y, y_new, ss, h, fz, nyl, nxl, tile_x, tile_y, tab, rtol,
-        atol, stream);
-  if (kinetics == crd::kGoldbeter)
-    return crd::launch_erk_slots_on<ProfileRhs<crd::kGoldbeter, T>, T>(
-        {k}, grid, y, y_new, ss, h, fz, nyl, nxl, tile_x, tile_y, tab, rtol,
-        atol, stream);
-  return crd::launch_erk_slots_on<ProfileRhs<crd::kAlievPanfilov, T>, T>(
-      {k}, grid, y, y_new, ss, h, fz, nyl, nxl, tile_x, tile_y, tab, rtol,
-      atol, stream);
+  return crd::with_stim<T>(
+      amps, rows, cols, n_stim, n_cols, var1, n_cols == n_stages,
+      nyl + 2 * halo, nxl + 2 * halo, [&](auto stim) {
+        return crd::with_kinetics(kinetics, [&](auto kin) {
+          return crd::launch_erk_slots_on<
+              ProfileRhs<decltype(kin)::value, T>, T>(
+              {k}, grid, y, y_new, ss, h, fz, nyl, nxl, tile_x, tile_y, tab,
+              rtol, atol, stream, stim);
+        });
+      });
 }
 
 // crd::slots_kernel_info of the bs32 kernel of `kinetics` in T
@@ -99,17 +114,20 @@ int info(int kinetics, int* out) {
 }  // namespace
 
 #define CRD_FUSED_SHARD_STEP_ARGS                                            \
-  const void *y, void *y_new, void *ss, const void *h, const void *fz,      \
-      const void *c0, const void *c1, const void *c2, int torus,            \
-      const void *beta, int beta_field, const void *mask, int has_freeze,   \
-      int kinetics, int nyl, int nxl, int halo, int valid_rows,             \
-      int valid_cols, int tile_x, int tile_y, int n_stages,                 \
-      const double *a, const double *b, const double *d, double rtol,       \
+  const void *y, void *y_new, void *ss, const void *h, const void *fz,       \
+      const void *amps, const void *rows, const void *cols, int n_stim,      \
+      int n_cols, int var1, const void *c0, const void *c1,                  \
+      const void *c2, int torus, const void *beta, int beta_field,           \
+      const void *mask, int has_freeze, int kinetics, int nyl, int nxl,      \
+      int halo, int valid_rows, int valid_cols, int tile_x, int tile_y,      \
+      int n_stages,                                                          \
+      const double *a, const double *b, const double *d, double rtol,        \
       double atol, void *stream
 #define CRD_FUSED_SHARD_STEP_PASS                                            \
-  y, y_new, ss, h, fz, c0, c1, c2, torus, beta, beta_field, mask,           \
-      has_freeze, kinetics, nyl, nxl, halo, valid_rows, valid_cols, tile_x, \
-      tile_y, n_stages, a, b, d, rtol, atol, stream
+  y, y_new, ss, h, fz, amps, rows, cols, n_stim, n_cols, var1, c0, c1,       \
+      c2, torus, beta, beta_field, mask, has_freeze, kinetics, nyl, nxl,     \
+      halo, valid_rows, valid_cols, tile_x, tile_y, n_stages, a, b, d,       \
+      rtol, atol, stream
 
 extern "C" int crd_fused_shard_step_f32(CRD_FUSED_SHARD_STEP_ARGS) {
   return launch<float>(CRD_FUSED_SHARD_STEP_PASS);

@@ -4,7 +4,8 @@
 // 5-point profile, divergence-form and 9-point anisotropic operators on
 // variable 0, the kinetics of each ported family and their closed-form
 // Jacobians, the RHS at one point of a tile held in shared memory, the
-// structured forcing of K1-K4 (StimTable) and the per-block partial sum.
+// structured forcing of K1-K4 and K8-K11 (StimTable) and the per-block
+// partial sum.
 // Counterpart of crdmodel_tpu/ops/kernel_common.py::make_rhs_block,
 // make_split_block and make_divform_rhs_block and of the operator of
 // crdmodel_tpu/ops/pallas_aniso.py; the plain torch versions are
@@ -20,6 +21,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace crd {
 
@@ -42,6 +45,15 @@ enum Kinetics { kFhn = 0, kGoldbeter = 1, kAlievPanfilov = 2 };
 
 inline bool valid_kinetics(int id) {
   return id == kFhn || id == kGoldbeter || id == kAlievPanfilov;
+}
+
+// go(kin) for a valid kinetics id, kin its std::integral_constant
+template <class F>
+inline int with_kinetics(int kinetics, F go) {
+  using std::integral_constant;
+  if (kinetics == kFhn) return go(integral_constant<int, kFhn>{});
+  if (kinetics == kGoldbeter) return go(integral_constant<int, kGoldbeter>{});
+  return go(integral_constant<int, kAlievPanfilov>{});
 }
 
 constexpr double kFhnEpsilon = 0.36;   // models/fhn.py EPSILON
@@ -177,19 +189,23 @@ struct RhsConstants {
   int has_freeze;
 };
 
-// The structured forcing of K1, K2, K3 and K4 (core/forcing.py::
-// SeparableForcing, every stimulus rank-1; ops/kernel_common.py::
-// StimConstants): stimulus j adds (amps[j][a] * rows[j][r]) * cols[j][c]
-// to the right-hand side of its variable at the point of row and column
-// indices (r, c), a being the amplitude column of the evaluation (a stage
-// of the step). The amplitudes are computed on the device before the
+// The structured forcing of K1, K2, K3 and K4 and of the shard kernels
+// K8-K11 (core/forcing.py::SeparableForcing, every stimulus rank-1;
+// ops/kernel_common.py::StimConstants): stimulus j adds
+// (amps[j][a] * rows[j][r]) * cols[j][c] to the right-hand side of its
+// variable at the point of row and column indices (r, c), a being the
+// amplitude column of the evaluation (a stage of the step). The amplitudes are computed on the device before the
 // launch (ops/kernel_common.py::stage_amplitudes) and read here from
 // device memory, like the profiles, through the read-only data cache.
 // Each variable's forcing adds its stimuli in order from +0.0, as
 // ops/kernel_common.py::stim_terms; the right-hand side then takes
 // kinetics + (operator + f_u) and kinetics + f_v, before the freeze's
-// live factor and the tissue field (the torch path's make_rhs). A kernel
-// without a forcing takes NoStim, which compiles all of it out.
+// live factor and the tissue field (the torch path's make_rhs). On a
+// shard (HaloGrid) ny and nx are the halo-padded buffer's extents and the
+// profiles are halo-padded like the shard's other constants
+// (ops/kernel_common.py::prepare_shard_stim_constants), so a ring point
+// reads them at the buffer index its state comes from. A kernel without
+// a forcing takes NoStim, which compiles all of it out.
 constexpr int kStimMaskBits = 31;  // var1's bits (STIM_MASK_BITS)
 
 struct NoStim {
@@ -236,6 +252,23 @@ inline bool make_stim_table(const void* amps, const void* rows,
   *out = {static_cast<const T*>(amps), static_cast<const T*>(rows),
           static_cast<const T*>(cols), n_stim, n_cols, ny, nx, var1};
   return true;
+}
+
+// go(stim) with a launch's forcing: NoStim when n_stim is 0, else the
+// StimTable of its arguments over profiles of ny and nx entries;
+// cudaErrorInvalidValue when n_cols is not a count the kernel takes
+// (n_cols_ok) or the arguments make no table
+template <typename T, class F>
+inline int with_stim(const void* amps, const void* rows, const void* cols,
+                     int n_stim, int n_cols, int var1, bool n_cols_ok,
+                     int ny, int nx, F go) {
+  if (n_stim == 0) return go(NoStim{});
+  StimTable<T> stim;
+  if (!n_cols_ok
+      || !make_stim_table(amps, rows, cols, n_stim, n_cols, var1, ny, nx,
+                          &stim))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return go(stim);
 }
 
 // kinetics (du, dv) plus the operator's lap on variable 0 and, forced,
@@ -638,13 +671,15 @@ struct MixedConstants {
 //   t1 = fx(j, i+1) - fx(j, i-1),  fx = Dxy (uN - uS)
 //   t2 = fy(j+1, i) - fy(j-1, i),  fy = Dxy (uE - uW)
 //   lap = axis + inv4 (t1 + t2)
-// then kinetics + lap, times live with a freeze. aniso_rhs (K5) associates
-// axis + (t1 + t2) on a folded Dxy*inv4 instead.
-template <int Kin, typename T, class Grid>
+// then kinetics + lap (kForced: kinetics + (lap + fu) and kinetics + fv),
+// times live with a freeze. aniso_rhs (K5) associates axis + (t1 + t2) on
+// a folded Dxy*inv4 instead.
+template <int Kin, typename T, class Grid, bool kForced = false>
 __device__ __forceinline__ void mixed_divform_rhs(
     const FaceConstants<T>& f, const MixedConstants<T>& m,
     const RhsConstants<T>& k, const Grid& grid, T fz, const T* su,
-    const T* sv, int p, int W, int gy, int gx, T& du_out, T& dv_out) {
+    const T* sv, int p, int W, int gy, int gx, T& du_out, T& dv_out,
+    T fu = T(0), T fv = T(0)) {
   const size_t g = grid.field(gy, gx);
   const int rn = grid.north(gy), rs = grid.south(gy);
   const int ce = grid.east(gx), cw = grid.west(gx);
@@ -665,7 +700,7 @@ __device__ __forceinline__ void mixed_divform_rhs(
   const T lap = axis + w4 * ((fx_e - fx_w) + (fy_n - fy_s));
   T du, dv;
   kinetics<Kin>(u, sv[p], beta_at(k, gy), du, dv);
-  du = du + lap;
+  add_operator<kForced>(lap, fu, fv, du, dv);
   if (k.has_freeze) {
     const T live = live_at(k, fz, gy);
     du = du * live;
@@ -677,11 +712,12 @@ __device__ __forceinline__ void mixed_divform_rhs(
 
 // mixed_divform_rhs on a point's coefficients read before (FacePoint, x
 // the weight inv4) and the raw Dxy in a plane sx of the region's layout,
-// the same operations in the same order
-template <int Kin, typename T>
+// the same operations in the same order; kForced adds the point's forcing
+// (fu, fv)
+template <int Kin, typename T, bool kForced = false>
 __device__ __forceinline__ void mixed_point_rhs(
     const FacePoint<T>& c, bool freeze, const T* sx, const T* su, T v,
-    int p, int W, T& du_out, T& dv_out) {
+    int p, int W, T& du_out, T& dv_out, T fu = T(0), T fv = T(0)) {
   const T u = su[p];
   const T axis = c.ae * (su[p + 1] - u) + c.aw * (su[p - 1] - u)
                  + c.an * (su[p + W] - u) + c.as * (su[p - W] - u);
@@ -692,7 +728,7 @@ __device__ __forceinline__ void mixed_point_rhs(
   const T lap = axis + c.x * ((fx_e - fx_w) + (fy_n - fy_s));
   T du, dv;
   kinetics<Kin>(u, v, c.beta, du, dv);
-  du = du + lap;
+  add_operator<kForced>(lap, fu, fv, du, dv);
   if (freeze) {
     du = du * c.live;
     dv = dv * c.live;
@@ -704,7 +740,8 @@ __device__ __forceinline__ void mixed_point_rhs(
 // mixed_divform_rhs as the functor the ERK tile kernels take (K11's aniso
 // mode; erk_tile.cuh, erk_slots.cuh); point() and at_point() as
 // DivformRhs's, with Dxy, which the operator reads at neighbours, in a
-// shared plane (plane(0, g) its value at field offset g)
+// shared plane (plane(0, g) its value at field offset g); each with
+// (fu, fv) before the outputs adds the point's forcing
 template <int Kin, typename T, class Grid>
 struct MixedDivformRhs {
   static constexpr int kPlanes = 1;
@@ -719,6 +756,13 @@ struct MixedDivformRhs {
                                              int p, int W, int gy, int gx,
                                              T& du, T& dv) const {
     mixed_divform_rhs<Kin>(f, m, k, grid, fz, su, sv, p, W, gy, gx, du, dv);
+  }
+  __device__ __forceinline__ void operator()(T fz, const T* su, const T* sv,
+                                             int p, int W, int gy, int gx,
+                                             T fu, T fv, T& du,
+                                             T& dv) const {
+    mixed_divform_rhs<Kin, T, Grid, true>(f, m, k, grid, fz, su, sv, p, W,
+                                          gy, gx, du, dv, fu, fv);
   }
   __device__ __forceinline__ FacePoint<T> point(T fz, size_t g, size_t gs,
                                                 int r, int c) const {
@@ -738,6 +782,13 @@ struct MixedDivformRhs {
                                            int p, int W, T& du,
                                            T& dv) const {
     mixed_point_rhs<Kin>(c, k.has_freeze, sx, su, v, p, W, du, dv);
+  }
+  __device__ __forceinline__ void at_point(const FacePoint<T>& c,
+                                           const T* sx, const T* su, T v,
+                                           int p, int W, T fu, T fv, T& du,
+                                           T& dv) const {
+    mixed_point_rhs<Kin, T, true>(c, k.has_freeze, sx, su, v, p, W, du, dv,
+                                  fu, fv);
   }
 };
 

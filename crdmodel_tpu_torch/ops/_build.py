@@ -42,8 +42,8 @@ _INTP = ctypes.POINTER(ctypes.c_int)
 # fused_box3d_rkc.cu, fused_shard_step.cu, fused_shard_rkc.cu,
 # fused_shard_imex.cu, fused_shard_divform.cu, fused_shard_box3d.cu,
 # fused_shard_box3d_rkc.cu, fused_kstep.cu)
-# the structured forcing of K1-K4 after fz: amps, rows, cols; n_stim,
-# n_cols, var1 (ops/kernel_common.py::StimConstants.launch_args)
+# the structured forcing of K1-K4 and K8-K11 after fz: amps, rows, cols;
+# n_stim, n_cols, var1 (ops/kernel_common.py::StimConstants.launch_args)
 _STIM = [_VOIDP] * 3 + [_INT] * 3
 _FUSED_STEP_ARGTYPES = ([_VOIDP] * 5 + _STIM + [_VOIDP] * 3
                         + [_INT, _VOIDP, _INT, _VOIDP]
@@ -84,19 +84,22 @@ _FUSED_SHARD_BOX3D_ARGTYPES = (_BOX_HEAD + [_INT] + [_DOUBLEP] * 3
                                + [_INT] * 5 + _BOX_OPERATOR)
 _FUSED_SHARD_BOX3D_RKC_ARGTYPES = (_BOX_HEAD + [_VOIDP] * 3 + [_INT] * 5
                                    + _BOX_OPERATOR)
-_FUSED_SHARD_STEP_ARGTYPES = ([_VOIDP] * 8 + [_INT, _VOIDP, _INT, _VOIDP]
+_FUSED_SHARD_STEP_ARGTYPES = ([_VOIDP] * 5 + _STIM + [_VOIDP] * 3
+                              + [_INT, _VOIDP, _INT, _VOIDP]
                               + [_INT] * 10 + [_DOUBLEP] * 3
                               + [_DOUBLE, _DOUBLE, _VOIDP])
-# K9: K2's head (y, y_new, ss, work, h, fz, s, mu1_tab, ctab; s_cap), the
-# profile operator, then has_freeze, kinetics, nyl, nxl, halo, valid_rows,
-# valid_cols and the sum tiles' sum_tx, sum_ty
-_FUSED_SHARD_RKC_ARGTYPES = ([_VOIDP] * 9 + [_INT] + [_VOIDP] * 3
+# K9: K2's head (y, y_new, ss, work, h, fz; the forcing; s, mu1_tab, ctab;
+# s_cap), the profile operator, then has_freeze, kinetics, nyl, nxl, halo,
+# valid_rows, valid_cols and the sum tiles' sum_tx, sum_ty
+_FUSED_SHARD_RKC_ARGTYPES = ([_VOIDP] * 6 + _STIM + [_VOIDP] * 3 + [_INT]
+                             + [_VOIDP] * 3
                              + [_INT, _VOIDP, _INT, _VOIDP] + [_INT] * 9
                              + [_DOUBLE, _DOUBLE, _VOIDP])
-_FUSED_SHARD_IMEX_ARGTYPES = ([_VOIDP] * 8 + [_INT, _VOIDP, _INT, _VOIDP]
+_FUSED_SHARD_IMEX_ARGTYPES = ([_VOIDP] * 5 + _STIM + [_VOIDP] * 3
+                              + [_INT, _VOIDP, _INT, _VOIDP]
                               + [_INT] * 9 + [_DOUBLEP] * 4
                               + [_DOUBLE] * 3 + [_VOIDP])
-_FUSED_SHARD_DIVFORM_ARGTYPES = ([_VOIDP] * 9
+_FUSED_SHARD_DIVFORM_ARGTYPES = ([_VOIDP] * 5 + _STIM + [_VOIDP] * 4
                                  + [_INT, _VOIDP, _INT, _VOIDP, _INT, _VOIDP]
                                  + [_INT] * 10 + [_DOUBLEP] * 3
                                  + [_DOUBLE, _DOUBLE, _VOIDP])

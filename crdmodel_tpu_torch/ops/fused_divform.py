@@ -48,7 +48,7 @@ from crdmodel_tpu_torch.ops.fused_kstep import tile_error_sums
 from crdmodel_tpu_torch.ops.fused_step import (MAX_STAGES,
                                                erk_stages_reference,
                                                erk_step_reference,
-                                               launch_erk_tile, stim_args,
+                                               launch_erk_tile,
                                                tile_plan)
 from crdmodel_tpu_torch.ops.kernel_common import (DivformConstants,
                                                   face_coeffs64,
@@ -61,7 +61,8 @@ from crdmodel_tpu_torch.ops.kernel_common import (DivformConstants,
                                                   prepare_divform_constants,
                                                   prepare_stim_constants,
                                                   south_is_rolled_north,
-                                                  stage_amplitudes)
+                                                  stage_amplitudes,
+                                                  stim_args)
 
 
 def is_divform_supported(problem, tableau: Tableau, dtype) -> bool:
@@ -136,7 +137,8 @@ def fused_divform_step(y, h, fz, dc: DivformConstants, tableau: Tableau,
     out = launch_erk_tile(
         "crd_fused_divform_step",
         (*(c.data_ptr() for c in dc.coeffs), tissue),
-        y, h, fz, dc, tableau, rtol, atol, stim_args(stim, amps, tableau))
+        y, h, fz, dc, tableau, rtol, atol,
+        stim_args(stim, amps, (tableau.stages,)))
     fused_divform_step.launches += 1
     return out
 

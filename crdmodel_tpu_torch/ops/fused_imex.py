@@ -56,8 +56,7 @@ import torch
 
 from crdmodel_tpu_torch.integrate import imex
 from crdmodel_tpu_torch.ops.fused_kstep import block_sums
-from crdmodel_tpu_torch.ops.kernel_common import (NO_STIM_ARGS,
-                                                  KernelConstants,
+from crdmodel_tpu_torch.ops.kernel_common import (KernelConstants,
                                                   check_constants,
                                                   check_tensor,
                                                   forcing_of,
@@ -68,7 +67,8 @@ from crdmodel_tpu_torch.ops.kernel_common import (NO_STIM_ARGS,
                                                   needs_divform,
                                                   prepare_constants,
                                                   prepare_stim_constants,
-                                                  stage_amplitudes)
+                                                  stage_amplitudes,
+                                                  stim_args)
 
 HALO = 4                       # one ring per explicit stencil evaluation
 TILE = 32                      # the tiles' width; and the 32x32 plan's rows
@@ -321,12 +321,7 @@ def fused_imex_step(y, h, fz, kc: KernelConstants, rtol: float, atol: float,
     check_tensor("h", h, (), dtype, device)
     check_tensor("fz", fz, (), dtype, device)
     check_constants(kc, ny, nx, dtype, device)
-    forcing_args = NO_STIM_ARGS
-    if stim is not None:
-        if amps.shape[-1] != imex.STAGES:
-            raise ValueError(f"amps has {amps.shape[-1]} columns for "
-                             f"{imex.STAGES} explicit stages")
-        forcing_args = stim.launch_args(amps)
+    forcing_args = stim_args(stim, amps, (imex.STAGES,))
 
     from crdmodel_tpu_torch.ops._build import load_library
     lib = load_library()

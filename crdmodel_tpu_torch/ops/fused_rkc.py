@@ -62,7 +62,7 @@ import torch
 from crdmodel_tpu_torch.core.problem import make_rho_bound
 from crdmodel_tpu_torch.integrate import rkc
 from crdmodel_tpu_torch.ops.fused_step import error_sum
-from crdmodel_tpu_torch.ops.kernel_common import (NO_STIM_ARGS, SMEM_BYTES,
+from crdmodel_tpu_torch.ops.kernel_common import (SMEM_BYTES,
                                                   KernelConstants,
                                                   check_constants,
                                                   check_tensor,
@@ -78,7 +78,8 @@ from crdmodel_tpu_torch.ops.kernel_common import (NO_STIM_ARGS, SMEM_BYTES,
                                                   prepare_constants,
                                                   prepare_divform_constants,
                                                   prepare_stim_constants,
-                                                  south_is_rolled_north)
+                                                  south_is_rolled_north,
+                                                  stim_args)
 
 S_MAX_KERNEL = 23              # the TPU kernel's halo P=24 less one
 # the tiles of the one-pass RKC kernel the shard step first ran on, which
@@ -419,12 +420,7 @@ def fused_rkc_step(y, h, fz, s, mu1_tab, ctab_tab, kc: KernelConstants,
     check_tensor("fz", fz, (), dtype, device)
     check_tensor("s", s, (), torch.int32, device)
     check_constants(kc, ny, nx, dtype, device)
-    forcing_args = NO_STIM_ARGS
-    if stim is not None:
-        if amps.shape[-1] not in (1, S_MAX_KERNEL + 2):
-            raise ValueError(f"amps has {amps.shape[-1]} columns; the kernel "
-                             f"takes 1 or {S_MAX_KERNEL + 2}")
-        forcing_args = stim.launch_args(amps)
+    forcing_args = stim_args(stim, amps, (1, S_MAX_KERNEL + 2))
 
     from crdmodel_tpu_torch.ops._build import load_library
     lib = load_library()

@@ -192,5 +192,7 @@ def build_fused_shard_box3d(problem, tableau: Tableau, mesh,
     rtol, atol = float(cfg.rtol), float(cfg.atol)
     return build_shard_stepper(
         problem, mesh, pad_spec, consts,
-        lambda buf, h, fz, sc: fused_shard_box3d_step(buf, h, fz, sc,
-                                                      tableau, rtol, atol))
+        # K12 declines a forcing (is_shard_box3d_supported): stim and amps
+        # are None
+        lambda buf, h, fz, sc, stim, amps: fused_shard_box3d_step(
+            buf, h, fz, sc, tableau, rtol, atol))

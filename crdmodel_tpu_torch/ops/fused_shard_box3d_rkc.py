@@ -161,5 +161,6 @@ def build_fused_shard_box3d_rkc(problem, mesh, rho_fn,
     rtol, atol = float(cfg.rtol), float(cfg.atol)
     return build_shard_rkc_stepper(
         problem, mesh, rho_fn, pad_spec, consts, C_RKC,
-        lambda buf, h, fz, s, mu1, ctab, sc: fused_shard_box3d_rkc_step(
-            buf, h, fz, s, mu1, ctab, sc, rtol, atol))
+        # K13 declines a forcing: stim and amps are None
+        lambda buf, h, fz, s, mu1, ctab, sc, stim, amps:
+        fused_shard_box3d_rkc_step(buf, h, fz, s, mu1, ctab, sc, rtol, atol))

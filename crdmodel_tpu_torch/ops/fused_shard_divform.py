@@ -42,6 +42,15 @@ carry zero coefficients, so the halo values they meet contribute exact
 zeros, and obstacle cells, whose RHS the tissue field zeroes, hold their
 IC bitwise. The state layout is K8's (ops/fused_shard_step.py), HALO 8,
 with the mirror-pad semantics on a mesh that does not divide the grid.
+
+A structured forcing (rank-1 stimuli; pallas_shard_divform.py:99-101,
+204-211, 263-271, 343-352, 444-467) is taken in both modes as K8 takes
+it: the step's amplitudes at the tableau's c nodes on the control device,
+copied to each shard (build_shard_stepper), each shard's profiles
+halo-padded once a run (kernel_common.prepare_shard_stim_constants). The
+forcing joins the operator before the freeze and the tissue field, as
+K4's does; a cell outside the no-flux walls meets zero faces and still
+reads its profile at its source index.
 """
 
 from __future__ import annotations
@@ -59,14 +68,18 @@ from crdmodel_tpu_torch.ops.fused_shard_step import (HALO, FusedShardStep,
                                                      interior,
                                                      masked_error_sum)
 from crdmodel_tpu_torch.ops.kernel_common import (ShardDivformConstants,
+                                                  check_shard_stim,
                                                   check_tensor,
                                                   face_coeffs64,
+                                                  forcing_of,
                                                   fused_forcing,
                                                   kernel_ready_kinetics,
                                                   make_shard_divform_constants,
                                                   make_shard_divform_rhs_block,
                                                   needs_divform,
-                                                  south_is_rolled_north)
+                                                  prepare_shard_stim_constants,
+                                                  south_is_rolled_north,
+                                                  stim_args)
 
 # the kernel's operator modes (csrc/fused_shard_divform.cu)
 MODES = {"shard_divform": 0, "shard_aniso": 1}
@@ -80,14 +93,16 @@ def is_shard_divform_supported(problem, tableau: Tableau, dtype, nyl: int,
     mode one with a 2-D diffusion tensor, each on the flat or torus
     surface; f32, at most HALO stages, a local block at least HALO deep on
     both axes, aS == roll_y(aN) exactly on the global float64 fields; plus
-    the port's rules: no forcing, kinetics with a device function."""
+    the port's rule: kinetics with a device function. A structured forcing
+    is taken in both modes (kernel_common.fused_forcing not False, as the
+    JAX gate's :99-101), a free-form one declines."""
     if problem.geometry.kind not in ("flat", "torus"):
         return False
     if aniso != (problem.diffusion_tensor is not None):
         return False
     if not aniso and not needs_divform(problem):
         return False
-    if fused_forcing(problem) is not None or dtype != torch.float32:
+    if fused_forcing(problem) is False or dtype != torch.float32:
         return False
     if tableau.stages > min(HALO, MAX_STAGES) or nyl < HALO or nxl < HALO:
         return False
@@ -102,15 +117,17 @@ def is_shard_divform_supported(problem, tableau: Tableau, dtype, nyl: int,
 
 def fused_shard_divform_step_reference(yp, h, fz, sc: ShardDivformConstants,
                                        tableau: Tableau, rtol: float,
-                                       atol: float):
+                                       atol: float, stim=None, amps=None):
     """One step in plain torch on a halo-padded buffer: (y_new, ss), y_new
     a buffer whose block is the step's (its halo is yp's), ss a (1,) tensor
     holding the physical cells' sum of squared WRMS-scaled errors. The
     stages run on the whole buffer, wrapping at its edge: the n_stages
     outer rings go wrong, and the block, HALO >= n_stages rings in, is the
-    kernel's bitwise."""
+    kernel's bitwise. stim, amps: the shard's StimConstants and the step's
+    (n_stim, n_stages) amplitudes, or None."""
     y_all, err = erk_stages_reference(
-        yp, h, make_shard_divform_rhs_block(sc, fz), tableau)
+        yp, h, make_shard_divform_rhs_block(sc, fz), tableau,
+        forcing_of(stim, amps, yp))
     y_new = yp.clone()
     interior(y_new, sc.halo).copy_(interior(y_all, sc.halo))
     return y_new, masked_error_sum(err, yp, sc, rtol, atol)
@@ -118,13 +135,14 @@ def fused_shard_divform_step_reference(yp, h, fz, sc: ShardDivformConstants,
 
 def fused_shard_divform_tile_sums(yp, h, fz, sc: ShardDivformConstants,
                                   tableau: Tableau, rtol: float,
-                                  atol: float):
+                                  atol: float, stim=None, amps=None):
     """The kernel's partial sums in plain torch: (n_tiles,) sums over the
     block's tiles (tile_plan) of the physical cells' squared WRMS-scaled
     errors, each in the ERK tile kernels' order (fused_kstep.
     tile_error_sums; a mirror-pad cell adds +0.0, as the kernel's skip)."""
     _, err = erk_stages_reference(
-        yp, h, make_shard_divform_rhs_block(sc, fz), tableau)
+        yp, h, make_shard_divform_rhs_block(sc, fz), tableau,
+        forcing_of(stim, amps, yp))
     err = interior(err, sc.halo).clone()
     err[:, sc.valid_rows:] = 0.0
     err[:, :, sc.valid_cols:] = 0.0
@@ -148,19 +166,22 @@ def check_shard_divform_constants(sc: ShardDivformConstants, nyl: int,
 
 
 def fused_shard_divform_step(yp, h, fz, sc: ShardDivformConstants,
-                             tableau: Tableau, rtol: float, atol: float):
+                             tableau: Tableau, rtol: float, atol: float,
+                             stim=None, amps=None):
     """One fused step on one shard: (y_new, ss partials (n_blocks,)).
 
     yp is the shard's halo-padded buffer (2, nyl + 2 HALO, nxl + 2 HALO)
     with its halo filled; h and fz are 0-d tensors on its device. Only the
-    block of y_new is written. A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel or raises. bs32 runs the
-    register-resident scheme (csrc/erk_slots.cuh), zonneveld43 and dopri54
-    erk_tile.cuh's: erk_slots.kernel_name.
+    block of y_new is written. stim, amps: the shard's StimConstants
+    (prepare_shard_stim_constants) and the step's (n_stim, n_stages)
+    amplitudes on its device, or None (the unforced kernel). A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel or raises.
+    bs32 runs the register-resident scheme (csrc/erk_slots.cuh),
+    zonneveld43 and dopri54 erk_tile.cuh's: erk_slots.kernel_name.
     `fused_shard_divform_step.launches` counts kernel launches."""
     if yp.device.type == "cpu":
         return fused_shard_divform_step_reference(yp, h, fz, sc, tableau,
-                                                  rtol, atol)
+                                                  rtol, atol, stim, amps)
     if yp.device.type != "cuda":
         raise ValueError(f"no fused shard divergence-form kernel for device "
                          f"{yp.device}")
@@ -184,6 +205,8 @@ def fused_shard_divform_step(yp, h, fz, sc: ShardDivformConstants,
     check_tensor("h", h, (), dtype, device)
     check_tensor("fz", fz, (), dtype, device)
     check_shard_divform_constants(sc, nyl, nxl, dtype, device)
+    if stim is not None:
+        check_shard_stim(stim, nyl, nxl, p, dtype, device)
 
     from crdmodel_tpu_torch.ops._build import load_library
     lib = load_library()
@@ -200,6 +223,7 @@ def fused_shard_divform_step(yp, h, fz, sc: ShardDivformConstants,
     with torch.cuda.device(device):
         rc = launch(yp.data_ptr(), y_new.data_ptr(), ss.data_ptr(),
                     h.data_ptr(), fz.data_ptr(),
+                    *stim_args(stim, amps, (tableau.stages,)),
                     *(c.data_ptr() for c in sc.coeffs),
                     None if fourth is None else fourth.data_ptr(),
                     MODES[sc.kind],
@@ -225,12 +249,17 @@ def build_fused_shard_divform(problem, tableau: Tableau, mesh, pad_spec=None,
     """step_err(t, yp, h, params) -> (y_new, err_ss) of `problem` on `mesh`
     (crdmodel_tpu/ops/pallas_shard_divform.py:139): the coefficient stack
     halo-padded once here, then a step refreshes every shard's halo and
-    launches once a shard under its device (build_shard_stepper)."""
+    launches once a shard under its device (build_shard_stepper), with a
+    structured forcing's amplitudes at the tableau's c nodes."""
     cfg = problem.cfg
+    dtype = problem.y0.dtype
     consts = make_shard_divform_constants(problem, mesh, pad_spec, HALO,
-                                          problem.y0.dtype, aniso=aniso)
+                                          dtype, aniso=aniso)
+    stims = prepare_shard_stim_constants(problem, mesh, pad_spec, HALO,
+                                         dtype)
     rtol, atol = float(cfg.rtol), float(cfg.atol)
     return build_shard_stepper(
         problem, mesh, pad_spec, consts,
-        lambda buf, h, fz, sc: fused_shard_divform_step(buf, h, fz, sc,
-                                                        tableau, rtol, atol))
+        lambda buf, h, fz, sc, stim, amps: fused_shard_divform_step(
+            buf, h, fz, sc, tableau, rtol, atol, stim, amps),
+        stims, tuple(float(c) for c in tableau.c))

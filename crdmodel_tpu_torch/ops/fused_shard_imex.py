@@ -30,6 +30,13 @@ that does not divide the grid. K3's 4 explicit stencils consume 4 rings a
 step, so 4 would do; HALO stays 8, the JAX package's, so that the kernel
 takes the blocks the JAX gate takes (at least 8 deep on both axes) and
 shares the exchange and the constants' layout of K8.
+
+A structured forcing (rank-1 stimuli; pallas_shard_imex.py:90-124,
+147-155, 243-255) rides the explicit stages only, at the ARK's c nodes
+(4 amplitude columns), as K3's does: the step's amplitudes on the control
+device copied to each shard (build_shard_stepper), each shard's profiles
+halo-padded once a run (kernel_common.prepare_shard_stim_constants). The
+Newton stage solves stay pointwise and shard-local.
 """
 
 from __future__ import annotations
@@ -46,11 +53,14 @@ from crdmodel_tpu_torch.ops.fused_shard_step import (FusedShardStep,
                                                      check_shard_constants,
                                                      interior)
 from crdmodel_tpu_torch.ops.kernel_common import (ShardConstants,
+                                                  check_shard_stim,
                                                   check_tensor,
                                                   fused_forcing,
                                                   kernel_ready_kinetics,
                                                   make_shard_constants,
-                                                  needs_divform)
+                                                  needs_divform,
+                                                  prepare_shard_stim_constants,
+                                                  stim_args)
 
 HALO = 8      # the exchange's width (crdmodel_tpu/ops/pallas_step.py HALO)
 
@@ -60,10 +70,12 @@ def is_shard_imex_supported(problem, dtype, nyl: int, nxl: int) -> bool:
     without the TPU strip rule: f32, a local block at least HALO deep on
     both axes; plus the port's rules of K3 (ops/fused_imex.py::
     is_imex_supported): the profile operator (theta-only torus fields
-    through its remap), no forcing, kinetics with a device function."""
+    through its remap), kinetics with a device function. A structured
+    forcing is taken (kernel_common.fused_forcing not False), a free-form
+    one declines."""
     if needs_divform(problem) or problem.diffusion_tensor is not None:
         return False
-    if problem.geometry.kind == "box" or fused_forcing(problem) is not None:
+    if problem.geometry.kind == "box" or fused_forcing(problem) is False:
         return False
     if dtype != torch.float32 or nyl < HALO or nxl < HALO:
         return False
@@ -71,14 +83,17 @@ def is_shard_imex_supported(problem, dtype, nyl: int, nxl: int) -> bool:
 
 
 def fused_shard_imex_step_reference(yp, h, fz, sc: ShardConstants,
-                                    rtol: float, atol: float):
+                                    rtol: float, atol: float, stim=None,
+                                    amps=None):
     """One step in plain torch on a halo-padded buffer: (y_new, ss), y_new
     a buffer whose block is the step's (its halo is yp's), ss a (1,) tensor
     holding the physical cells' sum of squared WRMS-scaled errors plus
     (1/NEWTON_TOL)^2 times their squared scaled last Newton updates. The
     stages run on the whole buffer, wrapping at its edge: the 4 outer rings
-    go wrong, and the block, HALO >= 4 rings in, is the kernel's bitwise."""
-    y_all, err, dys = imex_stages_reference(yp, h, fz, sc)
+    go wrong, and the block, HALO >= 4 rings in, is the kernel's bitwise.
+    stim, amps: the shard's StimConstants and the step's (n_stim, STAGES)
+    amplitudes of the explicit stages, or None."""
+    y_all, err, dys = imex_stages_reference(yp, h, fz, sc, stim, amps)
     y_new = yp.clone()
     interior(y_new, sc.halo).copy_(interior(y_all, sc.halo))
     p = sc.halo
@@ -98,13 +113,13 @@ def slots_plan(itemsize: int):
 
 
 def fused_shard_imex_tile_sums(yp, h, fz, sc: ShardConstants, rtol: float,
-                               atol: float):
+                               atol: float, stim=None, amps=None):
     """The kernel's partial sums in plain torch: (n_tiles,), one a
     TILE-square tile of the block, in the order of K3's first port, which
     the kernel replays (fused_imex.imex_tile_sums on the block), the
     physical cells only: a mirror-pad cell adds +0.0, as the kernel's
     skip."""
-    _, err, dys = imex_stages_reference(yp, h, fz, sc)
+    _, err, dys = imex_stages_reference(yp, h, fz, sc, stim, amps)
     p = sc.halo
     return imex_tile_sums(interior(err, p), [interior(dy, p) for dy in dys],
                           interior(yp, p), rtol, atol, TILE,
@@ -120,16 +135,20 @@ def kernel_info(dtype, kinetics_id: int) -> dict:
 
 
 def fused_shard_imex_step(yp, h, fz, sc: ShardConstants, rtol: float,
-                          atol: float):
+                          atol: float, stim=None, amps=None):
     """One fused IMEX step on one shard: (y_new, ss partials (n_blocks,)).
 
     yp is the shard's halo-padded buffer (2, nyl + 2P, nxl + 2P) with its
     halo filled, P >= 4; h and fz are 0-d tensors on its device. Only the
-    block of y_new is written. A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel or raises.
-    `fused_shard_imex_step.launches` counts kernel launches."""
+    block of y_new is written. stim, amps: the shard's StimConstants
+    (prepare_shard_stim_constants) and the step's (n_stim, STAGES)
+    amplitudes of the explicit stages on its device, or None (the unforced
+    kernel). A CPU tensor takes the plain version; a CUDA tensor launches
+    the kernel or raises. `fused_shard_imex_step.launches` counts kernel
+    launches."""
     if yp.device.type == "cpu":
-        return fused_shard_imex_step_reference(yp, h, fz, sc, rtol, atol)
+        return fused_shard_imex_step_reference(yp, h, fz, sc, rtol, atol,
+                                               stim, amps)
     if yp.device.type != "cuda":
         raise ValueError(f"no fused shard IMEX kernel for device {yp.device}")
     dtype, device = yp.dtype, yp.device
@@ -151,6 +170,9 @@ def fused_shard_imex_step(yp, h, fz, sc: ShardConstants, rtol: float,
     check_tensor("h", h, (), dtype, device)
     check_tensor("fz", fz, (), dtype, device)
     check_shard_constants(sc, nyl, nxl, dtype, device)
+    if stim is not None:
+        check_shard_stim(stim, nyl, nxl, p, dtype, device)
+    forcing_args = stim_args(stim, amps, (imex.STAGES,))
 
     from crdmodel_tpu_torch.ops._build import load_library
     lib = load_library()
@@ -164,7 +186,7 @@ def fused_shard_imex_step(yp, h, fz, sc: ShardConstants, rtol: float,
     # the CUDA runtime launches on the current device: make it the shard's
     with torch.cuda.device(device):
         rc = launch(yp.data_ptr(), y_new.data_ptr(), ss.data_ptr(),
-                    h.data_ptr(), fz.data_ptr(),
+                    h.data_ptr(), fz.data_ptr(), *forcing_args,
                     *(c.data_ptr() for c in sc.coeffs),
                     int(sc.kind == "torus"), sc.b.data_ptr(),
                     int(sc.b_is_field), sc.mask.data_ptr(),
@@ -185,12 +207,16 @@ fused_shard_imex_step.launches = 0
 def build_fused_shard_imex(problem, mesh, pad_spec=None) -> FusedShardStep:
     """step_err(t, yp, h, params) -> (y_new, err_ss) of `problem` on `mesh`
     (crdmodel_tpu/ops/pallas_shard_imex.py:57): refresh every shard's halo,
-    then one launch a shard under its device (build_shard_stepper)."""
+    then one launch a shard under its device (build_shard_stepper), with a
+    structured forcing's amplitudes at the ARK's c nodes."""
     cfg = problem.cfg
-    consts = make_shard_constants(problem, mesh, pad_spec, HALO,
-                                  problem.y0.dtype)
+    dtype = problem.y0.dtype
+    consts = make_shard_constants(problem, mesh, pad_spec, HALO, dtype)
+    stims = prepare_shard_stim_constants(problem, mesh, pad_spec, HALO,
+                                         dtype)
     rtol, atol = float(cfg.rtol), float(cfg.atol)
     return build_shard_stepper(
         problem, mesh, pad_spec, consts,
-        lambda buf, h, fz, sc: fused_shard_imex_step(buf, h, fz, sc, rtol,
-                                                     atol))
+        lambda buf, h, fz, sc, stim, amps: fused_shard_imex_step(
+            buf, h, fz, sc, rtol, atol, stim, amps),
+        stims, tuple(float(c) for c in imex.C))

@@ -29,6 +29,17 @@ The state layout is K8's (ops/fused_shard_step.py): halo-padded buffers,
 the block at [P, P + nyl) x [P, P + nxl), mirror-pad cells on a padded
 mesh. As in the JAX package, it declines the divergence form (no-flux
 walls, obstacles, 2-D fields), which runs rkc2 on the sharded torch path.
+
+A structured forcing (rank-1 stimuli; pallas_shard_rkc.py:54-57, 123-160,
+191-199, 335-356) is taken as K2 takes it: when every stimulus is
+segment-gated (pulse trains) one amplitude column, constant over the
+step; else S_MAX_KERNEL + 2 columns at the true Chebyshev stage times of
+the stage count s that every shard runs (fused_rkc.
+stage_times_amplitudes), computed on the control device from the same s
+the step launches with, before the launch, and copied to each shard's
+device. Evaluation e reads column amp_column(e), whichever chunk runs it.
+Each shard's profiles are halo-padded to P_RKC once a run
+(kernel_common.prepare_shard_stim_constants).
 """
 
 from __future__ import annotations
@@ -43,21 +54,25 @@ from crdmodel_tpu_torch.ops.fused_kstep import tile_error_sums
 from crdmodel_tpu_torch.ops.fused_rkc import (CHUNK, CHUNK_THREADS,
                                               S_MAX_KERNEL, SCRATCH_PLANES,
                                               check_stage_tables,
-                                              chunk_schedule,
+                                              chunk_schedule, rkc_forcing,
                                               rkc_stages_reference,
+                                              stage_times_amplitudes,
                                               static_stage_tables, tile_plan)
 from crdmodel_tpu_torch.ops.fused_shard_step import (check_shard_constants,
                                                      interior,
                                                      masked_error_sum,
                                                      shard_buffers)
 from crdmodel_tpu_torch.ops.kernel_common import (ShardConstants,
+                                                  check_shard_stim,
                                                   check_tensor,
                                                   freeze_scalar,
                                                   fused_forcing,
                                                   kernel_ready_kinetics,
                                                   make_rhs_block,
                                                   make_shard_constants,
-                                                  needs_divform)
+                                                  needs_divform,
+                                                  prepare_shard_stim_constants,
+                                                  stim_args)
 from crdmodel_tpu_torch.parallel.halo import refresh_halos
 from crdmodel_tpu_torch.parallel.shards import Shards
 
@@ -68,9 +83,11 @@ def is_shard_rkc_supported(problem, dtype, nyl: int, nxl: int) -> bool:
     """The kernel's gate (crdmodel_tpu/ops/pallas_shard_rkc.py:53-73)
     without the TPU strip rules: f32, a local block at least P_RKC deep on
     both axes, a kinetics Jacobian bound; plus the port's rules of K2's
-    profile branch (ops/fused_rkc.py::is_rkc_supported): no forcing, the
-    profile operator, kinetics with a device function."""
-    if fused_forcing(problem) is not None or dtype != torch.float32:
+    profile branch (ops/fused_rkc.py::is_rkc_supported): the profile
+    operator, kinetics with a device function. A structured forcing is
+    taken, gated and smooth (kernel_common.fused_forcing not False, as the
+    JAX gate's :54-57), a free-form one declines."""
+    if fused_forcing(problem) is False or dtype != torch.float32:
         return False
     if nyl < P_RKC or nxl < P_RKC:
         return False
@@ -101,22 +118,25 @@ def sum_tiles(s_cap: int, itemsize: int):
 
 def fused_shard_rkc_step_reference(yp, h, fz, s, mu1_tab, ctab_tab,
                                    sc: ShardConstants, rtol: float,
-                                   atol: float):
+                                   atol: float, stim=None, amps=None):
     """One step in plain torch on a halo-padded buffer: (y_new, ss), y_new
     a buffer whose block is the step's (its halo is yp's), ss a (1,) tensor
     holding the physical cells' sum of squared WRMS-scaled errors. Reads s
     on the host. The stages run on the whole buffer, wrapping at its edge:
     the s + 1 outer rings go wrong, and the block, P_RKC >= s + 1 rings in,
-    is the kernel's bitwise."""
+    is the kernel's bitwise. stim, amps: the shard's StimConstants and the
+    step's amplitude table (fused_rkc.stage_times_amplitudes), or None."""
     rhs_block = make_rhs_block(sc, fz)
-    y_all, est = rkc_stages_reference(yp, h, s, mu1_tab, ctab_tab, rhs_block)
+    y_all, est = rkc_stages_reference(yp, h, s, mu1_tab, ctab_tab, rhs_block,
+                                      rkc_forcing(stim, amps, yp))
     y_new = yp.clone()
     interior(y_new, sc.halo).copy_(interior(y_all, sc.halo))
     return y_new, masked_error_sum(est, yp, sc, rtol, atol)
 
 
 def fused_shard_rkc_tile_sums(yp, h, fz, s, mu1_tab, ctab_tab,
-                              sc: ShardConstants, rtol: float, atol: float):
+                              sc: ShardConstants, rtol: float, atol: float,
+                              stim=None, amps=None):
     """The kernel's partial sums in plain torch: one a sum tile (sum_tiles)
     of the block, each over the tile's physical cells in the one-pass
     kernel's order (CHUNK_THREADS threads, fused_kstep.tile_error_sums; a
@@ -131,7 +151,8 @@ def fused_shard_rkc_tile_sums(yp, h, fz, s, mu1_tab, ctab_tab,
         return torch.full((n,), float("nan"), dtype=yp.dtype,
                           device=yp.device)
     _, est = rkc_stages_reference(yp, h, s, mu1_tab, ctab_tab,
-                                  make_rhs_block(sc, fz))
+                                  make_rhs_block(sc, fz),
+                                  rkc_forcing(stim, amps, yp))
     err = interior(est, p).clone()
     err[:, sc.valid_rows:] = 0.0
     err[:, :, sc.valid_cols:] = 0.0
@@ -148,7 +169,8 @@ def kernel_info(dtype, kinetics_id: int) -> dict:
 
 
 def fused_shard_rkc_step(yp, h, fz, s, mu1_tab, ctab_tab,
-                         sc: ShardConstants, rtol: float, atol: float):
+                         sc: ShardConstants, rtol: float, atol: float,
+                         stim=None, amps=None):
     """One fused RKC2 step on one shard: (y_new, ss partials, one a sum
     tile of the block (sum_tiles)).
 
@@ -157,12 +179,16 @@ def fused_shard_rkc_step(yp, h, fz, s, mu1_tab, ctab_tab,
     int32 tensor, and mu1_tab/ctab_tab the static_stage_tables of some
     s_cap <= S_MAX_KERNEL, all on its device. Only the block of y_new is
     written; an s outside [2, s_cap] gives NaN partial sums (a rejected
-    step). A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernel or raises. `fused_shard_rkc_step.launches` counts kernel
-    launches."""
+    step). stim, amps: the shard's StimConstants (prepare_shard_stim_
+    constants) and the step's amplitude table on its device (fused_rkc.
+    stage_times_amplitudes: one column, or S_MAX_KERNEL + 2), or None (the
+    unforced kernel). A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel or raises. `fused_shard_rkc_step.launches` counts
+    kernel launches."""
     if yp.device.type == "cpu":
         return fused_shard_rkc_step_reference(yp, h, fz, s, mu1_tab,
-                                              ctab_tab, sc, rtol, atol)
+                                              ctab_tab, sc, rtol, atol,
+                                              stim, amps)
     if yp.device.type != "cuda":
         raise ValueError(f"no fused shard RKC kernel for device {yp.device}")
     dtype, device = yp.dtype, yp.device
@@ -186,6 +212,9 @@ def fused_shard_rkc_step(yp, h, fz, s, mu1_tab, ctab_tab,
     check_tensor("fz", fz, (), dtype, device)
     check_tensor("s", s, (), torch.int32, device)
     check_shard_constants(sc, nyl, nxl, dtype, device)
+    if stim is not None:
+        check_shard_stim(stim, nyl, nxl, p, dtype, device)
+    forcing_args = stim_args(stim, amps, (1, S_MAX_KERNEL + 2))
 
     from crdmodel_tpu_torch.ops._build import load_library
     lib = load_library()
@@ -201,7 +230,8 @@ def fused_shard_rkc_step(yp, h, fz, s, mu1_tab, ctab_tab,
     # the CUDA runtime launches on the current device: make it the shard's
     with torch.cuda.device(device):
         rc = launch(yp.data_ptr(), y_new.data_ptr(), ss.data_ptr(),
-                    work.data_ptr(), h.data_ptr(), fz.data_ptr(), s.data_ptr(),
+                    work.data_ptr(), h.data_ptr(), fz.data_ptr(),
+                    *forcing_args, s.data_ptr(),
                     mu1_tab.data_ptr(), ctab_tab.data_ptr(), s_cap,
                     *(c.data_ptr() for c in sc.coeffs),
                     int(sc.kind == "torus"), sc.b.data_ptr(),
@@ -234,27 +264,36 @@ def build_fused_shard_rkc(problem, mesh, rho_fn,
     (crdmodel_tpu/ops/pallas_shard_rkc.py:86): rho_fn(t, y, params) must
     max-reduce across the shards (make_rho_bound's max_reduce) and takes
     the Shards of blocks; build_shard_rkc_stepper with s_cap
-    S_MAX_KERNEL."""
+    S_MAX_KERNEL and, with a structured forcing, every shard's
+    StimConstants halo-padded to P_RKC."""
     cfg = problem.cfg
-    consts = make_shard_constants(problem, mesh, pad_spec, P_RKC,
-                                  problem.y0.dtype)
+    dtype = problem.y0.dtype
+    consts = make_shard_constants(problem, mesh, pad_spec, P_RKC, dtype)
+    stims = prepare_shard_stim_constants(problem, mesh, pad_spec, P_RKC,
+                                         dtype)
     rtol, atol = float(cfg.rtol), float(cfg.atol)
     return build_shard_rkc_stepper(
         problem, mesh, rho_fn, pad_spec, consts, S_MAX_KERNEL,
-        lambda buf, h, fz, s, mu1, ctab, sc: fused_shard_rkc_step(
-            buf, h, fz, s, mu1, ctab, sc, rtol, atol))
+        lambda buf, h, fz, s, mu1, ctab, sc, stim, amps:
+        fused_shard_rkc_step(buf, h, fz, s, mu1, ctab, sc, rtol, atol, stim,
+                             amps), stims)
 
 
 def build_shard_rkc_stepper(problem, mesh, rho_fn, pad_spec, consts,
-                            s_cap: int, step) -> FusedShardRKC:
+                            s_cap: int, step, stims=None) -> FusedShardRKC:
     """The FusedShardRKC of an RKC2 shard kernel (K9, K13): s =
     min(choose_stages(h, rho), s_cap) is chosen on the control device from
     the max-reduced rho_fn (required: every shard must run the same s),
     then step_err refreshes every shard's halo (the width of consts' halo)
-    and calls step(buf, h, fz, s, mu1_tab, ctab_tab, sc) -> (y_new, ss
-    partials) on each shard, with h, fz, s and the stage tables of s_cap
-    on the shard's device; h_limit is the largest h that s_cap stages
-    stabilize, STAB_FACTOR (s_cap - 1)^2 / rho."""
+    and calls step(buf, h, fz, s, mu1_tab, ctab_tab, sc, stim, amps) ->
+    (y_new, ss partials) on each shard, with h, fz, s and the stage tables
+    of s_cap on the shard's device; h_limit is the largest h that s_cap
+    stages stabilize, STAB_FACTOR (s_cap - 1)^2 / rho. With `stims` (K9's
+    structured forcing, every shard's StimConstants), the step's amplitude
+    table is computed on the control device from that same s, before the
+    launches (fused_rkc.stage_times_amplitudes on the stage times of
+    static_stage_tables(with_times=True)) and copied to each shard's
+    device; without, stim and amps are None."""
     if rho_fn is None:
         raise ValueError("the sharded fused RKC needs a max-reduced rho_fn")
     dtype = problem.y0.dtype
@@ -262,6 +301,13 @@ def build_shard_rkc_stepper(problem, mesh, rho_fn, pad_spec, consts,
     t_boundary = float(problem.cfg.t_boundary)
     tables = {d: static_stage_tables(s_cap, dtype, d)
               for d in dict.fromkeys(mesh.device_list())}
+    forced = stims is not None
+    if forced:
+        ctimes = static_stage_tables(s_cap, dtype, mesh.control,
+                                     with_times=True)[2]
+        forcing = stims[0].forcing
+    else:
+        stims = [None] * len(consts)
     pad, unpad = shard_buffers(halo)
 
     def step_err(t, yp, h, params, carry=()):
@@ -270,11 +316,14 @@ def build_shard_rkc_stepper(problem, mesh, rho_fn, pad_spec, consts,
         bufs = refresh_halos(list(yp), mesh, halo, pad_spec)
         fz = freeze_scalar(params, consts[0].has_freeze, t_boundary, dtype)
         h = h.to(dtype)
+        amps = (stage_times_amplitudes(forcing, t, h, s, ctimes, params,
+                                       dtype) if forced else None)
         out, sums = [], []
-        for buf, sc in zip(bufs, consts):
+        for buf, sc, stim in zip(bufs, consts, stims):
             dev = buf.device
             y_new, ss = step(buf, h.to(dev), fz.to(dev), s.to(dev),
-                             *tables[dev], sc)
+                             *tables[dev], sc, stim,
+                             amps if amps is None else amps.to(dev))
             out.append(y_new)
             sums.append(torch.sum(ss))
         return Shards(out), Shards(sums), ()

@@ -46,7 +46,7 @@ import functools
 import torch
 
 from crdmodel_tpu_torch.integrate.erk import TABLEAUS, Tableau
-from crdmodel_tpu_torch.ops.kernel_common import (NO_STIM_ARGS, SMEM_BYTES,
+from crdmodel_tpu_torch.ops.kernel_common import (SMEM_BYTES,
                                                   KernelConstants,
                                                   check_constants,
                                                   check_tensor,
@@ -58,7 +58,8 @@ from crdmodel_tpu_torch.ops.kernel_common import (NO_STIM_ARGS, SMEM_BYTES,
                                                   needs_divform,
                                                   prepare_constants,
                                                   prepare_stim_constants,
-                                                  stage_amplitudes)
+                                                  stage_amplitudes,
+                                                  stim_args)
 
 MAX_STAGES = 8                 # the kernel's StageTable bound
 TILE_X = 32                    # tile width along x (contiguous)
@@ -205,23 +206,13 @@ def fused_step(y, h, fz, kc: KernelConstants, tableau: Tableau,
     out = launch_erk_tile(
         "crd_fused_erk_step",
         (*(c.data_ptr() for c in kc.coeffs), int(kc.kind == "torus")),
-        y, h, fz, kc, tableau, rtol, atol, stim_args(stim, amps, tableau))
+        y, h, fz, kc, tableau, rtol, atol,
+        stim_args(stim, amps, (tableau.stages,)))
     fused_step.launches += 1
     return out
 
 
 fused_step.launches = 0
-
-
-def stim_args(stim, amps, tableau: Tableau):
-    """The launchers' forcing arguments of K1 and K4: a stage's amplitude
-    column each (amps (n_stim, n_stages)), or none (NO_STIM_ARGS)."""
-    if stim is None:
-        return NO_STIM_ARGS
-    if amps.shape[-1] != tableau.stages:
-        raise ValueError(f"amps has {amps.shape[-1]} columns for "
-                         f"{tableau.stages} stages")
-    return stim.launch_args(amps)
 
 
 def launch_erk_tile(symbol, operator_args, y, h, fz, kc: KernelConstants,
@@ -232,10 +223,10 @@ def launch_erk_tile(symbol, operator_args, y, h, fz, kc: KernelConstants,
     `crd_fused_aniso_step`, csrc/erk_slots.cuh for bs32 and erk_tile.cuh
     for the others): the launcher `symbol`_f32
     or _f64, with the forcing's arguments `forcing_args` (K1 and K4:
-    stim_args) and the kernel's operator arguments `operator_args` after
-    fz. Checks every input first and raises on what the kernel does not
-    take, and on a launch error. Returns (y_new (2, ny, nx), ss partials
-    (n_blocks,))."""
+    kernel_common.stim_args) and the kernel's operator arguments
+    `operator_args` after fz. Checks every input first and raises on what
+    the kernel does not take, and on a launch error. Returns (y_new (2,
+    ny, nx), ss partials (n_blocks,))."""
     dtype, device = y.dtype, y.device
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"the kernel takes float32 or float64, not {dtype}")

@@ -21,7 +21,9 @@ device code as an integer id (KINETICS_IDS, the Kinetics enum of
 csrc/rhs_common.cuh). A structured forcing (core/forcing.py::
 SeparableForcing, every stimulus rank-1) travels to K1, K2, K3 and K4 as
 StimConstants (its row and column profiles) and an amplitude table the
-step computes on the device (stage_amplitudes); the kernels' plain
+step computes on the device (stage_amplitudes), and to the shard kernels
+K8-K11 as each shard's StimConstants, its profiles halo-padded like the
+shard's constants (prepare_shard_stim_constants); the kernels' plain
 versions add it as stim_terms does.
 """
 
@@ -155,9 +157,24 @@ def forcing_of(stim, amps, like):
 NO_STIM_ARGS = (None, None, None, 0, 0, 0)
 
 
-def prepare_stim_constants(problem, dtype, device):
-    """StimConstants of `problem`'s structured forcing on `device`, or None
-    without one (fused_forcing)."""
+def stim_args(stim, amps, n_cols):
+    """The launchers' forcing arguments (StimConstants.launch_args) of an
+    amplitude table with one of the column counts `n_cols` the kernel
+    takes, or NO_STIM_ARGS without a forcing (stim None)."""
+    if stim is None:
+        return NO_STIM_ARGS
+    if amps.shape[-1] not in n_cols:
+        raise ValueError(f"amps has {amps.shape[-1]} columns; the kernel "
+                         f"takes {' or '.join(map(str, n_cols))}")
+    return stim.launch_args(amps)
+
+
+def stim_profiles64(problem):
+    """(forcing, vars, rows, cols) of `problem`'s structured forcing: the
+    stimuli's variables and their row and column profiles as float64
+    (n_stim, ny) and (n_stim, nx) arrays, ones where a stimulus has none;
+    None without a forcing (fused_forcing). Raises on what the kernels do
+    not take."""
     forcing = fused_forcing(problem)
     if forcing is None:
         return None
@@ -174,16 +191,24 @@ def prepare_stim_constants(problem, dtype, device):
     ny, nx = problem.cfg.ny, problem.cfg.nx
 
     def stack(profiles, n):
-        return torch.tensor(np.stack([
-            np.ones(n) if p is None
-            else np.asarray(p, np.float64).reshape(n) for p in profiles]),
-            dtype=dtype, device=device)
+        return np.stack([np.ones(n) if p is None
+                         else np.asarray(p, np.float64).reshape(n)
+                         for p in profiles])
 
+    return (forcing, vars_, stack([st.row for st in forcing.stimuli], ny),
+            stack([st.col for st in forcing.stimuli], nx))
+
+
+def prepare_stim_constants(problem, dtype, device):
+    """StimConstants of `problem`'s structured forcing on `device`, or None
+    without one (fused_forcing)."""
+    prof = stim_profiles64(problem)
+    if prof is None:
+        return None
+    forcing, vars_, rows, cols = prof
     return StimConstants(
-        forcing=forcing,
-        rows=stack([st.row for st in forcing.stimuli], ny),
-        cols=stack([st.col for st in forcing.stimuli], nx),
-        vars=vars_)
+        forcing=forcing, rows=torch.tensor(rows, dtype=dtype, device=device),
+        cols=torch.tensor(cols, dtype=dtype, device=device), vars=vars_)
 
 
 def stim_terms(sc: StimConstants, amps, col: int, like):
@@ -372,6 +397,43 @@ def make_shard_constants(problem, mesh, pad_spec, halo: int, dtype):
             for k, rows in enumerate(_shard_rhs_inputs(problem, mesh,
                                                        pad_spec, halo,
                                                        dtype))]
+
+
+def prepare_shard_stim_constants(problem, mesh, pad_spec, halo: int,
+                                 dtype):
+    """Every shard's StimConstants, in mesh order on its device, or None
+    without a structured forcing: each stimulus's row profile halo-padded
+    to (nyl + 2 halo,) and its column profile to (nxl + 2 halo,) by the
+    mesh's exchange, mirror-aware along a padded axis (_halo_rows,
+    _halo_cols), as make_shard_constants pads beta and the freeze mask and
+    the JAX kernels' prepare_params pads the sharded "_stim_row_{i}" and
+    "_stim_col_{i}" (crdmodel_tpu/ops/pallas_shard_step.py:149-187). A
+    shard's kernel reads stimulus j at the halo-padded (r, c) its state
+    comes from (csrc/rhs_common.cuh::HaloGrid), a mirror-pad cell its
+    source's values."""
+    prof = stim_profiles64(problem)
+    if prof is None:
+        return None
+    forcing, vars_, rows64, cols64 = prof
+    cfg = problem.cfg
+    rows = [_halo_rows(torch.tensor(r, dtype=dtype).reshape(-1, 1), cfg,
+                       mesh, pad_spec, halo) for r in rows64]
+    cols = [_halo_cols(torch.tensor(c, dtype=dtype), cfg, mesh, pad_spec,
+                       halo) for c in cols64]
+    return [StimConstants(
+        forcing=forcing,
+        rows=torch.stack([r[k].reshape(-1) for r in rows]).contiguous(),
+        cols=torch.stack([c[k] for c in cols]).contiguous(), vars=vars_)
+        for k in range(mesh.size)]
+
+
+def check_shard_stim(stim, nyl: int, nxl: int, halo: int, dtype, device):
+    """check_tensor on a shard's StimConstants: its profiles halo-padded
+    to the shard's buffer."""
+    check_tensor("stimulus rows", stim.rows, (stim.n_stim, nyl + 2 * halo),
+                 dtype, device)
+    check_tensor("stimulus columns", stim.cols,
+                 (stim.n_stim, nxl + 2 * halo), dtype, device)
 
 
 def shard_divform_fields64(problem, aniso: bool):
@@ -671,15 +733,17 @@ def make_aniso_rhs_block(ac: AnisoConstants, fz):
 
 
 def make_shard_divform_rhs_block(sc: ShardDivformConstants, fz):
-    """rhs_block(y) -> ydot: K11's RHS in plain torch on a shard's whole
-    halo-padded (2, nyl + 2 halo, nxl + 2 halo) buffer
+    """rhs_block(y, f=None) -> ydot: K11's RHS in plain torch on a shard's
+    whole halo-padded (2, nyl + 2 halo, nxl + 2 halo) buffer
     (crdmodel_tpu/ops/kernel_common.py:165-246): the kinetics plus, on
     variable 0, the face-form operator with aS = roll_y(aN)
     (ops/stencil.py::divergence_laplacian) or, in aniso mode, the XLA
     path's tensor operator axis + inv4*(t1 + t2) on the raw Dxy
     (ops/stencil.py::anisotropic_laplacian), which K5 associates otherwise
-    (aniso_kernel_laplacian); times live with a freeze, times the tissue
-    field with an obstacle. The rolls wrap at the buffer's edge: the outer
+    (aniso_kernel_laplacian); plus the stage's forcing f = (F0, F1)
+    (stim_terms on the shard's halo-padded profiles) when given
+    (add_terms); times live with a freeze, times the tissue field with an
+    obstacle (the forcing before the masks). The rolls wrap at the buffer's edge: the outer
     rings go wrong, as the stages consume them. csrc/rhs_common.cuh::
     divform_rhs and mixed_divform_rhs compute the same expressions in the
     same order."""
@@ -692,9 +756,9 @@ def make_shard_divform_rhs_block(sc: ShardDivformConstants, fz):
             return anisotropic_laplacian(u, faces, sc.dxy, sc.inv4)
         return divergence_laplacian(u, faces)
 
-    def rhs_block(y):
+    def rhs_block(y, f=None):
         react = sc.model.kinetics(y, sc.b)
-        ydot = torch.stack([react[0] + lap_of(y[0]), react[1]])
+        ydot = add_terms(react, lap_of(y[0]), f)
         if live is not None:
             ydot = ydot * live
         if sc.tissue is not None:

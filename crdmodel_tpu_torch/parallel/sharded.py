@@ -26,11 +26,17 @@ on the box, K12 (ops/fused_shard_box3d.py); ark324 through K10
 (ops/fused_shard_imex.py); rkc2 through K9 (ops/fused_shard_rkc.py) or,
 on the box, K13 (ops/fused_shard_box3d_rkc.py); each with the gates of
 the JAX package's maybe_fused_shard_*; else the torch path
-(make_local_rhs: a width-1 exchange before every RHS evaluation). Not
+(make_local_rhs: a width-1 exchange before every RHS evaluation).
+
+A forcing (core/forcing.py) runs on a mesh as under JAX's shard_map:
+sharded_params registers each stimulus's profiles, which every shard sees
+as its local slices, and the torch path calls forcing(t, block, local
+params) on each shard. K8-K11 take a structured forcing in the kernel;
+K12 and K13 decline one, so the box takes it on the torch path. Not
 ported yet, each raising NotImplementedError with its ROADMAP item:
-forcing (item 9), step_mode="normal" (item 15), checkpoints (item 14) and
-member lockstep (item 14). speculative_k is ignored, as in the JAX
-package's sharded driver: every shard steps one step at a time.
+step_mode="normal" (item 15), checkpoints (item 14) and member lockstep
+(item 14). speculative_k is ignored, as in the JAX package's sharded
+driver: every shard steps one step at a time.
 
 simulate_sharded runs the whole solve in one call; simulate_sharded_
 streaming one stop at a time, handing each output's per-shard blocks to
@@ -49,6 +55,7 @@ import torch
 
 from crdmodel_tpu_torch.config import (PALLAS_AUTO_POINTS,
                                        PALLAS_BOX3D_AUTO_POINTS, SimConfig)
+from crdmodel_tpu_torch.core.forcing import SeparableForcing
 from crdmodel_tpu_torch.core.problem import (Problem, beta_field,
                                              build_problem, interior_rows,
                                              make_rho_bound,
@@ -73,10 +80,6 @@ from crdmodel_tpu_torch.sim import (SimResult, output_times,
 
 def _unported(problem: Problem):
     """Raise for what the sharded run does not take yet."""
-    if problem.forcing is not None:
-        raise NotImplementedError(
-            "forcing on a mesh is not ported yet (ROADMAP queue 1, item 9's "
-            "mesh part: the stimulus profiles of sharded_params, K8-K11)")
     if problem.cfg.step_mode != "tstop":
         raise NotImplementedError(f"step_mode={problem.cfg.step_mode!r} on "
                                   "a mesh is not ported yet (ROADMAP queue "
@@ -100,10 +103,10 @@ def tensor_weight(problem: Problem):
 
 def make_local_rhs(cfg: SimConfig, model, kind: str, mesh, pad_spec=None,
                    split: bool = False, divergence: bool = False,
-                   tensor_inv4=None, tissue: bool = False):
+                   tensor_inv4=None, tissue: bool = False, forcing=None):
     """rhs(t, state, params) over a Shards of local (nvars, nyl, nxl) blocks
     with width-1 exchanged halos (crdmodel_tpu/parallel/sharded.py:43-187,
-    without forcing and pole bands). params["local"]: each shard's dict of
+    without pole bands). params["local"]: each shard's dict of
     "coeffs" (the profile operator's (nxl,) torus profiles or flat scalars;
     with divergence=True the four face arrays (aE, aW, aN, aS), (nxl,) or
     (nyl, nxl)), "b" (scalar or its (nyl, 1) rows), "interior" ((nyl, 1)
@@ -123,10 +126,19 @@ def make_local_rhs(cfg: SimConfig, model, kind: str, mesh, pad_spec=None,
     "_dxy_pad" the stacked (3, nz, nyl+2, nxl+2) (Dxy, Dxz, Dyz) and
     tensor_inv4 their three weights; "tissue" is (nz, nyl, nxl).
 
+    forcing(t, state, params) -> dstate (core/forcing.py, or any such
+    callable) is called on each shard, as under JAX's shard_map
+    (:155-176), with the shard's block, its local dict (a
+    SeparableForcing reads its "_stim_*" profiles there) and the step's
+    params["_seg_end"], t and the segment end on the shard's device; it
+    joins the diffusion term before the kinetics, kinetics + (diffusion +
+    forcing), then come the freeze, the tissue and the pad masks.
+
     split=True returns (rhs_ex, rhs_im) for ark324: rhs_ex the diffusion
-    with the freeze applied, rhs_im the pointwise kinetics with the freeze,
-    with no exchange, so the Newton stage solves are shard-local; both
-    masked like rhs, so that rhs_ex + rhs_im is rhs."""
+    (and the forcing) with the freeze applied, rhs_im the pointwise
+    kinetics with the freeze, with no exchange, so the Newton stage solves
+    are shard-local; both masked like rhs, so that rhs_ex + rhs_im is
+    rhs."""
     just_diffusion = bool(cfg.just_diffusion)
     t_boundary = float(cfg.t_boundary)
     has_freeze = (t_boundary > 0.0) and not just_diffusion
@@ -167,6 +179,19 @@ def make_local_rhs(cfg: SimConfig, model, kind: str, mesh, pad_spec=None,
                     out[i].append(torch.zeros_like(blk[v]))
         return [torch.stack(o) for o in out]
 
+    def forced(t, state, diffs, params):
+        """Each shard's diffusion term plus its forcing."""
+        if forcing is None:
+            return diffs
+        seg = params.get("_seg_end")
+        out = []
+        for blk, diff, loc in zip(state, diffs, params["local"]):
+            dev = blk.device
+            p = loc if seg is None else {**loc, "_seg_end": seg.to(dev)}
+            t_dev = t.to(dev) if isinstance(t, torch.Tensor) else t
+            out.append(diff + forcing(t_dev, blk, p))
+        return out
+
     def freeze_flag(t, params):
         seg_end = params.get("_seg_end")
         freeze_now = torch.as_tensor(t < t_boundary)
@@ -188,7 +213,7 @@ def make_local_rhs(cfg: SimConfig, model, kind: str, mesh, pad_spec=None,
 
     def rhs(t, state, params):
         local = params["local"]
-        diffs = diffusion_terms(state, local)
+        diffs = forced(t, state, diffusion_terms(state, local), params)
         freeze_now = freeze_flag(t, params) if has_freeze else None
         out = []
         for blk, diff, loc in zip(state, diffs, local):
@@ -203,8 +228,9 @@ def make_local_rhs(cfg: SimConfig, model, kind: str, mesh, pad_spec=None,
     def rhs_ex(t, state, params):
         local = params["local"]
         freeze_now = freeze_flag(t, params) if has_freeze else None
-        return Shards(finish(diff, loc, freeze_now) for diff, loc in
-                      zip(diffusion_terms(state, local), local))
+        diffs = forced(t, state, diffusion_terms(state, local), params)
+        return Shards(finish(diff, loc, freeze_now)
+                      for diff, loc in zip(diffs, local))
 
     def rhs_im(t, state, params):
         if just_diffusion:
@@ -226,23 +252,27 @@ def mesh_pad_spec(cfg, mesh):
 def sharded_params(problem: Problem, pad_spec=None) -> dict:
     """The global parameter tensors, wrap-padded to the mesh-divisible
     shape on a padded grid (crdmodel_tpu/parallel/sharded.py:258-420,
-    without pole bands and forcing): "coeffs" (the profile operator's three
+    without pole bands): "coeffs" (the profile operator's three
     (nx,) torus profiles or flat scalars; the divergence form's four face
     arrays, (nx,) or (ny, nx), with the closed faces of no-flux walls and
     obstacles zeroed; a tensor's four axis faces (ny, nx)), with a tensor
     "dxy" ((ny, nx)) and on the torus "inv4" (the (1, nx) mixed-pair
     weights), with an obstacle "tissue" ((ny, nx) bool, True = tissue),
-    "b" (scalar or (ny, 1) ramp), "interior" ((ny, 1) bool) and, padded,
-    "valid" ((nyp, nxp) bool). Wrap fill keeps pad values inside the
-    physical range, and gives the fused kernels' mirror-pad cells their
-    sources' values.
+    "b" (scalar or (ny, 1) ramp), "interior" ((ny, 1) bool), padded,
+    "valid" ((nyp, nxp) bool) and, with a SeparableForcing, each stimulus
+    i's profiles (:391-419): "_stim_row_{i}" (ny, 1) and "_stim_col_{i}"
+    (1, nx), ones where it has none, or a full field's "_stim_{i}"
+    (ny, nx), so that each shard's forcing reads its local slices. Wrap
+    fill keeps pad values inside the physical range, and gives the fused
+    kernels' mirror-pad cells their sources' values.
 
     On the box: the six faces in their broadcast-minimal shapes (aN
     (ny, 1), aU (nz, 1, 1): sharded_params pads and split_field splits an
     axis only where it spans the grid, so the z profiles stay replicated),
     a tensor's "dxy" the stacked (3, nz, ny, nx) (Dxy, Dxz, Dyz) and no
     "inv4" (its three weights are scalars: tensor_weight), "tissue"
-    (nz, ny, nx)."""
+    (nz, ny, nx); a stimulus's profiles as on the surface (its depth
+    profile zprof stays on the stimulus, replicated)."""
     cfg = problem.cfg
     dtype, device = problem.y0.dtype, problem.device
     geometry = problem.geometry
@@ -288,7 +318,42 @@ def sharded_params(problem: Problem, pad_spec=None) -> dict:
     if padded:
         params["valid"] = torch.as_tensor(pad_spec.valid_mask(),
                                           device=device)
+    params.update(stim_params(problem, pad_spec))
     return params
+
+
+def stim_params(problem: Problem, pad_spec=None) -> dict:
+    """The "_stim_*" entries of sharded_params: each stimulus's profiles of
+    a SeparableForcing, wrap-padded like every other spatial parameter
+    (crdmodel_tpu/parallel/sharded.py:391-419); {} without one."""
+    frc = problem.forcing
+    if not isinstance(frc, SeparableForcing):
+        return {}
+    cfg = problem.cfg
+    dtype, device = problem.y0.dtype, problem.device
+    padded = pad_spec is not None and pad_spec.active
+
+    def tensor(a):
+        return torch.tensor(np.asarray(a, np.float64), dtype=dtype,
+                            device=device)
+
+    out = {}
+    for i, st in enumerate(frc.stimuli):
+        if st.spatial is not None:
+            a = tensor(np.broadcast_to(np.asarray(st.spatial, np.float64),
+                                       (cfg.ny, cfg.nx)))
+            if padded:
+                a = pad_spec.pad_rows(pad_spec.pad_cols(a))
+            out[f"_stim_{i}"] = a
+            continue
+        r = tensor(np.ones((cfg.ny, 1)) if st.row is None
+                   else np.reshape(st.row, (-1, 1)))
+        c = tensor(np.ones((1, cfg.nx)) if st.col is None
+                   else np.reshape(st.col, (1, -1)))
+        if padded:
+            r, c = pad_spec.pad_rows(r), pad_spec.pad_cols(c)
+        out[f"_stim_row_{i}"], out[f"_stim_col_{i}"] = r, c
+    return out
 
 
 def _local_block_shape(cfg, mesh, pad_spec=None) -> tuple:
@@ -330,7 +395,9 @@ def shard_params(params: dict, mesh, pad_spec, cfg) -> dict:
 
     coeffs = list(zip(*(split(c) for c in params["coeffs"])))
     local = [{"coeffs": c} for c in coeffs]
-    for key in ("b", "interior", "valid", "tissue", "dxy", "inv4"):
+    keys = ("b", "interior", "valid", "tissue", "dxy", "inv4",
+            *(k for k in params if k.startswith("_stim")))
+    for key in keys:
         if key in params:
             for loc, blk in zip(local, split(params[key])):
                 loc[key] = blk
@@ -624,9 +691,10 @@ def local_stepping(problem: Problem, mesh) -> LocalStepping:
                     tensor_inv4=tensor_weight(problem),
                     tissue=problem.obstacle_mask is not None)
     local_rhs = make_local_rhs(cfg, model, kind, mesh, pad_spec=pad_spec,
-                               **operator)
+                               forcing=problem.forcing, **operator)
     rhs_split = (make_local_rhs(cfg, model, kind, mesh, pad_spec=pad_spec,
-                                split=True, **operator)
+                                split=True, forcing=problem.forcing,
+                                **operator)
                  if cfg.method == "ark324" else None)
     rho_fn = (sharded_rho_bound(problem, mesh, pad_spec)
               if cfg.method == "rkc2" else None)

@@ -95,11 +95,16 @@ one more untraced run. --measure unforced: K1 (the canonical FHN torus's
 (2,1600,400), a random state, bs32 and dopri54), K4 (the bounded
 tissue's, bs32 and dopri54), K2 (s = 5 and 23, the profile branch there
 and the divergence branch on the bounded tissue) and K3 (the canonical
-Goldbeter torus's (2,400,100)), each with a freeze, fz 0 and 1, f32 and
-f64, without a forcing: a digest of each launch's y_new and partial sums
-(sha256 of their bytes), which the summary holds equal across the two
-trees (`bitwise_across_trees`), and the device time of the f32 launches
-at fz 0. --measure all (the default) takes the first two. Only the
+Goldbeter torus's (2,400,100)), and the shard kernels on shards 0 and
+3 of 2x2 meshes: K8 (the canonical FHN torus's (2,816,216), bs32 and
+dopri54), K9 (its (2,848,248), s = 5 and 23), K10 (the Goldbeter
+torus's (2,216,66)) and K11 (the bounded tissue's and, in its aniso mode,
+the torus fibres' (2,816,216), bs32 and dopri54), each with a freeze, fz
+0 and 1, f32 and f64, without a forcing: a digest of each launch's y_new
+(a shard kernel's block of it) and partial sums (sha256 of their bytes),
+which the summary holds equal across the two trees
+(`bitwise_across_trees`), and the device time of the f32 launches at fz
+0 (a shard kernel's on shard 0). --measure all (the default) takes the first two. Only the
 wrappers' public signatures are used, so an older tree of the port times
 the same way.
 
@@ -173,8 +178,8 @@ def time_one_tree(tree, label, runs, measure):
 
 
 def time_unforced(cs, label, card):
-    """--measure unforced: K1-K4 without a forcing, a digest and (f32, fz 0)
-    the device time of each launch."""
+    """--measure unforced: K1-K4 and K8-K11 without a forcing, a digest and
+    (f32, fz 0) the device time of each launch."""
     import hashlib
 
     import numpy as np
@@ -268,6 +273,87 @@ def time_unforced(cs, label, card):
             emit(label, "unforced_k3", case=f"fz{fz:g}/{dtype}",
                  digest=digest(*fused_imex.fused_imex_step(*args)), **fields,
                  card=card)
+    time_unforced_shards(cs, label, card, digest, state, fhn, gb, ap,
+                         ap_build)
+
+
+def time_unforced_shards(cs, label, card, digest, state, fhn, gb, ap,
+                         ap_build):
+    """--measure unforced's shard kernels K8-K11 on shards 0 and 3 of a 2x2
+    mesh on cuda:0: a digest of each launch's block of y_new and partial
+    sums, and the device time of the f32 launches at fz 0 on shard 0."""
+    import torch
+
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import fused_shard_divform as f11
+    from crdmodel_tpu_torch.ops import fused_shard_imex as f10
+    from crdmodel_tpu_torch.ops import fused_shard_rkc as f9
+    from crdmodel_tpu_torch.ops import fused_shard_step as f8
+    from crdmodel_tpu_torch.ops.fused_rkc import static_stage_tables
+
+    mesh = cs.shard_mesh(cs.SHARD_MESH)
+    torus, torus_build = cs.torus_fibres(cs.aniso_sheet()[0])
+    torus = dataclasses.replace(torus, t_boundary=1.0)
+    problems = {"fhn": build_problem(fhn, "cuda"),
+                "gb": build_problem(gb, "cuda"),
+                "ap": build_problem(ap, "cuda", **ap_build),
+                "torus": build_problem(torus, "cuda", **torus_build)}
+    states = {k: state(p.cfg, p, cs.SEED) for k, p in problems.items()}
+
+    def run(name, case, fn, args_of, bufs, consts, dtype, tag, halo):
+        for fz in (0.0, 1.0):
+            fzt = torch.tensor(fz, dtype=dtype, device="cuda")
+            for k in (0, 3):
+                args = args_of(bufs[k], fzt, consts[k])
+                fields = {}
+                if dtype == torch.float32 and not fz and k == 0:
+                    fields["device_us"] = cs.device_ms(lambda: fn(*args),
+                                                       tag) * 1e3
+                y_new, ss = fn(*args)
+                emit(label, f"unforced_{name}",
+                     case=f"{case}/shard{k}/fz{fz:g}/{dtype}",
+                     digest=digest(f8.interior(y_new, halo).contiguous(), ss),
+                     **fields, card=card)
+
+    for dtype in (torch.float32, torch.float64):
+        p = problems["fhn"]
+        bufs, consts = cs.shard_inputs(p, mesh, states["fhn"], dtype, f8.HALO)
+        h = torch.tensor(cs.H, dtype=dtype, device="cuda")
+        for method in ("bs32", "dopri54"):
+            run("k8", method, f8.fused_shard_step,
+                lambda b, fz, sc, tab=TABLEAUS[method]: (
+                    b, h, fz, sc, tab, fhn.rtol, fhn.atol),
+                bufs, consts, dtype, "fused_erk", f8.HALO)
+        bufs, consts = cs.shard_inputs(p, mesh, states["fhn"], dtype,
+                                       f9.P_RKC)
+        mu1, ctab = static_stage_tables(f9.S_MAX_KERNEL, dtype, "cuda")
+        rho = cs.problem_rho(p, torch.tensor(states["fhn"], dtype=dtype,
+                                             device="cuda"))
+        for s_val in (5, 23):
+            hs, st = cs.rkc_step_inputs(s_val, rho, dtype)
+            run("k9", f"s{s_val}", f9.fused_shard_rkc_step,
+                lambda b, fz, sc, hs=hs, st=st: (
+                    b, hs, fz, st, mu1, ctab, sc, fhn.rtol, fhn.atol),
+                bufs, consts, dtype, "fused_rkc", f9.P_RKC)
+        p = problems["gb"]
+        bufs, consts = cs.shard_inputs(p, mesh, states["gb"], dtype,
+                                       f10.HALO)
+        h = torch.tensor(cs.K3_H[0], dtype=dtype, device="cuda")
+        run("k10", "goldbeter", f10.fused_shard_imex_step,
+            lambda b, fz, sc: (b, h, fz, sc, gb.rtol, gb.atol), bufs, consts,
+            dtype, "fused_imex", f10.HALO)
+        for case, key, aniso, cfg in (("bounded_ap", "ap", False, ap),
+                                      ("torus_fibres", "torus", True, torus)):
+            bufs, consts = cs.shard_divform_inputs(
+                problems[key], mesh, states[key], dtype, aniso)
+            h = torch.tensor(cs.K4_H if not aniso else cs.K5_H, dtype=dtype,
+                             device="cuda")
+            for method in ("bs32", "dopri54"):
+                run("k11", f"{case}/{method}", f11.fused_shard_divform_step,
+                    lambda b, fz, sc, tab=TABLEAUS[method], h=h, cfg=cfg: (
+                        b, h, fz, sc, tab, cfg.rtol, cfg.atol),
+                    bufs, consts, dtype, "fused_erk", f11.HALO)
 
 
 def slots_ptxas(cs, source):

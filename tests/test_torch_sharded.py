@@ -210,10 +210,11 @@ def test_local_rhs_matches_full_grid_rhs():
           use_pallas=True, t_final=0.1), "K12")])
 def test_unported_branches_raise(change, item):
     """The sharded box, which raised until kernel `item` was ported
-    (ROADMAP item 15), runs through it; what stays unported on it,
-    forcing (item 9), raises NotImplementedError."""
-    import dataclasses
-
+    (ROADMAP item 15), runs through it; with a forcing, which raised until
+    the mesh took forcing (item 9's mesh part), `item` declines (the box
+    kernels' forcing is item 9's box part) and the run goes to status ok on
+    the torch path, its depth profile through the forcing's zprof."""
+    from crdmodel_tpu_torch.core import forcing as tforcing
     from crdmodel_tpu_torch.parallel.sharded import select_shard_kernel
     kw, _ = _cfg("fhn_flat")
     cfg = SimConfig(**{**kw, **change})
@@ -221,9 +222,14 @@ def test_unported_branches_raise(change, item):
     problem = build_problem(cfg, "cpu")
     assert select_shard_kernel(problem, mesh)[0] == item
     assert simulate_sharded(cfg, mesh=mesh, problem=problem).ok
-    with pytest.raises(NotImplementedError, match="item 9"):
-        simulate_sharded(cfg, mesh=mesh,
-                         problem=dataclasses.replace(problem, forcing=object()))
+    forced = build_problem(cfg, "cpu", forcing=tforcing.SeparableForcing(
+        tforcing.Stimulus(waveform=tforcing.pulse_train([0.02], 0.05, 2.0),
+                          row=tforcing.rect_profile(cfg.ny, 0, 4),
+                          zprof=tforcing.gaussian_profile(cfg.nz, 0.0,
+                                                          1.5))))
+    assert select_shard_kernel(forced, mesh) == (None, None)
+    res = simulate_sharded(cfg, mesh=mesh, problem=forced)
+    assert res.ok and not res.fused
 
 
 @pytest.mark.parametrize("name", ["uneven_bs32", "ap_noflux_obstacle",
