@@ -5,6 +5,7 @@
     python3 chip_smoke.py --sharded     # the sharded main paths alone
     python3 chip_smoke.py --stream      # the run entry point's phases alone
     python3 chip_smoke.py --forced      # the forcing slice's phases alone
+    python3 chip_smoke.py --box-forced  # forcing on the box alone
 
 Builds the CUDA kernels from crdmodel_tpu_torch/csrc, holds each against its
 plain PyTorch version on the card (K1, the fused ERK step, y_new and every
@@ -127,6 +128,24 @@ golden and to the single-device paced run of this call, and the paced
 FHN torus with rkc2 over Tf=25 (paced_sharded_fhn_rkc2, K9), held to a
 single-device forced K2 run of this call. The kernels line's K8-K11
 entries carry their forced fields.
+Forcing on the box (box_forced_phases, after the sharded slab): K6 (bs32,
+dopri54) and K7 (smooth at s = 2, 5, 7, gated at s = 5) with the JAX
+package's box pacing protocol (scripts/bench_round5.py:144-151: a pulse
+train on a row band with a Gaussian depth profile, a cosine drive on a
+column band) and the cross drive, at the slab's shape in the profile and
+tensor modes and on the stream scheme's edge boxes, and K12 and K13 alike
+on shards 0 and 3 of the slab's 2x2 mesh and the uneven 1x3 mesh, f32
+and f64, fz 0 and 1: y_new (its block) and every partial sum bitwise the
+plain version's, each scheme's forced instantiation traced
+(k6/k7/k12/k13_forced_check); each timed forced and unforced in one call
+(k6/k7/k12/k13_forced_timing, the bound counting the depth table); then
+the paced slab through simulate() with bs32 (paced_box_bs32, K6) and rkc2
+(paced_box_rkc2, K7), held to the port's torch path in f32 and f64 as the
+unforced slab is, and through simulate_sharded() on a 2x2 mesh
+(paced_sharded_slab_bs32, K12; paced_sharded_slab_rkc2, K13), held to the
+single-device paced runs, each traced through its forced kernel; their
+walls beside the unforced slab runs' (paced_box_walls). The kernels
+line's K6, K7, K12 and K13 entries carry their forced fields.
 Each run is checked against the JAX package's CPU runs recorded in
 tests/golden/torch_canonical_{fhn,goldbeter}[_method]_probes.npz (the
 speculative and ARK_NORMAL runs against
@@ -146,7 +165,8 @@ failure, and prints as its last line {"ok": true, "device": {...}} only
 when every phase passed. Imports nothing of JAX.
 
 With --forced it builds the kernels and runs only the forcing slice's
-phases, on one device and on a mesh; no kernels line and no last line.
+phases, on one device, on a mesh and on the box (with --box-forced only
+the box's); no kernels line and no last line.
 With --profile it checks nothing: it builds the kernels and traces, with
 torch.profiler, the bounded cardiac tissue with bs32 and rkc2, the fibered
 sheet and the wide sheet over short horizons, the three slab runs over
@@ -1154,7 +1174,8 @@ def torch_path_run(cfg, build_kw, dtype):
     """`cfg` (built with `build_kw`) through the port's torch path on the
     card (use_pallas=False) in `dtype`; rkc2 with K7's h cap
     (ops/fused_box3d_rkc.py::box_rkc_h_limit), so that it takes the stage
-    budget the kernel takes. Returns (trajectory, steps, wall s, ok)."""
+    budget the kernel takes, and a forcing's pulse edges as breakpoints,
+    as simulate() takes them. Returns (trajectory, steps, wall s, ok)."""
     import time
 
     from crdmodel_tpu_torch.core.problem import (build_problem,
@@ -1179,7 +1200,8 @@ def torch_path_run(cfg, build_kw, dtype):
     traj, stats = integrate_to_outputs(
         problem.rhs, problem.y0, problem.params, 0.0, output_times(c),
         rtol=c.rtol, atol=c.atol, method="rkc2", max_steps=c.max_steps,
-        breakpoints=solver_breakpoints(c), step_mode=c.step_mode,
+        breakpoints=solver_breakpoints(c, problem.forcing),
+        step_mode=c.step_mode,
         rho_fn=rho_fn, h_limit_fn=box_rkc_h_limit(rho_fn, problem.y0.dtype))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1188,7 +1210,7 @@ def torch_path_run(cfg, build_kw, dtype):
 
 
 def run_box_path(name, cfg, build_kw, kernel, label, min_step_tol,
-                 scar=None, keep=None):
+                 scar=None, keep=None, report=None):
     """A box program through simulate() on the card (auto selection), held
     against the port's torch path on the card in f32 and f64 (a JAX CPU
     run of 8.4M points is out of this script's reach): steps within
@@ -1199,10 +1221,13 @@ def run_box_path(name, cfg, build_kw, kernel, label, min_step_tol,
     bitwise at every output. Prints phase `name`; returns the launches of
     `kernel`. `keep`: a dict that receives the run's steps, wall, final
     field and that field's distance to the torch path's f64 run, which
-    the sharded slab's runs are held to (run_sharded_slab)."""
+    the sharded slab's runs are held to (run_sharded_slab). report(res,
+    counts) -> dict adds fields to the phase line (traced_path)."""
     res, counts = drive_main_path(cfg, build_kw)
     launches = counts[kernel.__name__]
     checks = run_checks(cfg, res, kernel, launches)
+    extra = {} if report is None else report(res, counts)
+    forcing = res.problem.forcing
     traj = res.trajectory
     shape = tuple(traj.shape[1:])
     rng = np.random.default_rng(SEED + 20)
@@ -1239,12 +1264,12 @@ def run_box_path(name, cfg, build_kw, kernel, label, min_step_tol,
     gap = float(np.abs(got - r64["probes"]).max())
     limit = 2.0 * f32_gap + 1e-4
     points = int(np.prod(shape[1:]))
-    phase(name, config=label, selection=selection_note(cfg),
+    phase(name, config=label, selection=selection_note(cfg), **extra,
           grid=list(shape[1:]), method=cfg.method, dtype=cfg.dtype,
           status=status, fused=True, steps=steps,
           accepted=int(stats.accepted.sum()),
           rejected=int(stats.rejected.sum()), kernel=kernel.__name__,
-          launches=counts, launch_bound=launch_bound(cfg, steps),
+          launches=counts, launch_bound=launch_bound(cfg, steps, forcing),
           wall_s=wall, us_per_step=wall / steps * 1e6,
           points_steps_per_s=points * steps / wall,
           torch_path={k: dict(steps=v["steps"], wall_s=v["wall_s"],
@@ -1942,7 +1967,7 @@ def selected_shard_kernel(cfg, build_kw, mesh):
 
 
 def run_sharded_slab(name, cfg, build_kw, kernel, want, label, mesh, single,
-                     step_tol, scar=None):
+                     step_tol, scar=None, keep=None, report=None):
     """The slab `cfg` (built with `build_kw`) through simulate_sharded() on
     `mesh` with the default selection, every kernel's launch count set to
     0 just before and read just after: select_shard_kernel must name
@@ -1951,11 +1976,14 @@ def run_sharded_slab(name, cfg, build_kw, kernel, want, label, mesh, single,
     keep): steps within step_tol, the final field within that run's own
     distance to the torch path's f64 run plus 1e-4; with `scar` (the tissue
     mask), the inert cells hold their IC bitwise at every output. Prints
-    phase `name`; returns the launches of `kernel`."""
+    phase `name`; returns the launches of `kernel`. `keep`: a dict that
+    receives the run's steps and wall; report(res, counts) -> dict adds
+    fields to the phase line (traced_path)."""
     selected = selected_shard_kernel(cfg, build_kw, mesh)
     res, counts = drive_main_path(cfg, build_kw, mesh)
     launches = counts[kernel.__name__]
     checks = run_checks(cfg, res, kernel, launches, mesh.size)
+    extra = {} if report is None else report(res, counts)
     checks[f"select_shard_kernel names {want}"] = selected == want
     if scar is not None:
         inert = torch.as_tensor(~scar, device=res.trajectory.device)
@@ -1967,15 +1995,18 @@ def run_sharded_slab(name, cfg, build_kw, kernel, want, label, mesh, single,
     gap = float((final - single["final"].to(final.device)).abs().max())
     limit = single["f64_gap"] + 1e-4
     steps, wall = res.total_steps(), res.wall_time
+    if keep is not None:
+        keep.update(steps=steps, wall_s=wall)
     points = cfg.nz * cfg.ny * cfg.nx
-    phase(name, config=label, selection=selection_note(cfg),
+    phase(name, config=label, selection=selection_note(cfg), **extra,
           selected=selected, mesh=list(mesh.shape),
           devices=[str(d) for d in mesh.device_list()],
           grid=[cfg.nz, cfg.ny, cfg.nx], method=cfg.method, dtype=cfg.dtype,
           status=res.describe(), steps=steps,
           accepted=int(res.stats.accepted.sum()),
           rejected=int(res.stats.rejected.sum()), kernel=kernel.__name__,
-          launches=counts, launch_bound=launch_bound(cfg, steps),
+          launches=counts,
+          launch_bound=launch_bound(cfg, steps, res.problem.forcing),
           wall_s=wall, us_per_step=wall / steps * 1e6,
           points_steps_per_s=points * steps / wall,
           single_device=dict(steps=single["steps"], wall_s=single["wall_s"],
@@ -1993,7 +2024,7 @@ def run_sharded_slab(name, cfg, build_kw, kernel, want, label, mesh, single,
     return launches
 
 
-def sharded_slab_main_paths(cfg_box, singles):
+def sharded_slab_main_paths(cfg_box, singles, walls=None):
     """The volumetric slab through simulate_sharded() on a 2x2 mesh of
     shards on cuda:0 and, with four cards or more, again (phases tagged
     _4cards) with shard i on cuda:i: bs32 (main_path_sharded_slab, K12),
@@ -2001,7 +2032,8 @@ def sharded_slab_main_paths(cfg_box, singles):
     (main_path_sharded_slab_scar, K12's tissue mode), each held to the
     single-device run of `singles` (box_main_paths): steps within 1% (rkc2
     within 2.78%, the JAX f32-f64 distance of the canonical rkc2 run).
-    Returns the 2x2 runs' launches of K12 and K13."""
+    Returns the 2x2 runs' launches of K12 and K13; `walls`, a dict,
+    receives the 2x2 runs' walls by phase name."""
     from crdmodel_tpu_torch.ops import fused_shard_box3d, fused_shard_box3d_rkc
     f12 = fused_shard_box3d.fused_shard_box3d_step
     f13 = fused_shard_box3d_rkc.fused_shard_box3d_rkc_step
@@ -2010,30 +2042,39 @@ def sharded_slab_main_paths(cfg_box, singles):
     if torch.cuda.device_count() >= 4:
         meshes.append(shard_mesh(SHARD_MESH, [f"cuda:{i}" for i in range(4)]))
     launches = []
+    keeps = {name: {} for name in ("main_path_sharded_slab",
+                                   "main_path_sharded_slab_rkc2",
+                                   "main_path_sharded_slab_scar")}
     for i, mesh in enumerate(meshes):
         tag = "" if i == 0 else "_4cards"
         n12 = run_sharded_slab("main_path_sharded_slab" + tag, cfg_box, {},
                                f12, "K12", BOX_LABEL + ", bs32", mesh,
-                               singles["bs32"], 0.01)
+                               singles["bs32"], 0.01,
+                               keep=keeps["main_path_sharded_slab"])
         n13 = run_sharded_slab(
             "main_path_sharded_slab_rkc2" + tag,
             dataclasses.replace(cfg_box, method="rkc2"), {}, f13, "K13",
-            BOX_LABEL + ", rkc2", mesh, singles["rkc2"], 0.0278)
+            BOX_LABEL + ", rkc2", mesh, singles["rkc2"], 0.0278,
+            keep=keeps["main_path_sharded_slab_rkc2"])
         run_sharded_slab("main_path_sharded_slab_scar" + tag, cfg_box, scar,
                          f12, "K12", BOX_LABEL + SCAR_LABEL, mesh,
-                         singles["scar"], 0.01, scar=scar["obstacle_mask"])
+                         singles["scar"], 0.01, scar=scar["obstacle_mask"],
+                         keep=keeps["main_path_sharded_slab_scar"])
         launches.append((n12, n13))
+        if i == 0 and walls is not None:
+            walls.update({k: v["wall_s"] for k, v in keeps.items()})
     return launches[0]
 
 
-def shard_box_phases(cfg_box, singles, card):
+def shard_box_phases(cfg_box, singles, card, walls=None):
     """The sharded box's phases: K12 and K13 against their plain versions
     (k12_check, k13_check) on the 2x2 shards of the slab in the four
     operator modes of box_modes (each with a freeze; shards 0 and 3), on
     fhn_box's 2x2 shards and on fhn_box's uneven 1x3 mesh (blocks of 86,
     86 and 84 columns, mirror-pad cells); their timings in each mode
-    (k12_timing, k13_timing) and the exchange's; sharded_slab_main_paths.
-    Returns K12's and K13's entries of the kernels line."""
+    (k12_timing, k13_timing) and the exchange's; sharded_slab_main_paths
+    (`walls` receives its 2x2 runs' walls). Returns K12's and K13's
+    entries of the kernels line."""
     fhn = fhn_box(cfg_box)
     cases = [(label, dataclasses.replace(c, t_boundary=0.1), kw,
               SHARD_MESH, (0, 3))
@@ -2042,7 +2083,8 @@ def shard_box_phases(cfg_box, singles, card):
               ("fhn_beta_ramp_uneven_1x3", fhn, {}, UNEVEN_MESH, (0, 1, 2))]
     worst12, worst13 = check_shard_box_kernels(cases, SEED + 12)
     timings = shard_box_timings(box_modes(cfg_box), card)
-    launches12, launches13 = sharded_slab_main_paths(cfg_box, singles)
+    launches12, launches13 = sharded_slab_main_paths(cfg_box, singles,
+                                                     walls)
     return [
         kernel_entry("fused_shard_box3d_step", "fused_shard_box3d.cu",
                      "crdmodel_tpu/ops/pallas_shard_box3d.py:109",
@@ -3483,19 +3525,23 @@ def stim_ops(stim, n_evals):
 
 
 def stim_bytes(stim, amps):
-    """Bytes the forcing adds to a launch, each read once: the profiles and
-    the amplitude table."""
-    return sum(t.numel() * t.element_size()
-               for t in (stim.rows, stim.cols, amps))
+    """Bytes the forcing adds to a launch, each read once: the profiles,
+    the box's depth table and the amplitude table."""
+    tables = (stim.rows, stim.cols, amps) + (
+        () if stim.z is None else (stim.z,))
+    return sum(t.numel() * t.element_size() for t in tables)
 
 
 def ptxas_split(source, tag):
-    """ptxas_summary of csrc/<source>'s f32 kernels whose entry name holds
-    `tag` (a double among the mangled template arguments, a "d" after "E",
-    "I" or "_" and before "E", "L", "N" or "S", marks an f64 one), apart
-    for the forced (StimTable) and unforced (NoStim) instantiations."""
+    """ptxas_summary of the f32 kernels of csrc/<source> (a name, or a
+    tuple of names: a kernel whose forced instantiations are compiled
+    apart) whose entry name holds `tag` (a double among the mangled
+    template arguments, a "d" after "E", "I" or "_" and before "E", "L",
+    "N" or "S", marks an f64 one), apart for the forced (StimTable) and
+    unforced (NoStim) instantiations."""
     import re
-    entries = [e for e in ptxas_entries(source)
+    sources = (source,) if isinstance(source, str) else source
+    entries = [e for src in sources for e in ptxas_entries(src)
                if tag in e["kernel"] and not re.search(
                    r"(?<=[EI_])d(?=[ELNS])", e["kernel"].split("EvPK")[0])]
     out = {}
@@ -3540,18 +3586,20 @@ def kernels_a_step(problem, build, t, y, h, seg):
 
 def forced_timing(name, y, kc, stim, amps, forced_call, plain_call,
                   reference, tag, ops, n_evals, extra_bytes, per_step,
-                  source, card, bound_of=bound, **fields):
+                  source, card, bound_of=bound, timed=WIDE_TIMED, group=1,
+                  **fields):
     """Print phase `name`: the forced and the unforced launch's device
-    times in one call (device_ms), the forced plain version's (WIDE_TIMED's
-    samples: the plain versions take milliseconds a call), the bounds
-    of both (bound_of(y, constants, operations a point, extra bytes):
-    bound, or shard_bound for a shard's buffer; the forcing's profile and
-    amplitude bytes and its operations added), the kernels a step and
+    times in one call (device_ms; `group`: the kernels a call launches, K7's
+    and K13's chunk launches), the forced plain version's (`timed`'s
+    samples: the plain versions take milliseconds a call), the bounds of
+    both (bound_of(y, constants, operations a point, extra bytes): bound,
+    or shard_bound for a shard's buffer; the forcing's profile, depth-table
+    and amplitude bytes and its operations added), the kernels a step and
     ptxas's forced and unforced registers and spills. Returns the forced
     (ms, plain ms, bound ms, bound_by) and the unforced device ms."""
-    ms_f = device_ms(forced_call, tag)
-    ms_u = device_ms(plain_call, tag)
-    timing = (ms_f, median_ms(reference, *WIDE_TIMED),
+    ms_f = device_ms(forced_call, tag, group=group)
+    ms_u = device_ms(plain_call, tag, group=group)
+    timing = (ms_f, median_ms(reference, *timed),
               *bound_of(y, kc, ops + stim_ops(stim, n_evals),
                         extra_bytes + stim_bytes(stim, amps)))
     unforced_bound = bound_of(y, kc, ops, extra_bytes)
@@ -4462,6 +4510,501 @@ def mesh_forced_phases(cfg, cfg_gb, cfg_ap, ap_build, cfg_torus,
             worst["k11"], *timings["k11", "torus_fibres_s1s2", None], None)}
 
 
+# ---------------------------------------------------------------------------
+# Forcing on the box: K6, K7, K12 and K13 forced, and the paced slab
+
+
+PACED_BOX_LABEL = (BOX_LABEL + ", paced as scripts/bench_round5.py:144-151 "
+                   "(S1 at t=0.05, 0.3, duration 0.08, on rows 0..ny/8 with "
+                   "a Gaussian depth profile; 0.3 cos(4t) on columns "
+                   "0..nx/2)")
+# (t, seg_end) of the forced box checks' and timings' steps: in the first
+# S1 pulse of box_forcing, beside its smooth drive
+BOX_WINDOW = (0.06, 0.09)
+# K7's and K13's forced variants: (smooth, s) - the smooth table's columns
+# at K7_STAGES' stage counts, the gated table's one column at s = 5
+BOX_RKC_VARIANTS = ((True, 2), (True, 5), (True, 7), (False, 5))
+
+
+def cosine_wave(amplitude, omega):
+    """amp cos(omega t) on the device, elementwise: the torch twin of the
+    box protocol's smooth drive (scripts/bench_round5.py:150)."""
+    def waveform(t, seg_end=None):
+        return amplitude * torch.cos(omega * t)
+    return waveform
+
+
+def box_forcing(cfg, cross=False):
+    """The JAX package's own box pacing protocol (scripts/bench_round5.py:
+    144-151) on cfg's box, copied: S1, pulse_train([0.05, 0.3], 0.08, 1.0)
+    on rows [0, ny/8) with the depth profile gaussian_profile(nz, 0, 2),
+    and a drive 0.3 cos(4t) on columns [0, nx/2), both on variable 0; with
+    `cross` also CROSS_DRIVE on variable 1 (cross_drive), so that a kernel
+    check forces both variables."""
+    from crdmodel_tpu_torch.convert import forcing_from_numpy
+    from crdmodel_tpu_torch.core.forcing import gaussian_profile, rect_profile
+    stimuli = [dict(var=0, row=rect_profile(cfg.ny, 0, cfg.ny // 8),
+                    zprof=gaussian_profile(cfg.nz, 0.0, 2.0),
+                    pulses=([0.05, 0.3], 0.08, 1.0)),
+               dict(var=0, col=rect_profile(cfg.nx, 0, cfg.nx // 2),
+                    waveform=cosine_wave(0.3, 4.0))]
+    if cross:
+        stimuli.append(cross_drive(cfg))
+    return forcing_from_numpy(stimuli)
+
+
+def box_rkc_forcing(cfg, smooth):
+    """box_forcing with the cross drive, or without `smooth` its pulse train
+    alone (every stimulus segment-gated: one amplitude column)."""
+    frc = box_forcing(cfg, cross=True)
+    if smooth:
+        return frc
+    from crdmodel_tpu_torch.core.forcing import SeparableForcing
+    return SeparableForcing(frc.stimuli[0])
+
+
+def box_forced_cases(cfg_box):
+    """The forced box checks' cases, (label, config, build arguments,
+    planes) of check_box_kernels: the slab's shape in the profile mode
+    (the noflux slab) and the tensor mode (the transmural tensor), each
+    with a freeze, and stream_edge_boxes."""
+    modes = {label: (c, kw) for label, c, kw in box_modes(cfg_box)}
+    return [(label, dataclasses.replace(modes[label][0], t_boundary=0.1),
+             modes[label][1], None)
+            for label in ("noflux_slab", "transmural_tensor")] + (
+        stream_edge_boxes(cfg_box))
+
+
+def box_stim(problem, dtype, planes=None):
+    """The problem's StimConstants on the card, its depth table cut to the
+    first `planes` planes with the constants (box_stream.box_planes)."""
+    from crdmodel_tpu_torch.ops.kernel_common import prepare_stim_constants
+    stim = prepare_stim_constants(problem, dtype, "cuda")
+    if planes is None:
+        return stim
+    return dataclasses.replace(stim, z=stim.z[:, :planes].contiguous())
+
+
+def box_amps(frc, dtype, h, tab=None, s=None, ctimes=None):
+    """The amplitude table of a forced box step at BOX_WINDOW on the card:
+    an ERK tableau's stages (stage_amplitudes), or an RKC2 step of s stages
+    on the stage-time table ctimes (fused_rkc.stage_times_amplitudes)."""
+    from crdmodel_tpu_torch.ops.fused_rkc import stage_times_amplitudes
+    from crdmodel_tpu_torch.ops.kernel_common import stage_amplitudes
+    t, seg = (torch.tensor(v, dtype=dtype, device="cuda")
+              for v in BOX_WINDOW)
+    if tab is not None:
+        return stage_amplitudes(frc, t, h, torch.tensor(
+            tab.c, dtype=dtype, device="cuda"), {"_seg_end": seg}, dtype)
+    return stage_times_amplitudes(frc, t, h, s, ctimes, {"_seg_end": seg},
+                                  dtype)
+
+
+def check_forced_box_kernels(cases, seed):
+    """K6 (bs32 and dopri54) and K7 (BOX_RKC_VARIANTS) with box_forcing and
+    the cross drive against their plain versions on each case of
+    box_forced_cases, f32 and f64, in BOX_WINDOW, fz 0 and 1 (K7: the
+    variants alternate): y_new bitwise, two launches bitwise, every
+    partial sum of the stream schemes bitwise (fused_box3d_tile_sums,
+    fused_box3d_rkc_tile_sums); each scheme's forced instantiation traced
+    once in f32 (check_forced_trace). Prints phases k6_forced_check and
+    k7_forced_check; returns the max errors of K6 and of K7."""
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import box_stream
+    from crdmodel_tpu_torch.ops import fused_box3d as fb
+    from crdmodel_tpu_torch.ops import fused_box3d_rkc as fk
+    from crdmodel_tpu_torch.ops.fused_rkc import (stage_times_table,
+                                                  static_stage_tables)
+    from crdmodel_tpu_torch.ops.kernel_common import prepare_box_constants
+
+    rng = np.random.default_rng(seed)
+    worst6 = {torch.float32: 0.0, torch.float64: 0.0}
+    worst7 = {torch.float32: 0.0, torch.float64: 0.0}
+    traced = {}         # a scheme's tag: the forced kernel traced
+    for label, cfg, build_kw, planes in cases:
+        problems = {smooth: build_problem(
+            cfg, device="cuda", forcing=box_rkc_forcing(cfg, smooth),
+            **build_kw) for smooth in (True, False)}
+        shape = tuple(problems[True].y0.shape)
+        if planes is not None:
+            shape = (2, planes, *shape[2:])
+        y_np = random_state(cfg, shape, rng)
+        for dtype in (torch.float32, torch.float64):
+            problem = problems[True]
+            bc = prepare_box_constants(problem, dtype, "cuda")
+            if planes is not None:
+                bc = box_stream.box_planes(bc, planes)
+            y = torch.tensor(y_np, dtype=dtype, device="cuda")
+            h = torch.tensor(BOX_H, dtype=dtype, device="cuda")
+            fields = dict(case=label, model=cfg.model, mode=bc.kind,
+                          shape=list(y.shape), window=list(BOX_WINDOW))
+            stim = box_stim(problem, dtype, planes)
+            for method in ("bs32", "dopri54"):
+                tab = TABLEAUS[method]
+                amps = box_amps(problem.forcing, dtype, h, tab=tab)
+                tag = box_stream.kernel_name(tab)
+                for fz in (0.0, 1.0):
+                    fzt = torch.tensor(fz, dtype=dtype, device="cuda")
+                    args = (y, h, fzt, bc, tab, cfg.rtol, cfg.atol, stim,
+                            amps)
+                    if dtype == torch.float32 and tag not in traced:
+                        traced[tag] = check_forced_trace(
+                            "k6_forced_check",
+                            lambda: fb.fused_box3d_step(*args), tag)
+                    err = check_pair(
+                        "k6_forced_check",
+                        dict(fields, method=method, fz=fz,
+                             n_stim=stim.n_stim),
+                        *fb.fused_box3d_step(*args),
+                        *fb.fused_box3d_step(*args),
+                        *fb.fused_box3d_step_reference(*args), dtype, y,
+                        bitwise=True,
+                        ss_tiles=(fb.fused_box3d_tile_sums(*args)
+                                  if box_stream.uses_stream(tab) else None))
+                    worst6[dtype] = max(worst6[dtype], err)
+            if planes is not None:
+                continue        # K7 takes a configuration's box: nz >= 3
+            mu1, ctab = static_stage_tables(fk.C_RKC, dtype, "cuda")
+            ctimes = stage_times_table(fk.C_RKC, dtype, "cuda")
+            rho = problem_rho(problem, y)
+            tag = box_stream.rkc_kernel_name(bc.kind)
+            for i, (smooth, s) in enumerate(BOX_RKC_VARIANTS):
+                hs, st = rkc_step_inputs(s, rho, dtype)
+                frc = problems[smooth].forcing
+                stim = box_stim(problems[smooth], dtype)
+                amps = box_amps(frc, dtype, hs, s=st, ctimes=ctimes)
+                fz = float(i % 2)
+                fzt = torch.tensor(fz, dtype=dtype, device="cuda")
+                args = (y, hs, fzt, st, mu1, ctab, bc, cfg.rtol, cfg.atol,
+                        stim, amps)
+                if dtype == torch.float32 and tag not in traced:
+                    traced[tag] = check_forced_trace(
+                        "k7_forced_check",
+                        lambda: fk.fused_box3d_rkc_step(*args), tag)
+                err = check_pair(
+                    "k7_forced_check",
+                    dict(fields, s=s, smooth=smooth, fz=fz,
+                         n_stim=stim.n_stim, amp_columns=amps.shape[1]),
+                    *fk.fused_box3d_rkc_step(*args),
+                    *fk.fused_box3d_rkc_step(*args),
+                    *fk.fused_box3d_rkc_step_reference(*args), dtype, y,
+                    bitwise=True,
+                    ss_tiles=(fk.fused_box3d_rkc_tile_sums(*args)
+                              if box_stream.rkc_uses_stream(bc.kind)
+                              else None))
+                worst7[dtype] = max(worst7[dtype], err)
+            del y, bc
+        del problems
+    phase("box_forced_traces", kernels=traced)
+    return worst6, worst7
+
+
+def check_forced_shard_box_kernels(cases, seed):
+    """K12 (bs32 and dopri54) and K13 (BOX_RKC_VARIANTS) with box_forcing
+    and the cross drive against their plain versions on the shards of each
+    (label, config, build arguments, mesh shape, shards checked) of
+    `cases`, f32 and f64, in BOX_WINDOW, fz 0 and 1 (K13: the variants
+    alternate): y_new's block and every partial sum of the stream schemes
+    bitwise, two launches bitwise; each scheme's forced instantiation
+    traced once in f32. Prints phases k12_forced_check and
+    k13_forced_check; returns the max errors of K12 and of K13."""
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import box_stream
+    from crdmodel_tpu_torch.ops import fused_shard_box3d as f12
+    from crdmodel_tpu_torch.ops import fused_shard_box3d_rkc as f13
+    from crdmodel_tpu_torch.ops.fused_rkc import (stage_times_table,
+                                                  static_stage_tables)
+    from crdmodel_tpu_torch.ops.kernel_common import make_shard_box_constants
+
+    from crdmodel_tpu_torch.ops.kernel_common import (
+        prepare_shard_stim_constants)
+    from crdmodel_tpu_torch.parallel.sharded import mesh_pad_spec
+
+    rng = np.random.default_rng(seed)
+    worst12 = {torch.float32: 0.0, torch.float64: 0.0}
+    worst13 = {torch.float32: 0.0, torch.float64: 0.0}
+    traced = {}         # a scheme's tag: the forced kernel traced
+    for label, cfg, build_kw, shape, shards in cases:
+        mesh = shard_mesh(shape)
+        problems = {smooth: build_problem(
+            cfg, device="cuda", forcing=box_rkc_forcing(cfg, smooth),
+            **build_kw) for smooth in (True, False)}
+        y_np = random_state(cfg, tuple(problems[True].y0.shape), rng)
+        for dtype in (torch.float32, torch.float64):
+            bufs, consts = shard_inputs(problems[True], mesh, y_np, dtype,
+                                        f12.HALO, make_shard_box_constants)
+            stims = {smooth: prepare_shard_stim_constants(
+                p, mesh, mesh_pad_spec(cfg, mesh), f12.HALO, dtype)
+                for smooth, p in problems.items()}
+            h = torch.tensor(BOX_H, dtype=dtype, device="cuda")
+            fields = dict(case=label, model=cfg.model, mesh=list(shape),
+                          mode=consts[0].kind, window=list(BOX_WINDOW))
+            for method in ("bs32", "dopri54"):
+                tab = TABLEAUS[method]
+                amps = box_amps(problems[True].forcing, dtype, h, tab=tab)
+                tag = box_stream.kernel_name(tab, shard=True)
+                for fz in (0.0, 1.0):
+                    fzt = torch.tensor(fz, dtype=dtype, device="cuda")
+                    for k in shards:
+                        args = (bufs[k], h, fzt, consts[k], tab, cfg.rtol,
+                                cfg.atol, stims[True][k], amps)
+                        if dtype == torch.float32 and tag not in traced:
+                            traced[tag] = check_forced_trace(
+                                "k12_forced_check",
+                                lambda: f12.fused_shard_box3d_step(*args),
+                                tag)
+                        err = check_shard_pair(
+                            "k12_forced_check",
+                            dict(fields, shard=k, shape=list(bufs[k].shape),
+                                 valid=[consts[k].valid_rows,
+                                        consts[k].valid_cols],
+                                 method=method, fz=fz,
+                                 n_stim=stims[True][k].n_stim),
+                            f12.fused_shard_box3d_step,
+                            f12.fused_shard_box3d_step_reference, args,
+                            dtype,
+                            tile_sums=(f12.fused_shard_box3d_tile_sums
+                                       if box_stream.uses_stream(tab)
+                                       else None))
+                        worst12[dtype] = max(worst12[dtype], err)
+            mu1, ctab = static_stage_tables(f13.C_RKC, dtype, "cuda")
+            ctimes = stage_times_table(f13.C_RKC, dtype, "cuda")
+            rho = problem_rho(problems[True], torch.tensor(
+                y_np, dtype=dtype, device="cuda"))
+            tag = box_stream.rkc_kernel_name(consts[0].kind, shard=True)
+            stream = box_stream.rkc_uses_stream(consts[0].kind)
+            for i, (smooth, s) in enumerate(BOX_RKC_VARIANTS):
+                hs, st = rkc_step_inputs(s, rho, dtype)
+                stims_v = stims[smooth]
+                amps = box_amps(problems[smooth].forcing, dtype, hs, s=st,
+                                ctimes=ctimes)
+                fz = float(i % 2)
+                fzt = torch.tensor(fz, dtype=dtype, device="cuda")
+                for k in shards:
+                    args = (bufs[k], hs, fzt, st, mu1, ctab, consts[k],
+                            cfg.rtol, cfg.atol, stims_v[k], amps)
+                    if dtype == torch.float32 and tag not in traced:
+                        traced[tag] = check_forced_trace(
+                            "k13_forced_check",
+                            lambda: f13.fused_shard_box3d_rkc_step(*args),
+                            tag)
+                    err = check_shard_pair(
+                        "k13_forced_check",
+                        dict(fields, shard=k, shape=list(bufs[k].shape),
+                             valid=[consts[k].valid_rows,
+                                    consts[k].valid_cols],
+                             s=s, smooth=smooth, fz=fz,
+                             n_stim=stims_v[k].n_stim,
+                             amp_columns=amps.shape[1]),
+                        f13.fused_shard_box3d_rkc_step,
+                        f13.fused_shard_box3d_rkc_step_reference, args,
+                        dtype,
+                        tile_sums=(f13.fused_shard_box3d_rkc_tile_sums
+                                   if stream else None))
+                    worst13[dtype] = max(worst13[dtype], err)
+            del bufs, consts, stims
+        del problems
+    phase("shard_box_forced_traces", kernels=traced)
+    return worst12, worst13
+
+
+def box_forced_timings(cfg_box, card):
+    """K6 (bs32), K7 (smooth, each s of K7_TIMED_STAGES), K12 (bs32) and
+    K13 (smooth, s of K7_TIMED_STAGES) forced and unforced in one call
+    (forced_timing: the forced bound adds the profiles', the depth table's
+    and the amplitudes' bytes and the stimuli's operations) on the paced
+    slab's ICs in the profile mode, f32, unfrozen, in BOX_WINDOW: K6 and
+    K7 at (2, 32, 512, 512), K12 and K13 on shard 0 of its 2x2 mesh, with
+    the kernels of one step_err call forced and unforced. Prints phases
+    k6_forced_timing .. k13_forced_timing; returns {(kernel, s):
+    (forced timing, unforced ms)}."""
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import box_stream
+    from crdmodel_tpu_torch.ops import fused_box3d as fb
+    from crdmodel_tpu_torch.ops import fused_box3d_rkc as fk
+    from crdmodel_tpu_torch.ops import fused_shard_box3d as f12
+    from crdmodel_tpu_torch.ops import fused_shard_box3d_rkc as f13
+    from crdmodel_tpu_torch.ops.fused_rkc import (stage_times_table,
+                                                  static_stage_tables)
+    from crdmodel_tpu_torch.ops.kernel_common import (
+        make_shard_box_constants, prepare_box_constants)
+    from crdmodel_tpu_torch.parallel.sharded import sharded_rho_bound
+    dtype = torch.float32
+    zero = torch.zeros((), device="cuda")
+    t, seg = (torch.tensor(v, device="cuda") for v in BOX_WINDOW)
+    tab = TABLEAUS["bs32"]
+    mesh = shard_mesh(SHARD_MESH)
+    out = {}
+    for method in ("bs32", "rkc2"):
+        cfg = dataclasses.replace(cfg_box, method=method)
+        frc = box_forcing(cfg)
+        problem = build_problem(cfg, "cuda", forcing=frc)
+        y = problem.y0.contiguous()
+        bc = prepare_box_constants(problem, dtype, "cuda")
+        stim = box_stim(problem, dtype)
+        bufs, consts, stims = shard_stim_inputs(
+            problem, mesh, y.cpu().numpy(), dtype, f12.HALO,
+            make_shard_box_constants)
+        buf, sc, sstim = bufs[0], consts[0], stims[0]
+        h = torch.tensor(BOX_H, device="cuda")
+        if method == "bs32":
+            amps = box_amps(frc, dtype, h, tab=tab)
+            base = (y, h, zero, bc, tab, cfg.rtol, cfg.atol)
+            out["k6", None] = forced_timing(
+                "k6_forced_timing", y, bc, stim, amps,
+                lambda: fb.fused_box3d_step(*base, stim, amps),
+                lambda: fb.fused_box3d_step(*base),
+                lambda: fb.fused_box3d_step_reference(*base, stim, amps),
+                box_stream.STREAM_KERNEL, erk_ops(bc, tab), tab.stages, 0,
+                kernels_a_step(problem, lambda p: fb.build_fused_box3d_step(
+                    p, tab), t, y, h, seg),
+                ("fused_box3d.cu", "fused_box3d_forced.cu"), card,
+                timed=BOX_PLAIN_TIMED, mode=bc.kind, method="bs32",
+                window=list(BOX_WINDOW))
+            sbase = (buf, h, zero, sc, tab, cfg.rtol, cfg.atol)
+            out["k12", None] = forced_timing(
+                "k12_forced_timing", buf, sc, sstim, amps,
+                lambda: f12.fused_shard_box3d_step(*sbase, sstim, amps),
+                lambda: f12.fused_shard_box3d_step(*sbase),
+                lambda: f12.fused_shard_box3d_step_reference(*sbase, sstim,
+                                                            amps),
+                box_stream.STREAM_KERNEL, erk_ops(sc, tab), tab.stages, 0,
+                shard_kernels_a_step(
+                    problem, mesh, lambda p, pad: f12.build_fused_shard_box3d(
+                        p, tab, mesh, pad), t, h, seg),
+                ("fused_shard_box3d.cu", "fused_shard_box3d_forced.cu"),
+                card, bound_of=shard_bound, timed=BOX_PLAIN_TIMED,
+                mode=sc.kind, method="bs32", mesh=list(SHARD_MESH),
+                window=list(BOX_WINDOW))
+            continue
+        mu1, ctab = static_stage_tables(fk.C_RKC, dtype, "cuda")
+        ctimes = stage_times_table(fk.C_RKC, dtype, "cuda")
+        tables = sum(x.numel() * x.element_size() for x in (mu1, ctab))
+        rho = problem_rho(problem, y)
+        tag = box_stream.rkc_kernel_name(bc.kind)
+        stag = box_stream.rkc_kernel_name(sc.kind, shard=True)
+        group = 1 if not box_stream.rkc_uses_stream(bc.kind) else (
+            box_stream.rkc_launches(fk.C_RKC))
+        h_max = rkc_step_inputs(max(K7_TIMED_STAGES), rho, dtype)[0]
+        per_step = kernels_a_step(
+            problem, lambda p: fk.build_fused_box3d_rkc_step(
+                p, dtype).step_err, t, y, h_max, seg)
+        per_shard_step = shard_kernels_a_step(
+            problem, mesh, lambda p, pad: f13.build_fused_shard_box3d_rkc(
+                p, mesh, sharded_rho_bound(p, mesh, pad), pad), t, h_max,
+            seg)
+        for s in K7_TIMED_STAGES:
+            hs, st = rkc_step_inputs(s, rho, dtype)
+            amps = box_amps(frc, dtype, hs, s=st, ctimes=ctimes)
+            base = (y, hs, zero, st, mu1, ctab, bc, cfg.rtol, cfg.atol)
+            out["k7", s] = forced_timing(
+                "k7_forced_timing", y, bc, stim, amps,
+                lambda: fk.fused_box3d_rkc_step(*base, stim, amps),
+                lambda: fk.fused_box3d_rkc_step(*base),
+                lambda: fk.fused_box3d_rkc_step_reference(*base, stim,
+                                                          amps),
+                tag, rkc_ops(bc, s), s + 1, tables, per_step,
+                ("fused_box3d_rkc.cu", "fused_box3d_rkc_forced.cu"), card,
+                timed=BOX_PLAIN_TIMED, group=group, mode=bc.kind, s=s,
+                amp_columns=amps.shape[1], window=list(BOX_WINDOW))
+            sbase = (buf, hs, zero, st, mu1, ctab, sc, cfg.rtol, cfg.atol)
+            out["k13", s] = forced_timing(
+                "k13_forced_timing", buf, sc, sstim, amps,
+                lambda: f13.fused_shard_box3d_rkc_step(*sbase, sstim, amps),
+                lambda: f13.fused_shard_box3d_rkc_step(*sbase),
+                lambda: f13.fused_shard_box3d_rkc_step_reference(
+                    *sbase, sstim, amps),
+                stag, rkc_ops(sc, s), s + 1, tables, per_shard_step,
+                ("fused_shard_box3d_rkc.cu",
+                 "fused_shard_box3d_rkc_forced.cu"), card,
+                bound_of=shard_bound, timed=BOX_PLAIN_TIMED, group=group,
+                mode=sc.kind, s=s, mesh=list(SHARD_MESH),
+                amp_columns=amps.shape[1], window=list(BOX_WINDOW))
+        del problem, y, bc, bufs, consts, stims
+    return out
+
+
+def paced_box_paths(cfg_box, unforced=None):
+    """The paced slab (volumetric_box with box_forcing, nothing else
+    changed) through simulate() on the card with bs32 (paced_box_bs32, K6)
+    and rkc2 (paced_box_rkc2, K7), each held as run_box_path holds the
+    unforced slab, to the port's torch path on the card in f32 and f64,
+    and traced through the kernel's forced instantiation; then through
+    simulate_sharded() on a 2x2 mesh of shards on cuda:0
+    (paced_sharded_slab_bs32, K12; paced_sharded_slab_rkc2, K13), held as
+    run_sharded_slab holds the unforced ones to the single-device paced
+    run of this call (steps within 1%, rkc2 2.78%). `unforced`: the walls
+    of this call's unforced slab runs, {phase name: wall s}, printed
+    beside the paced ones (phase paced_box_walls). Returns the launches
+    of K6, K7, K12 and K13."""
+    from crdmodel_tpu_torch.ops import (box_stream, fused_box3d,
+                                        fused_box3d_rkc, fused_shard_box3d,
+                                        fused_shard_box3d_rkc)
+    cfg_rkc = dataclasses.replace(cfg_box, method="rkc2")
+    singles = {"bs32": {}, "rkc2": {}}
+    walls = {}
+    launches = {}
+    launches["k6"] = run_box_path(
+        "paced_box_bs32", cfg_box, dict(forcing=box_forcing(cfg_box)),
+        fused_box3d.fused_box3d_step, PACED_BOX_LABEL + ", bs32", 0.01,
+        keep=singles["bs32"],
+        report=traced_path(box_stream.STREAM_KERNEL, True))
+    launches["k7"] = run_box_path(
+        "paced_box_rkc2", cfg_rkc, dict(forcing=box_forcing(cfg_rkc)),
+        fused_box3d_rkc.fused_box3d_rkc_step, PACED_BOX_LABEL + ", rkc2",
+        0.02, keep=singles["rkc2"],
+        report=traced_path(box_stream.rkc_kernel_name("box_profile"), True))
+    mesh = shard_mesh(SHARD_MESH)
+    for key, cfg, kernel, want, tol, tag in (
+            ("bs32", cfg_box, fused_shard_box3d.fused_shard_box3d_step,
+             "K12", 0.01, box_stream.STREAM_KERNEL),
+            ("rkc2", cfg_rkc, fused_shard_box3d_rkc.fused_shard_box3d_rkc_step,
+             "K13", 0.0278,
+             box_stream.rkc_kernel_name("box_profile", shard=True))):
+        keep = {}
+        launches["k12" if want == "K12" else "k13"] = run_sharded_slab(
+            f"paced_sharded_slab_{key}", cfg, dict(forcing=box_forcing(cfg)),
+            kernel, want, PACED_BOX_LABEL + f", {key}", mesh, singles[key],
+            tol, keep=keep, report=traced_path(tag, True, mesh=mesh))
+        walls[f"paced_sharded_slab_{key}"] = keep["wall_s"]
+    walls.update({f"paced_box_{k}": v["wall_s"] for k, v in singles.items()})
+    phase("paced_box_walls", paced=walls, unforced=unforced,
+          card=card_line())
+    return launches
+
+
+def box_forced_phases(cfg_box, card, unforced=None):
+    """Forcing on the box: the forced box kernels' checks
+    (check_forced_box_kernels, check_forced_shard_box_kernels: the slab's
+    2x2 shards 0 and 3 in the profile and tensor modes and fhn_box's
+    uneven 1x3 mesh), their timings (box_forced_timings) and the paced
+    slab's paths (paced_box_paths; `unforced`: this call's unforced slab
+    walls). Returns each box kernel entry's forced fields
+    (forced_fields), by the entry's name."""
+    worst6, worst7 = check_forced_box_kernels(box_forced_cases(cfg_box),
+                                              SEED + 16)
+    shard_cases = [(label, c, kw, SHARD_MESH, (0, 3))
+                   for label, c, kw, _ in box_forced_cases(cfg_box)[:2]]
+    shard_cases.append(("fhn_beta_ramp_uneven_1x3", fhn_box(cfg_box), {},
+                        UNEVEN_MESH, (0, 1, 2)))
+    worst12, worst13 = check_forced_shard_box_kernels(shard_cases, SEED + 17)
+    timings = box_forced_timings(cfg_box, card)
+    n = paced_box_paths(cfg_box, unforced)
+    s = max(K7_TIMED_STAGES)
+    return {
+        "fused_box3d_step": forced_fields(worst6, *timings["k6", None],
+                                          n["k6"]),
+        "fused_box3d_rkc_step": forced_fields(worst7, *timings["k7", s],
+                                              n["k7"]),
+        "fused_shard_box3d_step": forced_fields(
+            worst12, *timings["k12", None], n["k12"]),
+        "fused_shard_box3d_rkc_step": forced_fields(
+            worst13, *timings["k13", s], n["k13"])}
+
+
 def load_probes():
     """Every golden of PROBES: {(model, method): {name: array}}."""
     probes = {}
@@ -4540,6 +5083,12 @@ def main():
                           "fused_shard_box3d_rkc.cu")},
           ptxas_fused_box3d=ptxas_summary("fused_box3d.cu"),
           ptxas_fused_box3d_rkc=ptxas_summary("fused_box3d_rkc.cu"),
+          ptxas_forced_box={
+              src: ptxas_summary(src)
+              for src in ("fused_box3d_forced.cu",
+                          "fused_box3d_rkc_forced.cu",
+                          "fused_shard_box3d_forced.cu",
+                          "fused_shard_box3d_rkc_forced.cu")},
           ptxas_fused_shard_step=ptxas_summary("fused_shard_step.cu"),
           ptxas_fused_shard_rkc=ptxas_entries("fused_shard_rkc.cu",
                                               "fused_rkc_chunk_kernel"),
@@ -4630,6 +5179,10 @@ def main():
         mesh_forced_phases(cfg, cfg_gb, cfg_ap, ap_build,
                            *programs["torus_tensor"], load_probes(), paced,
                            card)
+        box_forced_phases(cfg_box, card)
+        return
+    if sys.argv[1:] == ["--box-forced"]:
+        box_forced_phases(cfg_box, card)
         return
     if sys.argv[1:]:
         sys.exit(f"unknown arguments {sys.argv[1:]}; see the docstring")
@@ -4866,7 +5419,15 @@ def main():
     field_entries = shard_field_phases(cfg, programs, probes, singles, card)
     for entry in (*shard_entries, *field_entries):
         entry.update(mesh_forced[entry["name"]])
-    shard_box_entries = shard_box_phases(cfg_box, box_singles, card)
+    slab_walls = {f"main_path_box{suffix}": box_singles[key]["wall_s"]
+                  for key, suffix in (("bs32", ""), ("rkc2", "_rkc2"),
+                                      ("scar", "_scar"))}
+    shard_box_entries = shard_box_phases(cfg_box, box_singles, card,
+                                         slab_walls)
+    # forcing on the box: K6, K7, K12, K13 forced, and the paced slab
+    box_forced = box_forced_phases(cfg_box, card, slab_walls)
+    for entry in (*box_entries, *shard_box_entries):
+        entry.update(box_forced[entry["name"]])
     stream_phases(cfg, programs["goldbeter_ark324"], probes, single_fhn,
                   sharded_fhn, card)
 

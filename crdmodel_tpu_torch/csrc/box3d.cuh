@@ -28,7 +28,9 @@
 // The expressions follow the plain version (ops/kernel_common.py::
 // box_kernel_laplacian, make_box_rhs_block) operation for operation, and
 // the library is built with -fmad=false, so each operation rounds as
-// PyTorch's does.
+// PyTorch's does. A structured forcing (rhs_common.cuh::BoxStimTable)
+// adds its terms at the point's plane, row and column before the freeze
+// and the tissue field (box_rhs_at); NoStim compiles it out.
 //
 // The persistent scheme here is K6's and K12's for the tableaus other than
 // bs32 (zonneveld43, dopri54); their bs32 steps and every step of K7 and
@@ -173,17 +175,20 @@ __device__ __forceinline__ T box_lap(const BoxConstants<T>& c, const T* su,
 }
 
 // ydot = f(u, v) at point (k, j, i), flat index g: the kinetics plus the
-// operator on variable 0, times live with a freeze, times the tissue field
-// with an obstacle.
-template <int Mode, int Kin, class Grid, typename T>
+// operator on variable 0, plus a structured forcing's terms at amplitude
+// column a (stim a BoxStimTable; NoStim compiles them out), times live with
+// a freeze, times the tissue field with an obstacle.
+template <int Mode, int Kin, class Grid, typename T, class Stim>
 __device__ __forceinline__ void box_rhs_at(const BoxConstants<T>& c, T fz,
+                                           const Stim& stim, int a,
                                            const T* su, const T* sv, int k,
                                            int j, int i, size_t g,
                                            T& du_out, T& dv_out) {
   const T lap = box_lap<Mode, Grid>(c, su, k, j, i, g);
-  T du, dv;
+  T du, dv, fu = T(0), fv = T(0);
   kinetics<Kin>(su[g], sv[g], beta_at(c.k, j), du, dv);
-  du = du + lap;
+  if constexpr (Stim::kOn) stim.at(a, k, j, i, fu, fv);
+  add_operator<Stim::kOn>(lap, fu, fv, du, dv);
   if (c.k.has_freeze) {
     const T live = live_at(c.k, fz, j);
     du = du * live;
@@ -198,16 +203,28 @@ __device__ __forceinline__ void box_rhs_at(const BoxConstants<T>& c, T fz,
   dv_out = dv;
 }
 
-// box_rhs_at on the whole periodic box (K6) at flat index g.
-template <int Mode, int Kin, typename T>
+// box_rhs_at on the whole periodic box (K6, K7) at flat index g.
+template <int Mode, int Kin, typename T, class Stim>
 __device__ __forceinline__ void box_rhs(const BoxConstants<T>& c, T fz,
+                                        const Stim& stim, int a,
                                         const T* su, const T* sv, size_t g,
                                         T& du_out, T& dv_out) {
   const int i = static_cast<int>(g % c.nx);
   const size_t row = g / c.nx;
   const int j = static_cast<int>(row % c.ny);
   const int k = static_cast<int>(row / c.ny);
-  box_rhs_at<Mode, Kin, BoxWrap>(c, fz, su, sv, k, j, i, g, du_out, dv_out);
+  box_rhs_at<Mode, Kin, BoxWrap>(c, fz, stim, a, su, sv, k, j, i, g, du_out,
+                                 dv_out);
+}
+
+// The amplitude column of an RKC2 step's evaluation e in the box kernels'
+// forcing table (rhs_common.cuh::rkc_amp_column); 0 without a forcing.
+template <class Stim>
+__device__ __forceinline__ int box_rkc_column(const Stim& stim, int e) {
+  if constexpr (Stim::kOn)
+    return rkc_amp_column(e, stim.s.n_cols);
+  else
+    return 0;
 }
 
 // One shard's block inside its halo-padded buffer (K12, K13): the buffer is
@@ -363,3 +380,12 @@ int launch_cooperative(Kernel kernel, size_t n_points, int capacity,
 #define CRD_BOX_OPERATOR_PASS                                                \
   c0, c1, c2, c3, c4, c5, tissue, invs, mode, beta, beta_field, mask,       \
       has_freeze, kinetics, nz, ny, nx, rtol, atol, stream
+
+// A box launcher's structured forcing, its last arguments: the amplitude
+// table, the row and column profiles and the depth table, then n_stim
+// (0: no forcing, null pointers), n_cols and var1 (rhs_common.cuh::
+// with_box_stim; ops/kernel_common.py::stim_args with box=True).
+#define CRD_BOX_STIM_ARGS                                                    \
+  const void *amps, const void *rows, const void *cols, const void *z,      \
+      int n_stim, int n_cols, int var1
+#define CRD_BOX_STIM_PASS amps, rows, cols, z, n_stim, n_cols, var1

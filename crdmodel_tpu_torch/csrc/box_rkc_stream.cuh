@@ -130,8 +130,10 @@ __host__ __device__ inline RkcStreamPlan rkc_stream_plan(const Grid& grid,
 }
 
 // One chunk (`chunk`) of a step on the tile and z chunk blockIdx.x of its
-// plan; work: F0, Y_e and Y_{e-1}, each (2, nz, ny, nx).
-template <int Mode, int Kin, class Grid, typename T>
+// plan; work: F0, Y_e and Y_{e-1}, each (2, nz, ny, nx). With a forcing
+// (Stim a BoxStimTable), evaluation e at plane q adds its terms at
+// amplitude column rkc_amp_column(e) and plane q.
+template <int Mode, int Kin, class Grid, typename T, class Stim>
 __global__ void __launch_bounds__(kStreamThreads, (kStreamMinBlocks<T>))
     fused_box_rkc_stream_kernel(const T* __restrict__ y,
                                 T* __restrict__ y_new, T* __restrict__ ss,
@@ -141,7 +143,7 @@ __global__ void __launch_bounds__(kStreamThreads, (kStreamMinBlocks<T>))
                                 const T* __restrict__ mu1_tab,
                                 const T* __restrict__ ctab, int s_cap,
                                 BoxConstants<T> c, Grid grid, int chunk,
-                                int min_tiles, T rtol, T atol) {
+                                int min_tiles, T rtol, T atol, Stim stim) {
   using P = StreamPlan;
   constexpr int D = P::kN;
   constexpr int S = P::kSlots;
@@ -291,10 +293,11 @@ __global__ void __launch_bounds__(kStreamThreads, (kStreamMinBlocks<T>))
         if (m >= ST && !sl.within(m, n - 1 - i)) continue;
         const int li = sl.local(m);
         const Off g = q * plane + sl.go[m];
-        T du, dv;
-        stream_rhs<Mode, Kin, W>(c, sl.template point<Mode>(c, fz, m), ud,
-                                 um, uu, goff, li, q, kD, kU, plane,
-                                 cv[i][m], du, dv);
+        T du, dv, gu, gv;
+        stream_forcing(stim, box_rkc_column(stim, e), q, sl.rc[m], gu, gv);
+        stream_rhs<Mode, Kin, W, Stim::kOn>(
+            c, sl.template point<Mode>(c, fz, m), ud, um, uu, goff, li, q,
+            kD, kU, plane, cv[i][m], gu, gv, du, dv);
         const T cu = um[li], cvm = cv[i][m];
         T* const f = f0s + (q % D) * 2 * NP + threadIdx.x
                      + kStreamThreads * m;
@@ -363,16 +366,16 @@ __global__ void __launch_bounds__(kStreamThreads, (kStreamMinBlocks<T>))
 // Launch the chunks of one step in a mode the scheme takes on `stream`:
 // ceil((s_cap + 1) / kStreamDepth) launches of the largest tile count any
 // s gives the chunk; the partial sums are the last chunk's tiles (at most
-// `capacity`, their count to *n_blocks). Returns the CUDA error code,
-// checked after each launch.
-template <typename T, class Grid>
+// `capacity`, their count to *n_blocks); the forcing `stim` (NoStim: none).
+// Returns the CUDA error code, checked after each launch.
+template <typename T, class Grid, class Stim>
 int launch_box_rkc_stream(const BoxConstants<T>& c, Grid grid, int mode,
                           int kinetics, const void* y, void* y_new, void* ss,
                           int capacity, int* n_blocks, void* work,
                           const void* h, const void* fz, const void* s,
                           const void* mu1_tab, const void* ctab, int s_cap,
                           int min_tiles, double rtol, double atol,
-                          void* stream) {
+                          void* stream, const Stim& stim) {
   // offsets into the state and `work` in an int, rows and columns in 16
   // bits each
   if (!rkc_stream_take(mode) || !valid_kinetics(kinetics) || s_cap < 2
@@ -397,8 +400,9 @@ int launch_box_rkc_stream(const BoxConstants<T>& c, Grid grid, int mode,
       if (t > blocks) blocks = t;
     }
     const auto launch = [&](auto m, auto k) {
-      auto kernel = &fused_box_rkc_stream_kernel<decltype(m)::value,
-                                                 decltype(k)::value, Grid, T>;
+      auto kernel =
+          &fused_box_rkc_stream_kernel<decltype(m)::value, decltype(k)::value,
+                                       Grid, T, Stim>;
       const size_t smem = rkc_stream_bytes(sizeof(T));
       cudaError_t err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -411,7 +415,7 @@ int launch_box_rkc_stream(const BoxConstants<T>& c, Grid grid, int mode,
           static_cast<const T*>(h), static_cast<const T*>(fz),
           static_cast<const int*>(s), static_cast<const T*>(mu1_tab),
           static_cast<const T*>(ctab), s_cap, c, grid, chunk, min_tiles,
-          static_cast<T>(rtol), static_cast<T>(atol));
+          static_cast<T>(rtol), static_cast<T>(atol), stim);
       return static_cast<int>(cudaGetLastError());
     };
     const int rc = dispatch_kinetics<kBoxTensor>(kinetics, launch);
@@ -420,8 +424,8 @@ int launch_box_rkc_stream(const BoxConstants<T>& c, Grid grid, int mode,
   return 0;
 }
 
-// stream_info of the kernel of (mode, kinetics) on the grid policy Grid
-// (a mode the scheme takes).
+// stream_info of the unforced kernel of (mode, kinetics) on the grid
+// policy Grid (a mode the scheme takes).
 template <typename T, class Grid>
 int rkc_stream_kernel_info(int mode, int kinetics, int* out) {
   if (!rkc_stream_take(mode) || !valid_kinetics(kinetics))
@@ -429,7 +433,7 @@ int rkc_stream_kernel_info(int mode, int kinetics, int* out) {
   const auto info = [&](auto m, auto k) {
     return stream_info(
         &fused_box_rkc_stream_kernel<decltype(m)::value, decltype(k)::value,
-                                     Grid, T>,
+                                     Grid, T, NoStim>,
         rkc_stream_bytes(sizeof(T)), out);
   };
   return dispatch_kinetics<kBoxTensor>(kinetics, info);

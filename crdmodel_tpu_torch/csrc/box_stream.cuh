@@ -57,6 +57,14 @@
 // ring point's at each evaluation. Where the error and the weights' y0
 // live, and the width of the offsets, are chosen by mode: each the faster
 // at the slab's shapes on the H100 (PERF.md, section 6).
+//
+// A structured forcing (Stim = rhs_common.cuh::BoxStimTable; NoStim
+// compiles it out) joins each evaluation at the plane it runs at: stage s
+// of iteration p at q = p - s reads amplitude column s and depth-table
+// row q, the point's row and column from its slot's packed rc, which
+// carries the wrap (StreamWrap) or the halo-padded buffer's index
+// (StreamHalo), so the shard kernels read the halo-padded profiles alike
+// (stream_forcing).
 
 #pragma once
 
@@ -329,20 +337,21 @@ __device__ __forceinline__ T stream_lap(const BoxConstants<T>& c,
   return lap;
 }
 
-// box3d.cuh::box_rhs_at on the rings: ydot at the point, v its variable 1
-template <int Mode, int Kin, int W, typename T, typename Off>
+// box3d.cuh::box_rhs_at on the rings: ydot at the point, v its variable 1;
+// kForced: plus a forcing's terms fu and fv (stream_forcing)
+template <int Mode, int Kin, int W, bool kForced, typename T, typename Off>
 __device__ __forceinline__ void stream_rhs(const BoxConstants<T>& c,
                                            const StreamPoint<T>& p,
                                            const T* ud, const T* um,
                                            const T* uu, const int* goff,
                                            int li, int k, int kD, int kU,
-                                           Off plane, T v, T& du_out,
-                                           T& dv_out) {
+                                           Off plane, T v, T fu, T fv,
+                                           T& du_out, T& dv_out) {
   const T lap = stream_lap<Mode, W>(c, p, ud, um, uu, goff, li, k, kD, kU,
                                     plane);
   T du, dv;
   kinetics<Kin>(um[li], v, p.beta, du, dv);
-  du = du + lap;
+  add_operator<kForced>(lap, fu, fv, du, dv);
   if (c.k.has_freeze) {
     du = du * p.live;
     dv = dv * p.live;
@@ -423,6 +432,19 @@ __device__ __forceinline__ void stream_slots(const BoxConstants<T>& c, T fz,
   }
 }
 
+// A structured forcing's terms (fu, fv) at amplitude column a and plane k
+// of the point whose state row and column are packed in rc (StreamSlots::
+// rc): the stimulus profiles share the state's plane layout, halo-padded
+// on a shard (rhs_common.cuh::BoxStimTable); zero without a forcing.
+template <typename T, class Stim>
+__device__ __forceinline__ void stream_forcing(const Stim& stim, int a,
+                                               int k, int rc, T& fu,
+                                               T& fv) {
+  fu = T(0);
+  fv = T(0);
+  if constexpr (Stim::kOn) stim.at(a, k, rc >> 16, rc & 0xffff, fu, fv);
+}
+
 // The cones of a pipeline of depth n on the z chunk [z0, z1) of a box of nz
 // planes: evaluation i runs at the planes [lo[i], hi[i]).
 template <int N>
@@ -482,14 +504,16 @@ __device__ __forceinline__ void stream_ring0_load(
 }
 
 // One bs32 step on the tile (blockIdx.x, blockIdx.y) of kStreamTileX x
-// kStreamTileY extent points and the z chunk blockIdx.z of z_chunk planes.
-template <int Mode, int Kin, class Grid, typename T>
+// kStreamTileY extent points and the z chunk blockIdx.z of z_chunk planes;
+// with a forcing (Stim a BoxStimTable), stage s at plane q adds its terms
+// at amplitude column s and plane q.
+template <int Mode, int Kin, class Grid, typename T, class Stim>
 __global__ void __launch_bounds__(kStreamThreads, (kStreamMinBlocks<T>))
     fused_box_stream_kernel(const T* __restrict__ y, T* __restrict__ y_new,
                             T* __restrict__ ss, const T* __restrict__ h_ptr,
                             const T* __restrict__ fz_ptr, BoxConstants<T> c,
                             Grid grid, StageTable tab, int z_chunk, T rtol,
-                            T atol) {
+                            T atol, Stim stim) {
   using P = StreamPlan;
   constexpr int NS = kStreamStages;
   constexpr int S = P::kSlots;
@@ -588,10 +612,11 @@ __global__ void __launch_bounds__(kStreamThreads, (kStreamMinBlocks<T>))
 #pragma unroll
           for (int t = 0; t < NS; ++t) sv[0][t][m] = v0[m];
         }
-        T du, dv;
-        stream_rhs<Mode, Kin, W>(c, sl.template point<Mode>(c, fz, m), ud,
-                                 um, uu, goff, li, q, kD, kU, plane,
-                                 sv[s][s][m], du, dv);
+        T du, dv, fu, fv;
+        stream_forcing(stim, s, q, sl.rc[m], fu, fv);
+        stream_rhs<Mode, Kin, W, Stim::kOn>(
+            c, sl.template point<Mode>(c, fz, m), ud, um, uu, goff, li, q,
+            kD, kU, plane, sv[s][s][m], fu, fv, du, dv);
         // k_s into the inputs of the stages after it and the error, each
         // in stage order
 #pragma unroll
@@ -687,14 +712,15 @@ constexpr size_t stream_bytes(size_t itemsize, int mode) {
 // Launch one step over the tiles of grid's extent on `stream`: ntx x nty
 // tiles of kStreamTileX x kStreamTileY (tile_y, the plan's, must be it),
 // ceil(nz / z_chunk) chunks, one partial sum each (at most `capacity`,
-// their count to *n_blocks); returns the CUDA error code, checked right
-// after the launch.
-template <typename T, class Grid>
+// their count to *n_blocks), with the forcing `stim` (NoStim: none);
+// returns the CUDA error code, checked right after the launch.
+template <typename T, class Grid, class Stim>
 int launch_box_stream(const BoxConstants<T>& c, Grid grid, int mode,
                       int kinetics, const void* y, void* y_new, void* ss,
                       int capacity, int* n_blocks, const void* h,
                       const void* fz, const StageTable& tab, int tile_y,
-                      int z_chunk, double rtol, double atol, void* stream) {
+                      int z_chunk, double rtol, double atol, void* stream,
+                      const Stim& stim) {
   // offsets into the state in an int, rows and columns in 16 bits each
   if (tile_y != kStreamTileY || z_chunk < 1
       || 2LL * c.nz * c.ny * c.nx >= (1LL << 31) || c.ny > 0xffff
@@ -709,7 +735,7 @@ int launch_box_stream(const BoxConstants<T>& c, Grid grid, int mode,
   return dispatch_box(mode, kinetics, [&](auto m, auto k) {
     auto kernel =
         &fused_box_stream_kernel<decltype(m)::value, decltype(k)::value, Grid,
-                                 T>;
+                                 T, Stim>;
     const size_t smem = stream_bytes(sizeof(T), decltype(m)::value);
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -719,7 +745,7 @@ int launch_box_stream(const BoxConstants<T>& c, Grid grid, int mode,
              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(y), static_cast<T*>(y_new), static_cast<T*>(ss),
         static_cast<const T*>(h), static_cast<const T*>(fz), c, grid, tab,
-        z_chunk, static_cast<T>(rtol), static_cast<T>(atol));
+        z_chunk, static_cast<T>(rtol), static_cast<T>(atol), stim);
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -743,14 +769,14 @@ int stream_info(Kernel kernel, size_t smem, int* out) {
   return 0;
 }
 
-// stream_info of the bs32 kernel of (mode, kinetics) on the grid policy
-// Grid.
+// stream_info of the unforced bs32 kernel of (mode, kinetics) on the grid
+// policy Grid.
 template <typename T, class Grid>
 int stream_kernel_info(int mode, int kinetics, int* out) {
   return dispatch_box(mode, kinetics, [&](auto m, auto k) {
     return stream_info(
         &fused_box_stream_kernel<decltype(m)::value, decltype(k)::value, Grid,
-                                 T>,
+                                 T, NoStim>,
         stream_bytes(sizeof(T), decltype(m)::value), out);
   });
 }

@@ -29,6 +29,20 @@
 // sum (h a) k_j to device memory, a grid barrier, then k_s = f(input) at
 // every point, another barrier, one partial sum a resident block; some 2 +
 // 3s state sweeps a step where the bound is 2. No tensor cores or TMA.
+//
+// A structured forcing (core/forcing.py::SeparableForcing, rank-1 stimuli,
+// each with an optional depth profile; pallas_box3d.py:360-394, 654-667,
+// 781-782) comes in as an amplitude table amps[n_stim][n_stages], computed
+// on the device at the stage times before the launch, each stimulus's row
+// and column profiles and an (n_stim, nz) depth table (ones where a
+// stimulus has none): stage s at plane k adds ((amps[j][s] * z[j][k]) *
+// rows[j][r]) * cols[j][c] before the freeze's live factor and the tissue
+// field (rhs_common.cuh::BoxStimTable), in the stream scheme at the plane
+// q = p - s it evaluates in iteration p. Without a forcing (n_stim = 0) the
+// launcher takes the unforced instantiations (NoStim), which have none of
+// it. The forced ones are compiled apart, in fused_box3d_forced.cu, which
+// includes this file with CRD_BOX_FORCED_UNIT defined, so that the two
+// halves of the build run side by side.
 
 #include <cuda_runtime.h>
 
@@ -36,17 +50,29 @@
 #include "box_stream.cuh"
 #include "erk_tile.cuh"
 
-namespace {
+// tile_y and z_chunk: the stream scheme's plan (ops/box_stream.py::
+// stream_plan), unused by the persistent one; work: the persistent
+// scheme's scratch, unused by the stream one
+#define CRD_FUSED_BOX3D_ARGS                                                 \
+  const void *y, void *y_new, void *ss, int capacity, int *n_blocks,        \
+      void *work, const void *h, const void *fz, int n_stages,              \
+      const double *a, const double *b, const double *d, int tile_y,        \
+      int z_chunk, CRD_BOX_OPERATOR_ARGS
+#define CRD_FUSED_BOX3D_PASS                                                 \
+  y, y_new, ss, capacity, n_blocks, work, h, fz, n_stages, a, b, d, tile_y, \
+      z_chunk, CRD_BOX_OPERATOR_PASS
+
+namespace crd_k6 {
 
 using crd::BoxConstants;
 using crd::StageTable;
 using crd::kBoxThreads;
 
-template <int Mode, int Kin, typename T>
+template <int Mode, int Kin, typename T, class Stim>
 __global__ void __launch_bounds__(kBoxThreads) fused_box3d_step_kernel(
     const T* __restrict__ y, T* __restrict__ y_new, T* __restrict__ ss,
     T* work, const T* __restrict__ h_ptr, const T* __restrict__ fz_ptr,
-    BoxConstants<T> c, StageTable tab, T rtol, T atol) {
+    BoxConstants<T> c, StageTable tab, T rtol, T atol, Stim stim) {
   __shared__ T warp_sums[kBoxThreads / 32];
   crd::cg::grid_group grid = crd::cg::this_grid();
   const size_t n = static_cast<size_t>(c.nz) * c.ny * c.nx;
@@ -78,7 +104,8 @@ __global__ void __launch_bounds__(kBoxThreads) fused_box3d_step_kernel(
     }
     T* ku = ks + 2 * s * n;
     for (size_t g = first; g < n; g += stride)
-      crd::box_rhs<Mode, Kin>(c, fz, arg, arg + n, g, ku[g], ku[n + g]);
+      crd::box_rhs<Mode, Kin>(c, fz, stim, s, arg, arg + n, g, ku[g],
+                              ku[n + g]);
     grid.sync();
   }
 
@@ -110,11 +137,9 @@ __global__ void __launch_bounds__(kBoxThreads) fused_box3d_step_kernel(
   crd::store_block_sum<T, kBoxThreads>(acc, warp_sums, ss);
 }
 
-template <typename T>
-int launch(const void* y, void* y_new, void* ss, int capacity,
-           int* n_blocks, void* work, const void* h, const void* fz,
-           int n_stages, const double* a, const double* b, const double* d,
-           int tile_y, int z_chunk, CRD_BOX_OPERATOR_ARGS) {
+// One step with the forcing `stim` (NoStim: none), in either scheme.
+template <typename T, class Stim>
+int launch_stim(CRD_FUSED_BOX3D_ARGS, const Stim& stim) {
   StageTable tab;
   BoxConstants<T> c;
   const void* const coeffs[6] = {c0, c1, c2, c3, c4, c5};
@@ -127,7 +152,7 @@ int launch(const void* y, void* y_new, void* ss, int capacity,
     return crd::launch_box_stream<T>(c, crd::StreamWrap{ny, nx}, mode,
                                      kinetics, y, y_new, ss, capacity,
                                      n_blocks, h, fz, tab, tile_y, z_chunk,
-                                     rtol, atol, stream);
+                                     rtol, atol, stream, stim);
   const T* y_arg = static_cast<const T*>(y);
   T* ynew_arg = static_cast<T*>(y_new);
   T* ss_arg = static_cast<T*>(ss);
@@ -135,39 +160,56 @@ int launch(const void* y, void* y_new, void* ss, int capacity,
   const T* h_arg = static_cast<const T*>(h);
   const T* fz_arg = static_cast<const T*>(fz);
   T rtol_arg = static_cast<T>(rtol), atol_arg = static_cast<T>(atol);
+  Stim stim_arg = stim;
   void* args[] = {&y_arg, &ynew_arg, &ss_arg, &work_arg, &h_arg, &fz_arg,
-                  &c, &tab, &rtol_arg, &atol_arg};
+                  &c, &tab, &rtol_arg, &atol_arg, &stim_arg};
   const size_t n_points = static_cast<size_t>(nz) * ny * nx;
   return crd::dispatch_box(mode, kinetics, [&](auto m, auto k) {
     return crd::launch_cooperative(
-        &fused_box3d_step_kernel<decltype(m)::value, decltype(k)::value, T>,
+        &fused_box3d_step_kernel<decltype(m)::value, decltype(k)::value, T,
+                                 Stim>,
         n_points, capacity, n_blocks, args, stream);
   });
 }
 
+// The forced launches, defined in fused_box3d_forced.cu.
+int launch_forced(CRD_FUSED_BOX3D_ARGS,
+                  const crd::BoxStimTable<float>& stim);
+int launch_forced(CRD_FUSED_BOX3D_ARGS,
+                  const crd::BoxStimTable<double>& stim);
+
+}  // namespace crd_k6
+
+#ifndef CRD_BOX_FORCED_UNIT
+
+namespace {
+
+// The launch of a step with or without a forcing: n_cols must be the
+// tableau's stage count.
+template <typename T>
+int launch(CRD_FUSED_BOX3D_ARGS, CRD_BOX_STIM_ARGS) {
+  return crd::with_box_stim<T>(
+      CRD_BOX_STIM_PASS, n_cols == n_stages, nz, ny, nx, [&](auto stim) {
+        if constexpr (decltype(stim)::kOn)
+          return crd_k6::launch_forced(CRD_FUSED_BOX3D_PASS, stim);
+        else
+          return crd_k6::launch_stim<T>(CRD_FUSED_BOX3D_PASS, stim);
+      });
+}
+
 }  // namespace
 
-// tile_y and z_chunk: the stream scheme's plan (ops/box_stream.py::
-// stream_plan), unused by the persistent one; work: the persistent
-// scheme's scratch, unused by the stream one
-#define CRD_FUSED_BOX3D_ARGS                                                 \
-  const void *y, void *y_new, void *ss, int capacity, int *n_blocks,        \
-      void *work, const void *h, const void *fz, int n_stages,              \
-      const double *a, const double *b, const double *d, int tile_y,        \
-      int z_chunk, CRD_BOX_OPERATOR_ARGS
-#define CRD_FUSED_BOX3D_PASS                                                 \
-  y, y_new, ss, capacity, n_blocks, work, h, fz, n_stages, a, b, d, tile_y, \
-      z_chunk, CRD_BOX_OPERATOR_PASS
-
-extern "C" int crd_fused_box3d_step_f32(CRD_FUSED_BOX3D_ARGS) {
-  return launch<float>(CRD_FUSED_BOX3D_PASS);
+extern "C" int crd_fused_box3d_step_f32(CRD_FUSED_BOX3D_ARGS,
+                                        CRD_BOX_STIM_ARGS) {
+  return launch<float>(CRD_FUSED_BOX3D_PASS, CRD_BOX_STIM_PASS);
 }
 
-extern "C" int crd_fused_box3d_step_f64(CRD_FUSED_BOX3D_ARGS) {
-  return launch<double>(CRD_FUSED_BOX3D_PASS);
+extern "C" int crd_fused_box3d_step_f64(CRD_FUSED_BOX3D_ARGS,
+                                        CRD_BOX_STIM_ARGS) {
+  return launch<double>(CRD_FUSED_BOX3D_PASS, CRD_BOX_STIM_PASS);
 }
 
-// The stream kernel of (mode, kinetics) on the whole box: out[0]
+// The unforced stream kernel of (mode, kinetics) on the whole box: out[0]
 // blocks an SM, out[1] registers a thread, out[2] shared bytes a block
 // (ops/box_stream.py::kernel_info).
 extern "C" int crd_fused_box3d_info(int f64, int mode, int kinetics,
@@ -177,3 +219,5 @@ extern "C" int crd_fused_box3d_info(int f64, int mode, int kinetics,
              : crd::stream_kernel_info<float, crd::StreamWrap>(
                    mode, kinetics, out);
 }
+
+#endif  // CRD_BOX_FORCED_UNIT

@@ -35,13 +35,36 @@
 // state sweeps a step where the bound is 2, one partial sum a resident
 // block. The TPU kernel's stage cap (ops/fused_box3d_rkc.py C_RKC = 7) is
 // this kernel's too: two chunks of four. No tensor cores or TMA.
+//
+// A structured forcing (pallas_box3d_rkc.py:176-208, 605-622) comes in as
+// K2's does (fused_rkc.cu) with K6's depth table (fused_box3d.cu): one
+// amplitude column when every stimulus is segment-gated, else one a
+// Chebyshev stage time of this step's s (C_RKC + 2 columns, computed on the
+// device from the s the launch reads); evaluation e at plane k adds
+// ((amps[j][a] * z[j][k]) * rows[j][r]) * cols[j][c], a =
+// rhs_common.cuh::rkc_amp_column(e), before the live factor and the tissue
+// field, in both schemes (in the chunk kernel at the plane p - i that
+// evaluation i of the chunk reaches in iteration p). The forced
+// instantiations are compiled apart, in fused_box3d_rkc_forced.cu.
 
 #include <cuda_runtime.h>
 
 #include "box3d.cuh"
 #include "box_rkc_stream.cuh"
 
-namespace {
+// min_tiles: the stream scheme's blocks a launch should reach
+// (ops/box_stream.py RKC_MIN_TILES), unused by the persistent one; work:
+// three states of y's shape
+#define CRD_FUSED_BOX3D_RKC_ARGS                                             \
+  const void *y, void *y_new, void *ss, int capacity, int *n_blocks,        \
+      void *work, const void *h, const void *fz, const void *s,             \
+      const void *mu1_tab, const void *ctab, int s_cap, int min_tiles,      \
+      CRD_BOX_OPERATOR_ARGS
+#define CRD_FUSED_BOX3D_RKC_PASS                                             \
+  y, y_new, ss, capacity, n_blocks, work, h, fz, s, mu1_tab, ctab, s_cap,   \
+      min_tiles, CRD_BOX_OPERATOR_PASS
+
+namespace crd_k7 {
 
 using crd::BoxConstants;
 using crd::kBoxThreads;
@@ -49,13 +72,13 @@ using crd::kBoxThreads;
 constexpr int kMaxStages = 23;    // ops/fused_rkc.py S_MAX_KERNEL: ctab rows
 
 // The persistent scheme's step.
-template <int Mode, int Kin, typename T>
+template <int Mode, int Kin, typename T, class Stim>
 __global__ void __launch_bounds__(kBoxThreads) fused_box3d_rkc_kernel(
     const T* __restrict__ y, T* __restrict__ y_new, T* __restrict__ ss,
     T* work, const T* __restrict__ h_ptr, const T* __restrict__ fz_ptr,
     const int* __restrict__ s_ptr, const T* __restrict__ mu1_tab,
     const T* __restrict__ ctab, int s_cap, BoxConstants<T> c, T rtol,
-    T atol) {
+    T atol, Stim stim) {
   __shared__ T warp_sums[kBoxThreads / 32];
   const size_t n = static_cast<size_t>(c.nz) * c.ny * c.nx;
   const size_t first = static_cast<size_t>(blockIdx.x) * blockDim.x
@@ -79,7 +102,7 @@ __global__ void __launch_bounds__(kBoxThreads) fused_box3d_rkc_kernel(
   const T hmu1 = h * mu1_tab[s];
   for (size_t g = first; g < n; g += stride) {
     T du, dv;
-    crd::box_rhs<Mode, Kin>(c, fz, y, y + n, g, du, dv);
+    crd::box_rhs<Mode, Kin>(c, fz, stim, 0, y, y + n, g, du, dv);
     f0[g] = du;
     f0[n + g] = dv;
     ya[g] = y[g] + hmu1 * du;
@@ -96,9 +119,10 @@ __global__ void __launch_bounds__(kBoxThreads) fused_box3d_rkc_kernel(
     const T mut = row[4 * j + 2], gt = row[4 * j + 3];
     const T cy0 = T(1) - mu - nu;
     const T hmut = h * mut, hgt = h * gt;
+    const int a = crd::box_rkc_column(stim, j - 1);    // f(Yj-1)
     for (size_t g = first; g < n; g += stride) {
       T fu, fv;
-      crd::box_rhs<Mode, Kin>(c, fz, cur, cur + n, g, fu, fv);
+      crd::box_rhs<Mode, Kin>(c, fz, stim, a, cur, cur + n, g, fu, fv);
       const T yju = cy0 * y[g] + mu * cur[g] + nu * prev[g] + hmut * fu
                     + hgt * f0[g];
       const T yjv = cy0 * y[n + g] + mu * cur[n + g] + nu * prev[n + g]
@@ -115,10 +139,11 @@ __global__ void __launch_bounds__(kBoxThreads) fused_box3d_rkc_kernel(
 
   // F1 = f(y_new), y_new and the error; WRMS weights from the step's start
   const T h04 = T(0.4) * h;
+  const int a1 = crd::box_rkc_column(stim, s);
   T acc = T(0);
   for (size_t g = first; g < n; g += stride) {
     T f1u, f1v;
-    crd::box_rhs<Mode, Kin>(c, fz, cur, cur + n, g, f1u, f1v);
+    crd::box_rhs<Mode, Kin>(c, fz, stim, a1, cur, cur + n, g, f1u, f1v);
     const T yu = cur[g], yv = cur[n + g];
     const T u0 = y[g], v0 = y[n + g];
     y_new[g] = yu;
@@ -133,11 +158,9 @@ __global__ void __launch_bounds__(kBoxThreads) fused_box3d_rkc_kernel(
   crd::store_block_sum<T, kBoxThreads>(acc, warp_sums, ss);
 }
 
-template <typename T>
-int launch(const void* y, void* y_new, void* ss, int capacity,
-           int* n_blocks, void* work, const void* h, const void* fz,
-           const void* s, const void* mu1_tab, const void* ctab, int s_cap,
-           int min_tiles, CRD_BOX_OPERATOR_ARGS) {
+// One step with the forcing `stim` (NoStim: none), in the mode's scheme.
+template <typename T, class Stim>
+int launch_stim(CRD_FUSED_BOX3D_RKC_ARGS, const Stim& stim) {
   BoxConstants<T> c;
   const void* const coeffs[6] = {c0, c1, c2, c3, c4, c5};
   if (s_cap < 2 || s_cap > crd::kRkcStreamStages
@@ -149,7 +172,7 @@ int launch(const void* y, void* y_new, void* ss, int capacity,
     return crd::launch_box_rkc_stream<T>(
         c, crd::StreamWrap{ny, nx}, mode, kinetics, y, y_new, ss, capacity,
         n_blocks, work, h, fz, s, mu1_tab, ctab, s_cap, min_tiles, rtol,
-        atol, stream);
+        atol, stream, stim);
   const T* y_arg = static_cast<const T*>(y);
   T* ynew_arg = static_cast<T*>(y_new);
   T* ss_arg = static_cast<T*>(ss);
@@ -160,42 +183,60 @@ int launch(const void* y, void* y_new, void* ss, int capacity,
   const T* mu1_arg = static_cast<const T*>(mu1_tab);
   const T* ctab_arg = static_cast<const T*>(ctab);
   T rtol_arg = static_cast<T>(rtol), atol_arg = static_cast<T>(atol);
+  Stim stim_arg = stim;
   void* args[] = {&y_arg, &ynew_arg, &ss_arg, &work_arg, &h_arg,
                   &fz_arg, &s_arg, &mu1_arg, &ctab_arg, &s_cap,
-                  &c, &rtol_arg, &atol_arg};
+                  &c, &rtol_arg, &atol_arg, &stim_arg};
   const size_t n_points = static_cast<size_t>(nz) * ny * nx;
   return crd::dispatch_box(mode, kinetics, [&](auto m, auto k) {
     return crd::launch_cooperative(
-        &fused_box3d_rkc_kernel<decltype(m)::value, decltype(k)::value, T>,
+        &fused_box3d_rkc_kernel<decltype(m)::value, decltype(k)::value, T,
+                                Stim>,
         n_points, capacity, n_blocks, args, stream);
   });
 }
 
+// The forced launches, defined in fused_box3d_rkc_forced.cu.
+int launch_forced(CRD_FUSED_BOX3D_RKC_ARGS,
+                  const crd::BoxStimTable<float>& stim);
+int launch_forced(CRD_FUSED_BOX3D_RKC_ARGS,
+                  const crd::BoxStimTable<double>& stim);
+
+}  // namespace crd_k7
+
+#ifndef CRD_BOX_FORCED_UNIT
+
+namespace {
+
+// The launch of a step with or without a forcing: n_cols must be 1 (every
+// stimulus segment-gated) or s_cap + 2 (a column a stage time).
+template <typename T>
+int launch(CRD_FUSED_BOX3D_RKC_ARGS, CRD_BOX_STIM_ARGS) {
+  return crd::with_box_stim<T>(
+      CRD_BOX_STIM_PASS, n_cols == 1 || n_cols == s_cap + 2, nz, ny, nx,
+      [&](auto stim) {
+        if constexpr (decltype(stim)::kOn)
+          return crd_k7::launch_forced(CRD_FUSED_BOX3D_RKC_PASS, stim);
+        else
+          return crd_k7::launch_stim<T>(CRD_FUSED_BOX3D_RKC_PASS, stim);
+      });
+}
+
 }  // namespace
 
-// min_tiles: the stream scheme's blocks a launch should reach
-// (ops/box_stream.py RKC_MIN_TILES), unused by the persistent one; work:
-// three states of y's shape
-#define CRD_FUSED_BOX3D_RKC_ARGS                                             \
-  const void *y, void *y_new, void *ss, int capacity, int *n_blocks,        \
-      void *work, const void *h, const void *fz, const void *s,             \
-      const void *mu1_tab, const void *ctab, int s_cap, int min_tiles,      \
-      CRD_BOX_OPERATOR_ARGS
-#define CRD_FUSED_BOX3D_RKC_PASS                                             \
-  y, y_new, ss, capacity, n_blocks, work, h, fz, s, mu1_tab, ctab, s_cap,   \
-      min_tiles, CRD_BOX_OPERATOR_PASS
-
-extern "C" int crd_fused_box3d_rkc_step_f32(CRD_FUSED_BOX3D_RKC_ARGS) {
-  return launch<float>(CRD_FUSED_BOX3D_RKC_PASS);
+extern "C" int crd_fused_box3d_rkc_step_f32(CRD_FUSED_BOX3D_RKC_ARGS,
+                                            CRD_BOX_STIM_ARGS) {
+  return launch<float>(CRD_FUSED_BOX3D_RKC_PASS, CRD_BOX_STIM_PASS);
 }
 
-extern "C" int crd_fused_box3d_rkc_step_f64(CRD_FUSED_BOX3D_RKC_ARGS) {
-  return launch<double>(CRD_FUSED_BOX3D_RKC_PASS);
+extern "C" int crd_fused_box3d_rkc_step_f64(CRD_FUSED_BOX3D_RKC_ARGS,
+                                            CRD_BOX_STIM_ARGS) {
+  return launch<double>(CRD_FUSED_BOX3D_RKC_PASS, CRD_BOX_STIM_PASS);
 }
 
-// The stream scheme's kernel of (mode, kinetics) on the whole box: out[0]
-// blocks an SM, out[1] registers a thread, out[2] shared bytes a block
-// (ops/box_stream.py::kernel_info).
+// The unforced stream scheme's kernel of (mode, kinetics) on the whole box:
+// out[0] blocks an SM, out[1] registers a thread, out[2] shared bytes a
+// block (ops/box_stream.py::kernel_info).
 extern "C" int crd_fused_box3d_rkc_info(int f64, int mode, int kinetics,
                                         int* out) {
   return f64 ? crd::rkc_stream_kernel_info<double, crd::StreamWrap>(
@@ -203,3 +244,5 @@ extern "C" int crd_fused_box3d_rkc_info(int f64, int mode, int kinetics,
              : crd::rkc_stream_kernel_info<float, crd::StreamWrap>(
                    mode, kinetics, out);
 }
+
+#endif  // CRD_BOX_FORCED_UNIT

@@ -55,8 +55,9 @@
 
 namespace {
 
+// the launch on the plan's 32 x tile_y tiles
 template <typename T, class Stim>
-int launch_with(const crd::WrapGrid& grid, const void* y, void* y_new,
+int launch_plan(const crd::WrapGrid& grid, const void* y, void* y_new,
                 void* ss, const void* h, const void* fz,
                 const crd::RhsConstants<T>& k, int kinetics, int ny, int nx,
                 int tile_y, const crd::ImexTable& tab, double rtol,
@@ -92,16 +93,12 @@ int launch(const void* y, void* y_new, void* ss, const void* h,
   const crd::ImexTable tab = crd::make_imex_table(ae, ai, b, d, gamma);
   if (tile_x != crd::kImexTile)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n_stim == 0)
-    return launch_with<T>(grid, y, y_new, ss, h, fz, k, kinetics, ny, nx,
-                          tile_y, tab, rtol, atol, stream, crd::NoStim{});
-  crd::StimTable<T> stim;
-  if (n_cols != crd::kImexStages
-      || !crd::make_stim_table(amps, rows, cols, n_stim, n_cols, var1, ny,
-                               nx, &stim))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch_with<T>(grid, y, y_new, ss, h, fz, k, kinetics, ny, nx,
-                        tile_y, tab, rtol, atol, stream, stim);
+  return crd::with_stim<T>(
+      amps, rows, cols, n_stim, n_cols, var1, n_cols == crd::kImexStages,
+      ny, nx, [&](auto stim) {
+        return launch_plan<T>(grid, y, y_new, ss, h, fz, k, kinetics, ny,
+                              nx, tile_y, tab, rtol, atol, stream, stim);
+      });
 }
 
 // crd::imex_slots_info of the kernel of `kinetics` on 32 x tile_y tiles

@@ -52,7 +52,7 @@
 // constant over the step), else one column per stage time of the JAX
 // package's with_times table (S_MAX_KERNEL + 2), the Chebyshev stage
 // times of this step's s, indexed by the step's evaluation, not by its
-// place in its chunk (rkc_chunk.cuh::rkc_amp_column). Evaluation e adds
+// place in its chunk (rhs_common.cuh::rkc_amp_column). Evaluation e adds
 // (amps[j][a] * rows[j][r]) * cols[j][c] before the live factor and the
 // tissue field, in both branches. The JAX package declines forcing on
 // its column-blocked K2b layout (pallas_rkc.py:230-234); this kernel has
@@ -75,17 +75,12 @@ using crd::WrapGrid;
 template <typename T, class F>
 int dispatch(const crd::RhsConstants<T>& k, const crd::FaceConstants<T>& f,
              const WrapGrid& wg, int kinetics, F go) {
-  const auto pick = [&](auto kin) {
+  return crd::with_kinetics(kinetics, [&](auto kin) {
     constexpr int Kin = decltype(kin)::value;
     if (f.aE != nullptr)
       return go(crd::DivformRhs<Kin, T, WrapGrid>{f, k, wg});
     return go(crd::ProfileRhs<Kin, T>{k});
-  };
-  if (kinetics == crd::kFhn)
-    return pick(std::integral_constant<int, crd::kFhn>{});
-  if (kinetics == crd::kGoldbeter)
-    return pick(std::integral_constant<int, crd::kGoldbeter>{});
-  return pick(std::integral_constant<int, crd::kAlievPanfilov>{});
+  });
 }
 
 // amps, rows, cols, n_stim, n_cols, var1: the structured forcing
@@ -117,22 +112,16 @@ int launch(const void* y, void* y_new, void* ss, void* work, const void* h,
   const int n_tiles = tiles_x * ((ny + crd::kRkcTile - 1) / crd::kRkcTile);
   const crd::RkcPlan plan = {ny,      nx,      crd::kRkcTile, crd::kRkcTile,
                              tiles_x, n_tiles};
-  if (n_stim == 0)
-    return dispatch<T>(k, f, wg, kinetics, [&](auto rhs) {
-      return crd::launch_rkc_chunk<decltype(rhs), WrapGrid, T>(
-          rhs, wg, plan, n_tiles, y, y_new, ss, work, h, fz, s, mu1_tab,
-          ctab, s_cap, rtol, atol, stream);
-    });
-  crd::StimTable<T> stim;
-  if ((n_cols != 1 && n_cols != crd::kRkcMaxStages + 2)
-      || !crd::make_stim_table(amps, rows, cols, n_stim, n_cols, var1, ny,
-                               nx, &stim))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch<T>(k, f, wg, kinetics, [&](auto rhs) {
-    return crd::launch_rkc_chunk<decltype(rhs), WrapGrid, T>(
-        rhs, wg, plan, n_tiles, y, y_new, ss, work, h, fz, s, mu1_tab, ctab,
-        s_cap, rtol, atol, stream, stim);
-  });
+  return crd::with_stim<T>(
+      amps, rows, cols, n_stim, n_cols, var1,
+      n_cols == 1 || n_cols == crd::kRkcMaxStages + 2, ny, nx,
+      [&](auto stim) {
+        return dispatch<T>(k, f, wg, kinetics, [&](auto rhs) {
+          return crd::launch_rkc_chunk<decltype(rhs), WrapGrid, T>(
+              rhs, wg, plan, n_tiles, y, y_new, ss, work, h, fz, s, mu1_tab,
+              ctab, s_cap, rtol, atol, stream, stim);
+        });
+      });
 }
 
 // out[0] the resident blocks an SM, out[1] the registers a thread, out[2]

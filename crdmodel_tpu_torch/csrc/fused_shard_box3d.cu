@@ -43,6 +43,16 @@
 // stages; the rings cost (nxl + 2r)(nyl + 2r) / (nxl nyl) of the block's
 // work, about 1.1x at the slab's shard. The TPU kernel's row strips and
 // DMA semaphores have no place here.
+//
+// A structured forcing (pallas_shard_box3d.py:196-213, 445-453, 723-724)
+// comes in as K6's does (fused_box3d.cu): the step's amplitude table,
+// computed once on the control device, each stimulus's row and column
+// profiles halo-padded to the shard's buffer (ops/kernel_common.py::
+// prepare_shard_stim_constants: the exchange's values, and on a padded mesh
+// the mirror-pad cells' sources') and the whole box's depth table, z not
+// being sharded. A point reads them at the buffer's (k, j, i) its state
+// comes from (rhs_common.cuh::BoxStimTable). The forced instantiations are
+// compiled apart, in fused_shard_box3d_forced.cu.
 
 #include <cuda_runtime.h>
 
@@ -50,7 +60,17 @@
 #include "box_stream.cuh"
 #include "erk_tile.cuh"
 
-namespace {
+#define CRD_FUSED_SHARD_BOX3D_ARGS                                           \
+  const void *y, void *y_new, void *ss, int capacity, int *n_blocks,        \
+      void *work, const void *h, const void *fz, int n_stages,              \
+      const double *a, const double *b, const double *d, int halo,          \
+      int valid_rows, int valid_cols, int tile_y, int z_chunk,              \
+      CRD_BOX_OPERATOR_ARGS
+#define CRD_FUSED_SHARD_BOX3D_PASS                                           \
+  y, y_new, ss, capacity, n_blocks, work, h, fz, n_stages, a, b, d, halo,   \
+      valid_rows, valid_cols, tile_y, z_chunk, CRD_BOX_OPERATOR_PASS
+
+namespace crd_k12 {
 
 using crd::BoxConstants;
 using crd::BoxHalo;
@@ -59,11 +79,12 @@ using crd::BoxShard;
 using crd::StageTable;
 using crd::kBoxThreads;
 
-template <int Mode, int Kin, typename T>
+template <int Mode, int Kin, typename T, class Stim>
 __global__ void __launch_bounds__(kBoxThreads) fused_shard_box3d_kernel(
     const T* __restrict__ y, T* __restrict__ y_new, T* __restrict__ ss,
     T* work, const T* __restrict__ h_ptr, const T* __restrict__ fz_ptr,
-    BoxConstants<T> c, StageTable tab, BoxShard sh, T rtol, T atol) {
+    BoxConstants<T> c, StageTable tab, BoxShard sh, T rtol, T atol,
+    Stim stim) {
   __shared__ T warp_sums[kBoxThreads / 32];
   crd::cg::grid_group grid = crd::cg::this_grid();
   const size_t n = static_cast<size_t>(c.nz) * c.ny * c.nx;   // the buffer
@@ -104,8 +125,8 @@ __global__ void __launch_bounds__(kBoxThreads) fused_shard_box3d_kernel(
       int k, j, i;
       out.point(q, k, j, i);
       const size_t g = c.at(k, j, i);
-      crd::box_rhs_at<Mode, Kin, BoxHalo>(c, fz, arg, arg + n, k, j, i, g,
-                                          ku[g], ku[n + g]);
+      crd::box_rhs_at<Mode, Kin, BoxHalo>(c, fz, stim, s, arg, arg + n, k, j,
+                                          i, g, ku[g], ku[n + g]);
     }
     grid.sync();
   }
@@ -145,12 +166,9 @@ __global__ void __launch_bounds__(kBoxThreads) fused_shard_box3d_kernel(
   crd::store_block_sum<T, kBoxThreads>(acc, warp_sums, ss);
 }
 
-template <typename T>
-int launch(const void* y, void* y_new, void* ss, int capacity,
-           int* n_blocks, void* work, const void* h, const void* fz,
-           int n_stages, const double* a, const double* b, const double* d,
-           int halo, int valid_rows, int valid_cols, int tile_y,
-           int z_chunk, CRD_BOX_OPERATOR_ARGS) {
+// One step with the forcing `stim` (NoStim: none), in either scheme.
+template <typename T, class Stim>
+int launch_stim(CRD_FUSED_SHARD_BOX3D_ARGS, const Stim& stim) {
   StageTable tab;
   BoxConstants<T> c;
   BoxShard sh;
@@ -166,7 +184,7 @@ int launch(const void* y, void* y_new, void* ss, int capacity,
     return crd::launch_box_stream<T>(c, crd::StreamHalo{sh, ny, nx}, mode,
                                      kinetics, y, y_new, ss, capacity,
                                      n_blocks, h, fz, tab, tile_y, z_chunk,
-                                     rtol, atol, stream);
+                                     rtol, atol, stream, stim);
   const T* y_arg = static_cast<const T*>(y);
   T* ynew_arg = static_cast<T*>(y_new);
   T* ss_arg = static_cast<T*>(ss);
@@ -174,37 +192,57 @@ int launch(const void* y, void* y_new, void* ss, int capacity,
   const T* h_arg = static_cast<const T*>(h);
   const T* fz_arg = static_cast<const T*>(fz);
   T rtol_arg = static_cast<T>(rtol), atol_arg = static_cast<T>(atol);
+  Stim stim_arg = stim;
   void* args[] = {&y_arg, &ynew_arg, &ss_arg, &work_arg, &h_arg, &fz_arg,
-                  &c, &tab, &sh, &rtol_arg, &atol_arg};
+                  &c, &tab, &sh, &rtol_arg, &atol_arg, &stim_arg};
   const size_t n_points = static_cast<size_t>(nz) * ny * nx;
   return crd::dispatch_box(mode, kinetics, [&](auto m, auto k) {
     return crd::launch_cooperative(
-        &fused_shard_box3d_kernel<decltype(m)::value, decltype(k)::value, T>,
+        &fused_shard_box3d_kernel<decltype(m)::value, decltype(k)::value, T,
+                                  Stim>,
         n_points, capacity, n_blocks, args, stream);
   });
 }
 
+// The forced launches, defined in fused_shard_box3d_forced.cu.
+int launch_forced(CRD_FUSED_SHARD_BOX3D_ARGS,
+                  const crd::BoxStimTable<float>& stim);
+int launch_forced(CRD_FUSED_SHARD_BOX3D_ARGS,
+                  const crd::BoxStimTable<double>& stim);
+
+}  // namespace crd_k12
+
+#ifndef CRD_BOX_FORCED_UNIT
+
+namespace {
+
+// The launch of a step with or without a forcing, whose profiles are
+// halo-padded to the buffer (ny x nx): n_cols must be the tableau's stage
+// count.
+template <typename T>
+int launch(CRD_FUSED_SHARD_BOX3D_ARGS, CRD_BOX_STIM_ARGS) {
+  return crd::with_box_stim<T>(
+      CRD_BOX_STIM_PASS, n_cols == n_stages, nz, ny, nx, [&](auto stim) {
+        if constexpr (decltype(stim)::kOn)
+          return crd_k12::launch_forced(CRD_FUSED_SHARD_BOX3D_PASS, stim);
+        else
+          return crd_k12::launch_stim<T>(CRD_FUSED_SHARD_BOX3D_PASS, stim);
+      });
+}
+
 }  // namespace
 
-#define CRD_FUSED_SHARD_BOX3D_ARGS                                           \
-  const void *y, void *y_new, void *ss, int capacity, int *n_blocks,        \
-      void *work, const void *h, const void *fz, int n_stages,              \
-      const double *a, const double *b, const double *d, int halo,          \
-      int valid_rows, int valid_cols, int tile_y, int z_chunk,              \
-      CRD_BOX_OPERATOR_ARGS
-#define CRD_FUSED_SHARD_BOX3D_PASS                                           \
-  y, y_new, ss, capacity, n_blocks, work, h, fz, n_stages, a, b, d, halo,   \
-      valid_rows, valid_cols, tile_y, z_chunk, CRD_BOX_OPERATOR_PASS
-
-extern "C" int crd_fused_shard_box3d_step_f32(CRD_FUSED_SHARD_BOX3D_ARGS) {
-  return launch<float>(CRD_FUSED_SHARD_BOX3D_PASS);
+extern "C" int crd_fused_shard_box3d_step_f32(CRD_FUSED_SHARD_BOX3D_ARGS,
+                                              CRD_BOX_STIM_ARGS) {
+  return launch<float>(CRD_FUSED_SHARD_BOX3D_PASS, CRD_BOX_STIM_PASS);
 }
 
-extern "C" int crd_fused_shard_box3d_step_f64(CRD_FUSED_SHARD_BOX3D_ARGS) {
-  return launch<double>(CRD_FUSED_SHARD_BOX3D_PASS);
+extern "C" int crd_fused_shard_box3d_step_f64(CRD_FUSED_SHARD_BOX3D_ARGS,
+                                              CRD_BOX_STIM_ARGS) {
+  return launch<double>(CRD_FUSED_SHARD_BOX3D_PASS, CRD_BOX_STIM_PASS);
 }
 
-// The stream kernel of (mode, kinetics) on a shard's buffer:
+// The unforced stream kernel of (mode, kinetics) on a shard's buffer:
 // out[0] blocks an SM, out[1] registers a thread, out[2] shared bytes a
 // block (ops/box_stream.py::kernel_info).
 extern "C" int crd_fused_shard_box3d_info(int f64, int mode, int kinetics,
@@ -214,3 +252,5 @@ extern "C" int crd_fused_shard_box3d_info(int f64, int mode, int kinetics,
              : crd::stream_kernel_info<float, crd::StreamHalo>(
                    mode, kinetics, out);
 }
+
+#endif  // CRD_BOX_FORCED_UNIT

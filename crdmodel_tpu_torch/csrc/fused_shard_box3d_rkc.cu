@@ -43,13 +43,29 @@
 // states of the buffer's size, a grid barrier between stages; Yj
 // overwrites Yj-2 in place (a point reads Yj-2 only at itself, and Yj's
 // rings lie inside Yj-2's). No tensor cores or TMA.
+//
+// A structured forcing (pallas_shard_box3d_rkc.py:166-181, 716-722) comes
+// in as K7's does (fused_box3d_rkc.cu), its table of one or s_cap + 2
+// columns computed once a step on the control device from the s every
+// shard runs, with K12's profiles halo-padded to the buffer and the whole
+// box's depth table (fused_shard_box3d.cu). The forced instantiations are
+// compiled apart, in fused_shard_box3d_rkc_forced.cu.
 
 #include <cuda_runtime.h>
 
 #include "box3d.cuh"
 #include "box_rkc_stream.cuh"
 
-namespace {
+#define CRD_FUSED_SHARD_BOX3D_RKC_ARGS                                       \
+  const void *y, void *y_new, void *ss, int capacity, int *n_blocks,        \
+      void *work, const void *h, const void *fz, const void *s,             \
+      const void *mu1_tab, const void *ctab, int s_cap, int min_tiles,      \
+      int halo, int valid_rows, int valid_cols, CRD_BOX_OPERATOR_ARGS
+#define CRD_FUSED_SHARD_BOX3D_RKC_PASS                                       \
+  y, y_new, ss, capacity, n_blocks, work, h, fz, s, mu1_tab, ctab, s_cap,   \
+      min_tiles, halo, valid_rows, valid_cols, CRD_BOX_OPERATOR_PASS
+
+namespace crd_k13 {
 
 using crd::BoxConstants;
 using crd::BoxHalo;
@@ -60,13 +76,13 @@ using crd::kBoxThreads;
 constexpr int kMaxStages = 23;    // ops/fused_rkc.py S_MAX_KERNEL: ctab rows
 
 // The persistent scheme's step.
-template <int Mode, int Kin, typename T>
+template <int Mode, int Kin, typename T, class Stim>
 __global__ void __launch_bounds__(kBoxThreads) fused_shard_box3d_rkc_kernel(
     const T* __restrict__ y, T* __restrict__ y_new, T* __restrict__ ss,
     T* work, const T* __restrict__ h_ptr, const T* __restrict__ fz_ptr,
     const int* __restrict__ s_ptr, const T* __restrict__ mu1_tab,
     const T* __restrict__ ctab, int s_cap, BoxConstants<T> c, BoxShard sh,
-    T rtol, T atol) {
+    T rtol, T atol, Stim stim) {
   __shared__ T warp_sums[kBoxThreads / 32];
   const size_t n = static_cast<size_t>(c.nz) * c.ny * c.nx;   // the buffer
   const size_t first = static_cast<size_t>(blockIdx.x) * blockDim.x
@@ -94,7 +110,8 @@ __global__ void __launch_bounds__(kBoxThreads) fused_shard_box3d_rkc_kernel(
     first_stage.point(q, k, j, i);
     const size_t g = c.at(k, j, i);
     T du, dv;
-    crd::box_rhs_at<Mode, Kin, BoxHalo>(c, fz, y, y + n, k, j, i, g, du, dv);
+    crd::box_rhs_at<Mode, Kin, BoxHalo>(c, fz, stim, 0, y, y + n, k, j, i, g,
+                                        du, dv);
     f0[g] = du;
     f0[n + g] = dv;
     ya[g] = y[g] + hmu1 * du;
@@ -111,14 +128,15 @@ __global__ void __launch_bounds__(kBoxThreads) fused_shard_box3d_rkc_kernel(
     const T mut = row[4 * st + 2], gt = row[4 * st + 3];
     const T cy0 = T(1) - mu - nu;
     const T hmut = h * mut, hgt = h * gt;
+    const int a = crd::box_rkc_column(stim, st - 1);    // f(Yst-1)
     const BoxRing stage(sh, c.nz, s + 1 - st);
     for (size_t q = first; q < stage.size(); q += stride) {
       int k, j, i;
       stage.point(q, k, j, i);
       const size_t g = c.at(k, j, i);
       T fu, fv;
-      crd::box_rhs_at<Mode, Kin, BoxHalo>(c, fz, cur, cur + n, k, j, i, g,
-                                          fu, fv);
+      crd::box_rhs_at<Mode, Kin, BoxHalo>(c, fz, stim, a, cur, cur + n, k, j,
+                                          i, g, fu, fv);
       const T yju = cy0 * y[g] + mu * cur[g] + nu * prev[g] + hmut * fu
                     + hgt * f0[g];
       const T yjv = cy0 * y[n + g] + mu * cur[n + g] + nu * prev[n + g]
@@ -136,6 +154,7 @@ __global__ void __launch_bounds__(kBoxThreads) fused_shard_box3d_rkc_kernel(
   // F1 = f(y_new), y_new on the block and the error on its physical cells;
   // WRMS weights from the step's start
   const T h04 = T(0.4) * h;
+  const int a1 = crd::box_rkc_column(stim, s);
   T acc = T(0);
   const BoxRing block(sh, c.nz, 0);
   for (size_t q = first; q < block.size(); q += stride) {
@@ -143,8 +162,8 @@ __global__ void __launch_bounds__(kBoxThreads) fused_shard_box3d_rkc_kernel(
     block.point(q, k, j, i);
     const size_t g = c.at(k, j, i);
     T f1u, f1v;
-    crd::box_rhs_at<Mode, Kin, BoxHalo>(c, fz, cur, cur + n, k, j, i, g,
-                                        f1u, f1v);
+    crd::box_rhs_at<Mode, Kin, BoxHalo>(c, fz, stim, a1, cur, cur + n, k, j,
+                                        i, g, f1u, f1v);
     const T yu = cur[g], yv = cur[n + g];
     const T u0 = y[g], v0 = y[n + g];
     y_new[g] = yu;
@@ -161,12 +180,9 @@ __global__ void __launch_bounds__(kBoxThreads) fused_shard_box3d_rkc_kernel(
   crd::store_block_sum<T, kBoxThreads>(acc, warp_sums, ss);
 }
 
-template <typename T>
-int launch(const void* y, void* y_new, void* ss, int capacity,
-           int* n_blocks, void* work, const void* h, const void* fz,
-           const void* s, const void* mu1_tab, const void* ctab, int s_cap,
-           int min_tiles, int halo, int valid_rows, int valid_cols,
-           CRD_BOX_OPERATOR_ARGS) {
+// One step with the forcing `stim` (NoStim: none), in the mode's scheme.
+template <typename T, class Stim>
+int launch_stim(CRD_FUSED_SHARD_BOX3D_RKC_ARGS, const Stim& stim) {
   BoxConstants<T> c;
   BoxShard sh;
   const void* const coeffs[6] = {c0, c1, c2, c3, c4, c5};
@@ -181,7 +197,7 @@ int launch(const void* y, void* y_new, void* ss, int capacity,
     return crd::launch_box_rkc_stream<T>(
         c, crd::StreamHalo{sh, ny, nx}, mode, kinetics, y, y_new, ss,
         capacity, n_blocks, work, h, fz, s, mu1_tab, ctab, s_cap, min_tiles,
-        rtol, atol, stream);
+        rtol, atol, stream, stim);
   const T* y_arg = static_cast<const T*>(y);
   T* ynew_arg = static_cast<T*>(y_new);
   T* ss_arg = static_cast<T*>(ss);
@@ -192,42 +208,59 @@ int launch(const void* y, void* y_new, void* ss, int capacity,
   const T* mu1_arg = static_cast<const T*>(mu1_tab);
   const T* ctab_arg = static_cast<const T*>(ctab);
   T rtol_arg = static_cast<T>(rtol), atol_arg = static_cast<T>(atol);
+  Stim stim_arg = stim;
   void* args[] = {&y_arg, &ynew_arg, &ss_arg, &work_arg, &h_arg,
                   &fz_arg, &s_arg, &mu1_arg, &ctab_arg, &s_cap,
-                  &c, &sh, &rtol_arg, &atol_arg};
+                  &c, &sh, &rtol_arg, &atol_arg, &stim_arg};
   const size_t n_points = static_cast<size_t>(nz) * ny * nx;
   return crd::dispatch_box(mode, kinetics, [&](auto m, auto k) {
     return crd::launch_cooperative(
         &fused_shard_box3d_rkc_kernel<decltype(m)::value, decltype(k)::value,
-                                      T>,
+                                      T, Stim>,
         n_points, capacity, n_blocks, args, stream);
   });
 }
 
+// The forced launches, defined in fused_shard_box3d_rkc_forced.cu.
+int launch_forced(CRD_FUSED_SHARD_BOX3D_RKC_ARGS,
+                  const crd::BoxStimTable<float>& stim);
+int launch_forced(CRD_FUSED_SHARD_BOX3D_RKC_ARGS,
+                  const crd::BoxStimTable<double>& stim);
+
+}  // namespace crd_k13
+
+#ifndef CRD_BOX_FORCED_UNIT
+
+namespace {
+
+// The launch of a step with or without a forcing, whose profiles are
+// halo-padded to the buffer (ny x nx): n_cols must be 1 or s_cap + 2.
+template <typename T>
+int launch(CRD_FUSED_SHARD_BOX3D_RKC_ARGS, CRD_BOX_STIM_ARGS) {
+  return crd::with_box_stim<T>(
+      CRD_BOX_STIM_PASS, n_cols == 1 || n_cols == s_cap + 2, nz, ny, nx,
+      [&](auto stim) {
+        if constexpr (decltype(stim)::kOn)
+          return crd_k13::launch_forced(CRD_FUSED_SHARD_BOX3D_RKC_PASS,
+                                        stim);
+        else
+          return crd_k13::launch_stim<T>(CRD_FUSED_SHARD_BOX3D_RKC_PASS,
+                                         stim);
+      });
+}
+
 }  // namespace
 
-#define CRD_FUSED_SHARD_BOX3D_RKC_ARGS                                       \
-  const void *y, void *y_new, void *ss, int capacity, int *n_blocks,        \
-      void *work, const void *h, const void *fz, const void *s,             \
-      const void *mu1_tab, const void *ctab, int s_cap, int min_tiles,      \
-      int halo, int valid_rows, int valid_cols, CRD_BOX_OPERATOR_ARGS
-#define CRD_FUSED_SHARD_BOX3D_RKC_PASS                                       \
-  y, y_new, ss, capacity, n_blocks, work, h, fz, s, mu1_tab, ctab, s_cap,   \
-      min_tiles, halo, valid_rows, valid_cols, CRD_BOX_OPERATOR_PASS
-
 extern "C" int crd_fused_shard_box3d_rkc_step_f32(
-    CRD_FUSED_SHARD_BOX3D_RKC_ARGS) {
-  return launch<float>(CRD_FUSED_SHARD_BOX3D_RKC_PASS);
+    CRD_FUSED_SHARD_BOX3D_RKC_ARGS, CRD_BOX_STIM_ARGS) {
+  return launch<float>(CRD_FUSED_SHARD_BOX3D_RKC_PASS, CRD_BOX_STIM_PASS);
 }
 
 extern "C" int crd_fused_shard_box3d_rkc_step_f64(
-    CRD_FUSED_SHARD_BOX3D_RKC_ARGS) {
-  return launch<double>(CRD_FUSED_SHARD_BOX3D_RKC_PASS);
+    CRD_FUSED_SHARD_BOX3D_RKC_ARGS, CRD_BOX_STIM_ARGS) {
+  return launch<double>(CRD_FUSED_SHARD_BOX3D_RKC_PASS, CRD_BOX_STIM_PASS);
 }
 
-// The stream scheme's kernel of (mode, kinetics) on a shard's buffer:
-// out[0] blocks an SM, out[1] registers a thread, out[2] shared bytes a
-// block (ops/box_stream.py::kernel_info).
 extern "C" int crd_fused_shard_box3d_rkc_info(int f64, int mode,
                                               int kinetics, int* out) {
   return f64 ? crd::rkc_stream_kernel_info<double, crd::StreamHalo>(
@@ -235,3 +268,5 @@ extern "C" int crd_fused_shard_box3d_rkc_info(int f64, int mode,
              : crd::rkc_stream_kernel_info<float, crd::StreamHalo>(
                    mode, kinetics, out);
 }
+
+#endif  // CRD_BOX_FORCED_UNIT

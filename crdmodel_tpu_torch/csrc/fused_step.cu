@@ -60,26 +60,6 @@ namespace {
 using crd::ProfileRhs;
 using crd::WrapGrid;
 
-template <typename T, class Stim>
-int launch_with(const crd::RhsConstants<T>& k, int kinetics,
-                const void* y, void* y_new, void* ss, const void* h,
-                const void* fz, int ny, int nx, int tile_x, int tile_y,
-                const crd::StageTable& tab, double rtol, double atol,
-                void* stream, Stim stim) {
-  const WrapGrid grid = {ny, nx};
-  if (kinetics == crd::kFhn)
-    return crd::launch_erk_slots_on<ProfileRhs<crd::kFhn, T>, T>(
-        {k}, grid, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab, rtol,
-        atol, stream, stim);
-  if (kinetics == crd::kGoldbeter)
-    return crd::launch_erk_slots_on<ProfileRhs<crd::kGoldbeter, T>, T>(
-        {k}, grid, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab, rtol,
-        atol, stream, stim);
-  return crd::launch_erk_slots_on<ProfileRhs<crd::kAlievPanfilov, T>, T>(
-      {k}, grid, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab, rtol,
-      atol, stream, stim);
-}
-
 // amps, rows, cols, n_stim, n_cols, var1: the structured forcing
 // (n_stim = 0 and null pointers without one)
 template <typename T>
@@ -99,16 +79,17 @@ int launch(const void* y, void* y_new, void* ss, const void* h,
       static_cast<const T*>(c0), static_cast<const T*>(c1),
       static_cast<const T*>(c2), torus, static_cast<const T*>(beta),
       beta_field, static_cast<const T*>(mask), has_freeze};
-  if (n_stim == 0)
-    return launch_with<T>(k, kinetics, y, y_new, ss, h, fz, ny, nx, tile_x,
-                          tile_y, tab, rtol, atol, stream, crd::NoStim{});
-  crd::StimTable<T> stim;
-  if (n_cols != n_stages
-      || !crd::make_stim_table(amps, rows, cols, n_stim, n_cols, var1, ny,
-                               nx, &stim))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch_with<T>(k, kinetics, y, y_new, ss, h, fz, ny, nx, tile_x,
-                        tile_y, tab, rtol, atol, stream, stim);
+  const WrapGrid grid = {ny, nx};
+  return crd::with_stim<T>(
+      amps, rows, cols, n_stim, n_cols, var1, n_cols == n_stages, ny, nx,
+      [&](auto stim) {
+        return crd::with_kinetics(kinetics, [&](auto kin) {
+          return crd::launch_erk_slots_on<
+              ProfileRhs<decltype(kin)::value, T>, T>(
+              {k}, grid, y, y_new, ss, h, fz, ny, nx, tile_x, tile_y, tab,
+              rtol, atol, stream, stim);
+        });
+      });
 }
 
 // crd::slots_kernel_info of the bs32 kernel of `kinetics` in T

@@ -4,8 +4,8 @@
 // 5-point profile, divergence-form and 9-point anisotropic operators on
 // variable 0, the kinetics of each ported family and their closed-form
 // Jacobians, the RHS at one point of a tile held in shared memory, the
-// structured forcing of K1-K4 and K8-K11 (StimTable) and the per-block
-// partial sum.
+// structured forcing of K1-K4 and K8-K11 (StimTable) and of the box
+// kernels K6, K7, K12 and K13 (BoxStimTable) and the per-block partial sum.
 // Counterpart of crdmodel_tpu/ops/kernel_common.py::make_rhs_block,
 // make_split_block and make_divform_rhs_block and of the operator of
 // crdmodel_tpu/ops/pallas_aniso.py; the plain torch versions are
@@ -269,6 +269,68 @@ inline int with_stim(const void* amps, const void* rows, const void* cols,
                           &stim))
     return static_cast<int>(cudaErrorInvalidValue);
   return go(stim);
+}
+
+// The structured forcing of the 3-D box kernels (K6, K7, K12, K13;
+// ops/kernel_common.py::StimConstants with its z table): StimTable's rank-1
+// rows and columns and an (n, nz) depth table z, ones where a stimulus has
+// no depth profile (core/forcing.py::Stimulus.zprof). Stimulus j adds
+// ((amps[j][a] * z[j][k]) * rows[j][r]) * cols[j][c] at plane k, the JAX
+// box kernels' association (crdmodel_tpu/ops/pallas_box3d.py:660-662).
+// z is not sharded: a shard's table is the whole box's, its rows and
+// columns halo-padded like StimTable's on a shard.
+template <typename T>
+struct BoxStimTable {
+  static constexpr bool kOn = true;
+  StimTable<T> s;
+  const T* z;      // (n, nz)
+  int nz;
+
+  // (f_u, f_v) at amplitude column a, plane k and row and column indices
+  // (r, c)
+  __device__ __forceinline__ void at(int a, int k, int r, int c, T& fu,
+                                     T& fv) const {
+    fu = T(0);
+    fv = T(0);
+    for (int j = 0; j < s.n; ++j) {
+      const T x = __ldg(s.amps + j * s.n_cols + a) * __ldg(z + j * nz + k)
+                  * __ldg(s.rows + j * s.ny + r)
+                  * __ldg(s.cols + j * s.nx + c);
+      if ((s.var1 >> j) & 1)
+        fv = fv + x;
+      else
+        fu = fu + x;
+    }
+  }
+};
+
+// go(stim) with a box launch's forcing: NoStim when n_stim is 0, else the
+// BoxStimTable of its arguments over a depth table of nz planes and
+// profiles of ny and nx entries; cudaErrorInvalidValue as with_stim, or
+// when the depth table is missing or nz < 1
+template <typename T, class F>
+inline int with_box_stim(const void* amps, const void* rows,
+                         const void* cols, const void* z, int n_stim,
+                         int n_cols, int var1, bool n_cols_ok, int nz,
+                         int ny, int nx, F go) {
+  if (n_stim == 0) return go(NoStim{});
+  BoxStimTable<T> stim;
+  if (!n_cols_ok || z == nullptr || nz < 1
+      || !make_stim_table(amps, rows, cols, n_stim, n_cols, var1, ny, nx,
+                          &stim.s))
+    return static_cast<int>(cudaErrorInvalidValue);
+  stim.z = static_cast<const T*>(z);
+  stim.nz = nz;
+  return go(stim);
+}
+
+// The amplitude column of an RKC2 step's RHS evaluation e (0: F0 and Y1;
+// e in 1..s-1: f(Y_e); s: F1) in an amplitude table of n_cols columns: 0
+// with one column (every stimulus segment-gated), else the stage-time
+// index of ops/fused_rkc.py::static_stage_tables(with_times=True), 0 for
+// F0 and e + 1 after (K2, K7, K9, K13)
+__host__ __device__ __forceinline__ int rkc_amp_column(int e, int n_cols) {
+  return n_cols == 1 || e == 0 ? 0 : e + 1;
 }
 
 // kinetics (du, dv) plus the operator's lap on variable 0 and, forced,

@@ -224,13 +224,8 @@ __device__ __forceinline__ void store_tile_sum(T acc, T* warp_sums, T* out) {
 
 // The functor: rhs.at(fz, su, v, p, W, r, c, du, dv) writes ydot at local
 // point p of a region with row stride W holding variable 0 in su, v the
-// point's variable 1, r and c its row and column indices.
-// The amplitude column of a step's RHS evaluation e (0: F0 and Y1; e in
-// 1..s-1: f(Y_e); s: F1) in an amplitude table of n_cols columns
-__host__ __device__ __forceinline__ int rkc_amp_column(int e, int n_cols) {
-  return n_cols == 1 || e == 0 ? 0 : e + 1;
-}
-
+// point's variable 1, r and c its row and column indices. Evaluation e's
+// forcing reads amplitude column rhs_common.cuh::rkc_amp_column(e).
 template <class Rhs, class Grid, typename T, class Stim>
 __global__ void __launch_bounds__(kRkcThreads, (kRkcMinBlocks<T>))
     fused_rkc_chunk_kernel(const T* __restrict__ y, T* __restrict__ y_new,

@@ -41,7 +41,8 @@ _INTP = ctypes.POINTER(ctypes.c_int)
 # fused_imex.cu, fused_divform.cu, fused_aniso.cu, fused_box3d.cu,
 # fused_box3d_rkc.cu, fused_shard_step.cu, fused_shard_rkc.cu,
 # fused_shard_imex.cu, fused_shard_divform.cu, fused_shard_box3d.cu,
-# fused_shard_box3d_rkc.cu, fused_kstep.cu)
+# fused_shard_box3d_rkc.cu, fused_kstep.cu; the box launchers' forced
+# instantiations are compiled apart, in csrc/*_forced.cu)
 # the structured forcing of K1-K4 and K8-K11 after fz: amps, rows, cols;
 # n_stim, n_cols, var1 (ops/kernel_common.py::StimConstants.launch_args)
 _STIM = [_VOIDP] * 3 + [_INT] * 3
@@ -71,19 +72,23 @@ _FUSED_ANISO_ARGTYPES = ([_VOIDP] * 9 + [_INT, _VOIDP] + [_INT] * 7
 _BOX_OPERATOR = ([_VOIDP] * 8 + [_INT, _VOIDP, _INT, _VOIDP] + [_INT] * 5
                  + [_DOUBLE, _DOUBLE, _VOIDP])
 _BOX_HEAD = [_VOIDP] * 3 + [_INT, _INTP] + [_VOIDP] * 3
+# the box launchers' structured forcing, after the operator's arguments:
+# amps, rows, cols, the depth table z; n_stim, n_cols, var1
+# (csrc/box3d.cuh CRD_BOX_STIM_ARGS)
+_BOX_STIM = [_VOIDP] * 4 + [_INT] * 3
 # K6: n_stages, the tableau, then the stream scheme's tile_y and z_chunk
 _FUSED_BOX3D_ARGTYPES = (_BOX_HEAD + [_INT] + [_DOUBLEP] * 3 + [_INT] * 2
-                         + _BOX_OPERATOR)
+                         + _BOX_OPERATOR + _BOX_STIM)
 # K7: s, mu1_tab, ctab; s_cap and the plan's min_tiles
 _FUSED_BOX3D_RKC_ARGTYPES = (_BOX_HEAD + [_VOIDP] * 3 + [_INT] * 2
-                             + _BOX_OPERATOR)
+                             + _BOX_OPERATOR + _BOX_STIM)
 # the shard box launchers: K6's and K7's arguments, then the halo and the
 # physical extent (valid_rows, valid_cols) before the operator's (K12:
 # then tile_y and z_chunk)
 _FUSED_SHARD_BOX3D_ARGTYPES = (_BOX_HEAD + [_INT] + [_DOUBLEP] * 3
-                               + [_INT] * 5 + _BOX_OPERATOR)
+                               + [_INT] * 5 + _BOX_OPERATOR + _BOX_STIM)
 _FUSED_SHARD_BOX3D_RKC_ARGTYPES = (_BOX_HEAD + [_VOIDP] * 3 + [_INT] * 5
-                                   + _BOX_OPERATOR)
+                                   + _BOX_OPERATOR + _BOX_STIM)
 _FUSED_SHARD_STEP_ARGTYPES = ([_VOIDP] * 5 + _STIM + [_VOIDP] * 3
                               + [_INT, _VOIDP, _INT, _VOIDP]
                               + [_INT] * 10 + [_DOUBLEP] * 3

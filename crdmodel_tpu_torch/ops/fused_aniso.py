@@ -37,7 +37,8 @@ aN at (j-1, i), wrapped); the JAX kernel's association axis + (t1 + t2)
 with a freeze. Gone with the TPU layout: the lane padding, the per-strip
 coefficient windows and the strip-divisor rule. The sweep overrides
 (params["_fused_b"], "dscale") are not ported yet (ROADMAP queue 1,
-item 14), nor forcing (item 9).
+item 14). A forcing is declined, as the TPU kernel's gate declines it
+(pallas_aniso.py:64-65).
 """
 
 from __future__ import annotations

@@ -36,7 +36,15 @@ with a freeze, then times the tissue field with an obstacle. Gone with the
 TPU layout: the z-streaming plane rings, the lane padding, the y strips
 and the strip rule (_pick_strip, _box_strip_target). The sweep overrides
 (params["_fused_b"], "dscale") are not ported yet (ROADMAP queue 1,
-item 14), nor forcing (item 9).
+item 14).
+
+A structured forcing (core/forcing.py::SeparableForcing, rank-1 stimuli,
+each with an optional depth profile zprof; pallas_box3d.py:360-394,
+654-667, 781-782) adds its terms to every stage, before the freeze and the
+tissue field: stimulus j at stage s and plane k adds ((amps[j, s] * z[j,
+k]) * rows[j, y]) * cols[j, x] (kernel_common.stim_terms), the amplitudes
+computed on the device at the true stage times (stage_amplitudes), the
+profiles and the depth table once a run (prepare_stim_constants).
 """
 
 from __future__ import annotations
@@ -50,13 +58,17 @@ from crdmodel_tpu_torch.ops import box_stream
 from crdmodel_tpu_torch.ops.fused_step import (MAX_STAGES, _stage_arrays,
                                                erk_stages_reference,
                                                erk_step_reference)
-from crdmodel_tpu_torch.ops.kernel_common import (KernelConstants,
+from crdmodel_tpu_torch.ops.kernel_common import (NO_BOX_STIM_ARGS,
+                                                  KernelConstants,
                                                   box_mode, check_tensor,
-                                                  freeze_scalar,
+                                                  forcing_of, freeze_scalar,
                                                   fused_forcing,
                                                   kernel_ready_kinetics,
                                                   make_box_rhs_block,
-                                                  prepare_box_constants)
+                                                  prepare_box_constants,
+                                                  prepare_stim_constants,
+                                                  stage_amplitudes,
+                                                  stim_args)
 
 THREADS = 256                  # csrc/box3d.cuh kBoxThreads
 # the kernels' operator modes (csrc/box3d.cuh, enum BoxMode)
@@ -68,10 +80,11 @@ def is_box3d_supported(problem, tableau: Tableau, dtype) -> bool:
     """The kernel's gate (crdmodel_tpu/ops/pallas_box3d.py:276) without the
     TPU strip rule: a box whose operator box_mode expresses (closed z
     walls), f32, 2 to MAX_STAGES stages, no tensor with an obstacle, no
-    forcing, plus the port-only kinetics rule
+    forcing but a structured one (rank-1 stimuli, with or without zprof:
+    kernel_common.fused_forcing), plus the port-only kinetics rule
     (kernel_common.kernel_ready_kinetics)."""
-    if fused_forcing(problem) is not None:
-        return False            # the kernel takes no forcing yet (item 9)
+    if fused_forcing(problem) is False:
+        return False            # a free-form forcing: the torch path
     if problem.geometry.kind != "box":
         return False
     if dtype != torch.float32:
@@ -87,15 +100,18 @@ def is_box3d_supported(problem, tableau: Tableau, dtype) -> bool:
 
 
 def fused_box3d_step_reference(y, h, fz, bc: KernelConstants,
-                               tableau: Tableau, rtol: float, atol: float):
+                               tableau: Tableau, rtol: float, atol: float,
+                               stim=None, amps=None):
     """One step in plain torch: (y_new, ss) with ss a (1,) tensor holding
-    the sum of squared WRMS-scaled errors."""
+    the sum of squared WRMS-scaled errors. stim: the StimConstants of a
+    structured forcing (with its depth table) and amps its (n_stim,
+    n_stages) amplitudes, or None."""
     return erk_step_reference(y, h, make_box_rhs_block(bc, fz), tableau,
-                              rtol, atol)
+                              rtol, atol, forcing_of(stim, amps, y))
 
 
 def fused_box3d_tile_sums(y, h, fz, bc: KernelConstants, tableau: Tableau,
-                          rtol: float, atol: float):
+                          rtol: float, atol: float, stim=None, amps=None):
     """The stream scheme's partial sums in plain torch: (n_tiles,) sums of
     squared WRMS-scaled errors, one a tile and z chunk of the plan
     (box_stream.stream_plan), each in the kernel's order
@@ -105,7 +121,8 @@ def fused_box3d_tile_sums(y, h, fz, bc: KernelConstants, tableau: Tableau,
     if not box_stream.uses_stream(tableau):
         raise ValueError(f"{tableau.name} runs the persistent scheme, whose "
                          "partial sums no plain version replays")
-    _, err = erk_stages_reference(y, h, make_box_rhs_block(bc, fz), tableau)
+    _, err = erk_stages_reference(y, h, make_box_rhs_block(bc, fz), tableau,
+                                  forcing_of(stim, amps, y))
     tile_y, z_chunk, _, _ = box_stream.stream_plan(y.element_size(),
                                                    tuple(y.shape[1:]))
     return box_stream.stream_tile_sums(
@@ -113,31 +130,37 @@ def fused_box3d_tile_sums(y, h, fz, bc: KernelConstants, tableau: Tableau,
 
 
 def fused_box3d_step(y, h, fz, bc: KernelConstants, tableau: Tableau,
-                     rtol: float, atol: float):
+                     rtol: float, atol: float, stim=None, amps=None):
     """One fused step: (y_new (2, nz, ny, nx), ss partials (n_blocks,)).
 
     h and fz are 0-d tensors in y's dtype on y's device: the kernel reads
     them there, so a step needs no host sync. bc comes from
-    kernel_common.prepare_box_constants. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel (float32, or float64 as a
-    parity tool) or raises. `fused_box3d_step.launches` counts kernel
-    launches.
+    kernel_common.prepare_box_constants. stim, amps: a structured forcing's
+    StimConstants (prepare_stim_constants, with its depth table) and its
+    (n_stim, n_stages) amplitude table on the same device
+    (stage_amplitudes), or None (the unforced kernel). A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel (float32, or
+    float64 as a parity tool) or raises. `fused_box3d_step.launches`
+    counts kernel launches.
     """
     if y.device.type == "cpu":
-        return fused_box3d_step_reference(y, h, fz, bc, tableau, rtol, atol)
+        return fused_box3d_step_reference(y, h, fz, bc, tableau, rtol, atol,
+                                          stim, amps)
     n = tableau.stages
     if not 2 <= n <= MAX_STAGES:
         raise ValueError(f"{n} stages; the kernel takes 2..{MAX_STAGES}")
     a, b, d = _stage_arrays(tableau.name)
+    forcing = stim_args(stim, amps, (n,), box=True)
     if box_stream.uses_stream(tableau):
         tile_y, z_chunk, tiles, _ = box_stream.stream_plan(
             y.element_size(), tuple(y.shape[1:]))
         out = launch_box3d("crd_fused_box3d_step", y, h, fz, bc, 0,
                            (n, a, b, d, tile_y, z_chunk), rtol, atol,
-                           partials=tiles)
+                           partials=tiles, stim=stim, forcing=forcing)
     else:
         out = launch_box3d("crd_fused_box3d_step", y, h, fz, bc, n + 1,
-                           (n, a, b, d, 0, 0), rtol, atol)
+                           (n, a, b, d, 0, 0), rtol, atol, stim=stim,
+                           forcing=forcing)
     fused_box3d_step.launches += 1
     return out
 
@@ -147,7 +170,8 @@ fused_box3d_step.launches = 0
 
 def launch_box3d(symbol, y, h, fz, bc: KernelConstants, work_states: int,
                  step_args, rtol: float, atol: float,
-                 partials: int | None = None):
+                 partials: int | None = None, stim=None,
+                 forcing=NO_BOX_STIM_ARGS):
     """Launch one step of a box kernel of the built library (K6
     `crd_fused_box3d_step`, K7 `crd_fused_box3d_rkc_step`, and on a
     shard's halo-padded buffer K12 `crd_fused_shard_box3d_step` and K13
@@ -158,9 +182,12 @@ def launch_box3d(symbol, y, h, fz, bc: KernelConstants, work_states: int,
     most as many blocks as the card keeps resident; a stream launch
     (`partials`, the plan's tile count) one for each tile and needs no
     scratch. The constants' shapes follow y's (nz, ny, nx): a shard's are
-    halo-padded like its buffer. Checks every input first and raises on
-    what the kernel does not take, and on a launch error. Returns (y_new
-    (2, nz, ny, nx), ss partials (n_blocks,))."""
+    halo-padded like its buffer. `forcing`: the launcher's last arguments,
+    a structured forcing's (kernel_common.stim_args with box=True) from
+    `stim`, whose profiles and depth table are checked against y's shape
+    here. Checks every input first and raises on what the kernel does not
+    take, and on a launch error. Returns (y_new (2, nz, ny, nx), ss
+    partials (n_blocks,))."""
     dtype, device = y.dtype, y.device
     if device.type != "cuda":
         raise ValueError(f"no box kernel for device {device}")
@@ -192,6 +219,11 @@ def launch_box3d(symbol, y, h, fz, bc: KernelConstants, work_states: int,
     check_tensor("beta", bc.b, (ny, 1) if bc.b_is_field else (), dtype,
                  device)
     check_tensor("mask", bc.mask, (ny, 1), dtype, device)
+    if stim is not None:
+        for name, t, shape in (("rows", stim.rows, (stim.n_stim, ny)),
+                               ("columns", stim.cols, (stim.n_stim, nx)),
+                               ("depth table", stim.z, (stim.n_stim, nz))):
+            check_tensor("stimulus " + name, t, shape, dtype, device)
 
     from crdmodel_tpu_torch.ops._build import load_library
     lib = load_library()
@@ -222,7 +254,7 @@ def launch_box3d(symbol, y, h, fz, bc: KernelConstants, work_states: int,
                     MODE_IDS[bc.kind], bc.b.data_ptr(), int(bc.b_is_field),
                     bc.mask.data_ptr(), int(bc.has_freeze), bc.kinetics_id, nz,
                     ny, nx, float(rtol), float(atol),
-                    torch.cuda.current_stream(device).cuda_stream)
+                    torch.cuda.current_stream(device).cuda_stream, *forcing)
     if rc != 0:
         raise RuntimeError(f"{symbol} launch failed: CUDA error {rc}")
     return y_new, ss[:n_blocks.value]
@@ -232,17 +264,23 @@ def build_fused_box3d_step(problem, tableau: Tableau):
     """step_err(t, y, h, params) -> (y_new, err_ss) of `problem` through the
     fused box step, in the problem's dtype on its device
     (crdmodel_tpu/ops/pallas_box3d.py:307). The freeze comes from
-    params["_seg_end"]; t is unused (the kinetics are autonomous)."""
+    params["_seg_end"]; t enters only through a structured forcing's stage
+    amplitudes (the kinetics are autonomous)."""
     cfg = problem.cfg
     dtype = problem.y0.dtype
     bc = prepare_box_constants(problem, dtype, problem.device)
+    stim = prepare_stim_constants(problem, dtype, problem.device)
+    c_nodes = torch.tensor(tableau.c, dtype=dtype, device=problem.device)
     rtol, atol = float(cfg.rtol), float(cfg.atol)
     t_boundary = float(cfg.t_boundary)
 
     def step_err(t, y, h, params):
+        h = h.to(dtype)
         fz = freeze_scalar(params, bc.has_freeze, t_boundary, dtype)
-        y_new, ss = fused_box3d_step(y, h.to(dtype), fz, bc, tableau, rtol,
-                                     atol)
+        amps = (None if stim is None else stage_amplitudes(
+            stim.forcing, t, h, c_nodes, params, dtype))
+        y_new, ss = fused_box3d_step(y, h, fz, bc, tableau, rtol, atol, stim,
+                                     amps)
         return y_new, torch.sum(ss)
 
     return step_err

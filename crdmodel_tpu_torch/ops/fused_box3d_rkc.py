@@ -42,6 +42,14 @@ chunks of four evaluations hold it, and it sets the step sequence. The
 coefficients come from static_stage_tables(C_RKC) cast to the state's
 dtype and indexed by s on the device; an s outside [2, C_RKC] returns NaN
 partial sums. The operator, freeze and tissue follow K6 (fused_box3d.py).
+
+A structured forcing (rank-1 stimuli with optional depth profiles;
+pallas_box3d_rkc.py:176-208, 605-622) adds its terms to every RHS
+evaluation as K6 does, with K2's amplitude table (ops/fused_rkc.py):
+one column when every stimulus is segment-gated, else one a Chebyshev
+stage time of the step's s, C_RKC + 2 columns (fused_rkc.
+stage_times_table), computed on the device from the s the launch reads;
+evaluation e reads column amp_column(e).
 """
 
 from __future__ import annotations
@@ -54,8 +62,11 @@ from crdmodel_tpu_torch.ops import box_stream
 from crdmodel_tpu_torch.ops.fused_box3d import launch_box3d
 from crdmodel_tpu_torch.ops.fused_rkc import (FusedRKCStep,
                                               check_stage_tables,
+                                              rkc_forcing,
                                               rkc_stages_reference,
                                               rkc_step_reference,
+                                              stage_times_amplitudes,
+                                              stage_times_table,
                                               static_stage_tables)
 from crdmodel_tpu_torch.ops.kernel_common import (KernelConstants,
                                                   box_mode, check_tensor,
@@ -63,7 +74,9 @@ from crdmodel_tpu_torch.ops.kernel_common import (KernelConstants,
                                                   fused_forcing,
                                                   kernel_ready_kinetics,
                                                   make_box_rhs_block,
-                                                  prepare_box_constants)
+                                                  prepare_box_constants,
+                                                  prepare_stim_constants,
+                                                  stim_args)
 
 C_RKC = 7       # the TPU kernel's stage cap (pallas_box3d_rkc.py:65)
 
@@ -71,10 +84,11 @@ C_RKC = 7       # the TPU kernel's stage cap (pallas_box3d_rkc.py:65)
 def is_box3d_rkc_supported(problem, dtype) -> bool:
     """The kernel's gate (crdmodel_tpu/ops/pallas_box3d_rkc.py:93) without
     the TPU strip rule: a box whose operator box_mode expresses (closed z
-    walls, a tensor included), f32, a model with a jac_bound, no forcing,
-    plus the port-only kinetics rule (kernel_common.kernel_ready_kinetics)."""
-    if fused_forcing(problem) is not None:
-        return False            # the kernel takes no forcing yet (item 9)
+    walls, a tensor included), f32, a model with a jac_bound, no forcing
+    but a structured one (kernel_common.fused_forcing), plus the port-only
+    kinetics rule (kernel_common.kernel_ready_kinetics)."""
+    if fused_forcing(problem) is False:
+        return False            # a free-form forcing: the torch path
     if problem.geometry.kind != "box":
         return False
     if dtype != torch.float32:
@@ -88,15 +102,20 @@ def is_box3d_rkc_supported(problem, dtype) -> bool:
 
 def fused_box3d_rkc_step_reference(y, h, fz, s, mu1_tab, ctab_tab,
                                    bc: KernelConstants, rtol: float,
-                                   atol: float):
+                                   atol: float, stim=None, amps=None):
     """One step in plain torch: (y_new, ss) with ss a (1,) tensor holding
-    the sum of squared WRMS-scaled errors; reads s on the host."""
+    the sum of squared WRMS-scaled errors; reads s on the host. stim,
+    amps: a structured forcing's StimConstants (with its depth table) and
+    amplitude table (fused_rkc.stage_times_amplitudes on
+    stage_times_table), or None."""
     return rkc_step_reference(y, h, s, mu1_tab, ctab_tab,
-                              make_box_rhs_block(bc, fz), rtol, atol)
+                              make_box_rhs_block(bc, fz), rtol, atol,
+                              rkc_forcing(stim, amps, y))
 
 
 def fused_box3d_rkc_tile_sums(y, h, fz, s, mu1_tab, ctab_tab,
-                              bc: KernelConstants, rtol: float, atol: float):
+                              bc: KernelConstants, rtol: float, atol: float,
+                              stim=None, amps=None):
     """The chunk kernel's partial sums in plain torch: (n_tiles,) sums of
     squared WRMS-scaled errors, one a tile and z chunk of its plan
     (box_stream.stream_plan with RKC_MIN_TILES), each in the kernel's order
@@ -114,7 +133,8 @@ def fused_box3d_rkc_tile_sums(y, h, fz, s, mu1_tab, ctab_tab,
         return torch.full((tiles,), float("nan"), dtype=y.dtype,
                           device=y.device)
     _, est = rkc_stages_reference(y, h, s, mu1_tab, ctab_tab,
-                                  make_box_rhs_block(bc, fz))
+                                  make_box_rhs_block(bc, fz),
+                                  rkc_forcing(stim, amps, y))
     return box_stream.stream_tile_sums(
         box_stream.scaled_squares(est, y, rtol, atol), tile_y, z_chunk)
 
@@ -131,7 +151,7 @@ def check_rkc_tables(mu1_tab, ctab_tab, dtype, device) -> int:
 
 
 def fused_box3d_rkc_step(y, h, fz, s, mu1_tab, ctab_tab, bc: KernelConstants,
-                         rtol: float, atol: float):
+                         rtol: float, atol: float, stim=None, amps=None):
     """One fused RKC2 step: (y_new (2, nz, ny, nx), ss partials
     (n_blocks,); in the chunk kernel's modes fused_box3d_rkc_tile_sums').
 
@@ -139,26 +159,29 @@ def fused_box3d_rkc_step(y, h, fz, s, mu1_tab, ctab_tab, bc: KernelConstants,
     mu1_tab/ctab_tab the static_stage_tables of some s_cap <= C_RKC, all on
     y's device: the kernel reads s and its table rows there, so a step
     needs no host sync. bc comes from kernel_common.prepare_box_constants.
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (the chunk kernel once a chunk of evaluations, or the persistent
-    one) or raises. `fused_box3d_rkc_step.launches` counts steps launched.
+    stim, amps: a structured forcing's StimConstants (with its depth table)
+    and its amplitude table of 1 or s_cap + 2 columns on the same device
+    (fused_rkc.stage_times_amplitudes on stage_times_table), or None (the
+    unforced kernel). A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel (the chunk kernel
+    once a chunk of evaluations, or the persistent one) or raises.
+    `fused_box3d_rkc_step.launches` counts steps launched.
     """
     if y.device.type == "cpu":
         return fused_box3d_rkc_step_reference(y, h, fz, s, mu1_tab, ctab_tab,
-                                              bc, rtol, atol)
+                                              bc, rtol, atol, stim, amps)
     s_cap = check_rkc_tables(mu1_tab, ctab_tab, y.dtype, y.device)
     check_tensor("s", s, (), torch.int32, y.device)
     args = (s.data_ptr(), mu1_tab.data_ptr(), ctab_tab.data_ptr(), s_cap,
             box_stream.RKC_MIN_TILES)
-    if box_stream.rkc_uses_stream(bc.kind):
-        tiles = box_stream.stream_plan(
-            y.element_size(), tuple(y.shape[1:]),
-            min_tiles=box_stream.RKC_MIN_TILES)[2]
-        out = launch_box3d("crd_fused_box3d_rkc_step", y, h, fz, bc, 3, args,
-                           rtol, atol, partials=tiles)
-    else:
-        out = launch_box3d("crd_fused_box3d_rkc_step", y, h, fz, bc, 3, args,
-                           rtol, atol)
+    forcing = stim_args(stim, amps, (1, s_cap + 2), box=True)
+    tiles = (box_stream.stream_plan(
+        y.element_size(), tuple(y.shape[1:]),
+        min_tiles=box_stream.RKC_MIN_TILES)[2]
+        if box_stream.rkc_uses_stream(bc.kind) else None)
+    out = launch_box3d("crd_fused_box3d_rkc_step", y, h, fz, bc, 3, args,
+                       rtol, atol, partials=tiles, stim=stim,
+                       forcing=forcing)
     fused_box3d_rkc_step.launches += 1
     return out
 
@@ -170,8 +193,9 @@ def build_fused_box3d_rkc_step(problem, dtype=torch.float32,
                                rho_fn=None) -> FusedRKCStep:
     """The fused box RKC2 step of `problem` in `dtype` on its device
     (crdmodel_tpu/ops/pallas_box3d_rkc.py:119): step_err and the h cap of
-    C_RKC stages. The freeze comes from params["_seg_end"]; t is unused
-    (the kinetics are autonomous)."""
+    C_RKC stages. The freeze comes from params["_seg_end"]; t enters only
+    through a structured forcing's amplitudes, computed from the s the
+    launch reads (the kinetics are autonomous)."""
     cfg = problem.cfg
     if rho_fn is None:
         rho_fn = make_rho_bound(cfg, problem.model, problem.geometry, dtype,
@@ -179,16 +203,21 @@ def build_fused_box3d_rkc_step(problem, dtype=torch.float32,
                                 diffusion_tensor=problem.diffusion_tensor,
                                 face_mask=problem.face_mask)
     bc = prepare_box_constants(problem, dtype, problem.device)
+    stim = prepare_stim_constants(problem, dtype, problem.device)
     rtol, atol = float(cfg.rtol), float(cfg.atol)
     t_boundary = float(cfg.t_boundary)
     mu1_tab, ctab_tab = static_stage_tables(C_RKC, dtype, problem.device)
+    ctimes = stage_times_table(C_RKC, dtype, problem.device)
 
     def step_err(t, y, h, params, carry=()):
         rho = rho_fn(t, y, params).to(dtype)
         s = torch.clamp_max(rkc.choose_stages(h, rho), C_RKC)
+        h = h.to(dtype)
         fz = freeze_scalar(params, bc.has_freeze, t_boundary, dtype)
-        y_new, ss = fused_box3d_rkc_step(y, h.to(dtype), fz, s, mu1_tab,
-                                         ctab_tab, bc, rtol, atol)
+        amps = (None if stim is None else stage_times_amplitudes(
+            stim.forcing, t, h, s, ctimes, params, dtype))
+        y_new, ss = fused_box3d_rkc_step(y, h, fz, s, mu1_tab, ctab_tab, bc,
+                                         rtol, atol, stim, amps)
         return y_new, torch.sum(ss), ()
 
     return FusedRKCStep(step_err=step_err,

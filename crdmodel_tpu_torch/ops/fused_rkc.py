@@ -275,6 +275,16 @@ def static_stage_tables(s_cap: int, dtype, device="cpu",
                  for a in tables)
 
 
+def stage_times_table(s_cap: int, dtype, device="cpu"):
+    """The stage-time table of a forced RKC kernel of stage cap s_cap:
+    static_stage_tables(with_times=True)'s ctimes cut to its first
+    s_cap + 2 columns, the most a step of s <= s_cap stages reads (K2's and
+    K9's S_MAX_KERNEL + 2, the box kernels' C_RKC + 2:
+    crdmodel_tpu/ops/pallas_box3d_rkc.py:595-598)."""
+    ctimes = static_stage_tables(s_cap, dtype, device, with_times=True)[2]
+    return ctimes[:, :s_cap + 2].contiguous()
+
+
 def amp_column(e: int, n_cols: int) -> int:
     """The amplitude column of a step's RHS evaluation e (0: F0 and Y1; e
     in 1..s-1: f(Y_e); s: F1) in a table of n_cols columns

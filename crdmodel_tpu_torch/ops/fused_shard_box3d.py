@@ -36,6 +36,13 @@ cuts z into chunks where a plane's tiles are too few to fill the card),
 the other tableaus the persistent scheme on the ring ladder. Gone with the
 TPU layout: the lane padding, the row strips and their DMAs, and the strip
 rule of the gate.
+
+A structured forcing (pallas_shard_box3d.py:196-213, 445-453, 723-724)
+goes in as K6's does (ops/fused_box3d.py), with each shard's row and
+column profiles halo-padded like its constants and the whole box's depth
+table (kernel_common.prepare_shard_stim_constants), the amplitudes once a
+step on the control device and copied to each shard
+(fused_shard_step.build_shard_stepper).
 """
 
 from __future__ import annotations
@@ -51,11 +58,10 @@ from crdmodel_tpu_torch.ops.fused_shard_step import (HALO, FusedShardStep,
                                                      masked_error_sum)
 from crdmodel_tpu_torch.ops.fused_step import (MAX_STAGES, _stage_arrays,
                                                erk_stages_reference)
-from crdmodel_tpu_torch.ops.kernel_common import (ShardBoxConstants,
-                                                  box_mode, fused_forcing,
-                                                  kernel_ready_kinetics,
-                                                  make_box_rhs_block,
-                                                  make_shard_box_constants)
+from crdmodel_tpu_torch.ops.kernel_common import (
+    ShardBoxConstants, box_mode, forcing_of, fused_forcing,
+    kernel_ready_kinetics, make_box_rhs_block, make_shard_box_constants,
+    prepare_shard_stim_constants, stim_args)
 
 
 def is_shard_box3d_supported(problem, tableau: Tableau, dtype, nyl: int,
@@ -65,9 +71,10 @@ def is_shard_box3d_supported(problem, tableau: Tableau, dtype, nyl: int,
     (closed z walls; a constant 6-tensor declines), f32, 2 to HALO stages,
     a local block at least HALO deep on both axes (a halo never spans two
     shards); plus the port's rules of K6 (ops/fused_box3d.py::
-    is_box3d_supported): no forcing, kinetics with a device function."""
-    if fused_forcing(problem) is not None:
-        return False            # the kernel takes no forcing yet (item 9)
+    is_box3d_supported): no forcing but a structured one, kinetics with a
+    device function."""
+    if fused_forcing(problem) is False:
+        return False            # a free-form forcing: the torch path
     if problem.geometry.kind != "box" or dtype != torch.float32:
         return False
     if not 2 <= tableau.stages <= min(HALO, MAX_STAGES):
@@ -99,22 +106,25 @@ def check_shard_box_block(yp, sc: ShardBoxConstants, depth: int):
 
 def fused_shard_box3d_step_reference(yp, h, fz, sc: ShardBoxConstants,
                                      tableau: Tableau, rtol: float,
-                                     atol: float):
+                                     atol: float, stim=None, amps=None):
     """One step in plain torch on a halo-padded buffer: (y_new, ss), y_new
     a buffer whose block is the step's (its halo is yp's), ss a (1,) tensor
     holding the physical cells' sum of squared WRMS-scaled errors. The
     stages run on the whole buffer, wrapping at its (y, x) edge: the
     n_stages outer rings go wrong, and the block, HALO >= n_stages rings
-    in, is the kernel's bitwise."""
+    in, is the kernel's bitwise. stim, amps: the shard's StimConstants
+    (prepare_shard_stim_constants) and the step's (n_stim, n_stages)
+    amplitudes, or None."""
     y_all, err = erk_stages_reference(yp, h, make_box_rhs_block(sc, fz),
-                                      tableau)
+                                      tableau, forcing_of(stim, amps, yp))
     y_new = yp.clone()
     interior(y_new, sc.halo).copy_(interior(y_all, sc.halo))
     return y_new, masked_error_sum(err, yp, sc, rtol, atol)
 
 
 def fused_shard_box3d_tile_sums(yp, h, fz, sc: ShardBoxConstants,
-                                tableau: Tableau, rtol: float, atol: float):
+                                tableau: Tableau, rtol: float, atol: float,
+                                stim=None, amps=None):
     """The stream scheme's partial sums in plain torch: (n_tiles,) sums
     over the block's tiles and z chunks (box_stream.stream_plan) of the
     physical cells' squared WRMS-scaled errors, each in the kernel's order
@@ -125,7 +135,7 @@ def fused_shard_box3d_tile_sums(yp, h, fz, sc: ShardBoxConstants,
         raise ValueError(f"{tableau.name} runs the persistent scheme, whose "
                          "partial sums no plain version replays")
     _, err = erk_stages_reference(yp, h, make_box_rhs_block(sc, fz),
-                                  tableau)
+                                  tableau, forcing_of(stim, amps, yp))
     tile_y, z_chunk, _, _ = box_stream.stream_plan(
         yp.element_size(), tuple(yp.shape[1:]), sc.halo)
     return box_stream.stream_tile_sums(
@@ -146,33 +156,39 @@ def physical_squares(err, yp, sc: ShardBoxConstants, rtol: float,
 
 
 def fused_shard_box3d_step(yp, h, fz, sc: ShardBoxConstants,
-                           tableau: Tableau, rtol: float, atol: float):
+                           tableau: Tableau, rtol: float, atol: float,
+                           stim=None, amps=None):
     """One fused step on one shard: (y_new, ss partials (n_blocks,)).
 
     yp is the shard's halo-padded buffer (2, nz, nyl + 2 HALO, nxl +
     2 HALO) with its halo filled; h and fz are 0-d tensors on its device.
-    Only the block of y_new is written. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel (float32, or float64 as a
-    parity tool) or raises. `fused_shard_box3d_step.launches` counts
-    kernel launches."""
+    stim, amps: the shard's StimConstants (prepare_shard_stim_constants:
+    profiles halo-padded to the buffer, the box's depth table) and the
+    step's (n_stim, n_stages) amplitudes on its device, or None (the
+    unforced kernel). Only the block of y_new is written. A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel (float32,
+    or float64 as a parity tool) or raises.
+    `fused_shard_box3d_step.launches` counts kernel launches."""
     if yp.device.type == "cpu":
         return fused_shard_box3d_step_reference(yp, h, fz, sc, tableau, rtol,
-                                                atol)
+                                                atol, stim, amps)
     n = tableau.stages
     if not 2 <= n <= MAX_STAGES:
         raise ValueError(f"{n} stages; the kernel takes 2..{MAX_STAGES}")
     check_shard_box_block(yp, sc, n)
     a, b, d = _stage_arrays(tableau.name)
     shard = (n, a, b, d, sc.halo, sc.valid_rows, sc.valid_cols)
+    forcing = stim_args(stim, amps, (n,), box=True)
     if box_stream.uses_stream(tableau):
         tile_y, z_chunk, tiles, _ = box_stream.stream_plan(
             yp.element_size(), tuple(yp.shape[1:]), sc.halo)
         out = launch_box3d("crd_fused_shard_box3d_step", yp, h, fz, sc, 0,
                            (*shard, tile_y, z_chunk), rtol, atol,
-                           partials=tiles)
+                           partials=tiles, stim=stim, forcing=forcing)
     else:
         out = launch_box3d("crd_fused_shard_box3d_step", yp, h, fz, sc,
-                           n + 1, (*shard, 0, 0), rtol, atol)
+                           n + 1, (*shard, 0, 0), rtol, atol, stim=stim,
+                           forcing=forcing)
     fused_shard_box3d_step.launches += 1
     return out
 
@@ -183,16 +199,19 @@ fused_shard_box3d_step.launches = 0
 def build_fused_shard_box3d(problem, tableau: Tableau, mesh,
                             pad_spec=None) -> FusedShardStep:
     """step_err(t, yp, h, params) -> (y_new, err_ss) of `problem` on `mesh`
-    (crdmodel_tpu/ops/pallas_shard_box3d.py:109): the constants
-    halo-padded once here, then a step refreshes every shard's halo and
-    launches once a shard under its device (build_shard_stepper)."""
+    (crdmodel_tpu/ops/pallas_shard_box3d.py:109): the constants and a
+    structured forcing's profiles halo-padded once here, then a step
+    refreshes every shard's halo and launches once a shard under its
+    device (build_shard_stepper), with the forcing's amplitudes at the
+    tableau's c nodes."""
     cfg = problem.cfg
-    consts = make_shard_box_constants(problem, mesh, pad_spec, HALO,
-                                      problem.y0.dtype)
+    dtype = problem.y0.dtype
+    consts = make_shard_box_constants(problem, mesh, pad_spec, HALO, dtype)
+    stims = prepare_shard_stim_constants(problem, mesh, pad_spec, HALO,
+                                         dtype)
     rtol, atol = float(cfg.rtol), float(cfg.atol)
     return build_shard_stepper(
         problem, mesh, pad_spec, consts,
-        # K12 declines a forcing (is_shard_box3d_supported): stim and amps
-        # are None
         lambda buf, h, fz, sc, stim, amps: fused_shard_box3d_step(
-            buf, h, fz, sc, tableau, rtol, atol))
+            buf, h, fz, sc, tableau, rtol, atol, stim, amps),
+        stims, tuple(float(c) for c in tableau.c))

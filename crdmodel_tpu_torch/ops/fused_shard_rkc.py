@@ -57,6 +57,7 @@ from crdmodel_tpu_torch.ops.fused_rkc import (CHUNK, CHUNK_THREADS,
                                               chunk_schedule, rkc_forcing,
                                               rkc_stages_reference,
                                               stage_times_amplitudes,
+                                              stage_times_table,
                                               static_stage_tables, tile_plan)
 from crdmodel_tpu_torch.ops.fused_shard_step import (check_shard_constants,
                                                      interior,
@@ -288,12 +289,12 @@ def build_shard_rkc_stepper(problem, mesh, rho_fn, pad_spec, consts,
     and calls step(buf, h, fz, s, mu1_tab, ctab_tab, sc, stim, amps) ->
     (y_new, ss partials) on each shard, with h, fz, s and the stage tables
     of s_cap on the shard's device; h_limit is the largest h that s_cap
-    stages stabilize, STAB_FACTOR (s_cap - 1)^2 / rho. With `stims` (K9's
+    stages stabilize, STAB_FACTOR (s_cap - 1)^2 / rho. With `stims` (a
     structured forcing, every shard's StimConstants), the step's amplitude
     table is computed on the control device from that same s, before the
     launches (fused_rkc.stage_times_amplitudes on the stage times of
-    static_stage_tables(with_times=True)) and copied to each shard's
-    device; without, stim and amps are None."""
+    fused_rkc.stage_times_table: K9's 25 columns, K13's 9) and copied to
+    each shard's device; without, stim and amps are None."""
     if rho_fn is None:
         raise ValueError("the sharded fused RKC needs a max-reduced rho_fn")
     dtype = problem.y0.dtype
@@ -303,8 +304,7 @@ def build_shard_rkc_stepper(problem, mesh, rho_fn, pad_spec, consts,
               for d in dict.fromkeys(mesh.device_list())}
     forced = stims is not None
     if forced:
-        ctimes = static_stage_tables(s_cap, dtype, mesh.control,
-                                     with_times=True)[2]
+        ctimes = stage_times_table(s_cap, dtype, mesh.control)
         forcing = stims[0].forcing
     else:
         stims = [None] * len(consts)

@@ -21,10 +21,12 @@ device code as an integer id (KINETICS_IDS, the Kinetics enum of
 csrc/rhs_common.cuh). A structured forcing (core/forcing.py::
 SeparableForcing, every stimulus rank-1) travels to K1, K2, K3 and K4 as
 StimConstants (its row and column profiles) and an amplitude table the
-step computes on the device (stage_amplitudes), and to the shard kernels
-K8-K11 as each shard's StimConstants, its profiles halo-padded like the
-shard's constants (prepare_shard_stim_constants); the kernels' plain
-versions add it as stim_terms does.
+step computes on the device (stage_amplitudes), to the box kernels K6 and
+K7 with a depth table beside the profiles (StimConstants.z), and to the
+shard kernels K8-K13 as each shard's StimConstants, its profiles
+halo-padded like the shard's constants and the box's depth table whole
+(prepare_shard_stim_constants); the kernels' plain versions add it as
+stim_terms does.
 """
 
 from __future__ import annotations
@@ -109,18 +111,22 @@ def forcing_amplitudes(forcing, times, params, dtype):
 
 @dataclasses.dataclass(frozen=True)
 class StimConstants:
-    """A structured forcing's inputs of the fused kernels K1-K4: the
-    stimuli's row and column profiles as contiguous (n_stim, ny) and
-    (n_stim, nx) tensors (ones where a stimulus has none), the variable
-    each drives, and the SeparableForcing whose waveforms give the
-    amplitudes. The kernel reads a stimulus j at point (y, x) of
-    amplitude column a as (amps[j, a] * rows[j, y]) * cols[j, x]; the
-    points of a tile's rings are read at the wrapped indices their state
-    is loaded from."""
+    """A structured forcing's inputs of the fused kernels: the stimuli's
+    row and column profiles as contiguous (n_stim, ny) and (n_stim, nx)
+    tensors (ones where a stimulus has none), the variable each drives,
+    the SeparableForcing whose waveforms give the amplitudes and, on the
+    box (K6, K7, K12, K13), z: the (n_stim, nz) depth table, ones where a
+    stimulus has no zprof (crdmodel_tpu/ops/pallas_box3d.py:385-390); None
+    off the box. The 2-D kernels read a stimulus j at point (y, x) of
+    amplitude column a as (amps[j, a] * rows[j, y]) * cols[j, x], the box
+    kernels at plane k as ((amps[j, a] * z[j, k]) * rows[j, y]) * cols[j,
+    x]; the points of a tile's rings are read at the wrapped indices their
+    state is loaded from."""
     forcing: object
     rows: torch.Tensor
     cols: torch.Tensor
     vars: tuple
+    z: object = None
 
     @property
     def n_stim(self) -> int:
@@ -133,11 +139,14 @@ class StimConstants:
 
     def launch_args(self, amps):
         """The launchers' forcing arguments: amps (n_stim, n_cols), the
-        profiles, n_stim, n_cols and var1_mask."""
+        profiles, n_stim, n_cols and var1_mask; the box launchers' also the
+        depth table after the profiles (csrc/box3d.cuh CRD_BOX_STIM_ARGS)."""
         check_tensor("amps", amps, (self.n_stim, amps.shape[-1]),
                      self.rows.dtype, self.rows.device)
-        return (amps.data_ptr(), self.rows.data_ptr(), self.cols.data_ptr(),
-                self.n_stim, amps.shape[-1], self.var1_mask)
+        tables = (amps, self.rows, self.cols) + (
+            () if self.z is None else (self.z,))
+        return (*(t.data_ptr() for t in tables), self.n_stim,
+                amps.shape[-1], self.var1_mask)
 
 
 # the most stimuli a launch takes: the bits of its var1 mask, an int
@@ -154,15 +163,23 @@ def forcing_of(stim, amps, like):
 
 
 # the launchers' forcing arguments without a forcing: the unforced kernels
+# (the box launchers': NO_BOX_STIM_ARGS, with a null depth table)
 NO_STIM_ARGS = (None, None, None, 0, 0, 0)
+NO_BOX_STIM_ARGS = (None, None, None, None, 0, 0, 0)
 
 
-def stim_args(stim, amps, n_cols):
+def stim_args(stim, amps, n_cols, box: bool = False):
     """The launchers' forcing arguments (StimConstants.launch_args) of an
     amplitude table with one of the column counts `n_cols` the kernel
-    takes, or NO_STIM_ARGS without a forcing (stim None)."""
+    takes, or NO_STIM_ARGS (`box`: NO_BOX_STIM_ARGS) without a forcing
+    (stim None). Raises unless a box launcher's StimConstants carry a
+    depth table and a 2-D launcher's none."""
     if stim is None:
-        return NO_STIM_ARGS
+        return NO_BOX_STIM_ARGS if box else NO_STIM_ARGS
+    if (stim.z is not None) != box:
+        raise ValueError("the box kernels take a forcing with a depth "
+                         "table (StimConstants.z), the 2-D kernels one "
+                         "without")
     if amps.shape[-1] not in n_cols:
         raise ValueError(f"amps has {amps.shape[-1]} columns; the kernel "
                          f"takes {' or '.join(map(str, n_cols))}")
@@ -170,11 +187,13 @@ def stim_args(stim, amps, n_cols):
 
 
 def stim_profiles64(problem):
-    """(forcing, vars, rows, cols) of `problem`'s structured forcing: the
-    stimuli's variables and their row and column profiles as float64
+    """(forcing, vars, rows, cols, z) of `problem`'s structured forcing:
+    the stimuli's variables and their row and column profiles as float64
     (n_stim, ny) and (n_stim, nx) arrays, ones where a stimulus has none;
-    None without a forcing (fused_forcing). Raises on what the kernels do
-    not take."""
+    z on the box the (n_stim, nz) depth table, ones where a stimulus has
+    no zprof (crdmodel_tpu/ops/pallas_box3d.py:385-390), else None; None
+    without a forcing (fused_forcing). Raises on what the kernels do not
+    take."""
     forcing = fused_forcing(problem)
     if forcing is None:
         return None
@@ -195,31 +214,42 @@ def stim_profiles64(problem):
                          else np.asarray(p, np.float64).reshape(n)
                          for p in profiles])
 
+    z = None
+    if problem.geometry.kind == "box":
+        z = stack([st.zprof for st in forcing.stimuli], problem.cfg.nz)
     return (forcing, vars_, stack([st.row for st in forcing.stimuli], ny),
-            stack([st.col for st in forcing.stimuli], nx))
+            stack([st.col for st in forcing.stimuli], nx), z)
 
 
 def prepare_stim_constants(problem, dtype, device):
-    """StimConstants of `problem`'s structured forcing on `device`, or None
-    without one (fused_forcing)."""
+    """StimConstants of `problem`'s structured forcing on `device` (with
+    the depth table on the box), or None without one (fused_forcing)."""
     prof = stim_profiles64(problem)
     if prof is None:
         return None
-    forcing, vars_, rows, cols = prof
-    return StimConstants(
-        forcing=forcing, rows=torch.tensor(rows, dtype=dtype, device=device),
-        cols=torch.tensor(cols, dtype=dtype, device=device), vars=vars_)
+    forcing, vars_, rows, cols, z = prof
+
+    def cast(a):
+        return None if a is None else torch.tensor(a, dtype=dtype,
+                                                   device=device)
+
+    return StimConstants(forcing=forcing, rows=cast(rows), cols=cast(cols),
+                         vars=vars_, z=cast(z))
 
 
 def stim_terms(sc: StimConstants, amps, col: int, like):
     """(F0, F1), the forcing of variables 0 and 1 at amplitude column `col`
-    in plain torch, each of like[0]'s (ny, nx) shape: the sum over the
-    stimuli of each variable, in stimulus order from zero, of
-    (amps[j, col] * rows[j, y]) * cols[j, x], as the kernels add it
-    (csrc/rhs_common.cuh::StimTable::at)."""
+    in plain torch, each of like[0]'s (ny, nx) shape, or (nz, ny, nx) on
+    the box: the sum over the stimuli of each variable, in stimulus order
+    from zero, of (amps[j, col] * rows[j, y]) * cols[j, x], on the box
+    ((amps[j, col] * z[j, k]) * rows[j, y]) * cols[j, x], as the kernels
+    add it (csrc/rhs_common.cuh::StimTable::at, BoxStimTable::at)."""
     f = [torch.zeros_like(like[0]), torch.zeros_like(like[0])]
     for j, v in enumerate(sc.vars):
-        f[v] = f[v] + (amps[j, col] * sc.rows[j][:, None]) * sc.cols[j]
+        amp = amps[j, col]
+        if sc.z is not None:
+            amp = (amp * sc.z[j])[:, None, None]
+        f[v] = f[v] + (amp * sc.rows[j][:, None]) * sc.cols[j]
     return f
 
 
@@ -407,14 +437,16 @@ def prepare_shard_stim_constants(problem, mesh, pad_spec, halo: int,
     mesh's exchange, mirror-aware along a padded axis (_halo_rows,
     _halo_cols), as make_shard_constants pads beta and the freeze mask and
     the JAX kernels' prepare_params pads the sharded "_stim_row_{i}" and
-    "_stim_col_{i}" (crdmodel_tpu/ops/pallas_shard_step.py:149-187). A
-    shard's kernel reads stimulus j at the halo-padded (r, c) its state
-    comes from (csrc/rhs_common.cuh::HaloGrid), a mirror-pad cell its
-    source's values."""
+    "_stim_col_{i}" (crdmodel_tpu/ops/pallas_shard_step.py:149-187); on
+    the box the (n_stim, nz) depth table whole on every shard, z not being
+    sharded (crdmodel_tpu/ops/pallas_shard_box3d.py:196-213). A shard's
+    kernel reads stimulus j at the halo-padded (r, c) its state comes from
+    (csrc/rhs_common.cuh::HaloGrid), a mirror-pad cell its source's
+    values."""
     prof = stim_profiles64(problem)
     if prof is None:
         return None
-    forcing, vars_, rows64, cols64 = prof
+    forcing, vars_, rows64, cols64, z64 = prof
     cfg = problem.cfg
     rows = [_halo_rows(torch.tensor(r, dtype=dtype).reshape(-1, 1), cfg,
                        mesh, pad_spec, halo) for r in rows64]
@@ -423,8 +455,10 @@ def prepare_shard_stim_constants(problem, mesh, pad_spec, halo: int,
     return [StimConstants(
         forcing=forcing,
         rows=torch.stack([r[k].reshape(-1) for r in rows]).contiguous(),
-        cols=torch.stack([c[k] for c in cols]).contiguous(), vars=vars_)
-        for k in range(mesh.size)]
+        cols=torch.stack([c[k] for c in cols]).contiguous(), vars=vars_,
+        z=None if z64 is None else torch.tensor(z64, dtype=dtype,
+                                                device=device))
+        for k, device in enumerate(mesh.device_list())]
 
 
 def check_shard_stim(stim, nyl: int, nxl: int, halo: int, dtype, device):
@@ -1092,18 +1126,21 @@ def box_kernel_laplacian(u, bc):
 
 
 def make_box_rhs_block(bc: KernelConstants, fz):
-    """rhs_block(y) -> ydot: the box kernels' RHS in plain torch on the
-    whole (2, nz, ny, nx) state: the kinetics plus box_kernel_laplacian on
-    variable 0, times live = 1 - fz*(1 - mask) with a freeze (rows j = 0
-    and ny-1 of every plane), times the 0/1 tissue field with an obstacle.
-    csrc/box3d.cuh computes the same expressions in the same order."""
+    """rhs_block(y, f=None) -> ydot: the box kernels' RHS in plain torch on
+    the whole (2, nz, ny, nx) state: the kinetics plus box_kernel_laplacian
+    on variable 0, plus the evaluation's forcing f = (F0, F1) (stim_terms
+    on the box: (nz, ny, nx) each) when given (add_terms), times live =
+    1 - fz*(1 - mask) with a freeze (rows j = 0 and ny-1 of every plane),
+    times the 0/1 tissue field with an obstacle: the forcing before the
+    masks, as the JAX box kernels add it (crdmodel_tpu/ops/
+    pallas_box3d.py:654-667). csrc/box3d.cuh computes the same expressions
+    in the same order."""
     live = _live(bc, fz)
     tissue = getattr(bc, "tissue", None)
 
-    def rhs_block(y):
+    def rhs_block(y, f=None):
         react = bc.model.kinetics(y, bc.b)
-        ydot = torch.stack([react[0] + box_kernel_laplacian(y[0], bc),
-                            react[1]])
+        ydot = add_terms(react, box_kernel_laplacian(y[0], bc), f)
         if live is not None:
             ydot = ydot * live
         if tissue is not None:

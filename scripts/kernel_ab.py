@@ -100,7 +100,10 @@ Goldbeter torus's (2,400,100)), and the shard kernels on shards 0 and
 dopri54), K9 (its (2,848,248), s = 5 and 23), K10 (the Goldbeter
 torus's (2,216,66)) and K11 (the bounded tissue's and, in its aniso mode,
 the torus fibres' (2,816,216), bs32 and dopri54), each with a freeze, fz
-0 and 1, f32 and f64, without a forcing: a digest of each launch's y_new
+0 and 1, f32 and f64, without a forcing; and the box kernels at the
+volumetric slab's shape in the profile and tensor modes: K6 (bs32 and
+dopri54), K7 (s = 5 and 7) and on shards 0 and 3 of its 2x2 mesh K12 and
+K13 alike (time_unforced_box): a digest of each launch's y_new
 (a shard kernel's block of it) and partial sums (sha256 of their bytes),
 which the summary holds equal across the two trees
 (`bitwise_across_trees`), and the device time of the f32 launches at fz
@@ -275,6 +278,7 @@ def time_unforced(cs, label, card):
                  card=card)
     time_unforced_shards(cs, label, card, digest, state, fhn, gb, ap,
                          ap_build)
+    time_unforced_box(cs, label, card, digest)
 
 
 def time_unforced_shards(cs, label, card, digest, state, fhn, gb, ap,
@@ -354,6 +358,99 @@ def time_unforced_shards(cs, label, card, digest, state, fhn, gb, ap,
                     lambda b, fz, sc, tab=TABLEAUS[method], h=h, cfg=cfg: (
                         b, h, fz, sc, tab, cfg.rtol, cfg.atol),
                     bufs, consts, dtype, "fused_erk", f11.HALO)
+
+
+def time_unforced_box(cs, label, card, digest):
+    """--measure unforced's box kernels at the volumetric slab's shape in
+    the profile mode (the noflux slab) and the tensor mode (the transmural
+    tensor), each with a freeze: K6 (bs32, dopri54) and K7 (s = 5 and 7)
+    at (2, 32, 512, 512), K12 (bs32, dopri54) and K13 (s = 5 and 7) on
+    shards 0 and 3 of the slab's 2x2 mesh on cuda:0; fz 0 and 1, f32 and
+    f64: a digest of each launch's y_new (a shard kernel's block of it)
+    and partial sums, and the device time of the f32 launches at fz 0 (a
+    shard kernel's on shard 0)."""
+    import numpy as np
+    import torch
+
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import box_stream
+    from crdmodel_tpu_torch.ops import fused_box3d as f6
+    from crdmodel_tpu_torch.ops import fused_box3d_rkc as f7
+    from crdmodel_tpu_torch.ops import fused_shard_box3d as f12
+    from crdmodel_tpu_torch.ops import fused_shard_box3d_rkc as f13
+    from crdmodel_tpu_torch.ops.fused_rkc import static_stage_tables
+    from crdmodel_tpu_torch.ops.kernel_common import (
+        make_shard_box_constants, prepare_box_constants)
+
+    cfg_box = cs.volumetric_box()
+    mesh = cs.shard_mesh(cs.SHARD_MESH)
+    modes = {label: (c, kw) for label, c, kw in cs.box_modes(cfg_box)}
+
+    def emit_launch(name, case, fn, args, tag, timed, group=1, halo=None):
+        fields = {}
+        if timed:
+            fields["device_us"] = cs.device_ms(lambda: fn(*args), tag,
+                                               group=group) * 1e3
+        y_new, ss = fn(*args)
+        if halo is not None:
+            y_new = f12.interior(y_new, halo).contiguous()
+        emit(label, f"unforced_{name}", case=case,
+             digest=digest(y_new, ss), **fields, card=card)
+
+    for mode in ("noflux_slab", "transmural_tensor"):
+        cfg, build_kw = modes[mode]
+        cfg = dataclasses.replace(cfg, t_boundary=0.1)
+        problem = build_problem(cfg, "cuda", **build_kw)
+        y_np = cs.random_state(cfg, tuple(problem.y0.shape),
+                               np.random.default_rng(cs.SEED))
+        for dtype in (torch.float32, torch.float64):
+            bc = prepare_box_constants(problem, dtype, "cuda")
+            y = torch.tensor(y_np, dtype=dtype, device="cuda")
+            bufs, consts = cs.shard_inputs(problem, mesh, y_np, dtype,
+                                           f12.HALO, make_shard_box_constants)
+            h = torch.tensor(cs.BOX_H, dtype=dtype, device="cuda")
+            mu1, ctab = static_stage_tables(f7.C_RKC, dtype, "cuda")
+            rho = cs.problem_rho(problem, y)
+            rkc_group = (box_stream.rkc_launches(f7.C_RKC)
+                         if box_stream.rkc_uses_stream(bc.kind) else 1)
+            for fz in (0.0, 1.0):
+                fzt = torch.tensor(fz, dtype=dtype, device="cuda")
+                timed = dtype == torch.float32 and not fz
+                for method in ("bs32", "dopri54"):
+                    tab = TABLEAUS[method]
+                    emit_launch("k6", f"{mode}/{method}/fz{fz:g}/{dtype}",
+                                f6.fused_box3d_step,
+                                (y, h, fzt, bc, tab, cfg.rtol, cfg.atol),
+                                box_stream.kernel_name(tab), timed)
+                    for k in (0, 3):
+                        emit_launch(
+                            "k12",
+                            f"{mode}/{method}/shard{k}/fz{fz:g}/{dtype}",
+                            f12.fused_shard_box3d_step,
+                            (bufs[k], h, fzt, consts[k], tab, cfg.rtol,
+                             cfg.atol),
+                            box_stream.kernel_name(tab, shard=True),
+                            timed and k == 0, halo=f12.HALO)
+                for s_val in (5, 7):
+                    hs, st = cs.rkc_step_inputs(s_val, rho, dtype)
+                    emit_launch("k7", f"{mode}/s{s_val}/fz{fz:g}/{dtype}",
+                                f7.fused_box3d_rkc_step,
+                                (y, hs, fzt, st, mu1, ctab, bc, cfg.rtol,
+                                 cfg.atol),
+                                box_stream.rkc_kernel_name(bc.kind), timed,
+                                rkc_group)
+                    for k in (0, 3):
+                        emit_launch(
+                            "k13", f"{mode}/s{s_val}/shard{k}/fz{fz:g}/"
+                            f"{dtype}",
+                            f13.fused_shard_box3d_rkc_step,
+                            (bufs[k], hs, fzt, st, mu1, ctab, consts[k],
+                             cfg.rtol, cfg.atol),
+                            box_stream.rkc_kernel_name(bc.kind, shard=True),
+                            timed and k == 0, rkc_group, halo=f12.HALO)
+            del bc, y, bufs, consts
+        del problem
 
 
 def slots_ptxas(cs, source):

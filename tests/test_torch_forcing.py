@@ -386,12 +386,23 @@ class TestGates:
             row=tforcing.rect_profile(box.ny, 0, 8),
             zprof=tforcing.gaussian_profile(box.nz, 0.0, 1.5)))
         p = build_problem(box, "cpu", forcing=frc)
-        assert not fused_box3d.is_box3d_supported(p, TABLEAUS["bs32"],
-                                                  torch.float32)
-        assert not fused_box3d_rkc.is_box3d_rkc_supported(p, torch.float32)
-        # on the box the torch path evaluates the depth profile
+        # K6 and K7 take a rank-1 forcing with a depth profile (the name
+        # is the one this test had while they declined it)
+        assert fused_box3d.is_box3d_supported(p, TABLEAUS["bs32"],
+                                              torch.float32)
+        assert fused_box3d_rkc.is_box3d_rkc_supported(p, torch.float32)
+        # on the box the plain K6 evaluates the depth profile, as the torch
+        # path does
         res = simulate(box, device="cpu", problem=p)
-        assert res.ok and not res.fused
+        assert res.ok and res.fused
+        torch_path = simulate(dataclasses.replace(box, use_pallas=False),
+                              device="cpu", problem=dataclasses.replace(
+                                  p, cfg=dataclasses.replace(
+                                      box, use_pallas=False)))
+        assert torch_path.ok and not torch_path.fused
+        np.testing.assert_allclose(res.trajectory.numpy(),
+                                   torch_path.trajectory.numpy(), rtol=0,
+                                   atol=1e-5)
         flat = SimConfig(**flat_kw())
         with pytest.raises(ValueError, match="zprof"):
             build_problem(flat, "cpu", forcing=tforcing.SeparableForcing(

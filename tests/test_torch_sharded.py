@@ -10,6 +10,8 @@ The shards of the port are tensors on the CPU (make_mesh(devices=["cpu"] *
 numpy with a seed and go to both packages' build_problem.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -211,9 +213,10 @@ def test_local_rhs_matches_full_grid_rhs():
 def test_unported_branches_raise(change, item):
     """The sharded box, which raised until kernel `item` was ported
     (ROADMAP item 15), runs through it; with a forcing, which raised until
-    the mesh took forcing (item 9's mesh part), `item` declines (the box
-    kernels' forcing is item 9's box part) and the run goes to status ok on
-    the torch path, its depth profile through the forcing's zprof."""
+    the mesh took forcing (item 9's mesh part) and which `item` declined
+    until the box kernels took forcing (item 9's box part), it runs
+    through `item` too, its depth profile in-kernel, to status ok and
+    within 1e-5 of the sharded torch path."""
     from crdmodel_tpu_torch.core import forcing as tforcing
     from crdmodel_tpu_torch.parallel.sharded import select_shard_kernel
     kw, _ = _cfg("fhn_flat")
@@ -227,9 +230,16 @@ def test_unported_branches_raise(change, item):
                           row=tforcing.rect_profile(cfg.ny, 0, 4),
                           zprof=tforcing.gaussian_profile(cfg.nz, 0.0,
                                                           1.5))))
-    assert select_shard_kernel(forced, mesh) == (None, None)
+    assert select_shard_kernel(forced, mesh)[0] == item
     res = simulate_sharded(cfg, mesh=mesh, problem=forced)
-    assert res.ok and not res.fused
+    assert res.ok and res.fused
+    plain = dataclasses.replace(cfg, use_pallas=False)
+    torch_path = simulate_sharded(
+        plain, mesh=mesh, problem=dataclasses.replace(forced, cfg=plain))
+    assert torch_path.ok and not torch_path.fused
+    np.testing.assert_allclose(res.trajectory.numpy(),
+                               torch_path.trajectory.numpy(), rtol=0,
+                               atol=1e-5)
 
 
 @pytest.mark.parametrize("name", ["uneven_bs32", "ap_noflux_obstacle",
