@@ -6,6 +6,8 @@
     python3 chip_smoke.py --stream      # the run entry point's phases alone
     python3 chip_smoke.py --forced      # the forcing slice's phases alone
     python3 chip_smoke.py --box-forced  # forcing on the box alone
+    python3 chip_smoke.py --kinetics    # the six other families alone
+    python3 chip_smoke.py --timing      # the whole run, every timing case
 
 Builds the CUDA kernels from crdmodel_tpu_torch/csrc, holds each against its
 plain PyTorch version on the card (K1, the fused ERK step, y_new and every
@@ -146,6 +148,20 @@ unforced slab is, and through simulate_sharded() on a 2x2 mesh
 single-device paced runs, each traced through its forced kernel; their
 walls beside the unforced slab runs' (paced_box_walls). The kernels
 line's K6, K7, K12 and K13 entries carry their forced fields.
+The six other kinetics families (kinetics_phases, after the box's
+forced phases): Barkley, the Oregonator, Gray-Scott, the Brusselator,
+lambda-omega and SIR through K1 (bs32, dopri54), K2 (s = 2, 5, 7, 23) and
+K3 at the JAX soak matrix's 800x3200 torus and on an odd 148x37 torus,
+f32 and f64: y_new and every partial sum bitwise the plain version's,
+each launch's kernel traced (kinetics_kernels); each timed at the soak
+shape with its bound, registers and spills (kinetics_timing); the twelve
+golden fixtures of those families in f64 through K1, K2 and K3, each
+taking the port's torch path's recorded step sequence exactly
+(kinetics_fixtures); and the soak matrix's 18 runs
+(scripts/soak_matrix.py's physics, 800x3200 torus, Tf cut to SOAK_TF) through
+simulate() with the kernels selected, held to the port's torch path on
+the card (soak_matrix). The kernels line carries a K1, K2 and K3 entry of
+each family.
 Each run is checked against the JAX package's CPU runs recorded in
 tests/golden/torch_canonical_{fhn,goldbeter}[_method]_probes.npz (the
 speculative and ARK_NORMAL runs against
@@ -166,7 +182,8 @@ when every phase passed. Imports nothing of JAX.
 
 With --forced it builds the kernels and runs only the forcing slice's
 phases, on one device, on a mesh and on the box (with --box-forced only
-the box's); no kernels line and no last line.
+the box's); with --kinetics only the six other families' phases; no
+kernels line and no last line.
 With --profile it checks nothing: it builds the kernels and traces, with
 torch.profiler, the bounded cardiac tissue with bs32 and rkc2, the fibered
 sheet and the wide sheet over short horizons, the three slab runs over
@@ -280,6 +297,17 @@ K9_STAGES = (2, 5, 6, 12, 17, 23)
 # an accuracy-limited step, the sharded 10.24M-point run's most common
 # stage count, a stability-bound step
 K9_TIMED_STAGES = (5, 12, 23)
+# the timing phases of the kernels and branches the six families' slice
+# left alone (K2's divergence branch, K2b at s = 5 and 9, K3's base
+# instantiation at (2,3200,800), K6, K7, K12, K13 in their three other
+# modes, K14 at K = 2 and 10 and its traced comparison with K1) run with
+# --timing, and every timing with its full samples (N_TIMED, BURST and
+# each phase's own); the default run times each only where the kernels
+# line reads it, with at most QUICK_TIMED's samples and calls a sample
+# of CUDA events and QUICK_DEVICE traced calls (PERF.md section 5)
+TIMING_ALL = False
+QUICK_TIMED = (5, 2)
+QUICK_DEVICE = 20
 # K14's checks: (tableau, K) of the JAX gate's reach at P = 8..32, the
 # n_commit values of each (0, 1, K-1, K), and the K it is timed at
 K14_BATCHES = (("bs32", 2), ("bs32", 5), ("bs32", 10), ("dopri54", 2))
@@ -304,7 +332,11 @@ def card_line() -> str:
 def median_ms(fn, n=N_TIMED, per_sample=BURST):
     """Median over n samples of the time of one call of fn, from CUDA
     events around a burst of back-to-back calls (one call alone on an idle
-    card would also time the host issuing it)."""
+    card would also time the host issuing it); without --timing at most
+    QUICK_TIMED's samples and calls a sample."""
+    if not TIMING_ALL:
+        n, per_sample = min(n, QUICK_TIMED[0]), min(per_sample,
+                                                     QUICK_TIMED[1])
     fn()
     torch.cuda.synchronize()
     times = []
@@ -703,7 +735,7 @@ def check_rkc_divform_kernel(cases):
     rho = problem_rho(problem, y)
     timing = {s: rkc_timing(y, *rkc_step_inputs(s, rho, torch.float32), mu1,
                             ctab, dc, cfg)
-              for s in K2_TIMED_STAGES}
+              for s in (K2_TIMED_STAGES if TIMING_ALL else ())}
     return worst, timing
 
 
@@ -742,7 +774,8 @@ def check_wide_rkc_kernel(cfg):
     rho = problem_rho(problem, y)
     timing = {s: rkc_timing(y, *rkc_step_inputs(s, rho, dtype), mu1, ctab,
                             kc, cfg, timed=WIDE_TIMED)
-              for s in K2B_TIMED_STAGES}
+              for s in (K2B_TIMED_STAGES if TIMING_ALL
+                        else (max(K2B_TIMED_STAGES),))}
     return worst, timing
 
 
@@ -1170,12 +1203,13 @@ def transmural_tensor(cfg, d_par=1.0, d_perp=0.25, d_trans=0.02,
         np.zeros(shape), np.zeros(shape)))
 
 
-def torch_path_run(cfg, build_kw, dtype):
+def torch_path_run(cfg, build_kw, dtype, rkc_h_limit=None):
     """`cfg` (built with `build_kw`) through the port's torch path on the
     card (use_pallas=False) in `dtype`; rkc2 with K7's h cap
-    (ops/fused_box3d_rkc.py::box_rkc_h_limit), so that it takes the stage
-    budget the kernel takes, and a forcing's pulse edges as breakpoints,
-    as simulate() takes them. Returns (trajectory, steps, wall s, ok)."""
+    (ops/fused_box3d_rkc.py::box_rkc_h_limit), or rkc_h_limit(rho_fn,
+    dtype)'s (K2's: k2_h_limit), so that it takes the stage budget the
+    kernel takes, and a forcing's pulse edges as breakpoints, as
+    simulate() takes them. Returns (trajectory, steps, wall s, ok)."""
     import time
 
     from crdmodel_tpu_torch.core.problem import (build_problem,
@@ -1202,7 +1236,8 @@ def torch_path_run(cfg, build_kw, dtype):
         rtol=c.rtol, atol=c.atol, method="rkc2", max_steps=c.max_steps,
         breakpoints=solver_breakpoints(c, problem.forcing),
         step_mode=c.step_mode,
-        rho_fn=rho_fn, h_limit_fn=box_rkc_h_limit(rho_fn, problem.y0.dtype))
+        rho_fn=rho_fn, h_limit_fn=(rkc_h_limit or box_rkc_h_limit)(
+            rho_fn, problem.y0.dtype))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return (torch.cat([problem.y0[None], traj]), int(stats.steps.sum()),
@@ -1616,12 +1651,14 @@ def traced_mean_us(run, tag):
 
 def device_ms(fn, tag, n=N_TIMED, group=1):
     """The median device duration of the kernels whose name holds `tag`
-    over at least n calls of fn, from pooled torch.profiler traces
-    (ops/trace.py::device_ms; with `group`, the sum of a call's `group`
-    such kernels): a kernel's own time where the host's issue of each call
-    takes longer than the kernel."""
+    over at least n calls of fn (without --timing at most QUICK_DEVICE),
+    from pooled torch.profiler traces (ops/trace.py::device_ms; with
+    `group`, the sum of a call's `group` such kernels): a kernel's own
+    time where the host's issue of each call takes longer than the
+    kernel."""
     from crdmodel_tpu_torch.ops import trace
-    return trace.device_ms(fn, tag, n, group=group)
+    return trace.device_ms(fn, tag, n if TIMING_ALL else min(n, QUICK_DEVICE),
+                           group=group)
 
 
 def profile_run(cfg, build_kw, t_final, kernel_tag, mesh=None):
@@ -1761,7 +1798,7 @@ def box_phases(cfg_box, card):
          for label, c, kw in modes]
         + [("fhn_beta_ramp", fhn_box(cfg_box), {}, None)]
         + stream_edge_boxes(cfg_box), SEED + 8)
-    timings = box_timings(modes, card)
+    timings = box_timings(modes if TIMING_ALL else modes[:1], card)
     launches6, launches7, singles = box_main_paths(cfg_box)
     return [
         kernel_entry("fused_box3d_step", "fused_box3d.cu",
@@ -2082,7 +2119,8 @@ def shard_box_phases(cfg_box, singles, card, walls=None):
     cases += [("fhn_beta_ramp_2x2", fhn, {}, SHARD_MESH, (0, 3)),
               ("fhn_beta_ramp_uneven_1x3", fhn, {}, UNEVEN_MESH, (0, 1, 2))]
     worst12, worst13 = check_shard_box_kernels(cases, SEED + 12)
-    timings = shard_box_timings(box_modes(cfg_box), card)
+    modes = box_modes(cfg_box)
+    timings = shard_box_timings(modes if TIMING_ALL else modes[:1], card)
     launches12, launches13 = sharded_slab_main_paths(cfg_box, singles,
                                                      walls)
     return [
@@ -2981,7 +3019,7 @@ def kstep_timing(cfg, card):
     k1_ms = median_ms(lambda: fs.fused_step(y, h, fz, kc, tab, cfg.rtol,
                                             cfg.atol))
     timings = {}
-    for k in K14_TIMED:
+    for k in K14_TIMED if TIMING_ALL else (K14_SPEC,):
         n = torch.tensor(k, dtype=torch.int32, device="cuda")
 
         def launch():
@@ -3080,7 +3118,7 @@ def kstep_main_paths(cfg, cfg_gb, probes, single_fhn, card):
         report=kstep_report(K14_SPEC), keep=kept)
     traced = {name: profile_run(c, {}, 5.0, tag) for name, c, tag in (
         ("per_step", cfg, erk_slots.kernel_name(TABLEAUS[cfg.method])),
-        ("kstep", cfg_k, "fused_kstep_kernel"))}
+        ("kstep", cfg_k, "fused_kstep_kernel"))} if TIMING_ALL else {}
     phase("kstep_vs_per_step", config=fhn_label, k=K14_SPEC,
           steps=kept["steps"], per_step_steps=single_fhn["steps"],
           wall_s=kept["wall_s"], per_step_wall_s=single_fhn["wall_s"],
@@ -5005,6 +5043,556 @@ def box_forced_phases(cfg_box, card, unforced=None):
             worst13, *timings["k13", s], n["k13"])}
 
 
+# --- the six other kinetics families (K1, K2 and K3) --------------------
+
+# the families beyond the base three (ops/kernel_common.py::NEW_FAMILIES),
+# and their physics in the JAX package's soak matrix, which puts each in
+# its interesting regime at 800x3200 (scripts/soak_matrix.py:27-32)
+KIN_FAMILIES = ("barkley", "grayscott", "oregonator", "brusselator", "sir",
+                "lambdaomega")
+SOAK_PHYSICS = {
+    "barkley": dict(beta=0.05, diffusion=1.0),
+    "grayscott": dict(beta=0.03, diffusion=2e-5),
+    "oregonator": dict(beta=1.5, diffusion=1.0),
+    "brusselator": dict(beta=1.9, diffusion=0.2),
+    "sir": dict(beta=1.5, diffusion=1.0),
+    "lambdaomega": dict(beta=0.5, diffusion=0.5),
+}
+SOAK_METHODS = ("bs32", "rkc2", "ark324")
+SOAK_LABEL = ("scripts/soak_matrix.py:27-32,51-56 {} torus 800x3200 {}, "
+              "Tf cut 0.5 -> {}")
+# the matrix's horizon, cut from its 0.5 (scripts/soak_matrix.py:38) to
+# fit the script's time limit: the torch-path references take ~3 ms a
+# bs32 step and ~40 ms an ark324 step at 2.56M points (PERF.md section 4)
+SOAK_TF = 0.005
+# the soak runs' step gates against the port's torch path in f32: bs32
+# 1%, rkc2 the JAX f32-f64 rkc2 gap (2.78%, run_main_path), at least one
+# step (14-50% of Gray-Scott's runs of 2-7 steps). ark324's run follows
+# the order of its error's partial sums there (a third of its steps
+# rejected at the explicit stages' stability edge; PERF.md section 6): the
+# plain K3 with the torch path's one-sum order takes the torch path's
+# steps and field, with the kernel's tile order the kernel's (2-7% fewer
+# steps, fields 3e-4 to 0.017 apart), so ark324's steps and field are
+# held to that plain run, exactly, and their distance to the torch path
+# is printed
+SOAK_STEP_TOL = {"bs32": 0.01, "rkc2": 0.0278}
+# the kinetics kernels' checks: K2's stage counts (one chunk, two, four),
+# and the explicit steps' h rho (inside bs32's, dopri54's and the ARK
+# explicit part's stability; rho the RKC2 bound, problem_rho)
+KIN_K2_STAGES = (2, 5, 7, 23)
+KIN_H_RHO = 1.0
+# operations a point, counted as KINETICS_OPS and JACOBIAN_OPS are, and
+# the Cramer solve of 2 or 3 variables with the Newton's residual and
+# update (imex_ops' 35 for two)
+KINETICS_OPS.update(barkley=8, oregonator=10, grayscott=9, brusselator=8,
+                    lambdaomega=14, sir=5)
+JACOBIAN_OPS.update(barkley=15, oregonator=15, grayscott=8, brusselator=7,
+                    lambdaomega=29, sir=5)
+SOLVE_OPS = {2: 35, 3: 80}
+
+
+def soak_cfg(model, method, **kw):
+    """The soak matrix's run of `model` with `method`: an 800x3200 torus
+    (2.56M points), Tf = SOAK_TF, f32 (scripts/soak_matrix.py:51-56)."""
+    from crdmodel_tpu_torch.config import SimConfig
+    return SimConfig(**{**dict(
+        model=model, surface="torus", x_mesh=800, surface_width=20,
+        surface_length=80, t_final=SOAK_TF, output_timestep=1,
+        wave_length=0.2, wave_width=0.5, dtype="float32", rtol=1e-5,
+        atol=1e-8, method=method), **SOAK_PHYSICS[model], **kw})
+
+
+def family_state(model, shape, rng):
+    """A random state of a family inside the range its runs visit."""
+    lo, hi = {"barkley": ((0.0, 0.0), (1.0, 0.6)),
+              "oregonator": ((0.002, 0.0), (0.9, 0.6)),
+              "grayscott": ((0.2, 0.0), (1.0, 0.5)),
+              "brusselator": ((0.5, 1.0), (1.5, 2.5)),
+              "lambdaomega": ((-1.0, -1.0), (1.0, 1.0)),
+              "sir": ((0.5, 0.0, 0.0), (1.0, 0.5, 0.5))}[model]
+    return np.stack([rng.uniform(a, b, shape[1:]) for a, b in zip(lo, hi)])
+
+
+def family_rhs_ops(kc):
+    """Operations of one RHS evaluation of a family at a point: kinetics,
+    the operator, its ratio and its sum on each diffusing variable, the
+    freeze (live and a product a variable)."""
+    model = kc.model
+    ops = KINETICS_OPS[model.name] + sum(
+        OPERATOR_OPS[kc.kind] + 1 + (r != 1.0)
+        for r in model.diffusion_ratios)
+    return ops + (3 + model.nvars if kc.has_freeze else 0)
+
+
+def family_step_ops(kc, method, s=None):
+    """Operations a point of one step of K1 (bs32), K2 (stage count s) or
+    K3 on a family, as erk_ops, rkc_ops and imex_ops count them, a
+    variable's share of each per-variable term taken nvars times."""
+    from crdmodel_tpu_torch.integrate import imex
+    from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    nv, nd = kc.model.nvars, len(kc.model.diffusive_vars)
+    weights = 7 * nv
+    rhs = family_rhs_ops(kc)
+    if method == "rkc2":
+        return (s + 1) * rhs + nv * (2 + 9 * (s - 1) + 5) + weights
+    if method == "bs32":
+        tab = TABLEAUS["bs32"]
+        nnz = sum(int(np.count_nonzero(x))
+                  for x in (tab.a, tab.b, tab.b - tab.bhat))
+        return tab.stages * rhs + 2 * nv * nnz + weights
+    freeze = 1 if kc.has_freeze else 0
+    op = nd * (OPERATOR_OPS[kc.kind] + 1 + freeze)
+    kin = KINETICS_OPS[kc.model.name] + nv * freeze
+    newton = (JACOBIAN_OPS[kc.model.name] + nv * nv * freeze + kin
+              + SOLVE_OPS[nv])
+    known = sum((nd * 2) * (imex.AE[s_][j] != 0.0)
+                + (nv * 2) * (imex.AI[s_][j] != 0.0)
+                for s_ in range(imex.STAGES) for j in range(s_))
+    nnz_bd = sum(int(x != 0.0) for x in (*imex.B, *imex.D))
+    return (4 * op + kin + 3 * (2 * nv + 3 * newton + 2 * nv + weights)
+            + known + 2 * nv + 2 * nv * nnz_bd + weights + 2)
+
+
+def kin_steps(kc, y, rho, method, s=None):
+    """(call, plain call, tile sums, args, kernel tag) of one K1 (bs32, or
+    dopri54), K2 (stage count s, h its stability coverage) or K3 step of a
+    family on y, unfrozen, h = KIN_H_RHO / rho for K1 and K3: the
+    wrapper, its plain version, its partial sums' plain version, their
+    arguments and the kernel's name."""
+    from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import fused_imex as fi
+    from crdmodel_tpu_torch.ops import fused_rkc as fr
+    from crdmodel_tpu_torch.ops import fused_step as fs
+    dev = dict(dtype=y.dtype, device="cuda")
+    fz = torch.zeros((), **dev)
+    h = torch.tensor(KIN_H_RHO / rho, **dev)
+    if method == "rkc2":
+        mu1, ctab = fr.static_stage_tables(fr.S_MAX_KERNEL, y.dtype, "cuda")
+        h, st = rkc_step_inputs(s, rho, y.dtype)
+        args = (y, h, fz, st, mu1, ctab, kc, 1e-5, 1e-8)
+        return (fr.fused_rkc_step, fr.fused_rkc_step_reference,
+                fr.fused_rkc_tile_sums, args, "fused_rkc_chunk_n_kernel")
+    if method == "ark324":
+        args = (y, h, fz, kc, 1e-5, 1e-8)
+        return (fi.fused_imex_step, fi.fused_imex_step_reference,
+                fi.fused_imex_tile_sums, args, "fused_imex_slots_n_kernel")
+    args = (y, h, fz, kc, TABLEAUS[method], 1e-5, 1e-8)
+    tag = ("fused_erk_slots_n_kernel" if method == "bs32"
+           else "fused_erk_tile_n_kernel")
+    return (fs.fused_step, fs.fused_step_reference, fs.fused_step_tile_sums,
+            args, tag)
+
+
+def check_kinetics_kernels():
+    """Phase kinetics_kernels: each new family's K1 (bs32 and dopri54), K2
+    (KIN_K2_STAGES) and K3 against their plain versions on the card, at
+    the soak shape and on an odd 148x37 torus (partial tiles on both axes,
+    a grid narrower than a K2 region, with a freeze), f32 and f64: y_new
+    and every partial sum bitwise, two launches bitwise, each launch's
+    kernel traced once at the soak shape (the families' kernel of the
+    dispatch, ops/trace.py::kernel_names). Returns {kernel:
+    {dtype: max |y_kernel - y_plain|}}."""
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.ops import trace
+    from crdmodel_tpu_torch.ops.kernel_common import prepare_constants
+
+    rng = np.random.default_rng(SEED + 22)
+    worst = {k: {torch.float32: 0.0, torch.float64: 0.0}
+             for k in ("k1", "k2", "k3")}
+    runs = ([("k1", "bs32", None), ("k1", "dopri54", None)]
+            + [("k2", "rkc2", s) for s in KIN_K2_STAGES]
+            + [("k3", "ark324", None)])
+    for model in KIN_FAMILIES:
+        soak = soak_cfg(model, "bs32")
+        for cfg in (soak, soak_cfg(model, "bs32", x_mesh=37,
+                                   t_boundary=0.1)):
+            problem = build_problem(cfg, device="cuda")
+            y_np = family_state(model, tuple(problem.y0.shape), rng)
+            for dtype in (torch.float32, torch.float64):
+                kc = prepare_constants(problem, dtype, "cuda")
+                y = torch.tensor(y_np, dtype=dtype, device="cuda")
+                rho = problem_rho(problem, y)
+                for kernel, method, s in runs:
+                    call, plain, sums, args, tag = kin_steps(kc, y, rho,
+                                                             method, s)
+                    if dtype == torch.float32 and cfg is soak:
+                        names = trace.kernel_names(lambda: call(*args), n=1)
+                        if not all(tag in n for n in names):
+                            raise AssertionError(
+                                f"kinetics_kernels: {model} {method} ran "
+                                f"{sorted(set(names))}, not {tag}")
+                    err = check_pair(
+                        "kinetics_kernels",
+                        dict(model=model, kernel=kernel, method=method, s=s,
+                             shape=list(y.shape), kernel_name=tag,
+                             freeze=kc.has_freeze),
+                        *call(*args), *call(*args), *plain(*args), dtype, y,
+                        bitwise=True, ss_tiles=sums(*args))
+                    worst[kernel][dtype] = max(worst[kernel][dtype], err)
+    return worst
+
+
+def kinetics_timing(card):
+    """Phase kinetics_timing: each new family's K1 (bs32), K2 (s = 5 and
+    23) and K3 launch at the soak shape from its IC, f32: device µs from
+    profiler traces (device_ms), the plain version's (CUDA events), the
+    bound from the family's bytes (nvars planes in and out) and
+    operations (family_step_ops), the launched kernel's registers,
+    blocks an SM and shared bytes, and ptxas's registers and spills of
+    its instantiation. Returns {(model, kernel): (ms, plain ms, bound ms,
+    bound_by)}."""
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.ops import erk_slots
+    from crdmodel_tpu_torch.ops import fused_imex as fi
+    from crdmodel_tpu_torch.ops import fused_rkc as fr
+    from crdmodel_tpu_torch.ops.kernel_common import prepare_constants
+
+    out = {}
+    for model in KIN_FAMILIES:
+        problem = build_problem(soak_cfg(model, "bs32"), device="cuda")
+        kc = prepare_constants(problem, torch.float32, "cuda")
+        y = problem.y0.contiguous()
+        rho = problem_rho(problem, y)
+        kid = kc.kinetics_id
+        plan = fi.slots_plan(*y.shape[1:], 4, y.shape[0],
+                             len(kc.model.diffusive_vars))
+        for kernel, method, s, source, info in (
+                ("k1", "bs32", None, "fused_step_families.cu",
+                 lambda: erk_slots.kernel_info(
+                     "crd_fused_erk_step_families_info", torch.float32,
+                     kid)),
+                ("k2", "rkc2", 5, "fused_rkc_families.cu",
+                 lambda: fr.kernel_info(torch.float32, False, kid)),
+                ("k2", "rkc2", 23, "fused_rkc_families.cu",
+                 lambda: fr.kernel_info(torch.float32, False, kid)),
+                ("k3", "ark324", None, "fused_imex_families.cu",
+                 lambda: fi.kernel_info(torch.float32, kid, plan.tile_y))):
+            call, plain, _, args, tag = kin_steps(kc, y, rho, method, s)
+            extra = 0
+            if method == "rkc2":
+                extra = sum(t.numel() * t.element_size() for t in args[4:6])
+            t = (device_ms(lambda: call(*args), tag),
+                 median_ms(lambda: plain(*args), 10, 2),
+                 *bound(y, kc, family_step_ops(kc, method, s), extra))
+            out[model, kernel, s] = t
+            phase("kinetics_timing", model=model, kernel=kernel,
+                  method=method, s=s, shape=list(y.shape), dtype="float32",
+                  kernel_us=t[0] * 1e3, plain_us=t[1] * 1e3,
+                  bound_us=t[2] * 1e3, bound_by=t[3],
+                  times_bound=t[0] / t[2], kernel_name=tag, **info(),
+                  ptxas=[e for e in ptxas_entries(source, tag)
+                         if e["kernel"].startswith(f"ILi{kid}E")],
+                  card=card)
+    return out
+
+
+def k2_h_limit(rho_fn, dtype):
+    """The h cap of K2's stage budget, STAB_FACTOR (S_MAX_KERNEL - 1)^2 /
+    rho (ops/fused_rkc.py::build_fused_rkc_step's h_limit): the cap a
+    torch-path rkc2 run takes to follow the kernel's step sequence."""
+    from crdmodel_tpu_torch.integrate import rkc
+    from crdmodel_tpu_torch.ops.fused_rkc import S_MAX_KERNEL
+
+    def h_limit(t, y, params):
+        rho = rho_fn(t, y, params).to(dtype)
+        return (rkc.STAB_FACTOR * (S_MAX_KERNEL - 1) ** 2
+                / torch.clamp_min(rho, 1e-30)).to(dtype)
+
+    return h_limit
+
+
+def plain_in_kernel_order(method):
+    """(module, name, stand-in) of K1's (bs32), K2's or K3's wrapper: the
+    kernel's plain version, returning its partial sums in the kernel's
+    order (fused_step_tile_sums', fused_rkc_tile_sums' and
+    fused_imex_tile_sums' arithmetic, the stages computed once), so that
+    a run through it takes the kernel's run exactly when each launch is
+    bitwise its plain version (unforced)."""
+    from crdmodel_tpu_torch.ops import fused_imex as fi
+    from crdmodel_tpu_torch.ops import fused_rkc as fr
+    from crdmodel_tpu_torch.ops import fused_step as fs
+    from crdmodel_tpu_torch.ops.fused_kstep import tile_error_sums
+    from crdmodel_tpu_torch.ops.kernel_common import make_rhs_block
+
+    if method == "rkc2":
+        def step(y, h, fz, s, mu1, ctab, kc, rtol, atol, stim=None,
+                 amps=None):
+            y_new, est = fr.rkc_stages_reference(y, h, s, mu1, ctab,
+                                                 make_rhs_block(kc, fz))
+            return y_new, tile_error_sums(est, y, rtol, atol, fr.CHUNK_TILE,
+                                          fr.CHUNK_TILE, fr.CHUNK_THREADS)
+        return fr, "fused_rkc_step", step
+    if method == "ark324":
+        def step(y, h, fz, kc, rtol, atol, stim=None, amps=None):
+            y_new, err, dys = fi.imex_stages_reference(y, h, fz, kc)
+            tile_y = fi.slots_plan(y.shape[1], y.shape[2],
+                                   y.element_size()).tile_y
+            return y_new, fi.imex_tile_sums(err, dys, y, rtol, atol, tile_y)
+        return fi, "fused_imex_step", step
+
+    def step(y, h, fz, kc, tableau, rtol, atol, stim=None, amps=None):
+        y_new, err = fs.erk_stages_reference(y, h, make_rhs_block(kc, fz),
+                                             tableau)
+        tile_y = fs.tile_plan(tableau.stages, y.element_size(),
+                              y.shape[0])[1]
+        return y_new, tile_error_sums(err, y, rtol, atol, tile_y)
+    return fs, "fused_step", step
+
+
+def plain_ordered_run(cfg):
+    """`cfg` through simulate() on the card with its kernel's wrapper
+    replaced by plain_in_kernel_order's stand-in."""
+    from crdmodel_tpu_torch.sim import simulate
+    module, name, step = plain_in_kernel_order(cfg.method)
+    wrapper = getattr(module, name)
+    setattr(module, name, step)
+    try:
+        return simulate(cfg, "cuda")
+    finally:
+        setattr(module, name, wrapper)
+
+
+def soak_matrix(card):
+    """Phase soak_matrix: the 18 runs of the new families x {bs32, rkc2,
+    ark324} at the soak shape through simulate() on the card with the
+    default selection (2.56M points > PALLAS_AUTO_POINTS), each with the
+    kernel selected (res.fused, every step through K1, K2 or K3, the
+    launch counts zeroed just before the run), held to the port's torch
+    path on the card in f32 (use_pallas=False; rkc2 with K2's h cap):
+    status ok, finite, and for bs32 and rkc2 steps within SOAK_STEP_TOL
+    (one step at least) and the final field within the family's
+    torch-path f32-f64 gap (bs32, one f64 run a family) plus 1e-4 (for
+    ark324 both printed; SOAK_STEP_TOL's comment); and to its plain
+    version's run in the kernel's sum order (plain_ordered_run): the same
+    steps and the trajectory bitwise. Returns {(model, method):
+    launches}."""
+    from crdmodel_tpu_torch.ops import fused_imex, fused_rkc, fused_step
+
+    kernels = {"bs32": fused_step.fused_step,
+               "rkc2": fused_rkc.fused_rkc_step,
+               "ark324": fused_imex.fused_imex_step}
+    launches = {}
+    for model in KIN_FAMILIES:
+        ref64 = torch_path_run(soak_cfg(model, "bs32"), {}, "float64",
+                               k2_h_limit)
+        gap = None
+        for method in SOAK_METHODS:
+            cfg = soak_cfg(model, method)
+            kernel = kernels[method]
+            res, counts = drive_main_path(cfg, {})
+            launches[model, method] = counts[kernel.__name__]
+            checks = run_checks(cfg, res, kernel, launches[model, method])
+            ref = torch_path_run(cfg, {}, "float32", k2_h_limit)
+            if gap is None:
+                gap = float((ref[0][-1].double() - ref64[0][-1]).abs().max())
+            final = float((res.trajectory[-1] - ref[0][-1]).abs().max())
+            plain = plain_ordered_run(cfg)
+            plain_same = (same_bits(res.trajectory, plain.trajectory)
+                          and all(torch.equal(getattr(res.stats, n),
+                                              getattr(plain.stats, n))
+                                  for n in ("steps", "accepted",
+                                            "rejected", "status")))
+            steps, tol = res.total_steps(), SOAK_STEP_TOL.get(method)
+            step_limit = None if tol is None else max(tol * ref[1], 1)
+            phase("soak_matrix",
+                  config=SOAK_LABEL.format(model, method, cfg.t_final),
+                  selection=selection_note(cfg), grid=[cfg.ny, cfg.nx],
+                  nvars=res.problem.model.nvars, method=method,
+                  t_final=cfg.t_final, status=res.describe(),
+                  fused=res.fused, steps=steps,
+                  accepted=int(res.stats.accepted.sum()),
+                  rejected=int(res.stats.rejected.sum()),
+                  kernel=kernel.__name__, launches=counts,
+                  wall_s=res.wall_time,
+                  us_per_step=res.wall_time / steps * 1e6,
+                  torch_path=dict(steps=ref[1], wall_s=ref[2], ok=ref[3]),
+                  torch_path_f64_bs32=dict(steps=ref64[1], wall_s=ref64[2],
+                                           ok=ref64[3]),
+                  step_limit=step_limit, final_max_abs_vs_torch_path=final,
+                  f32_f64_gap=gap, final_limit=gap + 1e-4,
+                  plain_in_kernel_order=dict(steps=plain.total_steps(),
+                                             wall_s=plain.wall_time,
+                                             bitwise=plain_same),
+                  card=card)
+            if tol is not None:
+                checks[f"steps within {tol:.2%} (one step at least) of the "
+                       "torch path"] = abs(steps - ref[1]) <= step_limit
+                checks["final field within the f32-f64 gap + 1e-4"] = (
+                    final <= gap + 1e-4)
+            checks.update({
+                "torch path ok": ref[3] and ref64[3],
+                "the plain version's run in the kernel's order, bitwise":
+                    plain_same})
+            fail_unless("soak_matrix", checks)
+            del res
+    return launches
+
+
+def kernel_run(problem):
+    """(trajectory, stats) of `problem` on the card with every step through
+    K1 (bs32), K2 (rkc2) or K3 (ark324), in the problem's dtype: the
+    steppers select_stepper builds on the fused path (sim.py), here built
+    whatever the gates' f32 rule says, f64 being the kernels' parity
+    tool."""
+    from crdmodel_tpu_torch.core.problem import (make_rhs, make_rho_bound,
+                                                 solver_breakpoints)
+    from crdmodel_tpu_torch.integrate import imex, rkc
+    from crdmodel_tpu_torch.integrate.erk import (TABLEAUS,
+                                                  integrate_to_outputs)
+    from crdmodel_tpu_torch.ops import fused_imex, fused_rkc, fused_step
+    from crdmodel_tpu_torch.sim import output_times
+
+    cfg, dtype = problem.cfg, problem.y0.dtype
+    if cfg.method == "rkc2":
+        rho_fn = make_rho_bound(cfg, problem.model, problem.geometry, dtype)
+        frkc = fused_rkc.build_fused_rkc_step(problem, dtype, rho_fn=rho_fn)
+        kw = dict(rho_fn=rho_fn, step_err=frkc.step_err,
+                  err_order=rkc.ERR_ORDER, h_limit_fn=frkc.h_limit)
+    else:
+        if cfg.method == "ark324":
+            step = fused_imex.build_fused_imex_step(problem)
+            kw = dict(rhs_split=make_rhs(cfg, problem.model,
+                                         problem.geometry, dtype,
+                                         problem.device, split=True),
+                      err_order=imex.ERR_ORDER)
+        else:
+            tableau = TABLEAUS[cfg.method]
+            step = fused_step.build_fused_step(problem, tableau)
+            kw = dict(err_order=tableau.err_order)
+        kw["step_err"] = lambda t, y, h, p, carry: (*step(t, y, h, p), ())
+    return integrate_to_outputs(
+        problem.rhs, problem.y0, problem.params, 0.0, output_times(cfg),
+        rtol=cfg.rtol, atol=cfg.atol, method=cfg.method,
+        max_steps=cfg.max_steps, breakpoints=solver_breakpoints(cfg),
+        step_mode=cfg.step_mode, spec_k=0, **kw)
+
+
+def fixture_run(model, surface, method):
+    """One golden fixture of the new families in f64 on the card through
+    K1, K2 or K3 (bs32, rkc2 or ark324; kernel_run): (phase fields,
+    checks) (fixture_runs)."""
+    from crdmodel_tpu_torch.config import SimConfig
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.ops import fused_imex, fused_rkc, fused_step
+
+    kernel = {"bs32": fused_step.fused_step,
+              "rkc2": fused_rkc.fused_rkc_step,
+              "ark324": fused_imex.fused_imex_step}[method]
+    base = dict(x_mesh=16, surface_width=20, surface_length=40,
+                t_final=1.0, output_timestep=2, wave_length=0.1,
+                wave_width=0.5, dtype="float64", rtol=1e-7, atol=1e-11)
+    with np.load(FIXTURE_STATS) as z:
+        recorded = dict(z)
+    case = f"{model}_{surface}"
+    cfg = SimConfig(**{**base, **FIXTURE_PHYSICS[model], "model": model,
+                       "surface": surface, "method": method})
+    problem = build_problem(cfg, "cuda")
+    count = zero_launches()
+    traj, stats = kernel_run(problem)
+    launches = count()[kernel.__name__]
+    key = f"{case}/{method}"
+    same = all(np.array_equal(getattr(stats, n).cpu().numpy(),
+                              recorded[f"{key}/{n}"])
+               for n in ("steps", "accepted", "rejected", "status"))
+    steps = int(stats.steps.sum())
+    checks = {
+        "status ok": bool(torch.all(stats.status == 0)),
+        "finite": bool(torch.isfinite(traj).all()),
+        f"every step through {kernel.__name__}":
+            steps <= launches <= launch_bound(cfg, steps)[1],
+        "the torch path's step sequence": same}
+    golden = None
+    if method == "bs32":
+        with np.load(os.path.join(GOLDEN, f"{case}.npz")) as z:
+            want = z["trajectory"]
+        got = torch.cat([problem.y0[None], traj]).cpu().numpy()
+        golden = float(np.max(np.abs(got - want) - 1e-5 * np.abs(want)))
+        checks["golden fixture"] = golden <= 1e-6
+    return (dict(case=case, method=method, steps=stats.steps.tolist(),
+                 torch_path_steps=recorded[f"{key}/steps"].tolist(),
+                 launches=launches, same_steps=same, golden_excess=golden),
+            checks)
+
+
+def fixture_runs():
+    """Phase kinetics_fixtures: the twelve golden fixtures of the new
+    families (tests/test_golden.py:30-57, flat and torus) in f64 on the
+    card through K1, K2 and K3, each taking the port's torch path's f64
+    step sequence exactly (steps, accepted, rejected and status of every
+    output interval, recorded on the CPU in FIXTURE_STATS by
+    scripts/kinetics_fixture_stats.py; the CPU suite holds the torch path
+    to the JAX package's), every step through its kernel, and bs32's
+    trajectory within the fixture's tolerance (rtol 1e-5, atol 1e-6) of
+    tests/golden/<case>.npz. The runs take ~2 ms a step of the host's
+    launches, the Oregonator's ~34,600 steps most of them, so the 36 runs
+    go to FIXTURE_WORKERS processes on the card (fixture_run), the
+    Oregonator's rkc2 runs first; every process ends with the phase."""
+    import concurrent.futures
+    import multiprocessing
+
+    runs = sorted(((m, s, k) for m in KIN_FAMILIES
+                   for s in ("flat", "torus") for k in SOAK_METHODS),
+                  key=lambda r: (r[0] != "oregonator", r[2] != "rkc2"))
+    with concurrent.futures.ProcessPoolExecutor(
+            FIXTURE_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        for fields, checks in pool.map(fixture_run, *zip(*runs)):
+            phase("kinetics_fixtures", **fields)
+            fail_unless("kinetics_fixtures", checks)
+
+
+# the processes the fixture runs share the card in (fixture_runs)
+FIXTURE_WORKERS = 6
+# the port's torch-path step statistics of those fixtures (f64, CPU)
+FIXTURE_STATS = os.path.join(GOLDEN, "torch_kinetics_fixture_stats.npz")
+# tests/test_golden.py:30-57's physics of the new families' fixtures
+FIXTURE_PHYSICS = {
+    "barkley": dict(beta=0.05, diffusion=1.0),
+    "grayscott": dict(beta=0.03, diffusion=2e-5, t_final=20.0),
+    "oregonator": dict(beta=1.5, diffusion=1.0),
+    "brusselator": dict(beta=1.9, diffusion=0.2),
+    "sir": dict(beta=1.5, diffusion=1.0),
+    "lambdaomega": dict(beta=0.5, diffusion=0.5),
+}
+
+
+def kinetics_phases(card):
+    """The six other families' phases: kinetics_kernels, kinetics_timing,
+    kinetics_fixtures and soak_matrix, each phase's seconds printed
+    (phase kinetics_seconds). Returns the kernels line's entries of the
+    families' K1, K2 and K3, one a family and kernel."""
+    import time
+    seconds = {}
+    t0 = time.perf_counter()
+    worst = check_kinetics_kernels()
+    seconds["kinetics_kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    timing = kinetics_timing(card)
+    seconds["kinetics_timing"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fixture_runs()
+    seconds["kinetics_fixtures"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches = soak_matrix(card)
+    seconds["soak_matrix"] = time.perf_counter() - t0
+    phase("kinetics_seconds", **seconds, card=card)
+    entries = []
+    for model in KIN_FAMILIES:
+        for kernel, method, s, source, replaces in (
+                ("k1", "bs32", None, "fused_step_families.cu",
+                 "crdmodel_tpu/ops/pallas_step.py:117"),
+                ("k2", "rkc2", 23, "fused_rkc_families.cu",
+                 "crdmodel_tpu/ops/pallas_rkc.py:365"),
+                ("k3", "ark324", None, "fused_imex_families.cu",
+                 "crdmodel_tpu/ops/pallas_imex.py:155")):
+            entry = kernel_entry(
+                f"{source[:-3]}[{model}]", source, replaces,
+                launches[model, method], worst[kernel],
+                timing[model, kernel, s])
+            entries.append(entry)
+    return entries
+
+
 def load_probes():
     """Every golden of PROBES: {(model, method): {name: array}}."""
     probes = {}
@@ -5100,7 +5688,11 @@ def main():
           ptxas_fused_shard_box3d=ptxas_summary("fused_shard_box3d.cu"),
           ptxas_fused_shard_box3d_rkc=ptxas_summary(
               "fused_shard_box3d_rkc.cu"),
-          ptxas_fused_kstep=ptxas_summary("fused_kstep.cu"))
+          ptxas_fused_kstep=ptxas_summary("fused_kstep.cu"),
+          ptxas_families={src: ptxas_summary(src)
+                          for src in ("fused_step_families.cu",
+                                      "fused_rkc_families.cu",
+                                      "fused_imex_families.cu")})
     cfg_ap, ap_build = bounded_tissue()
     cfg_ap_rkc = dataclasses.replace(cfg_ap, method="rkc2")
     cfg_wide = wide_sheet()
@@ -5184,7 +5776,13 @@ def main():
     if sys.argv[1:] == ["--box-forced"]:
         box_forced_phases(cfg_box, card)
         return
-    if sys.argv[1:]:
+    if sys.argv[1:] == ["--kinetics"]:
+        kinetics_phases(card)
+        return
+    if sys.argv[1:] == ["--timing"]:
+        global TIMING_ALL
+        TIMING_ALL = True
+    elif sys.argv[1:]:
         sys.exit(f"unknown arguments {sys.argv[1:]}; see the docstring")
 
     cfg_flat = dataclasses.replace(cfg, surface="flat", vary_beta=0)
@@ -5233,7 +5831,7 @@ def main():
         [gb_torus, gb_flat, cfg, cfg_flat, ap_periodic,
          dataclasses.replace(gb_torus, x_mesh=4),
          dataclasses.replace(gb_flat, x_mesh=75, y_mesh=301)],
-        [cfg_gb, cfg_big])
+        [cfg_gb, cfg_big] if TIMING_ALL else [cfg_gb])
     for shape, t3 in timing3.items():
         plan = t3[5]
         phase("k3_timing", shape=list(shape), h=K3_H[0], dtype="float32",
@@ -5428,6 +6026,8 @@ def main():
     box_forced = box_forced_phases(cfg_box, card, slab_walls)
     for entry in (*box_entries, *shard_box_entries):
         entry.update(box_forced[entry["name"]])
+    # the six other kinetics families through K1, K2 and K3
+    family_entries = kinetics_phases(card)
     stream_phases(cfg, programs["goldbeter_ark324"], probes, single_fhn,
                   sharded_fhn, card)
 
@@ -5468,7 +6068,8 @@ def main():
         *shard_box_entries,
         kernel_entry("fused_kstep", "fused_kstep.cu",
                      "crdmodel_tpu/ops/pallas_kstep.py:112", launches14,
-                     worst14, timing14[K14_SPEC])]}))
+                     worst14, timing14[K14_SPEC]),
+        *family_entries]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

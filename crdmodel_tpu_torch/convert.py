@@ -7,7 +7,8 @@ come across as numpy arrays:
                                    {k: np.asarray(v) for k, v in p.params.items()},
                                    device="cpu", dtype=torch.float64)
 
-The same function carries states drawn from np.random.default_rng(seed).
+The same function carries states drawn from np.random.default_rng(seed),
+of any family's shape ((3, ny, nx) for sir), and any family's parameters.
 A sharded run's global parameters (the JAX package's parallel/sharded.py::
 sharded_params, as numpy) come across with sharded_params_from_numpy,
 which keeps the masks boolean. A structured forcing comes across as plain

@@ -33,7 +33,7 @@ from crdmodel_tpu_torch.config import SimConfig
 from crdmodel_tpu_torch.core.forcing import SeparableForcing
 from crdmodel_tpu_torch.core.grid import (Geometry, Grid, face_openness,
                                           face_openness3, make_geometry)
-from crdmodel_tpu_torch.models import ReactionModel, get_model
+from crdmodel_tpu_torch.models import ReactionModel, barkley, get_model
 from crdmodel_tpu_torch.ops.stencil import (anisotropic_laplacian,
                                             anisotropic_laplacian3,
                                             divergence_laplacian,
@@ -106,9 +106,8 @@ def initial_state(cfg: SimConfig, model: ReactionModel, steady: tuple,
                   dtype, device, uniform=None) -> torch.Tensor:
     """Initial conditions, (nvars, ny, nx), computed in float64 numpy then
     cast (SURVEY.md C9); on the box the 2-D pattern extruded along z,
-    (nvars, nz, ny, nx). FitzHugh–Nagumo, Goldbeter and Aliev–Panfilov;
-    the other families' ICs come with their kinetics (ROADMAP queue 1,
-    item 6).
+    (nvars, nz, ny, nx), for each of the nine families
+    (crdmodel_tpu/core/problem.py:171-271).
 
     Goldbeter with varyBeta=1 and icType=2 draws both fields uniformly from
     [0, 1.4): the (2, ny, nx) float32 draws in [0, 1) come from `uniform`
@@ -116,9 +115,6 @@ def initial_state(cfg: SimConfig, model: ReactionModel, steady: tuple,
     JAX package draws them with a JAX PRNG key (crdmodel_tpu/core/
     problem.py:203-209), whose bits differ; a parity test passes the JAX
     draws in as `uniform`."""
-    if cfg.model not in ("fhn", "goldbeter", "aliev_panfilov"):
-        raise NotImplementedError(
-            f"initial state of model {cfg.model!r} is not ported yet")
     nx, ny = cfg.nx, cfg.ny
     xx = cfg.xmin + np.arange(nx, dtype=np.float64) * cfg.dx   # (nx,)
     yy = cfg.ymin + np.arange(ny, dtype=np.float64) * cfg.dy   # (ny,)
@@ -156,13 +152,8 @@ def initial_state(cfg: SimConfig, model: ReactionModel, steady: tuple,
             seg = in_x & (Y >= wave_len) & (Y <= 2.0 * wave_len)
             bg[0] = np.where(seg, us + 2.0, us)
             bg[1] = np.where(seg, vs + 1.5, vs)
-    elif cfg.model == "aliev_panfilov":
-        # rest state (0, 0); the segment depolarised to u=1 with a refractory
-        # v=2 band below it, so that the front is broken on one side (the
-        # rotor seed, crdmodel_tpu/core/problem.py:254-262)
-        seg = in_x & (Y >= wave_len) & (Y <= 2.0 * wave_len)
-        bg[0] = np.where(seg, 1.0, 0.0)
-        bg[1] = np.where(np.broadcast_to(Y < wave_len, seg.shape), 2.0, 0.0)
+    elif cfg.model != "goldbeter":
+        _seed_other_family(cfg, steady, bg, in_x, Y, wave_len)
     elif cfg.vary_beta == 0:
         zs, ys = steady
         if cfg.surface == "torus":
@@ -196,6 +187,47 @@ def initial_state(cfg: SimConfig, model: ReactionModel, steady: tuple,
         # through the depth
         bg = np.broadcast_to(bg[:, None], (model.nvars, cfg.nz, ny, nx))
     return torch.tensor(np.ascontiguousarray(bg), dtype=dtype, device=device)
+
+
+def _seed_other_family(cfg, steady, bg, in_x, Y, wave_len):
+    """The wave-segment seeds of the families beyond the reference's two
+    into bg (crdmodel_tpu/core/problem.py:212-271): each seeds the segment
+    in_x & wl <= y <= 2 wl of its background, the excitable ones
+    (aliev_panfilov, barkley, oregonator) with a refractory band y < wl
+    below it, so that the front is broken on one side."""
+    seg = in_x & (Y >= wave_len) & (Y <= 2.0 * wave_len)
+    below = np.broadcast_to(Y < wave_len, seg.shape)
+    if cfg.model == "aliev_panfilov":
+        bg[0] = np.where(seg, 1.0, 0.0)
+        bg[1] = np.where(below, 2.0, 0.0)
+    elif cfg.model == "barkley":
+        bg[0] = np.where(seg, 1.0, 0.0)
+        bg[1] = np.where(below, barkley.A / 2.0, 0.0)
+    elif cfg.model == "oregonator":
+        us, vs = steady
+        bg[0] = np.where(seg, 0.8, us)
+        bg[1] = np.where(below, vs + 0.3, vs)
+    elif cfg.model == "grayscott":
+        # Pearson's seeding: a patch of (0.5, 0.25) in the trivial state
+        bg[0] = np.where(seg, 0.5, 1.0)
+        bg[1] = np.where(seg, 0.25, 0.0)
+    elif cfg.model == "brusselator":
+        # an activator bump on the Turing-unstable steady state
+        us, vs = steady
+        bg[0] = np.where(seg, us + 0.5, us)
+        bg[1] = vs
+    elif cfg.model == "sir":
+        # an infected patch in the susceptible background
+        bg[0] = np.where(seg, 0.9, 1.0)
+        bg[1] = np.where(seg, 0.1, 0.0)
+        bg[2] = 0.0
+    elif cfg.model == "lambdaomega":
+        # the segment's phase flipped by pi, a quarter-cycle band below it
+        bg[0] = np.where(seg, -1.0, 1.0)
+        bg[1] = np.where(below, 1.0, 0.0)
+        bg[0] = np.where(below, 0.0, bg[0])
+    else:
+        raise ValueError(cfg.model)
 
 
 def interior_rows(ny: int, dtype, device) -> torch.Tensor:

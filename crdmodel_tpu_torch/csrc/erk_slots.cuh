@@ -353,4 +353,248 @@ int slots_kernel_info(int* out) {
   return 0;
 }
 
+// The scheme for the families of any shape (FamilyRhs: K1's NEW_FAMILIES,
+// unforced, on the periodic grid): the tiles, slots, stage order and
+// partial sums of fused_erk_slots_kernel, with every variable of a slot's
+// stage inputs and error in its thread's registers and a pair of shared
+// stage planes for each diffusing variable (Family<Kin>::kNd pairs); the
+// squared errors are added variable by variable.
+template <int Kin>
+struct SlotFamilyPlan {
+  // dynamic shared memory (in T): two stage planes a diffusing variable,
+  // the tile's squared errors of every variable
+  static constexpr int elements() {
+    return 2 * Family<Kin>::kNd * SlotPlan<kSlotTileY>::kRegion
+           + Family<Kin>::kNv * SlotPlan<kSlotTileY>::kTile;
+  }
+};
+
+template <int Kin, typename T>
+__global__ void __launch_bounds__(kSlotThreads, (kSlotMinBlocks<T>))
+    fused_erk_slots_n_kernel(const T* __restrict__ y, T* __restrict__ y_new,
+                             T* __restrict__ ss, const T* __restrict__ h_ptr,
+                             const T* __restrict__ fz_ptr,
+                             FamilyRhs<Kin, T> op, WrapGrid grid,
+                             StageTable tab, T rtol, T atol) {
+  using Fam = Family<Kin>;
+  using Plan = SlotPlan<kSlotTileY>;
+  using Reg = typename Plan::Slots;
+  constexpr int NV = Fam::kNv;
+  constexpr int ND = Fam::kNd;
+  constexpr int NS = kSlotStages;
+  constexpr int kW = Plan::kRegW;
+  constexpr int kL = Plan::kRegion;
+  constexpr int S = Reg::kSlots;
+  constexpr int kTile = Plan::kTile;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T warp_sums[kSlotThreads / 32];
+  T* const smem = reinterpret_cast<T*>(smem_raw);
+  // stage plane `buf` (0, 1) of diffusing variable i
+  const auto sp = [&](int buf, int i) { return smem + (buf * ND + i) * kL; };
+  T* const e2 = smem + 2 * ND * kL;          // [NV][kTile]
+  const SlotOrigin<WrapGrid> o(grid, blockIdx.y * kSlotTileY,
+                               blockIdx.x * kSlotTileX, NS, kW,
+                               Plan::kRegR);
+  const size_t plane = o.plane();
+  const T h = *h_ptr;
+  const T fz = *fz_ptr;
+
+  // the step on the tile; kIn: the region lies inside the grid
+  const auto step = [&](auto inner) {
+    constexpr bool kIn = decltype(inner)::value;
+    const auto at = [&](int ly, int lx) {
+      return static_cast<size_t>(o.template row<kIn>(ly)) * o.ld()
+             + o.template col<kIn>(lx);
+    };
+    // the diffusing variables at grid offset g into both stage planes at
+    // local point i
+    const auto load = [&](int i, size_t g) {
+#pragma unroll
+      for (int d = 0; d < ND; ++d) {
+        const T x = y[Fam::var(d) * plane + g];
+        sp(0, d)[i] = x;
+        sp(1, d)[i] = x;
+      }
+    };
+    if (threadIdx.x < Plan::kRing) {
+      const int i = Plan::ring(threadIdx.x);
+      load(i, at(i / kW, i - (i / kW) * kW));
+    }
+    // the slots: coefficients, the stage inputs 1 .. NS - 1 (in[s - 1],
+    // y0 until the stages before add to them) and the error
+    T in[NS - 1][NV][S], e[NV][S];
+    typename FamilyRhs<Kin, T>::Point cf[S];
+    const auto local = [](int m) {   // slot m's index on the region
+      const int q = Reg::point(m);
+      return (Reg::row(q) + 1) * kW + Reg::col(q) + 1;
+    };
+    // k_s at slot m on stage input x (its variables) and stage planes buf
+    const auto rhs = [&](int m, int buf, const T* x, T* dy) {
+      const T* planes[ND];
+#pragma unroll
+      for (int d = 0; d < ND; ++d) planes[d] = sp(buf, d);
+      op.at_point(cf[m], planes, x, local(m), kW, dy);
+    };
+#pragma unroll
+    for (int m = 0; m < S; ++m) {
+      if (!Reg::valid(m)) continue;
+      const int q = Reg::point(m);
+      const int ly = Reg::row(q) + 1, lx = Reg::col(q) + 1;
+      const size_t g = at(ly, lx);
+      load(local(m), g);
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const T x0 = y[v * plane + g];
+#pragma unroll
+        for (int s = 0; s < NS - 1; ++s) in[s][v][m] = x0;
+        e[v][m] = T(0);
+      }
+      cf[m] = op.point(fz, o.template row<kIn>(ly),
+                       o.template col<kIn>(lx));
+    }
+    __syncthreads();
+    // stage s is right on the points s or more rings inside the slots
+#pragma unroll
+    for (int s = 0; s < NS - 1; ++s) {
+      if (s > 0) {
+        // stage s's diffusing variables, once every thread is past the
+        // stage that read these planes last
+#pragma unroll
+        for (int m = 0; m < S; ++m)
+          if (Reg::valid(m))
+#pragma unroll
+            for (int d = 0; d < ND; ++d)
+              sp(s & 1, d)[local(m)] = in[s - 1][Fam::var(d)][m];
+        __syncthreads();
+      }
+#pragma unroll
+      for (int m = 0; m < S; ++m) {
+        if (!Reg::valid(m)) continue;
+        // stage 0's input is y0, which every in[] still holds
+        T x[NV], dy[NV];
+#pragma unroll
+        for (int v = 0; v < NV; ++v) x[v] = in[s > 0 ? s - 1 : 0][v][m];
+        rhs(m, s & 1, x, dy);
+        // k_s into the inputs of the stages after it and the error, each
+        // in stage order
+#pragma unroll
+        for (int t = s + 1; t < NS; ++t) {
+          if (tab.a[t][s] != 0.0) {
+            const T ha = h * static_cast<T>(tab.a[t][s]);
+#pragma unroll
+            for (int v = 0; v < NV; ++v)
+              in[t - 1][v][m] = in[t - 1][v][m] + ha * dy[v];
+          }
+        }
+        if (tab.d[s] != 0.0) {
+          const T hd = h * static_cast<T>(tab.d[s]);
+#pragma unroll
+          for (int v = 0; v < NV; ++v) e[v][m] = e[v][m] + hd * dy[v];
+        }
+      }
+    }
+    // the last stage on the tile: its input is y_new (FSAL)
+    constexpr int kLast = NS - 1;
+#pragma unroll
+    for (int m = 0; m < S; ++m)
+      if (Reg::valid(m))
+#pragma unroll
+        for (int d = 0; d < ND; ++d)
+          sp(kLast & 1, d)[local(m)] = in[kLast - 1][Fam::var(d)][m];
+    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < S; ++m) {
+      const int q = Reg::point(m);
+      if (!Reg::valid(m) || !Reg::inside(q, kLast)) continue;
+      const int ly = Reg::row(q) + 1, lx = Reg::col(q) + 1;
+      const int t = (ly - NS) * kSlotTileX + lx - NS;
+      if (!o.in_block(ly, lx)) {   // adds +0.0: exact, as erk_tile's skip
+#pragma unroll
+        for (int v = 0; v < NV; ++v) e2[v * kTile + t] = T(0);
+        continue;
+      }
+      T x[NV], dy[NV];
+#pragma unroll
+      for (int v = 0; v < NV; ++v) x[v] = in[kLast - 1][v][m];
+      rhs(m, kLast & 1, x, dy);
+      const size_t g = at(ly, lx);
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        T f = e[v][m];
+        if (tab.d[kLast] != 0.0)
+          f = f + (h * static_cast<T>(tab.d[kLast])) * dy[v];
+        y_new[v * plane + g] = x[v];
+        const T w = f * (T(1) / (rtol * fabs(y[v * plane + g]) + atol));
+        e2[v * kTile + t] = w * w;
+      }
+    }
+  };
+  if (o.inner)
+    step(std::true_type{});
+  else
+    step(std::false_type{});
+  __syncthreads();
+  // the partial sum in erk_tile.cuh's order: its 256 threads add their
+  // points' squares in turn, variable by variable; the others add +0.0
+  T acc = T(0);
+  if (threadIdx.x < kErkThreads) {
+    for (int t = threadIdx.x; t < kTile; t += kErkThreads)
+#pragma unroll
+      for (int v = 0; v < NV; ++v) acc = acc + e2[v * kTile + t];
+  }
+  store_block_sum<T, kSlotThreads>(acc, warp_sums, ss);
+}
+
+// Launch one step of the families' K1 over the grid on `stream`:
+// fused_erk_slots_n_kernel for a tableau the scheme takes (slots_take, on
+// 32 x 32 tiles), erk_tile.cuh's fused_erk_tile_n_kernel for the others;
+// returns the CUDA error code (0 on success), checked right after the
+// launch.
+template <int Kin, typename T>
+int launch_erk_slots_n(FamilyRhs<Kin, T> op, WrapGrid grid, const void* y,
+                       void* y_new, void* ss, const void* h, const void* fz,
+                       int tile_x, int tile_y, const StageTable& tab,
+                       double rtol, double atol, void* stream) {
+  if (!slots_take(tab))
+    return launch_erk_tile_n<Kin, T>(op, grid, y, y_new, ss, h, fz, tile_x,
+                                     tile_y, tab, rtol, atol, stream);
+  if (grid.ny < 1 || grid.nx < 1 || tile_x != kSlotTileX
+      || tile_y != kSlotTileY)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem =
+      static_cast<size_t>(SlotFamilyPlan<Kin>::elements()) * sizeof(T);
+  auto kernel = &fused_erk_slots_n_kernel<Kin, T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 blocks((grid.nx + kSlotTileX - 1) / kSlotTileX,
+                    (grid.ny + kSlotTileY - 1) / kSlotTileY);
+  kernel<<<blocks, kSlotThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(y), static_cast<T*>(y_new), static_cast<T*>(ss),
+      static_cast<const T*>(h), static_cast<const T*>(fz), op, grid, tab,
+      static_cast<T>(rtol), static_cast<T>(atol));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// slots_kernel_info of fused_erk_slots_n_kernel<Kin, T>
+template <int Kin, typename T>
+int slots_n_kernel_info(int* out) {
+  auto kernel = &fused_erk_slots_n_kernel<Kin, T>;
+  const size_t smem =
+      static_cast<size_t>(SlotFamilyPlan<Kin>::elements()) * sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel,
+                                                        kSlotThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[1] = attr.numRegs;
+  out[2] = static_cast<int>(attr.sharedSizeBytes + smem);
+  return 0;
+}
+
 }  // namespace crd

@@ -220,4 +220,146 @@ int launch_erk_tile_on(Rhs rhs, Grid grid, const void* y, void* y_new,
   return static_cast<int>(cudaGetLastError());
 }
 
+// erk_tile_smem for a family of nv variables: y0, yi and n k's of each
+// (ops/fused_step.py::tile_plan with nvars)
+inline size_t erk_tile_smem_n(int nv, int n_stages, int tile_x, int tile_y,
+                              size_t itemsize) {
+  return static_cast<size_t>(nv * (n_stages + 2)) * (tile_x + 2 * n_stages)
+         * (tile_y + 2 * n_stages) * itemsize;
+}
+
+// fused_erk_tile_kernel for the families of any shape (FamilyRhs: K1's
+// NEW_FAMILIES, unforced, on the periodic grid): the same tiles, stage
+// regions, update and partial sums, with every variable's y0, stage input
+// and stages in shared memory; a point's coefficients are read at each
+// evaluation, and its squared errors are added variable by variable.
+template <int Kin, typename T>
+__global__ void __launch_bounds__(kErkThreads) fused_erk_tile_n_kernel(
+    const T* __restrict__ y, T* __restrict__ y_new, T* __restrict__ ss,
+    const T* __restrict__ h_ptr, const T* __restrict__ fz_ptr,
+    FamilyRhs<Kin, T> rhs, WrapGrid grid, int tile_x, int tile_y,
+    StageTable tab, T rtol, T atol) {
+  using Fam = Family<Kin>;
+  constexpr int NV = Fam::kNv;
+  constexpr int ND = Fam::kNd;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T warp_sums[kErkThreads / 32];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+
+  const int halo = tab.n;
+  const int W = tile_x + 2 * halo;    // region width (x, contiguous)
+  const int R = tile_y + 2 * halo;    // region rows
+  const int np = W * R;
+  T* y0 = smem;                       // the step's start: variable v at
+                                      // y0 + v np
+  T* yi = y0 + NV * np;               // the current stage input
+  T* ks = yi + NV * np;               // stage s, variable v: ks + (s NV + v) np
+  const int gx0 = blockIdx.x * tile_x - halo;
+  const int gy0 = blockIdx.y * tile_y - halo;
+  const size_t plane = grid.plane();
+
+  for (int p = threadIdx.x; p < np; p += blockDim.x) {
+    const int ly = p / W, lx = p - ly * W;
+    const size_t g = grid.at(gy0 + ly, gx0 + lx);
+#pragma unroll
+    for (int v = 0; v < NV; ++v) y0[v * np + p] = y[v * plane + g];
+  }
+  const T h = *h_ptr;
+  const T fz = *fz_ptr;
+  __syncthreads();
+
+  for (int s = 0; s < tab.n; ++s) {
+    const T* in = y0;
+    if (s > 0) {
+      // yi = y0 + (h a[s][0]) k_0 + ... on the points at depth >= s
+      const int w = W - 2 * s, r = R - 2 * s;
+      for (int q = threadIdx.x; q < w * r; q += blockDim.x) {
+        const int p = (s + q / w) * W + s + q % w;
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          T x = y0[v * np + p];
+          for (int j = 0; j < s; ++j) {
+            if (tab.a[s][j] != 0.0) {
+              const T ha = h * static_cast<T>(tab.a[s][j]);
+              x = x + ha * ks[(j * NV + v) * np + p];
+            }
+          }
+          yi[v * np + p] = x;
+        }
+      }
+      __syncthreads();
+      in = yi;
+    }
+    // k_s = rhs(yi) on the points at depth >= s + 1
+    const T* planes[ND];
+#pragma unroll
+    for (int i = 0; i < ND; ++i) planes[i] = in + Fam::var(i) * np;
+    const int dep = s + 1;
+    const int w = W - 2 * dep, r = R - 2 * dep;
+    for (int q = threadIdx.x; q < w * r; q += blockDim.x) {
+      const int ly = dep + q / w, lx = dep + q % w;
+      const int p = ly * W + lx;
+      T yv[NV], dy[NV];
+#pragma unroll
+      for (int v = 0; v < NV; ++v) yv[v] = in[v * np + p];
+      rhs.at_point(rhs.point(fz, grid.row(gy0 + ly), grid.col(gx0 + lx)),
+                   planes, yv, p, W, dy);
+#pragma unroll
+      for (int v = 0; v < NV; ++v) ks[(s * NV + v) * np + p] = dy[v];
+    }
+    __syncthreads();
+  }
+
+  // y_new and the error on the tile; WRMS weights from the step's start
+  T acc = T(0);
+  for (int q = threadIdx.x; q < tile_x * tile_y; q += blockDim.x) {
+    const int ty = q / tile_x, tx = q - ty * tile_x;
+    const int gy = blockIdx.y * tile_y + ty, gx = blockIdx.x * tile_x + tx;
+    if (gy >= grid.ny || gx >= grid.nx) continue;
+    const int p = (ty + halo) * W + tx + halo;
+    const size_t g = grid.at(gy, gx);
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const T x0 = y0[v * np + p];
+      T nx = x0, ex = T(0);
+      for (int s = 0; s < tab.n; ++s) {
+        const T kx = ks[(s * NV + v) * np + p];
+        if (tab.b[s] != 0.0) nx = nx + (h * static_cast<T>(tab.b[s])) * kx;
+        if (tab.d[s] != 0.0) ex = ex + (h * static_cast<T>(tab.d[s])) * kx;
+      }
+      y_new[v * plane + g] = nx;
+      const T wx = ex * (T(1) / (rtol * fabs(x0) + atol));
+      acc = acc + wx * wx;
+    }
+  }
+
+  store_block_sum<T, kErkThreads>(acc, warp_sums, ss);
+}
+
+// Launch one step of fused_erk_tile_n_kernel<Kin, T> over the grid on
+// `stream`; returns the CUDA error code (0 on success), checked right
+// after the launch.
+template <int Kin, typename T>
+int launch_erk_tile_n(FamilyRhs<Kin, T> rhs, WrapGrid grid, const void* y,
+                      void* y_new, void* ss, const void* h, const void* fz,
+                      int tile_x, int tile_y, const StageTable& tab,
+                      double rtol, double atol, void* stream) {
+  if (grid.ny < 1 || grid.nx < 1 || tile_x < 1 || tile_y < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = erk_tile_smem_n(Family<Kin>::kNv, tab.n, tile_x,
+                                      tile_y, sizeof(T));
+  auto kernel = &fused_erk_tile_n_kernel<Kin, T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 blocks((grid.nx + tile_x - 1) / tile_x,
+                    (grid.ny + tile_y - 1) / tile_y);
+  kernel<<<blocks, kErkThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(y), static_cast<T*>(y_new), static_cast<T*>(ss),
+      static_cast<const T*>(h), static_cast<const T*>(fz), rhs, grid, tile_x,
+      tile_y, tab, static_cast<T>(rtol), static_cast<T>(atol));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace crd

@@ -584,4 +584,399 @@ int imex_slots_info(int kinetics, int* out) {
   return 0;
 }
 
+// Solve m x = r at a point, n <= 3 variables: Cramer, in the order of the
+// torch path's integrate/imex.py::solve_pointwise (the 2x2 one
+// imex_newton's)
+template <int N, typename T>
+__device__ __forceinline__ void solve_n(const T (&m)[N][N], const T* r,
+                                        T* x) {
+  if constexpr (N == 2) {
+    const T det = m[0][0] * m[1][1] - m[0][1] * m[1][0];
+    x[0] = (m[1][1] * r[0] - m[0][1] * r[1]) / det;
+    x[1] = (m[0][0] * r[1] - m[1][0] * r[0]) / det;
+  } else {
+    static_assert(N == 3, "two or three variables");
+    const T c00 = m[1][1] * m[2][2] - m[1][2] * m[2][1];
+    const T c01 = m[1][2] * m[2][0] - m[1][0] * m[2][2];
+    const T c02 = m[1][0] * m[2][1] - m[1][1] * m[2][0];
+    const T det = m[0][0] * c00 + m[0][1] * c01 + m[0][2] * c02;
+    const T c10 = m[0][2] * m[2][1] - m[0][1] * m[2][2];
+    const T c11 = m[0][0] * m[2][2] - m[0][2] * m[2][0];
+    const T c12 = m[0][1] * m[2][0] - m[0][0] * m[2][1];
+    const T c20 = m[0][1] * m[1][2] - m[0][2] * m[1][1];
+    const T c21 = m[0][2] * m[1][0] - m[0][0] * m[1][2];
+    const T c22 = m[0][0] * m[1][1] - m[0][1] * m[1][0];
+    x[0] = (c00 * r[0] + c10 * r[1] + c20 * r[2]) / det;
+    x[1] = (c01 * r[0] + c11 * r[1] + c21 * r[2]) / det;
+    x[2] = (c02 * r[0] + c12 * r[1] + c22 * r[2]) / det;
+  }
+}
+
+// imex_newton for a family of any shape: Y = rk + (h gamma) f_im(Y) from
+// the predictor Y, the last update in d (imex_stages_reference's
+// arithmetic: m = I - hg J, resid = (Y - hg f) - rk, d = solve(m, -resid))
+template <int Kin, typename T, int N = Family<Kin>::kNv>
+__device__ __forceinline__ void imex_newton_n(T hg, const T* rk, T b,
+                                              T live, bool freeze, T* Y,
+                                              T* d) {
+#pragma unroll
+  for (int v = 0; v < N; ++v) d[v] = T(0);
+#pragma unroll 1
+  for (int it = 0; it < kImexNewtonIters; ++it) {
+    T j[N][N], f[N], m[N][N], r[N];
+    jacobian_n<Kin>(Y, b, j);
+    kinetics_n<Kin>(Y, b, f);
+#pragma unroll
+    for (int a = 0; a < N; ++a) {
+#pragma unroll
+      for (int c = 0; c < N; ++c) {
+        const T jac = freeze ? j[a][c] * live : j[a][c];
+        m[a][c] = (a == c ? T(1) : T(0)) - hg * jac;
+      }
+      const T fa = freeze ? f[a] * live : f[a];
+      r[a] = -((Y[a] - hg * fa) - rk[a]);
+    }
+    solve_n<N>(m, r, d);
+#pragma unroll
+    for (int v = 0; v < N; ++v) Y[v] = Y[v] + d[v];
+  }
+}
+
+// The plan of the families' kernel (fused_imex_slots_n_kernel) on 32 x
+// TileY tiles: ImexPlan's region, slots and rings, with y0 and two stage
+// planes of each diffusing variable and the staged terms of every
+// variable (ops/fused_imex.py::slots_bytes with nvars and ndiff)
+template <int Kin, int TileY>
+struct ImexFamilyPlan {
+  using Plan = ImexPlan<TileY>;
+  static constexpr int kNv = Family<Kin>::kNv;
+  static constexpr int kNd = Family<Kin>::kNd;
+  static constexpr int kElements =
+      3 * kNd * Plan::kRegion + kNv * kImexStages * Plan::kTilePoints;
+};
+
+// fused_imex_slots_kernel for the families of any shape (K3's
+// NEW_FAMILIES, unforced, on the periodic grid): the same tiles, slots,
+// Newton rings, stage order and partial sums, with every variable of a
+// slot's pointwise state in its thread's registers, y0 and the stage value
+// of each diffusing variable in shared planes, the explicit part the
+// profile operator on each diffusing variable times its ratio (0 on the
+// others, never formed), and the Newton on the family's closed-form
+// Jacobian (imex_newton_n: 2x2 or 3x3). The staged terms are added
+// variable by variable.
+template <int Kin, typename T, int TileY>
+__global__ void __launch_bounds__(kImexSlotThreads, (kImexMinBlocks<T>))
+    fused_imex_slots_n_kernel(const T* __restrict__ y,
+                              T* __restrict__ y_new, T* __restrict__ ss,
+                              const T* __restrict__ h_ptr,
+                              const T* __restrict__ fz_ptr,
+                              RhsConstants<T> k, WrapGrid grid,
+                              ImexCoeffs<T> tab, T rtol, T atol) {
+  using Fam = Family<Kin>;
+  using Plan = ImexPlan<TileY>;
+  constexpr int NV = Fam::kNv;
+  constexpr int ND = Fam::kNd;
+  constexpr int NS = kImexStages;
+  constexpr int W = Plan::kW;
+  constexpr int R = Plan::kR;
+  constexpr int kL = Plan::kRegion;
+  constexpr int kTile = kImexTile;
+  constexpr int kTP = Plan::kTilePoints;
+  constexpr int kTS = Plan::kTileSlots;
+  constexpr int kT = kImexSlotThreads;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T warp_sums[kT / 32];
+  __shared__ T hae[NS][NS], hai[NS][NS], hb[NS], hd[NS];
+  __shared__ T colc[3][W], rowc[2][R];
+  T* const smem = reinterpret_cast<T*>(smem_raw);
+  // y0 of diffusing variable i: plane i; the stage value's: stages 1, 3 in
+  // buffer 0, stage 2 in buffer 1
+  const auto y0p = [&](int i) { return smem + i * kL; };
+  const auto ysp = [&](int buf, int i) {
+    return smem + ((1 + buf) * ND + i) * kL;
+  };
+  // the staged terms: dy2[((s - 1) NV + v) kTP + q], e2[v kTP + q]
+  T* const dy2 = smem + 3 * ND * kL;
+  T* const e2 = dy2 + (NS - 1) * NV * kTP;
+  const SlotOrigin<WrapGrid> o(grid, blockIdx.y * TileY, blockIdx.x * kTile,
+                               kImexHalo, W, R);
+  const size_t plane = o.plane();
+  const T h = *h_ptr;
+  const T fz = k.has_freeze ? *fz_ptr : T(0);
+  const T hg = h * tab.gamma;
+  const bool freeze = k.has_freeze != 0;
+  if (threadIdx.x < NS) {
+    const int s = threadIdx.x;
+    for (int j = 0; j < s; ++j) {
+      hae[s][j] = h * tab.ae[s][j];
+      hai[s][j] = h * tab.ai[s][j];
+    }
+    hb[s] = h * tab.b[s];
+    hd[s] = h * tab.d[s];
+  }
+  const int t = threadIdx.x;
+  constexpr int kD1 = Plan::ring_size(1);
+  constexpr int kD2 = kD1 + Plan::ring_size(2);
+  const int ring_depth = t < kD1 ? 1 : t < kD2 ? 2 : t < Plan::kRing ? 3 : 0;
+  const int ring_p = Plan::ring_point(
+      ring_depth > 0 ? ring_depth : 1,
+      t < kD1 ? t : t < kD2 ? t - kD1 : t < Plan::kRing ? t - kD2 : 0);
+
+  const auto step = [&](auto inner) {
+    constexpr bool kIn = decltype(inner)::value;
+    const auto at = [&](int p) {
+      return static_cast<size_t>(o.template row<kIn>(p / W)) * o.ld()
+             + o.template col<kIn>(p % W);
+    };
+    constexpr int S = kTS + 1;
+    int pt[S];
+#pragma unroll
+    for (int m = 0; m < kTS; ++m)
+      pt[m] = (kImexHalo + (t >> 5) + m * (kT / kTile)) * W + kImexHalo
+              + (t & 31);
+    pt[kTS] = ring_p;
+    const auto live_slot = [&](int m, int depth) {
+      return m < kTS || ring_depth >= depth;
+    };
+    if (t < W) {
+      const int c = k.torus ? o.template col<kIn>(t) : 0;
+      colc[0][t] = k.c0[c];
+      colc[1][t] = k.c1[c];
+      colc[2][t] = k.c2[c];
+    } else if (t >= 64 && t < 64 + R) {
+      const int r = o.template row<kIn>(t - 64);
+      rowc[0][t - 64] = beta_at(k, r);
+      rowc[1][t - 64] = freeze ? live_at(k, fz, r) : T(1);
+    }
+    // the explicit part of diffusing variable i at local point p on its
+    // plane su: the operator, times the ratio, times live
+    const auto explicit_at = [&](int i, const T* su, int p) {
+      const int lx = p % W;
+      T lap = profile_lap_of(colc[0][lx], colc[1][lx], colc[2][lx],
+                             k.torus != 0, su, p, W);
+      if (Fam::ratio(i) != 1.0) lap = static_cast<T>(Fam::ratio(i)) * lap;
+      return freeze ? lap * rowc[1][p / W] : lap;
+    };
+    // the step's start: the diffusing variables on the region, the outer
+    // ring by the first kOuter threads, the slots' points by their own
+    if (t < Plan::kOuter) {
+      const int p = Plan::ring_point(0, t);
+      const size_t g = at(p);
+#pragma unroll
+      for (int i = 0; i < ND; ++i) y0p(i)[p] = y[Fam::var(i) * plane + g];
+    }
+    T x0[S][NV];
+#pragma unroll
+    for (int m = 0; m < S; ++m) {
+#pragma unroll
+      for (int v = 0; v < NV; ++v) x0[m][v] = T(0);
+      if (!live_slot(m, 1)) continue;
+      const size_t g = at(pt[m]);
+#pragma unroll
+      for (int v = 0; v < NV; ++v) x0[m][v] = y[v * plane + g];
+#pragma unroll
+      for (int i = 0; i < ND; ++i) y0p(i)[pt[m]] = x0[m][Fam::var(i)];
+    }
+    __syncthreads();
+
+    // rhs_known of stages 1..3, the predictor's kI, and on the tile the
+    // weights and the update's and the error's sums
+    T rk[S][NS - 1][NV], ki[S][NV];
+    T wt[kTS][NV], nw[kTS][NV], er[kTS][NV];
+    // stage 0: kE_0 = f_ex(y0), kI_0 = f_im(y0)
+#pragma unroll
+    for (int m = 0; m < S; ++m) {
+      if (!live_slot(m, 1)) continue;
+      const int p = pt[m];
+      const int ly = p / W;
+      T ke[NV], f[NV];
+#pragma unroll
+      for (int v = 0; v < NV; ++v) ke[v] = T(0);
+#pragma unroll
+      for (int i = 0; i < ND; ++i)
+        ke[Fam::var(i)] = explicit_at(i, y0p(i), p);
+      kinetics_n<Kin>(x0[m], rowc[0][ly], f);
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        if (freeze) f[v] = f[v] * rowc[1][ly];
+        const bool diff = family_diffuses<Kin>(v);
+#pragma unroll
+        for (int s = 1; s < NS; ++s) {
+          rk[m][s - 1][v] = diff ? x0[m][v] + hae[s][0] * ke[v] : x0[m][v];
+          rk[m][s - 1][v] = rk[m][s - 1][v] + hai[s][0] * f[v];
+        }
+        ki[m][v] = f[v];
+        if (m < kTS) {
+          wt[m][v] = T(1) / (rtol * fabs(x0[m][v]) + atol);
+          const T ks = diff ? ke[v] + f[v] : f[v];
+          nw[m][v] = x0[m][v] + hb[0] * ks;
+          er[m][v] = T(0) + hd[0] * ks;
+        }
+      }
+    }
+
+    // implicit stages s = 1..3, each followed by its explicit evaluation
+#pragma unroll
+    for (int s = 1; s < NS; ++s) {
+      const int buf = (s - 1) & 1;
+#pragma unroll
+      for (int m = 0; m < S; ++m) {
+        if (!live_slot(m, s)) continue;
+        const int p = pt[m];
+        const int ly = p / W;
+        T Y[NV], d[NV];
+#pragma unroll
+        for (int v = 0; v < NV; ++v) Y[v] = rk[m][s - 1][v] + hg * ki[m][v];
+        imex_newton_n<Kin>(hg, rk[m][s - 1], rowc[0][ly], rowc[1][ly],
+                           freeze, Y, d);
+#pragma unroll
+        for (int i = 0; i < ND; ++i) ysp(buf, i)[p] = Y[Fam::var(i)];
+#pragma unroll
+        for (int v = 0; v < NV; ++v) ki[m][v] = (Y[v] - rk[m][s - 1][v]) / hg;
+        if (m < kTS) {
+          const int q = t + kT * m;
+          const bool on = o.in_block(ly, p % W);
+#pragma unroll
+          for (int v = 0; v < NV; ++v) {
+            const T sv = d[v] * wt[m][v];
+            dy2[((s - 1) * NV + v) * kTP + q] = on ? sv * sv : T(0);
+          }
+        }
+      }
+      __syncthreads();
+      if (s == NS - 1) break;
+      // kE_s on the slots, into the later stages' rhs_known and the sums
+#pragma unroll
+      for (int m = 0; m < S; ++m) {
+        if (!live_slot(m, s + 1)) continue;
+        const int p = pt[m];
+        T ke[NV];
+#pragma unroll
+        for (int v = 0; v < NV; ++v) ke[v] = T(0);
+#pragma unroll
+        for (int i = 0; i < ND; ++i)
+          ke[Fam::var(i)] = explicit_at(i, ysp(buf, i), p);
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          const bool diff = family_diffuses<Kin>(v);
+#pragma unroll
+          for (int r = s + 1; r < NS; ++r) {
+            if (diff) rk[m][r - 1][v] = rk[m][r - 1][v] + hae[r][s] * ke[v];
+            rk[m][r - 1][v] = rk[m][r - 1][v] + hai[r][s] * ki[m][v];
+          }
+          if (m < kTS) {
+            const T ks = diff ? ke[v] + ki[m][v] : ki[m][v];
+            nw[m][v] = nw[m][v] + hb[s] * ks;
+            er[m][v] = er[m][v] + hd[s] * ks;
+          }
+        }
+      }
+    }
+
+    // kE_3, y_new and the error on the tile
+    constexpr int kBuf = (NS - 2) & 1;
+#pragma unroll
+    for (int m = 0; m < kTS; ++m) {
+      const int p = pt[m];
+      const int q = t + kT * m;
+      const int ly = p / W, lx = p % W;
+      if (!o.in_block(ly, lx)) {   // adds +0.0 below: exact
+#pragma unroll
+        for (int v = 0; v < NV; ++v) e2[v * kTP + q] = T(0);
+        continue;
+      }
+      T ke[NV];
+#pragma unroll
+      for (int v = 0; v < NV; ++v) ke[v] = T(0);
+#pragma unroll
+      for (int i = 0; i < ND; ++i)
+        ke[Fam::var(i)] = explicit_at(i, ysp(kBuf, i), p);
+      const size_t g = at(p);
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const T ks = family_diffuses<Kin>(v) ? ke[v] + ki[m][v] : ki[m][v];
+        y_new[v * plane + g] = nw[m][v] + hb[NS - 1] * ks;
+        const T a = (er[m][v] + hd[NS - 1] * ks) * wt[m][v];
+        e2[v * kTP + q] = a * a;
+      }
+    }
+  };
+  if (o.inner)
+    step(std::true_type{});
+  else
+    step(std::false_type{});
+  __syncthreads();
+
+  // the partial sum in the one-pass block's order, variable by variable
+  T acc = T(0);
+  if (t < kImexSumThreads) {
+    T dacc = T(0);
+#pragma unroll
+    for (int s = 1; s < NS; ++s) {
+      const int w = W - 2 * s, r = R - 2 * s;
+      for (int q = t; q < w * r; q += kImexSumThreads) {
+        const int ty = s + q / w - kImexHalo, tx = s + q % w - kImexHalo;
+        if (ty < 0 || ty >= TileY || tx < 0 || tx >= kTile) continue;
+        const int i = ty * kTile + tx;
+#pragma unroll
+        for (int v = 0; v < NV; ++v)
+          dacc = dacc + dy2[((s - 1) * NV + v) * kTP + i];
+      }
+    }
+    for (int q = t; q < kTP; q += kImexSumThreads)
+#pragma unroll
+      for (int v = 0; v < NV; ++v) acc = acc + e2[v * kTP + q];
+    acc = acc + static_cast<T>(kImexNewtonPenalty) * dacc;
+  }
+  store_block_sum<T, kT>(acc, warp_sums, ss);
+}
+
+// Launch one step of fused_imex_slots_n_kernel<Kin, T, TileY> over the grid
+// on `stream`; a tableau of another zero pattern than the kernel's is
+// refused. Returns the CUDA error code (0 on success).
+template <int Kin, typename T, int TileY>
+int launch_imex_slots_n(WrapGrid grid, const void* y, void* y_new, void* ss,
+                        const void* h, const void* fz,
+                        const RhsConstants<T>& k, const ImexTable& table,
+                        double rtol, double atol, void* stream) {
+  ImexCoeffs<T> tab;
+  if (grid.ny < 1 || grid.nx < 1 || !imex_slots_take(table, &tab))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = &fused_imex_slots_n_kernel<Kin, T, TileY>;
+  const size_t smem =
+      static_cast<size_t>(ImexFamilyPlan<Kin, TileY>::kElements) * sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 blocks((grid.nx + kImexTile - 1) / kImexTile,
+                    (grid.ny + TileY - 1) / TileY);
+  kernel<<<blocks, kImexSlotThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(y), static_cast<T*>(y_new), static_cast<T*>(ss),
+      static_cast<const T*>(h), static_cast<const T*>(fz), k, grid, tab,
+      static_cast<T>(rtol), static_cast<T>(atol));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// imex_slots_info of fused_imex_slots_n_kernel<Kin, T, TileY>
+template <int Kin, typename T, int TileY>
+int imex_slots_n_info(int* out) {
+  auto kernel = &fused_imex_slots_n_kernel<Kin, T, TileY>;
+  const size_t smem =
+      static_cast<size_t>(ImexFamilyPlan<Kin, TileY>::kElements) * sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, kernel, kImexSlotThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[1] = attr.numRegs;
+  out[2] = static_cast<int>(attr.sharedSizeBytes + smem);
+  return 0;
+}
+
 }  // namespace crd

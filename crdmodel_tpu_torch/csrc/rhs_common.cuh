@@ -2,17 +2,18 @@
 // fused_step.cu, K2 fused_rkc.cu, K3 fused_imex.cu, K4 fused_divform.cu,
 // K5 fused_aniso.cu and the shard kernels K8-K11): the grid policies, the
 // 5-point profile, divergence-form and 9-point anisotropic operators on
-// variable 0, the kinetics of each ported family and their closed-form
-// Jacobians, the RHS at one point of a tile held in shared memory, the
+// variable 0, the kinetics of each family and their closed-form
+// Jacobians (the six beyond the base three of any shape: Family,
+// kinetics_n, jacobian_n, FamilyRhs), the RHS at one point of a tile held
+// in shared memory, the
 // structured forcing of K1-K4 and K8-K11 (StimTable) and of the box
 // kernels K6, K7, K12 and K13 (BoxStimTable) and the per-block partial sum.
 // Counterpart of crdmodel_tpu/ops/kernel_common.py::make_rhs_block,
 // make_split_block and make_divform_rhs_block and of the operator of
 // crdmodel_tpu/ops/pallas_aniso.py; the plain torch versions are
 // ops/kernel_common.py::make_rhs_block, make_split_block,
-// make_divform_rhs_block and make_aniso_rhs_block, models/fhn.py,
-// models/goldbeter.py and models/aliev_panfilov.py, and the expressions
-// below keep their
+// make_divform_rhs_block and make_aniso_rhs_block and the models/*.py
+// kinetics and Jacobians, and the expressions below keep their
 // association order, so that a kernel built
 // with -fmad=false rounds as PyTorch does. The constants fold in double,
 // as the Python expressions fold before they meet a tensor, and are cast
@@ -41,19 +42,48 @@ __device__ __forceinline__ double quiet_nan<double>() {
 
 // The kinetics families with a device function; the ids are
 // ops/kernel_common.py::KINETICS_IDS.
-enum Kinetics { kFhn = 0, kGoldbeter = 1, kAlievPanfilov = 2 };
+enum Kinetics {
+  kFhn = 0,
+  kGoldbeter = 1,
+  kAlievPanfilov = 2,
+  kBarkley = 3,
+  kOregonator = 4,
+  kGrayScott = 5,
+  kBrusselator = 6,
+  kLambdaOmega = 7,
+  kSir = 8
+};
 
-inline bool valid_kinetics(int id) {
-  return id == kFhn || id == kGoldbeter || id == kAlievPanfilov;
+// A set of families a launcher instantiates
+template <int... Ids>
+struct KineticsSet {
+  static bool has(int id) { return ((id == Ids) || ...); }
+};
+// the families every kernel takes (ops/kernel_common.py::BASE_FAMILIES)
+using BaseFamilies = KineticsSet<kFhn, kGoldbeter, kAlievPanfilov>;
+// the families K1, K2's profile branch and K3 also take, unforced, in
+// translation units of their own (fused_*_families.cu; NEW_FAMILIES)
+using NewFamilies = KineticsSet<kBarkley, kOregonator, kGrayScott,
+                                kBrusselator, kLambdaOmega, kSir>;
+
+inline bool valid_kinetics(int id) { return BaseFamilies::has(id); }
+
+// go(kin) for a kinetics id of the set, kin its std::integral_constant;
+// cudaErrorInvalidValue for any other id
+template <int... Ids, class F>
+inline int with_kinetics_in(KineticsSet<Ids...>, int kinetics, F go) {
+  int rc = static_cast<int>(cudaErrorInvalidValue);
+  (void)((kinetics == Ids
+              ? (rc = go(std::integral_constant<int, Ids>{}), true)
+              : false)
+         || ...);
+  return rc;
 }
 
-// go(kin) for a valid kinetics id, kin its std::integral_constant
+// with_kinetics_in over the base families
 template <class F>
 inline int with_kinetics(int kinetics, F go) {
-  using std::integral_constant;
-  if (kinetics == kFhn) return go(integral_constant<int, kFhn>{});
-  if (kinetics == kGoldbeter) return go(integral_constant<int, kGoldbeter>{});
-  return go(integral_constant<int, kAlievPanfilov>{});
+  return with_kinetics_in(BaseFamilies{}, kinetics, go);
 }
 
 constexpr double kFhnEpsilon = 0.36;   // models/fhn.py EPSILON
@@ -77,6 +107,17 @@ constexpr double kApK = 8.0;
 constexpr double kApEps0 = 0.002;
 constexpr double kApMu1 = 0.2;
 constexpr double kApMu2 = 0.3;
+
+// models/barkley.py, oregonator.py, grayscott.py, brusselator.py and
+// sir.py constants, the reciprocals folded in double as there
+constexpr double kBkInvEps = 1.0 / 0.02;   // 1 / EPS
+constexpr double kBkInvA = 1.0 / 0.75;     // 1 / A
+constexpr double kOrInvEps = 1.0 / 0.04;
+constexpr double kOrQ = 0.002;
+constexpr double kGsK = 0.062;             // K_REMOVAL
+constexpr double kBrA = 1.0;               // A_FEED
+constexpr double kBrRatio = 8.0;           // D_RATIO_V
+constexpr double kSirG = 0.5;              // G_RECOVERY
 
 __device__ __forceinline__ int wrap(int i, int n) {
   i %= n;
@@ -558,6 +599,207 @@ struct ProfileRhs {
                                            T fu, T fv, T& du, T& dv) const {
     profile_point_rhs<Kin, T, true>(c, k.torus != 0, k.has_freeze != 0, su,
                                     v, p, W, du, dv, fu, fv);
+  }
+};
+
+// The shape of a family (the model's nvars, diffusive_vars and
+// diffusion_ratios; ops/kernel_common.py::NEW_FAMILIES): kNv variables,
+// kNd of which diffuse, the i-th being variable var(i) at ratio(i) times
+// the coefficient. The base families and Barkley and the Oregonator: two
+// variables, variable 0 alone diffusing at ratio 1.
+template <int Kin>
+struct Family {
+  static constexpr int kNv = 2;
+  static constexpr int kNd = 1;
+  __host__ __device__ static constexpr int var(int) { return 0; }
+  __host__ __device__ static constexpr double ratio(int) { return 1.0; }
+};
+template <>
+struct Family<kGrayScott> {
+  static constexpr int kNv = 2;
+  static constexpr int kNd = 2;
+  __host__ __device__ static constexpr int var(int i) { return i; }
+  __host__ __device__ static constexpr double ratio(int i) {
+    return i == 0 ? 1.0 : 0.5;
+  }
+};
+template <>
+struct Family<kBrusselator> {
+  static constexpr int kNv = 2;
+  static constexpr int kNd = 2;
+  __host__ __device__ static constexpr int var(int i) { return i; }
+  __host__ __device__ static constexpr double ratio(int i) {
+    return i == 0 ? 1.0 : kBrRatio;
+  }
+};
+template <>
+struct Family<kLambdaOmega> {
+  static constexpr int kNv = 2;
+  static constexpr int kNd = 2;
+  __host__ __device__ static constexpr int var(int i) { return i; }
+  __host__ __device__ static constexpr double ratio(int) { return 1.0; }
+};
+template <>
+struct Family<kSir> {
+  static constexpr int kNv = 3;
+  static constexpr int kNd = 1;
+  __host__ __device__ static constexpr int var(int) { return 1; }
+  __host__ __device__ static constexpr double ratio(int) { return 1.0; }
+};
+
+// Variable v diffuses in the family
+template <int Kin>
+__host__ __device__ constexpr bool family_diffuses(int v) {
+  for (int i = 0; i < Family<Kin>::kNd; ++i)
+    if (Family<Kin>::var(i) == v) return true;
+  return false;
+}
+
+// The kinetics dy = f(y; b) of a family beyond the base three, y and dy
+// of Family<Kin>::kNv variables: models/barkley.py, oregonator.py,
+// grayscott.py, brusselator.py, lambdaomega.py and sir.py::kinetics.
+template <int Kin, typename T>
+__device__ __forceinline__ void kinetics_n(const T* y, T b, T* dy) {
+  if constexpr (Kin == kBarkley) {
+    const T u = y[0], v = y[1];
+    dy[0] = static_cast<T>(kBkInvEps) * u * (T(1) - u)
+            * (u - (v + b) * static_cast<T>(kBkInvA));
+    dy[1] = u - v;
+  } else if constexpr (Kin == kOregonator) {
+    const T u = y[0], v = y[1];
+    const T q = static_cast<T>(kOrQ);
+    dy[0] = static_cast<T>(kOrInvEps)
+            * (u * (T(1) - u) - b * v * (u - q) / (u + q));
+    dy[1] = u - v;
+  } else if constexpr (Kin == kGrayScott) {
+    const T u = y[0], v = y[1];
+    const T uvv = u * v * v;
+    dy[0] = -uvv + b * (T(1) - u);
+    dy[1] = uvv - (b + static_cast<T>(kGsK)) * v;
+  } else if constexpr (Kin == kBrusselator) {
+    const T u = y[0], v = y[1];
+    const T uuv = u * u * v;
+    dy[0] = static_cast<T>(kBrA) - (b + T(1)) * u + uuv;
+    dy[1] = b * u - uuv;
+  } else if constexpr (Kin == kLambdaOmega) {
+    const T u = y[0], v = y[1];
+    const T r2 = u * u + v * v;
+    dy[0] = (T(1) - r2) * u + b * r2 * v;
+    dy[1] = -b * r2 * u + (T(1) - r2) * v;
+  } else {
+    static_assert(Kin == kSir, "a family beyond the base three");
+    const T inf = b * y[0] * y[1];
+    const T rec = static_cast<T>(kSirG) * y[1];
+    dy[0] = -inf;
+    dy[1] = inf - rec;
+    dy[2] = rec;
+  }
+}
+
+// The kinetics Jacobian j[r][c] = d f_r / d y_c of a family beyond the
+// base three: models/*.py::jacobian of the families of kinetics_n.
+template <int Kin, typename T, int N = Family<Kin>::kNv>
+__device__ __forceinline__ void jacobian_n(const T* y, T b, T (&j)[N][N]) {
+  if constexpr (Kin == kBarkley) {
+    const T u = y[0], v = y[1];
+    const T ie = static_cast<T>(kBkInvEps);
+    const T thr = (v + b) * static_cast<T>(kBkInvA);
+    j[0][0] = ie * ((T(1) - T(2) * u) * (u - thr) + u * (T(1) - u));
+    j[0][1] = -(ie * u * (T(1) - u) * static_cast<T>(kBkInvA));
+    j[1][0] = T(1);
+    j[1][1] = T(-1);
+  } else if constexpr (Kin == kOregonator) {
+    const T u = y[0], v = y[1];
+    const T ie = static_cast<T>(kOrInvEps);
+    const T q = static_cast<T>(kOrQ);
+    const T upq = u + q;
+    j[0][0] = ie * (T(1) - T(2) * u - b * v * T(2) * q / (upq * upq));
+    j[0][1] = -(ie * (b * (u - q) / upq));
+    j[1][0] = T(1);
+    j[1][1] = T(-1);
+  } else if constexpr (Kin == kGrayScott) {
+    const T u = y[0], v = y[1];
+    const T vv = v * v;
+    const T uv2 = T(2) * (u * v);
+    j[0][0] = -vv - b;
+    j[0][1] = -uv2;
+    j[1][0] = vv;
+    j[1][1] = uv2 - (b + static_cast<T>(kGsK));
+  } else if constexpr (Kin == kBrusselator) {
+    const T u = y[0], v = y[1];
+    const T uv2 = T(2) * (u * v);
+    const T uu = u * u;
+    j[0][0] = uv2 - (b + T(1));
+    j[0][1] = uu;
+    j[1][0] = b - uv2;
+    j[1][1] = -uu;
+  } else if constexpr (Kin == kLambdaOmega) {
+    const T u = y[0], v = y[1];
+    const T r2 = u * u + v * v;
+    const T m = T(1) - r2;
+    const T tu = T(2) * u, tv = T(2) * v;
+    j[0][0] = m - tu * u + b * tu * v;
+    j[0][1] = -(tv * u) + b * (r2 + tv * v);
+    j[1][0] = -b * (r2 + tu * u) - tu * v;
+    j[1][1] = -b * tv * u + m - tv * v;
+  } else {
+    static_assert(Kin == kSir, "a family beyond the base three");
+    const T bi = b * y[1];
+    const T bs = b * y[0];
+    j[0][0] = -bi;
+    j[0][1] = -bs;
+    j[0][2] = T(0);
+    j[1][0] = bi;
+    j[1][1] = bs - static_cast<T>(kSirG);
+    j[1][2] = T(0);
+    j[2][0] = T(0);
+    j[2][1] = static_cast<T>(kSirG);
+    j[2][2] = T(0);
+  }
+}
+
+// The profile operator with the kinetics of a family beyond the base three
+// (ops/kernel_common.py::make_rhs_block on its NEW_FAMILIES), the functor
+// of the families' tile kernels (erk_slots.cuh, erk_tile.cuh,
+// rkc_chunk.cuh): point() reads a point's coefficients once, as
+// ProfileRhs's; at_point() writes dy at local point p (row stride W) from
+// the point's variables y and the planes of its diffusing variables
+// (planes[i] holds variable Fam::var(i)): the kinetics, plus each
+// diffusing variable's operator, times its ratio after the stencil where
+// the ratio is not 1 (react[v] + laps[v]), then times live with a freeze.
+template <int Kin, typename T>
+struct FamilyRhs {
+  using Fam = Family<Kin>;
+  using Point = ProfilePoint<T>;
+  static constexpr int kNv = Fam::kNv;
+  static constexpr int kNd = Fam::kNd;
+
+  RhsConstants<T> k;
+
+  __device__ __forceinline__ Point point(T fz, int r, int c) const {
+    const int i = k.torus ? c : 0;
+    return {__ldg(k.c0 + i), __ldg(k.c1 + i), __ldg(k.c2 + i),
+            beta_at(k, r), k.has_freeze ? live_at(k, fz, r) : T(1)};
+  }
+  // the operator on diffusing variable i (its plane su) at p, its ratio
+  // applied
+  __device__ __forceinline__ T lap(const Point& c, int i, const T* su,
+                                   int p, int W) const {
+    const T l = profile_lap_of(c.c0, c.c1, c.c2, k.torus != 0, su, p, W);
+    return Fam::ratio(i) == 1.0 ? l : static_cast<T>(Fam::ratio(i)) * l;
+  }
+  __device__ __forceinline__ void at_point(const Point& c,
+                                           const T* const* planes,
+                                           const T* y, int p, int W,
+                                           T* dy) const {
+    kinetics_n<Kin>(y, c.beta, dy);
+#pragma unroll
+    for (int i = 0; i < kNd; ++i)
+      dy[Fam::var(i)] = dy[Fam::var(i)] + lap(c, i, planes[i], p, W);
+    if (k.has_freeze) {
+#pragma unroll
+      for (int v = 0; v < kNv; ++v) dy[v] = dy[v] * c.live;
+    }
   }
 };
 

@@ -580,4 +580,342 @@ int rkc_chunk_info(int* out) {
   return 0;
 }
 
+// The chunked scheme for the families of any shape (FamilyRhs: K2's
+// NEW_FAMILIES, unforced, on the periodic grid): the chunks, tiles, slots,
+// grid barriers and partial sums of fused_rkc_chunk_kernel, with every
+// variable of y0 and F0 in shared memory, every variable of Yj-1 and Yj-2
+// in the registers of the point's thread, and two shared planes of Yj-1
+// for each diffusing variable, which the stencil reads; `work` holds F0 and
+// the two (Yj-1, Yj-2) sets in turns, every variable each (5 NV planes).
+// The squared errors are added variable by variable.
+template <int Kin>
+struct RkcFamilyPlan {
+  static constexpr int kNv = Family<Kin>::kNv;
+  static constexpr int kNd = Family<Kin>::kNd;
+  // y0 and F0 of every variable, Yj-1's diffusing variables twice
+  static constexpr int kPlanes = 2 * kNv + 2 * kNd;
+  template <typename T>
+  static constexpr size_t smem() {
+    return static_cast<size_t>(kPlanes * RkcRegion::kStride + kRkcCoeffs)
+           * sizeof(T);
+  }
+};
+
+template <int Kin, typename T>
+__global__ void __launch_bounds__(kRkcThreads, (kRkcMinBlocks<T>))
+    fused_rkc_chunk_n_kernel(const T* __restrict__ y, T* __restrict__ y_new,
+                             T* __restrict__ ss, T* work,
+                             const T* __restrict__ h_ptr,
+                             const T* __restrict__ fz_ptr,
+                             const int* __restrict__ s_ptr,
+                             const T* __restrict__ mu1_tab,
+                             const T* __restrict__ ctab, int s_cap,
+                             FamilyRhs<Kin, T> rhs, WrapGrid grid,
+                             RkcPlan plan, T rtol, T atol) {
+  using Fam = Family<Kin>;
+  using Reg = RkcRegion;
+  using Origin = ChunkOrigin<WrapGrid>;
+  constexpr int NV = Fam::kNv;
+  constexpr int ND = Fam::kNd;
+  constexpr int W = Reg::kW;
+  constexpr int S = Reg::kSlots;
+  constexpr int PS = Reg::kStride;
+  constexpr int kTile = kRkcTile;
+  constexpr int kChunk = kRkcChunk;
+  constexpr int kPlanes = RkcFamilyPlan<Kin>::kPlanes;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T warp_sums[kRkcThreads / 32];
+  __shared__ T e2[NV][kTile * kTile];  // a tile's squared scaled errors
+  T* const base = reinterpret_cast<T*>(smem_raw) + Reg::kGuard;
+  T* const y0s = base;                 // variable v at y0s + v PS
+  T* const f0s = base + NV * PS;       // F0 = f(y0)
+  // Yj-1's diffusing variable i in turn t (0, 1)
+  const auto ycs = [&](int t, int i) {
+    return base + (2 * NV + t * ND + i) * PS;
+  };
+  T* const colc = base - Reg::kGuard + kPlanes * PS;
+  T* const rowc = colc + 3 * W;
+  cg::grid_group gridg = cg::this_grid();
+
+  const auto tiles = [&](int& tiles_x) {
+    tiles_x = (plan.nx + kTile - 1) / kTile;
+    return tiles_x * ((plan.ny + kTile - 1) / kTile);
+  };
+  const int s = *s_ptr;
+  const size_t plane = grid.plane();
+  if (s < 2 || s > s_cap) {
+    // no table row for this stage count: keep y, poison the error sums
+    int tiles_x;
+    const int n_tiles = tiles(tiles_x);
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      const int ty0 = t / tiles_x;
+      const Origin o(grid, ty0 * kTile, (t - ty0 * tiles_x) * kTile, 0);
+#pragma unroll
+      for (int m = 0; m < S; ++m) {
+        const int p = Reg::point(m);
+        if (!Reg::valid(m) || !Reg::inside(p, kChunk)) continue;
+        const int ly = Reg::row(p), lx = Reg::col(p);
+        if (!o.in_grid(ly, lx)) continue;
+        const size_t g = o.template at<false>(ly, lx);
+#pragma unroll
+        for (int v = 0; v < NV; ++v) y_new[v * plane + g] = y[v * plane + g];
+      }
+    }
+    if (threadIdx.x == 0)
+      for (int i = blockIdx.x; i < plan.n_sums; i += gridDim.x)
+        ss[i] = quiet_nan<T>();
+    return;
+  }
+
+  const T h = *h_ptr;
+  const T fz = *fz_ptr;
+  const T hmu1 = h * mu1_tab[s];
+  const T h04 = T(0.4) * h;
+  const T* const row = ctab + static_cast<size_t>(s)
+                                  * (kRkcMaxStages + 1) * 4;
+  const int n_evals = s + 1;
+  const int n_chunks = (n_evals + kChunk - 1) / kChunk;
+  T* const f0buf = work;               // F0 on the grid, after chunk 0
+  int tiles_x;
+  const int n_tiles = tiles(tiles_x);
+  for (int c = 0; c < n_chunks; ++c) {
+    if (c > 0) gridg.sync();
+    const int e0 = c * n_evals / n_chunks;
+    const int e1 = (c + 1) * n_evals / n_chunks;
+    const int off = kChunk - (e1 - e0);   // the region's unused rings
+    // the sets (Ye, Ye-1) a chunk hands on, every variable each, in turns
+    const T* const rd = work + (NV + 2 * NV * ((c + 1) & 1)) * plane;
+    T* const wr = work + (NV + 2 * NV * (c & 1)) * plane;
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      const int ty0 = t / tiles_x, tx0 = t - ty0 * tiles_x;
+      const Origin o(grid, ty0 * kTile, tx0 * kTile, 0);
+      const auto chunk = [&](auto inner) {
+        constexpr bool kIn = decltype(inner)::value;
+        // f(x) at local point p (row ly, column lx) on the staged
+        // coefficients, the diffusing variables read from turn tt's planes
+        // (tt < 0: y0's)
+        const auto f = [&](int tt, const T* x, int p, int ly, int lx,
+                           T* dy) {
+          const T* planes[ND];
+#pragma unroll
+          for (int i = 0; i < ND; ++i)
+            planes[i] = tt < 0 ? y0s + Fam::var(i) * PS : ycs(tt, i);
+          rhs.at_point({colc[lx], colc[W + lx], colc[2 * W + lx], rowc[ly],
+                        rowc[Reg::kR + ly]},
+                       planes, x, p, W, dy);
+        };
+        {
+          const int i = threadIdx.x;
+          if (i < W) {
+            const int cc = rhs.k.torus ? o.template col<kIn>(i) : 0;
+            colc[i] = rhs.k.c0[cc];
+            colc[W + i] = rhs.k.c1[cc];
+            colc[2 * W + i] = rhs.k.c2[cc];
+          } else if (i >= 64 && i < 64 + Reg::kR) {
+            const int r = o.template row<kIn>(i - 64);
+            rowc[i - 64] = beta_at(rhs.k, r);
+            rowc[Reg::kR + i - 64] =
+                rhs.k.has_freeze ? live_at(rhs.k, fz, r) : T(1);
+          }
+        }
+        T yc[NV][S], yp[NV][S];       // Yj-1, Yj-2 at the thread's points
+#pragma unroll
+        for (int m = 0; m < S; ++m) {
+#pragma unroll
+          for (int v = 0; v < NV; ++v) yc[v][m] = yp[v][m] = T(0);
+          const int p = Reg::point(m);
+          if (!Reg::valid(m) || !Reg::inside(p, off)) continue;
+          const size_t g = o.template at<kIn>(Reg::row(p), Reg::col(p));
+#pragma unroll
+          for (int v = 0; v < NV; ++v) y0s[v * PS + p] = y[v * plane + g];
+          if (c == 0) continue;
+#pragma unroll
+          for (int v = 0; v < NV; ++v) {
+            f0s[v * PS + p] = f0buf[v * plane + g];
+            yc[v][m] = rd[v * plane + g];
+            yp[v][m] = rd[(NV + v) * plane + g];
+          }
+#pragma unroll
+          for (int i = 0; i < ND; ++i) ycs(0, i)[p] = yc[Fam::var(i)][m];
+        }
+        __syncthreads();
+        // evaluation e is right on the points d = off + e - e0 + 1 rings
+        // in and more, and runs on the rows of those points
+        int turn = 0;                 // Yj-1's diffusing planes: turn
+        for (int e = e0; e < e1; ++e) {
+          const int d = off + e - e0 + 1;
+          const auto needed = [&](int m) {
+            const int ly = Reg::row(Reg::point(m));
+            return Reg::valid(m) && ly >= d && ly < Reg::kR - d;
+          };
+          if (e == 0) {
+            // F0 and Y1 = y0 + (h mu1) F0
+#pragma unroll
+            for (int m = 0; m < S; ++m) {
+              if (!needed(m)) continue;
+              const int p = Reg::point(m);
+              T x[NV], dy[NV];
+#pragma unroll
+              for (int v = 0; v < NV; ++v) x[v] = y0s[v * PS + p];
+              f(-1, x, p, Reg::row(p), Reg::col(p), dy);
+#pragma unroll
+              for (int v = 0; v < NV; ++v) {
+                f0s[v * PS + p] = dy[v];
+                yc[v][m] = x[v] + hmu1 * dy[v];
+                yp[v][m] = x[v];
+              }
+#pragma unroll
+              for (int i = 0; i < ND; ++i)
+                ycs(1 - turn, i)[p] = yc[Fam::var(i)][m];
+            }
+          } else if (e < s) {
+            // Yj, j = e + 1, from f(Yj-1)
+            const int j = e + 1;
+            const T mu = row[4 * j], nu = row[4 * j + 1];
+            const T mut = row[4 * j + 2], gt = row[4 * j + 3];
+            const T cy0 = T(1) - mu - nu;
+            const T hmut = h * mut, hgt = h * gt;
+#pragma unroll
+            for (int m = 0; m < S; ++m) {
+              if (!needed(m)) continue;
+              const int p = Reg::point(m);
+              T x[NV], fy[NV];
+#pragma unroll
+              for (int v = 0; v < NV; ++v) x[v] = yc[v][m];
+              f(turn, x, p, Reg::row(p), Reg::col(p), fy);
+#pragma unroll
+              for (int v = 0; v < NV; ++v) {
+                yc[v][m] = cy0 * y0s[v * PS + p] + mu * x[v] + nu * yp[v][m]
+                           + hmut * fy[v] + hgt * f0s[v * PS + p];
+                yp[v][m] = x[v];
+              }
+#pragma unroll
+              for (int i = 0; i < ND; ++i)
+                ycs(1 - turn, i)[p] = yc[Fam::var(i)][m];
+            }
+          } else {
+            // F1 = f(y_new), y_new and the error on the tile; WRMS
+            // weights from the step's start
+#pragma unroll
+            for (int m = 0; m < S; ++m) {
+              const int p = Reg::point(m);
+              if (!Reg::valid(m) || !Reg::inside(p, kChunk)) continue;
+              const int ly = Reg::row(p), lx = Reg::col(p);
+              const int q = (ly - kChunk) * kTile + lx - kChunk;
+              if (!o.in_grid(ly, lx)) {   // adds +0.0 below: exact
+#pragma unroll
+                for (int v = 0; v < NV; ++v) e2[v][q] = T(0);
+                continue;
+              }
+              T x[NV], f1[NV];
+#pragma unroll
+              for (int v = 0; v < NV; ++v) x[v] = yc[v][m];
+              f(turn, x, p, ly, lx, f1);
+              const size_t g = o.template at<kIn>(ly, lx);
+#pragma unroll
+              for (int v = 0; v < NV; ++v) {
+                const T x0 = y0s[v * PS + p];
+                y_new[v * plane + g] = x[v];
+                const T est = T(0.8) * (x0 - x[v])
+                              + h04 * (f0s[v * PS + p] + f1[v]);
+                const T w = est * (T(1) / (rtol * fabs(x0) + atol));
+                e2[v][q] = w * w;
+              }
+            }
+          }
+          turn = 1 - turn;
+          __syncthreads();
+        }
+        if (e1 == n_evals) {
+          // the tile's partial sum in the one-pass kernels' order: thread t
+          // adds the points t, t + kRkcThreads, ..., variable by variable
+          T acc = T(0);
+          for (int q = threadIdx.x; q < kTile * kTile; q += kRkcThreads)
+#pragma unroll
+            for (int v = 0; v < NV; ++v) acc = acc + e2[v][q];
+          store_tile_sum(acc, warp_sums, ss + ty0 * plan.sum_tiles_x + tx0);
+          return;
+        }
+        // hand the tile's (Ye1, Ye1-1), and after chunk 0 F0, to the next
+        // chunk; each thread reads only its own points here
+#pragma unroll
+        for (int m = 0; m < S; ++m) {
+          const int p = Reg::point(m);
+          if (!Reg::valid(m) || !Reg::inside(p, kChunk)) continue;
+          const int ly = Reg::row(p), lx = Reg::col(p);
+          if (!o.in_grid(ly, lx)) continue;
+          const size_t g = o.template at<kIn>(ly, lx);
+#pragma unroll
+          for (int v = 0; v < NV; ++v) {
+            wr[v * plane + g] = yc[v][m];
+            wr[(NV + v) * plane + g] = yp[v][m];
+            if (c == 0) f0buf[v * plane + g] = f0s[v * PS + p];
+          }
+        }
+      };
+      if (o.inner)
+        chunk(std::true_type{});
+      else
+        chunk(std::false_type{});
+    }
+  }
+}
+
+// One step of fused_rkc_chunk_n_kernel<Kin, T> on `stream`, a cooperative
+// launch as launch_rkc_chunk's; returns the CUDA error code.
+template <int Kin, typename T>
+int launch_rkc_chunk_n(FamilyRhs<Kin, T> rhs, WrapGrid grid, RkcPlan plan,
+                       int max_tiles, const void* y, void* y_new, void* ss,
+                       void* work, const void* h, const void* fz,
+                       const void* s, const void* mu1_tab, const void* ctab,
+                       int s_cap, double rtol, double atol, void* stream) {
+  if (s_cap < 2 || s_cap > kRkcMaxStages || plan.ny < 1 || plan.nx < 1
+      || plan.sum_tx != kRkcTile || plan.sum_ty != kRkcTile
+      || max_tiles < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = &fused_rkc_chunk_n_kernel<Kin, T>;
+  constexpr size_t smem = RkcFamilyPlan<Kin>::template smem<T>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const T* y_arg = static_cast<const T*>(y);
+  T* ynew_arg = static_cast<T*>(y_new);
+  T* ss_arg = static_cast<T*>(ss);
+  T* work_arg = static_cast<T*>(work);
+  const T* h_arg = static_cast<const T*>(h);
+  const T* fz_arg = static_cast<const T*>(fz);
+  const int* s_arg = static_cast<const int*>(s);
+  const T* mu1_arg = static_cast<const T*>(mu1_tab);
+  const T* ctab_arg = static_cast<const T*>(ctab);
+  T rtol_arg = static_cast<T>(rtol), atol_arg = static_cast<T>(atol);
+  void* args[] = {&y_arg, &ynew_arg, &ss_arg, &work_arg, &h_arg, &fz_arg,
+                  &s_arg, &mu1_arg, &ctab_arg, &s_cap, &rhs, &grid, &plan,
+                  &rtol_arg, &atol_arg};
+  int n_blocks = 0;
+  return launch_cooperative(kernel,
+                            static_cast<size_t>(max_tiles) * kRkcThreads,
+                            max_tiles, &n_blocks, args, stream, smem,
+                            kRkcThreads);
+}
+
+// rkc_chunk_info of fused_rkc_chunk_n_kernel<Kin, T>
+template <int Kin, typename T>
+int rkc_chunk_n_info(int* out) {
+  auto kernel = &fused_rkc_chunk_n_kernel<Kin, T>;
+  constexpr size_t smem = RkcFamilyPlan<Kin>::template smem<T>();
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel,
+                                                        kRkcThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[1] = attr.numRegs;
+  out[2] = static_cast<int>(smem + attr.sharedSizeBytes);
+  return 0;
+}
+
 }  // namespace crd

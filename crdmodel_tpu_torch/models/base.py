@@ -11,8 +11,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, Tuple
 
-from crdmodel_tpu_torch.config import MODEL_NAMES
-
 # kinetics(state, b) -> dstate, state/dstate (nvars, ...) tensors, b the
 # scalar or field bifurcation parameter
 KineticsFn = Callable[..., object]
@@ -51,10 +49,8 @@ def register_model(model: ReactionModel) -> ReactionModel:
 
 
 def get_model(name: str) -> ReactionModel:
-    if name in _REGISTRY:
+    try:
         return _REGISTRY[name]
-    if name in MODEL_NAMES:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP queue 1, item 6); "
-            f"ported: {sorted(_REGISTRY)}")
-    raise KeyError(f"unknown model {name!r}; registered: {sorted(_REGISTRY)}")
+    except KeyError:
+        raise KeyError(f"unknown model {name!r}; registered: "
+                       f"{sorted(_REGISTRY)}")

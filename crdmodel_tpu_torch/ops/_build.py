@@ -42,7 +42,9 @@ _INTP = ctypes.POINTER(ctypes.c_int)
 # fused_box3d_rkc.cu, fused_shard_step.cu, fused_shard_rkc.cu,
 # fused_shard_imex.cu, fused_shard_divform.cu, fused_shard_box3d.cu,
 # fused_shard_box3d_rkc.cu, fused_kstep.cu; the box launchers' forced
-# instantiations are compiled apart, in csrc/*_forced.cu)
+# instantiations are compiled apart, in csrc/*_forced.cu, and K1's, K2's
+# and K3's for the six families beyond the base three in
+# csrc/*_families.cu)
 # the structured forcing of K1-K4 and K8-K11 after fz: amps, rows, cols;
 # n_stim, n_cols, var1 (ops/kernel_common.py::StimConstants.launch_args)
 _STIM = [_VOIDP] * 3 + [_INT] * 3
@@ -143,6 +145,14 @@ SIGNATURES = {
     "crd_fused_shard_box3d_rkc_step_f64": _FUSED_SHARD_BOX3D_RKC_ARGTYPES,
     "crd_fused_kstep_f32": _FUSED_KSTEP_ARGTYPES,
     "crd_fused_kstep_f64": _FUSED_KSTEP_ARGTYPES,
+    # K1, K2 and K3 for the six families beyond the base three
+    # (csrc/*_families.cu): the base launchers' arguments
+    "crd_fused_erk_step_families_f32": _FUSED_STEP_ARGTYPES,
+    "crd_fused_erk_step_families_f64": _FUSED_STEP_ARGTYPES,
+    "crd_fused_rkc_step_families_f32": _FUSED_RKC_ARGTYPES,
+    "crd_fused_rkc_step_families_f64": _FUSED_RKC_ARGTYPES,
+    "crd_fused_imex_step_families_f32": _FUSED_IMEX_ARGTYPES,
+    "crd_fused_imex_step_families_f64": _FUSED_IMEX_ARGTYPES,
     # (f64, kinetics, n_stages, tile_y, out[3]), (f64, divform, kinetics,
     # out[3]), (f64, kinetics, out[3]), (f64, kinetics, tile_y, out[3]) and
     # (f64, mode, kinetics, out[3]): a kernel's blocks an SM, registers,
@@ -162,6 +172,11 @@ SIGNATURES = {
     "crd_fused_shard_box3d_info": [_INT] * 3 + [_INTP],
     "crd_fused_box3d_rkc_info": [_INT] * 3 + [_INTP],
     "crd_fused_shard_box3d_rkc_info": [_INT] * 3 + [_INTP],
+    # (f64, kinetics, out[3]), (f64, kinetics, out[3]) and (f64, kinetics,
+    # tile_y, out[3]): the families' K1 (bs32), K2 and K3
+    "crd_fused_erk_step_families_info": [_INT] * 2 + [_INTP],
+    "crd_fused_rkc_families_info": [_INT] * 2 + [_INTP],
+    "crd_fused_imex_families_info": [_INT] * 3 + [_INTP],
 }
 
 

@@ -57,7 +57,8 @@ def slots_plan(itemsize: int, op_planes: int = 0):
 
 def kernel_info(symbol: str, dtype, *args) -> dict:
     """The bs32 kernel of a launcher's info query (K1
-    `crd_fused_erk_step_info`, K4 `crd_fused_divform_info`, K5
+    `crd_fused_erk_step_info`, and `crd_fused_erk_step_families_info` for
+    the six families beyond the base three, K4 `crd_fused_divform_info`, K5
     `crd_fused_aniso_info` and K8 `crd_fused_shard_step_info` with args
     (kinetics,), K11
     `crd_fused_shard_divform_info` with (mode, kinetics)) on the current

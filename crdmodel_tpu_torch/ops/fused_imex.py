@@ -2,7 +2,10 @@
 crdmodel_tpu/ops/pallas_imex.py).
 
 One launch performs a whole additive Runge–Kutta step of integrate/imex.py
-on the (2, ny, nx) state: the 4 explicit profile-stencil evaluations, the 3
+on the (nvars, ny, nx) state of any of the nine families (the six beyond
+the base three unforced, in csrc/fused_imex_families.cu: nvars 2 or 3,
+the stencil on each diffusing variable, a 2x2 or 3x3 Cramer solve): the 4
+explicit profile-stencil evaluations, the 3
 implicit stages solved at every point by 3 full Newton iterations, the
 solution and error assembly, and per-tile partial sums of the squared
 WRMS-scaled error plus (1/NEWTON_TOL)^2 times the squared scaled last
@@ -56,13 +59,16 @@ import torch
 
 from crdmodel_tpu_torch.integrate import imex
 from crdmodel_tpu_torch.ops.fused_kstep import block_sums
-from crdmodel_tpu_torch.ops.kernel_common import (KernelConstants,
+from crdmodel_tpu_torch.ops.kernel_common import (BASE_IDS, KernelConstants,
                                                   check_constants,
+                                                  check_state,
                                                   check_tensor,
                                                   forcing_of,
                                                   freeze_scalar,
                                                   fused_forcing,
+                                                  kernel_families,
                                                   kernel_ready_kinetics,
+                                                  launcher_symbol,
                                                   make_split_block,
                                                   needs_divform,
                                                   prepare_constants,
@@ -94,7 +100,7 @@ def is_imex_supported(problem, dtype) -> bool:
         return False
     if dtype != torch.float32:
         return False
-    return kernel_ready_kinetics(problem)
+    return kernel_ready_kinetics(problem, kernel_families(problem))
 
 
 class SlotsPlan(NamedTuple):
@@ -110,31 +116,35 @@ class SlotsPlan(NamedTuple):
     blocks: int
 
 
-def slots_bytes(tile_y: int, itemsize: int) -> int:
+def slots_bytes(tile_y: int, itemsize: int, nvars: int = 2,
+                ndiff: int = 1) -> int:
     """The shared bytes a block of 32 x tile_y tiles (csrc/imex_slots.cuh
-    ImexPlan): dynamic for y0's u and two stage planes of the region (the
-    tile and HALO rings) and the staged squares (3 stages' Newton updates
-    and the error, two variables, on the tile); static for the warps'
-    sums, the tableau's products (h AE, h AI, h B, h D) and the profile
-    operator's coefficients of the region's columns (three) and rows (beta
-    and live)."""
+    ImexPlan, ImexFamilyPlan): dynamic for y0 and two stage planes of the
+    region (the tile and HALO rings) of each of the ndiff diffusing
+    variables and the staged squares (3 stages' Newton updates and the
+    error, nvars variables, on the tile); static for the warps' sums, the
+    tableau's products (h AE, h AI, h B, h D) and the profile operator's
+    coefficients of the region's columns (three) and rows (beta and
+    live)."""
     width, rows = TILE + 2 * HALO, tile_y + 2 * HALO
-    dynamic = 3 * width * rows + 2 * imex.STAGES * TILE * tile_y
+    dynamic = (3 * ndiff * width * rows
+               + nvars * imex.STAGES * TILE * tile_y)
     static = (THREADS // 32 + 2 * imex.STAGES ** 2 + 2 * imex.STAGES
               + 3 * width + 2 * rows)
     return (dynamic + static) * itemsize
 
 
-def slots_plan(ny: int, nx: int, itemsize: int) -> SlotsPlan:
-    """K3's plan on a (2, ny, nx) state in a dtype of `itemsize` bytes:
-    32x32 tiles (two tile points a thread), or 32x16 ones (one) where
-    32x32 tiles would number fewer than SMS, so that a small grid spreads
-    over more SMs; each thread also takes at most one point of the
-    Newton's HALO - 1 rings."""
+def slots_plan(ny: int, nx: int, itemsize: int, nvars: int = 2,
+               ndiff: int = 1) -> SlotsPlan:
+    """K3's plan on an (nvars, ny, nx) state with ndiff diffusing
+    variables in a dtype of `itemsize` bytes: 32x32 tiles (two tile points
+    a thread), or 32x16 ones (one) where 32x32 tiles would number fewer
+    than SMS, so that a small grid spreads over more SMs; each thread also
+    takes at most one point of the Newton's HALO - 1 rings."""
     small = -(-nx // TILE) * -(-ny // TILE) < SMS
     tile_y = SMALL_TILE_Y if small else TILE
     return SlotsPlan(tile_y, TILE, THREADS, TILE * tile_y // THREADS + 1,
-                     slots_bytes(tile_y, itemsize),
+                     slots_bytes(tile_y, itemsize, nvars, ndiff),
                      -(-nx // TILE) * -(-ny // tile_y))
 
 
@@ -222,13 +232,14 @@ def imex_tile_sums(err, dys, y0, rtol: float, atol: float, tile_y: int,
                    counted=None):
     """The IMEX kernels' partial sums (K3, K10) in plain torch from a
     step's error, its stages' last Newton updates and its start, each
-    (2, ny, nx) on the extent the tiles cover: (n_tiles,), one a TILE x
+    (nvars, ny, nx) on the extent the tiles cover: (n_tiles,), one a TILE x
     tile_y tile, row-major, in the order of the SUM_THREADS-thread one-pass
     block that csrc/imex_slots.cuh replays: thread t adds its points of
     each implicit stage s's (TILE + 2 (HALO - s)) x (tile_y + 2 (HALO -
     s)) region, in its strided order, restricted to the tile's counted
-    cells (squared scaled last Newton updates, u then v), and apart its
-    tile points' squared scaled errors (stride SUM_THREADS, u then v), then
+    cells (squared scaled last Newton updates, variable by variable), and
+    apart its tile points' squared scaled errors (stride SUM_THREADS,
+    variable by variable), then
     acc + (1/NEWTON_TOL)^2 dacc, then the block's reduction
     (fused_kstep.block_sums). counted = (rows, cols): only the first rows
     x cols cells count (K10's physical cells), default all; a cell that
@@ -238,16 +249,18 @@ def imex_tile_sums(err, dys, y0, rtol: float, atol: float, tile_y: int,
     n_ty, n_tx = -(-ny // tile_y), -(-nx // TILE)
     rows, cols = (ny, nx) if counted is None else counted
 
+    nv = y0.shape[0]
+
     def tile_squares(a):
-        """(2, n_tiles, TILE * tile_y) squares of a's scaled values."""
+        """(nvars, n_tiles, TILE * tile_y) squares of a's scaled values."""
         sq = a * w
         sq = sq * sq
         sq[:, rows:] = 0.0
         sq[:, :, cols:] = 0.0
         sq = torch.nn.functional.pad(sq, (0, n_tx * TILE - nx,
                                           0, n_ty * tile_y - ny))
-        return (sq.reshape(2, n_ty, tile_y, n_tx, TILE)
-                .permute(0, 1, 3, 2, 4).reshape(2, n_ty * n_tx,
+        return (sq.reshape(nv, n_ty, tile_y, n_tx, TILE)
+                .permute(0, 1, 3, 2, 4).reshape(nv, n_ty * n_tx,
                                                  tile_y * TILE))
 
     threads = torch.arange(SUM_THREADS, device=y0.device)
@@ -263,14 +276,14 @@ def imex_tile_sums(err, dys, y0, rtol: float, atol: float, tile_y: int,
             on = ((q < width * height) & (ty >= 0) & (ty < tile_y)
                   & (tx >= 0) & (tx < TILE))
             i = torch.where(on, ty * TILE + tx, 0)
-            for var in range(2):
+            for var in range(nv):
                 dacc = dacc + torch.where(on, sq[var][:, i], 0.0)
     sq = tile_squares(err)
     acc = torch.zeros_like(dacc)
     for m in range(TILE * tile_y // SUM_THREADS):
         cells = slice(SUM_THREADS * m, SUM_THREADS * (m + 1))
-        acc = acc + sq[0][:, cells]
-        acc = acc + sq[1][:, cells]
+        for var in range(nv):
+            acc = acc + sq[var][:, cells]
     acc = acc + (1.0 / imex.NEWTON_TOL) ** 2 * dacc
     return block_sums(acc)
 
@@ -280,23 +293,25 @@ def fused_imex_tile_sums(y, h, fz, kc: KernelConstants, rtol: float,
     """The kernel's partial sums in plain torch: (n_blocks,), one a tile of
     slots_plan, each in the kernel's order (imex_tile_sums)."""
     _, err, dys = imex_stages_reference(y, h, fz, kc, stim, amps)
-    _, ny, nx = y.shape
-    tile_y = slots_plan(ny, nx, y.element_size()).tile_y
+    nv, ny, nx = y.shape
+    tile_y = slots_plan(ny, nx, y.element_size(), nv).tile_y
     return imex_tile_sums(err, dys, y, rtol, atol, tile_y)
 
 
 def kernel_info(dtype, kinetics_id: int, tile_y: int) -> dict:
     """K3's CUDA kernel of (dtype, kinetics) on 32 x tile_y tiles on the
     current card: its resident blocks an SM, registers a thread and shared
-    bytes a block."""
+    bytes a block (the families' kernel for a NEW_FAMILIES id)."""
     from crdmodel_tpu_torch.ops._build import kernel_info as query
     f64 = int(torch.empty((), dtype=dtype).element_size() == 8)
-    return query("crd_fused_imex_info", f64, kinetics_id, tile_y)
+    name = ("crd_fused_imex_info" if kinetics_id in BASE_IDS
+            else "crd_fused_imex_families_info")
+    return query(name, f64, kinetics_id, tile_y)
 
 
 def fused_imex_step(y, h, fz, kc: KernelConstants, rtol: float, atol: float,
                     stim=None, amps=None):
-    """One fused IMEX step: (y_new (2, ny, nx), ss partials (n_blocks,)),
+    """One fused IMEX step: (y_new (nvars, ny, nx), ss partials (n_blocks,)),
     on the tiles of slots_plan.
 
     h and fz are 0-d tensors in y's dtype on y's device: the kernel reads
@@ -314,9 +329,8 @@ def fused_imex_step(y, h, fz, kc: KernelConstants, rtol: float, atol: float,
     dtype, device = y.dtype, y.device
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"the kernel takes float32 or float64, not {dtype}")
-    if y.dim() != 3 or y.shape[0] != 2:
-        raise ValueError(f"y must be (2, ny, nx), got {tuple(y.shape)}")
-    _, ny, nx = y.shape
+    check_state(y, kc)
+    nv, ny, nx = y.shape
     check_tensor("y", y, y.shape, dtype, device)
     check_tensor("h", h, (), dtype, device)
     check_tensor("fz", fz, (), dtype, device)
@@ -325,12 +339,13 @@ def fused_imex_step(y, h, fz, kc: KernelConstants, rtol: float, atol: float,
 
     from crdmodel_tpu_torch.ops._build import load_library
     lib = load_library()
-    plan = slots_plan(ny, nx, y.element_size())
+    plan = slots_plan(ny, nx, y.element_size(), nv,
+                      len(kc.model.diffusive_vars))
     y_new = torch.empty_like(y)
     ss = torch.empty(plan.blocks, dtype=dtype, device=device)
     ae, ai, b, d = _table()
-    launch = (lib.crd_fused_imex_step_f32 if dtype == torch.float32
-              else lib.crd_fused_imex_step_f64)
+    launch = getattr(lib, launcher_symbol("crd_fused_imex_step", kc)
+                     + ("_f32" if dtype == torch.float32 else "_f64"))
     # the CUDA runtime launches on the current device: make it y's
     with torch.cuda.device(device):
         rc = launch(y.data_ptr(), y_new.data_ptr(), ss.data_ptr(),

@@ -50,6 +50,7 @@ from crdmodel_tpu_torch.ops.kernel_common import (KernelConstants,
                                                   check_constants,
                                                   check_tensor,
                                                   freeze_scalar,
+                                                  kernel_ready_kinetics,
                                                   make_rhs_block,
                                                   prepare_constants)
 
@@ -90,7 +91,8 @@ def is_kstep_supported(problem, tableau: Tableau, dtype, k: int) -> bool:
     P = halo_for(tableau, k)
     if tableau.stages > P:
         return False
-    if not fused_step.is_supported(problem, tableau, dtype):
+    if not (fused_step.is_supported(problem, tableau, dtype)
+            and kernel_ready_kinetics(problem)):
         return False
     return k <= max_k(tableau, P)
 
@@ -137,27 +139,27 @@ def tile_error_sums(err, y, rtol: float, atol: float, tile_y: int,
     """(n_tiles,) partial sums of squared WRMS-scaled errors (weights from
     y) in the ERK tile kernels' order (csrc/erk_tile.cuh): one sum a
     tile_y x tile_x tile, tile t at tile row t // tiles_x; a block's
-    `threads` threads each add u's and v's square of every point q = tid +
-    threads m in turn, then a warp-shuffle tree and the warps in order.
+    `threads` threads each add every variable's square (in variable
+    order) of every point q = tid + threads m in turn, then a warp-shuffle tree and the warps in order.
     The plain version of every partial sum the kernels write."""
     scaled = err * (1.0 / (rtol * torch.abs(y) + atol))
     sq = scaled * scaled
-    _, ny, nx = sq.shape
+    nv, ny, nx = sq.shape
     pad_y, pad_x = -ny % tile_y, -nx % tile_x
     # padded points add +0.0: the sums are non-negative, so exact
     sq = torch.nn.functional.pad(sq, (0, pad_x, 0, pad_y))
     n_ty, n_tx = (ny + pad_y) // tile_y, (nx + pad_x) // tile_x
     per_tile = tile_y * tile_x
     slots = -(-per_tile // threads)
-    pts = (sq.reshape(2, n_ty, tile_y, n_tx, tile_x).permute(0, 1, 3, 2, 4)
-           .reshape(2, n_ty * n_tx, per_tile))
+    pts = (sq.reshape(nv, n_ty, tile_y, n_tx, tile_x).permute(0, 1, 3, 2, 4)
+           .reshape(nv, n_ty * n_tx, per_tile))
     # a tile smaller than the block: its last threads add +0.0 (exact)
     pts = torch.nn.functional.pad(pts, (0, slots * threads - per_tile))
-    pts = pts.reshape(2, n_ty * n_tx, slots, threads)
+    pts = pts.reshape(nv, n_ty * n_tx, slots, threads)
     acc = torch.zeros_like(pts[0, :, 0])
     for m in range(pts.shape[2]):
-        acc = acc + pts[0, :, m]
-        acc = acc + pts[1, :, m]
+        for var in range(nv):
+            acc = acc + pts[var, :, m]
     return block_sums(acc)
 
 

@@ -3,9 +3,11 @@
 One launch performs a whole RKC2 step (integrate/rkc.py) of the 5-point
 profile operator, or of the divergence-form operator of K4 (no-flux walls,
 obstacles, 2-D diffusion fields: kernel_common.needs_divform), with the
-kinetics of any family with a device function (KernelConstants.
+kinetics of a family with a device function (KernelConstants.
 kinetics_id; the kinetics and the operator are template parameters of the
-kernel, as in K1, K3 and K4): F0 = f(y0), the s
+kernel, as in K1, K3 and K4; the profile branch takes all nine families,
+the six beyond the base three unforced in csrc/fused_rkc_families.cu,
+the divergence branch the base three): F0 = f(y0), the s
 Chebyshev stages, F(y_new) for the order-2 error estimate, y_new and
 per-tile partial sums of squared WRMS-scaled errors (csrc/fused_rkc.cu).
 The three-term recurrence keeps a live set of constant size (y0, F0,
@@ -62,16 +64,19 @@ import torch
 from crdmodel_tpu_torch.core.problem import make_rho_bound
 from crdmodel_tpu_torch.integrate import rkc
 from crdmodel_tpu_torch.ops.fused_step import error_sum
-from crdmodel_tpu_torch.ops.kernel_common import (SMEM_BYTES,
+from crdmodel_tpu_torch.ops.kernel_common import (BASE_IDS, SMEM_BYTES,
                                                   KernelConstants,
                                                   check_constants,
+                                                  check_state,
                                                   check_tensor,
                                                   face_coeffs64,
                                                   forcing_amplitudes,
                                                   forcing_of,
                                                   freeze_scalar,
                                                   fused_forcing,
+                                                  kernel_families,
                                                   kernel_ready_kinetics,
+                                                  launcher_symbol,
                                                   make_divform_rhs_block,
                                                   make_rhs_block,
                                                   needs_divform,
@@ -95,8 +100,10 @@ CHUNK_TILE = 32
 CHUNK_THREADS = 512
 CHUNK_PLANES = 6
 # the scratch planes a launch hands its chunks through: F0 and two
-# (Y_{j-1}, Y_{j-2}) pairs in turns, two variables each
-SCRATCH_PLANES = 10
+# (Y_{j-1}, Y_{j-2}) pairs in turns, of every variable: 5 a variable, 10
+# for the base families' two (and K9's)
+SCRATCH_PLANES_PER_VAR = 5
+SCRATCH_PLANES = 2 * SCRATCH_PLANES_PER_VAR
 
 
 def is_rkc_supported(problem, dtype) -> bool:
@@ -120,12 +127,12 @@ def is_rkc_supported(problem, dtype) -> bool:
         return False
     # pallas_rkc.pole_inflated_rho declines only surfaces of revolution,
     # which the port has not yet (ROADMAP queue 1, item 12)
-    if not kernel_ready_kinetics(problem):
-        return False
     if needs_divform(problem):
-        return (problem.geometry.kind in ("flat", "torus")
+        # the divergence branch (DivformRhs) takes the base families
+        return (kernel_ready_kinetics(problem)
+                and problem.geometry.kind in ("flat", "torus")
                 and south_is_rolled_north(face_coeffs64(problem)))
-    return True
+    return kernel_ready_kinetics(problem, kernel_families(problem))
 
 
 def chunk_schedule(s: int, depth: int = CHUNK):
@@ -176,6 +183,9 @@ def kernel_info(dtype, divform: bool, kinetics_id: int) -> dict:
     cudaFuncGetAttributes)."""
     from crdmodel_tpu_torch.ops._build import kernel_info as query
     f64 = int(torch.empty((), dtype=dtype).element_size() == 8)
+    if kinetics_id not in BASE_IDS:
+        # the families' profile kernel (csrc/fused_rkc_families.cu)
+        return query("crd_fused_rkc_families_info", f64, kinetics_id)
     return query("crd_fused_rkc_info", f64, int(divform), kinetics_id)
 
 
@@ -398,7 +408,7 @@ def check_stage_tables(mu1_tab, ctab_tab, dtype, device) -> int:
 
 def fused_rkc_step(y, h, fz, s, mu1_tab, ctab_tab, kc: KernelConstants,
                    rtol: float, atol: float, stim=None, amps=None):
-    """One fused RKC2 step: (y_new (2, ny, nx), ss partials
+    """One fused RKC2 step: (y_new (nvars, ny, nx), ss partials
     (n_chunk_tiles(ny, nx),)).
 
     h and fz are 0-d tensors in y's dtype, s a 0-d int32 tensor, and
@@ -421,9 +431,8 @@ def fused_rkc_step(y, h, fz, s, mu1_tab, ctab_tab, kc: KernelConstants,
     dtype, device = y.dtype, y.device
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"the kernel takes float32 or float64, not {dtype}")
-    if y.dim() != 3 or y.shape[0] != 2:
-        raise ValueError(f"y must be (2, ny, nx), got {tuple(y.shape)}")
-    _, ny, nx = y.shape
+    check_state(y, kc)
+    nv, ny, nx = y.shape
     s_cap = check_stage_tables(mu1_tab, ctab_tab, dtype, device)
     check_tensor("y", y, y.shape, dtype, device)
     check_tensor("h", h, (), dtype, device)
@@ -436,9 +445,10 @@ def fused_rkc_step(y, h, fz, s, mu1_tab, ctab_tab, kc: KernelConstants,
     lib = load_library()
     y_new = torch.empty_like(y)
     ss = torch.empty(n_chunk_tiles(ny, nx), dtype=dtype, device=device)
-    work = torch.empty((SCRATCH_PLANES, ny, nx), dtype=dtype, device=device)
-    launch = (lib.crd_fused_rkc_step_f32 if dtype == torch.float32
-              else lib.crd_fused_rkc_step_f64)
+    work = torch.empty((SCRATCH_PLANES_PER_VAR * nv, ny, nx), dtype=dtype,
+                       device=device)
+    launch = getattr(lib, launcher_symbol("crd_fused_rkc_step", kc)
+                     + ("_f32" if dtype == torch.float32 else "_f64"))
     # the operator: three profiles (or scalars) and the torus flag, or the
     # face fields aE, aW, aN and the tissue field (a null pointer without
     # an obstacle); the other operator's pointers are null

@@ -2,12 +2,13 @@
 crdmodel_tpu/ops/pallas_step.py).
 
 One launch performs a whole embedded Runge–Kutta step of the 5-point
-profile operator with FitzHugh–Nagumo, Goldbeter or Aliev–Panfilov
-kinetics (a template parameter of the kernel, KernelConstants.kinetics_id):
-every stage's
-stencil and kinetics, the solution update, and per-block partial sums of
-squared WRMS-scaled errors (csrc/fused_step.cu). It takes every attempted
-step of a run on the fused path (sim.py).
+profile operator with the kinetics of any of the nine families (a
+template parameter of the kernel, KernelConstants.kinetics_id): every
+stage's stencil, on each diffusing variable, and kinetics, the solution
+update, and per-block partial sums of squared WRMS-scaled errors
+(csrc/fused_step.cu for the base three families, fused_step_families.cu
+for the other six, unforced; kernel_common.launcher_symbol). It takes
+every attempted step of a run on the fused path (sim.py).
 
   fused_step            the wrapper: launches the CUDA kernel for a CUDA
                         tensor, runs fused_step_reference for a CPU tensor
@@ -49,11 +50,14 @@ from crdmodel_tpu_torch.integrate.erk import TABLEAUS, Tableau
 from crdmodel_tpu_torch.ops.kernel_common import (SMEM_BYTES,
                                                   KernelConstants,
                                                   check_constants,
+                                                  check_state,
                                                   check_tensor,
                                                   forcing_of,
                                                   freeze_scalar,
                                                   fused_forcing,
+                                                  kernel_families,
                                                   kernel_ready_kinetics,
+                                                  launcher_symbol,
                                                   make_rhs_block,
                                                   needs_divform,
                                                   prepare_constants,
@@ -68,9 +72,8 @@ TILE_X = 32                    # tile width along x (contiguous)
 def is_supported(problem, tableau: Tableau, dtype) -> bool:
     """The kernel's gate (crdmodel_tpu/ops/pallas_step.py:89), without the
     TPU strip-divisor rule, plus the port-only kinetics rule
-    (kernel_common.kernel_ready_kinetics: a family with a device function,
-    KINETICS_IDS; the other families come with ROADMAP queue 1, item 6).
-    Divergence-form problems go to K4 (ops/fused_divform.py), problems
+    (kernel_common.kernel_ready_kinetics over kernel_families: all nine
+    families unforced, the base three forced). Divergence-form problems go to K4 (ops/fused_divform.py), problems
     with a diffusion tensor to K5 (ops/fused_aniso.py). A structured
     forcing is taken (kernel_common.fused_forcing: not a free-form
     one)."""
@@ -82,16 +85,16 @@ def is_supported(problem, tableau: Tableau, dtype) -> bool:
         return False
     if tableau.stages > MAX_STAGES:
         return False
-    return kernel_ready_kinetics(problem)
+    return kernel_ready_kinetics(problem, kernel_families(problem))
 
 
-def tile_plan(n_stages: int, itemsize: int):
+def tile_plan(n_stages: int, itemsize: int, nvars: int = 2):
     """(tile_x, tile_y, shared bytes) of the kernel's tiles: the tallest of
-    32/16/8 rows whose stage buffers (y0, yi and n_stages k, two variables
-    each, with an n_stages-ring halo) fit in shared memory."""
+    32/16/8 rows whose stage buffers (y0, yi and n_stages k, nvars
+    variables each, with an n_stages-ring halo) fit in shared memory."""
     for tile_y in (32, 16, 8):
         pts = (TILE_X + 2 * n_stages) * (tile_y + 2 * n_stages)
-        smem = (2 * n_stages + 4) * pts * itemsize
+        smem = nvars * (n_stages + 2) * pts * itemsize
         if smem <= SMEM_BYTES - 1024:       # room for the static reduction
             return TILE_X, tile_y, smem
     raise ValueError(f"{n_stages} stages do not fit in shared memory")
@@ -176,7 +179,7 @@ def fused_step_tile_sums(y, h, fz, kc: KernelConstants, tableau: Tableau,
     from crdmodel_tpu_torch.ops.fused_kstep import tile_error_sums
     _, err = erk_stages_reference(y, h, make_rhs_block(kc, fz), tableau,
                                   forcing_of(stim, amps, y))
-    tile_y = tile_plan(tableau.stages, y.element_size())[1]
+    tile_y = tile_plan(tableau.stages, y.element_size(), y.shape[0])[1]
     return tile_error_sums(err, y, rtol, atol, tile_y)
 
 
@@ -204,7 +207,7 @@ def fused_step(y, h, fz, kc: KernelConstants, tableau: Tableau,
         raise ValueError(f"the profile kernel takes profile constants, not "
                          f"{kc.kind!r}")
     out = launch_erk_tile(
-        "crd_fused_erk_step",
+        launcher_symbol("crd_fused_erk_step", kc),
         (*(c.data_ptr() for c in kc.coeffs), int(kc.kind == "torus")),
         y, h, fz, kc, tableau, rtol, atol,
         stim_args(stim, amps, (tableau.stages,)))
@@ -219,19 +222,19 @@ def launch_erk_tile(symbol, operator_args, y, h, fz, kc: KernelConstants,
                     tableau: Tableau, rtol: float, atol: float,
                     forcing_args=()):
     """Launch one step of an ERK tile kernel of the built library (K1
-    `crd_fused_erk_step`, K4 `crd_fused_divform_step` and K5
+    `crd_fused_erk_step`, or `crd_fused_erk_step_families` for the
+    NEW_FAMILIES, K4 `crd_fused_divform_step` and K5
     `crd_fused_aniso_step`, csrc/erk_slots.cuh for bs32 and erk_tile.cuh
     for the others): the launcher `symbol`_f32
     or _f64, with the forcing's arguments `forcing_args` (K1 and K4:
     kernel_common.stim_args) and the kernel's operator arguments
     `operator_args` after fz. Checks every input first and raises on what
-    the kernel does not take, and on a launch error. Returns (y_new (2,
-    ny, nx), ss partials (n_blocks,))."""
+    the kernel does not take, and on a launch error. Returns (y_new
+    (nvars, ny, nx), ss partials (n_blocks,))."""
     dtype, device = y.dtype, y.device
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"the kernel takes float32 or float64, not {dtype}")
-    if y.dim() != 3 or y.shape[0] != 2:
-        raise ValueError(f"y must be (2, ny, nx), got {tuple(y.shape)}")
+    check_state(y, kc)
     n = tableau.stages
     if n > MAX_STAGES:
         raise ValueError(f"{n} stages; the kernel takes at most {MAX_STAGES}")
@@ -243,7 +246,7 @@ def launch_erk_tile(symbol, operator_args, y, h, fz, kc: KernelConstants,
 
     from crdmodel_tpu_torch.ops._build import load_library
     lib = load_library()
-    tile_x, tile_y, _ = tile_plan(n, y.element_size())
+    tile_x, tile_y, _ = tile_plan(n, y.element_size(), y.shape[0])
     n_blocks = -(-nx // tile_x) * -(-ny // tile_y)
     y_new = torch.empty_like(y)
     ss = torch.empty(n_blocks, dtype=dtype, device=device)

@@ -49,7 +49,24 @@ from crdmodel_tpu_torch.ops.stencil import (anisotropic_laplacian,
 SMEM_BYTES = 227 * 1024        # shared memory one H100 block may use
 # the kinetics families with a device function (csrc/rhs_common.cuh, enum
 # Kinetics): model name -> the id the launchers pass to the kernels
-KINETICS_IDS = {"fhn": 0, "goldbeter": 1, "aliev_panfilov": 2}
+KINETICS_IDS = {"fhn": 0, "goldbeter": 1, "aliev_panfilov": 2,
+                "barkley": 3, "oregonator": 4, "grayscott": 5,
+                "brusselator": 6, "lambdaomega": 7, "sir": 8}
+# the families every fused kernel takes: two variables, variable 0 alone
+# diffusing at the full coefficient
+BASE_FAMILIES = ("fhn", "goldbeter", "aliev_panfilov")
+# the other six, which K1, K2's profile branch and K3 take unforced
+# (csrc/*_families.cu), each with the shape its compile-time trait has
+# (csrc/rhs_common.cuh, crd::Family): nvars, the diffusing variables and
+# their ratios
+NEW_FAMILIES = {"barkley": (2, (0,), (1.0,)),
+                "oregonator": (2, (0,), (1.0,)),
+                "grayscott": (2, (0, 1), (1.0, 0.5)),
+                "brusselator": (2, (0, 1), (1.0, 8.0)),
+                "lambdaomega": (2, (0, 1), (1.0, 1.0)),
+                "sir": (3, (1,), (1.0,))}
+ALL_FAMILIES = BASE_FAMILIES + tuple(NEW_FAMILIES)
+BASE_IDS = tuple(KINETICS_IDS[name] for name in BASE_FAMILIES)
 
 
 def needs_divform(problem) -> bool:
@@ -253,15 +270,39 @@ def stim_terms(sc: StimConstants, amps, col: int, like):
     return f
 
 
-def kernel_ready_kinetics(problem) -> bool:
-    """The port-only rule every fused kernel's gate shares: kinetics with a
-    device function (KINETICS_IDS), two variables of which variable 0
-    alone diffuses at the full coefficient, and reaction on."""
+def kernel_ready_kinetics(problem, families=BASE_FAMILIES) -> bool:
+    """The port-only rule every fused kernel's gate shares: reaction on and
+    a family of `families` whose model has its device code's shape: for
+    BASE_FAMILIES two variables of which variable 0 alone diffuses at the
+    full coefficient, for NEW_FAMILIES their trait's. Every kernel takes
+    BASE_FAMILIES; K1, K2's profile branch and K3 pass kernel_families."""
     model = problem.model
-    return (model.name in KINETICS_IDS and model.nvars == 2
-            and tuple(model.diffusive_vars) == (0,)
-            and tuple(model.diffusion_ratios) == (1.0,)
-            and not problem.cfg.just_diffusion)
+    if problem.cfg.just_diffusion or model.name not in families:
+        return False
+    shape = (model.nvars, tuple(model.diffusive_vars),
+             tuple(model.diffusion_ratios))
+    return shape == NEW_FAMILIES.get(model.name, (2, (0,), (1.0,)))
+
+
+def kernel_families(problem) -> tuple:
+    """The families K1, K2's profile branch and K3 take for `problem`: all
+    nine unforced, BASE_FAMILIES with a forcing (the new families'
+    instantiations are unforced)."""
+    return BASE_FAMILIES if problem.forcing is not None else ALL_FAMILIES
+
+
+def launcher_symbol(base: str, kc) -> str:
+    """The launcher of K1, K2 or K3 for kc's family: `base` for the
+    BASE_FAMILIES, `base`_families for the NEW_FAMILIES, whose
+    instantiations are compiled apart (csrc/*_families.cu)."""
+    return base if kc.model.name in BASE_FAMILIES else base + "_families"
+
+
+def check_state(y, kc):
+    """Raise unless y is an (nvars, ny, nx) state of kc's model."""
+    nv = kc.model.nvars
+    if y.dim() != 3 or y.shape[0] != nv:
+        raise ValueError(f"y must be ({nv}, ny, nx), got {tuple(y.shape)}")
 
 
 def coeff_kind(geometry_kind: str) -> str:
@@ -680,20 +721,38 @@ def add_terms(react, lap, f):
     return torch.stack([react[0] + (lap + f[0]), react[1] + f[1]])
 
 
+def diffusion_terms(model, y, lap_of):
+    """{v: operator term} of each diffusing variable v of `model` on the
+    (nvars, ...) state y: lap_of(y[v]), times v's ratio after the stencil
+    where it is not 1 (crdmodel_tpu/ops/kernel_common.py:139-145)."""
+    laps = {}
+    for v, r in zip(model.diffusive_vars, model.diffusion_ratios):
+        lap = lap_of(y[v])
+        laps[v] = lap if r == 1.0 else r * lap
+    return laps
+
+
 def make_rhs_block(kc: KernelConstants, fz):
     """rhs_block(y, f=None) -> ydot: the kernels' per-tile RHS in plain
-    torch, on the whole (2, ny, nx) state (crdmodel_tpu/ops/
-    kernel_common.py:110): the model's kinetics plus the profile operator
-    on variable 0, plus the stage's forcing f = (F0, F1) (stim_terms) when
-    given, times live = 1 - fz*(1 - mask) when the problem has a freeze.
-    The device functions of csrc/rhs_common.cuh compute the same
-    expressions in the same order."""
+    torch, on the whole (nvars, ny, nx) state (crdmodel_tpu/ops/
+    kernel_common.py:110-159): the model's kinetics plus the profile
+    operator on each diffusing variable (react[v] + laps[v],
+    diffusion_terms), plus the stage's forcing f = (F0, F1) (stim_terms;
+    the base families only) when given, times live = 1 - fz*(1 - mask)
+    when the problem has a freeze. The device functions of
+    csrc/rhs_common.cuh compute the same expressions in the same order."""
     lap_of = torus_laplacian if kc.kind == "torus" else flat_laplacian
     live = _live(kc, fz)
 
     def rhs_block(y, f=None):
         react = kc.model.kinetics(y, kc.b)
-        ydot = add_terms(react, lap_of(y[0], kc.coeffs), f)
+        if f is not None:
+            ydot = add_terms(react, lap_of(y[0], kc.coeffs), f)
+        else:
+            laps = diffusion_terms(kc.model, y,
+                                   lambda u: lap_of(u, kc.coeffs))
+            ydot = torch.stack([react[v] + laps[v] if v in laps else react[v]
+                                for v in range(kc.model.nvars)])
         return ydot * live if live is not None else ydot
 
     return rhs_block
@@ -804,12 +863,13 @@ def make_shard_divform_rhs_block(sc: ShardDivformConstants, fz):
 
 def make_split_block(kc: KernelConstants, fz):
     """(ex_block, im_block, jac_block), the IMEX split of make_rhs_block
-    for the fused IMEX step (crdmodel_tpu/ops/kernel_common.py:282):
-    ex_block(y, f=None) the profile operator on variable 0 (0 on variable
-    1), with the stage's forcing f = (F0, F1) the operator plus F0 and F1
-    (the explicit part: make_rhs's rhs_ex), im_block(y) the pointwise
-    kinetics, jac_block(y) the kinetics' closed-form Jacobian (2, 2, ny,
-    nx) (ReactionModel.jacobian), each times live when the problem has a
+    for the fused IMEX step (crdmodel_tpu/ops/kernel_common.py:282-300):
+    ex_block(y, f=None) the profile operator on each diffusing variable
+    (diffusion_terms; 0 on the others), with the stage's forcing f = (F0,
+    F1) (the base families) the operator plus F0 and F1 (the explicit
+    part: make_rhs's rhs_ex), im_block(y) the pointwise kinetics,
+    jac_block(y) the kinetics' closed-form Jacobian (nvars, nvars, ny, nx)
+    (ReactionModel.jacobian), each times live when the problem has a
     freeze; ex + im equals make_rhs_block's value bitwise without a
     forcing."""
     lap_of = torus_laplacian if kc.kind == "torus" else flat_laplacian
@@ -819,10 +879,13 @@ def make_split_block(kc: KernelConstants, fz):
         return x * live if live is not None else x
 
     def ex_block(y, f=None):
-        lap = lap_of(y[0], kc.coeffs)
         if f is not None:
+            lap = lap_of(y[0], kc.coeffs)
             return masked(torch.stack([lap + f[0], f[1]]))
-        return masked(torch.stack([lap, torch.zeros_like(lap)]))
+        laps = diffusion_terms(kc.model, y, lambda u: lap_of(u, kc.coeffs))
+        return masked(torch.stack([
+            laps[v] if v in laps else torch.zeros_like(y[v])
+            for v in range(kc.model.nvars)]))
 
     def im_block(y):
         return masked(kc.model.kinetics(y, kc.b))

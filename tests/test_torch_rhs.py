@@ -192,8 +192,16 @@ def test_just_diffusion_rhs_matches_jax():
 def test_unported_inputs_raise(cfg_kw, item):
     """What is not ported raises NotImplementedError naming its ROADMAP
     item; coupling="curvature", which raised until item 10 was ported,
-    builds, with the JAX package's D(theta) field to 1e-15 (item None)."""
+    builds, with the JAX package's D(theta) field to 1e-15 (item None),
+    and so does the Barkley family, which raised until item 6 was ported,
+    with the JAX package's initial state bitwise."""
     cfg = SimConfig(**{**BASE, "surface": "torus", **cfg_kw})
+    if item == "item 6":
+        jcfg = JSimConfig(**{**BASE, "surface": "torus", **cfg_kw})
+        np.testing.assert_array_equal(
+            tproblem.build_problem(cfg, device="cpu").y0.numpy(),
+            np.asarray(jproblem.build_problem(jcfg).y0))
+        return
     if item is not None:
         with pytest.raises(NotImplementedError, match=item):
             tproblem.build_problem(cfg, device="cpu")
