@@ -81,15 +81,17 @@ and the volumetric slab with bs32 (through K12), rkc2 (through K13) and
 the scar column (through K12's tissue mode). Last, the run entry point
 and the streaming drivers: `python -m crdmodel_tpu_torch run` of the
 canonical FHN torus through cli.main in this process with --npz and
---map-torus (cli_run_fhn: K1 on every step, steps and trajectory bitwise
-the simulate() run's, the reference-format files read back exactly, the
-manifest's counts), of the canonical Goldbeter torus with ark324 through
-K3 in a subprocess with four ranks of files (cli_run_goldbeter_ark324,
-bitwise an in-process simulate_streaming), simulate_sharded_streaming of
-the canonical FHN torus on the 2x2 mesh with the sharded writer
-(stream_sharded_fhn, K8, bitwise simulate_sharded, the four ranks' files
-exactly), and the host-offload copies' timing beside the solve's kernels
-(stream_host_offload).
+--map-torus over its first PREFIX_OUTPUTS outputs (cli_run_fhn: K1 on
+every step, steps and trajectory bitwise the first ones of the simulate()
+run's, the reference-format files read back exactly, the manifest's
+counts), of the canonical Goldbeter torus with ark324 through K3 in a
+subprocess with four ranks of files over its first PREFIX_OUTPUTS outputs
+(cli_run_goldbeter_ark324, bitwise an in-process simulate_streaming of the
+same cut), simulate_sharded_streaming of the
+canonical FHN torus on the 2x2 mesh with the sharded writer over its first
+PREFIX_OUTPUTS outputs (stream_sharded_fhn, K8, bitwise the first ones of
+simulate_sharded's, the four ranks' files exactly), and the host-offload
+copies' timing beside the solve's kernels (stream_host_offload).
 The forcing and curvature slice (forced_phases, after the fibered sheet):
 K1 and K4 with a structured forcing (the paced FHN torus's pulse train on
 a row band and smooth drive, the bounded tissue's s1s2_protocol, each with
@@ -158,10 +160,18 @@ shape with its bound, registers and spills (kinetics_timing); the twelve
 golden fixtures of those families in f64 through K1, K2 and K3, each
 taking the port's torch path's recorded step sequence exactly
 (kinetics_fixtures); and the soak matrix's 18 runs
-(scripts/soak_matrix.py's physics, 800x3200 torus, Tf cut to SOAK_TF) through
-simulate() with the kernels selected, held to the port's torch path on
-the card (soak_matrix). The kernels line carries a K1, K2 and K3 entry of
-each family.
+(scripts/soak_matrix.py's physics, 800x3200 torus, Tf cut to SOAK_TF)
+through simulate() with the kernels selected, held to the port's torch
+path on the card (soak_matrix). Then the same families on a mesh: K8
+(bs32, dopri54), K9 (s = 2, 5, 23) and K10 on a shard of the soak's 2x2
+mesh, from a random state and the IC, and on an uneven 3x1 mesh of the
+odd torus with a freeze, f32 and f64, bitwise (kinetics_shard_kernels);
+each timed on the soak's shard (kinetics_shard_timing); and the soak
+matrix's 18 runs through simulate_sharded() on a 2x2 mesh of shards on
+cuda:0, every step through K8, K9 or K10, held to the one-device kernel
+run of the same cell (ark324: to its plain version's sharded run in K10's
+sum order, bitwise; soak_matrix_mesh). The kernels line carries a K1, K2,
+K3, K8, K9 and K10 entry of each family.
 Each run is checked against the JAX package's CPU runs recorded in
 tests/golden/torch_canonical_{fhn,goldbeter}[_method]_probes.npz (the
 speculative and ARK_NORMAL runs against
@@ -278,10 +288,20 @@ K7_TIMED_STAGES = (5, 7)
 BOX_TIMED = (20, 5)
 BOX_PLAIN_TIMED = (5, 2)
 BOX_PROBES = 64     # probe values of the box runs at every output
-# the JAX package's wide sheet on a TPU: 265 steps (docs/PERF_NOTES.md,
-# "Column-blocked fused RKC"), history and no gate: a TPU's f32 step count
-# is no oracle
-TPU_WIDE_STEPS = 265
+# the script's time limit: the runs that no golden holds, or that are
+# held bitwise to another run of this call, are cut (PERF.md section 4,
+# "Cut"): `run` of the canonical FHN torus and its sharded streaming run
+# to their first PREFIX_OUTPUTS of 20 outputs (Tf 50 -> 5; bitwise the
+# first rows of the golden-held main_path and main_path_sharded_fhn
+# runs; the Goldbeter `run` to its first PREFIX_OUTPUTS of 5, Tf 4 ->
+# 1.6, bitwise its in-process streaming run of the same cut), and the
+# horizons of the wide sheet (0.5 -> WIDE_TF), the fibres on the torus on
+# a mesh (1 -> TORUS_TENSOR_TF) and the host-offload measurement (5 ->
+# OFFLOAD_TF)
+PREFIX_OUTPUTS = 2
+WIDE_TF = 0.25
+TORUS_TENSOR_TF = 0.25
+OFFLOAD_TF = 1.0
 N_TIMED = 60    # timed samples (median reported)
 BURST = 10      # back-to-back calls per sample
 # kernel vs plain version: f64 parity tool, f32 production tolerance
@@ -1203,14 +1223,52 @@ def transmural_tensor(cfg, d_par=1.0, d_perp=0.25, d_trans=0.02,
         np.zeros(shape), np.zeros(shape)))
 
 
+# the torch-path reference runs started in a worker process while the
+# kernels build (start_background_runs): {(cfg, dtype): the future of
+# background_run's result}, which torch_path_run takes when it is there
+BACKGROUND_RUNS = {}
+
+
+def background_run(cfg, dtype):
+    """torch_path_run(cfg, {}, dtype) in a worker process, the trajectory
+    on the host, the card's cached memory released."""
+    traj, steps, wall, ok = torch_path_run(cfg, {}, dtype)
+    traj = traj.cpu()
+    torch.cuda.empty_cache()
+    return traj, steps, wall, ok
+
+
+def start_background_runs():
+    """Start the script's longest torch-path reference, the large Goldbeter
+    torus's f64 run (~60 s, main_path_sharded_large_goldbeter_ark324's),
+    in a spawned worker process, which runs it on the idle card while nvcc
+    builds the kernels (one a CPU, _build.build_jobs) and exits after
+    it."""
+    import concurrent.futures
+    import multiprocessing
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    cfg = large_goldbeter_torus()
+    BACKGROUND_RUNS[cfg, "float64"] = pool.submit(background_run, cfg,
+                                                  "float64")
+    pool.shutdown(wait=False)     # the worker ends with its run
+
+
 def torch_path_run(cfg, build_kw, dtype, rkc_h_limit=None):
     """`cfg` (built with `build_kw`) through the port's torch path on the
     card (use_pallas=False) in `dtype`; rkc2 with K7's h cap
     (ops/fused_box3d_rkc.py::box_rkc_h_limit), or rkc_h_limit(rho_fn,
     dtype)'s (K2's: k2_h_limit), so that it takes the stage budget the
     kernel takes, and a forcing's pulse edges as breakpoints, as
-    simulate() takes them. Returns (trajectory, steps, wall s, ok)."""
+    simulate() takes them; a run started in the background
+    (BACKGROUND_RUNS) is taken from there. Returns (trajectory, steps, wall
+    s, ok)."""
     import time
+
+    pending = BACKGROUND_RUNS.get((cfg, dtype))
+    if pending is not None and not build_kw and rkc_h_limit is None:
+        traj, steps, wall, ok = pending.result()
+        return traj.to("cuda"), steps, wall, ok
 
     from crdmodel_tpu_torch.core.problem import (build_problem,
                                                  make_rho_bound,
@@ -1612,7 +1670,7 @@ def run_wide_sheet(cfg, rkc2_probes):
                            - rkc2_probes["probes_f64"]).max())
     limit = f32_gap + 1e-4
     phase(name, config="scripts/bench_suite.py:57-67 fhn flat 12800x3200 "
-          "Tf=0.5 rkc2", selection=selection_note(cfg),
+          f"rkc2, Tf cut 0.5 -> {cfg.t_final}", selection=selection_note(cfg),
           grid=[cfg.ny, cfg.nx], method=cfg.method, dtype=cfg.dtype,
           status=status, steps=steps, accepted=int(stats.accepted.sum()),
           rejected=int(stats.rejected.sum()), kernel=kernel.__name__,
@@ -1624,7 +1682,7 @@ def run_wide_sheet(cfg, rkc2_probes):
                           steps=ref_steps, wall_s=ref.wall_time),
           step_limit=0.02, final_max_abs_vs_torch_path=gap,
           final_limit=limit, canonical_rkc2_jax_f32_probe_gap=f32_gap,
-          tpu_steps_history=TPU_WIDE_STEPS, card=card_line())
+          card=card_line())
     checks.update({
         "torch path ok": ref.ok and not ref.fused,
         "steps within 2% of the torch path":
@@ -1701,7 +1759,8 @@ def kernel_entry(name, source, replaces, launches, worst, timing,
                  forced=None):
     """One kernel's entry of the `kernels` line; timing (ms, plain ms,
     bound ms, bound_by, ...); forced: its forced fields (forced_fields),
-    for K1-K4 (K8-K11 have theirs added from mesh_forced_phases)."""
+    for K1-K4 (K8-K11 have theirs added from mesh_forced_phases), else
+    "forced" is null."""
     ms, plain_ms, bound_ms, bound_by = timing[:4]
     return {"name": name, "route": "cuda",
             "source": f"crdmodel_tpu_torch/csrc/{source}",
@@ -1709,7 +1768,7 @@ def kernel_entry(name, source, replaces, launches, worst, timing,
             "max_abs_err": worst[torch.float32], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             # no single PyTorch call computes a fused step
-            "library_ms": None, **(forced or {})}
+            "library_ms": None, "forced": None, **(forced or {})}
 
 
 BOX_LABEL = ("scripts/bench_suite.py:95-105 aliev_panfilov box 32x512x512 "
@@ -2791,9 +2850,11 @@ def sharded_field_main_paths(programs, probes, singles):
                                        aniso_build["diffusion_tensor"]),
             mesh=mesh, versus=singles["aniso"])
         n["torus_tensor"] = run_sharded_against(
-            "main_path_sharded_torus_tensor" + tag, cfg_torus, torus_build,
-            f11, "the fibered sheet's program and fibres on the torus "
-            "(1600x400)", mesh)
+            "main_path_sharded_torus_tensor" + tag,
+            dataclasses.replace(cfg_torus, t_final=TORUS_TENSOR_TF),
+            torus_build, f11, "the fibered sheet's program and fibres on "
+            f"the torus (1600x400), Tf cut {cfg_torus.t_final} -> "
+            f"{TORUS_TENSOR_TF}", mesh)
         n["goldbeter_ark324"] = run_main_path(
             cfg_gb, probes["goldbeter", "ark324"], f10, 0.01,
             "main_path_sharded_goldbeter_ark324" + tag,
@@ -3194,13 +3255,25 @@ def read_back(outdir, cfg, model):
     return np.stack(fields, axis=1), probe_nprocs(outdir, cfg.program_name)
 
 
-def cli_run_fhn(cfg, probes, single, card):
+def prefix_cfg(cfg):
+    """The first PREFIX_OUTPUTS output intervals of `cfg` as a run of its
+    own: Tf cut to the last of them, the output interval kept, so that the
+    run's steps and outputs are bitwise the first ones of cfg's run (the
+    breakpoints past the cut Tf drop out, the steps before them never
+    reach them)."""
+    n = PREFIX_OUTPUTS
+    return dataclasses.replace(cfg, t_final=cfg.t_final * n
+                               / cfg.output_timestep, output_timestep=n)
+
+
+def cli_run_fhn(cfg, single, card):
     """`run` of the canonical FHN torus through cli.main in this process,
-    with --npz and --map-torus: K1 on every step, the steps and trajectory
-    bitwise those of the main_path phase's simulate() run `single`, the
-    files read back equal to that trajectory exactly, the probes in the
-    golden gate, the manifest's counts the run's; the integration's wall,
-    the text's MB, seconds and writer, the .vtp files."""
+    with --npz and --map-torus, cut to its first PREFIX_OUTPUTS outputs
+    (prefix_cfg): K1 on every step, the steps and trajectory bitwise the
+    first ones of the main_path phase's simulate() run `single` (held to
+    the golden), the files read back equal to that trajectory exactly, the
+    manifest's counts the run's; the integration's wall, the text's MB,
+    seconds and writer, the .vtp files."""
     import contextlib
     import io
     import re
@@ -3212,6 +3285,9 @@ def cli_run_fhn(cfg, probes, single, card):
     from crdmodel_tpu_torch.io import trajectory
     from crdmodel_tpu_torch.models import get_model
     out = tempfile.mkdtemp(prefix="cli_run_fhn_")
+    pre = prefix_cfg(cfg)
+    cut = [f"t_final={pre.t_final!r}", f"output_timestep={PREFIX_OUTPUTS}"]
+    rows = PREFIX_OUTPUTS + 1
     try:
         read = zero_launches()
         trajectory.WRITES.clear()
@@ -3220,7 +3296,7 @@ def cli_run_fhn(cfg, probes, single, card):
         with contextlib.redirect_stdout(log):
             rc = cli.main(["run", INI, "--model", "fhn", "--surface",
                            "torus", "--outdir", out, "--npz", "--map-torus",
-                           "--quiet"])
+                           "--quiet", "--set", cut[0], "--set", cut[1]])
         total = time.perf_counter() - t0
         counts = read()
         prog = cfg.program_name
@@ -3236,29 +3312,33 @@ def cli_run_fhn(cfg, probes, single, card):
                       log.getvalue())
         vtps = [f for _, _, fs in os.walk(out) for f in fs
                 if f.endswith(".vtp")]
-        gate, checks, _ = golden_gate(traj, steps, probes, 0.01)
-        least, most = launch_bound(cfg, steps)
+        least, most = launch_bound(pre, steps)
         phase("cli_run_fhn", command="python -m crdmodel_tpu_torch run "
               "data/FHNmodelArgs.ini --model fhn --surface torus --npz "
-              "--map-torus --quiet (cli.main, in process)", exit_code=rc,
-              steps=steps, main_path_steps=single["steps"], launches=counts,
-              integration_wall_s=manifest["wall_time"],
+              f"--map-torus --quiet --set {cut[0]} --set {cut[1]} "
+              "(cli.main, in process)", exit_code=rc,
+              cut=f"Tf {cfg.t_final} -> {pre.t_final}, outputs "
+              f"{cfg.output_timestep} -> {PREFIX_OUTPUTS}",
+              steps=steps, main_path_steps=single["steps"],
+              main_path_prefix_steps=int(
+                  single["stats"].steps[:PREFIX_OUTPUTS].sum()),
+              launches=counts, integration_wall_s=manifest["wall_time"],
               main_path_wall_s=single["wall_s"],
               text_mb=float(m.group(1)) if m else None,
               text_write_s=float(m.group(2)) if m else None,
               writer=m.group(3) if m else None,
               files_by_writer=dict(trajectory.WRITES), vtp_files=len(vtps),
-              cli_total_s=total, rows=int(traj.shape[0]), **gate,
-              card=card)
-        checks.update({
+              cli_total_s=total, rows=int(traj.shape[0]), card=card)
+        fail_unless("cli_run_fhn", {
             "exit code 0": rc == 0,
             "every step through fused_step":
                 least <= counts["fused_step"] <= most,
-            "trajectory bitwise main_path's": np.array_equal(
-                traj, single["trajectory"].cpu().numpy()),
-            "per-interval stats main_path's": same_stats(
+            "trajectory bitwise main_path's first rows": np.array_equal(
+                traj, single["trajectory"][:rows].cpu().numpy()),
+            "per-interval stats main_path's first": same_stats(
                 [run[k] for k in ("steps", "accepted", "rejected",
-                                  "status")], single["stats"]),
+                                  "status")],
+                [x[:PREFIX_OUTPUTS] for x in single["stats"]]),
             "files read back exactly": np.array_equal(
                 files, traj[:, :files.shape[1]].astype(np.float64)),
             "one rank": ranks == 1,
@@ -3270,16 +3350,16 @@ def cli_run_fhn(cfg, probes, single, card):
                 and manifest["backend"] == "cuda"),
             "a vtp a row and the mesh's": len(vtps) == traj.shape[0] + 1,
         })
-        fail_unless("cli_run_fhn", checks)
     finally:
         shutil.rmtree(out, ignore_errors=True)
 
 
 def cli_run_goldbeter_ark324(cfg, card):
     """`python -m crdmodel_tpu_torch run` of the canonical Goldbeter torus
-    with ark324 through K3 (use_pallas=true) in a subprocess, its files
-    written as four ranks: exit code 0, the ranks reassembled bitwise equal
-    to an in-process simulate_streaming of the same config `cfg`, whose K3
+    with ark324 through K3 (use_pallas=true) in a subprocess, cut to its
+    first PREFIX_OUTPUTS outputs (prefix_cfg), its files written as four
+    ranks: exit code 0, the ranks reassembled bitwise equal to an
+    in-process simulate_streaming of the same cut of `cfg`, whose K3
     launches are at least its steps."""
     import shutil
     import tempfile
@@ -3287,10 +3367,13 @@ def cli_run_goldbeter_ark324(cfg, card):
 
     from crdmodel_tpu_torch.sim import simulate_streaming
     out = tempfile.mkdtemp(prefix="cli_run_goldbeter_")
+    cfg = prefix_cfg(cfg)
     try:
         cmd = [sys.executable, "-m", "crdmodel_tpu_torch", "run", GB_INI,
                "--model", "goldbeter", "--surface", "torus", "--method",
-               "ark324", "--set", "use_pallas=true", "--nprocs-files", "4",
+               "ark324", "--set", "use_pallas=true", "--set",
+               f"t_final={cfg.t_final!r}", "--set",
+               f"output_timestep={PREFIX_OUTPUTS}", "--nprocs-files", "4",
                "--outdir", out]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
@@ -3321,11 +3404,12 @@ def cli_run_goldbeter_ark324(cfg, card):
         shutil.rmtree(out, ignore_errors=True)
 
 
-def stream_sharded_fhn(cfg, probes, sharded, card):
+def stream_sharded_fhn(cfg, sharded, card):
     """simulate_sharded_streaming of the canonical FHN torus on the 2x2
-    mesh on cuda:0 with the port's ShardedReferenceWriter: K8 on every
-    step of every shard, the steps and trajectory bitwise those of
-    simulate_sharded's run `sharded` on the same mesh, the four ranks'
+    mesh on cuda:0 with the port's ShardedReferenceWriter, cut to its first
+    PREFIX_OUTPUTS outputs (prefix_cfg): K8 on every step of every shard,
+    the steps and trajectory bitwise the first ones of simulate_sharded's
+    run `sharded` on the same mesh (held to the golden), the four ranks'
     files reassembled to that trajectory exactly."""
     import shutil
     import tempfile
@@ -3337,9 +3421,10 @@ def stream_sharded_fhn(cfg, probes, sharded, card):
         simulate_sharded_streaming
     mesh = shard_mesh(SHARD_MESH)
     out = tempfile.mkdtemp(prefix="stream_sharded_fhn_")
+    pre = prefix_cfg(cfg)
     try:
-        problem = build_problem(cfg, "cuda")
-        writer = ShardedReferenceWriter(out, cfg, problem.model, mesh)
+        problem = build_problem(pre, "cuda")
+        writer = ShardedReferenceWriter(out, pre, problem.model, mesh)
         write_s = [0.0]
 
         def timed_writer(k, blocks):
@@ -3348,34 +3433,37 @@ def stream_sharded_fhn(cfg, probes, sharded, card):
             write_s[0] += time.perf_counter() - t0
 
         read = zero_launches()
-        res = simulate_sharded_streaming(cfg, mesh=mesh, problem=problem,
+        res = simulate_sharded_streaming(pre, mesh=mesh, problem=problem,
                                          on_snapshot=timed_writer)
         counts = read()
-        files, ranks = read_back(out, cfg, problem.model)
+        files, ranks = read_back(out, pre, problem.model)
         traj = res.trajectory.cpu().numpy()
         steps = res.total_steps()
-        least, most = (mesh.size * n for n in launch_bound(cfg, steps))
-        gate, checks, _ = golden_gate(traj, steps, probes, 0.01)
+        least, most = (mesh.size * n for n in launch_bound(pre, steps))
         phase("stream_sharded_fhn", mesh=list(mesh.shape),
               devices=[str(d) for d in mesh.device_list()],
+              cut=f"Tf {cfg.t_final} -> {pre.t_final}, outputs "
+              f"{cfg.output_timestep} -> {PREFIX_OUTPUTS}",
               status=res.describe(), steps=steps,
-              simulate_sharded_steps=sharded["steps"], launches=counts,
-              wall_s=res.wall_time, writer_s=write_s[0],
+              simulate_sharded_steps=sharded["steps"],
+              simulate_sharded_prefix_steps=int(
+                  sharded["stats"].steps[:PREFIX_OUTPUTS].sum()),
+              launches=counts, wall_s=res.wall_time, writer_s=write_s[0],
               simulate_sharded_wall_s=sharded["wall_s"], ranks=ranks,
-              **gate, card=card)
-        checks.update({
+              card=card)
+        fail_unless("stream_sharded_fhn", {
             "status ok, fused": res.ok and res.fused,
             "every step of every shard through fused_shard_step":
                 least <= counts["fused_shard_step"] <= most,
-            "trajectory bitwise simulate_sharded's": torch.equal(
-                res.trajectory, sharded["trajectory"]),
-            "per-interval stats simulate_sharded's": same_stats(
-                res.stats, sharded["stats"]),
+            "trajectory bitwise simulate_sharded's first rows": torch.equal(
+                res.trajectory,
+                sharded["trajectory"][:PREFIX_OUTPUTS + 1]),
+            "per-interval stats simulate_sharded's first": same_stats(
+                res.stats, [x[:PREFIX_OUTPUTS] for x in sharded["stats"]]),
             "four ranks": ranks == 4,
             "files read back exactly": np.array_equal(
                 files, traj[:, :files.shape[1]].astype(np.float64)),
         })
-        fail_unless("stream_sharded_fhn", checks)
     finally:
         shutil.rmtree(out, ignore_errors=True)
 
@@ -3414,8 +3502,9 @@ def copy_overlap(events, min_bytes):
 
 def stream_host_offload(cfg, card):
     """The snapshot copies of snapshot_mode "host" (sim.py::HostOffload)
-    on the canonical FHN torus over Tf = 5 with 20 outputs: the walls of
-    the device, host and none modes (two untraced runs each, alternating),
+    on the canonical FHN torus over Tf = OFFLOAD_TF with 20 outputs: the
+    walls of the device, host and none modes (two untraced runs each,
+    alternating),
     the host mode's rows bitwise the device mode's, and from one traced
     host run each copy's duration and the share of it during which a
     kernel of the solve's stream ran (a measurement, not a check)."""
@@ -3423,7 +3512,7 @@ def stream_host_offload(cfg, card):
 
     from crdmodel_tpu_torch.ops import trace
     from crdmodel_tpu_torch.sim import simulate_streaming
-    c5 = dataclasses.replace(cfg, t_final=5.0, output_timestep=20)
+    c5 = dataclasses.replace(cfg, t_final=OFFLOAD_TF, output_timestep=20)
     walls = {"device": [], "host": [], "none": []}
     runs = {}
     simulate_streaming(c5, device="cuda")        # warm-up
@@ -3439,7 +3528,8 @@ def stream_host_offload(cfg, card):
     dur = [r[0] for r in rows]
     leads = [r[2] for r in rows if r[2] is not None]
     phase("stream_host_offload", config="data/FHNmodelArgs.ini fhn torus, "
-          "Tf=5, 20 outputs", steps=res.total_steps(), walls_s=walls,
+          f"Tf={OFFLOAD_TF} (cut from 5), 20 outputs",
+          steps=res.total_steps(), walls_s=walls,
           snapshot_mb=snap_bytes / 1e6, copies=len(rows),
           copy_us_mean=float(np.mean(dur)) if dur else None,
           copy_us_max=float(np.max(dur)) if dur else None,
@@ -3460,18 +3550,18 @@ def stream_host_offload(cfg, card):
     })
 
 
-def stream_phases(cfg, cfg_gb_ark, probes, single_fhn, sharded_fhn, card):
+def stream_phases(cfg, cfg_gb_ark, single_fhn, sharded_fhn, card):
     """The `run` entry point and the streaming drivers on the card:
     cli_run_fhn, cli_run_goldbeter_ark324, stream_sharded_fhn and the
     host-offload measurement stream_host_offload; their seconds in phase
     "stream_phases"."""
     import time
     t0 = time.perf_counter()
-    cli_run_fhn(cfg, probes["fhn", "bs32"], single_fhn, card)
+    cli_run_fhn(cfg, single_fhn, card)
     t1 = time.perf_counter()
     cli_run_goldbeter_ark324(cfg_gb_ark, card)
     t2 = time.perf_counter()
-    stream_sharded_fhn(cfg, probes["fhn", "bs32"], sharded_fhn, card)
+    stream_sharded_fhn(cfg, sharded_fhn, card)
     t3 = time.perf_counter()
     stream_host_offload(cfg, card)
     t4 = time.perf_counter()
@@ -5364,14 +5454,16 @@ def soak_matrix(card):
     torch-path f32-f64 gap (bs32, one f64 run a family) plus 1e-4 (for
     ark324 both printed; SOAK_STEP_TOL's comment); and to its plain
     version's run in the kernel's sum order (plain_ordered_run): the same
-    steps and the trajectory bitwise. Returns {(model, method):
-    launches}."""
+    steps and the trajectory bitwise. Returns ({(model, method):
+    launches}, {(model, method): the one-device kernel run's steps, final
+    field and the family's f32-f64 gap}, which soak_matrix_mesh holds its
+    mesh runs to)."""
     from crdmodel_tpu_torch.ops import fused_imex, fused_rkc, fused_step
 
     kernels = {"bs32": fused_step.fused_step,
                "rkc2": fused_rkc.fused_rkc_step,
                "ark324": fused_imex.fused_imex_step}
-    launches = {}
+    launches, singles = {}, {}
     for model in KIN_FAMILIES:
         ref64 = torch_path_run(soak_cfg(model, "bs32"), {}, "float64",
                                k2_h_limit)
@@ -5424,6 +5516,299 @@ def soak_matrix(card):
                 "the plain version's run in the kernel's order, bitwise":
                     plain_same})
             fail_unless("soak_matrix", checks)
+            singles[model, method] = dict(
+                steps=steps, final=res.trajectory[-1].clone(), gap=gap,
+                wall_s=res.wall_time)
+            del res
+    return launches, singles
+
+
+# the families' shard kernels' checks: K9's stage counts (one chunk, two,
+# four), and an uneven mesh of each family's odd torus (148 rows to blocks
+# of 50, 50 and 48, with mirror-pad rows, a freeze, partial tiles)
+KIN_K9_STAGES = (2, 5, 23)
+KIN_UNEVEN_MESH = (3, 1)
+# the shard kernels a family's mesh soak run takes, by method, and their
+# entries of the kernels line: (key, source, the TPU kernel it replaces)
+KIN_SHARD_KERNELS = {
+    "bs32": ("k8", "fused_shard_step_families.cu",
+             "crdmodel_tpu/ops/pallas_shard_step.py:105"),
+    "rkc2": ("k9", "fused_shard_rkc_families.cu",
+             "crdmodel_tpu/ops/pallas_shard_rkc.py:86"),
+    "ark324": ("k10", "fused_shard_imex_families.cu",
+               "crdmodel_tpu/ops/pallas_shard_imex.py:57")}
+
+
+def kin_shard_steps(sc, yp, rho, method, s=None):
+    """(call, plain call, tile sums, args, kernel tag) of one K8 (bs32 or
+    dopri54), K9 (stage count s, h its stability coverage) or K10 step of
+    a family on the shard buffer yp with constants sc, unfrozen, h =
+    KIN_H_RHO / rho for K8 and K10 (rho the global state's): the wrapper,
+    its plain version, its partial sums' plain version, their arguments
+    and the kernel's name."""
+    from crdmodel_tpu_torch.integrate.erk import TABLEAUS
+    from crdmodel_tpu_torch.ops import fused_shard_imex as f10
+    from crdmodel_tpu_torch.ops import fused_shard_rkc as f9
+    from crdmodel_tpu_torch.ops import fused_shard_step as f8
+    from crdmodel_tpu_torch.ops.fused_rkc import static_stage_tables
+    dev = dict(dtype=yp.dtype, device="cuda")
+    fz = torch.zeros((), **dev)
+    h = torch.tensor(KIN_H_RHO / rho, **dev)
+    if method == "rkc2":
+        mu1, ctab = static_stage_tables(f9.S_MAX_KERNEL, yp.dtype, "cuda")
+        h, st = rkc_step_inputs(s, rho, yp.dtype)
+        args = (yp, h, fz, st, mu1, ctab, sc, 1e-5, 1e-8)
+        return (f9.fused_shard_rkc_step, f9.fused_shard_rkc_step_reference,
+                f9.fused_shard_rkc_tile_sums, args,
+                "fused_rkc_chunk_n_kernel")
+    if method == "ark324":
+        args = (yp, h, fz, sc, 1e-5, 1e-8)
+        return (f10.fused_shard_imex_step,
+                f10.fused_shard_imex_step_reference,
+                f10.fused_shard_imex_tile_sums, args,
+                "fused_imex_slots_n_kernel")
+    args = (yp, h, fz, sc, TABLEAUS[method], 1e-5, 1e-8)
+    tag = ("fused_erk_slots_n_kernel" if method == "bs32"
+           else "fused_erk_tile_n_kernel")
+    return (f8.fused_shard_step, f8.fused_shard_step_reference,
+            f8.fused_shard_step_tile_sums, args, tag)
+
+
+def check_kinetics_shard_kernels():
+    """Phase kinetics_shard_kernels: each new family's K8 (bs32 and
+    dopri54), K9 (KIN_K9_STAGES) and K10 against their plain versions on
+    the card, on shard 0 of the mesh soak's 2x2 mesh ((nvars, 1600 + 2P,
+    400 + 2P)) from a random state and from the IC, and on shards 0 and 2
+    of each family's odd torus on KIN_UNEVEN_MESH, f32 and f64: y_new's
+    block and every partial sum bitwise, two launches bitwise, each
+    launch's kernel traced once (the families' HaloGrid kernel of the
+    dispatch, ops/trace.py::kernel_names). Returns {kernel: {dtype: max
+    |y_kernel - y_plain|}}."""
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.ops import fused_shard_rkc as f9
+    from crdmodel_tpu_torch.ops import fused_shard_step as f8
+    from crdmodel_tpu_torch.ops import trace
+
+    rng = np.random.default_rng(SEED + 23)
+    worst = {k: {torch.float32: 0.0, torch.float64: 0.0}
+             for k in ("k8", "k9", "k10")}
+    runs = ([("k8", "bs32", None), ("k8", "dopri54", None)]
+            + [("k9", "rkc2", s) for s in KIN_K9_STAGES]
+            + [("k10", "ark324", None)])
+    for model in KIN_FAMILIES:
+        soak = soak_cfg(model, "bs32")
+        cases = (("soak_2x2", soak, SHARD_MESH, (0,)),
+                 ("uneven_3x1", soak_cfg(model, "bs32", x_mesh=37,
+                                         t_boundary=0.1),
+                  KIN_UNEVEN_MESH, (0, 2)))
+        for label, cfg, shape, shards in cases:
+            mesh = shard_mesh(shape)
+            problem = build_problem(cfg, device="cuda")
+            states = {"random": family_state(model,
+                                             tuple(problem.y0.shape), rng)}
+            if cfg is soak:
+                states["ic"] = problem.y0.double().cpu().numpy()
+            for state, y_np in states.items():
+                for dtype in (torch.float32, torch.float64):
+                    rho = problem_rho(problem, torch.tensor(
+                        y_np, dtype=dtype, device="cuda"))
+                    inputs = {p: shard_inputs(problem, mesh, y_np, dtype, p)
+                              for p in (f8.HALO, f9.P_RKC)}
+                    for kernel, method, s in runs:
+                        bufs, consts = inputs[f9.P_RKC if kernel == "k9"
+                                              else f8.HALO]
+                        for k in shards:
+                            call, plain, sums, args, tag = kin_shard_steps(
+                                consts[k], bufs[k], rho, method, s)
+                            if (dtype == torch.float32 and state == "random"
+                                    and cfg is soak):
+                                names = trace.kernel_names(
+                                    lambda: call(*args), n=1)
+                                if not all(tag in n and "HaloGrid" in n
+                                           for n in names):
+                                    raise AssertionError(
+                                        f"kinetics_shard_kernels: {model} "
+                                        f"{method} ran {sorted(set(names))}"
+                                        f", not {tag} on HaloGrid")
+                            err = check_shard_pair(
+                                "kinetics_shard_kernels",
+                                dict(model=model, case=label, state=state,
+                                     kernel=kernel, method=method, s=s,
+                                     mesh=list(shape), shard=k,
+                                     shape=list(bufs[k].shape),
+                                     valid=[consts[k].valid_rows,
+                                            consts[k].valid_cols],
+                                     kernel_name=tag,
+                                     freeze=consts[k].has_freeze),
+                                call, plain, args, dtype, sums)
+                            worst[kernel][dtype] = max(
+                                worst[kernel][dtype], err)
+                    del inputs
+            del problem
+    return worst
+
+
+def kinetics_shard_timing(card):
+    """Phase kinetics_shard_timing: each new family's K8 (bs32), K9 (s = 5
+    and 23) and K10 launch on shard 0 of the mesh soak's 2x2 mesh from the
+    IC, f32: device µs from profiler traces (device_ms), the plain
+    version's (CUDA events), the bound from the shard's bytes (the buffer
+    in, the block out, the constants; shard_bound) and operations
+    (family_step_ops), the launched kernel's registers, blocks an SM and
+    shared bytes, and ptxas's registers and spills of its instantiation.
+    Returns {(model, kernel, s): (ms, plain ms, bound ms, bound_by)}."""
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.ops import erk_slots
+    from crdmodel_tpu_torch.ops import fused_shard_imex as f10
+    from crdmodel_tpu_torch.ops import fused_shard_rkc as f9
+    from crdmodel_tpu_torch.ops import fused_shard_step as f8
+    from crdmodel_tpu_torch.ops.kernel_common import KINETICS_IDS
+
+    mesh = shard_mesh(SHARD_MESH)
+    out = {}
+    for model in KIN_FAMILIES:
+        problem = build_problem(soak_cfg(model, "bs32"), device="cuda")
+        y = problem.y0.contiguous()
+        y_np = y.double().cpu().numpy()
+        rho = problem_rho(problem, y)
+        kid = KINETICS_IDS[model]
+        inputs = {p: shard_inputs(problem, mesh, y_np, torch.float32, p)
+                  for p in (f8.HALO, f9.P_RKC)}
+        for kernel, method, s, source, info in (
+                ("k8", "bs32", None, "fused_shard_step_families.cu",
+                 lambda: erk_slots.kernel_info(
+                     "crd_fused_shard_step_families_info", torch.float32,
+                     kid)),
+                ("k9", "rkc2", 5, "fused_shard_rkc_families.cu",
+                 lambda: f9.kernel_info(torch.float32, kid)),
+                ("k9", "rkc2", 23, "fused_shard_rkc_families.cu",
+                 lambda: f9.kernel_info(torch.float32, kid)),
+                ("k10", "ark324", None, "fused_shard_imex_families.cu",
+                 lambda: f10.kernel_info(torch.float32, kid))):
+            bufs, consts = inputs[f9.P_RKC if kernel == "k9" else f8.HALO]
+            yp, sc = bufs[0], consts[0]
+            call, plain, _, args, tag = kin_shard_steps(sc, yp, rho, method,
+                                                        s)
+            extra = 0
+            if method == "rkc2":
+                extra = sum(t.numel() * t.element_size() for t in args[4:6])
+            t = (device_ms(lambda: call(*args), tag),
+                 median_ms(lambda: plain(*args), 10, 2),
+                 *shard_bound(yp, sc, family_step_ops(sc, method, s),
+                              extra))
+            out[model, kernel, s] = t
+            phase("kinetics_shard_timing", model=model, kernel=kernel,
+                  method=method, s=s, shape=list(yp.shape),
+                  dtype="float32", kernel_us=t[0] * 1e3,
+                  plain_us=t[1] * 1e3, bound_us=t[2] * 1e3, bound_by=t[3],
+                  times_bound=t[0] / t[2], kernel_name=tag, **info(),
+                  ptxas=[e for e in ptxas_entries(source, tag)
+                         if e["kernel"].startswith(f"ILi{kid}E")],
+                  card=card)
+        del inputs, problem
+    return out
+
+
+def plain_ordered_mesh_run(cfg, mesh):
+    """`cfg` through simulate_sharded() on `mesh` with K10's wrapper
+    replaced by its plain version returning its partial sums in the
+    kernel's order (fused_shard_imex_tile_sums' arithmetic, the stages
+    computed once), so that the run takes the kernel's run exactly when
+    each launch is bitwise its plain version (unforced)."""
+    from crdmodel_tpu_torch.ops import fused_imex as fi
+    from crdmodel_tpu_torch.ops import fused_shard_imex as f10
+    from crdmodel_tpu_torch.ops.fused_shard_step import interior
+
+    def step(yp, h, fz, sc, rtol, atol, stim=None, amps=None):
+        p = sc.halo
+        y_all, err, dys = fi.imex_stages_reference(yp, h, fz, sc)
+        y_new = yp.clone()
+        interior(y_new, p).copy_(interior(y_all, p))
+        return y_new, fi.imex_tile_sums(
+            interior(err, p), [interior(dy, p) for dy in dys],
+            interior(yp, p), rtol, atol, f10.TILE,
+            (sc.valid_rows, sc.valid_cols))
+
+    wrapper = f10.fused_shard_imex_step
+    f10.fused_shard_imex_step = step
+    try:
+        return run_program(cfg, {}, mesh)
+    finally:
+        f10.fused_shard_imex_step = wrapper
+
+
+def soak_matrix_mesh(card, singles):
+    """Phase soak_matrix_mesh: the 18 runs of soak_matrix through
+    simulate_sharded() on a 2x2 mesh of shards on cuda:0 with the default
+    selection, each with its shard kernel selected (K8, K9 or K10: every
+    step of every shard through it, the launch counts zeroed just before
+    the run): status ok, finite, and for bs32 and rkc2
+    held to the one-device kernel run of the same cell that soak_matrix
+    made in this call (`singles`): steps within SOAK_STEP_TOL (one step at
+    least), the final field within the family's f32-f64 gap + 1e-4; for
+    ark324, whose steps follow the order of its error's sum, held to its
+    plain version's sharded run in K10's sum order (plain_ordered_mesh_run):
+    the same steps and the trajectory bitwise, its distance to the
+    one-device run printed. Returns {(model, method): launches}."""
+    from crdmodel_tpu_torch.ops import (fused_shard_imex, fused_shard_rkc,
+                                        fused_shard_step)
+
+    kernels = {"bs32": fused_shard_step.fused_shard_step,
+               "rkc2": fused_shard_rkc.fused_shard_rkc_step,
+               "ark324": fused_shard_imex.fused_shard_imex_step}
+    mesh = shard_mesh(SHARD_MESH)
+    launches = {}
+    for model in KIN_FAMILIES:
+        for method in SOAK_METHODS:
+            cfg = soak_cfg(model, method)
+            kernel = kernels[method]
+            res, counts = drive_main_path(cfg, {}, mesh)
+            launches[model, method] = counts[kernel.__name__]
+            checks = run_checks(cfg, res, kernel, launches[model, method],
+                                mesh.size)
+            single = singles[model, method]
+            steps = res.total_steps()
+            final = float((res.trajectory[-1] - single["final"]).abs().max())
+            fields = dict(
+                config=SOAK_LABEL.format(model, method, cfg.t_final)
+                + ", 2x2 mesh of shards on cuda:0",
+                selection=selection_note(cfg), mesh=list(mesh.shape),
+                grid=[cfg.ny, cfg.nx],
+                nvars=res.problem.model.nvars, method=method,
+                t_final=cfg.t_final, status=res.describe(), fused=res.fused,
+                steps=steps, accepted=int(res.stats.accepted.sum()),
+                rejected=int(res.stats.rejected.sum()),
+                kernel=kernel.__name__, launches=counts,
+                wall_s=res.wall_time, us_per_step=res.wall_time / steps * 1e6,
+                one_device=dict(steps=single["steps"],
+                                wall_s=single["wall_s"]),
+                final_max_abs_vs_one_device=final,
+                f32_f64_gap=single["gap"], final_limit=single["gap"] + 1e-4,
+                card=card)
+            tol = SOAK_STEP_TOL.get(method)
+            if tol is not None:
+                step_limit = max(tol * single["steps"], 1)
+                fields["step_limit"] = step_limit
+                checks[f"steps within {tol:.2%} (one step at least) of the "
+                       "one-device run"] = (
+                    abs(steps - single["steps"]) <= step_limit)
+                checks["final field within the f32-f64 gap + 1e-4 of the "
+                       "one-device run"] = final <= single["gap"] + 1e-4
+            else:
+                plain = plain_ordered_mesh_run(cfg, mesh)
+                same = (same_bits(res.trajectory, plain.trajectory)
+                        and all(torch.equal(getattr(res.stats, n),
+                                            getattr(plain.stats, n))
+                                for n in ("steps", "accepted", "rejected",
+                                          "status")))
+                fields["plain_in_kernel_order"] = dict(
+                    steps=plain.total_steps(), wall_s=plain.wall_time,
+                    bitwise=same)
+                checks["the plain version's sharded run in K10's order, "
+                       "bitwise"] = same
+                del plain
+            phase("soak_matrix_mesh", **fields)
+            fail_unless("soak_matrix_mesh", checks)
             del res
     return launches
 
@@ -5558,23 +5943,31 @@ FIXTURE_PHYSICS = {
 
 def kinetics_phases(card):
     """The six other families' phases: kinetics_kernels, kinetics_timing,
-    kinetics_fixtures and soak_matrix, each phase's seconds printed
-    (phase kinetics_seconds). Returns the kernels line's entries of the
-    families' K1, K2 and K3, one a family and kernel."""
+    kinetics_fixtures and soak_matrix (K1, K2 and K3 on one device), then
+    kinetics_shard_kernels, kinetics_shard_timing and soak_matrix_mesh
+    (K8, K9 and K10 on a 2x2 mesh), each phase's seconds printed (phase
+    kinetics_seconds). Returns the kernels line's entries of the families'
+    K1, K2, K3, K8, K9 and K10, one a family and kernel."""
     import time
     seconds = {}
-    t0 = time.perf_counter()
-    worst = check_kinetics_kernels()
-    seconds["kinetics_kernels"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    timing = kinetics_timing(card)
-    seconds["kinetics_timing"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    fixture_runs()
-    seconds["kinetics_fixtures"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    launches = soak_matrix(card)
-    seconds["soak_matrix"] = time.perf_counter() - t0
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    worst = timed("kinetics_kernels", check_kinetics_kernels)
+    timing = timed("kinetics_timing", kinetics_timing, card)
+    timed("kinetics_fixtures", fixture_runs)
+    launches, singles = timed("soak_matrix", soak_matrix, card)
+    worst.update(timed("kinetics_shard_kernels",
+                       check_kinetics_shard_kernels))
+    timing.update(timed("kinetics_shard_timing", kinetics_shard_timing,
+                        card))
+    mesh_launches = timed("soak_matrix_mesh", soak_matrix_mesh, card,
+                          singles)
+    del singles
     phase("kinetics_seconds", **seconds, card=card)
     entries = []
     for model in KIN_FAMILIES:
@@ -5585,11 +5978,16 @@ def kinetics_phases(card):
                  "crdmodel_tpu/ops/pallas_rkc.py:365"),
                 ("k3", "ark324", None, "fused_imex_families.cu",
                  "crdmodel_tpu/ops/pallas_imex.py:155")):
-            entry = kernel_entry(
+            entries.append(kernel_entry(
                 f"{source[:-3]}[{model}]", source, replaces,
                 launches[model, method], worst[kernel],
-                timing[model, kernel, s])
-            entries.append(entry)
+                timing[model, kernel, s]))
+        for method, (kernel, source, replaces) in KIN_SHARD_KERNELS.items():
+            s = 23 if method == "rkc2" else None
+            entries.append(kernel_entry(
+                f"{source[:-3]}[{model}]", source, replaces,
+                mesh_launches[model, method], worst[kernel],
+                timing[model, kernel, s]))
     return entries
 
 
@@ -5652,6 +6050,9 @@ def main():
     from crdmodel_tpu_torch.ops.kernel_common import (
         KINETICS_IDS, prepare_aniso_constants, prepare_divform_constants)
 
+    # the large Goldbeter torus's f64 reference runs while nvcc builds
+    if sys.argv[1:] in ([], ["--timing"], ["--sharded"]):
+        start_background_runs()
     phase("build", seconds=_build.build(), library=_build.library_path(),
           ptxas_slots_kernels={
               src: ptxas_entries(src, erk_slots.SLOTS_KERNEL)
@@ -5692,7 +6093,10 @@ def main():
           ptxas_families={src: ptxas_summary(src)
                           for src in ("fused_step_families.cu",
                                       "fused_rkc_families.cu",
-                                      "fused_imex_families.cu")})
+                                      "fused_imex_families.cu",
+                                      "fused_shard_step_families.cu",
+                                      "fused_shard_rkc_families.cu",
+                                      "fused_shard_imex_families.cu")})
     cfg_ap, ap_build = bounded_tissue()
     cfg_ap_rkc = dataclasses.replace(cfg_ap, method="rkc2")
     cfg_wide = wide_sheet()
@@ -5762,7 +6166,7 @@ def main():
                       "main_path_sharded_fhn", fhn_label,
                       mesh=shard_mesh(SHARD_MESH), versus=single_fhn,
                       keep=sharded_fhn)
-        stream_phases(cfg, programs["goldbeter_ark324"], probes, single_fhn,
+        stream_phases(cfg, programs["goldbeter_ark324"], single_fhn,
                       sharded_fhn, card)
         return
     if sys.argv[1:] == ["--forced"]:
@@ -5985,7 +6389,9 @@ def main():
         "noflux walls + circular scar, rkc2",
         build_kw=ap_build,
         extra_checks=scar_checks(ap_rkc_probes, mask, drift=1e-4))
-    launches2b = run_wide_sheet(cfg_wide, probes["fhn", "rkc2"])
+    launches2b = run_wide_sheet(dataclasses.replace(cfg_wide,
+                                                    t_final=WIDE_TF),
+                                probes["fhn", "rkc2"])
     aniso_probes = probes["aniso_sheet", "bs32"]
     launches5 = run_main_path(
         cfg_aniso, aniso_probes, fused_aniso.fused_aniso_step, 0.01,
@@ -6028,7 +6434,7 @@ def main():
         entry.update(box_forced[entry["name"]])
     # the six other kinetics families through K1, K2 and K3
     family_entries = kinetics_phases(card)
-    stream_phases(cfg, programs["goldbeter_ark324"], probes, single_fhn,
+    stream_phases(cfg, programs["goldbeter_ark324"], single_fhn,
                   sharded_fhn, card)
 
     # the profiler traces of the run, and those taken again with more

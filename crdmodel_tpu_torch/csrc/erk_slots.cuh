@@ -353,12 +353,14 @@ int slots_kernel_info(int* out) {
   return 0;
 }
 
-// The scheme for the families of any shape (FamilyRhs: K1's NEW_FAMILIES,
-// unforced, on the periodic grid): the tiles, slots, stage order and
-// partial sums of fused_erk_slots_kernel, with every variable of a slot's
-// stage inputs and error in its thread's registers and a pair of shared
-// stage planes for each diffusing variable (Family<Kin>::kNd pairs); the
-// squared errors are added variable by variable.
+// The scheme for the families of any shape (FamilyRhs: the NEW_FAMILIES,
+// unforced, on the periodic grid for K1 and on a shard's block in its halo
+// for K8, the grid policy a template parameter as the base kernel's): the
+// tiles, slots, stage order and partial sums of fused_erk_slots_kernel,
+// with every variable of a slot's stage inputs and error in its thread's
+// registers and a pair of shared stage planes for each diffusing variable
+// (Family<Kin>::kNd pairs); the squared errors are added variable by
+// variable, a mirror-pad cell's as +0.0.
 template <int Kin>
 struct SlotFamilyPlan {
   // dynamic shared memory (in T): two stage planes a diffusing variable,
@@ -369,12 +371,12 @@ struct SlotFamilyPlan {
   }
 };
 
-template <int Kin, typename T>
+template <int Kin, class Grid, typename T>
 __global__ void __launch_bounds__(kSlotThreads, (kSlotMinBlocks<T>))
     fused_erk_slots_n_kernel(const T* __restrict__ y, T* __restrict__ y_new,
                              T* __restrict__ ss, const T* __restrict__ h_ptr,
                              const T* __restrict__ fz_ptr,
-                             FamilyRhs<Kin, T> op, WrapGrid grid,
+                             FamilyRhs<Kin, T> op, Grid grid,
                              StageTable tab, T rtol, T atol) {
   using Fam = Family<Kin>;
   using Plan = SlotPlan<kSlotTileY>;
@@ -392,9 +394,8 @@ __global__ void __launch_bounds__(kSlotThreads, (kSlotMinBlocks<T>))
   // stage plane `buf` (0, 1) of diffusing variable i
   const auto sp = [&](int buf, int i) { return smem + (buf * ND + i) * kL; };
   T* const e2 = smem + 2 * ND * kL;          // [NV][kTile]
-  const SlotOrigin<WrapGrid> o(grid, blockIdx.y * kSlotTileY,
-                               blockIdx.x * kSlotTileX, NS, kW,
-                               Plan::kRegR);
+  const SlotOrigin<Grid> o(grid, blockIdx.y * kSlotTileY,
+                           blockIdx.x * kSlotTileX, NS, kW, Plan::kRegR);
   const size_t plane = o.plane();
   const T h = *h_ptr;
   const T fz = *fz_ptr;
@@ -518,6 +519,7 @@ __global__ void __launch_bounds__(kSlotThreads, (kSlotMinBlocks<T>))
       for (int v = 0; v < NV; ++v) x[v] = in[kLast - 1][v][m];
       rhs(m, kLast & 1, x, dy);
       const size_t g = at(ly, lx);
+      const bool counted = o.counted(ly, lx);   // not a mirror-pad cell
 #pragma unroll
       for (int v = 0; v < NV; ++v) {
         T f = e[v][m];
@@ -525,7 +527,7 @@ __global__ void __launch_bounds__(kSlotThreads, (kSlotMinBlocks<T>))
           f = f + (h * static_cast<T>(tab.d[kLast])) * dy[v];
         y_new[v * plane + g] = x[v];
         const T w = f * (T(1) / (rtol * fabs(y[v * plane + g]) + atol));
-        e2[v * kTile + t] = w * w;
+        e2[v * kTile + t] = counted ? w * w : T(0);
       }
     }
   };
@@ -545,31 +547,32 @@ __global__ void __launch_bounds__(kSlotThreads, (kSlotMinBlocks<T>))
   store_block_sum<T, kSlotThreads>(acc, warp_sums, ss);
 }
 
-// Launch one step of the families' K1 over the grid on `stream`:
-// fused_erk_slots_n_kernel for a tableau the scheme takes (slots_take, on
-// 32 x 32 tiles), erk_tile.cuh's fused_erk_tile_n_kernel for the others;
-// returns the CUDA error code (0 on success), checked right after the
-// launch.
-template <int Kin, typename T>
-int launch_erk_slots_n(FamilyRhs<Kin, T> op, WrapGrid grid, const void* y,
+// Launch one step of the families' K1 or K8 over ny x nx points (the
+// grid's, or the shard's block) on `stream`: fused_erk_slots_n_kernel for
+// a tableau the scheme takes (slots_take, on 32 x 32 tiles), erk_tile.cuh's
+// fused_erk_tile_n_kernel for the others; returns the CUDA error code (0
+// on success), checked right after the launch.
+template <int Kin, typename T, class Grid>
+int launch_erk_slots_n(FamilyRhs<Kin, T> op, Grid grid, const void* y,
                        void* y_new, void* ss, const void* h, const void* fz,
-                       int tile_x, int tile_y, const StageTable& tab,
-                       double rtol, double atol, void* stream) {
+                       int ny, int nx, int tile_x, int tile_y,
+                       const StageTable& tab, double rtol, double atol,
+                       void* stream) {
   if (!slots_take(tab))
-    return launch_erk_tile_n<Kin, T>(op, grid, y, y_new, ss, h, fz, tile_x,
-                                     tile_y, tab, rtol, atol, stream);
-  if (grid.ny < 1 || grid.nx < 1 || tile_x != kSlotTileX
-      || tile_y != kSlotTileY)
+    return launch_erk_tile_n<Kin, T>(op, grid, y, y_new, ss, h, fz, ny, nx,
+                                     tile_x, tile_y, tab, rtol, atol,
+                                     stream);
+  if (ny < 1 || nx < 1 || tile_x != kSlotTileX || tile_y != kSlotTileY)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
       static_cast<size_t>(SlotFamilyPlan<Kin>::elements()) * sizeof(T);
-  auto kernel = &fused_erk_slots_n_kernel<Kin, T>;
+  auto kernel = &fused_erk_slots_n_kernel<Kin, Grid, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 blocks((grid.nx + kSlotTileX - 1) / kSlotTileX,
-                    (grid.ny + kSlotTileY - 1) / kSlotTileY);
+  const dim3 blocks((nx + kSlotTileX - 1) / kSlotTileX,
+                    (ny + kSlotTileY - 1) / kSlotTileY);
   kernel<<<blocks, kSlotThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(y), static_cast<T*>(y_new), static_cast<T*>(ss),
       static_cast<const T*>(h), static_cast<const T*>(fz), op, grid, tab,
@@ -577,10 +580,10 @@ int launch_erk_slots_n(FamilyRhs<Kin, T> op, WrapGrid grid, const void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
-// slots_kernel_info of fused_erk_slots_n_kernel<Kin, T>
-template <int Kin, typename T>
+// slots_kernel_info of fused_erk_slots_n_kernel<Kin, Grid, T>
+template <int Kin, class Grid, typename T>
 int slots_n_kernel_info(int* out) {
-  auto kernel = &fused_erk_slots_n_kernel<Kin, T>;
+  auto kernel = &fused_erk_slots_n_kernel<Kin, Grid, T>;
   const size_t smem =
       static_cast<size_t>(SlotFamilyPlan<Kin>::elements()) * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(

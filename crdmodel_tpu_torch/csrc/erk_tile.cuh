@@ -228,17 +228,19 @@ inline size_t erk_tile_smem_n(int nv, int n_stages, int tile_x, int tile_y,
          * (tile_y + 2 * n_stages) * itemsize;
 }
 
-// fused_erk_tile_kernel for the families of any shape (FamilyRhs: K1's
-// NEW_FAMILIES, unforced, on the periodic grid): the same tiles, stage
-// regions, update and partial sums, with every variable's y0, stage input
-// and stages in shared memory; a point's coefficients are read at each
-// evaluation, and its squared errors are added variable by variable.
-template <int Kin, typename T>
+// fused_erk_tile_kernel for the families of any shape (FamilyRhs: the
+// NEW_FAMILIES, unforced; K1 on the periodic grid, K8 on a shard's block
+// in its halo): the same tiles, stage regions, update and partial sums,
+// with every variable's y0, stage input and stages in shared memory; a
+// point's coefficients are read at each evaluation, and its squared
+// errors are added variable by variable. ny x nx is the extent the tiles
+// cover: the grid's, or the shard's block.
+template <int Kin, class Grid, typename T>
 __global__ void __launch_bounds__(kErkThreads) fused_erk_tile_n_kernel(
     const T* __restrict__ y, T* __restrict__ y_new, T* __restrict__ ss,
     const T* __restrict__ h_ptr, const T* __restrict__ fz_ptr,
-    FamilyRhs<Kin, T> rhs, WrapGrid grid, int tile_x, int tile_y,
-    StageTable tab, T rtol, T atol) {
+    FamilyRhs<Kin, T> rhs, Grid grid, int ny, int nx, int tile_x,
+    int tile_y, StageTable tab, T rtol, T atol) {
   using Fam = Family<Kin>;
   constexpr int NV = Fam::kNv;
   constexpr int ND = Fam::kNd;
@@ -315,9 +317,10 @@ __global__ void __launch_bounds__(kErkThreads) fused_erk_tile_n_kernel(
   for (int q = threadIdx.x; q < tile_x * tile_y; q += blockDim.x) {
     const int ty = q / tile_x, tx = q - ty * tile_x;
     const int gy = blockIdx.y * tile_y + ty, gx = blockIdx.x * tile_x + tx;
-    if (gy >= grid.ny || gx >= grid.nx) continue;
+    if (gy >= ny || gx >= nx) continue;
     const int p = (ty + halo) * W + tx + halo;
     const size_t g = grid.at(gy, gx);
+    const bool counted = grid.counted(gy, gx);   // not a mirror-pad cell
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
       const T x0 = y0[v * np + p];
@@ -328,6 +331,7 @@ __global__ void __launch_bounds__(kErkThreads) fused_erk_tile_n_kernel(
         if (tab.d[s] != 0.0) ex = ex + (h * static_cast<T>(tab.d[s])) * kx;
       }
       y_new[v * plane + g] = nx;
+      if (!counted) continue;
       const T wx = ex * (T(1) / (rtol * fabs(x0) + atol));
       acc = acc + wx * wx;
     }
@@ -336,29 +340,29 @@ __global__ void __launch_bounds__(kErkThreads) fused_erk_tile_n_kernel(
   store_block_sum<T, kErkThreads>(acc, warp_sums, ss);
 }
 
-// Launch one step of fused_erk_tile_n_kernel<Kin, T> over the grid on
-// `stream`; returns the CUDA error code (0 on success), checked right
-// after the launch.
-template <int Kin, typename T>
-int launch_erk_tile_n(FamilyRhs<Kin, T> rhs, WrapGrid grid, const void* y,
+// Launch one step of fused_erk_tile_n_kernel<Kin, Grid, T> over ny x nx
+// points on `stream`; returns the CUDA error code (0 on success), checked
+// right after the launch.
+template <int Kin, typename T, class Grid>
+int launch_erk_tile_n(FamilyRhs<Kin, T> rhs, Grid grid, const void* y,
                       void* y_new, void* ss, const void* h, const void* fz,
-                      int tile_x, int tile_y, const StageTable& tab,
-                      double rtol, double atol, void* stream) {
-  if (grid.ny < 1 || grid.nx < 1 || tile_x < 1 || tile_y < 1)
+                      int ny, int nx, int tile_x, int tile_y,
+                      const StageTable& tab, double rtol, double atol,
+                      void* stream) {
+  if (ny < 1 || nx < 1 || tile_x < 1 || tile_y < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = erk_tile_smem_n(Family<Kin>::kNv, tab.n, tile_x,
                                       tile_y, sizeof(T));
-  auto kernel = &fused_erk_tile_n_kernel<Kin, T>;
+  auto kernel = &fused_erk_tile_n_kernel<Kin, Grid, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 blocks((grid.nx + tile_x - 1) / tile_x,
-                    (grid.ny + tile_y - 1) / tile_y);
+  const dim3 blocks((nx + tile_x - 1) / tile_x, (ny + tile_y - 1) / tile_y);
   kernel<<<blocks, kErkThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(y), static_cast<T*>(y_new), static_cast<T*>(ss),
-      static_cast<const T*>(h), static_cast<const T*>(fz), rhs, grid, tile_x,
-      tile_y, tab, static_cast<T>(rtol), static_cast<T>(atol));
+      static_cast<const T*>(h), static_cast<const T*>(fz), rhs, grid, ny, nx,
+      tile_x, tile_y, tab, static_cast<T>(rtol), static_cast<T>(atol));
   return static_cast<int>(cudaGetLastError());
 }
 

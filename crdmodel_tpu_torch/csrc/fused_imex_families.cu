@@ -52,11 +52,11 @@ int launch(const void* y, void* y_new, void* ss, const void* h,
     constexpr int Kin = decltype(kin)::value;
     if (tile_y == 32)
       return crd::launch_imex_slots_n<Kin, T, 32>(grid, y, y_new, ss, h, fz,
-                                                  k, tab, rtol, atol,
+                                                  k, ny, nx, tab, rtol, atol,
                                                   stream);
     if (tile_y == 16)
       return crd::launch_imex_slots_n<Kin, T, 16>(grid, y, y_new, ss, h, fz,
-                                                  k, tab, rtol, atol,
+                                                  k, ny, nx, tab, rtol, atol,
                                                   stream);
     return static_cast<int>(cudaErrorInvalidValue);
   });
@@ -66,8 +66,10 @@ template <typename T>
 int info(int kinetics, int tile_y, int* out) {
   return crd::with_kinetics_in(crd::NewFamilies{}, kinetics, [&](auto kin) {
     constexpr int Kin = decltype(kin)::value;
-    if (tile_y == 32) return crd::imex_slots_n_info<Kin, T, 32>(out);
-    if (tile_y == 16) return crd::imex_slots_n_info<Kin, T, 16>(out);
+    if (tile_y == 32)
+      return crd::imex_slots_n_info<Kin, crd::WrapGrid, T, 32>(out);
+    if (tile_y == 16)
+      return crd::imex_slots_n_info<Kin, crd::WrapGrid, T, 16>(out);
     return static_cast<int>(cudaErrorInvalidValue);
   });
 }

@@ -53,7 +53,7 @@ int launch(const void* y, void* y_new, void* ss, void* work, const void* h,
                              tiles_x, n_tiles};
   return crd::with_kinetics_in(crd::NewFamilies{}, kinetics, [&](auto kin) {
     constexpr int Kin = decltype(kin)::value;
-    return crd::launch_rkc_chunk_n<Kin, T>(
+    return crd::launch_rkc_chunk_n<Kin, crd::WrapGrid, T>(
         crd::FamilyRhs<Kin, T>{k}, wg, plan, n_tiles, y, y_new, ss, work, h,
         fz, s, mu1_tab, ctab, s_cap, rtol, atol, stream);
   });
@@ -62,7 +62,8 @@ int launch(const void* y, void* y_new, void* ss, void* work, const void* h,
 template <typename T>
 int info(int kinetics, int* out) {
   return crd::with_kinetics_in(crd::NewFamilies{}, kinetics, [&](auto kin) {
-    return crd::rkc_chunk_n_info<decltype(kin)::value, T>(out);
+    return crd::rkc_chunk_n_info<decltype(kin)::value, crd::WrapGrid, T>(
+        out);
   });
 }
 

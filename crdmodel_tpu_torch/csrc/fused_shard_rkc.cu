@@ -65,20 +65,6 @@ using crd::ProfileRhs;
 // The most tiles a chunk of a step of at most s_cap stages has on an
 // nyl x nxl block: its extent grows by the evaluations still to come after
 // the first chunk (rkc_chunk.cuh::extent_rings).
-int max_tiles(int s_cap, int nyl, int nxl) {
-  int most = 0;
-  for (int s = 2; s <= s_cap; ++s) {
-    const int n = s + 1;
-    const int chunks = (n + crd::kRkcChunk - 1) / crd::kRkcChunk;
-    const int rings = n - n / chunks;
-    const int t = crd::kRkcTile;
-    const int tiles = ((nyl + 2 * rings + t - 1) / t)
-                      * ((nxl + 2 * rings + t - 1) / t);
-    if (tiles > most) most = tiles;
-  }
-  return most;
-}
-
 // amps, rows, cols, n_stim, n_cols, var1: the structured forcing, its
 // profiles halo-padded to the buffer (n_stim = 0 and null pointers
 // without one)
@@ -106,7 +92,7 @@ int launch(const void* y, void* y_new, void* ss, void* work, const void* h,
   const crd::RkcPlan plan = {nyl,    nxl,    sum_tx,
                              sum_ty, sums_x, sums_x * ((nyl + sum_ty - 1)
                                                        / sum_ty)};
-  const int most = max_tiles(s_cap, nyl, nxl);
+  const int most = crd::halo_max_tiles(s_cap, nyl, nxl);
   return crd::with_stim<T>(
       amps, rows, cols, n_stim, n_cols, var1,
       n_cols == 1 || n_cols == crd::kRkcMaxStages + 2, nyl + 2 * halo,

@@ -52,15 +52,17 @@ int launch(const void* y, void* y_new, void* ss, const void* h,
   return crd::with_kinetics_in(crd::NewFamilies{}, kinetics, [&](auto kin) {
     constexpr int Kin = decltype(kin)::value;
     return crd::launch_erk_slots_n<Kin, T>(crd::FamilyRhs<Kin, T>{k}, grid,
-                                           y, y_new, ss, h, fz, tile_x,
-                                           tile_y, tab, rtol, atol, stream);
+                                           y, y_new, ss, h, fz, ny, nx,
+                                           tile_x, tile_y, tab, rtol, atol,
+                                           stream);
   });
 }
 
 template <typename T>
 int info(int kinetics, int* out) {
   return crd::with_kinetics_in(crd::NewFamilies{}, kinetics, [&](auto kin) {
-    return crd::slots_n_kernel_info<decltype(kin)::value, T>(out);
+    return crd::slots_n_kernel_info<decltype(kin)::value, crd::WrapGrid,
+                                    T>(out);
   });
 }
 

@@ -655,22 +655,23 @@ struct ImexFamilyPlan {
       3 * kNd * Plan::kRegion + kNv * kImexStages * Plan::kTilePoints;
 };
 
-// fused_imex_slots_kernel for the families of any shape (K3's
-// NEW_FAMILIES, unforced, on the periodic grid): the same tiles, slots,
-// Newton rings, stage order and partial sums, with every variable of a
-// slot's pointwise state in its thread's registers, y0 and the stage value
-// of each diffusing variable in shared planes, the explicit part the
-// profile operator on each diffusing variable times its ratio (0 on the
-// others, never formed), and the Newton on the family's closed-form
-// Jacobian (imex_newton_n: 2x2 or 3x3). The staged terms are added
-// variable by variable.
-template <int Kin, typename T, int TileY>
+// fused_imex_slots_kernel for the families of any shape (the
+// NEW_FAMILIES, unforced; K3 on the periodic grid, K10 on a shard's block
+// in its halo, the grid policy a template parameter as the base kernel's):
+// the same tiles, slots, Newton rings, stage order and partial sums, with
+// every variable of a slot's pointwise state in its thread's registers, y0
+// and the stage value of each diffusing variable in shared planes, the
+// explicit part the profile operator on each diffusing variable times its
+// ratio (0 on the others, never formed), and the Newton on the family's
+// closed-form Jacobian (imex_newton_n: 2x2 or 3x3). The staged terms are
+// added variable by variable, a mirror-pad cell's as +0.0.
+template <int Kin, class Grid, typename T, int TileY>
 __global__ void __launch_bounds__(kImexSlotThreads, (kImexMinBlocks<T>))
     fused_imex_slots_n_kernel(const T* __restrict__ y,
                               T* __restrict__ y_new, T* __restrict__ ss,
                               const T* __restrict__ h_ptr,
                               const T* __restrict__ fz_ptr,
-                              RhsConstants<T> k, WrapGrid grid,
+                              RhsConstants<T> k, Grid grid,
                               ImexCoeffs<T> tab, T rtol, T atol) {
   using Fam = Family<Kin>;
   using Plan = ImexPlan<TileY>;
@@ -698,8 +699,8 @@ __global__ void __launch_bounds__(kImexSlotThreads, (kImexMinBlocks<T>))
   // the staged terms: dy2[((s - 1) NV + v) kTP + q], e2[v kTP + q]
   T* const dy2 = smem + 3 * ND * kL;
   T* const e2 = dy2 + (NS - 1) * NV * kTP;
-  const SlotOrigin<WrapGrid> o(grid, blockIdx.y * TileY, blockIdx.x * kTile,
-                               kImexHalo, W, R);
+  const SlotOrigin<Grid> o(grid, blockIdx.y * TileY, blockIdx.x * kTile,
+                           kImexHalo, W, R);
   const size_t plane = o.plane();
   const T h = *h_ptr;
   const T fz = k.has_freeze ? *fz_ptr : T(0);
@@ -835,7 +836,8 @@ __global__ void __launch_bounds__(kImexSlotThreads, (kImexMinBlocks<T>))
         for (int v = 0; v < NV; ++v) ki[m][v] = (Y[v] - rk[m][s - 1][v]) / hg;
         if (m < kTS) {
           const int q = t + kT * m;
-          const bool on = o.in_block(ly, p % W);
+          const int lx = p % W;
+          const bool on = o.in_block(ly, lx) && o.counted(ly, lx);
 #pragma unroll
           for (int v = 0; v < NV; ++v) {
             const T sv = d[v] * wt[m][v];
@@ -892,12 +894,13 @@ __global__ void __launch_bounds__(kImexSlotThreads, (kImexMinBlocks<T>))
       for (int i = 0; i < ND; ++i)
         ke[Fam::var(i)] = explicit_at(i, ysp(kBuf, i), p);
       const size_t g = at(p);
+      const bool counted = o.counted(ly, lx);   // not a mirror-pad cell
 #pragma unroll
       for (int v = 0; v < NV; ++v) {
         const T ks = family_diffuses<Kin>(v) ? ke[v] + ki[m][v] : ki[m][v];
         y_new[v * plane + g] = nw[m][v] + hb[NS - 1] * ks;
         const T a = (er[m][v] + hd[NS - 1] * ks) * wt[m][v];
-        e2[v * kTP + q] = a * a;
+        e2[v * kTP + q] = counted ? a * a : T(0);
       }
     }
   };
@@ -931,26 +934,28 @@ __global__ void __launch_bounds__(kImexSlotThreads, (kImexMinBlocks<T>))
   store_block_sum<T, kT>(acc, warp_sums, ss);
 }
 
-// Launch one step of fused_imex_slots_n_kernel<Kin, T, TileY> over the grid
-// on `stream`; a tableau of another zero pattern than the kernel's is
-// refused. Returns the CUDA error code (0 on success).
-template <int Kin, typename T, int TileY>
-int launch_imex_slots_n(WrapGrid grid, const void* y, void* y_new, void* ss,
+// Launch one step of fused_imex_slots_n_kernel<Kin, Grid, T, TileY> over
+// ny x nx points (the grid's, or the shard's block) on `stream`; a tableau
+// of another zero pattern than the kernel's is refused. Returns the CUDA
+// error code (0 on success).
+template <int Kin, typename T, int TileY, class Grid>
+int launch_imex_slots_n(Grid grid, const void* y, void* y_new, void* ss,
                         const void* h, const void* fz,
-                        const RhsConstants<T>& k, const ImexTable& table,
-                        double rtol, double atol, void* stream) {
+                        const RhsConstants<T>& k, int ny, int nx,
+                        const ImexTable& table, double rtol, double atol,
+                        void* stream) {
   ImexCoeffs<T> tab;
-  if (grid.ny < 1 || grid.nx < 1 || !imex_slots_take(table, &tab))
+  if (ny < 1 || nx < 1 || !imex_slots_take(table, &tab))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = &fused_imex_slots_n_kernel<Kin, T, TileY>;
+  auto kernel = &fused_imex_slots_n_kernel<Kin, Grid, T, TileY>;
   const size_t smem =
       static_cast<size_t>(ImexFamilyPlan<Kin, TileY>::kElements) * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 blocks((grid.nx + kImexTile - 1) / kImexTile,
-                    (grid.ny + TileY - 1) / TileY);
+  const dim3 blocks((nx + kImexTile - 1) / kImexTile,
+                    (ny + TileY - 1) / TileY);
   kernel<<<blocks, kImexSlotThreads, smem,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(y), static_cast<T*>(y_new), static_cast<T*>(ss),
@@ -959,10 +964,10 @@ int launch_imex_slots_n(WrapGrid grid, const void* y, void* y_new, void* ss,
   return static_cast<int>(cudaGetLastError());
 }
 
-// imex_slots_info of fused_imex_slots_n_kernel<Kin, T, TileY>
-template <int Kin, typename T, int TileY>
+// imex_slots_info of fused_imex_slots_n_kernel<Kin, Grid, T, TileY>
+template <int Kin, class Grid, typename T, int TileY>
 int imex_slots_n_info(int* out) {
-  auto kernel = &fused_imex_slots_n_kernel<Kin, T, TileY>;
+  auto kernel = &fused_imex_slots_n_kernel<Kin, Grid, T, TileY>;
   const size_t smem =
       static_cast<size_t>(ImexFamilyPlan<Kin, TileY>::kElements) * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(

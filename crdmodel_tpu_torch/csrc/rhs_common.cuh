@@ -61,8 +61,9 @@ struct KineticsSet {
 };
 // the families every kernel takes (ops/kernel_common.py::BASE_FAMILIES)
 using BaseFamilies = KineticsSet<kFhn, kGoldbeter, kAlievPanfilov>;
-// the families K1, K2's profile branch and K3 also take, unforced, in
-// translation units of their own (fused_*_families.cu; NEW_FAMILIES)
+// the families K1, K2's profile branch, K3, K8, K9 and K10 also take,
+// unforced, in translation units of their own (fused_*_families.cu;
+// NEW_FAMILIES)
 using NewFamilies = KineticsSet<kBarkley, kOregonator, kGrayScott,
                                 kBrusselator, kLambdaOmega, kSir>;
 

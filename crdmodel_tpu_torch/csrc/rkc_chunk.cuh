@@ -137,6 +137,23 @@ struct RkcPlan {
   int n_sums;
 };
 
+// The most tiles a chunk of a step on a shard's nyl x nxl block has, over
+// the stage counts 2 .. s_cap: the cooperative launch's block count
+// (extent_rings: the first chunk's tiles cover the block grown by the
+// evaluations after it).
+inline int halo_max_tiles(int s_cap, int nyl, int nxl) {
+  int most = 0;
+  for (int s = 2; s <= s_cap; ++s) {
+    const int n = s + 1;
+    const int chunks = (n + kRkcChunk - 1) / kRkcChunk;
+    const int rings = n - n / chunks;
+    const int tiles = ((nyl + 2 * rings + kRkcTile - 1) / kRkcTile)
+                      * ((nxl + 2 * rings + kRkcTile - 1) / kRkcTile);
+    if (tiles > most) most = tiles;
+  }
+  return most;
+}
+
 // The rings beyond the plan's extent that a chunk ending at evaluation e1
 // of n_evals must cover: none on the periodic grid; on a shard the
 // evaluations still to come (ops/fused_shard_rkc.py::extent_rings).
@@ -580,14 +597,18 @@ int rkc_chunk_info(int* out) {
   return 0;
 }
 
-// The chunked scheme for the families of any shape (FamilyRhs: K2's
-// NEW_FAMILIES, unforced, on the periodic grid): the chunks, tiles, slots,
-// grid barriers and partial sums of fused_rkc_chunk_kernel, with every
-// variable of y0 and F0 in shared memory, every variable of Yj-1 and Yj-2
-// in the registers of the point's thread, and two shared planes of Yj-1
-// for each diffusing variable, which the stencil reads; `work` holds F0 and
-// the two (Yj-1, Yj-2) sets in turns, every variable each (5 NV planes).
-// The squared errors are added variable by variable.
+// The chunked scheme for the families of any shape (FamilyRhs: the
+// NEW_FAMILIES, unforced; K2 on the periodic grid, K9 on a shard's block
+// in its halo, the grid policy a template parameter as the base kernel's):
+// the chunks, tiles (on a shard, each chunk's over the block grown by the
+// evaluations still to come), slots, grid barriers and partial sums of
+// fused_rkc_chunk_kernel, with every variable of y0 and F0 in shared
+// memory, every variable of Yj-1 and Yj-2 in the registers of the point's
+// thread, and two shared planes of Yj-1 for each diffusing variable, which
+// the stencil reads; `work` holds F0 and the two (Yj-1, Yj-2) sets in
+// turns, every variable each (5 NV planes of the grid's or the buffer's
+// layout). The squared errors are added variable by variable, a
+// mirror-pad cell's as +0.0, each sum tile in the base kernel's order.
 template <int Kin>
 struct RkcFamilyPlan {
   static constexpr int kNv = Family<Kin>::kNv;
@@ -601,7 +622,7 @@ struct RkcFamilyPlan {
   }
 };
 
-template <int Kin, typename T>
+template <int Kin, class Grid, typename T>
 __global__ void __launch_bounds__(kRkcThreads, (kRkcMinBlocks<T>))
     fused_rkc_chunk_n_kernel(const T* __restrict__ y, T* __restrict__ y_new,
                              T* __restrict__ ss, T* work,
@@ -610,11 +631,15 @@ __global__ void __launch_bounds__(kRkcThreads, (kRkcMinBlocks<T>))
                              const int* __restrict__ s_ptr,
                              const T* __restrict__ mu1_tab,
                              const T* __restrict__ ctab, int s_cap,
-                             FamilyRhs<Kin, T> rhs, WrapGrid grid,
+                             FamilyRhs<Kin, T> rhs, Grid grid,
                              RkcPlan plan, T rtol, T atol) {
   using Fam = Family<Kin>;
   using Reg = RkcRegion;
-  using Origin = ChunkOrigin<WrapGrid>;
+  using Origin = ChunkOrigin<Grid>;
+  // a shard's block: each chunk's tiles over its own extent, the partial
+  // sums over the plan's sum tiles; the periodic grid's chunks share the
+  // plan's tiles, each its own sum tile
+  constexpr bool kShard = std::is_same<Grid, HaloGrid>::value;
   constexpr int NV = Fam::kNv;
   constexpr int ND = Fam::kNd;
   constexpr int W = Reg::kW;
@@ -637,16 +662,18 @@ __global__ void __launch_bounds__(kRkcThreads, (kRkcMinBlocks<T>))
   T* const rowc = colc + 3 * W;
   cg::grid_group gridg = cg::this_grid();
 
-  const auto tiles = [&](int& tiles_x) {
-    tiles_x = (plan.nx + kTile - 1) / kTile;
-    return tiles_x * ((plan.ny + kTile - 1) / kTile);
+  // the tiles over the plan's extent grown by `rings`: their count, a row
+  // of them in tiles_x
+  const auto tiles = [&](int rings, int& tiles_x) {
+    tiles_x = (plan.nx + 2 * rings + kTile - 1) / kTile;
+    return tiles_x * ((plan.ny + 2 * rings + kTile - 1) / kTile);
   };
   const int s = *s_ptr;
   const size_t plane = grid.plane();
   if (s < 2 || s > s_cap) {
     // no table row for this stage count: keep y, poison the error sums
     int tiles_x;
-    const int n_tiles = tiles(tiles_x);
+    const int n_tiles = tiles(0, tiles_x);
     for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
       const int ty0 = t / tiles_x;
       const Origin o(grid, ty0 * kTile, (t - ty0 * tiles_x) * kTile, 0);
@@ -677,18 +704,20 @@ __global__ void __launch_bounds__(kRkcThreads, (kRkcMinBlocks<T>))
   const int n_chunks = (n_evals + kChunk - 1) / kChunk;
   T* const f0buf = work;               // F0 on the grid, after chunk 0
   int tiles_x;
-  const int n_tiles = tiles(tiles_x);
+  int n_tiles = tiles(0, tiles_x);
   for (int c = 0; c < n_chunks; ++c) {
     if (c > 0) gridg.sync();
     const int e0 = c * n_evals / n_chunks;
     const int e1 = (c + 1) * n_evals / n_chunks;
     const int off = kChunk - (e1 - e0);   // the region's unused rings
+    const int rings = extent_rings<Grid>(n_evals, e1);
+    if constexpr (kShard) n_tiles = tiles(rings, tiles_x);
     // the sets (Ye, Ye-1) a chunk hands on, every variable each, in turns
     const T* const rd = work + (NV + 2 * NV * ((c + 1) & 1)) * plane;
     T* const wr = work + (NV + 2 * NV * (c & 1)) * plane;
     for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
       const int ty0 = t / tiles_x, tx0 = t - ty0 * tiles_x;
-      const Origin o(grid, ty0 * kTile, tx0 * kTile, 0);
+      const Origin o(grid, ty0 * kTile - rings, tx0 * kTile - rings, rings);
       const auto chunk = [&](auto inner) {
         constexpr bool kIn = decltype(inner)::value;
         // f(x) at local point p (row ly, column lx) on the staged
@@ -812,6 +841,7 @@ __global__ void __launch_bounds__(kRkcThreads, (kRkcMinBlocks<T>))
               for (int v = 0; v < NV; ++v) x[v] = yc[v][m];
               f(turn, x, p, ly, lx, f1);
               const size_t g = o.template at<kIn>(ly, lx);
+              const bool counted = o.counted(ly, lx);   // not a pad cell
 #pragma unroll
               for (int v = 0; v < NV; ++v) {
                 const T x0 = y0s[v * PS + p];
@@ -819,7 +849,7 @@ __global__ void __launch_bounds__(kRkcThreads, (kRkcMinBlocks<T>))
                 const T est = T(0.8) * (x0 - x[v])
                               + h04 * (f0s[v * PS + p] + f1[v]);
                 const T w = est * (T(1) / (rtol * fabs(x0) + atol));
-                e2[v][q] = w * w;
+                e2[v][q] = counted ? w * w : T(0);
               }
             }
           }
@@ -827,13 +857,35 @@ __global__ void __launch_bounds__(kRkcThreads, (kRkcMinBlocks<T>))
           __syncthreads();
         }
         if (e1 == n_evals) {
-          // the tile's partial sum in the one-pass kernels' order: thread t
-          // adds the points t, t + kRkcThreads, ..., variable by variable
-          T acc = T(0);
-          for (int q = threadIdx.x; q < kTile * kTile; q += kRkcThreads)
+          // the sum tiles of this tile (the extent is the plan's here), each
+          // in the one-pass kernels' order: thread t adds the points t,
+          // t + kRkcThreads, ... of the sum tile, variable by variable
+          if constexpr (!kShard) {
+            // the tile is its own sum tile
+            T acc = T(0);
+            for (int q = threadIdx.x; q < kTile * kTile; q += kRkcThreads)
 #pragma unroll
-            for (int v = 0; v < NV; ++v) acc = acc + e2[v][q];
-          store_tile_sum(acc, warp_sums, ss + ty0 * plan.sum_tiles_x + tx0);
+              for (int v = 0; v < NV; ++v) acc = acc + e2[v][q];
+            store_tile_sum(acc, warp_sums,
+                           ss + ty0 * plan.sum_tiles_x + tx0);
+            return;
+          }
+          const int gy0 = ty0 * kTile, gx0 = tx0 * kTile;
+          const int sx = plan.sum_tx, sy = plan.sum_ty;
+          for (int y1 = 0; y1 < kTile && gy0 + y1 < plan.ny; y1 += sy) {
+            for (int x1 = 0; x1 < kTile && gx0 + x1 < plan.nx; x1 += sx) {
+              T acc = T(0);
+              for (int q = threadIdx.x; q < sx * sy; q += kRkcThreads) {
+                const int qy = q / sx;
+                const int i = (y1 + qy) * kTile + x1 + q - qy * sx;
+#pragma unroll
+                for (int v = 0; v < NV; ++v) acc = acc + e2[v][i];
+              }
+              store_tile_sum(acc, warp_sums,
+                             ss + ((gy0 + y1) / sy) * plan.sum_tiles_x
+                                 + (gx0 + x1) / sx);
+            }
+          }
           return;
         }
         // hand the tile's (Ye1, Ye1-1), and after chunk 0 F0, to the next
@@ -861,19 +913,22 @@ __global__ void __launch_bounds__(kRkcThreads, (kRkcMinBlocks<T>))
   }
 }
 
-// One step of fused_rkc_chunk_n_kernel<Kin, T> on `stream`, a cooperative
-// launch as launch_rkc_chunk's; returns the CUDA error code.
-template <int Kin, typename T>
-int launch_rkc_chunk_n(FamilyRhs<Kin, T> rhs, WrapGrid grid, RkcPlan plan,
+// One step of fused_rkc_chunk_n_kernel<Kin, Grid, T> on `stream`, a
+// cooperative launch as launch_rkc_chunk's; returns the CUDA error code.
+template <int Kin, class Grid, typename T>
+int launch_rkc_chunk_n(FamilyRhs<Kin, T> rhs, Grid grid, RkcPlan plan,
                        int max_tiles, const void* y, void* y_new, void* ss,
                        void* work, const void* h, const void* fz,
                        const void* s, const void* mu1_tab, const void* ctab,
                        int s_cap, double rtol, double atol, void* stream) {
+  // the periodic grid's sum tiles are its tiles
+  const bool own_sums = plan.sum_tx == kRkcTile && plan.sum_ty == kRkcTile;
   if (s_cap < 2 || s_cap > kRkcMaxStages || plan.ny < 1 || plan.nx < 1
-      || plan.sum_tx != kRkcTile || plan.sum_ty != kRkcTile
-      || max_tiles < 1)
+      || plan.sum_tx < 1 || plan.sum_ty < 1 || kRkcTile % plan.sum_tx != 0
+      || kRkcTile % plan.sum_ty != 0 || max_tiles < 1
+      || (!std::is_same<Grid, HaloGrid>::value && !own_sums))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = &fused_rkc_chunk_n_kernel<Kin, T>;
+  auto kernel = &fused_rkc_chunk_n_kernel<Kin, Grid, T>;
   constexpr size_t smem = RkcFamilyPlan<Kin>::template smem<T>();
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -899,10 +954,10 @@ int launch_rkc_chunk_n(FamilyRhs<Kin, T> rhs, WrapGrid grid, RkcPlan plan,
                             kRkcThreads);
 }
 
-// rkc_chunk_info of fused_rkc_chunk_n_kernel<Kin, T>
-template <int Kin, typename T>
+// rkc_chunk_info of fused_rkc_chunk_n_kernel<Kin, Grid, T>
+template <int Kin, class Grid, typename T>
 int rkc_chunk_n_info(int* out) {
-  auto kernel = &fused_rkc_chunk_n_kernel<Kin, T>;
+  auto kernel = &fused_rkc_chunk_n_kernel<Kin, Grid, T>;
   constexpr size_t smem = RkcFamilyPlan<Kin>::template smem<T>();
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncSetAttribute(

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (csrc/*.cu).
 
-At first use, one nvcc per source compiles the kernels in parallel, and a
-last nvcc links them into one shared library with a plain C interface,
+At first use, one nvcc per source compiles the kernels in parallel (as
+many at once as the machine has CPUs, build_jobs), and a last nvcc links
+them into one shared library with a plain C interface,
 crdmodel_tpu_torch/_build/<hash of the sources, headers and flags>/
 libcrdtorch.so; ctypes loads it. Each compile's output, with ptxas's
 registers, shared memory and spills of every kernel (-Xptxas -v), stays
@@ -11,6 +12,7 @@ import, so the package imports on machines without CUDA.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -42,8 +44,8 @@ _INTP = ctypes.POINTER(ctypes.c_int)
 # fused_box3d_rkc.cu, fused_shard_step.cu, fused_shard_rkc.cu,
 # fused_shard_imex.cu, fused_shard_divform.cu, fused_shard_box3d.cu,
 # fused_shard_box3d_rkc.cu, fused_kstep.cu; the box launchers' forced
-# instantiations are compiled apart, in csrc/*_forced.cu, and K1's, K2's
-# and K3's for the six families beyond the base three in
+# instantiations are compiled apart, in csrc/*_forced.cu, and K1's, K2's,
+# K3's, K8's, K9's and K10's for the six families beyond the base three in
 # csrc/*_families.cu)
 # the structured forcing of K1-K4 and K8-K11 after fz: amps, rows, cols;
 # n_stim, n_cols, var1 (ops/kernel_common.py::StimConstants.launch_args)
@@ -153,6 +155,14 @@ SIGNATURES = {
     "crd_fused_rkc_step_families_f64": _FUSED_RKC_ARGTYPES,
     "crd_fused_imex_step_families_f32": _FUSED_IMEX_ARGTYPES,
     "crd_fused_imex_step_families_f64": _FUSED_IMEX_ARGTYPES,
+    # K8, K9 and K10 for them (csrc/fused_shard_*_families.cu): the base
+    # launchers' arguments
+    "crd_fused_shard_step_families_f32": _FUSED_SHARD_STEP_ARGTYPES,
+    "crd_fused_shard_step_families_f64": _FUSED_SHARD_STEP_ARGTYPES,
+    "crd_fused_shard_rkc_step_families_f32": _FUSED_SHARD_RKC_ARGTYPES,
+    "crd_fused_shard_rkc_step_families_f64": _FUSED_SHARD_RKC_ARGTYPES,
+    "crd_fused_shard_imex_step_families_f32": _FUSED_SHARD_IMEX_ARGTYPES,
+    "crd_fused_shard_imex_step_families_f64": _FUSED_SHARD_IMEX_ARGTYPES,
     # (f64, kinetics, n_stages, tile_y, out[3]), (f64, divform, kinetics,
     # out[3]), (f64, kinetics, out[3]), (f64, kinetics, tile_y, out[3]) and
     # (f64, mode, kinetics, out[3]): a kernel's blocks an SM, registers,
@@ -177,6 +187,10 @@ SIGNATURES = {
     "crd_fused_erk_step_families_info": [_INT] * 2 + [_INTP],
     "crd_fused_rkc_families_info": [_INT] * 2 + [_INTP],
     "crd_fused_imex_families_info": [_INT] * 3 + [_INTP],
+    # (f64, kinetics, out[3]) each: the families' K8 (bs32), K9 and K10
+    "crd_fused_shard_step_families_info": [_INT] * 2 + [_INTP],
+    "crd_fused_shard_rkc_families_info": [_INT] * 2 + [_INTP],
+    "crd_fused_shard_imex_families_info": [_INT] * 2 + [_INTP],
 }
 
 
@@ -206,6 +220,14 @@ def _out_dir() -> str:
     return os.path.join(BUILD_DIR, digest.hexdigest()[:16])
 
 
+def build_jobs() -> int:
+    """The nvcc processes the build runs at once: one a CPU this process
+    may use. More only share the CPUs, and the build takes longer
+    (scripts/build_times.py --jobs times it at other counts)."""
+    return len(os.sched_getaffinity(0)) if hasattr(
+        os, "sched_getaffinity") else (os.cpu_count() or 1)
+
+
 def library_path() -> str:
     """Build the library if this version of the sources has not been built
     yet; return its path. Raises RuntimeError with nvcc's output on failure."""
@@ -222,11 +244,13 @@ def library_path() -> str:
                    for src in cus]
         compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
                     for src, obj in zip(cus, objects)]
-        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for cmd in compiles]
-        outputs = [proc.communicate()[0] for proc in procs]   # all finish
-        for cmd, proc, output in zip(compiles, procs, outputs):
+        with concurrent.futures.ThreadPoolExecutor(build_jobs()) as pool:
+            procs = list(pool.map(
+                lambda cmd: subprocess.run(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True), compiles))
+        for cmd, proc in zip(compiles, procs):
+            output = proc.stdout
             _check_nvcc(cmd, proc.returncode, output)
             with open(os.path.join(out_dir, os.path.basename(cmd[-1])
                                    + ".log"), "w") as fh:

@@ -99,11 +99,9 @@ CHUNK = 6
 CHUNK_TILE = 32
 CHUNK_THREADS = 512
 CHUNK_PLANES = 6
-# the scratch planes a launch hands its chunks through: F0 and two
-# (Y_{j-1}, Y_{j-2}) pairs in turns, of every variable: 5 a variable, 10
-# for the base families' two (and K9's)
+# the scratch planes a launch (K2, K9) hands its chunks through: F0 and
+# two (Y_{j-1}, Y_{j-2}) pairs in turns, of every variable: 5 a variable
 SCRATCH_PLANES_PER_VAR = 5
-SCRATCH_PLANES = 2 * SCRATCH_PLANES_PER_VAR
 
 
 def is_rkc_supported(problem, dtype) -> bool:

@@ -10,7 +10,10 @@ squared WRMS-scaled error plus (1/NEWTON_TOL)^2 times the squared scaled
 last Newton updates, both over the shard's PHYSICAL cells
 (csrc/fused_shard_imex.cu on csrc/imex_slots.cuh: 512 threads fixed to
 a 32x32 tile and its Newton rings, a point's pointwise state in its
-thread's registers, the partial sums in K3's 256-thread order). The
+thread's registers, the partial sums in K3's 256-thread order; the six
+kinetics families beyond the base three unforced in
+csrc/fused_shard_imex_families.cu on the same scheme, SIR's Newton 3x3,
+kernel_common.launcher_symbol). The
 adaptive loop adds every shard's sums in a fixed order
 (parallel/sharded.py::make_reduce), so the Newton convergence test rides
 the same cross-shard sum as the error, and every shard takes the same
@@ -24,7 +27,7 @@ steps.
   build_fused_shard_imex           a sharded problem's step_err on top of it
 
 The state layout is K8's (ops/fused_shard_step.py): halo-padded buffers
-(2, nyl + 2 HALO, nxl + 2 HALO), the block at [HALO, HALO + nyl) x
+(nvars, nyl + 2 HALO, nxl + 2 HALO), the block at [HALO, HALO + nyl) x
 [HALO, HALO + nxl), with the JAX kernels' mirror-pad semantics on a mesh
 that does not divide the grid. K3's 4 explicit stencils consume 4 rings a
 step, so 4 would do; HALO stays 8, the JAX package's, so that the kernel
@@ -52,11 +55,15 @@ from crdmodel_tpu_torch.ops.fused_shard_step import (FusedShardStep,
                                                      build_shard_stepper,
                                                      check_shard_constants,
                                                      interior)
-from crdmodel_tpu_torch.ops.kernel_common import (ShardConstants,
+from crdmodel_tpu_torch.ops.kernel_common import (BASE_IDS,
+                                                  ShardConstants,
                                                   check_shard_stim,
+                                                  check_state,
                                                   check_tensor,
                                                   fused_forcing,
+                                                  kernel_families,
                                                   kernel_ready_kinetics,
+                                                  launcher_symbol,
                                                   make_shard_constants,
                                                   needs_divform,
                                                   prepare_shard_stim_constants,
@@ -70,16 +77,17 @@ def is_shard_imex_supported(problem, dtype, nyl: int, nxl: int) -> bool:
     without the TPU strip rule: f32, a local block at least HALO deep on
     both axes; plus the port's rules of K3 (ops/fused_imex.py::
     is_imex_supported): the profile operator (theta-only torus fields
-    through its remap), kinetics with a device function. A structured
-    forcing is taken (kernel_common.fused_forcing not False), a free-form
-    one declines."""
+    through its remap), kinetics with a device function (kernel_common.
+    kernel_ready_kinetics over kernel_families: all nine families
+    unforced, the base three forced). A structured forcing is taken
+    (kernel_common.fused_forcing not False), a free-form one declines."""
     if needs_divform(problem) or problem.diffusion_tensor is not None:
         return False
     if problem.geometry.kind == "box" or fused_forcing(problem) is False:
         return False
     if dtype != torch.float32 or nyl < HALO or nxl < HALO:
         return False
-    return kernel_ready_kinetics(problem)
+    return kernel_ready_kinetics(problem, kernel_families(problem))
 
 
 def fused_shard_imex_step_reference(yp, h, fz, sc: ShardConstants,
@@ -103,13 +111,15 @@ def fused_shard_imex_step_reference(yp, h, fz, sc: ShardConstants,
                                  yp[cells], rtol, atol)
 
 
-def slots_plan(itemsize: int):
+def slots_plan(itemsize: int, nvars: int = 2, ndiff: int = 1):
     """(region, slots, shared bytes) of K10's blocks in a dtype of
-    `itemsize` bytes: K3's 32x32 plan (fused_imex.slots_plan), the
-    TILE-square tile with RINGS rings (`region` its side); 512 threads,
-    each on two tile points and at most one point of the Newton's RINGS -
-    1 inner rings (`slots` = 3); fused_imex.slots_bytes's shared memory."""
-    return TILE + 2 * RINGS, 3, slots_bytes(TILE, itemsize)
+    `itemsize` bytes for a family of nvars variables, ndiff of them
+    diffusing: K3's 32x32 plan (fused_imex.slots_plan), the TILE-square
+    tile with RINGS rings (`region` its side); 512 threads, each on two
+    tile points and at most one point of the Newton's RINGS - 1 inner
+    rings (`slots` = 3); fused_imex.slots_bytes's shared memory."""
+    return (TILE + 2 * RINGS, 3,
+            slots_bytes(TILE, itemsize, nvars, ndiff))
 
 
 def fused_shard_imex_tile_sums(yp, h, fz, sc: ShardConstants, rtol: float,
@@ -131,6 +141,9 @@ def kernel_info(dtype, kinetics_id: int) -> dict:
     resident blocks an SM, registers a thread and shared bytes a block."""
     from crdmodel_tpu_torch.ops._build import kernel_info as query
     f64 = int(torch.empty((), dtype=dtype).element_size() == 8)
+    if kinetics_id not in BASE_IDS:
+        # the families' kernel (csrc/fused_shard_imex_families.cu)
+        return query("crd_fused_shard_imex_families_info", f64, kinetics_id)
     return query("crd_fused_shard_imex_info", f64, kinetics_id)
 
 
@@ -138,8 +151,8 @@ def fused_shard_imex_step(yp, h, fz, sc: ShardConstants, rtol: float,
                           atol: float, stim=None, amps=None):
     """One fused IMEX step on one shard: (y_new, ss partials (n_blocks,)).
 
-    yp is the shard's halo-padded buffer (2, nyl + 2P, nxl + 2P) with its
-    halo filled, P >= 4; h and fz are 0-d tensors on its device. Only the
+    yp is the shard's halo-padded buffer (nvars, nyl + 2P, nxl + 2P) with
+    its halo filled, P >= 4; h and fz are 0-d tensors on its device. Only the
     block of y_new is written. stim, amps: the shard's StimConstants
     (prepare_shard_stim_constants) and the step's (n_stim, STAGES)
     amplitudes of the explicit stages on its device, or None (the unforced
@@ -157,9 +170,7 @@ def fused_shard_imex_step(yp, h, fz, sc: ShardConstants, rtol: float,
     if sc.kind not in ("torus", "flat"):
         raise ValueError(f"the shard IMEX kernel takes profile constants, "
                          f"not {sc.kind!r}")
-    if yp.dim() != 3 or yp.shape[0] != 2:
-        raise ValueError(f"yp must be (2, nyl+2P, nxl+2P), got "
-                         f"{tuple(yp.shape)}")
+    check_state(yp, sc)
     p = sc.halo
     nyl, nxl = yp.shape[1] - 2 * p, yp.shape[2] - 2 * p
     if p < imex.STAGES or nyl < p or nxl < p:
@@ -181,8 +192,8 @@ def fused_shard_imex_step(yp, h, fz, sc: ShardConstants, rtol: float,
     y_new = torch.empty_like(yp)
     ss = torch.empty(n_blocks, dtype=dtype, device=device)
     ae, ai, b, d = _table()
-    launch = (lib.crd_fused_shard_imex_step_f32 if dtype == torch.float32
-              else lib.crd_fused_shard_imex_step_f64)
+    launch = getattr(lib, launcher_symbol("crd_fused_shard_imex_step", sc)
+                     + ("_f32" if dtype == torch.float32 else "_f64"))
     # the CUDA runtime launches on the current device: make it the shard's
     with torch.cuda.device(device):
         rc = launch(yp.data_ptr(), y_new.data_ptr(), ss.data_ptr(),

@@ -7,7 +7,9 @@ P_RKC = 24 a step fills the halo of every shard's buffer
 Chebyshev stages, y_new and partial sums of squared WRMS-scaled errors
 over the shard's PHYSICAL cells (csrc/fused_shard_rkc.cu, on K2's kernel
 csrc/rkc_chunk.cuh: the s + 1 evaluations in chunks of at most CHUNK, a
-grid barrier between them). The exchange's P_RKC >= s + 1 rings hold the
+grid barrier between them; the six kinetics families beyond the base three
+unforced in csrc/fused_shard_rkc_families.cu on the same scheme,
+kernel_common.launcher_symbol). The exchange's P_RKC >= s + 1 rings hold the
 block's cone of dependence for the whole step, so the chunks exchange
 nothing: chunk c's tiles cover the block grown by the evaluations still to
 come (extent_rings), and the rings beyond go wrong from the buffer's edge
@@ -52,7 +54,8 @@ import torch
 from crdmodel_tpu_torch.integrate import rkc
 from crdmodel_tpu_torch.ops.fused_kstep import tile_error_sums
 from crdmodel_tpu_torch.ops.fused_rkc import (CHUNK, CHUNK_THREADS,
-                                              S_MAX_KERNEL, SCRATCH_PLANES,
+                                              S_MAX_KERNEL,
+                                              SCRATCH_PLANES_PER_VAR,
                                               check_stage_tables,
                                               chunk_schedule, rkc_forcing,
                                               rkc_stages_reference,
@@ -63,12 +66,16 @@ from crdmodel_tpu_torch.ops.fused_shard_step import (check_shard_constants,
                                                      interior,
                                                      masked_error_sum,
                                                      shard_buffers)
-from crdmodel_tpu_torch.ops.kernel_common import (ShardConstants,
+from crdmodel_tpu_torch.ops.kernel_common import (BASE_IDS,
+                                                  ShardConstants,
                                                   check_shard_stim,
+                                                  check_state,
                                                   check_tensor,
                                                   freeze_scalar,
                                                   fused_forcing,
+                                                  kernel_families,
                                                   kernel_ready_kinetics,
+                                                  launcher_symbol,
                                                   make_rhs_block,
                                                   make_shard_constants,
                                                   needs_divform,
@@ -85,9 +92,11 @@ def is_shard_rkc_supported(problem, dtype, nyl: int, nxl: int) -> bool:
     without the TPU strip rules: f32, a local block at least P_RKC deep on
     both axes, a kinetics Jacobian bound; plus the port's rules of K2's
     profile branch (ops/fused_rkc.py::is_rkc_supported): the profile
-    operator, kinetics with a device function. A structured forcing is
-    taken, gated and smooth (kernel_common.fused_forcing not False, as the
-    JAX gate's :54-57), a free-form one declines."""
+    operator, kinetics with a device function (kernel_common.
+    kernel_ready_kinetics over kernel_families: all nine families
+    unforced, the base three forced). A structured forcing is taken, gated
+    and smooth (kernel_common.fused_forcing not False, as the JAX gate's
+    :54-57), a free-form one declines."""
     if fused_forcing(problem) is False or dtype != torch.float32:
         return False
     if nyl < P_RKC or nxl < P_RKC:
@@ -96,7 +105,7 @@ def is_shard_rkc_supported(problem, dtype, nyl: int, nxl: int) -> bool:
         return False
     if problem.geometry.kind == "box" or problem.model.jac_bound is None:
         return False
-    return kernel_ready_kinetics(problem)
+    return kernel_ready_kinetics(problem, kernel_families(problem))
 
 
 def extent_rings(s: int, depth: int = CHUNK):
@@ -111,8 +120,9 @@ def extent_rings(s: int, depth: int = CHUNK):
 def sum_tiles(s_cap: int, itemsize: int):
     """(tile_x, tile_y) of K9's partial sums: the tiles of the one-pass
     kernel the step first ran on (fused_rkc.tile_plan with s_cap + 1
-    rings), anchored at the block's first cell; 32x32 in f32 and 16x8 in
-    f64 at s_cap = S_MAX_KERNEL."""
+    rings, two variables' planes), anchored at the block's first cell,
+    whatever the family; 32x32 in f32 and 16x8 in f64 at s_cap =
+    S_MAX_KERNEL."""
     tile_x, tile_y, _ = tile_plan(s_cap + 1, itemsize)
     return tile_x, tile_y
 
@@ -166,6 +176,9 @@ def kernel_info(dtype, kinetics_id: int) -> dict:
     resident blocks an SM, registers a thread and shared bytes a block."""
     from crdmodel_tpu_torch.ops._build import kernel_info as query
     f64 = int(torch.empty((), dtype=dtype).element_size() == 8)
+    if kinetics_id not in BASE_IDS:
+        # the families' kernel (csrc/fused_shard_rkc_families.cu)
+        return query("crd_fused_shard_rkc_families_info", f64, kinetics_id)
     return query("crd_fused_shard_rkc_info", f64, kinetics_id)
 
 
@@ -175,8 +188,8 @@ def fused_shard_rkc_step(yp, h, fz, s, mu1_tab, ctab_tab,
     """One fused RKC2 step on one shard: (y_new, ss partials, one a sum
     tile of the block (sum_tiles)).
 
-    yp is the shard's halo-padded buffer (2, nyl + 2P, nxl + 2P) with its
-    halo filled, P >= s_cap + 1; h and fz 0-d tensors in its dtype, s a 0-d
+    yp is the shard's halo-padded buffer (nvars, nyl + 2P, nxl + 2P) with
+    its halo filled, P >= s_cap + 1; h and fz 0-d tensors in its dtype, s a 0-d
     int32 tensor, and mu1_tab/ctab_tab the static_stage_tables of some
     s_cap <= S_MAX_KERNEL, all on its device. Only the block of y_new is
     written; an s outside [2, s_cap] gives NaN partial sums (a rejected
@@ -198,9 +211,7 @@ def fused_shard_rkc_step(yp, h, fz, s, mu1_tab, ctab_tab,
     if sc.kind not in ("torus", "flat"):
         raise ValueError(f"the shard RKC kernel takes profile constants, not "
                          f"{sc.kind!r}")
-    if yp.dim() != 3 or yp.shape[0] != 2:
-        raise ValueError(f"yp must be (2, nyl+2P, nxl+2P), got "
-                         f"{tuple(yp.shape)}")
+    check_state(yp, sc)
     p = sc.halo
     nyl, nxl = yp.shape[1] - 2 * p, yp.shape[2] - 2 * p
     s_cap = check_stage_tables(mu1_tab, ctab_tab, dtype, device)
@@ -223,11 +234,12 @@ def fused_shard_rkc_step(yp, h, fz, s, mu1_tab, ctab_tab,
     y_new = torch.empty_like(yp)
     ss = torch.empty(-(-nxl // tile_x) * -(-nyl // tile_y), dtype=dtype,
                      device=device)
-    # the chunks' hand-off (F0 and two pairs in turns), on the shard's device
-    work = torch.empty((SCRATCH_PLANES, *yp.shape[1:]), dtype=dtype,
-                       device=device)
-    launch = (lib.crd_fused_shard_rkc_step_f32 if dtype == torch.float32
-              else lib.crd_fused_shard_rkc_step_f64)
+    # the chunks' hand-off (F0 and two sets in turns, of every variable), on
+    # the shard's device
+    work = torch.empty((SCRATCH_PLANES_PER_VAR * yp.shape[0],
+                        *yp.shape[1:]), dtype=dtype, device=device)
+    launch = getattr(lib, launcher_symbol("crd_fused_shard_rkc_step", sc)
+                     + ("_f32" if dtype == torch.float32 else "_f64"))
     # the CUDA runtime launches on the current device: make it the shard's
     with torch.cuda.device(device):
         rc = launch(yp.data_ptr(), y_new.data_ptr(), ss.data_ptr(),

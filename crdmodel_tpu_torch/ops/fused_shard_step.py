@@ -4,11 +4,13 @@ of crdmodel_tpu/ops/pallas_shard_step.py).
 K1 (ops/fused_step.py) per shard: one exchange of width HALO a step fills
 the halo of every shard's buffer (parallel/halo.py::refresh_halos), then
 one launch a shard computes every stage of the 5-point profile operator
-with the kinetics, the update, and per-block partial sums of squared
-WRMS-scaled errors over the shard's PHYSICAL cells (csrc/
-fused_shard_step.cu). The adaptive loop adds every shard's sums in a
-fixed order (parallel/sharded.py::make_reduce), so every shard takes the
-same steps.
+on each diffusing variable with the kinetics of any of the nine
+families, the update, and per-block partial sums of squared WRMS-scaled
+errors over the shard's PHYSICAL cells (csrc/fused_shard_step.cu for the
+base three families, fused_shard_step_families.cu for the other six,
+unforced; kernel_common.launcher_symbol). The adaptive loop adds every
+shard's sums in a fixed order (parallel/sharded.py::make_reduce), so every
+shard takes the same steps.
 
   fused_shard_step            the wrapper: launches the CUDA kernel for a
                               CUDA tensor, runs the plain version for a CPU
@@ -57,11 +59,14 @@ from crdmodel_tpu_torch.ops.fused_step import (MAX_STAGES, _stage_arrays,
                                                tile_plan)
 from crdmodel_tpu_torch.ops.kernel_common import (ShardConstants,
                                                   check_shard_stim,
+                                                  check_state,
                                                   check_tensor,
                                                   forcing_of,
                                                   freeze_scalar,
                                                   fused_forcing,
+                                                  kernel_families,
                                                   kernel_ready_kinetics,
+                                                  launcher_symbol,
                                                   make_rhs_block,
                                                   make_shard_constants,
                                                   needs_divform,
@@ -80,9 +85,11 @@ def is_shard_supported(problem, tableau: Tableau, dtype, nyl: int,
     without the TPU strip rule: f32, at most HALO stages, a local block at
     least HALO deep on both axes (a halo never spans two shards); plus the
     port's rules of K1 (ops/fused_step.py::is_supported): the profile
-    operator, kinetics with a device function. A structured forcing is
-    taken (kernel_common.fused_forcing not False, as the JAX gate's
-    :81-83), a free-form one declines."""
+    operator, kinetics with a device function (kernel_common.
+    kernel_ready_kinetics over kernel_families: all nine families
+    unforced, the base three forced). A structured forcing is taken
+    (kernel_common.fused_forcing not False, as the JAX gate's :81-83), a
+    free-form one declines."""
     if needs_divform(problem) or problem.diffusion_tensor is not None:
         return False
     if problem.geometry.kind == "box" or fused_forcing(problem) is False:
@@ -91,7 +98,7 @@ def is_shard_supported(problem, tableau: Tableau, dtype, nyl: int,
         return False
     if nyl < HALO or nxl < HALO:
         return False
-    return kernel_ready_kinetics(problem)
+    return kernel_ready_kinetics(problem, kernel_families(problem))
 
 
 def interior(yp, halo: int):
@@ -136,7 +143,7 @@ def fused_shard_step_tile_sums(yp, h, fz, sc: ShardConstants,
     err = interior(err, sc.halo).clone()
     err[:, sc.valid_rows:] = 0.0
     err[:, :, sc.valid_cols:] = 0.0
-    tile_y = tile_plan(tableau.stages, yp.element_size())[1]
+    tile_y = tile_plan(tableau.stages, yp.element_size(), yp.shape[0])[1]
     return tile_error_sums(err, interior(yp, sc.halo), rtol, atol, tile_y)
 
 
@@ -156,9 +163,9 @@ def fused_shard_step(yp, h, fz, sc: ShardConstants, tableau: Tableau,
                      rtol: float, atol: float, stim=None, amps=None):
     """One fused step on one shard: (y_new, ss partials (n_blocks,)).
 
-    yp is the shard's halo-padded buffer (2, nyl + 2 HALO, nxl + 2 HALO)
-    with its halo filled; h and fz are 0-d tensors on its device. Only the
-    block of y_new is written. stim, amps: the shard's StimConstants
+    yp is the shard's halo-padded buffer (nvars, nyl + 2 HALO, nxl + 2
+    HALO) with its halo filled; h and fz are 0-d tensors on its device.
+    Only the block of y_new is written. stim, amps: the shard's StimConstants
     (prepare_shard_stim_constants) and the step's (n_stim, n_stages)
     amplitudes on its device, or None (the unforced kernel). A CPU tensor
     takes the plain version; a CUDA tensor launches the kernel or raises:
@@ -180,9 +187,7 @@ def fused_shard_step(yp, h, fz, sc: ShardConstants, tableau: Tableau,
     if n > min(p, MAX_STAGES):
         raise ValueError(f"{n} stages; the kernel takes at most "
                          f"min(halo, {MAX_STAGES}) = {min(p, MAX_STAGES)}")
-    if yp.dim() != 3 or yp.shape[0] != 2:
-        raise ValueError(f"yp must be (2, nyl+2P, nxl+2P), got "
-                         f"{tuple(yp.shape)}")
+    check_state(yp, sc)
     nyl, nxl = yp.shape[1] - 2 * p, yp.shape[2] - 2 * p
     if nyl < p or nxl < p:
         raise ValueError(f"block {nyl}x{nxl} shallower than the halo {p}")
@@ -195,13 +200,13 @@ def fused_shard_step(yp, h, fz, sc: ShardConstants, tableau: Tableau,
 
     from crdmodel_tpu_torch.ops._build import load_library
     lib = load_library()
-    tile_x, tile_y, _ = tile_plan(n, yp.element_size())
+    tile_x, tile_y, _ = tile_plan(n, yp.element_size(), yp.shape[0])
     n_blocks = -(-nxl // tile_x) * -(-nyl // tile_y)
     y_new = torch.empty_like(yp)
     ss = torch.empty(n_blocks, dtype=dtype, device=device)
     a, b, d = _stage_arrays(tableau.name)
-    launch = (lib.crd_fused_shard_step_f32 if dtype == torch.float32
-              else lib.crd_fused_shard_step_f64)
+    launch = getattr(lib, launcher_symbol("crd_fused_shard_step", sc)
+                     + ("_f32" if dtype == torch.float32 else "_f64"))
     # the CUDA runtime launches on the current device: make it the shard's
     with torch.cuda.device(device):
         rc = launch(yp.data_ptr(), y_new.data_ptr(), ss.data_ptr(),

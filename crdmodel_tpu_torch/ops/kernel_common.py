@@ -55,8 +55,9 @@ KINETICS_IDS = {"fhn": 0, "goldbeter": 1, "aliev_panfilov": 2,
 # the families every fused kernel takes: two variables, variable 0 alone
 # diffusing at the full coefficient
 BASE_FAMILIES = ("fhn", "goldbeter", "aliev_panfilov")
-# the other six, which K1, K2's profile branch and K3 take unforced
-# (csrc/*_families.cu), each with the shape its compile-time trait has
+# the other six, which K1, K2's profile branch, K3, K8, K9 and K10 take
+# unforced (csrc/*_families.cu), each with the shape its compile-time
+# trait has
 # (csrc/rhs_common.cuh, crd::Family): nvars, the diffusing variables and
 # their ratios
 NEW_FAMILIES = {"barkley": (2, (0,), (1.0,)),
@@ -275,7 +276,8 @@ def kernel_ready_kinetics(problem, families=BASE_FAMILIES) -> bool:
     a family of `families` whose model has its device code's shape: for
     BASE_FAMILIES two variables of which variable 0 alone diffuses at the
     full coefficient, for NEW_FAMILIES their trait's. Every kernel takes
-    BASE_FAMILIES; K1, K2's profile branch and K3 pass kernel_families."""
+    BASE_FAMILIES; K1, K2's profile branch, K3, K8, K9 and K10 pass
+    kernel_families."""
     model = problem.model
     if problem.cfg.just_diffusion or model.name not in families:
         return False
@@ -285,21 +287,23 @@ def kernel_ready_kinetics(problem, families=BASE_FAMILIES) -> bool:
 
 
 def kernel_families(problem) -> tuple:
-    """The families K1, K2's profile branch and K3 take for `problem`: all
-    nine unforced, BASE_FAMILIES with a forcing (the new families'
-    instantiations are unforced)."""
+    """The families K1, K2's profile branch, K3, K8, K9 and K10 take for
+    `problem`: all nine unforced, BASE_FAMILIES with a forcing (the new
+    families' instantiations are unforced)."""
     return BASE_FAMILIES if problem.forcing is not None else ALL_FAMILIES
 
 
 def launcher_symbol(base: str, kc) -> str:
-    """The launcher of K1, K2 or K3 for kc's family: `base` for the
+    """The launcher of K1, K2, K3, K8, K9 or K10 for kc's family (a
+    KernelConstants or a shard's ShardConstants): `base` for the
     BASE_FAMILIES, `base`_families for the NEW_FAMILIES, whose
     instantiations are compiled apart (csrc/*_families.cu)."""
     return base if kc.model.name in BASE_FAMILIES else base + "_families"
 
 
 def check_state(y, kc):
-    """Raise unless y is an (nvars, ny, nx) state of kc's model."""
+    """Raise unless y is an (nvars, ny, nx) state of kc's model (a shard's
+    halo-padded buffer for a ShardConstants)."""
     nv = kc.model.nvars
     if y.dim() != 3 or y.shape[0] != nv:
         raise ValueError(f"y must be ({nv}, ny, nx), got {tuple(y.shape)}")

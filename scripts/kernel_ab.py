@@ -4,7 +4,7 @@ of two trees in turns in one call.
 
     python3 scripts/kernel_ab.py [--tree DIR] [--label NAME] [--runs]
         [--measure all|kstep_rkc|divform|profile|shard_rkc_imex|box|
-                   imex_aniso]
+                   imex_aniso|unforced|families[,...]]
     python3 scripts/kernel_ab.py --compare OTHER_DIR [--runs] [--measure ...]
 
 One tree: imports crdmodel_tpu_torch and chip_smoke.py from DIR (default:
@@ -107,7 +107,14 @@ K13 alike (time_unforced_box): a digest of each launch's y_new
 (a shard kernel's block of it) and partial sums (sha256 of their bytes),
 which the summary holds equal across the two trees
 (`bitwise_across_trees`), and the device time of the f32 launches at fz
-0 (a shard kernel's on shard 0). --measure all (the default) takes the first two. Only the
+0 (a shard kernel's on shard 0). --measure families: K1 (bs32 and
+dopri54), K2 (s = 5 and 23) and K3 of the six kinetics families beyond
+the base three at the JAX soak matrix's shape (800x3200 torus, 2.56M
+points; chip_smoke.py::soak_cfg), from a random state inside each
+family's range (chip_smoke.py::family_state), unfrozen, f32 and f64
+(chip_smoke.py::kin_steps): a digest of each launch's y_new and partial
+sums, and the device time of the f32 launches. --measure all (the
+default) takes the first two; names joined by commas take each. Only the
 wrappers' public signatures are used, so an older tree of the port times
 the same way.
 
@@ -164,27 +171,71 @@ def time_one_tree(tree, label, runs, measure):
          **{f"ptxas_slots_{src}": slots_ptxas(cs, src + ".cu") for src in (
              "fused_divform", "fused_shard_divform", "fused_step",
              "fused_shard_step")})
-    if measure in ("all", "kstep_rkc"):
+    measures = set(measure.split(","))
+    if measures & {"all", "kstep_rkc"}:
         time_kstep_rkc(cs, label, card, runs)
-    if measure in ("all", "divform"):
+    if measures & {"all", "divform"}:
         time_divform(cs, label, card, runs)
-    if measure == "profile":
+    if "profile" in measures:
         time_profile(cs, label, card, runs)
-    if measure == "shard_rkc_imex":
+    if "shard_rkc_imex" in measures:
         time_shard_rkc_imex(cs, label, card, runs)
-    if measure == "box":
+    if "box" in measures:
         time_box(cs, label, card, runs)
-    if measure == "imex_aniso":
+    if "imex_aniso" in measures:
         time_imex_aniso(cs, label, card, runs)
-    if measure == "unforced":
+    if "unforced" in measures:
         time_unforced(cs, label, card)
+    if "families" in measures:
+        time_families(cs, label, card)
+
+
+def digest_of(y_new, ss):
+    """sha256 of a launch's y_new and partial sums, after the launch."""
+    import hashlib
+
+    import torch
+    torch.cuda.synchronize()
+    return hashlib.sha256(y_new.cpu().numpy().tobytes()
+                          + ss.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def time_families(cs, label, card):
+    """--measure families: the six families' K1 (bs32, dopri54), K2 (s = 5,
+    23) and K3 launches at the soak shape, a digest of each and (f32) its
+    device time."""
+    import numpy as np
+    import torch
+
+    from crdmodel_tpu_torch.core.problem import build_problem
+    from crdmodel_tpu_torch.ops.kernel_common import prepare_constants
+
+    runs = (("bs32", None), ("dopri54", None), ("rkc2", 5), ("rkc2", 23),
+            ("ark324", None))
+    for model in cs.KIN_FAMILIES:
+        problem = build_problem(cs.soak_cfg(model, "bs32"), device="cuda")
+        y_np = cs.family_state(model, tuple(problem.y0.shape),
+                               np.random.default_rng(cs.SEED))
+        for dtype in (torch.float32, torch.float64):
+            kc = prepare_constants(problem, dtype, "cuda")
+            y = torch.tensor(y_np, dtype=dtype, device="cuda")
+            rho = cs.problem_rho(problem, y)
+            for method, s_val in runs:
+                call, _, _, args, tag = cs.kin_steps(kc, y, rho, method,
+                                                     s_val)
+                fields = {}
+                if dtype == torch.float32:
+                    fields["device_us"] = cs.device_ms(
+                        lambda: call(*args), tag) * 1e3
+                emit(label, "families",
+                     case=f"{model}/{method}/s{s_val}/{dtype}",
+                     digest=digest_of(*call(*args)), **fields, card=card)
+        del problem
 
 
 def time_unforced(cs, label, card):
     """--measure unforced: K1-K4 and K8-K11 without a forcing, a digest and
     (f32, fz 0) the device time of each launch."""
-    import hashlib
-
     import numpy as np
     import torch
 
@@ -196,10 +247,7 @@ def time_unforced(cs, label, card):
     from crdmodel_tpu_torch.ops.kernel_common import (
         prepare_constants, prepare_divform_constants)
 
-    def digest(y_new, ss):
-        torch.cuda.synchronize()
-        return hashlib.sha256(y_new.cpu().numpy().tobytes()
-                              + ss.cpu().numpy().tobytes()).hexdigest()[:16]
+    digest = digest_of
 
     def state(cfg, problem, seed):
         return cs.random_state(cfg, tuple(problem.y0.shape),
@@ -1329,11 +1377,15 @@ def main():
     ap.add_argument("--label", default="this")
     ap.add_argument("--compare", metavar="OTHER_DIR")
     ap.add_argument("--runs", action="store_true")
+    names = ("all", "kstep_rkc", "divform", "profile", "shard_rkc_imex",
+             "box", "imex_aniso", "unforced", "families")
     ap.add_argument("--measure", default="all",
-                    choices=("all", "kstep_rkc", "divform", "profile",
-                             "shard_rkc_imex", "box", "imex_aniso",
-                             "unforced"))
+                    help="one of " + ", ".join(names)
+                    + "; several joined by commas")
     args = ap.parse_args()
+    unknown = set(args.measure.split(",")) - set(names)
+    if unknown:
+        ap.error(f"unknown --measure {sorted(unknown)}")
     if args.compare:
         compare(os.path.abspath(args.compare), args.runs, args.measure)
     else:

@@ -144,10 +144,11 @@ def _gate_problems(model, **build):
 
 @pytest.mark.parametrize("model", FAMILIES + ["fhn"])
 def test_kernel_gates(model):
-    """K1, K2's profile branch and K3 take the new families unforced; K4,
-    K5, K6, K7, K8-K11, K14 and K2's divergence branch decline them (each
-    gate's other rules met, as the FitzHugh–Nagumo case shows: it passes
-    all); with a structured forcing K1, K2 and K3 decline them too."""
+    """K1, K2's profile branch, K3, K8, K9 and K10 take the new families
+    unforced; K4, K5, K6, K7, K11, K14 and K2's divergence branch decline
+    them (each gate's other rules met, as the FitzHugh–Nagumo case shows:
+    it passes all); with a structured forcing K1, K2, K3, K8, K9 and K10
+    decline them too."""
     import dataclasses
 
     from crdmodel_tpu_torch.core.forcing import (SeparableForcing,
@@ -167,11 +168,10 @@ def test_kernel_gates(model):
     assert fused_rkc.is_rkc_supported(flat, f32)
     assert fused_imex.is_imex_supported(flat, f32)
     assert fused_kstep.is_kstep_supported(flat, bs32, f32, 2) != new
-    assert fused_shard_step.is_shard_supported(flat, bs32, f32, 64,
-                                               64) != new
+    assert fused_shard_step.is_shard_supported(flat, bs32, f32, 64, 64)
     for gate in (fused_shard_rkc.is_shard_rkc_supported,
                  fused_shard_imex.is_shard_imex_supported):
-        assert gate(flat, f32, 64, 64) != new
+        assert gate(flat, f32, 64, 64)
     walls = build_problem(dataclasses.replace(flat.cfg, boundary="noflux"),
                           device="cpu")
     assert fused_divform.is_divform_supported(walls, bs32, f32) != new
@@ -193,6 +193,11 @@ def test_kernel_gates(model):
     assert fused_step.is_supported(forced, bs32, f32) != new
     assert fused_rkc.is_rkc_supported(forced, f32) != new
     assert fused_imex.is_imex_supported(forced, f32) != new
+    assert fused_shard_step.is_shard_supported(forced, bs32, f32, 64,
+                                               64) != new
+    for gate in (fused_shard_rkc.is_shard_rkc_supported,
+                 fused_shard_imex.is_shard_imex_supported):
+        assert gate(forced, f32, 64, 64) != new
 
 
 def test_gate_holds_the_model_to_its_trait():
